@@ -1,0 +1,43 @@
+"""Architecture registry of the port: ``get(name)`` full config,
+``smoke(name)`` reduced same-family config, ``sparsify_ffn(cfg, d)``
+the paper's block-sparse FFN applied to a dense config.
+
+The port's first slice covers ``llama3_2_1b`` only.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from repro_torch.models.config import ModelCfg
+
+ARCH_IDS = ["llama3_2_1b"]
+
+ALIASES = {"llama3.2-1b": "llama3_2_1b"}
+
+
+def _module(name: str):
+    mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod not in ARCH_IDS:
+        raise ValueError(f"unknown architecture {name!r}: the port has "
+                         f"{ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get(name: str) -> ModelCfg:
+    return _module(name).make_config()
+
+
+def smoke(name: str) -> ModelCfg:
+    return _module(name).make_smoke_config()
+
+
+def sparsify_ffn(cfg: ModelCfg, density: float) -> ModelCfg:
+    """Every FFN of ``cfg`` made ``"sparse"`` at block density
+    ``density`` (block size ``cfg.ffn_block_size``) -- how the JAX
+    package's serving benchmark builds its sparse arm
+    (``benchmarks/suite.py`` ``_sparsify_ffn``)."""
+    groups = tuple(
+        (tuple(dataclasses.replace(s, ffn="sparse") for s in period), rep)
+        for period, rep in cfg.groups)
+    return dataclasses.replace(cfg, groups=groups, ffn_density=density)

@@ -1,0 +1,105 @@
+"""Static-sparsity partitioner, pattern and value halves (PopSparse §3.2).
+
+``plan_packing`` is the one-time host analysis of a static pattern: which
+``(tm, tk)`` tiles are non-empty and where each logical ``b x b`` block
+lands.  ``pack_values`` is the value half: a scatter of the ``[nnz, b,
+b]`` blocks into the ``[T, tm, tk]`` tile stack in kernel-visit order.
+The metadata arrays equal the JAX package's for the same pattern and tile
+size; the CUDA bsmm kernel walks them with ``tm = tk = b``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.bsr import check_unique_blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class PackingPlan:
+    """Host metadata of a static pattern's tile packing."""
+
+    tile_rows: np.ndarray     # [T] int32, row-major order
+    tile_cols: np.ndarray     # [T] int32
+    block_slot: np.ndarray    # [nnz] tile-stack slot of each logical block
+    in_r: np.ndarray          # [nnz] block row within its tile
+    in_c: np.ndarray          # [nnz] block col within its tile
+    tm: int
+    tk: int
+    grid: Tuple[int, int]     # (Mt, Kt)
+    shape: Tuple[int, int]    # (m, k)
+    block_size: int
+    nnz_blocks: int
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.tile_rows.shape[0])
+
+    @property
+    def occupancy(self) -> float:
+        dense_area = self.num_tiles * self.tm * self.tk
+        nnz_area = self.nnz_blocks * self.block_size ** 2
+        return float(nnz_area) / dense_area if dense_area else 0.0
+
+    def row_ptr(self) -> np.ndarray:
+        """CSR row pointer ``[Mt + 1]`` over the row-sorted tiles: the
+        tiles of row-tile ``r`` are ``row_ptr[r]:row_ptr[r + 1]``."""
+        counts = np.bincount(self.tile_rows, minlength=self.grid[0])
+        return np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+
+
+def plan_packing(row_idx: np.ndarray, col_idx: np.ndarray,
+                 shape: Tuple[int, int], block_size: int,
+                 tm: int = 128, tk: int = 128) -> PackingPlan:
+    """Which tiles exist and where each logical block lands.  Every
+    output row-tile gets at least one tile (a zero tile at column 0 for
+    an empty row), so the walk writes every output block."""
+    m, k = shape
+    b = block_size
+    if tm % b or tk % b:
+        raise ValueError(f"tile ({tm},{tk}) not divisible by block {b}")
+    mt, kt = -(-m // tm), -(-k // tk)
+    rpb, cpb = tm // b, tk // b
+
+    rows = np.asarray(row_idx)
+    cols = np.asarray(col_idx)
+    check_unique_blocks(rows, cols, (-(-m // b), -(-k // b)))
+    t_r, t_c = rows // rpb, cols // cpb
+    lin = t_r * kt + t_c
+    uniq = np.unique(lin)
+    present_rows = set((uniq // kt).tolist())
+    pad = np.asarray([r * kt for r in range(mt) if r not in present_rows],
+                     dtype=uniq.dtype)
+    uniq = np.sort(np.concatenate([uniq, pad]))
+    # slot of each block's tile: uniq is sorted, so a binary search gives
+    # the same map as a dict over its entries
+    slots = np.searchsorted(uniq, lin)
+
+    return PackingPlan(
+        tile_rows=(uniq // kt).astype(np.int32),
+        tile_cols=(uniq % kt).astype(np.int32),
+        block_slot=slots.astype(np.int64),
+        in_r=(rows % rpb).astype(np.int64),
+        in_c=(cols % cpb).astype(np.int64),
+        tm=tm, tk=tk, grid=(mt, kt), shape=(m, k), block_size=b,
+        nnz_blocks=len(rows))
+
+
+def pack_values(plan: PackingPlan, values: torch.Tensor) -> torch.Tensor:
+    """Scatter ``[nnz, b, b]`` blocks into the ``[T, tm, tk]`` tile
+    stack laid out in kernel-visit order (pad tiles stay zero)."""
+    b = plan.block_size
+    rpb, cpb = plan.tm // b, plan.tk // b
+    dev = values.device
+    # tile stack viewed as [T, rpb, cpb, b, b] so the three block
+    # coordinates index adjacent dims
+    tiles = torch.zeros((plan.num_tiles, rpb, cpb, b, b),
+                        dtype=values.dtype, device=dev)
+    idx = tuple(torch.as_tensor(a, dtype=torch.long, device=dev)
+                for a in (plan.block_slot, plan.in_r, plan.in_c))
+    tiles.index_put_(idx, values, accumulate=True)
+    return tiles.permute(0, 1, 3, 2, 4).reshape(plan.num_tiles, plan.tm,
+                                                plan.tk)

@@ -1,0 +1,96 @@
+"""Static kernel contracts: what each CUDA kernel of the port accepts.
+
+Mirror of the JAX package's ``repro/kernels/contract.py``
+``KernelContract``, for the port's hand-written kernels.  A contract
+names the plan route it serves, its dtypes, its block range and its
+divisibility rules over ``m, k, n, b`` (Python expressions), and the
+reference kernel it replaces.  Where a contract is narrower than the
+reference kernel's, the kernel package's ``__init__`` says so beside it.
+The ``pallas`` field of the reference has no counterpart: every contract
+here is a CUDA kernel for ``sm_90a``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+CAPACITY_KINDS = ("exact", "planned_bucket", "slot_capacity", "dense")
+
+_EVAL_GLOBALS = {"__builtins__": {}, "any": any, "all": all,
+                 "min": min, "max": max, "range": range}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelContract:
+    """Declared admissibility of one kernel.
+
+    kernel        package name ("bsmm", "dense_mm")
+    routes        plan routes the kernel serves
+    dtypes        supported operand dtypes, by name
+    min_block /   inclusive block-size range
+    max_block
+    divisibility  eval-able constraints over {m, k, n, b}; all must hold
+    grid          the launch grid, in words
+    capacity      one of CAPACITY_KINDS
+    replaces      file:line and name of the TPU kernel it ports
+    """
+
+    kernel: str
+    routes: Tuple[str, ...]
+    dtypes: Tuple[str, ...]
+    min_block: int
+    max_block: int
+    divisibility: Tuple[str, ...]
+    grid: str
+    capacity: str
+    replaces: str
+
+    def __post_init__(self):
+        if self.capacity not in CAPACITY_KINDS:
+            raise ValueError(f"contract {self.kernel!r}: capacity "
+                             f"{self.capacity!r} not in {CAPACITY_KINDS}")
+        if not (1 <= self.min_block <= self.max_block):
+            raise ValueError(f"contract {self.kernel!r}: bad block range "
+                             f"[{self.min_block}, {self.max_block}]")
+
+    def admits(self, m: int, k: int, n: int, b: int,
+               dtype: str = "float32") -> Optional[str]:
+        """``None`` if the kernel accepts ``(m, k)`` times ``(k, n)`` at
+        block size ``b`` in ``dtype``; otherwise the reason it rejects."""
+        if dtype not in self.dtypes:
+            return f"dtype {dtype} not in supported {self.dtypes}"
+        if not (self.min_block <= b <= self.max_block):
+            return (f"block {b} outside [{self.min_block}, "
+                    f"{self.max_block}]")
+        for expr in self.divisibility:
+            env = dict(_EVAL_GLOBALS, m=m, k=k, n=n, b=b)
+            if not eval(expr, env):  # noqa: S307 (sandboxed)
+                return f"constraint {expr!r} fails for m={m} k={k} n={n} b={b}"
+        return None
+
+
+_REGISTRY: Dict[str, KernelContract] = {}
+
+
+def register(contract: KernelContract) -> KernelContract:
+    """Register ``contract`` under its kernel name (idempotent)."""
+    prev = _REGISTRY.get(contract.kernel)
+    if prev is not None and prev != contract:
+        raise ValueError(f"conflicting contract registration for "
+                         f"{contract.kernel!r}")
+    _REGISTRY[contract.kernel] = contract
+    return contract
+
+
+def contract_for_route(route: str) -> Optional[KernelContract]:
+    for c in _REGISTRY.values():
+        if route in c.routes:
+            return c
+    return None
+
+
+def load_all() -> Dict[str, KernelContract]:
+    """Import every kernel package and return the full registry."""
+    import repro_torch.kernels.bsmm      # noqa: F401
+    import repro_torch.kernels.dense_mm  # noqa: F401
+    return dict(_REGISTRY)

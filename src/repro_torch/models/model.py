@@ -1,0 +1,178 @@
+"""Top-level language model: embeddings + layer stack + prefill / decode.
+
+Counterpart of the JAX package's ``models/model.py`` ``LM`` for decoder-
+only attention stacks (``forward``, ``prefill(last_index=)``,
+``init_cache``, ``decode_step``; the retained ring cache, the encoder
+and the frontends wait).  ``LM`` is an ``nn.Module`` that holds its
+parameters: ``init(seed)`` fills them from a seeded ``torch.Generator``,
+``load_jax_params(tree)`` copies them from the JAX package's params
+pytree converted to numpy.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.attention import Cache
+from repro_torch.models.config import ModelCfg
+from repro_torch.models.layers import Embedding, RMSNorm, embed, unembed
+
+# fields of ModelCfg the port's first slice does not implement, with the
+# value it requires
+_UNSUPPORTED = {"attn_impl": "gqa", "post_norm": False, "embed_scale": False,
+                "moe": None, "ssm": None, "encoder_layers": 0,
+                "frontend": None, "long_attention": "full"}
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts -> ``{"a.b.c": leaf}``."""
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = val
+    return out
+
+
+def _copy_into(params: Dict[str, nn.Parameter], leaves: Dict[str, Any],
+               where: str) -> None:
+    if set(params) != set(leaves):
+        raise ValueError(
+            f"{where}: JAX leaves and port parameters differ: only in JAX "
+            f"{sorted(set(leaves) - set(params))}, only in the port "
+            f"{sorted(set(params) - set(leaves))}")
+    for name, p in params.items():
+        arr = np.array(leaves[name], dtype=np.float32)
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"{where}.{name}: shape {arr.shape} != "
+                             f"{tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.as_tensor(arr).to(p.dtype))
+
+
+class LM(nn.Module):
+    """Decoder-only LM on ``device`` (``cuda`` unless the caller passes
+    another device; without a card only an explicit ``"cpu"`` runs)."""
+
+    def __init__(self, cfg: ModelCfg, *, device: DeviceLike = None,
+                 seed: int = 0):
+        super().__init__()
+        for field, want in _UNSUPPORTED.items():
+            if getattr(cfg, field) != want:
+                raise NotImplementedError(
+                    f"{cfg.name}: {field}={getattr(cfg, field)!r} is not "
+                    f"ported yet (the port needs {want!r})")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = tfm.model_dtype(cfg)
+        dev = self.device
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model,
+                               dtype=self.dtype, device=dev)
+        self.layers = nn.ModuleList(
+            tfm.Layer(cfg, spec, device=dev)
+            for spec in tfm.layer_specs(cfg))
+        self.final_norm = RMSNorm(cfg.d_model, device=dev)
+        self.lm_head = (None if cfg.tie_embeddings else
+                        Embedding(cfg.vocab_size, cfg.d_model,
+                                  dtype=self.dtype, device=dev))
+        self.init(seed)
+
+    # -- weights --------------------------------------------------------------
+    def init(self, seed: int) -> "LM":
+        """Fill every parameter from one seeded generator, module by
+        module in registration order."""
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        for mod in self.modules():
+            if mod is not self and hasattr(mod, "reset_parameters"):
+                mod.reset_parameters(gen)
+        return self
+
+    def load_jax_params(self, tree) -> "LM":
+        """Copy the JAX ``LM.init`` params pytree (leaves converted to
+        numpy) into this model.  The stacked ``[repeat, ...]`` layer axis
+        of each period is unstacked into the per-layer modules."""
+        cfg = self.cfg
+        top = {"embed.table": tree["embed"]["table"],
+               "final_norm.scale": tree["final_norm"]["scale"]}
+        own = {"embed.table": self.embed.table,
+               "final_norm.scale": self.final_norm.scale}
+        if self.lm_head is not None:
+            top["lm_head.table"] = tree["lm_head"]["table"]
+            own["lm_head.table"] = self.lm_head.table
+        _copy_into(own, top, "LM")
+        li = 0
+        for (period, repeat), group in zip(cfg.groups, tree["stack"]):
+            flat = [_flatten(pos) for pos in group]
+            for r in range(repeat):
+                for si in range(len(period)):
+                    layer = self.layers[li + r * len(period) + si]
+                    _copy_into(dict(layer.named_parameters()),
+                               {k: v[r] for k, v in flat[si].items()},
+                               f"layer {li + r * len(period) + si}")
+            li += repeat * len(period)
+        return self
+
+    # -- plumbing ---------------------------------------------------------------
+    def _tokens(self, tokens) -> torch.Tensor:
+        return torch.as_tensor(tokens, device=self.device).long()
+
+    def _unembed(self, h: torch.Tensor) -> torch.Tensor:
+        head = self.lm_head if self.lm_head is not None else self.embed
+        table = head.table
+        return unembed(table, h, softcap=self.cfg.final_softcap)
+
+    def _final(self, h: torch.Tensor) -> torch.Tensor:
+        return self.final_norm(h, eps=self.cfg.norm_eps)
+
+    # -- entry points -------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self, tokens) -> torch.Tensor:
+        """Full-sequence logits ``[B, S, V]`` for tokens ``[B, S]``."""
+        t = self._tokens(tokens)
+        h = embed(self.embed.table, t)
+        positions = torch.arange(t.shape[1], device=self.device)[None, :]
+        h = tfm.stack_apply(self.layers, h, positions=positions)
+        return self._unembed(self._final(h))
+
+    def init_cache(self, batch: int, max_len: int) -> List[Cache]:
+        return tfm.stack_cache_init(self.cfg, batch, max_len,
+                                    dtype=self.dtype, device=self.device)
+
+    @torch.no_grad()
+    def prefill(self, tokens, *, max_len: int,
+                last_index: Optional[Any] = None):
+        """Returns ``(logits [B, V], caches)``.  ``last_index`` ``[B]``
+        gathers each row's logits at its true last prompt token (the
+        serving engine right-pads prompts to a bucket)."""
+        t = self._tokens(tokens)
+        if t.shape[1] > max_len:
+            raise ValueError(f"prompt of {t.shape[1]} tokens exceeds "
+                             f"max_len={max_len}")
+        h = embed(self.embed.table, t)
+        positions = torch.arange(t.shape[1], device=self.device)[None, :]
+        h, caches = tfm.stack_prefill(self.layers, h, positions=positions,
+                                      max_len=max_len)
+        if last_index is None:
+            h = h[:, -1:]
+        else:
+            idx = self._tokens(last_index).reshape(-1, 1, 1)
+            h = torch.gather(h, 1, idx.expand(h.shape[0], 1, h.shape[2]))
+        return self._unembed(self._final(h))[:, 0], caches
+
+    @torch.no_grad()
+    def decode_step(self, tokens, caches: List[Cache], positions):
+        """One token per row: tokens ``[B, 1]``, positions ``[B]``.
+        Returns ``(logits [B, V], caches)``; the caches are updated in
+        place."""
+        t = self._tokens(tokens)
+        pos = self._tokens(positions)
+        h = embed(self.embed.table, t)
+        h, caches = tfm.stack_decode(self.layers, h, caches, positions=pos)
+        return self._unembed(self._final(h))[:, 0], caches

@@ -1,0 +1,112 @@
+"""Decoder layers and the layer stack.
+
+Counterpart of the JAX package's ``models/transformer.py`` for the
+``attn`` mixer with the ``mlp`` and ``sparse`` FFN arms
+(``layer_apply``, ``layer_prefill``, ``layer_decode`` and their stacks).
+The JAX package scans one period over stacked params; here every layer
+is its own module and the stack is a Python loop.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+from torch import nn
+
+from repro_torch.core.sparse_layers import SparseFFN
+from repro_torch.models.attention import GQA, Cache, gqa_cache_init
+from repro_torch.models.config import LayerSpec, ModelCfg
+from repro_torch.models.layers import MLP, RMSNorm
+
+
+def model_dtype(cfg: ModelCfg) -> torch.dtype:
+    """bf16 for a bf16 config, fp32 otherwise (the JAX package's rule)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def sparse_ffn(cfg: ModelCfg, *, device) -> SparseFFN:
+    """The sparse FFN arm, built as the JAX package builds it: seed 0 for
+    every layer, gated when the activation is."""
+    return SparseFFN(cfg.d_model, cfg.d_ff, cfg.ffn_block_size,
+                     cfg.ffn_density, gated=cfg.act in ("silu", "gelu"),
+                     dtype=model_dtype(cfg), device=device)
+
+
+class Layer(nn.Module):
+    """Pre-norm decoder layer: ``h + attn(norm1(h))``, then
+    ``h + ffn(norm2(h))``."""
+
+    def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device):
+        super().__init__()
+        if spec.mixer != "attn" or spec.cross or not spec.causal:
+            raise NotImplementedError(
+                f"layer {spec}: the port runs causal 'attn' layers only")
+        if spec.ffn not in ("mlp", "sparse"):
+            raise NotImplementedError(
+                f"ffn {spec.ffn!r}: the port runs 'mlp' and 'sparse' only")
+        dt = model_dtype(cfg)
+        self.cfg = cfg
+        self.norm1 = RMSNorm(cfg.d_model, device=device)
+        self.attn = GQA(cfg, dtype=dt, device=device)
+        self.norm2 = RMSNorm(cfg.d_model, device=device)
+        if spec.ffn == "mlp":
+            self.ffn = MLP(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dt,
+                           device=device)
+        else:
+            self.ffn = sparse_ffn(cfg, device=device)
+
+    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
+        return self.ffn(self.norm2(h, eps=self.cfg.norm_eps))
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor):
+        """``layer_apply``: full sequence, no cache."""
+        h = h + self.attn(self.norm1(h, eps=self.cfg.norm_eps), positions)
+        return h + self._ffn(h)
+
+    def prefill(self, h: torch.Tensor, positions: torch.Tensor, *,
+                max_len: int):
+        """``layer_prefill``: full sequence, emits the layer's cache."""
+        mix, cache = self.attn.prefill(self.norm1(h, eps=self.cfg.norm_eps),
+                                       positions, max_len=max_len)
+        h = h + mix
+        return h + self._ffn(h), cache
+
+    def decode(self, h: torch.Tensor, cache: Cache,
+               positions: torch.Tensor):
+        """``layer_decode``: one token per row, cache updated in place."""
+        mix, cache = self.attn.decode(self.norm1(h, eps=self.cfg.norm_eps),
+                                      cache, positions)
+        h = h + mix
+        return h + self._ffn(h), cache
+
+
+def layer_specs(cfg: ModelCfg) -> List[LayerSpec]:
+    """Layer specs in execution order (each period ``repeat`` times)."""
+    return [spec for period, rep in cfg.groups for _ in range(rep)
+            for spec in period]
+
+
+def stack_apply(layers, h, *, positions):
+    for layer in layers:
+        h = layer(h, positions)
+    return h
+
+
+def stack_prefill(layers, h, *, positions, max_len: int):
+    caches = []
+    for layer in layers:
+        h, c = layer.prefill(h, positions, max_len=max_len)
+        caches.append(c)
+    return h, caches
+
+
+def stack_decode(layers, h, caches, *, positions):
+    for layer, cache in zip(layers, caches):
+        h, _ = layer.decode(h, cache, positions)
+    return h, caches
+
+
+def stack_cache_init(cfg: ModelCfg, batch: int, max_len: int, *,
+                     dtype: torch.dtype, device) -> List[Cache]:
+    return [gqa_cache_init(cfg, batch, max_len, dtype=dtype, device=device)
+            for _ in layer_specs(cfg)]

@@ -59,3 +59,9 @@ def _reset_sparse_telemetry():
     from repro import sparse
     sparse.reset_telemetry()
     yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (the port's kernels on a "
+                   "card); skips without one")

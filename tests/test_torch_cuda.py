@@ -1,0 +1,103 @@
+"""The port's CUDA kernels on a card, against their plain versions.
+
+Needs a CUDA device and skips without one.  Imports neither JAX nor the
+JAX package, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+Budgets (rel-max over the plain version's max magnitude): fp32 1e-4 (the
+kernels differ only by summation order; TF32 is off for the plain
+matmul) and bf16 2e-2 (one rounding of each fp32-accumulated output).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch import sparse  # noqa: E402
+from repro_torch.core import masks  # noqa: E402
+from repro_torch.core.bsr import BlockSparseMatrix  # noqa: E402
+from repro_torch.kernels.bsmm import ops as bsmm_ops  # noqa: E402
+from repro_torch.kernels.dense_mm import ops as dmm_ops  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-6)
+            ).item()
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on a card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("n", [1, 8, 9, 70])   # both walks at b = 16
+def test_bsmm_cuda_matches_plain(dev, dtype, b, n):
+    m, k = 256, 512
+    mask = masks.random_block_mask(m, k, b, 0.25, seed=b)
+    mask[0] = False                                  # an empty row
+    g = torch.Generator(device=dev).manual_seed(b)
+    vals = torch.randn((int(mask.sum()), b, b), generator=g,
+                       device=dev).to(dtype)
+    bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
+    plan = sparse.plan(bsr, n, device=dev)
+    assert plan.route == "static_cuda"
+    tiles = plan.pack(vals)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    before = bsmm_ops.COUNTER.launches
+    got = bsmm_ops.bsmm_nt(x, tiles, plan.row_ptr, plan.tile_cols,
+                           plan.tile_rows, m)
+    torch.cuda.synchronize()
+    assert bsmm_ops.COUNTER.launches == before + 1
+    want = bsmm_ops.bsmm_nt_plain(x, tiles, plan.tile_rows.long(),
+                                  plan.tile_cols.long(), m)
+    assert torch.all(got[:, :b] == 0)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,k,d", [(1, 200, 72), (4, 2048, 512),
+                                   (17, 64, 100), (130, 333, 2048)])
+def test_dense_mm_cuda_matches_plain(dev, dtype, n, k, d):
+    g = torch.Generator(device=dev).manual_seed(n + k + d)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    w = torch.randn((k, d), generator=g, device=dev).to(dtype)
+    before = dmm_ops.COUNTER.launches
+    got = dmm_ops.dense_mm(x, w)
+    torch.cuda.synchronize()
+    assert dmm_ops.COUNTER.launches == before + 1
+    assert _rel(got, dmm_ops.dense_mm_plain(x, w)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_sparse_lm_on_card_matches_cpu(dev):
+    """The smoke config with a sparse FFN, fp32: the card (both kernels)
+    against the CPU (both plain versions) on the same weights."""
+    from repro_torch import configs
+    import dataclasses
+    cfg = dataclasses.replace(
+        configs.sparsify_ffn(configs.smoke("llama3_2_1b"), 0.25),
+        dtype="float32")
+    gpu = LM(cfg, device=dev, seed=0)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = np.random.default_rng(0).integers(0, 512, size=(2, 9))
+    b0, d0 = bsmm_ops.COUNTER.launches, dmm_ops.COUNTER.launches
+    got = gpu.forward(toks)
+    assert bsmm_ops.COUNTER.launches - b0 == 2 * 3
+    assert dmm_ops.COUNTER.launches - d0 == 2 * 4
+    assert _rel(got.cpu(), cpu.forward(toks)) <= 2e-4
