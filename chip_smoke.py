@@ -9,10 +9,12 @@ Phases, each fatal on failure:
 1. environment: card name and power limit, torch/CUDA versions, and the
    build of every CUDA kernel from ``src/repro_torch/**/csrc/*.cu``
    (one ``nvcc`` per source, started together);
-2. kernels: bsmm and dense_mm against their plain PyTorch versions on
-   the card at the serving shapes of llama3.2-1b (bsmm up/gate
-   8192x2048 and down 2048x8192 at b=16, d=1/8; dense_mm q/o 2048x2048
-   and k/v 2048x512; N in {4, 256}; bf16 and fp32), with each kernel's
+2. kernels: every kernel against its plain PyTorch version on the card
+   at the shapes of the main paths of llama3.2-1b (b=16, d=1/8; bsmm
+   up/gate 8192x2048 and down 2048x8192, dense_mm q/o 2048x2048 and
+   k/v 2048x512; bf16 and fp32): serving N in {4, 256}, training N =
+   2048 (batch 4 x seq 512) for bsmm forward, bsmm on the transposed
+   patterns and dense_mm, sddmm at N in {256, 2048}; with each kernel's
    time, its plain version's time, one library call's time and the
    least time the card could take (the bound);
 3. serve: full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
@@ -22,7 +24,16 @@ Phases, each fatal on failure:
    The kernels' launch counters are zeroed just before and read just
    after; both must have launched;
 4. consistency: for one prompt, padded ``prefill(last_index)`` logits
-   and two ``decode_step``s against ``forward`` on the same tokens.
+   and two ``decode_step``s against ``forward`` on the same tokens;
+5. gradients: one full-width SparseLinear (up and down), bf16 and fp32,
+   N = 2048: autograd dx and dvalues through the kernels against
+   ``core/static_sparse``'s plain formulation on the card;
+6. train: ``launch.train.train_loop`` on full-width llama3.2-1b with
+   every FFN block-sparse (d=1/8, b=16), bf16, batch 4 x seq 512, 10
+   AdamW steps from a seeded init, no checkpoint.  The launch counters
+   are zeroed just before and read just after; every kernel must have
+   launched, every loss and grad norm be finite, and the last loss be
+   below the first.
 
 Prints the card line and a ``{"kernels": [...]}`` line before the last
 line, which is ``{"ok": true, "device": {...}}``.  Exits non-zero and
@@ -54,6 +65,9 @@ CONSISTENCY_TOL = 6e-2
 # timed launches cycle through enough input copies to exceed the 50 MB
 # L2, as the serving path (16 layers of distinct weights) finds it cold
 ROTATE_BYTES = 160 * 2 ** 20
+# the train phase: AdamW steps from a seeded init, with a short warmup
+TRAIN_STEPS = 10
+TRAIN_HP = dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
 
 
 def fail(msg: str) -> int:
@@ -106,85 +120,233 @@ def bound(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def measured_row(torch, kernel, shape, n, dname, run, plain, library,
+                 sets, lib_sets, nbytes, flops):
+    """One kernel row: ``run`` against ``plain`` on the first input set,
+    then device ms of ``run``, ``plain`` and ``library`` over the sets
+    (``library`` takes ``lib_sets``), and the bound for ``nbytes`` and
+    ``flops``."""
+    got, want = run(*sets[0]), plain(*sets[0])
+    torch.cuda.synchronize()
+    err, abs_err = rel_err(got, want)
+    b_ms, b_by = bound(nbytes, flops, dname)
+    small = n <= 256             # short launches: more of them per timing
+    return dict(kernel=kernel, shape=shape, n=n, dtype=dname, rel_err=err,
+                max_abs_err=abs_err, tol=KERNEL_TOL[dname],
+                ms=timed_ms(torch, run, sets, 100 if small else 30),
+                plain_ms=timed_ms(torch, plain, sets[:2], 10 if small else 4),
+                library_ms=timed_ms(torch, library, lib_sets,
+                                    50 if small else 20),
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def kernel_phase(torch, args):
+    """Every kernel against its plain version at the shapes of the main
+    paths: serving (N = 4 decode, 256 prefill) and training (N = batch 4
+    x seq 512 = 2048 tokens; sddmm also at 256)."""
     from repro_torch import sparse
     from repro_torch.core import masks
     from repro_torch.core.bsr import BlockSparseMatrix
     from repro_torch.kernels.bsmm import ops as bsmm_ops
     from repro_torch.kernels.dense_mm import ops as dmm_ops
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     rows = []
-    b, density = 16, 1 / 8
+    b, density, train_n = 16, 1 / 8, 2048
+
+    def randn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32) * scale).to(dt)
+
     for shape_name, m, k in (("up/gate", 8192, 2048), ("down", 2048, 8192)):
         mask = masks.random_block_mask(m, k, b, density, seed=args.seed + 1)
+        nnz = int(mask.sum())
+        flops = 2.0 * nnz * b * b          # per activation row
         for dname, dt in dtypes.items():
-            nnz = int(mask.sum())
-            vals = torch.randn((nnz, b, b), generator=gen, device=dev,
-                               dtype=torch.float32).to(dt) / math.sqrt(
-                                   k * density)
+            es = torch.empty((), dtype=dt).element_size()
+            vals = randn((nnz, b, b), dt, 1 / math.sqrt(k * density))
             bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
             p = sparse.plan(bsr, 0, device=dev)
-            tiles = p.pack(vals)
+            g = p.grad
             dense_w = bsr.to_dense()
-            es = vals.element_size()
-            for n in (4, 256):
-                x = torch.randn((n, k), generator=gen, device=dev,
-                                dtype=torch.float32).to(dt)
-                got = bsmm_ops.bsmm_nt_cuda(x, tiles, p.row_ptr,
-                                            p.tile_cols, m)
-                want = bsmm_ops.bsmm_nt_plain(x, tiles, p.tile_rows.long(),
-                                              p.tile_cols.long(), m)
-                torch.cuda.synchronize()
-                err, abs_err = rel_err(got, want)
-                call_bytes = (n * k + tiles.numel() + n * m) * es
-                sets = copies(lambda: (x.clone(), tiles.clone()), call_bytes)
-                ms = timed_ms(torch, lambda xx, tt: bsmm_ops.bsmm_nt_cuda(
-                    xx, tt, p.row_ptr, p.tile_cols, m), sets, 100)
-                plain_ms = timed_ms(
-                    torch, lambda xx, tt: bsmm_ops.bsmm_nt_plain(
-                        xx, tt, p.tile_rows.long(), p.tile_cols.long(), m),
-                    sets[:4], 10)
-                lsets = copies(lambda: (x.clone(), dense_w.clone()),
-                               m * k * es)
-                lib_ms = timed_ms(torch, lambda xx, ww: torch.matmul(
-                    xx, ww.t()), lsets, 50)
-                nbytes = ((n * k + nnz * b * b + n * m) * es
-                          + (p.row_ptr.numel() + p.tile_cols.numel()) * 4)
-                b_ms, b_by = bound(nbytes, 2.0 * n * nnz * b * b, dname)
-                rows.append(dict(
-                    kernel="bsmm", shape=f"{shape_name} {m}x{k}", n=n,
-                    dtype=dname, rel_err=err, max_abs_err=abs_err,
-                    tol=KERNEL_TOL[dname], ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                    tiles=int(tiles.shape[0]), nnz_blocks=nnz))
-                del sets, lsets
+            # bsmm forward x [N, k] -> [N, m] (serving and training N) and
+            # dL/dx over W^T's tiles dy [N, m] -> [N, k] (training N)
+            for what, tiles, meta, d_in, d_out, lib, ns in (
+                    ("", p.pack(vals), p, k, m,
+                     lambda a_, w_: torch.matmul(a_, w_.t()),
+                     (4, 256, train_n)),
+                    (" transposed", p.pack_t(vals), g, m, k, torch.matmul,
+                     (train_n,))):
+                for n in ns:
+                    a = randn((n, d_in), dt)
+                    nbytes = (n * d_in + tiles.numel() + n * d_out) * es
+                    sets = copies(lambda: (a.clone(), tiles.clone()), nbytes)
+                    lib_sets = copies(lambda: (a.clone(), dense_w.clone()),
+                                      (n * d_in + m * k) * es)
+                    rows.append(dict(measured_row(
+                        torch, "bsmm", f"{shape_name} {m}x{k}{what}", n,
+                        dname,
+                        lambda a_, t_, meta=meta, d_out=d_out:
+                            bsmm_ops.bsmm_nt_cuda(a_, t_, meta.row_ptr,
+                                                  meta.tile_cols, d_out),
+                        lambda a_, t_, meta=meta, d_out=d_out:
+                            bsmm_ops.bsmm_nt_plain(
+                                a_, t_, meta.tile_rows.long(),
+                                meta.tile_cols.long(), d_out),
+                        lib, sets, lib_sets,
+                        # the non-zero blocks, not the pad tiles
+                        nbytes - (tiles.numel() - nnz * b * b) * es
+                        + (meta.row_ptr.numel() + meta.tile_cols.numel()) * 4,
+                        n * flops), tiles=int(tiles.shape[0]),
+                        nnz_blocks=nnz))
+                    del sets, lib_sets
+            # dL/dvalues: dy [N, m], x [N, k] -> [nnz, b, b]; the library
+            # call is the dense product the sampled one is a part of
+            for n in (256, train_n):
+                dy, x = randn((n, m), dt), randn((n, k), dt)
+                nbytes = (n * m + n * k + nnz * b * b) * es
+                sets = copies(lambda: (dy.clone(), x.clone()), nbytes)
+                row = measured_row(
+                    torch, "sddmm", f"{shape_name} {m}x{k}", n, dname,
+                    lambda d_, x_: sddmm_ops.sddmm_cuda(
+                        d_, x_, g.block_row_ptr, g.col_idx, b),
+                    lambda d_, x_: sddmm_ops.sddmm_plain(
+                        d_, x_, g.row_idx.long(), g.col_idx.long(), b),
+                    lambda d_, x_: torch.matmul(d_.t(), x_), sets, sets,
+                    nbytes + (g.block_row_ptr.numel() + nnz) * 4, n * flops)
+                # what the kernel's activation-major reads avoid: one
+                # transposing copy of both operands per call
+                row["transpose_ms"] = timed_ms(
+                    torch, lambda d_, x_: (d_.t().contiguous(),
+                                           x_.t().contiguous()), sets, 20)
+                row["splits"] = sddmm_ops.n_splits(n, m // b)
+                rows.append(row)
+                del sets
+            del dense_w
     for shape_name, k, d in (("q/o", 2048, 2048), ("k/v", 2048, 512)):
         for dname, dt in dtypes.items():
-            w = (torch.randn((k, d), generator=gen, device=dev) /
-                 math.sqrt(k)).to(dt)
-            es = w.element_size()
-            for n in (4, 256):
-                x = torch.randn((n, k), generator=gen, device=dev).to(dt)
-                got = dmm_ops.dense_mm_cuda(x, w)
-                want = dmm_ops.dense_mm_plain(x, w)
-                torch.cuda.synchronize()
-                err, abs_err = rel_err(got, want)
-                call_bytes = (n * k + k * d + n * d) * es
-                sets = copies(lambda: (x.clone(), w.clone()), call_bytes)
-                ms = timed_ms(torch, dmm_ops.dense_mm_cuda, sets, 100)
-                plain_ms = timed_ms(torch, dmm_ops.dense_mm_plain, sets, 50)
-                lib_ms = timed_ms(torch, torch.matmul, sets, 100)
-                b_ms, b_by = bound(call_bytes, 2.0 * n * k * d, dname)
-                rows.append(dict(
-                    kernel="dense_mm", shape=f"{shape_name} {k}x{d}", n=n,
-                    dtype=dname, rel_err=err, max_abs_err=abs_err,
-                    tol=KERNEL_TOL[dname], ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+            w = randn((k, d), dt, 1 / math.sqrt(k))
+            for n in (4, 256, train_n):
+                x = randn((n, k), dt)
+                nbytes = (n * k + k * d + n * d) * w.element_size()
+                sets = copies(lambda: (x.clone(), w.clone()), nbytes)
+                rows.append(measured_row(
+                    torch, "dense_mm", f"{shape_name} {k}x{d}", n, dname,
+                    dmm_ops.dense_mm_cuda, dmm_ops.dense_mm_plain,
+                    torch.matmul, sets, sets, nbytes, 2.0 * n * k * d))
                 del sets
     return rows
+
+
+def grad_phase(torch, args):
+    """Autograd through one full-width SparseLinear on the kernels
+    against the plain formulation of ``core/static_sparse``."""
+    from repro_torch.core import static_sparse
+    from repro_torch.core.sparse_layers import SparseLinear
+
+    dev = torch.device("cuda", 0)
+    out = []
+    n, b = 2048, 16
+    for name, d_in, d_out in (("up", 2048, 8192), ("down", 8192, 2048)):
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            layer = SparseLinear.random_pattern(
+                d_in, d_out, b, 1 / 8, seed=args.seed + 1, dtype=dt,
+                device=dev)
+            layer.reset_parameters(
+                torch.Generator(device=dev).manual_seed(args.seed))
+            layer.requires_grad_(True)
+            g = torch.Generator(device=dev).manual_seed(args.seed + 3)
+            x = torch.randn((n, d_in), generator=g, device=dev).to(dt)
+            gy = torch.randn((n, d_out), generator=g, device=dev).to(dt)
+            x.requires_grad_(True)
+            layer(x).backward(gy)
+            f = static_sparse.make_spmm(layer.row_idx, layer.col_idx,
+                                        (d_out // b, d_in // b), b)
+            v = layer.values.detach().clone().requires_grad_(True)
+            xt = x.detach().t().contiguous().requires_grad_(True)
+            f(v, xt).backward(gy.t())
+            torch.cuda.synchronize()
+            dv_err = rel_err(layer.values.grad, v.grad)[0]
+            dx_err = rel_err(x.grad, xt.grad.t())[0]
+            out.append(dict(layer=name, dtype=dname, n=n,
+                            dvalues_rel_err=dv_err, dx_rel_err=dx_err,
+                            tol=KERNEL_TOL[dname]))
+            del layer, x, gy, v, xt, f
+    bad = [r for r in out if not (r["dvalues_rel_err"] <= r["tol"]
+                                  and r["dx_rel_err"] <= r["tol"])]
+    if bad:
+        raise RuntimeError(f"kernel gradients disagree with the plain "
+                           f"formulation: {bad}")
+    return out
+
+
+def train_phase(torch, args):
+    """``train_loop`` at full width; launch counts per step and overall."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import bsmm, dense_mm, sddmm
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainHParams
+
+    cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
+    assert cfg.dtype == "bfloat16" and cfg.ffn_block_size == 16
+    counters = {"bsmm": bsmm.COUNTER, "sddmm": sddmm.COUNTER,
+                "dense_mm": dense_mm.COUNTER}
+    steps, batch, seq = TRAIN_STEPS, 4, 512
+    hp = TrainHParams(**TRAIN_HP)
+    per_step = []
+    last = {k: 0 for k in counters}
+    records = []
+
+    def on_step(step, metrics):
+        now = {k: c.launches for k, c in counters.items()}
+        per_step.append({k: now[k] - last[k] for k in counters})
+        last.update(now)
+        records.append(dict(step=step, loss=float(metrics["loss"]),
+                            grad_norm=float(metrics["grad_norm"]),
+                            lr=float(metrics["lr"]),
+                            step_s=float(metrics["step_s"])))
+        print(f"[train] step {step} loss {records[-1]['loss']:.4f} "
+              f"gnorm {records[-1]['grad_norm']:.4f} "
+              f"wall {records[-1]['step_s'] * 1e3:.1f} ms "
+              f"launches {per_step[-1]}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    _, losses = train_loop(cfg, steps=steps, batch_per_shard=batch,
+                           seq=seq, ckpt_dir=None, hp=hp, device="cuda",
+                           log_every=10 ** 9, on_step=on_step,
+                           seed=args.seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    walls = sorted(r["step_s"] for r in records)
+    p50 = float(np.median(walls))
+    result = dict(
+        steps=steps, batch=batch, seq=seq, hp=dict(TRAIN_HP),
+        losses=losses, records=records, launches=launches,
+        launches_per_step=per_step, wall_s=wall, step_p50_ms=p50 * 1e3,
+        tokens_per_s=batch * seq / p50,
+        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in records):
+        raise RuntimeError(f"non-finite loss or grad norm: {records}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise RuntimeError(f"kernel {name} was not launched while "
+                               f"training")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"loss did not fall: first {losses[0]}, last "
+                           f"{losses[-1]}")
+    return result
 
 
 def serve_phase(torch, args):
@@ -337,11 +499,13 @@ def main(argv=None) -> int:
 
     rows = kernel_phase(torch, args)
     for r in rows:
-        print(f"[kernel] {r['kernel']:8s} {r['shape']:18s} n={r['n']:<4d} "
+        extra = (f" transpose_ms={r['transpose_ms']:.5f} "
+                 f"splits={r['splits']}" if r["kernel"] == "sddmm" else "")
+        print(f"[kernel] {r['kernel']:8s} {r['shape']:29s} n={r['n']:<4d} "
               f"{r['dtype']:8s} rel_err={r['rel_err']:.2e} "
               f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']:.5f} "
-              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+              f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
     bad = [r for r in rows if not r["rel_err"] <= r["tol"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
@@ -358,26 +522,51 @@ def main(argv=None) -> int:
     print(f"[consistency] rel-max err vs forward: "
           f"{json.dumps(errs)} (budget {CONSISTENCY_TOL})")
 
+    del lm
+    torch.cuda.empty_cache()
+    grads = grad_phase(torch, args)
+    for r in grads:
+        print(f"[grad] {r['layer']:4s} {r['dtype']:8s} n={r['n']} "
+              f"dvalues rel_err={r['dvalues_rel_err']:.2e} "
+              f"dx rel_err={r['dx_rel_err']:.2e} (budget {r['tol']})")
+
+    train = train_phase(torch, args)
+    print(f"[train] {train['steps']} steps of batch {train['batch']} x seq "
+          f"{train['seq']}: loss {train['losses'][0]:.4f} -> "
+          f"{train['losses'][-1]:.4f}; step p50 "
+          f"{train['step_p50_ms']:.1f} ms = "
+          f"{train['tokens_per_s']:.0f} tokens/s; peak memory "
+          f"{train['peak_mem_gb']:.2f} GiB; launches {train['launches']}")
+    print(f"[train] detail {json.dumps(train)}")
+
+    # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
-                        "up/gate 8192x2048"),
+                        ("up/gate 8192x2048", 4), "serve"),
                "dense_mm": ("src/repro_torch/kernels/dense_mm/csrc/"
                             "dense_mm.cu",
                             "src/repro/kernels/dense_mm/dense_mm.py:38",
-                            "q/o 2048x2048")}
+                            ("q/o 2048x2048", 4), "serve"),
+               "sddmm": ("src/repro_torch/kernels/sddmm/csrc/sddmm.cu",
+                         "src/repro/kernels/sddmm/sddmm.py:53",
+                         ("up/gate 8192x2048", 2048), "train")}
+    by_path = {"serve": serve["launches"], "train": train["launches"]}
     kernels = []
-    for name, (source, replaces, shape) in sources.items():
-        # the decode shape of the main path: the most frequent launch
-        r = next(r for r in rows if r["kernel"] == name and r["n"] == 4
-                 and r["dtype"] == "bfloat16" and r["shape"].startswith(
-                     shape.split()[0]))
+    for name, (source, replaces, (shape, n), path) in sources.items():
+        # serving kernels at the decode shape (their most frequent
+        # launch), the sddmm at the training shape
+        r = next(r for r in rows if r["kernel"] == name
+                 and r["n"] == n and r["dtype"] == "bfloat16"
+                 and r["shape"] == shape)
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": serve["launches"][name],
+            "replaces": replaces, "launches": by_path[path][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "at": f"{r['shape']} n={r['n']} {r['dtype']}"})
+            "at": f"{r['shape']} n={r['n']} {r['dtype']}",
+            "launches_by_path": {k: v.get(name, 0)
+                                 for k, v in by_path.items()}})
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -386,7 +575,8 @@ def main(argv=None) -> int:
             json.dump({"card": card, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": built,
                        "kernel_rows": rows, "serve": serve,
-                       "consistency": errs, "kernels": kernels}, f,
+                       "consistency": errs, "grads": grads, "train": train,
+                       "kernels": kernels}, f,
                       indent=1)
 
     print(card)

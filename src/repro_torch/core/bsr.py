@@ -26,8 +26,8 @@ def _ceil_div(a: int, b: int) -> int:
 
 def check_unique_blocks(row_idx, col_idx, grid: Tuple[int, int]) -> None:
     """Reject out-of-range or duplicate ``(row, col)`` block coordinates.
-    ``pack_values`` scatters with accumulation, so a duplicate block
-    would be silently summed."""
+    ``pack_values`` scatters by copy, so a duplicate block would
+    silently overwrite another."""
     rows = np.asarray(row_idx, np.int64)
     cols = np.asarray(col_idx, np.int64)
     mb, kb = grid

@@ -6,6 +6,8 @@ lands.  ``pack_values`` is the value half: a scatter of the ``[nnz, b,
 b]`` blocks into the ``[T, tm, tk]`` tile stack in kernel-visit order.
 The metadata arrays equal the JAX package's for the same pattern and tile
 size; the CUDA bsmm kernel walks them with ``tm = tk = b``.
+``plan_transpose``/``apply_transpose`` are the pattern and value halves
+of the transposed pattern the backward's dL/dx product runs on.
 """
 from __future__ import annotations
 
@@ -88,18 +90,71 @@ def plan_packing(row_idx: np.ndarray, col_idx: np.ndarray,
         nnz_blocks=len(rows))
 
 
-def pack_values(plan: PackingPlan, values: torch.Tensor) -> torch.Tensor:
-    """Scatter ``[nnz, b, b]`` blocks into the ``[T, tm, tk]`` tile
-    stack laid out in kernel-visit order (pad tiles stay zero)."""
+def pack_index(plan: PackingPlan, device) -> torch.Tensor:
+    """Where each logical block lands in the tile stack viewed as
+    ``[T * rpb * cpb, b, b]`` blocks (long, on ``device``).  A caller
+    that packs often keeps it: building it copies from the host, which
+    waits for the device."""
     b = plan.block_size
     rpb, cpb = plan.tm // b, plan.tk // b
-    dev = values.device
-    # tile stack viewed as [T, rpb, cpb, b, b] so the three block
-    # coordinates index adjacent dims
-    tiles = torch.zeros((plan.num_tiles, rpb, cpb, b, b),
-                        dtype=values.dtype, device=dev)
-    idx = tuple(torch.as_tensor(a, dtype=torch.long, device=dev)
-                for a in (plan.block_slot, plan.in_r, plan.in_c))
-    tiles.index_put_(idx, values, accumulate=True)
-    return tiles.permute(0, 1, 3, 2, 4).reshape(plan.num_tiles, plan.tm,
-                                                plan.tk)
+    flat = (plan.block_slot * rpb + plan.in_r) * cpb + plan.in_c
+    return torch.as_tensor(flat, dtype=torch.long, device=device)
+
+
+def pack_values(plan: PackingPlan, values: torch.Tensor,
+                index: torch.Tensor | None = None) -> torch.Tensor:
+    """Scatter ``[nnz, b, b]`` blocks into the ``[T, tm, tk]`` tile
+    stack laid out in kernel-visit order (pad tiles stay zero).
+    ``index`` is ``pack_index(plan, values.device)``, if the caller keeps
+    one.  The pattern's blocks are unique (``check_unique_blocks``), so
+    the scatter is a copy."""
+    b = plan.block_size
+    rpb, cpb = plan.tm // b, plan.tk // b
+    if index is None:
+        index = pack_index(plan, values.device)
+    blocks = torch.zeros((plan.num_tiles * rpb * cpb, b, b),
+                         dtype=values.dtype, device=values.device)
+    blocks.index_copy_(0, index, values)
+    # [T, rpb, cpb, b, b] -> [T, rpb * b, cpb * b]
+    return blocks.reshape(plan.num_tiles, rpb, cpb, b, b).permute(
+        0, 1, 3, 2, 4).reshape(plan.num_tiles, plan.tm, plan.tk)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransposePlan:
+    """Host analysis of a pattern's transpose: ``W^T`` holds the same
+    nnz blocks re-sorted row-major in ``(col, row)`` coordinates, each
+    block transposed.  ``perm`` is the value permutation (applied per
+    call while weights train); ``row_idx``/``col_idx`` are the
+    transposed pattern's metadata."""
+
+    perm: np.ndarray        # [nnz] source block of transposed slot z
+    row_idx: np.ndarray     # [nnz] int32 (block rows of W^T == cols of W)
+    col_idx: np.ndarray     # [nnz] int32 (block cols of W^T == rows of W)
+    shape: Tuple[int, int]  # (k, m), the transposed logical shape
+    block_size: int
+
+
+def plan_transpose(row_idx: np.ndarray, col_idx: np.ndarray,
+                   shape: Tuple[int, int],
+                   block_size: int) -> TransposePlan:
+    """Pattern phase of the backward transpose, computed once per
+    pattern.  The value phase is ``apply_transpose``."""
+    rows = np.asarray(row_idx, np.int64)
+    cols = np.asarray(col_idx, np.int64)
+    perm = np.lexsort((rows, cols))      # row-major in (col, row) coords
+    m, k = shape
+    return TransposePlan(perm, cols[perm].astype(np.int32),
+                         rows[perm].astype(np.int32), (k, m), block_size)
+
+
+def apply_transpose(plan: TransposePlan, values: torch.Tensor,
+                    perm: torch.Tensor | None = None) -> torch.Tensor:
+    """Value phase: permute the ``[nnz, b, b]`` blocks into the
+    transposed pattern's row-major order and transpose each block.
+    ``perm`` is ``plan.perm`` already on ``values``' device, if the
+    caller keeps one."""
+    if perm is None:
+        perm = torch.as_tensor(plan.perm, dtype=torch.long,
+                               device=values.device)
+    return values[perm].transpose(1, 2)

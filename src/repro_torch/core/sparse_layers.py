@@ -6,8 +6,11 @@ constant on the module, not a parameter; the values are a
 ``[nnz, b, b]`` parameter in lexsort (row, col) order, the JAX layout,
 so weights carry across one to one.
 
-The port's first slice is forward-only (serving): parameters are created
-with ``requires_grad=False`` and the CUDA kernels have no backward yet.
+Parameters are created with ``requires_grad=False`` (serving) and
+train once switched on (``module.requires_grad_(True)``): with grad
+enabled the forward runs the plan's autograd Function (bsmm forward;
+SDDMM and bsmm on the transposed pattern backward); under ``no_grad`` it
+runs the cached packed tile stack.
 """
 from __future__ import annotations
 
@@ -114,7 +117,11 @@ class SparseLinear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         x2 = x.reshape(-1, self.in_features).to(self.values.dtype)
-        y = self.plan().run_packed(self.packed(), x2)
+        if torch.is_grad_enabled() and (self.values.requires_grad
+                                        or x2.requires_grad):
+            y = self.plan().spmm_nt(self.values, x2)
+        else:
+            y = self.plan().run_packed(self.packed(), x2)
         y = y.reshape(*lead, self.out_features)
         if self.bias is not None:
             y = y + self.bias

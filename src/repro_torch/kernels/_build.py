@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, str] = {
     "bsmm": os.path.join("kernels", "bsmm", "csrc", "bsmm.cu"),
     "dense_mm": os.path.join("kernels", "dense_mm", "csrc", "dense_mm.cu"),
+    "sddmm": os.path.join("kernels", "sddmm", "csrc", "sddmm.cu"),
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

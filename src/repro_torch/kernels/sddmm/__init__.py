@@ -1,0 +1,22 @@
+from repro_torch.kernels.contract import KernelContract, register
+from repro_torch.kernels.sddmm.ops import (COUNTER, sddmm,  # noqa: F401
+                                           sddmm_cuda, sddmm_plain)
+
+# narrower than the reference's sddmm contract (blocks 1..128 over t x t
+# tiles with t <= 128 dividing m and k): the CUDA kernel samples the
+# pattern's b x b blocks directly, with b in {4, 8, 16, 32, 64}; n is
+# free (ragged chunks of N are masked)
+CONTRACT = register(KernelContract(
+    kernel="sddmm",
+    routes=("sddmm_cuda",),
+    dtypes=("float32", "bfloat16", "float16"),
+    min_block=4,
+    max_block=64,
+    divisibility=("m % b == 0", "k % b == 0", "b in (4, 8, 16, 32, 64)"),
+    grid="(m // b) x splits blocks (splits from ops.n_splits), each "
+         "walking its block-row's run of blocks in groups through a CSR "
+         "row pointer and its slice of N in staged chunks; plus one "
+         "reduce launch when splits > 1",
+    capacity="exact",
+    replaces="src/repro/kernels/sddmm/sddmm.py:53 sddmm_tiles_call",
+))

@@ -8,8 +8,8 @@ steps of the full-width sparse-FFN llama3.2-1b under ``torch.profiler``.
 Reports, per phase, the host wall time (clock around work that ends in a
 ``synchronize``), the device busy time (sum of the kernels' own device
 times from the profiler), the device's idle share, and the device time
-by kernel family (the bsmm and dense_mm kernels, the library GEMM of the
-unembed, everything else); and, for the decode step, the Python
+by kernel family (the bsmm, dense_mm and sddmm kernels, the library
+GEMM of the unembed, everything else); and, for the decode step, the Python
 functions that take the host's time (``cProfile``).  Needs a card.
 """
 from __future__ import annotations
@@ -26,11 +26,16 @@ from repro_torch import configs
 from repro_torch.models.model import LM
 
 
+FAMILIES = ("bsmm", "dense_mm", "sddmm", "library_gemm", "other")
+
+
 def _family(name: str) -> str:
     if "bsmm_nt" in name:
         return "bsmm"
     if "dense_mm" in name or "splitk_reduce" in name:
         return "dense_mm"
+    if "sddmm" in name:
+        return "sddmm"
     if "gemm" in name.lower() or "cutlass" in name.lower() or \
             "sm90_xmma" in name:
         return "library_gemm"
@@ -45,7 +50,7 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _profile(fn, reps: int):
+def _profile(fn, reps: int, top_n: int = 8):
     """Host wall time and device kernel time of ``reps`` calls of ``fn``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -56,7 +61,7 @@ def _profile(fn, reps: int):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fam = {"bsmm": 0.0, "dense_mm": 0.0, "library_gemm": 0.0, "other": 0.0}
+    fam = dict.fromkeys(FAMILIES, 0.0)
     top = []
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -77,7 +82,7 @@ def _profile(fn, reps: int):
         "device_ms_by_family": {k: v / 1e3 / reps for k, v in fam.items()},
         "top_kernels": [{"name": k[:90], "device_ms": us / 1e3 / reps,
                          "calls_per_rep": c / reps}
-                        for us, k, c in top[:8]],
+                        for us, k, c in top[:top_n]],
     }
 
 

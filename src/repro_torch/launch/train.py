@@ -1,0 +1,137 @@
+"""Training launcher: AdamW steps of an LM on the synthetic token stream.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
+        --density 0.125 --steps 10 --batch 4 --seq 512
+
+Runs on the card by default (``--device cpu`` runs the kernels' plain
+PyTorch versions; use ``--smoke`` there).  ``--density`` makes every FFN
+block-sparse at that block density, so the step runs the sparse plan's
+planned backward (bsmm on the transposed pattern, the SDDMM kernel).
+
+Counterpart of the JAX package's ``launch/train.py``: a deterministic
+data pipeline with a checkpointable cursor, async atomic checkpoints
+every ``--ckpt-every`` steps, automatic resume from the latest
+checkpoint (rerun the same command after a crash), and a SIGTERM handler
+that writes a final checkpoint and stops.  The mesh and re-sharding
+arguments wait for the multi-GPU slice.
+"""
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint import Checkpointer, latest_step, restore
+from repro_torch.data import TokenPipeline
+from repro_torch.models.model import LM
+from repro_torch.train.step import (TrainHParams, init_train_state,
+                                    load_state_tree, make_train_step,
+                                    state_tree)
+
+
+def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
+               ckpt_dir: str | None, ckpt_every: int = 20,
+               hp: TrainHParams = TrainHParams(), device=None,
+               log_every: int = 10, on_step=None, seed: int = 0):
+    """Train ``cfg`` from a seeded init (or the latest checkpoint under
+    ``ckpt_dir``) up to ``steps``.  Returns ``(state, losses)``;
+    ``on_step(step, metrics)`` sees each step's metrics, with
+    ``step_s``, the step's wall time on the host clock (the loss is read
+    back, so the device has finished the step)."""
+    lm = LM(cfg, device=device, seed=seed)
+    state = init_train_state(lm, hp=hp)
+    train_step = make_train_step(lm, hp)
+    pipe = TokenPipeline(cfg.vocab_size, batch_per_shard, seq)
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+
+    start = 0
+    if ckpt_dir and latest_step(ckpt_dir) is not None:
+        tree, extra, _ = restore(ckpt_dir, state_tree(state))
+        state = load_state_tree(state, tree)
+        start = TokenPipeline.resume_step(extra["data"])
+        print(f"[train] resumed from step {start}")
+
+    stop = {"now": False}
+
+    def on_sigterm(signum, frame):
+        stop["now"] = True
+    main_thread = threading.current_thread() is threading.main_thread()
+    old = signal.signal(signal.SIGTERM, on_sigterm) if main_thread else None
+
+    losses = []
+    t0 = time.perf_counter()
+    try:
+        for step in range(start, steps):
+            ts = time.perf_counter()
+            state, metrics = train_step(state, pipe.get_batch(step))
+            loss = float(metrics["loss"])
+            metrics["step_s"] = time.perf_counter() - ts
+            losses.append(loss)
+            if on_step:
+                on_step(step, metrics)
+            if step % log_every == 0 or step == steps - 1:
+                print(f"[train] step {step} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"({time.perf_counter() - t0:.1f}s)")
+            if ckpt and ((step + 1) % ckpt_every == 0 or stop["now"]
+                         or step == steps - 1):
+                ckpt.save_async(state_tree(state), step=step + 1,
+                                extra={"data": pipe.state(step + 1)})
+            if stop["now"]:
+                print("[train] preemption signal: final checkpoint + exit")
+                break
+        if ckpt:
+            ckpt.wait()
+    finally:
+        if main_thread:
+            signal.signal(signal.SIGTERM, old)
+    return state, losses
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config of the same family")
+    ap.add_argument("--density", type=float, default=None,
+                    help="block density of a sparse FFN in every layer")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device ('cpu' runs the plain versions)")
+    args = ap.parse_args(argv)
+
+    cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if args.density is not None:
+        cfg = configs.sparsify_ffn(cfg, args.density)
+    hp = TrainHParams(peak_lr=args.lr, warmup_steps=max(1, args.steps // 10),
+                      total_steps=args.steps)
+    if args.device.startswith("cuda"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+    _, losses = train_loop(cfg, steps=args.steps,
+                           batch_per_shard=args.batch, seq=args.seq,
+                           ckpt_dir=args.ckpt_dir,
+                           ckpt_every=args.ckpt_every, hp=hp,
+                           device=args.device, log_every=args.log_every,
+                           seed=args.seed)
+    if losses:
+        print(f"[train] done: first loss {losses[0]:.4f} "
+              f"last loss {losses[-1]:.4f}")
+        if not (losses[-1] < losses[0]):
+            print("[train] WARNING: loss did not improve", file=sys.stderr)
+    return losses
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,11 @@
 Counterparts of the JAX package's ``models/layers.py``.  Parameter names
 match the JAX params pytree (``scale``, ``w``, ``b``, ``table``) so that
 ``LM.load_jax_params`` maps leaves one to one.  Dense projections go
-through ``sparse.matmul`` (the dense_mm kernel on a card); the unembed
-stays a plain ``torch.matmul``, as the JAX package leaves it to XLA.
+through ``sparse.matmul`` (the dense_mm kernel on a card, with the
+planned dense backward under autograd); the unembed stays a plain
+``torch.matmul``, as the JAX package leaves it to XLA.  Parameters are
+created frozen and train after ``requires_grad_(True)``; a tied
+embedding collects its gradient from both the gather and the unembed.
 """
 from __future__ import annotations
 

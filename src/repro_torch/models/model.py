@@ -1,12 +1,15 @@
 """Top-level language model: embeddings + layer stack + prefill / decode.
 
 Counterpart of the JAX package's ``models/model.py`` ``LM`` for decoder-
-only attention stacks (``forward``, ``prefill(last_index=)``,
+only attention stacks (``forward``, ``loss``, ``prefill(last_index=)``,
 ``init_cache``, ``decode_step``; the retained ring cache, the encoder
 and the frontends wait).  ``LM`` is an ``nn.Module`` that holds its
 parameters: ``init(seed)`` fills them from a seeded ``torch.Generator``,
 ``load_jax_params(tree)`` copies them from the JAX package's params
-pytree converted to numpy.
+pytree converted to numpy, ``load_jax_train_state`` its optimizer state
+as well.  Parameters are created frozen (serving); ``requires_grad_(True)``
+makes them trainable, and ``loss`` is then differentiable.  ``forward``,
+``prefill`` and ``decode_step`` always run under ``no_grad``.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
@@ -94,30 +98,62 @@ class LM(nn.Module):
                 mod.reset_parameters(gen)
         return self
 
-    def load_jax_params(self, tree) -> "LM":
-        """Copy the JAX ``LM.init`` params pytree (leaves converted to
-        numpy) into this model.  The stacked ``[repeat, ...]`` layer axis
-        of each period is unstacked into the per-layer modules."""
-        cfg = self.cfg
-        top = {"embed.table": tree["embed"]["table"],
+    def jax_leaves(self, tree) -> Dict[str, Any]:
+        """A JAX params-shaped pytree (params, grads, or an optimizer's
+        master/mu/nu; leaves as numpy) keyed by this model's parameter
+        names.  The stacked ``[repeat, ...]`` layer axis of each period
+        is unstacked into the per-layer modules."""
+        out = {"embed.table": tree["embed"]["table"],
                "final_norm.scale": tree["final_norm"]["scale"]}
-        own = {"embed.table": self.embed.table,
-               "final_norm.scale": self.final_norm.scale}
         if self.lm_head is not None:
-            top["lm_head.table"] = tree["lm_head"]["table"]
-            own["lm_head.table"] = self.lm_head.table
-        _copy_into(own, top, "LM")
+            out["lm_head.table"] = tree["lm_head"]["table"]
         li = 0
-        for (period, repeat), group in zip(cfg.groups, tree["stack"]):
+        for (period, repeat), group in zip(self.cfg.groups, tree["stack"]):
             flat = [_flatten(pos) for pos in group]
             for r in range(repeat):
                 for si in range(len(period)):
-                    layer = self.layers[li + r * len(period) + si]
-                    _copy_into(dict(layer.named_parameters()),
-                               {k: v[r] for k, v in flat[si].items()},
-                               f"layer {li + r * len(period) + si}")
+                    idx = li + r * len(period) + si
+                    out.update({f"layers.{idx}.{k}": v[r]
+                                for k, v in flat[si].items()})
             li += repeat * len(period)
+        return out
+
+    def load_jax_params(self, tree) -> "LM":
+        """Copy the JAX ``LM.init`` params pytree (leaves converted to
+        numpy) into this model."""
+        _copy_into(dict(self.named_parameters()), self.jax_leaves(tree),
+                   "LM")
         return self
+
+    def load_jax_train_state(self, state):
+        """Copy a JAX ``train.step.TrainState`` (leaves converted to
+        numpy; the NamedTuple or a dict of its fields) into this model,
+        make its parameters trainable, and return the port's
+        ``TrainState`` over it: the params, the step, and the
+        ``AdamState`` count with its fp32 master, mu and nu.
+        Gradient-compression state is not ported."""
+        from repro_torch.optim.adamw import AdamState
+        from repro_torch.train.step import TrainState
+
+        def field(obj, name):
+            return obj[name] if isinstance(obj, dict) else getattr(obj, name)
+
+        self.load_jax_params(field(state, "params"))
+        self.requires_grad_(True)
+        opt = field(state, "opt")
+        names = [n for n, _ in self.named_parameters()]
+
+        def fp32(tree):
+            leaves = self.jax_leaves(tree)
+            return {n: torch.as_tensor(np.array(leaves[n], np.float32),
+                                       device=self.device) for n in names}
+
+        adam = AdamState(count=int(np.asarray(field(opt, "count"))),
+                         master=fp32(field(opt, "master")),
+                         mu=fp32(field(opt, "mu")),
+                         nu=fp32(field(opt, "nu")))
+        return TrainState(step=int(np.asarray(field(state, "step"))),
+                          params=dict(self.named_parameters()), opt=adam)
 
     # -- plumbing ---------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
@@ -140,6 +176,48 @@ class LM(nn.Module):
         positions = torch.arange(t.shape[1], device=self.device)[None, :]
         h = tfm.stack_apply(self.layers, h, positions=positions)
         return self._unembed(self._final(h))
+
+    def loss(self, tokens, targets, *, loss_chunk: int = 1024):
+        """Next-token cross entropy in fp32 for tokens/targets ``[B, S]``
+        (a ``-1`` target is padding).  Returns ``(loss, {"xent": ...})``.
+
+        The unembed and the logsumexp run over sequence chunks of
+        ``loss_chunk`` (halved until it divides S), each recomputed in
+        the backward (activation checkpointing), so the ``[B, S, V]``
+        logits are never held whole: one chunk's fp32 logits at a time.
+        """
+        t = self._tokens(tokens)
+        tg = self._tokens(targets)
+        h = embed(self.embed.table, t)
+        positions = torch.arange(t.shape[1], device=self.device)[None, :]
+        h = self._final(tfm.stack_apply(self.layers, h,
+                                        positions=positions))
+        s = tg.shape[1]
+        c = min(loss_chunk, s)
+        while s % c:
+            c //= 2
+        tot = torch.zeros((), dtype=torch.float32, device=self.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(0, s, c):
+            hx, tx = h[:, i:i + c], tg[:, i:i + c]
+            if torch.is_grad_enabled() and hx.requires_grad:
+                nll, valid = torch_checkpoint.checkpoint(
+                    self._chunk_nll, hx, tx, use_reentrant=False)
+            else:
+                nll, valid = self._chunk_nll(hx, tx)
+            tot = tot + nll
+            cnt = cnt + valid
+        xent = tot / torch.clamp(cnt, min=1.0)
+        return xent, {"xent": xent.detach()}
+
+    def _chunk_nll(self, hx: torch.Tensor, tx: torch.Tensor):
+        """Summed NLL and count of valid targets over one chunk."""
+        logits = self._unembed(hx).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            torch.clamp(tx, min=0)[..., None])[..., 0]
+        valid = (tx >= 0).float()
+        return ((lse - gold) * valid).sum(), valid.sum()
 
     def init_cache(self, batch: int, max_len: int) -> List[Cache]:
         return tfm.stack_cache_init(self.cfg, batch, max_len,

@@ -1,0 +1,160 @@
+"""Train step: loss -> grad -> clip -> AdamW, with optional microbatch
+gradient accumulation.
+
+Counterpart of the JAX package's ``train/step.py``.  The model holds
+its parameters (an ``nn.Module``), so the state's ``params`` are the
+model's own tensors, keyed by name, and a step updates them in place.
+Gradients come from ``torch.autograd.grad`` of ``LM.loss``: through the
+sparse FFN that runs the static plan's planned backward (bsmm on the
+transposed pattern for dL/dx, the SDDMM for dL/dvalues).  Gradient
+compression (``optim/compress.py``) and RigL topology steps
+(``rigl_evolve``) are not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.optim.adamw import (AdamState, adamw_init, adamw_update,
+                                     clip_by_global_norm)
+from repro_torch.optim.schedule import warmup_cosine
+
+Tensors = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    step: int
+    params: Tensors          # the model's parameters, by name
+    opt: AdamState
+
+
+class TrainHParams(NamedTuple):
+    peak_lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    clip_norm: float = 1.0
+    weight_decay: float = 0.1
+    accum: int = 1                 # microbatch accumulation factor
+    grad_compress: bool = False
+
+
+def _no_compress(hp: TrainHParams) -> None:
+    if hp.grad_compress:
+        raise NotImplementedError(
+            "grad_compress=True: error-feedback gradient compression "
+            "(optim/compress.py) is not ported yet")
+
+
+def init_train_state(lm, *, hp: TrainHParams = TrainHParams()
+                     ) -> TrainState:
+    """Make ``lm``'s parameters (as initialised or loaded) trainable and
+    start AdamW on them."""
+    _no_compress(hp)
+    lm.requires_grad_(True)
+    params = dict(lm.named_parameters())
+    return TrainState(0, params, adamw_init(params))
+
+
+def microbatch_grads(grad_fn: Callable, params: Tensors, batch: dict,
+                     accum: int):
+    """Gradient accumulation over ``accum`` microbatches.
+
+    ``grad_fn(params, microbatch) -> ((loss, metrics), grads)``.  The
+    batch is split on axis 0 into ``accum`` consecutive pieces, run one
+    after the other (peak activation memory drops to 1/accum); grads
+    accumulate in fp32.  Loss, metrics and grads come back
+    microbatch-averaged."""
+    if accum == 1:
+        (loss, metrics), grads = grad_fn(params, batch)
+        return loss, metrics, grads
+    size = {v.shape[0] for v in batch.values()}
+    if len(size) != 1 or next(iter(size)) % accum:
+        raise ValueError(f"batch sizes {sorted(size)} do not split into "
+                         f"{accum} microbatches")
+    step = next(iter(size)) // accum
+    tot_loss = None
+    tot_metrics: Dict[str, torch.Tensor] = {}
+    acc: Tensors = {}
+    for i in range(accum):
+        mb = {k: v[i * step:(i + 1) * step] for k, v in batch.items()}
+        (loss, metrics), grads = grad_fn(params, mb)
+        with torch.no_grad():
+            for n, g in grads.items():
+                if n in acc:
+                    acc[n] += g.float()
+                else:
+                    acc[n] = g.float()
+            tot_loss = loss.float() if tot_loss is None else tot_loss + loss
+            for k, v in metrics.items():
+                tot_metrics[k] = tot_metrics.get(k, 0) + v
+    inv = 1.0 / accum
+    return (tot_loss * inv, {k: v * inv for k, v in tot_metrics.items()},
+            {n: g * inv for n, g in acc.items()})
+
+
+def lm_grad_fn(lm) -> Callable:
+    """``grad_fn`` for ``microbatch_grads``: value and gradient of
+    ``lm.loss`` with respect to every trainable parameter."""
+    def grad_fn(params: Tensors, batch: dict):
+        names = [n for n, p in params.items() if p.requires_grad]
+        loss, metrics = lm.loss(batch["tokens"], batch["targets"])
+        gs = torch.autograd.grad(loss, [params[n] for n in names],
+                                 allow_unused=True)
+        grads = {n: (torch.zeros_like(params[n]) if g is None else g)
+                 for n, g in zip(names, gs)}
+        return (loss.detach(), metrics), grads
+    return grad_fn
+
+
+def make_train_step(lm, hp: TrainHParams = TrainHParams()):
+    """``train_step(state, batch) -> (state, metrics)``; ``batch`` is
+    ``{"tokens", "targets"}`` ``[B, S]`` arrays.  Metrics: the loss's
+    own (``xent``), ``loss``, ``grad_norm`` (before clipping) and
+    ``lr``."""
+    _no_compress(hp)
+    grad_fn = lm_grad_fn(lm)
+
+    def train_step(state: TrainState, batch: dict
+                   ) -> Tuple[TrainState, Dict[str, Any]]:
+        loss, metrics, grads = microbatch_grads(grad_fn, state.params,
+                                                batch, hp.accum)
+        grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
+        lr = warmup_cosine(state.step, peak_lr=hp.peak_lr,
+                           warmup_steps=hp.warmup_steps,
+                           total_steps=hp.total_steps)
+        params, opt = adamw_update(grads, state.opt, state.params, lr=lr,
+                                   weight_decay=hp.weight_decay)
+        new_state = TrainState(state.step + 1, params, opt)
+        return new_state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
+
+    return train_step
+
+
+# -- checkpoint trees -----------------------------------------------------------
+
+def state_tree(state: TrainState) -> dict:
+    """The state as a nested dict of tensors and ints (what the
+    checkpointer stores)."""
+    return {"step": state.step, "params": dict(state.params),
+            "opt": {"count": state.opt.count,
+                    "master": dict(state.opt.master),
+                    "mu": dict(state.opt.mu), "nu": dict(state.opt.nu)}}
+
+
+@torch.no_grad()
+def load_state_tree(state: TrainState, tree: dict) -> TrainState:
+    """Copy a restored ``state_tree`` into ``state``'s tensors in place
+    (the model's parameters included); returns the state at the
+    restored step."""
+    for src, dst in ((tree["params"], state.params),
+                     (tree["opt"]["master"], state.opt.master),
+                     (tree["opt"]["mu"], state.opt.mu),
+                     (tree["opt"]["nu"], state.opt.nu)):
+        for n, t in dst.items():
+            t.copy_(src[n])
+    opt = AdamState(int(tree["opt"]["count"]), state.opt.master,
+                    state.opt.mu, state.opt.nu)
+    return TrainState(int(tree["step"]), state.params, opt)

@@ -101,3 +101,62 @@ def test_sparse_lm_on_card_matches_cpu(dev):
     assert bsmm_ops.COUNTER.launches - b0 == 2 * 3
     assert dmm_ops.COUNTER.launches - d0 == 2 * 4
     assert _rel(got.cpu(), cpu.forward(toks)) <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("n", [1, 70, 600])   # one pass and split N
+def test_sddmm_cuda_matches_plain(dev, dtype, b, n):
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
+    m, k = 256, 512
+    mask = masks.random_block_mask(m, k, b, 0.25, seed=b + 1)
+    mask[0] = False                                  # an empty block-row
+    rows, cols = np.nonzero(mask)
+    g = torch.Generator(device=dev).manual_seed(b + n)
+    dy = torch.randn((n, m), generator=g, device=dev).to(dtype)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    ptr = torch.as_tensor(sddmm_ops.block_row_ptr(rows, m // b),
+                          device=dev)
+    tc = torch.as_tensor(cols.astype(np.int32), device=dev)
+    tr = torch.as_tensor(rows, device=dev)
+    before = sddmm_ops.COUNTER.launches
+    got = sddmm_ops.sddmm(dy, x, ptr, tc, tr, b)
+    torch.cuda.synchronize()
+    assert sddmm_ops.COUNTER.launches == before + 1
+    assert got.shape == (rows.size, b, b) and got.dtype == dtype
+    want = sddmm_ops.sddmm_plain(dy, x, tr.long(), tc.long(), b)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_linear_autograd_on_card_matches_plain(dev, dtype):
+    """One autograd step of a SparseLinear through the kernels (bsmm
+    forward; sddmm and bsmm on the transposed pattern backward) against
+    core/static_sparse's plain formulation on the same card tensors."""
+    from repro_torch.core import static_sparse
+    from repro_torch.core.sparse_layers import SparseLinear
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
+    d_in, d_out, b, n = 512, 1024, 16, 300
+    layer = SparseLinear.random_pattern(d_in, d_out, b, 0.125, seed=3,
+                                        dtype=dtype, device=dev)
+    layer.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    layer.requires_grad_(True)
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((n, d_in), generator=g, device=dev).to(dtype)
+    gy = torch.randn((n, d_out), generator=g, device=dev).to(dtype)
+    x.requires_grad_(True)
+    b0, s0 = bsmm_ops.COUNTER.launches, sddmm_ops.COUNTER.launches
+    layer(x).backward(gy)
+    torch.cuda.synchronize()
+    assert bsmm_ops.COUNTER.launches - b0 == 2
+    assert sddmm_ops.COUNTER.launches - s0 == 1
+    f = static_sparse.make_spmm(layer.row_idx, layer.col_idx,
+                                (d_out // b, d_in // b), b)
+    v = layer.values.detach().clone().requires_grad_(True)
+    xt = x.detach().t().contiguous().requires_grad_(True)
+    f(v, xt).backward(gy.t())
+    assert _rel(layer.values.grad, v.grad) <= TOL[dtype]
+    assert _rel(x.grad, xt.grad.t()) <= TOL[dtype]

@@ -168,9 +168,12 @@ def test_bsmm_wrapper_validates(bad, msg):
 
 def test_contracts_name_routes_and_reference():
     reg = tcontract.load_all()
-    assert set(reg) == {"bsmm", "dense_mm"}
+    assert set(reg) == {"bsmm", "dense_mm", "sddmm"}
     assert tcontract.contract_for_route("static_cuda").kernel == "bsmm"
     assert tcontract.contract_for_route("dense_cuda").kernel == "dense_mm"
+    assert tcontract.contract_for_route("sddmm_cuda").kernel == "sddmm"
+    assert reg["sddmm"].admits(8192, 2048, 2048, 16, "bfloat16") is None
+    assert "fails" in reg["sddmm"].admits(64, 64, 4, 12)
     bsmm = reg["bsmm"]
     assert bsmm.admits(8192, 2048, 4, 16, "bfloat16") is None
     assert "outside" in bsmm.admits(64, 64, 4, 128)
