@@ -33,7 +33,26 @@ Phases, each fatal on failure:
    AdamW steps from a seeded init, no checkpoint.  The launch counters
    are zeroed just before and read just after; every kernel must have
    launched, every loss and grad norm be finite, and the last loss be
-   below the first.
+   below the first;
+7. dynamic kernels: dsmm against its plain version at the FFN shapes
+   (d_max = 1/8, b = 16, N in {4, 256, 2048}), at Table 3's shape
+   (4096 x 4096, d = 1/16, b in {4, 16}, N = 4096, fp16 and fp32) and
+   on the grouped routes' t = 128 packed tiles; bsmm_balanced on the
+   skew grid (4096 x 4096, b = 16, d = 1/32, N = 4096; uniform,
+   power-law and DLMC masks; bf16 and fp32), beside the uniform bsmm
+   walk (these rows print with the kernel rows of phase 2);
+8. table3: the paper's Table 3 (m = k = 4096, d = 1/16, N = 4096, b in
+   {4, 16}, fp16 and fp32): one line per route (dense_cuda, static_cuda,
+   static_balanced_cuda, dynamic_cuda with its encode, and the grouped
+   routes at worst-case capacity) with its ms and its speedup against
+   dense_cuda and torch.matmul; every output checked against the fp32
+   dense product, every kernel of the routes launched;
+9. dynamic: a SwiGLU FFN of three DynamicSparseLinear at llama3.2-1b
+   width (2048 -> 8192 -> 2048, d_max = 1/8, b = 16, bf16), N = 2048,
+   5 forward + backward steps with a fresh seeded mask each; step 0
+   against the plain formulation; the mask must change every step, no
+   plan be built after step 0 and dsmm launch on every step; then one
+   planned-capacity pass on the grouped route for its capacity report.
 
 Prints the card line and a ``{"kernels": [...]}`` line before the last
 line, which is ``{"ok": true, "device": {...}}``.  Exits non-zero and
@@ -48,6 +67,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -58,7 +78,7 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # rel-max budgets (error over the plain version's max magnitude): fp32
 # differs only by summation order; bf16 by one rounding of each output
-KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
 # the repo's bf16 budget (tests/conftest.py GRAD_TOLS): the decode path
 # differs from the full-sequence path by bf16 roundings through the stack
 CONSISTENCY_TOL = 6e-2
@@ -467,6 +487,371 @@ def consistency_phase(torch, lm, args):
     return errs
 
 
+def dynamic_kernel_phase(torch, args):
+    """The dsmm and bsmm_balanced kernels against their plain versions:
+    dsmm at the FFN shapes of llama3.2-1b (d_max = 1/8, b = 16, N in {4,
+    256, 2048}), at Table 3's shape (4096 x 4096, d = 1/16, b in {4,
+    16}, N = 4096) and on the grouped routes' t = 128 packed tiles;
+    bsmm_balanced on the skew grid (4096 x 4096, b = 16, d = 1/32, N =
+    4096; uniform, power-law and DLMC masks)."""
+    from repro_torch import sparse
+    from repro_torch.core import dynamic_sparse as dsp
+    from repro_torch.core import masks, partitioner
+    from repro_torch.core.bsr import BlockSparseMatrix
+    from repro_torch.kernels.bsmm import balanced as bal_ops
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    from repro_torch.kernels.gmm import ops as gmm_ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 11)
+    rows = []
+
+    def randn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32) * scale).to(dt)
+
+    def dsmm_rows(shape_name, m, k, b, density, dt, dname, ns, mask_seed,
+                  tile=None):
+        es = torch.empty((), dtype=dt).element_size()
+        mask = masks.random_block_mask(m, k, b, density, seed=mask_seed)
+        grid = (m // b) * (k // b)
+        nnz_max = max(1, math.ceil(grid * density))
+        w = randn((m, k), dt, 1 / math.sqrt(k * density))
+        op = dsp.encode(w, torch.as_tensor(mask, device=dev), block_size=b,
+                        nnz_max=nnz_max)
+        what = ""
+        if tile:
+            op, _ = gmm_ops.pack_tiles_device(
+                op, tile=tile, tiles_cap=min(op.capacity, (m // tile)
+                                             * (k // tile)),
+                with_stats=False)
+            what = f" t={tile} tiles"
+        srows, scols, svals = dsmm_ops.encode_slots(op)
+        dense_w = op.to_dense()
+        bb = op.block_size
+        nnz = int(op.nnz)
+        for n in ns:
+            x = randn((n, k), dt)
+            nbytes = (n * k + nnz * bb * bb + n * m) * es \
+                + 2 * 4 * srows.numel()
+            sets = copies(lambda: (x.clone(), svals.clone()),
+                          nbytes + svals.numel() * es)
+            lib_sets = copies(lambda: (x.clone(), dense_w.clone()),
+                              (n * k + m * k) * es)
+            row = measured_row(
+                torch, "dsmm", f"{shape_name} {m}x{k} b={b}{what}", n,
+                dname,
+                lambda a_, v_: dsmm_ops.dsmm_cuda(a_, v_, srows, scols, m),
+                lambda a_, v_: dsmm_ops.dsmm_plain(a_, v_, srows, scols, m),
+                lambda a_, w_: torch.matmul(a_, w_.t()), sets, lib_sets,
+                nbytes, 2.0 * nnz * bb * bb * n)
+            # the slot encoder each call of the dynamic_cuda route adds
+            row["encode_ms"] = timed_ms(
+                torch, lambda: dsmm_ops.encode_slots(op), [()], 20)
+            row.update(slots=int(srows.numel()), nnz_blocks=nnz)
+            rows.append(row)
+            del sets, lib_sets
+
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        for shape_name, m, k in (("up/gate", 8192, 2048),
+                                 ("down", 2048, 8192)):
+            dsmm_rows(shape_name, m, k, 16, 1 / 8, dt, dname,
+                      (4, 256, 2048), args.seed + 1)
+        dsmm_rows("ffn up/gate", 8192, 2048, 16, 1 / 8, dt, dname, (2048,),
+                  args.seed + 1, tile=128)
+    for dname, dt in (("float16", torch.float16),
+                      ("float32", torch.float32)):
+        for b in (4, 16):
+            dsmm_rows("table3", 4096, 4096, b, 1 / 16, dt, dname, (4096,),
+                      args.seed + 2)
+        dsmm_rows("table3", 4096, 4096, 16, 1 / 16, dt, dname, (4096,),
+                  args.seed + 2, tile=128)
+
+    # bsmm_balanced on the skew grid, beside the uniform walk (bsmm) on
+    # the same tiles
+    m = k = n = 4096
+    b, density = 16, 1 / 32
+    gens = {"uniform": masks.random_block_mask,
+            "power_law": masks.power_law_block_mask,
+            "dlmc": masks.dlmc_block_mask}
+    for dname, dt in (("bfloat16", torch.bfloat16),
+                      ("float32", torch.float32)):
+        es = torch.empty((), dtype=dt).element_size()
+        for kind, gen_fn in gens.items():
+            mask = gen_fn(m, k, b, density, seed=args.seed)
+            nnz = int(mask.sum())
+            vals = randn((nnz, b, b), dt, 1 / math.sqrt(k * density))
+            bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
+            p = sparse.plan(bsr, n, device=dev, ctx=sparse.PlanContext(
+                mode="static_balanced"))
+            vr, vc, vs = p.visit
+            tiles = p.pack(vals)
+            dense_w = bsr.to_dense()
+            x = randn((n, k), dt)
+            nbytes = (n * k + nnz * b * b + n * m) * es + 3 * 4 * vr.numel()
+            sets = copies(lambda: (x.clone(), tiles.clone()), nbytes)
+            lib_sets = copies(lambda: (x.clone(), dense_w.clone()),
+                              (n * k + m * k) * es)
+            row = measured_row(
+                torch, "bsmm_balanced", f"skew {kind} {m}x{k} d=1/32", n,
+                dname,
+                lambda a_, t_: bal_ops.bsmm_balanced_cuda(a_, t_, vr, vc,
+                                                          vs, m),
+                lambda a_, t_: bal_ops.bsmm_balanced_plain(a_, t_, vr, vc,
+                                                           vs, m),
+                lambda a_, w_: torch.matmul(a_, w_.t()), sets, lib_sets,
+                nbytes, 2.0 * nnz * b * b * n)
+            # the uniform walk on the same pattern (no pad tile)
+            pu = sparse.plan(bsr, n, device=dev)
+            usets = [(a_, t_[:-1].contiguous()) for a_, t_ in sets]
+            row["uniform_bsmm_ms"] = timed_ms(
+                torch, lambda a_, t_: pu.run_packed(t_, a_), usets, 30)
+            row.update(bins=p.artifacts["swizzle_bins"],
+                       steps_per_bin=p.artifacts["swizzle_steps_per_bin"],
+                       swizzle_imbalance=p.artifacts["swizzle_imbalance"],
+                       row_imbalance=partitioner.balance_report(
+                           mask.sum(axis=1))["imbalance"])
+            rows.append(row)
+            del sets, lib_sets, usets
+    return rows
+
+
+TABLE3_ROUTES = ("dense_cuda", "static_cuda", "static_balanced_cuda",
+                 "dynamic_cuda", "dynamic_grouped_cuda",
+                 "dynamic_grouped_balanced_cuda")
+
+
+def table3_phase(torch, args):
+    """The paper's Table 3 on the card: m = k = 4096, d = 1/16, N =
+    4096, b in {4, 16}, fp16 and fp32, one time per route through the
+    plan layer, against dense_cuda and torch.matmul.  dynamic_cuda is
+    timed with the encode from the dense weight and mask included (the
+    pattern is data); the grouped routes run at worst-case capacity (no
+    tile dropped).  Every route's output is checked against the fp32
+    dense product."""
+    from repro_torch import sparse
+    from repro_torch.core import dynamic_sparse as dsp
+    import numpy as np
+
+    from repro_torch.core import masks
+    from repro_torch.core.bsr import BlockSparseMatrix
+    from repro_torch.kernels.dense_mm import ops as dmm_ops
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
+    m = k = n = 4096
+    density = 1 / 16
+    lines = []
+    for dname, dt in (("float16", torch.float16),
+                      ("float32", torch.float32)):
+        for b in (4, 16):
+            mask = masks.random_block_mask(m, k, b, density,
+                                           seed=args.seed + 3)
+            mask_t = torch.as_tensor(mask, device=dev)
+            nnz = int(mask.sum())
+            nnz_max = math.ceil((m // b) * (k // b) * density)
+            w = (torch.randn((m, k), generator=gen, device=dev)
+                 / math.sqrt(k * density)).to(dt)
+            w = w * torch.repeat_interleave(torch.repeat_interleave(
+                mask_t, b, 0), b, 1).to(dt)
+            r_idx, c_idx = (torch.as_tensor(a, device=dev)
+                            for a in np.nonzero(mask))
+            bsr = BlockSparseMatrix.from_mask(
+                mask, b, values=w.reshape(m // b, b, k // b, b).permute(
+                    0, 2, 1, 3)[r_idx, c_idx].contiguous())
+            x = (torch.randn((n, k), generator=gen, device=dev)).to(dt)
+            want = torch.matmul(x.float(), w.float().t())
+            wt = w.t().contiguous()
+            runs = {"dense_cuda": lambda: dmm_ops.dense_mm_cuda(x, wt)}
+            for mode, route in (("static", "static_cuda"),
+                                ("static_balanced", "static_balanced_cuda")):
+                p = sparse.plan(bsr, n, device=dev,
+                                ctx=sparse.PlanContext(mode=mode))
+                assert p.route == route
+                packed = p.pack(bsr.values)
+                runs[route] = (lambda p=p, packed=packed:
+                               p.run_packed(packed, x))
+            for mode, route, kw in (
+                    ("dynamic", "dynamic_cuda", {}),
+                    ("dynamic_grouped", "dynamic_grouped_cuda",
+                     dict(capacity_policy="worst", telemetry=False)),
+                    ("dynamic_grouped_balanced",
+                     "dynamic_grouped_balanced_cuda",
+                     dict(capacity_policy="worst", telemetry=False))):
+                ctx = sparse.PlanContext(mode=mode, **kw)
+                runs[route] = (lambda ctx=ctx: sparse.spmm_nt(
+                    dsp.encode(w, mask_t, block_size=b, nnz_max=nnz_max),
+                    x, ctx=ctx))
+            lib_ms = timed_ms(torch, lambda: torch.matmul(x, wt), [()], 30)
+            flops = 2.0 * n * m * k
+            res = {}
+            for route in TABLE3_ROUTES:
+                err = rel_err(runs[route](), want)[0]
+                torch.cuda.synchronize()
+                slow = route.startswith(("dense", "dynamic_grouped")) \
+                    or b == 4
+                ms = timed_ms(torch, runs[route], [()], 10 if slow else 30)
+                res[route] = ms
+                lines.append(dict(
+                    route=route, b=b, dtype=dname, m=m, k=k, n=n,
+                    density=density, nnz_blocks=nnz, ms=ms,
+                    rel_err=err, tol=KERNEL_TOL[dname],
+                    dense_flops=flops, sparse_flops=flops * density,
+                    torch_matmul_ms=lib_ms))
+            for line in lines[-len(TABLE3_ROUTES):]:
+                line["speedup_vs_dense_cuda"] = res["dense_cuda"] / line["ms"]
+                line["speedup_vs_torch_matmul"] = lib_ms / line["ms"]
+            del runs, bsr, w, wt, x, want
+            torch.cuda.empty_cache()
+    bad = [r for r in lines if not r["rel_err"] <= r["tol"]]
+    if bad:
+        raise RuntimeError(f"[table3] routes disagree with the dense "
+                           f"product: {bad}")
+    return lines
+
+
+def dynamic_phase(torch, args):
+    """The paper's dynamic mode at llama3.2-1b width: a SwiGLU FFN of
+    three DynamicSparseLinear (2048 -> 8192 -> 2048, d_max = 1/8, b =
+    16, bf16), N = 2048 tokens (batch 4 x seq 512), 5 forward + backward
+    steps, each with a freshly drawn seeded block mask.  Step 0 is held
+    against the plain formulation (``core/dynamic_sparse._dspmm``) on
+    the same card tensors."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch import sparse
+    from repro_torch.core import dynamic_sparse as dsp
+    from repro_torch.core import masks
+    from repro_torch.core.sparse_layers import DynamicSparseLinear
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+
+    dev = torch.device("cuda", 0)
+    d_model, d_ff, b, d_max = 2048, 8192, 16, 1 / 8
+    batch, seq = 4, 512
+    dt = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    layers = {"up": DynamicSparseLinear(d_model, d_ff, b, d_max, dtype=dt,
+                                        device=dev),
+              "gate": DynamicSparseLinear(d_model, d_ff, b, d_max, dtype=dt,
+                                          device=dev),
+              "down": DynamicSparseLinear(d_ff, d_model, b, d_max, dtype=dt,
+                                          device=dev)}
+    for i, layer in enumerate(layers.values()):
+        layer.reset_parameters(gen, mask_seed=args.seed + 100 + i)
+
+    def ffn(x, lin):
+        return lin["down"](F.silu(lin["gate"](x)) * lin["up"](x))
+
+    def plain_lin(layer):
+        def run(x):
+            op = layer.encode()
+            x2 = x.reshape(-1, layer.in_features)
+            y = dsp._dspmm(op.values, op.row_idx, op.col_idx, x2.t(),
+                           layer.out_features // b, b).t()
+            return y.reshape(*x.shape[:-1], layer.out_features)
+        return run
+
+    x0 = torch.randn((batch, seq, d_model), generator=gen,
+                     device=dev).to(dt)
+    gy = torch.randn((batch, seq, d_model), generator=gen,
+                     device=dev).to(dt)
+    check = {}
+    masks_seen, step_ms, launches = [], [], []
+    sparse.reset()
+    torch.cuda.synchronize()
+    dsmm_ops.COUNTER.reset()
+    plans_after = []
+    syncs = []
+    for step in range(5):
+        for i, (name, layer) in enumerate(layers.items()):
+            layer.set_mask(masks.random_block_mask(
+                layer.out_features, layer.in_features, b, d_max,
+                seed=args.seed + 1000 * (step + 1) + i))
+        masks_seen.append(tuple(hash(layer.mask.cpu().numpy().tobytes())
+                                for layer in layers.values()))
+        for layer in layers.values():
+            layer.weight.grad = None
+        x = x0.clone().requires_grad_(True)
+        before = dsmm_ops.COUNTER.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # after step 0 the forward (encode, plan lookup, slot encode,
+        # dsmm) must not wait for the device: count the synchronizing
+        # calls PyTorch reports
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if step:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                y = ffn(x, layers)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        # each synchronizing call warns ("called a synchronizing CUDA
+        # operation"); the mode's notice that it is a prototype is no sync
+        syncs += [str(w.message) for w in caught
+                  if "synchroniz" in str(w.message)
+                  and "prototype" not in str(w.message)]
+        y.backward(gy)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(dsmm_ops.COUNTER.launches - before)
+        plans_after.append(sparse.cache_stats()["plans_built"])
+        if step == 0:
+            check = dict(y=y.detach(), dx=x.grad.detach(),
+                         dw={k: v.weight.grad.detach().clone()
+                             for k, v in layers.items()})
+    total_launches = dsmm_ops.COUNTER.launches
+    # the plain formulation on the last step's masks, step 0 held apart:
+    # re-draw step 0's masks and run both on them
+    for i, (name, layer) in enumerate(layers.items()):
+        layer.set_mask(masks.random_block_mask(
+            layer.out_features, layer.in_features, b, d_max,
+            seed=args.seed + 1000 + i))
+        layer.weight.grad = None
+    x = x0.clone().requires_grad_(True)
+    y_plain = ffn(x, {k_: plain_lin(v) for k_, v in layers.items()})
+    y_plain.backward(gy)
+    torch.cuda.synchronize()
+    errs = {"y": rel_err(check["y"], y_plain.detach())[0],
+            "dx": rel_err(check["dx"], x.grad)[0]}
+    for k_, v in layers.items():
+        errs[f"dW_{k_}"] = rel_err(check["dw"][k_], v.weight.grad)[0]
+    # one extra pass at planned capacity on the grouped route
+    sparse.reset_telemetry()
+    with torch.no_grad():
+        for layer in layers.values():
+            layer.backend = "grouped"
+        ffn(x0, layers)
+        for layer in layers.values():
+            layer.backend = "auto"
+    torch.cuda.synchronize()
+    cap = sparse.capacity_report()["totals"]
+    result = dict(
+        d_model=d_model, d_ff=d_ff, b=b, d_max=d_max, tokens=batch * seq,
+        steps=5, step_ms=step_ms, step_p50_ms=float(np.median(step_ms)),
+        step_p50_after_first_ms=float(np.median(step_ms[1:])),
+        dsmm_launches_per_step=launches, dsmm_launches=total_launches,
+        plans_built=plans_after, masks_distinct=len(set(masks_seen)),
+        forward_host_syncs=len(syncs),
+        errs=errs, tol=KERNEL_TOL["bfloat16"], capacity_totals=cap)
+    if len(set(masks_seen)) != 5:
+        raise RuntimeError("the mask did not change on every step")
+    if any(p != plans_after[0] for p in plans_after):
+        raise RuntimeError(f"plans were built after step 0: {plans_after}")
+    if syncs:
+        raise RuntimeError(f"the dynamic forward waited for the device "
+                           f"{len(syncs)} times after step 0: {syncs[:3]}")
+    if any(n_ <= 0 for n_ in launches):
+        raise RuntimeError(f"dsmm not launched on every step: {launches}")
+    bad = {k_: v for k_, v in errs.items() if not v <= result["tol"]}
+    if bad:
+        raise RuntimeError(f"[dynamic] step 0 disagrees with the plain "
+                           f"formulation: {bad}")
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -497,11 +882,19 @@ def main(argv=None) -> int:
     print(f"[env] kernels built in {time.perf_counter() - t0:.2f}s "
           f"(per source: {json.dumps(built)})")
 
-    rows = kernel_phase(torch, args)
+    rows = kernel_phase(torch, args) + dynamic_kernel_phase(torch, args)
     for r in rows:
-        extra = (f" transpose_ms={r['transpose_ms']:.5f} "
-                 f"splits={r['splits']}" if r["kernel"] == "sddmm" else "")
-        print(f"[kernel] {r['kernel']:8s} {r['shape']:29s} n={r['n']:<4d} "
+        extra = ""
+        if r["kernel"] == "sddmm":
+            extra = (f" transpose_ms={r['transpose_ms']:.5f} "
+                     f"splits={r['splits']}")
+        elif r["kernel"] == "dsmm":
+            extra = f" encode_ms={r['encode_ms']:.5f} slots={r['slots']}"
+        elif r["kernel"] == "bsmm_balanced":
+            extra = (f" uniform_bsmm_ms={r['uniform_bsmm_ms']:.5f} "
+                     f"bins={r['bins']} steps={r['steps_per_bin']} "
+                     f"row_imbalance={r['row_imbalance']:.2f}")
+        print(f"[kernel] {r['kernel']:13s} {r['shape']:40s} n={r['n']:<4d} "
               f"{r['dtype']:8s} rel_err={r['rel_err']:.2e} "
               f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
               f"library_ms={r['library_ms']:.5f} "
@@ -539,6 +932,46 @@ def main(argv=None) -> int:
           f"{train['peak_mem_gb']:.2f} GiB; launches {train['launches']}")
     print(f"[train] detail {json.dumps(train)}")
 
+    from repro_torch.kernels import (bsmm, dense_mm, dsmm,  # noqa: F401
+                                     sddmm)
+    counters = {"bsmm": bsmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                "sddmm": sddmm.COUNTER, "dsmm": dsmm.COUNTER,
+                "bsmm_balanced": bsmm.BALANCED_COUNTER}
+    for c in counters.values():
+        c.reset()
+    table3 = table3_phase(torch, args)
+    table3_launches = {k: c.launches for k, c in counters.items()}
+    for r in table3:
+        print(f"[table3] b={r['b']:<2d} {r['dtype']:8s} {r['route']:30s} "
+              f"ms={r['ms']:.4f} speedup_vs_dense_cuda="
+              f"{r['speedup_vs_dense_cuda']:.3f} speedup_vs_torch_matmul="
+              f"{r['speedup_vs_torch_matmul']:.3f} (torch.matmul "
+              f"{r['torch_matmul_ms']:.4f} ms) rel_err={r['rel_err']:.2e}")
+    print("[table3] b=1 (also in the paper's Table 3) waits: the port's "
+          "bsmm and dsmm kernels admit b >= 4")
+    print(f"[table3] launches {json.dumps(table3_launches)}")
+    for name in ("bsmm", "bsmm_balanced", "dsmm", "dense_mm"):
+        if table3_launches[name] <= 0:
+            raise RuntimeError(f"kernel {name} was not launched in "
+                               f"[table3]")
+
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.reset()
+    dyn = dynamic_phase(torch, args)
+    dyn_launches = {k: c.launches for k, c in counters.items()}
+    print(f"[dynamic] SwiGLU FFN of 3 DynamicSparseLinear "
+          f"{dyn['d_model']}->{dyn['d_ff']}->{dyn['d_model']}, d_max "
+          f"{dyn['d_max']}, b {dyn['b']}, bf16, N {dyn['tokens']}: step "
+          f"p50 {dyn['step_p50_ms']:.2f} ms (steps {[round(t, 2) for t in dyn['step_ms']]}); "
+          f"dsmm launches per step {dyn['dsmm_launches_per_step']}; "
+          f"forward host syncs after step 0 {dyn['forward_host_syncs']}; "
+          f"plans_built {dyn['plans_built']}; masks distinct "
+          f"{dyn['masks_distinct']}/5")
+    print(f"[dynamic] step 0 vs plain: {json.dumps(dyn['errs'])} (budget "
+          f"{dyn['tol']}); grouped capacity pass totals "
+          f"{json.dumps(dyn['capacity_totals'])}")
+
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
@@ -549,12 +982,22 @@ def main(argv=None) -> int:
                             ("q/o 2048x2048", 4), "serve"),
                "sddmm": ("src/repro_torch/kernels/sddmm/csrc/sddmm.cu",
                          "src/repro/kernels/sddmm/sddmm.py:53",
-                         ("up/gate 8192x2048", 2048), "train")}
-    by_path = {"serve": serve["launches"], "train": train["launches"]}
+                         ("up/gate 8192x2048", 2048), "train"),
+               "bsmm_balanced": ("src/repro_torch/kernels/bsmm/csrc/"
+                                 "bsmm_balanced.cu",
+                                 "src/repro/kernels/bsmm/balanced.py:59",
+                                 ("skew power_law 4096x4096 d=1/32", 4096),
+                                 "table3"),
+               "dsmm": ("src/repro_torch/kernels/dsmm/csrc/dsmm.cu",
+                        "src/repro/kernels/dsmm/dsmm.py:53",
+                        ("up/gate 8192x2048 b=16", 2048), "dynamic")}
+    by_path = {"serve": serve["launches"], "train": train["launches"],
+               "table3": table3_launches, "dynamic": dyn_launches}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
-        # launch), the sddmm at the training shape
+        # launch), the sddmm at the training shape, dsmm at the dynamic
+        # FFN's shape, bsmm_balanced on the power-law skew grid
         r = next(r for r in rows if r["kernel"] == name
                  and r["n"] == n and r["dtype"] == "bfloat16"
                  and r["shape"] == shape)
@@ -576,6 +1019,7 @@ def main(argv=None) -> int:
                        "cuda": torch.version.cuda, "build_s": built,
                        "kernel_rows": rows, "serve": serve,
                        "consistency": errs, "grads": grads, "train": train,
+                       "table3": table3, "dynamic": dyn,
                        "kernels": kernels}, f,
                       indent=1)
 

@@ -8,6 +8,9 @@ The metadata arrays equal the JAX package's for the same pattern and tile
 size; the CUDA bsmm kernel walks them with ``tm = tk = b``.
 ``plan_transpose``/``apply_transpose`` are the pattern and value halves
 of the transposed pattern the backward's dL/dx product runs on.
+``plan_swizzle``/``plan_packing_balanced`` bin the row-tiles by their
+tile counts (sorted-snake dealing) into the visit schedule of the
+balanced walk; ``balance_report`` measures a count profile's skew.
 """
 from __future__ import annotations
 
@@ -158,3 +161,133 @@ def apply_transpose(plan: TransposePlan, values: torch.Tensor,
         perm = torch.as_tensor(plan.perm, dtype=torch.long,
                                device=values.device)
     return values[perm].transpose(1, 2)
+
+
+@dataclasses.dataclass(frozen=True)
+class SwizzlePlan:
+    """Row-swizzle pre-pass (Gale et al. 2020 §5.1, row binning): assign
+    row-tiles to ``num_bins`` equal-work bins by sorted-snake dealing
+    over their tile counts, so a balanced kernel grid can walk one bin
+    per (parallel) grid lane with near-equal steps per lane.
+
+    ``order`` is the swizzled visit order (bins concatenated, row-tiles
+    ascending within a bin); ``inverse`` is its inverse permutation.
+    The balanced kernel writes each row-tile at its original position,
+    so no runtime un-permute runs.
+    """
+
+    order: np.ndarray       # [R] row-tiles in visit order
+    inverse: np.ndarray     # [R] inverse permutation of ``order``
+    bin_of: np.ndarray      # [R] owning bin per row-tile
+    num_bins: int
+    steps_per_bin: int      # max per-bin tile count (the padded lane length)
+    loads: np.ndarray       # [num_bins] tile count per bin
+
+
+def plan_swizzle(row_counts: np.ndarray,
+                 num_bins: int | None = None) -> SwizzlePlan:
+    """Bin row-tiles so per-bin work (tile counts) is equalized.
+
+    Sorted-snake dealing: sort rows by count descending, deal them into
+    bins boustrophedon (0..B-1, B-1..0, ...).  For power-law row
+    profiles this bounds the max-bin load close to the mean -- the
+    row-swizzle load balance of Gale et al. without any runtime cost.
+    """
+    counts = np.asarray(row_counts, np.int64)
+    r = int(counts.size)
+    nb = min(int(num_bins) if num_bins else 8, max(r, 1))
+    nb = max(nb, 1)
+    order_desc = np.argsort(-counts, kind="stable")
+    bin_of = np.zeros(r, np.int32)
+    for i, row in enumerate(order_desc):
+        pos, rnd = i % nb, i // nb
+        bin_of[row] = pos if rnd % 2 == 0 else nb - 1 - pos
+    loads = np.bincount(bin_of, weights=counts,
+                        minlength=nb).astype(np.int64)
+    order = np.lexsort((np.arange(r), bin_of))
+    inverse = np.argsort(order)
+    steps = int(loads.max()) if r else 0
+    return SwizzlePlan(order.astype(np.int64), inverse.astype(np.int64),
+                       bin_of, nb, steps, loads)
+
+
+@dataclasses.dataclass(frozen=True)
+class BalancedPacking:
+    """Swizzle-composed tile packing (plan-first contract): the base
+    row-major ``PackingPlan`` (``pack_values`` layout is unchanged) plus
+    the per-bin visit schedule the balanced kernel walks.
+
+    ``visit_slot[g, s]`` is the tile-stack slot bin ``g`` multiplies at
+    step ``s`` -- or ``base.num_tiles``, the appended all-zero pad tile,
+    once the bin's real work is exhausted.  Pad steps keep the bin's
+    last real row so the walk's flush fires once, at the lane end.
+    ``visit_rows`` carries *original* row-tile ids: the inverse swizzle
+    permutation is applied to the output by construction.
+    """
+
+    base: PackingPlan
+    swizzle: SwizzlePlan
+    visit_slot: np.ndarray   # [num_bins, steps] int32
+    visit_rows: np.ndarray   # [num_bins, steps] int32 (original row-tiles)
+    visit_cols: np.ndarray   # [num_bins, steps] int32
+
+    @property
+    def num_bins(self) -> int:
+        return int(self.visit_slot.shape[0])
+
+    @property
+    def steps_per_bin(self) -> int:
+        return int(self.visit_slot.shape[1])
+
+
+def plan_packing_balanced(row_idx: np.ndarray, col_idx: np.ndarray,
+                          shape: Tuple[int, int], block_size: int,
+                          tm: int = 128, tk: int = 128,
+                          num_bins: int | None = None) -> BalancedPacking:
+    """Pattern phase of the balanced (row-swizzled) packing: the base
+    ``plan_packing`` metadata plus the snake-binned visit schedule.
+    Host-only, runs once per pattern."""
+    base = plan_packing(row_idx, col_idx, shape, block_size, tm, tk)
+    mt = base.grid[0]
+    counts = np.bincount(base.tile_rows, minlength=mt)
+    sw = plan_swizzle(counts, num_bins)
+    nb, steps = sw.num_bins, sw.steps_per_bin
+    # base.tile_rows is sorted row-major: each row-tile's slots are one
+    # contiguous range
+    starts = np.searchsorted(base.tile_rows, np.arange(mt), side="left")
+    ends = np.searchsorted(base.tile_rows, np.arange(mt), side="right")
+    visit_slot = np.full((nb, steps), base.num_tiles, np.int32)  # pad tile
+    visit_rows = np.zeros((nb, steps), np.int32)
+    visit_cols = np.zeros((nb, steps), np.int32)
+    for g in range(nb):
+        rows_g = np.flatnonzero(sw.bin_of == g)
+        slots = np.concatenate([np.arange(starts[r], ends[r])
+                                for r in rows_g]) if rows_g.size else \
+            np.zeros(0, np.int64)
+        t = slots.size
+        visit_slot[g, :t] = slots
+        visit_rows[g, :t] = base.tile_rows[slots]
+        visit_cols[g, :t] = base.tile_cols[slots]
+        if t:                      # pad keeps the lane's last real row
+            visit_rows[g, t:] = visit_rows[g, t - 1]
+    return BalancedPacking(base, sw, visit_slot, visit_rows, visit_cols)
+
+
+def balance_report(counts: np.ndarray) -> dict:
+    """Load-balance diagnostics (used by tests + benchmarks)."""
+    counts = np.asarray(counts)
+    if counts.size == 0:
+        # degenerate pattern (no owners): a zeroed report, not a crash
+        return {"max": 0, "min": 0, "mean": 0.0, "imbalance": 0.0,
+                "padding_waste": 0.0, "frac_empty": 0.0, "cv": 0.0}
+    mx, mn, mean = counts.max(), counts.min(), counts.mean()
+    return {
+        "max": int(mx), "min": int(mn), "mean": float(mean),
+        # max/mean alone hides all-empty owners (min=0 still reports a
+        # finite ratio): frac_empty + cv surface that skew honestly
+        "imbalance": float(mx / mean) if mean else 0.0,
+        "padding_waste": float((mx * len(counts) - counts.sum())
+                               / max(1, counts.sum())),
+        "frac_empty": float((counts == 0).mean()),
+        "cv": float(counts.std() / mean) if mean else 0.0,
+    }

@@ -1,7 +1,7 @@
 """Neural-network layers backed by block-sparse matmul (``nn.Module``s).
 
 Counterparts of the JAX package's ``core/sparse_layers.py``
-``SparseLinear`` and ``SparseFFN``.  The block pattern is a host
+``SparseLinear``, ``SparseFFN`` and ``DynamicSparseLinear``.  The block pattern is a host
 constant on the module, not a parameter; the values are a
 ``[nnz, b, b]`` parameter in lexsort (row, col) order, the JAX layout,
 so weights carry across one to one.
@@ -10,7 +10,10 @@ Parameters are created with ``requires_grad=False`` (serving) and
 train once switched on (``module.requires_grad_(True)``): with grad
 enabled the forward runs the plan's autograd Function (bsmm forward;
 SDDMM and bsmm on the transposed pattern backward); under ``no_grad`` it
-runs the cached packed tile stack.
+runs the cached packed tile stack.  ``DynamicSparseLinear`` keeps a
+dense master weight and a runtime block mask (the paper's dynamic mode):
+each forward encodes the masked blocks on the device and multiplies
+through the dynamic plan, so the mask may change every step.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import sparse as sparse_api
+from repro_torch.core import dynamic_sparse as dsp
 from repro_torch.core import masks as masks_lib
 from repro_torch.core.bsr import BlockSparseMatrix
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -123,6 +127,96 @@ class SparseLinear(nn.Module):
         else:
             y = self.plan().run_packed(self.packed(), x2)
         y = y.reshape(*lead, self.out_features)
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+
+class DynamicSparseLinear(nn.Module):
+    """Dense master weight + runtime block mask (dynamic sparse
+    training).
+
+    Matches PopSparse's dynamic mode: the slot capacity is fixed by
+    ``d_max``; the mask is data (a buffer) and may change every step.
+    ``forward`` encodes ``weight`` under ``mask`` into ``nnz_max`` slots
+    and runs ``dspmm_nt`` through the dynamic plan (``backend`` as in the
+    JAX layer: "auto", "xla", "pallas", "grouped").  Gradients reach the
+    dense weight through the encoder's gather."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 block_size: int, d_max: float, *, use_bias: bool = False,
+                 dtype: torch.dtype = torch.float32, backend: str = "auto",
+                 device: DeviceLike = None):
+        super().__init__()
+        b = block_size
+        if in_features % b or out_features % b:
+            raise ValueError(f"features ({out_features}, {in_features}) "
+                             f"not divisible by block {b}")
+        dev = resolve_device(device)
+        self.in_features = in_features
+        self.out_features = out_features
+        self.block_size = b
+        self.d_max = float(d_max)
+        self.backend = backend
+        self.weight = nn.Parameter(torch.zeros(
+            (out_features, in_features), dtype=dtype, device=dev))
+        self.register_buffer("mask", torch.zeros(
+            (out_features // b, in_features // b), dtype=torch.bool,
+            device=dev))
+        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
+                                              device=dev))
+                     if use_bias else None)
+
+    @property
+    def nnz_max(self) -> int:
+        grid = (self.out_features // self.block_size) * \
+            (self.in_features // self.block_size)
+        return max(1, int(np.ceil(grid * self.d_max)))
+
+    def reset_parameters(self, generator: torch.Generator, *,
+                         mask_seed: int = 0) -> None:
+        """Normal weight scaled by ``1 / sqrt(in * d_max)`` (the JAX
+        layer's rule) and a random block mask at ``d_max``."""
+        scale = 1.0 / np.sqrt(self.in_features * self.d_max)
+        with torch.no_grad():
+            w = torch.randn(self.weight.shape, generator=generator,
+                            device=self.weight.device)
+            self.weight.copy_(w * scale)
+            if self.bias is not None:
+                self.bias.zero_()
+        self.set_mask(masks_lib.random_block_mask(
+            self.out_features, self.in_features, self.block_size,
+            self.d_max, seed=mask_seed))
+
+    def set_mask(self, mask) -> None:
+        """Install a new block mask ``[out / b, in / b]`` (a host array
+        or a tensor; copied into the buffer)."""
+        if not isinstance(mask, torch.Tensor):
+            mask = torch.from_numpy(np.array(mask, bool))
+        if tuple(mask.shape) != tuple(self.mask.shape):
+            raise ValueError(f"mask {tuple(mask.shape)} != grid "
+                             f"{tuple(self.mask.shape)}")
+        self.mask.copy_(mask)
+
+    def load_jax_params(self, params) -> "DynamicSparseLinear":
+        """Copy the JAX layer's params (``{"w", "mask", "bias"}`` as
+        numpy) into this module."""
+        with torch.no_grad():
+            self.weight.copy_(torch.from_numpy(np.array(params["w"],
+                                                        np.float32)))
+            if self.bias is not None:
+                self.bias.copy_(torch.from_numpy(np.array(
+                    params["bias"], np.float32)))
+        self.set_mask(np.asarray(params["mask"], bool))
+        return self
+
+    def encode(self) -> dsp.DynamicOperand:
+        return dsp.encode(self.weight, self.mask,
+                          block_size=self.block_size, nnz_max=self.nnz_max)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = dsp.dspmm_nt(self.encode(), x.to(self.weight.dtype),
+                         backend=self.backend)
         if self.bias is not None:
             y = y + self.bias
         return y

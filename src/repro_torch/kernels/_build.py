@@ -35,6 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # name -> path of the CUDA source, relative to the package root
 SOURCES: Dict[str, str] = {
     "bsmm": os.path.join("kernels", "bsmm", "csrc", "bsmm.cu"),
+    "bsmm_balanced": os.path.join("kernels", "bsmm", "csrc",
+                                  "bsmm_balanced.cu"),
+    "dsmm": os.path.join("kernels", "dsmm", "csrc", "dsmm.cu"),
     "dense_mm": os.path.join("kernels", "dense_mm", "csrc", "dense_mm.cu"),
     "sddmm": os.path.join("kernels", "sddmm", "csrc", "sddmm.cu"),
 }

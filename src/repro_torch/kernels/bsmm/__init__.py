@@ -1,3 +1,6 @@
+from repro_torch.kernels.bsmm.balanced import (  # noqa: F401
+    COUNTER as BALANCED_COUNTER, bsmm_balanced, bsmm_balanced_cuda,
+    bsmm_balanced_from_plan, bsmm_balanced_plain)
 from repro_torch.kernels.bsmm.ops import (COUNTER, bsmm_nt,  # noqa: F401
                                           bsmm_nt_cuda, bsmm_nt_plain)
 from repro_torch.kernels.contract import KernelContract, register
@@ -18,4 +21,25 @@ CONTRACT = register(KernelContract(
          "walking its row-tile's b x b tiles through a CSR row pointer",
     capacity="exact",
     replaces="src/repro/kernels/bsmm/bsmm.py:50 bsmm_call",
+))
+
+# row-swizzled balanced walk: narrower than the reference's
+# bsmm_balanced contract (blocks 1..128, tm/tk from _pick_tiles) in the
+# same way as bsmm: square b x b tiles (tm = tk = b), b in {4, 8, 16, 32,
+# 64}; the bin count is the plan's choice for the card
+# (``balanced.card_bins``: bins x token tiles >= 2 x 132 SMs, at least
+# the reference's 8, at most one per row-tile), 8 on the CPU as in the
+# reference; any bin count gives the same result
+BALANCED_CONTRACT = register(KernelContract(
+    kernel="bsmm_balanced",
+    routes=("static_balanced_cuda",),
+    dtypes=("float32", "bfloat16", "float16"),
+    min_block=4,
+    max_block=64,
+    divisibility=("m % b == 0", "k % b == 0", "b in (4, 8, 16, 32, 64)"),
+    grid="bins x ceil(n / BN) blocks (BN = 256 / 128 / 64 tokens at b = "
+         "4 / 8 / >= 16), each walking one snake-binned lane of the "
+         "[bins, steps] visit schedule (pads -> appended zero tile)",
+    capacity="exact",
+    replaces="src/repro/kernels/bsmm/balanced.py:59 bsmm_balanced_call",
 ))

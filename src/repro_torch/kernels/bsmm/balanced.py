@@ -1,0 +1,150 @@
+"""Balanced-walk static block-sparse matmul: CUDA kernel wrapper and
+plain version.
+
+``bsmm_balanced(x2, tiles, visit_rows, visit_cols, visit_slot, m)``
+computes ``y[N, m] = x2[N, k] . W^T`` for the block-sparse ``W`` held as
+a packed ``[T + 1, b, b]`` tile stack (``plan_packing`` with ``tm = tk
+= b`` plus one trailing zero tile), walked over the ``[bins, steps]``
+visit schedule of ``partitioner.plan_packing_balanced``.  For a CUDA
+tensor it launches ``csrc/bsmm_balanced.cu`` (the port of
+``src/repro/kernels/bsmm/balanced.py`` ``bsmm_balanced_call``) or
+raises; for a CPU tensor it runs ``bsmm_balanced_plain``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import partitioner
+from repro_torch.kernels import _build
+
+TILE_SIZES = (4, 8, 16, 32, 64)
+DTYPES = _build.DTYPES
+COUNTER = _build.LaunchCounter()
+# thread blocks the balanced walk aims for: two per SM of an H100
+TARGET_BLOCKS = 2 * 132
+
+
+def tokens_per_block(b: int) -> int:
+    """Tokens one thread block of the kernel covers at tile size ``b``."""
+    return 256 if b <= 4 else (128 if b == 8 else 64)
+
+
+def card_bins(row_tiles: int, n: int, b: int) -> int:
+    """Bin count the plan picks for the card: enough (bin, token tile)
+    blocks to fill it (``TARGET_BLOCKS``), at least the reference's
+    default of 8, at most one bin per row-tile."""
+    n_tiles = max(1, -(-n // tokens_per_block(b)))
+    want = max(8, -(-TARGET_BLOCKS // n_tiles))
+    return max(1, min(want, row_tiles))
+
+
+def bsmm_balanced_plain(x2: torch.Tensor, tiles: torch.Tensor,
+                        visit_rows: torch.Tensor, visit_cols: torch.Tensor,
+                        visit_slot: torch.Tensor, m: int) -> torch.Tensor:
+    """Plain PyTorch version: every step of every lane (pads included)
+    multiplies its tile with its x slice in fp32 and adds into its
+    row-tile.  Same inputs and result as the kernel."""
+    n, k = x2.shape
+    b = tiles.shape[-1]
+    rows, cols = visit_rows.reshape(-1).long(), visit_cols.reshape(-1).long()
+    xs = x2.float().reshape(n, k // b, b)[:, cols]              # [N, V, b]
+    w = tiles.float()[visit_slot.reshape(-1).long()]            # [V, b, b]
+    part = torch.einsum("nvj,vij->nvi", xs, w)
+    y = torch.zeros((n, m // b, b), dtype=torch.float32, device=x2.device)
+    y.index_add_(1, rows, part)
+    return y.reshape(n, m).to(x2.dtype)
+
+
+def _check(x2, tiles, visit_rows, visit_cols, visit_slot, m):
+    if x2.dim() != 2 or tiles.dim() != 3:
+        raise ValueError(f"x2 must be [N, K] and tiles [T + 1, b, b]; got "
+                         f"{tuple(x2.shape)} and {tuple(tiles.shape)}")
+    n, k = x2.shape
+    _, tm, tk = tiles.shape
+    if tm != tk or tm not in TILE_SIZES:
+        raise ValueError(f"bsmm_balanced kernel takes square tiles of "
+                         f"{TILE_SIZES}; got {tm}x{tk}")
+    if k % tk or m % tm:
+        raise ValueError(f"k={k}, m={m} must be multiples of the tile {tm}")
+    if x2.dtype not in DTYPES or tiles.dtype != x2.dtype:
+        raise ValueError(f"dtypes x2={x2.dtype}, tiles={tiles.dtype}: "
+                         f"both one of {DTYPES}")
+    shape = tuple(visit_rows.shape)
+    for name, a in (("visit_rows", visit_rows), ("visit_cols", visit_cols),
+                    ("visit_slot", visit_slot)):
+        if a.dtype != torch.int32 or a.dim() != 2 or tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be int32 [bins, steps] like "
+                             f"visit_rows {shape}")
+    for name, a in (("x2", x2), ("tiles", tiles), ("visit_rows", visit_rows),
+                    ("visit_cols", visit_cols), ("visit_slot", visit_slot)):
+        if a.device != x2.device:
+            raise ValueError(f"{name} on {a.device}, x2 on {x2.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def bsmm_balanced_cuda(x2: torch.Tensor, tiles: torch.Tensor,
+                       visit_rows: torch.Tensor, visit_cols: torch.Tensor,
+                       visit_slot: torch.Tensor, m: int) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only)."""
+    _check(x2, tiles, visit_rows, visit_cols, visit_slot, m)
+    if x2.device.type != "cuda":
+        raise ValueError(f"bsmm_balanced_cuda needs CUDA tensors, got "
+                         f"{x2.device}")
+    n, k = x2.shape
+    bins, steps = visit_rows.shape
+    y = torch.empty((n, m), dtype=x2.dtype, device=x2.device)
+    if n == 0 or bins == 0:
+        return y
+    fn = _build.entry("bsmm_balanced", "bsmm_balanced_nt",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                      + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    with torch.cuda.device(x2.device):
+        code = fn(x2.data_ptr(), tiles.data_ptr(), visit_rows.data_ptr(),
+                  visit_cols.data_ptr(), visit_slot.data_ptr(), y.data_ptr(),
+                  n, k, m, tiles.shape[1], bins, steps, tiles.shape[0] - 1,
+                  _build.DTYPE_CODES[x2.dtype], stream)
+    _build.check(code, "bsmm_balanced_nt")
+    COUNTER.launches += 1
+    return y
+
+
+def bsmm_balanced(x2: torch.Tensor, tiles: torch.Tensor,
+                  visit_rows: torch.Tensor, visit_cols: torch.Tensor,
+                  visit_slot: torch.Tensor, m: int) -> torch.Tensor:
+    """``y[N, m] = x2 . W^T`` over the balanced visit schedule.  CUDA
+    tensors launch the kernel (or raise); CPU tensors run the plain
+    version."""
+    if x2.device.type == "cuda":
+        return bsmm_balanced_cuda(x2.contiguous(), tiles, visit_rows,
+                                  visit_cols, visit_slot, m)
+    if x2.device.type != "cpu":
+        raise ValueError(f"bsmm_balanced: unsupported device {x2.device}")
+    return bsmm_balanced_plain(x2, tiles, visit_rows, visit_cols,
+                               visit_slot, m)
+
+
+def pad_tiles(tiles: torch.Tensor) -> torch.Tensor:
+    """The tile stack with the schedule's trailing zero tile."""
+    return torch.cat([tiles, tiles.new_zeros((1,) + tuple(tiles.shape[1:]))])
+
+
+def bsmm_balanced_from_plan(meta: partitioner.BalancedPacking,
+                            values: torch.Tensor,
+                            x2: torch.Tensor) -> torch.Tensor:
+    """SpMM from a one-time ``plan_packing_balanced`` analysis: pack the
+    ``[nnz, b, b]`` values (as the uniform walk does), append the zero
+    pad tile, walk the schedule.  Copies the schedule to the device on
+    every call; ``sparse.plan`` keeps it there instead."""
+    base = meta.base
+    dev = x2.device
+    tiles = pad_tiles(partitioner.pack_values(base, values)).contiguous()
+
+    def on_dev(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=dev).contiguous()
+    return bsmm_balanced(x2, tiles, on_dev(meta.visit_rows),
+                         on_dev(meta.visit_cols), on_dev(meta.visit_slot),
+                         base.shape[0])

@@ -24,7 +24,8 @@ _EVAL_GLOBALS = {"__builtins__": {}, "any": any, "all": all,
 class KernelContract:
     """Declared admissibility of one kernel.
 
-    kernel        package name ("bsmm", "dense_mm", "sddmm")
+    kernel        kernel name ("bsmm", "bsmm_balanced", "dense_mm",
+                  "dsmm", "sddmm")
     routes        plan routes the kernel serves
     dtypes        supported operand dtypes, by name
     min_block /   inclusive block-size range
@@ -93,5 +94,6 @@ def load_all() -> Dict[str, KernelContract]:
     """Import every kernel package and return the full registry."""
     import repro_torch.kernels.bsmm      # noqa: F401
     import repro_torch.kernels.dense_mm  # noqa: F401
+    import repro_torch.kernels.dsmm      # noqa: F401
     import repro_torch.kernels.sddmm     # noqa: F401
     return dict(_REGISTRY)

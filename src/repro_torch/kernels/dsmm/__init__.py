@@ -1,0 +1,25 @@
+from repro_torch.kernels.contract import KernelContract, register
+from repro_torch.kernels.dsmm.ops import (COUNTER, dsmm,  # noqa: F401
+                                          dsmm_cuda, dsmm_plain, dsmm_slots,
+                                          encode_slots)
+
+# narrower than the reference's dsmm contract (blocks 1..128, row-sorted
+# slots): the CUDA kernel takes b in {4, 8, 16, 32, 64, 128} (the grouped
+# routes' tiles are b x b with b = t <= 128); the slots need only be
+# contiguous per block-row, not ascending (the balanced order); n is free
+# (ragged token tiles are masked)
+CONTRACT = register(KernelContract(
+    kernel="dsmm",
+    routes=("dynamic_cuda", "dynamic_grouped_cuda",
+            "dynamic_grouped_balanced_cuda"),
+    dtypes=("float32", "bfloat16", "float16"),
+    min_block=4,
+    max_block=128,
+    divisibility=("m % b == 0", "k % b == 0",
+                  "b in (4, 8, 16, 32, 64, 128)"),
+    grid="one run-bounds pass over the S slots, then (m // b) x "
+         "ceil(n / BN) blocks (BN = 256 / 128 / 64 tokens at b = 4 / 8 / "
+         ">= 16), each walking its block-row's contiguous run of slots",
+    capacity="slot_capacity",
+    replaces="src/repro/kernels/dsmm/dsmm.py:53 dsmm_call",
+))

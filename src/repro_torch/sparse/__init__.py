@@ -1,5 +1,9 @@
-"""Plan-first sparse matmul API of the port (static and dense kinds)."""
+"""Plan-first sparse matmul API of the port (static, dynamic and dense
+kinds)."""
 from repro_torch.sparse.plan import (ROUTES, SDDMM_ROUTES,  # noqa: F401
-                                     GradPlan, MatmulPlan,
-                                     cache_stats, matmul, plan, reset, spmm,
-                                     spmm_nt)
+                                     GradPlan, MatmulPlan, cache_stats,
+                                     capacity_report, matmul, plan, reset,
+                                     reset_telemetry, spmm, spmm_nt)
+from repro_torch.sparse.spec import (  # noqa: F401
+    ESCALATION_MIN_CALLS, MODES, CapacityStats, OpSpec, PlanContext,
+    port_route)

@@ -1,45 +1,62 @@
-"""Plan-first sparse matmul API, static and dense kinds.
+"""Plan-first sparse matmul API: static, dynamic and dense kinds.
 
-``plan(operand, n, device=...)`` runs every one-time step for a matmul
-operand and returns a ``MatmulPlan`` that executes with no further
-decisions.  Counterpart of the JAX package's ``sparse/plan.py``
-(``_static_executor``/``_dense_executor`` at ``plan.py:1042-1077``,
-``spmm_nt``/``matmul`` at ``plan.py:2001-2023``), cut to what serving
-needs:
+``plan(operand, n, device=..., ctx=...)`` runs every one-time step for a
+matmul operand and returns a ``MatmulPlan`` that executes with no
+further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
+(``_static_executor``/``_dynamic_executor``/``_dense_executor`` at
+``plan.py:1051-1275``, ``spmm``/``spmm_nt``/``matmul`` at
+``plan.py:1987-2023``), with these cuts:
 
-* the route is fixed by the device, with no race: on a CUDA device the
-  static kind runs ``static_cuda`` (the bsmm kernel) and the dense kind
-  ``dense_cuda`` (the dense_mm kernel); on the CPU they run the kernels'
-  plain PyTorch versions (``static_torch``, ``dense_torch``);
-* a static plan runs ``partitioner.plan_packing`` once with
-  ``tm = tk = b`` and keeps the CSR row pointer and tile columns on the
-  device;
-* plans are cached in memory per (pattern, shape, dtype, device) and
-  serve any number of activation rows ``n``;
+* no route race: ``PlanContext.mode`` takes the JAX package's modes and
+  ``spec.port_route`` maps them onto the port's routes by device (the
+  CUDA kernels on a card, their plain PyTorch versions on the CPU);
+  "auto" is the static walk (``static_cuda``, the bsmm kernel), the dsmm
+  slot walk (``dynamic_cuda``) or the dense GEMM (``dense_cuda``);
+* a static plan runs ``partitioner.plan_packing`` once with ``tm = tk =
+  b`` (``static_balanced``: ``plan_packing_balanced``, with a bin count
+  picked for the card) and keeps its walk on the device; it is cached
+  per (pattern, shape, dtype, device, route) and serves any ``n``;
+* a dynamic plan is keyed by the problem (m, k, capacity, b, dtype,
+  device, route and the capacity knobs), never by the pattern: a new
+  mask every step reuses one plan.  The grouped routes size their tile
+  bucket with ``planner.plan_grouped_capacity``, count every overflow
+  exactly (``capacity_report``) and escalate to worst-case capacity once
+  the overflow frequency passes ``overflow_threshold``;
 * under autograd a static plan runs the planned backward of
-  ``_planned_vjp`` (``plan.py:1431-1450``): dL/dx is the bsmm walk on the
-  transposed pattern (``partitioner.plan_transpose``, packed once at plan
-  time) and dL/dvalues the block SDDMM (route ``sddmm_cuda``, the sddmm
-  kernel, on a card; ``sddmm_torch``, its plain version, on the CPU).  A
-  dense plan mirrors ``_dense_planned_vjp`` (``plan.py:1488-1510``): the
-  dense_mm kernel forward, two ``torch.matmul`` products backward, as the
-  JAX package leaves them to XLA.
+  ``_planned_vjp`` (``plan.py:1431-1450``) whatever its forward route:
+  dL/dx is the bsmm walk on the transposed pattern, dL/dvalues the block
+  SDDMM (``sddmm_cuda`` on a card, ``sddmm_torch`` on the CPU).  A
+  dynamic plan mirrors ``_dynamic_planned_vjp`` (``plan.py:1453-1485``):
+  the kernel forward, the gather / einsum / ``index_add_`` pair backward
+  in plain PyTorch, as the JAX package leaves it to XLA
+  (``dynamic_torch`` is that formulation forward and backward).  A dense
+  plan mirrors ``_dense_planned_vjp``: dense_mm forward, two
+  ``torch.matmul`` products backward.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import partitioner
+from repro_torch.core import planner as planner_lib
 from repro_torch.core.bsr import BlockSparseMatrix, pattern_key
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.dynamic_sparse import (DynamicOperand, _dspmm,
+                                             dspmm_backward)
+from repro_torch.kernels.bsmm import balanced as bal_ops
 from repro_torch.kernels.bsmm import ops as bsmm_ops
 from repro_torch.kernels.dense_mm import ops as dmm_ops
+from repro_torch.kernels.dsmm import ops as dsmm_ops
+from repro_torch.kernels.gmm import balanced as gmm_balanced
+from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.sddmm import ops as sddmm_ops
+from repro_torch.sparse.spec import (CapacityStats, OpSpec, PlanContext,
+                                     port_route)
 
 ROUTES = {("static", "cuda"): "static_cuda",
           ("static", "cpu"): "static_torch",
@@ -47,8 +64,16 @@ ROUTES = {("static", "cuda"): "static_cuda",
           ("dense", "cpu"): "dense_torch"}
 # route of the static kind's dL/dvalues product, by device type
 SDDMM_ROUTES = {"cuda": "sddmm_cuda", "cpu": "sddmm_torch"}
+# bins of the balanced walks where the card does not pick (the
+# reference's default)
+DEFAULT_BINS = 8
 
-Operand = Union[BlockSparseMatrix, torch.Tensor]
+Operand = Union[BlockSparseMatrix, DynamicOperand, torch.Tensor]
+
+
+def _family(route: str) -> str:
+    """``static_balanced_cuda`` -> ``static_balanced``."""
+    return route.rsplit("_", 1)[0]
 
 
 @dataclasses.dataclass
@@ -56,9 +81,14 @@ class MatmulPlan:
     """One operand's executable plan.
 
     ``kind`` is ``"static"`` (block-sparse ``W [m, k]``, applied as
-    ``y = x . W^T``) or ``"dense"`` (``w [k, m]``, applied as
-    ``y = x . w``).  ``n`` is the activation row count the plan was
-    built for; it runs at any other ``n`` as well."""
+    ``y = x . W^T``), ``"dynamic"`` (a ``DynamicOperand`` of the same
+    logical shape, its pattern passed per call) or ``"dense"`` (``w [k,
+    m]``, applied as ``y = x . w``).  ``n`` is the activation row count
+    the plan was built for; it runs at any other ``n`` as well.
+    ``artifacts`` holds the JAX plan's report fields (``nnz_blocks``,
+    ``packing_tiles``, ``swizzle_*``, ``bucket_blocks``,
+    ``nnz_max_blocks``, ``grouped_tile``, ``grouped_tiles_cap``,
+    ``capacity``)."""
 
     kind: str
     route: str
@@ -73,35 +103,98 @@ class MatmulPlan:
     tile_cols: Optional[torch.Tensor] = None    # [T] int32
     pack_index: Optional[torch.Tensor] = None   # [nnz] long
     grad: Optional["GradPlan"] = None           # static kind only
+    spec: Optional[OpSpec] = None
+    ctx: PlanContext = dataclasses.field(default_factory=PlanContext)
+    key: str = ""
+    artifacts: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    capacity_stats: Optional[CapacityStats] = None
+    block_size: int = 1
+    # static_balanced: the visit schedule on the device, each [bins, steps]
+    visit: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    # a static pattern on a dynamic or dense route: its block indices
+    # (operand order) on the device and its block count
+    pattern_dev: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                torch.Tensor]] = None
+    # grouped routes: tile side and tile capacity
+    tile: int = 0
+    tiles_cap: int = 0
 
     @property
     def grad_routes(self) -> Dict[str, str]:
         """Routes of the backward products: dL/dx and dL/dvalues."""
         if self.kind == "dense":
             return {"dx": "torch_matmul", "dw": "torch_matmul"}
-        return {"dx": self.route,
+        if self.kind == "dynamic":
+            if _family(self.route) == "dynamic" \
+                    and self.device.type == "cpu":
+                return {"dx": "dynamic_torch", "dvalues": "dynamic_torch"}
+            return {"dx": "torch_gather_index_add",
+                    "dvalues": "torch_gather_einsum"}
+        return {"dx": ROUTES[("static", self.device.type)],
                 "dvalues": SDDMM_ROUTES[self.device.type]}
 
+    def capacity_report(self) -> Optional[dict]:
+        """Planned capacity + running overflow stats (None for routes
+        without a planned bucket)."""
+        if self.capacity_stats is None:
+            return None
+        return dict(self.artifacts.get("capacity", {}),
+                    stats=self.capacity_stats.report())
+
+    # -- static kind -------------------------------------------------------
+
     def pack(self, values: torch.Tensor) -> torch.Tensor:
-        """``[nnz, b, b]`` block values -> the ``[T, b, b]`` tile stack
-        the kernel walks (pad tiles for empty rows are zero).  Serving
-        packs once per weight load."""
-        return partitioner.pack_values(self.packing, values,
-                                       self.pack_index).contiguous()
+        """``[nnz, b, b]`` block values -> what the route walks: the
+        ``[T, b, b]`` tile stack (``static``; pad tiles for empty rows
+        are zero), the stack plus the schedule's zero tile
+        (``static_balanced``), the values themselves (the dynamic
+        routes) or ``W^T [k, m]`` (``dense``).  Serving packs once per
+        weight load."""
+        family = _family(self.route)
+        if family in ("static", "static_balanced"):
+            tiles = partitioner.pack_values(self.packing, values,
+                                            self.pack_index)
+            if family == "static_balanced":
+                tiles = bal_ops.pad_tiles(tiles)
+            return tiles.contiguous()
+        if family == "dense":
+            rows, cols, _ = self.pattern_dev
+            b = self.block_size
+            w = values.new_zeros((self.m // b, self.k // b, b, b))
+            w[rows.long(), cols.long()] = values
+            return w.permute(0, 2, 1, 3).reshape(self.m, self.k).t(
+                ).contiguous()
+        return values
 
-    def run_packed(self, tiles: torch.Tensor, x2: torch.Tensor
+    def run_packed(self, packed: torch.Tensor, x2: torch.Tensor
                    ) -> torch.Tensor:
-        """Static kind on a packed stack: ``x2 [N, k] -> [N, m]``."""
-        return bsmm_ops.bsmm_nt(x2.contiguous(), tiles, self.row_ptr,
-                                self.tile_cols, self.tile_rows, self.m)
+        """Static kind on ``pack(values)``: ``x2 [N, k] -> [N, m]``."""
+        family = _family(self.route)
+        if family == "static":
+            return bsmm_ops.bsmm_nt(x2.contiguous(), packed, self.row_ptr,
+                                    self.tile_cols, self.tile_rows, self.m)
+        if family == "static_balanced":
+            vr, vc, vs = self.visit
+            return bal_ops.bsmm_balanced(x2.contiguous(), packed, vr, vc, vs,
+                                         self.m)
+        if family == "dense":
+            return dmm_ops.dense_mm(x2.contiguous(), packed)
+        rows, cols, nnz = self.pattern_dev
+        op = DynamicOperand(packed, rows, cols, nnz, (self.m, self.k),
+                            self.block_size)
+        return self.run_dynamic(op, x2)
 
-    def spmm_nt(self, values: torch.Tensor, x2: torch.Tensor
-                ) -> torch.Tensor:
-        """Static kind: ``x2 [N, k] -> x2 . W^T [N, m]``, differentiable
-        in both operands through the planned backward."""
-        if _needs_grad(values, x2):
-            return _StaticSpmmFn.apply(values, x2, self)
-        return self.run_packed(self.pack(values), x2)
+    def spmm_nt(self, payload, x2: torch.Tensor) -> torch.Tensor:
+        """``x2 [N, k] -> x2 . W^T [N, m]``, differentiable in both
+        operands through the planned backward.  ``payload`` is the
+        ``[nnz, b, b]`` values (static kind) or the ``DynamicOperand``
+        (dynamic kind)."""
+        if self.kind == "dynamic":
+            return self._dynamic_nt(payload, x2)
+        if _needs_grad(payload, x2):
+            self._check_differentiable()
+            return _StaticSpmmFn.apply(payload, x2, self)
+        return self.run_packed(self.pack(payload), x2)
 
     def spmm_t(self, values: torch.Tensor, dy2: torch.Tensor
                ) -> torch.Tensor:
@@ -130,12 +223,67 @@ class MatmulPlan:
                              self.packing.block_size)
         return dv if g.unsort is None else dv[g.unsort]
 
+    # -- dense kind --------------------------------------------------------
+
     def matmul(self, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """Dense kind: ``x2 [N, k] . w [k, m]``, differentiable in both
         operands."""
         if _needs_grad(x2, w):
+            self._check_differentiable()
             return _DenseMatmulFn.apply(x2, w)
         return dmm_ops.dense_mm(x2.contiguous(), w.contiguous())
+
+    # -- dynamic routes ----------------------------------------------------
+
+    def _dynamic_nt(self, op: DynamicOperand, x2: torch.Tensor
+                    ) -> torch.Tensor:
+        if tuple(op.shape) != (self.m, self.k) \
+                or op.block_size != self.block_size:
+            raise ValueError(f"plan expects a {self.m}x{self.k} operand at "
+                             f"block {self.block_size}; got {op.shape} at "
+                             f"block {op.block_size}")
+        if _needs_grad(op.values, x2):
+            self._check_differentiable()
+            if self.route != "dynamic_torch":
+                return _DynamicSpmmFn.apply(op.values, op.row_idx,
+                                            op.col_idx, op.nnz, x2, self)
+        return self.run_dynamic(op, x2)
+
+    def run_dynamic(self, op: DynamicOperand, x2: torch.Tensor
+                    ) -> torch.Tensor:
+        """Forward of a dynamic route on ``op``: ``x2 [N, k] -> [N, m]``.
+        Only ``dynamic_torch`` is differentiable itself: ``_dspmm``
+        carries its own backward (the JAX dynamic_xla route's native
+        vjp); the kernel routes get theirs from ``_DynamicSpmmFn``."""
+        family = _family(self.route)
+        if self.route == "dynamic_torch":
+            return _dspmm(op.values, op.row_idx, op.col_idx, x2.t(),
+                          self.m // self.block_size, self.block_size).t()
+        if family == "dynamic":
+            return dsmm_ops.dsmm(op, x2)
+        if family == "dense":
+            return dmm_ops.dense_mm(x2.contiguous(),
+                                    op.to_dense().t().contiguous())
+        spmm = (gmm_balanced.balanced_spmm
+                if family == "dynamic_grouped_balanced"
+                else gmm_ops.grouped_spmm)
+        stats = self.capacity_stats
+        if stats is None or not self.ctx.telemetry:
+            return spmm(op, x2, tile=self.tile, tiles_cap=self.tiles_cap)
+        y, st = spmm(op, x2, tile=self.tile, tiles_cap=self.tiles_cap,
+                     return_stats=True)
+        # one host read of the four counters (waits for the device)
+        total, dropped, blocks, frac = torch.stack(
+            [v.to(torch.float64) for v in st]).tolist()
+        stats.record(int(total), int(dropped), int(blocks), frac)
+        return y
+
+    def _check_differentiable(self):
+        if not self.ctx.differentiable:
+            raise ValueError(
+                f"plan route {self.route!r} was built with "
+                f"PlanContext(differentiable=False) and has no backward; "
+                f"re-plan with differentiable=True")
 
 
 @dataclasses.dataclass
@@ -168,9 +316,9 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
 
 
 class _StaticSpmmFn(torch.autograd.Function):
-    """``_planned_vjp``: forward packs the values and runs bsmm;
-    backward runs the SDDMM for dvalues and bsmm on the transposed
-    pattern for dx, each cast to its operand's dtype."""
+    """``_planned_vjp``: forward runs the plan's route on the packed
+    values; backward runs the SDDMM for dvalues and bsmm on the
+    transposed pattern for dx, each cast to its operand's dtype."""
 
     @staticmethod
     def forward(ctx, values, x2, plan_):
@@ -189,6 +337,31 @@ class _StaticSpmmFn(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dx = p.spmm_t(values, dy2).to(x2.dtype)
         return dv, dx, None
+
+
+class _DynamicSpmmFn(torch.autograd.Function):
+    """``_dynamic_planned_vjp``: forward runs the plan's dynamic route
+    (the dsmm walk, direct or on packed tiles); backward is the runtime
+    gather / einsum / ``index_add_`` pair over the operand's own slots.
+    Integer index and count tensors get no gradient."""
+
+    @staticmethod
+    def forward(ctx, values, row_idx, col_idx, nnz, x2, plan_):
+        ctx.plan = plan_
+        x2 = x2.contiguous()
+        ctx.save_for_backward(values, row_idx, col_idx, x2)
+        op = DynamicOperand(values, row_idx, col_idx, nnz,
+                            (plan_.m, plan_.k), plan_.block_size)
+        return plan_.run_dynamic(op, x2)
+
+    @staticmethod
+    def backward(ctx, dy2):
+        values, row_idx, col_idx, x2 = ctx.saved_tensors
+        p = ctx.plan
+        dv, dx = dspmm_backward(values, row_idx, col_idx, x2.t(), dy2.t(),
+                                p.m // p.block_size, p.block_size)
+        return (dv.to(values.dtype), None, None, None,
+                dx.t().to(x2.dtype), None)
 
 
 class _DenseMatmulFn(torch.autograd.Function):
@@ -214,6 +387,9 @@ class _DenseMatmulFn(torch.autograd.Function):
 _LOCK = threading.Lock()
 _PLANS: Dict[Tuple, MatmulPlan] = {}
 _STATS = {"plans_built": 0, "plan_hits": 0}
+# running overflow telemetry per plan key: outlives plan objects, so an
+# escalation survives the eviction it causes
+_CAPACITY: Dict[str, CapacityStats] = {}
 
 
 def cache_stats() -> Dict[str, int]:
@@ -223,24 +399,59 @@ def cache_stats() -> Dict[str, int]:
 
 
 def reset() -> None:
-    """Forget every cached plan and zero the counters."""
+    """Forget every cached plan and capacity stat, zero the counters."""
     with _LOCK:
         _PLANS.clear()
+        _CAPACITY.clear()
         for key in _STATS:
             _STATS[key] = 0
 
 
+def reset_telemetry() -> None:
+    """Zero the running ``capacity_report()`` counters without
+    forgetting plans: stats of cached plans are zeroed in place (their
+    plans keep recording), orphaned ones dropped."""
+    with _LOCK:
+        live = {id(p.capacity_stats) for p in _PLANS.values()
+                if p.capacity_stats is not None}
+        for key in list(_CAPACITY):
+            stats = _CAPACITY[key]
+            if id(stats) not in live:
+                del _CAPACITY[key]
+            else:
+                stats.reset_counts()
+
+
+def capacity_report() -> dict:
+    """Overflow telemetry of every planned-capacity problem run in this
+    process, per plan key and in total."""
+    with _LOCK:
+        per_key = {k: s.report() for k, s in _CAPACITY.items()}
+    return {
+        "per_plan": per_key,
+        "totals": {
+            "calls": sum(r["calls"] for r in per_key.values()),
+            "overflow_calls": sum(r["overflow_calls"]
+                                  for r in per_key.values()),
+            "tiles_dropped_total": sum(r["tiles_dropped_total"]
+                                       for r in per_key.values()),
+            "escalated_plans": sum(1 for r in per_key.values()
+                                   if r["escalated"]),
+        },
+    }
+
+
+def _on_dev(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+
+
 def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
-                  dtype: torch.dtype) -> MatmulPlan:
+                  route: str, ctx: PlanContext) -> MatmulPlan:
     m, k = bsr.shape
     b = bsr.block_size
     rows = np.asarray(bsr.row_idx, np.int32)
     cols = np.asarray(bsr.col_idx, np.int32)
     meta = partitioner.plan_packing(rows, cols, (m, k), b, b, b)
-
-    def on_dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                               device=dev)
 
     order = np.lexsort((cols, rows))
     unsort = None
@@ -253,80 +464,224 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
         transpose=tp, packing=tmeta,
         perm=torch.as_tensor(tp.perm, dtype=torch.long, device=dev),
         pack_index=partitioner.pack_index(tmeta, dev),
-        row_ptr=on_dev(tmeta.row_ptr()), tile_rows=on_dev(tmeta.tile_rows),
-        tile_cols=on_dev(tmeta.tile_cols),
-        block_row_ptr=on_dev(sddmm_ops.block_row_ptr(rows[order], m // b)),
-        row_idx=on_dev(rows[order]), col_idx=on_dev(cols[order]),
+        row_ptr=_on_dev(tmeta.row_ptr(), dev),
+        tile_rows=_on_dev(tmeta.tile_rows, dev),
+        tile_cols=_on_dev(tmeta.tile_cols, dev),
+        block_row_ptr=_on_dev(sddmm_ops.block_row_ptr(rows[order], m // b),
+                              dev),
+        row_idx=_on_dev(rows[order], dev), col_idx=_on_dev(cols[order], dev),
         unsort=unsort)
-    return MatmulPlan(kind="static", route=ROUTES[("static", dev.type)],
-                      m=m, k=k, n=n, dtype=dtype, device=dev,
-                      packing=meta, row_ptr=on_dev(meta.row_ptr()),
-                      tile_rows=on_dev(meta.tile_rows),
-                      tile_cols=on_dev(meta.tile_cols),
-                      pack_index=partitioner.pack_index(meta, dev), grad=grad)
-
-
-def plan(operand: Operand, n: int, *, device: DeviceLike = None
-         ) -> MatmulPlan:
-    """Plan ``operand`` for ``n`` activation rows on ``device``
-    (``cuda`` unless the caller names another device).
-
-    ``operand`` is a ``BlockSparseMatrix`` (static kind, ``[m, k]``) or
-    a dense weight tensor ``w [k, m]`` (dense kind)."""
-    dev = resolve_device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"no route for device {dev}")
-    if isinstance(operand, BlockSparseMatrix):
-        key = ("static", pattern_key(operand.row_idx, operand.col_idx),
-               tuple(operand.shape), operand.block_size, operand.dtype,
-               dev)
-    elif isinstance(operand, torch.Tensor):
-        if operand.dim() != 2:
-            raise ValueError(f"dense operand must be [k, m], got "
-                             f"{tuple(operand.shape)}")
-        key = ("dense", tuple(operand.shape), operand.dtype, dev)
-    else:
-        raise TypeError(f"cannot plan a {type(operand).__name__}")
-    with _LOCK:
-        hit = _PLANS.get(key)
-        if hit is not None:
-            _STATS["plan_hits"] += 1
-            return hit
-    if key[0] == "static":
-        p = _build_static(operand, int(n), dev, operand.dtype)
-    else:
-        k, m = operand.shape
-        p = MatmulPlan(kind="dense", route=ROUTES[("dense", dev.type)],
-                       m=m, k=k, n=int(n), dtype=operand.dtype, device=dev)
-    with _LOCK:
-        p = _PLANS.setdefault(key, p)
-        _STATS["plans_built"] += 1
+    p = MatmulPlan(kind="static", route=route, m=m, k=k, n=n,
+                   dtype=bsr.dtype, device=dev, packing=meta,
+                   row_ptr=_on_dev(meta.row_ptr(), dev),
+                   tile_rows=_on_dev(meta.tile_rows, dev),
+                   tile_cols=_on_dev(meta.tile_cols, dev),
+                   pack_index=partitioner.pack_index(meta, dev), grad=grad,
+                   ctx=ctx, block_size=b)
+    art: Dict[str, Any] = {"nnz_blocks": len(rows),
+                           "packing_tiles": meta.num_tiles,
+                           "packing_occupancy": meta.occupancy}
+    family = _family(route)
+    if family == "static_balanced":
+        bins = (bal_ops.card_bins(meta.grid[0], n, b) if dev.type == "cuda"
+                else DEFAULT_BINS)
+        bm = partitioner.plan_packing_balanced(rows, cols, (m, k), b, b, b,
+                                               num_bins=bins)
+        rep = partitioner.balance_report(bm.swizzle.loads)
+        art.update(swizzle_bins=bm.num_bins,
+                   swizzle_steps_per_bin=bm.steps_per_bin,
+                   swizzle_imbalance=rep["imbalance"], swizzle_cv=rep["cv"])
+        p.visit = tuple(_on_dev(a, dev) for a in (
+            bm.visit_rows, bm.visit_cols, bm.visit_slot))
+    elif family != "static":
+        # a dynamic or dense route on a static pattern: the pattern's
+        # slots, all valid (capacity = nnz)
+        p.pattern_dev = (_on_dev(rows, dev), _on_dev(cols, dev),
+                         torch.tensor(len(rows), dtype=torch.int32,
+                                      device=dev))
+        if family in ("dynamic_grouped", "dynamic_grouped_balanced"):
+            t = gmm_ops.grouped_tile_size(m, k, b)
+            # a static pattern's exact tile count is known at plan time
+            p.tile = t
+            p.tiles_cap = partitioner.plan_packing(rows, cols, (m, k), b, t,
+                                                   t).num_tiles
+            art.update(grouped_tile=t, grouped_tiles_cap=p.tiles_cap)
+    p.artifacts = art
     return p
 
 
-def spmm_nt(operand: BlockSparseMatrix, x: torch.Tensor) -> torch.Tensor:
+def _build_dynamic(spec: OpSpec, dev: torch.device, route: str,
+                   ctx: PlanContext, key: str) -> MatmulPlan:
+    m, k, b = spec.m, spec.k, spec.block_size
+    dplan = planner_lib.plan_dynamic(m, k, spec.n, d_max=spec.density,
+                                     block_size=b, units=ctx.units)
+    art: Dict[str, Any] = dict(bucket_blocks=dplan.bucket_blocks,
+                               nnz_max_blocks=dplan.nnz_max_blocks,
+                               q_m=dplan.q_m, q_k=dplan.q_k, q_n=dplan.q_n)
+    p = MatmulPlan(kind="dynamic", route=route, m=m, k=k, n=spec.n,
+                   dtype=getattr(torch, spec.dtype), device=dev, spec=spec,
+                   ctx=ctx, key=key, artifacts=art, block_size=b)
+    if _family(route) not in ("dynamic_grouped", "dynamic_grouped_balanced"):
+        return p
+    t = gmm_ops.grouped_tile_size(m, k, b)
+    # planned capacity (paper §3.3 bucket sizing): expected distinct
+    # tiles at d_max times the headroom, not the safe worst case
+    slots = planner_lib.nnz_max_blocks(m, k, b, spec.density)
+    capplan = planner_lib.plan_grouped_capacity(
+        m, k, b, spec.density, tile=t, slots=slots,
+        headroom=ctx.resolved_headroom())
+    with _LOCK:
+        stats = _CAPACITY.get(key)
+        if stats is None:
+            stats = _CAPACITY[key] = CapacityStats(
+                key, tiles_cap=capplan.tiles_cap,
+                worst_tiles=capplan.worst_tiles,
+                overflow_threshold=ctx.overflow_threshold)
+    stats.overflow_threshold = ctx.overflow_threshold
+    # guardrail: an escalated problem re-plans at worst-case capacity
+    policy = ("worst" if (ctx.capacity_policy == "worst" or stats.escalated)
+              else "planned")
+    requested = (capplan.tiles_cap if policy == "planned"
+                 else capplan.worst_tiles)
+    cap, clamped = gmm_ops.clamped_tiles_cap(requested, m, k, t, warn=False)
+    stats.tiles_cap = cap
+    stats.worst_tiles = capplan.worst_tiles
+    stats.clamped = stats.clamped or clamped
+    art.update(grouped_tile=t, grouped_tiles_cap=cap,
+               capacity=dict(capplan.as_dict(), policy=policy, tiles_cap=cap,
+                             clamped=clamped, escalated=stats.escalated))
+    p.tile, p.tiles_cap, p.capacity_stats = t, cap, stats
+    return p
+
+
+def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
+         *, device: DeviceLike = None,
+         ctx: Optional[PlanContext] = None) -> MatmulPlan:
+    """Plan ``operand`` for ``n`` activation rows on ``device`` (``cuda``
+    unless the caller names another device) under ``ctx``.
+
+    ``operand_or_spec`` is a ``BlockSparseMatrix`` (static kind, ``[m,
+    k]``), a ``DynamicOperand`` (dynamic kind), a dense weight tensor
+    ``w [k, m]`` (dense kind), or an ``OpSpec`` of the dynamic or dense
+    kind (a static plan needs its pattern)."""
+    ctx = ctx or PlanContext()
+    dev = resolve_device(device)
+    if isinstance(operand_or_spec, OpSpec):
+        spec = operand_or_spec
+        if spec.kind == "static":
+            raise ValueError("a static plan needs its pattern: plan the "
+                             "BlockSparseMatrix, not an OpSpec")
+        if ctx.mode != spec.mode:
+            ctx = dataclasses.replace(ctx, mode=spec.mode)
+        operand = None
+        if n is not None:
+            spec = dataclasses.replace(spec, n=int(n))
+    else:
+        operand = operand_or_spec
+        if n is None:
+            raise ValueError("plan(operand, n): n is required when "
+                             "planning from a concrete operand")
+        if isinstance(operand, torch.Tensor):
+            if operand.dim() != 2:
+                raise ValueError(f"dense operand must be [k, m], got "
+                                 f"{tuple(operand.shape)}")
+            k_, m_ = operand.shape
+            spec = OpSpec(kind="dense", m=m_, k=k_, n=int(n),
+                          dtype=operand.dtype, op="matmul", mode=ctx.mode)
+        else:
+            spec = OpSpec.from_operand(operand, n, mode=ctx.mode)
+    route = port_route(spec.kind, ctx.mode, dev.type)
+    if spec.kind == "static":
+        fp = ("static", pattern_key(operand.row_idx, operand.col_idx),
+              (spec.m, spec.k), spec.block_size, spec.dtype, dev, route)
+    elif spec.kind == "dense":
+        fp = ("dense", (spec.k, spec.m), spec.dtype, dev, route)
+    else:
+        # the problem, never the pattern; capacity sizing is part of it
+        fp = ("dynamic", spec.m, spec.k, spec.block_size, spec.density,
+              spec.dtype, dev, route,
+              ("cap", ctx.resolved_headroom(), ctx.capacity_policy),
+              ctx.units)
+    key = repr(fp)
+    # the runtime-only knobs change what a plan does, not its bucket
+    mem_key = fp + (ctx.overflow_threshold, ctx.telemetry,
+                    ctx.differentiable)
+    if ctx.cache:
+        with _LOCK:
+            hit = _PLANS.get(mem_key)
+            if hit is not None:
+                _STATS["plan_hits"] += 1
+                return hit
+    if spec.kind == "static":
+        p = _build_static(operand, int(spec.n), dev, route, ctx)
+    elif spec.kind == "dynamic":
+        p = _build_dynamic(spec, dev, route, ctx, key)
+    else:
+        p = MatmulPlan(kind="dense", route=route, m=spec.m, k=spec.k,
+                       n=int(spec.n), dtype=getattr(torch, spec.dtype),
+                       device=dev, ctx=ctx)
+    p.spec = p.spec or spec
+    p.key = key
+    with _LOCK:
+        _STATS["plans_built"] += 1
+        if ctx.cache:
+            p = _PLANS.setdefault(mem_key, p)
+    stats = p.capacity_stats
+    if ctx.cache and stats is not None:
+        def _escalate_trip():
+            # the next plan() of this problem re-plans at worst case
+            with _LOCK:
+                if _PLANS.get(mem_key) is p:
+                    del _PLANS[mem_key]
+        stats._on_escalate = _escalate_trip
+    return p
+
+
+def _promote(operand, x: torch.Tensor):
+    """``(payload, x)`` in their common dtype."""
+    if isinstance(operand, DynamicOperand):
+        rt = torch.result_type(operand.values, x)
+        if operand.values.dtype != rt:
+            operand = dataclasses.replace(operand,
+                                          values=operand.values.to(rt))
+        return operand, x.to(rt)
+    rt = torch.result_type(operand.values, x)
+    return operand.values.to(rt), x.to(rt)
+
+
+def spmm_nt(operand: Union[BlockSparseMatrix, DynamicOperand],
+            x: torch.Tensor, *, ctx: Optional[PlanContext] = None
+            ) -> torch.Tensor:
     """Activation-major form ``x [..., k] -> x . W^T [..., m]``."""
+    if not isinstance(operand, (BlockSparseMatrix, DynamicOperand)):
+        raise TypeError(f"spmm_nt takes a sparse operand, got "
+                        f"{type(operand).__name__}")
     m, k = operand.shape
     if x.shape[-1] != k:
         raise ValueError(f"x feature dim {x.shape[-1]} != operand k {k}")
-    rt = torch.result_type(operand.values, x)
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, k).to(rt)
-    p = plan(operand, x2.shape[0], device=x.device)
-    y = p.spmm_nt(operand.values.to(rt), x2)
-    return y.reshape(*lead, m)
+    payload, x = _promote(operand, x)
+    x2 = x.reshape(-1, k)
+    p = plan(operand, x2.shape[0], device=x.device, ctx=ctx)
+    return p.spmm_nt(payload, x2).reshape(*lead, m)
 
 
-def spmm(operand: BlockSparseMatrix, x: torch.Tensor) -> torch.Tensor:
+def spmm(operand: Union[BlockSparseMatrix, DynamicOperand],
+         x: torch.Tensor, *, ctx: Optional[PlanContext] = None
+         ) -> torch.Tensor:
     """``Y = W . X`` with ``x [k, n] -> [m, n]`` (the JAX layout)."""
     if x.dim() != 2:
         raise ValueError(f"x must be [k, n], got shape {tuple(x.shape)}")
-    return spmm_nt(operand, x.t()).t()
+    if x.shape[0] != operand.shape[1]:
+        raise ValueError(f"X rows {x.shape[0]} != operand k "
+                         f"{operand.shape[1]}")
+    return spmm_nt(operand, x.t(), ctx=ctx).t()
 
 
-def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def matmul(x: torch.Tensor, w: torch.Tensor, *,
+           ctx: Optional[PlanContext] = None) -> torch.Tensor:
     """Dense-layer form ``y = x . w`` (``x [..., k]``, ``w [k, m]``)."""
-    if isinstance(w, BlockSparseMatrix):
+    if isinstance(w, (BlockSparseMatrix, DynamicOperand)):
         raise ValueError("matmul() takes a dense rhs; use spmm_nt for "
                          "sparse operands")
     k, m = w.shape
@@ -336,5 +691,6 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lead = x.shape[:-1]
     x2 = x.reshape(-1, k).to(rt)
     w = w.to(rt)
-    p = plan(w, x2.shape[0], device=x.device)
+    p = plan(w, x2.shape[0], device=x.device, ctx=ctx)
     return p.matmul(x2, w).reshape(*lead, m)
+

@@ -160,3 +160,130 @@ def test_sparse_linear_autograd_on_card_matches_plain(dev, dtype):
     f(v, xt).backward(gy.t())
     assert _rel(layer.values.grad, v.grad) <= TOL[dtype]
     assert _rel(x.grad, xt.grad.t()) <= TOL[dtype]
+
+
+GENS = {"uniform": masks.random_block_mask,
+        "power_law": masks.power_law_block_mask,
+        "dlmc": masks.dlmc_block_mask}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("kind", list(GENS))
+@pytest.mark.parametrize("n", [3, 300])
+def test_dsmm_cuda_matches_plain(dev, dtype, b, kind, n):
+    from repro_torch.core import dynamic_sparse as dsp
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    m, k = 512, 256
+    mask = GENS[kind](m, k, b, 0.25, seed=b)
+    mask[1] = False                                  # a row with no slots
+    g = torch.Generator(device=dev).manual_seed(b + n)
+    w = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    op = dsp.encode(w, torch.as_tensor(mask, device=dev), block_size=b,
+                    nnz_max=int(mask.sum()) + 5)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    # exact capacity: the encoder's row-major slots, no padding, are
+    # contiguous per row without coverage or sorting; row 1 has no run
+    exact = dsp.encode(w, torch.as_tensor(mask, device=dev), block_size=b,
+                       nnz_max=int(mask.sum()))
+    before = dsmm_ops.COUNTER.launches
+    got = dsmm_ops.dsmm(op, x)
+    raw = dsmm_ops.dsmm_slots(x, exact.values, exact.row_idx,
+                              exact.col_idx, m)
+    torch.cuda.synchronize()
+    assert dsmm_ops.COUNTER.launches == before + 2
+    rows, cols, vals = dsmm_ops.encode_slots(op)
+    want = dsmm_ops.dsmm_plain(x, vals, rows, cols, m)
+    assert got.dtype == dtype and torch.all(raw[:, b:2 * b] == 0)
+    assert _rel(got, want) <= TOL[dtype]
+    assert _rel(raw, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("kind", list(GENS))
+@pytest.mark.parametrize("n", [5, 300])
+def test_bsmm_balanced_cuda_matches_plain(dev, dtype, b, kind, n):
+    from repro_torch.kernels.bsmm import balanced as bal
+    m, k = 512, 256
+    mask = GENS[kind](m, k, b, 0.25, seed=b + 1)
+    mask[0] = False                                  # an empty row-tile
+    g = torch.Generator(device=dev).manual_seed(b)
+    vals = torch.randn((int(mask.sum()), b, b), generator=g,
+                       device=dev).to(dtype)
+    bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
+    plan = sparse.plan(bsr, n, device=dev,
+                       ctx=sparse.PlanContext(mode="static_balanced"))
+    assert plan.route == "static_balanced_cuda"
+    tiles = plan.pack(vals)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    vr, vc, vs = plan.visit
+    before = bal.COUNTER.launches
+    got = plan.run_packed(tiles, x)
+    torch.cuda.synchronize()
+    assert bal.COUNTER.launches == before + 1
+    want = bal.bsmm_balanced_plain(x, tiles, vr, vc, vs, m)
+    assert torch.all(got[:, :b] == 0)
+    assert _rel(got, want) <= TOL[dtype]
+    assert _rel(got, x @ bsr.to_dense().t()) <= TOL[dtype] * 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["dynamic_grouped",
+                                   "dynamic_grouped_balanced"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_routes_on_card_match_cpu(dev, route, dtype):
+    from repro_torch.core import dynamic_sparse as dsp
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    m, k, b = 1024, 512, 16
+    mask = masks.power_law_block_mask(m, k, b, 1 / 8, seed=3)
+    w = torch.randn((m, k), generator=torch.Generator().manual_seed(0))
+    ctx = sparse.PlanContext(mode=route, capacity_policy="worst")
+    x = torch.randn((200, k), generator=torch.Generator().manual_seed(1))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        op = dsp.encode(w.to(d, dtype), torch.as_tensor(mask, device=d),
+                        block_size=b, nnz_max=int(mask.sum()))
+        before = dsmm_ops.COUNTER.launches
+        outs.append(sparse.spmm_nt(op, x.to(d, dtype), ctx=ctx).cpu())
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert dsmm_ops.COUNTER.launches == before + 1
+    assert _rel(outs[0], outs[1]) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dynamic_sparse_linear_on_card_matches_cpu(dev, dtype):
+    """Forward and backward of a DynamicSparseLinear through the dsmm
+    kernel against the CPU's plain dynamic_torch route on the same
+    weights and mask."""
+    from repro_torch.core.sparse_layers import DynamicSparseLinear
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    d_in, d_out, b, n = 512, 1024, 16, 96
+    res = []
+    for d in (dev, torch.device("cpu")):
+        layer = DynamicSparseLinear(d_in, d_out, b, 1 / 8, use_bias=True,
+                                    dtype=dtype, device=d)
+        layer.reset_parameters(torch.Generator(device=d).manual_seed(0),
+                               mask_seed=4)
+        if d.type == "cpu":
+            layer.weight.data.copy_(res[0][3].cpu())
+        x = torch.randn((n, d_in), generator=torch.Generator()
+                        .manual_seed(1)).to(d, dtype).requires_grad_(True)
+        gy = torch.randn((n, d_out), generator=torch.Generator()
+                         .manual_seed(2)).to(d, dtype)
+        before = dsmm_ops.COUNTER.launches
+        y = layer(x)
+        y.backward(gy)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert dsmm_ops.COUNTER.launches == before + 1
+        res.append((y.detach(), x.grad, layer.weight.grad,
+                    layer.weight.detach().clone()))
+    for got, want in zip(res[0][:3], res[1][:3]):
+        assert _rel(got.cpu(), want) <= TOL[dtype]

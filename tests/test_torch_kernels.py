@@ -168,10 +168,16 @@ def test_bsmm_wrapper_validates(bad, msg):
 
 def test_contracts_name_routes_and_reference():
     reg = tcontract.load_all()
-    assert set(reg) == {"bsmm", "dense_mm", "sddmm"}
+    assert set(reg) == {"bsmm", "bsmm_balanced", "dense_mm", "dsmm",
+                        "sddmm"}
     assert tcontract.contract_for_route("static_cuda").kernel == "bsmm"
     assert tcontract.contract_for_route("dense_cuda").kernel == "dense_mm"
     assert tcontract.contract_for_route("sddmm_cuda").kernel == "sddmm"
+    assert (tcontract.contract_for_route("static_balanced_cuda").kernel
+            == "bsmm_balanced")
+    for route in ("dynamic_cuda", "dynamic_grouped_cuda",
+                  "dynamic_grouped_balanced_cuda"):
+        assert tcontract.contract_for_route(route).kernel == "dsmm"
     assert reg["sddmm"].admits(8192, 2048, 2048, 16, "bfloat16") is None
     assert "fails" in reg["sddmm"].admits(64, 64, 4, 12)
     bsmm = reg["bsmm"]
