@@ -2,7 +2,7 @@
 ``smoke(name)`` reduced same-family config, ``sparsify_ffn(cfg, d)``
 the paper's block-sparse FFN applied to a dense config.
 
-The port's first slice covers ``llama3_2_1b`` only.
+The port covers ``llama3_2_1b`` and ``gemma2_2b``.
 """
 from __future__ import annotations
 
@@ -11,9 +11,9 @@ import importlib
 
 from repro_torch.models.config import ModelCfg
 
-ARCH_IDS = ["llama3_2_1b"]
+ARCH_IDS = ["llama3_2_1b", "gemma2_2b"]
 
-ALIASES = {"llama3.2-1b": "llama3_2_1b"}
+ALIASES = {"llama3.2-1b": "llama3_2_1b", "gemma2-2b": "gemma2_2b"}
 
 
 def _module(name: str):

@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # name -> path of the CUDA source, relative to the package root
 SOURCES: Dict[str, str] = {
+    "bs_attn": os.path.join("kernels", "bs_attn", "csrc", "bs_attn.cu"),
     "bsmm": os.path.join("kernels", "bsmm", "csrc", "bsmm.cu"),
     "bsmm_balanced": os.path.join("kernels", "bsmm", "csrc",
                                   "bsmm_balanced.cu"),

@@ -24,8 +24,8 @@ _EVAL_GLOBALS = {"__builtins__": {}, "any": any, "all": all,
 class KernelContract:
     """Declared admissibility of one kernel.
 
-    kernel        kernel name ("bsmm", "bsmm_balanced", "dense_mm",
-                  "dsmm", "sddmm")
+    kernel        kernel name ("bs_attn", "bsmm", "bsmm_balanced",
+                  "dense_mm", "dsmm", "sddmm")
     routes        plan routes the kernel serves
     dtypes        supported operand dtypes, by name
     min_block /   inclusive block-size range
@@ -92,6 +92,7 @@ def contract_for_route(route: str) -> Optional[KernelContract]:
 
 def load_all() -> Dict[str, KernelContract]:
     """Import every kernel package and return the full registry."""
+    import repro_torch.kernels.bs_attn   # noqa: F401
     import repro_torch.kernels.bsmm      # noqa: F401
     import repro_torch.kernels.dense_mm  # noqa: F401
     import repro_torch.kernels.dsmm      # noqa: F401

@@ -1,16 +1,18 @@
 """Where serving time goes on the card: one prefill and a run of decode
-steps of the full-width sparse-FFN llama3.2-1b under ``torch.profiler``.
+steps of a full-width sparse-FFN model (llama3.2-1b by default, or
+``--arch gemma2-2b``) under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--density 0.125] [--batch 4] [--prompt 256] [--steps 16] \
-        [--out profile.json]
+        [--arch llama3.2-1b] [--density 0.125] [--batch 4] \
+        [--prompt 256] [--max-len 512] [--steps 16] [--out profile.json]
 
 Reports, per phase, the host wall time (clock around work that ends in a
 ``synchronize``), the device busy time (sum of the kernels' own device
 times from the profiler), the device's idle share, and the device time
-by kernel family (the bsmm, dense_mm and sddmm kernels, the library
-GEMM of the unembed, everything else); and, for the decode step, the Python
-functions that take the host's time (``cProfile``).  Needs a card.
+by kernel family (the bs_attn, bsmm, dense_mm and sddmm kernels, the
+library GEMM of the unembed, everything else); and, for the decode step,
+the Python functions that take the host's time (``cProfile``).  Needs a
+card.
 """
 from __future__ import annotations
 
@@ -26,10 +28,13 @@ from repro_torch import configs
 from repro_torch.models.model import LM
 
 
-FAMILIES = ("bsmm", "dense_mm", "sddmm", "library_gemm", "other")
+FAMILIES = ("bs_attn", "bsmm", "dense_mm", "sddmm", "library_gemm",
+            "other")
 
 
 def _family(name: str) -> str:
+    if "bs_attn" in name:
+        return "bs_attn"
     if "bsmm_nt" in name:
         return "bsmm"
     if "dense_mm" in name or "splitk_reduce" in name:
@@ -120,9 +125,11 @@ def _host_profile(fn, reps: int, top: int = 12):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--density", type=float, default=0.125)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=256)
+    ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
@@ -130,10 +137,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
 
-    cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), args.density)
+    cfg = configs.sparsify_ffn(configs.get(args.arch), args.density)
     lm = LM(cfg, device="cuda", seed=args.seed)
     rng = np.random.default_rng(args.seed)
-    max_len = 512
+    max_len = args.max_len
     prompt = rng.integers(0, cfg.vocab_size, size=(1, args.prompt))
     tokens = rng.integers(0, cfg.vocab_size, size=(args.batch, 1))
     positions = np.full(args.batch, args.prompt, np.int64)
@@ -147,8 +154,8 @@ def main(argv=None):
 
     for fn in (prefill, decode, decode):       # warm-up
         fn()
-    out = {"card": torch.cuda.get_device_name(0),
-           "density": args.density, "batch": args.batch,
+    out = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
+           "max_len": max_len, "density": args.density, "batch": args.batch,
            "prompt": args.prompt,
            "prefill_wall_ms": _wall_ms(prefill, 3),
            "decode_step_wall_ms": _wall_ms(decode, args.steps),

@@ -8,7 +8,7 @@ sparse-FFN llama3.2-1b under ``torch.profiler``.
 Reports the host wall time of a train step (clock around steps that end
 in a ``synchronize``), the device busy time (sum of the kernels' own
 device times from the profiler), the device's idle share, the device
-time by kernel family (bsmm, dense_mm, sddmm, library GEMMs -- the
+time by kernel family (bs_attn, bsmm, dense_mm, sddmm, library GEMMs -- the
 dense backward, the unembed and the attention products --, everything
 else) with the busiest kernels, the time of the optimizer update alone,
 and the Python functions that take the host's time (``cProfile``).

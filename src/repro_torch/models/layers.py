@@ -22,17 +22,23 @@ from repro_torch import sparse as sparse_api
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm computed in fp32, returned in ``x``'s dtype (the JAX
-    function's ``plus_one`` form serves post-norm models, not ported)."""
+             eps: float = 1e-6, plus_one: bool = False) -> torch.Tensor:
+    """RMS norm computed in fp32, returned in ``x``'s dtype;
+    ``plus_one`` scales by ``1 + scale`` (Gemma's pre+post norms)."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if plus_one:
+        scale = scale + 1.0
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, *, device=None):
+    """RMS norm with an fp32 ``scale`` initialised to ones (also with
+    ``plus_one``, as in the JAX package)."""
+
+    def __init__(self, d: int, *, plus_one: bool = False, device=None):
         super().__init__()
+        self.plus_one = plus_one
         self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32,
                                              device=device),
                                   requires_grad=False)
@@ -42,7 +48,7 @@ class RMSNorm(nn.Module):
             self.scale.fill_(1.0)
 
     def forward(self, x, *, eps: float = 1e-6):
-        return rms_norm(x, self.scale, eps=eps)
+        return rms_norm(x, self.scale, eps=eps, plus_one=self.plus_one)
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,

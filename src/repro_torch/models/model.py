@@ -1,10 +1,12 @@
 """Top-level language model: embeddings + layer stack + prefill / decode.
 
 Counterpart of the JAX package's ``models/model.py`` ``LM`` for decoder-
-only attention stacks (``forward``, ``loss``, ``prefill(last_index=)``,
-``init_cache``, ``decode_step``; the retained ring cache, the encoder
-and the frontends wait).  ``LM`` is an ``nn.Module`` that holds its
-parameters: ``init(seed)`` fills them from a seeded ``torch.Generator``,
+only attention stacks, global and local (sliding-window) layers, with
+Gemma's embedding scale, pre+post norms and soft-caps (``forward``,
+``loss``, ``prefill(last_index=)``, ``init_cache``, ``decode_step``; the
+retained ring cache, the encoder and the frontends wait).  ``LM`` is an
+``nn.Module`` that holds its parameters: ``init(seed)`` fills them from a
+seeded ``torch.Generator``,
 ``load_jax_params(tree)`` copies them from the JAX package's params
 pytree converted to numpy, ``load_jax_train_state`` its optimizer state
 as well.  Parameters are created frozen (serving); ``requires_grad_(True)``
@@ -26,11 +28,11 @@ from repro_torch.models.attention import Cache
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.layers import Embedding, RMSNorm, embed, unembed
 
-# fields of ModelCfg the port's first slice does not implement, with the
-# value it requires
-_UNSUPPORTED = {"attn_impl": "gqa", "post_norm": False, "embed_scale": False,
-                "moe": None, "ssm": None, "encoder_layers": 0,
-                "frontend": None, "long_attention": "full"}
+# fields of ModelCfg the port does not implement yet, with the value it
+# requires
+_UNSUPPORTED = {"attn_impl": "gqa", "moe": None, "ssm": None,
+                "encoder_layers": 0, "frontend": None,
+                "long_attention": "full"}
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -82,7 +84,8 @@ class LM(nn.Module):
         self.layers = nn.ModuleList(
             tfm.Layer(cfg, spec, device=dev)
             for spec in tfm.layer_specs(cfg))
-        self.final_norm = RMSNorm(cfg.d_model, device=dev)
+        self.final_norm = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
+                                  device=dev)
         self.lm_head = (None if cfg.tie_embeddings else
                         Embedding(cfg.vocab_size, cfg.d_model,
                                   dtype=self.dtype, device=dev))
@@ -159,6 +162,14 @@ class LM(nn.Module):
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=self.device).long()
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token rows, times ``sqrt(d_model)`` cast to their dtype with
+        ``cfg.embed_scale`` (Gemma)."""
+        h = embed(self.embed.table, tokens)
+        if self.cfg.embed_scale:
+            h = h * torch.tensor(np.sqrt(self.cfg.d_model), dtype=h.dtype)
+        return h
+
     def _unembed(self, h: torch.Tensor) -> torch.Tensor:
         head = self.lm_head if self.lm_head is not None else self.embed
         table = head.table
@@ -172,7 +183,7 @@ class LM(nn.Module):
     def forward(self, tokens) -> torch.Tensor:
         """Full-sequence logits ``[B, S, V]`` for tokens ``[B, S]``."""
         t = self._tokens(tokens)
-        h = embed(self.embed.table, t)
+        h = self._embed(t)
         positions = torch.arange(t.shape[1], device=self.device)[None, :]
         h = tfm.stack_apply(self.layers, h, positions=positions)
         return self._unembed(self._final(h))
@@ -188,7 +199,7 @@ class LM(nn.Module):
         """
         t = self._tokens(tokens)
         tg = self._tokens(targets)
-        h = embed(self.embed.table, t)
+        h = self._embed(t)
         positions = torch.arange(t.shape[1], device=self.device)[None, :]
         h = self._final(tfm.stack_apply(self.layers, h,
                                         positions=positions))
@@ -233,7 +244,7 @@ class LM(nn.Module):
         if t.shape[1] > max_len:
             raise ValueError(f"prompt of {t.shape[1]} tokens exceeds "
                              f"max_len={max_len}")
-        h = embed(self.embed.table, t)
+        h = self._embed(t)
         positions = torch.arange(t.shape[1], device=self.device)[None, :]
         h, caches = tfm.stack_prefill(self.layers, h, positions=positions,
                                       max_len=max_len)
@@ -251,6 +262,6 @@ class LM(nn.Module):
         place."""
         t = self._tokens(tokens)
         pos = self._tokens(positions)
-        h = embed(self.embed.table, t)
+        h = self._embed(t)
         h, caches = tfm.stack_decode(self.layers, h, caches, positions=pos)
         return self._unembed(self._final(h))[:, 0], caches

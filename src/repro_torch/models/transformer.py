@@ -1,8 +1,10 @@
 """Decoder layers and the layer stack.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the
-``attn`` mixer with the ``mlp`` and ``sparse`` FFN arms
-(``layer_apply``, ``layer_prefill``, ``layer_decode`` and their stacks).
+``attn`` and ``attn_local`` mixers with the ``mlp`` and ``sparse`` FFN
+arms, and the Gemma-2 pre+post norms (``post_norm``: ``plus_one`` norms
+before and after each sub-layer) (``layer_apply``, ``layer_prefill``,
+``layer_decode`` and their stacks).
 The JAX package scans one period over stacked params; here every layer
 is its own module and the stack is a Python loop.
 """
@@ -33,50 +35,70 @@ def sparse_ffn(cfg: ModelCfg, *, device) -> SparseFFN:
 
 
 class Layer(nn.Module):
-    """Pre-norm decoder layer: ``h + attn(norm1(h))``, then
-    ``h + ffn(norm2(h))``."""
+    """Pre-norm decoder layer: ``h + post1(attn(norm1(h)))``, then
+    ``h + post2(ffn(norm2(h)))``; the post norms exist with
+    ``cfg.post_norm``, which also makes norm1 and norm2 ``plus_one``."""
 
     def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device):
         super().__init__()
-        if spec.mixer != "attn" or spec.cross or not spec.causal:
+        if (spec.mixer not in ("attn", "attn_local") or spec.cross
+                or not spec.causal):
             raise NotImplementedError(
-                f"layer {spec}: the port runs causal 'attn' layers only")
+                f"layer {spec}: the port runs causal 'attn' and "
+                f"'attn_local' layers only")
         if spec.ffn not in ("mlp", "sparse"):
             raise NotImplementedError(
                 f"ffn {spec.ffn!r}: the port runs 'mlp' and 'sparse' only")
         dt = model_dtype(cfg)
         self.cfg = cfg
-        self.norm1 = RMSNorm(cfg.d_model, device=device)
+        self.local = spec.mixer == "attn_local"
+        self.norm1 = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
+                             device=device)
         self.attn = GQA(cfg, dtype=dt, device=device)
-        self.norm2 = RMSNorm(cfg.d_model, device=device)
+        self.norm2 = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
+                             device=device)
         if spec.ffn == "mlp":
             self.ffn = MLP(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dt,
                            device=device)
         else:
             self.ffn = sparse_ffn(cfg, device=device)
+        if cfg.post_norm:
+            self.post_norm1 = RMSNorm(cfg.d_model, plus_one=True,
+                                      device=device)
+            self.post_norm2 = RMSNorm(cfg.d_model, plus_one=True,
+                                      device=device)
+        else:
+            self.post_norm1 = self.post_norm2 = None
+
+    def _post(self, norm, x: torch.Tensor) -> torch.Tensor:
+        return x if norm is None else norm(x, eps=self.cfg.norm_eps)
 
     def _ffn(self, h: torch.Tensor) -> torch.Tensor:
-        return self.ffn(self.norm2(h, eps=self.cfg.norm_eps))
+        out = self.ffn(self.norm2(h, eps=self.cfg.norm_eps))
+        return self._post(self.post_norm2, out)
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor):
         """``layer_apply``: full sequence, no cache."""
-        h = h + self.attn(self.norm1(h, eps=self.cfg.norm_eps), positions)
+        mix = self.attn(self.norm1(h, eps=self.cfg.norm_eps), positions,
+                        local=self.local)
+        h = h + self._post(self.post_norm1, mix)
         return h + self._ffn(h)
 
     def prefill(self, h: torch.Tensor, positions: torch.Tensor, *,
                 max_len: int):
         """``layer_prefill``: full sequence, emits the layer's cache."""
         mix, cache = self.attn.prefill(self.norm1(h, eps=self.cfg.norm_eps),
-                                       positions, max_len=max_len)
-        h = h + mix
+                                       positions, max_len=max_len,
+                                       local=self.local)
+        h = h + self._post(self.post_norm1, mix)
         return h + self._ffn(h), cache
 
     def decode(self, h: torch.Tensor, cache: Cache,
                positions: torch.Tensor):
         """``layer_decode``: one token per row, cache updated in place."""
         mix, cache = self.attn.decode(self.norm1(h, eps=self.cfg.norm_eps),
-                                      cache, positions)
-        h = h + mix
+                                      cache, positions, local=self.local)
+        h = h + self._post(self.post_norm1, mix)
         return h + self._ffn(h), cache
 
 

@@ -287,3 +287,113 @@ def test_dynamic_sparse_linear_on_card_matches_cpu(dev, dtype):
                     layer.weight.detach().clone()))
     for got, want in zip(res[0][:3], res[1][:3]):
         assert _rel(got.cpu(), want) <= TOL[dtype]
+
+
+# (S, tile, heads, kv heads, batch, causal, window, global prefix,
+# softcap): tiles split into several 64-row blocks, one partial tile,
+# small tiles walked 64 / bq at a time (bq = 8 and, at odd S, bq = 1),
+# windows that cut tiles, GQA and a non-causal mask
+ATTN_CASES = [
+    (256, 64, 4, 2, 2, True, 0, 0, None),
+    (300, 512, 2, 2, 1, True, 0, 0, 50.0),
+    (1000, 512, 4, 1, 1, True, 0, 0, None),
+    (37, 16, 2, 1, 2, True, 9, 0, None),
+    (131, 64, 4, 2, 1, True, 40, 8, 30.0),
+    (640, 128, 2, 1, 1, True, 100, 20, 50.0),
+    (96, 32, 2, 2, 2, False, 0, 0, None),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_bs_attn_cuda_matches_plain(dev, dtype, dh, case):
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.models import attention
+    s, tile, h, kvh, b_, causal, window, prefix, softcap = case
+    g = torch.Generator(device=dev).manual_seed(s + dh)
+    q = torch.randn((b_, s, h, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((b_, s, kvh, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((b_, s, kvh, dh), generator=g, device=dev).to(dtype)
+    before = bs_ops.COUNTER.launches
+    got = attention.attend_train(q, k, v, causal=causal, window=window,
+                                 global_prefix=prefix, softcap=softcap,
+                                 tile_q=tile, tile_kv=tile)
+    torch.cuda.synchronize()
+    assert bs_ops.COUNTER.launches == before + 1
+    spec = attention.attn_spec(s, s, dh, causal=causal, window=window,
+                               global_prefix=prefix, softcap=softcap,
+                               tile_q=tile, tile_kv=tile)
+    want = attend_plain(q, k, v, spec.element_mask(dev), scale=spec.scale,
+                        softcap=softcap)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("softcap", [None, 30.0])
+def test_bs_attn_masks_on_card_match_plain(dev, dtype, softcap):
+    """The mask-level entry point on the reference kernel test's masks
+    (``[H, S, dh]`` layout, tiles 128; read and written strided)."""
+    from repro_torch.core import masks as tmasks
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import bs_attn_ref
+    h, s, dh, nb = 2, 512, 64, 4
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((h, s, dh), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    banded = np.tril(tmasks.banded_block_mask(s, s, 128, 1))
+    banded[np.diag_indices(nb)] = True
+    for bm in (tmasks.local_global_attention_mask(
+                   nb, nb, window_blocks=2, global_blocks=1),
+               banded, np.tril(np.ones((nb, nb), bool))):
+        got = bs_ops.bs_attn(q, k, v, bm, softcap=softcap)
+        want = bs_attn_ref(q, k, v, bm, softcap=softcap)
+        assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_attend_train_grads_on_card_match_cpu(dev):
+    from repro_torch.models import attention
+    g = torch.Generator().manual_seed(3)
+    base = [torch.randn(shape, generator=g) for shape in
+            ((2, 192, 4, 64), (2, 192, 2, 64), (2, 192, 2, 64))]
+    dout = torch.randn((2, 192, 4, 64), generator=g)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [t.to(device).requires_grad_(True) for t in base]
+        out = attention.attend_train(*leaves, window=50, global_prefix=10,
+                                     softcap=50.0, tile_q=64, tile_kv=64)
+        (out * dout.to(device)).sum().backward()
+        grads.append([t.grad.cpu() for t in leaves])
+    for got, want in zip(*grads):
+        assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_gemma2_lm_on_card_matches_cpu(dev):
+    """gemma2's smoke config with a sparse FFN, fp32, at a prompt past
+    window + tile: the card (all three kernels) against the CPU."""
+    from repro_torch import configs
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    import dataclasses
+    cfg = dataclasses.replace(
+        configs.sparsify_ffn(configs.smoke("gemma2-2b"), 0.25),
+        dtype="float32")
+    gpu = LM(cfg, device=dev, seed=0)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = np.random.default_rng(0).integers(0, 512, size=(2, 150))
+    a0 = bs_ops.COUNTER.launches
+    got = gpu.forward(toks)
+    assert bs_ops.COUNTER.launches - a0 == 2
+    assert _rel(got.cpu(), cpu.forward(toks)) <= 2e-4
+    logits, caches = gpu.prefill(toks[:, :140], max_len=160)
+    for pos in range(140, 150):
+        logits, caches = gpu.decode_step(toks[:, pos:pos + 1], caches,
+                                         np.asarray([pos, pos]))
+        assert _rel(logits.cpu(), got[:, pos].cpu()) <= 2e-4

@@ -65,7 +65,7 @@ def test_config_copy_matches_reference():
     assert dataclasses.asdict(tconfigs.smoke("llama3.2-1b")) == \
         dataclasses.asdict(jconfigs.smoke("llama3_2_1b"))
     with pytest.raises(ValueError, match="unknown architecture"):
-        tconfigs.get("gemma2_2b")
+        tconfigs.get("qwen2_1_5b")
 
 
 def test_load_jax_params_carries_every_leaf(pair):
@@ -143,7 +143,8 @@ def test_lm_without_card_raises():
 
 
 @pytest.mark.parametrize("field, value", [("attn_impl", "mla"),
-                                          ("post_norm", True)])
+                                          ("long_attention",
+                                           "block_sparse")])
 def test_lm_rejects_unported_features(field, value):
     cfg = dataclasses.replace(_cfg(True), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
