@@ -73,7 +73,23 @@ Phases, each fatal on failure:
    5118-token prompt, prefilled in the engine's 8176 bucket, must match
    ``forward`` layer by layer in bf16 (each layer's attention, same
    inputs) and end to end in fp32 (the same seeded weights), the bf16
-   end-to-end gap printed.
+   end-to-end gap printed;
+12. serve-qwen3-moe: full-width, full-depth qwen3-moe-30b-a3b (48
+   layers, d_model 2048, GQA 32/4, head dim 128, QK-norm, 128 experts
+   top-8 of d_ff 768, vocab 151936; 30.5 B parameters) in bf16 from
+   ``init(seed)`` on the card, through ``Engine(batch=4,
+   max_len=1024)``: 6 seeded requests of 32..900 prompt tokens, 8 new
+   tokens each; gmm, dense_mm and bs_attn must launch; each prefill's
+   routing drops printed; one layer's ``moe_apply`` on a prefill hidden
+   state, gmm route against the plain route (same fp32 routing), within
+   the bf16 kernel budget.  Its gmm kernel rows print with phase 2's: the
+   expert GEMMs (E 128, gate/up 2048 -> 768, down 768 -> 2048) at the
+   decode capacity C = 8 and at the largest prefill's, and the reference
+   test's general case (random ids), bf16 and fp32;
+12b. qwen3-fp32: the same model at full width in fp32, depth cut to 4
+   layers: decode after a 6-token prompt, prefilled in its bucket,
+   against ``forward`` within the fp32 budget, ``forward`` dropping no
+   assignment.
 
 Prints the card line and a ``{"kernels": [...]}`` line before the last
 line, which is ``{"ok": true, "device": {...}}``.  Exits non-zero and
@@ -82,6 +98,7 @@ prints no result without a CUDA device or outside a checkout.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -275,6 +292,24 @@ def kernel_phase(torch, args):
         for dname, dt in dtypes.items():
             w = randn((k, d), dt, 1 / math.sqrt(k))
             for n in (4, 256, train_n):
+                x = randn((n, k), dt)
+                nbytes = (n * k + k * d + n * d) * w.element_size()
+                sets = copies(lambda: (x.clone(), w.clone()), nbytes)
+                rows.append(measured_row(
+                    torch, "dense_mm", f"{shape_name} {k}x{d}", n, dname,
+                    dmm_ops.dense_mm_cuda, dmm_ops.dense_mm_plain,
+                    torch.matmul, sets, sets, nbytes, 2.0 * n * k * d))
+                del sets
+    # qwen3-moe's attention projections (q 2048 -> 32 x 128, k/v 2048 ->
+    # 4 x 128, o 4096 -> 2048) at its decode batch and at every prefill
+    # length [serve-qwen3-moe] runs
+    qwen_ns = sorted({QWEN3_BATCH} | set(qwen3_prefill_lens(args)))
+    for shape_name, k, d in (("qwen3 q", 2048, 4096),
+                             ("qwen3 k/v", 2048, 512),
+                             ("qwen3 o", 4096, 2048)):
+        for dname, dt in dtypes.items():
+            w = randn((k, d), dt, 1 / math.sqrt(k))
+            for n in qwen_ns:
                 x = randn((n, k), dt)
                 nbytes = (n * k + k * d + n * d) * w.element_size()
                 sets = copies(lambda: (x.clone(), w.clone()), nbytes)
@@ -528,6 +563,15 @@ ATTN_SHAPES = (
 )
 
 
+def qwen3_attn_shapes(args):
+    """[attn] rows at the prefill lengths [serve-qwen3-moe] runs (buckets
+    256 and 1008 of Engine(batch=4, max_len=1024); at 1008 the tiles
+    halve to 16 and are walked 4 q tiles a block): 32 heads over 4 kv
+    heads of 128, causal, no soft-cap, scale 1/sqrt(128)."""
+    return tuple(("qwen3 served", s, 32, 4, 128, 0, None, 1 / math.sqrt(128))
+                 for s in sorted(set(qwen3_prefill_lens(args))))
+
+
 def attn_library(torch, s, window, global_prefix, softcap, scale,
                  device="cuda"):
     """One PyTorch call computing bs_attn's function on ``[B, S, H, dh]``
@@ -571,8 +615,8 @@ def attn_library(torch, s, window, global_prefix, softcap, scale,
 
 def attn_phase(torch, args):
     """bs_attn against its plain version (dense softmax over the element
-    mask) at gemma2-2b's global and local layers and llama3.2-1b's, and
-    at an odd S whose tiles halve to 1; bf16 and fp32.  The bound counts
+    mask) at gemma2-2b's global and local layers, llama3.2-1b's and
+    qwen3-moe's, and at an odd S whose tiles halve to 1; bf16 and fp32.  The bound counts
     the visible element pairs (4 FLOPs per pair and head dim: QK^T and
     PV) against q, k, v read and o written once.  The library call
     (``attn_library``) is held against the plain version too."""
@@ -592,7 +636,8 @@ def attn_phase(torch, args):
         if hasattr(torch._dynamo.config, knob):
             setattr(torch._dynamo.config, knob, 256)
     rows = []
-    for name, s, h, kvh, dh, window, softcap, scale in ATTN_SHAPES:
+    for name, s, h, kvh, dh, window, softcap, scale in (
+            ATTN_SHAPES + qwen3_attn_shapes(args)):
         spec = attention.attn_spec(s, s, dh, window=window, softcap=softcap,
                                    scale=scale)
         walk = spec.walk(dev)
@@ -1186,6 +1231,334 @@ def dynamic_phase(torch, args):
     return result
 
 
+# qwen3-moe-30b-a3b serving: Engine(batch=4, max_len=1024), 6 seeded
+# requests of 32..900 prompt tokens (the last one over the 256 bucket),
+# 8 new tokens each
+QWEN3_BATCH, QWEN3_MAX_LEN, QWEN3_NEW = 4, 1024, 8
+# the fp32 end-to-end check: full width, depth cut to 4 layers (fp32 at
+# full depth would need 122 GB)
+QWEN3_FP32_LAYERS = 4
+
+
+def qwen3_prompt_lens(args):
+    """The serve run's prompt lengths: five seeded in 32..900, the sixth
+    in 601..900, so the largest bucket is prefilled."""
+    import numpy as np
+    rng = np.random.default_rng(args.seed + 11)
+    lens = [int(n) for n in rng.integers(32, 901, size=5)]
+    return lens + [int(rng.integers(601, 901))]
+
+
+def qwen3_prefill_lens(args):
+    """The length each prompt of the serve run is prefilled at (B = 1 per
+    prefill): ``Engine.bucket_for``'s rule on the engine's own ladder --
+    the smallest bucket holding the prompt, or the prompt's own length
+    where that bucket's priced padding passes ``pad_max_frac``."""
+    from repro_torch import configs
+    from repro_torch.serve import engine
+
+    cfg = configs.get("qwen3-moe-30b-a3b")
+    shapes = engine._stack_shapes(cfg)
+    pad_max_frac = 0.75                  # Engine's default
+    ladder = engine._auto_buckets(QWEN3_MAX_LEN - 1, shapes, pad_max_frac)
+    out = []
+    for n in qwen3_prompt_lens(args):
+        b = next(b for b in ladder if b >= n)
+        waste = 1.0 - (engine.price_tokens(shapes, n)
+                       / engine.price_tokens(shapes, b))
+        out.append(b if waste <= pad_max_frac else n)
+    return out
+
+
+def qwen3_prefill_capacity(args):
+    """C of the largest prefill the serve run makes, and its length."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    n = max(qwen3_prefill_lens(args))
+    return moe._capacity(n, configs.get("qwen3-moe-30b-a3b")), n
+
+
+def gmm_kernel_phase(torch, args):
+    """gmm against its plain version at qwen3-moe's expert GEMMs (E 128;
+    gate/up D 2048 -> F 768, down D 768 -> F 2048; bf16 and fp32) at the
+    decode capacity C = 8 (tm 8) and at the capacity of the largest
+    prefill the serve run makes, with the ids ``batched_matmul`` builds
+    (each expert one run of C / tm row tiles); and at the reference
+    test's general case (E 8, tm 64, T 256, D 128, F 96, random
+    non-monotone ids).  Library: ``torch.bmm`` on the ``[E, C, D]``
+    buckets (cuBLAS batched), where the ids are the batched layout."""
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    from repro_torch.sparse.plan import batched_row_tile
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    c_pre, _ = qwen3_prefill_capacity(args)
+    e = 128
+    rows = []
+
+    def randn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32) * scale).to(dt)
+
+    cases = [(f"{name} C={c}", e, c, d, f, batched_row_tile(c), "batched")
+             for name, d, f in (("gate/up", 2048, 768), ("down", 768, 2048))
+             for c in (8, c_pre)]
+    cases.append(("general E=8 random ids", 8, 256, 128, 96, 64, "random"))
+    for dname, dt in dtypes.items():
+        for shape, ne, c, d, f, tm, kind in cases:
+            es = torch.empty((), dtype=dt).element_size()
+            if kind == "batched":
+                t_rows = ne * c
+                ids = torch.arange(ne, dtype=torch.int32,
+                                   device=dev).repeat_interleave(c // tm)
+            else:
+                t_rows = c
+                ids = torch.randint(0, ne, (t_rows // tm,), generator=gen,
+                                    device=dev).to(torch.int32)
+            x = randn((t_rows, d), dt)
+            w = randn((ne, d, f), dt, 1 / math.sqrt(d))
+            used = int(torch.unique(ids).numel())
+            nbytes = ((t_rows * d + used * d * f + t_rows * f) * es
+                      + ids.numel() * 4)
+            sets = copies(lambda: (x.clone(), w.clone(), ids.clone()),
+                          nbytes)
+            library = lib_sets = None
+            if kind == "batched":
+                lib_sets = [(a.view(ne, c, d), b) for a, b, _ in sets]
+                library = torch.bmm
+            row = measured_row(
+                torch, "gmm", shape, t_rows, dname,
+                lambda a, b, i, tm=tm: gmm_ops.gmm_cuda(a, b, i, tm=tm),
+                lambda a, b, i, tm=tm: gmm_ref(a, b, i, tm=tm),
+                library, sets, lib_sets, nbytes, 2.0 * t_rows * d * f)
+            row.update(tm=tm, experts=ne, experts_used=used, c=c)
+            rows.append(row)
+            del sets, lib_sets, x, w
+    return rows
+
+
+def serve_qwen3_phase(torch, args):
+    """Full-width, full-depth qwen3-moe-30b-a3b (48 layers, d_model 2048,
+    GQA 32/4, head dim 128, QK-norm, 128 experts top-8 of d_ff 768,
+    vocab 151936) in bf16 from ``init(seed)`` on the card, through
+    ``Engine(batch=4, max_len=1024)``: 6 seeded requests of 32..900
+    prompt tokens, 8 new tokens each.  The gmm, dense_mm and bs_attn
+    counters are zeroed just before and read just after.  The routing
+    drops are read once after the run from the ``"moe_dispatch"``
+    stream (one value a layer a forward, in call order): mean and max
+    over the layers for each prefill, and over every decode step."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch import sparse
+    from repro_torch.kernels import bs_attn, dense_mm, gmm
+    from repro_torch.models.model import LM
+    from repro_torch.serve import Engine, Request
+
+    cfg = configs.get("qwen3-moe-30b-a3b")
+    assert cfg.dtype == "bfloat16" and cfg.num_layers == 48
+    counters = {"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                "bs_attn": bs_attn.COUNTER}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+
+    # which forward each group of num_layers drop values came from: the
+    # wrappers only note the call's kind (no device work, no read)
+    calls = []
+    prefill, decode_step = lm.prefill, lm.decode_step
+
+    def noted(kind, fn):
+        def run(*a, **kw):
+            calls.append(kind)
+            return fn(*a, **kw)
+        return run
+
+    lm.prefill = noted("prefill", prefill)
+    lm.decode_step = noted("decode", decode_step)
+    rng = np.random.default_rng(args.seed + 13)
+
+    def request(uid, n, new):
+        return Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size,
+                                                    size=n),
+                       max_new_tokens=new)
+
+    # warm-up (first launches, allocator), then the measured run
+    Engine(lm, batch=QWEN3_BATCH, max_len=QWEN3_MAX_LEN, device="cuda").run(
+        [request(i, 40, 2) for i in range(2)])
+    eng = Engine(lm, batch=QWEN3_BATCH, max_len=QWEN3_MAX_LEN, device="cuda")
+    reqs = [request(i, n, QWEN3_NEW)
+            for i, n in enumerate(qwen3_prompt_lens(args))]
+    torch.cuda.synchronize()
+    sparse.reset_telemetry()
+    calls.clear()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lm.prefill, lm.decode_step = prefill, decode_step
+    hist = sparse.dropped_history("moe_dispatch")
+
+    if not all(r.done and len(r.output) == QWEN3_NEW for r in reqs):
+        raise RuntimeError(f"not every request finished with {QWEN3_NEW} "
+                           f"tokens")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+        raise RuntimeError("a generated token is outside the vocabulary")
+    for name, count in launches.items():
+        if count <= 0:
+            raise RuntimeError(f"kernel {name} was not launched while "
+                               f"serving qwen3-moe-30b-a3b")
+    nl = cfg.num_layers
+    if len(hist) != nl * len(calls):
+        raise RuntimeError(f"{len(hist)} routing drop values for "
+                           f"{len(calls)} forwards of {nl} layers")
+    per_call = [hist[i * nl:(i + 1) * nl] for i in range(len(calls))]
+    drops = [{"mean": float(np.mean(v)), "max": max(v)}
+             for kind, v in zip(calls, per_call) if kind == "prefill"]
+    dec = [f for kind, v in zip(calls, per_call) if kind == "decode"
+           for f in v]
+    # a decode step routes QWEN3_BATCH <= 8 tokens into capacity 8, and a
+    # token's top-k experts are distinct: no expert can overflow
+    if len(drops) != len(reqs) or not dec or max(dec) != 0.0:
+        raise RuntimeError(f"routing drops: {len(drops)} prefills for "
+                           f"{len(reqs)} requests, decode steps' max "
+                           f"{max(dec, default=None)} (must be 0)")
+
+    st = eng.stats()
+    tokens = sum(len(r.output) for r in reqs)
+    return dict(
+        params=n_params, init_s=init_s, requests=len(reqs),
+        prompt_lens=[int(len(r.prompt)) for r in reqs],
+        prefill_lens=[int(r.bucket or len(r.prompt)) for r in reqs],
+        tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        prefill_p50_ms=st["prefill_latency"]["p50_ms"],
+        decode_step_p50_ms=st["step_latency"]["p50_ms"],
+        decode_steps=st["steps"], launches=launches,
+        dropped_frac_per_prefill=drops,
+        decode_dropped_frac={"layer_calls": len(dec),
+                             "mean": float(np.mean(dec)), "max": max(dec)},
+        buckets=list(eng.buckets), peak_mem_gb=peak), lm, eng
+
+
+def qwen3_moe_layer_check(torch, lm, eng, args):
+    """One layer's ``moe_apply`` on a prefill hidden state (the FFN input
+    of a middle layer during the longest prompt's bucketed prefill): the
+    gmm route against the plain route (``gmm_ref`` for the three expert
+    products), both through the same fp32 routing, within the bf16
+    kernel budget."""
+    import numpy as np
+
+    from repro_torch import sparse
+    from repro_torch.kernels import gmm
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    from repro_torch.models import moe as moe_lib
+
+    n = max(qwen3_prompt_lens(args))
+    bucket = eng.bucket_for(n)
+    layer = lm.layers[len(lm.layers) // 2]
+    rng = np.random.default_rng(args.seed + 17)
+    toks = np.zeros((1, bucket or n), np.int64)
+    toks[0, :n] = rng.integers(0, lm.cfg.vocab_size, size=n)
+    got = {}
+    hook = layer.norm2.register_forward_hook(
+        lambda m, a, out: got.__setitem__("h", out.clone()))
+    lm.prefill(toks, max_len=eng.max_len, last_index=[n - 1])
+    hook.remove()
+    h = got["h"]
+
+    def plain_bmm(a, b):
+        e, c, d = a.shape
+        ids = torch.arange(e, dtype=torch.int32, device=a.device)
+        return gmm_ref(a.reshape(e * c, d), b, ids, tm=c).reshape(
+            e, c, b.shape[-1])
+
+    before = gmm.COUNTER.launches
+    y_kernel, m_kernel = moe_lib.moe_apply(layer.ffn, lm.cfg, h)
+    launched = gmm.COUNTER.launches - before
+    kernel_bmm = sparse.batched_matmul
+    sparse.batched_matmul = plain_bmm
+    try:
+        y_plain, m_plain = moe_lib.moe_apply(layer.ffn, lm.cfg, h)
+    finally:
+        sparse.batched_matmul = kernel_bmm
+    plain_launched = gmm.COUNTER.launches - before - launched
+    torch.cuda.synchronize()
+    err = rel_err(y_kernel, y_plain)[0]
+    out = dict(layer=len(lm.layers) // 2, tokens=int(h.shape[1]),
+               capacity=moe_lib._capacity(int(h.shape[1]), lm.cfg),
+               rel_err=err, tol=KERNEL_TOL["bfloat16"],
+               gmm_launches=launched, plain_route_gmm_launches=plain_launched,
+               dropped_frac=float(m_kernel.dropped_frac),
+               same_routing=float(m_kernel.dropped_frac)
+               == float(m_plain.dropped_frac))
+    if launched != 3 or plain_launched != 0 \
+            or not err <= KERNEL_TOL["bfloat16"]:
+        raise RuntimeError(f"qwen3 MoE layer: gmm route vs plain {out}")
+    return out
+
+
+def qwen3_fp32_phase(torch, args):
+    """qwen3-moe-30b-a3b at full width in fp32, depth cut to 4 layers,
+    from ``init(seed)``: a 6-token prompt prefilled in the bucket an
+    ``Engine(batch=1, max_len=64)`` gives it (16), then two decode steps,
+    against ``forward`` on the same 8 tokens, within the fp32 logits
+    budget.  ``forward`` must drop no assignment for that prompt: drops
+    differ legitimately between ``forward`` (C from the sequence) and
+    decode (C from the batch).  At random init a prompt's hidden states
+    are alike, so its tokens pick the same experts and a 32-token
+    ``forward`` overflows capacity 8 by the dozens of assignments a
+    layer; 8 tokens cannot (top-k experts are distinct, so no expert
+    gets more than one assignment a token), and the real tokens of the
+    padded prefill rank first, so they keep their slots there too."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.models.model import LM
+    from repro_torch.serve import Engine
+
+    base = configs.get("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(
+        base, dtype="float32",
+        groups=((base.groups[0][0], QWEN3_FP32_LAYERS),))
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    n, max_len = 6, 64
+    bucket = Engine(lm, batch=1, max_len=max_len, device="cuda").bucket_for(n)
+    rng = np.random.default_rng(args.seed + 19)
+    toks = rng.integers(0, cfg.vocab_size, size=n + 2)
+    want, metrics = lm.forward(toks[None, :], return_metrics=True)
+    want = want[0, n - 1:].float()
+    drops = float(metrics["dropped_frac"]) * (n + 2) * cfg.moe.top_k
+    padded = np.zeros((1, bucket or n), np.int64)
+    padded[0, :n] = toks[:n]
+    logits, caches = lm.prefill(padded, max_len=max_len, last_index=[n - 1])
+    errs = {"prefill": rel_err(logits[0], want[0])[0]}
+    for j in range(2):
+        logits, caches = lm.decode_step(toks[None, n + j:n + j + 1], caches,
+                                         np.asarray([n + j]))
+        errs[f"decode_{j}"] = rel_err(logits[0], want[1 + j])[0]
+    out = dict(layers=QWEN3_FP32_LAYERS, prompt=n, bucket=bucket,
+               forward_dropped_assignments=drops, errs=errs,
+               tol=LOGITS_TOL_FP32)
+    del lm, caches
+    bad = {k: v for k, v in errs.items() if not v <= LOGITS_TOL_FP32}
+    if bad or round(drops) != 0:
+        raise RuntimeError(f"qwen3 fp32 decode disagrees with forward "
+                           f"(or forward dropped): {out}")
+    return out
+
+
 def main(argv=None) -> int:
     # torch.compile's caches (the flex_attention library rows) stay in
     # the checkout's build directory, beside the kernels
@@ -1221,7 +1594,9 @@ def main(argv=None) -> int:
     print(f"[env] kernels built in {time.perf_counter() - t0:.2f}s "
           f"(per source: {json.dumps(built)})")
 
-    rows = kernel_phase(torch, args) + dynamic_kernel_phase(torch, args)
+    rows = (kernel_phase(torch, args) + dynamic_kernel_phase(torch, args)
+            + gmm_kernel_phase(torch, args))
+    torch.cuda.empty_cache()
     for r in rows:
         extra = ""
         if r["kernel"] == "sddmm":
@@ -1229,6 +1604,9 @@ def main(argv=None) -> int:
                      f"splits={r['splits']}")
         elif r["kernel"] == "dsmm":
             extra = f" encode_ms={r['encode_ms']:.5f} slots={r['slots']}"
+        elif r["kernel"] == "gmm":
+            extra = (f" tm={r['tm']} experts={r['experts']} "
+                     f"experts_used={r['experts_used']}")
         elif r["kernel"] == "bsmm_balanced":
             extra = (f" uniform_bsmm_ms={r['uniform_bsmm_ms']:.5f} "
                      f"bins={r['bins']} steps={r['steps_per_bin']} "
@@ -1236,7 +1614,7 @@ def main(argv=None) -> int:
         print(f"[kernel] {r['kernel']:13s} {r['shape']:40s} n={r['n']:<4d} "
               f"{r['dtype']:8s} rel_err={r['rel_err']:.2e} "
               f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
-              f"library_ms={r['library_ms']:.5f} "
+              f"library_ms={r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 5)} "
               f"bound_ms={r['bound_ms']:.5f} ({r['bound_by']}){extra}")
     bad = [r for r in rows if not r["rel_err"] <= r["tol"]]
     if bad:
@@ -1351,6 +1729,40 @@ def main(argv=None) -> int:
           f"the weights rounded to bf16 vs fp32 differs by "
           f"{cons['bf16_vs_fp32_weights_forward']:.3f})")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen, lm, eng = serve_qwen3_phase(torch, args)
+    print(f"[serve-qwen3-moe] {qwen['params'] / 1e9:.2f} B parameters "
+          f"initialised on the card in {qwen['init_s']:.2f}s; "
+          f"{qwen['requests']} requests (prompts {qwen['prompt_lens']}, "
+          f"prefilled at {qwen['prefill_lens']}; buckets "
+          f"{qwen['buckets']}), {qwen['tokens']} tokens in "
+          f"{qwen['wall_s']:.3f}s = {qwen['tokens_per_s']:.2f} tok/s; "
+          f"prefill p50 {qwen['prefill_p50_ms']} ms, decode step p50 "
+          f"{qwen['decode_step_p50_ms']} ms; launches "
+          f"{json.dumps(qwen['launches'])}; peak memory "
+          f"{qwen['peak_mem_gb']:.2f} GiB")
+    print(f"[serve-qwen3-moe] dropped_frac per prefill (mean, max over 48 "
+          f"layers): {json.dumps(qwen['dropped_frac_per_prefill'])}; "
+          f"decode steps: {json.dumps(qwen['decode_dropped_frac'])}")
+    qwen["moe_layer"] = qwen3_moe_layer_check(torch, lm, eng, args)
+    ml = qwen["moe_layer"]
+    print(f"[serve-qwen3-moe] layer {ml['layer']} moe_apply on a "
+          f"{ml['tokens']}-token prefill state (C={ml['capacity']}, "
+          f"dropped {ml['dropped_frac']:.4f}): gmm route vs plain rel err "
+          f"{ml['rel_err']:.2e} (budget {ml['tol']}), gmm launches "
+          f"{ml['gmm_launches']} (plain route {ml['plain_route_gmm_launches']})")
+    del lm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen["fp32"] = qwen3_fp32_phase(torch, args)
+    q32 = qwen["fp32"]
+    print(f"[qwen3-fp32] {q32['layers']} layers at full width, fp32: decode "
+          f"after a {q32['prompt']}-token prompt (prefilled at "
+          f"{q32['bucket']}) vs forward {json.dumps(q32['errs'])} (budget "
+          f"{q32['tol']}); forward dropped "
+          f"{q32['forward_dropped_assignments']:.3f} assignments")
+
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
@@ -1372,7 +1784,8 @@ def main(argv=None) -> int:
                         ("up/gate 8192x2048 b=16", 2048), "dynamic")}
     by_path = {"serve": serve["launches"], "train": train["launches"],
                "table3": table3_launches, "dynamic": dyn_launches,
-               "serve_gemma2": gemma["launches"]}
+               "serve_gemma2": gemma["launches"],
+               "serve_qwen3": qwen["launches"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -1406,6 +1819,22 @@ def main(argv=None) -> int:
         "launches_by_path": {k: v.get("bs_attn", 0)
                              for k, v in by_path.items()}})
 
+    # gmm at qwen3's decode gate/up (C = 8, bf16), its most frequent
+    # launch; its main path is the qwen3 serve run
+    r = next(r for r in rows if r["kernel"] == "gmm"
+             and r["shape"] == "gate/up C=8" and r["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "gmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/gmm/csrc/gmm.cu",
+        "replaces": "src/repro/kernels/gmm/gmm.py:41",
+        "launches": qwen["launches"]["gmm"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "at": f"{r['shape']} T={r['n']} {r['dtype']}",
+        "launches_by_path": {k: v.get("gmm", 0)
+                             for k, v in by_path.items()}})
+
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -1416,7 +1845,7 @@ def main(argv=None) -> int:
                        "consistency": errs, "grads": grads, "train": train,
                        "table3": table3, "dynamic": dyn,
                        "attn": attn_rows, "serve_gemma2": gemma,
-                       "kernels": kernels}, f,
+                       "serve_qwen3": qwen, "kernels": kernels}, f,
                       indent=1)
 
     print(card)

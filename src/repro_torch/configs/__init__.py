@@ -2,7 +2,7 @@
 ``smoke(name)`` reduced same-family config, ``sparsify_ffn(cfg, d)``
 the paper's block-sparse FFN applied to a dense config.
 
-The port covers ``llama3_2_1b`` and ``gemma2_2b``.
+The port covers ``llama3_2_1b``, ``gemma2_2b`` and ``qwen3_moe_30b_a3b``.
 """
 from __future__ import annotations
 
@@ -11,9 +11,10 @@ import importlib
 
 from repro_torch.models.config import ModelCfg
 
-ARCH_IDS = ["llama3_2_1b", "gemma2_2b"]
+ARCH_IDS = ["llama3_2_1b", "gemma2_2b", "qwen3_moe_30b_a3b"]
 
-ALIASES = {"llama3.2-1b": "llama3_2_1b", "gemma2-2b": "gemma2_2b"}
+ALIASES = {"llama3.2-1b": "llama3_2_1b", "gemma2-2b": "gemma2_2b",
+           "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b"}
 
 
 def _module(name: str):

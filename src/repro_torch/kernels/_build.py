@@ -39,6 +39,7 @@ SOURCES: Dict[str, str] = {
     "bsmm_balanced": os.path.join("kernels", "bsmm", "csrc",
                                   "bsmm_balanced.cu"),
     "dsmm": os.path.join("kernels", "dsmm", "csrc", "dsmm.cu"),
+    "gmm": os.path.join("kernels", "gmm", "csrc", "gmm.cu"),
     "dense_mm": os.path.join("kernels", "dense_mm", "csrc", "dense_mm.cu"),
     "sddmm": os.path.join("kernels", "sddmm", "csrc", "sddmm.cu"),
 }

@@ -25,7 +25,7 @@ class KernelContract:
     """Declared admissibility of one kernel.
 
     kernel        kernel name ("bs_attn", "bsmm", "bsmm_balanced",
-                  "dense_mm", "dsmm", "sddmm")
+                  "dense_mm", "dsmm", "gmm", "sddmm")
     routes        plan routes the kernel serves
     dtypes        supported operand dtypes, by name
     min_block /   inclusive block-size range
@@ -96,5 +96,6 @@ def load_all() -> Dict[str, KernelContract]:
     import repro_torch.kernels.bsmm      # noqa: F401
     import repro_torch.kernels.dense_mm  # noqa: F401
     import repro_torch.kernels.dsmm      # noqa: F401
+    import repro_torch.kernels.gmm       # noqa: F401
     import repro_torch.kernels.sddmm     # noqa: F401
     return dict(_REGISTRY)

@@ -1,23 +1,37 @@
-"""Device-side tile packer behind the ``dynamic_grouped`` routes.
+"""Expert-grouped GEMM (the gmm kernel) and the device-side tile packer
+behind the ``dynamic_grouped`` routes.
 
-Counterpart of the JAX package's ``kernels/gmm/ops.py``, without the
-``gmm`` kernel itself.  Instead of walking ``b x b`` logical blocks, the
-runtime pattern is packed on the device into ``t x t`` tile slots and
-the dsmm slot walk runs on those tiles.  The tile capacity is planned
-(expected tiles x headroom, ``planner.plan_grouped_capacity``), so
-overflow is possible by design: tiles beyond ``tiles_cap`` are dropped
-from the product and counted exactly in ``GroupedPackStats``, never
-silently.  Every step is plain PyTorch on device tensors.
+Counterpart of the JAX package's ``kernels/gmm/ops.py``:
+
+* ``gmm(x, w, expert_ids, tm=, tf=, td=)`` computes ``out[t] = x[t] @
+  w[expert_ids[t // tm]]`` with fp32 accumulation.  For a CUDA tensor it
+  launches ``csrc/gmm.cu`` (the port of ``src/repro/kernels/gmm/gmm.py``
+  ``gmm_call``) or raises; for a CPU tensor it runs ``ref.gmm_ref``.
+  MoE's expert GEMMs reach it through ``sparse.batched_matmul``.
+* ``grouped_spmm``: instead of walking ``b x b`` logical blocks, the
+  runtime pattern is packed on the device into ``t x t`` tile slots and
+  the dsmm slot walk runs on those tiles.  The tile capacity is planned
+  (expected tiles x headroom, ``planner.plan_grouped_capacity``), so
+  overflow is possible by design: tiles beyond ``tiles_cap`` are dropped
+  from the product and counted exactly in ``GroupedPackStats``, never
+  silently.  Every step is plain PyTorch on device tensors.
 """
 from __future__ import annotations
 
+import ctypes
 import warnings
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core.dynamic_sparse import DynamicOperand
+from repro_torch.kernels import _build
 from repro_torch.kernels.dsmm import ops as dsmm_ops
+from repro_torch.kernels.gmm.ref import gmm_ref
+
+DTYPES = _build.DTYPES
+COUNTER = _build.LaunchCounter()
+MAX_TM = 64             # rows of a row tile the kernel holds
 
 
 class GroupedPackStats(NamedTuple):
@@ -182,3 +196,93 @@ def grouped_spmm(op: DynamicOperand, x2: torch.Tensor, *,
                                       with_stats=return_stats)
     y = dsmm_ops.dsmm(packed, x2)
     return (y, stats) if return_stats else y
+
+
+# --- the gmm kernel ----------------------------------------------------------
+
+def _fit(t: int, pref: int) -> int:
+    """``pref`` halved until it divides ``t`` (the reference's tile fit)."""
+    v = pref
+    while t % v:
+        v //= 2
+    return max(v, 1)
+
+
+def _check_gmm(x, w, expert_ids, tm: int, tf: int, td: int):
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"gmm takes x [T, D] and w [E, D, F]; got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise ValueError(f"dtypes x={x.dtype}, w={w.dtype}: both one of "
+                         f"{DTYPES}")
+    if w.device != x.device or expert_ids.device != x.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}, expert_ids "
+                         f"on {expert_ids.device}")
+    t_rows, d = x.shape
+    f = w.shape[2]
+    if tm < 1 or t_rows % tm:
+        raise ValueError(f"rows {t_rows} not divisible by tile {tm}")
+    if expert_ids.dim() != 1 or expert_ids.shape[0] != t_rows // tm:
+        raise ValueError("expert_ids must have one entry per row tile")
+    if tf < 1 or f % tf or td < 1 or d % td:
+        raise ValueError(f"tiles tf={tf}, td={td} must divide F={f}, "
+                         f"D={d}")
+
+
+def gmm_cuda(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor, *,
+             tm: int) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only; ``tm <= 64``)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"gmm_cuda needs CUDA tensors, got {x.device}")
+    if not 1 <= tm <= MAX_TM:
+        raise ValueError(f"gmm_cuda: row tile tm={tm} outside the "
+                         f"kernel's 1..{MAX_TM}")
+    if expert_ids.dtype != torch.int32:
+        raise ValueError(f"expert_ids must be int32, got {expert_ids.dtype}")
+    # shapes and dtypes (the kernel reads expert_ids[T // tm - 1] and
+    # takes w in x's dtype); any tf, td is fine here
+    _check_gmm(x, w, expert_ids, tm, 1, 1)
+    if not (x.is_contiguous() and w.is_contiguous()
+            and expert_ids.is_contiguous()):
+        raise ValueError("x, w and expert_ids must be contiguous")
+    t_rows, d = x.shape
+    e, _, f = w.shape
+    out = torch.empty((t_rows, f), dtype=x.dtype, device=x.device)
+    if t_rows == 0 or f == 0:
+        return out
+    # 16-byte loads of w need F in whole vectors and an aligned base
+    vec = int(f % (16 // w.element_size()) == 0 and w.data_ptr() % 16 == 0)
+    fn = _build.entry("gmm", "gmm", [ctypes.c_void_p] * 4
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        code = fn(x.data_ptr(), w.data_ptr(), expert_ids.data_ptr(),
+                  out.data_ptr(), t_rows // tm, tm, d, f, e, vec,
+                  _build.DTYPE_CODES[x.dtype], stream)
+    _build.check(code, "gmm")
+    COUNTER.launches += 1
+    return out
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor, *,
+        tm: Optional[int] = None, tf: Optional[int] = None,
+        td: Optional[int] = None) -> torch.Tensor:
+    """Grouped GEMM.  ``x: [T, D]`` rows grouped by expert, ``w: [E, D,
+    F]``, ``expert_ids: [T // tm]`` one expert per row tile -> ``[T, F]``
+    in x's dtype.  ``tf``/``td`` are checked as the reference checks them
+    (each must divide F / D); the kernel tiles F by 64 and D by 32
+    whatever they say, and holds at most 64 rows a tile (``tm <= 64``,
+    narrower than the reference).  CUDA tensors launch the kernel (or
+    raise); CPU tensors run ``gmm_ref``."""
+    t_rows, d = x.shape[0], x.shape[-1]
+    f = w.shape[-1]
+    tm = tm or (t_rows // max(int(expert_ids.shape[0]), 1))
+    tf = tf or _fit(f, 128)
+    td = td or _fit(d, 128)
+    _check_gmm(x, w, expert_ids, tm, tf, td)
+    if x.device.type == "cuda":
+        return gmm_cuda(x.contiguous(), w.contiguous(),
+                        expert_ids.to(torch.int32).contiguous(), tm=tm)
+    if x.device.type != "cpu":
+        raise ValueError(f"gmm: unsupported device {x.device}")
+    return gmm_ref(x, w, expert_ids, tm=tm)

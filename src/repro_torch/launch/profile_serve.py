@@ -1,6 +1,8 @@
 """Where serving time goes on the card: one prefill and a run of decode
-steps of a full-width sparse-FFN model (llama3.2-1b by default, or
-``--arch gemma2-2b``) under ``torch.profiler``.
+steps of a full-width model under ``torch.profiler``: llama3.2-1b (by
+default) or ``--arch gemma2-2b`` with every FFN block-sparse at
+``--density``, or ``--arch qwen3-moe-30b-a3b`` with its 128 experts
+(``--density`` does not apply to an MoE config).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
         [--arch llama3.2-1b] [--density 0.125] [--batch 4] \
@@ -9,8 +11,8 @@ steps of a full-width sparse-FFN model (llama3.2-1b by default, or
 Reports, per phase, the host wall time (clock around work that ends in a
 ``synchronize``), the device busy time (sum of the kernels' own device
 times from the profiler), the device's idle share, and the device time
-by kernel family (the bs_attn, bsmm, dense_mm and sddmm kernels, the
-library GEMM of the unembed, everything else); and, for the decode step,
+by kernel family (the bs_attn, bsmm, dense_mm, gmm and sddmm kernels,
+the library GEMM of the unembed and the router, everything else); and, for the decode step,
 the Python functions that take the host's time (``cProfile``).  Needs a
 card.
 """
@@ -28,13 +30,15 @@ from repro_torch import configs
 from repro_torch.models.model import LM
 
 
-FAMILIES = ("bs_attn", "bsmm", "dense_mm", "sddmm", "library_gemm",
+FAMILIES = ("bs_attn", "bsmm", "dense_mm", "gmm", "sddmm", "library_gemm",
             "other")
 
 
 def _family(name: str) -> str:
     if "bs_attn" in name:
         return "bs_attn"
+    if "gmm_kernel" in name:
+        return "gmm"
     if "bsmm_nt" in name:
         return "bsmm"
     if "dense_mm" in name or "splitk_reduce" in name:
@@ -137,7 +141,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
 
-    cfg = configs.sparsify_ffn(configs.get(args.arch), args.density)
+    cfg = configs.get(args.arch)
+    if cfg.moe is None:
+        cfg = configs.sparsify_ffn(cfg, args.density)
     lm = LM(cfg, device="cuda", seed=args.seed)
     rng = np.random.default_rng(args.seed)
     max_len = args.max_len
@@ -155,7 +161,9 @@ def main(argv=None):
     for fn in (prefill, decode, decode):       # warm-up
         fn()
     out = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
-           "max_len": max_len, "density": args.density, "batch": args.batch,
+           "max_len": max_len,
+           "density": args.density if cfg.moe is None else None,
+           "batch": args.batch,
            "prompt": args.prompt,
            "prefill_wall_ms": _wall_ms(prefill, 3),
            "decode_step_wall_ms": _wall_ms(decode, args.steps),

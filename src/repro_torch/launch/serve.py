@@ -2,11 +2,15 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
         --density 0.125 --requests 8 --batch 4 --max-len 512
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b
 
-Runs on the card by default; ``--device cpu`` runs the kernels' plain
-PyTorch versions on the CPU (use ``--smoke`` there).  ``--density`` makes
-every FFN block-sparse at that block density (block size
-``ffn_block_size``), the paper's sparse FFN.
+Architectures: llama3.2-1b, gemma2-2b, qwen3-moe-30b-a3b (128 experts
+top-8; its expert GEMMs run the gmm kernel).  Runs on the card by
+default; ``--device cpu`` runs the kernels' plain PyTorch versions on the
+CPU (use ``--smoke`` there).  ``--density`` makes every dense FFN
+block-sparse at that block density (block size ``ffn_block_size``), the
+paper's sparse FFN; an MoE config keeps its experts and refuses it.
 """
 from __future__ import annotations
 
@@ -38,6 +42,9 @@ def main(argv=None):
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     if args.density is not None:
+        if cfg.moe is not None:
+            raise SystemExit(f"--density: {cfg.name}'s FFNs are expert "
+                             f"mixtures, not a dense FFN to sparsify")
         cfg = configs.sparsify_ffn(cfg, args.density)
     lm = LM(cfg, device=args.device, seed=args.seed)
     eng = Engine(lm, batch=args.batch, max_len=args.max_len,

@@ -2,9 +2,14 @@
 
 Counterpart of the JAX package's ``models/model.py`` ``LM`` for decoder-
 only attention stacks, global and local (sliding-window) layers, with
-Gemma's embedding scale, pre+post norms and soft-caps (``forward``,
-``loss``, ``prefill(last_index=)``, ``init_cache``, ``decode_step``; the
-retained ring cache, the encoder and the frontends wait).  ``LM`` is an
+Gemma's embedding scale, pre+post norms and soft-caps, and dense, sparse
+or MoE FFNs (``forward``, ``loss``, ``prefill(last_index=)``,
+``init_cache``, ``decode_step``; the retained ring cache, the encoder and
+the frontends wait, and ``loss`` of an MoE config waits for MoE
+training).  ``forward(..., return_metrics=True)`` also returns the
+stack metrics the reference's ``forward`` returns (``aux_loss``,
+``z_loss``, ``dropped_frac``, summed over the layers; zeros without
+MoE).  ``LM`` is an
 ``nn.Module`` that holds its parameters: ``init(seed)`` fills them from a
 seeded ``torch.Generator``,
 ``load_jax_params(tree)`` copies them from the JAX package's params
@@ -30,7 +35,7 @@ from repro_torch.models.layers import Embedding, RMSNorm, embed, unembed
 
 # fields of ModelCfg the port does not implement yet, with the value it
 # requires
-_UNSUPPORTED = {"attn_impl": "gqa", "moe": None, "ssm": None,
+_UNSUPPORTED = {"attn_impl": "gqa", "ssm": None,
                 "encoder_layers": 0, "frontend": None,
                 "long_attention": "full"}
 
@@ -180,13 +185,18 @@ class LM(nn.Module):
 
     # -- entry points -------------------------------------------------------------
     @torch.no_grad()
-    def forward(self, tokens) -> torch.Tensor:
-        """Full-sequence logits ``[B, S, V]`` for tokens ``[B, S]``."""
+    def forward(self, tokens, *, return_metrics: bool = False):
+        """Full-sequence logits ``[B, S, V]`` for tokens ``[B, S]``; with
+        ``return_metrics`` ``(logits, metrics)``, the stack metrics as
+        fp32 device scalars."""
         t = self._tokens(tokens)
         h = self._embed(t)
         positions = torch.arange(t.shape[1], device=self.device)[None, :]
-        h = tfm.stack_apply(self.layers, h, positions=positions)
-        return self._unembed(self._final(h))
+        metrics = tfm.zero_metrics(self.device) if return_metrics else None
+        h = tfm.stack_apply(self.layers, h, positions=positions,
+                            metrics=metrics)
+        logits = self._unembed(self._final(h))
+        return (logits, metrics) if return_metrics else logits
 
     def loss(self, tokens, targets, *, loss_chunk: int = 1024):
         """Next-token cross entropy in fp32 for tokens/targets ``[B, S]``
@@ -196,7 +206,13 @@ class LM(nn.Module):
         ``loss_chunk`` (halved until it divides S), each recomputed in
         the backward (activation checkpointing), so the ``[B, S, V]``
         logits are never held whole: one chunk's fp32 logits at a time.
+        An MoE config raises: its router losses and the expert GEMMs'
+        backward wait for the MoE training slice.
         """
+        if self.cfg.moe is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: LM.loss of an MoE config is not ported "
+                f"yet (serving only)")
         t = self._tokens(tokens)
         tg = self._tokens(targets)
         h = self._embed(t)

@@ -1,16 +1,20 @@
 """Decoder layers and the layer stack.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the
-``attn`` and ``attn_local`` mixers with the ``mlp`` and ``sparse`` FFN
-arms, and the Gemma-2 pre+post norms (``post_norm``: ``plus_one`` norms
-before and after each sub-layer) (``layer_apply``, ``layer_prefill``,
-``layer_decode`` and their stacks).
+``attn`` and ``attn_local`` mixers with the ``mlp``, ``sparse`` and
+``moe`` FFN arms, and the Gemma-2 pre+post norms (``post_norm``:
+``plus_one`` norms before and after each sub-layer) (``layer_apply``,
+``layer_prefill``, ``layer_decode`` and their stacks).  The full-sequence
+stack sums the MoE layers' metrics (``aux_loss``, ``z_loss``,
+``dropped_frac``) into a dict the caller passes, as the reference's
+``stack_apply`` returns them; prefill and decode drop them, as the
+reference does.
 The JAX package scans one period over stacked params; here every layer
 is its own module and the stack is a Python loop.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -19,6 +23,15 @@ from repro_torch.core.sparse_layers import SparseFFN
 from repro_torch.models.attention import GQA, Cache, gqa_cache_init
 from repro_torch.models.config import LayerSpec, ModelCfg
 from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.moe import MoE
+
+METRICS = ("aux_loss", "z_loss", "dropped_frac")
+
+
+def zero_metrics(device) -> Dict[str, torch.Tensor]:
+    """``_zero_metrics``: the stack metrics at zero, fp32 on ``device``."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in METRICS}
 
 
 def model_dtype(cfg: ModelCfg) -> torch.dtype:
@@ -46,9 +59,10 @@ class Layer(nn.Module):
             raise NotImplementedError(
                 f"layer {spec}: the port runs causal 'attn' and "
                 f"'attn_local' layers only")
-        if spec.ffn not in ("mlp", "sparse"):
+        if spec.ffn not in ("mlp", "sparse", "moe"):
             raise NotImplementedError(
-                f"ffn {spec.ffn!r}: the port runs 'mlp' and 'sparse' only")
+                f"ffn {spec.ffn!r}: the port runs 'mlp', 'sparse' and "
+                f"'moe' only")
         dt = model_dtype(cfg)
         self.cfg = cfg
         self.local = spec.mixer == "attn_local"
@@ -57,9 +71,12 @@ class Layer(nn.Module):
         self.attn = GQA(cfg, dtype=dt, device=device)
         self.norm2 = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                              device=device)
+        self.moe = spec.ffn == "moe"
         if spec.ffn == "mlp":
             self.ffn = MLP(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dt,
                            device=device)
+        elif self.moe:
+            self.ffn = MoE(cfg, dtype=dt, device=device)
         else:
             self.ffn = sparse_ffn(cfg, device=device)
         if cfg.post_norm:
@@ -73,16 +90,29 @@ class Layer(nn.Module):
     def _post(self, norm, x: torch.Tensor) -> torch.Tensor:
         return x if norm is None else norm(x, eps=self.cfg.norm_eps)
 
-    def _ffn(self, h: torch.Tensor) -> torch.Tensor:
-        out = self.ffn(self.norm2(h, eps=self.cfg.norm_eps))
+    def _ffn(self, h: torch.Tensor,
+             metrics: Optional[Dict[str, torch.Tensor]] = None
+             ) -> torch.Tensor:
+        """The FFN sub-layer; an MoE layer adds its metrics into
+        ``metrics`` when given (device adds, no host read)."""
+        hn = self.norm2(h, eps=self.cfg.norm_eps)
+        if self.moe:
+            out, m = self.ffn(hn)
+            if metrics is not None:
+                for name, val in zip(METRICS, m):
+                    metrics[name] = metrics[name] + val
+        else:
+            out = self.ffn(hn)
         return self._post(self.post_norm2, out)
 
-    def forward(self, h: torch.Tensor, positions: torch.Tensor):
-        """``layer_apply``: full sequence, no cache."""
+    def forward(self, h: torch.Tensor, positions: torch.Tensor,
+                metrics: Optional[Dict[str, torch.Tensor]] = None):
+        """``layer_apply``: full sequence, no cache; MoE metrics are
+        summed into ``metrics`` when given."""
         mix = self.attn(self.norm1(h, eps=self.cfg.norm_eps), positions,
                         local=self.local)
         h = h + self._post(self.post_norm1, mix)
-        return h + self._ffn(h)
+        return h + self._ffn(h, metrics)
 
     def prefill(self, h: torch.Tensor, positions: torch.Tensor, *,
                 max_len: int):
@@ -108,9 +138,11 @@ def layer_specs(cfg: ModelCfg) -> List[LayerSpec]:
             for spec in period]
 
 
-def stack_apply(layers, h, *, positions):
+def stack_apply(layers, h, *, positions, metrics=None):
+    """Full-sequence stack; with a ``metrics`` dict (``zero_metrics``)
+    the MoE layers' metrics are summed into it."""
     for layer in layers:
-        h = layer(h, positions)
+        h = layer(h, positions, metrics)
     return h
 
 

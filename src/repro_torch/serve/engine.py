@@ -59,8 +59,9 @@ class Request:
 
 def _stack_shapes(cfg: ModelCfg) -> List[Tuple[int, int]]:
     """The ``[m, k]`` matmul stack one token traverses: q/k/v and o
-    projections, the FFN (its density applied when sparse) and the
-    unembed."""
+    projections, the FFN (its density applied when sparse; an MoE layer
+    priced at its router and top-k (+ shared) expert FFNs, as the
+    reference prices it) and the unembed."""
     d = cfg.d_model
     qd, kvd = cfg.attn_dims
     gated = cfg.act in ("silu", "gelu")
@@ -70,6 +71,12 @@ def _stack_shapes(cfg: ModelCfg) -> List[Tuple[int, int]]:
             for _ in range(rep):
                 shapes += [(qd + 2 * kvd, d), (d, qd)]
                 if spec.ffn == "none":
+                    continue
+                if spec.ffn == "moe" and cfg.moe is not None:
+                    m = cfg.moe
+                    shapes.append((m.num_experts, d))        # router
+                    ff = m.d_ff_expert * (m.top_k + m.num_shared)
+                    shapes += [(ff * (2 if gated else 1), d), (d, ff)]
                     continue
                 ff = cfg.d_ff
                 if spec.ffn == "sparse" and cfg.ffn_density:

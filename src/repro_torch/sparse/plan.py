@@ -31,10 +31,26 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   in plain PyTorch, as the JAX package leaves it to XLA
   (``dynamic_torch`` is that formulation forward and backward).  A dense
   plan mirrors ``_dense_planned_vjp``: dense_mm forward, two
-  ``torch.matmul`` products backward.
+  ``torch.matmul`` products backward;
+* ``batched_matmul`` (MoE's expert GEMMs, ``plan.py:2026-2035``) plans
+  the per-slice ``[C, D] @ [D, F]`` problem once.  The reference vmaps
+  dense_mm over the batch axes, which on the TPU makes the batch a grid
+  axis of one kernel; on a card route ``dense_cuda`` runs that one
+  launch as the gmm kernel over ``a.reshape(E * C, D)`` with one expert
+  id per row tile (``tm`` the largest multiple of 8 <= 64 dividing C,
+  else its largest divisor <= 64), forward only.  ``dense_torch`` is
+  ``torch.matmul``;
+* ``record_dropped`` folds a non-plan capacity stream (MoE's routing
+  drops, ``"moe_dispatch"``) into ``capacity_report()``.  A value on
+  the card is kept as a device scalar and read at the next
+  ``capacity_report()`` (one host read for all of them), so a forward
+  that records once per layer never waits for the device.
+  ``dropped_history`` gives a stream's values one per call, in call
+  order.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import threading
 from typing import Any, Dict, Optional, Tuple, Union
@@ -118,6 +134,11 @@ class MatmulPlan:
     # grouped routes: tile side and tile capacity
     tile: int = 0
     tiles_cap: int = 0
+    # batched_matmul on the card: the gmm row tile and, per slice count
+    # E, the expert id of each row tile on the device (built once)
+    row_tile: int = 0
+    expert_ids: Dict[int, torch.Tensor] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def grad_routes(self) -> Dict[str, str]:
@@ -232,6 +253,34 @@ class MatmulPlan:
             self._check_differentiable()
             return _DenseMatmulFn.apply(x2, w)
         return dmm_ops.dense_mm(x2.contiguous(), w.contiguous())
+
+    def batched_matmul(self, a: torch.Tensor, b: torch.Tensor
+                       ) -> torch.Tensor:
+        """``op="batched_matmul"``: ``a [..., C, D] @ b [..., D, F]`` with
+        the same leading axes, in one gmm launch on a card (forward
+        only) or ``torch.matmul`` on the CPU."""
+        lead = a.shape[:-2]
+        if (tuple(a.shape[-2:]) + (b.shape[-1],) != (self.m, self.k, self.n)
+                or b.shape[:-2] != lead or b.shape[-2] != self.k):
+            raise ValueError(f"plan expects [..., {self.m}, {self.k}] @ "
+                             f"[..., {self.k}, {self.n}] with equal leading "
+                             f"axes; got {tuple(a.shape)} @ {tuple(b.shape)}")
+        if self.route == "dense_torch":
+            return torch.matmul(a, b)
+        if _needs_grad(a, b):
+            raise NotImplementedError(
+                "batched_matmul on the card has no backward (the gmm kernel "
+                "is forward only; MoE training waits)")
+        e = int(np.prod(lead, dtype=np.int64))
+        ids = self.expert_ids.get(e)
+        if ids is None:
+            ids = self.expert_ids[e] = torch.arange(
+                e, dtype=torch.int32, device=self.device).repeat_interleave(
+                    self.m // self.row_tile)
+        y = gmm_ops.gmm_cuda(a.reshape(e * self.m, self.k).contiguous(),
+                             b.reshape(e, self.k, self.n).contiguous(), ids,
+                             tm=self.row_tile)
+        return y.reshape(*lead, self.m, self.n)
 
     # -- dynamic routes ----------------------------------------------------
 
@@ -390,6 +439,14 @@ _STATS = {"plans_built": 0, "plan_hits": 0}
 # running overflow telemetry per plan key: outlives plan objects, so an
 # escalation survives the eviction it causes
 _CAPACITY: Dict[str, CapacityStats] = {}
+# record_dropped values still on the card, per stream, read at the next
+# capacity_report (or once a stream holds _DROPS_FOLD_AT of them)
+_DROPS: Dict[str, list] = {}
+_DROPS_FOLD_AT = 4096
+# every folded record_dropped value per stream, one per call in call
+# order (the newest _DROPS_LOG_LEN), for dropped_history
+_DROPS_LOG: Dict[str, collections.deque] = {}
+_DROPS_LOG_LEN = 1 << 16
 
 
 def cache_stats() -> Dict[str, int]:
@@ -403,6 +460,8 @@ def reset() -> None:
     with _LOCK:
         _PLANS.clear()
         _CAPACITY.clear()
+        _DROPS.clear()
+        _DROPS_LOG.clear()
         for key in _STATS:
             _STATS[key] = 0
 
@@ -412,6 +471,8 @@ def reset_telemetry() -> None:
     forgetting plans: stats of cached plans are zeroed in place (their
     plans keep recording), orphaned ones dropped."""
     with _LOCK:
+        _DROPS.clear()
+        _DROPS_LOG.clear()
         live = {id(p.capacity_stats) for p in _PLANS.values()
                 if p.capacity_stats is not None}
         for key in list(_CAPACITY):
@@ -422,9 +483,75 @@ def reset_telemetry() -> None:
                 stats.reset_counts()
 
 
+def _stream(name: str) -> CapacityStats:
+    with _LOCK:
+        stats = _CAPACITY.get(name)
+        if stats is None:
+            stats = _CAPACITY[name] = CapacityStats(name)
+        return stats
+
+
+def _fold_drops() -> None:
+    """Read every pending device value (one host read) into its
+    stream."""
+    with _LOCK:
+        pending = {k: v for k, v in _DROPS.items() if v}
+        _DROPS.clear()
+    for name, vals in pending.items():
+        _log_drops(name, torch.cat(vals).double().tolist())
+
+
+def _log_drops(name: str, fracs) -> None:
+    stats = _stream(name)
+    with _LOCK:
+        log = _DROPS_LOG.setdefault(
+            name, collections.deque(maxlen=_DROPS_LOG_LEN))
+        log.extend(fracs)
+    for frac in fracs:
+        stats.record(0, 0, 0, frac)
+
+
+def record_dropped(name: str, dropped_frac) -> None:
+    """Fold one step's dropped fraction of a non-plan capacity bucket
+    (MoE's routing ``dropped_frac``) into the ``name`` stream of
+    ``capacity_report()``: fraction only, so ``overflow_calls`` counts
+    through ``frac > 0`` and the tile totals stay uninflated.  A host
+    value is recorded now; a tensor on the card is kept on the card and
+    read at the next ``capacity_report()``, so no call here waits for
+    the device (the reference's eager call syncs, its traced call
+    records nothing)."""
+    if isinstance(dropped_frac, torch.Tensor) \
+            and dropped_frac.device.type != "cpu":
+        frac = dropped_frac.detach().float().reshape(-1)
+        if frac.numel() != 1:
+            frac = frac.amax().reshape(1)
+        with _LOCK:
+            pend = _DROPS.setdefault(name, [])
+            pend.append(frac)
+            full = len(pend) >= _DROPS_FOLD_AT
+        if full:
+            _fold_drops()
+        return
+    if isinstance(dropped_frac, torch.Tensor):
+        dropped_frac = dropped_frac.detach().float().numpy()
+    _fold_drops()                 # earlier calls' card values first
+    _log_drops(name, [float(np.asarray(dropped_frac).max())])
+
+
+def dropped_history(name: str) -> list:
+    """Every value ``record_dropped`` took for stream ``name`` since the
+    last ``reset_telemetry``, one float per call in call order (the
+    newest 65536).  Reads the card once, like ``capacity_report``."""
+    _fold_drops()
+    with _LOCK:
+        return list(_DROPS_LOG.get(name, ()))
+
+
 def capacity_report() -> dict:
     """Overflow telemetry of every planned-capacity problem run in this
-    process, per plan key and in total."""
+    process (and of the ``record_dropped`` streams), per plan key and in
+    total."""
+    _fold_drops()
     with _LOCK:
         per_key = {k: s.report() for k, s in _CAPACITY.items()}
     return {
@@ -594,6 +721,9 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
     if spec.kind == "static":
         fp = ("static", pattern_key(operand.row_idx, operand.col_idx),
               (spec.m, spec.k), spec.block_size, spec.dtype, dev, route)
+    elif spec.op == "batched_matmul":
+        fp = ("batched_matmul", (spec.m, spec.k, spec.n), spec.dtype, dev,
+              route)
     elif spec.kind == "dense":
         fp = ("dense", (spec.k, spec.m), spec.dtype, dev, route)
     else:
@@ -620,6 +750,9 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
         p = MatmulPlan(kind="dense", route=route, m=spec.m, k=spec.k,
                        n=int(spec.n), dtype=getattr(torch, spec.dtype),
                        device=dev, ctx=ctx)
+        if spec.op == "batched_matmul" and route == "dense_cuda":
+            p.row_tile = batched_row_tile(spec.m)
+            p.artifacts = {"kernel": "gmm", "row_tile": p.row_tile}
     p.spec = p.spec or spec
     p.key = key
     with _LOCK:
@@ -635,6 +768,17 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
                     del _PLANS[mem_key]
         stats._on_escalate = _escalate_trip
     return p
+
+
+def batched_row_tile(c: int) -> int:
+    """The gmm row tile of a ``[C, D]`` slice: the largest multiple of 8
+    <= 64 that divides C (MoE's capacity is a multiple of 8), else C's
+    largest divisor <= 64."""
+    for cands in (range(64, 0, -8), range(64, 0, -1)):
+        for t in cands:
+            if c % t == 0:
+                return t
+    raise ValueError(f"batched_matmul: empty slice (C = {c})")
 
 
 def _promote(operand, x: torch.Tensor):
@@ -694,3 +838,21 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     p = plan(w, x2.shape[0], device=x.device, ctx=ctx)
     return p.matmul(x2, w).reshape(*lead, m)
 
+
+
+def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                   ctx: Optional[PlanContext] = None) -> torch.Tensor:
+    """Batched dense ``[..., C, D] @ [..., D, F]`` (MoE expert GEMMs):
+    one plan for the per-slice problem, in ``a`` and ``b``'s promoted
+    dtype, run over the leading axes (the gmm kernel on a card)."""
+    ctx = ctx or PlanContext()
+    if a.dim() < 3 or b.dim() != a.dim() or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"batched_matmul takes [..., C, D] @ [..., D, F] "
+                         f"with the same leading axes; got "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    rt = torch.result_type(a, b)
+    c, d = a.shape[-2:]
+    spec = OpSpec(kind="dense", m=int(c), k=int(d), n=int(b.shape[-1]),
+                  dtype=rt, op="batched_matmul", mode=ctx.mode)
+    p = plan(spec, device=a.device, ctx=ctx)
+    return p.batched_matmul(a.to(rt), b.to(rt))

@@ -27,7 +27,7 @@ from repro_torch.core.bsr import BlockSparseMatrix
 from repro_torch.core.dynamic_sparse import DynamicOperand
 
 KINDS = ("dense", "static", "dynamic")
-OPS = ("spmm", "matmul")
+OPS = ("spmm", "matmul", "batched_matmul")
 
 # the JAX package's route ids (``core/dispatch.py`` ROUTES) and modes
 JAX_ROUTES = ("dense_xla", "dense_pallas", "static_xla", "static_pallas",
@@ -78,7 +78,9 @@ class OpSpec:
     block_size  b (1 for dense)
     density     true block density (static) or d_max capacity (dynamic)
     dtype       operand dtype name ("float32", "bfloat16", "float16")
-    op          "spmm" (Y = W . X) | "matmul" (x . w, dense)
+    op          "spmm" (Y = W . X) | "matmul" (x . w, dense) |
+                "batched_matmul" ([..., C, D] @ [..., D, F], dense; m, k
+                and n are the per-slice C, D and F)
     mode        "auto", a family, or a JAX route id (``MODES``)
     """
 

@@ -397,3 +397,126 @@ def test_gemma2_lm_on_card_matches_cpu(dev):
         logits, caches = gpu.decode_step(toks[:, pos:pos + 1], caches,
                                          np.asarray([pos, pos]))
         assert _rel(logits.cpu(), got[:, pos].cpu()) <= 2e-4
+
+
+# gmm: (E, tm, row tiles, D, F, ids); ids "monotone" (each expert's rows
+# one run, as batched_matmul lays them out) or "random" (non-monotone);
+# F 96 and 100 exercise the 64-column edge and the element-wise w loads
+GMM_CASES = [(8, 8, 16, 128, 96, "monotone"), (8, 8, 16, 128, 100, "random"),
+             (4, 40, 8, 96, 96, "monotone"), (4, 40, 8, 100, 64, "random"),
+             (8, 64, 4, 128, 96, "random"), (3, 24, 6, 64, 128, "monotone")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", GMM_CASES)
+def test_gmm_cuda_matches_plain(dev, dtype, case):
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    e, tm, tiles, d, f, kind = case
+    g = torch.Generator(device=dev).manual_seed(tm * 7 + f)
+    x = torch.randn((tiles * tm, d), generator=g, device=dev).to(dtype)
+    w = (torch.randn((e, d, f), generator=g, device=dev)
+         / np.sqrt(d)).to(dtype)
+    if kind == "monotone":
+        ids = torch.arange(e, device=dev).repeat_interleave(
+            -(-tiles // e))[:tiles]
+    else:
+        ids = torch.randint(0, e, (tiles,), generator=g, device=dev)
+    ids = ids.to(torch.int32)
+    before = gmm_ops.COUNTER.launches
+    got = gmm_ops.gmm(x, w, ids, tm=tm)
+    torch.cuda.synchronize()
+    assert gmm_ops.COUNTER.launches == before + 1
+    assert _rel(got, gmm_ref(x, w, ids, tm=tm)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_cuda_id_past_e_gives_zero_rows(dev, dtype):
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((32, 64), generator=g, device=dev).to(dtype)
+    w = torch.randn((2, 64, 72), generator=g, device=dev).to(dtype)
+    ids = torch.tensor([0, 2, -5, 1], dtype=torch.int32, device=dev)
+    got = gmm_ops.gmm_cuda(x, w, ids, tm=8)
+    torch.cuda.synchronize()
+    assert torch.all(got[8:24] == 0)
+    assert _rel(got, gmm_ref(x, w, ids, tm=8)) <= TOL[dtype]
+    with pytest.raises(ValueError, match="outside"):
+        gmm_ops.gmm_cuda(x, w, ids[:0], tm=128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["short ids", "long ids", "ragged rows",
+                                 "d mismatch", "w dtype"])
+def test_gmm_cuda_refuses_bad_shapes_and_dtypes(dev, bad):
+    """gmm_cuda itself (called directly by batched_matmul) refuses what
+    would make the kernel read past expert_ids or reinterpret w."""
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    x = torch.zeros((32, 64), device=dev)
+    w = torch.zeros((2, 64, 72), device=dev)
+    ids = torch.zeros((4,), dtype=torch.int32, device=dev)
+    if bad == "short ids":
+        ids = ids[:2]
+    elif bad == "long ids":
+        ids = torch.zeros((5,), dtype=torch.int32, device=dev)
+    elif bad == "ragged rows":
+        x = x[:30]
+    elif bad == "d mismatch":
+        w = torch.zeros((2, 48, 72), device=dev)
+    else:
+        w = w.to(torch.bfloat16)
+    before = gmm_ops.COUNTER.launches
+    with pytest.raises(ValueError):
+        gmm_ops.gmm_cuda(x, w, ids, tm=8)
+    assert gmm_ops.COUNTER.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [8, 40, 72])
+def test_batched_matmul_on_card_runs_gmm(dev, c):
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    g = torch.Generator(device=dev).manual_seed(c)
+    a = torch.randn((16, c, 256), generator=g, device=dev)
+    b = torch.randn((16, 256, 96), generator=g, device=dev) / 16
+    before = gmm_ops.COUNTER.launches
+    got = sparse.batched_matmul(a.to(torch.bfloat16), b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert gmm_ops.COUNTER.launches == before + 1
+    assert _rel(got, torch.matmul(a.to(torch.bfloat16).float(), b)) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_qwen3_moe_lm_on_card_matches_cpu(dev):
+    """qwen3-moe's smoke config (8 experts top-2, QK-norm), fp32: forward
+    with its metrics, prefill and decode on the card (gmm, dense_mm,
+    bs_attn) against the CPU."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    cfg = dataclasses.replace(configs.smoke("qwen3-moe-30b-a3b"),
+                              dtype="float32")
+    gpu = LM(cfg, device=dev, seed=0)
+    cpu = LM(cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    toks = np.random.default_rng(0).integers(0, 512, size=(2, 90))
+    before = gmm_ops.COUNTER.launches
+    got, gm = gpu.forward(toks, return_metrics=True)
+    assert gmm_ops.COUNTER.launches - before == 3 * cfg.num_layers
+    want, wm = cpu.forward(toks, return_metrics=True)
+    assert _rel(got.cpu(), want) <= 2e-4
+    assert float(gm["dropped_frac"]) == float(wm["dropped_frac"])
+    logits, caches = gpu.prefill(toks[:, :80], max_len=96)
+    for pos in range(80, 90):
+        logits, caches = gpu.decode_step(toks[:, pos:pos + 1], caches,
+                                         np.asarray([pos, pos]))
+    cl, cc = cpu.prefill(toks[:, :80], max_len=96)
+    for pos in range(80, 90):
+        cl, cc = cpu.decode_step(toks[:, pos:pos + 1], cc,
+                                 np.asarray([pos, pos]))
+    assert _rel(logits.cpu(), cl) <= 2e-4

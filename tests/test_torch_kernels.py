@@ -169,7 +169,7 @@ def test_bsmm_wrapper_validates(bad, msg):
 def test_contracts_name_routes_and_reference():
     reg = tcontract.load_all()
     assert set(reg) == {"bs_attn", "bsmm", "bsmm_balanced", "dense_mm",
-                        "dsmm", "sddmm"}
+                        "dsmm", "gmm", "sddmm"}
     assert tcontract.contract_for_route("static_cuda").kernel == "bsmm"
     assert tcontract.contract_for_route("dense_cuda").kernel == "dense_mm"
     assert tcontract.contract_for_route("sddmm_cuda").kernel == "sddmm"
