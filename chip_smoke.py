@@ -14,9 +14,15 @@ Phases, each fatal on failure:
    up/gate 8192x2048 and down 2048x8192, dense_mm q/o 2048x2048 and
    k/v 2048x512; bf16 and fp32): serving N in {4, 256}, training N =
    2048 (batch 4 x seq 512) for bsmm forward, bsmm on the transposed
-   patterns and dense_mm, sddmm at N in {256, 2048}; with each kernel's
-   time, its plain version's time, one library call's time and the
-   least time the card could take (the bound);
+   patterns and dense_mm, sddmm at N in {256, 2048}; dense_mm also at
+   llama's served prefill lengths, at gemma2-2b's q/k/v/o (decode N 2 and
+   its served prefills), at qwen3-moe's q/k/v/o (N 4, 256, 1008 and its
+   served prefills) and Table 3's 4096^3 in fp16, each row naming the
+   walk the kernel took (decode, wgmma or ffma); with each kernel's time,
+   its plain version's time, one
+   library call's time and the least time the card could take (the
+   bound).  Each main-path phase below also reports dense_mm's launches
+   by walk;
 3. serve: full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
    vocab 128256) with every FFN block-sparse at d=1/8, b=16, in bf16,
    seeded random weights, through ``Engine(batch=4, max_len=512)``: 8
@@ -42,8 +48,10 @@ Phases, each fatal on failure:
    power-law and DLMC masks; bf16 and fp32), beside the uniform bsmm
    walk (these rows print with the kernel rows of phase 2);
 8. table3: the paper's Table 3 (m = k = 4096, d = 1/16, N = 4096, b in
-   {4, 16}, fp16 and fp32): one line per route (dense_cuda, static_cuda,
-   static_balanced_cuda, dynamic_cuda with its encode, and the grouped
+   {1, 4, 16}, fp16 and fp32; b = 1 packed into 4 x 4 tiles on the
+   static routes and re-blocked on the device on dynamic_cuda): one line
+   per route (dense_cuda, static_cuda, static_balanced_cuda,
+   dynamic_cuda with its encode, and the grouped
    routes at worst-case capacity) with its ms and its speedup against
    dense_cuda and torch.matmul; every output checked against the fp32
    dense product, every kernel of the routes launched;
@@ -57,8 +65,8 @@ Phases, each fatal on failure:
    dense softmax over the element mask) in bf16 and fp32 at gemma2-2b's
    global layer (B 1, H 8, KV 4, dh 256, S 4096, causal, soft-cap 50),
    its local layer (S 8192, window 4096), the prefill lengths phase 11
-   serves (local at 4096, global and local at 8176, whose tiles halve
-   to 16), llama3.2-1b's (H 32, KV 8, dh 64, S 2048) and an odd S (1023)
+   serves on its engine's ladder (global and local; at 8176 the tiles
+   halve to 16), llama3.2-1b's (H 32, KV 8, dh 64, S 2048) and an odd S (1023)
    whose tiles halve to 1, with ms, plain ms, bound ms and one library
    call's ms (SDPA, or compiled flex_attention where a soft-cap or a
    window rules SDPA out), the library's output also held against the
@@ -70,7 +78,7 @@ Phases, each fatal on failure:
    prompt tokens (one over 4608), 8 new tokens each; bs_attn, bsmm and
    dense_mm must launch; local layers must visit fewer (q, kv) tile
    pairs than global ones at the longest prompt; decode after a
-   5118-token prompt, prefilled in the engine's 8176 bucket, must match
+   5118-token prompt, prefilled in the engine's bucket, must match
    ``forward`` layer by layer in bf16 (each layer's attention, same
    inputs) and end to end in fp32 (the same seeded weights), the bf16
    end-to-end gap printed;
@@ -181,6 +189,23 @@ def bound(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def with_walks(counters):
+    """``counters`` plus dense_mm's launch counter of each walk, under
+    ``dense_mm:<walk>``."""
+    from repro_torch.kernels.dense_mm import ops as dmm_ops
+    return dict(counters, **{f"dense_mm:{w}": c for w, c in
+                             dmm_ops.WALK_COUNTERS.items()})
+
+
+def split_walks(launches):
+    """``(kernel launches, dense_mm launches by walk)`` of a reading of
+    ``with_walks`` counters."""
+    walks = {k.split(":", 1)[1]: v for k, v in launches.items()
+             if k.startswith("dense_mm:")}
+    return ({k: v for k, v in launches.items()
+             if not k.startswith("dense_mm:")}, walks)
+
+
 def measured_row(torch, kernel, shape, n, dname, run, plain, library,
                  sets, lib_sets, nbytes, flops):
     """One kernel row: ``run`` against ``plain`` on the first input set,
@@ -288,35 +313,46 @@ def kernel_phase(torch, args):
                 rows.append(row)
                 del sets
             del dense_w
-    for shape_name, k, d in (("q/o", 2048, 2048), ("k/v", 2048, 512)):
-        for dname, dt in dtypes.items():
+    # dense_mm at llama's q/o and k/v (decode N 4, N 256, training N and
+    # every prefill length [serve] runs), gemma2's attention projections
+    # (q 2304 -> 8 x 256, k/v 2304 -> 4 x 256, o 2048 -> 2304) at its
+    # decode batch 2 and every prefill length [serve-gemma2] runs,
+    # qwen3-moe's (q 2048 -> 32 x 128, k/v 2048 -> 4 x 128, o 4096 ->
+    # 2048) at its decode batch, at N 256 and 1008 and at every prefill
+    # length [serve-qwen3-moe] runs, and Table 3's 4096^3 in fp16; each
+    # row names the walk the kernel took
+    from repro_torch import configs
+    llama_ns = sorted({4, 256, train_n} | set(llama_prefill_lens(args)))
+    gemma = configs.get("gemma2-2b")
+    g_q, g_kv = (gemma.num_heads * gemma.head_dim,
+                 gemma.num_kv_heads * gemma.head_dim)
+    gemma_ns = sorted({GEMMA2_BATCH} | set(gemma2_prefill_lens(args)))
+    qwen_ns = sorted({QWEN3_BATCH, 256, 1008} | set(qwen3_prefill_lens(args)))
+    fp16 = {"float16": torch.float16}
+    for shape_name, k, d, ns, dts in (
+            ("q/o", 2048, 2048, llama_ns, dtypes),
+            ("k/v", 2048, 512, llama_ns, dtypes),
+            ("gemma2 q", gemma.d_model, g_q, gemma_ns, dtypes),
+            ("gemma2 k/v", gemma.d_model, g_kv, gemma_ns, dtypes),
+            ("gemma2 o", g_q, gemma.d_model, gemma_ns, dtypes),
+            ("qwen3 q", 2048, 4096, qwen_ns, dtypes),
+            ("qwen3 k/v", 2048, 512, qwen_ns, dtypes),
+            ("qwen3 o", 4096, 2048, qwen_ns, dtypes),
+            ("table3 dense", 4096, 4096, (4096,), fp16)):
+        for dname, dt in dts.items():
             w = randn((k, d), dt, 1 / math.sqrt(k))
-            for n in (4, 256, train_n):
+            for n in ns:
                 x = randn((n, k), dt)
                 nbytes = (n * k + k * d + n * d) * w.element_size()
                 sets = copies(lambda: (x.clone(), w.clone()), nbytes)
-                rows.append(measured_row(
+                row = measured_row(
                     torch, "dense_mm", f"{shape_name} {k}x{d}", n, dname,
                     dmm_ops.dense_mm_cuda, dmm_ops.dense_mm_plain,
-                    torch.matmul, sets, sets, nbytes, 2.0 * n * k * d))
-                del sets
-    # qwen3-moe's attention projections (q 2048 -> 32 x 128, k/v 2048 ->
-    # 4 x 128, o 4096 -> 2048) at its decode batch and at every prefill
-    # length [serve-qwen3-moe] runs
-    qwen_ns = sorted({QWEN3_BATCH} | set(qwen3_prefill_lens(args)))
-    for shape_name, k, d in (("qwen3 q", 2048, 4096),
-                             ("qwen3 k/v", 2048, 512),
-                             ("qwen3 o", 4096, 2048)):
-        for dname, dt in dtypes.items():
-            w = randn((k, d), dt, 1 / math.sqrt(k))
-            for n in qwen_ns:
-                x = randn((n, k), dt)
-                nbytes = (n * k + k * d + n * d) * w.element_size()
-                sets = copies(lambda: (x.clone(), w.clone()), nbytes)
-                rows.append(measured_row(
-                    torch, "dense_mm", f"{shape_name} {k}x{d}", n, dname,
-                    dmm_ops.dense_mm_cuda, dmm_ops.dense_mm_plain,
-                    torch.matmul, sets, sets, nbytes, 2.0 * n * k * d))
+                    torch.matmul, sets, sets, nbytes, 2.0 * n * k * d)
+                wk = dmm_ops.walk(n, k, d, dt)
+                row.update(walk=wk.name, tile=f"{wk.bm}x{wk.bn}",
+                           slices=wk.slices, blocks=wk.blocks)
+                rows.append(row)
                 del sets
     return rows
 
@@ -375,8 +411,9 @@ def train_phase(torch, args):
 
     cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
     assert cfg.dtype == "bfloat16" and cfg.ffn_block_size == 16
-    counters = {"bsmm": bsmm.COUNTER, "sddmm": sddmm.COUNTER,
-                "dense_mm": dense_mm.COUNTER, "bs_attn": bs_attn.COUNTER}
+    counters = with_walks({"bsmm": bsmm.COUNTER, "sddmm": sddmm.COUNTER,
+                           "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
     steps, batch, seq = TRAIN_STEPS, 4, 512
     hp = TrainHParams(**TRAIN_HP)
     per_step = []
@@ -407,13 +444,15 @@ def train_phase(torch, args):
                            seed=args.seed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
     walls = sorted(r["step_s"] for r in records)
     p50 = float(np.median(walls))
     result = dict(
         steps=steps, batch=batch, seq=seq, hp=dict(TRAIN_HP),
         losses=losses, records=records, launches=launches,
-        launches_per_step=per_step, wall_s=wall, step_p50_ms=p50 * 1e3,
+        dense_mm_walks=walks, launches_per_step=per_step, wall_s=wall,
+        step_p50_ms=p50 * 1e3,
         tokens_per_s=batch * seq / p50,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
@@ -437,8 +476,8 @@ def serve_phase(torch, args):
     from repro_torch.models.model import LM
     from repro_torch.serve import Engine, Request
 
-    counters = {"bsmm": bsmm.COUNTER, "dense_mm": dense_mm.COUNTER,
-                "bs_attn": bs_attn.COUNTER}
+    counters = with_walks({"bsmm": bsmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
     cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
     assert cfg.dtype == "bfloat16" and cfg.ffn_block_size == 16
     t0 = time.perf_counter()
@@ -462,16 +501,18 @@ def serve_phase(torch, args):
 
     rng = np.random.default_rng(args.seed)
 
-    def requests(count, lo, hi, new):
+    def requests(bounds, new):
         return [Request(uid=i, prompt=rng.integers(
                     0, cfg.vocab_size, size=int(rng.integers(lo, hi + 1))),
-                    max_new_tokens=new) for i in range(count)]
+                    max_new_tokens=new) for i, (lo, hi) in enumerate(bounds)]
 
     # warm-up (first cuBLAS/allocator use), then the measured run
-    Engine(lm, batch=4, max_len=512, device="cuda").run(
-        requests(2, 16, 64, 3))
-    eng = Engine(lm, batch=4, max_len=512, device="cuda")
-    reqs = requests(8, 16, 384, 16)
+    Engine(lm, batch=4, max_len=LLAMA_MAX_LEN, device="cuda").run(
+        requests(LLAMA_WARMUP, 3))
+    eng = Engine(lm, batch=4, max_len=LLAMA_MAX_LEN, device="cuda")
+    reqs = requests(LLAMA_PROMPTS, LLAMA_NEW)
+    if [len(r.prompt) for r in reqs] != llama_prompt_lens(args):
+        raise RuntimeError("llama_prompt_lens does not replay the run")
     torch.cuda.synchronize()
     for c in counters.values():
         c.reset()
@@ -479,10 +520,12 @@ def serve_phase(torch, args):
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
 
-    if not all(r.done and len(r.output) == 16 for r in reqs):
-        raise RuntimeError("not every request finished with 16 tokens")
+    if not all(r.done and len(r.output) == LLAMA_NEW for r in reqs):
+        raise RuntimeError(f"not every request finished with {LLAMA_NEW} "
+                           f"tokens")
     if nonfinite["bad"]:
         raise RuntimeError(f"{nonfinite['bad']} of {nonfinite['calls']} "
                            f"prefill/decode calls gave non-finite logits")
@@ -494,18 +537,20 @@ def serve_phase(torch, args):
                                f"serving")
 
     # launches of one decode step and one prefill
-    caches = lm.init_cache(4, 512)
+    caches = lm.init_cache(4, LLAMA_MAX_LEN)
     per = {}
     for what, call in (
             ("prefill", lambda: lm.prefill(
-                np.zeros((1, 64), np.int64), max_len=512, last_index=[63])),
+                np.zeros((1, 64), np.int64), max_len=LLAMA_MAX_LEN,
+                last_index=[63])),
             ("decode_step", lambda: lm.decode_step(
                 np.zeros((4, 1), np.int64), caches,
                 np.zeros(4, np.int64)))):
         for c in counters.values():
             c.reset()
         call()
-        per[what] = {k: c.launches for k, c in counters.items()}
+        per[what] = split_walks({k: c.launches
+                                 for k, c in counters.items()})[0]
     torch.cuda.synchronize()
 
     st = eng.stats()
@@ -518,7 +563,7 @@ def serve_phase(torch, args):
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
         decode_steps=st["steps"], buckets=list(eng.buckets),
         bucket_stats={str(L): v for L, v in st["buckets"].items()},
-        launches=launches, launches_per_call=per,
+        launches=launches, dense_mm_walks=walks, launches_per_call=per,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
         logit_checks=nonfinite["calls"]), lm
 
@@ -549,25 +594,107 @@ def consistency_phase(torch, lm, args):
 
 # [attn] shapes: (name, S, heads, kv heads, head dim, window, softcap,
 # scale); tiles start at 512 and halve until they divide S (8176: to 16,
-# walked 4 q tiles a block; 1023: to 1).  The "served" rows are the
-# prefill lengths [serve-gemma2] runs: the buckets 4096 and 8176 of
-# Engine(batch=2, max_len=8192)
+# walked 4 q tiles a block; 1023: to 1).  The "served" rows
+# (gemma2_attn_shapes, qwen3_attn_shapes) are the prefill lengths the
+# serve runs make on their engines' ladders
 ATTN_SHAPES = (
     ("gemma2 global", 4096, 8, 4, 256, 0, 50.0, 1 / 16),
     ("gemma2 local", 8192, 8, 4, 256, 4096, 50.0, 1 / 16),
-    ("gemma2 local served", 4096, 8, 4, 256, 4096, 50.0, 1 / 16),
-    ("gemma2 global served", 8176, 8, 4, 256, 0, 50.0, 1 / 16),
-    ("gemma2 local served", 8176, 8, 4, 256, 4096, 50.0, 1 / 16),
     ("llama", 2048, 32, 8, 64, 0, None, 1 / 8),
     ("llama odd S", 1023, 32, 8, 64, 0, None, 1 / 8),
 )
+# [serve-gemma2]: Engine(batch=2, max_len=8192); seeded prompts of
+# 1024..7000 tokens (the last one over window + tile = 4608), 8 new each
+GEMMA2_MAX_LEN, GEMMA2_NEW, GEMMA2_BATCH = 8192, 8, 2
+GEMMA2_PROMPTS = ((1024, 7000),) * 3 + ((4609, 7000),)
+GEMMA2_WARMUP = ((64, 128),) * 2
+# [serve]: llama3.2-1b through Engine(batch=4, max_len=512); seeded
+# prompts of 16..384 tokens, 16 new each, after 2 warm-up requests
+LLAMA_MAX_LEN, LLAMA_NEW = 512, 16
+LLAMA_PROMPTS = ((16, 384),) * 8
+LLAMA_WARMUP = ((16, 64),) * 2
+
+
+def prefill_lens(cfg, max_len, prompt_lens):
+    """The length each prompt is prefilled at (B = 1 per prefill):
+    ``Engine.bucket_for``'s rule on the engine's own ladder -- the
+    smallest bucket holding the prompt, or the prompt's own length where
+    that bucket's priced padding passes ``pad_max_frac``."""
+    from repro_torch.serve import engine
+
+    shapes = engine._stack_shapes(cfg)
+    pad_max_frac = 0.75                  # Engine's default
+    ladder = engine._auto_buckets(max_len - 1, shapes, pad_max_frac,
+                                  dtype=cfg.dtype)
+    out = []
+    for n in prompt_lens:
+        b = next(b for b in ladder if b >= n)
+        waste = 1.0 - (engine.price_tokens(shapes, n, dtype=cfg.dtype)
+                       / engine.price_tokens(shapes, b, dtype=cfg.dtype))
+        out.append(b if waste <= pad_max_frac else n)
+    return out
+
+
+def replay_prompt_lens(seed, vocab, warmup, prompts):
+    """A serve run's prompt lengths: its generator (a length in [lo, hi],
+    then the prompt's tokens, per request) replayed through the warm-up
+    requests' draws."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lens = []
+    for lo, hi in warmup + prompts:
+        n = int(rng.integers(lo, hi + 1))
+        rng.integers(0, vocab, size=n)
+        lens.append(n)
+    return lens[len(warmup):]
+
+
+def gemma2_prompt_lens(args):
+    """The [serve-gemma2] run's prompt lengths."""
+    from repro_torch import configs
+    return replay_prompt_lens(args.seed + 5,
+                              configs.get("gemma2-2b").vocab_size,
+                              GEMMA2_WARMUP, GEMMA2_PROMPTS)
+
+
+def gemma2_prefill_lens(args):
+    """The length each [serve-gemma2] prompt is prefilled at."""
+    from repro_torch import configs
+    cfg = configs.sparsify_ffn(configs.get("gemma2-2b"), 1 / 8)
+    return prefill_lens(cfg, GEMMA2_MAX_LEN, gemma2_prompt_lens(args))
+
+
+def llama_prompt_lens(args):
+    """The [serve] run's prompt lengths."""
+    from repro_torch import configs
+    return replay_prompt_lens(args.seed,
+                              configs.get("llama3_2_1b").vocab_size,
+                              LLAMA_WARMUP, LLAMA_PROMPTS)
+
+
+def llama_prefill_lens(args):
+    """The length each [serve] prompt is prefilled at."""
+    from repro_torch import configs
+    cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
+    return prefill_lens(cfg, LLAMA_MAX_LEN, llama_prompt_lens(args))
+
+
+def gemma2_attn_shapes(args):
+    """[attn] rows at the prefill lengths [serve-gemma2] runs, global and
+    local layers."""
+    rows = []
+    for s in sorted(set(gemma2_prefill_lens(args))):
+        rows += [("gemma2 global served", s, 8, 4, 256, 0, 50.0, 1 / 16),
+                 ("gemma2 local served", s, 8, 4, 256, 4096, 50.0, 1 / 16)]
+    return tuple(rows)
 
 
 def qwen3_attn_shapes(args):
-    """[attn] rows at the prefill lengths [serve-qwen3-moe] runs (buckets
-    256 and 1008 of Engine(batch=4, max_len=1024); at 1008 the tiles
-    halve to 16 and are walked 4 q tiles a block): 32 heads over 4 kv
-    heads of 128, causal, no soft-cap, scale 1/sqrt(128)."""
+    """[attn] rows at the prefill lengths [serve-qwen3-moe] runs on the
+    ladder of Engine(batch=4, max_len=1024) (at 1008 the tiles halve to
+    16 and are walked 4 q tiles a block): 32 heads over 4 kv heads of
+    128, causal, no soft-cap, scale 1/sqrt(128)."""
     return tuple(("qwen3 served", s, 32, 4, 128, 0, None, 1 / math.sqrt(128))
                  for s in sorted(set(qwen3_prefill_lens(args))))
 
@@ -637,7 +764,8 @@ def attn_phase(torch, args):
             setattr(torch._dynamo.config, knob, 256)
     rows = []
     for name, s, h, kvh, dh, window, softcap, scale in (
-            ATTN_SHAPES + qwen3_attn_shapes(args)):
+            ATTN_SHAPES + gemma2_attn_shapes(args)
+            + qwen3_attn_shapes(args)):
         spec = attention.attn_spec(s, s, dh, window=window, softcap=softcap,
                                    scale=scale)
         walk = spec.walk(dev)
@@ -701,14 +829,14 @@ def serve_gemma2_phase(torch, args):
 
     cfg = configs.sparsify_ffn(configs.get("gemma2-2b"), 1 / 8)
     assert cfg.dtype == "bfloat16" and cfg.ffn_block_size == 16
-    counters = {"bs_attn": bs_attn.COUNTER, "bsmm": bsmm.COUNTER,
-                "dense_mm": dense_mm.COUNTER}
+    counters = with_walks({"bs_attn": bs_attn.COUNTER, "bsmm": bsmm.COUNTER,
+                           "dense_mm": dense_mm.COUNTER})
     t0 = time.perf_counter()
     lm = LM(cfg, device="cuda", seed=args.seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in lm.parameters())
-    max_len, new = 8192, 8
+    max_len, new = GEMMA2_MAX_LEN, GEMMA2_NEW
     rng = np.random.default_rng(args.seed + 5)
 
     def request(uid, lo, hi, n_new):
@@ -717,11 +845,13 @@ def serve_gemma2_phase(torch, args):
             max_new_tokens=n_new)
 
     # warm-up (first launches, allocator), then the measured run
-    Engine(lm, batch=2, max_len=max_len, device="cuda").run(
-        [request(i, 64, 128, 2) for i in range(2)])
-    eng = Engine(lm, batch=2, max_len=max_len, device="cuda")
-    reqs = [request(i, 1024, 7000, new) for i in range(3)]
-    reqs.append(request(3, 4609, 7000, new))
+    Engine(lm, batch=GEMMA2_BATCH, max_len=max_len, device="cuda").run(
+        [request(i, lo, hi, 2) for i, (lo, hi) in enumerate(GEMMA2_WARMUP)])
+    eng = Engine(lm, batch=GEMMA2_BATCH, max_len=max_len, device="cuda")
+    reqs = [request(i, lo, hi, new)
+            for i, (lo, hi) in enumerate(GEMMA2_PROMPTS)]
+    if [len(r.prompt) for r in reqs] != gemma2_prompt_lens(args):
+        raise RuntimeError("gemma2_prompt_lens does not replay the run")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -730,7 +860,8 @@ def serve_gemma2_phase(torch, args):
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if not all(r.done and len(r.output) == new for r in reqs):
@@ -769,14 +900,14 @@ def serve_gemma2_phase(torch, args):
         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         prefill_p50_ms=st["prefill_latency"]["p50_ms"],
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
-        decode_steps=st["steps"], launches=launches, visited=visited,
-        buckets=list(eng.buckets), peak_mem_gb=peak), lm, eng
+        decode_steps=st["steps"], launches=launches, dense_mm_walks=walks,
+        visited=visited, buckets=list(eng.buckets), peak_mem_gb=peak), lm, eng
 
 
 def gemma2_consistency_phase(torch, lm, eng, args):
     """Decode after a 5118-token prompt (past window + tile = 4608, so
     the local layers' windows cut keys), prefilled padded to the bucket
-    the engine gives it (8176: tiles of 16, walked 4 q tiles a block),
+    the engine gives it (6112 on the H100-priced ladder: tiles of 32),
     against the full-sequence path at 5120 tokens (tiles of 512), on
     full-width gemma2-2b:
 
@@ -1003,7 +1134,7 @@ TABLE3_ROUTES = ("dense_cuda", "static_cuda", "static_balanced_cuda",
 
 def table3_phase(torch, args):
     """The paper's Table 3 on the card: m = k = 4096, d = 1/16, N =
-    4096, b in {4, 16}, fp16 and fp32, one time per route through the
+    4096, b in {1, 4, 16}, fp16 and fp32, one time per route through the
     plan layer, against dense_cuda and torch.matmul.  dynamic_cuda is
     timed with the encode from the dense weight and mask included (the
     pattern is data); the grouped routes run at worst-case capacity (no
@@ -1024,7 +1155,7 @@ def table3_phase(torch, args):
     lines = []
     for dname, dt in (("float16", torch.float16),
                       ("float32", torch.float32)):
-        for b in (4, 16):
+        for b in (1, 4, 16):
             mask = masks.random_block_mask(m, k, b, density,
                                            seed=args.seed + 3)
             mask_t = torch.as_tensor(mask, device=dev)
@@ -1069,7 +1200,7 @@ def table3_phase(torch, args):
                 err = rel_err(runs[route](), want)[0]
                 torch.cuda.synchronize()
                 slow = route.startswith(("dense", "dynamic_grouped")) \
-                    or b == 4
+                    or b <= 4
                 ms = timed_ms(torch, runs[route], [()], 10 if slow else 30)
                 res[route] = ms
                 lines.append(dict(
@@ -1255,19 +1386,9 @@ def qwen3_prefill_lens(args):
     the smallest bucket holding the prompt, or the prompt's own length
     where that bucket's priced padding passes ``pad_max_frac``."""
     from repro_torch import configs
-    from repro_torch.serve import engine
 
-    cfg = configs.get("qwen3-moe-30b-a3b")
-    shapes = engine._stack_shapes(cfg)
-    pad_max_frac = 0.75                  # Engine's default
-    ladder = engine._auto_buckets(QWEN3_MAX_LEN - 1, shapes, pad_max_frac)
-    out = []
-    for n in qwen3_prompt_lens(args):
-        b = next(b for b in ladder if b >= n)
-        waste = 1.0 - (engine.price_tokens(shapes, n)
-                       / engine.price_tokens(shapes, b))
-        out.append(b if waste <= pad_max_frac else n)
-    return out
+    return prefill_lens(configs.get("qwen3-moe-30b-a3b"), QWEN3_MAX_LEN,
+                        qwen3_prompt_lens(args))
 
 
 def qwen3_prefill_capacity(args):
@@ -1360,8 +1481,8 @@ def serve_qwen3_phase(torch, args):
 
     cfg = configs.get("qwen3-moe-30b-a3b")
     assert cfg.dtype == "bfloat16" and cfg.num_layers == 48
-    counters = {"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
-                "bs_attn": bs_attn.COUNTER}
+    counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm = LM(cfg, device="cuda", seed=args.seed)
@@ -1404,7 +1525,8 @@ def serve_qwen3_phase(torch, args):
     eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lm.prefill, lm.decode_step = prefill, decode_step
     hist = sparse.dropped_history("moe_dispatch")
@@ -1443,7 +1565,7 @@ def serve_qwen3_phase(torch, args):
         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         prefill_p50_ms=st["prefill_latency"]["p50_ms"],
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
-        decode_steps=st["steps"], launches=launches,
+        decode_steps=st["steps"], launches=launches, dense_mm_walks=walks,
         dropped_frac_per_prefill=drops,
         decode_dropped_frac={"layer_calls": len(dec),
                              "mean": float(np.mean(dec)), "max": max(dec)},
@@ -1607,6 +1729,9 @@ def main(argv=None) -> int:
         elif r["kernel"] == "gmm":
             extra = (f" tm={r['tm']} experts={r['experts']} "
                      f"experts_used={r['experts_used']}")
+        elif r["kernel"] == "dense_mm":
+            extra = (f" walk={r['walk']} tile={r['tile']} "
+                     f"slices={r['slices']} blocks={r['blocks']}")
         elif r["kernel"] == "bsmm_balanced":
             extra = (f" uniform_bsmm_ms={r['uniform_bsmm_ms']:.5f} "
                      f"bins={r['bins']} steps={r['steps_per_bin']} "
@@ -1639,7 +1764,8 @@ def main(argv=None) -> int:
     print(f"[serve] {serve['requests']} requests, {serve['tokens']} tokens "
           f"in {serve['wall_s']:.3f}s = {serve['tokens_per_s']:.1f} tok/s; "
           f"prefill p50 {serve['prefill_p50_ms']} ms, decode step p50 "
-          f"{serve['decode_step_p50_ms']} ms; launches {serve['launches']}")
+          f"{serve['decode_step_p50_ms']} ms; launches {serve['launches']}; "
+          f"dense_mm by walk {serve['dense_mm_walks']}")
     print(f"[serve] detail {json.dumps(serve)}")
 
     errs = consistency_phase(torch, lm, args)
@@ -1660,27 +1786,29 @@ def main(argv=None) -> int:
           f"{train['losses'][-1]:.4f}; step p50 "
           f"{train['step_p50_ms']:.1f} ms = "
           f"{train['tokens_per_s']:.0f} tokens/s; peak memory "
-          f"{train['peak_mem_gb']:.2f} GiB; launches {train['launches']}")
+          f"{train['peak_mem_gb']:.2f} GiB; launches {train['launches']}; "
+          f"dense_mm by walk {train['dense_mm_walks']}")
     print(f"[train] detail {json.dumps(train)}")
 
     from repro_torch.kernels import (bsmm, dense_mm, dsmm,  # noqa: F401
                                      sddmm)
-    counters = {"bsmm": bsmm.COUNTER, "dense_mm": dense_mm.COUNTER,
-                "sddmm": sddmm.COUNTER, "dsmm": dsmm.COUNTER,
-                "bsmm_balanced": bsmm.BALANCED_COUNTER}
+    counters = with_walks({"bsmm": bsmm.COUNTER,
+                           "dense_mm": dense_mm.COUNTER,
+                           "sddmm": sddmm.COUNTER, "dsmm": dsmm.COUNTER,
+                           "bsmm_balanced": bsmm.BALANCED_COUNTER})
     for c in counters.values():
         c.reset()
     table3 = table3_phase(torch, args)
-    table3_launches = {k: c.launches for k, c in counters.items()}
+    table3_launches, table3_walks = split_walks(
+        {k: c.launches for k, c in counters.items()})
     for r in table3:
         print(f"[table3] b={r['b']:<2d} {r['dtype']:8s} {r['route']:30s} "
               f"ms={r['ms']:.4f} speedup_vs_dense_cuda="
               f"{r['speedup_vs_dense_cuda']:.3f} speedup_vs_torch_matmul="
               f"{r['speedup_vs_torch_matmul']:.3f} (torch.matmul "
               f"{r['torch_matmul_ms']:.4f} ms) rel_err={r['rel_err']:.2e}")
-    print("[table3] b=1 (also in the paper's Table 3) waits: the port's "
-          "bsmm and dsmm kernels admit b >= 4")
-    print(f"[table3] launches {json.dumps(table3_launches)}")
+    print(f"[table3] launches {json.dumps(table3_launches)}; dense_mm by "
+          f"walk {json.dumps(table3_walks)}")
     for name in ("bsmm", "bsmm_balanced", "dsmm", "dense_mm"):
         if table3_launches[name] <= 0:
             raise RuntimeError(f"kernel {name} was not launched in "
@@ -1690,7 +1818,7 @@ def main(argv=None) -> int:
     for c in counters.values():
         c.reset()
     dyn = dynamic_phase(torch, args)
-    dyn_launches = {k: c.launches for k, c in counters.items()}
+    dyn_launches = split_walks({k: c.launches for k, c in counters.items()})[0]
     print(f"[dynamic] SwiGLU FFN of 3 DynamicSparseLinear "
           f"{dyn['d_model']}->{dyn['d_ff']}->{dyn['d_model']}, d_max "
           f"{dyn['d_max']}, b {dyn['b']}, bf16, N {dyn['tokens']}: step "
@@ -1711,7 +1839,8 @@ def main(argv=None) -> int:
           f"{gemma['tokens_per_s']:.2f} tok/s; prefill p50 "
           f"{gemma['prefill_p50_ms']} ms, decode step p50 "
           f"{gemma['decode_step_p50_ms']} ms; launches "
-          f"{json.dumps(gemma['launches'])}; peak memory "
+          f"{json.dumps(gemma['launches'])}; dense_mm by walk "
+          f"{json.dumps(gemma['dense_mm_walks'])}; peak memory "
           f"{gemma['peak_mem_gb']:.2f} GiB")
     print(f"[serve-gemma2] visited pairs at S={gemma['prefill_lens']}'s "
           f"longest: {json.dumps(gemma['visited'])}")
@@ -1740,7 +1869,8 @@ def main(argv=None) -> int:
           f"{qwen['wall_s']:.3f}s = {qwen['tokens_per_s']:.2f} tok/s; "
           f"prefill p50 {qwen['prefill_p50_ms']} ms, decode step p50 "
           f"{qwen['decode_step_p50_ms']} ms; launches "
-          f"{json.dumps(qwen['launches'])}; peak memory "
+          f"{json.dumps(qwen['launches'])}; dense_mm by walk "
+          f"{json.dumps(qwen['dense_mm_walks'])}; peak memory "
           f"{qwen['peak_mem_gb']:.2f} GiB")
     print(f"[serve-qwen3-moe] dropped_frac per prefill (mean, max over 48 "
           f"layers): {json.dumps(qwen['dropped_frac_per_prefill'])}; "
@@ -1803,6 +1933,13 @@ def main(argv=None) -> int:
             "at": f"{r['shape']} n={r['n']} {r['dtype']}",
             "launches_by_path": {k: v.get(name, 0)
                                  for k, v in by_path.items()}})
+    walks_by_path = {"serve": serve["dense_mm_walks"],
+                     "train": train["dense_mm_walks"],
+                     "table3": table3_walks,
+                     "serve_gemma2": gemma["dense_mm_walks"],
+                     "serve_qwen3": qwen["dense_mm_walks"]}
+    next(k for k in kernels if k["name"] == "dense_mm")[
+        "launches_by_walk"] = walks_by_path
     # bs_attn at gemma2-2b's global layer (S = 4096, bf16); its main path
     # is the gemma2 serve run
     r = next(r for r in attn_rows if r["shape"] == "gemma2 global"

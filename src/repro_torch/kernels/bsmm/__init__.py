@@ -6,9 +6,12 @@ from repro_torch.kernels.bsmm.ops import (COUNTER, bsmm_nt,  # noqa: F401
 from repro_torch.kernels.contract import KernelContract, register
 
 # narrower than the reference's bsmm contract (blocks 1..128, any tile
-# from _pick_tiles): the CUDA kernel walks square b x b tiles
-# (tm = tk = b) with b in {4, 8, 16, 32, 64}; n is free (ragged token
-# tiles are masked)
+# from _pick_tiles): the CUDA kernel walks square tiles with tm = tk in
+# {4, 8, 16, 32, 64}; n is free (ragged token tiles are masked).  The
+# plan checks this contract at the tile it packs (``sparse.plan.
+# kernel_tile``): b in {1, 2} packed into 4 x 4 tiles (``plan_packing``
+# with tile != b, as the reference's pack_tiles), b = 128 split exactly
+# into four 64 x 64 blocks; a block no tile takes raises at plan time
 CONTRACT = register(KernelContract(
     kernel="bsmm",
     routes=("static_cuda",),

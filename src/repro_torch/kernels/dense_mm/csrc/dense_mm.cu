@@ -1,34 +1,58 @@
-// Dense tiled GEMM for Hopper, activation-major:
+// Dense GEMM for Hopper, activation-major:
 //
-//     y[N, D] = x[N, K] . w[K, D]
+//     y[N, D] = x[N, K] . w[K, D]      (fp32 sums, y in the input dtype)
 //
 // Replaces the TPU kernel src/repro/kernels/dense_mm/dense_mm.py
-// `dense_mm_call` (`_mm_kernel`): the TPU carried a VMEM fp32
-// accumulator across the sequential K axis of its grid; here one thread
-// block owns one (BM x BN) output tile and loops over K itself, staging
-// a BM x BK slice of x and a BK x BN slice of w in shared memory per
-// step, with the next slices loaded into registers while the current
-// ones are multiplied.  Each thread keeps RM x RN fp32 sums in registers
-// and writes once; ragged edges are masked on load and store.
+// `dense_mm_call` (`_mm_kernel`), which carried a VMEM fp32 accumulator
+// across the sequential K axis of its grid.  Blocks run in parallel here,
+// so each walk below loops over K inside a block, and where K is split
+// across blocks the slices are added in a fixed order (deterministic).
+// The wrapper (ops.py `walk`) picks one of three walks per shape:
 //
-// What bounds it: at the serving shapes (q/o 2048 x 2048, k/v
-// 2048 x 512) decode (N = batch) is bound by reading w; prefill
-// (N = a prompt bucket) by the arithmetic, which here runs in fp32 on
-// the CUDA cores.  A tiled walk over K is a chain of dependent steps,
-// each one load latency long, and at decode's 2048 x 2048 it has only a
-// few dozen output tiles to spread over 132 SMs; so small N (<= 16)
-// splits K instead: block (column tile, K slice) streams its slice of w
-// with 32 lanes x 2 adjacent columns (128-byte rows in bf16) and 8 warps
-// on interleaved rows, sums the warps in shared memory and writes fp32
-// partials to a scratch buffer the wrapper allocates; a second kernel
-// adds the slices and rounds once.  Tensor cores (wgmma) and TMA are
-// later work.
+// 1. "wgmma" (bf16/fp16, K and D multiples of 8; N > 16, and N <= 16
+//    where the wrapper's time model prices it below walk 2): bound by the
+//    tensor cores' rate at prefill and training shapes.  One block owns a
+//    BM x BN output tile (BM = BN = 64 or 128); a producer warp keeps a
+//    4-stage ring of x tiles [BM, 64] and w tiles [64, BN] in shared
+//    memory full through TMA (cp.async.bulk.tensor, 128-byte swizzle,
+//    out-of-bounds rows and columns filled with zeros), signalled on
+//    mbarriers; BM / 64 consumer warpgroups run wgmma.mma_async
+//    m64nBNk16 on each stage into fp32 registers, one wgmma group in
+//    flight, and release the stage to the producer when it has been read.
+//    x is K-major (the A operand as wgmma wants it); w is [K, D] row-major,
+//    so B is MN-major and wgmma reads it with its transpose bit.  Where the
+//    output has too few tiles to fill 132 SMs the wrapper takes 64 x 64
+//    tiles and, if that is still short, splits K: each slice writes fp32
+//    partials and a second launch adds them in slice order.
+// 2. "decode" (N <= 16, any dtype): bound by reading w once.  Block
+//    (column slab, K slice) stages its slice of x's N rows in shared
+//    memory once, then streams its slab of w with 16-byte loads, 16 rows
+//    in flight a thread at N <= 4, else 8 (the first batch issued before
+//    x is staged); the
+//    K-lanes of a warp add by shuffles, the warps
+//    of a block in shared memory, and the K slices of a column slab, which
+//    form one thread-block cluster, through distributed shared memory in
+//    rank order.  One launch, no scratch.  A shape whose fp32 slice of x
+//    would pass a block's 227 KB (K past about 24k at N 9..16) takes
+//    walk 1 or 3 instead.
+// 3. "ffma" (fp32 at N > 16, and 16-bit shapes TMA cannot take: K or D
+//    not a multiple of 8): the CUDA cores' fp32 FMA (TF32 would miss the
+//    fp32 budget).  64 x 64 output tiles of 256 threads, K staged 16 deep
+//    in shared memory; split K with the same partials and second launch
+//    where the tiles do not fill the card.
 //
-// dtype 0 = fp32, 1 = bf16, 2 = fp16; output in the input dtype.
+// dtype 0 = fp32, 1 = bf16, 2 = fp16.
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -46,24 +70,495 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
 
+// ---------------------------------------------------------------------------
+// walk 1: TMA + wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kBK = 64;       // K per stage: 64 16-bit values = one 128-byte row
+constexpr int kStages = 4;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle (layout type 1)
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
+  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
+  d |= static_cast<uint64_t>(1) << 62;
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+template <int R> __device__ __forceinline__ void pin(float* d) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define DMM_F8(i)                                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define DMM_R32                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define DMM_R64                                                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+// d += A[64 x 16] . B[16 x N]: A K-major, B MN-major (transpose bit set),
+// scale-d 1 (the registers start at zero)
+#define DMM_WGMMA(shape, ty, regs, ia, ib, ip)                                          \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " ip ", 0;\n"                                       \
+  "wgmma.mma_async.sync.aligned." shape ".f32." ty "." ty " " regs ", " ia ", " ib     \
+  ", p, 1, 1, 0, 1;\n}\n"
+
+template <typename T, int BN> struct Mma;
+template <> struct Mma<__nv_bfloat16, 64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
+    asm volatile(DMM_WGMMA("m64n64k16", "bf16", DMM_R32, "%32", "%33", "%34")
+                 : DMM_F8(0), DMM_F8(8), DMM_F8(16), DMM_F8(24)
+                 : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Mma<__half, 64> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
+    asm volatile(DMM_WGMMA("m64n64k16", "f16", DMM_R32, "%32", "%33", "%34")
+                 : DMM_F8(0), DMM_F8(8), DMM_F8(16), DMM_F8(24)
+                 : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Mma<__nv_bfloat16, 128> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
+    asm volatile(DMM_WGMMA("m64n128k16", "bf16", DMM_R64, "%64", "%65", "%66")
+                 : DMM_F8(0), DMM_F8(8), DMM_F8(16), DMM_F8(24), DMM_F8(32), DMM_F8(40),
+                   DMM_F8(48), DMM_F8(56)
+                 : "l"(a), "l"(b), "r"(1));
+  }
+};
+template <> struct Mma<__half, 128> {
+  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
+    asm volatile(DMM_WGMMA("m64n128k16", "f16", DMM_R64, "%64", "%65", "%66")
+                 : DMM_F8(0), DMM_F8(8), DMM_F8(16), DMM_F8(24), DMM_F8(32), DMM_F8(40),
+                   DMM_F8(48), DMM_F8(56)
+                 : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <int BM, int BN> struct TcShape {
+  static constexpr int kWarpgroups = BM / 64;              // consumers
+  static constexpr int kThreads = 128 * (1 + kWarpgroups);  // + one producer warpgroup
+  static constexpr int kABytes = BM * kBK * 2;
+  static constexpr int kBBytes = kBK * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;  // + alignment slack
+};
+
+// Block (column tile, row tile, K slice).  part == nullptr: write y;
+// else write fp32 partials part[slice, n, d].
+template <typename T, int BM, int BN>
+__global__ void __launch_bounds__(TcShape<BM, BN>::kThreads, 1)
+    dense_mm_tc_kernel(const __grid_constant__ CUtensorMap tmx,
+                       const __grid_constant__ CUtensorMap tmw, T* __restrict__ y,
+                       float* __restrict__ part, int n, int k, int d, int kb_per_slice) {
+  using S = TcShape<BM, BN>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kStages], empty[kStages];
+  // 128-byte swizzle atoms are 1024 bytes: align the ring to them
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int d0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int kb_total = (k + kBK - 1) / kBK;
+  const int kb0 = blockIdx.z * kb_per_slice;
+  const int nkb = min(kb_total, kb0 + kb_per_slice) - kb0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], S::kWarpgroups * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread issues every copy
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < nkb; ++i) {
+        const int s = i % kStages;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        uint8_t* a = ring + s * S::kStageBytes;
+        uint8_t* b = a + S::kABytes;
+        mbar_expect_tx(&full[s], S::kStageBytes);
+        const int kc = (kb0 + i) * kBK;
+        tma_load_2d(a, &tmx, &full[s], kc, m0);
+#pragma unroll
+        for (int j = 0; j < BN / 64; ++j)
+          tma_load_2d(b + j * kBK * 128, &tmw, &full[s], d0 + 64 * j, kc);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup g: rows m0 + 64 g .. + 63 of the tile
+  const int g = wg - 1;
+  constexpr int R = BN / 2;  // fp32 registers of an m64nBN accumulator
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nkb; ++i) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    const uint8_t* a = ring + s * S::kStageBytes + g * 64 * 128;
+    const uint8_t* b = ring + s * S::kStageBytes + S::kABytes;
+    pin<R>(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      // A: 64 rows of 128 bytes, 8-row atoms 1024 bytes apart; a k16
+      // step is 32 bytes into the row.  B: 64-column chunks 64 rows x 128
+      // bytes (8192 bytes) apart, 8-row atoms 1024 apart; a k16 step is
+      // 16 rows = 2048 bytes.
+      Mma<T, BN>::run(acc, smem_desc(a + kk * 32, 16, 1024),
+                      smem_desc(b + kk * 2048, kBK * 128, 1024));
+    }
+    wgmma_commit();
+    pin<R>(acc);
+    wgmma_wait<1>();
+    if (i > 0) mbar_arrive(&empty[(i - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+  pin<R>(acc);
+
+  // accumulator fragment: row 16 w + l / 4 (+ 8), columns 8 c + 2 (l % 4) (+ 1)
+  const int t = threadIdx.x % 128;
+  const int row0 = m0 + g * 64 + (t / 32) * 16 + (t % 32) / 4;
+  const int colq = d0 + 2 * (t % 4);
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+    const int col = colq + 8 * c;
+    if (col >= d) continue;  // d is even: col + 1 < d too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= n) continue;
+      const float v0 = acc[4 * c + 2 * h], v1 = acc[4 * c + 2 * h + 1];
+      if (part != nullptr) {
+        *reinterpret_cast<float2*>(part + ((size_t)blockIdx.z * n + row) * d + col) =
+            make_float2(v0, v1);
+      } else if constexpr (sizeof(T) == 2) {
+        T pair[2] = {from_f<T>(v0), from_f<T>(v1)};
+        *reinterpret_cast<uint32_t*>(y + (size_t)row * d + col) =
+            *reinterpret_cast<uint32_t*>(pair);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry-point
+// query (no -lcuda at build time)
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// 2-D row-major [rows, cols] 16-bit tensor, box [box_rows, 64], 128-byte swizzle
+bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+              CUtensorMapDataType ty) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  cuuint32_t estr[2] = {1, 1};
+  return fn(map, ty, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename T, int BM, int BN>
+int launch_tc(const T* x, const T* w, T* y, float* part, int n, int k, int d, int* slices,
+              CUtensorMapDataType ty, cudaStream_t s) {
+  using S = TcShape<BM, BN>;
+  CUtensorMap tmx, tmw;
+  if (!make_map(&tmx, x, n, k, BM, ty) || !make_map(&tmw, w, k, d, kBK, ty))
+    return (int)cudaErrorInvalidValue;
+  // set at every launch: the attribute is per device, and a flag kept
+  // beside it would be shared by every device and thread
+  cudaFuncSetAttribute(dense_mm_tc_kernel<T, BM, BN>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+  const int kb_total = (k + kBK - 1) / kBK;
+  const int per = (kb_total + *slices - 1) / *slices;
+  *slices = (kb_total + per - 1) / per;
+  dim3 grid((d + BN - 1) / BN, (n + BM - 1) / BM, *slices);
+  dense_mm_tc_kernel<T, BM, BN><<<grid, S::kThreads, S::kSmem, s>>>(
+      tmx, tmw, y, *slices > 1 ? part : nullptr, n, k, d, per);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// walk 2: decode (N <= 16), K slices joined through a cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kDecThreads = 256;
+// rows of w in flight a thread: 16 while the sums are few, else 8
+template <int NT> struct DecUnroll { static constexpr int value = NT <= 4 ? 16 : 8; };
+
+// 16 bytes of row `wr` from col0: one load where it fits, else element by
+// element with the ragged edge zero
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* __restrict__ wr, int col0, int d, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (vec && col0 + VEC <= d) return __ldg(reinterpret_cast<const uint4*>(wr + col0));
+  uint4 raw = make_uint4(0, 0, 0, 0);
+  T* v = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int j = 0; j < VEC; ++j)
+    if (col0 + j < d) v[j] = wr[col0 + j];
+  return raw;
+}
+
+// Block (column slab of CL * VEC columns, K slice of kc rows); the
+// gridDim.y K slices of a slab are one cluster.  Shared memory: x's slice
+// [NT][kc], the warps' sums [8][NT][SC], the block's sum [NT][SC].
+template <typename T, int NT, int CL>
+__global__ void __launch_bounds__(kDecThreads)
+    dense_mm_decode_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+                           int n, int k, int d, int kc, int vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int SC = CL * VEC;
+  constexpr int KT = kDecThreads / CL;  // K-lanes of a block
+  constexpr int kWarps = kDecThreads / 32;
+  constexpr int kDecUnroll = DecUnroll<NT>::value;
+  constexpr int kStep = kDecUnroll * KT;
+  extern __shared__ float dsm[];
+  float* xs = dsm;
+  float* red = xs + NT * kc;
+  float* fin = red + kWarps * NT * SC;
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int kbeg = blockIdx.y * kc;
+  const int kend = min(k, kbeg + kc);
+  const int c = threadIdx.x % CL;
+  const int kl = threadIdx.x / CL;
+  const int col0 = blockIdx.x * SC + c * VEC;
+  // kDecUnroll rows of w in flight a thread; the first batch is issued
+  // before x is staged, so the two latencies overlap
+  uint4 raw[kDecUnroll];
+  auto load = [&](int kk) {
+#pragma unroll
+    for (int u = 0; u < kDecUnroll; ++u) {
+      const int r = kk + u * KT;
+      raw[u] = r < kend ? load_raw<T>(w + (size_t)r * d, col0, d, vec != 0)
+                        : make_uint4(0, 0, 0, 0);
+    }
+  };
+  int kk = kbeg + kl;
+  load(kk);
+  for (int e = threadIdx.x; e < NT * kc; e += kDecThreads) {
+    const int t = e / kc, kx = kbeg + e % kc;
+    xs[e] = (t < n && kx < kend) ? to_f<T>(x[(size_t)t * k + kx]) : 0.f;
+  }
+  __syncthreads();
+
+  float acc[NT][VEC];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) acc[t][j] = 0.f;
+  for (; kk < kend; kk += kStep) {
+#pragma unroll
+    for (int u = 0; u < kDecUnroll; ++u) {
+      const T* v = reinterpret_cast<const T*>(&raw[u]);
+      float wv[VEC];
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) wv[j] = to_f<T>(v[j]);
+      const float* xr = xs + min(kk + u * KT, kend - 1) - kbeg;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const float xv = xr[t * kc];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc[t][j] += xv * wv[j];
+      }
+    }
+    if (kk + kStep < kend) load(kk + kStep);
+  }
+  // the K-lanes of a warp (lanes c, c + CL, ...), then the warps
+#pragma unroll
+  for (int off = CL; off < 32; off <<= 1)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) acc[t][j] += __shfl_xor_sync(0xffffffffu, acc[t][j], off);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane < CL) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) red[(warp * NT + t) * SC + c * VEC + j] = acc[t][j];
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < NT * SC; e += kDecThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int wp = 0; wp < kWarps; ++wp) v += red[wp * NT * SC + e];
+    fin[e] = v;
+  }
+  // the K slices of this slab: block `rank` adds its share of the outputs
+  // over every rank's `fin`, in rank order
+  cluster.sync();
+  const int ranks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  for (int e = rank * kDecThreads + threadIdx.x; e < NT * SC; e += ranks * kDecThreads) {
+    const int t = e / SC, col = blockIdx.x * SC + e % SC;
+    if (t >= n || col >= d) continue;
+    float v = 0.f;
+    for (int q = 0; q < ranks; ++q) v += cluster.map_shared_rank(fin, q)[e];
+    y[(size_t)t * d + col] = from_f<T>(v);
+  }
+  cluster.sync();  // keep this block's `fin` alive until every rank has read it
+}
+
+template <typename T, int NT, int CL>
+int launch_decode(const T* x, const T* w, T* y, int n, int k, int d, int slices,
+                  cudaStream_t s) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int SC = CL * VEC;
+  const int kc = (k + slices - 1) / slices;
+  const size_t smem = sizeof(float) * ((size_t)NT * kc + (size_t)(kDecThreads / 32 + 1) * NT * SC);
+  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  // set at every launch that needs it (per device, as in launch_tc)
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(dense_mm_decode_kernel<T, NT, CL>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int vec = ((reinterpret_cast<uintptr_t>(w) % 16) == 0 && d % VEC == 0) ? 1 : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((d + SC - 1) / SC, slices, 1);
+  cfg.blockDim = dim3(kDecThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = slices;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, dense_mm_decode_kernel<T, NT, CL>, x, w, y, n, k, d, kc, vec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NT>
+int decode_cl(const T* x, const T* w, T* y, int n, int k, int d, int cl, int slices,
+              cudaStream_t s) {
+  switch (cl) {
+    case 8: return launch_decode<T, NT, 8>(x, w, y, n, k, d, slices, s);
+    case 16: return launch_decode<T, NT, 16>(x, w, y, n, k, d, slices, s);
+    case 32: return launch_decode<T, NT, 32>(x, w, y, n, k, d, slices, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch_decode_nt(const T* x, const T* w, T* y, int n, int k, int d, int cl, int slices,
+                     cudaStream_t s) {
+  if (n <= 1) return decode_cl<T, 1>(x, w, y, n, k, d, cl, slices, s);
+  if (n <= 2) return decode_cl<T, 2>(x, w, y, n, k, d, cl, slices, s);
+  if (n <= 4) return decode_cl<T, 4>(x, w, y, n, k, d, cl, slices, s);
+  if (n <= 8) return decode_cl<T, 8>(x, w, y, n, k, d, cl, slices, s);
+  if (n <= 16) return decode_cl<T, 16>(x, w, y, n, k, d, cl, slices, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// walk 3: fp32 FMA tiles, K split where the tiles do not fill the card
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;  // 16 x 16
 
-template <typename T, int RM, int RN, int kBK>
+template <typename T, int RM, int RN, int kK>
 __global__ void __launch_bounds__(kThreads)
-    dense_mm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-                    int n, int k, int d) {
+    dense_mm_ffma_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+                         float* __restrict__ part, int n, int k, int d, int kc) {
   constexpr int BM = 16 * RM;
   constexpr int BN = 16 * RN;
-  constexpr int kA = BM * kBK / kThreads;  // x elements per thread per step
-  constexpr int kB = kBK * BN / kThreads;  // w elements per thread per step
-  __shared__ float as[kBK][BM + 1];        // x slice, transposed
-  __shared__ float bs[kBK][BN];
+  constexpr int kA = BM * kK / kThreads;  // x elements per thread per step
+  constexpr int kB = kK * BN / kThreads;  // w elements per thread per step
+  __shared__ float as[kK][BM + 1];        // x slice, transposed
+  __shared__ float bs[kK][BN];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
   const int m0 = blockIdx.y * BM;
   const int d0 = blockIdx.x * BN;
+  const int kbeg = blockIdx.z * kc;
+  const int kend = min(k, kbeg + kc);
 
   float acc[RM][RN];
 #pragma unroll
@@ -76,23 +571,23 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int l = 0; l < kA; ++l) {
       const int e = tid + l * kThreads;
-      const int row = m0 + e / kBK, col = k0 + e % kBK;
-      ra[l] = (row < n && col < k) ? to_f<T>(x[(size_t)row * k + col]) : 0.f;
+      const int row = m0 + e / kK, col = k0 + e % kK;
+      ra[l] = (row < n && col < kend) ? to_f<T>(x[(size_t)row * k + col]) : 0.f;
     }
 #pragma unroll
     for (int l = 0; l < kB; ++l) {
       const int e = tid + l * kThreads;
       const int row = k0 + e / BN, col = d0 + e % BN;
-      rb[l] = (row < k && col < d) ? to_f<T>(w[(size_t)row * d + col]) : 0.f;
+      rb[l] = (row < kend && col < d) ? to_f<T>(w[(size_t)row * d + col]) : 0.f;
     }
   };
 
-  load(0);
-  for (int k0 = 0; k0 < k; k0 += kBK) {
+  load(kbeg);
+  for (int k0 = kbeg; k0 < kend; k0 += kK) {
 #pragma unroll
     for (int l = 0; l < kA; ++l) {
       const int e = tid + l * kThreads;
-      as[e % kBK][e / kBK] = ra[l];
+      as[e % kK][e / kK] = ra[l];
     }
 #pragma unroll
     for (int l = 0; l < kB; ++l) {
@@ -100,9 +595,9 @@ __global__ void __launch_bounds__(kThreads)
       bs[e / BN][e % BN] = rb[l];
     }
     __syncthreads();
-    if (k0 + kBK < k) load(k0 + kBK);
+    if (k0 + kK < kend) load(k0 + kK);
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
+    for (int kk = 0; kk < kK; ++kk) {
       float av[RM], bv[RN];
 #pragma unroll
       for (int a = 0; a < RM; ++a) av[a] = as[kk][ty + 16 * a];
@@ -122,65 +617,20 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int b = 0; b < RN; ++b) {
       const int col = d0 + tx + 16 * b;
-      if (col < d) y[(size_t)row * d + col] = from_f<T>(acc[a][b]);
+      if (col >= d) continue;
+      if (part != nullptr)
+        part[((size_t)blockIdx.z * n + row) * d + col] = acc[a][b];
+      else
+        y[(size_t)row * d + col] = from_f<T>(acc[a][b]);
     }
   }
 }
 
-constexpr int kSkCols = 64;  // columns per split-K block: 32 lanes x 2
-constexpr int kSkWarps = kThreads / 32;
-constexpr int kSkMaxN = 16;  // rows the split-K walk takes
-
-// part[slice, n, d] = x[n, slice] . w[slice, d] for one K slice of kc rows
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    dense_mm_splitk_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                           float* __restrict__ part, int n, int k, int d, int kc) {
-  __shared__ float red[kSkWarps][kSkMaxN][kSkCols];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int c = blockIdx.x * kSkCols + 2 * lane;
-  const int kbeg = blockIdx.y * kc;
-  const int kend = min(k, kbeg + kc);
-  float acc[kSkMaxN][2];
-#pragma unroll
-  for (int t = 0; t < kSkMaxN; ++t) acc[t][0] = acc[t][1] = 0.f;
-#pragma unroll 4
-  for (int kk = kbeg + warp; kk < kend; kk += kSkWarps) {
-    const T* wr = w + (size_t)kk * d;
-    const float w0 = c < d ? to_f<T>(wr[c]) : 0.f;
-    const float w1 = c + 1 < d ? to_f<T>(wr[c + 1]) : 0.f;
-#pragma unroll
-    for (int t = 0; t < kSkMaxN; ++t) {
-      if (t < n) {
-        const float xv = to_f<T>(x[(size_t)t * k + kk]);
-        acc[t][0] += xv * w0;
-        acc[t][1] += xv * w1;
-      }
-    }
-  }
-#pragma unroll
-  for (int t = 0; t < kSkMaxN; ++t) {
-    red[warp][t][2 * lane] = acc[t][0];
-    red[warp][t][2 * lane + 1] = acc[t][1];
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < n * kSkCols; e += kThreads) {
-    const int t = e / kSkCols, cc = e % kSkCols;
-    const int col = blockIdx.x * kSkCols + cc;
-    if (col >= d) continue;
-    float v = 0.f;
-#pragma unroll
-    for (int wp = 0; wp < kSkWarps; ++wp) v += red[wp][t][cc];
-    part[((size_t)blockIdx.y * n + t) * d + col] = v;
-  }
-}
-
-// y[n, d] = sum over slices of part[slice, n, d], rounded once
+// y[n, d] = sum over slices of part[slice, n, d] in slice order, rounded once
 template <typename T>
 __global__ void splitk_reduce_kernel(const float* __restrict__ part, T* __restrict__ y,
-                                     int nd, int slices) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+                                     size_t nd, int slices) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= nd) return;
   float v = 0.f;
   for (int sl = 0; sl < slices; ++sl) v += part[(size_t)sl * nd + e];
@@ -188,38 +638,72 @@ __global__ void splitk_reduce_kernel(const float* __restrict__ part, T* __restri
 }
 
 template <typename T>
-int dispatch(const void* x, const void* w, void* y, float* scratch, int n, int k, int d,
-             int slices, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  T* yt = static_cast<T*>(y);
-  if (slices > 0) {
-    if (n > kSkMaxN || scratch == nullptr) return (int)cudaErrorInvalidValue;
-    const int kc = (k + slices - 1) / slices;
-    dim3 grid((d + kSkCols - 1) / kSkCols, slices);
-    dense_mm_splitk_kernel<T><<<grid, kThreads, 0, s>>>(xt, wt, scratch, n, k, d, kc);
-    const int nd = n * d;
-    splitk_reduce_kernel<T><<<(nd + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-        scratch, yt, nd, slices);
-  } else {
-    dim3 grid((d + 63) / 64, (n + 63) / 64);
-    dense_mm_kernel<T, 4, 4, 16><<<grid, kThreads, 0, s>>>(xt, wt, yt, n, k, d);
-  }
+int reduce(const float* part, T* y, int n, int d, int slices, cudaStream_t s) {
+  const size_t nd = (size_t)n * d;
+  splitk_reduce_kernel<T><<<(unsigned)((nd + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      part, y, nd, slices);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_ffma(const T* x, const T* w, T* y, float* part, int n, int k, int d, int* slices,
+                cudaStream_t s) {
+  const int kc = max(16, ((k + *slices - 1) / *slices + 15) / 16 * 16);
+  *slices = max(1, (k + kc - 1) / kc);
+  dim3 grid((d + 63) / 64, (n + 63) / 64, *slices);
+  dense_mm_ffma_kernel<T, 4, 4, 16><<<grid, kThreads, 0, s>>>(
+      x, w, y, *slices > 1 ? part : nullptr, n, k, d, kc);
+  return (int)cudaGetLastError();
+}
+
+enum Walk { kDecode = 0, kWgmma = 1, kFfma = 2 };
+
+template <typename T>
+int dispatch(const void* xv, const void* wv, void* yv, float* part, int n, int k, int d,
+             int walk, int bm, int bn, int cl, int slices, cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  const T* w = static_cast<const T*>(wv);
+  T* y = static_cast<T*>(yv);
+  if (slices < 1 || (slices > 1 && walk != kDecode && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int code = (int)cudaErrorInvalidValue;
+  if (walk == kDecode) {
+    if (slices > 8) return code;
+    return launch_decode_nt<T>(x, w, y, n, k, d, cl, slices, s);
+  }
+  if (walk == kWgmma) {
+    if constexpr (sizeof(T) == 2) {
+      const CUtensorMapDataType ty = std::is_same<T, __half>::value
+                                         ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+      if (bm == 128 && bn == 128)
+        code = launch_tc<T, 128, 128>(x, w, y, part, n, k, d, &slices, ty, s);
+      else if (bm == 64 && bn == 64)
+        code = launch_tc<T, 64, 64>(x, w, y, part, n, k, d, &slices, ty, s);
+    }
+  } else if (walk == kFfma) {
+    code = launch_ffma<T>(x, w, y, part, n, k, d, &slices, s);
+  }
+  if (code != 0 || slices == 1) return code;
+  return reduce<T>(part, y, n, d, slices, s);
 }
 
 }  // namespace
 
-// slices > 0 takes the split-K walk (n <= 16) with scratch holding
-// slices * n * d floats; slices == 0 the tiled walk
-extern "C" int dense_mm(const void* x, const void* w, void* y, void* scratch, int n,
-                        int k, int d, int slices, int dtype, void* stream) {
+// walk 0 = decode (cl = column lanes, slices = cluster size <= 8),
+// 1 = wgmma (bm x bn tiles), 2 = ffma; slices > 1 on walks 1 and 2 needs
+// scratch of slices * n * d floats
+extern "C" int dense_mm(const void* x, const void* w, void* y, void* scratch, int n, int k,
+                        int d, int walk, int bm, int bn, int cl, int slices, int dtype,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* sc = static_cast<float*>(scratch);
+  float* part = static_cast<float*>(scratch);
   switch (dtype) {
-    case 0: return dispatch<float>(x, w, y, sc, n, k, d, slices, s);
-    case 1: return dispatch<__nv_bfloat16>(x, w, y, sc, n, k, d, slices, s);
-    case 2: return dispatch<__half>(x, w, y, sc, n, k, d, slices, s);
+    case 0:
+      if (walk == kWgmma) return (int)cudaErrorInvalidValue;
+      return dispatch<float>(x, w, y, part, n, k, d, walk, bm, bn, cl, slices, s);
+    case 1: return dispatch<__nv_bfloat16>(x, w, y, part, n, k, d, walk, bm, bn, cl, slices, s);
+    case 2: return dispatch<__half>(x, w, y, part, n, k, d, walk, bm, bn, cl, slices, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

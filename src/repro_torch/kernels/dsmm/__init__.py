@@ -7,7 +7,11 @@ from repro_torch.kernels.dsmm.ops import (COUNTER, dsmm,  # noqa: F401
 # slots): the CUDA kernel takes b in {4, 8, 16, 32, 64, 128} (the grouped
 # routes' tiles are b x b with b = t <= 128); the slots need only be
 # contiguous per block-row, not ascending (the balanced order); n is free
-# (ragged token tiles are masked)
+# (ragged token tiles are masked).  b in {1, 2} is re-blocked on the
+# device, not widened in the kernel: ``ops.reblock`` embeds each slot in
+# the 4 x 4 block that covers it (slots sharing one add in the walk), so
+# the pattern never goes through the host; the plan checks this contract
+# at the block the kernel walks (4 there)
 CONTRACT = register(KernelContract(
     kernel="dsmm",
     routes=("dynamic_cuda", "dynamic_grouped_cuda",

@@ -8,7 +8,8 @@ slots contiguous).  For a CUDA tensor it launches ``csrc/dsmm.cu`` (the
 port of ``src/repro/kernels/dsmm/dsmm.py`` ``dsmm_call``) or raises; for
 a CPU tensor it runs ``dsmm_plain``, the gather + einsum + ``index_add_``
 version.  ``dsmm(op, x2)`` encodes a ``DynamicOperand`` with
-``encode_slots`` first (the ``dynamic_pallas`` route).  Nothing here
+``encode_slots`` first (the ``dynamic_pallas`` route), after ``reblock``
+where its blocks are below the kernel's.  Nothing here
 reads a device value on the host.
 """
 from __future__ import annotations
@@ -46,6 +47,22 @@ def encode_slots(op: DynamicOperand
     vals = torch.cat([op.values.new_zeros((mb, b, b)), op.values])
     order = torch.argsort(rows, stable=True)
     return rows[order], cols[order], vals[order]
+
+
+def reblock(op: DynamicOperand, t: int = BLOCK_SIZES[0]) -> DynamicOperand:
+    """Blocks below the kernel's, on the device: each ``b x b`` slot
+    (``b`` dividing ``t``) embedded at its offset in the ``t x t`` block
+    that covers it, zeros elsewhere; slots that share a ``t``-block add
+    in the walk.  Padding slots stay zero.  Reads nothing on the host."""
+    b = op.block_size
+    r = t // b
+    rows, cols = op.row_idx.long(), op.col_idx.long()
+    s = op.capacity
+    vals = op.values.new_zeros((s, r, b, r, b))
+    vals[torch.arange(s, device=vals.device), rows % r, :, cols % r, :] = \
+        op.values
+    return DynamicOperand(vals.reshape(s, t, t), (rows // r).to(torch.int32),
+                          (cols // r).to(torch.int32), op.nnz, op.shape, t)
 
 
 def dsmm_plain(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
@@ -140,5 +157,7 @@ def dsmm(op: DynamicOperand, x2: torch.Tensor,
     if x2.dim() != 2 or x2.shape[1] != op.shape[1]:
         raise ValueError(f"x2 must be [N, {op.shape[1]}], got "
                          f"{tuple(x2.shape)}")
+    if op.block_size < BLOCK_SIZES[0] and BLOCK_SIZES[0] % op.block_size == 0:
+        op = reblock(op)
     rows, cols, vals = encode_slots(op)
     return dsmm_slots(x2, vals, rows, cols, op.shape[0], out_dtype)

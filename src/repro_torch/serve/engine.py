@@ -8,8 +8,10 @@ as others finish.
   logits are read at the true last prompt token
   (``LM.prefill(last_index=...)``); decode attention masks cache slots
   beyond each row's position, so the padding is never read.  The bucket
-  ladder and admission price tokens by the plain FLOP count of the
-  model's matmul stack (``_stack_shapes``).
+  ladder and admission price tokens with the H100 model of the dense
+  route (``core.dispatch.price_tokens``) over the model's matmul stack
+  (``_stack_shapes``), at the model's dtype: the reference's algorithm,
+  priced by the card the port runs on.
 * **Admission**: the smallest bucket holding a prompt, unless its
   priced padding waste exceeds ``pad_max_frac`` (then exact-length
   prefill, counted); a bounded queue (``max_queue``) drops and counts.
@@ -37,6 +39,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import dispatch
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.model import LM
@@ -86,29 +89,32 @@ def _stack_shapes(cfg: ModelCfg) -> List[Tuple[int, int]]:
     return shapes
 
 
-def price_tokens(shapes: Sequence[Tuple[int, int]], n: int) -> float:
-    """Matmul FLOPs of ``n`` tokens through ``shapes``."""
-    return 2.0 * n * float(sum(m * k for m, k in shapes))
+price_tokens = dispatch.price_tokens
 
 
 def _auto_buckets(top: int, shapes: Sequence[Tuple[int, int]],
-                  pad_max_frac: float, *,
-                  granularity: int = 16) -> Tuple[int, ...]:
-    """Bucket ladder: each next bucket is the largest size whose priced
-    padding waste for the worst-padded prompt (one token past the
-    previous bucket) stays under ``pad_max_frac``.  Always ends at
-    ``top`` (= max_len - 1, the longest admissible prompt)."""
+                  pad_max_frac: float, *, granularity: int = 16,
+                  dtype="float32") -> Tuple[int, ...]:
+    """Bucket ladder (the reference's algorithm): each next bucket is
+    the largest size whose priced padding waste for the worst-padded
+    prompt (one token past the previous bucket) stays under
+    ``pad_max_frac``; a fixed cost per launch makes short prefills cheap
+    to pad, which widens the small buckets.  Priced by
+    ``dispatch.price_tokens`` in ``dtype``.  Always ends at ``top`` (=
+    max_len - 1, the longest admissible prompt)."""
     if top <= granularity:
         return (top,)
+
+    def _p(n: int) -> float:
+        return dispatch.price_tokens(shapes, n, dtype=dtype)
+
     buckets = [granularity]
     while buckets[-1] < top:
         lo = buckets[-1]
         nxt = min(lo + granularity, top)
         cand = nxt + granularity
         while cand <= top:
-            waste = 1.0 - (price_tokens(shapes, lo + 1)
-                           / price_tokens(shapes, cand))
-            if waste > pad_max_frac:
+            if 1.0 - _p(lo + 1) / _p(cand) > pad_max_frac:
                 break
             nxt = cand
             cand += granularity
@@ -151,6 +157,9 @@ class Engine:
 
         self.pad_max_frac = float(pad_max_frac)
         self._shapes = _stack_shapes(lm.cfg)
+        # priced at the model's dtype (the reference prices at float32
+        # whatever its model's dtype)
+        self._dtype = lm.cfg.dtype
         top = max_len - 1
         if buckets is not None:
             ladder = sorted({int(b) for b in buckets if 1 <= b <= top})
@@ -159,7 +168,8 @@ class Engine:
             self.buckets: Tuple[int, ...] = tuple(ladder)
         else:
             self.buckets = _auto_buckets(top, self._shapes,
-                                         self.pad_max_frac)
+                                         self.pad_max_frac,
+                                         dtype=self._dtype)
 
         self._stats_lock = threading.Lock()
         self._counters = collections.Counter()
@@ -176,7 +186,10 @@ class Engine:
 
     # -- pricing ----------------------------------------------------------
     def _price(self, n_tokens: int) -> float:
-        return price_tokens(self._shapes, n_tokens)
+        """H100 model-seconds of one prefill of ``n_tokens`` through this
+        model's matmul stack."""
+        return dispatch.price_tokens(self._shapes, n_tokens,
+                                     dtype=self._dtype)
 
     def bucket_for(self, prompt_len: int) -> Optional[int]:
         """The smallest bucket holding the prompt, unless its priced

@@ -12,10 +12,15 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   CUDA kernels on a card, their plain PyTorch versions on the CPU);
   "auto" is the static walk (``static_cuda``, the bsmm kernel), the dsmm
   slot walk (``dynamic_cuda``) or the dense GEMM (``dense_cuda``);
-* a static plan runs ``partitioner.plan_packing`` once with ``tm = tk =
-  b`` (``static_balanced``: ``plan_packing_balanced``, with a bin count
-  picked for the card) and keeps its walk on the device; it is cached
-  per (pattern, shape, dtype, device, route) and serves any ``n``;
+* a static plan runs ``partitioner.plan_packing`` once at the tile the
+  kernels walk (``kernel_tile``: ``b``, or 4 x 4 tiles for b in {1, 2},
+  or b = 128 split into 64 x 64 blocks; ``static_balanced``:
+  ``plan_packing_balanced``, with a bin count picked for the card) and
+  keeps its walk on the device; it is cached per (pattern, shape, dtype,
+  device, route) and serves any ``n``;
+* ``plan`` checks the contract of every kernel the plan will launch at
+  the block it walks, and raises then, with the contract's reason, for
+  a problem no kernel takes (on the CPU too, for the card's kernels);
 * a dynamic plan is keyed by the problem (m, k, capacity, b, dtype,
   device, route and the capacity knobs), never by the pattern: a new
   mask every step reuses one plan.  The grouped routes size their tile
@@ -64,6 +69,7 @@ from repro_torch.core.bsr import BlockSparseMatrix, pattern_key
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.dynamic_sparse import (DynamicOperand, _dspmm,
                                              dspmm_backward)
+from repro_torch.kernels import contract as contract_lib
 from repro_torch.kernels.bsmm import balanced as bal_ops
 from repro_torch.kernels.bsmm import ops as bsmm_ops
 from repro_torch.kernels.dense_mm import ops as dmm_ops
@@ -71,8 +77,8 @@ from repro_torch.kernels.dsmm import ops as dsmm_ops
 from repro_torch.kernels.gmm import balanced as gmm_balanced
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.sddmm import ops as sddmm_ops
-from repro_torch.sparse.spec import (CapacityStats, OpSpec, PlanContext,
-                                     port_route)
+from repro_torch.sparse.spec import (SUFFIX, CapacityStats, OpSpec,
+                                     PlanContext, port_route)
 
 ROUTES = {("static", "cuda"): "static_cuda",
           ("static", "cpu"): "static_torch",
@@ -139,6 +145,10 @@ class MatmulPlan:
     row_tile: int = 0
     expert_ids: Dict[int, torch.Tensor] = dataclasses.field(
         default_factory=dict)
+    # static kind: each b x b block walked as split x split blocks (b
+    # above the kernels' tiles); ``packing`` and ``grad`` are then the
+    # split pattern's
+    split: int = 1
 
     @property
     def grad_routes(self) -> Dict[str, str]:
@@ -173,8 +183,9 @@ class MatmulPlan:
         weight load."""
         family = _family(self.route)
         if family in ("static", "static_balanced"):
-            tiles = partitioner.pack_values(self.packing, values,
-                                            self.pack_index)
+            tiles = partitioner.pack_values(
+                self.packing, split_blocks(values, self.split),
+                self.pack_index)
             if family == "static_balanced":
                 tiles = bal_ops.pad_tiles(tiles)
             return tiles.contiguous()
@@ -231,18 +242,27 @@ class MatmulPlan:
         for the bsmm walk (a device gather per call while training)."""
         g = self.grad
         return partitioner.pack_values(
-            g.packing, partitioner.apply_transpose(g.transpose, values,
-                                                   g.perm),
+            g.packing, partitioner.apply_transpose(
+                g.transpose, split_blocks(values, self.split), g.perm),
             g.pack_index).contiguous()
 
     def sddmm(self, dy2: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         """dL/dvalues of the static kind: ``[nnz, b, b]`` block-sampled
         ``dy2^T . x2`` in the pattern's lexsort order."""
         g = self.grad
+        t = g.sddmm_block
         dv = sddmm_ops.sddmm(dy2.contiguous(), x2.contiguous(),
-                             g.block_row_ptr, g.col_idx, g.row_idx,
-                             self.packing.block_size)
-        return dv if g.unsort is None else dv[g.unsort]
+                             g.block_row_ptr, g.col_idx, g.row_idx, t)
+        if g.gather is not None:
+            # sampled on the t x t tiles the blocks were packed into: the
+            # blocks, in operand order, through the forward's pack index
+            b = self.packing.block_size
+            r = t // b
+            dv = dv.reshape(-1, r, b, r, b).permute(0, 1, 3, 2, 4).reshape(
+                -1, b, b)[g.gather]
+        elif g.unsort is not None:
+            dv = dv[g.unsort]
+        return merge_blocks(dv, self.split)
 
     # -- dense kind --------------------------------------------------------
 
@@ -340,11 +360,15 @@ class GradPlan:
     """A static plan's backward metadata, built once with the plan.
 
     ``transpose``/``packing`` are ``W^T``'s pattern and its
-    ``plan_packing(tm = tk = b)``; ``row_ptr``/``tile_rows``/
+    ``plan_packing`` at the kernel's tile; ``row_ptr``/``tile_rows``/
     ``tile_cols`` its walk on the device, ``perm`` the value permutation.
-    ``block_row_ptr``/``row_idx``/``col_idx`` are the forward pattern's
-    CSR runs in lexsort order, which the SDDMM walks; ``unsort`` maps
-    them back to the operand's block order where that differs."""
+    ``block_row_ptr``/``row_idx``/``col_idx`` are the CSR runs, in
+    lexsort order, that the SDDMM samples at block ``sddmm_block``: the
+    forward pattern's own blocks (``unsort`` maps them back to the
+    operand's block order where that differs) or, for blocks below the
+    kernel's tiles, the forward packing's tiles (``gather`` then picks
+    each block out of them).  With a split plan all of it is the split
+    pattern's."""
 
     transpose: partitioner.TransposePlan
     packing: partitioner.PackingPlan
@@ -356,7 +380,9 @@ class GradPlan:
     block_row_ptr: torch.Tensor  # [Mt + 1] int32
     row_idx: torch.Tensor        # [nnz] int32
     col_idx: torch.Tensor        # [nnz] int32
+    sddmm_block: int
     unsort: Optional[torch.Tensor] = None  # [nnz] long
+    gather: Optional[torch.Tensor] = None  # [nnz] long
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -572,21 +598,122 @@ def _on_dev(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
 
 
+def kernel_tile(b: int) -> Tuple[int, int]:
+    """``(tile, split)`` the static kernels (bsmm, bsmm_balanced, sddmm)
+    walk blocks of ``b`` at, as the reference's ``pack_tiles`` maps blocks
+    onto MXU tiles: ``b`` itself where the kernels take it; a block below
+    their tiles packed into the smallest tile it divides (b in {1, 2}:
+    4 x 4 tiles); a block above them split exactly into ``split x split``
+    blocks of the largest tile (b = 128: four 64 x 64 blocks).  Any other
+    ``b`` maps to itself, and the contract check refuses it."""
+    tiles = bsmm_ops.TILE_SIZES
+    if b in tiles:
+        return b, 1
+    if b < tiles[0]:
+        for t in tiles:
+            if t % b == 0:
+                return t, 1
+    if b > tiles[-1] and b % tiles[-1] == 0:
+        return tiles[-1], b // tiles[-1]
+    return b, 1
+
+
+def dynamic_tile(m: int, k: int, b: int, route: str) -> int:
+    """The block the dsmm kernel walks for a dynamic route: the grouped
+    routes' packed tile; else ``b``, or the kernel's smallest block where
+    ``b`` is below the kernel's blocks and divides it
+    (``dsmm_ops.reblock``)."""
+    if _family(route) in ("dynamic_grouped", "dynamic_grouped_balanced"):
+        return gmm_ops.grouped_tile_size(m, k, b)
+    t = dsmm_ops.BLOCK_SIZES[0]
+    return t if b < t and t % b == 0 else b
+
+
+def _check_contract(route: str, spec: OpSpec, block: int) -> None:
+    """Raise, at plan time, if the kernel that ``route`` (or its card
+    counterpart, for a CPU route) launches refuses the problem at the
+    block it will walk."""
+    c = contract_lib.contract_for_route(route.replace(SUFFIX["cpu"],
+                                                      SUFFIX["cuda"]))
+    if c is None:
+        return
+    why = c.admits(spec.m, spec.k, spec.n, block, spec.dtype)
+    if why is not None:
+        raise ValueError(
+            f"plan: route {route} ({c.kernel} kernel) cannot take "
+            f"{spec.m}x{spec.k} at block {spec.block_size} (walked as "
+            f"{block}): {why}")
+
+
+def _check_plan_contracts(route: str, spec: OpSpec,
+                          ctx: PlanContext) -> None:
+    """Every kernel the plan will launch admits it, at the block that
+    kernel walks (the static backward's bsmm and sddmm too, where the
+    plan is differentiable)."""
+    family = _family(route)
+    b = spec.block_size
+    if spec.kind != "dense" and family in ("static", "static_balanced"):
+        _check_contract(route, spec, kernel_tile(b)[0])
+    elif spec.kind != "dense" and family != "dense":
+        _check_contract(route, spec, dynamic_tile(spec.m, spec.k, b, route))
+    if spec.kind == "static" and ctx.differentiable:
+        for grad_route in (ROUTES[("static", "cuda")], SDDMM_ROUTES["cuda"]):
+            _check_contract(grad_route, spec, kernel_tile(b)[0])
+
+
+def split_blocks(values: torch.Tensor, split: int) -> torch.Tensor:
+    """``[nnz, b, b]`` -> ``[nnz * split^2, b / split, b / split]``:
+    block z's sub-block (i, j) at ``(z * split + i) * split + j``."""
+    if split == 1:
+        return values
+    nnz, b, _ = values.shape
+    c = b // split
+    return values.reshape(nnz, split, c, split, c).permute(
+        0, 1, 3, 2, 4).reshape(nnz * split * split, c, c)
+
+
+def merge_blocks(values: torch.Tensor, split: int) -> torch.Tensor:
+    """The inverse of ``split_blocks``."""
+    if split == 1:
+        return values
+    c = values.shape[-1]
+    nnz = values.shape[0] // (split * split)
+    return values.reshape(nnz, split, split, c, c).permute(
+        0, 1, 3, 2, 4).reshape(nnz, split * c, split * c)
+
+
 def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
                   route: str, ctx: PlanContext) -> MatmulPlan:
     m, k = bsr.shape
     b = bsr.block_size
     rows = np.asarray(bsr.row_idx, np.int32)
     cols = np.asarray(bsr.col_idx, np.int32)
-    meta = partitioner.plan_packing(rows, cols, (m, k), b, b, b)
+    t, split = kernel_tile(b)
+    # the pattern the static kernels walk: the operand's, or its split
+    er, ec, eb = rows, cols, b
+    if split > 1:
+        # block z's sub-block (i, j) at z * split^2 + i * split + j, as
+        # split_blocks orders the values
+        i, j = (a.reshape(1, -1) for a in np.meshgrid(
+            np.arange(split), np.arange(split), indexing="ij"))
+        er = (rows[:, None] * split + i).reshape(-1).astype(np.int32)
+        ec = (cols[:, None] * split + j).reshape(-1).astype(np.int32)
+        eb = t
+    meta = partitioner.plan_packing(er, ec, (m, k), eb, t, t)
 
-    order = np.lexsort((cols, rows))
-    unsort = None
-    if not np.array_equal(order, np.arange(order.size)):
-        unsort = torch.as_tensor(np.argsort(order), device=dev)
-    tp = partitioner.plan_transpose(rows, cols, (m, k), b)
+    tp = partitioner.plan_transpose(er, ec, (m, k), eb)
     tmeta = partitioner.plan_packing(tp.row_idx, tp.col_idx, tp.shape,
-                                     b, b, b)
+                                     eb, t, t)
+    unsort = gather = None
+    if eb < t:
+        # dL/dvalues is sampled on the forward packing's tiles
+        s_rows, s_cols = meta.tile_rows, meta.tile_cols
+        gather = partitioner.pack_index(meta, dev)
+    else:
+        order = np.lexsort((ec, er))
+        s_rows, s_cols = er[order], ec[order]
+        if not np.array_equal(order, np.arange(order.size)):
+            unsort = torch.as_tensor(np.argsort(order), device=dev)
     grad = GradPlan(
         transpose=tp, packing=tmeta,
         perm=torch.as_tensor(tp.perm, dtype=torch.long, device=dev),
@@ -594,25 +721,25 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
         row_ptr=_on_dev(tmeta.row_ptr(), dev),
         tile_rows=_on_dev(tmeta.tile_rows, dev),
         tile_cols=_on_dev(tmeta.tile_cols, dev),
-        block_row_ptr=_on_dev(sddmm_ops.block_row_ptr(rows[order], m // b),
-                              dev),
-        row_idx=_on_dev(rows[order], dev), col_idx=_on_dev(cols[order], dev),
-        unsort=unsort)
+        block_row_ptr=_on_dev(sddmm_ops.block_row_ptr(s_rows, m // t), dev),
+        row_idx=_on_dev(s_rows, dev), col_idx=_on_dev(s_cols, dev),
+        sddmm_block=t, unsort=unsort, gather=gather)
     p = MatmulPlan(kind="static", route=route, m=m, k=k, n=n,
                    dtype=bsr.dtype, device=dev, packing=meta,
                    row_ptr=_on_dev(meta.row_ptr(), dev),
                    tile_rows=_on_dev(meta.tile_rows, dev),
                    tile_cols=_on_dev(meta.tile_cols, dev),
                    pack_index=partitioner.pack_index(meta, dev), grad=grad,
-                   ctx=ctx, block_size=b)
+                   ctx=ctx, block_size=b, split=split)
     art: Dict[str, Any] = {"nnz_blocks": len(rows),
                            "packing_tiles": meta.num_tiles,
-                           "packing_occupancy": meta.occupancy}
+                           "packing_occupancy": meta.occupancy,
+                           "kernel_tile": t, "block_split": split}
     family = _family(route)
     if family == "static_balanced":
-        bins = (bal_ops.card_bins(meta.grid[0], n, b) if dev.type == "cuda"
+        bins = (bal_ops.card_bins(meta.grid[0], n, t) if dev.type == "cuda"
                 else DEFAULT_BINS)
-        bm = partitioner.plan_packing_balanced(rows, cols, (m, k), b, b, b,
+        bm = partitioner.plan_packing_balanced(er, ec, (m, k), eb, t, t,
                                                num_bins=bins)
         rep = partitioner.balance_report(bm.swizzle.loads)
         art.update(swizzle_bins=bm.num_bins,
@@ -627,12 +754,12 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
                          torch.tensor(len(rows), dtype=torch.int32,
                                       device=dev))
         if family in ("dynamic_grouped", "dynamic_grouped_balanced"):
-            t = gmm_ops.grouped_tile_size(m, k, b)
+            tg = gmm_ops.grouped_tile_size(m, k, b)
             # a static pattern's exact tile count is known at plan time
-            p.tile = t
-            p.tiles_cap = partitioner.plan_packing(rows, cols, (m, k), b, t,
-                                                   t).num_tiles
-            art.update(grouped_tile=t, grouped_tiles_cap=p.tiles_cap)
+            p.tile = tg
+            p.tiles_cap = partitioner.plan_packing(rows, cols, (m, k), b,
+                                                   tg, tg).num_tiles
+            art.update(grouped_tile=tg, grouped_tiles_cap=p.tiles_cap)
     p.artifacts = art
     return p
 
@@ -718,6 +845,7 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
         else:
             spec = OpSpec.from_operand(operand, n, mode=ctx.mode)
     route = port_route(spec.kind, ctx.mode, dev.type)
+    _check_plan_contracts(route, spec, ctx)
     if spec.kind == "static":
         fp = ("static", pattern_key(operand.row_idx, operand.col_idx),
               (spec.m, spec.k), spec.block_size, spec.dtype, dev, route)

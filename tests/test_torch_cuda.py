@@ -83,6 +83,92 @@ def test_dense_mm_cuda_matches_plain(dev, dtype, n, k, d):
     assert _rel(got, dmm_ops.dense_mm_plain(x, w)) <= TOL[dtype]
 
 
+# each walk at its shapes and ragged edges: (n, k, d), the walks that
+# dense_mm.walk picks in 16-bit types and in fp32
+DENSE_WALK_CASES = [
+    (1, 2048, 4096, "wgmma", "decode"), (4, 2048, 512, "decode", "decode"),
+    (4, 2048, 2048, "decode", "decode"), (16, 4096, 2048, "wgmma", "decode"),
+    (3, 100, 72, "decode", "decode"), (4, 8, 8, "decode", "decode"),
+    (17, 2048, 4096, "wgmma", "ffma"), (64, 2048, 512, "wgmma", "ffma"),
+    (256, 2048, 512, "wgmma", "ffma"), (1008, 2048, 4096, "wgmma", "ffma"),
+    (1008, 4096, 2048, "wgmma", "ffma"), (300, 520, 200, "wgmma", "ffma"),
+    (129, 64, 136, "wgmma", "ffma"), (2048, 2048, 2048, "wgmma", "ffma"),
+    (130, 333, 2048, "ffma", "ffma"), (70, 64, 100, "ffma", "ffma"),
+    (40, 4, 3, "ffma", "ffma"),
+    # K past what the decode walk stages in shared memory at N 16
+    (16, 32768, 1024, "wgmma", "ffma"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n,k,d,walk16,walk32", DENSE_WALK_CASES)
+def test_dense_mm_walks_match_plain(dev, dtype, n, k, d, walk16, walk32):
+    g = torch.Generator(device=dev).manual_seed(n * 7 + k + d)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((k, d), generator=g, device=dev) / k ** 0.5).to(dtype)
+    wk = dmm_ops.walk(n, k, d, dtype)
+    assert wk.name == (walk32 if dtype == torch.float32 else walk16)
+    before = {n_: c.launches for n_, c in dmm_ops.WALK_COUNTERS.items()}
+    got = dmm_ops.dense_mm(x, w)
+    torch.cuda.synchronize()
+    for name, c in dmm_ops.WALK_COUNTERS.items():
+        assert c.launches == before[name] + (name == wk.name)
+    assert got.shape == (n, d) and got.dtype == dtype
+    assert _rel(got, dmm_ops.dense_mm_plain(x, w)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [1, 2, 4, 7, 16])
+@pytest.mark.parametrize("cl,slices", [(8, 1), (16, 3), (32, 8)])
+def test_dense_mm_decode_walk_matches_plain(dev, dtype, n, cl, slices):
+    """The decode walk, forced, at every row count it holds, column
+    width and cluster size, on a ragged D."""
+    k, d = 1000, 1048
+    g = torch.Generator(device=dev).manual_seed(n + cl + slices)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((k, d), generator=g, device=dev) / k ** 0.5).to(dtype)
+    got = dmm_ops.dense_mm_cuda(x, w, dmm_ops.Walk("decode", cl=cl,
+                                                   slices=slices))
+    torch.cuda.synchronize()
+    assert _rel(got, dmm_ops.dense_mm_plain(x, w)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("bm,bn,slices", [(64, 64, 1), (128, 128, 1),
+                                          (128, 128, 3), (64, 64, 7)])
+def test_dense_mm_wgmma_tiles_match_plain(dev, dtype, bm, bn, slices):
+    """Every wgmma tile shape and a K split, forced, at ragged N and D."""
+    n, k, d = 200, 1000, 328
+    g = torch.Generator(device=dev).manual_seed(bm + bn + slices)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((k, d), generator=g, device=dev) / k ** 0.5).to(dtype)
+    got = dmm_ops.dense_mm_cuda(x, w, dmm_ops.Walk(
+        "wgmma", bm=bm, bn=bn, slices=slices))
+    torch.cuda.synchronize()
+    assert _rel(got, dmm_ops.dense_mm_plain(x, w)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [dmm_ops.Walk("decode", cl=16, slices=8),
+                                  dmm_ops.Walk("wgmma", bm=64, bn=64,
+                                               slices=5)],
+                         ids=["decode_cluster", "wgmma_split"])
+def test_dense_mm_k_split_is_deterministic(dev, plan):
+    """K slices add in a fixed order (the decode cluster's ranks, the
+    split-K reduce's slices): equal inputs, equal bits."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((4, 4096), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((4096, 2048), generator=g, device=dev).to(torch.bfloat16)
+    first = dmm_ops.dense_mm_cuda(x, w, plan)
+    for _ in range(3):
+        assert torch.equal(dmm_ops.dense_mm_cuda(x, w, plan), first)
+
+
 @pytest.mark.cuda
 def test_sparse_lm_on_card_matches_cpu(dev):
     """The smoke config with a sparse FFN, fp32: the card (both kernels)
@@ -230,6 +316,76 @@ def test_bsmm_balanced_cuda_matches_plain(dev, dtype, b, kind, n):
     assert torch.all(got[:, :b] == 0)
     assert _rel(got, want) <= TOL[dtype]
     assert _rel(got, x @ bsr.to_dense().t()) <= TOL[dtype] * 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["static", "static_balanced"])
+@pytest.mark.parametrize("b", [1, 2, 128])
+def test_static_blocks_outside_tiles_on_card(dev, dtype, mode, b):
+    """Static plans at b in {1, 2} (packed into 4 x 4 tiles) and 128
+    (split into 64 x 64 blocks): forward, dL/dx and dL/dvalues through the
+    bsmm / bsmm_balanced and sddmm kernels against the dense product."""
+    from repro_torch.kernels.bsmm import balanced as bal
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
+    m, k, n = 256, 512, 40
+    mask = masks.random_block_mask(m, k, b, 0.25 if b < 128 else 0.5,
+                                   seed=b)
+    g = torch.Generator(device=dev).manual_seed(b)
+    vals = torch.randn((int(mask.sum()), b, b), generator=g,
+                       device=dev).to(dtype)
+    bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
+    plan = sparse.plan(bsr, n, device=dev,
+                       ctx=sparse.PlanContext(mode=mode))
+    assert plan.route == f"{mode}_cuda"
+    counter = bal.COUNTER if mode == "static_balanced" else bsmm_ops.COUNTER
+    before = (counter.launches, bsmm_ops.COUNTER.launches,
+              sddmm_ops.COUNTER.launches)
+    tv = vals.clone().requires_grad_(True)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    tx = x.clone().requires_grad_(True)
+    y = plan.spmm_nt(tv, tx)
+    gy = torch.randn((n, m), generator=g, device=dev).to(dtype)
+    dv, dx = torch.autograd.grad(y, (tv, tx), gy)
+    torch.cuda.synchronize()
+    assert counter.launches > before[0]
+    assert bsmm_ops.COUNTER.launches > before[1]           # dL/dx
+    assert sddmm_ops.COUNTER.launches == before[2] + 1     # dL/dvalues
+    w = bsr.to_dense().float()
+    assert _rel(y, x.float() @ w.t()) <= TOL[dtype] * 5
+    assert _rel(dx, gy.float() @ w) <= TOL[dtype] * 5
+    dense_dv = (gy.float().t() @ x.float()).reshape(
+        m // b, b, k // b, b).permute(0, 2, 1, 3)
+    r, c = (torch.as_tensor(a, device=dev) for a in np.nonzero(mask))
+    assert dv.shape == vals.shape
+    assert _rel(dv, dense_dv[r, c]) <= TOL[dtype] * 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["dynamic", "dynamic_grouped",
+                                  "dynamic_grouped_balanced"])
+@pytest.mark.parametrize("b", [1, 2])
+def test_dynamic_blocks_below_tiles_on_card(dev, dtype, mode, b):
+    """Dynamic plans at b in {1, 2}: re-blocked (dynamic) or packed
+    (grouped) on the device, through the dsmm kernel, against the CPU."""
+    from repro_torch.core import dynamic_sparse as dsp
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    m, k = 256, 512
+    mask = masks.random_block_mask(m, k, b, 1 / 8, seed=b)
+    w = torch.randn((m, k), generator=torch.Generator().manual_seed(b))
+    x = torch.randn((70, k), generator=torch.Generator().manual_seed(1))
+    ctx = sparse.PlanContext(mode=mode, capacity_policy="worst")
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        op = dsp.encode(w.to(d, dtype), torch.as_tensor(mask, device=d),
+                        block_size=b, nnz_max=int(mask.sum()) + 9)
+        before = dsmm_ops.COUNTER.launches
+        outs.append(sparse.spmm_nt(op, x.to(d, dtype), ctx=ctx).cpu())
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert dsmm_ops.COUNTER.launches == before + 1
+    assert _rel(outs[0], outs[1]) <= TOL[dtype]
 
 
 @pytest.mark.cuda

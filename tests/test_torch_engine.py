@@ -130,8 +130,10 @@ def test_auto_buckets_end_at_top_and_price_by_flops():
     ladder = tengine._auto_buckets(511, shapes, 0.75)
     assert ladder[0] == 16 and ladder[-1] == 511
     assert list(ladder) == sorted(set(ladder))
-    assert tengine.price_tokens(shapes, 2) == 2 * tengine.price_tokens(
-        shapes, 1)
+    # the price is the H100 model's (not FLOPs): a second token costs
+    # less than the first, the weights are read once
+    one, two = (tengine.price_tokens(shapes, n) for n in (1, 2))
+    assert one < two < 2 * one
 
 
 def test_engine_requires_matching_device(tlm):

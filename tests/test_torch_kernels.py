@@ -112,6 +112,69 @@ def test_dense_mm_plain_matches_jax(dtype, n, k, d):
                            dtype, "matmul")
 
 
+# dense_mm.walk at qwen3-moe's attention projections: (name, k, d) ->
+# the walk's initial and its K slices at N in WALK_NS, bf16 then fp32
+# ("d" decode, "w" wgmma, "f" ffma); 64-row tiles where 128-row ones fill
+# under half the card, K split where the tiles fill under a quarter
+WALK_NS = (1, 4, 16, 17, 64, 256, 1008, 4096)
+WALKS = {
+    ("q", 2048, 4096): ("w1 w1 w1 w1 w1 w1 w1 w1",
+                        "d8 d8 d8 f3 f3 f1 f1 f1"),
+    ("k/v", 2048, 512): ("d8 d8 w8 w8 w8 w5 w1 w1",
+                         "d8 d8 d8 f8 f8 f5 f2 f1"),
+    ("o", 4096, 2048): ("w5 w5 w5 w5 w5 w1 w1 w1",
+                        "d8 d8 d8 f5 f5 f2 f1 f1"),
+}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name,k,d", sorted(WALKS))
+def test_dense_mm_walk_selection(name, k, d, dtype):
+    want = WALKS[(name, k, d)][dtype == "float32"].split()
+    got = [tdmm_ops.walk(n, k, d, dtype) for n in WALK_NS]
+    assert [f"{w.name[0]}{w.slices}" for w in got] == want
+    for n, w in zip(WALK_NS, got):
+        if w.name == "wgmma":
+            big = (-(-n // 128)) * (-(-d // 128)) >= tdmm_ops.SMS // 2
+            assert w.bm == w.bn == (128 if big else 64)
+            assert w.blocks == (-(-n // w.bm)) * (-(-d // w.bn)) * w.slices
+        if w.name == "decode":
+            assert n <= tdmm_ops.DECODE_MAX_N and w.slices <= 8
+        if n <= tdmm_ops.DECODE_MAX_N and dtype == "bfloat16":
+            # the cheaper walk by the time model
+            assert w.name == min(("decode", "wgmma"), key=lambda c: (
+                tdmm_ops.walk_seconds(c, n, k, d, dtype)))
+
+
+@pytest.mark.parametrize("n,k,d,walk", [
+    (256, 333, 512, "ffma"), (256, 2048, 100, "ffma"),
+    (4, 2048, 100, "decode"), (1008, 2048, 4096, "wgmma")])
+def test_dense_mm_walk_without_tma(n, k, d, walk):
+    """K or D not a multiple of 8 (row strides TMA cannot take) leaves
+    the tensor-core walk in 16-bit types."""
+    assert tdmm_ops.tma_ok(k, d, "bfloat16") == (k % 8 == 0 and d % 8 == 0)
+    assert tdmm_ops.walk(n, k, d, torch.bfloat16).name == walk
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("k", [2048, 16384, 24576, 28672, 32768, 65536])
+def test_dense_mm_decode_walk_fits_shared_memory(k, dtype):
+    """The decode walk is picked only where its block holds x's fp32 K
+    slice and the sums in 227 KB; past that, N <= 16 takes the tensor-core
+    walk in 16-bit types and the FMA walk in fp32."""
+    es = 4 if dtype == "float32" else 2
+    for n in (1, 4, 8, 9, 16):
+        w = tdmm_ops.walk(n, k, 1024, dtype)
+        nt = 1 << (n - 1).bit_length()
+        if w.name == "decode":
+            kc = -(-k // w.slices)
+            assert 4 * (nt * kc + 9 * nt * w.cl * 16 // es) <= 227 * 1024
+        else:
+            assert w.name == ("ffma" if dtype == "float32" else "wgmma")
+    # N 16 at K 32768 cannot stage x on the decode walk
+    assert tdmm_ops.walk(16, 32768, 1024, dtype).name != "decode"
+
+
 def test_plan_cache_and_routes():
     tsparse.reset()
     mask = jmasks.random_block_mask(64, 64, 16, 0.5, seed=0)

@@ -445,10 +445,10 @@ def test_loss_waits_for_moe_training(pair):
 
 def test_engine_tokens_match_jax(pair):
     """Greedy tokens through both engines on the reference's bucket
-    ladder.  The ladders themselves differ: the reference prices padding
-    with its calibrated TPU cost model (``dispatch.price_tokens``), the
-    port with plain FLOPs (no H100 cost model yet), so the port is handed
-    the reference's ladder; the pricing inputs are held equal below."""
+    ladder.  The ladders may differ: the reference prices padding with
+    its calibrated TPU cost model (``dispatch.price_tokens``), the port
+    with its H100 model of dense_mm, so the port is handed the
+    reference's ladder; the pricing inputs are held equal below."""
     jlm, params, tlm = pair
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, VOCAB, size=n).astype(np.int32)
@@ -469,12 +469,14 @@ def test_engine_tokens_match_jax(pair):
         assert t.bucket == j.bucket
 
 
-# qwen3's bucket ladders as they stand: the port prices padding by FLOPs,
-# the reference by its TPU cost model, so they differ; a change to either
-# shows here.  (smoke, max_len) -> (port's, reference's)
+# qwen3's bucket ladders as they stand: both run the reference's
+# algorithm, the port priced by its H100 model of dense_mm at the model's
+# dtype, the reference by its TPU cost model, so they differ at the served
+# max_len and agree at the smoke one; a change to either shows here.
+# (smoke, max_len) -> (port's, reference's)
 QWEN3_LADDERS = {
-    (False, 1024): ((16, 64, 256, 1008, 1023), (16, 512, 1008, 1023)),
-    (True, 96): ((16, 64, 80, 95), (16, 80, 95)),
+    (False, 1024): ((16, 1008, 1023), (16, 512, 1008, 1023)),
+    (True, 96): ((16, 80, 95), (16, 80, 95)),
 }
 
 
@@ -486,10 +488,10 @@ def test_bucket_ladders_pinned(smoke, max_len):
     jcfg = (jconfigs.smoke if smoke else jconfigs.get)("qwen3_moe_30b_a3b")
     port, ref = QWEN3_LADDERS[(smoke, max_len)]
     assert tengine._auto_buckets(max_len - 1, tengine._stack_shapes(cfg),
-                                 0.75) == port
+                                 0.75, dtype=cfg.dtype) == port
     assert jengine._auto_buckets(max_len - 1, jengine._stack_shapes(jcfg),
                                  0.75) == ref
-    assert port != ref
+    assert (port != ref) == (not smoke)
 
 
 def test_engine_ladder_is_the_pinned_one(pair):
@@ -503,7 +505,7 @@ def test_engine_ladder_is_the_pinned_one(pair):
 def test_stack_shapes_match_jax(smoke):
     """The matmul stack that prices admission and the ladder, MoE arm
     included (router + top-k expert FFNs), equals the reference's; the
-    port's ladder is the FLOP-priced one."""
+    port's ladder is the H100-priced one."""
     from repro.serve import engine as jengine
     from repro_torch.serve import engine as tengine
     cfg = (tconfigs.smoke if smoke else tconfigs.get)("qwen3-moe-30b-a3b")
@@ -513,5 +515,5 @@ def test_stack_shapes_match_jax(smoke):
     m = cfg.moe
     assert (m.num_experts, cfg.d_model) in shapes
     assert (2 * m.top_k * m.d_ff_expert, cfg.d_model) in shapes
-    assert tengine._auto_buckets(1023, shapes, 0.75) == \
-        (16, 64, 256, 1008, 1023)
+    assert tengine._auto_buckets(1023, shapes, 0.75, dtype=cfg.dtype) == \
+        QWEN3_LADDERS[(False, 1024)][0]
