@@ -21,8 +21,9 @@ Phases, each fatal on failure:
    walk the kernel took (decode, wgmma or ffma); with each kernel's time,
    its plain version's time, one
    library call's time and the least time the card could take (the
-   bound).  Each main-path phase below also reports dense_mm's launches
-   by walk;
+   bound).  Each main-path phase below also reports the launches of
+   dense_mm, bs_attn and gmm by walk, and fails if a 16-bit bs_attn or
+   gmm launch of it ran off the tensor-core (wgmma) walk;
 3. serve: full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
    vocab 128256) with every FFN block-sparse at d=1/8, b=16, in bf16,
    seeded random weights, through ``Engine(batch=4, max_len=512)``: 8
@@ -62,7 +63,8 @@ Phases, each fatal on failure:
    plan be built after step 0 and dsmm launch on every step; then one
    planned-capacity pass on the grouped route for its capacity report;
 10. attn (after phase 2's rows): bs_attn against its plain version (a
-   dense softmax over the element mask) in bf16 and fp32 at gemma2-2b's
+   dense softmax over the element mask) in bf16 and fp32 (fp16 too at
+   llama's and qwen3's rows) at gemma2-2b's
    global layer (B 1, H 8, KV 4, dh 256, S 4096, causal, soft-cap 50),
    its local layer (S 8192, window 4096), the prefill lengths phase 11
    serves on its engine's ladder (global and local; at 8176 the tiles
@@ -70,7 +72,9 @@ Phases, each fatal on failure:
    whose tiles halve to 1, with ms, plain ms, bound ms and one library
    call's ms (SDPA, or compiled flex_attention where a soft-cap or a
    window rules SDPA out), the library's output also held against the
-   plain version; the llama serve and train phases launch bs_attn too;
+   plain version; each row names its walk (wgmma in 16-bit, cuda_core in
+   fp32) and, in 16-bit, the CUDA-core walk's ms on the same inputs; the
+   llama serve and train phases launch bs_attn too;
 11. serve-gemma2: full-width gemma2-2b (26 layers of alternating local
    and global attention, d_model 2304, head dim 256, d_ff 9216, vocab
    256000) with every FFN block-sparse at d=1/8, b=16, bf16, through
@@ -92,8 +96,10 @@ Phases, each fatal on failure:
    state, gmm route against the plain route (same fp32 routing), within
    the bf16 kernel budget.  Its gmm kernel rows print with phase 2's: the
    expert GEMMs (E 128, gate/up 2048 -> 768, down 768 -> 2048) at the
-   decode capacity C = 8 and at the largest prefill's, and the reference
-   test's general case (random ids), bf16 and fp32;
+   decode capacity C = 8 and at the largest prefill's (one row tile of C
+   rows per expert), and the reference test's general case (random ids),
+   bf16, fp16 and fp32, each row naming its walk (wgmma in 16-bit, ffma
+   in fp32) and, in 16-bit, the FFMA walk's ms on the same inputs;
 12b. qwen3-fp32: the same model at full width in fp32, depth cut to 4
    layers: decode after a 6-token prompt, prefilled in its bucket,
    against ``forward`` within the fp32 budget, ``forward`` dropping no
@@ -189,21 +195,40 @@ def bound(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+WALK_KERNELS = ("dense_mm", "bs_attn", "gmm")
+
+
 def with_walks(counters):
-    """``counters`` plus dense_mm's launch counter of each walk, under
-    ``dense_mm:<walk>``."""
+    """``counters`` plus the launch counter of each walk of the kernels
+    that have several (dense_mm, bs_attn, gmm), under ``<kernel>:<walk>``."""
+    from repro_torch.kernels.bs_attn import ops as bs_ops
     from repro_torch.kernels.dense_mm import ops as dmm_ops
-    return dict(counters, **{f"dense_mm:{w}": c for w, c in
-                             dmm_ops.WALK_COUNTERS.items()})
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    out = dict(counters)
+    for kernel, ops in zip(WALK_KERNELS, (dmm_ops, bs_ops, gmm_ops)):
+        out.update({f"{kernel}:{w}": c for w, c in ops.WALK_COUNTERS.items()})
+    return out
 
 
 def split_walks(launches):
-    """``(kernel launches, dense_mm launches by walk)`` of a reading of
+    """``(kernel launches, {kernel: launches by walk})`` of a reading of
     ``with_walks`` counters."""
-    walks = {k.split(":", 1)[1]: v for k, v in launches.items()
-             if k.startswith("dense_mm:")}
-    return ({k: v for k, v in launches.items()
-             if not k.startswith("dense_mm:")}, walks)
+    walks = {k: {} for k in WALK_KERNELS}
+    for key, v in launches.items():
+        if ":" in key:
+            kernel, w = key.split(":", 1)
+            walks[kernel][w] = v
+    return {k: v for k, v in launches.items() if ":" not in k}, walks
+
+
+def check_tensor_core_walks(phase, walks):
+    """Every bs_attn and gmm launch of a 16-bit main path ran on its
+    tensor-core walk."""
+    off = {k: {w: n for w, n in walks[k].items() if w != "wgmma" and n}
+           for k in ("bs_attn", "gmm")}
+    if any(off.values()):
+        raise RuntimeError(f"[{phase}] 16-bit launches off the wgmma walk: "
+                           f"{off}")
 
 
 def measured_row(torch, kernel, shape, n, dname, run, plain, library,
@@ -446,12 +471,13 @@ def train_phase(torch, args):
     wall = time.perf_counter() - t0
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
+    check_tensor_core_walks("train", walks)
     walls = sorted(r["step_s"] for r in records)
     p50 = float(np.median(walls))
     result = dict(
         steps=steps, batch=batch, seq=seq, hp=dict(TRAIN_HP),
         losses=losses, records=records, launches=launches,
-        dense_mm_walks=walks, launches_per_step=per_step, wall_s=wall,
+        walks=walks, launches_per_step=per_step, wall_s=wall,
         step_p50_ms=p50 * 1e3,
         tokens_per_s=batch * seq / p50,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
@@ -522,6 +548,7 @@ def serve_phase(torch, args):
     wall = time.perf_counter() - t0
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
+    check_tensor_core_walks("serve", walks)
 
     if not all(r.done and len(r.output) == LLAMA_NEW for r in reqs):
         raise RuntimeError(f"not every request finished with {LLAMA_NEW} "
@@ -563,7 +590,7 @@ def serve_phase(torch, args):
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
         decode_steps=st["steps"], buckets=list(eng.buckets),
         bucket_stats={str(L): v for L, v in st["buckets"].items()},
-        launches=launches, dense_mm_walks=walks, launches_per_call=per,
+        launches=launches, walks=walks, launches_per_call=per,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
         logit_checks=nonfinite["calls"]), lm
 
@@ -603,6 +630,8 @@ ATTN_SHAPES = (
     ("llama", 2048, 32, 8, 64, 0, None, 1 / 8),
     ("llama odd S", 1023, 32, 8, 64, 0, None, 1 / 8),
 )
+# rows also run in fp16 (the tensor-core walk's other type)
+ATTN_FP16 = ("llama", "llama odd S", "qwen3 served")
 # [serve-gemma2]: Engine(batch=2, max_len=8192); seeded prompts of
 # 1024..7000 tokens (the last one over window + tile = 4608), 8 new each
 GEMMA2_MAX_LEN, GEMMA2_NEW, GEMMA2_BATCH = 8192, 8, 2
@@ -771,8 +800,10 @@ def attn_phase(torch, args):
         walk = spec.walk(dev)
         el = spec.element_mask(dev)
         pairs = int(el.sum().item())
-        for dname, dt in (("bfloat16", torch.bfloat16),
-                          ("float32", torch.float32)):
+        dtypes = [("bfloat16", torch.bfloat16), ("float32", torch.float32)]
+        if name in ATTN_FP16:
+            dtypes.append(("float16", torch.float16))
+        for dname, dt in dtypes:
             es = torch.empty((), dtype=dt).element_size()
             q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(dt)
             k = torch.randn((1, s, kvh, dh), generator=gen, device=dev).to(dt)
@@ -784,14 +815,21 @@ def attn_phase(torch, args):
             lib_err = rel_err(library(q, k, v),
                               attend_plain(q, k, v, el, scale=scale,
                                            softcap=softcap))[0]
+            def kernel(q_, k_, v_, plan=None):
+                return bs_ops.bs_attn_cuda(q_, k_, v_, walk, scale=scale,
+                                           softcap=softcap, window=window,
+                                           plan=plan)
             row = measured_row(
-                torch, "bs_attn", name, s, dname,
-                lambda q_, k_, v_: bs_ops.bs_attn_cuda(
-                    q_, k_, v_, walk, scale=scale, softcap=softcap,
-                    window=window),
+                torch, "bs_attn", name, s, dname, kernel,
                 lambda q_, k_, v_: attend_plain(q_, k_, v_, el, scale=scale,
                                                 softcap=softcap),
                 library, sets, sets, nbytes, 4.0 * pairs * dh * h)
+            # the CUDA-core walk (every dtype's walk before the tensor-core
+            # one) on the same 16-bit inputs, timed beside it
+            row["walk"] = bs_ops.kernel_walk(dt)
+            row["before_ms"] = (timed_ms(
+                torch, lambda *a: kernel(*a, plan="cuda_core"), sets, 4)
+                if dt != torch.float32 else None)
             row.update(heads=h, kv_heads=kvh, head_dim=dh, window=window,
                        softcap=softcap, tile=spec.tile_q, library=lib_name,
                        library_rel_err=lib_err,
@@ -862,6 +900,7 @@ def serve_gemma2_phase(torch, args):
     wall = time.perf_counter() - t0
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
+    check_tensor_core_walks("serve-gemma2", walks)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if not all(r.done and len(r.output) == new for r in reqs):
@@ -900,7 +939,7 @@ def serve_gemma2_phase(torch, args):
         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         prefill_p50_ms=st["prefill_latency"]["p50_ms"],
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
-        decode_steps=st["steps"], launches=launches, dense_mm_walks=walks,
+        decode_steps=st["steps"], launches=launches, walks=walks,
         visited=visited, buckets=list(eng.buckets), peak_mem_gb=peak), lm, eng
 
 
@@ -1415,7 +1454,8 @@ def gmm_kernel_phase(torch, args):
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 3)
-    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    dtypes = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+              "float32": torch.float32}
     c_pre, _ = qwen3_prefill_capacity(args)
     e = 128
     rows = []
@@ -1424,12 +1464,16 @@ def gmm_kernel_phase(torch, args):
         return (torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float32) * scale).to(dt)
 
-    cases = [(f"{name} C={c}", e, c, d, f, batched_row_tile(c), "batched")
+    cases = [(f"{name} C={c}", e, c, d, f, "batched")
              for name, d, f in (("gate/up", 2048, 768), ("down", 768, 2048))
              for c in (8, c_pre)]
-    cases.append(("general E=8 random ids", 8, 256, 128, 96, 64, "random"))
+    cases.append(("general E=8 random ids", 8, 256, 128, 96, "random"))
     for dname, dt in dtypes.items():
-        for shape, ne, c, d, f, tm, kind in cases:
+        for shape, ne, c, d, f, kind in cases:
+            # batched_matmul's row tile for this walk; 64 for the general
+            # case
+            tm = (batched_row_tile(c, gmm_ops.tma_ok(d, f, dt))
+                  if kind == "batched" else 64)
             es = torch.empty((), dtype=dt).element_size()
             if kind == "batched":
                 t_rows = ne * c
@@ -1455,7 +1499,15 @@ def gmm_kernel_phase(torch, args):
                 lambda a, b, i, tm=tm: gmm_ops.gmm_cuda(a, b, i, tm=tm),
                 lambda a, b, i, tm=tm: gmm_ref(a, b, i, tm=tm),
                 library, sets, lib_sets, nbytes, 2.0 * t_rows * d * f)
-            row.update(tm=tm, experts=ne, experts_used=used, c=c)
+            # the FFMA walk (every dtype's walk before the tensor-core
+            # one) on the same 16-bit inputs, timed beside it
+            ffma = gmm_ops.Walk("ffma")
+            row.update(tm=tm, experts=ne, experts_used=used, c=c,
+                       walk=gmm_ops.walk(tm, d, f, dt).name,
+                       before_ms=(timed_ms(
+                           torch, lambda a, b, i, tm=tm: gmm_ops.gmm_cuda(
+                               a, b, i, tm=tm, plan=ffma), sets, 10)
+                           if dt != torch.float32 else None))
             rows.append(row)
             del sets, lib_sets, x, w
     return rows
@@ -1527,6 +1579,7 @@ def serve_qwen3_phase(torch, args):
     wall = time.perf_counter() - t0
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
+    check_tensor_core_walks("serve-qwen3-moe", walks)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     lm.prefill, lm.decode_step = prefill, decode_step
     hist = sparse.dropped_history("moe_dispatch")
@@ -1565,7 +1618,7 @@ def serve_qwen3_phase(torch, args):
         tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
         prefill_p50_ms=st["prefill_latency"]["p50_ms"],
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
-        decode_steps=st["steps"], launches=launches, dense_mm_walks=walks,
+        decode_steps=st["steps"], launches=launches, walks=walks,
         dropped_frac_per_prefill=drops,
         decode_dropped_frac={"layer_calls": len(dec),
                              "mean": float(np.mean(dec)), "max": max(dec)},
@@ -1727,8 +1780,11 @@ def main(argv=None) -> int:
         elif r["kernel"] == "dsmm":
             extra = f" encode_ms={r['encode_ms']:.5f} slots={r['slots']}"
         elif r["kernel"] == "gmm":
-            extra = (f" tm={r['tm']} experts={r['experts']} "
-                     f"experts_used={r['experts_used']}")
+            extra = (f" walk={r['walk']} tm={r['tm']} "
+                     f"experts={r['experts']} "
+                     f"experts_used={r['experts_used']}"
+                     + ("" if r["before_ms"] is None
+                        else f" ffma_ms={r['before_ms']:.5f}"))
         elif r["kernel"] == "dense_mm":
             extra = (f" walk={r['walk']} tile={r['tile']} "
                      f"slices={r['slices']} blocks={r['blocks']}")
@@ -1749,11 +1805,13 @@ def main(argv=None) -> int:
     attn_rows = attn_phase(torch, args)
     for r in attn_rows:
         lib = f"{r['library_ms']:.4f}"
+        before = ("" if r["before_ms"] is None
+                  else f" cuda_core_ms={r['before_ms']:.4f}")
         print(f"[attn] {r['shape']:14s} S={r['n']:<5d} H={r['heads']} "
               f"KV={r['kv_heads']} dh={r['head_dim']} window={r['window']} "
               f"softcap={r['softcap']} tile={r['tile']} "
-              f"{r['dtype']:8s} rel_err={r['rel_err']:.2e} "
-              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"{r['dtype']:8s} walk={r['walk']} rel_err={r['rel_err']:.2e} "
+              f"ms={r['ms']:.4f}{before} plain_ms={r['plain_ms']:.4f} "
               f"library_ms={lib} ({r['library']}, rel_err "
               f"{r['library_rel_err']:.2e}) bound_ms={r['bound_ms']:.4f} "
               f"({r['bound_by']}) tiles_visited={r['tiles_visited']} "
@@ -1765,7 +1823,7 @@ def main(argv=None) -> int:
           f"in {serve['wall_s']:.3f}s = {serve['tokens_per_s']:.1f} tok/s; "
           f"prefill p50 {serve['prefill_p50_ms']} ms, decode step p50 "
           f"{serve['decode_step_p50_ms']} ms; launches {serve['launches']}; "
-          f"dense_mm by walk {serve['dense_mm_walks']}")
+          f"launches by walk {serve['walks']}")
     print(f"[serve] detail {json.dumps(serve)}")
 
     errs = consistency_phase(torch, lm, args)
@@ -1787,7 +1845,7 @@ def main(argv=None) -> int:
           f"{train['step_p50_ms']:.1f} ms = "
           f"{train['tokens_per_s']:.0f} tokens/s; peak memory "
           f"{train['peak_mem_gb']:.2f} GiB; launches {train['launches']}; "
-          f"dense_mm by walk {train['dense_mm_walks']}")
+          f"launches by walk {train['walks']}")
     print(f"[train] detail {json.dumps(train)}")
 
     from repro_torch.kernels import (bsmm, dense_mm, dsmm,  # noqa: F401
@@ -1807,7 +1865,7 @@ def main(argv=None) -> int:
               f"{r['speedup_vs_dense_cuda']:.3f} speedup_vs_torch_matmul="
               f"{r['speedup_vs_torch_matmul']:.3f} (torch.matmul "
               f"{r['torch_matmul_ms']:.4f} ms) rel_err={r['rel_err']:.2e}")
-    print(f"[table3] launches {json.dumps(table3_launches)}; dense_mm by "
+    print(f"[table3] launches {json.dumps(table3_launches)}; launches by "
           f"walk {json.dumps(table3_walks)}")
     for name in ("bsmm", "bsmm_balanced", "dsmm", "dense_mm"):
         if table3_launches[name] <= 0:
@@ -1839,8 +1897,8 @@ def main(argv=None) -> int:
           f"{gemma['tokens_per_s']:.2f} tok/s; prefill p50 "
           f"{gemma['prefill_p50_ms']} ms, decode step p50 "
           f"{gemma['decode_step_p50_ms']} ms; launches "
-          f"{json.dumps(gemma['launches'])}; dense_mm by walk "
-          f"{json.dumps(gemma['dense_mm_walks'])}; peak memory "
+          f"{json.dumps(gemma['launches'])}; launches by walk "
+          f"{json.dumps(gemma['walks'])}; peak memory "
           f"{gemma['peak_mem_gb']:.2f} GiB")
     print(f"[serve-gemma2] visited pairs at S={gemma['prefill_lens']}'s "
           f"longest: {json.dumps(gemma['visited'])}")
@@ -1869,8 +1927,8 @@ def main(argv=None) -> int:
           f"{qwen['wall_s']:.3f}s = {qwen['tokens_per_s']:.2f} tok/s; "
           f"prefill p50 {qwen['prefill_p50_ms']} ms, decode step p50 "
           f"{qwen['decode_step_p50_ms']} ms; launches "
-          f"{json.dumps(qwen['launches'])}; dense_mm by walk "
-          f"{json.dumps(qwen['dense_mm_walks'])}; peak memory "
+          f"{json.dumps(qwen['launches'])}; launches by walk "
+          f"{json.dumps(qwen['walks'])}; peak memory "
           f"{qwen['peak_mem_gb']:.2f} GiB")
     print(f"[serve-qwen3-moe] dropped_frac per prefill (mean, max over 48 "
           f"layers): {json.dumps(qwen['dropped_frac_per_prefill'])}; "
@@ -1933,13 +1991,13 @@ def main(argv=None) -> int:
             "at": f"{r['shape']} n={r['n']} {r['dtype']}",
             "launches_by_path": {k: v.get(name, 0)
                                  for k, v in by_path.items()}})
-    walks_by_path = {"serve": serve["dense_mm_walks"],
-                     "train": train["dense_mm_walks"],
+    walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks,
-                     "serve_gemma2": gemma["dense_mm_walks"],
-                     "serve_qwen3": qwen["dense_mm_walks"]}
+                     "serve_gemma2": gemma["walks"],
+                     "serve_qwen3": qwen["walks"]}
     next(k for k in kernels if k["name"] == "dense_mm")[
-        "launches_by_walk"] = walks_by_path
+        "launches_by_walk"] = {p: w["dense_mm"]
+                               for p, w in walks_by_path.items()}
     # bs_attn at gemma2-2b's global layer (S = 4096, bf16); its main path
     # is the gemma2 serve run
     r = next(r for r in attn_rows if r["shape"] == "gemma2 global"
@@ -1952,9 +2010,12 @@ def main(argv=None) -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "at": f"{r['shape']} S={r['n']} {r['dtype']}",
+        "at": f"{r['shape']} S={r['n']} {r['dtype']}", "walk": r["walk"],
+        "before_ms": r["before_ms"],
         "launches_by_path": {k: v.get("bs_attn", 0)
-                             for k, v in by_path.items()}})
+                             for k, v in by_path.items()},
+        "launches_by_walk": {p: w["bs_attn"]
+                             for p, w in walks_by_path.items()}})
 
     # gmm at qwen3's decode gate/up (C = 8, bf16), its most frequent
     # launch; its main path is the qwen3 serve run
@@ -1968,9 +2029,12 @@ def main(argv=None) -> int:
         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        "at": f"{r['shape']} T={r['n']} {r['dtype']}",
+        "at": f"{r['shape']} T={r['n']} {r['dtype']}", "walk": r["walk"],
+        "before_ms": r["before_ms"],
         "launches_by_path": {k: v.get("gmm", 0)
-                             for k, v in by_path.items()}})
+                             for k, v in by_path.items()},
+        "launches_by_walk": {p: w["gmm"]
+                             for p, w in walks_by_path.items()}})
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

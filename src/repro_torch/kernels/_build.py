@@ -6,9 +6,11 @@ Each ``csrc/*.cu`` source is compiled on its own with
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <source>
 
 into ``build/kernels/`` at the root of the checkout, keyed by a hash of
-the source and the flags, and loaded with ``ctypes``.  The sources have
-a plain C interface (no PyTorch headers), so a build takes seconds.
-``build_all`` starts one ``nvcc`` per source at once.
+the source, every header it includes with ``#include "..."`` (found
+beside the source or in ``kernels/``, which is passed as ``-I``) and the
+flags, and loaded with ``ctypes``.  The sources have a plain C interface
+(no PyTorch headers), so a build takes seconds.  ``build_all`` starts
+one ``nvcc`` per source at once.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` turns a non-zero code into an exception.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,6 +31,8 @@ import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(os.path.dirname(_PKG))
+# shared headers (``hopper.cuh``) live here; nvcc gets it as -I
+INCLUDE_DIR = os.path.join(_PKG, "kernels")
 BUILD_DIR = os.path.join(_REPO, "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -65,10 +70,41 @@ def nvcc_path() -> str:
         "kernels of repro_torch cannot be built on this machine")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def includes(path: str) -> List[str]:
+    """Every header ``path`` includes with ``#include "..."``, directly or
+    through another header, resolved beside the including file or in
+    ``INCLUDE_DIR`` (sorted, each once)."""
+    seen: Dict[str, None] = {}
+    todo = [path]
+    while todo:
+        cur = todo.pop()
+        with open(cur, "rb") as f:
+            names = _INCLUDE.findall(f.read())
+        for raw in names:
+            name = raw.decode()
+            for base in (os.path.dirname(cur), INCLUDE_DIR):
+                cand = os.path.normpath(os.path.join(base, name))
+                if os.path.exists(cand):
+                    break
+            else:
+                raise FileNotFoundError(f"{cur} includes {name!r}, found "
+                                        f"neither beside it nor in "
+                                        f"{INCLUDE_DIR}")
+            if cand not in seen:
+                seen[cand] = None
+                todo.append(cand)
+    return sorted(seen)
+
+
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(_PKG, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + includes(src):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD_DIR,
                              f"{name}-{digest.hexdigest()[:16]}.so")
 
@@ -81,7 +117,7 @@ def _start(name: str):
         return None, None, out, time.perf_counter()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", INCLUDE_DIR, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out, time.perf_counter()

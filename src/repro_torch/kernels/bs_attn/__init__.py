@@ -1,5 +1,6 @@
 from repro_torch.kernels.bs_attn.ops import (COUNTER,  # noqa: F401
-                                             bs_attn, bs_attn_cuda,
+                                             WALK_COUNTERS, bs_attn,
+                                             bs_attn_cuda, kernel_walk,
                                              mask_to_pairs)
 from repro_torch.kernels.bs_attn.ref import (attend_plain,  # noqa: F401
                                              bs_attn_ref)
@@ -25,7 +26,9 @@ CONTRACT = register(KernelContract(
     grid="(blocks of <= 64 query rows: ceil(bq / 64) per q tile, or 64 "
          "/ bq whole q tiles when bq < 64) x batch*heads, each walking "
          "its row's visible kv tiles from a CSR over mask_to_pairs's "
-         "pairs in 64-key chunks",
+         "pairs in 64-key chunks; 16-bit: one wgmma consumer warpgroup "
+         "+ one TMA producer warp over a 2-stage k/v ring; fp32: 256 "
+         "threads of fp32 FMA",
     capacity="exact",
     replaces="src/repro/kernels/bs_attn/bs_attn.py:73 bs_attn_call",
 ))

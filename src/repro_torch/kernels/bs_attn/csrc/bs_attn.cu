@@ -37,40 +37,65 @@
 // product, l sums the unrounded p; out = acc / max(l, 1e-30).  Every row
 // must see at least one key (the causal diagonal), as in the reference.
 //
-// What bounds it: at the serving shapes the FLOPs, 4 per element pair and
-// head dim (QK^T and PV).  This first version runs them in fp32 on the
-// CUDA cores, staged through shared memory as fp32 (q tile, one k or v
-// chunk, the p chunk), each thread owning 4 rows x 4 keys of the score
-// chunk and the same 4 rows x dh/16 columns of the output accumulator;
-// row max and sum reduce over the 16 lanes that share a row.  Tensor
-// cores (wgmma) and TMA staging are later work.  Heaviest blocks (the last
-// q rows under a causal mask) are launched first.
+// The card's bound at the serving shapes is the FLOPs, 4 per element pair
+// and head dim (QK^T and PV).  The wrapper (ops.py `kernel_walk`) picks
+// one of two walks by dtype:
+//
+// 1. "wgmma" (bf16/fp16): a flash-attention forward on the tensor cores.
+//    A block is one consumer warpgroup (the 64 query rows) and one
+//    producer warp.  The producer loads the q tile once and each 64-key
+//    chunk of k and v through a 2-stage TMA ring on mbarriers (4-D tensor
+//    maps over the strided [B, S, heads, dh] views, ordered (dh, S, heads,
+//    B) so a box is a 2-D tile; kv head h / (H / KV), so the fused
+//    projection's q/k/v and GQA are read in place; the head dim in
+//    64-column sub-tiles with the 128-byte swizzle, 32 columns with the
+//    64-byte swizzle at dh 32; keys past Skv filled with zeros).  The
+//    consumers run S = Q.K^T as wgmma m64n64k16 with both operands from
+//    shared memory (K-major: dh contiguous in q and k), then the online
+//    softmax on the fp32 accumulator fragments in registers (each thread
+//    holds 2 rows x 16 keys; row max and sum over the 4 lanes that share
+//    a row; base-2 exponent on the SFU with log2(e) folded into the
+//    scale), then O += P.V as wgmma m64n{dh}k16 with P rounded to v's
+//    dtype and fed from registers as the A operand (the S fragment's
+//    pairs are already in the A fragment's order) and V from shared
+//    memory as an MN-major operand read with the transpose bit.  The
+//    output stays in registers (dh / 2 fp32 a thread) and is written once.
+//    Element masks cost only where a chunk needs them: a chunk that every
+//    row of the block sees whole (below the diagonal, inside the window,
+//    no padding, all its tile pairs in the mask) skips them, and the
+//    wrapper drops the tile mask where the element mask implies it.
+//    What bounds it at the served shapes: not the tensor cores (QK^T and
+//    PV are ~15 % of a chunk's cycles) but the softmax between them, a
+//    latency-bound chain of ~300 instructions a thread with one consumer
+//    warp per scheduler (three blocks an SM at dh <= 64, two at 128, one
+//    at 256).  Overlapping the softmax with the next chunk's products
+//    (issuing PV of chunk i - 1 behind QK^T of chunk i) measured slower,
+//    with 2 or 3 ring stages, and is not used.
+// 2. "cuda_core" (fp32, where TF32 would miss the fp32 budget; 16-bit
+//    when the caller names it): the arithmetic in fp32 on the CUDA
+//    cores, staged through shared memory as fp32 (q tile, one k or v
+//    chunk, the p chunk), each thread owning 4 rows x 4 keys of the score
+//    chunk and the same 4 rows x dh/16 columns of the output accumulator;
+//    row max and sum reduce over the 16 lanes that share a row.
+//
+// Both walks keep the rules above: the CSR of pairs, group walks with the
+// per-element tile-mask lookup, 64-key chunks, the causal stop, the
+// window skip, the soft-cap before the mask, and heaviest blocks (the last
+// q rows under a causal mask) launched first.
 //
 // Layouts: q [B, Sq, H, dh], k/v [B, Skv, KV, dh], o [B, Sq, H, dh], each
 // with its own (batch, sequence, head) strides in elements and a
 // contiguous head dim; kv head = h / (H / KV) (GQA, read in place).
 // dh in {32, 64, 128, 256}; dtype 0 = fp32, 1 = bf16, 2 = fp16.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
+using namespace hopper;
 
 constexpr int kThreads = 256;  // 16 x 16: ty owns rows ty + 16 i, tx keys tx + 16 j
 constexpr int QT = 64;         // query rows per thread block
@@ -270,7 +295,7 @@ __global__ void __launch_bounds__(kThreads) bs_attn_kernel(Params p) {
 }
 
 template <typename T, int DH>
-int launch(const Params& p, int batch, cudaStream_t stream) {
+int launch_cc(const Params& p, int batch, cudaStream_t stream) {
   const size_t bytes = smem_bytes<DH>();
   cudaError_t err = cudaFuncSetAttribute(bs_attn_kernel<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -280,13 +305,356 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// walk 1: TMA + wgmma (16-bit)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH> struct TcAttn {
+  static constexpr int SW = DH >= 64 ? 128 : 64;  // swizzle = bytes of a sub-tile row
+  static constexpr int CW = SW / 2;               // head-dim columns of a sub-tile
+  static constexpr int NSUB = DH / CW;            // sub-tiles across the head dim
+  static constexpr int kSub = 64 * SW;            // bytes of a [64 rows, CW] sub-tile
+  static constexpr int kTile = NSUB * kSub;       // bytes of a [64 rows, DH] tile
+  static constexpr int kThreads = 128 + 32;       // consumer warpgroup + producer warp
+  static constexpr int kSmem = kTile * (1 + 2 * kTcStages) + 1024;  // + alignment slack
+  // blocks an SM holds: small head dims leave room for three (registers
+  // capped to fit), which hides the softmax's latency behind other warps
+  static constexpr int kMinBlocks = DH <= 64 ? 3 : 1;
+};
+
+// 2^x on the special-function unit (p and alpha: results below 2^-126
+// flush to zero, which the fp32 sums cannot see)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(y) = 1 - 2 / (1 + e^(2y)): exact at the limits (e^(2y) = inf
+// gives 1), a few instructions where tanhf takes a long dependent chain
+__device__ __forceinline__ float tanh_fast(float y) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * y));
+}
+
+// The chunk's logits in the base-2 domain (log2(e) folded into the scale,
+// so p = 2^(z - m)): scaled, soft-capped, and, where kMask, padding keys
+// and rows at -inf and invisible elements at the finite -1e30.  Thread
+// fragment element j = 4 c + 2 h + e is row r0 + 8 h, key k0 + 8 c + e.
+struct Logit {
+  float mul, cap, cap_div;  // z = mul * s, or cap * tanh(cap_div * s)
+  int causal, window, global_prefix, bq, bkv, nkv, rb, c1;
+  const unsigned char* tile_mask;
+};
+
+template <bool kMask, bool kCap>
+__device__ __forceinline__ void logits(float* sc, const Logit& L, int r0, int k0) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int r = r0 + 8 * ((j / 2) % 2), key = k0 + 8 * (j / 4) + j % 2;
+    float z = kCap ? L.cap * tanh_fast(L.cap_div * sc[j]) : L.mul * sc[j];
+    if (kMask) {
+      bool vis = (!L.causal || r >= key) &&
+                 (L.window <= 0 || r - key < L.window || key < L.global_prefix);
+      if (L.tile_mask != nullptr && r < L.rb && key < L.c1)
+        vis = vis && L.tile_mask[(long long)(r / L.bq) * L.nkv + key / L.bkv];
+      z = (r >= L.rb || key >= L.c1) ? -INFINITY : (vis ? z : kNegInf);
+    }
+    sc[j] = z;
+  }
+}
+
+// The walk row's 64-key chunks [c0, c1), in order, with the causal stop
+// and the window skip; the producer and the consumers walk the same list.
+template <typename F>
+__device__ __forceinline__ void for_each_chunk(const Params& p, int w, int ra, int rb, F&& f) {
+  const int pend = p.row_ptr[w + 1];
+  for (int pi = p.row_ptr[w]; pi < pend;) {
+    const int j0 = p.cols[pi];
+    int j1 = j0;
+    while (++pi < pend && p.cols[pi] == j1 + 1) ++j1;
+    const int c_lo = j0 * p.bkv, c_hi = min((j1 + 1) * p.bkv, p.skv);
+    for (int c0 = c_lo; c0 < c_hi; c0 += KT) {
+      const int c1 = min(c0 + KT, c_hi);
+      if (p.causal && c0 >= rb) return;  // every later key is past every row
+      if (p.window > 0 && ra - (c1 - 1) >= p.window && c0 >= p.global_prefix) continue;
+      f(c0, c1);
+    }
+  }
+}
+
+// 64 rows from `row` of one head of a (dh, S, heads, B) map, as NSUB
+// sub-tiles
+template <int DH>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int head, int row, int b) {
+  using A = TcAttn<DH>;
+#pragma unroll
+  for (int j = 0; j < A::NSUB; ++j) tma_load_4d(dst + j * A::kSub, map, bar, j * A::CW, row, head, b);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(TcAttn<DH>::kThreads, TcAttn<DH>::kMinBlocks)
+    bs_attn_tc_kernel(const __grid_constant__ CUtensorMap tmq,
+                      const __grid_constant__ CUtensorMap tmk,
+                      const __grid_constant__ CUtensorMap tmv, const Params p) {
+  using A = TcAttn<DH>;
+  constexpr int SW = A::SW;
+  constexpr int R = DH / 2;  // fp32 registers of the m64n{DH} output accumulator
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t qbar, kfull[kTcStages], vfull[kTcStages], empty[kTcStages];
+  // swizzle atoms are up to 1024 bytes: align the tiles to them
+  uint8_t* qs = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* ks = qs + A::kTile;               // [stage] k chunks
+  uint8_t* vs = ks + kTcStages * A::kTile;   // [stage] v chunks
+
+  const int b = blockIdx.y / p.heads, h = blockIdx.y % p.heads;
+  const int kvh = h / (p.heads / p.kv_heads);
+  const int blk = p.n_blocks - 1 - (int)blockIdx.x;  // heaviest first
+  int w, ra, rb;                   // walk row and query rows [ra, rb)
+  if (p.group > 1) {
+    w = blk;
+    ra = blk * p.group * p.bq;
+    rb = min(ra + p.group * p.bq, p.sq);
+  } else {
+    const int subs = (p.bq + QT - 1) / QT;
+    w = blk / subs;
+    ra = w * p.bq + (blk % subs) * QT;
+    rb = min(ra + QT, (w + 1) * p.bq);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(&qbar, 1);
+#pragma unroll
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // producer warp: one thread issues every copy
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(&qbar, A::kTile);
+      load_rows<DH>(qs, &tmq, &qbar, h, ra, b);
+      int i = 0;
+      for_each_chunk(p, w, ra, rb, [&](int c0, int) {
+        const int s = i % kTcStages;
+        mbar_wait(&empty[s], ((i / kTcStages) & 1) ^ 1);
+        mbar_expect_tx(&kfull[s], A::kTile);
+        load_rows<DH>(ks + s * A::kTile, &tmk, &kfull[s], kvh, c0, b);
+        mbar_expect_tx(&vfull[s], A::kTile);
+        load_rows<DH>(vs + s * A::kTile, &tmv, &vfull[s], kvh, c0, b);
+        ++i;
+      });
+    }
+    return;
+  }
+
+  // consumer warpgroup.  Accumulator fragment of thread t: rows
+  // 16 (t / 32) + (t % 32) / 4 (+ 8 for h = 1), columns 8 c + 2 (t % 4)
+  // (+ 1): register 4 c + 2 h (+ 1).
+  const int t = threadIdx.x;
+  const int rloc = (t / 32) * 16 + (t % 32) / 4;
+  const int cq = 2 * (t % 4);
+  float o[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) o[j] = 0.f;
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};  // l: this thread's keys
+  Logit L;
+  L.cap = p.softcap > 0.f ? p.softcap * kLog2e : 0.f;
+  L.cap_div = p.softcap > 0.f ? p.scale / p.softcap : 0.f;
+  L.mul = p.scale * kLog2e;
+  L.causal = p.causal, L.window = p.window, L.global_prefix = p.global_prefix;
+  L.bq = p.bq, L.bkv = p.bkv, L.nkv = p.nkv, L.rb = rb, L.tile_mask = p.tile_mask;
+  const int lane = t % 32;
+
+  mbar_wait(&qbar, 0);
+  int i = 0;
+  for_each_chunk(p, w, ra, rb, [&](int c0, int c1) {
+    const int s = i % kTcStages;
+    const uint32_t ph = (i / kTcStages) & 1;
+    const uint8_t* kt = ks + s * A::kTile;
+    const uint8_t* vt = vs + s * A::kTile;
+    ++i;
+
+    // S = Q . K^T: both K-major; a k16 step is 32 bytes along a row,
+    // stepping to the next sub-tile every CW columns
+    float sc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+    mbar_wait(&kfull[s], ph);
+    pin<32>(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int off = (kk * 16 / A::CW) * A::kSub + (kk * 16 % A::CW) * 2;
+      WgmmaSS<64, T>::template run<0>(sc, smem_desc(qs + off, 16, 8 * SW, SW),
+                                      smem_desc(kt + off, 16, 8 * SW, SW), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin<32>(sc);
+
+    // Chunk-level visibility: a chunk every element of which this block's
+    // rows see (no padding, under the diagonal, inside the window, every
+    // (q tile, kv tile) pair of it in the mask) takes the unmasked path;
+    // the diagonal, window-edge and padded chunks take the masked one.
+    bool full = c1 - c0 == KT && rb - ra == QT && (!p.causal || c1 - 1 <= ra) &&
+                (p.window <= 0 || rb - 1 - c0 < p.window);
+    if (full && p.tile_mask != nullptr) {
+      const int q0 = ra / p.bq, nqt = (rb - 1) / p.bq - q0 + 1;
+      const int j0 = c0 / p.bkv, njt = (c1 - 1) / p.bkv - j0 + 1;
+      bool ok = nqt * njt <= 32;
+      if (ok && lane < nqt * njt)
+        ok = p.tile_mask[(long long)(q0 + lane / njt) * p.nkv + j0 + lane % njt] != 0;
+      full = __all_sync(0xffffffffu, ok);
+    }
+    L.c1 = c1;
+    const int r0 = ra + rloc, k0 = c0 + cq;
+    if (L.cap > 0.f) {
+      if (full) logits<false, true>(sc, L, r0, k0);
+      else logits<true, true>(sc, L, r0, k0);
+    } else {
+      if (full) logits<false, false>(sc, L, r0, k0);
+      else logits<true, false>(sc, L, r0, k0);
+    }
+
+    // online softmax on the fragments, row by row (the 4 lanes of a quad
+    // share a row)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        mx[0] = fmaxf(mx[0], sc[4 * c + 2 * hh]);
+        mx[1] = fmaxf(mx[1], sc[4 * c + 2 * hh + 1]);
+      }
+      float rmax = fmaxf(mx[0], mx[1]);
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m_i[hh], rmax);
+      const float alpha = ex2(m_i[hh] - m_new);
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = ex2(sc[4 * c + 2 * hh + e] - m_new);
+          sum[e] += pv;
+          sc[4 * c + 2 * hh + e] = pv;
+        }
+      }
+      l_i[hh] = l_i[hh] * alpha + (sum[0] + sum[1]);
+      m_i[hh] = m_new;
+#pragma unroll
+      for (int c = 0; c < DH / 8; ++c) {
+        o[4 * c + 2 * hh] *= alpha;
+        o[4 * c + 2 * hh + 1] *= alpha;
+      }
+    }
+
+    // P in v's dtype as the A operand: k16 step kk takes keys 16 kk ..
+    // + 15, i.e. accumulator column groups 2 kk and 2 kk + 1 (the S
+    // fragment's pairs are already in the A fragment's order)
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pa[kk][j] = pack2<T>(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+    }
+
+    // O += P . V: V MN-major (dh contiguous), transpose bit set; a k16
+    // step is 16 rows, dh sub-tiles kSub apart
+    mbar_wait(&vfull[s], ph);
+    pin<R>(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaRS<DH, T>::template run<1>(o, pa[kk], smem_desc(vt + kk * 16 * SW, A::kSub, 8 * SW, SW),
+                                      1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin<R>(o);
+    mbar_arrive(&empty[s]);
+  });
+
+  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_i[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = ra + rloc + 8 * hh;
+    if (r >= rb) continue;
+    const float denom = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c)
+      *reinterpret_cast<uint32_t*>(og + r * p.o_ss + 8 * c + cq) =
+          pack2<T>(o[4 * c + 2 * hh] / denom, o[4 * c + 2 * hh + 1] / denom);
+  }
+}
+
+// 4-D map over a [batch, seq, heads, dh] view with element strides sb, ss,
+// sh (dh contiguous), ordered (dh, seq, heads, batch) whatever the strides,
+// so a box of 64 rows x CW columns of one head is a 2-D tile
+template <int DH>
+bool attn_map(CUtensorMap* map, CUtensorMapDataType ty, const void* base, int batch, int seq,
+              int heads, long long sb, long long ss, long long sh) {
+  using A = TcAttn<DH>;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)seq, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  // a batch of one: any stride past the others does
+  const cuuint64_t last = (cuuint64_t)(ss * seq > sh * heads ? ss * seq : sh * heads) * 2;
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 batch > 1 ? (cuuint64_t)sb * 2 : last};
+  const cuuint32_t box[4] = {(cuuint32_t)A::CW, 64, 1, 1};
+  return encode_map(map, ty, 4, base, dims, strides, box, A::SW);
+}
+
+template <typename T, int DH>
+int launch_tc(const Params& p, int batch, cudaStream_t stream) {
+  using A = TcAttn<DH>;
+  const CUtensorMapDataType ty = tma_type<T>();
+  CUtensorMap tq, tk, tv;
+  if (!attn_map<DH>(&tq, ty, p.q, batch, p.sq, p.heads, p.q_sb, p.q_ss, p.q_sh) ||
+      !attn_map<DH>(&tk, ty, p.k, batch, p.skv, p.kv_heads, p.k_sb, p.k_ss, p.k_sh) ||
+      !attn_map<DH>(&tv, ty, p.v, batch, p.skv, p.kv_heads, p.v_sb, p.v_ss, p.v_sh))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(bs_attn_tc_kernel<T, DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, A::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(p.n_blocks, batch * p.heads);
+  bs_attn_tc_kernel<T, DH><<<grid, A::kThreads, A::kSmem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+enum Walk { kCudaCore = 0, kWgmma = 1 };
+
 template <typename T>
-int dispatch_dh(const Params& p, int batch, int dh, cudaStream_t stream) {
+int dispatch_dh(const Params& p, int batch, int dh, int walk, cudaStream_t stream) {
+  if (walk == kWgmma) {
+    if constexpr (sizeof(T) == 2) {
+      switch (dh) {
+        case 32: return launch_tc<T, 32>(p, batch, stream);
+        case 64: return launch_tc<T, 64>(p, batch, stream);
+        case 128: return launch_tc<T, 128>(p, batch, stream);
+        case 256: return launch_tc<T, 256>(p, batch, stream);
+        default: return (int)cudaErrorInvalidValue;
+      }
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (walk != kCudaCore) return (int)cudaErrorInvalidValue;
   switch (dh) {
-    case 32: return launch<T, 32>(p, batch, stream);
-    case 64: return launch<T, 64>(p, batch, stream);
-    case 128: return launch<T, 128>(p, batch, stream);
-    case 256: return launch<T, 256>(p, batch, stream);
+    case 32: return launch_cc<T, 32>(p, batch, stream);
+    case 64: return launch_cc<T, 64>(p, batch, stream);
+    case 128: return launch_cc<T, 128>(p, batch, stream);
+    case 256: return launch_cc<T, 256>(p, batch, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -301,7 +669,7 @@ extern "C" int bs_attn_fwd(const void* q, const void* k, const void* v, void* o,
                            int batch, int heads, int kv_heads, int sq, int skv, int dh,
                            int nkv, int bq, int bkv, int group, int n_blocks, float scale,
                            float softcap, int causal, int window, int global_prefix,
-                           int dtype, void* stream) {
+                           int walk, int dtype, void* stream) {
   if (n_blocks <= 0 || batch <= 0 || heads <= 0 || kv_heads <= 0 || heads % kv_heads)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -340,9 +708,9 @@ extern "C" int bs_attn_fwd(const void* q, const void* k, const void* v, void* o,
   p.global_prefix = global_prefix;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return dispatch_dh<float>(p, batch, dh, s);
-    case 1: return dispatch_dh<__nv_bfloat16>(p, batch, dh, s);
-    case 2: return dispatch_dh<__half>(p, batch, dh, s);
+    case 0: return dispatch_dh<float>(p, batch, dh, walk, s);
+    case 1: return dispatch_dh<__nv_bfloat16>(p, batch, dh, walk, s);
+    case 2: return dispatch_dh<__half>(p, batch, dh, walk, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

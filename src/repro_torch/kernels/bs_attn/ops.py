@@ -9,6 +9,8 @@ raises; for CPU tensors it runs ``ref.bs_attn_ref``.  ``bs_attn_cuda``
 is the lower-level launcher on a prepared ``Walk`` in the models'
 ``[B, S, H, dh]`` layout (strided, GQA read in place), with the element
 window of the JAX tile walk; ``models/attention.attend_train`` calls it.
+``kernel_walk(dtype)`` is the kernel's walk: "wgmma" (bf16/fp16: TMA + tensor
+cores) or "cuda_core" (fp32: FMA on the CUDA cores).
 """
 from __future__ import annotations
 
@@ -25,6 +27,19 @@ Q_ROWS = 64                     # query rows per thread block (QT in the .cu)
 HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = _build.DTYPES
 COUNTER = _build.LaunchCounter()
+WALKS = ("cuda_core", "wgmma")
+# launches per walk, beside the total COUNTER
+WALK_COUNTERS = {name: _build.LaunchCounter() for name in WALKS}
+
+
+def kernel_walk(dtype) -> str:
+    """The walk ``bs_attn_cuda`` launches for ``dtype``: the tensor cores
+    for 16-bit types; fp32 stays on the CUDA cores (TF32 would miss the
+    fp32 budget)."""
+    if dtype not in DTYPES:
+        raise ValueError(f"bs_attn takes {DTYPES}; got {dtype}")
+    return "wgmma" if dtype in (torch.bfloat16, torch.float16) else \
+        "cuda_core"
 
 
 def mask_to_pairs(block_mask: np.ndarray):
@@ -66,9 +81,32 @@ def walk_csr(block_mask: np.ndarray, group: int = 1):
     return row_ptr, cols
 
 
+def tile_mask_implied(block_mask: np.ndarray, bq: int, bkv: int, *,
+                      causal: bool, window: int = 0,
+                      global_prefix: int = 0) -> bool:
+    """Whether the element mask (causal ``r >= c``; with ``window > 0``
+    also ``r - c < window or c < global_prefix``) already hides every
+    element of every tile outside ``block_mask``, so a per-element
+    lookup of the tile mask cannot change what a group walk sees."""
+    mask = np.asarray(block_mask, bool)
+    nq, nkv = mask.shape
+    r_lo = np.arange(nq)[:, None] * bq
+    r_hi = r_lo + bq - 1
+    c_lo = np.arange(nkv)[None, :] * bkv
+    c_hi = c_lo + bkv - 1
+    # does the tile hold a visible pair: the smallest r - c among its
+    # pairs (with r >= c under the causal mask) against the window
+    seen = (r_hi >= c_lo) if causal else np.ones((nq, nkv), bool)
+    d_min = np.maximum(r_lo - c_hi, 0) if causal else r_lo - c_hi
+    if window > 0:
+        seen = seen & ((d_min < window) | (c_lo < global_prefix))
+    return not (seen & ~mask).any()
+
+
 class Walk(NamedTuple):
     """Device metadata of one block mask: the walk CSR, the dense tile
-    mask (``group > 1`` only) and the tiling."""
+    mask (``group > 1`` only, and only where the element mask does not
+    already imply it: ``tile_mask_implied``) and the tiling."""
 
     row_ptr: torch.Tensor       # [n_walk + 1] int32
     cols: torch.Tensor          # [pairs] int32
@@ -87,14 +125,21 @@ class Walk(NamedTuple):
         return self.nq * (-(-self.bq // Q_ROWS))
 
 
-def make_walk(block_mask: np.ndarray, bq: int, bkv: int,
-              device) -> Walk:
+def make_walk(block_mask: np.ndarray, bq: int, bkv: int, device, *,
+              causal: Optional[bool] = None, window: int = 0,
+              global_prefix: int = 0) -> Walk:
+    """The walk of ``block_mask``.  Given the element mask's parameters
+    (``causal`` not None) a group walk drops the tile mask where they
+    imply it (the kernel then reads no tile mask per element)."""
     mask = np.asarray(block_mask, bool)
     nq, nkv = mask.shape
     group = walk_group(nq, bq)
     row_ptr, cols = walk_csr(mask, group)
+    implied = causal is not None and tile_mask_implied(
+        mask, bq, bkv, causal=causal, window=window,
+        global_prefix=global_prefix)
     tile_mask = (torch.as_tensor(mask.astype(np.uint8), device=device)
-                 if group > 1 else None)
+                 if group > 1 and not implied else None)
     return Walk(torch.as_tensor(row_ptr, device=device),
                 torch.as_tensor(cols, device=device), tile_mask, nq, nkv,
                 bq, bkv, group)
@@ -140,10 +185,12 @@ def bs_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  walk: Walk, *, scale: float, causal: bool = True,
                  softcap: Optional[float] = None, window: int = 0,
                  global_prefix: int = 0,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 out: Optional[torch.Tensor] = None,
+                 plan: Optional[str] = None) -> torch.Tensor:
     """Launch the kernel (CUDA tensors only): q ``[B, Sq, H, dh]``, k/v
     ``[B, Skv, KV, dh]`` -> ``[B, Sq, H, dh]`` (into ``out`` when given,
-    any strides with a contiguous head dim)."""
+    any strides with a contiguous head dim), on ``kernel_walk(q.dtype)`` or on
+    the walk ``plan`` names."""
     _check(q, k, v, walk)
     if q.device.type != "cuda":
         raise ValueError(f"bs_attn_cuda needs CUDA tensors, got {q.device}")
@@ -159,10 +206,13 @@ def bs_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in (walk.row_ptr, walk.cols):
         if t.device != q.device or t.dtype != torch.int32:
             raise ValueError("walk metadata must be int32 on q's device")
+    name = plan or kernel_walk(q.dtype)
+    if name not in WALKS or (name == "wgmma" and q.dtype == torch.float32):
+        raise ValueError(f"bs_attn: walk {name!r} does not take {q.dtype}")
     fn = _build.entry("bs_attn", "bs_attn_fwd",
                       [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 12
                       + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
-                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tile_mask = 0 if walk.tile_mask is None else walk.tile_mask.data_ptr()
@@ -173,9 +223,10 @@ def bs_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   walk.bq, walk.bkv, walk.group, walk.n_blocks, float(scale),
                   float(softcap) if softcap is not None else 0.0,
                   int(bool(causal)), int(window), int(global_prefix),
-                  _build.DTYPE_CODES[q.dtype], stream)
+                  WALKS.index(name), _build.DTYPE_CODES[q.dtype], stream)
     _build.check(code, "bs_attn_fwd")
     COUNTER.launches += 1
+    WALK_COUNTERS[name].launches += 1
     return out
 
 
@@ -211,7 +262,7 @@ def bs_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_rows_covered(block_mask, bq, bkv, causal)
     scale = scale if scale is not None else 1.0 / np.sqrt(dh)
     if q.device.type == "cuda":
-        walk = make_walk(block_mask, bq, bkv, q.device)
+        walk = make_walk(block_mask, bq, bkv, q.device, causal=causal)
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         bs_attn_cuda(q.transpose(0, 1)[None], k.transpose(0, 1)[None],
                      v.transpose(0, 1)[None], walk, scale=float(scale),

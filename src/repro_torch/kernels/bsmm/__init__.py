@@ -9,9 +9,11 @@ from repro_torch.kernels.contract import KernelContract, register
 # from _pick_tiles): the CUDA kernel walks square tiles with tm = tk in
 # {4, 8, 16, 32, 64}; n is free (ragged token tiles are masked).  The
 # plan checks this contract at the tile it packs (``sparse.plan.
-# kernel_tile``): b in {1, 2} packed into 4 x 4 tiles (``plan_packing``
-# with tile != b, as the reference's pack_tiles), b = 128 split exactly
-# into four 64 x 64 blocks; a block no tile takes raises at plan time
+# kernel_tile``), on m and k padded to it: each block split exactly into
+# sub-blocks of the largest tile dividing b (else 2 or 1), those below 4
+# packed into 4 x 4 tiles (``plan_packing`` with tile != b, as the
+# reference's pack_tiles): b = 128 as four 64 x 64 blocks, b = 12 as
+# nine 4 x 4, b = 3 as 1 x 1 blocks packed 4 x 4
 CONTRACT = register(KernelContract(
     kernel="bsmm",
     routes=("static_cuda",),

@@ -12,7 +12,7 @@ here is a CUDA kernel for ``sm_90a``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 CAPACITY_KINDS = ("exact", "planned_bucket", "slot_capacity", "dense")
 
@@ -68,6 +68,18 @@ class KernelContract:
             if not eval(expr, env):  # noqa: S307 (sandboxed)
                 return f"constraint {expr!r} fails for m={m} k={k} n={n} b={b}"
         return None
+
+
+def sub_block(b: int, sizes: Sequence[int]) -> int:
+    """The block at which a ``b x b`` block is re-expressed for a kernel
+    that walks square blocks of ``sizes`` (ascending): the largest of
+    them that divides ``b``; else 2 where ``b`` is even, else 1 (blocks
+    the caller then packs or re-blocks into the smallest of ``sizes``).
+    Splitting each block into ``(b / g)^2`` blocks of ``g`` is exact."""
+    for t in reversed(tuple(sizes)):
+        if b % t == 0:
+            return t
+    return 2 if b % 2 == 0 else 1
 
 
 _REGISTRY: Dict[str, KernelContract] = {}

@@ -43,32 +43,18 @@
 //
 // dtype 0 = fp32, 1 = bf16, 2 = fp16.
 #include <cooperative_groups.h>
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
+using namespace hopper;
 
 // ---------------------------------------------------------------------------
 // walk 1: TMA + wgmma
@@ -76,121 +62,6 @@ template <> __device__ __forceinline__ __half from_f<__half>(float v) { return _
 
 constexpr int kBK = 64;       // K per stage: 64 16-bit values = one 128-byte row
 constexpr int kStages = 4;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle (layout type 1)
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
-  d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16;
-  d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32;
-  d |= static_cast<uint64_t>(1) << 62;
-  return d;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-template <int R> __device__ __forceinline__ void pin(float* d) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define DMM_F8(i)                                                                       \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define DMM_R32                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-#define DMM_R64                                                                       \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "           \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "  \
-  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "  \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-// d += A[64 x 16] . B[16 x N]: A K-major, B MN-major (transpose bit set),
-// scale-d 1 (the registers start at zero)
-#define DMM_WGMMA(shape, ty, regs, ia, ib, ip)                                          \
-  "{\n.reg .pred p;\nsetp.ne.b32 p, " ip ", 0;\n"                                       \
-  "wgmma.mma_async.sync.aligned." shape ".f32." ty "." ty " " regs ", " ia ", " ib     \
-  ", p, 1, 1, 0, 1;\n}\n"
-
-template <typename T, int BN> struct Mma;
-template <> struct Mma<__nv_bfloat16, 64> {
-  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
-    asm volatile(DMM_WGMMA("m64n64k16", "bf16", DMM_R32, "%32", "%33", "%34")
-                 : DMM_F8(0), DMM_F8(8), DMM_F8(16), DMM_F8(24)
-                 : "l"(a), "l"(b), "r"(1));
-  }
-};
-template <> struct Mma<__half, 64> {
-  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
-    asm volatile(DMM_WGMMA("m64n64k16", "f16", DMM_R32, "%32", "%33", "%34")
-                 : DMM_F8(0), DMM_F8(8), DMM_F8(16), DMM_F8(24)
-                 : "l"(a), "l"(b), "r"(1));
-  }
-};
-template <> struct Mma<__nv_bfloat16, 128> {
-  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
-    asm volatile(DMM_WGMMA("m64n128k16", "bf16", DMM_R64, "%64", "%65", "%66")
-                 : DMM_F8(0), DMM_F8(8), DMM_F8(16), DMM_F8(24), DMM_F8(32), DMM_F8(40),
-                   DMM_F8(48), DMM_F8(56)
-                 : "l"(a), "l"(b), "r"(1));
-  }
-};
-template <> struct Mma<__half, 128> {
-  static __device__ __forceinline__ void run(float* d, uint64_t a, uint64_t b) {
-    asm volatile(DMM_WGMMA("m64n128k16", "f16", DMM_R64, "%64", "%65", "%66")
-                 : DMM_F8(0), DMM_F8(8), DMM_F8(16), DMM_F8(24), DMM_F8(32), DMM_F8(40),
-                   DMM_F8(48), DMM_F8(56)
-                 : "l"(a), "l"(b), "r"(1));
-  }
-};
 
 template <int BM, int BN> struct TcShape {
   static constexpr int kWarpgroups = BM / 64;              // consumers
@@ -227,8 +98,7 @@ __global__ void __launch_bounds__(TcShape<BM, BN>::kThreads, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], S::kWarpgroups * 128);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -269,8 +139,8 @@ __global__ void __launch_bounds__(TcShape<BM, BN>::kThreads, 1)
       // step is 32 bytes into the row.  B: 64-column chunks 64 rows x 128
       // bytes (8192 bytes) apart, 8-row atoms 1024 apart; a k16 step is
       // 16 rows = 2048 bytes.
-      Mma<T, BN>::run(acc, smem_desc(a + kk * 32, 16, 1024),
-                      smem_desc(b + kk * 2048, kBK * 128, 1024));
+      WgmmaSS<BN, T>::template run<1>(acc, smem_desc(a + kk * 32, 16, 1024),
+                                      smem_desc(b + kk * 2048, kBK * 128, 1024), 1);
     }
     wgmma_commit();
     pin<R>(acc);
@@ -303,42 +173,6 @@ __global__ void __launch_bounds__(TcShape<BM, BN>::kThreads, 1)
       }
     }
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found through the runtime's entry-point
-// query (no -lcuda at build time)
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// 2-D row-major [rows, cols] 16-bit tensor, box [box_rows, 64], 128-byte swizzle
-bool make_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-              CUtensorMapDataType ty) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  cuuint32_t estr[2] = {1, 1};
-  return fn(map, ty, 2, const_cast<void*>(base), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int BM, int BN>

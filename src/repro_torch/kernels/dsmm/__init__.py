@@ -7,11 +7,13 @@ from repro_torch.kernels.dsmm.ops import (COUNTER, dsmm,  # noqa: F401
 # slots): the CUDA kernel takes b in {4, 8, 16, 32, 64, 128} (the grouped
 # routes' tiles are b x b with b = t <= 128); the slots need only be
 # contiguous per block-row, not ascending (the balanced order); n is free
-# (ragged token tiles are masked).  b in {1, 2} is re-blocked on the
-# device, not widened in the kernel: ``ops.reblock`` embeds each slot in
-# the 4 x 4 block that covers it (slots sharing one add in the walk), so
-# the pattern never goes through the host; the plan checks this contract
-# at the block the kernel walks (4 there)
+# (ragged token tiles are masked).  Other blocks are mapped on the
+# device, not widened in the kernel (``ops.kernel_operand``): each slot
+# split into sub-blocks of the largest kernel block dividing b (else 2 or
+# 1), those below 4 re-blocked (``ops.reblock`` embeds each in the 4 x 4
+# block that covers it; slots sharing one add in the walk), the shape
+# padded to the walked block, so the pattern never goes through the
+# host; the plan checks this contract at the block the kernel walks
 CONTRACT = register(KernelContract(
     kernel="dsmm",
     routes=("dynamic_cuda", "dynamic_grouped_cuda",

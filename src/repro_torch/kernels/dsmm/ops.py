@@ -8,19 +8,23 @@ slots contiguous).  For a CUDA tensor it launches ``csrc/dsmm.cu`` (the
 port of ``src/repro/kernels/dsmm/dsmm.py`` ``dsmm_call``) or raises; for
 a CPU tensor it runs ``dsmm_plain``, the gather + einsum + ``index_add_``
 version.  ``dsmm(op, x2)`` encodes a ``DynamicOperand`` with
-``encode_slots`` first (the ``dynamic_pallas`` route), after ``reblock``
-where its blocks are below the kernel's.  Nothing here
-reads a device value on the host.
+``encode_slots`` first (the ``dynamic_pallas`` route), after
+``kernel_operand`` has brought a block the kernel does not take onto one
+it does (``split_slots`` into sub-blocks, ``reblock`` below 4, the shape
+padded to the walked block).  Nothing here reads a device value on the
+host.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.dynamic_sparse import DynamicOperand
 from repro_torch.kernels import _build
+from repro_torch.kernels.contract import sub_block
 
 BLOCK_SIZES = (4, 8, 16, 32, 64, 128)
 DTYPES = _build.DTYPES
@@ -63,6 +67,59 @@ def reblock(op: DynamicOperand, t: int = BLOCK_SIZES[0]) -> DynamicOperand:
         op.values
     return DynamicOperand(vals.reshape(s, t, t), (rows // r).to(torch.int32),
                           (cols // r).to(torch.int32), op.nnz, op.shape, t)
+
+
+def split_slots(op: DynamicOperand, g: int) -> DynamicOperand:
+    """Each ``b x b`` slot as ``(b / g)^2`` slots of ``g x g`` (``g``
+    dividing ``b``), on the device: slot z's sub-block (i, j) at ``(z r +
+    i) r + j`` with ``r = b / g``, so the valid slots stay first (``nnz``
+    scaled by ``r^2``).  The same matrix; reads nothing on the host."""
+    b = op.block_size
+    if g == b:
+        return op
+    r = b // g
+    s = op.capacity
+    vals = op.values.reshape(s, r, g, r, g).permute(0, 1, 3, 2, 4).reshape(
+        s * r * r, g, g)
+    i = torch.arange(r, device=op.values.device)
+    rows = (op.row_idx.long()[:, None, None] * r + i[None, :, None]).expand(
+        s, r, r).reshape(-1)
+    cols = (op.col_idx.long()[:, None, None] * r + i[None, None, :]).expand(
+        s, r, r).reshape(-1)
+    return DynamicOperand(vals, rows.to(torch.int32), cols.to(torch.int32),
+                          op.nnz * (r * r), op.shape, g)
+
+
+def padded(n: int, t: int) -> int:
+    """``n`` rounded up to a multiple of ``t``."""
+    return -(-n // t) * t
+
+
+def pad_cols(x2: torch.Tensor, k: int) -> torch.Tensor:
+    """``x2 [N, k0]`` contiguous, with zero columns up to ``k`` (the
+    activations of a product walked on a padded shape)."""
+    if x2.shape[1] == k:
+        return x2.contiguous()
+    return torch.nn.functional.pad(x2, (0, k - x2.shape[1]))
+
+
+def kernel_operand(op: DynamicOperand) -> DynamicOperand:
+    """``op`` at a block the kernel walks: each slot split into the
+    largest of ``BLOCK_SIZES`` that divides ``b`` (``split_slots``; 2 or
+    1 where none does), then ``reblock``ed into 4 x 4 blocks below 4,
+    the shape padded to a multiple of the walked block (where ``m`` or
+    ``k`` is a multiple of ``b`` and not of it).  The operand itself
+    where the kernel takes ``b``."""
+    b = op.block_size
+    if b in BLOCK_SIZES:
+        return op
+    g = sub_block(b, BLOCK_SIZES)
+    op = split_slots(op, g)
+    t = max(g, BLOCK_SIZES[0])
+    m, k = op.shape
+    if (padded(m, t), padded(k, t)) != (m, k):
+        op = dataclasses.replace(op, shape=(padded(m, t), padded(k, t)))
+    return reblock(op, t) if g < t else op
 
 
 def dsmm_plain(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
@@ -154,10 +211,11 @@ def dsmm(op: DynamicOperand, x2: torch.Tensor,
          out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Dynamic SpMM ``y[N, m] = x2[N, k] . decode(op)^T``: encode the
     slots on the device, then the slot walk."""
-    if x2.dim() != 2 or x2.shape[1] != op.shape[1]:
-        raise ValueError(f"x2 must be [N, {op.shape[1]}], got "
-                         f"{tuple(x2.shape)}")
-    if op.block_size < BLOCK_SIZES[0] and BLOCK_SIZES[0] % op.block_size == 0:
-        op = reblock(op)
+    m, k = op.shape
+    if x2.dim() != 2 or x2.shape[1] != k:
+        raise ValueError(f"x2 must be [N, {k}], got {tuple(x2.shape)}")
+    op = kernel_operand(op)
+    mp, kp = op.shape
     rows, cols, vals = encode_slots(op)
-    return dsmm_slots(x2, vals, rows, cols, op.shape[0], out_dtype)
+    y = dsmm_slots(pad_cols(x2, kp), vals, rows, cols, mp, out_dtype)
+    return y[:, :m] if mp != m else y

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.core.dynamic_sparse import DynamicOperand
 from repro_torch.kernels.dsmm import ops as dsmm_ops
-from repro_torch.kernels.gmm.ops import pack_tiles_device, resolve_tiles
+from repro_torch.kernels.gmm.ops import (fit_tile, pack_tiles_device,
+                                         resolve_tiles)
 
 
 def _encode_slots_balanced(op: DynamicOperand, num_bins: int
@@ -64,8 +65,10 @@ def balanced_spmm(op: DynamicOperand, x2: torch.Tensor, *,
     tile pack and the row-swizzled dsmm walk.  Capacity semantics are
     those of ``grouped_spmm``; only the slot visit order differs."""
     t, cap = resolve_tiles(op, tile, tiles_cap)
-    packed, stats = pack_tiles_device(op, tile=t, tiles_cap=cap,
+    packed, stats = pack_tiles_device(fit_tile(op, t), tile=t, tiles_cap=cap,
                                       with_stats=return_stats)
     rows, cols, vals = _encode_slots_balanced(packed, num_bins)
-    y = dsmm_ops.dsmm_slots(x2, vals, rows, cols, op.shape[0])
+    y = dsmm_ops.dsmm_slots(dsmm_ops.pad_cols(x2, packed.shape[1]), vals,
+                            rows, cols, packed.shape[0])
+    y = y[:, :op.shape[0]] if packed.shape[0] != op.shape[0] else y
     return (y, stats) if return_stats else y

@@ -8,6 +8,9 @@ Counterpart of the JAX package's ``kernels/gmm/ops.py``:
   launches ``csrc/gmm.cu`` (the port of ``src/repro/kernels/gmm/gmm.py``
   ``gmm_call``) or raises; for a CPU tensor it runs ``ref.gmm_ref``.
   MoE's expert GEMMs reach it through ``sparse.batched_matmul``.
+  ``walk(tm, d, f, dtype)`` is the pure-Python choice of the kernel's
+  walk: "wgmma" (16-bit, D and F multiples of 8: TMA + tensor cores) or
+  "ffma" (the rest: fp32 FMA on the CUDA cores).
 * ``grouped_spmm``: instead of walking ``b x b`` logical blocks, the
   runtime pattern is packed on the device into ``t x t`` tile slots and
   the dsmm slot walk runs on those tiles.  The tile capacity is planned
@@ -19,6 +22,7 @@ Counterpart of the JAX package's ``kernels/gmm/ops.py``:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import warnings
 from typing import NamedTuple, Optional, Tuple
 
@@ -26,12 +30,17 @@ import torch
 
 from repro_torch.core.dynamic_sparse import DynamicOperand
 from repro_torch.kernels import _build
+from repro_torch.kernels.contract import sub_block
 from repro_torch.kernels.dsmm import ops as dsmm_ops
 from repro_torch.kernels.gmm.ref import gmm_ref
 
 DTYPES = _build.DTYPES
 COUNTER = _build.LaunchCounter()
-MAX_TM = 64             # rows of a row tile the kernel holds
+WALKS = ("wgmma", "ffma")
+# launches per walk, beside the total COUNTER
+WALK_COUNTERS = {name: _build.LaunchCounter() for name in WALKS}
+MAX_TM = 128            # rows of a row tile the kernel holds
+FFMA_TM = 64            # rows past which the FMA walk's blocks slow down
 
 
 class GroupedPackStats(NamedTuple):
@@ -58,6 +67,40 @@ def grouped_tile_size(m: int, k: int, b: int, limit: int = 128) -> int:
         raise ValueError(f"no tile size <= {limit} divides both m={m} and "
                          f"k={k} at block {b}")
     return t
+
+
+def grouped_tile(m: int, k: int, b: int) -> int:
+    """The tile the grouped routes pack into on the port: the
+    reference's ``grouped_tile_size`` where the dsmm kernel walks it;
+    else the largest of the kernel's blocks that is a multiple of the
+    block the operand is split into (``contract.sub_block``, at least 4)
+    and divides ``m`` and ``k`` padded to that block (blocks that are not
+    powers of two, grids that no kernel block divides)."""
+    try:
+        t = grouped_tile_size(m, k, b)
+    except ValueError:
+        t = 0
+    if t in dsmm_ops.BLOCK_SIZES:
+        return t
+    wb = max(sub_block(b, dsmm_ops.BLOCK_SIZES), dsmm_ops.BLOCK_SIZES[0])
+    mp, kp = dsmm_ops.padded(m, wb), dsmm_ops.padded(k, wb)
+    return max(s for s in dsmm_ops.BLOCK_SIZES
+               if s % wb == 0 and mp % s == 0 and kp % s == 0)
+
+
+def fit_tile(op: DynamicOperand, tile: int) -> DynamicOperand:
+    """``op`` as the ``tile`` pack takes it: each slot split into
+    sub-blocks the tile is a multiple of (``dsmm.ops.split_slots``, on
+    the device) and the shape padded to a tile multiple.  The operand
+    itself where both already hold."""
+    b = op.block_size
+    if tile % b:
+        op = dsmm_ops.split_slots(op, sub_block(b, dsmm_ops.BLOCK_SIZES))
+    m, k = op.shape
+    mp, kp = dsmm_ops.padded(m, tile), dsmm_ops.padded(k, tile)
+    if (mp, kp) != (m, k):
+        op = dataclasses.replace(op, shape=(mp, kp))
+    return op
 
 
 def pack_tiles_device(op: DynamicOperand, *, tile: int, tiles_cap: int,
@@ -155,7 +198,7 @@ def clamped_tiles_cap(requested: int, m: int, k: int, tile: int,
 
     Returns ``(effective_cap, was_clamped)``; a reduced capacity is
     warned once per (requested, grid) and reported to the caller."""
-    mt, kt = m // tile, k // tile
+    mt, kt = -(-m // tile), -(-k // tile)
     eff = max(1, min(int(requested), mt * kt))
     clamped = eff != int(requested)
     if clamped and warn:
@@ -175,10 +218,14 @@ def resolve_tiles(op: DynamicOperand, tile: Optional[int],
     ``grouped_tile_size``, the capacity to the safe worst case (every
     slot in a distinct tile, capped at the tile grid)."""
     m, k = op.shape
-    t = tile or grouped_tile_size(m, k, op.block_size)
-    mt, kt = m // t, k // t
+    t = tile or grouped_tile(m, k, op.block_size)
+    mt, kt = -(-m // t), -(-k // t)
     if tiles_cap is None:
-        tiles_cap = min(op.capacity, mt * kt)
+        # one tile a slot at worst, once split into blocks the tile takes
+        split = (op.block_size // sub_block(op.block_size,
+                                            dsmm_ops.BLOCK_SIZES)
+                 if t % op.block_size else 1)
+        tiles_cap = min(op.capacity * split * split, mt * kt)
     else:
         tiles_cap, _ = clamped_tiles_cap(tiles_cap, m, k, t)
     return t, max(1, tiles_cap)
@@ -192,9 +239,10 @@ def grouped_spmm(op: DynamicOperand, x2: torch.Tensor, *,
     ``dynamic_grouped`` route).  With ``return_stats=True`` the pack's
     exact overflow accounting is returned beside ``y``."""
     t, cap = resolve_tiles(op, tile, tiles_cap)
-    packed, stats = pack_tiles_device(op, tile=t, tiles_cap=cap,
+    packed, stats = pack_tiles_device(fit_tile(op, t), tile=t, tiles_cap=cap,
                                       with_stats=return_stats)
-    y = dsmm_ops.dsmm(packed, x2)
+    y = dsmm_ops.dsmm(packed, dsmm_ops.pad_cols(x2, packed.shape[1]))
+    y = y[:, :op.shape[0]] if packed.shape[0] != op.shape[0] else y
     return (y, stats) if return_stats else y
 
 
@@ -229,9 +277,39 @@ def _check_gmm(x, w, expert_ids, tm: int, tf: int, td: int):
                          f"D={d}")
 
 
+@dataclasses.dataclass(frozen=True)
+class Walk:
+    """The kernel's walk for one problem: ``name`` "wgmma" | "ffma" and,
+    for wgmma, ``bn`` the columns of F a block owns (64 or 128)."""
+
+    name: str
+    bn: int = 64
+
+
+def tma_ok(d: int, f: int, dtype) -> bool:
+    """Whether TMA can load x [T, D] and w [E, D, F]: 16-bit values and
+    16-byte row strides (D and F multiples of 8)."""
+    return (dtype in (torch.bfloat16, torch.float16) and d > 0
+            and d % 8 == 0 and f % 8 == 0)
+
+
+def walk(tm: int, d: int, f: int, dtype) -> Walk:
+    """The walk ``gmm_cuda`` launches for row tiles of ``tm`` rows, x [.,
+    D] and w [E, D, F] in ``dtype`` (pure Python; the CPU tests reach
+    it): wgmma wherever TMA can load the operands, with 128-column
+    blocks unless F fits 64; ffma elsewhere."""
+    if not 1 <= tm <= MAX_TM:
+        raise ValueError(f"gmm: row tile tm={tm} outside the kernel's "
+                         f"1..{MAX_TM}")
+    if tma_ok(d, f, dtype):
+        return Walk("wgmma", bn=64 if f <= 64 else 128)
+    return Walk("ffma")
+
+
 def gmm_cuda(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor, *,
-             tm: int) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only; ``tm <= 64``)."""
+             tm: int, plan: Optional[Walk] = None) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only; ``tm <= 128``) on
+    ``walk(...)``'s walk, or on ``plan`` where the caller names one."""
     if x.device.type != "cuda":
         raise ValueError(f"gmm_cuda needs CUDA tensors, got {x.device}")
     if not 1 <= tm <= MAX_TM:
@@ -250,17 +328,27 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor, *,
     out = torch.empty((t_rows, f), dtype=x.dtype, device=x.device)
     if t_rows == 0 or f == 0:
         return out
-    # 16-byte loads of w need F in whole vectors and an aligned base
+    wk = plan or walk(tm, d, f, x.dtype)
+    if wk.name == "wgmma":
+        if not tma_ok(d, f, x.dtype):
+            raise ValueError(f"the wgmma walk needs 16-bit x, w with D and "
+                             f"F multiples of 8; got {x.dtype}, D={d}, F={f}")
+        # TMA reads from 16-byte-aligned bases: a view at an unaligned
+        # offset is copied (fresh allocations are aligned)
+        x, w = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (x, w))
+    # 16-byte loads of w (ffma) need F in whole vectors and an aligned base
     vec = int(f % (16 // w.element_size()) == 0 and w.data_ptr() % 16 == 0)
     fn = _build.entry("gmm", "gmm", [ctypes.c_void_p] * 4
-                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+                      + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), w.data_ptr(), expert_ids.data_ptr(),
-                  out.data_ptr(), t_rows // tm, tm, d, f, e, vec,
+                  out.data_ptr(), t_rows // tm, tm, d, f, e,
+                  WALKS.index(wk.name), wk.bn, vec,
                   _build.DTYPE_CODES[x.dtype], stream)
     _build.check(code, "gmm")
     COUNTER.launches += 1
+    WALK_COUNTERS[wk.name].launches += 1
     return out
 
 
@@ -270,8 +358,8 @@ def gmm(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor, *,
     """Grouped GEMM.  ``x: [T, D]`` rows grouped by expert, ``w: [E, D,
     F]``, ``expert_ids: [T // tm]`` one expert per row tile -> ``[T, F]``
     in x's dtype.  ``tf``/``td`` are checked as the reference checks them
-    (each must divide F / D); the kernel tiles F by 64 and D by 32
-    whatever they say, and holds at most 64 rows a tile (``tm <= 64``,
+    (each must divide F / D); the kernel tiles F and D its own way
+    whatever they say, and holds at most 128 rows a tile (``tm <= 128``,
     narrower than the reference).  CUDA tensors launch the kernel (or
     raise); CPU tensors run ``gmm_ref``."""
     t_rows, d = x.shape[0], x.shape[-1]

@@ -5,12 +5,13 @@ from repro_torch.kernels.sddmm.ops import (COUNTER, sddmm,  # noqa: F401
 # narrower than the reference's sddmm contract (blocks 1..128 over t x t
 # tiles with t <= 128 dividing m and k): the CUDA kernel samples b x b
 # blocks directly, with b in {4, 8, 16, 32, 64}; n is free (ragged chunks
-# of N are masked).  The plan maps the reference's other power-of-two
-# blocks onto these (``sparse.plan.kernel_tile``), checked at plan time:
-# b in {1, 2} are sampled on the 4 x 4 tiles the forward packed them into
-# and each [b, b] block gathered out through the forward's pack index
-# (BLOCK_SIZES is not widened); b = 128 is sampled as its four exact
-# 64 x 64 sub-blocks and merged back to [nnz, 128, 128]
+# of N are masked).  The plan maps the reference's other blocks onto
+# these (``sparse.plan.kernel_tile``), checked at plan time: each block
+# is sampled as its sub-blocks of the largest tile dividing b and merged
+# back to [nnz, b, b] (b = 128: four 64 x 64); sub-blocks below 4 (b in
+# {1, 2, 3, 5, 6, ...}) are sampled on the 4 x 4 tiles the forward
+# packed them into and gathered out through the forward's pack index
+# (BLOCK_SIZES is not widened)
 CONTRACT = register(KernelContract(
     kernel="sddmm",
     routes=("sddmm_cuda",),

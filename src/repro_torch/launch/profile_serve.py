@@ -37,7 +37,7 @@ FAMILIES = ("bs_attn", "bsmm", "dense_mm", "gmm", "sddmm", "library_gemm",
 def _family(name: str) -> str:
     if "bs_attn" in name:
         return "bs_attn"
-    if "gmm_kernel" in name:
+    if "gmm_kernel" in name or "gmm_tc_kernel" in name:
         return "gmm"
     if "bsmm_nt" in name:
         return "bsmm"

@@ -103,7 +103,8 @@ class AttnSpec:
     def walk(self, device: torch.device) -> bs_ops.Walk:
         return _device_walk(self.nq, self.nkv, self.window_tiles,
                             self.global_tiles, self.tile_q, self.tile_kv,
-                            self.causal, str(device))
+                            self.causal, self.window, self.global_prefix,
+                            str(device))
 
     def element_mask(self, device) -> torch.Tensor:
         """The ``[S, Skv]`` bool element mask, built once per device
@@ -115,13 +116,14 @@ class AttnSpec:
 
 
 @functools.lru_cache(maxsize=8)
-def _device_walk(nq, nkv, wt, gt, tq, tkv, causal, device: str
-                 ) -> bs_ops.Walk:
+def _device_walk(nq, nkv, wt, gt, tq, tkv, causal, window, global_prefix,
+                 device: str) -> bs_ops.Walk:
     """The kernel's walk metadata for one block mask, uploaded once per
     device."""
     return bs_ops.make_walk(causal_block_mask(nq, nkv, wt, gt, tq, tkv,
                                               causal), tq, tkv,
-                            torch.device(device))
+                            torch.device(device), causal=causal,
+                            window=window, global_prefix=global_prefix)
 
 
 @functools.lru_cache(maxsize=4)

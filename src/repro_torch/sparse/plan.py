@@ -13,11 +13,13 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   "auto" is the static walk (``static_cuda``, the bsmm kernel), the dsmm
   slot walk (``dynamic_cuda``) or the dense GEMM (``dense_cuda``);
 * a static plan runs ``partitioner.plan_packing`` once at the tile the
-  kernels walk (``kernel_tile``: ``b``, or 4 x 4 tiles for b in {1, 2},
-  or b = 128 split into 64 x 64 blocks; ``static_balanced``:
+  kernels walk (``kernel_tile``: each b x b block split exactly into
+  sub-blocks of g, the largest kernel tile dividing b, else 2 or 1, and
+  those packed into 4 x 4 tiles where g < 4; ``static_balanced``:
   ``plan_packing_balanced``, with a bin count picked for the card) and
-  keeps its walk on the device; it is cached per (pattern, shape, dtype,
-  device, route) and serves any ``n``;
+  keeps its walk on the device, on m and k padded to the tile where b
+  divides them and the tile does not; it is cached per (pattern, shape,
+  dtype, device, route) and serves any ``n``;
 * ``plan`` checks the contract of every kernel the plan will launch at
   the block it walks, and raises then, with the contract's reason, for
   a problem no kernel takes (on the CPU too, for the card's kernels);
@@ -42,8 +44,10 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   dense_mm over the batch axes, which on the TPU makes the batch a grid
   axis of one kernel; on a card route ``dense_cuda`` runs that one
   launch as the gmm kernel over ``a.reshape(E * C, D)`` with one expert
-  id per row tile (``tm`` the largest multiple of 8 <= 64 dividing C,
-  else its largest divisor <= 64), forward only.  ``dense_torch`` is
+  id per row tile (on the tensor-core walk ``tm`` = C for C <= 128, so
+  each expert's weights stream once per column tile; above that, and on
+  the FMA walk above 64, the largest multiple of 8 <= the limit dividing
+  C, else C's largest divisor), forward only.  ``dense_torch`` is
   ``torch.matmul``;
 * ``record_dropped`` folds a non-plan capacity stream (MoE's routing
   drops, ``"moe_dispatch"``) into ``capacity_report()``.  A value on
@@ -145,10 +149,12 @@ class MatmulPlan:
     row_tile: int = 0
     expert_ids: Dict[int, torch.Tensor] = dataclasses.field(
         default_factory=dict)
-    # static kind: each b x b block walked as split x split blocks (b
-    # above the kernels' tiles); ``packing`` and ``grad`` are then the
+    # static kind: each b x b block walked as split x split blocks of
+    # b / split (``kernel_tile``); ``packing`` and ``grad`` are then the
     # split pattern's
     split: int = 1
+    # static kind: (m, k) padded to the tile the kernels walk
+    walk_shape: Tuple[int, int] = (0, 0)
 
     @property
     def grad_routes(self) -> Dict[str, str]:
@@ -202,13 +208,15 @@ class MatmulPlan:
                    ) -> torch.Tensor:
         """Static kind on ``pack(values)``: ``x2 [N, k] -> [N, m]``."""
         family = _family(self.route)
+        mp, kp = self.walk_shape
         if family == "static":
-            return bsmm_ops.bsmm_nt(x2.contiguous(), packed, self.row_ptr,
-                                    self.tile_cols, self.tile_rows, self.m)
+            return _crop(bsmm_ops.bsmm_nt(
+                dsmm_ops.pad_cols(x2, kp), packed, self.row_ptr,
+                self.tile_cols, self.tile_rows, mp), self.m)
         if family == "static_balanced":
             vr, vc, vs = self.visit
-            return bal_ops.bsmm_balanced(x2.contiguous(), packed, vr, vc, vs,
-                                         self.m)
+            return _crop(bal_ops.bsmm_balanced(
+                dsmm_ops.pad_cols(x2, kp), packed, vr, vc, vs, mp), self.m)
         if family == "dense":
             return dmm_ops.dense_mm(x2.contiguous(), packed)
         rows, cols, nnz = self.pattern_dev
@@ -233,8 +241,10 @@ class MatmulPlan:
         """dL/dx of the static kind: ``dy2 [N, m] -> dy2 . W [N, k]``,
         the bsmm walk over the transposed pattern's tile stack."""
         g = self.grad
-        return bsmm_ops.bsmm_nt(dy2.contiguous(), self.pack_t(values),
-                                g.row_ptr, g.tile_cols, g.tile_rows, self.k)
+        mp, kp = self.walk_shape
+        return _crop(bsmm_ops.bsmm_nt(
+            dsmm_ops.pad_cols(dy2, mp), self.pack_t(values), g.row_ptr,
+            g.tile_cols, g.tile_rows, kp), self.k)
 
     def pack_t(self, values: torch.Tensor) -> torch.Tensor:
         """``W^T``'s ``[T', b, b]`` tile stack: the values permuted into
@@ -251,8 +261,10 @@ class MatmulPlan:
         ``dy2^T . x2`` in the pattern's lexsort order."""
         g = self.grad
         t = g.sddmm_block
-        dv = sddmm_ops.sddmm(dy2.contiguous(), x2.contiguous(),
-                             g.block_row_ptr, g.col_idx, g.row_idx, t)
+        mp, kp = self.walk_shape
+        dv = sddmm_ops.sddmm(dsmm_ops.pad_cols(dy2, mp),
+                             dsmm_ops.pad_cols(x2, kp), g.block_row_ptr,
+                             g.col_idx, g.row_idx, t)
         if g.gather is not None:
             # sampled on the t x t tiles the blocks were packed into: the
             # blocks, in operand order, through the forward's pack index
@@ -598,46 +610,58 @@ def _on_dev(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
 
 
+def _crop(y: torch.Tensor, m: int) -> torch.Tensor:
+    """The first ``m`` columns of a product walked on a padded shape."""
+    return y[:, :m] if y.shape[1] != m else y
+
+
 def kernel_tile(b: int) -> Tuple[int, int]:
     """``(tile, split)`` the static kernels (bsmm, bsmm_balanced, sddmm)
-    walk blocks of ``b`` at, as the reference's ``pack_tiles`` maps blocks
-    onto MXU tiles: ``b`` itself where the kernels take it; a block below
-    their tiles packed into the smallest tile it divides (b in {1, 2}:
-    4 x 4 tiles); a block above them split exactly into ``split x split``
-    blocks of the largest tile (b = 128: four 64 x 64 blocks).  Any other
-    ``b`` maps to itself, and the contract check refuses it."""
+    walk blocks of ``b`` at, as the reference's ``pack_tiles`` maps any
+    block onto MXU tiles: each ``b x b`` block split exactly into
+    ``split x split`` sub-blocks of ``g = b / split``, the largest kernel
+    tile that divides ``b`` (else 2 where ``b`` is even, else 1;
+    ``contract.sub_block``), and the sub-blocks walked as tiles of ``g``
+    or, below the smallest tile, packed into 4 x 4 tiles.  So b in {4,
+    ..., 64} walks as it is, b in {1, 2} packs into 4 x 4 tiles, b = 128
+    splits into four 64 x 64 blocks, b = 3 or 5 into 1 x 1 blocks packed
+    4 x 4, b = 6 into 2 x 2 blocks packed 4 x 4, b = 12, 24, 48, 96 into
+    4, 8, 16, 32."""
     tiles = bsmm_ops.TILE_SIZES
-    if b in tiles:
-        return b, 1
-    if b < tiles[0]:
-        for t in tiles:
-            if t % b == 0:
-                return t, 1
-    if b > tiles[-1] and b % tiles[-1] == 0:
-        return tiles[-1], b // tiles[-1]
-    return b, 1
+    g = contract_lib.sub_block(b, tiles)
+    return next(t for t in tiles if t % g == 0), b // g
+
+
+def walk_shape(m: int, k: int, tile: int) -> Tuple[int, int]:
+    """``(m, k)`` padded to a multiple of ``tile`` (where ``b`` divides
+    them and the 4 x 4 packing tile does not: b = 3, m = 99)."""
+    return dsmm_ops.padded(m, tile), dsmm_ops.padded(k, tile)
 
 
 def dynamic_tile(m: int, k: int, b: int, route: str) -> int:
     """The block the dsmm kernel walks for a dynamic route: the grouped
-    routes' packed tile; else ``b``, or the kernel's smallest block where
-    ``b`` is below the kernel's blocks and divides it
-    (``dsmm_ops.reblock``)."""
+    routes' packed tile (``gmm.ops.grouped_tile``); else ``b`` where the
+    kernel takes it, or the block ``dsmm.ops.kernel_operand`` brings it
+    to (split into the largest kernel block dividing ``b``, re-blocked
+    into 4 x 4 below that)."""
     if _family(route) in ("dynamic_grouped", "dynamic_grouped_balanced"):
-        return gmm_ops.grouped_tile_size(m, k, b)
-    t = dsmm_ops.BLOCK_SIZES[0]
-    return t if b < t and t % b == 0 else b
+        return gmm_ops.grouped_tile(m, k, b)
+    if b in dsmm_ops.BLOCK_SIZES:
+        return b
+    return max(contract_lib.sub_block(b, dsmm_ops.BLOCK_SIZES),
+               dsmm_ops.BLOCK_SIZES[0])
 
 
 def _check_contract(route: str, spec: OpSpec, block: int) -> None:
     """Raise, at plan time, if the kernel that ``route`` (or its card
     counterpart, for a CPU route) launches refuses the problem at the
-    block it will walk."""
+    block it will walk (on ``m`` and ``k`` padded to that block)."""
     c = contract_lib.contract_for_route(route.replace(SUFFIX["cpu"],
                                                       SUFFIX["cuda"]))
     if c is None:
         return
-    why = c.admits(spec.m, spec.k, spec.n, block, spec.dtype)
+    m, k = walk_shape(spec.m, spec.k, block)
+    why = c.admits(m, k, spec.n, block, spec.dtype)
     if why is not None:
         raise ValueError(
             f"plan: route {route} ({c.kernel} kernel) cannot take "
@@ -689,6 +713,7 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
     rows = np.asarray(bsr.row_idx, np.int32)
     cols = np.asarray(bsr.col_idx, np.int32)
     t, split = kernel_tile(b)
+    mp, kp = walk_shape(m, k, t)
     # the pattern the static kernels walk: the operand's, or its split
     er, ec, eb = rows, cols, b
     if split > 1:
@@ -698,7 +723,7 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
             np.arange(split), np.arange(split), indexing="ij"))
         er = (rows[:, None] * split + i).reshape(-1).astype(np.int32)
         ec = (cols[:, None] * split + j).reshape(-1).astype(np.int32)
-        eb = t
+        eb = b // split
     meta = partitioner.plan_packing(er, ec, (m, k), eb, t, t)
 
     tp = partitioner.plan_transpose(er, ec, (m, k), eb)
@@ -721,7 +746,7 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
         row_ptr=_on_dev(tmeta.row_ptr(), dev),
         tile_rows=_on_dev(tmeta.tile_rows, dev),
         tile_cols=_on_dev(tmeta.tile_cols, dev),
-        block_row_ptr=_on_dev(sddmm_ops.block_row_ptr(s_rows, m // t), dev),
+        block_row_ptr=_on_dev(sddmm_ops.block_row_ptr(s_rows, mp // t), dev),
         row_idx=_on_dev(s_rows, dev), col_idx=_on_dev(s_cols, dev),
         sddmm_block=t, unsort=unsort, gather=gather)
     p = MatmulPlan(kind="static", route=route, m=m, k=k, n=n,
@@ -730,11 +755,12 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
                    tile_rows=_on_dev(meta.tile_rows, dev),
                    tile_cols=_on_dev(meta.tile_cols, dev),
                    pack_index=partitioner.pack_index(meta, dev), grad=grad,
-                   ctx=ctx, block_size=b, split=split)
+                   ctx=ctx, block_size=b, split=split, walk_shape=(mp, kp))
     art: Dict[str, Any] = {"nnz_blocks": len(rows),
                            "packing_tiles": meta.num_tiles,
                            "packing_occupancy": meta.occupancy,
-                           "kernel_tile": t, "block_split": split}
+                           "kernel_tile": t, "block_split": split,
+                           "sub_block": eb, "walk_shape": (mp, kp)}
     family = _family(route)
     if family == "static_balanced":
         bins = (bal_ops.card_bins(meta.grid[0], n, t) if dev.type == "cuda"
@@ -754,10 +780,12 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
                          torch.tensor(len(rows), dtype=torch.int32,
                                       device=dev))
         if family in ("dynamic_grouped", "dynamic_grouped_balanced"):
-            tg = gmm_ops.grouped_tile_size(m, k, b)
+            tg = gmm_ops.grouped_tile(m, k, b)
             # a static pattern's exact tile count is known at plan time
+            # (of its sub-blocks, where the tile is not a block multiple)
+            gr, gc, gb = (rows, cols, b) if tg % b == 0 else (er, ec, eb)
             p.tile = tg
-            p.tiles_cap = partitioner.plan_packing(rows, cols, (m, k), b,
+            p.tiles_cap = partitioner.plan_packing(gr, gc, (m, k), gb,
                                                    tg, tg).num_tiles
             art.update(grouped_tile=tg, grouped_tiles_cap=p.tiles_cap)
     p.artifacts = art
@@ -777,12 +805,15 @@ def _build_dynamic(spec: OpSpec, dev: torch.device, route: str,
                    ctx=ctx, key=key, artifacts=art, block_size=b)
     if _family(route) not in ("dynamic_grouped", "dynamic_grouped_balanced"):
         return p
-    t = gmm_ops.grouped_tile_size(m, k, b)
+    t = gmm_ops.grouped_tile(m, k, b)
     # planned capacity (paper §3.3 bucket sizing): expected distinct
-    # tiles at d_max times the headroom, not the safe worst case
+    # tiles at d_max times the headroom, not the safe worst case; where
+    # the tile is not a block multiple, of the sub-blocks the pack takes
     slots = planner_lib.nnz_max_blocks(m, k, b, spec.density)
+    g = b if t % b == 0 else contract_lib.sub_block(b, dsmm_ops.BLOCK_SIZES)
+    mp, kp = walk_shape(m, k, t)
     capplan = planner_lib.plan_grouped_capacity(
-        m, k, b, spec.density, tile=t, slots=slots,
+        mp, kp, g, spec.density, tile=t, slots=slots * (b // g) ** 2,
         headroom=ctx.resolved_headroom())
     with _LOCK:
         stats = _CAPACITY.get(key)
@@ -797,7 +828,8 @@ def _build_dynamic(spec: OpSpec, dev: torch.device, route: str,
               else "planned")
     requested = (capplan.tiles_cap if policy == "planned"
                  else capplan.worst_tiles)
-    cap, clamped = gmm_ops.clamped_tiles_cap(requested, m, k, t, warn=False)
+    cap, clamped = gmm_ops.clamped_tiles_cap(requested, mp, kp, t,
+                                             warn=False)
     stats.tiles_cap = cap
     stats.worst_tiles = capplan.worst_tiles
     stats.clamped = stats.clamped or clamped
@@ -879,7 +911,8 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
                        n=int(spec.n), dtype=getattr(torch, spec.dtype),
                        device=dev, ctx=ctx)
         if spec.op == "batched_matmul" and route == "dense_cuda":
-            p.row_tile = batched_row_tile(spec.m)
+            p.row_tile = batched_row_tile(
+                spec.m, gmm_ops.tma_ok(spec.k, spec.n, p.dtype))
             p.artifacts = {"kernel": "gmm", "row_tile": p.row_tile}
     p.spec = p.spec or spec
     p.key = key
@@ -898,11 +931,18 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
     return p
 
 
-def batched_row_tile(c: int) -> int:
-    """The gmm row tile of a ``[C, D]`` slice: the largest multiple of 8
-    <= 64 that divides C (MoE's capacity is a multiple of 8), else C's
-    largest divisor <= 64."""
-    for cands in (range(64, 0, -8), range(64, 0, -1)):
+def batched_row_tile(c: int, tensor_cores: bool = True) -> int:
+    """The gmm row tile of a ``[C, D]`` slice.  On the tensor-core walk
+    (``tensor_cores``: ``gmm.ops.tma_ok``) C itself where the kernel holds
+    it (C <= 128: one row tile per expert, so its weights are read once
+    per column tile); on the FMA walk, whose blocks slow past 64 rows, C
+    up to 64.  Else the largest multiple of 8 <= that limit dividing C
+    (MoE's capacity is a multiple of 8), else C's largest divisor below
+    it."""
+    limit = gmm_ops.MAX_TM if tensor_cores else gmm_ops.FFMA_TM
+    if 1 <= c <= limit:
+        return c
+    for cands in (range(limit, 0, -8), range(limit, 0, -1)):
         for t in cands:
             if c % t == 0:
                 return t

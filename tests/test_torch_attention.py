@@ -328,3 +328,47 @@ def test_decode_after_prefill_keeps_the_window():
             global_prefix=prefix)
         assert_close_for_dtype(got[:, 0], full[:, pos].numpy(), "float32",
                                f"pos {pos}")
+
+
+@pytest.mark.parametrize("case", [
+    (12, 12, 16, 16, True, 0, 0, "causal"),
+    (8, 8, 16, 16, True, 40, 8, "causal"),
+    (10, 10, 8, 8, True, 20, 0, "causal"),
+    (6, 9, 32, 16, False, 0, 0, "causal"),
+    (8, 8, 16, 16, True, 0, 0, "random"),
+    (8, 8, 16, 16, True, 40, 16, "random"),
+    (7, 7, 3, 3, False, 10, 0, "random")])
+def test_tile_mask_implied_matches_element_masks(case):
+    """``tile_mask_implied`` is true exactly where the element mask over
+    the block mask equals the element mask over every tile: the group
+    walk may then skip its per-element tile-mask lookups."""
+    from repro_torch.kernels.bs_attn.ref import element_mask
+    nq, nkv, bq, bkv, causal, window, prefix, kind = case
+    if kind == "causal":
+        wt = (window - 1) // bkv + 2 if window > 0 else 0
+        gt = -(-prefix // bkv) if prefix > 0 else 0
+        mask = tattn.causal_block_mask(nq, nkv, wt, gt, bq, bkv, causal)
+    else:
+        mask = np.random.default_rng(nq * bq + window).random((nq, nkv)) < 0.6
+        mask[np.arange(min(nq, nkv)), np.arange(min(nq, nkv))] = True
+    kw = dict(causal=causal, window=window, global_prefix=prefix)
+    want = torch.equal(element_mask(mask, bq, bkv, **kw),
+                       element_mask(np.ones_like(mask), bq, bkv, **kw))
+    assert tbs_ops.tile_mask_implied(mask, bq, bkv, **kw) == want
+    if kind == "causal":
+        assert want        # attend_train's masks never need the lookup
+        walk = tbs_ops.make_walk(mask, bq, bkv, "cpu", causal=causal,
+                                 window=window, global_prefix=prefix)
+        assert walk.tile_mask is None
+
+
+@pytest.mark.parametrize("dtype,walk", [("bfloat16", "wgmma"),
+                                        ("float16", "wgmma"),
+                                        ("float32", "cuda_core")])
+def test_bs_attn_walk_selection(dtype, walk):
+    """16-bit attention takes the tensor-core walk; fp32 stays on the
+    CUDA cores (TF32 would miss the fp32 budget); other types are
+    refused."""
+    assert tbs_ops.kernel_walk(getattr(torch, dtype)) == walk
+    with pytest.raises(ValueError, match="takes"):
+        tbs_ops.kernel_walk(torch.float64)

@@ -318,17 +318,26 @@ def test_bsmm_balanced_cuda_matches_plain(dev, dtype, b, kind, n):
     assert _rel(got, x @ bsr.to_dense().t()) <= TOL[dtype] * 5
 
 
+# (m, k) per block outside the kernels' tiles: b = 3 on a grid the 4 x 4
+# packing tile does not divide (the walk pads it), b = 12 and 24 split
+# into 4 x 4 and 8 x 8 blocks
+BLOCK_SHAPES = {1: (256, 512), 2: (256, 512), 128: (256, 512),
+                3: (291, 483), 12: (288, 480), 24: (288, 480)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["static", "static_balanced"])
-@pytest.mark.parametrize("b", [1, 2, 128])
+@pytest.mark.parametrize("b", [1, 2, 128, 3, 12, 24])
 def test_static_blocks_outside_tiles_on_card(dev, dtype, mode, b):
-    """Static plans at b in {1, 2} (packed into 4 x 4 tiles) and 128
-    (split into 64 x 64 blocks): forward, dL/dx and dL/dvalues through the
-    bsmm / bsmm_balanced and sddmm kernels against the dense product."""
+    """Static plans at b in {1, 2} (packed into 4 x 4 tiles), 128 (split
+    into 64 x 64 blocks) and blocks that are not powers of two (split
+    into sub-blocks, packed below 4): forward, dL/dx and dL/dvalues
+    through the bsmm / bsmm_balanced and sddmm kernels against the dense
+    product."""
     from repro_torch.kernels.bsmm import balanced as bal
     from repro_torch.kernels.sddmm import ops as sddmm_ops
-    m, k, n = 256, 512, 40
+    (m, k), n = BLOCK_SHAPES[b], 40
     mask = masks.random_block_mask(m, k, b, 0.25 if b < 128 else 0.5,
                                    seed=b)
     g = torch.Generator(device=dev).manual_seed(b)
@@ -365,13 +374,14 @@ def test_static_blocks_outside_tiles_on_card(dev, dtype, mode, b):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["dynamic", "dynamic_grouped",
                                   "dynamic_grouped_balanced"])
-@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("b", [1, 2, 3, 12, 24])
 def test_dynamic_blocks_below_tiles_on_card(dev, dtype, mode, b):
-    """Dynamic plans at b in {1, 2}: re-blocked (dynamic) or packed
-    (grouped) on the device, through the dsmm kernel, against the CPU."""
+    """Dynamic plans at b in {1, 2} and at blocks that are not powers of
+    two: split and re-blocked (dynamic) or packed (grouped) on the
+    device, through the dsmm kernel, against the CPU."""
     from repro_torch.core import dynamic_sparse as dsp
     from repro_torch.kernels.dsmm import ops as dsmm_ops
-    m, k = 256, 512
+    m, k = BLOCK_SHAPES[b]
     mask = masks.random_block_mask(m, k, b, 1 / 8, seed=b)
     w = torch.randn((m, k), generator=torch.Generator().manual_seed(b))
     x = torch.randn((70, k), generator=torch.Generator().manual_seed(1))
@@ -474,12 +484,14 @@ def test_bs_attn_cuda_matches_plain(dev, dtype, dh, case):
     q = torch.randn((b_, s, h, dh), generator=g, device=dev).to(dtype)
     k = torch.randn((b_, s, kvh, dh), generator=g, device=dev).to(dtype)
     v = torch.randn((b_, s, kvh, dh), generator=g, device=dev).to(dtype)
-    before = bs_ops.COUNTER.launches
+    counter = bs_ops.WALK_COUNTERS[bs_ops.kernel_walk(dtype)]
+    before, walk_before = bs_ops.COUNTER.launches, counter.launches
     got = attention.attend_train(q, k, v, causal=causal, window=window,
                                  global_prefix=prefix, softcap=softcap,
                                  tile_q=tile, tile_kv=tile)
     torch.cuda.synchronize()
     assert bs_ops.COUNTER.launches == before + 1
+    assert counter.launches == walk_before + 1
     spec = attention.attn_spec(s, s, dh, causal=causal, window=window,
                                global_prefix=prefix, softcap=softcap,
                                tile_q=tile, tile_kv=tile)
@@ -487,6 +499,62 @@ def test_bs_attn_cuda_matches_plain(dev, dtype, dh, case):
                         softcap=softcap)
     assert torch.isfinite(got).all()
     assert _rel(got, want) <= TOL[dtype]
+
+
+# the served tilings: qwen3's 1008-token prefill (tiles halved to 16, 32
+# heads over 4 kv heads, dh 128) and gemma2's 6112-token local layer
+# (tiles of 32, dh 256, soft-cap 50, window 4096), each read from the
+# fused projection's strided [B, S, H + 2 KV, dh] buffer as served
+SERVED_ATTN = [(1008, 32, 4, 128, 0, None), (6112, 8, 4, 256, 4096, 50.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", SERVED_ATTN)
+def test_bs_attn_wgmma_served_tilings_match_plain(dev, dtype, case):
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.models import attention
+    s, h, kvh, dh, window, softcap = case
+    g = torch.Generator(device=dev).manual_seed(s)
+    qkv = torch.randn((1, s, h + 2 * kvh, dh), generator=g,
+                      device=dev).to(dtype)
+    q, k, v = qkv.split([h, kvh, kvh], dim=2)
+    spec = attention.attn_spec(s, s, dh, window=window, softcap=softcap)
+    assert spec.tile_q == {1008: 16, 6112: 32}[s]
+    before = bs_ops.WALK_COUNTERS["wgmma"].launches
+    got = attention.attend_train(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert bs_ops.WALK_COUNTERS["wgmma"].launches == before + 1
+    want = attend_plain(q, k, v, spec.element_mask(dev), scale=spec.scale,
+                        softcap=softcap)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_bs_attn_walks_agree(dev, dtype):
+    """The wgmma walk against the CUDA-core walk forced on the same
+    16-bit inputs (group walk at bq 16, GQA, window and soft-cap)."""
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.models import attention
+    s, h, kvh, dh = 400, 4, 2, 64
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((2, s, h, dh), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, s, kvh, dh), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    spec = attention.attn_spec(s, s, dh, window=100, global_prefix=16,
+                               softcap=30.0, tile_q=16, tile_kv=16)
+    walk = spec.walk(dev)
+    kw = dict(scale=spec.scale, causal=True, softcap=30.0, window=100,
+              global_prefix=16)
+    tc = bs_ops.bs_attn_cuda(q, k, v, walk, **kw)
+    cc = bs_ops.bs_attn_cuda(q, k, v, walk, plan="cuda_core", **kw)
+    torch.cuda.synchronize()
+    assert _rel(tc, cc) <= TOL[dtype]
+    with pytest.raises(ValueError, match="does not take"):
+        bs_ops.bs_attn_cuda(q.float(), k.float(), v.float(), walk,
+                            plan="wgmma", **kw)
 
 
 @pytest.mark.cuda
@@ -510,6 +578,31 @@ def test_bs_attn_masks_on_card_match_plain(dev, dtype, softcap):
         got = bs_ops.bs_attn(q, k, v, bm, softcap=softcap)
         want = bs_attn_ref(q, k, v, bm, softcap=softcap)
         assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_bs_attn_group_walk_tile_mask_on_card(dev, dtype):
+    """A group walk (tiles of 16, 4 a block) over a random block mask
+    that the causal element mask does not imply: the kernel's per-element
+    tile-mask lookups (and, in 16-bit, its chunk-level check) against the
+    plain version."""
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import bs_attn_ref
+    h, s, dh, t = 2, 320, 64, 16
+    n = s // t
+    mask = np.random.default_rng(4).random((n, n)) < 0.5
+    mask |= np.eye(n, dtype=bool)
+    mask = np.tril(mask)
+    assert not bs_ops.tile_mask_implied(mask, t, t, causal=True)
+    assert bs_ops.make_walk(mask, t, t, dev, causal=True).tile_mask is not None
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn((h, s, dh), generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    got = bs_ops.bs_attn(q, k, v, mask, bq=t, bkv=t)
+    want = bs_attn_ref(q, k, v, mask, bq=t, bkv=t)
+    assert _rel(got, want) <= TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -581,11 +674,47 @@ def test_gmm_cuda_matches_plain(dev, dtype, case):
     else:
         ids = torch.randint(0, e, (tiles,), generator=g, device=dev)
     ids = ids.to(torch.int32)
-    before = gmm_ops.COUNTER.launches
+    counter = gmm_ops.WALK_COUNTERS[gmm_ops.walk(tm, d, f, dtype).name]
+    before, walk_before = gmm_ops.COUNTER.launches, counter.launches
     got = gmm_ops.gmm(x, w, ids, tm=tm)
     torch.cuda.synchronize()
     assert gmm_ops.COUNTER.launches == before + 1
+    assert counter.launches == walk_before + 1
     assert _rel(got, gmm_ref(x, w, ids, tm=tm)) <= TOL[dtype]
+
+
+# the wgmma walk: (E, tm, row tiles, D, F); row tiles of 8 to 128 rows
+# (two m64 halves above 64), F and D off the 64-column grid, random
+# non-monotone ids with some past E (zero rows); qwen3's C 80 prefill
+# shape at full width
+GMM_TC_CASES = [(8, 8, 16, 128, 96), (4, 40, 8, 72, 200), (8, 64, 4, 256, 128),
+                (6, 80, 12, 136, 64), (5, 128, 6, 520, 264),
+                (128, 80, 128, 2048, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", GMM_TC_CASES)
+def test_gmm_wgmma_walk_matches_plain(dev, dtype, case):
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.kernels.gmm.ref import gmm_ref
+    e, tm, tiles, d, f = case
+    assert gmm_ops.walk(tm, d, f, dtype).name == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(tm + d)
+    x = torch.randn((tiles * tm, d), generator=g, device=dev).to(dtype)
+    w = (torch.randn((e, d, f), generator=g, device=dev)
+         / np.sqrt(d)).to(dtype)
+    ids = torch.randint(-1, e + 2, (tiles,), generator=g, device=dev)
+    ids = ids.to(torch.int32)
+    before = gmm_ops.WALK_COUNTERS["wgmma"].launches
+    got = gmm_ops.gmm(x, w, ids, tm=tm)
+    torch.cuda.synchronize()
+    assert gmm_ops.WALK_COUNTERS["wgmma"].launches == before + 1
+    dead = ((ids < 0) | (ids >= e)).repeat_interleave(tm)
+    assert torch.all(got[dead] == 0)
+    assert _rel(got, gmm_ref(x, w, ids, tm=tm)) <= TOL[dtype]
+    ffma = gmm_ops.gmm_cuda(x, w, ids, tm=tm, plan=gmm_ops.Walk("ffma"))
+    assert _rel(got, ffma) <= TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -602,7 +731,7 @@ def test_gmm_cuda_id_past_e_gives_zero_rows(dev, dtype):
     assert torch.all(got[8:24] == 0)
     assert _rel(got, gmm_ref(x, w, ids, tm=8)) <= TOL[dtype]
     with pytest.raises(ValueError, match="outside"):
-        gmm_ops.gmm_cuda(x, w, ids[:0], tm=128)
+        gmm_ops.gmm_cuda(x, w, ids[:0], tm=256)
 
 
 @pytest.mark.cuda

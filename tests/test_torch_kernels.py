@@ -250,3 +250,27 @@ def test_contracts_name_routes_and_reference():
     assert reg["dense_mm"].admits(2048, 512, 3, 1, "float16") is None
     for c in reg.values():
         assert c.replaces.startswith("src/repro/kernels/")
+
+
+def test_build_hashes_the_headers_a_source_includes(tmp_path, monkeypatch):
+    """A kernel library is keyed by its source and every header it
+    includes (through other headers too), so an edit to a shared header
+    rebuilds each source that includes it; the tensor-core sources share
+    ``hopper.cuh``."""
+    from repro_torch.kernels import _build
+    for name in ("dense_mm", "bs_attn", "gmm"):
+        src = _build._target(name)[0]
+        assert [p.rsplit("/", 1)[1] for p in _build.includes(src)] == [
+            "hopper.cuh"]
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <x.h>\n')
+    monkeypatch.setitem(_build.SOURCES, "probe", str(tmp_path / "k.cu"))
+    assert [p.rsplit("/", 1)[1] for p in _build.includes(
+        str(tmp_path / "k.cu"))] == ["a.cuh", "b.cuh"]
+    before = _build._target("probe")[1]
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    assert _build._target("probe")[1] != before
+    (tmp_path / "k.cu").write_text('#include "missing.cuh"\n')
+    with pytest.raises(FileNotFoundError, match="missing.cuh"):
+        _build._target("probe")

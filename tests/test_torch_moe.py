@@ -145,10 +145,14 @@ def test_gmm_validates(bad, msg):
 
 
 def test_gmm_cuda_refuses_cpu_tensors():
+    """gmm_cuda never runs the plain version: a CPU tensor is refused at
+    every row tile, the kernel's widest (128) included."""
     x, w = torch.zeros(128, 8), torch.zeros(1, 8, 8)
     ids = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="CUDA"):
-        tgmm.gmm_cuda(x, w, ids, tm=128)
+    for tm, plan in ((128, None), (64, tgmm.Walk("ffma")),
+                     (128, tgmm.Walk("wgmma", bn=64))):
+        with pytest.raises(ValueError, match="CUDA"):
+            tgmm.gmm_cuda(x, w, ids[:128 // tm], tm=tm, plan=plan)
 
 
 # ---------------------------------------------------------------------------
@@ -191,12 +195,64 @@ def test_batched_matmul_plans_once_per_slice_problem():
                                torch.zeros(3, 16, 24))
 
 
-@pytest.mark.parametrize("c,tm", [(8, 8), (40, 40), (72, 24), (80, 40),
-                                  (128, 64), (12, 12), (0 + 96, 48)])
+@pytest.mark.parametrize("c,tm", [(8, 8), (40, 40), (72, 72), (80, 80),
+                                  (128, 128), (12, 12), (0 + 96, 96),
+                                  (200, 40), (264, 88), (129, 43)])
 def test_batched_row_tile(c, tm):
+    """On the tensor-core walk C <= 128 is one row tile (each expert's
+    weights streamed once per column tile); above it a divisor <= 128, a
+    multiple of 8 where one divides C."""
     from repro_torch.sparse.plan import batched_row_tile
     assert batched_row_tile(c) == tm
     assert tgmm.CONTRACT.admits(c, 2048, 768, tm, "bfloat16") is None
+
+
+@pytest.mark.parametrize("c,tm", [(8, 8), (40, 40), (72, 24), (80, 40),
+                                  (128, 64), (12, 12), (96, 48)])
+def test_batched_row_tile_ffma(c, tm):
+    """On the FMA walk (fp32, shapes TMA cannot load) row tiles stay at
+    64 rows or fewer, where its blocks are fastest."""
+    from repro_torch.sparse.plan import batched_row_tile
+    assert batched_row_tile(c, tensor_cores=False) == tm
+
+
+@pytest.mark.parametrize("tm,d,f,dtype,name,bn", [
+    (80, 2048, 768, "bfloat16", "wgmma", 128),
+    (8, 768, 2048, "float16", "wgmma", 128),
+    (128, 72, 64, "bfloat16", "wgmma", 64),
+    (80, 2048, 768, "float32", "ffma", 64),
+    (8, 100, 64, "bfloat16", "ffma", 64),
+    (8, 64, 100, "bfloat16", "ffma", 64)])
+def test_gmm_walk_selection(tm, d, f, dtype, name, bn):
+    """16-bit types with D and F multiples of 8 take the tensor-core
+    walk (128-column blocks unless F fits 64); fp32 and shapes TMA
+    cannot load take the FMA walk; tm past 128 is refused."""
+    wk = tgmm.walk(tm, d, f, getattr(torch, dtype))
+    assert (wk.name, wk.bn) == (name, bn)
+    with pytest.raises(ValueError, match="outside"):
+        tgmm.walk(129, d, f, getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("e,tm", [(4, 80), (3, 128)])
+def test_gmm_wide_row_tiles_match_jax(e, tm, dtype):
+    """Row tiles past 64 rows (MoE's C 80 prefill, the 128 limit) on
+    random non-monotone ids, against the Pallas kernel in interpret mode
+    and its reference."""
+    rng = np.random.default_rng(e * 100 + tm)
+    t, d, f = 4 * tm, 64, 72
+    x = rng.standard_normal((t, d)).astype(np.float32)
+    w = rng.standard_normal((e, d, f)).astype(np.float32)
+    ids = rng.integers(0, e, size=t // tm).astype(np.int32)
+    jdt = jnp.dtype(dtype)
+    jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    want_kernel = jgmm_ops.gmm(jx, jw, jnp.asarray(ids), tm=tm, tf=72,
+                               td=64, interpret=True)
+    tdt = getattr(torch, dtype)
+    got = tgmm.gmm(torch.as_tensor(x).to(tdt), torch.as_tensor(w).to(tdt),
+                   torch.as_tensor(ids), tm=tm)
+    assert got.dtype == tdt and got.shape == (t, f)
+    assert _rel(got, _np(want_kernel)) <= KERNEL_TOL[dtype]
 
 
 # ---------------------------------------------------------------------------
