@@ -18,12 +18,13 @@ Phases, each fatal on failure:
    llama's served prefill lengths, at gemma2-2b's q/k/v/o (decode N 2 and
    its served prefills), at qwen3-moe's q/k/v/o (N 4, 256, 1008 and its
    served prefills) and Table 3's 4096^3 in fp16, each row naming the
-   walk the kernel took (decode, wgmma or ffma); with each kernel's time,
-   its plain version's time, one
-   library call's time and the least time the card could take (the
-   bound).  Each main-path phase below also reports the launches of
-   dense_mm, bs_attn and gmm by walk, and fails if a 16-bit bs_attn or
-   gmm launch of it ran off the tensor-core (wgmma) walk;
+   walk the kernel took (decode, wgmma or ffma; sddmm's mma or ffma,
+   with the FFMA walk's ms on the same 16-bit inputs); with each kernel's
+   time, its plain version's time, one library call's time and the least
+   time the card could take (the bound).  Each main-path phase below also
+   reports the launches of dense_mm, bs_attn, gmm, dsmm and sddmm by walk,
+   and fails if a 16-bit bs_attn or gmm launch of it ran off the wgmma
+   walk, or a 16-bit dsmm or sddmm launch at b >= 16 off the mma walk;
 3. serve: full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
    vocab 128256) with every FFN block-sparse at d=1/8, b=16, in bf16,
    seeded random weights, through ``Engine(batch=4, max_len=512)``: 8
@@ -44,7 +45,9 @@ Phases, each fatal on failure:
 7. dynamic kernels: dsmm against its plain version at the FFN shapes
    (d_max = 1/8, b = 16, N in {4, 256, 2048}), at Table 3's shape
    (4096 x 4096, d = 1/16, b in {4, 16}, N = 4096, fp16 and fp32) and
-   on the grouped routes' t = 128 packed tiles; bsmm_balanced on the
+   on the grouped routes' t = 128 packed tiles (with the device tile
+   pack's ms), each row naming its walk (mma in 16-bit at b >= 16, ffma
+   else) and, on the mma walk, the FFMA walk's ms; bsmm_balanced on the
    skew grid (4096 x 4096, b = 16, d = 1/32, N = 4096; uniform,
    power-law and DLMC masks; bf16 and fp32), beside the uniform bsmm
    walk (these rows print with the kernel rows of phase 2);
@@ -55,7 +58,8 @@ Phases, each fatal on failure:
    dynamic_cuda with its encode, and the grouped
    routes at worst-case capacity) with its ms and its speedup against
    dense_cuda and torch.matmul; every output checked against the fp32
-   dense product, every kernel of the routes launched;
+   dense product, every kernel of the routes launched, every dynamic
+   route's dsmm launches on the walk its walked block takes;
 9. dynamic: a SwiGLU FFN of three DynamicSparseLinear at llama3.2-1b
    width (2048 -> 8192 -> 2048, d_max = 1/8, b = 16, bf16), N = 2048,
    5 forward + backward steps with a fresh seeded mask each; step 0
@@ -195,17 +199,24 @@ def bound(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-WALK_KERNELS = ("dense_mm", "bs_attn", "gmm")
+WALK_KERNELS = ("dense_mm", "bs_attn", "gmm", "dsmm", "sddmm")
+# each kernel's tensor-core walk (what its 16-bit launches at b >= 16 take)
+TC_WALK = {"bs_attn": "wgmma", "gmm": "wgmma", "dsmm": "mma",
+           "sddmm": "mma"}
 
 
 def with_walks(counters):
     """``counters`` plus the launch counter of each walk of the kernels
-    that have several (dense_mm, bs_attn, gmm), under ``<kernel>:<walk>``."""
+    that have several (dense_mm, bs_attn, gmm, dsmm, sddmm), under
+    ``<kernel>:<walk>``."""
     from repro_torch.kernels.bs_attn import ops as bs_ops
     from repro_torch.kernels.dense_mm import ops as dmm_ops
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
     from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
     out = dict(counters)
-    for kernel, ops in zip(WALK_KERNELS, (dmm_ops, bs_ops, gmm_ops)):
+    for kernel, ops in zip(WALK_KERNELS, (dmm_ops, bs_ops, gmm_ops, dsmm_ops,
+                                          sddmm_ops)):
         out.update({f"{kernel}:{w}": c for w, c in ops.WALK_COUNTERS.items()})
     return out
 
@@ -221,14 +232,14 @@ def split_walks(launches):
     return {k: v for k, v in launches.items() if ":" not in k}, walks
 
 
-def check_tensor_core_walks(phase, walks):
-    """Every bs_attn and gmm launch of a 16-bit main path ran on its
-    tensor-core walk."""
-    off = {k: {w: n for w, n in walks[k].items() if w != "wgmma" and n}
-           for k in ("bs_attn", "gmm")}
+def check_tensor_core_walks(phase, walks, kernels=("bs_attn", "gmm")):
+    """Every launch of ``kernels`` on a 16-bit main path (whose sparse
+    blocks are b = 16) ran on its tensor-core walk."""
+    off = {k: {w: n for w, n in walks[k].items() if w != TC_WALK[k] and n}
+           for k in kernels}
     if any(off.values()):
-        raise RuntimeError(f"[{phase}] 16-bit launches off the wgmma walk: "
-                           f"{off}")
+        raise RuntimeError(f"[{phase}] 16-bit launches off the tensor-core "
+                           f"walks: {off}")
 
 
 def measured_row(torch, kernel, shape, n, dname, run, plain, library,
@@ -334,7 +345,14 @@ def kernel_phase(torch, args):
                 row["transpose_ms"] = timed_ms(
                     torch, lambda d_, x_: (d_.t().contiguous(),
                                            x_.t().contiguous()), sets, 20)
-                row["splits"] = sddmm_ops.n_splits(n, m // b)
+                wk = sddmm_ops.walk(b, dt)
+                row.update(walk=wk, splits=sddmm_ops.n_splits(n, m // b, wk))
+                # the FFMA walk (every dtype's walk before the tensor-core
+                # one) on the same 16-bit inputs, timed beside it
+                row["before_ms"] = (timed_ms(
+                    torch, lambda d_, x_: sddmm_ops.sddmm_cuda(
+                        d_, x_, g.block_row_ptr, g.col_idx, b, plan="ffma"),
+                    sets, 10) if wk != "ffma" else None)
                 rows.append(row)
                 del sets
             del dense_w
@@ -471,7 +489,7 @@ def train_phase(torch, args):
     wall = time.perf_counter() - t0
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
-    check_tensor_core_walks("train", walks)
+    check_tensor_core_walks("train", walks, ("bs_attn", "sddmm"))
     walls = sorted(r["step_s"] for r in records)
     p50 = float(np.median(walls))
     result = dict(
@@ -1069,11 +1087,11 @@ def dynamic_kernel_phase(torch, args):
         op = dsp.encode(w, torch.as_tensor(mask, device=dev), block_size=b,
                         nnz_max=nnz_max)
         what = ""
+        raw = op
         if tile:
-            op, _ = gmm_ops.pack_tiles_device(
-                op, tile=tile, tiles_cap=min(op.capacity, (m // tile)
-                                             * (k // tile)),
-                with_stats=False)
+            cap = min(op.capacity, (m // tile) * (k // tile))
+            op, _ = gmm_ops.pack_tiles_device(op, tile=tile, tiles_cap=cap,
+                                              with_stats=False)
             what = f" t={tile} tiles"
         srows, scols, svals = dsmm_ops.encode_slots(op)
         dense_w = op.to_dense()
@@ -1094,10 +1112,21 @@ def dynamic_kernel_phase(torch, args):
                 lambda a_, v_: dsmm_ops.dsmm_plain(a_, v_, srows, scols, m),
                 lambda a_, w_: torch.matmul(a_, w_.t()), sets, lib_sets,
                 nbytes, 2.0 * nnz * bb * bb * n)
-            # the slot encoder each call of the dynamic_cuda route adds
+            # the slot encoder each call of the dynamic_cuda route adds,
+            # and on the grouped routes' tiles their device tile pack
             row["encode_ms"] = timed_ms(
                 torch, lambda: dsmm_ops.encode_slots(op), [()], 20)
-            row.update(slots=int(srows.numel()), nnz_blocks=nnz)
+            row["pack_ms"] = (timed_ms(torch, lambda: gmm_ops.pack_tiles_device(
+                raw, tile=tile, tiles_cap=cap, with_stats=False), [()], 10)
+                if tile else None)
+            wk = dsmm_ops.walk(bb, dt)
+            # the FFMA walk (every dtype's walk before the tensor-core
+            # one) on the same 16-bit inputs, timed beside it
+            row.update(slots=int(srows.numel()), nnz_blocks=nnz, walk=wk,
+                       before_ms=(timed_ms(
+                           torch, lambda a_, v_: dsmm_ops.dsmm_cuda(
+                               a_, v_, srows, scols, m, plan="ffma"),
+                           sets, 10) if wk != "ffma" else None))
             rows.append(row)
             del sets, lib_sets
 
@@ -1185,7 +1214,10 @@ def table3_phase(torch, args):
 
     from repro_torch.core import masks
     from repro_torch.core.bsr import BlockSparseMatrix
+    from repro_torch.kernels import contract
     from repro_torch.kernels.dense_mm import ops as dmm_ops
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    from repro_torch.kernels.gmm import ops as gmm_ops
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
@@ -1235,9 +1267,29 @@ def table3_phase(torch, args):
             lib_ms = timed_ms(torch, lambda: torch.matmul(x, wt), [()], 30)
             flops = 2.0 * n * m * k
             res = {}
+            # the block each dynamic route's dsmm walks: the split or
+            # re-blocked b (dynamic_cuda), the packed tile (grouped)
+            walked = {"dynamic_cuda": max(contract.sub_block(
+                b, dsmm_ops.BLOCK_SIZES), dsmm_ops.BLOCK_SIZES[0])}
+            walked.update({r_: gmm_ops.grouped_tile(m, k, b)
+                           for r_ in TABLE3_ROUTES
+                           if r_.startswith("dynamic_grouped")})
             for route in TABLE3_ROUTES:
+                before = {w_: c.launches
+                          for w_, c in dsmm_ops.WALK_COUNTERS.items()}
                 err = rel_err(runs[route](), want)[0]
                 torch.cuda.synchronize()
+                dsmm_walks = {w_: c.launches - before[w_] for w_, c
+                              in dsmm_ops.WALK_COUNTERS.items()}
+                if route in walked:
+                    want_walk = dsmm_ops.walk(walked[route], dt)
+                    off = {w_: v for w_, v in dsmm_walks.items()
+                           if w_ != want_walk and v}
+                    if not dsmm_walks[want_walk] or off:
+                        raise RuntimeError(
+                            f"[table3] {route} b={b} {dname}: dsmm at block "
+                            f"{walked[route]} launched {dsmm_walks}, want "
+                            f"every launch on {want_walk}")
                 slow = route.startswith(("dense", "dynamic_grouped")) \
                     or b <= 4
                 ms = timed_ms(torch, runs[route], [()], 10 if slow else 30)
@@ -1247,7 +1299,7 @@ def table3_phase(torch, args):
                     density=density, nnz_blocks=nnz, ms=ms,
                     rel_err=err, tol=KERNEL_TOL[dname],
                     dense_flops=flops, sparse_flops=flops * density,
-                    torch_matmul_ms=lib_ms))
+                    torch_matmul_ms=lib_ms, dsmm_walks=dsmm_walks))
             for line in lines[-len(TABLE3_ROUTES):]:
                 line["speedup_vs_dense_cuda"] = res["dense_cuda"] / line["ms"]
                 line["speedup_vs_torch_matmul"] = lib_ms / line["ms"]
@@ -1774,17 +1826,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     for r in rows:
         extra = ""
+        ffma = ("" if r.get("before_ms") is None
+                else f" ffma_ms={r['before_ms']:.5f}")
         if r["kernel"] == "sddmm":
-            extra = (f" transpose_ms={r['transpose_ms']:.5f} "
-                     f"splits={r['splits']}")
+            extra = (f" walk={r['walk']} transpose_ms="
+                     f"{r['transpose_ms']:.5f} splits={r['splits']}{ffma}")
         elif r["kernel"] == "dsmm":
-            extra = f" encode_ms={r['encode_ms']:.5f} slots={r['slots']}"
+            extra = (f" walk={r['walk']} encode_ms={r['encode_ms']:.5f} "
+                     f"slots={r['slots']}{ffma}"
+                     + ("" if r["pack_ms"] is None
+                        else f" pack_ms={r['pack_ms']:.5f}"))
         elif r["kernel"] == "gmm":
             extra = (f" walk={r['walk']} tm={r['tm']} "
                      f"experts={r['experts']} "
-                     f"experts_used={r['experts_used']}"
-                     + ("" if r["before_ms"] is None
-                        else f" ffma_ms={r['before_ms']:.5f}"))
+                     f"experts_used={r['experts_used']}{ffma}")
         elif r["kernel"] == "dense_mm":
             extra = (f" walk={r['walk']} tile={r['tile']} "
                      f"slices={r['slices']} blocks={r['blocks']}")
@@ -1876,12 +1931,15 @@ def main(argv=None) -> int:
     for c in counters.values():
         c.reset()
     dyn = dynamic_phase(torch, args)
-    dyn_launches = split_walks({k: c.launches for k, c in counters.items()})[0]
+    dyn_launches, dyn_walks = split_walks(
+        {k: c.launches for k, c in counters.items()})
+    check_tensor_core_walks("dynamic", dyn_walks, ("dsmm",))
     print(f"[dynamic] SwiGLU FFN of 3 DynamicSparseLinear "
           f"{dyn['d_model']}->{dyn['d_ff']}->{dyn['d_model']}, d_max "
           f"{dyn['d_max']}, b {dyn['b']}, bf16, N {dyn['tokens']}: step "
           f"p50 {dyn['step_p50_ms']:.2f} ms (steps {[round(t, 2) for t in dyn['step_ms']]}); "
-          f"dsmm launches per step {dyn['dsmm_launches_per_step']}; "
+          f"dsmm launches per step {dyn['dsmm_launches_per_step']} "
+          f"(by walk {json.dumps(dyn_walks['dsmm'])}); "
           f"forward host syncs after step 0 {dyn['forward_host_syncs']}; "
           f"plans_built {dyn['plans_built']}; masks distinct "
           f"{dyn['masks_distinct']}/5")
@@ -1974,6 +2032,10 @@ def main(argv=None) -> int:
                "table3": table3_launches, "dynamic": dyn_launches,
                "serve_gemma2": gemma["launches"],
                "serve_qwen3": qwen["launches"]}
+    walks_by_path = {"serve": serve["walks"], "train": train["walks"],
+                     "table3": table3_walks, "dynamic": dyn_walks,
+                     "serve_gemma2": gemma["walks"],
+                     "serve_qwen3": qwen["walks"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -1991,13 +2053,11 @@ def main(argv=None) -> int:
             "at": f"{r['shape']} n={r['n']} {r['dtype']}",
             "launches_by_path": {k: v.get(name, 0)
                                  for k, v in by_path.items()}})
-    walks_by_path = {"serve": serve["walks"], "train": train["walks"],
-                     "table3": table3_walks,
-                     "serve_gemma2": gemma["walks"],
-                     "serve_qwen3": qwen["walks"]}
-    next(k for k in kernels if k["name"] == "dense_mm")[
-        "launches_by_walk"] = {p: w["dense_mm"]
-                               for p, w in walks_by_path.items()}
+        if name in WALK_KERNELS:
+            kernels[-1]["launches_by_walk"] = {
+                p: w[name] for p, w in walks_by_path.items()}
+        if name in ("dsmm", "sddmm"):
+            kernels[-1].update(walk=r["walk"], before_ms=r["before_ms"])
     # bs_attn at gemma2-2b's global layer (S = 4096, bf16); its main path
     # is the gemma2 serve run
     r = next(r for r in attn_rows if r["shape"] == "gemma2 global"

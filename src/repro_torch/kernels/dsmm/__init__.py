@@ -1,7 +1,8 @@
 from repro_torch.kernels.contract import KernelContract, register
-from repro_torch.kernels.dsmm.ops import (COUNTER, dsmm,  # noqa: F401
-                                          dsmm_cuda, dsmm_plain, dsmm_slots,
-                                          encode_slots)
+from repro_torch.kernels.dsmm.ops import (COUNTER,  # noqa: F401
+                                          WALK_COUNTERS, dsmm, dsmm_cuda,
+                                          dsmm_plain, dsmm_slots,
+                                          encode_slots, walk)
 
 # narrower than the reference's dsmm contract (blocks 1..128, row-sorted
 # slots): the CUDA kernel takes b in {4, 8, 16, 32, 64, 128} (the grouped
@@ -23,9 +24,14 @@ CONTRACT = register(KernelContract(
     max_block=128,
     divisibility=("m % b == 0", "k % b == 0",
                   "b in (4, 8, 16, 32, 64, 128)"),
-    grid="one run-bounds pass over the S slots, then (m // b) x "
-         "ceil(n / BN) blocks (BN = 256 / 128 / 64 tokens at b = 4 / 8 / "
-         ">= 16), each walking its block-row's contiguous run of slots",
+    grid="one run-bounds pass over the S slots, then mma (16-bit, b >= "
+         "16): ceil((m // b) / R) x ceil(n / T) blocks of 16 warps (R x T "
+         "= 16 block-rows x 128 tokens at b = 16, 512 // b x 64 above): "
+         "thread 0 streams the touched chunks of x by TMA, each warp "
+         "copies its row's blocks stages ahead (cp.async) and runs "
+         "mma.sync; ffma (the rest): (m // b) x ceil(n / BN) blocks (BN = "
+         "256 / 128 / 64 tokens at b = 4 / 8 / >= 16), each walking its "
+         "block-row's contiguous run of slots",
     capacity="slot_capacity",
     replaces="src/repro/kernels/dsmm/dsmm.py:53 dsmm_call",
 ))

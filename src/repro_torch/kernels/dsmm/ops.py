@@ -11,8 +11,11 @@ version.  ``dsmm(op, x2)`` encodes a ``DynamicOperand`` with
 ``encode_slots`` first (the ``dynamic_pallas`` route), after
 ``kernel_operand`` has brought a block the kernel does not take onto one
 it does (``split_slots`` into sub-blocks, ``reblock`` below 4, the shape
-padded to the walked block).  Nothing here reads a device value on the
-host.
+padded to the walked block).  ``walk(b, dtype)`` is the pure-Python
+choice of the kernel's walk: "mma" (bf16/fp16 at b in {16, 32, 64, 128}:
+tensor cores over groups of block-rows, x shared through TMA) or "ffma"
+(the rest: fp32 FMA on the CUDA cores).  Nothing here reads a device
+value on the host.
 """
 from __future__ import annotations
 
@@ -29,28 +32,48 @@ from repro_torch.kernels.contract import sub_block
 BLOCK_SIZES = (4, 8, 16, 32, 64, 128)
 DTYPES = _build.DTYPES
 COUNTER = _build.LaunchCounter()
+WALKS = ("mma", "ffma")
+# launches per walk, beside the total COUNTER
+WALK_COUNTERS = {name: _build.LaunchCounter() for name in WALKS}
+MMA_BLOCKS = (16, 32, 64, 128)   # blocks the tensor-core walk takes
+
+
+def walk(b: int, dtype) -> str:
+    """The walk ``dsmm_cuda`` launches at block ``b`` in ``dtype`` (pure
+    Python; the CPU tests reach it): "mma" for bf16/fp16 at b in
+    ``MMA_BLOCKS``, "ffma" elsewhere."""
+    if b not in BLOCK_SIZES:
+        raise ValueError(f"dsmm kernel takes blocks of {BLOCK_SIZES}; "
+                         f"got {b}")
+    if dtype in (torch.bfloat16, torch.float16) and b in MMA_BLOCKS:
+        return "mma"
+    return "ffma"
 
 
 def encode_slots(op: DynamicOperand
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Runtime re-partitioning on the device (``dsmm/ops.py:10-26``):
+    """Runtime re-partitioning on the device (the reference's
+    ``dsmm/ops.py:10-26``, in the order the port's walks want):
 
-    1. prepend one zero 'coverage' slot per output block-row, so every
-       row has a run even when it holds no block this step;
-    2. stable-sort all slots by row, so each row's slots are contiguous
-       for any runtime pattern.
+    1. send the padding slots (index ``>= op.nnz``, zeros at (0, 0)) to
+       block-row ``grid_m``, off the grid, where the walks skip them;
+    2. stable-sort the slots by ``row * grid_k + col``, so each row's
+       slots are contiguous and in ascending column order for any
+       runtime pattern (the padding last).
 
-    Returns ``(rows, cols, values)`` of ``grid_m + S`` slots."""
-    mb, _ = op.grid
-    b = op.block_size
+    The reference also prepends a zero 'coverage' slot to every block-row
+    so that its walk writes rows without a block; the port's walks write
+    every output row whatever the slots, so it has none (a coverage slot
+    beside a block in the same column would cost the tensor-core walk an
+    extra sweep).  Returns ``(rows, cols, values)`` of the ``S`` slots.
+    Reads nothing on the host."""
+    mb, kb = op.grid
     dev = op.values.device
-    rows = torch.cat([torch.arange(mb, dtype=torch.int32, device=dev),
-                      op.row_idx.to(torch.int32)])
-    cols = torch.cat([torch.zeros(mb, dtype=torch.int32, device=dev),
-                      op.col_idx.to(torch.int32)])
-    vals = torch.cat([op.values.new_zeros((mb, b, b)), op.values])
-    order = torch.argsort(rows, stable=True)
-    return rows[order], cols[order], vals[order]
+    pad = torch.arange(op.capacity, device=dev) >= op.nnz
+    rows = torch.where(pad, mb, op.row_idx.to(torch.int32))
+    cols = op.col_idx.to(torch.int32)
+    order = torch.argsort(rows.long() * kb + cols.long(), stable=True)
+    return rows[order], cols[order], op.values[order]
 
 
 def reblock(op: DynamicOperand, t: int = BLOCK_SIZES[0]) -> DynamicOperand:
@@ -127,13 +150,18 @@ def dsmm_plain(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain PyTorch version: gather each slot's x slice, multiply in
     fp32, add into the slot's output rows.  Same inputs and result as
-    the kernel."""
+    the kernel: a slot whose row or col lies outside the grid adds
+    nothing."""
     n, k = x2.shape
     b = values.shape[-1]
-    xs = x2.float().reshape(n, k // b, b)[:, cols.long()]     # [N, S, b]
-    part = torch.einsum("nsj,sij->nsi", xs, values.float())    # [N, S, b]
-    y = torch.zeros((n, m // b, b), dtype=torch.float32, device=x2.device)
-    y.index_add_(1, rows.long(), part)
+    mb, kb = m // b, k // b
+    r, c = rows.long(), cols.long()
+    keep = ((r >= 0) & (r < mb) & (c >= 0) & (c < kb)).float()
+    xs = x2.float().reshape(n, kb, b)[:, c.clamp(0, max(kb - 1, 0))]
+    part = torch.einsum("nsj,sij->nsi", xs, values.float()
+                        * keep[:, None, None])                 # [N, S, b]
+    y = torch.zeros((n, mb, b), dtype=torch.float32, device=x2.device)
+    y.index_add_(1, r.clamp(0, max(mb - 1, 0)), part)
     return y.reshape(n, m).to(out_dtype or x2.dtype)
 
 
@@ -166,30 +194,43 @@ def _check(x2, values, rows, cols, m):
 
 def dsmm_cuda(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
               cols: torch.Tensor, m: int,
-              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only)."""
+              out_dtype: Optional[torch.dtype] = None,
+              plan: Optional[str] = None) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only) on ``walk(...)``'s walk,
+    or on ``plan`` where the caller names one."""
     _check(x2, values, rows, cols, m)
+    n, k = x2.shape
+    b = values.shape[-1]
+    wk = plan or walk(b, x2.dtype)
+    if wk not in WALKS or (wk == "mma" and walk(b, x2.dtype) != "mma"):
+        raise ValueError(f"dsmm walk {wk!r} does not take b={b} in "
+                         f"{x2.dtype}")
     if x2.device.type != "cuda":
         raise ValueError(f"dsmm_cuda needs CUDA tensors, got {x2.device}")
     if out_dtype not in (None, x2.dtype):
         raise ValueError(f"the dsmm kernel writes its input dtype "
                          f"{x2.dtype}, not {out_dtype}")
-    n, k = x2.shape
-    b = values.shape[-1]
     y = torch.empty((n, m), dtype=x2.dtype, device=x2.device)
     if n == 0 or m == 0:
         return y
+    if wk == "mma":
+        # TMA and cp.async read from 16-byte-aligned bases: a view at an
+        # unaligned offset is copied (fresh allocations are aligned)
+        x2, values = (a if a.data_ptr() % 16 == 0 else a.clone()
+                      for a in (x2, values))
     bounds = torch.zeros(2 * (m // b), dtype=torch.int32, device=x2.device)
     fn = _build.entry("dsmm", "dsmm_nt",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
         code = fn(x2.data_ptr(), values.data_ptr(), rows.data_ptr(),
                   cols.data_ptr(), bounds.data_ptr(), y.data_ptr(), n, k, m,
-                  b, values.shape[0], _build.DTYPE_CODES[x2.dtype], stream)
+                  b, values.shape[0], _build.DTYPE_CODES[x2.dtype],
+                  WALKS.index(wk), stream)
     _build.check(code, "dsmm_nt")
     COUNTER.launches += 1
+    WALK_COUNTERS[wk].launches += 1
     return y
 
 
@@ -197,8 +238,9 @@ def dsmm_slots(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
                cols: torch.Tensor, m: int,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``y[N, m] = x2 . W^T`` over runtime slots whose block-rows are
-    contiguous.  CUDA tensors launch the kernel (or raise); CPU tensors
-    run the plain version."""
+    contiguous (fastest on the tensor-core walk where each row's columns
+    ascend, as ``encode_slots`` orders them).  CUDA tensors launch the
+    kernel (or raise); CPU tensors run the plain version."""
     if x2.device.type == "cuda":
         return dsmm_cuda(x2.contiguous(), values.contiguous(), rows, cols,
                          m, out_dtype)

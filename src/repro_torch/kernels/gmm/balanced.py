@@ -6,9 +6,10 @@ row-major tile order; this variant re-orders the slots by a device-side
 row swizzle (the runtime analogue of ``partitioner.plan_swizzle``):
 row-tiles are snake-binned by their runtime tile counts and the slots
 ordered by ``(bin, row)``.  Each row's slots stay contiguous, which is
-all the dsmm kernel needs; the rows are no longer ascending.  Plain
-PyTorch on device tensors; the balance analysis costs device work per
-call, as everything else in dynamic mode does.
+all the dsmm kernel needs; the rows are no longer ascending (each row's
+columns still are).  Plain PyTorch on device tensors; the balance
+analysis costs device work per call, as everything else in dynamic mode
+does.
 """
 from __future__ import annotations
 
@@ -25,16 +26,19 @@ from repro_torch.kernels.gmm.ops import (fit_tile, pack_tiles_device,
 def _encode_slots_balanced(op: DynamicOperand, num_bins: int
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
-    """Coverage slots + row-swizzled slot order (device-side):
+    """Row-swizzled slot order (device-side):
 
-    1. prepend one zero coverage slot per output row-tile (as
-       ``encode_slots``), so every output tile is written;
-    2. snake-bin row-tiles by their valid slot counts (descending,
-       stable), then stable-sort all slots by ``(bin, row)``.
+    1. snake-bin row-tiles by their valid slot counts (descending,
+       stable);
+    2. stable-sort the slots by ``(bin, row)``, the padding slots (index
+       ``>= op.nnz``) last and off the grid at row-tile ``grid_m``, where
+       the walks skip them.
 
-    Returns ``(rows, cols, values)`` of ``grid_m + S`` slots."""
+    Each row's slots stay contiguous and in the pack's ascending column
+    order.  The reference prepends a zero coverage slot to every row-tile
+    as ``encode_slots`` does; the port's walks write every output tile
+    without one.  Returns ``(rows, cols, values)`` of the ``S`` slots."""
     mt, _ = op.grid
-    b = op.block_size
     dev = op.values.device
     nb = max(1, min(int(num_bins), mt))
     valid = torch.arange(op.capacity, device=dev) < op.nnz
@@ -47,14 +51,12 @@ def _encode_slots_balanced(op: DynamicOperand, num_bins: int
     bin_of_row = torch.zeros(mt, dtype=torch.int32, device=dev)
     bin_of_row[order_desc] = dealt
 
-    rows = torch.cat([torch.arange(mt, dtype=torch.int32, device=dev),
-                      op.row_idx.to(torch.int32)])
-    cols = torch.cat([torch.zeros(mt, dtype=torch.int32, device=dev),
-                      op.col_idx.to(torch.int32)])
-    vals = torch.cat([op.values.new_zeros((mt, b, b)), op.values])
-    key = bin_of_row[rows.long()].long() * (mt + 1) + rows
+    rows = op.row_idx.long()
+    key = torch.where(valid, bin_of_row[rows].long() * (mt + 1) + rows,
+                      nb * (mt + 1))
     order = torch.argsort(key, stable=True)
-    return rows[order], cols[order], vals[order]
+    rows = torch.where(valid, rows, mt).to(torch.int32)
+    return rows[order], op.col_idx.to(torch.int32)[order], op.values[order]
 
 
 def balanced_spmm(op: DynamicOperand, x2: torch.Tensor, *,

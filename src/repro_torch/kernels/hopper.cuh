@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the port's tensor-core walks (dense_mm,
-// gmm, bs_attn): value conversions, mbarriers, TMA tile loads, shared-
-// memory matrix descriptors, wgmma (A from shared memory or from
-// registers) and the tensor-map encoder.  Header only; every source that
-// includes it is rebuilt when it changes (``kernels/_build.py`` hashes the
-// headers a source includes).
+// gmm, bs_attn, dsmm, sddmm): value conversions, mbarriers, TMA tile
+// loads, cp.async, shared-memory matrix descriptors, wgmma (A from shared
+// memory or from registers), the warp-level mma.sync m16n8k16 with its
+// ldmatrix loads, and the tensor-map encoder.  Header only; every source
+// that includes it is rebuilt when it changes (``kernels/_build.py``
+// hashes the headers a source includes).
 #pragma once
 
 #include <cuda.h>
@@ -82,6 +83,21 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ---------------------------------------------------------------------------
+// cp.async (16 bytes a thread)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // one box of a tensor map into shared memory, completion counted in bytes
@@ -235,6 +251,44 @@ HP_DEF_RS(256, __half, "m64n256k16", "f16", HP_R128, HP_D128, "{%128, %129, %130
           "%132", "%133", "%134")
 
 // ---------------------------------------------------------------------------
+// warp-level mma.sync and ldmatrix
+// ---------------------------------------------------------------------------
+
+// four 8 x 8 matrices of 16-bit values from shared memory: lane l gives
+// the address of row l % 8 of matrix l / 8 (16 bytes); register j of lane
+// t holds matrix j's elements (t / 4, 2 (t % 4)) and (t / 4, 2 (t % 4) +
+// 1), with .trans (2 (t % 4), t / 4) and (2 (t % 4) + 1, t / 4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// d[16 x 8] += A[16 x 16] . B[16 x 8] with fp32 accumulation, one warp:
+// a holds A's fragment (rows g, g + 8 and columns 2 t, + 1, + 8, + 9 of
+// lane 4 g + t, in the order (g, k lo), (g + 8, k lo), (g, k hi), (g + 8,
+// k hi)), b B's (rows 2 t, + 1 and 8 + 2 t, + 1 of column g), d rows g
+// and g + 8, columns 2 t and 2 t + 1
+template <typename T> struct Mma16816;
+#define HP_DEF_MMA(CT, TY)                                                                  \
+  template <> struct Mma16816<CT> {                                                         \
+    static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],       \
+                                               uint32_t b0, uint32_t b1) {                  \
+      asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 "                \
+                   "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"        \
+                   : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])                          \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));         \
+    }                                                                                       \
+  };
+HP_DEF_MMA(__nv_bfloat16, "bf16")
+HP_DEF_MMA(__half, "f16")
+
+// ---------------------------------------------------------------------------
 // tensor maps (host)
 // ---------------------------------------------------------------------------
 
@@ -268,8 +322,8 @@ template <> constexpr CUtensorMapDataType tma_type<__half>() {
 }
 
 // a `rank`-D map of 16-bit values: dims innermost first, strides in bytes
-// of dims 1.., box in elements; `swizzle` bytes (128 or 64) must hold the
-// box's innermost row
+// of dims 1.., box in elements; `swizzle` bytes (128, 64 or 32) must hold
+// the box's innermost row
 inline bool encode_map(CUtensorMap* map, CUtensorMapDataType ty, int rank, const void* base,
                        const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
                        int swizzle = 128) {
@@ -278,7 +332,9 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType ty, int rank, const
   cuuint32_t estr[5] = {1, 1, 1, 1, 1};
   return fn(map, ty, (cuuint32_t)rank, const_cast<void*>(base), dims, strides, box, estr,
             CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+            swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+            : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1,6 +1,7 @@
 from repro_torch.kernels.contract import KernelContract, register
-from repro_torch.kernels.sddmm.ops import (COUNTER, sddmm,  # noqa: F401
-                                           sddmm_cuda, sddmm_plain)
+from repro_torch.kernels.sddmm.ops import (COUNTER,  # noqa: F401
+                                           WALK_COUNTERS, sddmm, sddmm_cuda,
+                                           sddmm_plain, walk)
 
 # narrower than the reference's sddmm contract (blocks 1..128 over t x t
 # tiles with t <= 128 dividing m and k): the CUDA kernel samples b x b
@@ -21,8 +22,10 @@ CONTRACT = register(KernelContract(
     divisibility=("m % b == 0", "k % b == 0", "b in (4, 8, 16, 32, 64)"),
     grid="(m // b) x splits blocks (splits from ops.n_splits), each "
          "walking its block-row's run of blocks in groups through a CSR "
-         "row pointer and its slice of N in staged chunks; plus one "
-         "reduce launch when splits > 1",
+         "row pointer and its slice of N in staged chunks (mma, 16-bit, "
+         "b >= 16: a TMA producer warp + 16 mma.sync consumer warps, "
+         "chunks of 64 tokens; ffma: 256 threads, chunks of 32 or 16); "
+         "plus one reduce launch when splits > 1",
     capacity="exact",
     replaces="src/repro/kernels/sddmm/sddmm.py:53 sddmm_tiles_call",
 ))

@@ -12,10 +12,14 @@ for every pattern block ``z`` in lexsort (row, col) order, with
 once.  For a CUDA tensor it launches ``csrc/sddmm.cu`` (the port of
 ``src/repro/kernels/sddmm/sddmm.py`` ``sddmm_tiles_call``) or raises; for
 a CPU tensor it runs ``sddmm_plain``, the gather + einsum version.
+``walk(b, dtype)`` is the pure-Python choice of the kernel's walk: "mma"
+(bf16/fp16 at b in {16, 32, 64}: TMA + warp-level tensor-core products)
+or "ffma" (the rest: fp32 FMA on the CUDA cores).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,7 +29,12 @@ from repro_torch.kernels import _build
 BLOCK_SIZES = (4, 8, 16, 32, 64)
 DTYPES = _build.DTYPES
 COUNTER = _build.LaunchCounter()
-_TARGET_BLOCKS = 1024   # thread blocks to aim for: ~8 per SM of an H100
+WALKS = ("mma", "ffma")
+# launches per walk, beside the total COUNTER
+WALK_COUNTERS = {name: _build.LaunchCounter() for name in WALKS}
+MMA_BLOCKS = (16, 32, 64)   # blocks the tensor-core walk takes
+_FFMA_BLOCKS = 1024     # the FMA walk's 256-thread blocks: ~8 an SM of an H100
+_MMA_WAVE = 2 * 132     # the mma walk's 544-thread blocks: one wave, 2 an SM
 _MIN_SPLIT_ROWS = 256   # least rows of N one split walks
 
 
@@ -37,11 +46,30 @@ def block_row_ptr(row_idx: np.ndarray, grid_rows: int) -> np.ndarray:
     return np.searchsorted(rows, np.arange(grid_rows + 1)).astype(np.int32)
 
 
-def n_splits(n: int, grid_rows: int) -> int:
+def walk(b: int, dtype) -> str:
+    """The walk ``sddmm_cuda`` launches at block ``b`` in ``dtype`` (pure
+    Python; the CPU tests reach it): "mma" for bf16/fp16 at b in
+    ``MMA_BLOCKS``, "ffma" elsewhere."""
+    if b not in BLOCK_SIZES:
+        raise ValueError(f"sddmm kernel takes blocks of {BLOCK_SIZES}; "
+                         f"got {b}")
+    if dtype in (torch.bfloat16, torch.float16) and b in MMA_BLOCKS:
+        return "mma"
+    return "ffma"
+
+
+def n_splits(n: int, grid_rows: int, walk_name: str = "ffma") -> int:
     """Slices of ``N`` the kernel sums separately (1 = one pass writing
-    the result): enough (block-row, slice) thread blocks to fill the
-    card, each slice at least 256 rows of ``N``."""
-    want = -(-_TARGET_BLOCKS // max(grid_rows, 1))
+    the result), each at least 256 rows of ``N``.  The FMA walk aims at
+    ~1024 (block-row, slice) thread blocks; the mma walk splits only
+    where the rows leave most of one wave of its blocks empty, and then
+    into as many slices as still fit in that wave (the partial sums'
+    extra pass costs more than a second wave)."""
+    rows = max(grid_rows, 1)
+    if walk_name == "mma":
+        want = max(1, _MMA_WAVE // rows)
+    else:
+        want = -(-_FFMA_BLOCKS // rows)
     return max(1, min(want, n // _MIN_SPLIT_ROWS))
 
 
@@ -85,9 +113,15 @@ def _check(dy2, x2, row_ptr, col_idx, b):
 
 
 def sddmm_cuda(dy2: torch.Tensor, x2: torch.Tensor, row_ptr: torch.Tensor,
-               col_idx: torch.Tensor, b: int) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only)."""
+               col_idx: torch.Tensor, b: int,
+               plan: Optional[str] = None) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only) on ``walk(...)``'s walk,
+    or on ``plan`` where the caller names one."""
     _check(dy2, x2, row_ptr, col_idx, b)
+    wk = plan or walk(b, dy2.dtype)
+    if wk not in WALKS or (wk == "mma" and walk(b, dy2.dtype) != "mma"):
+        raise ValueError(f"sddmm walk {wk!r} does not take b={b} in "
+                         f"{dy2.dtype}")
     if dy2.device.type != "cuda":
         raise ValueError(f"sddmm_cuda needs CUDA tensors, got {dy2.device}")
     n, m = dy2.shape
@@ -98,26 +132,34 @@ def sddmm_cuda(dy2: torch.Tensor, x2: torch.Tensor, row_ptr: torch.Tensor,
         return out
     if n == 0:
         return out.zero_()
-    # the kernel stages rows with 16-byte loads: an operand that is a
-    # view at an unaligned offset is copied (fresh allocations are)
+    # the kernel stages rows with 16-byte loads (ffma) or TMA (mma): an
+    # operand that is a view at an unaligned offset is copied (fresh
+    # allocations are)
     dy2, x2 = (a if a.data_ptr() % 16 == 0 else a.clone()
                for a in (dy2, x2))
+    # the mma walk's scratch for x^T [k, N'], N' = N rounded up to 8
+    # (TMA's 16-byte row stride)
+    ldx = -(-n // 8) * 8 if wk == "mma" else 0
+    xt = (torch.empty((k, ldx), dtype=x2.dtype, device=x2.device)
+          if wk == "mma" else None)
     mb = m // b
-    splits = n_splits(n, mb)
+    splits = n_splits(n, mb, wk)
     partial = (torch.empty(splits * nnz * b * b, dtype=torch.float32,
                            device=dy2.device) if splits > 1 else None)
     fn = _build.entry("sddmm", "sddmm",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(dy2.device).cuda_stream
     with torch.cuda.device(dy2.device):
         code = fn(dy2.data_ptr(), x2.data_ptr(), row_ptr.data_ptr(),
                   col_idx.data_ptr(), out.data_ptr(),
                   partial.data_ptr() if partial is not None else None,
-                  n, m, k, nnz, splits, b, _build.DTYPE_CODES[dy2.dtype],
-                  stream)
+                  xt.data_ptr() if xt is not None else None,
+                  n, m, k, ldx, nnz, splits, b,
+                  _build.DTYPE_CODES[dy2.dtype], WALKS.index(wk), stream)
     _build.check(code, "sddmm")
     COUNTER.launches += 1
+    WALK_COUNTERS[wk].launches += 1
     return out
 
 

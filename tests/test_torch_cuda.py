@@ -193,7 +193,7 @@ def test_sparse_lm_on_card_matches_cpu(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("b", [4, 8, 16, 32, 64])
-@pytest.mark.parametrize("n", [1, 70, 600])   # one pass and split N
+@pytest.mark.parametrize("n", [1, 70, 600, 2047])   # one pass and split N
 def test_sddmm_cuda_matches_plain(dev, dtype, b, n):
     from repro_torch.kernels.sddmm import ops as sddmm_ops
     m, k = 256, 512
@@ -207,13 +207,52 @@ def test_sddmm_cuda_matches_plain(dev, dtype, b, n):
                           device=dev)
     tc = torch.as_tensor(cols.astype(np.int32), device=dev)
     tr = torch.as_tensor(rows, device=dev)
+    wk = sddmm_ops.walk(b, dtype)
+    assert wk == ("ffma" if dtype == torch.float32 or b < 16 else "mma")
+    # split N at 600 and 2047 tokens, one pass at 1 and 70
+    assert (sddmm_ops.n_splits(n, m // b, wk) > 1) == (n >= 600)
     before = sddmm_ops.COUNTER.launches
+    walk_before = sddmm_ops.WALK_COUNTERS[wk].launches
     got = sddmm_ops.sddmm(dy, x, ptr, tc, tr, b)
     torch.cuda.synchronize()
     assert sddmm_ops.COUNTER.launches == before + 1
+    assert sddmm_ops.WALK_COUNTERS[wk].launches == walk_before + 1
     assert got.shape == (rows.size, b, b) and got.dtype == dtype
     want = sddmm_ops.sddmm_plain(dy, x, tr.long(), tc.long(), b)
     assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b", [16, 32, 64])
+@pytest.mark.parametrize("n", [3, 2047])
+def test_sddmm_mma_walk_long_rows_match_plain(dev, dtype, b, n):
+    """Rows of more blocks than one group holds (16 / 8 / 4 at b = 16 /
+    32 / 64), an empty row and a row of one block, on the mma walk and on
+    the FFMA walk forced on the same inputs."""
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
+    m, k = 8 * b, 2048
+    mask = masks.random_block_mask(m, k, b, 0.4, seed=b + n)
+    mask[1] = False
+    mask[2] = False
+    mask[2, 5] = True
+    rows, cols = np.nonzero(mask)
+    g = torch.Generator(device=dev).manual_seed(b)
+    dy = torch.randn((n, m), generator=g, device=dev).to(dtype)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    ptr = torch.as_tensor(sddmm_ops.block_row_ptr(rows, m // b),
+                          device=dev)
+    tc = torch.as_tensor(cols.astype(np.int32), device=dev)
+    tr = torch.as_tensor(rows, device=dev)
+    want = sddmm_ops.sddmm_plain(dy, x, tr.long(), tc.long(), b)
+    before = sddmm_ops.WALK_COUNTERS["mma"].launches
+    got = sddmm_ops.sddmm_cuda(dy, x, ptr, tc, b)
+    ffma = sddmm_ops.sddmm_cuda(dy, x, ptr, tc, b, plan="ffma")
+    torch.cuda.synchronize()
+    assert sddmm_ops.WALK_COUNTERS["mma"].launches == before + 1
+    assert _rel(got, want) <= TOL[dtype]
+    assert _rel(ffma, want) <= TOL[dtype]
+    assert torch.all(got[ptr[2]:ptr[3]].float().abs().sum() > 0)
 
 
 @pytest.mark.cuda
@@ -258,7 +297,7 @@ GENS = {"uniform": masks.random_block_mask,
                                    torch.float16])
 @pytest.mark.parametrize("b", [4, 8, 16, 32, 64, 128])
 @pytest.mark.parametrize("kind", list(GENS))
-@pytest.mark.parametrize("n", [3, 300])
+@pytest.mark.parametrize("n", [1, 3, 300, 2047])
 def test_dsmm_cuda_matches_plain(dev, dtype, b, kind, n):
     from repro_torch.core import dynamic_sparse as dsp
     from repro_torch.kernels.dsmm import ops as dsmm_ops
@@ -274,12 +313,16 @@ def test_dsmm_cuda_matches_plain(dev, dtype, b, kind, n):
     # contiguous per row without coverage or sorting; row 1 has no run
     exact = dsp.encode(w, torch.as_tensor(mask, device=dev), block_size=b,
                        nnz_max=int(mask.sum()))
+    wk = dsmm_ops.walk(b, dtype)
+    assert wk == ("ffma" if dtype == torch.float32 or b < 16 else "mma")
     before = dsmm_ops.COUNTER.launches
+    walk_before = dsmm_ops.WALK_COUNTERS[wk].launches
     got = dsmm_ops.dsmm(op, x)
     raw = dsmm_ops.dsmm_slots(x, exact.values, exact.row_idx,
                               exact.col_idx, m)
     torch.cuda.synchronize()
     assert dsmm_ops.COUNTER.launches == before + 2
+    assert dsmm_ops.WALK_COUNTERS[wk].launches == walk_before + 2
     rows, cols, vals = dsmm_ops.encode_slots(op)
     want = dsmm_ops.dsmm_plain(x, vals, rows, cols, m)
     assert got.dtype == dtype and torch.all(raw[:, b:2 * b] == 0)
@@ -316,6 +359,107 @@ def test_bsmm_balanced_cuda_matches_plain(dev, dtype, b, kind, n):
     assert torch.all(got[:, :b] == 0)
     assert _rel(got, want) <= TOL[dtype]
     assert _rel(got, x @ bsr.to_dense().t()) <= TOL[dtype] * 5
+
+
+def _slot_cases(b, dev, dtype):
+    """``(name, values, rows, cols, m, k)`` slot lists the dsmm tensor-
+    core walk must take: padding only; rows in descending order; each
+    row's columns descending; chunks of K that no row of a group touches
+    (only the first and last block-columns used, at k = 40 blocks); every
+    block present (more slots a chunk than a stage holds); k below one
+    64-column chunk; duplicate slots of one block."""
+    from repro_torch.core import dynamic_sparse as dsp
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    g = torch.Generator(device=dev).manual_seed(b)
+    out = []
+
+    def enc(m, k, mask, cap):
+        w = torch.randn((m, k), generator=g, device=dev).to(dtype)
+        return dsp.encode(w, torch.as_tensor(mask, device=dev),
+                          block_size=b, nnz_max=cap)
+
+    m, k = 16 * b, 8 * b
+    op = enc(m, k, np.zeros((16, 8), bool), 9)
+    r, c, v = dsmm_ops.encode_slots(op)
+    out.append(("all padded", v, r, c, m, k))
+    mask = masks.random_block_mask(m, k, b, 0.3, seed=b)
+    op = enc(m, k, mask, int(mask.sum()) + 4)
+    r, c, v = dsmm_ops.encode_slots(op)
+    # whole row runs in descending row order, and each run reversed
+    runs = torch.unique_consecutive(r, return_counts=True)[1].tolist()
+    idx = torch.arange(r.numel(), device=dev).split(runs)
+    down = torch.cat(idx[::-1])
+    out.append(("rows descending", v[down], r[down], c[down], m, k))
+    rev = torch.cat([i.flip(0) for i in idx])
+    out.append(("columns descending", v[rev], r[rev], c[rev], m, k))
+    m, k = 8 * b, 40 * b
+    mask = np.zeros((8, 40), bool)
+    mask[::2, 0] = mask[1::3, 39] = mask[5, 20] = True
+    r, c, v = dsmm_ops.encode_slots(enc(m, k, mask, int(mask.sum())))
+    out.append(("untouched chunks", v, r, c, m, k))
+    m, k = 8 * b, 8 * b
+    r, c, v = dsmm_ops.encode_slots(enc(m, k, np.ones((8, 8), bool), 64))
+    out.append(("dense", v, r, c, m, k))
+    if b < 64:
+        m, k = 4 * b, (48 // b) * b
+        mask = np.ones((4, k // b), bool)
+        r, c, v = dsmm_ops.encode_slots(enc(m, k, mask, int(mask.sum())))
+        out.append(("k below a chunk", v, r, c, m, k))
+    m, k = 4 * b, 4 * b
+    v = torch.randn((6, b, b), generator=g, device=dev).to(dtype)
+    r = torch.tensor([0, 0, 0, 2, 2, 3], dtype=torch.int32, device=dev)
+    c = torch.tensor([1, 1, 3, 0, 0, 2], dtype=torch.int32, device=dev)
+    out.append(("duplicates", v, r, c, m, k))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b", [16, 32, 64, 128])
+@pytest.mark.parametrize("n", [1, 300])
+def test_dsmm_mma_walk_slot_orders_match_plain(dev, dtype, b, n):
+    """The tensor-core walk on slot lists the runtime encoders may give or
+    a caller may pass (``_slot_cases``), against the plain version, and
+    the FFMA walk forced on the same inputs."""
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    for name, v, r, c, m, k in _slot_cases(b, dev, dtype):
+        g = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+        before = dsmm_ops.WALK_COUNTERS["mma"].launches
+        got = dsmm_ops.dsmm_slots(x, v, r, c, m)
+        ffma = dsmm_ops.dsmm_cuda(x, v, r, c, m, plan="ffma")
+        torch.cuda.synchronize()
+        assert dsmm_ops.WALK_COUNTERS["mma"].launches == before + 1, name
+        want = dsmm_ops.dsmm_plain(x, v, r, c, m)
+        if not want.float().abs().max() > 0:
+            assert torch.all(got == 0) and torch.all(ffma == 0), name
+            continue
+        assert _rel(got, want) <= TOL[dtype], name
+        assert _rel(ffma, want) <= TOL[dtype], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n", [3, 2047])
+def test_dsmm_mma_walk_on_grouped_tiles(dev, dtype, n):
+    """The grouped routes' t = 128 tiles through the tensor-core walk,
+    at the FFN's up/gate shape (8192 x 2048, b = 16, d = 1/8)."""
+    from repro_torch.core import dynamic_sparse as dsp
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    m, k, b = 8192, 2048, 16
+    mask = masks.random_block_mask(m, k, b, 1 / 8, seed=1)
+    g = torch.Generator(device=dev).manual_seed(n)
+    w = (torch.randn((m, k), generator=g, device=dev) / 45).to(dtype)
+    op = dsp.encode(w, torch.as_tensor(mask, device=dev), block_size=b,
+                    nnz_max=int(mask.sum()))
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    before = dsmm_ops.WALK_COUNTERS["mma"].launches
+    got = gmm_ops.grouped_spmm(op, x, tile=128)
+    torch.cuda.synchronize()
+    assert dsmm_ops.WALK_COUNTERS["mma"].launches == before + 1
+    want = torch.matmul(x.float(), op.to_dense().float().t())
+    assert _rel(got, want) <= TOL[dtype]
 
 
 # (m, k) per block outside the kernels' tiles: b = 3 on a grid the 4 x 4

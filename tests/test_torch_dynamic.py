@@ -107,12 +107,31 @@ def test_encode_from_bsr_bit_equal():
 
 @pytest.mark.parametrize("b", [4, 16])
 def test_encode_slots_bit_equal(b):
+    """The port's slot encoder against the reference's, slot for slot:
+    the reference's pattern slots without its per-row zero coverage slot
+    (the first of each row) and its padding (the last ``capacity - nnz``
+    of row 0), brought into the port's order (stable by ``row * grid_k +
+    col``); the port's padding follows, off the grid at row ``grid_m``."""
     _, _, jop, top = _encode_both(128, 256, b, 0.2, 7 + b, 40)
-    jr, jc, jv = jdsmm_ops._encode_slots(jop)
+    jr, jc, jv = (np.asarray(a) for a in jdsmm_ops._encode_slots(jop))
+    jv = jv.astype(np.float32)
     tr, tc, tv = tdsmm_ops.encode_slots(top)
-    np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
-    np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
-    np.testing.assert_array_equal(np.asarray(jv), _np(tv))
+    mb, kb = top.grid
+    nnz = int(top.nnz)
+    pad = top.capacity - nnz
+    first = np.searchsorted(jr, np.arange(mb))
+    keep = np.ones(jr.size, bool)
+    keep[first] = False
+    row0_end = int(np.searchsorted(jr, 1))
+    keep[row0_end - pad:row0_end] = False
+    assert not jv[~keep].any() and not jc[~keep].any()
+    order = np.argsort(jr[keep].astype(np.int64) * kb + jc[keep],
+                       kind="stable")
+    assert tr.numel() == top.capacity
+    np.testing.assert_array_equal(jr[keep][order], tr[:nnz].numpy())
+    np.testing.assert_array_equal(jc[keep][order], tc[:nnz].numpy())
+    np.testing.assert_array_equal(jv[keep][order], _np(tv[:nnz]))
+    assert (tr[nnz:] == mb).all() and not _np(tv[nnz:]).any()
 
 
 def test_operand_validation():

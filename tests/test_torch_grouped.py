@@ -81,13 +81,30 @@ def test_pack_tiles_bit_equal_and_stats_exact(b, cap):
 
 
 def test_encode_slots_balanced_bit_equal():
+    """The port's balanced slot order against the reference's, slot for
+    slot: the reference's without its per-row zero coverage slot (the
+    first of each row's run) and its padding (the last ``capacity - nnz``
+    slots of row 0's run), in the same order; the port's padding follows,
+    off the grid at row ``grid_m``."""
     jop, top, _ = _operands(9, b=16, d=0.25, gen=jmasks.power_law_block_mask)
+    mt = top.grid[0]
+    nnz = int(top.nnz)
+    pad = top.capacity - nnz
+    assert pad > 0
     for bins in (1, 3, 8):
-        jr, jc, jv = jgbal._encode_slots_balanced(jop, bins)
+        jr, jc, jv = (np.asarray(a)
+                      for a in jgbal._encode_slots_balanced(jop, bins))
         tr, tc, tv = tgbal._encode_slots_balanced(top, bins)
-        np.testing.assert_array_equal(np.asarray(jr), tr.numpy())
-        np.testing.assert_array_equal(np.asarray(jc), tc.numpy())
-        np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
+        starts = np.flatnonzero(np.r_[True, jr[1:] != jr[:-1]])
+        keep = np.ones(jr.size, bool)
+        keep[starts] = False
+        row0 = np.flatnonzero(jr == 0)
+        keep[row0[-pad:]] = False
+        assert not jv[~keep].any() and not jc[~keep].any()
+        np.testing.assert_array_equal(jr[keep], tr[:nnz].numpy())
+        np.testing.assert_array_equal(jc[keep], tc[:nnz].numpy())
+        np.testing.assert_array_equal(jv[keep], tv[:nnz].numpy())
+        assert (tr[nnz:] == mt).all() and not tv[nnz:].any()
 
 
 @pytest.mark.parametrize("route", ["dynamic_grouped",
