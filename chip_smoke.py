@@ -12,19 +12,27 @@ Phases, each fatal on failure:
 2. kernels: every kernel against its plain PyTorch version on the card
    at the shapes of the main paths of llama3.2-1b (b=16, d=1/8; bsmm
    up/gate 8192x2048 and down 2048x8192, dense_mm q/o 2048x2048 and
-   k/v 2048x512; bf16 and fp32): serving N in {4, 256}, training N =
-   2048 (batch 4 x seq 512) for bsmm forward, bsmm on the transposed
-   patterns and dense_mm, sddmm at N in {256, 2048}; dense_mm also at
+   k/v 2048x512; bf16 and fp32): bsmm forward and on the transposed
+   patterns at N in {4, 16, 256, 2048} (decode, prefill, training N =
+   batch 4 x seq 512), the forward in bf16 also at N 8 and 64 (the
+   crossover of its decode and mma walks), and at gemma2-2b's FFN (up/gate
+   9216x2304, down 2304x9216) at the length its serve run prefills most
+   prompts at (6112); dense_mm at serving N in {4, 256} and training N;
+   sddmm at N in {256, 2048}; dense_mm also at
    llama's served prefill lengths, at gemma2-2b's q/k/v/o (decode N 2 and
    its served prefills), at qwen3-moe's q/k/v/o (N 4, 256, 1008 and its
    served prefills) and Table 3's 4096^3 in fp16, each row naming the
    walk the kernel took (decode, wgmma or ffma; sddmm's mma or ffma,
-   with the FFMA walk's ms on the same 16-bit inputs); with each kernel's
+   with the FFMA walk's ms on the same 16-bit inputs; bsmm's decode, mma
+   or ffma, with every other walk that takes N forced on the same 16-bit
+   inputs: ffma_ms, and decode_ms or mma_ms); with each kernel's
    time, its plain version's time, one library call's time and the least
    time the card could take (the bound).  Each main-path phase below also
-   reports the launches of dense_mm, bs_attn, gmm, dsmm and sddmm by walk,
-   and fails if a 16-bit bs_attn or gmm launch of it ran off the wgmma
-   walk, or a 16-bit dsmm or sddmm launch at b >= 16 off the mma walk;
+   reports the launches of dense_mm, bs_attn, gmm, dsmm, sddmm, bsmm and
+   bsmm_balanced by walk, and fails if a 16-bit bs_attn or gmm launch of
+   it ran off the wgmma walk, a 16-bit dsmm or sddmm launch at b >= 16
+   off the mma walk, or a 16-bit bsmm launch at b = 16 on the ffma walk
+   (mma or decode);
 3. serve: full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
    vocab 128256) with every FFN block-sparse at d=1/8, b=16, in bf16,
    seeded random weights, through ``Engine(batch=4, max_len=512)``: 8
@@ -49,8 +57,9 @@ Phases, each fatal on failure:
    pack's ms), each row naming its walk (mma in 16-bit at b >= 16, ffma
    else) and, on the mma walk, the FFMA walk's ms; bsmm_balanced on the
    skew grid (4096 x 4096, b = 16, d = 1/32, N = 4096; uniform,
-   power-law and DLMC masks; bf16 and fp32), beside the uniform bsmm
-   walk (these rows print with the kernel rows of phase 2);
+   power-law and DLMC masks; bf16 and fp32), naming its walk (mma in
+   16-bit, with the FFMA walk's ms), beside the uniform bsmm walk on the
+   same tiles (these rows print with the kernel rows of phase 2);
 8. table3: the paper's Table 3 (m = k = 4096, d = 1/16, N = 4096, b in
    {1, 4, 16}, fp16 and fp32; b = 1 packed into 4 x 4 tiles on the
    static routes and re-blocked on the device on dynamic_cuda): one line
@@ -58,8 +67,9 @@ Phases, each fatal on failure:
    dynamic_cuda with its encode, and the grouped
    routes at worst-case capacity) with its ms and its speedup against
    dense_cuda and torch.matmul; every output checked against the fp32
-   dense product, every kernel of the routes launched, every dynamic
-   route's dsmm launches on the walk its walked block takes;
+   dense product, every kernel of the routes launched, every sparse
+   route's launches (bsmm, bsmm_balanced, dsmm) on the walk its walked
+   block takes;
 9. dynamic: a SwiGLU FFN of three DynamicSparseLinear at llama3.2-1b
    width (2048 -> 8192 -> 2048, d_max = 1/8, b = 16, bf16), N = 2048,
    5 forward + backward steps with a fresh seeded mask each; step 0
@@ -199,24 +209,30 @@ def bound(nbytes: float, flops: float, dtype: str):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-WALK_KERNELS = ("dense_mm", "bs_attn", "gmm", "dsmm", "sddmm")
+WALK_KERNELS = ("dense_mm", "bs_attn", "gmm", "dsmm", "sddmm", "bsmm",
+                "bsmm_balanced")
 # each kernel's tensor-core walk (what its 16-bit launches at b >= 16 take)
 TC_WALK = {"bs_attn": "wgmma", "gmm": "wgmma", "dsmm": "mma",
-           "sddmm": "mma"}
+           "sddmm": "mma", "bsmm": "mma", "bsmm_balanced": "mma"}
+# the other walks a 16-bit launch at b >= 16 may take: bsmm's decode walk
+# for the fewest tokens
+ALSO_ALLOWED = {"bsmm": ("decode",)}
 
 
 def with_walks(counters):
     """``counters`` plus the launch counter of each walk of the kernels
-    that have several (dense_mm, bs_attn, gmm, dsmm, sddmm), under
-    ``<kernel>:<walk>``."""
+    that have several (dense_mm, bs_attn, gmm, dsmm, sddmm, bsmm,
+    bsmm_balanced), under ``<kernel>:<walk>``."""
     from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bsmm import balanced as bal_ops
+    from repro_torch.kernels.bsmm import ops as bsmm_ops
     from repro_torch.kernels.dense_mm import ops as dmm_ops
     from repro_torch.kernels.dsmm import ops as dsmm_ops
     from repro_torch.kernels.gmm import ops as gmm_ops
     from repro_torch.kernels.sddmm import ops as sddmm_ops
     out = dict(counters)
     for kernel, ops in zip(WALK_KERNELS, (dmm_ops, bs_ops, gmm_ops, dsmm_ops,
-                                          sddmm_ops)):
+                                          sddmm_ops, bsmm_ops, bal_ops)):
         out.update({f"{kernel}:{w}": c for w, c in ops.WALK_COUNTERS.items()})
     return out
 
@@ -234,8 +250,10 @@ def split_walks(launches):
 
 def check_tensor_core_walks(phase, walks, kernels=("bs_attn", "gmm")):
     """Every launch of ``kernels`` on a 16-bit main path (whose sparse
-    blocks are b = 16) ran on its tensor-core walk."""
-    off = {k: {w: n for w, n in walks[k].items() if w != TC_WALK[k] and n}
+    blocks are b = 16) ran on its tensor-core walk (bsmm: or its decode
+    walk)."""
+    off = {k: {w: n for w, n in walks[k].items()
+               if w != TC_WALK[k] and w not in ALSO_ALLOWED.get(k, ()) and n}
            for k in kernels}
     if any(off.values()):
         raise RuntimeError(f"[{phase}] 16-bit launches off the tensor-core "
@@ -284,6 +302,53 @@ def kernel_phase(torch, args):
         return (torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float32) * scale).to(dt)
 
+    def bsmm_rows(shape, tiles, meta, d_in, d_out, dense_w, lib, ns, dname,
+                  dt, nnz):
+        """bsmm rows of x [N, d_in] -> [N, d_out] over ``tiles`` walked by
+        ``meta`` (a plan or its grad plan): the walk ``walk()`` names,
+        and in 16-bit every other walk that takes N forced on the same
+        inputs (``walk_ms``: ffma, and decode or mma)."""
+        es = torch.empty((), dtype=dt).element_size()
+        for n in ns:
+            a = randn((n, d_in), dt)
+            nbytes = (n * d_in + tiles.numel() + n * d_out) * es
+            sets = copies(lambda: (a.clone(), tiles.clone()), nbytes)
+            lib_sets = copies(lambda: (a.clone(), dense_w.clone()),
+                              (n * d_in + d_in * d_out) * es)
+
+            def run(a_, t_, plan=None):
+                return bsmm_ops.bsmm_nt_cuda(a_, t_, meta.row_ptr,
+                                             meta.tile_cols, d_out,
+                                             meta.mma, plan=plan)
+            row = dict(measured_row(
+                torch, "bsmm", shape, n, dname, run,
+                lambda a_, t_: bsmm_ops.bsmm_nt_plain(
+                    a_, t_, meta.tile_rows.long(), meta.tile_cols.long(),
+                    d_out),
+                lib, sets, lib_sets,
+                # the non-zero blocks, not the pad tiles
+                nbytes - (tiles.numel() - nnz * b * b) * es
+                + (meta.row_ptr.numel() + meta.tile_cols.numel()) * 4,
+                n * 2.0 * nnz * b * b), tiles=int(tiles.shape[0]),
+                nnz_blocks=nnz)
+            wk = bsmm_ops.walk(b, dt, n)
+            others = []
+            if dt != torch.float32:
+                others = [w for w in ("decode", "mma", "ffma") if w != wk
+                          and (w != "decode"
+                               or n <= bsmm_ops.DECODE_CAPACITY[b])]
+            row.update(walk=wk, walk_ms={
+                w: timed_ms(torch, lambda a_, t_, w=w: run(a_, t_, w), sets,
+                            30 if n <= 256 else 10) for w in others})
+            # the FFMA walk (every dtype's walk past decode before the
+            # tensor-core one) on the same 16-bit inputs
+            row["before_ms"] = row["walk_ms"].get("ffma")
+            if meta.mma is not None:
+                row.update(mma_groups=meta.mma.groups,
+                           mma_stages=meta.mma.stages)
+            rows.append(row)
+            del sets, lib_sets
+
     for shape_name, m, k in (("up/gate", 8192, 2048), ("down", 2048, 8192)):
         mask = masks.random_block_mask(m, k, b, density, seed=args.seed + 1)
         nnz = int(mask.sum())
@@ -295,37 +360,17 @@ def kernel_phase(torch, args):
             p = sparse.plan(bsr, 0, device=dev)
             g = p.grad
             dense_w = bsr.to_dense()
-            # bsmm forward x [N, k] -> [N, m] (serving and training N) and
-            # dL/dx over W^T's tiles dy [N, m] -> [N, k] (training N)
-            for what, tiles, meta, d_in, d_out, lib, ns in (
-                    ("", p.pack(vals), p, k, m,
-                     lambda a_, w_: torch.matmul(a_, w_.t()),
-                     (4, 256, train_n)),
-                    (" transposed", p.pack_t(vals), g, m, k, torch.matmul,
-                     (train_n,))):
-                for n in ns:
-                    a = randn((n, d_in), dt)
-                    nbytes = (n * d_in + tiles.numel() + n * d_out) * es
-                    sets = copies(lambda: (a.clone(), tiles.clone()), nbytes)
-                    lib_sets = copies(lambda: (a.clone(), dense_w.clone()),
-                                      (n * d_in + m * k) * es)
-                    rows.append(dict(measured_row(
-                        torch, "bsmm", f"{shape_name} {m}x{k}{what}", n,
-                        dname,
-                        lambda a_, t_, meta=meta, d_out=d_out:
-                            bsmm_ops.bsmm_nt_cuda(a_, t_, meta.row_ptr,
-                                                  meta.tile_cols, d_out),
-                        lambda a_, t_, meta=meta, d_out=d_out:
-                            bsmm_ops.bsmm_nt_plain(
-                                a_, t_, meta.tile_rows.long(),
-                                meta.tile_cols.long(), d_out),
-                        lib, sets, lib_sets,
-                        # the non-zero blocks, not the pad tiles
-                        nbytes - (tiles.numel() - nnz * b * b) * es
-                        + (meta.row_ptr.numel() + meta.tile_cols.numel()) * 4,
-                        n * flops), tiles=int(tiles.shape[0]),
-                        nnz_blocks=nnz))
-                    del sets, lib_sets
+            # bsmm forward x [N, k] -> [N, m] (decode, the crossover of
+            # decode and mma in 16-bit, prefill and training N) and dL/dx
+            # over W^T's tiles dy [N, m] -> [N, k]
+            fwd_ns = ((4, 8, 16, 64, 256, train_n) if dt != torch.float32
+                      else (4, 16, 256, train_n))
+            bsmm_rows(f"{shape_name} {m}x{k}", p.pack(vals), p, k, m,
+                      dense_w, lambda a_, w_: torch.matmul(a_, w_.t()),
+                      fwd_ns, dname, dt, nnz)
+            bsmm_rows(f"{shape_name} {m}x{k} transposed", p.pack_t(vals), g,
+                      m, k, dense_w, torch.matmul, (4, 16, 256, train_n),
+                      dname, dt, nnz)
             # dL/dvalues: dy [N, m], x [N, k] -> [nnz, b, b]; the library
             # call is the dense product the sampled one is a part of
             for n in (256, train_n):
@@ -356,6 +401,23 @@ def kernel_phase(torch, args):
                 rows.append(row)
                 del sets
             del dense_w
+    # bsmm at gemma2-2b's FFN (d_model 2304, d_ff 9216, d = 1/8, b = 16)
+    # at the length [serve-gemma2] prefills most of its prompts at
+    from repro_torch import configs
+    gemma = configs.get("gemma2-2b")
+    gemma_pre = min(gemma2_prefill_lens(args))
+    for shape_name, m, k in (("gemma2 up/gate", gemma.d_ff, gemma.d_model),
+                             ("gemma2 down", gemma.d_model, gemma.d_ff)):
+        mask = masks.random_block_mask(m, k, b, density, seed=args.seed + 4)
+        nnz = int(mask.sum())
+        for dname, dt in dtypes.items():
+            vals = randn((nnz, b, b), dt, 1 / math.sqrt(k * density))
+            bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
+            p = sparse.plan(bsr, 0, device=dev)
+            bsmm_rows(f"{shape_name} {m}x{k}", p.pack(vals), p, k, m,
+                      bsr.to_dense(), lambda a_, w_: torch.matmul(a_, w_.t()),
+                      (gemma_pre,), dname, dt, nnz)
+            del bsr, p, vals
     # dense_mm at llama's q/o and k/v (decode N 4, N 256, training N and
     # every prefill length [serve] runs), gemma2's attention projections
     # (q 2304 -> 8 x 256, k/v 2304 -> 4 x 256, o 2048 -> 2304) at its
@@ -364,9 +426,7 @@ def kernel_phase(torch, args):
     # 2048) at its decode batch, at N 256 and 1008 and at every prefill
     # length [serve-qwen3-moe] runs, and Table 3's 4096^3 in fp16; each
     # row names the walk the kernel took
-    from repro_torch import configs
     llama_ns = sorted({4, 256, train_n} | set(llama_prefill_lens(args)))
-    gemma = configs.get("gemma2-2b")
     g_q, g_kv = (gemma.num_heads * gemma.head_dim,
                  gemma.num_kv_heads * gemma.head_dim)
     gemma_ns = sorted({GEMMA2_BATCH} | set(gemma2_prefill_lens(args)))
@@ -489,7 +549,7 @@ def train_phase(torch, args):
     wall = time.perf_counter() - t0
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
-    check_tensor_core_walks("train", walks, ("bs_attn", "sddmm"))
+    check_tensor_core_walks("train", walks, ("bs_attn", "sddmm", "bsmm"))
     walls = sorted(r["step_s"] for r in records)
     p50 = float(np.median(walls))
     result = dict(
@@ -566,7 +626,7 @@ def serve_phase(torch, args):
     wall = time.perf_counter() - t0
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
-    check_tensor_core_walks("serve", walks)
+    check_tensor_core_walks("serve", walks, ("bs_attn", "gmm", "bsmm"))
 
     if not all(r.done and len(r.output) == LLAMA_NEW for r in reqs):
         raise RuntimeError(f"not every request finished with {LLAMA_NEW} "
@@ -918,7 +978,8 @@ def serve_gemma2_phase(torch, args):
     wall = time.perf_counter() - t0
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
-    check_tensor_core_walks("serve-gemma2", walks)
+    check_tensor_core_walks("serve-gemma2", walks,
+                            ("bs_attn", "gmm", "bsmm"))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     if not all(r.done and len(r.output) == new for r in reqs):
@@ -1175,12 +1236,19 @@ def dynamic_kernel_phase(torch, args):
                 torch, "bsmm_balanced", f"skew {kind} {m}x{k} d=1/32", n,
                 dname,
                 lambda a_, t_: bal_ops.bsmm_balanced_cuda(a_, t_, vr, vc,
-                                                          vs, m),
+                                                          vs, m, p.mma),
                 lambda a_, t_: bal_ops.bsmm_balanced_plain(a_, t_, vr, vc,
                                                            vs, m),
                 lambda a_, w_: torch.matmul(a_, w_.t()), sets, lib_sets,
                 nbytes, 2.0 * nnz * b * b * n)
-            # the uniform walk on the same pattern (no pad tile)
+            # the FFMA walk (every dtype's walk before the tensor-core
+            # one) on the same 16-bit inputs, and the uniform walk (bsmm,
+            # the walk its plan names) on the same pattern (no pad tile)
+            wk = bal_ops.walk(b, dt)
+            row.update(walk=wk, before_ms=(timed_ms(
+                torch, lambda a_, t_: bal_ops.bsmm_balanced_cuda(
+                    a_, t_, vr, vc, vs, m, p.mma, plan="ffma"), sets, 10)
+                if wk != "ffma" else None))
             pu = sparse.plan(bsr, n, device=dev)
             usets = [(a_, t_[:-1].contiguous()) for a_, t_ in sets]
             row["uniform_bsmm_ms"] = timed_ms(
@@ -1215,9 +1283,12 @@ def table3_phase(torch, args):
     from repro_torch.core import masks
     from repro_torch.core.bsr import BlockSparseMatrix
     from repro_torch.kernels import contract
+    from repro_torch.kernels.bsmm import balanced as bal_ops
+    from repro_torch.kernels.bsmm import ops as bsmm_ops
     from repro_torch.kernels.dense_mm import ops as dmm_ops
     from repro_torch.kernels.dsmm import ops as dsmm_ops
     from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.sparse.plan import kernel_tile
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 13)
@@ -1274,22 +1345,33 @@ def table3_phase(torch, args):
             walked.update({r_: gmm_ops.grouped_tile(m, k, b)
                            for r_ in TABLE3_ROUTES
                            if r_.startswith("dynamic_grouped")})
+            # each sparse route's kernel, its walk counters, the block it
+            # walks and the walk that block names
+            tile = kernel_tile(b)[0]
+            route_walk = {
+                "static_cuda": ("bsmm", bsmm_ops.WALK_COUNTERS, tile,
+                                bsmm_ops.walk(tile, dt, n)),
+                "static_balanced_cuda": ("bsmm_balanced",
+                                         bal_ops.WALK_COUNTERS, tile,
+                                         bal_ops.walk(tile, dt))}
+            route_walk.update({r_: ("dsmm", dsmm_ops.WALK_COUNTERS, t_,
+                                    dsmm_ops.walk(t_, dt))
+                               for r_, t_ in walked.items()})
             for route in TABLE3_ROUTES:
-                before = {w_: c.launches
-                          for w_, c in dsmm_ops.WALK_COUNTERS.items()}
+                kernel, ctrs, block, want_walk = route_walk.get(
+                    route, (None, {}, None, None))
+                before = {w_: c.launches for w_, c in ctrs.items()}
                 err = rel_err(runs[route](), want)[0]
                 torch.cuda.synchronize()
-                dsmm_walks = {w_: c.launches - before[w_] for w_, c
-                              in dsmm_ops.WALK_COUNTERS.items()}
-                if route in walked:
-                    want_walk = dsmm_ops.walk(walked[route], dt)
-                    off = {w_: v for w_, v in dsmm_walks.items()
-                           if w_ != want_walk and v}
-                    if not dsmm_walks[want_walk] or off:
-                        raise RuntimeError(
-                            f"[table3] {route} b={b} {dname}: dsmm at block "
-                            f"{walked[route]} launched {dsmm_walks}, want "
-                            f"every launch on {want_walk}")
+                kernel_walks = {w_: c.launches - before[w_]
+                                for w_, c in ctrs.items()}
+                off = {w_: v for w_, v in kernel_walks.items()
+                       if w_ != want_walk and v}
+                if kernel and (not kernel_walks[want_walk] or off):
+                    raise RuntimeError(
+                        f"[table3] {route} b={b} {dname}: {kernel} at block "
+                        f"{block} launched {kernel_walks}, want every launch "
+                        f"on {want_walk}")
                 slow = route.startswith(("dense", "dynamic_grouped")) \
                     or b <= 4
                 ms = timed_ms(torch, runs[route], [()], 10 if slow else 30)
@@ -1299,7 +1381,8 @@ def table3_phase(torch, args):
                     density=density, nnz_blocks=nnz, ms=ms,
                     rel_err=err, tol=KERNEL_TOL[dname],
                     dense_flops=flops, sparse_flops=flops * density,
-                    torch_matmul_ms=lib_ms, dsmm_walks=dsmm_walks))
+                    torch_matmul_ms=lib_ms, kernel=kernel,
+                    kernel_walks=kernel_walks))
             for line in lines[-len(TABLE3_ROUTES):]:
                 line["speedup_vs_dense_cuda"] = res["dense_cuda"] / line["ms"]
                 line["speedup_vs_torch_matmul"] = lib_ms / line["ms"]
@@ -1843,8 +1926,16 @@ def main(argv=None) -> int:
         elif r["kernel"] == "dense_mm":
             extra = (f" walk={r['walk']} tile={r['tile']} "
                      f"slices={r['slices']} blocks={r['blocks']}")
+        elif r["kernel"] == "bsmm":
+            extra = (f" walk={r['walk']}"
+                     + "".join(f" {w}_ms={v:.5f}"
+                               for w, v in r["walk_ms"].items())
+                     + ("" if "mma_stages" not in r else
+                        f" groups={r['mma_groups']} "
+                        f"stages={r['mma_stages']}"))
         elif r["kernel"] == "bsmm_balanced":
-            extra = (f" uniform_bsmm_ms={r['uniform_bsmm_ms']:.5f} "
+            extra = (f" walk={r['walk']}{ffma} "
+                     f"uniform_bsmm_ms={r['uniform_bsmm_ms']:.5f} "
                      f"bins={r['bins']} steps={r['steps_per_bin']} "
                      f"row_imbalance={r['row_imbalance']:.2f}")
         print(f"[kernel] {r['kernel']:13s} {r['shape']:40s} n={r['n']:<4d} "
@@ -2056,7 +2147,7 @@ def main(argv=None) -> int:
         if name in WALK_KERNELS:
             kernels[-1]["launches_by_walk"] = {
                 p: w[name] for p, w in walks_by_path.items()}
-        if name in ("dsmm", "sddmm"):
+        if name in ("dsmm", "sddmm", "bsmm", "bsmm_balanced"):
             kernels[-1].update(walk=r["walk"], before_ms=r["before_ms"])
     # bs_attn at gemma2-2b's global layer (S = 4096, bf16); its main path
     # is the gemma2 serve run

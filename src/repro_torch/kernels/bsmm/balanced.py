@@ -8,20 +8,29 @@ a packed ``[T + 1, b, b]`` tile stack (``plan_packing`` with ``tm = tk
 visit schedule of ``partitioner.plan_packing_balanced``.  For a CUDA
 tensor it launches ``csrc/bsmm_balanced.cu`` (the port of
 ``src/repro/kernels/bsmm/balanced.py`` ``bsmm_balanced_call``) or
-raises; for a CPU tensor it runs ``bsmm_balanced_plain``.
+raises; for a CPU tensor it runs ``bsmm_balanced_plain``.  ``walk(b,
+dtype)`` names the kernel's walk: "mma" (bf16/fp16 at b in
+``ops.MMA_BLOCKS``: bsmm's tensor-core walk with the bins as its groups,
+on the ``ops.MmaSchedule`` the plan records beside the visit schedule)
+or "ffma" (the visit schedule on the CUDA cores).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.core import partitioner
 from repro_torch.kernels import _build
+from repro_torch.kernels.bsmm import ops
 
 TILE_SIZES = (4, 8, 16, 32, 64)
 DTYPES = _build.DTYPES
 COUNTER = _build.LaunchCounter()
+WALKS = ("mma", "ffma")                  # the C entry's walk codes, in order
+# launches per walk, beside the total COUNTER
+WALK_COUNTERS = {name: _build.LaunchCounter() for name in WALKS}
 # thread blocks the balanced walk aims for: two per SM of an H100
 TARGET_BLOCKS = 2 * 132
 
@@ -38,6 +47,23 @@ def card_bins(row_tiles: int, n: int, b: int) -> int:
     n_tiles = max(1, -(-n // tokens_per_block(b)))
     want = max(8, -(-TARGET_BLOCKS // n_tiles))
     return max(1, min(want, row_tiles))
+
+
+def walk(b: int, dtype) -> str:
+    """The walk ``bsmm_balanced_cuda`` launches at tile ``b`` in ``dtype``
+    (pure Python): "mma" for bf16/fp16 at b in ``ops.MMA_BLOCKS``,
+    "ffma" elsewhere."""
+    if b not in TILE_SIZES:
+        raise ValueError(f"bsmm_balanced kernel takes tiles of "
+                         f"{TILE_SIZES}; got {b}")
+    return ("mma" if dtype in (torch.bfloat16, torch.float16)
+            and b in ops.MMA_BLOCKS else "ffma")
+
+
+def mma_bins(row_tiles: int, b: int) -> int:
+    """Bins of the row swizzle where the walk is "mma": ``ceil(mb / R)``,
+    so that every bin is one group of the walk (``ops.bin_groups``)."""
+    return max(1, -(-row_tiles // ops.MMA_ROWS[b]))
 
 
 def bsmm_balanced_plain(x2: torch.Tensor, tiles: torch.Tensor,
@@ -87,44 +113,75 @@ def _check(x2, tiles, visit_rows, visit_cols, visit_slot, m):
 
 def bsmm_balanced_cuda(x2: torch.Tensor, tiles: torch.Tensor,
                        visit_rows: torch.Tensor, visit_cols: torch.Tensor,
-                       visit_slot: torch.Tensor, m: int) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only)."""
+                       visit_slot: torch.Tensor, m: int,
+                       schedule: Optional[ops.MmaSchedule] = None,
+                       plan: Optional[str] = None) -> torch.Tensor:
+    """Launch the CUDA kernel (CUDA tensors only) on ``walk(...)``'s walk,
+    or on ``plan`` where the caller names one; the "mma" walk reads
+    ``schedule`` (its groups the bins), the "ffma" walk the visit
+    schedule.  A walk that does not apply raises."""
     _check(x2, tiles, visit_rows, visit_cols, visit_slot, m)
+    n, k = x2.shape
+    b = tiles.shape[1]
+    wk = plan or walk(b, x2.dtype)
+    if wk not in WALKS or (wk == "mma" and walk(b, x2.dtype) != "mma"):
+        raise ValueError(f"bsmm_balanced walk {wk!r} does not take b={b} "
+                         f"in {x2.dtype}")
     if x2.device.type != "cuda":
         raise ValueError(f"bsmm_balanced_cuda needs CUDA tensors, got "
                          f"{x2.device}")
-    n, k = x2.shape
     bins, steps = visit_rows.shape
     y = torch.empty((n, m), dtype=x2.dtype, device=x2.device)
     if n == 0 or bins == 0:
         return y
+    if wk == "mma":
+        ops.check_schedule(schedule, b, m, x2.device)
+        x2, tiles = ops.aligned(x2), ops.aligned(tiles)
     fn = _build.entry("bsmm_balanced", "bsmm_balanced_nt",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                      [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13
                       + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x2.device).cuda_stream
+    sargs, part = ops.mma_args(schedule if wk == "mma" else None, n, m,
+                               x2.device)
     with torch.cuda.device(x2.device):
         code = fn(x2.data_ptr(), tiles.data_ptr(), visit_rows.data_ptr(),
-                  visit_cols.data_ptr(), visit_slot.data_ptr(), y.data_ptr(),
-                  n, k, m, tiles.shape[1], bins, steps, tiles.shape[0] - 1,
-                  _build.DTYPE_CODES[x2.dtype], stream)
+                  visit_cols.data_ptr(), visit_slot.data_ptr(), *sargs[:4],
+                  y.data_ptr(), None if part is None else part.data_ptr(),
+                  n, k, m, b, bins, steps, tiles.shape[0] - 1, *sargs[4:],
+                  _build.DTYPE_CODES[x2.dtype], WALKS.index(wk), stream)
     _build.check(code, "bsmm_balanced_nt")
     COUNTER.launches += 1
+    WALK_COUNTERS[wk].launches += 1
     return y
 
 
 def bsmm_balanced(x2: torch.Tensor, tiles: torch.Tensor,
                   visit_rows: torch.Tensor, visit_cols: torch.Tensor,
-                  visit_slot: torch.Tensor, m: int) -> torch.Tensor:
+                  visit_slot: torch.Tensor, m: int,
+                  schedule: Optional[ops.MmaSchedule] = None
+                  ) -> torch.Tensor:
     """``y[N, m] = x2 . W^T`` over the balanced visit schedule.  CUDA
-    tensors launch the kernel (or raise); CPU tensors run the plain
-    version."""
+    tensors launch the kernel (or raise; the "mma" walk reads
+    ``schedule``); CPU tensors run the plain version."""
     if x2.device.type == "cuda":
         return bsmm_balanced_cuda(x2.contiguous(), tiles, visit_rows,
-                                  visit_cols, visit_slot, m)
+                                  visit_cols, visit_slot, m, schedule)
     if x2.device.type != "cpu":
         raise ValueError(f"bsmm_balanced: unsupported device {x2.device}")
     return bsmm_balanced_plain(x2, tiles, visit_rows, visit_cols,
                                visit_slot, m)
+
+
+def balanced_schedule(meta: partitioner.BalancedPacking,
+                      device=None) -> ops.MmaSchedule:
+    """The "mma" walk's schedule of a balanced packing: its bins as the
+    groups (``ops.bin_groups``), the pad tiles left out."""
+    base = meta.base
+    b = base.tm
+    real = ops.real_tiles(base.num_tiles, base.block_slot)
+    return ops.mma_schedule(base.row_ptr(), base.tile_cols, b,
+                            ops.bin_groups(meta.swizzle.bin_of, b), real,
+                            device)
 
 
 def pad_tiles(tiles: torch.Tensor) -> torch.Tensor:
@@ -137,14 +194,17 @@ def bsmm_balanced_from_plan(meta: partitioner.BalancedPacking,
                             x2: torch.Tensor) -> torch.Tensor:
     """SpMM from a one-time ``plan_packing_balanced`` analysis: pack the
     ``[nnz, b, b]`` values (as the uniform walk does), append the zero
-    pad tile, walk the schedule.  Copies the schedule to the device on
-    every call; ``sparse.plan`` keeps it there instead."""
+    pad tile, walk the schedule.  Builds the schedules and copies them to
+    the device on every call; ``sparse.plan`` keeps them there
+    instead."""
     base = meta.base
     dev = x2.device
     tiles = pad_tiles(partitioner.pack_values(base, values)).contiguous()
 
     def on_dev(a):
         return torch.as_tensor(a, dtype=torch.int32, device=dev).contiguous()
+    sched = (balanced_schedule(meta, dev) if dev.type == "cuda"
+             and walk(base.tm, x2.dtype) == "mma" else None)
     return bsmm_balanced(x2, tiles, on_dev(meta.visit_rows),
                          on_dev(meta.visit_cols), on_dev(meta.visit_slot),
-                         base.shape[0])
+                         base.shape[0], sched)

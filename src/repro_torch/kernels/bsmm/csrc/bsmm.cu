@@ -6,60 +6,49 @@
 // (`_bsmm_kernel`), in the transposed form the sparse FFN needs
 // (`spmm_nt`).  The TPU walked one sequential grid over the row-major
 // tile list and flushed a VMEM accumulator whenever the row changed.
-// Hopper's blocks run in parallel and in no order, so here one thread
-// block owns one (row-tile, token-tile) pair and loops over its row's
-// tiles through a CSR row pointer built once on the host: no carry
-// between blocks, one write per output element.
+// Hopper's blocks run in parallel and in no order, so here every output
+// tile is owned by one thread block: no carry between blocks, one write
+// per output element.  Tiles are b x b (tm = tk = b), so the packed stack
+// holds exactly the non-zero blocks (a 128 x 128 tile would be ~100 %
+// occupied at d = 1/8 and do 8x the work).  The wrapper (ops.py `walk`)
+// picks one of three walks:
 //
-// What bounds it: at serving shapes (N = batch at decode, a prompt
-// bucket at prefill; density 1/8, b = 16) the kernel is bound by bytes
-// -- each W tile is read once per token-tile and used for only N
-// columns.  Tiles are b x b (tm = tk = b), so the packed stack holds
-// exactly the non-zero blocks (a 128 x 128 tile would be ~100 % occupied
-// at d = 1/8 and do 8x the work).  Two walks:
-//
-// * decode (n <= 4 * 32 / b tokens, b <= 32): one block per row-tile,
-//   its 8 warps take the row's tiles in turn (a row holds ~16 tiles at
-//   d = 1/8), each lane multiplies one tile row straight from global
-//   memory into fp32 sums for its tokens, and the warps' sums are added
-//   in shared memory at the end.  The row's tile loads are in flight
-//   together instead of one per step;
-// * otherwise one block per (row-tile, 64-token tile) walks the row's
-//   tiles in order, staging each W tile and x slice in shared memory,
-//   with the next tile loaded into registers while the current one is
-//   multiplied.
-//
-// Arithmetic is fp32 on the CUDA cores; tensor cores (wgmma) are later
-// work.
+// 1. "decode" (the fewest tokens, b <= 32): one block per row-tile, its 8
+//    warps take the row's tiles in turn (a row holds ~16 tiles at d =
+//    1/8), each lane multiplies one tile row straight from global memory
+//    into fp32 sums for its tokens, and the warps' sums are added in
+//    shared memory at the end.  The row's tile loads are in flight
+//    together instead of one per step; bound by the tiles' bytes.
+// 2. "mma" (bf16/fp16, b in {16, 32, 64}): tensor cores over groups of
+//    block-rows sharing each TMA-fed chunk of x, on the schedule the plan
+//    records on the host (bsmm_mma.cuh, shared with bsmm_balanced).
+// 3. "ffma" (fp32, b in {4, 8}, and 16-bit where the caller asks): one
+//    block per (row-tile, 64-token tile) walks the row's tiles through a
+//    CSR row pointer built once on the host, staging each W tile and x
+//    slice in shared memory as fp32, with the next tile loaded into
+//    registers while the current one is multiplied, on the CUDA cores.
 //
 // Inputs (all device pointers):
-//   x         [n, k]          activations, row-major
+//   x         [n, k]          activations, row-major (16-byte aligned, mma)
 //   tiles     [T, tb, tb]     packed tile stack in row-major tile order
+//                             (16-byte aligned, mma)
 //   row_ptr   [k_rows + 1]    CSR pointer over the tiles, int32
 //   tile_cols [T]             tile column of each tile, int32
+//   group_rows, stage_ptr, stage_chunk, stage_runs
+//                             the mma walk's schedule (bsmm_mma.cuh;
+//                             null for the other walks)
+//   part      [slices, n, m]  fp32 scratch of the mma walk's K slices
+//                             (null where slices = 1)
 //   y         [n, m]          output, fully written (an empty row writes 0)
 // tb in {4, 8, 16, 32, 64}; dtype 0 = fp32, 1 = bf16, 2 = fp16; output in
 // the input dtype, fp32 accumulation.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "bsmm_mma.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
+using namespace hopper;
 
 constexpr int kThreads = 256;
 constexpr int kBN = 64;  // tokens per thread block
@@ -200,48 +189,74 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+enum Walk { kDecode = 0, kMma = 1, kFfma = 2 };
+
 template <typename T, int TB>
-void launch(const void* x, const void* tiles, const void* row_ptr, const void* tile_cols,
-            void* y, int n, int k, int m, cudaStream_t stream) {
+int launch(const void* x, const void* tiles, const void* row_ptr, const void* tile_cols,
+           void* y, int n, int k, int m, int walk, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   const T* tt = static_cast<const T*>(tiles);
   const int* rp = static_cast<const int*>(row_ptr);
   const int* tc = static_cast<const int*>(tile_cols);
   T* yt = static_cast<T*>(y);
-  if (n <= decode_max_n<TB>()) {
+  if (walk == kDecode) {
+    if (n > decode_max_n<TB>()) return (int)cudaErrorInvalidValue;
     bsmm_nt_decode_kernel<T, (TB <= 32 ? TB : 32)><<<m / TB, kThreads, 0, stream>>>(
         xt, tt, rp, tc, yt, n, k, m);
   } else {
     dim3 grid(m / TB, (n + kBN - 1) / kBN);
     bsmm_nt_kernel<T, TB><<<grid, kThreads, 0, stream>>>(xt, tt, rp, tc, yt, n, k, m);
   }
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch_tb(const void* x, const void* tiles, const void* row_ptr,
-                const void* tile_cols, void* y, int n, int k, int m, int tb,
-                cudaStream_t stream) {
+int dispatch(const void* x, const void* tiles, const void* row_ptr, const void* tile_cols,
+             const void* group_rows, const void* stage_ptr, const void* stage_chunk,
+             const void* stage_runs, void* y, float* part, int n, int k, int m, int tb,
+             int groups, int rows, int wcap, int slices, int walk, cudaStream_t s) {
+  if (walk == kMma) {
+    if constexpr (sizeof(T) == 2) {
+      return bsmm_mma::run<T>(x, tiles, group_rows, stage_ptr, stage_chunk, stage_runs, y,
+                              part, n, k, m, tb, groups, rows, wcap, slices, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (walk != kDecode && walk != kFfma) return (int)cudaErrorInvalidValue;
   switch (tb) {
-    case 4: launch<T, 4>(x, tiles, row_ptr, tile_cols, y, n, k, m, stream); break;
-    case 8: launch<T, 8>(x, tiles, row_ptr, tile_cols, y, n, k, m, stream); break;
-    case 16: launch<T, 16>(x, tiles, row_ptr, tile_cols, y, n, k, m, stream); break;
-    case 32: launch<T, 32>(x, tiles, row_ptr, tile_cols, y, n, k, m, stream); break;
-    case 64: launch<T, 64>(x, tiles, row_ptr, tile_cols, y, n, k, m, stream); break;
+    case 4: return launch<T, 4>(x, tiles, row_ptr, tile_cols, y, n, k, m, walk, s);
+    case 8: return launch<T, 8>(x, tiles, row_ptr, tile_cols, y, n, k, m, walk, s);
+    case 16: return launch<T, 16>(x, tiles, row_ptr, tile_cols, y, n, k, m, walk, s);
+    case 32: return launch<T, 32>(x, tiles, row_ptr, tile_cols, y, n, k, m, walk, s);
+    case 64: return launch<T, 64>(x, tiles, row_ptr, tile_cols, y, n, k, m, walk, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// walk 0 = decode (n within the decode kernel's tokens, tb <= 32), 1 = mma
+// (16-bit, tb in {16, 32, 64}, with its schedule and K slices), 2 = ffma
 extern "C" int bsmm_nt(const void* x, const void* tiles, const void* row_ptr,
-                       const void* tile_cols, void* y, int n, int k, int m, int tb,
-                       int dtype, void* stream) {
+                       const void* tile_cols, const void* group_rows, const void* stage_ptr,
+                       const void* stage_chunk, const void* stage_runs, void* y, void* part,
+                       int n, int k, int m, int tb, int groups, int rows, int wcap, int slices,
+                       int dtype, int walk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
   switch (dtype) {
-    case 0: return dispatch_tb<float>(x, tiles, row_ptr, tile_cols, y, n, k, m, tb, s);
-    case 1: return dispatch_tb<__nv_bfloat16>(x, tiles, row_ptr, tile_cols, y, n, k, m, tb, s);
-    case 2: return dispatch_tb<__half>(x, tiles, row_ptr, tile_cols, y, n, k, m, tb, s);
+    case 0:
+      return dispatch<float>(x, tiles, row_ptr, tile_cols, group_rows, stage_ptr, stage_chunk,
+                             stage_runs, y, pt, n, k, m, tb, groups, rows, wcap, slices, walk,
+                             s);
+    case 1:
+      return dispatch<__nv_bfloat16>(x, tiles, row_ptr, tile_cols, group_rows, stage_ptr,
+                                     stage_chunk, stage_runs, y, pt, n, k, m, tb, groups, rows,
+                                     wcap, slices, walk, s);
+    case 2:
+      return dispatch<__half>(x, tiles, row_ptr, tile_cols, group_rows, stage_ptr,
+                              stage_chunk, stage_runs, y, pt, n, k, m, tb, groups, rows, wcap,
+                              slices, walk, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

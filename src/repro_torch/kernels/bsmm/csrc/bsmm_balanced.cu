@@ -15,50 +15,49 @@
 // un-permute).
 //
 // The TPU ran one parallel lane per bin with a sequential walk inside it,
-// flushing a VMEM accumulator on a row change.  Here one thread block
-// owns one (bin, token tile) pair, carries the fp32 sums of its current
-// row-tile in registers and writes them when the row changes and at the
-// end of the lane.  Bins x token tiles is the parallelism, so the plan
-// picks the bin count for the card (enough blocks to fill the SMs); any
-// bin count gives the same result.
+// flushing a VMEM accumulator on a row change.  The wrapper (balanced.py
+// `walk`) picks one of two walks:
 //
-// What bounds it: as bsmm -- the tiles' bytes at small N, operations
-// on the CUDA cores at large N; on a skewed pattern the longest lane
-// (steps) sets the tail.  Each step stages its b x b tile (in chunks of
-// 32 columns for b > 32) and the matching x slice in shared memory as
-// fp32.  fp32 sums on the CUDA cores; tensor cores are later work.
+// 1. "mma" (bf16/fp16, b in {16, 32, 64}): bsmm's tensor-core walk
+//    (bsmm_mma.cuh) with the bins as its groups of block-rows: the plan
+//    deals the row-tiles into ceil(mb / R) bins, so a bin fits a group,
+//    and records the group schedule beside the visit schedule; each
+//    row-tile is written at its original position.
+// 2. "ffma" (fp32, b in {4, 8}, and 16-bit where the caller asks): one
+//    thread block owns one (bin, token tile) pair, carries the fp32 sums
+//    of its current row-tile in registers and writes them when the row
+//    changes and at the end of the lane.  Bins x token tiles is the
+//    parallelism, so the plan picks the bin count for the card (enough
+//    blocks to fill the SMs); any bin count gives the same result.  Each
+//    step stages its b x b tile (in chunks of 32 columns for b > 32) and
+//    the matching x slice in shared memory as fp32; fp32 sums on the
+//    CUDA cores.  On a skewed pattern the longest lane (steps) sets the
+//    tail.
 //
 // Inputs (all device pointers):
-//   x          [n, k]           activations, row-major
+//   x          [n, k]           activations, row-major (16-byte aligned, mma)
 //   tiles      [T + 1, b, b]    packed tile stack + trailing zero tile
+//                               (16-byte aligned, mma)
 //   visit_rows [bins, steps]    int32, original row-tile per step
 //   visit_cols [bins, steps]    int32
 //   visit_slot [bins, steps]    int32, tile-stack slot per step
+//   group_rows, stage_ptr, stage_chunk, stage_runs
+//                               the mma walk's schedule (bsmm_mma.cuh;
+//                               null for the ffma walk)
+//   part       [slices, n, m]   fp32 scratch of the mma walk's K slices
+//                               (null where slices = 1)
 //   y          [n, m]           output (every row-tile the schedule
 //                               visits is written once)
 // b in {4, 8, 16, 32, 64}; dtype 0 = fp32, 1 = bf16, 2 = fp16; output in
 // the input dtype, fp32 accumulation.  Steps whose row, col or slot lies
 // outside the grid are skipped.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "bsmm_mma.cuh"
 
 namespace {
 
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <> __device__ __forceinline__ float to_f<__half>(__half v) { return __half2float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half(v); }
+using namespace hopper;
 
 constexpr int kThreads = 256;
 
@@ -155,9 +154,9 @@ void launch(const void* x, const void* tiles, const void* vr, const void* vc,
 }
 
 template <typename T>
-int dispatch_b(const void* x, const void* tiles, const void* vr, const void* vc,
-               const void* vs, void* y, int n, int k, int m, int b, int bins, int steps,
-               int num_tiles, cudaStream_t st) {
+int ffma_b(const void* x, const void* tiles, const void* vr, const void* vc, const void* vs,
+           void* y, int n, int k, int m, int b, int bins, int steps, int num_tiles,
+           cudaStream_t st) {
   switch (b) {
     case 4: launch<T, 4>(x, tiles, vr, vc, vs, y, n, k, m, bins, steps, num_tiles, st); break;
     case 8: launch<T, 8>(x, tiles, vr, vc, vs, y, n, k, m, bins, steps, num_tiles, st); break;
@@ -169,23 +168,51 @@ int dispatch_b(const void* x, const void* tiles, const void* vr, const void* vc,
   return (int)cudaGetLastError();
 }
 
+enum Walk { kMma = 0, kFfma = 1 };
+
+template <typename T>
+int dispatch(const void* x, const void* tiles, const void* vr, const void* vc,
+             const void* vs, const void* group_rows, const void* stage_ptr,
+             const void* stage_chunk, const void* stage_runs, void* y, float* part, int n,
+             int k, int m, int b, int bins, int steps, int num_tiles, int groups, int rows,
+             int wcap, int slices, int walk, cudaStream_t st) {
+  if (walk == kFfma) return ffma_b<T>(x, tiles, vr, vc, vs, y, n, k, m, b, bins, steps,
+                                      num_tiles, st);
+  if (walk != kMma) return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 2) {
+    return bsmm_mma::run<T>(x, tiles, group_rows, stage_ptr, stage_chunk, stage_runs, y, part,
+                            n, k, m, b, groups, rows, wcap, slices, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// walk 0 = mma (16-bit, b in {16, 32, 64}, with its group schedule), 1 =
+// ffma (every dtype and block, over the visit schedule)
 extern "C" int bsmm_balanced_nt(const void* x, const void* tiles, const void* visit_rows,
-                                const void* visit_cols, const void* visit_slot, void* y,
-                                int n, int k, int m, int b, int bins, int steps,
-                                int num_tiles, int dtype, void* stream) {
+                                const void* visit_cols, const void* visit_slot,
+                                const void* group_rows, const void* stage_ptr,
+                                const void* stage_chunk, const void* stage_runs, void* y,
+                                void* part, int n, int k, int m, int b, int bins, int steps,
+                                int num_tiles, int groups, int rows, int wcap, int slices,
+                                int dtype, int walk, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pt = static_cast<float*>(part);
   switch (dtype) {
     case 0:
-      return dispatch_b<float>(x, tiles, visit_rows, visit_cols, visit_slot, y, n, k, m, b,
-                               bins, steps, num_tiles, s);
+      return dispatch<float>(x, tiles, visit_rows, visit_cols, visit_slot, group_rows,
+                             stage_ptr, stage_chunk, stage_runs, y, pt, n, k, m, b, bins,
+                             steps, num_tiles, groups, rows, wcap, slices, walk, s);
     case 1:
-      return dispatch_b<__nv_bfloat16>(x, tiles, visit_rows, visit_cols, visit_slot, y, n,
-                                       k, m, b, bins, steps, num_tiles, s);
+      return dispatch<__nv_bfloat16>(x, tiles, visit_rows, visit_cols, visit_slot, group_rows,
+                                     stage_ptr, stage_chunk, stage_runs, y, pt, n, k, m, b,
+                                     bins, steps, num_tiles, groups, rows, wcap, slices, walk,
+                                     s);
     case 2:
-      return dispatch_b<__half>(x, tiles, visit_rows, visit_cols, visit_slot, y, n, k, m, b,
-                                bins, steps, num_tiles, s);
+      return dispatch<__half>(x, tiles, visit_rows, visit_cols, visit_slot, group_rows,
+                              stage_ptr, stage_chunk, stage_runs, y, pt, n, k, m, b, bins,
+                              steps, num_tiles, groups, rows, wcap, slices, walk, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -274,15 +274,6 @@ __device__ __forceinline__ int next_run(const int* src, int len, int kb, int& cu
   return q;
 }
 
-// byte offset of 16-byte chunk c of row r in a tile of SW-byte rows
-// swizzled as TMA does (at b = 128 a row's two 128-byte halves lie in two
-// tiles FS * 128 bytes apart)
-template <int B, int SW, int FS>
-__device__ __forceinline__ int slab_at(int r, int c) {
-  const int h = c / (SW / 16), cs = c % (SW / 16);
-  return h * (FS * 128) + r * SW + 16 * (cs ^ ((r * SW >> 7) & (SW / 16 - 1)));
-}
-
 // Block (group of R block-rows, TOK tokens).  Stages walk the touched
 // chunks of K in ascending order, once per sweep.  Thread 0 loads x's
 // chunks STAGES - 1 stages ahead through TMA; warp w owns a block-row's
@@ -486,7 +477,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
           for (int i = lane; i < C::SLAB / 16; i += 32) {
             const int r = i / (2 * B / 16), cc = i % (2 * B / 16);
-            cp_async16(wb + c * C::SLAB + slab_at<B, C::SW, C::FS>(r, cc),
+            cp_async16(wb + c * C::SLAB + slab_at<C::SW, C::FS>(r, cc),
                        se + (size_t)r * B * 2 + 16 * cc);
           }
           ++e;
@@ -560,7 +551,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         uint32_t bq[C::NT / 2][4];
 #pragma unroll
         for (int t2 = 0; t2 < C::NT / 2; ++t2)
-          ldmatrix_x4(bq[t2], vs + slab_at<B, C::SW, C::FS>(16 * t2 + im + 8 * (jm / 2),
+          ldmatrix_x4(bq[t2], vs + slab_at<C::SW, C::FS>(16 * t2 + im + 8 * (jm / 2),
                                                             2 * kk + (jm % 2)));
 #pragma unroll
         for (int a = 0; a < C::MT; ++a) {

@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the port's tensor-core walks (dense_mm,
-// gmm, bs_attn, dsmm, sddmm): value conversions, mbarriers, TMA tile
-// loads, cp.async, shared-memory matrix descriptors, wgmma (A from shared
-// memory or from registers), the warp-level mma.sync m16n8k16 with its
-// ldmatrix loads, and the tensor-map encoder.  Header only; every source
-// that includes it is rebuilt when it changes (``kernels/_build.py``
-// hashes the headers a source includes).
+// gmm, bs_attn, dsmm, sddmm, bsmm, bsmm_balanced): value conversions,
+// mbarriers, TMA tile loads, cp.async, shared-memory matrix descriptors,
+// wgmma (A from shared memory or from registers), the warp-level mma.sync
+// m16n8k16 with its ldmatrix loads and swizzled block layout, and the
+// tensor-map encoder.  Header only; every source that includes it is
+// rebuilt when it changes (``kernels/_build.py`` hashes the headers a
+// source includes).
 #pragma once
 
 #include <cuda.h>
@@ -287,6 +288,16 @@ template <typename T> struct Mma16816;
   };
 HP_DEF_MMA(__nv_bfloat16, "bf16")
 HP_DEF_MMA(__half, "f16")
+
+// byte offset of 16-byte chunk c of row r in a tile of SW-byte rows
+// swizzled as TMA does (rows past 128 bytes: their 128-byte halves lie in
+// tiles FS * 128 bytes apart); the layout the mma walks give the blocks
+// they copy with cp.async and read with ldmatrix
+template <int SW, int FS>
+__device__ __forceinline__ int slab_at(int r, int c) {
+  const int h = c / (SW / 16), cs = c % (SW / 16);
+  return h * (FS * 128) + r * SW + 16 * (cs ^ ((r * SW >> 7) & (SW / 16 - 1)));
+}
 
 // ---------------------------------------------------------------------------
 // tensor maps (host)

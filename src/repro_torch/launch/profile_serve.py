@@ -39,7 +39,7 @@ def _family(name: str) -> str:
         return "bs_attn"
     if "gmm_kernel" in name or "gmm_tc_kernel" in name:
         return "gmm"
-    if "bsmm_nt" in name:
+    if "bsmm" in name:                  # every walk, and bsmm_balanced
         return "bsmm"
     if "dense_mm" in name or "splitk_reduce" in name:
         return "dense_mm"

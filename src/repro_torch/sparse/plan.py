@@ -18,7 +18,10 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   those packed into 4 x 4 tiles where g < 4; ``static_balanced``:
   ``plan_packing_balanced``, with a bin count picked for the card) and
   keeps its walk on the device, on m and k padded to the tile where b
-  divides them and the tile does not; it is cached per (pattern, shape,
+  divides them and the tile does not; where the bsmm kernels walk "mma"
+  (a card, 16-bit, tile in {16, 32, 64}) it records that walk's schedule
+  too, for the forward and for the dL/dx product over the transposed
+  pattern (``bsmm.ops.mma_schedule``); it is cached per (pattern, shape,
   dtype, device, route) and serves any ``n``;
 * ``plan`` checks the contract of every kernel the plan will launch at
   the block it walks, and raises then, with the contract's reason, for
@@ -137,6 +140,10 @@ class MatmulPlan:
     block_size: int = 1
     # static_balanced: the visit schedule on the device, each [bins, steps]
     visit: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    # static routes on a card whose kernel walks "mma" at the plan's
+    # dtype: the walk's schedule on the device (bsmm's groups of rows,
+    # or static_balanced's bins), recorded once with the plan
+    mma: Optional[bsmm_ops.MmaSchedule] = None
     # a static pattern on a dynamic or dense route: its block indices
     # (operand order) on the device and its block count
     pattern_dev: Optional[Tuple[torch.Tensor, torch.Tensor,
@@ -212,11 +219,12 @@ class MatmulPlan:
         if family == "static":
             return _crop(bsmm_ops.bsmm_nt(
                 dsmm_ops.pad_cols(x2, kp), packed, self.row_ptr,
-                self.tile_cols, self.tile_rows, mp), self.m)
+                self.tile_cols, self.tile_rows, mp, self.mma), self.m)
         if family == "static_balanced":
             vr, vc, vs = self.visit
             return _crop(bal_ops.bsmm_balanced(
-                dsmm_ops.pad_cols(x2, kp), packed, vr, vc, vs, mp), self.m)
+                dsmm_ops.pad_cols(x2, kp), packed, vr, vc, vs, mp,
+                self.mma), self.m)
         if family == "dense":
             return dmm_ops.dense_mm(x2.contiguous(), packed)
         rows, cols, nnz = self.pattern_dev
@@ -244,7 +252,7 @@ class MatmulPlan:
         mp, kp = self.walk_shape
         return _crop(bsmm_ops.bsmm_nt(
             dsmm_ops.pad_cols(dy2, mp), self.pack_t(values), g.row_ptr,
-            g.tile_cols, g.tile_rows, kp), self.k)
+            g.tile_cols, g.tile_rows, kp, g.mma), self.k)
 
     def pack_t(self, values: torch.Tensor) -> torch.Tensor:
         """``W^T``'s ``[T', b, b]`` tile stack: the values permuted into
@@ -373,7 +381,9 @@ class GradPlan:
 
     ``transpose``/``packing`` are ``W^T``'s pattern and its
     ``plan_packing`` at the kernel's tile; ``row_ptr``/``tile_rows``/
-    ``tile_cols`` its walk on the device, ``perm`` the value permutation.
+    ``tile_cols`` its walk on the device (and ``mma`` the tensor-core
+    walk's schedule where the plan records one), ``perm`` the value
+    permutation.
     ``block_row_ptr``/``row_idx``/``col_idx`` are the CSR runs, in
     lexsort order, that the SDDMM samples at block ``sddmm_block``: the
     forward pattern's own blocks (``unsort`` maps them back to the
@@ -395,6 +405,7 @@ class GradPlan:
     sddmm_block: int
     unsort: Optional[torch.Tensor] = None  # [nnz] long
     gather: Optional[torch.Tensor] = None  # [nnz] long
+    mma: Optional[bsmm_ops.MmaSchedule] = None  # W^T's, as MatmulPlan.mma
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -725,6 +736,9 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
         ec = (cols[:, None] * split + j).reshape(-1).astype(np.int32)
         eb = b // split
     meta = partitioner.plan_packing(er, ec, (m, k), eb, t, t)
+    # the bsmm kernels walk "mma" at this tile and dtype (at every n past
+    # the decode walk's): record its schedules once, on the device
+    mma = dev.type == "cuda" and bal_ops.walk(t, bsr.dtype) == "mma"
 
     tp = partitioner.plan_transpose(er, ec, (m, k), eb)
     tmeta = partitioner.plan_packing(tp.row_idx, tp.col_idx, tp.shape,
@@ -748,7 +762,8 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
         tile_cols=_on_dev(tmeta.tile_cols, dev),
         block_row_ptr=_on_dev(sddmm_ops.block_row_ptr(s_rows, mp // t), dev),
         row_idx=_on_dev(s_rows, dev), col_idx=_on_dev(s_cols, dev),
-        sddmm_block=t, unsort=unsort, gather=gather)
+        sddmm_block=t, unsort=unsort, gather=gather,
+        mma=bsmm_ops.packing_schedule(tmeta, dev) if mma else None)
     p = MatmulPlan(kind="static", route=route, m=m, k=k, n=n,
                    dtype=bsr.dtype, device=dev, packing=meta,
                    row_ptr=_on_dev(meta.row_ptr(), dev),
@@ -762,9 +777,18 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
                            "kernel_tile": t, "block_split": split,
                            "sub_block": eb, "walk_shape": (mp, kp)}
     family = _family(route)
+    if family == "static" and mma:
+        p.mma = bsmm_ops.packing_schedule(meta, dev)
     if family == "static_balanced":
-        bins = (bal_ops.card_bins(meta.grid[0], n, t) if dev.type == "cuda"
-                else DEFAULT_BINS)
+        # on the mma walk a bin is a group of its rows: ceil(mb / R) bins;
+        # the visit schedule of the plain version and the ffma walk is
+        # built at the same count (any count gives the same result)
+        if mma:
+            bins = bal_ops.mma_bins(meta.grid[0], t)
+        elif dev.type == "cuda":
+            bins = bal_ops.card_bins(meta.grid[0], n, t)
+        else:
+            bins = DEFAULT_BINS
         bm = partitioner.plan_packing_balanced(er, ec, (m, k), eb, t, t,
                                                num_bins=bins)
         rep = partitioner.balance_report(bm.swizzle.loads)
@@ -773,6 +797,10 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
                    swizzle_imbalance=rep["imbalance"], swizzle_cv=rep["cv"])
         p.visit = tuple(_on_dev(a, dev) for a in (
             bm.visit_rows, bm.visit_cols, bm.visit_slot))
+        if mma:
+            p.mma = bal_ops.balanced_schedule(bm, dev)
+    if p.mma is not None:
+        art.update(mma_groups=p.mma.groups, mma_stages=p.mma.stages)
     elif family != "static":
         # a dynamic or dense route on a static pattern: the pattern's
         # slots, all valid (capacity = nnz)

@@ -56,15 +56,148 @@ def test_bsmm_cuda_matches_plain(dev, dtype, b, n):
     assert plan.route == "static_cuda"
     tiles = plan.pack(vals)
     x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    wk = bsmm_ops.walk(b, dtype, n)
     before = bsmm_ops.COUNTER.launches
+    walk_before = bsmm_ops.WALK_COUNTERS[wk].launches
     got = bsmm_ops.bsmm_nt(x, tiles, plan.row_ptr, plan.tile_cols,
-                           plan.tile_rows, m)
+                           plan.tile_rows, m, plan.mma)
     torch.cuda.synchronize()
     assert bsmm_ops.COUNTER.launches == before + 1
+    assert bsmm_ops.WALK_COUNTERS[wk].launches == walk_before + 1
     want = bsmm_ops.bsmm_nt_plain(x, tiles, plan.tile_rows.long(),
                                   plan.tile_cols.long(), m)
     assert torch.all(got[:, :b] == 0)
     assert _rel(got, want) <= TOL[dtype]
+
+
+def _bsmm_problem(dev, dtype, b, n, m, k, kind="uniform", density=0.25,
+                  seed=0):
+    """A static plan on the card with empty rows (the first and every
+    seventh block-row), its packed tiles, the dense weight and x."""
+    mask = GENS[kind](m, k, b, density, seed=seed + b)
+    mask[::7] = False
+    g = torch.Generator(device=dev).manual_seed(seed + n)
+    vals = torch.randn((int(mask.sum()), b, b), generator=g,
+                       device=dev).to(dtype)
+    bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    return bsr, vals, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b", [16, 32, 64])
+@pytest.mark.parametrize("n", [16, 256, 1000, 2048])
+def test_bsmm_mma_walk_matches_plain(dev, dtype, b, n):
+    """The tensor-core walk on the plan's schedule, forward and on the
+    transposed pattern (dL/dx), against the plain version, and the FFMA
+    walk forced on the same inputs; a pattern with empty rows, whose pad
+    tiles the schedule leaves out, on a k that is not a multiple of the
+    64-column chunk."""
+    m, k = 40 * b, 23 * b
+    bsr, vals, x = _bsmm_problem(dev, dtype, b, n, m, k)
+    plan = sparse.plan(bsr, n, device=dev)
+    assert plan.mma is not None and plan.grad.mma is not None
+    assert bsmm_ops.walk(b, dtype, n) == "mma"
+    for tiles, meta, d_in, d_out, a in (
+            (plan.pack(vals), plan, k, m, x),
+            (plan.pack_t(vals), plan.grad, m, k,
+             torch.randn((n, m), device=dev).to(dtype))):
+        before = bsmm_ops.WALK_COUNTERS["mma"].launches
+        got = bsmm_ops.bsmm_nt(a, tiles, meta.row_ptr, meta.tile_cols,
+                               meta.tile_rows, d_out, meta.mma)
+        ffma = bsmm_ops.bsmm_nt_cuda(a, tiles, meta.row_ptr, meta.tile_cols,
+                                     d_out, meta.mma, plan="ffma")
+        torch.cuda.synchronize()
+        assert bsmm_ops.WALK_COUNTERS["mma"].launches == before + 1
+        want = bsmm_ops.bsmm_nt_plain(a, tiles, meta.tile_rows.long(),
+                                      meta.tile_cols.long(), d_out)
+        assert _rel(got, want) <= TOL[dtype]
+        assert _rel(ffma, want) <= TOL[dtype]
+        if meta is plan:                             # block-row 0 is empty
+            assert torch.all(got[:, :b] == 0)
+        assert _rel(bsmm_ops.bsmm_schedule_plain(a, tiles, meta.mma, d_out),
+                    want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b", [16, 32, 64])
+@pytest.mark.parametrize("density", [0.7, 1.0])
+def test_bsmm_mma_walk_full_stages_match_plain(dev, dtype, b, density):
+    """Chunks holding more of a group's blocks than a stage takes (dense
+    rows: the schedule splits them into several stages of one chunk),
+    and an unaligned view of x (copied for TMA)."""
+    m, k, n = 24 * b, 17 * b, 300
+    bsr, vals, x = _bsmm_problem(dev, dtype, b, n, m, k, density=density)
+    plan = sparse.plan(bsr, n, device=dev)
+    tiles = plan.pack(vals)
+    xv = torch.empty(n * k + 1, dtype=dtype, device=dev)[1:].view(n, k)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 != 0
+    assert plan.mma.stages > plan.mma.groups * -(-k // 64)
+    got = bsmm_ops.bsmm_nt_cuda(x, tiles, plan.row_ptr, plan.tile_cols, m,
+                                plan.mma)
+    got_v = bsmm_ops.bsmm_nt_cuda(xv, tiles, plan.row_ptr, plan.tile_cols,
+                                  m, plan.mma)
+    want = bsmm_ops.bsmm_nt_plain(x, tiles, plan.tile_rows.long(),
+                                  plan.tile_cols.long(), m)
+    assert _rel(got, want) <= TOL[dtype]
+    assert torch.equal(got, got_v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n", [1, 4, 8, 9, 16])
+def test_bsmm_decode_and_mma_agree_at_small_n(dev, dtype, n):
+    """Around the crossover each walk that takes N agrees with the plain
+    version (decode up to its capacity, mma and ffma at every N)."""
+    m, k, b = 1024, 512, 16
+    bsr, vals, x = _bsmm_problem(dev, dtype, b, n, m, k, density=1 / 8)
+    plan = sparse.plan(bsr, n, device=dev)
+    tiles = plan.pack(vals)
+    want = bsmm_ops.bsmm_nt_plain(x, tiles, plan.tile_rows.long(),
+                                  plan.tile_cols.long(), m)
+    for wk in bsmm_ops.WALKS:
+        if wk == "decode" and n > bsmm_ops.DECODE_CAPACITY[b]:
+            with pytest.raises(ValueError, match="does not take"):
+                bsmm_ops.bsmm_nt_cuda(x, tiles, plan.row_ptr, plan.tile_cols,
+                                      m, plan.mma, plan=wk)
+            continue
+        got = bsmm_ops.bsmm_nt_cuda(x, tiles, plan.row_ptr, plan.tile_cols,
+                                    m, plan.mma, plan=wk)
+        assert _rel(got, want) <= TOL[dtype], wk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("b", [16, 32, 64])
+@pytest.mark.parametrize("kind", ["uniform", "power_law", "dlmc"])
+@pytest.mark.parametrize("n", [16, 1000])
+def test_bsmm_balanced_mma_walk_matches_plain(dev, dtype, b, kind, n):
+    """The balanced tensor-core walk (the bins as groups) on the skew
+    masks, against the plain version over the visit schedule and the
+    FFMA walk forced on the same inputs."""
+    from repro_torch.kernels.bsmm import balanced as bal
+    m, k = 48 * b, 20 * b
+    bsr, vals, x = _bsmm_problem(dev, dtype, b, n, m, k, kind=kind,
+                                 density=0.2)
+    plan = sparse.plan(bsr, n, device=dev,
+                       ctx=sparse.PlanContext(mode="static_balanced"))
+    assert plan.artifacts["swizzle_bins"] == bal.mma_bins(m // b, b)
+    assert plan.mma.groups == plan.artifacts["swizzle_bins"]
+    tiles = plan.pack(vals)
+    vr, vc, vs = plan.visit
+    before = bal.WALK_COUNTERS["mma"].launches
+    got = plan.run_packed(tiles, x)
+    ffma = bal.bsmm_balanced_cuda(x, tiles, vr, vc, vs, m, plan.mma,
+                                  plan="ffma")
+    torch.cuda.synchronize()
+    assert bal.WALK_COUNTERS["mma"].launches == before + 1
+    want = bal.bsmm_balanced_plain(x, tiles, vr, vc, vs, m)
+    assert _rel(got, want) <= TOL[dtype]
+    assert _rel(ffma, want) <= TOL[dtype]
+    assert torch.all(got[:, :b] == 0)
 
 
 @pytest.mark.cuda
