@@ -36,9 +36,17 @@ Phases, each fatal on failure:
 3. serve: full-width llama3.2-1b (16 layers, d_model 2048, d_ff 8192,
    vocab 128256) with every FFN block-sparse at d=1/8, b=16, in bf16,
    seeded random weights, through ``Engine(batch=4, max_len=512)``: 8
-   requests with seeded prompt lengths in 16..384, 16 new tokens each.
-   The kernels' launch counters are zeroed just before and read just
-   after; both must have launched;
+   requests with seeded prompt lengths in 16..384, 16 new tokens each,
+   first with the engine's programs run eagerly (``graphs=False``), then
+   through its CUDA graphs (one per prefill bucket and one decode step,
+   captured at startup: ``warm_compile=True``), the main path.  The
+   kernels' launch counters are zeroed just before the graph run and read
+   just after (each replay adds the launches its graph holds); every
+   kernel must have launched, no call's logits be non-finite (the
+   engine's finite-logits flag, read with the tokens).  ``[graphs]``
+   prints both runs' decode step p50, prefill p50 per bucket, tokens/s
+   and peak GiB, the captures and their seconds, and fails unless every
+   generated token is identical (phases 11 and 12 print theirs too);
 4. consistency: for one prompt, padded ``prefill(last_index)`` logits
    and two ``decode_step``s against ``forward`` on the same tokens;
 5. gradients: one full-width SparseLinear (up and down), bf16 and fp32,
@@ -93,8 +101,9 @@ Phases, each fatal on failure:
    and global attention, d_model 2304, head dim 256, d_ff 9216, vocab
    256000) with every FFN block-sparse at d=1/8, b=16, bf16, through
    ``Engine(batch=2, max_len=8192)``: 4 seeded requests of 1024..7000
-   prompt tokens (one over 4608), 8 new tokens each; bs_attn, bsmm and
-   dense_mm must launch; local layers must visit fewer (q, kv) tile
+   prompt tokens (one over 4608), 8 new tokens each, eagerly and through
+   the engine's graphs as in phase 3; bs_attn, bsmm and dense_mm must
+   launch in the graph run; local layers must visit fewer (q, kv) tile
    pairs than global ones at the longest prompt; decode after a
    5118-token prompt, prefilled in the engine's bucket, must match
    ``forward`` layer by layer in bf16 (each layer's attention, same
@@ -105,8 +114,10 @@ Phases, each fatal on failure:
    top-8 of d_ff 768, vocab 151936; 30.5 B parameters) in bf16 from
    ``init(seed)`` on the card, through ``Engine(batch=4,
    max_len=1024)``: 6 seeded requests of 32..900 prompt tokens, 8 new
-   tokens each; gmm, dense_mm and bs_attn must launch; each prefill's
-   routing drops printed; one layer's ``moe_apply`` on a prefill hidden
+   tokens each, eagerly and through the engine's graphs as in phase 3;
+   gmm, dense_mm and bs_attn must launch in the graph run; each
+   prefill's routing drops printed, the graph run's equal to the eager
+   run's (count and values); one layer's ``moe_apply`` on a prefill hidden
    state, gmm route against the plain route (same fp32 routing), within
    the bf16 kernel budget.  Its gmm kernel rows print with phase 2's: the
    expert GEMMs (E 128, gate/up 2048 -> 768, down 768 -> 2048) at the
@@ -258,6 +269,84 @@ def check_tensor_core_walks(phase, walks, kernels=("bs_attn", "gmm")):
     if any(off.values()):
         raise RuntimeError(f"[{phase}] 16-bit launches off the tensor-core "
                            f"walks: {off}")
+
+
+def serve_run(torch, eng, prompts, new):
+    """Serve ``prompts`` (``new`` tokens each) through ``eng``: the
+    requests, the host wall and the engine's stats.  The peak memory is
+    the card's since the caller's last ``reset_peak_memory_stats``."""
+    from repro_torch.serve import Request
+
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    if not all(r.done and len(r.output) == new for r in reqs):
+        raise RuntimeError(f"not every request finished with {new} tokens")
+    if st["logits"]["nonfinite"]:
+        raise RuntimeError(f"{st['logits']['nonfinite']} of "
+                           f"{st['logits']['checks']} prefill/decode calls "
+                           f"gave non-finite logits")
+    return dict(reqs=reqs, wall_s=wall, stats=st,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def graphs_line(eager, graph):
+    """The [graphs] comparison of one model: the same seeded requests
+    through the engine run eagerly (``graphs=False``) and through its
+    CUDA graphs (captured at startup), in one call; fails if a generated
+    token differs."""
+    def per_bucket(st):
+        return {str(L): b["latency"]["p50_ms"]
+                for L, b in st["buckets"].items() if b["prefills"]}
+
+    def tokens_per_s(run):
+        return sum(len(r.output) for r in run["reqs"]) / run["wall_s"]
+
+    g = graph["stats"]["graphs"]
+
+    def both(stream):
+        return {"eager": eager["stats"][stream]["p50_ms"],
+                "graphs": graph["stats"][stream]["p50_ms"]}
+
+    out = dict(
+        decode_step_p50_ms=both("step_latency"),
+        prefill_p50_ms=both("prefill_latency"),
+        prefill_p50_ms_by_bucket={"eager": per_bucket(eager["stats"]),
+                                  "graphs": per_bucket(graph["stats"])},
+        tokens_per_s={"eager": tokens_per_s(eager),
+                      "graphs": tokens_per_s(graph)},
+        capture_s=g["capture_s"],
+        captures={"prefill": {str(L): v["captures"]
+                              for L, v in g["prefill"].items()},
+                  "decode": g["decode"]["captures"]},
+        replays=g["replays"],
+        peak_mem_gb={"eager": eager["peak_mem_gb"],
+                     "graphs": graph["peak_mem_gb"]},
+        tokens_identical=[r.output for r in eager["reqs"]]
+        == [r.output for r in graph["reqs"]])
+    if not out["tokens_identical"]:
+        raise RuntimeError(f"[graphs] tokens differ between the eager and "
+                           f"the graph run: {out}")
+    return out
+
+
+def print_graphs(name, g):
+    print(f"[graphs] {name}: decode step p50 eager "
+          f"{g['decode_step_p50_ms']['eager']} / graphs "
+          f"{g['decode_step_p50_ms']['graphs']} ms; prefill p50 by bucket "
+          f"eager {json.dumps(g['prefill_p50_ms_by_bucket']['eager'])} / "
+          f"graphs {json.dumps(g['prefill_p50_ms_by_bucket']['graphs'])} ms; "
+          f"tokens/s eager {g['tokens_per_s']['eager']:.2f} / graphs "
+          f"{g['tokens_per_s']['graphs']:.2f}; capture "
+          f"{g['capture_s']:.3f} s (captures {json.dumps(g['captures'])}); "
+          f"peak GiB eager {g['peak_mem_gb']['eager']:.2f} / graphs "
+          f"{g['peak_mem_gb']['graphs']:.2f}; tokens identical "
+          f"{g['tokens_identical']}")
 
 
 def measured_row(torch, kernel, shape, n, dname, run, plain, library,
@@ -573,6 +662,11 @@ def train_phase(torch, args):
 
 
 def serve_phase(torch, args):
+    """[serve]: llama3.2-1b through ``Engine(batch=4, max_len=512)``: a
+    warm-up run (eager), the seeded requests eagerly, then through the
+    engine's CUDA graphs (every bucket and the decode step captured at
+    startup): the main path, whose launch counters are zeroed just
+    before and read just after."""
     import numpy as np
 
     from repro_torch import configs
@@ -590,19 +684,6 @@ def serve_phase(torch, args):
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in lm.parameters())
 
-    nonfinite = {"calls": 0, "bad": 0}
-
-    def checked(fn):
-        def run(*a, **kw):
-            logits, caches = fn(*a, **kw)
-            nonfinite["calls"] += 1
-            nonfinite["bad"] += int(not bool(torch.isfinite(logits).all()))
-            return logits, caches
-        return run
-
-    lm.prefill = checked(lm.prefill)
-    lm.decode_step = checked(lm.decode_step)
-
     rng = np.random.default_rng(args.seed)
 
     def requests(bounds, new):
@@ -610,30 +691,29 @@ def serve_phase(torch, args):
                     0, cfg.vocab_size, size=int(rng.integers(lo, hi + 1))),
                     max_new_tokens=new) for i, (lo, hi) in enumerate(bounds)]
 
-    # warm-up (first cuBLAS/allocator use), then the measured run
-    Engine(lm, batch=4, max_len=LLAMA_MAX_LEN, device="cuda").run(
+    kw = dict(batch=4, max_len=LLAMA_MAX_LEN, device="cuda")
+    # warm-up (first cuBLAS/allocator use, eager), then the same requests
+    # eagerly and through the graphs
+    Engine(lm, graphs=False, warm_plans=False, **kw).run(
         requests(LLAMA_WARMUP, 3))
-    eng = Engine(lm, batch=4, max_len=LLAMA_MAX_LEN, device="cuda")
-    reqs = requests(LLAMA_PROMPTS, LLAMA_NEW)
-    if [len(r.prompt) for r in reqs] != llama_prompt_lens(args):
+    prompts = [r.prompt for r in requests(LLAMA_PROMPTS, LLAMA_NEW)]
+    if [len(p) for p in prompts] != llama_prompt_lens(args):
         raise RuntimeError("llama_prompt_lens does not replay the run")
+    torch.cuda.reset_peak_memory_stats()
+    eager = serve_run(torch, Engine(lm, graphs=False, **kw), prompts,
+                      LLAMA_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(lm, warm_compile=True, **kw)
     torch.cuda.synchronize()
     for c in counters.values():
         c.reset()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run = serve_run(torch, eng, prompts, LLAMA_NEW)
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
     check_tensor_core_walks("serve", walks, ("bs_attn", "gmm", "bsmm"))
+    reqs, wall, st = run["reqs"], run["wall_s"], run["stats"]
+    graphs = graphs_line(eager, run)
 
-    if not all(r.done and len(r.output) == LLAMA_NEW for r in reqs):
-        raise RuntimeError(f"not every request finished with {LLAMA_NEW} "
-                           f"tokens")
-    if nonfinite["bad"]:
-        raise RuntimeError(f"{nonfinite['bad']} of {nonfinite['calls']} "
-                           f"prefill/decode calls gave non-finite logits")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         raise RuntimeError("a generated token is outside the vocabulary")
     for name, count in launches.items():
@@ -641,7 +721,7 @@ def serve_phase(torch, args):
             raise RuntimeError(f"kernel {name} was not launched while "
                                f"serving")
 
-    # launches of one decode step and one prefill
+    # launches of one decode step and one prefill (eager)
     caches = lm.init_cache(4, LLAMA_MAX_LEN)
     per = {}
     for what, call in (
@@ -658,7 +738,6 @@ def serve_phase(torch, args):
                                  for k, c in counters.items()})[0]
     torch.cuda.synchronize()
 
-    st = eng.stats()
     tokens = sum(len(r.output) for r in reqs)
     return dict(
         params=n_params, init_s=init_s, requests=len(reqs),
@@ -669,8 +748,8 @@ def serve_phase(torch, args):
         decode_steps=st["steps"], buckets=list(eng.buckets),
         bucket_stats={str(L): v for L, v in st["buckets"].items()},
         launches=launches, walks=walks, launches_per_call=per,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
-        logit_checks=nonfinite["calls"]), lm
+        peak_mem_gb=run["peak_mem_gb"],
+        logit_checks=st["logits"]["checks"], graphs=graphs), lm
 
 
 def consistency_phase(torch, lm, args):
@@ -933,8 +1012,10 @@ def serve_gemma2_phase(torch, args):
     vocab 256000) with every FFN block-sparse (d = 1/8, b = 16), bf16,
     seeded random weights, through ``Engine(batch=2, max_len=8192)``: 4
     seeded requests of 1024..7000 prompt tokens (one over window + tile
-    = 4608), 8 new tokens each; the bs_attn, bsmm and dense_mm counters
-    are zeroed just before and read just after."""
+    = 4608), 8 new tokens each, eagerly and then through the engine's
+    CUDA graphs (captured at startup; the main path); the bs_attn, bsmm
+    and dense_mm counters are zeroed just before the graph run and read
+    just after."""
     import numpy as np
 
     from repro_torch import configs
@@ -960,30 +1041,30 @@ def serve_gemma2_phase(torch, args):
             0, cfg.vocab_size, size=int(rng.integers(lo, hi + 1))),
             max_new_tokens=n_new)
 
-    # warm-up (first launches, allocator), then the measured run
-    Engine(lm, batch=GEMMA2_BATCH, max_len=max_len, device="cuda").run(
+    kw = dict(batch=GEMMA2_BATCH, max_len=max_len, device="cuda")
+    # warm-up (first launches, allocator; eager), then the same requests
+    # eagerly and through the graphs
+    Engine(lm, graphs=False, warm_plans=False, **kw).run(
         [request(i, lo, hi, 2) for i, (lo, hi) in enumerate(GEMMA2_WARMUP)])
-    eng = Engine(lm, batch=GEMMA2_BATCH, max_len=max_len, device="cuda")
-    reqs = [request(i, lo, hi, new)
-            for i, (lo, hi) in enumerate(GEMMA2_PROMPTS)]
-    if [len(r.prompt) for r in reqs] != gemma2_prompt_lens(args):
+    prompts = [request(i, lo, hi, new).prompt
+               for i, (lo, hi) in enumerate(GEMMA2_PROMPTS)]
+    if [len(p) for p in prompts] != gemma2_prompt_lens(args):
         raise RuntimeError("gemma2_prompt_lens does not replay the run")
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    eager = serve_run(torch, Engine(lm, graphs=False, **kw), prompts, new)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(lm, warm_compile=True, **kw)
+    torch.cuda.synchronize()
     for c in counters.values():
         c.reset()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run = serve_run(torch, eng, prompts, new)
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
     check_tensor_core_walks("serve-gemma2", walks,
                             ("bs_attn", "gmm", "bsmm"))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reqs, wall, peak = run["reqs"], run["wall_s"], run["peak_mem_gb"]
+    graphs = graphs_line(eager, run)
 
-    if not all(r.done and len(r.output) == new for r in reqs):
-        raise RuntimeError(f"not every request finished with {new} tokens")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         raise RuntimeError("a generated token is outside the vocabulary")
     for name, count in launches.items():
@@ -1019,7 +1100,8 @@ def serve_gemma2_phase(torch, args):
         prefill_p50_ms=st["prefill_latency"]["p50_ms"],
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
         decode_steps=st["steps"], launches=launches, walks=walks,
-        visited=visited, buckets=list(eng.buckets), peak_mem_gb=peak), lm, eng
+        visited=visited, buckets=list(eng.buckets), peak_mem_gb=peak,
+        graphs=graphs), lm, eng
 
 
 def gemma2_consistency_phase(torch, lm, eng, args):
@@ -1653,11 +1735,13 @@ def serve_qwen3_phase(torch, args):
     GQA 32/4, head dim 128, QK-norm, 128 experts top-8 of d_ff 768,
     vocab 151936) in bf16 from ``init(seed)`` on the card, through
     ``Engine(batch=4, max_len=1024)``: 6 seeded requests of 32..900
-    prompt tokens, 8 new tokens each.  The gmm, dense_mm and bs_attn
-    counters are zeroed just before and read just after.  The routing
-    drops are read once after the run from the ``"moe_dispatch"``
-    stream (one value a layer a forward, in call order): mean and max
-    over the layers for each prefill, and over every decode step."""
+    prompt tokens, 8 new tokens each, eagerly and then through the
+    engine's CUDA graphs (captured at startup; the main path).  The gmm,
+    dense_mm and bs_attn counters are zeroed just before the graph run
+    and read just after.  The routing drops are read once after each run
+    from the ``"moe_dispatch"`` stream (one value a layer a forward, in
+    call order): mean and max over the layers for each prefill, and over
+    every decode step; the graph run's equal the eager run's."""
     import numpy as np
 
     from repro_torch import configs
@@ -1677,19 +1761,6 @@ def serve_qwen3_phase(torch, args):
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in lm.parameters())
 
-    # which forward each group of num_layers drop values came from: the
-    # wrappers only note the call's kind (no device work, no read)
-    calls = []
-    prefill, decode_step = lm.prefill, lm.decode_step
-
-    def noted(kind, fn):
-        def run(*a, **kw):
-            calls.append(kind)
-            return fn(*a, **kw)
-        return run
-
-    lm.prefill = noted("prefill", prefill)
-    lm.decode_step = noted("decode", decode_step)
     rng = np.random.default_rng(args.seed + 13)
 
     def request(uid, n, new):
@@ -1697,31 +1768,61 @@ def serve_qwen3_phase(torch, args):
                                                     size=n),
                        max_new_tokens=new)
 
-    # warm-up (first launches, allocator), then the measured run
-    Engine(lm, batch=QWEN3_BATCH, max_len=QWEN3_MAX_LEN, device="cuda").run(
+    def noted(eng, calls):
+        """Note which forward each group of num_layers drop values came
+        from: the engine's admit (a prefill) and step (a decode step, if
+        any slot is live); no device work, no read."""
+        admit, step = eng.admit, eng.step
+
+        def noted_admit(req):
+            calls.append("prefill")
+            return admit(req)
+
+        def noted_step():
+            if eng.live:
+                calls.append("decode")
+            return step()
+
+        eng.admit, eng.step = noted_admit, noted_step
+        return eng
+
+    kw = dict(batch=QWEN3_BATCH, max_len=QWEN3_MAX_LEN, device="cuda")
+    # warm-up (first launches, allocator; eager), then the same requests
+    # eagerly and through the graphs
+    Engine(lm, graphs=False, warm_plans=False, **kw).run(
         [request(i, 40, 2) for i in range(2)])
-    eng = Engine(lm, batch=QWEN3_BATCH, max_len=QWEN3_MAX_LEN, device="cuda")
-    reqs = [request(i, n, QWEN3_NEW)
-            for i, n in enumerate(qwen3_prompt_lens(args))]
+    prompts = [request(i, n, QWEN3_NEW).prompt
+               for i, n in enumerate(qwen3_prompt_lens(args))]
+    eager_calls = []
+    torch.cuda.reset_peak_memory_stats()
+    eager_eng = noted(Engine(lm, graphs=False, **kw), eager_calls)
+    sparse.reset_telemetry()
+    eager_calls.clear()
+    eager = serve_run(torch, eager_eng, prompts, QWEN3_NEW)
+    eager_hist = sparse.dropped_history("moe_dispatch")
+    del eager_eng
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    eng = noted(Engine(lm, warm_compile=True, **kw), calls)
     torch.cuda.synchronize()
     sparse.reset_telemetry()
     calls.clear()
     for c in counters.values():
         c.reset()
-    t0 = time.perf_counter()
-    eng.run(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    run = serve_run(torch, eng, prompts, QWEN3_NEW)
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
     check_tensor_core_walks("serve-qwen3-moe", walks)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    lm.prefill, lm.decode_step = prefill, decode_step
+    reqs, wall, peak = run["reqs"], run["wall_s"], run["peak_mem_gb"]
     hist = sparse.dropped_history("moe_dispatch")
+    graphs = graphs_line(eager, run)
+    graphs["drops_identical"] = (hist == eager_hist
+                                 and calls == eager_calls)
+    if not graphs["drops_identical"]:
+        raise RuntimeError(f"routing drops differ between the eager and "
+                           f"the graph run: {len(eager_hist)} values for "
+                           f"{eager_calls} against {len(hist)} for {calls}")
 
-    if not all(r.done and len(r.output) == QWEN3_NEW for r in reqs):
-        raise RuntimeError(f"not every request finished with {QWEN3_NEW} "
-                           f"tokens")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         raise RuntimeError("a generated token is outside the vocabulary")
     for name, count in launches.items():
@@ -1757,7 +1858,7 @@ def serve_qwen3_phase(torch, args):
         dropped_frac_per_prefill=drops,
         decode_dropped_frac={"layer_calls": len(dec),
                              "mean": float(np.mean(dec)), "max": max(dec)},
-        buckets=list(eng.buckets), peak_mem_gb=peak), lm, eng
+        buckets=list(eng.buckets), peak_mem_gb=peak, graphs=graphs), lm, eng
 
 
 def qwen3_moe_layer_check(torch, lm, eng, args):
@@ -1971,6 +2072,7 @@ def main(argv=None) -> int:
           f"{serve['decode_step_p50_ms']} ms; launches {serve['launches']}; "
           f"launches by walk {serve['walks']}")
     print(f"[serve] detail {json.dumps(serve)}")
+    print_graphs("llama3.2-1b", serve["graphs"])
 
     errs = consistency_phase(torch, lm, args)
     print(f"[consistency] rel-max err vs forward: "
@@ -2049,6 +2151,7 @@ def main(argv=None) -> int:
           f"{json.dumps(gemma['launches'])}; launches by walk "
           f"{json.dumps(gemma['walks'])}; peak memory "
           f"{gemma['peak_mem_gb']:.2f} GiB")
+    print_graphs("gemma2-2b", gemma["graphs"])
     print(f"[serve-gemma2] visited pairs at S={gemma['prefill_lens']}'s "
           f"longest: {json.dumps(gemma['visited'])}")
     gemma["consistency"] = gemma2_consistency_phase(torch, lm, eng, args)
@@ -2079,6 +2182,7 @@ def main(argv=None) -> int:
           f"{json.dumps(qwen['launches'])}; launches by walk "
           f"{json.dumps(qwen['walks'])}; peak memory "
           f"{qwen['peak_mem_gb']:.2f} GiB")
+    print_graphs("qwen3-moe-30b-a3b", qwen["graphs"])
     print(f"[serve-qwen3-moe] dropped_frac per prefill (mean, max over 48 "
           f"layers): {json.dumps(qwen['dropped_frac_per_prefill'])}; "
           f"decode steps: {json.dumps(qwen['decode_dropped_frac'])}")

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import sparse as sparse_api
+from repro_torch.core import capture
 from repro_torch.core import dynamic_sparse as dsp
 from repro_torch.core import masks as masks_lib
 from repro_torch.core.bsr import BlockSparseMatrix
@@ -103,19 +104,26 @@ class SparseLinear(nn.Module):
                                  self.block_size)
 
     def plan(self) -> sparse_api.MatmulPlan:
+        """The module's plan, built once under the ambient context; each
+        later use registers it in the ambient plan pool (as a cache hit
+        of ``sparse.plan`` would) and keeps it alive through a capture."""
         if self._plan is None or self._plan.device != self.values.device:
             self._plan = sparse_api.plan(self.as_bsr(), 0,
                                          device=self.values.device)
+        else:
+            sparse_api.note_use(self._plan)
         return self._plan
 
     def packed(self) -> torch.Tensor:
-        """The kernel's tile stack for the current values (cached)."""
+        """The kernel's tile stack for the current values (cached; a
+        capture in progress keeps the stack it reads alive)."""
         v = self.values
         key = (v.data_ptr(), v._version, v.dtype, v.device)
         if self._packed is None or self._packed_key != key:
             with torch.no_grad():
                 self._packed = self.plan().pack(v)
             self._packed_key = key
+        capture.hold(self._packed)
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -177,13 +177,36 @@ def entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
 
 class LaunchCounter:
     """Launch count of one CUDA kernel: its wrapper adds one per launch
-    and nowhere else."""
+    and nowhere else, and a replayed CUDA graph adds the launches it
+    captured (``launch_counts`` / ``add_launches``)."""
 
     def __init__(self):
         self.launches = 0
+        COUNTERS.append(self)
 
     def reset(self):
         self.launches = 0
+
+
+# every LaunchCounter, in creation order
+COUNTERS: list = []
+
+
+def launch_counts() -> tuple:
+    """Every counter's launches, in ``COUNTERS`` order."""
+    return tuple(c.launches for c in COUNTERS)
+
+
+def set_launches(counts) -> None:
+    """Put every counter back to ``counts`` (a ``launch_counts()``)."""
+    for c, n in zip(COUNTERS, counts):
+        c.launches = n
+
+
+def add_launches(delta) -> None:
+    """Add ``(counter index, launches)`` pairs to their counters."""
+    for i, n in delta:
+        COUNTERS[i].launches += n
 
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)

@@ -15,6 +15,13 @@ by kernel family (the bs_attn, bsmm, dense_mm, gmm and sddmm kernels,
 the library GEMM of the unembed and the router, everything else); and, for the decode step,
 the Python functions that take the host's time (``cProfile``).  Needs a
 card.
+
+``--graphs`` also profiles the serving engine's CUDA graphs in the same
+process: an ``Engine`` over the same model captures its decode step and
+the ``--prompt`` bucket's prefill, and the same phases are reported for
+their replays (``graph_prefill``, ``graph_decode_step``,
+``graph_decode_step_host``; a call is the engine's: one upload of its
+inputs and one replay), beside the eager ones.
 """
 from __future__ import annotations
 
@@ -127,6 +134,63 @@ def _host_profile(fn, reps: int, top: int = 12):
                 for (f, line, name), (cc, nc, tt, ct, _) in rows[:top]]}
 
 
+def _replay_ms(prog, reps: int) -> float:
+    """Device time per replay of a captured program (CUDA events; a sleep
+    kernel holds the stream while the host enqueues the replays, so host
+    time between them does not count)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(1e8))
+    start.record()
+    for _ in range(reps):
+        prog()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _graph_phases(lm, args, prompt):
+    """The same phases through the engine's captured programs: the
+    ``--prompt`` bucket's prefill into slot 0 and the decode step of the
+    whole batch at position ``--prompt``."""
+    from repro_torch.serve import Engine
+
+    eng = Engine(lm, batch=args.batch, max_len=args.max_len, device="cuda",
+                 buckets=(args.prompt,), warm_plans=False, graphs=True)
+    pre = eng._prefill_program(args.prompt)
+    io = np.zeros(args.prompt + 2, np.int64)
+    io[:args.prompt] = prompt[0]
+    io[args.prompt:] = (args.prompt - 1, 0)
+    dec = eng._decode
+    dio = np.concatenate([np.arange(args.batch) % lm.cfg.vocab_size,
+                          np.full(args.batch, args.prompt)]).astype(np.int64)
+    pre.load(io)
+    pre.capture()
+    dec.load(dio)
+    dec.capture()
+
+    def prefill():
+        pre.load(io)
+        pre()
+
+    def decode():
+        dec.load(dio)
+        dec()
+
+    for fn in (prefill, decode, decode):       # warm-up
+        fn()
+    return {"graph_capture_s": {"prefill": pre.capture_s,
+                                "decode": dec.capture_s},
+            "graph_prefill_device_ms": _replay_ms(pre, 3),
+            "graph_decode_step_device_ms": _replay_ms(dec, args.steps),
+            "graph_prefill_wall_ms": _wall_ms(prefill, 3),
+            "graph_decode_step_wall_ms": _wall_ms(decode, args.steps),
+            "graph_prefill": _profile(prefill, 3),
+            "graph_decode_step": _profile(decode, args.steps),
+            "graph_decode_step_host": _host_profile(decode, args.steps)}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
@@ -137,6 +201,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--graphs", action="store_true",
+                    help="also profile the engine's CUDA-graph replays")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -170,6 +236,8 @@ def main(argv=None):
            "prefill": _profile(prefill, 3),
            "decode_step": _profile(decode, args.steps),
            "decode_step_host": _host_profile(decode, args.steps)}
+    if args.graphs:
+        out.update(_graph_phases(lm, args, prompt))
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

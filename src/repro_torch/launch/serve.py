@@ -11,6 +11,9 @@ default; ``--device cpu`` runs the kernels' plain PyTorch versions on the
 CPU (use ``--smoke`` there).  ``--density`` makes every dense FFN
 block-sparse at that block density (block size ``ffn_block_size``), the
 paper's sparse FFN; an MoE config keeps its experts and refuses it.
+On the card the engine captures its decode step and each bucket's
+prefill as CUDA graphs at their first use and replays them; ``--eager``
+runs the same programs eagerly instead.
 """
 from __future__ import annotations
 
@@ -38,6 +41,9 @@ def main(argv=None):
                          "plain versions)")
     ap.add_argument("--density", type=float, default=None,
                     help="block density of a sparse FFN in every layer")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the programs eagerly on the card (no CUDA "
+                         "graphs)")
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -48,8 +54,9 @@ def main(argv=None):
         cfg = configs.sparsify_ffn(cfg, args.density)
     lm = LM(cfg, device=args.device, seed=args.seed)
     eng = Engine(lm, batch=args.batch, max_len=args.max_len,
-                 device=lm.device)
-    print(f"[serve] {cfg.name} on {lm.device}, buckets {eng.buckets}")
+                 device=lm.device, graphs=False if args.eager else None)
+    print(f"[serve] {cfg.name} on {lm.device}, buckets {eng.buckets}, "
+          f"graphs {eng.graphs}")
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(uid=i,
@@ -70,6 +77,12 @@ def main(argv=None):
     print(f"[serve] {len(reqs)} requests, {total_toks} tokens, "
           f"{dt:.2f}s ({total_toks / dt:.1f} tok/s on {lm.device}, "
           f"batch={args.batch})")
+    st = eng.stats()
+    g = st["graphs"]
+    print(f"[serve] decode step p50 {st['step_latency']['p50_ms']} ms, "
+          f"prefill p50 {st['prefill_latency']['p50_ms']} ms; graphs: "
+          f"{g['captures']} captured in {g['capture_s']:.3f}s, "
+          f"{g['replays']} replays")
     return eng
 
 

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core import capture
 from repro_torch.core import masks as masks_lib
 from repro_torch.kernels.bs_attn import ops as bs_ops
 from repro_torch.kernels.bs_attn.ref import attend_plain, element_mask
@@ -101,10 +102,15 @@ class AttnSpec:
                                  self.tile_kv, self.causal)
 
     def walk(self, device: torch.device) -> bs_ops.Walk:
-        return _device_walk(self.nq, self.nkv, self.window_tiles,
+        """The kernel's walk on ``device`` (cached).  A capture in
+        progress keeps it alive: the cache may evict it while the
+        captured graph still reads its tensors."""
+        walk = _device_walk(self.nq, self.nkv, self.window_tiles,
                             self.global_tiles, self.tile_q, self.tile_kv,
                             self.causal, self.window, self.global_prefix,
                             str(device))
+        capture.hold(walk)
+        return walk
 
     def element_mask(self, device) -> torch.Tensor:
         """The ``[S, Skv]`` bool element mask, built once per device

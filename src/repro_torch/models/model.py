@@ -165,6 +165,10 @@ class LM(nn.Module):
 
     # -- plumbing ---------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
+        """Token or index ids as a long tensor on the model's device: a
+        long tensor already there is returned as it is, with no copy (a
+        captured program reads the engine's device buffers through it);
+        anything else is copied there."""
         return torch.as_tensor(tokens, device=self.device).long()
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ Counterpart of the JAX package's ``models/moe.py`` (``MoEMetrics``,
 reference's sort-free "capacity gather": top-k routing in fp32, each
 expert takes the first C tokens routed to it (priority by the flattened
 token-major assignment order), the expert GEMMs run on the ``[E, C,
-D]`` buckets, and a weighted scatter-add combines.  Overflow goes to a
+D]`` buckets, and a weighted scatter-add combines, token by token in
+the reference's order (``combine``).  Overflow goes to a
 scratch column that is cropped, and is counted in ``dropped_frac``;
 empty slots gather token 0 with combine weight 0.  The expert GEMMs go
 through ``sparse.batched_matmul``: the gmm kernel on a card (one launch
@@ -129,7 +130,9 @@ def _route_and_rank(xf: torch.Tensor, router_w: torch.Tensor, cfg,
                     cap: int, *, ranking: str = "sort"):
     """Routing core on a token set ``xf [T, D]``: fp32 router, top-k,
     capacity slot assignment.  Returns ``(token_for_slot [E, C] long,
-    w_slot [E, C] fp32, counts [E], dropped, probs_mean [E], z, aux)``;
+    w_slot [E, C] fp32, counts [E], dropped, probs_mean [E], z, aux,
+    flat_slot [T, k])``, the last each assignment's flat ``[E, C]`` slot
+    (``E * C`` where it was dropped, for ``combine``);
     ``ranking`` "sort" (the reference's ``_route_and_rank``) or "cumsum"
     (its gspmd default) assign the same slots."""
     m = cfg.moe
@@ -157,7 +160,7 @@ def _route_and_rank(xf: torch.Tensor, router_w: torch.Tensor, cfg,
             - first[sorted_e]
         slot = torch.empty_like(flat_e)
         slot[order] = rank_sorted
-        counts = torch.bincount(flat_e, minlength=e_n)
+        counts = expert_counts(flat_e, e_n)
     else:
         # the reference's cumsum over the [T k, E] one-hot, laid out [E,
         # T k] so the scan runs along the contiguous axis (a scan down
@@ -177,7 +180,9 @@ def _route_and_rank(xf: torch.Tensor, router_w: torch.Tensor, cfg,
     # cap (duplicate writes there only), which is cropped
     e_idx = torch.where(keep, flat_e, e_n - 1)
     c_idx = torch.where(keep, slot, cap)
-    tok_idx = torch.arange(t, device=dev).repeat_interleave(k)
+    # each token id k times (an expand: no output size to compute on the
+    # device, as a repeat_interleave may)
+    tok_idx = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
     token_for_slot = torch.zeros((e_n, cap + 1), dtype=torch.long,
                                  device=dev)
     token_for_slot[e_idx, c_idx] = tok_idx
@@ -188,8 +193,42 @@ def _route_and_rank(xf: torch.Tensor, router_w: torch.Tensor, cfg,
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     frac = counts.float() / (t * k)
     aux = e_n * torch.sum(frac * probs_mean)
+    flat_slot = torch.where(keep, flat_e * cap + slot, e_n * cap)
     return (token_for_slot[:, :cap], w_slot[:, :cap], counts, dropped,
-            probs_mean, z, aux)
+            probs_mean, z, aux, flat_slot.reshape(t, k))
+
+
+def expert_counts(flat_e: torch.Tensor, e_n: int) -> torch.Tensor:
+    """Assignments per expert, ``[E]`` int64: ``bincount`` with a fixed
+    output size, as an exact integer ``scatter_add_`` (``torch.bincount``
+    reads its input's maximum on the host to size its output, a device
+    sync that a CUDA-graph capture refuses)."""
+    counts = torch.zeros(e_n, dtype=torch.long, device=flat_e.device)
+    return counts.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
+def combine(out_e: torch.Tensor, w_slot: torch.Tensor,
+            flat_slot: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weighted scatter-add of the expert outputs ``out_e [E, C, D]``
+    back to the tokens, in ``dtype``.  ``flat_slot [T, k]`` is each
+    assignment's flat ``[E, C]`` slot (``E * C`` where it was dropped).
+    Each token's contributions are added one at a time in ascending slot
+    order, the order the reference's (and the CPU's) sequential
+    scatter-add over the flat slots takes, so the sum is the same bit for
+    bit on every device and every run (``index_add_`` on a card adds
+    with atomics, in an order that changes from run to run).  The slots
+    no token filled (token 0 at weight 0) add zeros there and are left
+    out here."""
+    e_n, cap, d = out_e.shape
+    contrib = (out_e.to(dtype) * w_slot[..., None].to(dtype)).reshape(-1, d)
+    # a zero row for the dropped assignments, which sort last
+    contrib = torch.cat([contrib, contrib.new_zeros((1, d))])
+    slots = torch.sort(flat_slot, dim=1).values
+    y = torch.zeros((flat_slot.shape[0], d), dtype=dtype,
+                    device=out_e.device)
+    for j in range(slots.shape[1]):
+        y = y + contrib[slots[:, j]]
+    return y
 
 
 def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
@@ -200,8 +239,8 @@ def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
     t = b_ * s
     xf = x.reshape(t, d)
     cap = _capacity(t, cfg)
-    token_for_slot, w_slot, _, dropped, _, z, aux = _route_and_rank(
-        xf, moe.router.w, cfg, cap, ranking=m.ranking)
+    token_for_slot, w_slot, _, dropped, _, z, aux, flat_slot = \
+        _route_and_rank(xf, moe.router.w, cfg, cap, ranking=m.ranking)
 
     buckets = xf[token_for_slot]                                  # [E, C, D]
     h_g = bmm(buckets, moe.w_gate)
@@ -211,10 +250,7 @@ def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
     out_e = bmm(act * h_u, moe.w_down)                           # [E, C, D]
 
     cdt = torch.bfloat16 if m.combine_dtype == "bfloat16" else torch.float32
-    contrib = out_e.to(cdt) * w_slot[..., None].to(cdt)
-    y = torch.zeros((t, d), dtype=cdt, device=x.device)
-    y.index_add_(0, token_for_slot.reshape(-1), contrib.reshape(-1, d))
-    y = y.float()
+    y = combine(out_e, w_slot, flat_slot, cdt).float()
     if moe.shared is not None:
         y = y + moe.shared(xf).float()
     return (y.reshape(b_, s, d).to(x.dtype),

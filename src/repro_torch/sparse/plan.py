@@ -58,11 +58,22 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   ``capacity_report()`` (one host read for all of them), so a forward
   that records once per layer never waits for the device.
   ``dropped_history`` gives a stream's values one per call, in call
-  order.
+  order.  Under a CUDA-graph capture (``core.capture``) the value is
+  noted for the graph, which queues a copy of it after every replay
+  (``queue_dropped``); ``PlanContext(telemetry=False)`` records nothing;
+* the plan-first lifecycle of the reference's serving engine:
+  ``use_ctx`` installs an ambient ``PlanContext`` for every call that
+  passes none (``plan.py:1836-1857``); a ``ctx.pool`` label registers
+  every plan used under it, cache hits included, for ``pool_plans``
+  (``:281``, ``:1890-1895``); ``cache_stats`` counts plans built, cache
+  hits and route decisions; ``plan_report`` lists every cached plan's
+  forward and backward routes (``:206``).  With no route race, every
+  route's ``source`` is ``"fixed"`` (chosen by ``port_route``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 from typing import Any, Dict, Optional, Tuple, Union
@@ -70,7 +81,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import partitioner
+from repro_torch.core import capture, partitioner
 from repro_torch.core import planner as planner_lib
 from repro_torch.core.bsr import BlockSparseMatrix, pattern_key
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -162,6 +173,8 @@ class MatmulPlan:
     split: int = 1
     # static kind: (m, k) padded to the tile the kernels walk
     walk_shape: Tuple[int, int] = (0, 0)
+    # the in-memory cache key the plan was stored under (pool entries)
+    mem_key: tuple = dataclasses.field(default=(), repr=False)
 
     @property
     def grad_routes(self) -> Dict[str, str]:
@@ -484,7 +497,12 @@ class _DenseMatmulFn(torch.autograd.Function):
 
 _LOCK = threading.Lock()
 _PLANS: Dict[Tuple, MatmulPlan] = {}
-_STATS = {"plans_built": 0, "plan_hits": 0}
+_STATS = {"plans_built": 0, "plan_hits": 0, "decisions": 0}
+# plan pools: ctx.pool label -> the mem keys of every plan used under it,
+# in first-use order (a dict as an ordered set)
+_POOLS: Dict[str, Dict[Tuple, None]] = {}
+# the ambient PlanContext of use_ctx, per thread
+_CTX_STATE = threading.local()
 # running overflow telemetry per plan key: outlives plan objects, so an
 # escalation survives the eviction it causes
 _CAPACITY: Dict[str, CapacityStats] = {}
@@ -499,15 +517,101 @@ _DROPS_LOG_LEN = 1 << 16
 
 
 def cache_stats() -> Dict[str, int]:
-    """Plan-cache counters: plans built and cache hits since ``reset``."""
+    """Plan-cache counters since ``reset``: plans built, cache hits and
+    route decisions (one per plan built: ``port_route``'s fixed choice)."""
     with _LOCK:
         return dict(_STATS, cached=len(_PLANS))
 
 
+@contextlib.contextmanager
+def use_ctx(ctx: PlanContext):
+    """Install ``ctx`` as the ambient planning context of this thread:
+    every ``plan``/``matmul``/``spmm_nt``/``batched_matmul`` call without
+    an explicit ``ctx`` (and ``record_dropped``) picks it up.  The serving
+    engine wraps its programs with it, so its pool label and telemetry
+    policy never leak into process-global state."""
+    prev = getattr(_CTX_STATE, "ctx", None)
+    _CTX_STATE.ctx = ctx
+    try:
+        yield ctx
+    finally:
+        _CTX_STATE.ctx = prev
+
+
+def current_ctx() -> PlanContext:
+    """The ambient ``PlanContext`` (``use_ctx``), else the default."""
+    ctx = getattr(_CTX_STATE, "ctx", None)
+    return ctx if ctx is not None else _DEFAULT_CTX
+
+
+_DEFAULT_CTX = PlanContext()
+
+
+def _register(mem_key: Tuple, ctx: PlanContext) -> None:
+    if ctx.pool and ctx.cache:
+        with _LOCK:
+            _POOLS.setdefault(ctx.pool, {})[mem_key] = None
+
+
+def note_use(p: MatmulPlan) -> None:
+    """A plan cached by its caller (``SparseLinear``) is used again: it
+    joins the ambient pool, as a ``plan()`` hit would, and a capture in
+    progress keeps it alive."""
+    _register(p.mem_key, current_ctx())
+    capture.hold(p)
+
+
+def pool_plans(pool: str) -> list:
+    """Every live plan used under ``ctx.pool == pool``, in first-use
+    order.  Plans dropped from the in-memory cache (``reset``, a capacity
+    escalation) drop out until their holder plans again."""
+    with _LOCK:
+        keys = list(_POOLS.get(pool, ()))
+        plans = [_PLANS.get(k) for k in keys]
+    return [p for p in plans if p is not None]
+
+
+def plan_report() -> dict:
+    """Every plan this process holds with its forward route, the route's
+    ``source`` (``"fixed"``: the port has no race yet), kind, op and the
+    routes of its backward products (``grad``: ``mode`` "planned" when
+    autograd runs them, "unavailable" for a forward-only plan), plus the
+    totals."""
+    with _LOCK:
+        plans = list(_PLANS.values())
+    per = {}
+    for p in plans:
+        # the gmm route of batched_matmul has no backward
+        if not p.ctx.differentiable or (p.spec.op == "batched_matmul"
+                                        and p.route != "dense_torch"):
+            grad = {"mode": "unavailable"}
+        else:
+            grad = {"mode": "planned",
+                    **{name: {"route": route, "source": "fixed"}
+                       for name, route in p.grad_routes.items()}}
+        per[p.key] = {"route": p.route, "source": "fixed",
+                      "from_disk": False, "op": p.spec.op, "kind": p.kind,
+                      "grad": grad}
+    routes = collections.Counter(r["route"] for r in per.values())
+    return {
+        "per_plan": per,
+        "totals": {
+            "plans": len(per),
+            "grad_planned": sum(1 for r in per.values()
+                                if r["grad"]["mode"] == "planned"),
+            "grad_measured": 0,
+            "grad_from_disk": 0,
+            "by_route": dict(sorted(routes.items())),
+        },
+    }
+
+
 def reset() -> None:
-    """Forget every cached plan and capacity stat, zero the counters."""
+    """Forget every cached plan, pool and capacity stat, zero the
+    counters."""
     with _LOCK:
         _PLANS.clear()
+        _POOLS.clear()
         _CAPACITY.clear()
         _DROPS.clear()
         _DROPS_LOG.clear()
@@ -568,23 +672,42 @@ def record_dropped(name: str, dropped_frac) -> None:
     value is recorded now; a tensor on the card is kept on the card and
     read at the next ``capacity_report()``, so no call here waits for
     the device (the reference's eager call syncs, its traced call
-    records nothing)."""
+    records nothing).  Under a capture record (``core.capture``) the
+    value is noted for the captured graph, which queues a copy of it
+    after each replay; under an ambient ``telemetry=False`` nothing is
+    recorded."""
+    if not current_ctx().telemetry:
+        return
+    rec = capture.active()
     if isinstance(dropped_frac, torch.Tensor) \
-            and dropped_frac.device.type != "cpu":
+            and (rec is not None or dropped_frac.device.type != "cpu"):
         frac = dropped_frac.detach().float().reshape(-1)
         if frac.numel() != 1:
             frac = frac.amax().reshape(1)
-        with _LOCK:
-            pend = _DROPS.setdefault(name, [])
-            pend.append(frac)
-            full = len(pend) >= _DROPS_FOLD_AT
-        if full:
-            _fold_drops()
+        if rec is not None:
+            rec.drops.setdefault(name, []).append(frac)
+        else:
+            queue_dropped(name, frac)
+        return
+    if rec is not None:
+        rec.drops.setdefault(name, []).append(
+            torch.tensor([float(np.asarray(dropped_frac).max())]))
         return
     if isinstance(dropped_frac, torch.Tensor):
         dropped_frac = dropped_frac.detach().float().numpy()
     _fold_drops()                 # earlier calls' card values first
     _log_drops(name, [float(np.asarray(dropped_frac).max())])
+
+
+def queue_dropped(name: str, fracs: torch.Tensor) -> None:
+    """Queue device values of stream ``name`` (a 1-d tensor, one value a
+    call, in call order) for the next fold."""
+    with _LOCK:
+        pend = _DROPS.setdefault(name, [])
+        pend.append(fracs)
+        full = len(pend) >= _DROPS_FOLD_AT
+    if full:
+        _fold_drops()
 
 
 def dropped_history(name: str) -> list:
@@ -877,8 +1000,9 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
     ``operand_or_spec`` is a ``BlockSparseMatrix`` (static kind, ``[m,
     k]``), a ``DynamicOperand`` (dynamic kind), a dense weight tensor
     ``w [k, m]`` (dense kind), or an ``OpSpec`` of the dynamic or dense
-    kind (a static plan needs its pattern)."""
-    ctx = ctx or PlanContext()
+    kind (a static plan needs its pattern).  ``ctx=None`` takes the
+    ambient context (``use_ctx``)."""
+    ctx = ctx or current_ctx()
     dev = resolve_device(device)
     if isinstance(operand_or_spec, OpSpec):
         spec = operand_or_spec
@@ -924,12 +1048,15 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
     # the runtime-only knobs change what a plan does, not its bucket
     mem_key = fp + (ctx.overflow_threshold, ctx.telemetry,
                     ctx.differentiable)
+    _register(mem_key, ctx)
     if ctx.cache:
         with _LOCK:
             hit = _PLANS.get(mem_key)
             if hit is not None:
                 _STATS["plan_hits"] += 1
-                return hit
+        if hit is not None:
+            capture.hold(hit)
+            return hit
     if spec.kind == "static":
         p = _build_static(operand, int(spec.n), dev, route, ctx)
     elif spec.kind == "dynamic":
@@ -944,10 +1071,13 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
             p.artifacts = {"kernel": "gmm", "row_tile": p.row_tile}
     p.spec = p.spec or spec
     p.key = key
+    p.mem_key = mem_key
     with _LOCK:
         _STATS["plans_built"] += 1
+        _STATS["decisions"] += 1
         if ctx.cache:
             p = _PLANS.setdefault(mem_key, p)
+    capture.hold(p)
     stats = p.capacity_stats
     if ctx.cache and stats is not None:
         def _escalate_trip():
@@ -1041,7 +1171,7 @@ def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
     """Batched dense ``[..., C, D] @ [..., D, F]`` (MoE expert GEMMs):
     one plan for the per-slice problem, in ``a`` and ``b``'s promoted
     dtype, run over the leading axes (the gmm kernel on a card)."""
-    ctx = ctx or PlanContext()
+    ctx = ctx or current_ctx()
     if a.dim() < 3 or b.dim() != a.dim() or a.shape[-1] != b.shape[-2]:
         raise ValueError(f"batched_matmul takes [..., C, D] @ [..., D, F] "
                          f"with the same leading axes; got "

@@ -263,7 +263,17 @@ class PlanContext:
                         disables
     telemetry           record each call's pack overflow (one host read
                         of four device counters per call; off for loops
-                        that must not wait for the device)
+                        that must not wait for the device) and the MoE
+                        routing drops (``record_dropped``)
+
+    Plan pool (the serving engine's plan enumeration):
+
+    pool            label grouping every plan used under this context
+                    into a named pool (``sparse.pool_plans(name)``).
+                    Runtime-only: a label, not an identity -- it joins
+                    neither the plan's ``key`` nor the in-memory cache
+                    key, so pooled and unpooled callers share one plan
+                    per problem
     """
 
     mode: str = "auto"
@@ -274,6 +284,7 @@ class PlanContext:
     capacity_policy: str = "planned"
     overflow_threshold: float = 0.25
     telemetry: bool = True
+    pool: Optional[str] = None
 
     def __post_init__(self):
         if self.mode not in MODES:

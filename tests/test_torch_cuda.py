@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on a card, against their plain versions.
+"""The port's CUDA kernels on a card, against their plain versions, and
+the serving engine's CUDA graphs against the same engine run eagerly.
 
 Needs a CUDA device and skips without one.  Imports neither JAX nor the
 JAX package, so it runs on a machine that has only PyTorch:
@@ -1082,3 +1083,160 @@ def test_qwen3_moe_lm_on_card_matches_cpu(dev):
         cl, cc = cpu.decode_step(toks[:, pos:pos + 1], cc,
                                  np.asarray([pos, pos]))
     assert _rel(logits.cpu(), cl) <= 2e-4
+
+
+# ---------------------------------------------------------------------------
+# the serving engine through CUDA graphs, against the same engine eagerly
+# ---------------------------------------------------------------------------
+
+def _serve_cfg(which):
+    from repro_torch import configs
+    if which == "llama-sparse":
+        return configs.sparsify_ffn(configs.smoke("llama3_2_1b"), 0.25)
+    if which == "gemma2":
+        return configs.sparsify_ffn(configs.smoke("gemma2-2b"), 0.25)
+    return configs.smoke("qwen3-moe-30b-a3b")
+
+
+def _serve_stream(seed, lengths, new=4):
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=rng.integers(0, 512, size=n),
+                    max_new_tokens=new) for i, n in enumerate(lengths)]
+
+
+def _serve(lm, dev, graphs, lengths, *, buckets, max_len, batch=2,
+           warm_compile=True, after_warm=None):
+    """Serve ``lengths`` (seeded prompts) through a fresh engine; returns
+    the tokens, every call's logits, the launch counts of the run by
+    counter, the run's routing drops and the engine."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import Engine
+    eng = Engine(lm, batch=batch, max_len=max_len, device=dev,
+                 buckets=buckets, graphs=graphs, warm_compile=warm_compile)
+    if after_warm is not None:
+        after_warm(eng)
+    seen = []
+    read = eng._read
+
+    def keep(out_logits):
+        seen.append(out_logits[1].clone())
+        return read(out_logits)
+
+    eng._read = keep
+    reqs = _serve_stream(7, lengths)
+    torch.cuda.synchronize()
+    sparse.reset_telemetry()
+    before = _build.launch_counts()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = [a - b for a, b in zip(_build.launch_counts(), before)]
+    return ([r.output for r in reqs], seen, launches,
+            sparse.dropped_history("moe_dispatch"), eng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["llama-sparse", "gemma2", "qwen3"])
+def test_engine_graphs_match_eager(dev, which):
+    """A mixed-length stream over three buckets after ``warm_compile``:
+    one capture per bucket and one for decode, none and no plan or
+    decision while serving; tokens, every call's logits (bit for bit),
+    the launch counters (by kernel and walk) and the MoE routing drops
+    (count and values) equal to the same engine run eagerly."""
+    lm = LM(_serve_cfg(which), device=dev, seed=0)
+    lengths = [5, 20, 9, 40, 3, 33]
+    kw = dict(buckets=(8, 24, 48), max_len=64)
+    want = _serve(lm, dev, False, lengths, **kw)
+    stats = {}
+
+    def mark(eng):
+        stats["graphs"] = eng.stats()["graphs"]
+        stats["plans"] = sparse.cache_stats()
+
+    got = _serve(lm, dev, True, lengths, after_warm=mark, **kw)
+    eng = got[4]
+    assert stats["graphs"]["captures"] == len(eng.buckets) + 1
+    g = eng.stats()["graphs"]
+    assert g["captures"] == stats["graphs"]["captures"]
+    assert all(v["captures"] == 1 for v in g["prefill"].values())
+    assert g["decode"]["captures"] == 1 and g["decode"]["replays"] > 0
+    now = sparse.cache_stats()
+    for key in ("plans_built", "decisions"):
+        assert now[key] == stats["plans"][key], key
+    assert {r for r in eng.stats()["buckets"]
+            if eng.stats()["buckets"][r]["prefills"]} == {8, 24, 48}
+    assert got[0] == want[0]
+    assert len(got[1]) == len(want[1])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    assert got[2] == want[2]
+    assert sum(got[2]) > 0
+    assert got[3] == want[3]
+    if which == "qwen3":
+        assert len(got[3]) == lm.cfg.num_layers * len(got[1])
+    assert eng.stats()["logits"]["nonfinite"] == 0
+
+
+@pytest.mark.cuda
+def test_engine_graphs_capture_on_first_use(dev):
+    """Without ``warm_compile`` a bucket's prefill graph is captured at
+    its first use and the decode graph at the first step; the tokens
+    equal eager's."""
+    lm = LM(_serve_cfg("llama-sparse"), device=dev, seed=0)
+    kw = dict(buckets=(8, 24, 48), max_len=64, warm_compile=False)
+    want = _serve(lm, dev, False, [5, 20, 6], **kw)
+    got = _serve(lm, dev, True, [5, 20, 6], **kw)
+    g = got[4].stats()["graphs"]
+    # the startup pass ran every bucket's prefill eagerly: only the two
+    # buckets the stream used were captured
+    assert {L: v["captures"] for L, v in g["prefill"].items()} == {
+        8: 1, 24: 1, 48: 0, 63: 0}
+    assert g["decode"]["captures"] == 1
+    assert got[0] == want[0]
+
+
+@pytest.mark.cuda
+def test_engine_graphs_keep_their_walks(dev):
+    """gemma2 (a local and a global walk per bucket) on a ladder of six
+    buckets: twelve walks overflow the walk cache (8), and the cache and
+    the plan cache are then emptied and the freed memory written over;
+    replaying every captured graph still gives eager's tokens."""
+    from repro_torch.models import attention
+    lm = LM(_serve_cfg("gemma2"), device=dev, seed=0)
+    lengths = [5, 20, 40, 70, 100, 150, 7]
+    kw = dict(buckets=(16, 32, 48, 80, 112, 159), max_len=160)
+
+    def scrub(eng):
+        attention._device_walk.cache_clear()
+        attention.causal_block_mask.cache_clear()
+        sparse.reset()
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        junk = torch.full((64 << 20,), -7, dtype=torch.int32, device=dev)
+        del junk
+
+    want = _serve(lm, dev, False, lengths, **kw)
+    got = _serve(lm, dev, True, lengths, after_warm=scrub, **kw)
+    assert got[4].stats()["graphs"]["captures"] == 7
+    assert got[0] == want[0]
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_program_capture_failure_raises(dev):
+    """A body that reads the device on the host cannot be captured: the
+    capture raises, and the launch counters are left as they were."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve.graphs import Program
+
+    def body(io):
+        return io + int(io.sum().item())
+
+    prog = Program("sync", body, 4, device=dev, graph=True,
+                   ctx=sparse.PlanContext())
+    before = _build.launch_counts()
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        prog()
+    assert _build.launch_counts() == before
