@@ -47,11 +47,26 @@ Phases, each fatal on failure:
    prints both runs' decode step p50, prefill p50 per bucket, tokens/s
    and peak GiB, the captures and their seconds, and fails unless every
    generated token is identical (phases 11 and 12 print theirs too);
+   ``[serve] plans`` lists every plan of the engine's pool with its
+   route and the route's source (the plan layer's race: "analytic" for
+   the static FFN plans, "forced" for one-candidate plans);
 4. consistency: for one prompt, padded ``prefill(last_index)`` logits
    and two ``decode_step``s against ``forward`` on the same tokens;
+4b. race-serve: the same requests through ``Engine(plan_cache_dir=...)``
+   (graphs captured at startup), then ``sparse.remeasure_plan`` on every
+   analytic plan of its pool (each candidate timed on the card on
+   synthesized inputs), a second engine (it adopts the measured routes),
+   then a fresh process state (``sparse.reset()`` and the cache module's
+   reset) and a third engine from the directory: its startup must make
+   zero decisions, every plan come from disk (the static ones
+   "measured"), its tokens equal the second engine's, and the first
+   engine's too where no route changed;
 5. gradients: one full-width SparseLinear (up and down), bf16 and fp32,
    N = 2048: autograd dx and dvalues through the kernels against
-   ``core/static_sparse``'s plain formulation on the card;
+   ``core/static_sparse``'s plain formulation on the card; then up in
+   bf16 with each backward route a race can pick forced (dL/dx on each
+   static-admissible family, dL/dvalues sddmm or dense_mm and a gather),
+   each route's kernel launched;
 6. train: ``launch.train.train_loop`` on full-width llama3.2-1b with
    every FFN block-sparse (d=1/8, b=16), bf16, batch 4 x seq 512, 10
    AdamW steps from a seeded init, no checkpoint.  The launch counters
@@ -78,12 +93,27 @@ Phases, each fatal on failure:
    dense product, every kernel of the routes launched, every sparse
    route's launches (bsmm, bsmm_balanced, dsmm) on the walk its walked
    block takes;
+8b. race: the plan layer's measured route race at each Table 3 cell
+   (``PlanContext(measure=True, cache_dir=...)``, forward verdicts):
+   every admissible candidate's measured ms, the fastest, the verdict
+   (the fastest only where it beats the analytic pick by more than the
+   noise margin, ``core.dispatch.MEASURE_MARGIN``), the analytic
+   verdict (the H100 model's) with the measured ms of the route it
+   picked; then a fresh process state plans every cell again from the
+   directory and must make zero decisions and zero measurements, read
+   every verdict from disk and pick the same routes; the backward
+   race (dL/dx, dL/dvalues) at llama's FFN training shapes, measured and
+   analytic; and the dynamic kind's race (the three dsmm routes and the
+   dense one) at phase 9's shapes;
 9. dynamic: a SwiGLU FFN of three DynamicSparseLinear at llama3.2-1b
    width (2048 -> 8192 -> 2048, d_max = 1/8, b = 16, bf16), N = 2048,
-   5 forward + backward steps with a fresh seeded mask each; step 0
-   against the plain formulation; the mask must change every step, no
-   plan be built after step 0 and dsmm launch on every step; then one
-   planned-capacity pass on the grouped route for its capacity report;
+   on the dsmm slot walk named (``backend="pallas"``), 5 forward +
+   backward steps with a fresh seeded mask each; step 0 against the
+   plain formulation; the mask must change every step, no plan be built
+   after step 0 and dsmm launch on every step; then one step on the
+   race's analytic verdict (``backend="auto"``) against the same plain
+   step, its route's kernel launched; then one planned-capacity pass on
+   the grouped route for its capacity report;
 10. attn (after phase 2's rows): bs_attn against its plain version (a
    dense softmax over the element mask) in bf16 and fp32 (fp16 too at
    llama's and qwen3's rows) at gemma2-2b's
@@ -130,7 +160,9 @@ Phases, each fatal on failure:
    against ``forward`` within the fp32 budget, ``forward`` dropping no
    assignment.
 
-Prints the card line and a ``{"kernels": [...]}`` line before the last
+A ``[mem]`` line gives the card memory still allocated as each phase
+starts (the peaks the phases report include it).  Prints the card line
+and a ``{"kernels": [...]}`` line before the last
 line, which is ``{"ok": true, "device": {...}}``.  Exits non-zero and
 prints no result without a CUDA device or outside a checkout.
 """
@@ -347,6 +379,22 @@ def print_graphs(name, g):
           f"peak GiB eager {g['peak_mem_gb']['eager']:.2f} / graphs "
           f"{g['peak_mem_gb']['graphs']:.2f}; tokens identical "
           f"{g['tokens_identical']}")
+
+
+def served_plans(eng):
+    """Every plan of the engine's pool with its route and the route's
+    source: the static FFN plans by shape and token count (the decode
+    batch and each prefill bucket), the one-candidate plans (dense
+    projections, MoE expert GEMMs) counted by route."""
+    from repro_torch import sparse
+    out = {}
+    for p in sparse.pool_plans(eng.pool):
+        if p.kind == "static":
+            out[f"{p.m}x{p.k} n={p.n}"] = f"{p.route} ({p.source})"
+        else:
+            key = f"{p.kind} {p.route} ({p.source})"
+            out[key] = out.get(key, 0) + 1
+    return out
 
 
 def measured_row(torch, kernel, shape, n, dname, run, plain, library,
@@ -584,11 +632,79 @@ def grad_phase(torch, args):
                             dvalues_rel_err=dv_err, dx_rel_err=dx_err,
                             tol=KERNEL_TOL[dname]))
             del layer, x, gy, v, xt, f
+    out += backward_routes(torch, args)
     bad = [r for r in out if not (r["dvalues_rel_err"] <= r["tol"]
                                   and r["dx_rel_err"] <= r["tol"])]
     if bad:
         raise RuntimeError(f"kernel gradients disagree with the plain "
                            f"formulation: {bad}")
+    return out
+
+
+# every backward route a static plan's race can pick: dL/dx as each
+# static-admissible family on the transposed problem (a forward plan of
+# W^T where it leaves bsmm), dL/dvalues the block SDDMM or the dense
+# product and a gather
+GRAD_DX_MODES = ("static", "static_balanced", "dense", "dynamic",
+                 "dynamic_grouped", "dynamic_grouped_balanced")
+GRAD_DV_MODES = ("sddmm_grouped", "sddmm_dense")
+
+
+def backward_routes(torch, args):
+    """llama's FFN up projection (2048 -> 8192, d = 1/8, b = 16, bf16, N
+    2048) through autograd with each backward route forced, against the
+    plain formulation of ``core/static_sparse``; each route's kernel
+    must launch."""
+    from repro_torch import sparse
+    from repro_torch.core import static_sparse
+    from repro_torch.core.sparse_layers import SparseLinear
+    from repro_torch.kernels import bsmm, dense_mm, dsmm, sddmm
+
+    dev = torch.device("cuda", 0)
+    n, b, d_in, d_out, dt = 2048, 16, 2048, 8192, torch.bfloat16
+    layer = SparseLinear.random_pattern(d_in, d_out, b, 1 / 8,
+                                        seed=args.seed + 1, dtype=dt,
+                                        device=dev)
+    layer.reset_parameters(torch.Generator(device=dev).manual_seed(
+        args.seed))
+    layer.requires_grad_(True)
+    g = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    x0 = torch.randn((n, d_in), generator=g, device=dev).to(dt)
+    gy = torch.randn((n, d_out), generator=g, device=dev).to(dt)
+    f = static_sparse.make_spmm(layer.row_idx, layer.col_idx,
+                                (d_out // b, d_in // b), b)
+    v = layer.values.detach().clone().requires_grad_(True)
+    xt = x0.t().contiguous().requires_grad_(True)
+    f(v, xt).backward(gy.t())
+    want_dv, want_dx = v.grad, xt.grad.t()
+    kernel = {"static": bsmm.COUNTER, "static_balanced":
+              bsmm.BALANCED_COUNTER, "dense": dense_mm.COUNTER,
+              "sddmm_grouped": sddmm.COUNTER,
+              "sddmm_dense": dense_mm.COUNTER}
+    out = []
+    for gm in GRAD_DX_MODES:
+        for sm in GRAD_DV_MODES:
+            cs = (kernel.get(gm, dsmm.COUNTER), kernel[sm])
+            before = [c.launches for c in cs]
+            layer.values.grad = None
+            x = x0.clone().requires_grad_(True)
+            with sparse.use_ctx(sparse.PlanContext(
+                    mode="static", grad_mode=gm, sddmm_mode=sm)):
+                layer(x).backward(gy)
+                routes = layer.plan(n).grad_routes
+            torch.cuda.synchronize()
+            launched = [c.launches - b0 for c, b0 in zip(cs, before)]
+            if not all(k_ > 0 for k_ in launched):
+                raise RuntimeError(f"[grad] backward {routes} did not "
+                                   f"launch its kernels: {launched}")
+            out.append(dict(layer=f"up dx={routes['dx']} "
+                                  f"dvalues={routes['dvalues']}",
+                            dtype="bfloat16", n=n,
+                            dvalues_rel_err=rel_err(layer.values.grad,
+                                                    want_dv)[0],
+                            dx_rel_err=rel_err(x.grad, want_dx)[0],
+                            tol=KERNEL_TOL["bfloat16"]))
+    sparse.reset()
     return out
 
 
@@ -749,7 +865,8 @@ def serve_phase(torch, args):
         bucket_stats={str(L): v for L, v in st["buckets"].items()},
         launches=launches, walks=walks, launches_per_call=per,
         peak_mem_gb=run["peak_mem_gb"],
-        logit_checks=st["logits"]["checks"], graphs=graphs), lm
+        logit_checks=st["logits"]["checks"], graphs=graphs,
+        plans=served_plans(eng)), lm
 
 
 def consistency_phase(torch, lm, args):
@@ -1101,7 +1218,7 @@ def serve_gemma2_phase(torch, args):
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
         decode_steps=st["steps"], launches=launches, walks=walks,
         visited=visited, buckets=list(eng.buckets), peak_mem_gb=peak,
-        graphs=graphs), lm, eng
+        graphs=graphs, plans=served_plans(eng)), lm, eng
 
 
 def gemma2_consistency_phase(torch, lm, eng, args):
@@ -1477,6 +1594,242 @@ def table3_phase(torch, args):
     return lines
 
 
+TABLE3_CELLS = tuple((dname, b) for dname in ("float16", "float32")
+                     for b in (1, 4, 16))
+
+
+def table3_operand(torch, dev, dname, b, seed):
+    """Table 3's operand at block ``b`` (m = k = 4096, d = 1/16, the
+    ``[table3]`` phase's mask) with seeded values, and its N = 4096
+    activations."""
+    from repro_torch.core import masks
+    from repro_torch.core.bsr import BlockSparseMatrix
+    m = k = n = 4096
+    dt = getattr(torch, dname)
+    mask = masks.random_block_mask(m, k, b, 1 / 16, seed=seed + 3)
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    vals = (torch.randn((int(mask.sum()), b, b), generator=gen, device=dev)
+            / math.sqrt(k / 16)).to(dt)
+    x = torch.randn((n, k), generator=gen, device=dev).to(dt)
+    return BlockSparseMatrix.from_mask(mask, b, values=vals), x
+
+
+def race_phase(torch, args):
+    """[race]: the plan layer's measured route race at each Table 3 cell
+    (m = k = N = 4096, d = 1/16, b in {1, 4, 16}, fp16 and fp32): every
+    admissible candidate timed on the card (``PlanContext(measure=True,
+    cache_dir=...)``, forward verdicts), the winner, and the analytic
+    verdict (the H100 model's) with the measured ms of the route it
+    picked.  Then a restart (``sparse.reset()`` and the cache module's
+    reset) plans every cell again from the same directory: it must make
+    zero decisions and zero measurements, read every verdict from disk
+    and pick the same routes."""
+    import shutil
+
+    from repro_torch import sparse
+    from repro_torch.sparse import cache as cache_lib
+
+    dev = torch.device("cuda", 0)
+    cache_dir = os.path.join(HERE, "build", f"race-cache-{os.getpid()}")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    measure = sparse.PlanContext(measure=True, cache_dir=cache_dir,
+                                 differentiable=False)
+    analytic = sparse.PlanContext(differentiable=False)
+    sparse.reset()
+    cells = []
+    for dname, b in TABLE3_CELLS:
+        bsr, x = table3_operand(torch, dev, dname, b, args.seed)
+        t0 = time.perf_counter()
+        p = sparse.plan(bsr, x.shape[0], x=x, device=dev, ctx=measure)
+        race_s = time.perf_counter() - t0
+        a = sparse.plan(bsr, x.shape[0], device=dev, ctx=analytic)
+        if p.source != "measured" or a.source != "analytic":
+            raise RuntimeError(f"[race] b={b} {dname}: sources "
+                               f"{p.source} / {a.source}")
+        ms = {r: v * 1e3 for r, v in p.est_seconds.items()}
+        fastest = min(ms, key=ms.get)
+        cells.append(dict(
+            b=b, dtype=dname, winner=p.route, winner_ms=ms[p.route],
+            fastest=fastest, fastest_ms=ms[fastest],
+            measured_ms=ms, analytic=a.route,
+            analytic_est_ms={r: v * 1e3 for r, v in a.est_seconds.items()},
+            analytic_pick_measured_ms=ms[a.route],
+            agree=a.route == p.route, race_s=race_s, key=p.key))
+        del bsr, x, p, a
+        torch.cuda.empty_cache()
+    first = sparse.cache_stats()
+    # a fresh process: no plan, decision or loaded file in memory
+    sparse.reset()
+    cache_lib.reset()
+    for cell in cells:
+        bsr, x = table3_operand(torch, dev, cell["dtype"], cell["b"],
+                                args.seed)
+        q = sparse.plan(bsr, x.shape[0], x=x, device=dev, ctx=measure)
+        cell["restart"] = dict(route=q.route, from_disk=q.from_disk,
+                               source=q.source)
+        del bsr, x, q
+    again = sparse.cache_stats()
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    # the dynamic kind at the [dynamic] phase's shapes (llama3.2-1b's FFN,
+    # d_max 1/8, b 16, bf16, N 2048): the three dynamic walks and the
+    # dense route (a densify, then dense_mm), raced on the card
+    from repro_torch.core.sparse_layers import DynamicSparseLinear
+    dynamic = []
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 29)
+    for name, d_in, d_out in (("up/gate", 2048, 8192),
+                              ("down", 8192, 2048)):
+        layer = DynamicSparseLinear(d_in, d_out, 16, 1 / 8,
+                                    dtype=torch.bfloat16, device=dev)
+        layer.reset_parameters(gen, mask_seed=args.seed + 100)
+        x = torch.randn((2048, d_in), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        op = layer.encode()
+        p = sparse.plan(op, 2048, x=x, device=dev,
+                        ctx=sparse.PlanContext(measure=True))
+        a = sparse.plan(op, 2048, device=dev)
+        if p.source != "measured" or a.source != "analytic":
+            raise RuntimeError(f"[race] dynamic {name}: sources "
+                               f"{p.source} / {a.source}")
+        ms = {r: v * 1e3 for r, v in p.est_seconds.items()}
+        dynamic.append(dict(
+            shape=f"{name} {d_out}x{d_in}", n=2048, winner=p.route,
+            fastest=min(ms, key=ms.get), measured_ms=ms, analytic=a.route,
+            analytic_est_ms={r: v * 1e3 for r, v in a.est_seconds.items()},
+            analytic_pick_measured_ms=ms[a.route]))
+        del layer, x, op, p, a
+    bad = [c for c in cells if not (c["restart"]["from_disk"]
+                                    and c["restart"]["route"] == c["winner"]
+                                    and c["restart"]["source"] == "measured")]
+    if bad or again["decisions"] or again["measurements"] \
+            or again["disk_hits"] != len(cells):
+        raise RuntimeError(f"[race] the restart did not replay every "
+                           f"verdict from disk: {again}, {bad}")
+    # the backward race at llama's FFN training shapes (N = batch 4 x seq
+    # 512, bf16): dL/dx over the transposed problem, dL/dvalues the sddmm
+    # against the dense product and a gather; measured and analytic
+    from repro_torch.core import masks
+    from repro_torch.core.bsr import BlockSparseMatrix
+    grads = []
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    for name, m, k in (("up/gate", 8192, 2048), ("down", 2048, 8192)):
+        mask = masks.random_block_mask(m, k, 16, 1 / 8, seed=args.seed + 1)
+        vals = torch.randn((int(mask.sum()), 16, 16), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        bsr = BlockSparseMatrix.from_mask(mask, 16, values=vals)
+        x = torch.randn((2048, k), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        meas = sparse.plan(bsr, 2048, x=x, device=dev,
+                           ctx=sparse.PlanContext(measure=True))
+        ana = sparse.plan(bsr, 2048, device=dev)
+        row = dict(shape=f"{name} {m}x{k}", n=2048,
+                   forward=dict(measured=meas.route, analytic=ana.route))
+        for side in ("dx", "dvalues"):
+            gm, ga = meas.artifacts["grad"][side], ana.artifacts["grad"][side]
+            row[side] = dict(
+                measured=gm["route"], analytic=ga["route"],
+                measured_ms={r: v * 1e3 for r, v in gm["est_seconds"].items()},
+                model_ms={r: v * 1e3 for r, v in ga["est_seconds"].items()})
+        grads.append(row)
+        del bsr, x, meas, ana
+    sparse.reset()                # the race's plans, not the next phases'
+    return dict(cells=cells, first=first, restart=again, grads=grads,
+                dynamic=dynamic)
+
+
+def race_serve_phase(torch, lm, args):
+    """[race] serving: llama3.2-1b through ``Engine(plan_cache_dir=...)``
+    (graphs captured at startup): the seeded requests, then
+    ``remeasure_plan`` on every analytic plan of its pool (the
+    re-planner's body), a second engine in the same process (it adopts
+    the measured routes), then a fresh process state (``sparse.reset()``
+    and the cache module's reset) and a third engine from the directory:
+    its startup must make zero decisions, its plans come from disk with
+    the static ones ``measured``, and its tokens equal the second
+    engine's (the same routes).  The first engine's tokens are held to
+    them too where the measured routes are the analytic ones."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch import sparse
+    from repro_torch.serve import Engine, Request
+    from repro_torch.sparse import cache as cache_lib
+
+    cache_dir = os.path.join(HERE, "build", f"serve-cache-{os.getpid()}")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, lm.cfg.vocab_size,
+                            size=int(rng.integers(lo, hi + 1)))
+               for lo, hi in LLAMA_PROMPTS]
+    kw = dict(batch=4, max_len=LLAMA_MAX_LEN, device="cuda",
+              warm_compile=True, plan_cache_dir=cache_dir)
+
+    def serve(eng):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=LLAMA_NEW)
+                for i, p in enumerate(prompts)]
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        return [r.output for r in reqs]
+
+    sparse.reset()
+    first = Engine(lm, **kw)
+    tokens1 = serve(first)
+    routes1 = served_plans(first)
+    t0 = time.perf_counter()
+    upgrades = []
+    for p in sparse.analytic_plans(first.pool):
+        u = sparse.remeasure_plan(p)
+        u.update(plan=f"{p.m}x{p.k} n={p.n}", model=dict(p.est_seconds))
+        upgrades.append(u)
+    remeasure_s = time.perf_counter() - t0
+    del first
+    second = Engine(lm, **kw)
+    tokens2 = serve(second)
+    routes2 = served_plans(second)
+    del second
+    sparse.reset()
+    cache_lib.reset()
+    third = Engine(lm, **kw)
+    tokens3 = serve(third)
+    rep = third.plan_report()
+    per = rep["plans"]["per_plan"]
+    static = [r for r in per.values() if r["kind"] == "static"]
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    out = dict(
+        upgrades=[{k: u[k] for k in ("plan", "route_before", "route_after")}
+                  | {"measured_ms": {r: v * 1e3
+                                     for r, v in u["measured"].items()},
+                     "model_ms": {r: v * 1e3
+                                  for r, v in u["model"].items()}}
+                  for u in upgrades],
+        remeasure_s=remeasure_s, routes_analytic=routes1,
+        routes_measured=routes2, restart_startup=rep["startup"],
+        restart_from_disk=sum(r["from_disk"] for r in per.values()),
+        restart_plans=len(per),
+        tokens_equal_restart=tokens3 == tokens2,
+        tokens_equal_first=tokens3 == tokens1,
+        routes_changed=routes1 != routes2)
+    if not upgrades:
+        raise RuntimeError("[race] no analytic plan in the engine's pool")
+    if rep["startup"]["decisions"] or not static or not all(
+            r["from_disk"] and r["source"] == "measured" for r in static) \
+            or out["restart_from_disk"] != len(per):
+        raise RuntimeError(f"[race] the restarted engine did not replay "
+                           f"its plans from disk: {rep['startup']}, {per}")
+    if not out["tokens_equal_restart"] or (
+            not out["routes_changed"] and not out["tokens_equal_first"]):
+        raise RuntimeError(f"[race] the restarted engine's tokens differ: "
+                           f"{out}")
+    del third
+    sparse.reset()
+    # each capture runs on fresh streams, and cuBLAS keeps a workspace
+    # per stream: release the three engines' (0.4 GiB) with them, so the
+    # later phases' peaks do not carry this phase's
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    return out
+
+
 def dynamic_phase(torch, args):
     """The paper's dynamic mode at llama3.2-1b width: a SwiGLU FFN of
     three DynamicSparseLinear (2048 -> 8192 -> 2048, d_max = 1/8, b =
@@ -1490,7 +1843,9 @@ def dynamic_phase(torch, args):
     from repro_torch import sparse
     from repro_torch.core import dynamic_sparse as dsp
     from repro_torch.core import masks
+    from repro_torch.core.dispatch import family as sparse_family
     from repro_torch.core.sparse_layers import DynamicSparseLinear
+    from repro_torch.kernels.dense_mm import ops as dmm_ops
     from repro_torch.kernels.dsmm import ops as dsmm_ops
 
     dev = torch.device("cuda", 0)
@@ -1498,12 +1853,14 @@ def dynamic_phase(torch, args):
     batch, seq = 4, 512
     dt = torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(args.seed + 17)
+    # the dsmm slot walk named ("pallas": the dynamic_cuda route); one
+    # step on the race's verdict ("auto") follows
     layers = {"up": DynamicSparseLinear(d_model, d_ff, b, d_max, dtype=dt,
-                                        device=dev),
+                                        backend="pallas", device=dev),
               "gate": DynamicSparseLinear(d_model, d_ff, b, d_max, dtype=dt,
-                                          device=dev),
+                                          backend="pallas", device=dev),
               "down": DynamicSparseLinear(d_ff, d_model, b, d_max, dtype=dt,
-                                          device=dev)}
+                                          backend="pallas", device=dev)}
     for i, layer in enumerate(layers.values()):
         layer.reset_parameters(gen, mask_seed=args.seed + 100 + i)
 
@@ -1584,6 +1941,35 @@ def dynamic_phase(torch, args):
             "dx": rel_err(check["dx"], x.grad)[0]}
     for k_, v in layers.items():
         errs[f"dW_{k_}"] = rel_err(check["dw"][k_], v.weight.grad)[0]
+    # what "auto" runs: the race's analytic verdict per layer shape, and
+    # one step on it (step 0's masks) held against the same plain step
+    auto = {}
+    for name, layer in layers.items():
+        p = sparse.plan(layer.encode(), batch * seq, device=dev)
+        auto[name] = {"route": p.route, "source": p.source,
+                      "est_ms": {r: v * 1e3 for r, v in
+                                 p.est_seconds.items()}}
+    plain = dict(y=y_plain.detach(), dx=x.grad.detach(),
+                 dw={k_: v.weight.grad.detach().clone()
+                     for k_, v in layers.items()})
+    kernel_of = {"dense": dmm_ops.COUNTER}
+    auto_counters = {sparse_family(a["route"]): kernel_of.get(
+        sparse_family(a["route"]), dsmm_ops.COUNTER) for a in auto.values()}
+    before = {f: c.launches for f, c in auto_counters.items()}
+    for layer in layers.values():
+        layer.backend = "auto"
+        layer.weight.grad = None
+    x = x0.clone().requires_grad_(True)
+    y_auto = ffn(x, layers)
+    y_auto.backward(gy)
+    torch.cuda.synchronize()
+    auto_launches = {f: c.launches - before[f]
+                     for f, c in auto_counters.items()}
+    errs_auto = {"y": rel_err(y_auto.detach(), plain["y"])[0],
+                 "dx": rel_err(x.grad, plain["dx"])[0]}
+    for k_, v in layers.items():
+        errs_auto[f"dW_{k_}"] = rel_err(v.weight.grad, plain["dw"][k_])[0]
+        v.backend = "pallas"
     # one extra pass at planned capacity on the grouped route
     sparse.reset_telemetry()
     with torch.no_grad():
@@ -1591,7 +1977,7 @@ def dynamic_phase(torch, args):
             layer.backend = "grouped"
         ffn(x0, layers)
         for layer in layers.values():
-            layer.backend = "auto"
+            layer.backend = "pallas"
     torch.cuda.synchronize()
     cap = sparse.capacity_report()["totals"]
     result = dict(
@@ -1601,7 +1987,8 @@ def dynamic_phase(torch, args):
         dsmm_launches_per_step=launches, dsmm_launches=total_launches,
         plans_built=plans_after, masks_distinct=len(set(masks_seen)),
         forward_host_syncs=len(syncs),
-        errs=errs, tol=KERNEL_TOL["bfloat16"], capacity_totals=cap)
+        errs=errs, tol=KERNEL_TOL["bfloat16"], capacity_totals=cap,
+        auto_routes=auto, auto_errs=errs_auto, auto_launches=auto_launches)
     if len(set(masks_seen)) != 5:
         raise RuntimeError("the mask did not change on every step")
     if any(p != plans_after[0] for p in plans_after):
@@ -1615,6 +2002,11 @@ def dynamic_phase(torch, args):
     if bad:
         raise RuntimeError(f"[dynamic] step 0 disagrees with the plain "
                            f"formulation: {bad}")
+    bad = {k_: v for k_, v in errs_auto.items() if not v <= result["tol"]}
+    if bad or not all(n_ > 0 for n_ in auto_launches.values()):
+        raise RuntimeError(f"[dynamic] the step on the auto verdict "
+                           f"{auto_launches} disagrees with the plain "
+                           f"formulation or skipped its kernel: {bad}")
     return result
 
 
@@ -1858,7 +2250,8 @@ def serve_qwen3_phase(torch, args):
         dropped_frac_per_prefill=drops,
         decode_dropped_frac={"layer_calls": len(dec),
                              "mean": float(np.mean(dec)), "max": max(dec)},
-        buckets=list(eng.buckets), peak_mem_gb=peak, graphs=graphs), lm, eng
+        buckets=list(eng.buckets), peak_mem_gb=peak, graphs=graphs,
+        plans=served_plans(eng)), lm, eng
 
 
 def qwen3_moe_layer_check(torch, lm, eng, args):
@@ -2065,6 +2458,10 @@ def main(argv=None) -> int:
               f"element_pairs={r['element_pairs']}")
     torch.cuda.empty_cache()
 
+    # the card memory still allocated as each phase starts (the peaks
+    # the phases report include it)
+    live_gib = {}
+    live_gib["serve"] = torch.cuda.memory_allocated() / 2 ** 30
     serve, lm = serve_phase(torch, args)
     print(f"[serve] {serve['requests']} requests, {serve['tokens']} tokens "
           f"in {serve['wall_s']:.3f}s = {serve['tokens_per_s']:.1f} tok/s; "
@@ -2074,18 +2471,44 @@ def main(argv=None) -> int:
     print(f"[serve] detail {json.dumps(serve)}")
     print_graphs("llama3.2-1b", serve["graphs"])
 
+    print(f"[serve] plans {json.dumps(serve['plans'])}")
+
     errs = consistency_phase(torch, lm, args)
     print(f"[consistency] rel-max err vs forward: "
           f"{json.dumps(errs)} (budget {CONSISTENCY_TOL})")
 
+    live_gib["race_serve"] = torch.cuda.memory_allocated() / 2 ** 30
+    race_serve = race_serve_phase(torch, lm, args)
+    print(f"[race] llama3.2-1b with plan_cache_dir: remeasure_plan on "
+          f"{len(race_serve['upgrades'])} analytic plans in "
+          f"{race_serve['remeasure_s']:.2f}s; routes analytic "
+          f"{json.dumps(race_serve['routes_analytic'])}; measured "
+          f"{json.dumps(race_serve['routes_measured'])}; restart startup "
+          f"{json.dumps(race_serve['restart_startup'])}, "
+          f"{race_serve['restart_from_disk']}/{race_serve['restart_plans']} "
+          f"plans from disk; tokens equal (restart vs measured engine) "
+          f"{race_serve['tokens_equal_restart']}, (restart vs first) "
+          f"{race_serve['tokens_equal_first']}")
+    for u in race_serve["upgrades"]:
+        print(f"[race] remeasured {u['plan']}: {u['route_before']} -> "
+              f"{u['route_after']}; measured ms "
+              f"{json.dumps({r: round(v, 5) for r, v in u['measured_ms'].items()})}"
+              f"; model ms "
+              f"{json.dumps({r: round(v, 5) for r, v in u['model_ms'].items()})}")
+
+    # the engines of the serve phases hold the model in reference cycles:
+    # collect them before the next phases measure their peak memory
     del lm
+    gc.collect()
     torch.cuda.empty_cache()
+    live_gib["grad"] = torch.cuda.memory_allocated() / 2 ** 30
     grads = grad_phase(torch, args)
     for r in grads:
         print(f"[grad] {r['layer']:4s} {r['dtype']:8s} n={r['n']} "
               f"dvalues rel_err={r['dvalues_rel_err']:.2e} "
               f"dx rel_err={r['dx_rel_err']:.2e} (budget {r['tol']})")
 
+    live_gib["train"] = torch.cuda.memory_allocated() / 2 ** 30
     train = train_phase(torch, args)
     print(f"[train] {train['steps']} steps of batch {train['batch']} x seq "
           f"{train['seq']}: loss {train['losses'][0]:.4f} -> "
@@ -2104,6 +2527,7 @@ def main(argv=None) -> int:
                            "bsmm_balanced": bsmm.BALANCED_COUNTER})
     for c in counters.values():
         c.reset()
+    live_gib["table3"] = torch.cuda.memory_allocated() / 2 ** 30
     table3 = table3_phase(torch, args)
     table3_launches, table3_walks = split_walks(
         {k: c.launches for k, c in counters.items()})
@@ -2123,6 +2547,45 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     for c in counters.values():
         c.reset()
+    live_gib["race"] = torch.cuda.memory_allocated() / 2 ** 30
+    race = race_phase(torch, args)
+    race_launches, race_walks = split_walks(
+        {k: c.launches for k, c in counters.items()})
+    for c in race["cells"]:
+        print(f"[race] b={c['b']:<2d} {c['dtype']:8s} measured "
+              f"{json.dumps({r: round(v, 5) for r, v in sorted(c['measured_ms'].items(), key=lambda kv: kv[1])})}; "
+              f"fastest {c['fastest']} {c['fastest_ms']:.5f} ms; verdict "
+              f"{c['winner']} {c['winner_ms']:.5f} ms; analytic "
+              f"{c['analytic']} (model "
+              f"{c['analytic_est_ms'][c['analytic']]:.5f} ms, measured "
+              f"{c['analytic_pick_measured_ms']:.5f} ms); race "
+              f"{c['race_s']:.2f} s; restart {json.dumps(c['restart'])}")
+    for g in race["grads"]:
+        print(f"[race] backward {g['shape']} n={g['n']} bf16: forward "
+              f"{json.dumps(g['forward'])}; "
+              + "; ".join(
+                  f"{side} measured {g[side]['measured']} "
+                  f"{json.dumps({r: round(v, 5) for r, v in g[side]['measured_ms'].items()})}"
+                  f", analytic {g[side]['analytic']} (model "
+                  f"{json.dumps({r: round(v, 5) for r, v in g[side]['model_ms'].items()})})"
+                  for side in ("dx", "dvalues")))
+    for d in race["dynamic"]:
+        print(f"[race] dynamic {d['shape']} n={d['n']} bf16 d_max 1/8: "
+              f"measured "
+              f"{json.dumps({r: round(v, 5) for r, v in sorted(d['measured_ms'].items(), key=lambda kv: kv[1])})}"
+              f"; fastest {d['fastest']}; verdict {d['winner']}; analytic "
+              f"{d['analytic']} (model "
+              f"{d['analytic_est_ms'][d['analytic']]:.5f} ms, measured "
+              f"{d['analytic_pick_measured_ms']:.5f} ms)")
+    print(f"[race] counters after the races {json.dumps(race['first'])}; "
+          f"after the restart {json.dumps(race['restart'])}; launches "
+          f"{json.dumps(race_launches)}; launches by walk "
+          f"{json.dumps(race_walks)}")
+
+    torch.cuda.empty_cache()
+    for c in counters.values():
+        c.reset()
+    live_gib["dynamic"] = torch.cuda.memory_allocated() / 2 ** 30
     dyn = dynamic_phase(torch, args)
     dyn_launches, dyn_walks = split_walks(
         {k: c.launches for k, c in counters.items()})
@@ -2136,11 +2599,20 @@ def main(argv=None) -> int:
           f"forward host syncs after step 0 {dyn['forward_host_syncs']}; "
           f"plans_built {dyn['plans_built']}; masks distinct "
           f"{dyn['masks_distinct']}/5")
+    print(f"[dynamic] the race's analytic verdict for these layers "
+          f"(backend auto): "
+          f"{json.dumps({k: v['route'] for k, v in dyn['auto_routes'].items()})}"
+          f" (model ms {json.dumps(dyn['auto_routes'])})")
+    print(f"[dynamic] one step on the auto verdict vs plain: "
+          f"{json.dumps(dyn['auto_errs'])} (budget {dyn['tol']}); "
+          f"launches by route family {json.dumps(dyn['auto_launches'])}")
     print(f"[dynamic] step 0 vs plain: {json.dumps(dyn['errs'])} (budget "
           f"{dyn['tol']}); grouped capacity pass totals "
           f"{json.dumps(dyn['capacity_totals'])}")
 
+    gc.collect()
     torch.cuda.empty_cache()
+    live_gib["serve_gemma2"] = torch.cuda.memory_allocated() / 2 ** 30
     gemma, lm, eng = serve_gemma2_phase(torch, args)
     print(f"[serve-gemma2] {gemma['requests']} requests (prompts "
           f"{gemma['prompt_lens']}, prefilled at {gemma['prefill_lens']}), "
@@ -2152,6 +2624,7 @@ def main(argv=None) -> int:
           f"{json.dumps(gemma['walks'])}; peak memory "
           f"{gemma['peak_mem_gb']:.2f} GiB")
     print_graphs("gemma2-2b", gemma["graphs"])
+    print(f"[serve-gemma2] plans {json.dumps(gemma['plans'])}")
     print(f"[serve-gemma2] visited pairs at S={gemma['prefill_lens']}'s "
           f"longest: {json.dumps(gemma['visited'])}")
     gemma["consistency"] = gemma2_consistency_phase(torch, lm, eng, args)
@@ -2170,6 +2643,7 @@ def main(argv=None) -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    live_gib["serve_qwen3"] = torch.cuda.memory_allocated() / 2 ** 30
     qwen, lm, eng = serve_qwen3_phase(torch, args)
     print(f"[serve-qwen3-moe] {qwen['params'] / 1e9:.2f} B parameters "
           f"initialised on the card in {qwen['init_s']:.2f}s; "
@@ -2183,6 +2657,7 @@ def main(argv=None) -> int:
           f"{json.dumps(qwen['walks'])}; peak memory "
           f"{qwen['peak_mem_gb']:.2f} GiB")
     print_graphs("qwen3-moe-30b-a3b", qwen["graphs"])
+    print(f"[serve-qwen3-moe] plans {json.dumps(qwen['plans'])}")
     print(f"[serve-qwen3-moe] dropped_frac per prefill (mean, max over 48 "
           f"layers): {json.dumps(qwen['dropped_frac_per_prefill'])}; "
           f"decode steps: {json.dumps(qwen['decode_dropped_frac'])}")
@@ -2224,11 +2699,13 @@ def main(argv=None) -> int:
                         "src/repro/kernels/dsmm/dsmm.py:53",
                         ("up/gate 8192x2048 b=16", 2048), "dynamic")}
     by_path = {"serve": serve["launches"], "train": train["launches"],
-               "table3": table3_launches, "dynamic": dyn_launches,
+               "table3": table3_launches, "race": race_launches,
+               "dynamic": dyn_launches,
                "serve_gemma2": gemma["launches"],
                "serve_qwen3": qwen["launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
-                     "table3": table3_walks, "dynamic": dyn_walks,
+                     "table3": table3_walks, "race": race_walks,
+                     "dynamic": dyn_walks,
                      "serve_gemma2": gemma["walks"],
                      "serve_qwen3": qwen["walks"]}
     kernels = []
@@ -2291,6 +2768,11 @@ def main(argv=None) -> int:
         "launches_by_walk": {p: w["gmm"]
                              for p, w in walks_by_path.items()}})
 
+    gc.collect()
+    live_gib["end"] = torch.cuda.memory_allocated() / 2 ** 30
+    print(f"[mem] GiB allocated as each phase starts: "
+          f"{json.dumps({k: round(v, 3) for k, v in live_gib.items()})}")
+
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -2299,9 +2781,11 @@ def main(argv=None) -> int:
                        "cuda": torch.version.cuda, "build_s": built,
                        "kernel_rows": rows, "serve": serve,
                        "consistency": errs, "grads": grads, "train": train,
-                       "table3": table3, "dynamic": dyn,
+                       "table3": table3, "race": race,
+                       "race_serve": race_serve, "dynamic": dyn,
                        "attn": attn_rows, "serve_gemma2": gemma,
-                       "serve_qwen3": qwen, "kernels": kernels}, f,
+                       "serve_qwen3": qwen, "kernels": kernels,
+                       "live_gib": live_gib}, f,
                       indent=1)
 
     print(card)

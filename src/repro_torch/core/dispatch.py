@@ -1,46 +1,420 @@
-"""Analytic H100 time model of the dense route, and the serving price on it.
+"""Route decisions of the plan layer, priced by H100 time models of the
+kernels' walks, and the serving price on them.
 
-Counterpart of the JAX package's ``core/dispatch.py`` ``_estimate`` and
-``price_tokens`` (``dispatch.py:438-468``), cut to the route the serving
-engine prices, ``dense_cuda``.  The reference prices with its calibrated
-TPU model; no TPU figure carries over.  Here ``_estimate`` models the
-dense_mm kernel as it runs on the card: ``dense_mm.ops.walk`` names the
-walk a shape takes, and ``dense_mm.ops.walk_seconds`` gives the walk's
-time, a per-launch constant plus the larger of its operations over the
-walk's rate and its bytes (each operand once) over the walk's bandwidth.
-Pricing never measures, as the reference's never does.  Each walk's
-time grows with the token count and the walk taken at N <= 16 is the
-cheaper one, so a price never falls as the tokens grow.
+Counterpart of the JAX package's ``core/dispatch.py``: the decision
+record (``Decision``) and its process-level cache keyed by the logical
+problem (``_cache_key``: shape, ``n``, block, density bucket, dtype,
+mode, measure, device type and the pattern's bucketed skew), the skew
+signal (``pattern_balance``, ``_skew_factor``), the candidate sets
+(``_candidates``, ``sddmm_candidates``), the measured race
+(``measure_callable``) and ``decide``; plus ``price_tokens``, the serving
+engine's admission and padding price.
 
-The constants (``dense_mm.ops.WALK_MODEL``) are fitted to the ``[kernel]
-dense_mm`` rows that ``chip_smoke.py`` measures (device time per call,
-L2 cold), on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit;
-``PERF.md`` lists the rows. The price is this card's on whatever device
-the engine runs, as the reference prices with its TPU model on the CPU.
+The reference prices with its calibrated TPU model; no TPU figure
+carries over.  Here ``_estimate`` prices a route with the H100 time
+model of the walk its kernel takes for the problem (``walk_seconds``
+beside each kernel's ``walk()`` in ``kernels/{bsmm/ops.py,
+bsmm/balanced.py, dsmm/ops.py, gmm/ops.py, sddmm/ops.py,
+dense_mm/ops.py}``): a per-launch constant plus the larger of the
+operations at the walk's rate and the bytes at its bandwidth, over the
+non-zero tiles, stages or slots the walk really visits (``WalkCounts``,
+from the pattern where the plan has one).  A ``*_torch`` route (a
+plain version, raced on the CPU only) is priced as its card
+counterpart, so the analytic verdict on the CPU equals the card's and
+the CPU tests can hold it.  The constants are fitted by hand to the
+``[kernel]`` and ``[table3]`` rows that ``chip_smoke.py`` measures on an
+NVIDIA H100 80GB HBM3 at a 700.00 W power limit (``PERF.md`` lists them
+beside the model).
+
+Measured races (``PlanContext(measure=True)``) time every candidate on
+the card with CUDA events after one warm-up call, a sleep kernel holding
+the stream while the launches are queued and the inputs rotated across
+copies so that L2 is cold; on the CPU with the host clock.  Nothing
+measures while a CUDA graph is being captured: the verdict is then
+analytic.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Iterable, Tuple
+import math
+import threading
+import time
+from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
 
+import numpy as np
+import torch
+
+from repro_torch.core import partitioner
+from repro_torch.core import planner as planner_lib
+from repro_torch.kernels import contract as contract_lib
+from repro_torch.kernels.bsmm import balanced as bal_ops
+from repro_torch.kernels.bsmm import ops as bsmm_ops
 from repro_torch.kernels.dense_mm import ops as dmm_ops
+from repro_torch.kernels.dsmm import ops as dsmm_ops
+from repro_torch.kernels.gmm import ops as gmm_ops
+from repro_torch.kernels.sddmm import ops as sddmm_ops
 
 ROUTE = "dense_cuda"
+# dL/dvalues of a static plan: the block SDDMM, or the dense product
+# dy^T . x through dense_mm followed by a gather of the pattern's blocks
+SDDMM_FAMILIES = ("sddmm", "sddmm_dense")
+
+# the balanced walks price as their parent's (uniform) walk on the same
+# tiles times the card's overhead: bsmm_balanced's in
+# ``bsmm.balanced.walk_seconds`` (on its own walk: it has no decode walk),
+# the grouped pair's here (the Table 3 rows: 1.005 to 1.047)
+_GROUPED_BALANCED_OVERHEAD = 1.03
+# the sparse walks serialise a block-row's work (a thread block, or a
+# warp's rows, per tile-row), so their time grows with the pattern's row
+# imbalance beyond what their counts see.  On the card the balanced walks
+# pay it too (PERF.md: their time over the uniform walk's grows with the
+# skew), so every sparse family is skew-sensitive; dense and SDDMM are not
+_SKEW_SENSITIVE = ("static", "static_balanced", "dynamic",
+                   "dynamic_grouped", "dynamic_grouped_balanced")
+# the skew factor's knees, fitted by hand to chip_smoke.py's skew-grid
+# rows (uniform, DLMC-like and power-law masks at 4096 x 4096, b 16, d =
+# 1/32; the uniform walk's time over its count model: mma 1.00 / 1.26 /
+# 1.50, ffma 1.00 / 1.12 / 1.37 at row imbalance 2 / 13 / 32; NVIDIA H100
+# 80GB HBM3, 700.00 W).  The reference's form, the card's numbers
+SKEW_KNEES = {"imb_knee": 2.0, "imb_slope": 0.015, "cv_knee": 0.25,
+              "cv_slope": 0.0, "cap": 3.0}
+# the device densify of a runtime pattern on the dense route
+# (``DynamicOperand.to_dense``: zeros, an accumulating ``index_put_`` of
+# the slots, the block permute, and the transposed copy dense_mm takes):
+# a launch, then DENSIFY_PASSES passes over W at HBM rate, fitted by hand
+# to chip_smoke.py's [race] dynamic rows (llama's FFN, d_max 1/8, b 16,
+# bf16, N 2048: the dense route 0.465 / 0.409 ms, dense_mm's model 0.129,
+# so 33 / 27 passes; NVIDIA H100 80GB HBM3, 700.00 W)
+_DENSIFY_LAUNCH = 5e-6
+DENSIFY_PASSES = 30.0
+_HBM = 3.35e12
+# measured races: each candidate is timed in MEASURE_WINDOWS windows of
+# at least MEASURE_REPS launches (one launch of a served projection is
+# ~10-50 us), its time the median window, each launch on the next of
+# the input copies that hold ROTATE_BYTES (past the H100's 50 MB L2; at
+# most MAX_COPIES sets, as chip_smoke.py's timings), so L2 is cold
+MEASURE_WINDOWS = 5
+MEASURE_REPS = 10
+ROTATE_BYTES = 160 * 2 ** 20
+MAX_COPIES = 64
+# a measured winner displaces the model's pick only when it is faster by
+# more than this share: above the spread of one plan's candidate times
+# between two runs on the card (llama's 12 served FFN plans x 3 leading
+# candidates, chip_smoke.py's [race] remeasured rows: up to 12.3 %, at N
+# 4; NVIDIA H100 80GB HBM3, 700.00 W), so a verdict within the noise
+# stays the analytic one and a restart replays the same route
+MEASURE_MARGIN = 0.15
 
 
-def _estimate(route: str, m: int, k: int, n: int, *,
-              dtype="float32") -> float:
-    """Seconds of one ``route`` call for ``[m, k] . [k, n]`` (``y[n, m] =
-    x[n, k] . w[k, m]``) on the H100: the time model of the walk the
-    dense_mm kernel takes for the shape.  The reference's block size and
-    density arguments are left out: the dense route reads neither."""
-    if route != ROUTE:
-        raise ValueError(f"no H100 model for route {route!r}; priced "
-                         f"route: {ROUTE!r}")
+def family(route: str) -> str:
+    """``static_balanced_cuda`` -> ``static_balanced``."""
+    return route.rsplit("_", 1)[0]
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return dtype if isinstance(dtype, torch.dtype) else getattr(
+        torch, contract_lib.dtype_name(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Tiles the kernels walk
+# ---------------------------------------------------------------------------
+
+def kernel_tile(b: int) -> Tuple[int, int]:
+    """``(tile, split)`` the static kernels (bsmm, bsmm_balanced, sddmm)
+    walk blocks of ``b`` at, as the reference's ``pack_tiles`` maps any
+    block onto MXU tiles: each ``b x b`` block split exactly into
+    ``split x split`` sub-blocks of ``g = b / split``, the largest kernel
+    tile that divides ``b`` (else 2 where ``b`` is even, else 1;
+    ``contract.sub_block``), and the sub-blocks walked as tiles of ``g``
+    or, below the smallest tile, packed into 4 x 4 tiles.  So b in {4,
+    ..., 64} walks as it is, b in {1, 2} packs into 4 x 4 tiles, b = 128
+    splits into four 64 x 64 blocks, b = 3 or 5 into 1 x 1 blocks packed
+    4 x 4, b = 6 into 2 x 2 blocks packed 4 x 4, b = 12, 24, 48, 96 into
+    4, 8, 16, 32."""
+    tiles = bsmm_ops.TILE_SIZES
+    g = contract_lib.sub_block(b, tiles)
+    return next(t for t in tiles if t % g == 0), b // g
+
+
+def walk_shape(m: int, k: int, tile: int) -> Tuple[int, int]:
+    """``(m, k)`` padded to a multiple of ``tile`` (where ``b`` divides
+    them and the 4 x 4 packing tile does not: b = 3, m = 99)."""
+    return dsmm_ops.padded(m, tile), dsmm_ops.padded(k, tile)
+
+
+def dynamic_tile(m: int, k: int, b: int, route: str) -> int:
+    """The block the dsmm kernel walks for a dynamic route: the grouped
+    routes' packed tile (``gmm.ops.grouped_tile``); else ``b`` where the
+    kernel takes it, or the block ``dsmm.ops.kernel_operand`` brings it
+    to (split into the largest kernel block dividing ``b``, re-blocked
+    into 4 x 4 below that)."""
+    if family(route) in ("dynamic_grouped", "dynamic_grouped_balanced"):
+        return gmm_ops.grouped_tile(m, k, b)
+    if b in dsmm_ops.BLOCK_SIZES:
+        return b
+    return max(contract_lib.sub_block(b, dsmm_ops.BLOCK_SIZES),
+               dsmm_ops.BLOCK_SIZES[0])
+
+
+def split_pattern(rows, cols, b: int, split: int):
+    """``(rows, cols, b / split)`` of the pattern with every block split
+    into ``split x split`` sub-blocks: block z's sub-block (i, j) at ``z *
+    split^2 + i * split + j`` (the order ``plan.split_blocks`` gives the
+    values)."""
+    rows = np.asarray(rows, np.int32)
+    cols = np.asarray(cols, np.int32)
+    if split == 1:
+        return rows, cols, b
+    i, j = (a.reshape(1, -1) for a in np.meshgrid(
+        np.arange(split), np.arange(split), indexing="ij"))
+    return ((rows[:, None] * split + i).reshape(-1).astype(np.int32),
+            (cols[:, None] * split + j).reshape(-1).astype(np.int32),
+            b // split)
+
+
+def grouped_capacity(m: int, k: int, b: int, density: float, *,
+                     headroom: float, policy: str = "planned"):
+    """``(tile, capacity plan, tiles_cap, clamped)`` of a dynamic problem
+    on the grouped routes: the planned bucket (paper §3.3: expected
+    distinct tiles at ``d_max`` times the headroom; ``policy="worst"``
+    the safe worst case), of the sub-blocks the pack takes where the tile
+    is not a block multiple, clamped to the tile grid."""
+    t = gmm_ops.grouped_tile(m, k, b)
+    slots = planner_lib.nnz_max_blocks(m, k, b, density)
+    g = b if t % b == 0 else contract_lib.sub_block(b, dsmm_ops.BLOCK_SIZES)
+    mp, kp = walk_shape(m, k, t)
+    capplan = planner_lib.plan_grouped_capacity(
+        mp, kp, g, density, tile=t, slots=slots * (b // g) ** 2,
+        headroom=headroom)
+    requested = (capplan.tiles_cap if policy == "planned"
+                 else capplan.worst_tiles)
+    cap, clamped = gmm_ops.clamped_tiles_cap(requested, mp, kp, t,
+                                             warn=False)
+    return t, capplan, cap, clamped
+
+
+@dataclasses.dataclass(frozen=True)
+class WalkCounts:
+    """What each candidate walk visits for one problem.
+
+    tile, tiles, stages   the static walks (bsmm, bsmm_balanced): the
+                          kernel tile, its packing's tiles (pad tiles of
+                          empty rows included) and the mma walk's stages
+    slot_block, slots,    the dsmm slot walk: the block it walks, its
+    row_slots             slots and the most slots of one block-row
+    grouped_tile,         the grouped routes: the packed tile and the
+    grouped_tiles         tile slots the pack fills (exact for a static
+                          pattern, the planned capacity for a runtime one)
+    blocks                SDDMM: the blocks it samples, at ``tile``
+    """
+
+    tile: int
+    tiles: int
+    stages: int
+    slot_block: int
+    slots: int
+    row_slots: int
+    grouped_tile: int
+    grouped_tiles: int
+    blocks: int
+
+
+def _unique_tiles(rows, cols, per: int):
+    """The distinct tiles of ``per x per`` blocks covering the blocks."""
+    tr = np.asarray(rows, np.int64) // per
+    tc = np.asarray(cols, np.int64) // per
+    if tr.size == 0:
+        return tr, tc
+    key = np.unique(tr * (int(tc.max()) + 1) + tc)
+    return key // (int(tc.max()) + 1), key % (int(tc.max()) + 1)
+
+
+def static_counts(rows, cols, m: int, k: int, b: int) -> WalkCounts:
+    """``WalkCounts`` of a static pattern (numpy)."""
+    rows = np.asarray(rows, np.int32)
+    cols = np.asarray(cols, np.int32)
+    t, split = kernel_tile(b)
+    er, ec, eb = split_pattern(rows, cols, b, split)
+    mp, _ = walk_shape(m, k, t)
+    tr, tc = _unique_tiles(er, ec, t // eb)
+    tiles = tr.size + (mp // t - np.unique(tr).size)
+    stages = (bsmm_ops.mma_stage_count(tr, tc, t)
+              if t in bsmm_ops.MMA_BLOCKS else 0)
+    # the dsmm slot walk: split into the kernel's block, re-blocked below
+    # 4 (each sub-block its own slot)
+    db = dynamic_tile(m, k, b, "dynamic")
+    if b in dsmm_ops.BLOCK_SIZES:
+        sr, sb = rows, b
+    else:
+        g = contract_lib.sub_block(b, dsmm_ops.BLOCK_SIZES)
+        sr, _, sb = split_pattern(rows, cols, b, b // g)
+    srow = np.asarray(sr, np.int64) // (db // sb)
+    row_slots = int(np.bincount(srow).max()) if srow.size else 0
+    tg = gmm_ops.grouped_tile(m, k, b)
+    gr, gc, gb = (rows, cols, b) if tg % b == 0 else (er, ec, eb)
+    gt, _ = _unique_tiles(gr, gc, tg // gb)
+    # the pack's tiles, a pad tile for each empty tile-row included (as
+    # ``plan_packing`` counts them)
+    gtiles = gt.size + walk_shape(m, k, tg)[0] // tg - np.unique(gt).size
+    return WalkCounts(tile=t, tiles=int(tiles), stages=int(stages),
+                      slot_block=db, slots=int(srow.size),
+                      row_slots=row_slots, grouped_tile=tg,
+                      grouped_tiles=int(gtiles),
+                      blocks=int(tr.size if eb < t else er.size))
+
+
+def dynamic_counts(m: int, k: int, b: int, density: float, *,
+                   headroom: float = planner_lib.HEADROOM,
+                   policy: str = "planned") -> WalkCounts:
+    """``WalkCounts`` of a runtime pattern at capacity ``density``: the
+    slots the capacity holds (its fullest block-row taken as the mean),
+    the grouped routes' planned tile capacity."""
+    db = dynamic_tile(m, k, b, "dynamic")
+    split = (1 if b in dsmm_ops.BLOCK_SIZES
+             else b // contract_lib.sub_block(b, dsmm_ops.BLOCK_SIZES))
+    slots = planner_lib.nnz_max_blocks(m, k, b, density) * split * split
+    rows_w = max(1, dsmm_ops.padded(m, db) // db)
+    tg, _, cap, _ = grouped_capacity(m, k, b, density, headroom=headroom,
+                                     policy=policy)
+    t, _ = kernel_tile(b)
+    return WalkCounts(tile=t, tiles=0, stages=0, slot_block=db,
+                      slots=slots, row_slots=-(-slots // rows_w),
+                      grouped_tile=tg, grouped_tiles=cap, blocks=0)
+
+
+# ---------------------------------------------------------------------------
+# Skew
+# ---------------------------------------------------------------------------
+
+def pattern_balance(operand) -> Tuple[float, float]:
+    """(imbalance, cv) of a static pattern's work per tile-row of the
+    port's bsmm walks (``row_balance``); runtime (dynamic) and dense
+    operands report (1.0, 0.0)."""
+    from repro_torch.core.bsr import BlockSparseMatrix
+    if not isinstance(operand, BlockSparseMatrix):
+        return (1.0, 0.0)
+    m, k = operand.shape
+    return row_balance(operand.row_idx, m, k, operand.block_size)
+
+
+def row_balance(rows, m: int, k: int, b: int) -> Tuple[float, float]:
+    """(imbalance, cv) of the (sub-)blocks per tile-row of a pattern with
+    block-rows ``rows``: a tile-row of ``kernel_tile(b)`` rows is one
+    thread block of the bsmm decode and ffma walks and one warp's rows of
+    the mma walk, so its count is the serial work the skew factor
+    prices."""
+    t, split = kernel_tile(b)
+    er, _, eb = split_pattern(rows, np.zeros_like(np.asarray(rows)), b,
+                              split)
+    per = max(1, t // eb)
+    mt = max(1, walk_shape(m, k, t)[0] // (per * eb))
+    counts = np.bincount(np.asarray(er, np.int64) // per, minlength=mt)
+    rep = partitioner.balance_report(counts)
+    return (rep["imbalance"], rep["cv"])
+
+
+def _skew_factor(imbalance: float, cv: float) -> float:
+    """The slowdown of a skew-sensitive walk on a pattern of this row
+    imbalance and cv (``SKEW_KNEES``): 1 below the knees, linear above
+    them, capped.  A uniform random mask's sampling noise (imbalance
+    ~1.2-2) sits below the knee."""
+    c = SKEW_KNEES
+    return min(c["cap"],
+               1.0 + c["imb_slope"] * max(0.0, imbalance - c["imb_knee"])
+               + c["cv_slope"] * max(0.0, cv - c["cv_knee"]))
+
+
+# ---------------------------------------------------------------------------
+# Analytic estimates (the H100 walk models)
+# ---------------------------------------------------------------------------
+
+def _dense_seconds(m: int, k: int, n: int, dtype) -> float:
     if n <= 0 or m <= 0:
         return 0.0
     return dmm_ops.walk_seconds(dmm_ops.walk(n, k, m, dtype).name, n, k, m,
                                 dtype)
+
+
+def _sparse_seconds(fam: str, m: int, k: int, n: int, dtype,
+                    counts: WalkCounts) -> float:
+    dt = _torch_dtype(dtype)
+    if fam in ("static", "static_balanced"):
+        t = counts.tile
+        mp, kp = walk_shape(m, k, t)
+        if fam == "static":
+            return bsmm_ops.walk_seconds(
+                bsmm_ops.walk(t, dt, n), n, mp, kp, t, counts.tiles,
+                counts.stages, dt)
+        return bal_ops.walk_seconds(bal_ops.walk(t, dt), n, mp, kp, t,
+                                    counts.tiles, counts.stages, dt)
+    if fam == "dynamic":
+        db = counts.slot_block
+        mp, kp = walk_shape(m, k, db)
+        return dsmm_ops.encode_seconds(counts.slots) + dsmm_ops.walk_seconds(
+            dsmm_ops.walk(db, dt), n, mp, kp, db, counts.slots,
+            counts.row_slots, dt)
+    tg = counts.grouped_tile
+    mp, kp = walk_shape(m, k, tg)
+    sec = gmm_ops.grouped_seconds(n, mp, kp, tg, counts.grouped_tiles, dt)
+    if fam == "dynamic_grouped_balanced":
+        sec *= _GROUPED_BALANCED_OVERHEAD
+    return sec
+
+
+def _sddmm_seconds(fam: str, m: int, k: int, n: int, dtype,
+                   counts: WalkCounts) -> float:
+    dt = _torch_dtype(dtype)
+    es = dt.itemsize
+    if fam == "sddmm_dense":
+        # dy^T (a transposed copy), the dense product, the block gather
+        nnz_area = float(counts.blocks) * counts.tile ** 2
+        return (_dense_seconds(k, n, m, dt)
+                + 2 * _DENSIFY_LAUNCH
+                + (2.0 * n * m + 2.0 * nnz_area) * es / _HBM)
+    t = counts.tile
+    mp, kp = walk_shape(m, k, t)
+    return sddmm_ops.walk_seconds(sddmm_ops.walk(t, dt), n, mp, kp, t,
+                                  counts.blocks, dt)
+
+
+def _estimate(route: str, m: int, k: int, n: int, b: int = 1,
+              density: float = 1.0, dtype="float32", *,
+              imbalance: float = 1.0, cv: float = 0.0,
+              counts: Optional[WalkCounts] = None,
+              kind: str = "static") -> float:
+    """Seconds of one ``route`` call for ``[m, k] . [k, n]`` (``y[n, m] =
+    x[n, k] . W^T``) on the H100: the time model of the walk its kernel
+    takes for the problem (a ``*_torch`` route priced as its card
+    counterpart).  ``counts`` are what the sparse walks visit (default:
+    a runtime pattern at capacity ``density``); ``imbalance``/``cv`` the
+    pattern's skew (``pattern_balance``), which scales the
+    skew-sensitive walks by ``_skew_factor``.  The dense route of a
+    runtime pattern (``kind="dynamic"``) densifies it each call.  SDDMM
+    routes price the dL/dvalues product of ``W [m, k]``'s pattern
+    against ``dy [n, m]`` and ``x [n, k]``."""
+    from repro_torch.sparse.spec import ADMISSIBLE, SUFFIX
+    fam, _, suffix = route.rpartition("_")
+    families = ADMISSIBLE["static"] + SDDMM_FAMILIES
+    if "_" + suffix not in SUFFIX.values() or fam not in families:
+        raise ValueError(f"no H100 model for route {route!r}; priced "
+                         f"routes: {families} with a suffix of "
+                         f"{tuple(SUFFIX.values())}")
+    if n <= 0 or m <= 0:
+        return 0.0
+    if fam == "dense":
+        sec = _dense_seconds(m, k, n, dtype)
+        if kind == "dynamic":
+            sec += _DENSIFY_LAUNCH + DENSIFY_PASSES * m * k * _torch_dtype(
+                dtype).itemsize / _HBM
+        return sec
+    if counts is None:
+        counts = dynamic_counts(m, k, b, density)
+    if fam in SDDMM_FAMILIES:
+        return _sddmm_seconds(fam, m, k, n, dtype, counts)
+    skew = _skew_factor(imbalance, cv) if fam in _SKEW_SENSITIVE else 1.0
+    return _sparse_seconds(fam, m, k, n, dtype, counts) * skew
 
 
 @functools.lru_cache(maxsize=65536)
@@ -55,14 +429,221 @@ def price_tokens(shapes: Iterable[Tuple[int, int]], n_tokens: int, *,
     """Model-seconds on the H100 for pushing ``n_tokens`` tokens through a
     stack of ``[m, k]`` matmuls: the serving engine's admission and
     padding price (the reference's ``price_tokens``, priced by the card's
-    model; memoized, as the ladder and every admission ask for it).
-    ``shapes`` holds one ``(m, k)`` pair per matmul the tokens flow
-    through."""
+    model of the dense route; memoized, as the ladder and every admission
+    ask for it).  ``shapes`` holds one ``(m, k)`` pair per matmul the
+    tokens flow through.  Pricing never measures."""
     if route != ROUTE:
-        raise ValueError(f"no H100 model for route {route!r}; priced "
+        raise ValueError(f"no H100 price for route {route!r}; priced "
                          f"route: {ROUTE!r}")
     n_tokens = int(n_tokens)
     if n_tokens <= 0:
         return 0.0
     return _price(tuple((int(m), int(k)) for m, k in shapes), n_tokens,
-                  dmm_ops._dtype_name(dtype))
+                  contract_lib.dtype_name(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Decision cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Decision:
+    route: str
+    est_seconds: Dict[str, float]     # per-candidate estimate
+    source: str                       # "analytic" | "measured" | "forced"
+    key: Tuple
+
+
+_decision_cache: Dict[Tuple, Decision] = {}
+_cache_lock = threading.Lock()
+
+
+def cache_stats() -> dict:
+    return {"entries": len(_decision_cache),
+            "keys": sorted(_decision_cache, key=repr)}
+
+
+def clear_cache():
+    with _cache_lock:
+        _decision_cache.clear()
+
+
+def _density_bucket(density: float) -> float:
+    """Bucket density to the nearest power of two (Table 3 uses 1/2^k
+    grids); keeps the cache key stable across nnz jitter."""
+    if density <= 0:
+        return 0.0
+    if density >= 1.0:
+        return 1.0
+    return 2.0 ** round(math.log2(density))
+
+
+def _cache_key(kind: str, m: int, k: int, n: int, b: int, density: float,
+               dtype, mode: str = "auto", measure: bool = False,
+               device_type: str = "cuda",
+               skew: Tuple[float, float] = (1.0, 0.0)) -> Tuple:
+    """The decision cache key.  ``skew`` is the pattern's (imbalance, cv)
+    from ``pattern_balance``, bucketed to one decimal so nnz jitter does
+    not split the key: a skewed pattern's verdict must not answer for a
+    uniform one.  The device type names the candidates (the card's
+    kernels or their plain versions) and ``measure`` the verdict's
+    unit."""
+    key = (kind, m, k, n, b, _density_bucket(density),
+           contract_lib.dtype_name(dtype), mode, bool(measure), device_type)
+    imb, cv = (round(float(skew[0]), 1), round(float(skew[1]), 1))
+    if (imb, cv) != (1.0, 0.0):
+        key += ("skew", imb, cv)
+    return key
+
+
+# ---------------------------------------------------------------------------
+# Candidates, measurement, decide
+# ---------------------------------------------------------------------------
+
+def _candidates(kind: str, mode: str = "auto",
+                device_type: str = "cuda") -> Tuple[str, ...]:
+    """The routes a plan of ``kind`` races under ``mode`` on a device of
+    ``device_type``: under "auto" every family the kind admits, as the
+    card's hand-written kernels (``*_cuda``) on a card and as their plain
+    versions (``*_torch``) on the CPU, so nothing plain joins a card's
+    path; an explicit family or route is the one route ``port_route``
+    maps it to (a forced verdict)."""
+    from repro_torch.sparse.spec import ADMISSIBLE, SUFFIX, port_route
+    if mode != "auto":
+        return (port_route(kind, mode, device_type),)
+    if device_type not in SUFFIX:
+        raise ValueError(f"no route for device type {device_type!r}")
+    return tuple(f + SUFFIX[device_type] for f in ADMISSIBLE[kind])
+
+
+def sddmm_candidates(device_type: str = "cuda") -> Tuple[str, ...]:
+    """The dL/dvalues routes of a static plan: the block SDDMM and the
+    dense product followed by a gather, as kernels or plain versions."""
+    from repro_torch.sparse.spec import SUFFIX
+    if device_type not in SUFFIX:
+        raise ValueError(f"no route for device type {device_type!r}")
+    return tuple(f + SUFFIX[device_type] for f in SDDMM_FAMILIES)
+
+
+def capturing() -> bool:
+    """Is a CUDA graph being captured on the current stream?"""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def _copies(args: Sequence) -> list:
+    """``args`` and clones of its tensors: enough sets to hold
+    ``ROTATE_BYTES``, at most ``MAX_COPIES``."""
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if isinstance(a, torch.Tensor))
+    n = max(2, min(MAX_COPIES, math.ceil(ROTATE_BYTES / max(nbytes, 1))))
+    sets = [tuple(args)]
+    for _ in range(n - 1):
+        sets.append(tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args))
+    return sets
+
+
+def measure_callable(fn: Callable, *args) -> float:
+    """Seconds per call of ``fn(*args)``: the one timing harness of every
+    measured race (the forward race in ``decide``, the backward races
+    and ``remeasure_plan`` in the plan layer).  One warm-up call first
+    (it builds the kernel and any walk metadata).  On a card the device
+    time by CUDA events, the median of ``MEASURE_WINDOWS`` windows: in
+    each a sleep kernel holds the stream while the launches are queued,
+    every copy of the tensor arguments (``_copies``) once and at least
+    ``MEASURE_REPS`` launches, the first on a copy the warm-up did not
+    touch, so L2 is cold.  On the CPU the host clock.  Raises under a
+    CUDA-graph capture (callers price analytically there)."""
+    dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
+               torch.device("cpu"))
+    if dev.type != "cuda":
+        fn(*args)
+        t0 = time.perf_counter()
+        for _ in range(MEASURE_REPS):
+            fn(*args)
+        return (time.perf_counter() - t0) / MEASURE_REPS
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("measure_callable under a CUDA-graph capture")
+    sets = _copies(args)
+    reps = max(MEASURE_REPS, len(sets))
+    fn(*args)
+    torch.cuda.synchronize(dev)
+    windows = []
+    i = 1
+    for _ in range(MEASURE_WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(4e7))
+        start.record()
+        for _ in range(reps):
+            fn(*sets[i % len(sets)])
+            i += 1
+        end.record()
+        torch.cuda.synchronize(dev)
+        windows.append(start.elapsed_time(end) / 1e3 / reps)
+    del sets
+    return float(np.median(windows))
+
+
+def measured_pick(measured: Dict[str, float], prior: str) -> str:
+    """The route a measured race installs: the fastest candidate where it
+    beats ``prior`` (the model's pick) by more than ``MEASURE_MARGIN``,
+    else ``prior``, so timings within the noise between runs do not flip
+    a verdict."""
+    best = min(measured, key=measured.get)
+    if prior in measured and \
+            measured[best] >= measured[prior] * (1.0 - MEASURE_MARGIN):
+        return prior
+    return best
+
+
+def decide(spec, device_type: str, *, counts: Optional[WalkCounts] = None,
+           skew: Tuple[float, float] = (1.0, 0.0),
+           candidates: Optional[Sequence[str]] = None,
+           measure: bool = False,
+           runner: Optional[Callable[[str], Tuple[Callable, tuple]]] = None,
+           cache: bool = True) -> Decision:
+    """Pick the route for ``spec`` (an ``OpSpec``) on ``device_type``.
+    A pure function of the cache key; fills the process-level cache.
+    ``candidates`` default to ``_candidates(spec.kind, spec.mode)`` (the
+    plan layer passes those whose kernel contracts admit the problem);
+    each is priced by ``_estimate`` on ``counts`` and ``skew``.  With
+    ``measure`` and a ``runner`` (route -> the callable the plan would
+    run and its arguments) every candidate is timed by
+    ``measure_callable`` and ``measured_pick`` installs the fastest
+    where it beats the model's pick past the noise ("measured"); a single
+    candidate is "forced"; else the model's minimum ("analytic").  A
+    candidate that fails to build or launch raises: no candidate is
+    dropped quietly."""
+    key = _cache_key(spec.kind, spec.m, spec.k, spec.n, spec.block_size,
+                     spec.density, spec.dtype, spec.mode,
+                     measure and runner is not None, device_type, skew)
+    if cache:
+        hit = _decision_cache.get(key)
+        if hit is not None:
+            return hit
+    cands = tuple(candidates if candidates is not None
+                  else _candidates(spec.kind, spec.mode, device_type))
+    if not cands:
+        raise ValueError(f"no route admits {spec}")
+    est = {r: _estimate(r, spec.m, spec.k, spec.n, spec.block_size,
+                        spec.density, spec.dtype, imbalance=skew[0],
+                        cv=skew[1], counts=counts, kind=spec.kind)
+           for r in cands}
+    if len(cands) == 1:
+        dec = Decision(cands[0], est, "forced", key)
+    elif measure and runner is not None:
+        measured = {}
+        for r in cands:
+            fn, args = runner(r)
+            measured[r] = measure_callable(fn, *args)
+            del fn, args
+        dec = Decision(measured_pick(measured, min(est, key=est.get)),
+                       measured, "measured", key)
+    else:
+        dec = Decision(min(est, key=est.get), est, "analytic", key)
+    if cache:
+        with _cache_lock:
+            dec = _decision_cache.setdefault(key, dec)
+    return dec

@@ -17,7 +17,9 @@ through the dynamic plan, so the mask may change every step.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -35,10 +37,13 @@ from repro_torch.core.device import DeviceLike, resolve_device
 class SparseLinear(nn.Module):
     """``y = x . (M * W)^T (+ bias)`` with a static block pattern ``M``.
 
-    ``pattern`` is a host block mask ``[out/b, in/b]``.  The module plans
-    its matmul once (``sparse.plan``, shared by every layer with the same
-    pattern) and packs its values into the kernel's tile stack once per
-    weight load: the stack is rebuilt only when ``values`` changes."""
+    ``pattern`` is a host block mask ``[out/b, in/b]``.  A route verdict
+    depends on the token count, so the module keeps one plan per count it
+    sees (``sparse.plan``, shared by every layer with the same pattern;
+    the decode batch and each prefill bucket of a serving engine), and
+    one packed operand per route it runs (the kernel's tile stack, or
+    W^T for the dense route), rebuilt only when ``values`` changes: its
+    memory does not grow with the bucket ladder."""
 
     def __init__(self, in_features: int, out_features: int,
                  block_size: int, pattern: np.ndarray, *,
@@ -66,9 +71,11 @@ class SparseLinear(nn.Module):
                                               device=dev),
                                   requires_grad=False)
                      if use_bias else None)
-        self._plan: Optional[sparse_api.MatmulPlan] = None
-        self._packed: Optional[torch.Tensor] = None
-        self._packed_key = None
+        # (tokens, ambient PlanContext without its pool label) -> plan
+        self._plans: Dict[tuple, sparse_api.MatmulPlan] = {}
+        # route -> (values version, packed operand), for the routes of
+        # the live plans in ``_plans``
+        self._packed: Dict[str, tuple] = {}
 
     @classmethod
     def random_pattern(cls, in_features: int, out_features: int,
@@ -103,41 +110,65 @@ class SparseLinear(nn.Module):
                                  (self.out_features, self.in_features),
                                  self.block_size)
 
-    def plan(self) -> sparse_api.MatmulPlan:
-        """The module's plan, built once under the ambient context; each
-        later use registers it in the ambient plan pool (as a cache hit
-        of ``sparse.plan`` would) and keeps it alive through a capture."""
-        if self._plan is None or self._plan.device != self.values.device:
-            self._plan = sparse_api.plan(self.as_bsr(), 0,
-                                         device=self.values.device)
-        else:
-            sparse_api.note_use(self._plan)
-        return self._plan
+    def plan(self, n: int, x: Optional[torch.Tensor] = None
+             ) -> sparse_api.MatmulPlan:
+        """The module's plan for ``n`` tokens under the ambient context,
+        built once (``x``, the ``[n, in]`` activations, feeds a measured
+        race) and planned again only when the plan cache dropped it
+        (``sparse.reset``, a re-planned verdict); each later use registers
+        it in the ambient plan pool (as a cache hit of ``sparse.plan``
+        would) and keeps it alive through a capture.  The pool label is
+        runtime-only, so engines that share the module share its plans.
+        Building a plan drops the plans the cache no longer holds, and
+        the packed operands of routes no kept plan runs."""
+        key = (n, _poolless(sparse_api.current_ctx()))
+        p = self._plans.get(key)
+        if p is not None and p.device == self.values.device \
+                and sparse_api.is_live(p):
+            sparse_api.note_use(p)
+            return p
+        p = self._plans[key] = sparse_api.plan(
+            self.as_bsr(), n, x=x, device=self.values.device)
+        self._plans = {k: q for k, q in self._plans.items()
+                       if q.device == self.values.device
+                       and sparse_api.is_live(q)}
+        routes = {q.route for q in self._plans.values()}
+        self._packed = {r: v for r, v in self._packed.items()
+                        if r in routes}
+        return p
 
-    def packed(self) -> torch.Tensor:
-        """The kernel's tile stack for the current values (cached; a
-        capture in progress keeps the stack it reads alive)."""
+    def packed(self, p: sparse_api.MatmulPlan) -> torch.Tensor:
+        """``p``'s packed operand for the current values (cached per
+        route; a capture in progress keeps the stack it reads alive)."""
         v = self.values
         key = (v.data_ptr(), v._version, v.dtype, v.device)
-        if self._packed is None or self._packed_key != key:
+        hit = self._packed.get(p.route)
+        if hit is None or hit[0] != key:
             with torch.no_grad():
-                self._packed = self.plan().pack(v)
-            self._packed_key = key
-        capture.hold(self._packed)
-        return self._packed
+                hit = self._packed[p.route] = (key, p.pack(v))
+        capture.hold(hit[1])
+        return hit[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         x2 = x.reshape(-1, self.in_features).to(self.values.dtype)
+        p = self.plan(x2.shape[0], x2)
         if torch.is_grad_enabled() and (self.values.requires_grad
                                         or x2.requires_grad):
-            y = self.plan().spmm_nt(self.values, x2)
+            y = p.spmm_nt(self.values, x2)
         else:
-            y = self.plan().run_packed(self.packed(), x2)
+            y = p.run_packed(self.packed(p), x2)
         y = y.reshape(*lead, self.out_features)
         if self.bias is not None:
             y = y + self.bias
         return y
+
+
+@functools.lru_cache(maxsize=64)
+def _poolless(ctx: sparse_api.PlanContext) -> sparse_api.PlanContext:
+    """``ctx`` without its pool label (a runtime-only knob of no plan's
+    identity)."""
+    return ctx if ctx.pool is None else dataclasses.replace(ctx, pool=None)
 
 
 class DynamicSparseLinear(nn.Module):

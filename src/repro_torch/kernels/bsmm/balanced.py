@@ -60,6 +60,24 @@ def walk(b: int, dtype) -> str:
             and b in ops.MMA_BLOCKS else "ffma")
 
 
+# The balanced walk's time over the uniform walk's (``ops.walk_seconds``)
+# on the same tiles, by walk: the skew-grid and Table 3 rows of
+# chip_smoke.py (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md) put it at 1.00
+# to 1.11 on the mma walk and 1.47 to 2.24 on the ffma walk, on uniform,
+# DLMC-like and power-law patterns alike: binning does not pay on the
+# card, where both walks slow down on hot rows.
+OVERHEAD = {"mma": 1.05, "ffma": 1.6}
+
+
+def walk_seconds(name: str, n: int, m: int, k: int, tile: int, tiles: int,
+                 stages: int, dtype) -> float:
+    """Modelled device seconds of walk ``name`` on the packing of
+    ``tiles`` tiles (pure Python): the uniform walk's model
+    (``ops.walk_seconds``, on its mma or ffma walk) times ``OVERHEAD``."""
+    return OVERHEAD[name] * ops.walk_seconds(name, n, m, k, tile, tiles,
+                                             stages, dtype)
+
+
 def mma_bins(row_tiles: int, b: int) -> int:
     """Bins of the row swizzle where the walk is "mma": ``ceil(mb / R)``,
     so that every bin is one group of the walk (``ops.bin_groups``)."""

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contract import elem_bytes
 
 TILE_SIZES = (4, 8, 16, 32, 64)
 DTYPES = _build.DTYPES
@@ -55,6 +56,67 @@ SMS = 132                                # the H100's SMs
 # K slices: a slice walks at least this many stages
 MMA_MIN_SLICE_STAGES = 8
 _MMA_DTYPES = (torch.bfloat16, torch.float16)
+# Time of each walk: (seconds a launch, FLOP/s, bytes/s) by (walk, bytes
+# per value), fitted by hand to chip_smoke.py's [kernel] bsmm rows and
+# [table3] static_cuda rows (device time, L2 cold; PERF.md lists them) on
+# an NVIDIA H100 80GB HBM3 at a 700.00 W power limit.  The mma walk reads
+# x once per stage (a group's chunk of MMA_CHUNK columns) from L2; the
+# ffma walk computes whole 64-token tiles at FFMA_RATE[tile]; the decode
+# walk streams the tiles with one block per tile-row, at full rate from
+# DECODE_FULL_ROWS tile-rows up (fitted to llama's down projection, 128
+# tile-rows: 0.0133 to 0.0155 ms at N 4 in bf16).
+WALK_MODEL = {
+    ("decode", 2): (4.0e-6, 10e12, 0.72e12),
+    ("decode", 4): (4.0e-6, 10e12, 1.0e12),
+    ("mma", 2): (13e-6, 572e12, 4.1e12),
+    ("ffma", 2): (8.0e-6, 0.0, 3.0e12),
+    ("ffma", 4): (8.0e-6, 0.0, 3.0e12),
+}
+# FLOP/s of the ffma walk by tile (4 and 16 fitted; 8 interpolated, 32
+# and 64 taken as 16's: not measured)
+FFMA_RATE = {4: 2.95e12, 8: 5.9e12, 16: 9.9e12, 32: 9.9e12, 64: 9.9e12}
+DECODE_FULL_ROWS = 200
+
+
+def walk_seconds(name: str, n: int, m: int, k: int, tile: int, tiles: int,
+                 stages: int, dtype) -> float:
+    """Modelled device seconds of walk ``name`` for ``x [n, k] . W^T``
+    with ``W [m, k]`` packed into ``tiles`` tiles of ``tile`` (pad tiles
+    of empty rows included) and, on the mma walk, ``stages`` stages (a
+    group's chunk of x, or a share of one: ``mma_stage_count``): its
+    launch term plus the larger of its operations over its rate and its
+    bytes over its bandwidth."""
+    es = elem_bytes(dtype)
+    launch, rate, bw = WALK_MODEL[(name, es)]
+    area = float(tiles) * tile * tile
+    if name == "mma":
+        nbytes = (area + n * m + stages * MMA_CHUNK * n) * es
+        return launch + max(2.0 * n * area / rate, nbytes / bw)
+    nbytes = (area + n * k + n * m) * es
+    if name == "ffma":
+        rows = -(-n // 64) * 64
+        return launch + max(2.0 * rows * area / FFMA_RATE[tile],
+                            nbytes / bw)
+    bw *= min(1.0, (m // tile) / DECODE_FULL_ROWS)
+    return launch + max(2.0 * n * area / rate, nbytes / bw)
+
+
+def mma_stage_count(tile_rows, tile_cols, b: int, group_rows=None) -> int:
+    """Stages of the mma walk over the (unique) tiles at ``tile_rows``,
+    ``tile_cols`` (numpy, pure Python): per group and chunk of x, its
+    tiles in stages of at most ``MMA_STAGE_BLOCKS[b]``.  Groups are
+    ``MMA_ROWS[b]`` consecutive tile-rows, or ``group_rows[r]`` where
+    given (a bin of the balanced walk)."""
+    rows = np.asarray(tile_rows, np.int64)
+    cols = np.asarray(tile_cols, np.int64)
+    if rows.size == 0:
+        return 0
+    grp = (rows // MMA_ROWS[b] if group_rows is None
+           else np.asarray(group_rows, np.int64)[rows])
+    key = grp * (int(cols.max()) // (MMA_CHUNK // b) + 1) \
+        + cols // (MMA_CHUNK // b)
+    _, cnt = np.unique(key, return_counts=True)
+    return int(np.sum(-(-cnt // MMA_STAGE_BLOCKS[b])))
 
 
 def walk(b: int, dtype, n: int) -> str:

@@ -70,6 +70,17 @@ class KernelContract:
         return None
 
 
+def dtype_name(dtype) -> str:
+    """``torch.bfloat16`` (or "bfloat16") -> "bfloat16"."""
+    return str(dtype).replace("torch.", "")
+
+
+def elem_bytes(dtype) -> int:
+    """Bytes a value of ``dtype`` takes in the kernels' walks (4 for
+    float32, 2 for the 16-bit types), for their time models."""
+    return 4 if dtype_name(dtype) == "float32" else 2
+
+
 def sub_block(b: int, sizes: Sequence[int]) -> int:
     """The block at which a ``b x b`` block is re-expressed for a kernel
     that walks square blocks of ``sizes`` (ascending): the largest of

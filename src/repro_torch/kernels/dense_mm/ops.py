@@ -22,6 +22,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contract import dtype_name, elem_bytes
 
 DTYPES = _build.DTYPES
 COUNTER = _build.LaunchCounter()
@@ -76,14 +77,10 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def _dtype_name(dtype) -> str:
-    return str(dtype).replace("torch.", "")
-
-
 def tma_ok(k: int, d: int, dtype) -> bool:
     """Whether TMA can load x [N, K] and w [K, D]: 16-bit values and
     16-byte row strides (K and D multiples of 8)."""
-    return (_dtype_name(dtype) in ("bfloat16", "float16") and k > 0
+    return (dtype_name(dtype) in ("bfloat16", "float16") and k > 0
             and k % 8 == 0 and d % 8 == 0)
 
 
@@ -124,7 +121,7 @@ def walk_seconds(name: str, n: int, k: int, d: int, dtype) -> float:
     d]``: its launch term plus the larger of its operations over its rate
     and its bytes (each operand once) over its bandwidth.  The ffma walk
     computes whole 64-row tiles."""
-    es = 4 if _dtype_name(dtype) == "float32" else 2
+    es = elem_bytes(dtype)
     launch, rate, bw = WALK_MODEL[(name, es)]
     rows = _cdiv(n, 64) * 64 if name == "ffma" else n
     return launch + max(2.0 * rows * k * d / rate,
@@ -152,7 +149,7 @@ def walk(n: int, k: int, d: int, dtype) -> Walk:
     the wgmma walk streams a wide w faster, the decode walk starts
     sooner.  A shape the decode walk cannot hold takes the walk of N >
     16."""
-    es = 4 if _dtype_name(dtype) == "float32" else 2
+    es = elem_bytes(dtype)
     if n <= DECODE_MAX_N:
         dec = _decode_walk(n, k, d, es)
         if dec is not None and not (

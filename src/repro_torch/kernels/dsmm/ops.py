@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core.dynamic_sparse import DynamicOperand
 from repro_torch.kernels import _build
-from repro_torch.kernels.contract import sub_block
+from repro_torch.kernels.contract import elem_bytes, sub_block
 
 BLOCK_SIZES = (4, 8, 16, 32, 64, 128)
 DTYPES = _build.DTYPES
@@ -36,6 +36,44 @@ WALKS = ("mma", "ffma")
 # launches per walk, beside the total COUNTER
 WALK_COUNTERS = {name: _build.LaunchCounter() for name in WALKS}
 MMA_BLOCKS = (16, 32, 64, 128)   # blocks the tensor-core walk takes
+# Time of each walk: (seconds a launch, seconds a slot of a block-row's
+# chain at b = 16, bytes/s) by walk, and its FLOP/s by block, fitted by
+# hand to chip_smoke.py's [kernel] dsmm rows (FFN up/gate and down at N
+# 4, 256, 2048; Table 3 at b 4 and 16; the t = 128 grouped tiles; device
+# time, L2 cold; PERF.md lists them) on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit.  A block-row's slots run one after another, so
+# the row with the most slots bounds the walk at few tokens; the rates of
+# blocks 8, 32 and 64 are interpolated (not measured).
+WALK_MODEL = {"mma": (14e-6, 1.8e-6, 3.35e12),
+              "ffma": (10e-6, 1.6e-6, 3.35e12)}
+WALK_RATE = {"mma": {16: 55e12, 32: 80e12, 64: 120e12, 128: 158e12},
+             "ffma": {4: 3.66e12, 8: 6.4e12, 16: 9.1e12, 32: 9.1e12,
+                      64: 9.1e12, 128: 9.1e12}}
+# the device encode (``encode_slots``: a stable sort of the slots),
+# fitted to the same rows' encode_ms
+ENCODE_MODEL = (60e-6, 1.6e-9)           # seconds a call, seconds a slot
+
+
+def walk_seconds(name: str, n: int, m: int, k: int, b: int, slots: int,
+                 row_slots: int, dtype) -> float:
+    """Modelled device seconds of walk ``name`` over ``slots`` slots of
+    ``b x b`` (``row_slots`` of them in the fullest block-row) for ``x [n,
+    k] . W^T``, ``W [m, k]`` (pure Python): its launch term plus the
+    largest of the fullest row's chain, its operations over its rate and
+    its bytes (values, x and y once) over its bandwidth.  The ffma walk
+    computes whole 64-token tiles.  The encode is ``encode_seconds``."""
+    es = elem_bytes(dtype)
+    launch, per_slot, bw = WALK_MODEL[name]
+    rows = n if name == "mma" else -(-n // 64) * 64
+    area = float(slots) * b * b
+    return launch + max(row_slots * per_slot * b / 16,
+                        2.0 * rows * area / WALK_RATE[name][b],
+                        (area + n * k + n * m) * es / bw)
+
+
+def encode_seconds(slots: int) -> float:
+    """Modelled device seconds of ``encode_slots`` over ``slots`` slots."""
+    return ENCODE_MODEL[0] + ENCODE_MODEL[1] * slots
 
 
 def walk(b: int, dtype) -> str:

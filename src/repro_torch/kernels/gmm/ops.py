@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.core.dynamic_sparse import DynamicOperand
 from repro_torch.kernels import _build
-from repro_torch.kernels.contract import sub_block
+from repro_torch.kernels.contract import elem_bytes, sub_block
 from repro_torch.kernels.dsmm import ops as dsmm_ops
 from repro_torch.kernels.gmm.ref import gmm_ref
 
@@ -41,6 +41,41 @@ WALKS = ("wgmma", "ffma")
 WALK_COUNTERS = {name: _build.LaunchCounter() for name in WALKS}
 MAX_TM = 128            # rows of a row tile the kernel holds
 FFMA_TM = 64            # rows past which the FMA walk's blocks slow down
+# Time of each gmm walk: (seconds a launch, FLOP/s, bytes/s), fitted by
+# hand to chip_smoke.py's [kernel] gmm rows (qwen3's expert GEMMs at C 8
+# and 80; device time, L2 cold; PERF.md lists them) on an NVIDIA H100
+# 80GB HBM3 at a 700.00 W power limit.
+WALK_MODEL = {"wgmma": (12e-6, 572e12, 3.35e12),
+              "ffma": (12e-6, 9e12, 3.35e12)}
+# the grouped routes' device tile pack (``pack_tiles_device``: plain
+# PyTorch sorts and scatters), fitted to the same run's pack_ms
+PACK_SECONDS = 0.35e-3
+
+
+def walk_seconds(name: str, rows: int, d: int, f: int, experts: int,
+                 dtype) -> float:
+    """Modelled device seconds of gmm walk ``name`` for ``rows`` rows of
+    ``x [rows, d]`` against ``experts`` expert matrices ``[d, f]`` (pure
+    Python): its launch term plus the larger of its operations over its
+    rate and its bytes (x, the experts' weights and the output once) over
+    its bandwidth."""
+    es = elem_bytes(dtype)
+    launch, rate, bw = WALK_MODEL[name]
+    return launch + max(2.0 * rows * d * f / rate,
+                        (rows * d + experts * d * f + rows * f) * es / bw)
+
+
+def grouped_seconds(n: int, m: int, k: int, tile: int, tiles: int,
+                    dtype) -> float:
+    """Modelled device seconds of ``grouped_spmm`` at ``tiles`` tile slots
+    of ``tile`` (pure Python): the device pack, the slot encode and the
+    dsmm walk over the packed tiles (their fullest tile-row taken as
+    the mean: a pack's row profile is data)."""
+    mt = max(1, -(-m // tile))
+    name = dsmm_ops.walk(tile, dtype)
+    return (PACK_SECONDS + dsmm_ops.encode_seconds(tiles)
+            + dsmm_ops.walk_seconds(name, n, m, k, tile, tiles,
+                                    -(-tiles // mt), dtype))
 
 
 class GroupedPackStats(NamedTuple):

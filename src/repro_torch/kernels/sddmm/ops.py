@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.contract import elem_bytes
 
 BLOCK_SIZES = (4, 8, 16, 32, 64)
 DTYPES = _build.DTYPES
@@ -36,6 +37,25 @@ MMA_BLOCKS = (16, 32, 64)   # blocks the tensor-core walk takes
 _FFMA_BLOCKS = 1024     # the FMA walk's 256-thread blocks: ~8 an SM of an H100
 _MMA_WAVE = 2 * 132     # the mma walk's 544-thread blocks: one wave, 2 an SM
 _MIN_SPLIT_ROWS = 256   # least rows of N one split walks
+# Time of each walk: (seconds a launch, FLOP/s, bytes/s) by walk, fitted
+# by hand to chip_smoke.py's [kernel] sddmm rows (FFN up/gate and down at
+# N 256 and 2048; device time, L2 cold; PERF.md lists them) on an NVIDIA
+# H100 80GB HBM3 at a 700.00 W power limit.  Each block reads its slice
+# of x (N rows of b columns), from L2 on the mma walk; dy is read once.
+WALK_MODEL = {"mma": (8e-6, 572e12, 5.8e12),
+              "ffma": (8e-6, 15e12, 3.35e12)}
+
+
+def walk_seconds(name: str, n: int, m: int, k: int, b: int, blocks: int,
+                 dtype) -> float:
+    """Modelled device seconds of walk ``name`` sampling ``blocks`` blocks
+    of ``b x b`` from ``dy [n, m]^T . x [n, k]`` (pure Python): its
+    launch term plus the larger of its operations over its rate and its
+    bytes over its bandwidth."""
+    es = elem_bytes(dtype)
+    launch, rate, bw = WALK_MODEL[name]
+    return launch + max(2.0 * n * blocks * b * b / rate,
+                        (blocks * b * (n + b) + n * m) * es / bw)
 
 
 def block_row_ptr(row_idx: np.ndarray, grid_rows: int) -> np.ndarray:

@@ -13,7 +13,9 @@ block-sparse at that block density (block size ``ffn_block_size``), the
 paper's sparse FFN; an MoE config keeps its experts and refuses it.
 On the card the engine captures its decode step and each bucket's
 prefill as CUDA graphs at their first use and replays them; ``--eager``
-runs the same programs eagerly instead.
+runs the same programs eagerly instead.  ``--plan-cache DIR`` persists
+the engine's route verdicts in DIR: a restart from the same directory
+replays them with zero decisions and zero measurements.
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ def main(argv=None):
     ap.add_argument("--eager", action="store_true",
                     help="run the programs eagerly on the card (no CUDA "
                          "graphs)")
+    ap.add_argument("--plan-cache", default=None, metavar="DIR",
+                    help="persistent route-verdict cache dir "
+                         "(repro_torch.sparse): restarts skip re-planning")
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -54,9 +59,10 @@ def main(argv=None):
         cfg = configs.sparsify_ffn(cfg, args.density)
     lm = LM(cfg, device=args.device, seed=args.seed)
     eng = Engine(lm, batch=args.batch, max_len=args.max_len,
-                 device=lm.device, graphs=False if args.eager else None)
+                 device=lm.device, graphs=False if args.eager else None,
+                 plan_cache_dir=args.plan_cache)
     print(f"[serve] {cfg.name} on {lm.device}, buckets {eng.buckets}, "
-          f"graphs {eng.graphs}")
+          f"graphs {eng.graphs}; startup plans {eng.plan_stats}")
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(uid=i,

@@ -26,8 +26,12 @@ as others finish.
   uses, the static FFN plans that ``SparseLinear`` caches included, is
   listed by ``sparse.pool_plans(engine.pool)``.  ``warm_plans`` runs the
   decode step and every bucket's prefill once at startup (their
-  telemetry dropped), so serving builds no plan and makes no decision
-  after it; ``plan_stats`` holds what that pass built.
+  telemetry dropped), so every route race runs then, before any capture,
+  and serving builds no plan and makes no decision after it;
+  ``plan_stats`` holds what that pass built.  ``plan_cache_dir`` persists
+  the verdicts there (``PlanContext(persist=True)``), so a restart from
+  the same directory replays them with zero decisions and zero
+  measurements.
 * **CUDA graphs** (``serve/graphs.py``), the counterpart of the
   reference's ``jax.jit`` programs: on a card the decode step (one per
   engine, at its batch) and each bucket's prefill are captured once as
@@ -82,7 +86,8 @@ _LATENCY_WINDOW = 2048          # rolling percentile window (per stream)
 
 # plan_report sections of the reference that wait for modules the port
 # lacks: the tensor-parallel report (multi-GPU), the roofline report
-# (the port-side benchmark suite) and the re-planner (the route race)
+# (the port-side benchmark suite) and the background re-planner (with
+# the re-capture of the graphs that hold a replaced route)
 NOT_PORTED = ("tp", "roofline", "replanner")
 
 
@@ -188,7 +193,10 @@ class Engine:
     the CPU; False runs eagerly on the card too; True on the CPU raises.
     ``warm_plans`` runs every program once at startup (``plan_stats``);
     ``warm_compile`` captures every graph then (eagerly: runs every
-    program once).  ``telemetry=False`` records no MoE routing drops."""
+    program once).  ``telemetry=False`` records no MoE routing drops.
+    ``plan_cache_dir`` persists the engine's route verdicts there and
+    reads them back at the next start (the reference's
+    ``plan_cache_dir``)."""
 
     def __init__(self, lm: LM, *, batch: int, max_len: int,
                  device: DeviceLike = None,
@@ -196,7 +204,8 @@ class Engine:
                  pad_max_frac: float = 0.75,
                  max_queue: Optional[int] = None,
                  warm_plans: bool = True, warm_compile: bool = False,
-                 telemetry: bool = True, graphs: Optional[bool] = None):
+                 telemetry: bool = True, graphs: Optional[bool] = None,
+                 plan_cache_dir: Optional[str] = None):
         dev = resolve_device(device)
         if lm.device != dev:
             raise ValueError(f"engine device {dev} != model device "
@@ -217,6 +226,9 @@ class Engine:
         # with every other caller of the same problem
         self.plan_ctx = sparse_api.PlanContext(telemetry=telemetry,
                                                pool=self.pool)
+        if plan_cache_dir is not None:
+            self.plan_ctx = dataclasses.replace(
+                self.plan_ctx, cache_dir=plan_cache_dir, persist=True)
         self.caches = lm.init_cache(batch, max_len)
         self.positions = np.zeros((batch,), np.int64)
         self.live: Dict[int, Request] = {}       # slot -> request
@@ -437,9 +449,9 @@ class Engine:
     def plan_report(self) -> dict:
         """What the startup pass built (``startup``), the plan cache's
         counters now (``now``), the capacity telemetry (``capacity``),
-        every plan's forward and backward routes (``plans``) and this
-        engine's live stats (``engine``): the serving view of the
-        plan-first lifecycle.  ``not_ported`` names the reference's
+        every plan's forward and backward routes with their source and
+        ``from_disk`` (``plans``) and this engine's live stats
+        (``engine``): the serving view of the plan-first lifecycle.  ``not_ported`` names the reference's
         sections the port does not have yet."""
         return {"startup": dict(self.plan_stats),
                 "now": sparse_api.cache_stats(),

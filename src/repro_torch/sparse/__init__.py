@@ -1,14 +1,17 @@
 """Plan-first sparse matmul API of the port (static, dynamic and dense
-kinds)."""
-from repro_torch.sparse.plan import (ROUTES, SDDMM_ROUTES,  # noqa: F401
-                                     GradPlan, MatmulPlan, batched_matmul,
+kinds): the route race, the disk cache and the reports."""
+from repro_torch.sparse.plan import (PLAN_ROUTES, ROUTES,  # noqa: F401
+                                     SDDMM_ROUTES, GradPlan, MatmulPlan,
+                                     analytic_plans, batched_matmul,
                                      cache_stats, capacity_report,
-                                     current_ctx, dropped_history, matmul,
-                                     note_use, plan, plan_report,
+                                     configure, current_ctx,
+                                     dropped_history, explain, format_plan,
+                                     is_live, matmul, note_use, plan,
+                                     plan_report,
                                      pool_plans, queue_dropped,
-                                     record_dropped, reset,
+                                     record_dropped, remeasure_plan, reset,
                                      reset_telemetry, spmm, spmm_nt,
                                      use_ctx)
 from repro_torch.sparse.spec import (  # noqa: F401
-    ESCALATION_MIN_CALLS, MODES, CapacityStats, OpSpec, PlanContext,
-    port_route)
+    ESCALATION_MIN_CALLS, GRAD_DX_MODES, GRAD_SDDMM_MODES, MODES,
+    CapacityStats, OpSpec, PlanContext, port_route)

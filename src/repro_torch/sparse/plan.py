@@ -7,11 +7,20 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
 ``plan.py:1051-1275``, ``spmm``/``spmm_nt``/``matmul`` at
 ``plan.py:1987-2023``), with these cuts:
 
-* no route race: ``PlanContext.mode`` takes the JAX package's modes and
-  ``spec.port_route`` maps them onto the port's routes by device (the
-  CUDA kernels on a card, their plain PyTorch versions on the CPU);
-  "auto" is the static walk (``static_cuda``, the bsmm kernel), the dsmm
-  slot walk (``dynamic_cuda``) or the dense GEMM (``dense_cuda``);
+* the route race (``_decide``, in the reference's order): an in-process
+  re-planned verdict (``remeasure_plan``), then the disk cache
+  (``sparse.cache``, ``PlanContext(persist=, cache_dir=)``), then
+  ``core.dispatch.decide``: under ``mode="auto"`` every route whose
+  kernel contracts admit the problem is priced by the H100 model of the
+  walk it would launch (the card's hand-written kernels, ``*_cuda``, on a
+  card; their plain versions, ``*_torch``, on the CPU, priced as the
+  card's), or timed on the device with ``PlanContext(measure=True)`` and
+  concrete inputs (``plan(..., x=)``; never under a CUDA-graph capture,
+  where the verdict stays analytic).  A family or JAX route id maps to
+  one route (``spec.port_route``, a "forced" verdict).  The verdict, its
+  estimates and its source ("analytic", "measured" or "forced") ride on
+  the plan and persist with its capacity and backward sections, so a
+  restart re-plans with zero decisions and zero measurements;
 * a static plan runs ``partitioner.plan_packing`` once at the tile the
   kernels walk (``kernel_tile``: each b x b block split exactly into
   sub-blocks of g, the largest kernel tile dividing b, else 2 or 1, and
@@ -33,9 +42,12 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   exactly (``capacity_report``) and escalate to worst-case capacity once
   the overflow frequency passes ``overflow_threshold``;
 * under autograd a static plan runs the planned backward of
-  ``_planned_vjp`` (``plan.py:1431-1450``) whatever its forward route:
-  dL/dx is the bsmm walk on the transposed pattern, dL/dvalues the block
-  SDDMM (``sddmm_cuda`` on a card, ``sddmm_torch`` on the CPU).  A
+  ``_planned_vjp`` (``plan.py:1431-1450``) whatever its forward route,
+  on the routes its backward race picked (``_grad_decide``): dL/dx races
+  the static candidates on the transposed ``[k, m]`` problem (the bsmm
+  walk on the transposed pattern, or a forward-only plan of ``W^T`` on
+  another route), dL/dvalues the block SDDMM against the dense product
+  ``dy^T . x`` through dense_mm followed by a gather.  A
   dynamic plan mirrors ``_dynamic_planned_vjp`` (``plan.py:1453-1485``):
   the kernel forward, the gather / einsum / ``index_add_`` pair backward
   in plain PyTorch, as the JAX package leaves it to XLA
@@ -66,9 +78,14 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   passes none (``plan.py:1836-1857``); a ``ctx.pool`` label registers
   every plan used under it, cache hits included, for ``pool_plans``
   (``:281``, ``:1890-1895``); ``cache_stats`` counts plans built, cache
-  hits and route decisions; ``plan_report`` lists every cached plan's
-  forward and backward routes (``:206``).  With no route race, every
-  route's ``source`` is ``"fixed"`` (chosen by ``port_route``).
+  hits, route decisions, measurements and the disk cache's hits, misses,
+  writes and stale drops; ``plan_report`` lists every cached plan's
+  forward and backward routes with their source and ``from_disk``
+  (``:206``); ``explain`` / ``format_plan`` report a plan the way the
+  reference's do (``:485``, ``:625``; its ``roofline``, ``tp`` and
+  ``evolution`` keys are None: those modules are not ported);
+  ``analytic_plans`` / ``remeasure_plan`` upgrade analytic verdicts to
+  measured ones on synthesized inputs (``:291-404``).
 """
 from __future__ import annotations
 
@@ -81,9 +98,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import capture, partitioner
+from repro_torch.core import capture, dispatch, masks, partitioner
 from repro_torch.core import planner as planner_lib
 from repro_torch.core.bsr import BlockSparseMatrix, pattern_key
+from repro_torch.core.dispatch import (dynamic_tile, kernel_tile,  # noqa: F401
+                                       split_pattern, walk_shape)
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.dynamic_sparse import (DynamicOperand, _dspmm,
                                              dspmm_backward)
@@ -95,8 +114,10 @@ from repro_torch.kernels.dsmm import ops as dsmm_ops
 from repro_torch.kernels.gmm import balanced as gmm_balanced
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.sddmm import ops as sddmm_ops
-from repro_torch.sparse.spec import (SUFFIX, CapacityStats, OpSpec,
-                                     PlanContext, port_route)
+from repro_torch.sparse import cache as cache_lib
+from repro_torch.sparse.spec import (ADMISSIBLE, SUFFIX, CapacityStats,
+                                     OpSpec, PlanContext, port_route,
+                                     sddmm_route)
 
 ROUTES = {("static", "cuda"): "static_cuda",
           ("static", "cpu"): "static_torch",
@@ -104,16 +125,16 @@ ROUTES = {("static", "cuda"): "static_cuda",
           ("dense", "cpu"): "dense_torch"}
 # route of the static kind's dL/dvalues product, by device type
 SDDMM_ROUTES = {"cuda": "sddmm_cuda", "cpu": "sddmm_torch"}
+# every route a plan can run, by device type (a verdict read back from
+# disk must name one of them)
+PLAN_ROUTES = {dt: tuple(f + sfx for f in ADMISSIBLE["static"])
+               for dt, sfx in SUFFIX.items()}
 # bins of the balanced walks where the card does not pick (the
 # reference's default)
 DEFAULT_BINS = 8
 
 Operand = Union[BlockSparseMatrix, DynamicOperand, torch.Tensor]
-
-
-def _family(route: str) -> str:
-    """``static_balanced_cuda`` -> ``static_balanced``."""
-    return route.rsplit("_", 1)[0]
+_family = dispatch.family
 
 
 @dataclasses.dataclass
@@ -128,7 +149,12 @@ class MatmulPlan:
     ``artifacts`` holds the JAX plan's report fields (``nnz_blocks``,
     ``packing_tiles``, ``swizzle_*``, ``bucket_blocks``,
     ``nnz_max_blocks``, ``grouped_tile``, ``grouped_tiles_cap``,
-    ``capacity``)."""
+    ``capacity``, ``grad``).  ``source`` is how ``route`` was chosen
+    ("analytic": the H100 model's minimum; "measured": timed on the
+    device, the model's pick unless another candidate beats it past the
+    noise; "forced": one candidate), ``est_seconds`` each candidate's
+    modelled or measured seconds, ``from_disk`` whether the verdict came
+    from the persistent cache (or the re-planner)."""
 
     kind: str
     route: str
@@ -175,6 +201,12 @@ class MatmulPlan:
     walk_shape: Tuple[int, int] = (0, 0)
     # the in-memory cache key the plan was stored under (pool entries)
     mem_key: tuple = dataclasses.field(default=(), repr=False)
+    source: str = "analytic"
+    est_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    from_disk: bool = False
+    # static kind: the host pattern (row_idx, col_idx) in operand order
+    pattern: Optional[Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
+        default=None, repr=False)
 
     @property
     def grad_routes(self) -> Dict[str, str]:
@@ -187,8 +219,16 @@ class MatmulPlan:
                 return {"dx": "dynamic_torch", "dvalues": "dynamic_torch"}
             return {"dx": "torch_gather_index_add",
                     "dvalues": "torch_gather_einsum"}
-        return {"dx": ROUTES[("static", self.device.type)],
-                "dvalues": SDDMM_ROUTES[self.device.type]}
+        return {"dx": self.grad.dx_route, "dvalues": self.grad.dv_route}
+
+    def explain(self) -> dict:
+        """The decision report (the reference's ``MatmulPlan.explain``
+        schema): the problem, the candidates' estimates (modelled or
+        measured), the chosen route and its source, the disk provenance,
+        the backward verdicts and the plan's one-time artifacts.  ``tp``,
+        ``evolution`` and ``roofline`` are None until those modules
+        land."""
+        return _explain(self)
 
     def capacity_report(self) -> Optional[dict]:
         """Planned capacity + running overflow stats (None for routes
@@ -256,6 +296,32 @@ class MatmulPlan:
             self._check_differentiable()
             return _StaticSpmmFn.apply(payload, x2, self)
         return self.run_packed(self.pack(payload), x2)
+
+    def grad_dx(self, values: torch.Tensor, dy2: torch.Tensor
+                ) -> torch.Tensor:
+        """dL/dx of the static kind on the route its race picked: ``dy2
+        [N, m] -> dy2 . W [N, k]``."""
+        g = self.grad
+        if _family(g.dx_route) == "static":
+            return self.spmm_t(values, dy2)
+        q = g.dx_plan
+        v_t = values[g.dx_perm].transpose(1, 2)
+        return q.run_packed(q.pack(v_t), dy2)
+
+    def grad_dvalues(self, dy2: torch.Tensor, x2: torch.Tensor
+                     ) -> torch.Tensor:
+        """dL/dvalues of the static kind on the route its race picked:
+        ``[nnz, b, b]`` block-sampled ``dy2^T . x2`` in operand order."""
+        g = self.grad
+        if _family(g.dv_route) == "sddmm":
+            return self.sddmm(dy2, x2)
+        b = self.block_size
+        rt = torch.result_type(dy2, x2)
+        dw = dmm_ops.dense_mm(dy2.to(rt).t().contiguous(),
+                              x2.to(rt).contiguous())        # [m, k]
+        rows, cols = g.dv_pattern
+        return dw.reshape(self.m // b, b, self.k // b, b).permute(
+            0, 2, 1, 3)[rows, cols]
 
     def spmm_t(self, values: torch.Tensor, dy2: torch.Tensor
                ) -> torch.Tensor:
@@ -419,6 +485,16 @@ class GradPlan:
     unsort: Optional[torch.Tensor] = None  # [nnz] long
     gather: Optional[torch.Tensor] = None  # [nnz] long
     mma: Optional[bsmm_ops.MmaSchedule] = None  # W^T's, as MatmulPlan.mma
+    # the routes the backward race picked (``_grad_decide``): dL/dx on the
+    # bsmm walk above, or on ``dx_plan`` (a forward-only plan of W^T on
+    # another route, fed the values permuted by ``dx_perm`` and each block
+    # transposed); dL/dvalues by the SDDMM above, or by the dense product
+    # and a gather of the blocks at ``dv_pattern`` (operand order)
+    dx_route: str = ""
+    dv_route: str = ""
+    dx_plan: Optional["MatmulPlan"] = None
+    dx_perm: Optional[torch.Tensor] = None       # [nnz] long
+    dv_pattern: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def _needs_grad(*tensors: torch.Tensor) -> bool:
@@ -428,8 +504,8 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
 
 class _StaticSpmmFn(torch.autograd.Function):
     """``_planned_vjp``: forward runs the plan's route on the packed
-    values; backward runs the SDDMM for dvalues and bsmm on the
-    transposed pattern for dx, each cast to its operand's dtype."""
+    values; backward runs the dvalues and dx routes the plan's backward
+    race picked, each cast to its operand's dtype."""
 
     @staticmethod
     def forward(ctx, values, x2, plan_):
@@ -444,9 +520,9 @@ class _StaticSpmmFn(torch.autograd.Function):
         p = ctx.plan
         dv = dx = None
         if ctx.needs_input_grad[0]:
-            dv = p.sddmm(dy2, x2).to(values.dtype)
+            dv = p.grad_dvalues(dy2, x2).to(values.dtype)
         if ctx.needs_input_grad[1]:
-            dx = p.spmm_t(values, dy2).to(x2.dtype)
+            dx = p.grad_dx(values, dy2).to(x2.dtype)
         return dv, dx, None
 
 
@@ -497,7 +573,6 @@ class _DenseMatmulFn(torch.autograd.Function):
 
 _LOCK = threading.Lock()
 _PLANS: Dict[Tuple, MatmulPlan] = {}
-_STATS = {"plans_built": 0, "plan_hits": 0, "decisions": 0}
 # plan pools: ctx.pool label -> the mem keys of every plan used under it,
 # in first-use order (a dict as an ordered set)
 _POOLS: Dict[str, Dict[Tuple, None]] = {}
@@ -514,13 +589,28 @@ _DROPS_FOLD_AT = 4096
 # order (the newest _DROPS_LOG_LEN), for dropped_history
 _DROPS_LOG: Dict[str, collections.deque] = {}
 _DROPS_LOG_LEN = 1 << 16
+# the re-planner's verdict overlay: plan key -> the measured record
+# (``remeasure_plan``); ``_decide`` reads it before the disk cache
+_REPLANNED: Dict[str, dict] = {}
+# a static pattern's skew and walk counts, per (pattern key, m, k, b)
+_PATTERN_INFO: Dict[Tuple, Tuple[Tuple[float, float],
+                                  dispatch.WalkCounts]] = {}
+_PATTERN_INFO_MAX = 1024
 
 
 def cache_stats() -> Dict[str, int]:
-    """Plan-cache counters since ``reset``: plans built, cache hits and
-    route decisions (one per plan built: ``port_route``'s fixed choice)."""
+    """Plan and decision counters since ``reset`` (``sparse.cache``:
+    plans built, cache hits, route decisions, measured races, disk hits,
+    misses, writes and stale drops) and the plans held (``cached``)."""
+    stats = cache_lib.cache_stats()
     with _LOCK:
-        return dict(_STATS, cached=len(_PLANS))
+        stats["cached"] = len(_PLANS)
+    return stats
+
+
+def configure(cache_dir: Optional[str] = None) -> None:
+    """Set the process-default persistent cache directory."""
+    cache_lib.configure(cache_dir)
 
 
 @contextlib.contextmanager
@@ -528,8 +618,8 @@ def use_ctx(ctx: PlanContext):
     """Install ``ctx`` as the ambient planning context of this thread:
     every ``plan``/``matmul``/``spmm_nt``/``batched_matmul`` call without
     an explicit ``ctx`` (and ``record_dropped``) picks it up.  The serving
-    engine wraps its programs with it, so its pool label and telemetry
-    policy never leak into process-global state."""
+    engine wraps its programs with it, so its pool label, telemetry and
+    persistence policy never leak into process-global state."""
     prev = getattr(_CTX_STATE, "ctx", None)
     _CTX_STATE.ctx = ctx
     try:
@@ -561,62 +651,86 @@ def note_use(p: MatmulPlan) -> None:
     capture.hold(p)
 
 
+def is_live(p: MatmulPlan) -> bool:
+    """Is ``p`` still the plan cache's plan for its problem (not dropped
+    by ``reset``, an escalation or a re-planned verdict)?  Always true
+    for a plan built with ``PlanContext(cache=False)``."""
+    return not p.ctx.cache or _PLANS.get(p.mem_key) is p
+
+
 def pool_plans(pool: str) -> list:
     """Every live plan used under ``ctx.pool == pool``, in first-use
     order.  Plans dropped from the in-memory cache (``reset``, a capacity
-    escalation) drop out until their holder plans again."""
+    escalation, a re-planner upgrade) drop out until their holder plans
+    again."""
     with _LOCK:
         keys = list(_POOLS.get(pool, ()))
         plans = [_PLANS.get(k) for k in keys]
     return [p for p in plans if p is not None]
 
 
+def _grad_report(p: MatmulPlan) -> dict:
+    """A plan's backward section: "planned" with the routes autograd runs
+    and their source, "unavailable" for a forward-only plan."""
+    # the gmm route of batched_matmul has no backward
+    if not p.ctx.differentiable or (p.spec.op == "batched_matmul"
+                                    and p.route != "dense_torch"):
+        return {"mode": "unavailable"}
+    grad = p.artifacts.get("grad")
+    if grad is not None:
+        return grad
+    # dynamic and dense plans: one formulation each (forced)
+    return {"mode": "planned",
+            **{name: {"route": route, "source": "forced"}
+               for name, route in p.grad_routes.items()},
+            "from_disk": False}
+
+
 def plan_report() -> dict:
     """Every plan this process holds with its forward route, the route's
-    ``source`` (``"fixed"``: the port has no race yet), kind, op and the
-    routes of its backward products (``grad``: ``mode`` "planned" when
+    ``source`` ("analytic", "measured" or "forced") and ``from_disk``,
+    its kind, op and the routes of its backward products (``grad``:
+    ``mode`` "planned" with each product's route and source when
     autograd runs them, "unavailable" for a forward-only plan), plus the
     totals."""
     with _LOCK:
         plans = list(_PLANS.values())
     per = {}
     for p in plans:
-        # the gmm route of batched_matmul has no backward
-        if not p.ctx.differentiable or (p.spec.op == "batched_matmul"
-                                        and p.route != "dense_torch"):
-            grad = {"mode": "unavailable"}
-        else:
-            grad = {"mode": "planned",
-                    **{name: {"route": route, "source": "fixed"}
-                       for name, route in p.grad_routes.items()}}
-        per[p.key] = {"route": p.route, "source": "fixed",
-                      "from_disk": False, "op": p.spec.op, "kind": p.kind,
-                      "grad": grad}
+        per[p.key] = {"route": p.route, "source": p.source,
+                      "from_disk": bool(p.from_disk), "op": p.spec.op,
+                      "kind": p.kind, "grad": _grad_report(p)}
     routes = collections.Counter(r["route"] for r in per.values())
+    sources = collections.Counter(r["source"] for r in per.values())
+    planned = [r["grad"] for r in per.values()
+               if r["grad"]["mode"] == "planned"]
     return {
         "per_plan": per,
         "totals": {
             "plans": len(per),
-            "grad_planned": sum(1 for r in per.values()
-                                if r["grad"]["mode"] == "planned"),
-            "grad_measured": 0,
-            "grad_from_disk": 0,
+            "grad_planned": len(planned),
+            "grad_measured": sum(1 for g in planned
+                                 if g["dx"].get("source") == "measured"),
+            "grad_from_disk": sum(1 for g in planned if g.get("from_disk")),
             "by_route": dict(sorted(routes.items())),
+            "by_source": dict(sorted(sources.items())),
         },
     }
 
 
 def reset() -> None:
-    """Forget every cached plan, pool and capacity stat, zero the
-    counters."""
+    """Forget every cached plan, decision, pool, re-planned verdict and
+    capacity stat, and zero the counters.  Disk cache files survive:
+    this is what a fresh process sees."""
     with _LOCK:
         _PLANS.clear()
         _POOLS.clear()
         _CAPACITY.clear()
         _DROPS.clear()
         _DROPS_LOG.clear()
-        for key in _STATS:
-            _STATS[key] = 0
+        _REPLANNED.clear()
+    cache_lib.reset()
+    dispatch.clear_cache()
 
 
 def reset_telemetry() -> None:
@@ -749,43 +863,6 @@ def _crop(y: torch.Tensor, m: int) -> torch.Tensor:
     return y[:, :m] if y.shape[1] != m else y
 
 
-def kernel_tile(b: int) -> Tuple[int, int]:
-    """``(tile, split)`` the static kernels (bsmm, bsmm_balanced, sddmm)
-    walk blocks of ``b`` at, as the reference's ``pack_tiles`` maps any
-    block onto MXU tiles: each ``b x b`` block split exactly into
-    ``split x split`` sub-blocks of ``g = b / split``, the largest kernel
-    tile that divides ``b`` (else 2 where ``b`` is even, else 1;
-    ``contract.sub_block``), and the sub-blocks walked as tiles of ``g``
-    or, below the smallest tile, packed into 4 x 4 tiles.  So b in {4,
-    ..., 64} walks as it is, b in {1, 2} packs into 4 x 4 tiles, b = 128
-    splits into four 64 x 64 blocks, b = 3 or 5 into 1 x 1 blocks packed
-    4 x 4, b = 6 into 2 x 2 blocks packed 4 x 4, b = 12, 24, 48, 96 into
-    4, 8, 16, 32."""
-    tiles = bsmm_ops.TILE_SIZES
-    g = contract_lib.sub_block(b, tiles)
-    return next(t for t in tiles if t % g == 0), b // g
-
-
-def walk_shape(m: int, k: int, tile: int) -> Tuple[int, int]:
-    """``(m, k)`` padded to a multiple of ``tile`` (where ``b`` divides
-    them and the 4 x 4 packing tile does not: b = 3, m = 99)."""
-    return dsmm_ops.padded(m, tile), dsmm_ops.padded(k, tile)
-
-
-def dynamic_tile(m: int, k: int, b: int, route: str) -> int:
-    """The block the dsmm kernel walks for a dynamic route: the grouped
-    routes' packed tile (``gmm.ops.grouped_tile``); else ``b`` where the
-    kernel takes it, or the block ``dsmm.ops.kernel_operand`` brings it
-    to (split into the largest kernel block dividing ``b``, re-blocked
-    into 4 x 4 below that)."""
-    if _family(route) in ("dynamic_grouped", "dynamic_grouped_balanced"):
-        return gmm_ops.grouped_tile(m, k, b)
-    if b in dsmm_ops.BLOCK_SIZES:
-        return b
-    return max(contract_lib.sub_block(b, dsmm_ops.BLOCK_SIZES),
-               dsmm_ops.BLOCK_SIZES[0])
-
-
 def _check_contract(route: str, spec: OpSpec, block: int) -> None:
     """Raise, at plan time, if the kernel that ``route`` (or its card
     counterpart, for a CPU route) launches refuses the problem at the
@@ -840,30 +917,14 @@ def merge_blocks(values: torch.Tensor, split: int) -> torch.Tensor:
         0, 1, 3, 2, 4).reshape(nnz, split * c, split * c)
 
 
-def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
-                  route: str, ctx: PlanContext) -> MatmulPlan:
-    m, k = bsr.shape
-    b = bsr.block_size
-    rows = np.asarray(bsr.row_idx, np.int32)
-    cols = np.asarray(bsr.col_idx, np.int32)
-    t, split = kernel_tile(b)
-    mp, kp = walk_shape(m, k, t)
-    # the pattern the static kernels walk: the operand's, or its split
-    er, ec, eb = rows, cols, b
-    if split > 1:
-        # block z's sub-block (i, j) at z * split^2 + i * split + j, as
-        # split_blocks orders the values
-        i, j = (a.reshape(1, -1) for a in np.meshgrid(
-            np.arange(split), np.arange(split), indexing="ij"))
-        er = (rows[:, None] * split + i).reshape(-1).astype(np.int32)
-        ec = (cols[:, None] * split + j).reshape(-1).astype(np.int32)
-        eb = b // split
-    meta = partitioner.plan_packing(er, ec, (m, k), eb, t, t)
-    # the bsmm kernels walk "mma" at this tile and dtype (at every n past
-    # the decode walk's): record its schedules once, on the device
-    mma = dev.type == "cuda" and bal_ops.walk(t, bsr.dtype) == "mma"
-
-    tp = partitioner.plan_transpose(er, ec, (m, k), eb)
+def _grad_metadata(er, ec, eb: int, meta, shape, t: int, mma: bool,
+                   dev: torch.device) -> "GradPlan":
+    """The backward's metadata of a static pattern walked at tile ``t``
+    (sub-blocks ``er, ec`` of ``eb``, packed as ``meta``): ``W^T``'s
+    packing and walk for dL/dx, the SDDMM's runs for dL/dvalues.  The
+    backward verdicts are set by ``_attach_grad``."""
+    mp = walk_shape(shape[0], shape[1], t)[0]
+    tp = partitioner.plan_transpose(er, ec, shape, eb)
     tmeta = partitioner.plan_packing(tp.row_idx, tp.col_idx, tp.shape,
                                      eb, t, t)
     unsort = gather = None
@@ -876,7 +937,7 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
         s_rows, s_cols = er[order], ec[order]
         if not np.array_equal(order, np.arange(order.size)):
             unsort = torch.as_tensor(np.argsort(order), device=dev)
-    grad = GradPlan(
+    return GradPlan(
         transpose=tp, packing=tmeta,
         perm=torch.as_tensor(tp.perm, dtype=torch.long, device=dev),
         pack_index=partitioner.pack_index(tmeta, dev),
@@ -887,13 +948,37 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
         row_idx=_on_dev(s_rows, dev), col_idx=_on_dev(s_cols, dev),
         sddmm_block=t, unsort=unsort, gather=gather,
         mma=bsmm_ops.packing_schedule(tmeta, dev) if mma else None)
+
+
+def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
+                  route: str, ctx: PlanContext,
+                  with_grad: bool = True) -> MatmulPlan:
+    """A static plan on ``route``; ``with_grad`` builds its backward's
+    metadata (a race candidate and the dL/dx plan of W^T do without)."""
+    m, k = bsr.shape
+    b = bsr.block_size
+    rows = np.asarray(bsr.row_idx, np.int32)
+    cols = np.asarray(bsr.col_idx, np.int32)
+    t, split = kernel_tile(b)
+    mp, kp = walk_shape(m, k, t)
+    # the pattern the static kernels walk: the operand's, or its split
+    # (block z's sub-block (i, j) at z * split^2 + i * split + j, as
+    # split_blocks orders the values)
+    er, ec, eb = split_pattern(rows, cols, b, split)
+    meta = partitioner.plan_packing(er, ec, (m, k), eb, t, t)
+    # the bsmm kernels walk "mma" at this tile and dtype (at every n past
+    # the decode walk's): record its schedules once, on the device
+    mma = dev.type == "cuda" and bal_ops.walk(t, bsr.dtype) == "mma"
     p = MatmulPlan(kind="static", route=route, m=m, k=k, n=n,
                    dtype=bsr.dtype, device=dev, packing=meta,
                    row_ptr=_on_dev(meta.row_ptr(), dev),
                    tile_rows=_on_dev(meta.tile_rows, dev),
                    tile_cols=_on_dev(meta.tile_cols, dev),
-                   pack_index=partitioner.pack_index(meta, dev), grad=grad,
-                   ctx=ctx, block_size=b, split=split, walk_shape=(mp, kp))
+                   pack_index=partitioner.pack_index(meta, dev),
+                   ctx=ctx, block_size=b, split=split, walk_shape=(mp, kp),
+                   pattern=(rows, cols))
+    if with_grad:
+        p.grad = _grad_metadata(er, ec, eb, meta, (m, k), t, mma, dev)
     art: Dict[str, Any] = {"nnz_blocks": len(rows),
                            "packing_tiles": meta.num_tiles,
                            "packing_occupancy": meta.occupancy,
@@ -944,7 +1029,8 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
 
 
 def _build_dynamic(spec: OpSpec, dev: torch.device, route: str,
-                   ctx: PlanContext, key: str) -> MatmulPlan:
+                   ctx: PlanContext, key: str,
+                   disk_capacity: Optional[dict] = None) -> MatmulPlan:
     m, k, b = spec.m, spec.k, spec.block_size
     dplan = planner_lib.plan_dynamic(m, k, spec.n, d_max=spec.density,
                                      block_size=b, units=ctx.units)
@@ -956,16 +1042,10 @@ def _build_dynamic(spec: OpSpec, dev: torch.device, route: str,
                    ctx=ctx, key=key, artifacts=art, block_size=b)
     if _family(route) not in ("dynamic_grouped", "dynamic_grouped_balanced"):
         return p
-    t = gmm_ops.grouped_tile(m, k, b)
     # planned capacity (paper §3.3 bucket sizing): expected distinct
-    # tiles at d_max times the headroom, not the safe worst case; where
-    # the tile is not a block multiple, of the sub-blocks the pack takes
-    slots = planner_lib.nnz_max_blocks(m, k, b, spec.density)
-    g = b if t % b == 0 else contract_lib.sub_block(b, dsmm_ops.BLOCK_SIZES)
-    mp, kp = walk_shape(m, k, t)
-    capplan = planner_lib.plan_grouped_capacity(
-        mp, kp, g, spec.density, tile=t, slots=slots * (b // g) ** 2,
-        headroom=ctx.resolved_headroom())
+    # tiles at d_max times the headroom, not the safe worst case
+    t, capplan, _, _ = dispatch.grouped_capacity(
+        m, k, b, spec.density, headroom=ctx.resolved_headroom())
     with _LOCK:
         stats = _CAPACITY.get(key)
         if stats is None:
@@ -974,13 +1054,16 @@ def _build_dynamic(spec: OpSpec, dev: torch.device, route: str,
                 worst_tiles=capplan.worst_tiles,
                 overflow_threshold=ctx.overflow_threshold)
     stats.overflow_threshold = ctx.overflow_threshold
+    # a persisted escalation (a disk record at policy "worst") carries
+    # across restarts: the guardrail's verdict is part of the plan
+    if disk_capacity is not None and disk_capacity.get("policy") == "worst":
+        stats.escalated = True
     # guardrail: an escalated problem re-plans at worst-case capacity
     policy = ("worst" if (ctx.capacity_policy == "worst" or stats.escalated)
               else "planned")
-    requested = (capplan.tiles_cap if policy == "planned"
-                 else capplan.worst_tiles)
-    cap, clamped = gmm_ops.clamped_tiles_cap(requested, mp, kp, t,
-                                             warn=False)
+    _, _, cap, clamped = dispatch.grouped_capacity(
+        m, k, b, spec.density, headroom=ctx.resolved_headroom(),
+        policy=policy)
     stats.tiles_cap = cap
     stats.worst_tiles = capplan.worst_tiles
     stats.clamped = stats.clamped or clamped
@@ -991,8 +1074,271 @@ def _build_dynamic(spec: OpSpec, dev: torch.device, route: str,
     return p
 
 
+# ---------------------------------------------------------------------------
+# Decision (re-planned overlay -> disk -> the H100 model or a measured race)
+# ---------------------------------------------------------------------------
+
+def _grad_covered(spec: OpSpec, ctx: PlanContext) -> bool:
+    """Does this plan race and persist backward verdicts?  Static
+    patterns under a differentiable caller."""
+    return ctx.differentiable and spec.op == "spmm" and spec.kind == "static"
+
+
+def _pattern_info(pkey: str, rows, cols, spec: OpSpec
+                  ) -> Tuple[Tuple[float, float], dispatch.WalkCounts]:
+    """A static pattern's skew (``dispatch.row_balance``) and walk counts
+    (``dispatch.static_counts``), memoized per pattern: ``plan`` keys a
+    plan by the skew, so a cache hit must not recount."""
+    mk = (pkey, spec.m, spec.k, spec.block_size)
+    with _LOCK:
+        hit = _PATTERN_INFO.get(mk)
+    if hit is not None:
+        return hit
+    info = (dispatch.row_balance(rows, spec.m, spec.k, spec.block_size),
+            dispatch.static_counts(rows, cols, spec.m, spec.k,
+                                   spec.block_size))
+    with _LOCK:
+        if len(_PATTERN_INFO) >= _PATTERN_INFO_MAX:
+            _PATTERN_INFO.clear()
+        _PATTERN_INFO[mk] = info
+    return info
+
+
+def _fingerprint(spec: OpSpec, ctx: PlanContext, dev: torch.device,
+                 skew: Tuple[float, float]) -> tuple:
+    """The plan's persistent identity: the decision key (shape, ``n``,
+    block, density bucket, dtype, mode, measure, device type, the
+    pattern's bucketed skew), the capacity sizing of a dynamic problem
+    and the backward knobs of a static one.  The runtime-only knobs join
+    the in-memory key only (``_mem_key``)."""
+    base = dispatch._cache_key(spec.kind, spec.m, spec.k, spec.n,
+                               spec.block_size, spec.density, spec.dtype,
+                               ctx.mode, ctx.measure, dev.type, skew)
+    cap = (("cap", ctx.resolved_headroom(), ctx.capacity_policy, ctx.units)
+           if spec.kind == "dynamic" else ())
+    grad = (("grad", ctx.grad_mode, ctx.sddmm_mode)
+            if _grad_covered(spec, ctx) else ())
+    return ("plan", spec.op) + base + cap + grad
+
+
+def _mem_key(fp: tuple, pkey, dev: torch.device, ctx: PlanContext) -> tuple:
+    """In-memory plan identity: the fingerprint, the concrete pattern and
+    device, the persistence policy and the runtime-only knobs that change
+    what a plan does but not its verdict."""
+    persist = ctx.resolved_cache_dir() if ctx.persistence_on() else None
+    return (fp, pkey, str(dev), persist, ctx.overflow_threshold,
+            ctx.telemetry, ctx.differentiable)
+
+
+def _admissible(cands, spec: OpSpec, ctx: PlanContext) -> Tuple[str, ...]:
+    """The candidates whose kernels' contracts admit the problem (a
+    forced route that does not raises with the contract's reason)."""
+    ok, first = [], None
+    for r in cands:
+        try:
+            _check_plan_contracts(r, spec, ctx)
+        except ValueError as e:
+            first = first or e
+            continue
+        ok.append(r)
+    if not ok:
+        raise first
+    return tuple(ok)
+
+
+def _as_rows(x, k: int) -> torch.Tensor:
+    """``x [..., k]`` (or ``[n, k]``) as contiguous ``[N, k]`` rows."""
+    return x.reshape(-1, k).contiguous()
+
+
+def _race_runner(spec: OpSpec, operand, x: torch.Tensor,
+                 dev: torch.device, ctx: PlanContext, key: str):
+    """route -> (the callable the plan would run on it, its arguments):
+    a candidate plan built for the race (not cached, no backward),
+    packed once as serving packs it.  Dropped after its timing, so a
+    route that loses keeps no dense copy or tile stack."""
+    race_ctx = dataclasses.replace(ctx, telemetry=False, cache=False)
+
+    def runner(route):
+        if spec.kind == "static":
+            q = _build_static(operand, int(spec.n), dev, route, race_ctx,
+                              with_grad=False)
+            vals = operand.values.to(device=dev, dtype=q.dtype)
+            packed = q.pack(vals)
+            x2 = _as_rows(x, spec.k).to(q.dtype)
+            return (lambda xx, pk: q.run_packed(pk, xx)), (x2, packed)
+        q = _build_dynamic(spec, dev, route, race_ctx, key)
+        op = operand
+        x2 = _as_rows(x, spec.k).to(q.dtype)
+        return (lambda xx, v: q.run_dynamic(
+            dataclasses.replace(op, values=v), xx)), (x2, op.values)
+    return runner
+
+
+def _decide(spec: OpSpec, ctx: PlanContext, operand, x, dev: torch.device,
+            key: str, counts: Optional[dispatch.WalkCounts],
+            skew: Tuple[float, float]):
+    """-> (route, est_seconds, source, from_disk, disk_capacity,
+    disk_grad), in the reference's order: the re-planner's overlay, the
+    disk cache, then ``dispatch.decide`` (analytic, or measured with
+    ``ctx.measure``, concrete ``x`` and no capture in progress)."""
+    routes = PLAN_ROUTES[dev.type]
+    rec = _REPLANNED.get(key)
+    if rec is None and ctx.cache and ctx.persistence_on():
+        rec = cache_lib.load_decision(ctx.resolved_cache_dir(), key)
+    if rec is not None and rec.get("route") in routes:
+        return (rec["route"], dict(rec.get("est_seconds", {})),
+                rec.get("source", "analytic"), True, rec.get("capacity"),
+                rec.get("grad"))
+    cache_lib.bump("decisions")
+    cands = _admissible(dispatch._candidates(spec.kind, ctx.mode, dev.type),
+                        spec, ctx)
+    measure = (ctx.measure and operand is not None and x is not None
+               and len(cands) > 1 and not dispatch.capturing())
+    runner = _race_runner(spec, operand, x, dev, ctx, key) \
+        if measure else None
+    dkey = dispatch._cache_key(spec.kind, spec.m, spec.k, spec.n,
+                               spec.block_size, spec.density, spec.dtype,
+                               spec.mode, measure, dev.type, skew)
+    fresh = dkey not in dispatch._decision_cache
+    dec = dispatch.decide(spec, dev.type, counts=counts, skew=skew,
+                          candidates=cands, measure=measure, runner=runner,
+                          cache=ctx.cache)
+    if dec.source == "measured" and (fresh or not ctx.cache):
+        cache_lib.bump("measurements")
+    return dec.route, dict(dec.est_seconds), dec.source, False, None, None
+
+
+def _grad_verdict(est: Dict[str, float], forced: bool,
+                  measured: Optional[Dict[str, float]] = None) -> dict:
+    """One backward product's verdict: the model's minimum, or what a
+    measured race installs over it (``dispatch.measured_pick``).  A
+    measured verdict publishes only the measured entries (model seconds
+    and device timings are not one unit)."""
+    route = min(est, key=est.get)
+    source = "forced" if forced else "analytic"
+    if measured:
+        route = dispatch.measured_pick(measured, route)
+        est, source = measured, "measured"
+    return {"route": route, "source": source,
+            "est_seconds": {r: float(v) for r, v in est.items()}}
+
+
+def _transposed(p: MatmulPlan):
+    """``(W^T's BSR with placeholder values, the value permutation)``:
+    the transposed pattern at the logical block, in lexsort order."""
+    rows, cols = p.pattern
+    tp = partitioner.plan_transpose(rows, cols, (p.m, p.k), p.block_size)
+    bsr_t = BlockSparseMatrix(torch.empty(0, dtype=p.dtype), tp.row_idx,
+                              tp.col_idx, (p.k, p.m), p.block_size)
+    return bsr_t, tp.perm
+
+
+def _set_grad_routes(p: MatmulPlan, dx_route: str, dv_route: str) -> None:
+    """Point ``p``'s backward at its verdicts: a forward-only plan of W^T
+    where dL/dx leaves the bsmm walk, the pattern on the device where
+    dL/dvalues takes the dense product."""
+    g = p.grad
+    g.dx_route, g.dv_route = dx_route, dv_route
+    g.dx_plan = g.dx_perm = g.dv_pattern = None
+    if _family(dx_route) != "static":
+        bsr_t, perm = _transposed(p)
+        g.dx_plan = _build_static(
+            bsr_t, p.n, p.device, dx_route,
+            dataclasses.replace(p.ctx, telemetry=False), with_grad=False)
+        g.dx_perm = torch.as_tensor(perm, dtype=torch.long, device=p.device)
+    if _family(dv_route) == "sddmm_dense":
+        rows, cols = p.pattern
+        g.dv_pattern = (torch.as_tensor(rows, dtype=torch.long,
+                                        device=p.device),
+                        torch.as_tensor(cols, dtype=torch.long,
+                                        device=p.device))
+
+
+def _grad_decide(p: MatmulPlan, spec: OpSpec, ctx: PlanContext, x,
+                 disk_grad: Optional[dict]) -> dict:
+    """The backward verdicts of a static plan (dL/dx: an SpMM on the
+    transposed ``[k, m]`` problem; dL/dvalues: the SDDMM or the dense
+    product and a gather): a disk replay when the forward record carried
+    them, else the model's race over the admissible candidates, timed on
+    the device when ``ctx.measure`` and ``x`` is concrete (dy is zeros
+    of the output's shape).  Sets ``p``'s backward on the winners."""
+    dt = dev_type = p.device.type
+    routes = PLAN_ROUTES[dt]
+    # dL/dx runs a forward plan of W^T: its kernels' contracts must admit
+    # the transposed problem, whether the route is raced, forced or read
+    # back from disk
+    spec_t = dataclasses.replace(spec, m=spec.k, k=spec.m, mode="auto")
+    ctx_t = dataclasses.replace(ctx, differentiable=False)
+    if disk_grad is not None \
+            and disk_grad.get("dx", {}).get("route") in routes \
+            and disk_grad.get("dvalues", {}).get("route") in \
+            dispatch.sddmm_candidates(dt):
+        _check_plan_contracts(disk_grad["dx"]["route"], spec_t, ctx_t)
+        _set_grad_routes(p, disk_grad["dx"]["route"],
+                         disk_grad["dvalues"]["route"])
+        return dict(disk_grad, from_disk=True)
+    cache_lib.bump("decisions")
+    rows, cols = p.pattern
+    b = spec.block_size
+    dx_forced = ctx.grad_mode != "auto"
+    dx_cands = _admissible(
+        (port_route("static", ctx.grad_mode, dev_type),) if dx_forced
+        else dispatch._candidates("static", "auto", dev_type), spec_t, ctx_t)
+    dv_forced = ctx.sddmm_mode != "auto"
+    dv_cands = ((sddmm_route(ctx.sddmm_mode, dev_type),) if dv_forced
+                else dispatch.sddmm_candidates(dev_type))
+    counts = dispatch.static_counts(rows, cols, spec.m, spec.k, b)
+    counts_t = dispatch.static_counts(cols, rows, spec.k, spec.m, b)
+    imb_t, cv_t = dispatch.row_balance(cols, spec.k, spec.m, b)
+    dx_est = {r: dispatch._estimate(r, spec.k, spec.m, spec.n, b,
+                                    spec.density, spec.dtype,
+                                    imbalance=imb_t, cv=cv_t,
+                                    counts=counts_t) for r in dx_cands}
+    dv_est = {r: dispatch._estimate(r, spec.m, spec.k, spec.n, b,
+                                    spec.density, spec.dtype, counts=counts)
+              for r in dv_cands}
+    dx_meas = dv_meas = None
+    if ctx.measure and x is not None and not dispatch.capturing():
+        x2 = _as_rows(x, spec.k).to(p.dtype)
+        dy = torch.zeros((x2.shape[0], spec.m), dtype=p.dtype,
+                         device=p.device)
+        v = torch.zeros((len(rows), b, b), dtype=p.dtype, device=p.device)
+        dx_meas, dv_meas = {}, {}
+        for r in dx_cands:
+            _set_grad_routes(p, r, dv_cands[0])
+            dx_meas[r] = dispatch.measure_callable(p.grad_dx, v, dy)
+        for r in dv_cands:
+            _set_grad_routes(p, dx_cands[0], r)
+            dv_meas[r] = dispatch.measure_callable(p.grad_dvalues, dy, x2)
+        cache_lib.bump("measurements")
+    grad = {"dx": _grad_verdict(dx_est, dx_forced, dx_meas),
+            "dvalues": _grad_verdict(dv_est, dv_forced, dv_meas),
+            "from_disk": False}
+    _set_grad_routes(p, grad["dx"]["route"], grad["dvalues"]["route"])
+    return grad
+
+
+def _record(p: MatmulPlan) -> dict:
+    """The verdict ``plan()`` persists: route, source and estimates, the
+    planned capacity (without its running ``escalated`` flag) and the
+    backward verdicts."""
+    rec = {"route": p.route, "source": p.source,
+           "est_seconds": {r: float(v) for r, v in p.est_seconds.items()}}
+    cap = p.artifacts.get("capacity")
+    if cap:
+        rec["capacity"] = {k2: v for k2, v in cap.items()
+                           if k2 != "escalated"}
+    grad = p.artifacts.get("grad")
+    if grad and grad.get("mode") == "planned" and "dx" in grad:
+        rec["grad"] = {side: {k2: grad[side][k2]
+                              for k2 in ("route", "source", "est_seconds")}
+                       for side in ("dx", "dvalues")}
+    return rec
+
+
 def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
-         *, device: DeviceLike = None,
+         *, x: Optional[torch.Tensor] = None, device: DeviceLike = None,
          ctx: Optional[PlanContext] = None) -> MatmulPlan:
     """Plan ``operand`` for ``n`` activation rows on ``device`` (``cuda``
     unless the caller names another device) under ``ctx``.
@@ -1000,8 +1346,10 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
     ``operand_or_spec`` is a ``BlockSparseMatrix`` (static kind, ``[m,
     k]``), a ``DynamicOperand`` (dynamic kind), a dense weight tensor
     ``w [k, m]`` (dense kind), or an ``OpSpec`` of the dynamic or dense
-    kind (a static plan needs its pattern).  ``ctx=None`` takes the
-    ambient context (``use_ctx``)."""
+    kind (a static plan needs its pattern).  ``x`` (the ``[n, k]``
+    activations) is read only by a measured race
+    (``PlanContext(measure=True)``).  ``ctx=None`` takes the ambient
+    context (``use_ctx``)."""
     ctx = ctx or current_ctx()
     dev = resolve_device(device)
     if isinstance(operand_or_spec, OpSpec):
@@ -1026,41 +1374,37 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
             k_, m_ = operand.shape
             spec = OpSpec(kind="dense", m=m_, k=k_, n=int(n),
                           dtype=operand.dtype, op="matmul", mode=ctx.mode)
+            operand = None           # one candidate: nothing to race
         else:
             spec = OpSpec.from_operand(operand, n, mode=ctx.mode)
-    route = port_route(spec.kind, ctx.mode, dev.type)
-    _check_plan_contracts(route, spec, ctx)
+    pkey, skew, counts = None, (1.0, 0.0), None
     if spec.kind == "static":
-        fp = ("static", pattern_key(operand.row_idx, operand.col_idx),
-              (spec.m, spec.k), spec.block_size, spec.dtype, dev, route)
-    elif spec.op == "batched_matmul":
-        fp = ("batched_matmul", (spec.m, spec.k, spec.n), spec.dtype, dev,
-              route)
-    elif spec.kind == "dense":
-        fp = ("dense", (spec.k, spec.m), spec.dtype, dev, route)
-    else:
-        # the problem, never the pattern; capacity sizing is part of it
-        fp = ("dynamic", spec.m, spec.k, spec.block_size, spec.density,
-              spec.dtype, dev, route,
-              ("cap", ctx.resolved_headroom(), ctx.capacity_policy),
-              ctx.units)
-    key = repr(fp)
-    # the runtime-only knobs change what a plan does, not its bucket
-    mem_key = fp + (ctx.overflow_threshold, ctx.telemetry,
-                    ctx.differentiable)
+        pkey = pattern_key(operand.row_idx, operand.col_idx)
+        skew, counts = _pattern_info(pkey, operand.row_idx, operand.col_idx,
+                                     spec)
+    fp = _fingerprint(spec, ctx, dev, skew)
+    mem_key = _mem_key(fp, pkey, dev, ctx)
     _register(mem_key, ctx)
     if ctx.cache:
         with _LOCK:
             hit = _PLANS.get(mem_key)
-            if hit is not None:
-                _STATS["plan_hits"] += 1
         if hit is not None:
+            cache_lib.bump("plan_hits")
             capture.hold(hit)
             return hit
+    key = cache_lib.key_string(fp)
+    if spec.kind == "dynamic":
+        counts = dispatch.dynamic_counts(
+            spec.m, spec.k, spec.block_size, spec.density,
+            headroom=ctx.resolved_headroom(), policy=ctx.capacity_policy)
+    route, est, source, from_disk, disk_cap, disk_grad = _decide(
+        spec, ctx, operand, x, dev, key, counts, skew)
+    _check_plan_contracts(route, spec, ctx)
     if spec.kind == "static":
-        p = _build_static(operand, int(spec.n), dev, route, ctx)
+        p = _build_static(operand, int(spec.n), dev, route, ctx,
+                          with_grad=ctx.differentiable)
     elif spec.kind == "dynamic":
-        p = _build_dynamic(spec, dev, route, ctx, key)
+        p = _build_dynamic(spec, dev, route, ctx, key, disk_cap)
     else:
         p = MatmulPlan(kind="dense", route=route, m=spec.m, k=spec.k,
                        n=int(spec.n), dtype=getattr(torch, spec.dtype),
@@ -1070,23 +1414,221 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
                 spec.m, gmm_ops.tma_ok(spec.k, spec.n, p.dtype))
             p.artifacts = {"kernel": "gmm", "row_tile": p.row_tile}
     p.spec = p.spec or spec
-    p.key = key
-    p.mem_key = mem_key
+    p.key, p.mem_key = key, mem_key
+    p.source, p.est_seconds, p.from_disk = source, est, from_disk
+    if _grad_covered(spec, ctx):
+        p.artifacts["grad"] = dict(_grad_decide(p, spec, ctx, x, disk_grad),
+                                   mode="planned")
+    cache_lib.bump("plans_built")
+    # persist the verdict once, with its capacity and backward sections;
+    # an identical record (a disk hit rebuilt) writes nothing
+    persist = ctx.cache and ctx.persistence_on()
+    if persist:
+        cache_lib.store_decision(ctx.resolved_cache_dir(), key, _record(p))
     with _LOCK:
-        _STATS["plans_built"] += 1
-        _STATS["decisions"] += 1
         if ctx.cache:
             p = _PLANS.setdefault(mem_key, p)
     capture.hold(p)
     stats = p.capacity_stats
     if ctx.cache and stats is not None:
+        esc = None
+        if persist and "capacity" in p.artifacts:
+            # the escalated verdict is persisted when it trips: a holder
+            # that never plans again (the engine) still restarts at worst
+            esc = _record(p)
+            esc["capacity"] = dict(esc["capacity"], policy="worst",
+                                   tiles_cap=esc["capacity"]["worst_tiles"])
+        esc_dir = ctx.resolved_cache_dir()
+
         def _escalate_trip():
             # the next plan() of this problem re-plans at worst case
             with _LOCK:
                 if _PLANS.get(mem_key) is p:
                     del _PLANS[mem_key]
+            if esc is not None:
+                cache_lib.store_decision(esc_dir, key, esc)
         stats._on_escalate = _escalate_trip
     return p
+
+
+# ---------------------------------------------------------------------------
+# Reports and the re-planner's body
+# ---------------------------------------------------------------------------
+
+def _explain(p: MatmulPlan) -> dict:
+    s = p.spec
+    return {
+        "problem": {"kind": s.kind, "m": s.m, "k": s.k, "n": s.n,
+                    "block_size": s.block_size,
+                    "density": round(s.density, 5),
+                    "density_bucket": dispatch._density_bucket(s.density),
+                    "dtype": s.dtype},
+        "mode": s.mode,
+        "op": s.op,
+        # the candidates are the card's hand-written kernels on a card,
+        # their plain versions on the CPU
+        "pallas_admissible": p.device.type == "cuda",
+        "candidates": {r: p.est_seconds[r] for r in
+                       sorted(p.est_seconds, key=p.est_seconds.get)},
+        "chosen": p.route,
+        "source": p.source,
+        "cached": p.from_disk,
+        "from_disk": p.from_disk,
+        "cache_key": p.key,
+        "tp": None,
+        "grad": p.artifacts.get("grad"),
+        "evolution": None,
+        "roofline": None,
+        "plan": dict({k2: v for k2, v in p.artifacts.items()
+                      if not k2.startswith("_")}, executable=True),
+        "capacity": p.capacity_report() or p.artifacts.get("capacity"),
+    }
+
+
+def format_plan(p: MatmulPlan) -> str:
+    """Human-readable plan report (``explain`` as text)."""
+    rep = p.explain()
+    pr = rep["problem"]
+    lines = [f"plan {pr['kind']} ({pr['m']}x{pr['k']}) @ ({pr['k']}x"
+             f"{pr['n']}) b={pr['block_size']} d={pr['density']} "
+             f"{pr['dtype']} [mode={rep['mode']}]"]
+    for route, sec in rep["candidates"].items():
+        mark = "->" if route == rep["chosen"] else "  "
+        lines.append(f"  {mark} {route:<30} {sec * 1e6:10.2f} us")
+    lines.append(f"   ({rep['source']}"
+                 f"{', from disk' if rep['from_disk'] else ''})")
+    art = rep["plan"]
+    extra = []
+    if "packing_tiles" in art:
+        extra.append(f"packing: {art['packing_tiles']} tiles of "
+                     f"{art['kernel_tile']}, occupancy "
+                     f"{art['packing_occupancy']:.3f}")
+    if "mma_stages" in art:
+        extra.append(f"mma: {art['mma_groups']} groups, "
+                     f"{art['mma_stages']} stages")
+    if "bucket_blocks" in art:
+        extra.append(f"buckets: {art['bucket_blocks']} blocks/bucket over "
+                     f"q=({art['q_m']},{art['q_k']},{art['q_n']})")
+    g = art.get("grad")
+    if g:
+        extra.append(f"grad: dx={g['dx']['route']} "
+                     f"dvalues={g['dvalues']['route']} "
+                     f"({g['dx']['source']}"
+                     + (", from disk" if g.get("from_disk") else "") + ")")
+    if "grouped_tile" in art:
+        t = art["grouped_tile"]
+        extra.append(f"grouped: {t}x{t} tile slots (cap "
+                     f"{art['grouped_tiles_cap']})")
+    capsec = art.get("capacity")
+    if capsec:
+        extra.append(
+            f"capacity: {capsec['policy']} cap {capsec['tiles_cap']} "
+            f"(E[tiles] {capsec['expected_tiles']:.0f} x headroom "
+            f"{capsec['headroom']:.2f}, worst {capsec['worst_tiles']}, "
+            f"P[overflow] {capsec['overflow_p']:.3f})"
+            + (" [clamped]" if capsec.get("clamped") else ""))
+        st = p.capacity_stats
+        if st is not None and st.calls:
+            extra.append(f"overflow: {st.overflow_calls}/{st.calls} calls, "
+                         f"{st.tiles_dropped_total} tiles dropped"
+                         + (" [escalated]" if st.escalated else ""))
+    if extra:
+        lines.append("   plan: " + "; ".join(extra))
+    lines.append(f"   ({'disk-cached' if p.from_disk else 'planned'} "
+                 f"executable on {p.device})")
+    return "\n".join(lines)
+
+
+def explain(operand_or_spec: Union[Operand, OpSpec],
+            n: Optional[int] = None, *, device: DeviceLike = None,
+            ctx: Optional[PlanContext] = None) -> dict:
+    """Plan and report in one step."""
+    return plan(operand_or_spec, n, device=device, ctx=ctx).explain()
+
+
+def _remeasurable(p: MatmulPlan) -> bool:
+    """Can the re-planner time this plan?  Analytic forward verdicts only
+    (a forced one has nothing to race, a measured one is done)."""
+    return (p.source == "analytic" and p.key not in _REPLANNED
+            and (p.kind != "static" or p.pattern is not None))
+
+
+def analytic_plans(pool: Optional[str] = None) -> list:
+    """The re-planner's worklist: live plans whose forward verdict is
+    still analytic (priced by the H100 model, never timed) and that
+    ``remeasure_plan`` can upgrade; ``pool`` restricts it to one serving
+    engine's plans."""
+    if pool is not None:
+        plans = pool_plans(pool)
+    else:
+        with _LOCK:
+            plans = list(_PLANS.values())
+    return [p for p in plans if _remeasurable(p)]
+
+
+def _synth_inputs(spec: OpSpec, pattern, seed: int, dev: torch.device):
+    """Concrete ``(operand, x [n, k])`` realizing the plan's spec, from
+    an explicit ``torch.Generator``: route timing depends on shapes,
+    density and the pattern's layout, not on the values."""
+    gen = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, spec.dtype)
+    b = spec.block_size
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device=dev, dtype=dt)
+    x = randn(max(spec.n, 1), spec.k)
+    if spec.kind == "static":
+        rows, cols = pattern
+        return BlockSparseMatrix(randn(len(rows), b, b), rows, cols,
+                                 (spec.m, spec.k), b), x
+    mask = masks.random_block_mask(spec.m, spec.k, b, spec.density,
+                                   seed=seed)
+    rows, cols = np.nonzero(mask)
+    op = DynamicOperand(randn(max(1, len(rows)), b, b),
+                        torch.as_tensor(rows, dtype=torch.int32, device=dev),
+                        torch.as_tensor(cols, dtype=torch.int32, device=dev),
+                        torch.tensor(len(rows), dtype=torch.int32,
+                                     device=dev), (spec.m, spec.k), b)
+    return op, x
+
+
+def remeasure_plan(p: MatmulPlan) -> Optional[dict]:
+    """Upgrade one plan's analytic forward verdict to a measured one (the
+    serving engine's re-planner body): every admissible candidate timed
+    on synthesized inputs of the plan's spec by ``measure_callable``, the
+    verdict (``dispatch.measured_pick`` over the analytic route: it
+    changes only for a winner past the noise) installed in the
+    re-planned overlay and on disk (when
+    persistence is on), and the stale plan dropped from the in-memory
+    cache so its holder's next ``plan()`` adopts the measured route.  A
+    CUDA graph that holds the old route keeps running it.  Returns
+    ``{key, route_before, route_after, measured, upgraded}``, or None
+    when the plan is not remeasurable."""
+    if not _remeasurable(p):
+        return None
+    spec, ctx, dev = p.spec, p.ctx, p.device
+    operand, x = _synth_inputs(spec, p.pattern, 0, dev)
+    cands = _admissible(dispatch._candidates(spec.kind, ctx.mode, dev.type),
+                        spec, ctx)
+    runner = _race_runner(spec, operand, x, dev, ctx, p.key)
+    measured = {}
+    for r in cands:
+        fn, args = runner(r)
+        measured[r] = dispatch.measure_callable(fn, *args)
+        del fn, args
+    cache_lib.bump("measurements")
+    route = dispatch.measured_pick(measured, p.route)
+    rec = _record(p)
+    rec.update(route=route, source="measured",
+               est_seconds={r: float(v) for r, v in measured.items()})
+    with _LOCK:
+        _REPLANNED[p.key] = rec
+        for mk in [mk for mk, q in _PLANS.items() if q is p]:
+            del _PLANS[mk]
+    if ctx.cache and ctx.persistence_on():
+        cache_lib.store_decision(ctx.resolved_cache_dir(), p.key, rec)
+    return {"key": p.key, "route_before": p.route, "route_after": route,
+            "measured": dict(rec["est_seconds"]), "upgraded": True}
 
 
 def batched_row_tile(c: int, tensor_cores: bool = True) -> int:
@@ -1132,7 +1674,7 @@ def spmm_nt(operand: Union[BlockSparseMatrix, DynamicOperand],
     lead = x.shape[:-1]
     payload, x = _promote(operand, x)
     x2 = x.reshape(-1, k)
-    p = plan(operand, x2.shape[0], device=x.device, ctx=ctx)
+    p = plan(operand, x2.shape[0], x=x2, device=x.device, ctx=ctx)
     return p.spmm_nt(payload, x2).reshape(*lead, m)
 
 

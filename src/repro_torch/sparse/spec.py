@@ -3,19 +3,20 @@
 Counterpart of the JAX package's ``sparse/spec.py``, cut to what the
 port's plan layer reads.  ``OpSpec`` is the logical problem (operand
 kind, shape, block size, density, dtype, mode); ``PlanContext`` the
-planning policy; ``CapacityStats`` the running overflow telemetry of a
-planned-capacity route.
+planning policy (the route race, the disk cache, the backward knobs,
+capacity and pools); ``CapacityStats`` the running overflow telemetry
+of a planned-capacity route.
 
 ``mode`` takes the JAX package's vocabulary ("auto", a family, or a JAX
-route id) and ``port_route`` maps it onto the port's routes by device:
-a route's CUDA kernel on a card (``*_cuda``), its plain PyTorch version
-on the CPU (``*_torch``).  "auto" keeps the device-fixed choice: the
-static walk for static operands, the dsmm slot walk for dynamic ones,
-the dense GEMM for dense ones.
+route id).  "auto" races every admissible route (``core.dispatch``);
+``port_route`` maps a family or route id onto the port's one route by
+device: its CUDA kernel on a card (``*_cuda``), its plain PyTorch
+version on the CPU (``*_torch``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from typing import Optional
 
@@ -25,6 +26,7 @@ import torch
 from repro_torch.core import planner as planner_lib
 from repro_torch.core.bsr import BlockSparseMatrix
 from repro_torch.core.dynamic_sparse import DynamicOperand
+from repro_torch.kernels.contract import dtype_name
 
 KINDS = ("dense", "static", "dynamic")
 OPS = ("spmm", "matmul", "batched_matmul")
@@ -45,28 +47,45 @@ _FAMILY = {"dense": "dense", "dense_xla": "dense", "dense_pallas": "dense",
 # which route families each operand kind can execute (a static pattern
 # can always run densely or through the dynamic path; a runtime pattern
 # cannot recover a plan-time one)
-_ADMISSIBLE = {"dense": ("dense",),
+ADMISSIBLE = {"dense": ("dense",),
                "static": ("static", "static_balanced", "dense", "dynamic",
                           "dynamic_grouped", "dynamic_grouped_balanced"),
                "dynamic": ("dynamic", "dynamic_grouped",
                            "dynamic_grouped_balanced", "dense")}
-_AUTO = {"dense": "dense", "static": "static", "dynamic": "dynamic"}
 SUFFIX = {"cuda": "_cuda", "cpu": "_torch"}
+
+# backward policies of a static plan (the reference's GRAD_DX_MODES /
+# GRAD_SDDMM_MODES): dL/dx is an SpMM on the transposed pattern, any
+# static mode but "auto" forcing its route (``port_route``); dL/dvalues a
+# block SDDMM ("sddmm_xla" and "sddmm_grouped" force the sddmm route,
+# "sddmm_dense" the dense product and a gather)
+GRAD_DX_MODES = MODES
+GRAD_SDDMM_MODES = ("auto", "sddmm_xla", "sddmm_grouped", "sddmm_dense")
+_SDDMM_FAMILY = {"sddmm_xla": "sddmm", "sddmm_grouped": "sddmm",
+                 "sddmm_dense": "sddmm_dense"}
 
 
 def port_route(kind: str, mode: str, device_type: str) -> str:
-    """The port route that runs ``mode`` for an operand of ``kind`` on
-    ``device_type``; raises for a mode the kind cannot execute."""
-    family = _AUTO[kind] if mode == "auto" else _FAMILY[mode]
-    if family not in _ADMISSIBLE[kind]:
+    """The port route that runs an explicit family or route ``mode`` for
+    an operand of ``kind`` on ``device_type``; raises for a mode the kind
+    cannot execute.  "auto" is not a route: it races
+    (``core.dispatch._candidates``)."""
+    if mode == "auto":
+        raise ValueError("mode 'auto' races its candidates; port_route maps "
+                         "an explicit family or route")
+    family = _FAMILY[mode]
+    if family not in ADMISSIBLE[kind]:
         raise ValueError(f"mode {mode!r} cannot execute a {kind} operand")
     if device_type not in SUFFIX:
         raise ValueError(f"no route for device type {device_type!r}")
     return family + SUFFIX[device_type]
 
 
-def dtype_name(dtype: torch.dtype) -> str:
-    return str(dtype).replace("torch.", "")
+def sddmm_route(mode: str, device_type: str) -> str:
+    """The port route an explicit ``sddmm_mode`` forces."""
+    if device_type not in SUFFIX:
+        raise ValueError(f"no route for device type {device_type!r}")
+    return _SDDMM_FAMILY[mode] + SUFFIX[device_type]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,15 +260,27 @@ class CapacityStats:
                     "overflow_threshold": self.overflow_threshold}
 
 
+def _default_cache_dir() -> Optional[str]:
+    return os.environ.get("REPRO_CACHE_DIR") or None
+
+
 @dataclasses.dataclass(frozen=True)
 class PlanContext:
     """Planning policy for ``repro_torch.sparse.plan``.
 
-    mode            "auto", a family or a JAX route id (``MODES``),
-                    mapped to the port's routes by ``port_route``
+    mode            "auto" (race every admissible route), a family or a
+                    JAX route id (``MODES``; one route, ``port_route``)
+    measure         time the candidates on the device (``plan(..., x=)``
+                    with concrete inputs, never under a CUDA-graph
+                    capture) instead of trusting the H100 model
     differentiable  the caller may take gradients through the result
                     (the planned backward runs when autograd asks)
-    cache           keep and reuse plans in memory
+    cache           keep and reuse plans and decisions in memory
+    persist         read and write verdicts on disk.  None (the default)
+                    persists iff a cache directory is configured
+                    (``cache_dir`` here, ``sparse.configure``, or
+                    $REPRO_CACHE_DIR); True with no directory raises
+    cache_dir       directory of the persistent verdict cache
     units           parallel-unit budget for ``planner.plan_dynamic``
 
     Capacity policy of the grouped dynamic routes (paper §3.3):
@@ -266,6 +297,15 @@ class PlanContext:
                         that must not wait for the device) and the MoE
                         routing drops (``record_dropped``)
 
+    Backward policy of a static plan (part of its fingerprint):
+
+    grad_mode       dL/dx, an SpMM on the transposed pattern: "auto"
+                    races the static candidates on the transposed ``[k,
+                    m]`` problem; a family or route id forces one
+    sddmm_mode      dL/dvalues: "auto" races the block SDDMM against the
+                    dense product and a gather; a route id forces one
+                    (``GRAD_SDDMM_MODES``)
+
     Plan pool (the serving engine's plan enumeration):
 
     pool            label grouping every plan used under this context
@@ -277,19 +317,30 @@ class PlanContext:
     """
 
     mode: str = "auto"
+    measure: bool = False
     differentiable: bool = True
     cache: bool = True
+    persist: Optional[bool] = None
+    cache_dir: Optional[str] = None
     units: int = 16
     headroom: Optional[float] = None
     capacity_policy: str = "planned"
     overflow_threshold: float = 0.25
     telemetry: bool = True
+    grad_mode: str = "auto"
+    sddmm_mode: str = "auto"
     pool: Optional[str] = None
 
     def __post_init__(self):
         if self.mode not in MODES:
             raise ValueError(f"unknown plan mode {self.mode!r}; expected "
                              f"one of {MODES}")
+        if self.grad_mode not in GRAD_DX_MODES:
+            raise ValueError(f"unknown grad_mode {self.grad_mode!r}; "
+                             f"expected one of {GRAD_DX_MODES}")
+        if self.sddmm_mode not in GRAD_SDDMM_MODES:
+            raise ValueError(f"unknown sddmm_mode {self.sddmm_mode!r}; "
+                             f"expected one of {GRAD_SDDMM_MODES}")
         if self.capacity_policy not in CAPACITY_POLICIES:
             raise ValueError(
                 f"unknown capacity_policy {self.capacity_policy!r}; "
@@ -301,3 +352,19 @@ class PlanContext:
     def resolved_headroom(self) -> float:
         return float(self.headroom if self.headroom is not None
                      else planner_lib.HEADROOM)
+
+    def resolved_cache_dir(self) -> Optional[str]:
+        from repro_torch.sparse import cache as cache_lib
+        return (self.cache_dir or cache_lib.configured_cache_dir()
+                or _default_cache_dir())
+
+    def persistence_on(self) -> bool:
+        if self.persist is None:
+            return self.resolved_cache_dir() is not None
+        if self.persist and self.resolved_cache_dir() is None:
+            raise ValueError(
+                "PlanContext(persist=True) but no cache directory is "
+                "configured; set PlanContext(cache_dir=...), call "
+                "sparse.configure(cache_dir=...), or export "
+                "REPRO_CACHE_DIR")
+        return bool(self.persist)

@@ -152,7 +152,9 @@ def test_static_balanced_grads_match_jax(dtype):
     jdv, jdx = jax.grad(loss, argnums=(0, 1))(
         jb.values, jnp.asarray(x.T, JDTYPE[dtype]))
     tp = tsparse.plan(tb, 24, device="cpu",
-                      ctx=tsparse.PlanContext(mode="static_balanced"))
+                      ctx=tsparse.PlanContext(mode="static_balanced",
+                                              grad_mode="static_pallas",
+                                              sddmm_mode="sddmm_grouped"))
     assert tp.grad_routes == {"dx": "static_torch",
                               "dvalues": "sddmm_torch"}
     tv = tb.values.clone().requires_grad_(True)

@@ -344,5 +344,6 @@ def test_every_power_of_two_block_plans(b):
         assert p.route == f"{mode}_torch"
     op = tdsp.encode(torch.randn(m, k), torch.as_tensor(mask), block_size=b,
                      nnz_max=int(mask.sum()))
-    assert tsparse.plan(op, 8, device="cpu").route == "dynamic_torch"
+    assert tsparse.plan(op, 8, device="cpu", ctx=tsparse.PlanContext(
+        mode="dynamic")).route == "dynamic_torch"
     assert dynamic_tile(m, k, b, "dynamic_cuda") == max(b, 4)

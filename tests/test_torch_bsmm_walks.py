@@ -299,7 +299,8 @@ def test_schedule_walk_matches_jax_bsmm(kind, b, dtype):
     dy = rng.standard_normal((n, m)).astype(np.float32)
     tb = TBSR.from_mask(mask, b,
                         values=torch.as_tensor(vals).to(TDTYPE[dtype]))
-    p = tsparse.plan(tb, n, device="cpu")
+    p = tsparse.plan(tb, n, device="cpu",
+                     ctx=tsparse.PlanContext(mode="static"))
     # forward
     got = tops.bsmm_schedule_plain(torch.as_tensor(x).to(TDTYPE[dtype]),
                                    p.pack(tb.values),

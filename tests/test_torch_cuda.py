@@ -53,7 +53,8 @@ def test_bsmm_cuda_matches_plain(dev, dtype, b, n):
     vals = torch.randn((int(mask.sum()), b, b), generator=g,
                        device=dev).to(dtype)
     bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
-    plan = sparse.plan(bsr, n, device=dev)
+    plan = sparse.plan(bsr, n, device=dev,
+                       ctx=sparse.PlanContext(mode="static"))
     assert plan.route == "static_cuda"
     tiles = plan.pack(vals)
     x = torch.randn((n, k), generator=g, device=dev).to(dtype)
@@ -97,7 +98,8 @@ def test_bsmm_mma_walk_matches_plain(dev, dtype, b, n):
     64-column chunk."""
     m, k = 40 * b, 23 * b
     bsr, vals, x = _bsmm_problem(dev, dtype, b, n, m, k)
-    plan = sparse.plan(bsr, n, device=dev)
+    plan = sparse.plan(bsr, n, device=dev,
+                       ctx=sparse.PlanContext(mode="static"))
     assert plan.mma is not None and plan.grad.mma is not None
     assert bsmm_ops.walk(b, dtype, n) == "mma"
     for tiles, meta, d_in, d_out, a in (
@@ -131,7 +133,8 @@ def test_bsmm_mma_walk_full_stages_match_plain(dev, dtype, b, density):
     and an unaligned view of x (copied for TMA)."""
     m, k, n = 24 * b, 17 * b, 300
     bsr, vals, x = _bsmm_problem(dev, dtype, b, n, m, k, density=density)
-    plan = sparse.plan(bsr, n, device=dev)
+    plan = sparse.plan(bsr, n, device=dev,
+                       ctx=sparse.PlanContext(mode="static"))
     tiles = plan.pack(vals)
     xv = torch.empty(n * k + 1, dtype=dtype, device=dev)[1:].view(n, k)
     xv.copy_(x)
@@ -155,7 +158,8 @@ def test_bsmm_decode_and_mma_agree_at_small_n(dev, dtype, n):
     version (decode up to its capacity, mma and ffma at every N)."""
     m, k, b = 1024, 512, 16
     bsr, vals, x = _bsmm_problem(dev, dtype, b, n, m, k, density=1 / 8)
-    plan = sparse.plan(bsr, n, device=dev)
+    plan = sparse.plan(bsr, n, device=dev,
+                       ctx=sparse.PlanContext(mode="static"))
     tiles = plan.pack(vals)
     want = bsmm_ops.bsmm_nt_plain(x, tiles, plan.tile_rows.long(),
                                   plan.tile_cols.long(), m)
@@ -305,9 +309,12 @@ def test_dense_mm_k_split_is_deterministic(dev, plan):
 
 @pytest.mark.cuda
 def test_sparse_lm_on_card_matches_cpu(dev):
-    """The smoke config with a sparse FFN, fp32: the card (both kernels)
-    against the CPU (both plain versions) on the same weights."""
+    """The smoke config with a sparse FFN, fp32: the card (its kernels)
+    against the CPU (their plain versions) on the same weights.  The FFN
+    plans race their routes (the same verdicts on both devices): each
+    launches the kernel of the route it won."""
     from repro_torch import configs
+    from repro_torch.core.sparse_layers import SparseLinear
     import dataclasses
     cfg = dataclasses.replace(
         configs.sparsify_ffn(configs.smoke("llama3_2_1b"), 0.25),
@@ -318,9 +325,17 @@ def test_sparse_lm_on_card_matches_cpu(dev):
     toks = np.random.default_rng(0).integers(0, 512, size=(2, 9))
     b0, d0 = bsmm_ops.COUNTER.launches, dmm_ops.COUNTER.launches
     got = gpu.forward(toks)
-    assert bsmm_ops.COUNTER.launches - b0 == 2 * 3
-    assert dmm_ops.COUNTER.launches - d0 == 2 * 4
-    assert _rel(got.cpu(), cpu.forward(toks)) <= 2e-4
+    want = cpu.forward(toks)
+
+    def routes(lm):
+        return [p.route.rsplit("_", 1)[0] for m in lm.modules()
+                if isinstance(m, SparseLinear) for p in m._plans.values()]
+    ffn = routes(gpu)
+    assert len(ffn) == 2 * 3 and ffn == routes(cpu)
+    assert set(ffn) <= {"static", "dense"}
+    assert bsmm_ops.COUNTER.launches - b0 == ffn.count("static")
+    assert dmm_ops.COUNTER.launches - d0 == 2 * 4 + ffn.count("dense")
+    assert _rel(got.cpu(), want) <= 2e-4
 
 
 @pytest.mark.cuda
@@ -408,10 +423,73 @@ def test_sparse_linear_autograd_on_card_matches_plain(dev, dtype):
     gy = torch.randn((n, d_out), generator=g, device=dev).to(dtype)
     x.requires_grad_(True)
     b0, s0 = bsmm_ops.COUNTER.launches, sddmm_ops.COUNTER.launches
-    layer(x).backward(gy)
+    # the bsmm and sddmm routes named (the race may price another)
+    with sparse.use_ctx(sparse.PlanContext(mode="static",
+                                           grad_mode="static",
+                                           sddmm_mode="sddmm_grouped")):
+        layer(x).backward(gy)
     torch.cuda.synchronize()
     assert bsmm_ops.COUNTER.launches - b0 == 2
     assert sddmm_ops.COUNTER.launches - s0 == 1
+    f = static_sparse.make_spmm(layer.row_idx, layer.col_idx,
+                                (d_out // b, d_in // b), b)
+    v = layer.values.detach().clone().requires_grad_(True)
+    xt = x.detach().t().contiguous().requires_grad_(True)
+    f(v, xt).backward(gy.t())
+    assert _rel(layer.values.grad, v.grad) <= TOL[dtype]
+    assert _rel(x.grad, xt.grad.t()) <= TOL[dtype]
+
+
+# every backward route a static plan's race can pick: dL/dx as each
+# static-admissible family on the transposed problem, dL/dvalues as the
+# block SDDMM or the dense product and a gather
+GRAD_DX = ("static", "static_balanced", "dense", "dynamic",
+           "dynamic_grouped", "dynamic_grouped_balanced")
+GRAD_DV = ("sddmm_grouped", "sddmm_dense")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sddmm_mode", GRAD_DV)
+@pytest.mark.parametrize("grad_mode", GRAD_DX)
+def test_backward_routes_on_card_match_plain(dev, dtype, grad_mode,
+                                             sddmm_mode):
+    """One autograd step of a SparseLinear with each backward route
+    forced (dL/dx through a forward plan of W^T on another family,
+    dL/dvalues through dense_mm and a gather) against core/static_sparse's
+    plain formulation on the same card tensors; the route's kernel
+    launches."""
+    from repro_torch.core import static_sparse
+    from repro_torch.core.sparse_layers import SparseLinear
+    from repro_torch.kernels import bsmm, dsmm
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
+    d_in, d_out, b, n = 512, 1024, 16, 300
+    layer = SparseLinear.random_pattern(d_in, d_out, b, 0.125, seed=5,
+                                        dtype=dtype, device=dev)
+    layer.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    layer.requires_grad_(True)
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((n, d_in), generator=g, device=dev).to(dtype)
+    gy = torch.randn((n, d_out), generator=g, device=dev).to(dtype)
+    x.requires_grad_(True)
+    dx_counter = {"static": bsmm.COUNTER,
+                  "static_balanced": bsmm.BALANCED_COUNTER,
+                  "dense": dmm_ops.COUNTER}.get(grad_mode, dsmm.COUNTER)
+    dv_counter = (sddmm_ops.COUNTER if sddmm_mode == "sddmm_grouped"
+                  else dmm_ops.COUNTER)
+    c0 = {id(c): c.launches for c in (dx_counter, dv_counter)}
+    ctx = sparse.PlanContext(mode="static", grad_mode=grad_mode,
+                             sddmm_mode=sddmm_mode)
+    with sparse.use_ctx(ctx):
+        layer(x).backward(gy)
+        p = layer.plan(n)
+    torch.cuda.synchronize()
+    assert p.grad_routes == {
+        "dx": grad_mode + "_cuda",
+        "dvalues": ("sddmm" if sddmm_mode == "sddmm_grouped"
+                    else "sddmm_dense") + "_cuda"}
+    assert dx_counter.launches > c0[id(dx_counter)]
+    assert dv_counter.launches > c0[id(dv_counter)]
     f = static_sparse.make_spmm(layer.row_idx, layer.col_idx,
                                 (d_out // b, d_in // b), b)
     v = layer.values.detach().clone().requires_grad_(True)
@@ -622,8 +700,9 @@ def test_static_blocks_outside_tiles_on_card(dev, dtype, mode, b):
     vals = torch.randn((int(mask.sum()), b, b), generator=g,
                        device=dev).to(dtype)
     bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
-    plan = sparse.plan(bsr, n, device=dev,
-                       ctx=sparse.PlanContext(mode=mode))
+    # the backward's routes named too: dL/dx on bsmm, dL/dvalues on sddmm
+    plan = sparse.plan(bsr, n, device=dev, ctx=sparse.PlanContext(
+        mode=mode, grad_mode="static", sddmm_mode="sddmm_grouped"))
     assert plan.route == f"{mode}_cuda"
     counter = bal.COUNTER if mode == "static_balanced" else bsmm_ops.COUNTER
     before = (counter.launches, bsmm_ops.COUNTER.launches,
@@ -712,7 +791,8 @@ def test_dynamic_sparse_linear_on_card_matches_cpu(dev, dtype):
     res = []
     for d in (dev, torch.device("cpu")):
         layer = DynamicSparseLinear(d_in, d_out, b, 1 / 8, use_bias=True,
-                                    dtype=dtype, device=d)
+                                    dtype=dtype, backend="pallas",
+                                    device=d)
         layer.reset_parameters(torch.Generator(device=d).manual_seed(0),
                                mask_seed=4)
         if d.type == "cpu":

@@ -86,7 +86,7 @@ def test_estimate_follows_the_kernel_walk():
         assert tdispatch._estimate("dense_cuda", m, k, n, dtype=dtype) == \
             pytest.approx(want)
     with pytest.raises(ValueError, match="no H100 model"):
-        tdispatch._estimate("static_cuda", 64, 64, 4)
+        tdispatch._estimate("static_xla", 64, 64, 4)
 
 
 def test_engine_prices_ladder_and_admission_with_the_card_model():

@@ -61,7 +61,8 @@ def test_bsmm_plain_matches_jax(dtype, b, empty):
 
     tb = TBSR.from_mask(mask, b, values=torch.from_numpy(vals).to(
         TDTYPE[dtype]))
-    plan = tsparse.plan(tb, n, device="cpu")
+    plan = tsparse.plan(tb, n, device="cpu",
+                        ctx=tsparse.PlanContext(mode="static"))
     assert plan.route == "static_torch"
     tiles = plan.pack(tb.values)
     got = tbsmm_ops.bsmm_nt(torch.from_numpy(x).to(TDTYPE[dtype]), tiles,
@@ -179,14 +180,19 @@ def test_plan_cache_and_routes():
     tsparse.reset()
     mask = jmasks.random_block_mask(64, 64, 16, 0.5, seed=0)
     bsr = TBSR.from_mask(mask, 16)
-    p1 = tsparse.plan(bsr, 8, device="cpu")
-    p2 = tsparse.plan(TBSR.from_mask(mask, 16), 32, device="cpu")
+    ctx = tsparse.PlanContext(mode="static")
+    p1 = tsparse.plan(bsr, 8, device="cpu", ctx=ctx)
+    p2 = tsparse.plan(TBSR.from_mask(mask, 16), 8, device="cpu", ctx=ctx)
     assert p1 is p2 and p1.route == "static_torch"
+    # a verdict depends on the token count: another n is another plan
+    p3 = tsparse.plan(bsr, 32, device="cpu", ctx=ctx)
+    assert p3 is not p1 and p3.route == "static_torch"
     w = torch.zeros(64, 32)
     pd = tsparse.plan(w, 4, device="cpu")
     assert pd.route == "dense_torch" and pd.kind == "dense"
+    assert pd.source == "forced"
     stats = tsparse.cache_stats()
-    assert stats["plans_built"] == 2 and stats["plan_hits"] == 1
+    assert stats["plans_built"] == 3 and stats["plan_hits"] == 1
     assert p1.packing.tm == p1.packing.tk == 16
     assert p1.row_ptr.tolist() == p1.packing.row_ptr().tolist()
     tsparse.reset()

@@ -228,7 +228,9 @@ def test_planned_backward_matches_jax_grad(dtype, b, order):
         jnp.asarray(vals, JDTYPE[dtype]), jnp.asarray(x.T, JDTYPE[dtype]))
 
     tb = TBSR(torch.as_tensor(vals).to(TDTYPE[dtype]), rows, cols, (m, k), b)
-    tp = tsparse.plan(tb, n, device="cpu")
+    tp = tsparse.plan(tb, n, device="cpu", ctx=tsparse.PlanContext(
+        mode="static_pallas", grad_mode="static_pallas",
+        sddmm_mode="sddmm_grouped"))
     assert tp.grad_routes == {"dx": "static_torch",
                               "dvalues": "sddmm_torch"}
     tv = tb.values.clone().requires_grad_(True)
