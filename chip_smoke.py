@@ -61,6 +61,22 @@ Phases, each fatal on failure:
    zero decisions, every plan come from disk (the static ones
    "measured"), its tokens equal the second engine's, and the first
    engine's too where no route changed;
+4c. replan: the engine's re-planner on llama's graphs.  A deliberately
+   wrong calibration (``REPLAN_WRONG_SCALE``: static_cuda's model x4,
+   through ``dispatch.set_cost_coeffs``) makes "auto" capture the FFN
+   plans on other routes; the engine serves the requests,
+   ``replan_once()`` times every analytic plan on the card, and the
+   requests are served again.  It fails unless a program was
+   re-captured, every program replayed after the sweep was re-captured
+   first, the served routes are the measured verdicts, the launches per
+   replay moved to the new routes' kernels and the tokens equal a
+   second engine's built on those verdicts; then ``Engine(...,
+   replanner=True)`` serves rounds of the requests while its thread
+   sweeps, until no analytic plan is left, and ``stop_replanner()``
+   joins it.  Prints the routes before and after, the programs
+   re-captured and their capture s, launches per replay by kernel, and
+   the decode step p99 with and without a sweep running.  The active
+   calibration is restored after it;
 5. gradients: one full-width SparseLinear (up and down), bf16 and fp32,
    N = 2048: autograd dx and dvalues through the kernels against
    ``core/static_sparse``'s plain formulation on the card; then up in
@@ -158,10 +174,27 @@ Phases, each fatal on failure:
 12b. qwen3-fp32: the same model at full width in fp32, depth cut to 4
    layers: decode after a 6-token prompt, prefilled in its bucket,
    against ``forward`` within the fp32 budget, ``forward`` dropping no
-   assignment.
+   assignment;
+13. roofline (after 11): ``sparse.roofline_report()`` totals of the
+   llama and gemma2 engines and each served static plan's chosen route
+   on the H100's roofline (efficiency, headroom, dominant term,
+   flagged); the bound a plan gives bsmm up/gate 8192x2048 at N 2048 in
+   bf16 must equal the ``[kernel]`` row's within 1 %;
+14. calibrate: the committed calibration
+   (``src/repro_torch/analysis/baselines/cost_coeffs.json``) against the
+   identity on this run's measurements: each Table 3 cell's analytic
+   verdict beside the measured fastest, model / measured per route
+   family, the llama and gemma2 bucket ladders and served routes.  The
+   run's calibration corpus (every raced candidate's measured ms with
+   the raw model's inputs: ``[race]``, race-serve, the backward races
+   and the skew grid) is written with ``--out`` (``corpus``), the input
+   of ``python -m repro_torch.analysis.calibrate``.
 
 A ``[mem]`` line gives the card memory still allocated as each phase
-starts (the peaks the phases report include it).  Prints the card line
+starts (the peaks the phases report include it); each engine warms up
+and captures its graphs on one stream, so its captures keep at most one
+cuBLAS workspace; the last ``[mem]`` line measures which stream holds
+the workspaces (``capture_stream_memory``).  Prints the card line
 and a ``{"kernels": [...]}`` line before the last
 line, which is ``{"ok": true, "device": {...}}``.  Exits non-zero and
 prints no result without a CUDA device or outside a checkout.
@@ -181,10 +214,6 @@ import warnings
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s per
-# operand type (fp32 outside the tensor cores)
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # rel-max budgets (error over the plain version's max magnitude): fp32
 # differs only by summation order; bf16 by one rounding of each output
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}
@@ -246,6 +275,11 @@ def copies(make, nbytes: int):
 
 
 def bound(nbytes: float, flops: float, dtype: str):
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the peak of their type (the
+    H100's peaks of ``repro_torch.analysis.roofline``, the plan layer's
+    roofline too)."""
+    from repro_torch.analysis.roofline import PEAK_BYTES, PEAK_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
@@ -394,6 +428,23 @@ def served_plans(eng):
         else:
             key = f"{p.kind} {p.route} ({p.source})"
             out[key] = out.get(key, 0) + 1
+    return out
+
+
+def served_models(eng):
+    """Every static plan of the engine's pool: its route and candidates,
+    the raw model's inputs (``analysis.calibrate.plan_model_inputs``)
+    and the roofline of its chosen route (``MatmulPlan.roofline``)."""
+    from repro_torch import sparse
+    from repro_torch.analysis import calibrate
+    out = []
+    for p in sparse.pool_plans(eng.pool):
+        if p.kind != "static":
+            continue
+        out.append(dict(plan=f"{p.m}x{p.k} n={p.n}", route=p.route,
+                        source=p.source, routes=sorted(p.est_seconds),
+                        model=calibrate.plan_model_inputs(p),
+                        roofline=p.roofline()["chosen"]))
     return out
 
 
@@ -866,7 +917,8 @@ def serve_phase(torch, args):
         launches=launches, walks=walks, launches_per_call=per,
         peak_mem_gb=run["peak_mem_gb"],
         logit_checks=st["logits"]["checks"], graphs=graphs,
-        plans=served_plans(eng)), lm
+        plans=served_plans(eng), models=served_models(eng),
+        roofline_totals=eng.plan_report()["roofline"]["totals"]), lm
 
 
 def consistency_phase(torch, lm, args):
@@ -1218,7 +1270,8 @@ def serve_gemma2_phase(torch, args):
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
         decode_steps=st["steps"], launches=launches, walks=walks,
         visited=visited, buckets=list(eng.buckets), peak_mem_gb=peak,
-        graphs=graphs, plans=served_plans(eng)), lm, eng
+        graphs=graphs, plans=served_plans(eng), models=served_models(eng),
+        roofline_totals=eng.plan_report()["roofline"]["totals"]), lm, eng
 
 
 def gemma2_consistency_phase(torch, lm, eng, args):
@@ -1322,6 +1375,7 @@ def dynamic_kernel_phase(torch, args):
     bsmm_balanced on the skew grid (4096 x 4096, b = 16, d = 1/32, N =
     4096; uniform, power-law and DLMC masks)."""
     from repro_torch import sparse
+    from repro_torch.analysis import calibrate
     from repro_torch.core import dynamic_sparse as dsp
     from repro_torch.core import masks, partitioner
     from repro_torch.core.bsr import BlockSparseMatrix
@@ -1448,10 +1502,18 @@ def dynamic_kernel_phase(torch, args):
                 torch, lambda a_, t_: bal_ops.bsmm_balanced_cuda(
                     a_, t_, vr, vc, vs, m, p.mma, plan="ffma"), sets, 10)
                 if wk != "ffma" else None))
-            pu = sparse.plan(bsr, n, device=dev)
+            pu = sparse.plan(bsr, n, device=dev,
+                             ctx=sparse.PlanContext(mode="static"))
             usets = [(a_, t_[:-1].contiguous()) for a_, t_ in sets]
             row["uniform_bsmm_ms"] = timed_ms(
                 torch, lambda a_, t_: pu.run_packed(t_, a_), usets, 30)
+            # a corpus record: the two walks on this skew, with the raw
+            # model's inputs (the calibration's skewed observations)
+            row["corpus"] = calibrate.corpus_record(
+                calibrate.static_model_inputs(bsr.row_idx, bsr.col_idx, m,
+                                              k, n, b, dname),
+                {"static_cuda": row["uniform_bsmm_ms"] / 1e3,
+                 "static_balanced_cuda": row["ms"] / 1e3})
             row.update(bins=p.artifacts["swizzle_bins"],
                        steps_per_bin=p.artifacts["swizzle_steps_per_bin"],
                        swizzle_imbalance=p.artifacts["swizzle_imbalance"],
@@ -1627,6 +1689,7 @@ def race_phase(torch, args):
     import shutil
 
     from repro_torch import sparse
+    from repro_torch.analysis import calibrate
     from repro_torch.sparse import cache as cache_lib
 
     dev = torch.device("cuda", 0)
@@ -1654,7 +1717,9 @@ def race_phase(torch, args):
             measured_ms=ms, analytic=a.route,
             analytic_est_ms={r: v * 1e3 for r, v in a.est_seconds.items()},
             analytic_pick_measured_ms=ms[a.route],
-            agree=a.route == p.route, race_s=race_s, key=p.key))
+            agree=a.route == p.route, race_s=race_s, key=p.key,
+            corpus=calibrate.corpus_record(calibrate.plan_model_inputs(p),
+                                           p.est_seconds)))
         del bsr, x, p, a
         torch.cuda.empty_cache()
     first = sparse.cache_stats()
@@ -1695,7 +1760,9 @@ def race_phase(torch, args):
             shape=f"{name} {d_out}x{d_in}", n=2048, winner=p.route,
             fastest=min(ms, key=ms.get), measured_ms=ms, analytic=a.route,
             analytic_est_ms={r: v * 1e3 for r, v in a.est_seconds.items()},
-            analytic_pick_measured_ms=ms[a.route]))
+            analytic_pick_measured_ms=ms[a.route],
+            corpus=calibrate.corpus_record(calibrate.plan_model_inputs(p),
+                                           p.est_seconds)))
         del layer, x, op, p, a
     bad = [c for c in cells if not (c["restart"]["from_disk"]
                                     and c["restart"]["route"] == c["winner"]
@@ -1723,12 +1790,15 @@ def race_phase(torch, args):
         ana = sparse.plan(bsr, 2048, device=dev)
         row = dict(shape=f"{name} {m}x{k}", n=2048,
                    forward=dict(measured=meas.route, analytic=ana.route))
+        inputs = calibrate.grad_model_inputs(meas)
         for side in ("dx", "dvalues"):
             gm, ga = meas.artifacts["grad"][side], ana.artifacts["grad"][side]
             row[side] = dict(
                 measured=gm["route"], analytic=ga["route"],
                 measured_ms={r: v * 1e3 for r, v in gm["est_seconds"].items()},
-                model_ms={r: v * 1e3 for r, v in ga["est_seconds"].items()})
+                model_ms={r: v * 1e3 for r, v in ga["est_seconds"].items()},
+                corpus=calibrate.corpus_record(inputs[side],
+                                               gm["est_seconds"]))
         grads.append(row)
         del bsr, x, meas, ana
     sparse.reset()                # the race's plans, not the next phases'
@@ -1752,6 +1822,7 @@ def race_serve_phase(torch, lm, args):
     import numpy as np
 
     from repro_torch import sparse
+    from repro_torch.analysis import calibrate
     from repro_torch.serve import Engine, Request
     from repro_torch.sparse import cache as cache_lib
 
@@ -1778,8 +1849,10 @@ def race_serve_phase(torch, lm, args):
     t0 = time.perf_counter()
     upgrades = []
     for p in sparse.analytic_plans(first.pool):
+        inputs, model = calibrate.plan_model_inputs(p), dict(p.est_seconds)
         u = sparse.remeasure_plan(p)
-        u.update(plan=f"{p.m}x{p.k} n={p.n}", model=dict(p.est_seconds))
+        u.update(plan=f"{p.m}x{p.k} n={p.n}", model=model,
+                 corpus=calibrate.corpus_record(inputs, u["measured"]))
         upgrades.append(u)
     remeasure_s = time.perf_counter() - t0
     del first
@@ -1800,7 +1873,8 @@ def race_serve_phase(torch, lm, args):
                   | {"measured_ms": {r: v * 1e3
                                      for r, v in u["measured"].items()},
                      "model_ms": {r: v * 1e3
-                                  for r, v in u["model"].items()}}
+                                  for r, v in u["model"].items()},
+                     "corpus": u["corpus"]}
                   for u in upgrades],
         remeasure_s=remeasure_s, routes_analytic=routes1,
         routes_measured=routes2, restart_startup=rep["startup"],
@@ -1822,11 +1896,351 @@ def race_serve_phase(torch, lm, args):
                            f"{out}")
     del third
     sparse.reset()
-    # each capture runs on fresh streams, and cuBLAS keeps a workspace
-    # per stream: release the three engines' (0.4 GiB) with them, so the
-    # later phases' peaks do not carry this phase's
-    gc.collect()
-    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()              # the engines hold the model in cycles
+    return out
+
+
+# route family -> the kernel its forward launches (the grouped dynamic
+# routes walk their packed tiles with dsmm)
+ROUTE_KERNEL = {"static": "bsmm", "static_balanced": "bsmm_balanced",
+                "dense": "dense_mm", "dynamic": "dsmm",
+                "dynamic_grouped": "dsmm", "dynamic_grouped_balanced": "dsmm"}
+# [replan]: the wrong calibration that makes "auto" capture llama's FFN
+# plans off static_cuda (its raw model priced at 4x)
+REPLAN_WRONG_SCALE = {"static_cuda": 4.0}
+
+
+def counter_names():
+    """Launch counter index (``kernels._build.COUNTERS``) -> kernel name,
+    for the seven kernels' totals (their walk counters are left out)."""
+    from repro_torch.kernels import _build, bs_attn, bsmm, dense_mm, dsmm
+    from repro_torch.kernels import gmm, sddmm
+    named = {id(bsmm.COUNTER): "bsmm", id(bsmm.BALANCED_COUNTER):
+             "bsmm_balanced", id(dense_mm.COUNTER): "dense_mm",
+             id(dsmm.COUNTER): "dsmm", id(gmm.COUNTER): "gmm",
+             id(sddmm.COUNTER): "sddmm", id(bs_attn.COUNTER): "bs_attn"}
+    return {i: named[id(c)] for i, c in enumerate(_build.COUNTERS)
+            if id(c) in named}
+
+
+def replay_launches(eng, names):
+    """Each program's kernel launches per replay, by kernel."""
+    return {p.name: {names[i]: n
+                     for i, n in sorted(p.launches_per_replay().items())
+                     if i in names}
+            for p in eng.programs()}
+
+
+def static_routes(served):
+    """``served_plans``' static entries: plan -> route."""
+    return {k: v.split(" ")[0] for k, v in served.items() if " n=" in k}
+
+
+def program_tokens(name: str, batch: int) -> int:
+    """The token count a program's plans are built for: the decode
+    batch, or the prefill's bucket."""
+    return batch if name == "decode" else int(name.split("[")[1][:-1])
+
+
+def capture_stream_memory(torch, captures: int = 4) -> dict:
+    """MiB still allocated per capture after ``captures`` CUDA graphs of
+    a bf16 ``torch.matmul`` (a cuBLAS GEMM) are made and dropped, by the
+    streams their warm-up and capture run on: a fresh side stream for
+    the warm-up and PyTorch's default capture stream (how programs
+    captured before an engine owned a stream), one fresh stream each, or
+    one stream for all (what an engine does).  cuBLAS keeps a workspace
+    per stream for the life of the process, so this says which stream
+    held them.  Run last: what it pins stays."""
+    a = torch.randn(64, 2048, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+    torch.matmul(a, w)
+    one = torch.cuda.Stream()
+    streams = {"side_then_default": lambda: (torch.cuda.Stream(), None),
+               "fresh_stream": lambda: (torch.cuda.Stream(),) * 2,
+               "one_stream": lambda: (one, one)}
+    rows = {}
+    for name in ("one_stream", "side_then_default", "fresh_stream"):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        keep = []
+        for _ in range(captures):
+            warm, cap = streams[name]()
+            cur = torch.cuda.current_stream()
+            warm.wait_stream(cur)
+            with torch.cuda.stream(warm):
+                torch.matmul(a, w)
+            cur.wait_stream(warm)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=cap):
+                out = torch.matmul(a, w)
+            keep.append((g, out))
+        torch.cuda.synchronize()
+        del keep, g, out
+        gc.collect()
+        torch.cuda.synchronize()
+        rows[name] = (torch.cuda.memory_allocated() - base) / captures \
+            / 2 ** 20
+    return rows
+
+
+def replan_phase(torch, lm, args):
+    """[replan]: the engine's re-planner on llama3.2-1b's graphs.  Under a
+    deliberately wrong calibration (``REPLAN_WRONG_SCALE``: static_cuda's
+    raw model x4, installed with ``dispatch.set_cost_coeffs``) "auto"
+    captures the FFN plans on other routes; the engine serves the seeded
+    requests, ``replan_once()`` times every analytic plan of its pool on
+    the card and the requests are served again: every program whose
+    plans changed route must have been re-captured, its launches per
+    replay moved to the measured routes' kernels, every served static
+    plan's route be the measured verdict, and the tokens equal a second
+    engine built on those verdicts.  Then a third engine serves with
+    ``replanner=True`` (the thread sweeping while requests are served)
+    until its pool holds no analytic plan, and ``stop_replanner()``
+    joins it.  The p99 decode step with and without a sweep running is
+    printed.  The active calibration is restored after the phase."""
+    import numpy as np
+
+    from repro_torch import sparse
+    from repro_torch.core import dispatch
+    from repro_torch.serve import Engine
+
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, lm.cfg.vocab_size,
+                            size=int(rng.integers(lo, hi + 1)))
+               for lo, hi in LLAMA_PROMPTS]
+    kw = dict(batch=4, max_len=LLAMA_MAX_LEN, device="cuda",
+              warm_compile=True)
+    names = counter_names()
+    prev = dispatch.cost_coeffs()
+    wrong = dispatch.CostCoeffs(
+        route_scale=dict(REPLAN_WRONG_SCALE), version=1,
+        digest=dispatch.coeffs_digest(
+            {r: {"scale": v} for r, v in REPLAN_WRONG_SCALE.items()},
+            dispatch.SKEW_KNEES, 1))
+    dispatch.set_cost_coeffs(wrong)
+    sparse.reset()
+    try:
+        eng = Engine(lm, **kw)
+        routes_before = served_plans(eng)
+        launches_before = replay_launches(eng, names)
+        g0 = eng.stats()["graphs"]
+        first = serve_run(torch, eng, prompts, LLAMA_NEW)
+        t0 = time.perf_counter()
+        upgrades = eng.replan_once()
+        sweep_s = time.perf_counter() - t0
+        stale = sorted(p.name for p in eng.programs() if p.stale)
+        replays = {p.name: p.replays for p in eng.programs()}
+        second = serve_run(torch, eng, prompts, LLAMA_NEW)
+        st = eng.stats()
+        recaptured = sorted(p.name for p in eng.programs() if p.recaptures)
+        replayed = {p.name for p in eng.programs()
+                    if p.replays > replays[p.name]}
+        still_stale = sorted(p.name for p in eng.programs()
+                             if p.stale and p.name in replayed)
+        routes_after = served_plans(eng)
+        launches_after = replay_launches(eng, names)
+        static = [p for p in sparse.pool_plans(eng.pool)
+                  if p.kind == "static"]
+        fresh = Engine(lm, **kw)
+        check = serve_run(torch, fresh, prompts, LLAMA_NEW)
+        routes_fresh = served_plans(fresh)
+        out = dict(
+            upgrades=upgrades, sweep_s=sweep_s, stale=stale,
+            recaptured=recaptured, routes_before=routes_before,
+            routes_after=routes_after, routes_fresh=routes_fresh,
+            recaptures=st["replanner"]["recaptures"],
+            recapture_s=st["graphs"]["capture_s"] - g0["capture_s"],
+            startup_capture_s=g0["capture_s"],
+            captures=st["graphs"]["captures"] - g0["captures"],
+            launches_per_replay_before=launches_before,
+            launches_per_replay_after=launches_after,
+            decode_p99_ms_no_sweep=first["stats"]["step_latency"]["p99_ms"],
+            decode_p50_ms_no_sweep=first["stats"]["step_latency"]["p50_ms"],
+            tokens_equal_fresh=[r.output for r in second["reqs"]]
+            == [r.output for r in check["reqs"]])
+        if not recaptured or not set(recaptured) <= set(stale) \
+                or still_stale:
+            raise RuntimeError(f"[replan] the programs whose routes changed "
+                               f"were not re-captured before their next "
+                               f"replay ({still_stale} still stale): {out}")
+        after_s, fresh_s = (static_routes(routes_after),
+                            static_routes(routes_fresh))
+        bad = [p.key for p in static if p.source != "measured"]
+        if bad or any(fresh_s.get(k) != v for k, v in after_s.items()):
+            raise RuntimeError(f"[replan] served routes are not the "
+                               f"measured verdicts: {bad}, {out}")
+        before_s = static_routes(routes_before)
+        for name in recaptured:
+            before, after = launches_before[name], launches_after[name]
+            n = program_tokens(name, kw["batch"])
+            moved = {ROUTE_KERNEL[dispatch.family(r)]
+                     for k, r in after_s.items()
+                     if k.endswith(f" n={n}") and before_s.get(k) != r}
+            if before == after or any(after.get(kn, 0) <= before.get(kn, 0)
+                                      for kn in moved):
+                raise RuntimeError(f"[replan] {name}'s launches per replay "
+                                   f"did not move to the new routes' "
+                                   f"kernels: {before} -> {after}")
+        if not out["tokens_equal_fresh"]:
+            raise RuntimeError(f"[replan] tokens differ from an engine on "
+                               f"the measured verdicts: {out}")
+        del eng, fresh
+
+        # the thread: serve rounds of the requests while it sweeps
+        sparse.reset()
+        eng = Engine(lm, replanner=True, **kw)
+        rounds, t0 = 0, time.perf_counter()
+        while sparse.analytic_plans(eng.pool) \
+                or not eng.stats()["replanner"]["sweeps"]:
+            serve_run(torch, eng, prompts, LLAMA_NEW)
+            rounds += 1
+            if time.perf_counter() - t0 > 300:
+                raise RuntimeError("[replan] the thread did not finish a "
+                                   "sweep in 300 s")
+        during = eng.stats()
+        last = serve_run(torch, eng, prompts, LLAMA_NEW)
+        eng.stop_replanner()
+        st = eng.stats()
+        out["thread"] = dict(
+            rounds=rounds, seconds=time.perf_counter() - t0,
+            sweeps=st["replanner"]["sweeps"],
+            upgrades=st["replanner"]["upgrades"],
+            recaptures=st["replanner"]["recaptures"],
+            running_after_stop=st["replanner"]["running"],
+            analytic_left=len(sparse.analytic_plans(eng.pool)),
+            decode_p99_ms_sweeping=during["step_latency"]["p99_ms"],
+            decode_p50_ms_sweeping=during["step_latency"]["p50_ms"],
+            decode_steps_sweeping=during["steps"],
+            tokens_equal_fresh=[r.output for r in last["reqs"]]
+            == [r.output for r in check["reqs"]])
+        if out["thread"]["analytic_left"] or st["replanner"]["running"]:
+            raise RuntimeError(f"[replan] the thread left analytic plans "
+                               f"or kept running: {out['thread']}")
+        del eng
+    finally:
+        dispatch.set_cost_coeffs(prev)
+        sparse.reset()
+    return out
+
+
+def roofline_phase(torch, args, rows, serve, gemma):
+    """[roofline]: ``sparse.roofline_report()`` totals of the llama and
+    gemma2 engines, each served static plan's chosen route on the H100's
+    roofline (efficiency, headroom, the dominant term, flagged), and the
+    bound a plan gives bsmm up/gate 8192x2048 at N 2048 in bf16 (the
+    ``[kernel]`` row's pattern), which must equal that row's
+    ``bound_ms`` within 1 %."""
+    from repro_torch import sparse
+    from repro_torch.core import masks
+    from repro_torch.core.bsr import BlockSparseMatrix
+
+    dev = torch.device("cuda", 0)
+    mask = masks.random_block_mask(8192, 2048, 16, 1 / 8,
+                                   seed=args.seed + 1)
+    bsr = BlockSparseMatrix.from_mask(mask, 16, values=torch.zeros(
+        (int(mask.sum()), 16, 16), dtype=torch.bfloat16, device=dev))
+    p = sparse.plan(bsr, 2048, device=dev, ctx=sparse.PlanContext(
+        cache=False, differentiable=False))
+    plan_ms = p.roofline()["routes"]["static_cuda"]["bound_us"] / 1e3
+    row = next(r for r in rows if r["kernel"] == "bsmm"
+               and r["shape"] == "up/gate 8192x2048" and r["n"] == 2048
+               and r["dtype"] == "bfloat16")
+    out = dict(bsmm_bound_plan_ms=plan_ms,
+               bsmm_bound_kernel_row_ms=row["bound_ms"],
+               bsmm_bound_rel=abs(plan_ms - row["bound_ms"])
+               / row["bound_ms"],
+               llama=dict(totals=serve["roofline_totals"],
+                          plans={m["plan"]: dict(route=m["route"],
+                                                 **m["roofline"])
+                                 for m in serve["models"]}),
+               gemma2=dict(totals=gemma["roofline_totals"],
+                           plans={m["plan"]: dict(route=m["route"],
+                                                  **m["roofline"])
+                                  for m in gemma["models"]}))
+    if not out["bsmm_bound_rel"] <= 0.01:
+        raise RuntimeError(f"[roofline] the plan's bound for bsmm up/gate "
+                           f"N 2048 differs from the kernel row's by more "
+                           f"than 1 %: {out}")
+    return out
+
+
+def corpus_of(race, race_serve, rows):
+    """The run's calibration corpus (``analysis.calibrate``): every
+    raced candidate's measured ms with the raw model's inputs, by
+    figure."""
+    return {
+        "race": ([c["corpus"] for c in race["cells"]]
+                 + [d["corpus"] for d in race["dynamic"]]),
+        "race_serve": [u["corpus"] for u in race_serve["upgrades"]],
+        "grad": [g[side]["corpus"] for g in race["grads"]
+                 for side in ("dx", "dvalues")],
+        "skewed_patterns": [r["corpus"] for r in rows if "corpus" in r],
+    }
+
+
+def calibrate_phase(torch, race, corpus, serve, gemma):
+    """[calibrate]: the committed calibration against the identity (the
+    hand-tuned model) on this run's measurements: each Table 3 cell's
+    analytic verdict beside the measured fastest (and whether the race's
+    margin keeps it), model / measured per route family over the run's
+    corpus, the llama and gemma2 bucket ladders and every served static
+    plan's analytic route."""
+    from repro_torch import configs
+    from repro_torch.analysis import calibrate
+    from repro_torch.core import dispatch
+    from repro_torch.serve import engine
+
+    import numpy as np
+
+    coeffs = {"identity": dispatch.IDENTITY_COEFFS,
+              "fitted": dispatch.load_cost_coeffs()}
+    out = dict(digest=coeffs["fitted"].digest or None, cells=[])
+
+    def pick(inputs, routes, c):
+        est = calibrate.price(inputs, routes, c)
+        return min(est, key=est.get), est
+
+    for cell in race["cells"]:
+        ms = cell["measured_ms"]
+        row = dict(b=cell["b"], dtype=cell["dtype"],
+                   fastest=min(ms, key=ms.get))
+        for name, c in coeffs.items():
+            route, est = pick(cell["corpus"]["model"], list(ms), c)
+            row[name] = dict(
+                route=route, model_ms=est[route] * 1e3,
+                measured_ms=ms[route],
+                kept=dispatch.measured_pick(
+                    {r: v / 1e3 for r, v in ms.items()}, route) == route)
+        out["cells"].append(row)
+    ratios = {name: {} for name in coeffs}
+    for fig, recs in corpus.items():
+        for rec in recs:
+            for name, c in coeffs.items():
+                est = calibrate.price(rec["model"], list(rec["measured_ms"]),
+                                      c)
+                for r, v in rec["measured_ms"].items():
+                    ratios[name].setdefault(dispatch.family(r), []).append(
+                        est[r] * 1e3 / v)
+    out["model_over_measured"] = {
+        name: {f: dict(n=len(v), min=float(np.min(v)),
+                       median=float(np.median(v)), max=float(np.max(v)))
+               for f, v in sorted(per.items())}
+        for name, per in ratios.items()}
+    out["ladders"], out["served"] = {}, {}
+    for label, arch, max_len, run in (
+            ("llama3.2-1b", "llama3_2_1b", LLAMA_MAX_LEN, serve),
+            ("gemma2-2b", "gemma2-2b", GEMMA2_MAX_LEN, gemma)):
+        cfg = configs.sparsify_ffn(configs.get(arch), 1 / 8)
+        shapes = engine._stack_shapes(cfg)
+        out["ladders"][label] = {
+            name: list(engine._auto_buckets(max_len - 1, shapes, 0.75,
+                                            dtype=cfg.dtype, coeffs=c))
+            for name, c in coeffs.items()}
+        out["served"][label] = {
+            m["plan"]: {name: pick(m["model"], m["routes"], c)[0]
+                        for name, c in coeffs.items()}
+            for m in run["models"]}
     return out
 
 
@@ -2496,6 +2910,34 @@ def main(argv=None) -> int:
               f"; model ms "
               f"{json.dumps({r: round(v, 5) for r, v in u['model_ms'].items()})}")
 
+    live_gib["replan"] = torch.cuda.memory_allocated() / 2 ** 30
+    replan = replan_phase(torch, lm, args)
+    print(f"[replan] llama3.2-1b graphs under a wrong calibration "
+          f"({json.dumps(REPLAN_WRONG_SCALE)}): routes before "
+          f"{json.dumps(static_routes(replan['routes_before']))}; "
+          f"replan_once {replan['upgrades']} upgrades in "
+          f"{replan['sweep_s']:.2f} s; stale {replan['stale']}; re-captured "
+          f"{replan['recaptured']} ({replan['captures']} captures, "
+          f"{replan['recapture_s']:.3f} s; startup "
+          f"{replan['startup_capture_s']:.3f} s); routes after "
+          f"{json.dumps(static_routes(replan['routes_after']))}; tokens "
+          f"equal an engine on the measured verdicts "
+          f"{replan['tokens_equal_fresh']}")
+    print(f"[replan] launches per replay before "
+          f"{json.dumps(replan['launches_per_replay_before'])}; after "
+          f"{json.dumps(replan['launches_per_replay_after'])}")
+    th = replan["thread"]
+    print(f"[replan] thread (replanner=True): {th['rounds']} rounds of the "
+          f"requests in {th['seconds']:.2f} s, {th['sweeps']} sweeps, "
+          f"{th['upgrades']} upgrades, {th['recaptures']} re-captures, "
+          f"analytic plans left {th['analytic_left']}, running after stop "
+          f"{th['running_after_stop']}; decode step p99 "
+          f"{replan['decode_p99_ms_no_sweep']} ms with no sweep (p50 "
+          f"{replan['decode_p50_ms_no_sweep']}) / "
+          f"{th['decode_p99_ms_sweeping']} ms while sweeping (p50 "
+          f"{th['decode_p50_ms_sweeping']}, {th['decode_steps_sweeping']} "
+          f"steps); tokens equal {th['tokens_equal_fresh']}")
+
     # the engines of the serve phases hold the model in reference cycles:
     # collect them before the next phases measure their peak memory
     del lm
@@ -2629,6 +3071,20 @@ def main(argv=None) -> int:
           f"longest: {json.dumps(gemma['visited'])}")
     gemma["consistency"] = gemma2_consistency_phase(torch, lm, eng, args)
     del lm, eng
+    roof = roofline_phase(torch, args, rows, serve, gemma)
+    print(f"[roofline] H100 peaks (bf16 989e12, fp32 67e12 FLOP/s, "
+          f"3.35e12 B/s): bsmm up/gate 8192x2048 N 2048 bf16 bound: plan "
+          f"{roof['bsmm_bound_plan_ms']:.5f} ms, [kernel] row "
+          f"{roof['bsmm_bound_kernel_row_ms']:.5f} ms (rel "
+          f"{roof['bsmm_bound_rel']:.2e})")
+    for model in ("llama", "gemma2"):
+        print(f"[roofline] {model} roofline_report totals "
+              f"{json.dumps(roof[model]['totals'])}")
+        for name, r in roof[model]["plans"].items():
+            print(f"[roofline] {model} {name}: {r['route']} efficiency "
+                  f"{r['efficiency']} headroom {r['headroom']} dominant "
+                  f"{r['dominant']} flagged {r['flagged']} (achieved "
+                  f"{r['achieved_us']} us, bound {r['bound_us']} us)")
     cons = gemma["consistency"]
     print(f"[serve-gemma2] decode after a {cons['prompt']}-token prompt "
           f"(prefilled at {cons['bucket']}) vs forward: every layer's "
@@ -2768,10 +3224,41 @@ def main(argv=None) -> int:
         "launches_by_walk": {p: w["gmm"]
                              for p, w in walks_by_path.items()}})
 
+    corpus = corpus_of(race, race_serve, rows)
+    cal = calibrate_phase(torch, race, corpus, serve, gemma)
+    print(f"[calibrate] committed coefficients digest {cal['digest']} "
+          f"against the identity (the hand-tuned model):")
+    for c in cal["cells"]:
+        print(f"[calibrate] table3 b={c['b']:<2d} {c['dtype']:8s} measured "
+              f"fastest {c['fastest']}; "
+              + "; ".join(f"{name} {c[name]['route']} (model "
+                          f"{c[name]['model_ms']:.5f} ms, measured "
+                          f"{c[name]['measured_ms']:.5f} ms, kept by the "
+                          f"race {c[name]['kept']})"
+                          for name in ("identity", "fitted")))
+    for name, per in cal["model_over_measured"].items():
+        print(f"[calibrate] model/measured {name}: "
+              + "; ".join(f"{f} {v['min']:.2f}-{v['max']:.2f} (median "
+                          f"{v['median']:.2f}, n {v['n']})"
+                          for f, v in per.items()))
+    for label in cal["ladders"]:
+        changed = {k: v for k, v in cal["served"][label].items()
+                   if v["identity"] != v["fitted"]}
+        print(f"[calibrate] {label} ladder identity "
+              f"{cal['ladders'][label]['identity']} / fitted "
+              f"{cal['ladders'][label]['fitted']}; served routes that "
+              f"change {json.dumps(changed)} of "
+              f"{len(cal['served'][label])}")
+
     gc.collect()
     live_gib["end"] = torch.cuda.memory_allocated() / 2 ** 30
     print(f"[mem] GiB allocated as each phase starts: "
           f"{json.dumps({k: round(v, 3) for k, v in live_gib.items()})}")
+    streams = capture_stream_memory(torch)
+    print("[mem] MiB still allocated per capture of a bf16 GEMM (4 "
+          "captures, graphs dropped), by the streams it warms up and "
+          "captures on: " + "; ".join(f"{k} {v:.2f}"
+                                      for k, v in streams.items()))
 
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -2785,7 +3272,10 @@ def main(argv=None) -> int:
                        "race_serve": race_serve, "dynamic": dyn,
                        "attn": attn_rows, "serve_gemma2": gemma,
                        "serve_qwen3": qwen, "kernels": kernels,
-                       "live_gib": live_gib}, f,
+                       "replan": replan, "roofline": roof,
+                       "calibrate": cal, "corpus": corpus,
+                       "live_gib": live_gib,
+                       "capture_stream_mib": streams}, f,
                       indent=1)
 
     print(card)

@@ -14,6 +14,10 @@ beside the graph (``serve/graphs.py``):
   every replay.  Under a record the value is noted per stream instead of
   being queued; the graph copies it out after each replay.
 
+A record also notes the key of every plan the run called
+(``hold_plan``): a graph replays the routes it captured, so the engine's
+re-planner re-captures exactly the programs whose plans changed route.
+
 A record is also what the engine's warm-up runs under: their telemetry
 belongs to no request and is dropped with the record.
 """
@@ -27,12 +31,13 @@ _state = threading.local()
 
 
 class Record:
-    """Objects to keep alive, and device telemetry values per stream, in
-    call order, of one program run."""
+    """Objects to keep alive, device telemetry values per stream in call
+    order, and the keys of the plans called, of one program run."""
 
     def __init__(self):
         self.held: Dict[int, object] = {}
         self.drops: Dict[str, List] = {}
+        self.plans: Dict[str, None] = {}
 
 
 def active() -> Optional[Record]:
@@ -56,3 +61,12 @@ def hold(obj) -> None:
     rec = active()
     if rec is not None:
         rec.held[id(obj)] = obj
+
+
+def hold_plan(plan) -> None:
+    """Keep ``plan`` alive with the active record (if any) and note its
+    key (``plan.key``) as one the run called."""
+    rec = active()
+    if rec is not None:
+        rec.held[id(plan)] = plan
+        rec.plans[plan.key] = None

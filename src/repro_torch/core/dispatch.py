@@ -26,6 +26,19 @@ the CPU tests can hold it.  The constants are fitted by hand to the
 NVIDIA H100 80GB HBM3 at a 700.00 W power limit (``PERF.md`` lists them
 beside the model).
 
+A calibration corrects the hand-tuned models (``CostCoeffs``, the
+reference's layer): ``_estimate`` prices a route as ``scale[route] *
+t_raw + fixed_us[route]`` over the raw walk model (``_estimate_raw``),
+keyed by the card's route (a plain version takes its card route's
+terms), and the skew knees come from the active coefficients.  The
+coefficients are fitted from a committed corpus of ``chip_smoke.py``
+runs by ``repro_torch.analysis.calibrate`` into
+``src/repro_torch/analysis/baselines/cost_coeffs.json`` and read at
+import (``$REPRO_TORCH_COST_COEFFS`` names another file); without one
+the identity instance reproduces the hand-tuned model bit for bit.  A
+non-identity calibration's digest joins every decision key, plan
+fingerprint and disk key, so a refit orphans stale verdicts.
+
 Measured races (``PlanContext(measure=True)``) time every candidate on
 the card with CUDA events after one warm-up call, a sleep kernel holding
 the stream while the launches are queued and the inputs rotated across
@@ -35,9 +48,13 @@ analytic.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import hashlib
+import json
 import math
+import os
 import threading
 import time
 from typing import Callable, Dict, Iterable, Optional, Sequence, Tuple
@@ -110,6 +127,135 @@ MEASURE_MARGIN = 0.15
 def family(route: str) -> str:
     """``static_balanced_cuda`` -> ``static_balanced``."""
     return route.rsplit("_", 1)[0]
+
+
+def card_route(route: str) -> str:
+    """The card's route of ``route``'s family (``static_torch`` ->
+    ``static_cuda``): the key of its calibration terms."""
+    return family(route) + "_cuda"
+
+
+# ---------------------------------------------------------------------------
+# Calibrated cost coefficients (fitted by repro_torch.analysis.calibrate)
+# ---------------------------------------------------------------------------
+
+_COEFFS_ENV = "REPRO_TORCH_COST_COEFFS"
+COEFFS_PATH = os.path.normpath(os.path.join(
+    os.path.dirname(__file__), "..", "analysis", "baselines",
+    "cost_coeffs.json"))
+# the hand-tuned skew constants, in the order of the coefficients' fields
+_SKEW_FIELDS = ("imb_knee", "imb_slope", "cv_knee", "cv_slope", "cap")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CostCoeffs:
+    """Corrections to the hand-tuned H100 walk models, fitted from a
+    committed corpus of card runs by ``repro_torch.analysis.calibrate``.
+
+    ``_estimate`` prices a route as ``scale[route] * t_raw +
+    fixed_us[route]`` over the raw walk model ``t_raw``
+    (``_estimate_raw``), keyed by the card's route; the skew
+    knee/slope/cap fields replace ``SKEW_KNEES``.  ``digest`` (a content
+    hash of the fitted values) joins every decision cache key and,
+    through ``_cache_key``, every plan fingerprint and disk key, so a
+    refit orphans stale verdicts.  The identity instance (no
+    coefficients file) is the hand-tuned model: it reads ``SKEW_KNEES``,
+    reproduces every estimate bit for bit and leaves the keys as they
+    were.  Compared by identity (it keys the price memo)."""
+
+    route_scale: Dict[str, float] = dataclasses.field(default_factory=dict)
+    route_fixed_us: Dict[str, float] = dataclasses.field(
+        default_factory=dict)
+    skew_imb_knee: float = SKEW_KNEES["imb_knee"]
+    skew_imb_slope: float = SKEW_KNEES["imb_slope"]
+    skew_cv_knee: float = SKEW_KNEES["cv_knee"]
+    skew_cv_slope: float = SKEW_KNEES["cv_slope"]
+    skew_cap: float = SKEW_KNEES["cap"]
+    version: int = 0
+    digest: str = ""             # "" == identity (no coefficients file)
+
+    @property
+    def is_identity(self) -> bool:
+        return not self.digest
+
+    def skew(self) -> Dict[str, float]:
+        """The skew constants in ``SKEW_KNEES``'s form (``SKEW_KNEES``
+        itself for the identity)."""
+        if self.is_identity:
+            return SKEW_KNEES
+        return {"imb_knee": self.skew_imb_knee,
+                "imb_slope": self.skew_imb_slope,
+                "cv_knee": self.skew_cv_knee,
+                "cv_slope": self.skew_cv_slope, "cap": self.skew_cap}
+
+    def apply(self, route: str, seconds: float) -> float:
+        return (self.route_scale.get(route, 1.0) * seconds
+                + self.route_fixed_us.get(route, 0.0) * 1e-6)
+
+
+IDENTITY_COEFFS = CostCoeffs()
+
+
+def coeffs_digest(routes: Dict[str, dict], skew: Dict[str, float],
+                  version: int) -> str:
+    """Content hash over the values that change estimates (per-route
+    diagnostics such as ``n_obs`` are excluded, so a refit that lands on
+    the same coefficients keeps cached verdicts valid)."""
+    payload = {
+        "version": int(version),
+        "routes": {r: [round(float(v.get("scale", 1.0)), 6),
+                       round(float(v.get("fixed_us", 0.0)), 6)]
+                   for r, v in sorted(routes.items())},
+        "skew": [round(float(skew.get(k, SKEW_KNEES[k])), 6)
+                 for k in _SKEW_FIELDS],
+    }
+    return hashlib.sha256(
+        json.dumps(payload, sort_keys=True).encode()).hexdigest()[:12]
+
+
+def load_cost_coeffs(path: Optional[str] = None) -> CostCoeffs:
+    """Parse a ``cost_coeffs.json`` (``path``, else
+    ``$REPRO_TORCH_COST_COEFFS``, else the committed file).  A file that
+    is missing or does not parse gives the identity: the hand-tuned
+    model."""
+    path = path or os.environ.get(_COEFFS_ENV) or COEFFS_PATH
+    try:
+        with open(path) as f:
+            blob = json.load(f)
+        routes = blob.get("routes", {})
+        skew = blob.get("skew", {})
+        version = int(blob.get("version", 1))
+        return CostCoeffs(
+            route_scale={r: float(v.get("scale", 1.0))
+                         for r, v in routes.items()},
+            route_fixed_us={r: float(v.get("fixed_us", 0.0))
+                            for r, v in routes.items()},
+            **{f"skew_{k}": float(skew.get(k, SKEW_KNEES[k]))
+               for k in _SKEW_FIELDS},
+            version=version,
+            digest=coeffs_digest(routes, skew, version))
+    except (OSError, ValueError, TypeError, AttributeError):
+        return IDENTITY_COEFFS
+
+
+_coeffs = load_cost_coeffs()
+
+
+def cost_coeffs() -> CostCoeffs:
+    """The active calibration (identity when no coefficients file)."""
+    return _coeffs
+
+
+def set_cost_coeffs(coeffs: Optional[CostCoeffs]):
+    """Install ``coeffs`` as the active calibration (None reloads the
+    file).  Clears the decision cache and the price memo: every estimate
+    changes, and the digest in the keys with it.  Plans already built
+    keep their verdicts (their keys hold the old digest); an engine keeps
+    the prices it was built with."""
+    global _coeffs
+    _coeffs = coeffs if coeffs is not None else load_cost_coeffs()
+    clear_cache()
+    _price.cache_clear()
 
 
 def _torch_dtype(dtype) -> torch.dtype:
@@ -315,12 +461,14 @@ def row_balance(rows, m: int, k: int, b: int) -> Tuple[float, float]:
     return (rep["imbalance"], rep["cv"])
 
 
-def _skew_factor(imbalance: float, cv: float) -> float:
+def _skew_factor(imbalance: float, cv: float,
+                 coeffs: Optional[CostCoeffs] = None) -> float:
     """The slowdown of a skew-sensitive walk on a pattern of this row
-    imbalance and cv (``SKEW_KNEES``): 1 below the knees, linear above
-    them, capped.  A uniform random mask's sampling noise (imbalance
-    ~1.2-2) sits below the knee."""
-    c = SKEW_KNEES
+    imbalance and cv (the knees of ``coeffs``, the active calibration
+    when None: ``SKEW_KNEES`` for the identity): 1 below the knees,
+    linear above them, capped.  A uniform random mask's sampling noise
+    (imbalance ~1.2-2) sits below the knee."""
+    c = (coeffs or _coeffs).skew()
     return min(c["cap"],
                1.0 + c["imb_slope"] * max(0.0, imbalance - c["imb_knee"])
                + c["cv_slope"] * max(0.0, cv - c["cv_knee"]))
@@ -383,7 +531,24 @@ def _estimate(route: str, m: int, k: int, n: int, b: int = 1,
               density: float = 1.0, dtype="float32", *,
               imbalance: float = 1.0, cv: float = 0.0,
               counts: Optional[WalkCounts] = None,
-              kind: str = "static") -> float:
+              kind: str = "static",
+              coeffs: Optional[CostCoeffs] = None) -> float:
+    """Calibrated seconds of one ``route`` call: the raw walk model
+    (``_estimate_raw``) corrected by the card route's affine terms of
+    ``coeffs`` (the active calibration when None).  The identity returns
+    the raw model unchanged."""
+    c = coeffs or _coeffs
+    return c.apply(card_route(route), _estimate_raw(
+        route, m, k, n, b, density, dtype, imbalance=imbalance, cv=cv,
+        counts=counts, kind=kind, coeffs=c))
+
+
+def _estimate_raw(route: str, m: int, k: int, n: int, b: int = 1,
+                  density: float = 1.0, dtype="float32", *,
+                  imbalance: float = 1.0, cv: float = 0.0,
+                  counts: Optional[WalkCounts] = None,
+                  kind: str = "static",
+                  coeffs: Optional[CostCoeffs] = None) -> float:
     """Seconds of one ``route`` call for ``[m, k] . [k, n]`` (``y[n, m] =
     x[n, k] . W^T``) on the H100: the time model of the walk its kernel
     takes for the problem (a ``*_torch`` route priced as its card
@@ -413,25 +578,28 @@ def _estimate(route: str, m: int, k: int, n: int, b: int = 1,
         counts = dynamic_counts(m, k, b, density)
     if fam in SDDMM_FAMILIES:
         return _sddmm_seconds(fam, m, k, n, dtype, counts)
-    skew = _skew_factor(imbalance, cv) if fam in _SKEW_SENSITIVE else 1.0
+    skew = (_skew_factor(imbalance, cv, coeffs) if fam in _SKEW_SENSITIVE
+            else 1.0)
     return _sparse_seconds(fam, m, k, n, dtype, counts) * skew
 
 
 @functools.lru_cache(maxsize=65536)
 def _price(shapes: Tuple[Tuple[int, int], ...], n_tokens: int,
-           dtype: str) -> float:
-    return sum(_estimate(ROUTE, m, k, n_tokens, dtype=dtype)
+           dtype: str, coeffs: CostCoeffs) -> float:
+    return sum(_estimate(ROUTE, m, k, n_tokens, dtype=dtype, coeffs=coeffs)
                for m, k in shapes)
 
 
 def price_tokens(shapes: Iterable[Tuple[int, int]], n_tokens: int, *,
-                 dtype="float32", route: str = ROUTE) -> float:
+                 dtype="float32", route: str = ROUTE,
+                 coeffs: Optional[CostCoeffs] = None) -> float:
     """Model-seconds on the H100 for pushing ``n_tokens`` tokens through a
     stack of ``[m, k]`` matmuls: the serving engine's admission and
     padding price (the reference's ``price_tokens``, priced by the card's
     model of the dense route; memoized, as the ladder and every admission
     ask for it).  ``shapes`` holds one ``(m, k)`` pair per matmul the
-    tokens flow through.  Pricing never measures."""
+    tokens flow through; ``coeffs`` the calibration to price under (the
+    active one when None).  Pricing never measures."""
     if route != ROUTE:
         raise ValueError(f"no H100 price for route {route!r}; priced "
                          f"route: {ROUTE!r}")
@@ -439,7 +607,7 @@ def price_tokens(shapes: Iterable[Tuple[int, int]], n_tokens: int, *,
     if n_tokens <= 0:
         return 0.0
     return _price(tuple((int(m), int(k)) for m, k in shapes), n_tokens,
-                  contract_lib.dtype_name(dtype))
+                  contract_lib.dtype_name(dtype), coeffs or _coeffs)
 
 
 # ---------------------------------------------------------------------------
@@ -487,12 +655,15 @@ def _cache_key(kind: str, m: int, k: int, n: int, b: int, density: float,
     not split the key: a skewed pattern's verdict must not answer for a
     uniform one.  The device type names the candidates (the card's
     kernels or their plain versions) and ``measure`` the verdict's
-    unit."""
+    unit.  A non-identity calibration adds its digest: a refit changes
+    every estimate, so it orphans the verdicts made under the old one."""
     key = (kind, m, k, n, b, _density_bucket(density),
            contract_lib.dtype_name(dtype), mode, bool(measure), device_type)
     imb, cv = (round(float(skew[0]), 1), round(float(skew[1]), 1))
     if (imb, cv) != (1.0, 0.0):
         key += ("skew", imb, cv)
+    if not _coeffs.is_identity:
+        key += ("coeffs", _coeffs.digest)
     return key
 
 
@@ -544,46 +715,63 @@ def _copies(args: Sequence) -> list:
     return sets
 
 
-def measure_callable(fn: Callable, *args) -> float:
+def measure_callable(fn: Callable, *args, windows: Optional[int] = None,
+                     lock=None, build_lock=None) -> float:
     """Seconds per call of ``fn(*args)``: the one timing harness of every
     measured race (the forward race in ``decide``, the backward races
     and ``remeasure_plan`` in the plan layer).  One warm-up call first
     (it builds the kernel and any walk metadata).  On a card the device
-    time by CUDA events, the median of ``MEASURE_WINDOWS`` windows: in
+    time by CUDA events, the median of ``windows`` windows
+    (``MEASURE_WINDOWS`` when None): in
     each a sleep kernel holds the stream while the launches are queued,
     every copy of the tensor arguments (``_copies``) once and at least
     ``MEASURE_REPS`` launches, the first on a copy the warm-up did not
     touch, so L2 is cold.  On the CPU the host clock.  Raises under a
-    CUDA-graph capture (callers price analytically there)."""
+    CUDA-graph capture (callers price analytically there).
+
+    ``lock`` (a context manager: the serving engine's device lock) is
+    held around the warm-up and around each window, and let go between
+    them, so a serving thread waits at most one window.  ``build_lock``
+    (the engine's capture lock; ``lock`` when None) is held while the
+    copies are made and released: they launch nothing that is timed, so
+    serving goes on, but no CUDA-graph capture may see their
+    allocations."""
+    guard = lock if lock is not None else contextlib.nullcontext()
+    build_guard = build_lock if build_lock is not None else guard
     dev = next((a.device for a in args if isinstance(a, torch.Tensor)),
                torch.device("cpu"))
     if dev.type != "cuda":
-        fn(*args)
-        t0 = time.perf_counter()
-        for _ in range(MEASURE_REPS):
+        with guard:
             fn(*args)
-        return (time.perf_counter() - t0) / MEASURE_REPS
+            t0 = time.perf_counter()
+            for _ in range(MEASURE_REPS):
+                fn(*args)
+            return (time.perf_counter() - t0) / MEASURE_REPS
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError("measure_callable under a CUDA-graph capture")
-    sets = _copies(args)
+    with build_guard:
+        sets = _copies(args)
     reps = max(MEASURE_REPS, len(sets))
-    fn(*args)
-    torch.cuda.synchronize(dev)
-    windows = []
-    i = 1
-    for _ in range(MEASURE_WINDOWS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(4e7))
-        start.record()
-        for _ in range(reps):
-            fn(*sets[i % len(sets)])
-            i += 1
-        end.record()
+    with guard:
+        fn(*args)
         torch.cuda.synchronize(dev)
-        windows.append(start.elapsed_time(end) / 1e3 / reps)
-    del sets
-    return float(np.median(windows))
+    times = []
+    i = 1
+    for _ in range(MEASURE_WINDOWS if windows is None else max(1, windows)):
+        with guard:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(4e7))
+            start.record()
+            for _ in range(reps):
+                fn(*sets[i % len(sets)])
+                i += 1
+            end.record()
+            torch.cuda.synchronize(dev)
+            times.append(start.elapsed_time(end) / 1e3 / reps)
+    with build_guard:
+        del sets
+    return float(np.median(times))
 
 
 def measured_pick(measured: Dict[str, float], prior: str) -> str:

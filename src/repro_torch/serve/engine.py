@@ -38,12 +38,28 @@ as others finish.
   CUDA graphs and replayed per call; ``warm_compile`` captures all of
   them at startup, largest bucket first, into one memory pool (the
   reference's ``_warm_compile``), else each is captured at its first
-  use.  A captured prefill writes its rows into the slot and samples its
+  use; every warm-up and capture of an engine runs on one stream the
+  engine owns (cuBLAS keeps a workspace per stream for the life of the
+  process).  A captured prefill writes its rows into the slot and samples its
   token; a captured decode step reads its tokens and positions from a
   device buffer (one upload a step) and samples the batch's tokens; a
   call's one host read takes the tokens and a finite-logits flag.
   ``graphs=False`` runs the same programs eagerly on the card (the
   port's ``jax.disable_jit``); on the CPU they always run eagerly.
+* **Re-planner** (the reference's ``replan_once`` / ``start_replanner``
+  / ``stop_replanner``): a sweep upgrades every analytic verdict of the
+  engine's pool to a measured one (``sparse.remeasure_plan``, timed on
+  the card).  A graph replays the routes it captured, so each program
+  whose plans changed route is marked stale and re-captured before its
+  next replay, on the serving thread, into the same pool on the same
+  stream; a program whose routes held keeps its graph.  A measurement
+  and a serving call never overlap: the sweep takes the engine's device
+  lock for each candidate it builds and for each timing window (and to
+  install a verdict), the serving thread for each prefill or decode
+  step (a re-capture included), so no race is timed over serving
+  kernels, no race launch lands in a capture's launch count and nothing
+  syncs the device while a graph is being captured.  ``replanner=True``
+  starts the thread at construction.
 * **Live stats**: ``stats()`` gives per-bucket prefill p50/p99, decode
   step p50/p99, padding (tokens and priced seconds), admission and
   capacity counters, non-finite logits and the graphs' captures and
@@ -72,7 +88,7 @@ import numpy as np
 import torch
 
 from repro_torch import sparse as sparse_api
-from repro_torch.core import capture, dispatch
+from repro_torch.core import dispatch
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.model import LM
@@ -85,10 +101,8 @@ _ENGINE_SEQ = itertools.count()
 _LATENCY_WINDOW = 2048          # rolling percentile window (per stream)
 
 # plan_report sections of the reference that wait for modules the port
-# lacks: the tensor-parallel report (multi-GPU), the roofline report
-# (the port-side benchmark suite) and the background re-planner (with
-# the re-capture of the graphs that hold a replaced route)
-NOT_PORTED = ("tp", "roofline", "replanner")
+# lacks: the tensor-parallel report (multi-GPU)
+NOT_PORTED = ("tp",)
 
 
 @dataclasses.dataclass
@@ -148,19 +162,22 @@ price_tokens = dispatch.price_tokens
 
 def _auto_buckets(top: int, shapes: Sequence[Tuple[int, int]],
                   pad_max_frac: float, *, granularity: int = 16,
-                  dtype="float32") -> Tuple[int, ...]:
+                  dtype="float32",
+                  coeffs: Optional[dispatch.CostCoeffs] = None
+                  ) -> Tuple[int, ...]:
     """Bucket ladder (the reference's algorithm): each next bucket is
     the largest size whose priced padding waste for the worst-padded
     prompt (one token past the previous bucket) stays under
     ``pad_max_frac``; a fixed cost per launch makes short prefills cheap
     to pad, which widens the small buckets.  Priced by
-    ``dispatch.price_tokens`` in ``dtype``.  Always ends at ``top`` (=
-    max_len - 1, the longest admissible prompt)."""
+    ``dispatch.price_tokens`` in ``dtype`` under ``coeffs`` (the active
+    calibration when None).  Always ends at ``top`` (= max_len - 1, the
+    longest admissible prompt)."""
     if top <= granularity:
         return (top,)
 
     def _p(n: int) -> float:
-        return dispatch.price_tokens(shapes, n, dtype=dtype)
+        return dispatch.price_tokens(shapes, n, dtype=dtype, coeffs=coeffs)
 
     buckets = [granularity]
     while buckets[-1] < top:
@@ -196,7 +213,15 @@ class Engine:
     program once).  ``telemetry=False`` records no MoE routing drops.
     ``plan_cache_dir`` persists the engine's route verdicts there and
     reads them back at the next start (the reference's
-    ``plan_cache_dir``)."""
+    ``plan_cache_dir``).  ``replanner`` starts the background re-planner
+    (``start_replanner(interval=replanner_interval,
+    reps=replanner_reps)``) once the startup pass is done.
+
+    The engine prices its ladder and its admissions with the cost
+    calibration active when it is built (``dispatch.cost_coeffs()``),
+    for its whole life: a later ``dispatch.set_cost_coeffs`` changes the
+    ladder and prices of the engines built after it, not this one's (its
+    ladder was cut on its prices, and ``_price_cache`` keeps them)."""
 
     def __init__(self, lm: LM, *, batch: int, max_len: int,
                  device: DeviceLike = None,
@@ -205,7 +230,10 @@ class Engine:
                  max_queue: Optional[int] = None,
                  warm_plans: bool = True, warm_compile: bool = False,
                  telemetry: bool = True, graphs: Optional[bool] = None,
-                 plan_cache_dir: Optional[str] = None):
+                 plan_cache_dir: Optional[str] = None,
+                 replanner: bool = False,
+                 replanner_interval: float = 0.25,
+                 replanner_reps: int = 3):
         dev = resolve_device(device)
         if lm.device != dev:
             raise ValueError(f"engine device {dev} != model device "
@@ -242,6 +270,7 @@ class Engine:
         # priced at the model's dtype (the reference prices at float32
         # whatever its model's dtype)
         self._dtype = lm.cfg.dtype
+        self._coeffs = dispatch.cost_coeffs()
         self._price_cache: Dict[int, float] = {}
         top = max_len - 1
         if not self.pad_safe:
@@ -254,7 +283,8 @@ class Engine:
         else:
             self.buckets = _auto_buckets(top, self._shapes,
                                          self.pad_max_frac,
-                                         dtype=self._dtype)
+                                         dtype=self._dtype,
+                                         coeffs=self._coeffs)
 
         self._stats_lock = threading.Lock()
         self._counters = collections.Counter()
@@ -271,9 +301,23 @@ class Engine:
             for L in self.buckets}
 
         # the programs: one prefill per bucket (made at first use), one
-        # decode step; every graph of the engine captures into one pool
+        # decode step; every graph of the engine captures into one pool,
+        # warming up and capturing on one stream
         self._graph_pool = (torch.cuda.graph_pool_handle()
                             if self.graphs else None)
+        self._capture_stream = (torch.cuda.Stream(dev) if self.graphs
+                                else None)
+        # held by a serving call (a re-capture included) and by each of
+        # the re-planner's warm-ups and timing windows: the two never
+        # overlap.  The capture lock is held by each capture and by the
+        # re-planner's candidate builds and input copies, which run beside
+        # replays but never inside a capture.
+        self._device_lock = threading.RLock()
+        self._capture_lock = threading.Lock()
+        self._replanner_reps = int(replanner_reps)
+        self._replan_thread: Optional[threading.Thread] = None
+        self._replan_stop: Optional[threading.Event] = None
+        self._replan_error: Optional[BaseException] = None
         self._prefills: Dict[int, Program] = {}
         self._decode = self._program("decode", self._decode_body,
                                      2 * batch)
@@ -288,12 +332,16 @@ class Engine:
                 self.plan_stats = {k: after[k] - before.get(k, 0)
                                    for k in ("plans_built", "plan_hits",
                                              "decisions")}
+        if replanner:
+            self.start_replanner(interval=replanner_interval,
+                                 reps=replanner_reps)
 
     # -- programs -----------------------------------------------------------
     def _program(self, name: str, body, io_size: int) -> Program:
         return Program(name, body, io_size, device=self.device,
                        graph=self.graphs, ctx=self.plan_ctx,
-                       pool=self._graph_pool)
+                       pool=self._graph_pool, stream=self._capture_stream,
+                       capture_lock=self._capture_lock)
 
     def _prefill_program(self, bucket: int) -> Program:
         prog = self._prefills.get(bucket)
@@ -342,8 +390,7 @@ class Engine:
             if capture_graphs:
                 prog.capture()
             else:
-                with capture.recording():
-                    prog.run_eager()
+                prog.warm()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -363,7 +410,8 @@ class Engine:
         p = self._price_cache.get(n_tokens)
         if p is None:
             p = self._price_cache[n_tokens] = dispatch.price_tokens(
-                self._shapes, n_tokens, dtype=self._dtype)
+                self._shapes, n_tokens, dtype=self._dtype,
+                coeffs=self._coeffs)
         return p
 
     def bucket_for(self, prompt_len: int) -> Optional[int]:
@@ -379,14 +427,20 @@ class Engine:
         return None
 
     # -- reports ----------------------------------------------------------
+    def programs(self) -> List[Program]:
+        """Every program of the engine: the prefill of each bucket made
+        so far, then the decode step."""
+        return list(self._prefills.values()) + [self._decode]
+
     def _graph_stats(self) -> dict:
-        progs = list(self._prefills.values()) + [self._decode]
+        progs = self.programs()
         return {
             "enabled": self.graphs,
             "prefill": {L: p.stats()
                         for L, p in sorted(self._prefills.items())},
             "decode": self._decode.stats(),
             "captures": sum(p.captures for p in progs),
+            "recaptures": sum(p.recaptures for p in progs),
             "capture_s": round(sum(p.capture_s for p in progs), 6),
             "replays": sum(p.replays for p in progs),
         }
@@ -407,6 +461,13 @@ class Engine:
             prefill_lat = _percentiles(self._prefill_lat)
             steps = self._steps
             peak_queue = self._peak_queue
+            replan = {
+                "running": self._replan_thread is not None
+                and self._replan_thread.is_alive(),
+                "sweeps": c.pop("replan_sweeps", 0),
+                "upgrades": c.pop("replan_upgrades", 0),
+                "recaptures": sum(p.recaptures for p in self.programs()),
+            }
         submitted = c.get("submitted", 0)
         prompt_tokens = sum(b["prompt_tokens"] for b in buckets.values())
         pad_tokens = sum(b["pad_tokens"] for b in buckets.values())
@@ -444,6 +505,7 @@ class Engine:
                        "nonfinite": c.get("nonfinite_logits", 0)},
             "capacity_overflow": sparse_api.capacity_report()["totals"],
             "graphs": self._graph_stats(),
+            "replanner": replan,
         }
 
     def plan_report(self) -> dict:
@@ -451,12 +513,16 @@ class Engine:
         counters now (``now``), the capacity telemetry (``capacity``),
         every plan's forward and backward routes with their source and
         ``from_disk`` (``plans``) and this engine's live stats
-        (``engine``): the serving view of the plan-first lifecycle.  ``not_ported`` names the reference's
+        (``engine``), and each plan's roofline efficiency on the H100's
+        peaks with the routes leaving more than 2x on the table
+        (``roofline``, ``sparse.roofline_report``): the serving view of
+        the plan-first lifecycle.  ``not_ported`` names the reference's
         sections the port does not have yet."""
         return {"startup": dict(self.plan_stats),
                 "now": sparse_api.cache_stats(),
                 "capacity": sparse_api.capacity_report(),
                 "plans": sparse_api.plan_report(),
+                "roofline": sparse_api.roofline_report(),
                 "engine": self.stats(),
                 "not_ported": list(NOT_PORTED)}
 
@@ -505,17 +571,18 @@ class Engine:
         io[:n] = prompt
         io[s:] = (n - 1, slot)
         t0 = time.perf_counter()
-        if bucket is None:
-            # exact length: one eager prefill (the reference compiles
-            # once per such length)
-            prog = self._program(f"prefill[exact {n}]", self._prefill_body,
-                                 s + 2)
-            prog.load(io)
-            tok = self._read(prog.run_eager())[0]
-        else:
-            prog = self._prefill_program(bucket)
-            prog.load(io)
-            tok = self._read(prog())[0]
+        with self._device_lock:
+            if bucket is None:
+                # exact length: one eager prefill (the reference compiles
+                # once per such length)
+                prog = self._program(f"prefill[exact {n}]",
+                                     self._prefill_body, s + 2)
+                prog.load(io)
+                tok = self._read(prog.run_eager())[0]
+            else:
+                prog = self._prefill_program(bucket)
+                prog.load(io)
+                tok = self._read(prog())[0]
         dt = time.perf_counter() - t0
         self.positions[slot] = n
         req.output.append(tok)
@@ -556,8 +623,9 @@ class Engine:
         for slot, req in self.live.items():
             io[slot] = req.output[-1]
         io[b:] = self.positions
-        self._decode.load(io)
-        nxt = self._read(self._decode())
+        with self._device_lock:
+            self._decode.load(io)
+            nxt = self._read(self._decode())
         finished: List[Request] = []
         released: List[int] = []
         for slot, req in self.live.items():
@@ -603,3 +671,74 @@ class Engine:
             self.submit(r)
         self.serve(on_finish=on_finish)
         return requests
+
+    # -- background re-planner ----------------------------------------------
+    def replan_once(self, *, reps: Optional[int] = None) -> int:
+        """One synchronous re-planner sweep: upgrade every analytic route
+        verdict of this engine's pool to a measured one
+        (``sparse.remeasure_plan``, ``reps`` timing windows a candidate,
+        ``replanner_reps`` when None).  Returns the number of upgrades.
+        Safe while serving: each candidate's warm-up and timing window
+        holds the device lock, its build and input copies the capture
+        lock (serving replays go on beside them), and every program whose
+        plans changed route is marked stale, so it is re-captured before
+        its next replay."""
+        reps = self._replanner_reps if reps is None else int(reps)
+        n, changed = 0, set()
+        for p in sparse_api.analytic_plans(self.pool):
+            info = sparse_api.remeasure_plan(
+                p, reps=reps, lock=self._device_lock,
+                build_lock=self._capture_lock)
+            if info:
+                n += 1
+                if info["route_after"] != info["route_before"]:
+                    changed.add(info["key"])
+        if changed:
+            with self._device_lock:
+                for prog in self.programs():
+                    if prog.plan_keys & changed:
+                        prog.stale = True
+        with self._stats_lock:
+            self._counters["replan_sweeps"] += 1
+            self._counters["replan_upgrades"] += n
+        return n
+
+    def start_replanner(self, *, interval: float = 0.25,
+                        reps: Optional[int] = None):
+        """Start the re-planner thread: it sweeps this engine's pool
+        every ``interval`` seconds; a serving call waits at most for the
+        one timing window or warm-up in progress.  Idempotent; a
+        daemon thread; ``stop_replanner()`` joins it."""
+        if self._replan_thread is not None \
+                and self._replan_thread.is_alive():
+            return
+        stop = threading.Event()
+
+        def loop():
+            try:
+                while not stop.is_set():
+                    self.replan_once(reps=reps)
+                    if stop.wait(interval):
+                        return
+            except BaseException as exc:      # raised by stop_replanner
+                self._replan_error = exc
+
+        self._replan_stop = stop
+        self._replan_error = None
+        self._replan_thread = threading.Thread(
+            target=loop, name=f"replanner[{self.pool}]", daemon=True)
+        self._replan_thread.start()
+
+    def stop_replanner(self, timeout: float = 10.0):
+        """Stop the re-planner thread and join it; raises what a sweep
+        of the thread raised."""
+        if self._replan_stop is not None:
+            self._replan_stop.set()
+        if self._replan_thread is not None:
+            self._replan_thread.join(timeout)
+        self._replan_thread = None
+        self._replan_stop = None
+        err, self._replan_error = self._replan_error, None
+        if err is not None:
+            raise RuntimeError(f"the re-planner of {self.pool} failed: "
+                               f"{err}") from err

@@ -9,7 +9,12 @@ replays it per call, so a call runs no Python and launches no kernel
 from the host.  What the replay cannot do by itself is kept beside the
 graph:
 
-* **warm-up**: one eager call on a side stream before the capture, so
+* **one stream**: the warm-up and the capture run on the stream the
+  owner passes (``stream``; the engine owns one for all its programs),
+  named explicitly to ``torch.cuda.graph``.  cuBLAS keeps a workspace
+  per stream for the life of the process, so a fresh stream per capture
+  would pin one workspace per program;
+* **warm-up**: one eager call on that stream before the capture, so
   every kernel is built, every plan, walk and schedule is on the device
   and the allocator holds its blocks (a capture may not copy from the
   host or synchronise).  Its telemetry is dropped (it serves no request;
@@ -26,12 +31,20 @@ graph:
   kernels read (``capture.hold``), kept alive with the graph;
 * **memory**: every graph of an engine captures into one memory pool
   (``pool``); a graph's outputs are its own tensors, which no other
-  capture reuses.
+  capture reuses;
+* **plans**: the keys of the plans the body called (``plan_keys``, from
+  the capture's record, or the warm-up's when the program runs
+  eagerly).  A re-planned verdict that changes one of their routes marks
+  the program ``stale``; its next call ``recapture``s it first (the old
+  graph, its outputs and the metadata it held go once its last replay
+  has ended; the new one captures into the same pool on the same
+  stream).  An eager program re-plans at its next call by itself.
 
 A capture that fails raises; nothing falls back to eager.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional
 
@@ -47,15 +60,27 @@ class Program:
     """``body(io)`` over the persistent int64 buffer ``io``; with
     ``graph`` it is captured at the first call (or ``capture()``) and
     replayed after.  ``ctx`` is the ``sparse.use_ctx`` context every run
-    of the body is under."""
+    of the body is under; ``stream`` the stream its warm-up and every
+    capture run on (required with ``graph``: cuBLAS keeps a workspace per
+    stream for the life of the process, so a fresh stream per capture
+    would pin one each); ``capture_lock`` (a context manager) is held
+    over each warm-up and capture, so another thread's device work that
+    takes it never lands inside one."""
 
     def __init__(self, name: str, body: Callable, io_size: int, *,
-                 device: torch.device, graph: bool, ctx, pool=None):
+                 device: torch.device, graph: bool, ctx, pool=None,
+                 stream: Optional[torch.cuda.Stream] = None,
+                 capture_lock=None):
+        if graph and stream is None:
+            raise ValueError(f"{name}: a graph program needs the stream "
+                             f"it captures on")
         self.name = name
         self.body = body
         self.device = device
         self.ctx = ctx
         self.pool = pool
+        self.stream = stream
+        self.capture_lock = capture_lock
         self.use_graph = graph
         self.io = torch.zeros(io_size, dtype=torch.long, device=device)
         # a pinned host copy of io: one asynchronous upload a call, and
@@ -68,8 +93,11 @@ class Program:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs = None
         self.captures = 0
+        self.recaptures = 0
         self.replays = 0
         self.capture_s = 0.0
+        self.plan_keys: frozenset = frozenset()
+        self.stale = False
         self._launches = ()
         self._drops = {}
         self._held = {}
@@ -91,23 +119,36 @@ class Program:
         with sparse_api.use_ctx(self.ctx):
             return self.body(self.io)
 
+    def warm(self):
+        """The body once, eagerly, under a record: its telemetry dropped,
+        the keys of the plans it called kept (``plan_keys``)."""
+        with capture.recording() as rec:
+            out = self.run_eager()
+        self.plan_keys = frozenset(rec.plans)
+        return out
+
     def capture(self) -> None:
-        """Warm up, then capture the body into a CUDA graph."""
+        """Warm up, then capture the body into a CUDA graph, both on the
+        program's stream."""
         if self.device.type != "cuda":
             raise RuntimeError(f"{self.name}: a CUDA graph needs a card, "
                                f"not {self.device}")
+        with self.capture_lock or contextlib.nullcontext():
+            self._capture()
+
+    def _capture(self) -> None:
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side), capture.recording():
+        stream = self.stream
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream), capture.recording():
             self.run_eager()
-        cur.wait_stream(side)
+        cur.wait_stream(stream)
         before = _build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
             with capture.recording() as rec:
-                with torch.cuda.graph(graph, pool=self.pool):
+                with torch.cuda.graph(graph, pool=self.pool, stream=stream):
                     outputs = self.run_eager()
                     drops = {name: torch.cat(vals)
                              for name, vals in rec.drops.items()}
@@ -121,19 +162,38 @@ class Program:
                                in enumerate(zip(after, before)) if a != b)
         self._drops = drops
         self._held = rec.held
+        self.plan_keys = frozenset(rec.plans)
         self.graph = graph
         self.outputs = outputs
+        self.stale = False
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
 
+    def recapture(self) -> None:
+        """Drop the graph and capture the body again, into the same pool
+        on the same stream (its warm-up re-plans what was re-planned).
+        The old graph, its outputs, telemetry values and held metadata go
+        only after the device has run its last replay."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.device)
+            self.graph.reset()
+        self.graph = self.outputs = None
+        self._launches, self._drops, self._held = (), {}, {}
+        self.capture()
+        self.recaptures += 1
+
     def __call__(self):
         """Run the program on ``io``: eagerly, or by replaying its graph
-        (captured now if it is not yet).  Returns the body's outputs (a
-        graph's own tensors: read them before the next replay)."""
+        (captured now if it is not yet, captured again first if it is
+        ``stale``).  Returns the body's outputs (a graph's own tensors:
+        read them before the next replay)."""
         if not self.use_graph:
+            self.stale = False
             return self.run_eager()
         if self.graph is None:
             self.capture()
+        elif self.stale:
+            self.recapture()
         self.graph.replay()
         self.replays += 1
         _build.add_launches(self._launches)
@@ -141,8 +201,14 @@ class Program:
             sparse_api.queue_dropped(name, vals.clone())
         return self.outputs
 
+    def launches_per_replay(self) -> dict:
+        """The kernel launches one replay adds, by launch counter (its
+        index in ``kernels._build.COUNTERS``)."""
+        return dict(self._launches)
+
     def stats(self) -> dict:
-        return {"captures": self.captures, "replays": self.replays,
+        return {"captures": self.captures, "recaptures": self.recaptures,
+                "replays": self.replays,
                 "capture_s": round(self.capture_s, 6),
                 "launches_per_replay": int(sum(n for _, n in
                                                self._launches))}

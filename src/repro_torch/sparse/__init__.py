@@ -10,8 +10,8 @@ from repro_torch.sparse.plan import (PLAN_ROUTES, ROUTES,  # noqa: F401
                                      plan_report,
                                      pool_plans, queue_dropped,
                                      record_dropped, remeasure_plan, reset,
-                                     reset_telemetry, spmm, spmm_nt,
-                                     use_ctx)
+                                     reset_telemetry, roofline_report,
+                                     spmm, spmm_nt, use_ctx)
 from repro_torch.sparse.spec import (  # noqa: F401
     ESCALATION_MIN_CALLS, GRAD_DX_MODES, GRAD_SDDMM_MODES, MODES,
     CapacityStats, OpSpec, PlanContext, port_route)

@@ -82,8 +82,10 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   writes and stale drops; ``plan_report`` lists every cached plan's
   forward and backward routes with their source and ``from_disk``
   (``:206``); ``explain`` / ``format_plan`` report a plan the way the
-  reference's do (``:485``, ``:625``; its ``roofline``, ``tp`` and
-  ``evolution`` keys are None: those modules are not ported);
+  reference's do (``:485``, ``:625``; its ``tp`` and ``evolution`` keys
+  are None: those modules are not ported); ``MatmulPlan.roofline`` and
+  ``roofline_report`` price every candidate against the H100's roofline
+  (``:523-557``, ``:252-278``);
   ``analytic_plans`` / ``remeasure_plan`` upgrade analytic verdicts to
   measured ones on synthesized inputs (``:291-404``).
 """
@@ -225,10 +227,43 @@ class MatmulPlan:
         """The decision report (the reference's ``MatmulPlan.explain``
         schema): the problem, the candidates' estimates (modelled or
         measured), the chosen route and its source, the disk provenance,
-        the backward verdicts and the plan's one-time artifacts.  ``tp``,
-        ``evolution`` and ``roofline`` are None until those modules
-        land."""
+        the backward verdicts, the roofline of every candidate
+        (``roofline``) and the plan's one-time artifacts.  ``tp`` and
+        ``evolution`` are None until those modules land."""
         return _explain(self)
+
+    def roofline(self, *, flag_headroom: float = 2.0) -> dict:
+        """Roofline efficiency of every raced forward candidate on the
+        H100's peaks at the plan's dtype: how close each route's time
+        (measured where the verdict is measured, the H100 model's
+        otherwise) sits to the bound of the work it executes
+        (``OpSpec.roofline_cost``).  ``routes[r]["flagged"]`` marks a
+        route leaving more than ``flag_headroom`` x on the table;
+        ``kernel_work`` collects them: kernels to make faster, not shapes
+        to avoid."""
+        from repro_torch.analysis import roofline as roofline_lib
+        routes = {}
+        for route, est in self.est_seconds.items():
+            eff = roofline_lib.route_efficiency(
+                est, self.spec.roofline_cost(route), dtype=self.spec.dtype,
+                flag_headroom=flag_headroom)
+            routes[route] = {
+                "achieved_us": round(eff["achieved_seconds"] * 1e6, 3),
+                "bound_us": round(eff["bound_seconds"] * 1e6, 3),
+                "dominant": eff["dominant"],
+                "efficiency": round(eff["efficiency"], 4),
+                "headroom": round(eff["headroom"], 2),
+                "flagged": eff["flagged"],
+            }
+        return {
+            "hw": roofline_lib.H100.name,
+            "flag_headroom": flag_headroom,
+            "source": self.source,
+            "chosen": routes.get(self.route),
+            "routes": routes,
+            "kernel_work": sorted(r for r, e in routes.items()
+                                  if e["flagged"]),
+        }
 
     def capacity_report(self) -> Optional[dict]:
         """Planned capacity + running overflow stats (None for routes
@@ -648,7 +683,7 @@ def note_use(p: MatmulPlan) -> None:
     joins the ambient pool, as a ``plan()`` hit would, and a capture in
     progress keeps it alive."""
     _register(p.mem_key, current_ctx())
-    capture.hold(p)
+    capture.hold_plan(p)
 
 
 def is_live(p: MatmulPlan) -> bool:
@@ -714,6 +749,35 @@ def plan_report() -> dict:
             "grad_from_disk": sum(1 for g in planned if g.get("from_disk")),
             "by_route": dict(sorted(routes.items())),
             "by_source": dict(sorted(sources.items())),
+        },
+    }
+
+
+def roofline_report() -> dict:
+    """Roofline efficiency of every plan this process holds: the chosen
+    route's achieved-against-bound share and the union of the routes
+    flagged for leaving more than 2x on the table (``kernel_work``); the
+    serving engine folds it into ``plan_report()``."""
+    with _LOCK:
+        plans = list(_PLANS.values())
+    per = {}
+    flagged = set()
+    for p in plans:
+        r = p.roofline()
+        per[p.key] = {"route": p.route, "chosen": r["chosen"],
+                      "kernel_work": r["kernel_work"]}
+        flagged.update(r["kernel_work"])
+    chosen_eff = [r["chosen"]["efficiency"] for r in per.values()
+                  if r["chosen"]]
+    return {
+        "per_plan": per,
+        "totals": {
+            "plans": len(per),
+            "chosen_flagged": sum(1 for r in per.values()
+                                  if r["chosen"] and r["chosen"]["flagged"]),
+            "min_chosen_efficiency": (round(min(chosen_eff), 4)
+                                      if chosen_eff else None),
+            "kernel_work_routes": sorted(flagged),
         },
     }
 
@@ -1390,7 +1454,7 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
             hit = _PLANS.get(mem_key)
         if hit is not None:
             cache_lib.bump("plan_hits")
-            capture.hold(hit)
+            capture.hold_plan(hit)
             return hit
     key = cache_lib.key_string(fp)
     if spec.kind == "dynamic":
@@ -1428,7 +1492,7 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
     with _LOCK:
         if ctx.cache:
             p = _PLANS.setdefault(mem_key, p)
-    capture.hold(p)
+    capture.hold_plan(p)
     stats = p.capacity_stats
     if ctx.cache and stats is not None:
         esc = None
@@ -1478,7 +1542,7 @@ def _explain(p: MatmulPlan) -> dict:
         "tp": None,
         "grad": p.artifacts.get("grad"),
         "evolution": None,
-        "roofline": None,
+        "roofline": p.roofline(),
         "plan": dict({k2: v for k2, v in p.artifacts.items()
                       if not k2.startswith("_")}, executable=True),
         "capacity": p.capacity_report() or p.artifacts.get("capacity"),
@@ -1515,6 +1579,16 @@ def format_plan(p: MatmulPlan) -> str:
                      f"dvalues={g['dvalues']['route']} "
                      f"({g['dx']['source']}"
                      + (", from disk" if g.get("from_disk") else "") + ")")
+    roof = rep.get("roofline")
+    if roof and roof.get("chosen"):
+        ch = roof["chosen"]
+        line = (f"roofline: {ch['efficiency']:.0%} of "
+                f"{ch['dominant']}-bound ({ch['headroom']:.1f}x headroom"
+                + (", >2x -- kernel work" if ch["flagged"] else "") + ")")
+        others = [r for r in roof["kernel_work"] if r != rep["chosen"]]
+        if others:
+            line += f"; also flagged: {', '.join(others)}"
+        extra.append(line)
     if "grouped_tile" in art:
         t = art["grouped_tile"]
         extra.append(f"grouped: {t}x{t} tile slots (cap "
@@ -1592,42 +1666,81 @@ def _synth_inputs(spec: OpSpec, pattern, seed: int, dev: torch.device):
     return op, x
 
 
-def remeasure_plan(p: MatmulPlan) -> Optional[dict]:
+def remeasure_plan(p: MatmulPlan, *, reps: Optional[int] = None,
+                   lock=None, build_lock=None) -> Optional[dict]:
     """Upgrade one plan's analytic forward verdict to a measured one (the
     serving engine's re-planner body): every admissible candidate timed
     on synthesized inputs of the plan's spec by ``measure_callable``, the
     verdict (``dispatch.measured_pick`` over the analytic route: it
     changes only for a winner past the noise) installed in the
-    re-planned overlay and on disk (when
-    persistence is on), and the stale plan dropped from the in-memory
-    cache so its holder's next ``plan()`` adopts the measured route.  A
-    CUDA graph that holds the old route keeps running it.  Returns
-    ``{key, route_before, route_after, measured, upgraded}``, or None
-    when the plan is not remeasurable."""
+    re-planned overlay and on disk (when persistence is on).
+
+    ``reps`` is the reference's repetition count, here the number of
+    timing windows whose median is a candidate's time (each window
+    launching every input copy, at least ``dispatch.MEASURE_REPS``
+    times); None takes ``dispatch.MEASURE_WINDOWS``.  ``lock`` (a
+    context manager, the engine's device lock) is held around each
+    candidate's warm-up call and each of its timing windows
+    (``measure_callable(lock=)``) and while the verdict is installed, so
+    a serving thread's calls fall between them.  ``build_lock`` (the
+    engine's capture lock; ``lock`` when None) is held while the inputs
+    are made, around each candidate's build and pack, its input copies
+    and their release: host work and uploads that time nothing, so the
+    serving calls go on beside them, but that no CUDA-graph capture may
+    see (a capture in global mode fails on another thread's
+    allocation).
+
+    The verdict is the key's: every live plan under ``p.key`` adopts it.
+    A plan whose route changes is dropped from the in-memory cache so
+    its holder's next ``plan()`` adopts the measured route (a CUDA graph
+    that holds the old route keeps running it until it is re-captured:
+    the engine's re-planner does that).  A plan whose route holds stays
+    live and takes the measured verdict in place (``source``
+    "measured", its measured times), so a graph holding it holds the
+    live plan.  Returns ``{key, route_before, route_after,
+    measured, upgraded}``, or None when the plan is not remeasurable."""
     if not _remeasurable(p):
         return None
+    guard = lock if lock is not None else contextlib.nullcontext()
+    build_guard = build_lock if build_lock is not None else guard
     spec, ctx, dev = p.spec, p.ctx, p.device
-    operand, x = _synth_inputs(spec, p.pattern, 0, dev)
+    with build_guard:
+        operand, x = _synth_inputs(spec, p.pattern, 0, dev)
     cands = _admissible(dispatch._candidates(spec.kind, ctx.mode, dev.type),
                         spec, ctx)
     runner = _race_runner(spec, operand, x, dev, ctx, p.key)
     measured = {}
     for r in cands:
-        fn, args = runner(r)
-        measured[r] = dispatch.measure_callable(fn, *args)
-        del fn, args
+        with build_guard:
+            fn, args = runner(r)
+        measured[r] = dispatch.measure_callable(
+            fn, *args, windows=reps, lock=lock, build_lock=build_lock)
+        with build_guard:
+            del fn, args
+    with build_guard:
+        del operand, x
     cache_lib.bump("measurements")
-    route = dispatch.measured_pick(measured, p.route)
+    before = p.route
+    route = dispatch.measured_pick(measured, before)
     rec = _record(p)
     rec.update(route=route, source="measured",
                est_seconds={r: float(v) for r, v in measured.items()})
-    with _LOCK:
-        _REPLANNED[p.key] = rec
-        for mk in [mk for mk, q in _PLANS.items() if q is p]:
-            del _PLANS[mk]
-    if ctx.cache and ctx.persistence_on():
-        cache_lib.store_decision(ctx.resolved_cache_dir(), p.key, rec)
-    return {"key": p.key, "route_before": p.route, "route_after": route,
+    with guard:
+        with _LOCK:
+            _REPLANNED[p.key] = rec
+            # the verdict is the key's: every live plan under it (another
+            # pattern of the same problem) adopts it
+            for mk, q in list(_PLANS.items()):
+                if q.key != p.key:
+                    continue
+                if q.route != route:
+                    del _PLANS[mk]
+                else:
+                    q.source, q.from_disk = "measured", True
+                    q.est_seconds = dict(rec["est_seconds"])
+        if ctx.cache and ctx.persistence_on():
+            cache_lib.store_decision(ctx.resolved_cache_dir(), p.key, rec)
+    return {"key": p.key, "route_before": before, "route_after": route,
             "measured": dict(rec["est_seconds"]), "upgraded": True}
 
 

@@ -153,6 +153,24 @@ class OpSpec:
                        dtype=dtype_name(operand.dtype), op=op, mode=mode)
         raise TypeError(f"cannot plan a {type(operand).__name__}")
 
+    def roofline_cost(self, route: str) -> dict:
+        """The work ``route`` executes on this problem, for pricing it
+        against the card's roofline (``analysis.route_efficiency``):
+        the routes that execute densely (``dense_*`` and
+        ``sddmm_dense_*``, and every route of a dense operand) pay the
+        full product, the sparse SpMM and SDDMM routes only the
+        pattern's share, so a flag reads "this kernel is slow for what
+        it does", not "a sparser algorithm exists".  Derived from the
+        spec's fields alone: it joins no fingerprint."""
+        from repro_torch.analysis import cost
+        fam = route.rsplit("_", 1)[0]
+        bytes_el = max(1, getattr(torch, self.dtype).itemsize)
+        d = (1.0 if self.kind == "dense" or fam in ("dense", "sddmm_dense")
+             else self.density)
+        build = (cost.sddmm_cost_dict if fam in ("sddmm", "sddmm_dense")
+                 else cost.spmm_cost_dict)
+        return build(self.m, self.k, self.n, density=d, bytes_el=bytes_el)
+
 
 # ---------------------------------------------------------------------------
 # Capacity: planned bucket sizing + running overflow telemetry

@@ -1315,8 +1315,177 @@ def test_program_capture_failure_raises(dev):
         return io + int(io.sum().item())
 
     prog = Program("sync", body, 4, device=dev, graph=True,
-                   ctx=sparse.PlanContext())
+                   ctx=sparse.PlanContext(), stream=torch.cuda.Stream(dev))
     before = _build.launch_counts()
     with pytest.raises(RuntimeError, match="CUDA graph"):
         prog()
     assert _build.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the engine's re-planner and its graph re-captures; one capture stream
+# ---------------------------------------------------------------------------
+
+def _tag_races(monkeypatch, fastest):
+    """Every race's candidates timed by fixed seconds: ``fastest`` at 1
+    ms, every other route at 9 ms (each candidate still runs once)."""
+    import sys
+    from repro_torch.core import dispatch
+    plan_mod = sys.modules["repro_torch.sparse.plan"]
+    runner_of = plan_mod._race_runner
+
+    def tagged(*a, **kw):
+        run = runner_of(*a, **kw)
+
+        def runner(route):
+            fn, args = run(route)
+
+            def call(*xs):
+                return fn(*xs)
+            call.route = route
+            return call, args
+        return runner
+
+    def times(fn, *args, windows=None, lock=None, build_lock=None):
+        fn(*args)
+        return 1e-3 if fn.route == fastest else 9e-3
+
+    monkeypatch.setattr(plan_mod, "_race_runner", tagged)
+    monkeypatch.setattr(dispatch, "measure_callable", times)
+
+
+@pytest.mark.cuda
+def test_engine_replanner_recaptures_graphs(dev, monkeypatch):
+    """Under a calibration that prices static_cuda's model at 4x, "auto"
+    captures the sparse FFN plans on other routes; a sweep whose timings
+    put static_cuda first marks every program stale, and serving
+    re-captures each one it runs before replaying it: the new graph
+    holds the new plan and launches bsmm, the old plan lives until its
+    graph is dropped, and the tokens and every call's logits equal a
+    fresh engine's built on the measured verdicts."""
+    import gc
+    import weakref
+
+    from repro_torch.core import dispatch
+    from repro_torch.kernels import _build, bsmm
+    from repro_torch.sparse import MatmulPlan
+    lm = LM(_serve_cfg("llama-sparse"), device=dev, seed=0)
+    kw = dict(buckets=(8, 24, 48), max_len=64)
+    lengths = [5, 20, 9, 40, 3, 33]
+    prev = dispatch.cost_coeffs()
+    dispatch.set_cost_coeffs(dispatch.CostCoeffs(
+        route_scale={"static_cuda": 4.0}, version=1, digest="static-x4"))
+    sparse.reset()
+    try:
+        eng = _serve(lm, dev, True, lengths, **kw)[4]
+        static = [p for p in sparse.pool_plans(eng.pool)
+                  if p.kind == "static"]
+        assert static and all(p.route != "static_cuda" for p in static)
+        old = [(p.n, weakref.ref(p)) for p in static]
+        _tag_races(monkeypatch, "static_cuda")
+        assert eng.replan_once() > 0
+        assert all(p.stale for p in eng.programs())
+        del static
+        gc.collect()
+        assert all(r() is not None for _, r in old)         # held
+        decode_before = dict(eng._decode.launches_per_replay())
+        seen = []
+        read = eng._read
+
+        def keep(out_logits):
+            seen.append(out_logits[1].clone())
+            return read(out_logits)
+
+        eng._read = keep
+        reqs = _serve_stream(7, lengths)
+        eng.run(reqs)
+        torch.cuda.synchronize()
+        ran = [p for p in eng.programs() if p.replays and not p.stale]
+        assert {p.name for p in ran} == {"prefill[8]", "prefill[24]",
+                                         "prefill[48]", "decode"}
+        assert all(p.recaptures == 1 for p in ran)
+        assert eng.stats()["replanner"]["recaptures"] == 4
+        assert eng._prefills[63].stale                     # not yet run
+        gc.collect()
+        assert {n for n, _ in old} == {2, 8, 24, 48, 63}
+        assert all((r() is None) == (n != 63) for n, r in old)
+        for p in ran:
+            held = [h for h in p._held.values() if isinstance(h, MatmulPlan)
+                    and h.kind == "static"]
+            assert held and all(h.route == "static_cuda"
+                                and h.source == "measured" for h in held)
+        bsmm_i = next(i for i, c in enumerate(_build.COUNTERS)
+                      if c is bsmm.COUNTER)
+        assert decode_before.get(bsmm_i, 0) == 0
+        assert eng._decode.launches_per_replay()[bsmm_i] > 0
+        monkeypatch.undo()
+        # a fresh engine with the same history (the stream served once)
+        fresh = _serve(lm, dev, True, lengths, **kw)[4]
+        want = []
+        read = fresh._read
+
+        def keep_fresh(out_logits):
+            want.append(out_logits[1].clone())
+            return read(out_logits)
+
+        fresh._read = keep_fresh
+        again = _serve_stream(7, lengths)
+        fresh.run(again)
+        assert [r.output for r in reqs] == [r.output for r in again]
+        assert len(seen) == len(want)
+        for a, b in zip(seen, want):
+            assert torch.equal(a, b)
+    finally:
+        dispatch.set_cost_coeffs(prev)
+        sparse.reset()
+
+
+@pytest.mark.cuda
+def test_engine_captures_on_one_stream_and_memory_holds(dev, monkeypatch):
+    """Every warm-up and capture of an engine runs on the one stream it
+    owns (no stream is made per capture), so three more engines built,
+    served and dropped leave at most one cuBLAS workspace each (32 MiB on
+    sm_90, and cublasLt's) where a stream per capture pinned one per
+    program."""
+    import gc
+
+    from repro_torch.serve import Engine
+    lm = LM(_serve_cfg("llama-sparse"), device=dev, seed=0)
+    kw = dict(batch=2, max_len=64, buckets=(8, 24, 48), device=dev,
+              warm_compile=True)
+    captured, made = [], []
+    graph_cls, stream_cls = torch.cuda.graph, torch.cuda.Stream
+
+    class GraphSpy(graph_cls):
+        def __init__(self, g, pool=None, stream=None, **k):
+            captured.append(stream)
+            super().__init__(g, pool=pool, stream=stream, **k)
+
+    def stream_spy(*a, **k):
+        s = stream_cls(*a, **k)
+        if k.get("stream_id") is None:       # a new stream, not a view
+            made.append(s)
+        return s
+
+    monkeypatch.setattr(torch.cuda, "graph", GraphSpy)
+    monkeypatch.setattr(torch.cuda, "Stream", stream_spy)
+
+    def one():
+        captured.clear()
+        made.clear()
+        eng = Engine(lm, **kw)
+        eng.run(_serve_stream(3, [5, 20, 40]))
+        torch.cuda.synchronize()
+        assert len(captured) == len(eng.programs()) == 5
+        assert all(s is eng._capture_stream for s in captured)
+        assert made == [eng._capture_stream]
+        del eng
+        gc.collect()
+        torch.cuda.synchronize()
+
+    one()
+    base = torch.cuda.memory_allocated(dev)
+    for _ in range(3):
+        one()
+    grown = torch.cuda.memory_allocated(dev) - base
+    assert grown <= 3 * (36 << 20), grown / 2 ** 20

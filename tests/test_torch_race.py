@@ -75,6 +75,18 @@ def test_density_bucket_matches_reference(density):
         jdispatch._density_bucket(density)
 
 
+@pytest.fixture
+def identity_model():
+    """The hand-tuned H100 model (the identity calibration) while a test
+    holds its constants; the active calibration after it."""
+    prev = tdispatch.cost_coeffs()
+    tdispatch.set_cost_coeffs(tdispatch.IDENTITY_COEFFS)
+    try:
+        yield
+    finally:
+        tdispatch.set_cost_coeffs(prev)
+
+
 def _ref_knees():
     """The reference's active skew constants (its hand-tuned defaults,
     which its fitted ``cost_coeffs.json`` keeps)."""
@@ -86,7 +98,8 @@ def _ref_knees():
 
 @pytest.mark.parametrize("kind", list(GENS))
 @pytest.mark.parametrize("b", [8, 16, 32])
-def test_skew_factor_matches_reference(kind, b, monkeypatch):
+def test_skew_factor_matches_reference(kind, b, monkeypatch,
+                                      identity_model):
     """The port's ``_skew_factor`` is the reference's form: at the
     reference's constants it gives the reference's factor on the skew of
     seeded masks (the power-law masks of ``tests/test_skew.py``)."""
@@ -100,7 +113,7 @@ def test_skew_factor_matches_reference(kind, b, monkeypatch):
             pytest.approx(jdispatch._skew_factor(imb_, cv_))
 
 
-def test_card_skew_factor_dead_zone_and_cap():
+def test_card_skew_factor_dead_zone_and_cap(identity_model):
     """The card's knees: a uniform mask's row noise (imbalance <= 2)
     prices flat, the power-law grid's (32) at the measured ~1.4x, and
     the factor is capped."""
@@ -196,7 +209,7 @@ def test_sddmm_candidates_map_onto_reference(device_type):
 
 # -- the H100 model ----------------------------------------------------------
 
-def test_estimate_prices_the_walk_each_route_launches():
+def test_estimate_prices_the_walk_each_route_launches(identity_model):
     """Each static route is priced by the time model of the walk its
     kernel takes, on the pattern's counts, times the skew factor; a
     ``*_torch`` route as its card counterpart."""
@@ -529,7 +542,12 @@ def test_explain_keys_match_reference():
     got = tsparse.plan(tb, 24, device="cpu").explain()
     assert set(got) == set(want)
     assert set(got["problem"]) == set(want["problem"])
-    assert got["roofline"] is None and got["tp"] is None
+    assert got["tp"] is None
+    # the roofline section: the reference's keys, one entry per candidate
+    assert set(want["roofline"]) <= set(got["roofline"])
+    assert set(got["roofline"]["routes"]) == set(got["candidates"])
+    assert got["roofline"]["chosen"] == \
+        got["roofline"]["routes"][got["chosen"]]
     assert got["evolution"] is None
     assert got["chosen"] in got["candidates"]
     assert list(got["candidates"].values()) == sorted(
