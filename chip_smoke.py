@@ -77,6 +77,12 @@ Phases, each fatal on failure:
    re-captured and their capture s, launches per replay by kernel, and
    the decode step p99 with and without a sweep running.  The active
    calibration is restored after it;
+4d. evolve (serving guard): llama's requests through the graphs of a
+   fresh engine, then the up projection of all 16 layers evolved onto
+   one RigL mask (``SparseLinear.evolve``), then the requests again: it
+   fails unless the evolve made no route decision, every program that
+   replays was re-captured once first (its graph held a superseded
+   plan) and the tokens equal a fresh engine's on the evolved model;
 5. gradients: one full-width SparseLinear (up and down), bf16 and fp32,
    N = 2048: autograd dx and dvalues through the kernels against
    ``core/static_sparse``'s plain formulation on the card; then up in
@@ -130,6 +136,24 @@ Phases, each fatal on failure:
    race's analytic verdict (``backend="auto"``) against the same plain
    step, its route's kernel launched; then one planned-capacity pass on
    the grouped route for its capacity report;
+9b. evolve: RigL on llama3.2-1b's sparse FFN at full width (up and
+   gate 2048 -> 8192, down 8192 -> 2048, d = 1/8, b = 16, bf16), N =
+   2048, an MSE loss, AdamW, 20 steps after 2 warm-up ones, a topology
+   step (``rigl_evolve``, fraction 0.2: 1638 of 8192 blocks) on every
+   projection every 2 steps with the values, plans and AdamW's master
+   and moments carried.  The launch counters are zeroed after the
+   warm-up and read after the last topology step.  It fails unless the
+   loss is finite, nnz is constant, no route decision or measurement
+   follows the warm-up, each plan is at generation 10, every bsmm and
+   sddmm launch is on its tensor-core walk, the steps after a topology
+   step synchronise no more than the ones before, and the last
+   generation's forward, dL/dx and dL/dvalues equal the plain
+   formulation on its pattern (bf16 budget).  Prints the step p50
+   before and after the first topology step, the topology step's ms
+   per projection (rigl_update on the device, rigl_evolve's host wall,
+   the module's carries), the GiB allocated after each generation and
+   the launches by walk; then a DynamicSparseLinear at llama width on a
+   ``rigl_update`` mask against the plain formulation (dsmm);
 10. attn (after phase 2's rows): bs_attn against its plain version (a
    dense softmax over the element mask) in bf16 and fp32 (fp16 too at
    llama's and qwen3's rows) at gemma2-2b's
@@ -2777,6 +2801,377 @@ def qwen3_fp32_phase(torch, args):
     return out
 
 
+# [evolve]: RigL topology steps on llama3.2-1b's sparse FFN at full width
+# (up and gate 2048 -> 8192, down 8192 -> 2048, d = 1/8, b = 16, bf16):
+# N = 2048 tokens (batch 4 x seq 512), MSE loss, AdamW, a topology step
+# every EVOLVE_EVERY steps on all three projections at EVOLVE_FRACTION
+# (1638 of 8192 blocks each, as the reference's loop test moves 20 %)
+EVOLVE_STEPS, EVOLVE_WARMUP, EVOLVE_EVERY = 20, 2, 2
+EVOLVE_FRACTION, EVOLVE_LR = 0.2, 1e-3
+
+
+def evolve_phase(torch, args):
+    """[evolve]: a ``SparseFFN`` at llama width trained ``EVOLVE_STEPS``
+    AdamW steps (after ``EVOLVE_WARMUP`` untimed ones that build its
+    plans), with a RigL topology step (``rigl_evolve`` on each
+    projection's plan, then ``evolve_sparse_layer``: the values, the
+    module's plans and AdamW's master copy and moments carried) after
+    every ``EVOLVE_EVERY``-th.  Fails unless the loss is finite, nnz is
+    constant, no route decision or measurement follows the warm-up, each
+    plan is at generation 10, every 16-bit bsmm and sddmm launch is on
+    its tensor-core walk, the steps between topology steps synchronise
+    no more than the steps before the first one, and the last
+    generation's forward, dL/dx and dL/dvalues on each projection equal
+    the plain formulation (``core/static_sparse``) on its pattern.  The
+    kernels' counters cover the timed steps and topology steps only."""
+    import numpy as np
+
+    from repro_torch import sparse
+    from repro_torch.core import pruning, static_sparse
+    from repro_torch.core.sparse_layers import SparseFFN
+    from repro_torch.kernels import bsmm, dense_mm, sddmm
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+    from repro_torch.train.step import (TrainState, evolve_sparse_layer,
+                                        rigl_evolve)
+
+    dev = torch.device("cuda", 0)
+    dt = torch.bfloat16
+    d_model, d_ff, b, density, n = 2048, 8192, 16, 1 / 8, 4 * 512
+    sparse.reset()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    ffn = SparseFFN(d_model, d_ff, b, density, dtype=dt, device=dev)
+    lins = {"up": ffn.up, "gate": ffn.gate, "down": ffn.down}
+    for lyr in lins.values():
+        lyr.reset_parameters(gen)
+    ffn.requires_grad_(True)
+    params = {name: lyr.values for name, lyr in lins.items()}
+    state = TrainState(0, params, adamw_init(params))
+    nnz = {name: lyr.nnz_blocks for name, lyr in lins.items()}
+    x = torch.randn((n, d_model), generator=gen, device=dev).to(dt)
+    target = torch.randn((n, d_model), generator=gen, device=dev).to(dt)
+    # each projection's input and output gradient of the step before a
+    # topology step: RigL's dense gradient dy^T . x
+    seen, keep = {}, [False]
+
+    def hook(name):
+        def fwd(mod, inp, out):
+            if keep[0]:
+                seen[name] = [inp[0].detach(), None]
+                out.register_hook(
+                    lambda g: seen[name].__setitem__(1, g.detach()))
+        return fwd
+
+    hooks = [lyr.register_forward_hook(hook(name))
+             for name, lyr in lins.items()]
+
+    def step():
+        y = ffn(x)
+        loss = ((y.float() - target.float()) ** 2).mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        adamw_update(dict(zip(params, grads)), state.opt, state.params,
+                     lr=EVOLVE_LR, weight_decay=0.0)
+        return loss.detach()
+
+    # the last warm-up step keeps its activations as a step before a
+    # topology step does, so the allocator holds those blocks already
+    for w in range(EVOLVE_WARMUP):
+        keep[0] = w == EVOLVE_WARMUP - 1
+        step()
+    keep[0] = False
+    seen.clear()
+    torch.cuda.synchronize()
+    counters = with_walks({"bsmm": bsmm.COUNTER, "sddmm": sddmm.COUNTER,
+                           "dense_mm": dense_mm.COUNTER})
+    for c in counters.values():
+        c.reset()
+    stats0 = sparse.cache_stats()
+    losses, events, syncs = [], [], []
+    topo, gib, moved = [], [], []
+    for i in range(EVOLVE_STEPS):
+        last = (i + 1) % EVOLVE_EVERY == 0
+        keep[0] = last
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                ev[0].record()
+                losses.append(step())
+                ev[1].record()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs.append(sum(1 for w in caught if "synchroniz" in str(w.message)
+                         and "prototype" not in str(w.message)))
+        events.append(ev)
+        keep[0] = False
+        if not last:
+            continue
+        row = {}
+        for name, lyr in lins.items():
+            xin, dy = seen.pop(name)
+            dense_grad = torch.matmul(dy.reshape(-1, dy.shape[-1]).t(),
+                                      xin.reshape(-1, xin.shape[-1]))
+            p = lyr.plan(n)
+            vals = lyr.values.detach()
+            # rigl_update alone on the same inputs (device time), the
+            # part of the step that a captured train step would hold
+            mask_dev = torch.zeros((lyr.out_features // b,
+                                    lyr.in_features // b), dtype=torch.bool,
+                                   device=dev)
+            mask_dev[torch.as_tensor(lyr.row_idx, device=dev).long(),
+                     torch.as_tensor(lyr.col_idx, device=dev).long()] = True
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            w_dense = lyr.as_bsr().to_dense().detach()
+            torch.cuda.synchronize()
+            e0.record()
+            pruning.rigl_update(w_dense, dense_grad, mask_dev, block_size=b,
+                                fraction=EVOLVE_FRACTION,
+                                generator=torch.Generator(
+                                    device=dev).manual_seed(i))
+            e1.record()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p2, v2 = rigl_evolve(p, vals, dense_grad,
+                                 fraction=EVOLVE_FRACTION, generator=gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mask = np.zeros((lyr.out_features // b, lyr.in_features // b),
+                            bool)
+            mask[p2.pattern] = True
+            ep = evolve_sparse_layer(state, name, lyr, mask)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if lyr.plan(n) is not p2 or not torch.equal(lyr.values.detach(),
+                                                        v2):
+                raise RuntimeError(f"[evolve] {name}: the module did not "
+                                   f"take rigl_evolve's plan and values")
+            moved.append((name, ep.dropped, ep.grown))
+            row[name] = dict(rigl_update_ms=e0.elapsed_time(e1),
+                             rigl_evolve_ms=(t1 - t0) * 1e3,
+                             module_carry_ms=(t2 - t1) * 1e3)
+            del p, p2, v2, dense_grad, w_dense, mask_dev
+        topo.append(row)
+        gib.append(torch.cuda.memory_allocated() / 2 ** 30)
+    for h in hooks:
+        h.remove()
+    torch.cuda.synchronize()
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    stats1 = sparse.cache_stats()
+    step_ms = [a.elapsed_time(z) for a, z in events]
+    loss_vals = torch.stack(losses).tolist()
+    gens = {name: lyr.plan(n).explain()["evolution"]
+            for name, lyr in lins.items()}
+    # the last generation against the plain formulation on its pattern
+    errs = {}
+    g = torch.Generator(device=dev).manual_seed(args.seed + 29)
+    for name, lyr in lins.items():
+        xin = torch.randn((n, lyr.in_features), generator=g,
+                          device=dev).to(dt).requires_grad_(True)
+        gy = torch.randn((n, lyr.out_features), generator=g,
+                         device=dev).to(dt)
+        lyr.values.grad = None
+        y = lyr(xin)
+        y.backward(gy)
+        f = static_sparse.make_spmm(lyr.row_idx, lyr.col_idx,
+                                    (lyr.out_features // b,
+                                     lyr.in_features // b), b)
+        v = lyr.values.detach().clone().requires_grad_(True)
+        xt = xin.detach().t().contiguous().requires_grad_(True)
+        y_ref = f(v, xt)
+        y_ref.backward(gy.t())
+        errs[name] = {"y": rel_err(y.detach(), y_ref.detach().t())[0],
+                      "dx": rel_err(xin.grad, xt.grad.t())[0],
+                      "dvalues": rel_err(lyr.values.grad, v.grad)[0]}
+    torch.cuda.synchronize()
+    first = EVOLVE_EVERY           # the first step after a topology step
+    per_proj = {name: {k: float(np.median([r[name][k] for r in topo]))
+                       for k in topo[0][name]} for name in lins}
+    result = dict(
+        d_model=d_model, d_ff=d_ff, b=b, density=density, tokens=n,
+        steps=EVOLVE_STEPS, every=EVOLVE_EVERY, fraction=EVOLVE_FRACTION,
+        losses=loss_vals, step_ms=step_ms,
+        step_p50_ms_before=float(np.median(step_ms[:first])),
+        step_p50_ms_after=float(np.median(step_ms[first:])),
+        topology_ms=topo, topology_ms_p50=per_proj,
+        gib_per_generation=gib,
+        gib_growth_per_generation=((gib[-1] - gib[0]) / (len(gib) - 1)
+                                   if len(gib) > 1 else 0.0),
+        moved=moved, generations={k: v["generation"]
+                                  for k, v in gens.items()},
+        reraces=sum(int(v["reraced"]) for v in gens.values()),
+        decisions_after_warmup=stats1["decisions"] - stats0["decisions"],
+        measurements_after_warmup=(stats1["measurements"]
+                                   - stats0["measurements"]),
+        plans_built_after_warmup=(stats1["plans_built"]
+                                  - stats0["plans_built"]),
+        syncs_per_step=syncs, launches=launches, walks=walks, errs=errs,
+        tol=KERNEL_TOL["bfloat16"],
+        evolution_totals=sparse.plan_report()["totals"]["evolution"])
+    n_gen = EVOLVE_STEPS // EVOLVE_EVERY
+    want_moved = int(np.float32(nnz["up"]) * np.float32(EVOLVE_FRACTION))
+    if not all(math.isfinite(v) for v in loss_vals):
+        raise RuntimeError(f"[evolve] non-finite loss: {loss_vals}")
+    if any(lyr.nnz_blocks != nnz[name] or lyr.values.shape[0] != nnz[name]
+           for name, lyr in lins.items()) \
+            or any(d != want_moved or gr != want_moved
+                   for _, d, gr in moved):
+        raise RuntimeError(f"[evolve] nnz did not hold or the moves were "
+                           f"not {want_moved}: {moved}")
+    if result["decisions_after_warmup"] or \
+            result["measurements_after_warmup"] or result["reraces"]:
+        raise RuntimeError(f"[evolve] route decisions or measurements "
+                           f"after the warm-up: {result}")
+    if any(v != n_gen for v in result["generations"].values()):
+        raise RuntimeError(f"[evolve] generations "
+                           f"{result['generations']} != {n_gen}")
+    check_tensor_core_walks("evolve", walks, ("sddmm", "bsmm"))
+    if launches["bsmm"] <= 0 or launches["sddmm"] <= 0:
+        raise RuntimeError(f"[evolve] bsmm or sddmm not launched: "
+                           f"{launches}")
+    if max(syncs[first:]) > max(syncs[:first]):
+        raise RuntimeError(f"[evolve] a step after a topology step waited "
+                           f"for the device more often than before: "
+                           f"{syncs}")
+    bad = {k: v for k, v in errs.items()
+           if not all(e <= result["tol"] for e in v.values())}
+    if bad:
+        raise RuntimeError(f"[evolve] the last generation disagrees with "
+                           f"the plain formulation: {bad}")
+    del ffn, state, params, lins
+    sparse.reset()
+    return result
+
+
+def evolve_serve_phase(torch, lm, args):
+    """[evolve] serving guard: llama3.2-1b through the engine's CUDA
+    graphs, then the up projection of all 16 layers evolved onto one new
+    mask (a RigL step on layer 0's weights and a seeded dense gradient:
+    the JAX LM shares one pattern across its layers), then the same
+    requests again.  Fails unless every program that replays after the
+    evolve was re-captured once first (its graph held the superseded
+    plans), the evolve made no route decision, and the tokens equal a
+    fresh engine's on the evolved model."""
+    import numpy as np
+
+    from repro_torch import sparse
+    from repro_torch.core import pruning
+    from repro_torch.core.sparse_layers import SparseFFN
+    from repro_torch.serve import Engine
+
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, lm.cfg.vocab_size,
+                            size=int(rng.integers(lo, hi + 1)))
+               for lo, hi in LLAMA_PROMPTS]
+    kw = dict(batch=4, max_len=LLAMA_MAX_LEN, device="cuda",
+              warm_compile=True)
+    sparse.reset()
+    eng = Engine(lm, **kw)
+    g0 = eng.stats()["graphs"]
+    first = serve_run(torch, eng, prompts, LLAMA_NEW)
+    ffns = [m for m in lm.modules() if isinstance(m, SparseFFN)]
+    up = ffns[0].up
+    dev = up.values.device
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 31)
+    b = up.block_size
+    mask = torch.zeros((up.out_features // b, up.in_features // b),
+                       dtype=torch.bool, device=dev)
+    mask[torch.as_tensor(up.row_idx, device=dev).long(),
+         torch.as_tensor(up.col_idx, device=dev).long()] = True
+    new_mask = pruning.rigl_update(
+        up.as_bsr().to_dense().detach(),
+        torch.randn((up.out_features, up.in_features), generator=gen,
+                    device=dev),
+        mask, block_size=b, fraction=EVOLVE_FRACTION,
+        generator=gen).cpu().numpy()
+    s0 = sparse.cache_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eps = [f.up.evolve(new_mask) for f in ffns]
+    torch.cuda.synchronize()
+    evolve_s = time.perf_counter() - t0
+    decisions = sparse.cache_stats()["decisions"] - s0["decisions"]
+    stale = sorted(p.name for p in eng.programs() if p.superseded())
+    replays = {p.name: p.replays for p in eng.programs()}
+    second = serve_run(torch, eng, prompts, LLAMA_NEW)
+    replayed = [p for p in eng.programs() if p.replays > replays[p.name]]
+    g1 = eng.stats()["graphs"]
+    fresh = serve_run(torch, Engine(lm, **kw), prompts, LLAMA_NEW)
+    out = dict(
+        layers=len(ffns), moved=[(e.dropped, e.grown) for e in eps[:1]],
+        evolve_s=evolve_s, decisions=decisions, stale=stale,
+        replayed=sorted(p.name for p in replayed),
+        recaptured=sorted(p.name for p in replayed if p.recaptures == 1),
+        recapture_s=g1["capture_s"] - g0["capture_s"],
+        decode_p50_ms_before=first["stats"]["step_latency"]["p50_ms"],
+        decode_p50_ms_after=second["stats"]["step_latency"]["p50_ms"],
+        tokens_changed=[r.output for r in first["reqs"]]
+        != [r.output for r in second["reqs"]],
+        tokens_equal_fresh=[r.output for r in second["reqs"]]
+        == [r.output for r in fresh["reqs"]])
+    if decisions or not replayed \
+            or any(p.recaptures != 1 for p in replayed) \
+            or not {p.name for p in replayed} <= set(stale):
+        raise RuntimeError(f"[evolve] a program replayed a superseded plan "
+                           f"or was not re-captured once: {out}")
+    if not out["tokens_equal_fresh"]:
+        raise RuntimeError(f"[evolve] tokens after the evolve differ from "
+                           f"a fresh engine on the evolved model: {out}")
+    del eng
+    sparse.reset()
+    return out
+
+
+def evolve_dynamic_row(torch, args):
+    """[evolve] dynamic row: a ``DynamicSparseLinear`` at llama width
+    (2048 -> 8192, d_max 1/8, b 16, bf16, the dsmm walk) whose mask comes
+    from ``rigl_update`` (its weight, RigL's dense gradient dy^T . x of a
+    seeded batch), its output against the plain formulation
+    (``_dspmm``) on that mask."""
+    from repro_torch.core import dynamic_sparse as dsp
+    from repro_torch.core import pruning
+    from repro_torch.core.sparse_layers import DynamicSparseLinear
+    from repro_torch.kernels.dsmm import ops as dsmm_ops
+
+    dev = torch.device("cuda", 0)
+    dt, b, n = torch.bfloat16, 16, 2048
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 37)
+    layer = DynamicSparseLinear(2048, 8192, b, 1 / 8, dtype=dt,
+                                backend="pallas", device=dev)
+    layer.reset_parameters(gen, mask_seed=args.seed + 41)
+    x = torch.randn((n, 2048), generator=gen, device=dev).to(dt)
+    gy = torch.randn((n, 8192), generator=gen, device=dev).to(dt)
+    before = layer.mask.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new = pruning.rigl_update(layer.weight.detach(),
+                              torch.matmul(gy.t(), x), layer.mask,
+                              block_size=b, fraction=EVOLVE_FRACTION,
+                              generator=gen)
+    layer.set_mask(new)
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) * 1e3
+    c0 = dsmm_ops.COUNTER.launches
+    with torch.no_grad():
+        y = layer(x)
+        op = layer.encode()
+        want = dsp._dspmm(op.values, op.row_idx, op.col_idx, x.t(),
+                          8192 // b, b).t()
+    torch.cuda.synchronize()
+    out = dict(moved=int((new & ~before).sum().item()),
+               nnz_same=int(new.sum().item()) == int(before.sum().item()),
+               rel_err=rel_err(y, want)[0], tol=KERNEL_TOL["bfloat16"],
+               dsmm_launches=dsmm_ops.COUNTER.launches - c0,
+               update_ms=update_ms)
+    if not (out["nnz_same"] and out["moved"] > 0
+            and out["rel_err"] <= out["tol"] and out["dsmm_launches"] > 0):
+        raise RuntimeError(f"[evolve] the RigL-driven dynamic layer "
+                           f"failed: {out}")
+    return out
+
+
 def main(argv=None) -> int:
     # torch.compile's caches (the flex_attention library rows) stay in
     # the checkout's build directory, beside the kernels
@@ -2803,6 +3198,7 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels import _build
 
+    t_run = time.perf_counter()
     card = card_line()
     print(f"[env] card: {card}")
     print(f"[env] torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2938,6 +3334,23 @@ def main(argv=None) -> int:
           f"{th['decode_p50_ms_sweeping']}, {th['decode_steps_sweeping']} "
           f"steps); tokens equal {th['tokens_equal_fresh']}")
 
+    live_gib["evolve_serve"] = torch.cuda.memory_allocated() / 2 ** 30
+    t_phase = time.perf_counter()
+    evolve_serve = evolve_serve_phase(torch, lm, args)
+    es = evolve_serve
+    es["phase_s"] = time.perf_counter() - t_phase
+    print(f"[evolve] serving guard: llama3.2-1b graphs, the up projection "
+          f"of {es['layers']} layers evolved onto one RigL mask (dropped, "
+          f"grown {es['moved'][0]}) in {es['evolve_s']:.3f} s with "
+          f"{es['decisions']} route decisions; programs holding a "
+          f"superseded plan {es['stale']}; replayed {es['replayed']}, "
+          f"re-captured once first {es['recaptured']} "
+          f"({es['recapture_s']:.3f} s); decode p50 "
+          f"{es['decode_p50_ms_before']} -> {es['decode_p50_ms_after']} ms; "
+          f"tokens changed {es['tokens_changed']}, equal a fresh engine on "
+          f"the evolved model {es['tokens_equal_fresh']}; phase "
+          f"{es['phase_s']:.2f} s")
+
     # the engines of the serve phases hold the model in reference cycles:
     # collect them before the next phases measure their peak memory
     del lm
@@ -3054,6 +3467,52 @@ def main(argv=None) -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    live_gib["evolve"] = torch.cuda.memory_allocated() / 2 ** 30
+    t_phase = time.perf_counter()
+    evo = evolve_phase(torch, args)
+    evo["dynamic_row"] = evolve_dynamic_row(torch, args)
+    evo["phase_s"] = time.perf_counter() - t_phase
+    print(f"[evolve] SparseFFN {evo['d_model']}->{evo['d_ff']}->"
+          f"{evo['d_model']} d={evo['density']} b={evo['b']} bf16, N "
+          f"{evo['tokens']}, AdamW {evo['steps']} steps, rigl_evolve "
+          f"fraction {evo['fraction']} every {evo['every']} on up, gate and "
+          f"down: loss {evo['losses'][0]:.4f} -> {evo['losses'][-1]:.4f}; "
+          f"generations {json.dumps(evo['generations'])}; blocks moved per "
+          f"projection and step {sorted(set(m[1] for m in evo['moved']))}; "
+          f"decisions / measurements / plans built after the warm-up "
+          f"{evo['decisions_after_warmup']} / "
+          f"{evo['measurements_after_warmup']} / "
+          f"{evo['plans_built_after_warmup']}")
+    print(f"[evolve] step p50 {evo['step_p50_ms_before']:.3f} ms before the "
+          f"first topology step, {evo['step_p50_ms_after']:.3f} ms after "
+          f"(steps {[round(t, 3) for t in evo['step_ms']]}); host syncs per "
+          f"step {evo['syncs_per_step']}")
+    print(f"[evolve] topology step ms per projection (p50 of "
+          f"{len(evo['topology_ms'])}; the first: "
+          f"{json.dumps(evo['topology_ms'][0])}): "
+          + "; ".join(f"{k} rigl_update {v['rigl_update_ms']:.3f} (device), "
+                      f"rigl_evolve {v['rigl_evolve_ms']:.3f} (host wall: "
+                      f"rigl_update, the mask read, plan.evolve's rebuild, "
+                      f"the values' gather), module carry "
+                      f"{v['module_carry_ms']:.3f} (values, AdamW master "
+                      f"and moments)"
+                      for k, v in evo["topology_ms_p50"].items()))
+    print(f"[evolve] GiB allocated after each topology step "
+          f"{[round(v, 4) for v in evo['gib_per_generation']]} (growth "
+          f"{evo['gib_growth_per_generation']:.6f} GiB per generation); "
+          f"evolution totals {json.dumps(evo['evolution_totals'])}")
+    print(f"[evolve] launches {json.dumps(evo['launches'])}; launches by "
+          f"walk {json.dumps(evo['walks'])}; last generation vs plain "
+          f"{json.dumps(evo['errs'])} (budget {evo['tol']})")
+    dr = evo["dynamic_row"]
+    print(f"[evolve] DynamicSparseLinear 2048->8192 d_max 1/8 b 16 bf16 N "
+          f"2048 on a rigl_update mask ({dr['moved']} blocks moved in "
+          f"{dr['update_ms']:.3f} ms, nnz held {dr['nnz_same']}): dsmm vs "
+          f"plain rel_err {dr['rel_err']:.2e} (budget {dr['tol']}), dsmm "
+          f"launches {dr['dsmm_launches']}; phase {evo['phase_s']:.2f} s")
+
+    gc.collect()
+    torch.cuda.empty_cache()
     live_gib["serve_gemma2"] = torch.cuda.memory_allocated() / 2 ** 30
     gemma, lm, eng = serve_gemma2_phase(torch, args)
     print(f"[serve-gemma2] {gemma['requests']} requests (prompts "
@@ -3156,12 +3615,12 @@ def main(argv=None) -> int:
                         ("up/gate 8192x2048 b=16", 2048), "dynamic")}
     by_path = {"serve": serve["launches"], "train": train["launches"],
                "table3": table3_launches, "race": race_launches,
-               "dynamic": dyn_launches,
+               "dynamic": dyn_launches, "evolve": evo["launches"],
                "serve_gemma2": gemma["launches"],
                "serve_qwen3": qwen["launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
-                     "dynamic": dyn_walks,
+                     "dynamic": dyn_walks, "evolve": evo["walks"],
                      "serve_gemma2": gemma["walks"],
                      "serve_qwen3": qwen["walks"]}
     kernels = []
@@ -3273,11 +3732,14 @@ def main(argv=None) -> int:
                        "attn": attn_rows, "serve_gemma2": gemma,
                        "serve_qwen3": qwen, "kernels": kernels,
                        "replan": replan, "roofline": roof,
+                       "evolve": evo, "evolve_serve": evolve_serve,
                        "calibrate": cal, "corpus": corpus,
                        "live_gib": live_gib,
                        "capture_stream_mib": streams}, f,
                       indent=1)
 
+    print(f"[env] run {time.perf_counter() - t_run:.1f} s, kernel builds "
+          f"included")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,11 +11,13 @@ of the transposed pattern the backward's dL/dx product runs on.
 ``plan_swizzle``/``plan_packing_balanced`` bin the row-tiles by their
 tile counts (sorted-snake dealing) into the visit schedule of the
 balanced walk; ``balance_report`` measures a count profile's skew.
+``plan_evolution``/``apply_evolution`` are the pattern and value halves
+of a topology update (old pattern -> new pattern, RigL).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -271,6 +273,70 @@ def plan_packing_balanced(row_idx: np.ndarray, col_idx: np.ndarray,
         if t:                      # pad keeps the lane's last real row
             visit_rows[g, t:] = visit_rows[g, t - 1]
     return BalancedPacking(base, sw, visit_slot, visit_rows, visit_cols)
+
+
+@dataclasses.dataclass(frozen=True)
+class EvolvePlan:
+    """Host analysis of a pattern evolution (old -> new), the pattern
+    half of a RigL topology update on a static plan: for each block of
+    the new pattern, its slot in the old values stack, or -1 for a grown
+    block.  ``apply_evolution`` is the value half."""
+
+    src_slot: np.ndarray      # [nnz_new] int64; -1 marks a grown block
+    carried: int              # blocks present in both patterns
+    dropped: int              # old blocks absent from the new pattern
+    grown: int                # new blocks absent from the old pattern
+    # src_slot on each device it was applied on
+    _dev: Dict[str, torch.Tensor] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+    def slots_on(self, device) -> torch.Tensor:
+        """``src_slot`` on ``device`` (copied once per device)."""
+        key = str(device)
+        src = self._dev.get(key)
+        if src is None:
+            src = self._dev[key] = torch.as_tensor(
+                self.src_slot, dtype=torch.long, device=device)
+        return src
+
+
+def plan_evolution(old_rows: np.ndarray, old_cols: np.ndarray,
+                   new_rows: np.ndarray, new_cols: np.ndarray,
+                   grid: Tuple[int, int]) -> EvolvePlan:
+    """Map each new-pattern block to its old values slot (host, once per
+    topology step).  Neither pattern needs to be sorted; both must be
+    duplicate-free (``check_unique_blocks``)."""
+    kb = grid[1]
+    check_unique_blocks(old_rows, old_cols, grid)
+    check_unique_blocks(new_rows, new_cols, grid)
+    old_lin = (np.asarray(old_rows, np.int64) * kb
+               + np.asarray(old_cols, np.int64))
+    new_lin = (np.asarray(new_rows, np.int64) * kb
+               + np.asarray(new_cols, np.int64))
+    if old_lin.size:
+        order = np.argsort(old_lin)
+        pos = np.minimum(np.searchsorted(old_lin[order], new_lin),
+                         old_lin.size - 1)
+        found = old_lin[order][pos] == new_lin
+        src = np.where(found, order[pos], -1).astype(np.int64)
+    else:
+        src = np.full(new_lin.size, -1, np.int64)
+    carried = int((src >= 0).sum())
+    return EvolvePlan(src, carried, int(old_lin.size) - carried,
+                      int(new_lin.size) - carried)
+
+
+def apply_evolution(plan: EvolvePlan, old: torch.Tensor) -> torch.Tensor:
+    """Value half of a topology update: carry any per-slot ``[nnz_old,
+    ...]`` tensor (the values, an optimizer's master copy or moments)
+    into the new pattern's ``[nnz_new, ...]`` slots with one gather on
+    its device.  Carried slots are bit-equal, grown slots are zero."""
+    nnz_new = int(plan.src_slot.shape[0])
+    if old.shape[0] == 0:
+        return old.new_zeros((nnz_new,) + tuple(old.shape[1:]))
+    src = plan.slots_on(old.device)
+    keep = (src >= 0).reshape((-1,) + (1,) * (old.dim() - 1))
+    return old[src.clamp_min(0)].masked_fill(~keep, 0)
 
 
 def balance_report(counts: np.ndarray) -> dict:

@@ -10,7 +10,9 @@ Parameters are created with ``requires_grad=False`` (serving) and
 train once switched on (``module.requires_grad_(True)``): with grad
 enabled the forward runs the plan's autograd Function (bsmm forward;
 SDDMM and bsmm on the transposed pattern backward); under ``no_grad`` it
-runs the cached packed tile stack.  ``DynamicSparseLinear`` keeps a
+runs the cached packed tile stack.  ``SparseLinear.evolve`` moves a
+layer onto a new pattern (a RigL topology step: ``core/pruning.py``),
+its values and plans with it.  ``DynamicSparseLinear`` keeps a
 dense master weight and a runtime block mask (the paper's dynamic mode):
 each forward encodes the masked blocks on the device and multiplies
 through the dynamic plan, so the mask may change every step.
@@ -30,6 +32,7 @@ from repro_torch import sparse as sparse_api
 from repro_torch.core import capture
 from repro_torch.core import dynamic_sparse as dsp
 from repro_torch.core import masks as masks_lib
+from repro_torch.core import partitioner
 from repro_torch.core.bsr import BlockSparseMatrix
 from repro_torch.core.device import DeviceLike, resolve_device
 
@@ -109,6 +112,59 @@ class SparseLinear(nn.Module):
         return BlockSparseMatrix(self.values, self.row_idx, self.col_idx,
                                  (self.out_features, self.in_features),
                                  self.block_size)
+
+    def evolve(self, new_pattern: np.ndarray) -> partitioner.EvolvePlan:
+        """Topology update (RigL drop and grow) onto ``new_pattern``
+        ``[out / b, in / b]``, in place.
+
+        The values of carried blocks move to their new slots bit for bit
+        and grown blocks start at zero (RigL's convention): in place when
+        the block count holds, else into a new ``values`` parameter (its
+        ``grad``, if any, is carried the same way).  Each plan of this
+        module is evolved onto the new pattern (``sparse.evolve``: no
+        route decision unless the pattern drifted past the context's
+        ``evolve_drift``), and the packed operands are dropped (their
+        pack index changed even where the values' version did not).
+        Modules that shared the old plans (an LM's layers, built on one
+        seed) keep them, live.
+
+        The reference returns ``(layer, params)``; this module is
+        mutable, so it returns the ``EvolvePlan`` instead: the caller
+        carries other per-slot state with it (the optimizer's master
+        copy and moments: ``optim.adamw.carry_slots``)."""
+        new_pattern = np.asarray(new_pattern, bool)
+        b = self.block_size
+        grid = (self.out_features // b, self.in_features // b)
+        if new_pattern.shape != grid:
+            raise ValueError(f"pattern {new_pattern.shape} != grid {grid}")
+        rows, cols = np.nonzero(new_pattern)
+        order = np.lexsort((cols, rows))
+        rows = rows[order].astype(np.int32)
+        cols = cols[order].astype(np.int32)
+        eplan = partitioner.plan_evolution(self.row_idx, self.col_idx,
+                                           rows, cols, grid)
+        v = self.values
+        with torch.no_grad():
+            carried = partitioner.apply_evolution(eplan, v.detach())
+            grad = (None if v.grad is None
+                    else partitioner.apply_evolution(eplan, v.grad))
+            if carried.shape == v.shape:
+                v.copy_(carried)
+                v.grad = grad
+            else:
+                self.values = nn.Parameter(carried,
+                                           requires_grad=v.requires_grad)
+                self.values.grad = grad
+        new_bsr = BlockSparseMatrix(
+            torch.empty((0, b, b), dtype=v.dtype), rows, cols,
+            (self.out_features, self.in_features), b)
+        self._plans = {k: sparse_api.evolve(p, new_bsr)
+                       for k, p in self._plans.items()
+                       if p.device == v.device and sparse_api.is_live(p)}
+        self._packed = {}
+        self.pattern = new_pattern
+        self.row_idx, self.col_idx = rows, cols
+        return eplan
 
     def plan(self, n: int, x: Optional[torch.Tensor] = None
              ) -> sparse_api.MatmulPlan:

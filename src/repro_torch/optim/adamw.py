@@ -7,6 +7,13 @@ and fp32 moments, keyed by parameter name.  Unlike the JAX version,
 moments, and writes the rounded master back into the parameters with
 ``copy_`` (the returned params are the same tensors), so a step holds no
 second copy of the model or of its optimizer state.
+
+A topology update (``SparseLinear.evolve``) moves a sparse layer's
+values to new slots; ``carry_slots`` moves that parameter's master copy
+and moments the same way.  Without it the next step would write the
+master, in the old slot order, back over the evolved values.  The
+reference leaves this to its caller (its ``rigl_evolve`` carries the
+values only).
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core import partitioner
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -88,3 +97,20 @@ def adamw_update(grads: Tensors, state: AdamState, params: Tensors, *,
     for n, w in zip(names, ws):
         params[n].copy_(w)
     return params, AdamState(count, state.master, state.mu, state.nu)
+
+
+@torch.no_grad()
+def carry_slots(state: AdamState, name: str,
+                eplan: partitioner.EvolvePlan) -> None:
+    """Carry the fp32 master copy and both moments of the per-slot
+    parameter ``name`` (a ``[nnz, b, b]`` values stack) through a
+    topology update: carried slots keep theirs bit for bit, grown slots
+    start at zero in all three (RigL's convention: a grown block starts
+    at zero with fresh moments).  In place when the slot count holds."""
+    for table in (state.master, state.mu, state.nu):
+        old = table[name]
+        new = partitioner.apply_evolution(eplan, old)
+        if new.shape == old.shape:
+            old.copy_(new)
+        else:
+            table[name] = new

@@ -39,6 +39,12 @@ graph:
   graph, its outputs and the metadata it held go once its last replay
   has ended; the new one captures into the same pool on the same
   stream).  An eager program re-plans at its next call by itself.
+  A topology update (``MatmulPlan.evolve``, ``SparseLinear.evolve``)
+  marks the plans it moved a module off *superseded*: a graph holding
+  one was captured on the old pattern and its old values, so it is
+  stale too, and re-captured before its next replay.  The check costs an
+  integer compare per call until some evolve runs
+  (``sparse.supersede_epoch``).
 
 A capture that fails raises; nothing falls back to eager.
 """
@@ -98,6 +104,10 @@ class Program:
         self.capture_s = 0.0
         self.plan_keys: frozenset = frozenset()
         self.stale = False
+        # the plans the graph holds, and the supersede epoch it was
+        # captured (or last found current) at
+        self._plans = ()
+        self._epoch = 0
         self._launches = ()
         self._drops = {}
         self._held = {}
@@ -162,6 +172,9 @@ class Program:
                                in enumerate(zip(after, before)) if a != b)
         self._drops = drops
         self._held = rec.held
+        self._plans = tuple(o for o in rec.held.values()
+                            if isinstance(o, sparse_api.MatmulPlan))
+        self._epoch = sparse_api.supersede_epoch()
         self.plan_keys = frozenset(rec.plans)
         self.graph = graph
         self.outputs = outputs
@@ -179,20 +192,33 @@ class Program:
             self.graph.reset()
         self.graph = self.outputs = None
         self._launches, self._drops, self._held = (), {}, {}
+        self._plans = ()
         self.capture()
         self.recaptures += 1
+
+    def superseded(self) -> bool:
+        """Has an evolve moved a module off a plan the graph holds since
+        it was captured?  Marks the program ``stale`` if so."""
+        epoch = sparse_api.supersede_epoch()
+        if epoch != self._epoch:
+            if any(p.superseded > self._epoch for p in self._plans):
+                self.stale = True
+            else:
+                self._epoch = epoch
+        return self.stale
 
     def __call__(self):
         """Run the program on ``io``: eagerly, or by replaying its graph
         (captured now if it is not yet, captured again first if it is
-        ``stale``).  Returns the body's outputs (a graph's own tensors:
-        read them before the next replay)."""
+        ``stale`` or holds a superseded plan).  Returns the body's
+        outputs (a graph's own tensors: read them before the next
+        replay)."""
         if not self.use_graph:
             self.stale = False
             return self.run_eager()
         if self.graph is None:
             self.capture()
-        elif self.stale:
+        elif self.stale or self.superseded():
             self.recapture()
         self.graph.replay()
         self.replays += 1

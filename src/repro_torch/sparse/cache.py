@@ -12,7 +12,7 @@ Layout: one file per cache dir,
     {"env": {"schema": .., "torch": .., "cuda": .., "device": ..,
              "gpu": ..},
      "entries": {"<key>": {"route": .., "source": .., "est_seconds": ..,
-                           "capacity": .., "grad": ..}}}
+                           "capacity": .., "grad": .., "evolution": ..}}}
 
 A file whose ``env`` does not match the running process (a schema bump,
 another torch or CUDA version, another device type or card) is *stale*:
@@ -37,7 +37,10 @@ import torch
 # v1: the port's first schema: records of the port's routes (``*_cuda``
 # kernels, ``*_torch`` plain versions) with the capacity and grad
 # sections; keys carry n, the density bucket, the skew and the grad knobs
-SCHEMA_VERSION = 1
+# v2: a record may carry an "evolution" lineage section (parent and root
+# keys, generation, drift, re-race verdict: ``MatmulPlan.evolve``); a v1
+# file has none, so it is stale as a whole
+SCHEMA_VERSION = 2
 
 _lock = threading.RLock()
 _configured_dir: Optional[str] = None

@@ -82,12 +82,35 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   writes and stale drops; ``plan_report`` lists every cached plan's
   forward and backward routes with their source and ``from_disk``
   (``:206``); ``explain`` / ``format_plan`` report a plan the way the
-  reference's do (``:485``, ``:625``; its ``tp`` and ``evolution`` keys
-  are None: those modules are not ported); ``MatmulPlan.roofline`` and
+  reference's do (``:485``, ``:625``; its ``tp`` key is None: the TP
+  module is not ported); ``MatmulPlan.roofline`` and
   ``roofline_report`` price every candidate against the H100's roofline
   (``:523-557``, ``:252-278``);
   ``analytic_plans`` / ``remeasure_plan`` upgrade analytic verdicts to
-  measured ones on synthesized inputs (``:291-404``).
+  measured ones on synthesized inputs (``:291-404``);
+* evolution (``:574-625``, ``:1612-1826``): ``MatmulPlan.evolve`` moves
+  a static spmm plan onto a new pattern (a RigL topology step) by
+  building its walk again on the parent's route (packing, split blocks,
+  the bsmm mma schedules, the balanced bins, the backward's metadata)
+  and inheriting its forward and backward verdicts: zero decisions,
+  zero measurements, unless the pattern's profile drifted past
+  ``ctx.evolve_drift`` or ``rerace=True``, when ``plan`` races again.
+  The profile is what the H100 walk models price: the block density,
+  the occupancy of the kernel tiles (1.0 for b in 4..64, which walk
+  unpacked, but for pad tiles of empty rows; below 4 the 4 x 4 packing's)
+  and the skew factor of the pattern's row imbalance
+  (``dispatch._skew_factor``); the reference's occupancy of 128-wide
+  MXU tiles prices nothing here.  ``carry_values`` maps the parent's
+  values into the new slots.  The lineage (parent and root keys,
+  generation, drift, the carried / dropped / grown counts) rides in
+  ``explain()["evolution"]``, ``plan_report`` (``#gen<n>`` keys and
+  ``totals["evolution"]``) and the persisted record.  An evolve marks
+  its parent *superseded* (``supersede_epoch``): a CUDA graph that holds
+  it is re-captured before its next replay (``serve/graphs.py``).  The
+  parent leaves the plan cache for a table of weak references, so it
+  stays live while a module, a pool entry or a graph holds it (the other
+  layers of an LM sharing its pattern) and is freed after: the table
+  does not grow with the generation.
 """
 from __future__ import annotations
 
@@ -95,6 +118,7 @@ import collections
 import contextlib
 import dataclasses
 import threading
+import weakref
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -102,7 +126,8 @@ import torch
 
 from repro_torch.core import capture, dispatch, masks, partitioner
 from repro_torch.core import planner as planner_lib
-from repro_torch.core.bsr import BlockSparseMatrix, pattern_key
+from repro_torch.core.bsr import (BlockSparseMatrix, check_unique_blocks,
+                                  pattern_key)
 from repro_torch.core.dispatch import (dynamic_tile, kernel_tile,  # noqa: F401
                                        split_pattern, walk_shape)
 from repro_torch.core.device import DeviceLike, resolve_device
@@ -209,6 +234,9 @@ class MatmulPlan:
     # static kind: the host pattern (row_idx, col_idx) in operand order
     pattern: Optional[Tuple[np.ndarray, np.ndarray]] = dataclasses.field(
         default=None, repr=False)
+    # the supersede epoch at which an evolve last moved a holder off this
+    # plan (0: never); a graph captured before it replays a stale pattern
+    superseded: int = 0
 
     @property
     def grad_routes(self) -> Dict[str, str]:
@@ -228,8 +256,9 @@ class MatmulPlan:
         schema): the problem, the candidates' estimates (modelled or
         measured), the chosen route and its source, the disk provenance,
         the backward verdicts, the roofline of every candidate
-        (``roofline``) and the plan's one-time artifacts.  ``tp`` and
-        ``evolution`` are None until those modules land."""
+        (``roofline``), the plan's one-time artifacts and the evolution
+        lineage (``evolution``, None for a plan that was not evolved).
+        ``tp`` is None: the TP module is not ported."""
         return _explain(self)
 
     def roofline(self, *, flag_headroom: float = 2.0) -> dict:
@@ -272,6 +301,50 @@ class MatmulPlan:
             return None
         return dict(self.artifacts.get("capacity", {}),
                     stats=self.capacity_stats.report())
+
+    def evolve(self, new_pattern, *, rerace: Optional[bool] = None,
+               x: Optional[torch.Tensor] = None) -> "MatmulPlan":
+        """This static spmm plan moved onto ``new_pattern`` (a RigL
+        topology step), for the same problem, device and context.
+
+        Builds the walk of the new pattern on this plan's route (tile
+        packing, split blocks, the mma schedules, the balanced bins and
+        the backward's metadata) and inherits the forward and backward
+        verdicts: zero decisions and zero measurements.  Races again
+        (``plan``, measured with ``ctx.measure`` and ``x``) when the
+        pattern's profile drifted past ``ctx.evolve_drift`` from the one
+        the verdicts were raced on, or with ``rerace=True``;
+        ``rerace=False`` suppresses the drift trip.  Evolving the same
+        plan onto the same pattern again returns the plan the first call
+        built while it is live.  The result is registered under its own
+        key; this plan is marked superseded (``supersede_epoch``) and
+        stays live while something holds it.
+
+        ``new_pattern`` is a static ``BlockSparseMatrix`` (values
+        ignored), a bool block mask over the grid, or a ``(row_idx,
+        col_idx)`` pair.  ``carry_values`` on the result maps the old
+        values into its slots."""
+        if self.kind != "static" or self.spec.op != "spmm":
+            raise ValueError(
+                f"evolve() moves static spmm plans; this plan is "
+                f"kind={self.kind!r} op={self.spec.op!r} (a dynamic "
+                f"pattern is runtime data: change the operand, not the "
+                f"plan)")
+        if self.pattern is None:
+            raise ValueError("cannot evolve a plan without its concrete "
+                             "pattern; plan the operand")
+        return _evolve_plan(self, _as_static_bsr(new_pattern, self), rerace,
+                            x)
+
+    def carry_values(self, old_values: torch.Tensor) -> torch.Tensor:
+        """The parent pattern's ``[nnz_old, b, b]`` values in this evolved
+        plan's slots (one gather on their device): carried blocks keep
+        their values bit for bit, grown blocks start at zero (RigL)."""
+        ep = self.artifacts.get("_evolve")
+        if ep is None:
+            raise ValueError("carry_values() needs an evolved plan (the "
+                             "result of plan.evolve(...))")
+        return partitioner.apply_evolution(ep, old_values)
 
     # -- static kind -------------------------------------------------------
 
@@ -631,6 +704,14 @@ _REPLANNED: Dict[str, dict] = {}
 _PATTERN_INFO: Dict[Tuple, Tuple[Tuple[float, float],
                                   dispatch.WalkCounts]] = {}
 _PATTERN_INFO_MAX = 1024
+# plans an evolve moved off, by mem key, kept while something else holds
+# them (a module's plans, a graph, an autograd context)
+_SUPERSEDED: "weakref.WeakValueDictionary[Tuple, MatmulPlan]" = \
+    weakref.WeakValueDictionary()
+# bumped by every evolve (``MatmulPlan.superseded``)
+_EPOCH = 0
+# process-wide evolution telemetry (plan_report()["totals"]["evolution"])
+_EVOLUTION: Dict[str, int] = {"evolves": 0, "reraces": 0, "drift_trips": 0}
 
 
 def cache_stats() -> Dict[str, int]:
@@ -686,11 +767,26 @@ def note_use(p: MatmulPlan) -> None:
     capture.hold_plan(p)
 
 
+def _cached(mem_key: Tuple) -> Optional[MatmulPlan]:
+    """The plan cached at ``mem_key``: the plan cache's, else a
+    superseded plan something still holds."""
+    hit = _PLANS.get(mem_key)
+    return _SUPERSEDED.get(mem_key) if hit is None else hit
+
+
 def is_live(p: MatmulPlan) -> bool:
     """Is ``p`` still the plan cache's plan for its problem (not dropped
-    by ``reset``, an escalation or a re-planned verdict)?  Always true
+    by ``reset``, an escalation or a re-planned verdict)?  A plan an
+    evolve superseded stays live while something holds it.  Always true
     for a plan built with ``PlanContext(cache=False)``."""
-    return not p.ctx.cache or _PLANS.get(p.mem_key) is p
+    return not p.ctx.cache or _cached(p.mem_key) is p
+
+
+def supersede_epoch() -> int:
+    """The count of plan supersessions (evolves) in this process: a
+    plan with ``superseded`` above the value a holder saw was left by
+    some module since (``MatmulPlan.superseded``)."""
+    return _EPOCH
 
 
 def pool_plans(pool: str) -> list:
@@ -700,7 +796,7 @@ def pool_plans(pool: str) -> list:
     again."""
     with _LOCK:
         keys = list(_POOLS.get(pool, ()))
-        plans = [_PLANS.get(k) for k in keys]
+        plans = [_cached(k) for k in keys]
     return [p for p in plans if p is not None]
 
 
@@ -724,21 +820,28 @@ def _grad_report(p: MatmulPlan) -> dict:
 def plan_report() -> dict:
     """Every plan this process holds with its forward route, the route's
     ``source`` ("analytic", "measured" or "forced") and ``from_disk``,
-    its kind, op and the routes of its backward products (``grad``:
+    its kind, op, the routes of its backward products (``grad``:
     ``mode`` "planned" with each product's route and source when
-    autograd runs them, "unavailable" for a forward-only plan), plus the
-    totals."""
+    autograd runs them, "unavailable" for a forward-only plan) and its
+    evolution lineage, plus the totals (``evolution``: evolves, re-races
+    and drift trips since ``reset``, evolved plans held, their highest
+    generation).  An evolved plan's entry is ``<key>#gen<n>``: the
+    generations of one chain may share a key."""
     with _LOCK:
-        plans = list(_PLANS.values())
+        plans = list(_PLANS.values()) + list(_SUPERSEDED.values())
+        evo = dict(_EVOLUTION)
     per = {}
     for p in plans:
-        per[p.key] = {"route": p.route, "source": p.source,
-                      "from_disk": bool(p.from_disk), "op": p.spec.op,
-                      "kind": p.kind, "grad": _grad_report(p)}
+        ev = p.artifacts.get("evolution")
+        per[p.key if not ev else f"{p.key}#gen{ev['generation']}"] = {
+            "route": p.route, "source": p.source,
+            "from_disk": bool(p.from_disk), "op": p.spec.op,
+            "kind": p.kind, "grad": _grad_report(p), "evolution": ev}
     routes = collections.Counter(r["route"] for r in per.values())
     sources = collections.Counter(r["source"] for r in per.values())
     planned = [r["grad"] for r in per.values()
                if r["grad"]["mode"] == "planned"]
+    evolved = [r["evolution"] for r in per.values() if r["evolution"]]
     return {
         "per_plan": per,
         "totals": {
@@ -749,6 +852,10 @@ def plan_report() -> dict:
             "grad_from_disk": sum(1 for g in planned if g.get("from_disk")),
             "by_route": dict(sorted(routes.items())),
             "by_source": dict(sorted(sources.items())),
+            "evolution": dict(evo, evolved_plans=len(evolved),
+                              max_generation=max(
+                                  (e["generation"] for e in evolved),
+                                  default=0)),
         },
     }
 
@@ -788,22 +895,27 @@ def reset() -> None:
     this is what a fresh process sees."""
     with _LOCK:
         _PLANS.clear()
+        _SUPERSEDED.clear()
         _POOLS.clear()
         _CAPACITY.clear()
         _DROPS.clear()
         _DROPS_LOG.clear()
         _REPLANNED.clear()
+        for k in _EVOLUTION:
+            _EVOLUTION[k] = 0
     cache_lib.reset()
     dispatch.clear_cache()
 
 
 def reset_telemetry() -> None:
-    """Zero the running ``capacity_report()`` counters without
-    forgetting plans: stats of cached plans are zeroed in place (their
-    plans keep recording), orphaned ones dropped."""
+    """Zero the running ``capacity_report()`` counters and the evolution
+    totals without forgetting plans: stats of cached plans are zeroed in
+    place (their plans keep recording), orphaned ones dropped."""
     with _LOCK:
         _DROPS.clear()
         _DROPS_LOG.clear()
+        for k in _EVOLUTION:
+            _EVOLUTION[k] = 0
         live = {id(p.capacity_stats) for p in _PLANS.values()
                 if p.capacity_stats is not None}
         for key in list(_CAPACITY):
@@ -1191,7 +1303,7 @@ def _mem_key(fp: tuple, pkey, dev: torch.device, ctx: PlanContext) -> tuple:
     what a plan does but not its verdict."""
     persist = ctx.resolved_cache_dir() if ctx.persistence_on() else None
     return (fp, pkey, str(dev), persist, ctx.overflow_threshold,
-            ctx.telemetry, ctx.differentiable)
+            ctx.telemetry, ctx.differentiable, ctx.evolve_drift)
 
 
 def _admissible(cands, spec: OpSpec, ctx: PlanContext) -> Tuple[str, ...]:
@@ -1451,7 +1563,7 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
     _register(mem_key, ctx)
     if ctx.cache:
         with _LOCK:
-            hit = _PLANS.get(mem_key)
+            hit = _cached(mem_key)
         if hit is not None:
             cache_lib.bump("plan_hits")
             capture.hold_plan(hit)
@@ -1516,6 +1628,190 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
+# Evolution (MatmulPlan.evolve): RigL topology steps on static plans
+# ---------------------------------------------------------------------------
+
+# the pattern properties the H100 walk models price (the drift profile)
+_PROFILE = ("density", "occupancy", "skew")
+
+
+def _as_static_bsr(new_pattern, p: MatmulPlan) -> BlockSparseMatrix:
+    """``evolve``'s pattern argument as a static BSR of ``p``'s problem
+    (zero values on the host: a plan reads the pattern only)."""
+    b = p.block_size
+    shape = (p.m, p.k)
+    grid = (-(-p.m // b), -(-p.k // b))
+    if isinstance(new_pattern, BlockSparseMatrix):
+        if new_pattern.shape != shape or new_pattern.block_size != b:
+            raise ValueError(
+                f"evolved pattern {new_pattern.shape} at block "
+                f"{new_pattern.block_size} != the plan's {shape} at block "
+                f"{b}: evolve changes the pattern, never the problem")
+        check_unique_blocks(new_pattern.row_idx, new_pattern.col_idx, grid)
+        return new_pattern
+    if isinstance(new_pattern, tuple) and len(new_pattern) == 2:
+        rows = np.asarray(new_pattern[0], np.int32)
+        cols = np.asarray(new_pattern[1], np.int32)
+        check_unique_blocks(rows, cols, grid)
+        return BlockSparseMatrix(torch.zeros((len(rows), b, b),
+                                             dtype=p.dtype),
+                                 rows, cols, shape, b)
+    mask = np.asarray(new_pattern, bool)
+    if mask.shape != grid:
+        raise ValueError(f"evolved block mask {mask.shape} != grid {grid}")
+    return BlockSparseMatrix.from_mask(mask, b, dtype=p.dtype)
+
+
+def _pattern_profile(rows, cols, spec: OpSpec) -> Dict[str, float]:
+    """The drift metric's inputs: what the H100 walk models price of a
+    static pattern.  The block density; the occupancy of the tiles the
+    static kernels walk (``kernel_tile``: b in 4..64 walks each block as
+    its tile, so this is 1.0 but for the pad tiles of empty tile-rows,
+    and the 4 x 4 packing's below 4); the skew factor of its row
+    imbalance (``dispatch._skew_factor``, 1.0 below the knee)."""
+    b = spec.block_size
+    skew, counts = _pattern_info(pattern_key(rows, cols), rows, cols, spec)
+    mb, kb = -(-spec.m // b), -(-spec.k // b)
+    t = counts.tile
+    area = counts.tiles * t * t
+    return {"density": len(rows) / max(1, mb * kb),
+            "occupancy": len(rows) * b * b / area if area else 0.0,
+            "skew": dispatch._skew_factor(*skew)}
+
+
+def _persist_lineage(p: MatmulPlan, lineage: dict) -> None:
+    """Write the evolved verdict and its lineage at the evolved plan's
+    key, so a restart replays its forward and backward verdicts with
+    zero measurements and the lineage outlives the process."""
+    ctx = p.ctx
+    if not (ctx.cache and ctx.persistence_on()):
+        return
+    cdir = ctx.resolved_cache_dir()
+    rec = cache_lib.load_decision(cdir, p.key) or _record(p)
+    cache_lib.store_decision(cdir, p.key, dict(rec, evolution=lineage))
+
+
+def _supersede(parent: MatmulPlan) -> None:
+    """Mark ``parent`` superseded at a new epoch and move it from the
+    plan cache to the weak table (live while something holds it)."""
+    global _EPOCH
+    with _LOCK:
+        _EPOCH += 1
+        parent.superseded = _EPOCH
+        if parent.ctx.cache and _PLANS.get(parent.mem_key) is parent:
+            del _PLANS[parent.mem_key]
+            _SUPERSEDED[parent.mem_key] = parent
+
+
+def _evolve_plan(parent: MatmulPlan, new_bsr: BlockSparseMatrix,
+                 rerace: Optional[bool], x) -> MatmulPlan:
+    ctx, dev = parent.ctx, parent.device
+    new_rows = np.asarray(new_bsr.row_idx, np.int32)
+    new_cols = np.asarray(new_bsr.col_idx, np.int32)
+    pk_new = pattern_key(new_rows, new_cols)
+    children = parent.artifacts.setdefault("_children", {})
+    if not rerace:
+        # the modules sharing the parent (an LM's layers) evolve onto the
+        # same pattern one after the other: one plan for all of them
+        ref = children.get(pk_new)
+        child = ref() if ref is not None else None
+        if child is not None and is_live(child):
+            _supersede(parent)
+            return child
+    old_rows, old_cols = parent.pattern
+    spec = OpSpec.from_operand(new_bsr, parent.n, mode=parent.spec.mode)
+    eplan = partitioner.plan_evolution(old_rows, old_cols, new_rows,
+                                       new_cols, new_bsr.grid)
+    prof = _pattern_profile(new_rows, new_cols, spec)
+    parent_ev = parent.artifacts.get("evolution")
+    if parent_ev:
+        # the drift reference is the profile the live verdicts were raced
+        # on: inherited down the chain, reset by a re-race
+        ref_prof = {q: parent_ev[f"ref_{q}"] for q in _PROFILE}
+        gen, root = parent_ev["generation"] + 1, parent_ev["root_key"]
+    else:
+        ref_prof = _pattern_profile(old_rows, old_cols, parent.spec)
+        gen, root = 1, parent.key
+    thr = ctx.evolve_drift
+    drift = max(abs(prof[q] - ref_prof[q]) / max(ref_prof[q], 1e-12)
+                for q in _PROFILE)
+    tripped = thr is not None and drift > thr
+    do_rerace = tripped if rerace is None else bool(rerace)
+    with _LOCK:
+        _EVOLUTION["evolves"] += 1
+        _EVOLUTION["drift_trips"] += int(tripped)
+        _EVOLUTION["reraces"] += int(do_rerace)
+    lineage = {"parent_key": parent.key, "root_key": root,
+               "generation": gen, "drift": round(float(drift), 6),
+               "drift_threshold": thr, "drift_tripped": bool(tripped),
+               "reraced": bool(do_rerace), "carried": eplan.carried,
+               "dropped": eplan.dropped, "grown": eplan.grown,
+               **{q: round(float(prof[q]), 6) for q in _PROFILE}}
+    base = prof if do_rerace else ref_prof
+    lineage.update({f"ref_{q}": round(float(base[q]), 6) for q in _PROFILE})
+    if do_rerace:
+        p = plan(new_bsr, spec.n, x=x, device=dev, ctx=ctx)
+    else:
+        # the verdict-reuse path: the new pattern's walk on the parent's
+        # route and backward routes, no decision, no measurement
+        _check_plan_contracts(parent.route, spec, ctx)
+        p = _build_static(new_bsr, spec.n, dev, parent.route, ctx,
+                          with_grad=parent.grad is not None)
+        skew, _ = _pattern_info(pk_new, new_rows, new_cols, spec)
+        fp = _fingerprint(spec, ctx, dev, skew)
+        p.spec, p.key = spec, cache_lib.key_string(fp)
+        p.mem_key = _mem_key(fp, pk_new, dev, ctx)
+        p.source, p.est_seconds = parent.source, dict(parent.est_seconds)
+        p.from_disk = parent.from_disk
+        if parent.grad is not None:
+            _set_grad_routes(p, parent.grad.dx_route, parent.grad.dv_route)
+        if "grad" in parent.artifacts:
+            # inherited from the parent in memory: its disk provenance
+            p.artifacts["grad"] = dict(parent.artifacts["grad"],
+                                       evolved=True)
+        cache_lib.bump("plans_built")
+        if ctx.cache:
+            with _LOCK:
+                # the evolved plan is this pattern's continuation: a
+                # plan() of it must hit with zero decisions
+                _PLANS[p.mem_key] = p
+                _SUPERSEDED.pop(p.mem_key, None)
+    p.artifacts["evolution"] = lineage
+    p.artifacts["_evolve"] = eplan
+    _persist_lineage(p, lineage)
+    children[pk_new] = weakref.ref(p)
+    _supersede(parent)
+    return p
+
+
+def evolve(plan_: MatmulPlan, new_pattern, *,
+           rerace: Optional[bool] = None,
+           x: Optional[torch.Tensor] = None) -> MatmulPlan:
+    """Module-level spelling of ``plan_.evolve(new_pattern)``."""
+    return plan_.evolve(new_pattern, rerace=rerace, x=x)
+
+
+def evolve_plans(old_pattern: BlockSparseMatrix,
+                 new_pattern: BlockSparseMatrix) -> int:
+    """Evolve every cached static spmm plan built on ``old_pattern``
+    (any ``n`` or context; superseded ones something still holds
+    included) onto ``new_pattern``, each marked superseded.  Returns how
+    many were evolved.  ``SparseLinear.evolve`` evolves its own plans
+    alone (``evolve``): the other modules on the old pattern keep
+    theirs."""
+    pk_old = pattern_key(old_pattern.row_idx, old_pattern.col_idx)
+    with _LOCK:
+        plans = [p for mk, p in list(_PLANS.items())
+                 + list(_SUPERSEDED.items()) if mk[1] == pk_old]
+    count = 0
+    for p in plans:
+        if p.kind == "static" and p.spec.op == "spmm":
+            p.evolve(new_pattern)
+            count += 1
+    return count
+
+
+# ---------------------------------------------------------------------------
 # Reports and the re-planner's body
 # ---------------------------------------------------------------------------
 
@@ -1541,7 +1837,7 @@ def _explain(p: MatmulPlan) -> dict:
         "cache_key": p.key,
         "tp": None,
         "grad": p.artifacts.get("grad"),
-        "evolution": None,
+        "evolution": p.artifacts.get("evolution"),
         "roofline": p.roofline(),
         "plan": dict({k2: v for k2, v in p.artifacts.items()
                       if not k2.startswith("_")}, executable=True),
@@ -1589,6 +1885,13 @@ def format_plan(p: MatmulPlan) -> str:
         if others:
             line += f"; also flagged: {', '.join(others)}"
         extra.append(line)
+    ev = rep.get("evolution")
+    if ev:
+        extra.append(
+            f"evolution: gen {ev['generation']} (carried {ev['carried']}, "
+            f"dropped {ev['dropped']}, grown {ev['grown']}; drift "
+            f"{ev['drift']:.4f} vs {ev['drift_threshold']}; "
+            + ("re-raced" if ev["reraced"] else "verdicts inherited") + ")")
     if "grouped_tile" in art:
         t = art["grouped_tile"]
         extra.append(f"grouped: {t}x{t} tile slots (cap "

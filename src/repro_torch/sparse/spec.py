@@ -324,6 +324,19 @@ class PlanContext:
                     dense product and a gather; a route id forces one
                     (``GRAD_SDDMM_MODES``)
 
+    Evolution policy (``MatmulPlan.evolve``: RigL topology updates on
+    static plans):
+
+    evolve_drift    relative drift of the pattern's profile (block
+                    density, kernel-tile occupancy and the walk model's
+                    skew factor, against the profile the verdicts were
+                    raced on) above which ``evolve`` races the routes
+                    again instead of inheriting them.  Constant-nnz RigL
+                    steps drift ~0; a pruning schedule that halves the
+                    density trips it.  0.0 re-races on any change, None
+                    never.  Joins the in-memory key only; the value and
+                    the drift are recorded in the evolution lineage
+
     Plan pool (the serving engine's plan enumeration):
 
     pool            label grouping every plan used under this context
@@ -347,9 +360,13 @@ class PlanContext:
     telemetry: bool = True
     grad_mode: str = "auto"
     sddmm_mode: str = "auto"
+    evolve_drift: Optional[float] = 0.25
     pool: Optional[str] = None
 
     def __post_init__(self):
+        if self.evolve_drift is not None and self.evolve_drift < 0:
+            raise ValueError(f"evolve_drift must be >= 0 or None, got "
+                             f"{self.evolve_drift}")
         if self.mode not in MODES:
             raise ValueError(f"unknown plan mode {self.mode!r}; expected "
                              f"one of {MODES}")

@@ -7,8 +7,12 @@ model's own tensors, keyed by name, and a step updates them in place.
 Gradients come from ``torch.autograd.grad`` of ``LM.loss``: through the
 sparse FFN that runs the static plan's planned backward (bsmm on the
 transposed pattern for dL/dx, the SDDMM for dL/dvalues).  Gradient
-compression (``optim/compress.py``) and RigL topology steps
-(``rigl_evolve``) are not ported yet.
+compression (``optim/compress.py``) is not ported yet.
+
+RigL topology steps: ``rigl_evolve`` is the reference's step on a plan
+(the new mask, the evolved plan, the carried values);
+``evolve_sparse_layer`` applies one to a ``SparseLinear`` of a training
+state, its optimizer slots (``carry_slots``) with it.
 """
 from __future__ import annotations
 
@@ -17,8 +21,10 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core import partitioner, pruning
+from repro_torch.core.bsr import BlockSparseMatrix
 from repro_torch.optim.adamw import (AdamState, adamw_init, adamw_update,
-                                     clip_by_global_norm)
+                                     carry_slots, clip_by_global_norm)
 from repro_torch.optim.schedule import warmup_cosine
 
 Tensors = Dict[str, torch.Tensor]
@@ -93,6 +99,47 @@ def microbatch_grads(grad_fn: Callable, params: Tensors, batch: dict,
     inv = 1.0 / accum
     return (tot_loss * inv, {k: v * inv for k, v in tot_metrics.items()},
             {n: g * inv for n, g in acc.items()})
+
+
+@torch.no_grad()
+def rigl_evolve(plan_, values: torch.Tensor, dense_grad: torch.Tensor, *,
+                fraction: float, generator: torch.Generator):
+    """One RigL topology step on a static sparse plan: drop the
+    ``fraction`` lowest-|W| active blocks, regrow as many by the largest
+    |dense gradient| (``pruning.rigl_update``, on the values' device),
+    ``plan_.evolve`` onto the new pattern and carry the surviving values
+    (grown blocks start at zero).  Returns ``(new_plan, new_values)``.
+
+    ``dense_grad`` is the dense-position ``dL/dW = dy^T . x`` of shape
+    ``[m, k]`` at every block, active or not.  The reference computes it
+    outside any Pallas kernel (XLA's dot); its counterpart here is
+    ``torch.matmul`` in the caller.  The one host read of the step is
+    the new mask going to ``evolve``, as in the reference; the carry
+    stays on the device.  Constant nnz, so the evolved plan keeps the
+    parent's verdicts unless the drift guardrail trips."""
+    rows, cols = plan_.pattern
+    bsr = BlockSparseMatrix(values, rows, cols, (plan_.m, plan_.k),
+                            plan_.block_size)
+    mask = torch.zeros(bsr.grid, dtype=torch.bool)
+    mask[torch.as_tensor(rows, dtype=torch.long),
+         torch.as_tensor(cols, dtype=torch.long)] = True
+    new_mask = pruning.rigl_update(
+        bsr.to_dense(), dense_grad, mask.to(values.device),
+        block_size=plan_.block_size, fraction=fraction, generator=generator)
+    new_plan = plan_.evolve(new_mask.cpu().numpy())
+    return new_plan, new_plan.carry_values(values)
+
+
+def evolve_sparse_layer(state: TrainState, name: str, layer,
+                        new_pattern) -> partitioner.EvolvePlan:
+    """Move the ``SparseLinear`` ``layer``, whose values are
+    ``state.params[name]``, onto ``new_pattern`` (``layer.evolve``) and
+    carry the optimizer's master copy and moments of those values with
+    it (``carry_slots``).  Returns the ``EvolvePlan``."""
+    eplan = layer.evolve(new_pattern)
+    carry_slots(state.opt, name, eplan)
+    state.params[name] = layer.values
+    return eplan
 
 
 def lm_grad_fn(lm) -> Callable:

@@ -1489,3 +1489,128 @@ def test_engine_captures_on_one_stream_and_memory_holds(dev, monkeypatch):
         one()
     grown = torch.cuda.memory_allocated(dev) - base
     assert grown <= 3 * (36 << 20), grown / 2 ** 20
+
+
+# -- RigL topology updates on static plans -------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in, d_out", [(2048, 8192), (8192, 2048)])
+def test_evolved_plan_kernels_match_plain_at_llama_width(dev, d_in, d_out):
+    """llama's FFN projections (b 16, d 1/8, bf16, N 2048) after a RigL
+    step moving 20 % of the blocks (``rigl_evolve``): the evolved plan's
+    forward (bsmm), dL/dx (bsmm on W^T's re-recorded schedule) and
+    dL/dvalues (sddmm) on the tensor-core walks, against the plain
+    formulation on the evolved pattern; no route decision."""
+    from repro_torch.core import static_sparse
+    from repro_torch.core.sparse_layers import SparseLinear
+    from repro_torch.kernels.sddmm import ops as sddmm_ops
+    from repro_torch.train.step import rigl_evolve
+    dt, b, n = torch.bfloat16, 16, 2048
+    layer = SparseLinear.random_pattern(d_in, d_out, b, 1 / 8, seed=1,
+                                        dtype=dt, device=dev)
+    layer.reset_parameters(torch.Generator(device=dev).manual_seed(0))
+    g = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn((n, d_in), generator=g, device=dev).to(dt)
+    gy = torch.randn((n, d_out), generator=g, device=dev).to(dt)
+    with sparse.use_ctx(sparse.PlanContext(mode="static",
+                                           grad_mode="static",
+                                           sddmm_mode="sddmm_grouped")):
+        p = layer.plan(n, x)
+        s0 = sparse.cache_stats()
+        p2, _ = rigl_evolve(p, layer.values.detach(), gy.float().t() @
+                            x.float(), fraction=0.2, generator=g)
+        ep = layer.evolve(_mask_of(p2, d_out // b, d_in // b))
+        assert ep.dropped == ep.grown == int(np.float32(p.artifacts[
+            "nnz_blocks"]) * np.float32(0.2))
+        assert layer.plan(n) is p2
+        assert sparse.cache_stats()["decisions"] == s0["decisions"]
+        layer.requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        walks = (bsmm_ops.WALK_COUNTERS["mma"],
+                 sddmm_ops.WALK_COUNTERS["mma"])
+        before = [c.launches for c in walks]
+        layer(xg).backward(gy)
+        torch.cuda.synchronize()
+    assert [c.launches - b0 for c, b0 in zip(walks, before)] == [2, 1]
+    f = static_sparse.make_spmm(layer.row_idx, layer.col_idx,
+                                (d_out // b, d_in // b), b)
+    v = layer.values.detach().clone().requires_grad_(True)
+    xt = x.t().contiguous().requires_grad_(True)
+    y_ref = f(v, xt)
+    y_ref.backward(gy.t())
+    with torch.no_grad():
+        assert _rel(layer(x), y_ref.t()) <= TOL[dt]
+    assert _rel(layer.values.grad, v.grad) <= TOL[dt]
+    assert _rel(xg.grad, xt.grad.t()) <= TOL[dt]
+
+
+def _mask_of(p, mb, kb):
+    mask = np.zeros((mb, kb), bool)
+    mask[p.pattern[0], p.pattern[1]] = True
+    return mask
+
+
+@pytest.mark.cuda
+def test_engine_graphs_recapture_after_evolve(dev):
+    """Serve through the engine's graphs, evolve the up projection of
+    every layer onto one new mask, serve again: each program that runs
+    is re-captured once before its replay (its graph held the superseded
+    plans), the old plans are freed once no graph holds them, and the
+    tokens and every call's logits equal a fresh engine's on the evolved
+    model."""
+    import gc
+    import weakref
+
+    from repro_torch.core.sparse_layers import SparseFFN
+    lm = LM(_serve_cfg("llama-sparse"), device=dev, seed=0)
+    kw = dict(buckets=(8, 24, 48), max_len=64)
+    lengths = [5, 20, 9, 40, 3, 33]
+    sparse.reset()
+    first, _, _, _, eng = _serve(lm, dev, True, lengths, **kw)
+    ffns = [m for m in lm.modules() if isinstance(m, SparseFFN)]
+    up = ffns[0].up
+    old = [weakref.ref(p) for p in up._plans.values()]
+    new_mask = masks.random_block_mask(up.out_features, up.in_features,
+                                       up.block_size, 0.25, seed=11)
+    s0 = sparse.cache_stats()
+    for f in ffns:
+        f.up.evolve(new_mask)
+    assert sparse.cache_stats()["decisions"] == s0["decisions"]
+    assert all(r() is not None for r in old)          # the graphs hold them
+    seen = []
+    read = eng._read
+
+    def keep(out_logits):
+        seen.append(out_logits[1].clone())
+        return read(out_logits)
+
+    eng._read = keep
+    reqs = _serve_stream(7, lengths)
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    ran = [p for p in eng.programs() if p.replays and not p.stale]
+    assert {p.name for p in ran} == {"prefill[8]", "prefill[24]",
+                                     "prefill[48]", "decode"}
+    assert all(p.recaptures == 1 for p in ran)
+    assert eng._prefills[63].superseded()               # not yet run
+    gc.collect()
+    assert sum(r() is None for r in old) == len(ran)
+    got = [r.output for r in reqs]
+    assert got != first
+    # a fresh engine with the same history (the stream served once)
+    fresh = _serve(lm, dev, True, lengths, **kw)[4]
+    want = []
+    read = fresh._read
+
+    def keep_fresh(out_logits):
+        want.append(out_logits[1].clone())
+        return read(out_logits)
+
+    fresh._read = keep_fresh
+    again = _serve_stream(7, lengths)
+    fresh.run(again)
+    assert [r.output for r in again] == got
+    assert len(want) == len(seen)
+    for a, b in zip(seen, want):
+        assert torch.equal(a, b)
+    sparse.reset()
