@@ -199,6 +199,20 @@ Phases, each fatal on failure:
    layers: decode after a 6-token prompt, prefilled in its bucket,
    against ``forward`` within the fp32 budget, ``forward`` dropping no
    assignment;
+12c. train-qwen3-moe: ``launch.train.train_loop`` on the same model at
+   full width in bf16, depth cut to 4 layers (~3.1 B parameters, ~50 GB
+   of training state), batch 4 x seq 512 (C = 160, row tile 80), 10
+   AdamW steps from a seeded init.  The launch counters are zeroed just
+   before and read just after; gmm's are split into the forward's and
+   the backward's (dL/da on W^T).  It fails unless every loss is finite
+   and the last below the first, gmm, dense_mm and bs_attn launch, gmm
+   launches in both directions, all on the wgmma walk, and one trained
+   layer's ``batched_matmul`` backward (dL/da by gmm on W^T, dL/dW by
+   ``torch.bmm``) equals ``torch.matmul``'s autograd in fp32 on the same
+   bf16 inputs within the bf16 budget.  Prints the step p50, tokens/s,
+   peak GiB, each step's ``aux_loss``, ``z_loss`` and ``dropped_frac``,
+   gmm's launches by walk and direction and the host syncs of one step
+   (``torch.cuda.set_sync_debug_mode("warn")``; reported, not failed);
 13. roofline (after 11): ``sparse.roofline_report()`` totals of the
    llama and gemma2 engines and each served static plan's chosen route
    on the H100's roofline (efficiency, headroom, dominant term,
@@ -2455,6 +2469,11 @@ QWEN3_BATCH, QWEN3_MAX_LEN, QWEN3_NEW = 4, 1024, 8
 # the fp32 end-to-end check: full width, depth cut to 4 layers (fp32 at
 # full depth would need 122 GB)
 QWEN3_FP32_LAYERS = 4
+# [train-qwen3-moe]: qwen3-moe-30b-a3b at full width, depth cut to 4
+# layers, trained as the llama train phase is (batch 4 x seq 512, 10
+# AdamW steps); the host syncs are counted in one step after the first
+QWEN3_TRAIN_LAYERS, QWEN3_TRAIN_BATCH, QWEN3_TRAIN_SEQ = 4, 4, 512
+QWEN3_TRAIN_SYNC_STEP = 5
 
 
 def qwen3_prompt_lens(args):
@@ -2486,11 +2505,22 @@ def qwen3_prefill_capacity(args):
     return moe._capacity(n, configs.get("qwen3-moe-30b-a3b")), n
 
 
+def qwen3_train_capacity() -> int:
+    """C of the train phase's MoE layers (batch 4 x seq 512 tokens)."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    return moe._capacity(QWEN3_TRAIN_BATCH * QWEN3_TRAIN_SEQ,
+                         configs.get("qwen3-moe-30b-a3b"))
+
+
 def gmm_kernel_phase(torch, args):
     """gmm against its plain version at qwen3-moe's expert GEMMs (E 128;
     gate/up D 2048 -> F 768, down D 768 -> F 2048; bf16 and fp32) at the
-    decode capacity C = 8 (tm 8) and at the capacity of the largest
-    prefill the serve run makes, with the ids ``batched_matmul`` builds
+    decode capacity C = 8 (tm 8), at the capacity of the largest
+    prefill the serve run makes and at the train phase's (C 160, tm 80
+    in 16-bit; its dL/da products on W^T have the same shapes, gate/up's
+    on down's and down's on gate/up's), with the ids ``batched_matmul`` builds
     (each expert one run of C / tm row tiles); and at the reference
     test's general case (E 8, tm 64, T 256, D 128, F 96, random
     non-monotone ids).  Library: ``torch.bmm`` on the ``[E, C, D]``
@@ -2504,6 +2534,7 @@ def gmm_kernel_phase(torch, args):
     dtypes = {"bfloat16": torch.bfloat16, "float16": torch.float16,
               "float32": torch.float32}
     c_pre, _ = qwen3_prefill_capacity(args)
+    c_train = qwen3_train_capacity()
     e = 128
     rows = []
 
@@ -2513,7 +2544,7 @@ def gmm_kernel_phase(torch, args):
 
     cases = [(f"{name} C={c}", e, c, d, f, "batched")
              for name, d, f in (("gate/up", 2048, 768), ("down", 768, 2048))
-             for c in (8, c_pre)]
+             for c in (8, c_pre, c_train)]
     cases.append(("general E=8 random ids", 8, 256, 128, 96, "random"))
     for dname, dt in dtypes.items():
         for shape, ne, c, d, f, kind in cases:
@@ -2799,6 +2830,197 @@ def qwen3_fp32_phase(torch, args):
         raise RuntimeError(f"qwen3 fp32 decode disagrees with forward "
                            f"(or forward dropped): {out}")
     return out
+
+
+def train_qwen3_phase(torch, args):
+    """[train-qwen3-moe]: ``launch.train.train_loop`` on qwen3-moe-30b-a3b
+    at full width (d_model 2048, GQA 32/4, head dim 128, 128 experts
+    top-8 of d_ff 768, vocab 151936, untied), bf16, from a seeded init,
+    depth cut to ``QWEN3_TRAIN_LAYERS`` = 4 layers so the training state
+    fits the card: a layer holds ~623 M parameters (the experts 128 x 3
+    x 2048 x 768 = 604 M, attention ~19 M), the embedding and the
+    unembed 2 x 151936 x 2048 = 622 M, so 4 layers are ~3.11 B
+    parameters; at 16 B a parameter (bf16 weight and gradient, fp32
+    master, mu and nu) ~50 GB (~46 GiB), plus the clipped gradients
+    (6.2 GB), AdamW's fp32 temporaries of one group and the
+    activations.  6 layers would need ~70 GB.  Batch 4 x seq 512 (C =
+    160, row tile 80), 10 AdamW steps, no checkpoint.
+
+    The launch counters are zeroed just before and read just after; gmm
+    launches are split into the forward's (counted inside the MoE
+    modules' forward calls) and the backward's (dL/da on W^T), by walk.
+    It fails unless every loss is finite and the last below the first,
+    gmm, dense_mm and bs_attn launch, gmm launches in the forward and the
+    backward, every gmm launch is on the wgmma walk, and one trained
+    layer's ``batched_matmul`` backward (gate/up's and down's shapes, the
+    step's C and row tile) equals ``torch.matmul``'s autograd in fp32 on
+    the same bf16 inputs within the bf16 budget.  Reports the step p50,
+    tokens/s, the peak GiB, each step's ``aux_loss``, ``z_loss`` and
+    ``dropped_frac`` and the host syncs of one step under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (its loss read included;
+    reported, not failed)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs, sparse
+    from repro_torch.kernels import bs_attn, dense_mm, gmm
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.moe import MoE
+    from repro_torch.train.step import TrainHParams
+
+    base = configs.get("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(
+        base, groups=((base.groups[0][0], QWEN3_TRAIN_LAYERS),))
+    assert cfg.dtype == "bfloat16" and not cfg.tie_embeddings
+    steps, batch, seq = TRAIN_STEPS, QWEN3_TRAIN_BATCH, QWEN3_TRAIN_SEQ
+    cap = qwen3_train_capacity()
+    counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
+    hp = TrainHParams(**TRAIN_HP)
+    fwd = {w: 0 for w in gmm.WALK_COUNTERS}
+    held, entry = {}, {}
+
+    def pre(mod, inputs):
+        if isinstance(mod, MoE):
+            entry[id(mod)] = {w: c.launches
+                              for w, c in gmm.WALK_COUNTERS.items()}
+
+    def post(mod, inputs, out):
+        if isinstance(mod, MoE):
+            seen = entry.pop(id(mod))
+            for w, c in gmm.WALK_COUNTERS.items():
+                fwd[w] += c.launches - seen[w]
+            held.setdefault("moe", mod)
+
+    per_step, records, sync = [], [], {}
+    last = {k: 0 for k in counters}
+
+    def on_step(step, metrics):
+        if "catcher" in sync:
+            torch.cuda.set_sync_debug_mode(0)
+            sync.pop("catcher").__exit__(None, None, None)
+            log = [w for w in sync.pop("log")
+                   if "synchroniz" in str(w.message).lower()]
+            sync.update(step=step, count=len(log), at=sorted(
+                {"/".join(w.filename.split(os.sep)[-2:]) + f":{w.lineno}"
+                 for w in log}))
+        now = {k: c.launches for k, c in counters.items()}
+        per_step.append({k: now[k] - last[k] for k in counters})
+        last.update(now)
+        records.append(dict(
+            step=step, step_s=float(metrics["step_s"]),
+            **{k: float(metrics[k]) for k in
+               ("loss", "grad_norm", "lr", "aux_loss", "z_loss",
+                "dropped_frac")}))
+        r = records[-1]
+        print(f"[train-qwen3-moe] step {step} loss {r['loss']:.4f} gnorm "
+              f"{r['grad_norm']:.4f} aux_loss {r['aux_loss']:.4f} z_loss "
+              f"{r['z_loss']:.4f} dropped_frac {r['dropped_frac']:.4f} "
+              f"wall {r['step_s'] * 1e3:.1f} ms launches {per_step[-1]}")
+        if step == QWEN3_TRAIN_SYNC_STEP - 1:
+            sync["catcher"] = warnings.catch_warnings(record=True)
+            sync["log"] = sync["catcher"].__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+
+    hooks = (torch.nn.modules.module.register_module_forward_pre_hook(pre),
+             torch.nn.modules.module.register_module_forward_hook(post))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        state, losses = train_loop(
+            cfg, steps=steps, batch_per_shard=batch, seq=seq, ckpt_dir=None,
+            hp=hp, device="cuda", log_every=10 ** 9, on_step=on_step,
+            seed=args.seed)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+        if "catcher" in sync:
+            torch.cuda.set_sync_debug_mode(0)
+            sync.pop("catcher").__exit__(None, None, None)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    check_tensor_core_walks("train-qwen3-moe", walks)
+    gmm_split = {"forward": {w: n for w, n in fwd.items() if n},
+                 "backward": {w: walks["gmm"][w] - fwd[w]
+                              for w in walks["gmm"]
+                              if walks["gmm"][w] - fwd[w]}}
+    p50 = float(np.median([r["step_s"] for r in records]))
+    n_params = sum(p.numel() for p in state.params.values())
+    del state
+
+    # one trained layer's batched_matmul backward at the step's C
+    mod = held["moe"]
+    dev = mod.w_gate.device
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    layer = []
+    for name, w in (("gate/up", mod.w_gate), ("down", mod.w_down)):
+        e, d, f = w.shape
+        a = torch.randn((e, cap, d), generator=gen, device=dev).to(w.dtype)
+        gy = torch.randn((e, cap, f), generator=gen, device=dev).to(w.dtype)
+        ta = a.clone().requires_grad_(True)
+        tw = w.detach().clone().requires_grad_(True)
+        before = gmm.COUNTER.launches
+        y = sparse.batched_matmul(ta, tw)
+        y.backward(gy)
+        torch.cuda.synchronize()
+        launched = gmm.COUNTER.launches - before
+        ra = a.float().requires_grad_(True)
+        rw = w.detach().float().requires_grad_(True)
+        want = torch.matmul(ra, rw)
+        want.backward(gy.float())
+        p = sparse.plan(sparse.OpSpec(kind="dense", m=cap, k=d, n=f,
+                                      dtype=w.dtype, op="batched_matmul"),
+                        device=dev)
+        wt = w.detach()
+        layer.append(dict(
+            product=name, shape=f"[{e}, {cap}, {d}] @ [{e}, {d}, {f}]",
+            row_tile=p.row_tile, gmm_launches=launched,
+            grad=sparse.plan_report()["per_plan"][p.key]["grad"],
+            y_rel_err=rel_err(y, want)[0],
+            da_rel_err=rel_err(ta.grad, ra.grad)[0],
+            dw_rel_err=rel_err(tw.grad, rw.grad)[0],
+            tol=KERNEL_TOL["bfloat16"],
+            wt_copy_ms=timed_ms(
+                torch, lambda x: x.transpose(-1, -2).contiguous(),
+                [(wt,)], 10)))
+        del a, gy, ta, tw, ra, rw, y, want
+    result = dict(
+        layers=QWEN3_TRAIN_LAYERS, steps=steps, batch=batch, seq=seq,
+        capacity=cap, hp=dict(TRAIN_HP),
+        params=n_params,
+        losses=losses, records=records, launches=launches, walks=walks,
+        gmm_launches=gmm_split, launches_per_step=per_step, wall_s=wall,
+        step_p50_ms=p50 * 1e3, tokens_per_s=batch * seq / p50,
+        peak_mem_gb=peak, host_syncs=sync, layer_backward=layer)
+    del held, mod
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in records):
+        raise RuntimeError(f"[train-qwen3-moe] non-finite loss or grad "
+                           f"norm: {records}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise RuntimeError(f"[train-qwen3-moe] kernel {name} was not "
+                               f"launched")
+    if not (gmm_split["forward"] and gmm_split["backward"]):
+        raise RuntimeError(f"[train-qwen3-moe] gmm must launch in the "
+                           f"forward and the backward: {gmm_split}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"[train-qwen3-moe] loss did not fall: first "
+                           f"{losses[0]}, last {losses[-1]}")
+    bad = [r for r in layer if r["gmm_launches"] != 2 or not max(
+        r["y_rel_err"], r["da_rel_err"], r["dw_rel_err"]) <= r["tol"]]
+    if bad:
+        raise RuntimeError(f"[train-qwen3-moe] batched_matmul backward vs "
+                           f"plain: {bad}")
+    return result
 
 
 # [evolve]: RigL topology steps on llama3.2-1b's sparse FFN at full width
@@ -3594,6 +3816,33 @@ def main(argv=None) -> int:
           f"{q32['tol']}); forward dropped "
           f"{q32['forward_dropped_assignments']:.3f} assignments")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["train_qwen3"] = torch.cuda.memory_allocated() / 2 ** 30
+    tq = train_qwen3_phase(torch, args)
+    print(f"[train-qwen3-moe] {tq['layers']} layers at full width "
+          f"({tq['params'] / 1e9:.3f} B parameters), {tq['steps']} steps of "
+          f"batch {tq['batch']} x seq {tq['seq']} (C {tq['capacity']}): "
+          f"loss {tq['losses'][0]:.4f} -> {tq['losses'][-1]:.4f}; step p50 "
+          f"{tq['step_p50_ms']:.1f} ms = {tq['tokens_per_s']:.0f} tokens/s; "
+          f"peak memory {tq['peak_mem_gb']:.2f} GiB; launches "
+          f"{json.dumps(tq['launches'])}; gmm launches by walk "
+          f"{json.dumps(tq['gmm_launches'])} (per step: forward "
+          f"{sum(tq['gmm_launches']['forward'].values()) / tq['steps']:g}, "
+          f"backward "
+          f"{sum(tq['gmm_launches']['backward'].values()) / tq['steps']:g})")
+    print(f"[train-qwen3-moe] host syncs in step "
+          f"{tq['host_syncs'].get('step')} (its loss read included): "
+          f"{tq['host_syncs'].get('count')} at "
+          f"{json.dumps(tq['host_syncs'].get('at'))}")
+    for r in tq["layer_backward"]:
+        print(f"[train-qwen3-moe] layer backward {r['product']} "
+              f"{r['shape']} tm={r['row_tile']}: y rel_err "
+              f"{r['y_rel_err']:.2e}, dA (gmm on W^T) {r['da_rel_err']:.2e}, "
+              f"dW (torch.bmm) {r['dw_rel_err']:.2e} (budget {r['tol']}); "
+              f"gmm launches {r['gmm_launches']}; W^T copy "
+              f"{r['wt_copy_ms']:.4f} ms; grad {json.dumps(r['grad'])}")
+
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
@@ -3617,12 +3866,14 @@ def main(argv=None) -> int:
                "table3": table3_launches, "race": race_launches,
                "dynamic": dyn_launches, "evolve": evo["launches"],
                "serve_gemma2": gemma["launches"],
-               "serve_qwen3": qwen["launches"]}
+               "serve_qwen3": qwen["launches"],
+               "train_qwen3": tq["launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
                      "dynamic": dyn_walks, "evolve": evo["walks"],
                      "serve_gemma2": gemma["walks"],
-                     "serve_qwen3": qwen["walks"]}
+                     "serve_qwen3": qwen["walks"],
+                     "train_qwen3": tq["walks"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -3681,7 +3932,8 @@ def main(argv=None) -> int:
         "launches_by_path": {k: v.get("gmm", 0)
                              for k, v in by_path.items()},
         "launches_by_walk": {p: w["gmm"]
-                             for p, w in walks_by_path.items()}})
+                             for p, w in walks_by_path.items()},
+        "train_qwen3_launches": tq["gmm_launches"]})
 
     corpus = corpus_of(race, race_serve, rows)
     cal = calibrate_phase(torch, race, corpus, serve, gemma)
@@ -3730,7 +3982,8 @@ def main(argv=None) -> int:
                        "table3": table3, "race": race,
                        "race_serve": race_serve, "dynamic": dyn,
                        "attn": attn_rows, "serve_gemma2": gemma,
-                       "serve_qwen3": qwen, "kernels": kernels,
+                       "serve_qwen3": qwen, "train_qwen3": tq,
+                       "kernels": kernels,
                        "replan": replan, "roofline": roof,
                        "evolve": evo, "evolve_serve": evolve_serve,
                        "calibrate": cal, "corpus": corpus,

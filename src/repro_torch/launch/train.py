@@ -7,6 +7,14 @@ Runs on the card by default (``--device cpu`` runs the kernels' plain
 PyTorch versions; use ``--smoke`` there).  ``--density`` makes every FFN
 block-sparse at that block density, so the step runs the sparse plan's
 planned backward (bsmm on the transposed pattern, the SDDMM kernel).
+An MoE config trains through its expert GEMMs' planned backward (gmm)
+and adds the router losses:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen3-moe-30b-a3b --smoke --device cpu --steps 3
+
+``train_loop`` takes any config, a depth-cut one included
+(``dataclasses.replace`` of ``groups``).
 
 Counterpart of the JAX package's ``launch/train.py``: a deterministic
 data pipeline with a checkpointable cursor, async atomic checkpoints

@@ -5,13 +5,12 @@ only attention stacks, global and local (sliding-window) layers, with
 Gemma's embedding scale, pre+post norms and soft-caps, and dense, sparse
 or MoE FFNs (``forward``, ``loss``, ``prefill(last_index=)``,
 ``init_cache``, ``decode_step``; the retained ring cache, the encoder and
-the frontends wait, and ``loss`` of an MoE config waits for MoE
-training).  ``forward(..., return_metrics=True)`` also returns the
-stack metrics the reference's ``forward`` returns (``aux_loss``,
-``z_loss``, ``dropped_frac``, summed over the layers; zeros without
-MoE).  ``LM`` is an
-``nn.Module`` that holds its parameters: ``init(seed)`` fills them from a
-seeded ``torch.Generator``,
+the frontends wait).  ``loss`` of an MoE config adds the router losses,
+as the reference's does.  ``forward(..., return_metrics=True)`` also
+returns the stack metrics the reference's ``forward`` returns
+(``aux_loss``, ``z_loss``, ``dropped_frac``, summed over the layers;
+zeros without MoE).  ``LM`` is an ``nn.Module`` that holds its
+parameters: ``init(seed)`` fills them from a seeded ``torch.Generator``,
 ``load_jax_params(tree)`` copies them from the JAX package's params
 pytree converted to numpy, ``load_jax_train_state`` its optimizer state
 as well.  Parameters are created frozen (serving); ``requires_grad_(True)``
@@ -204,25 +203,26 @@ class LM(nn.Module):
 
     def loss(self, tokens, targets, *, loss_chunk: int = 1024):
         """Next-token cross entropy in fp32 for tokens/targets ``[B, S]``
-        (a ``-1`` target is padding).  Returns ``(loss, {"xent": ...})``.
+        (a ``-1`` target is padding).  Returns ``(loss, metrics)``:
+        ``{"xent"}`` for a dense config; for an MoE config ``loss =
+        xent + router_aux_weight * aux_loss + router_z_weight * z_loss``
+        and the metrics ``aux_loss``, ``z_loss``, ``dropped_frac`` (each
+        summed over the layers) and ``xent``, as the reference's
+        ``LM.loss``.  The returned metrics are detached.
 
         The unembed and the logsumexp run over sequence chunks of
         ``loss_chunk`` (halved until it divides S), each recomputed in
         the backward (activation checkpointing), so the ``[B, S, V]``
         logits are never held whole: one chunk's fp32 logits at a time.
-        An MoE config raises: its router losses and the expert GEMMs'
-        backward wait for the MoE training slice.
         """
-        if self.cfg.moe is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: LM.loss of an MoE config is not ported "
-                f"yet (serving only)")
+        moe = self.cfg.moe
         t = self._tokens(tokens)
         tg = self._tokens(targets)
         h = self._embed(t)
         positions = torch.arange(t.shape[1], device=self.device)[None, :]
-        h = self._final(tfm.stack_apply(self.layers, h,
-                                        positions=positions))
+        metrics = tfm.zero_metrics(self.device) if moe is not None else None
+        h = self._final(tfm.stack_apply(self.layers, h, positions=positions,
+                                        metrics=metrics))
         s = tg.shape[1]
         c = min(loss_chunk, s)
         while s % c:
@@ -239,7 +239,13 @@ class LM(nn.Module):
             tot = tot + nll
             cnt = cnt + valid
         xent = tot / torch.clamp(cnt, min=1.0)
-        return xent, {"xent": xent.detach()}
+        loss = xent
+        if moe is not None:
+            loss = loss + moe.router_aux_weight * metrics["aux_loss"] \
+                + moe.router_z_weight * metrics["z_loss"]
+        out = {k: v.detach() for k, v in (metrics or {}).items()}
+        out["xent"] = xent.detach()
+        return loss, out
 
     def _chunk_nll(self, hx: torch.Tensor, tx: torch.Tensor):
         """Summed NLL and count of valid targets over one chunk."""

@@ -12,7 +12,12 @@ the reference's order (``combine``).  Overflow goes to a
 scratch column that is cropped, and is counted in ``dropped_frac``;
 empty slots gather token 0 with combine weight 0.  The expert GEMMs go
 through ``sparse.batched_matmul``: the gmm kernel on a card (one launch
-per product for all experts), ``torch.matmul`` on the CPU.
+per product for all experts), ``torch.matmul`` on the CPU.  Training
+differentiates through all of it, as ``jax.grad`` does the reference:
+the fp32 router, top-k, the row gathers (``embedding``), the combine
+and the expert GEMMs (on a card the plan's backward: gmm on each
+expert's W^T for dL/da); empty slots and dropped assignments get
+exactly zero gradient.
 
 ``impl="shard_map"`` needs a device mesh; the port has none yet, so
 every call takes the gspmd formulation, as the reference does without a
@@ -227,7 +232,9 @@ def combine(out_e: torch.Tensor, w_slot: torch.Tensor,
     y = torch.zeros((flat_slot.shape[0], d), dtype=dtype,
                     device=out_e.device)
     for j in range(slots.shape[1]):
-        y = y + contrib[slots[:, j]]
+        # a row gather (``embedding``: its backward sums the dropped
+        # assignments' duplicates of the zero row as one segment)
+        y = y + F.embedding(slots[:, j], contrib)
     return y
 
 
@@ -242,7 +249,10 @@ def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
     token_for_slot, w_slot, _, dropped, _, z, aux, flat_slot = \
         _route_and_rank(xf, moe.router.w, cfg, cap, ranking=m.ranking)
 
-    buckets = xf[token_for_slot]                                  # [E, C, D]
+    # a row gather whose backward adds duplicate rows as segments
+    # (``embedding``): every empty slot gathers token 0, and an index
+    # backward serialises the thousands of duplicates of one row
+    buckets = F.embedding(token_for_slot, xf)                     # [E, C, D]
     h_g = bmm(buckets, moe.w_gate)
     h_u = bmm(buckets, moe.w_up)
     act = (F.silu(h_g) if cfg.act == "silu"

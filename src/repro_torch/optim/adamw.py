@@ -62,6 +62,28 @@ def clip_by_global_norm(grads: Tensors, max_norm: float
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, norm
 
 
+# elements of the parameters one ``_foreach`` pass of ``adamw_update``
+# covers: its fp32 temporaries (the cast gradients, the denominators, the
+# steps) then hold about 3 x 4 B of them, or of the largest parameter
+# where that is bigger (a MoE layer's [E, D, F] expert stack: 201 M
+# elements at qwen3-moe-30b-a3b's width), not 12 B of the whole model
+UPDATE_GROUP_ELEMS = 1 << 28
+
+
+def _groups(names, sizes, limit: int):
+    """``names`` cut, in order, into runs of at most ``limit`` elements
+    (a larger tensor alone)."""
+    run, total = [], 0
+    for n in names:
+        if run and total + sizes[n] > limit:
+            yield run
+            run, total = [], 0
+        run.append(n)
+        total += sizes[n]
+    if run:
+        yield run
+
+
 @torch.no_grad()
 def adamw_update(grads: Tensors, state: AdamState, params: Tensors, *,
                  lr: float, b1: float = 0.9, b2: float = 0.95,
@@ -70,32 +92,36 @@ def adamw_update(grads: Tensors, state: AdamState, params: Tensors, *,
     """One AdamW step (decoupled weight decay on every parameter, as the
     reference).  Updates ``state``'s tensors and ``params`` in place and
     returns ``(params, state with count + 1)``.  The arithmetic is the
-    reference's, op for op, over all tensors at once (``_foreach``
-    kernels: a few launches per step instead of a dozen per tensor)."""
+    reference's, op for op, over many tensors at once (``_foreach``
+    kernels over groups of ``UPDATE_GROUP_ELEMS`` elements: a few
+    launches per group instead of a dozen per tensor, and fp32
+    temporaries of one group at a time)."""
     count = state.count + 1
     c = np.float32(count)
     bc1 = float(np.float32(1.0) - np.float32(b1) ** c)
     bc2 = float(np.float32(1.0) - np.float32(b2) ** c)
-    names = list(grads)
-    gs = [grads[n].float() for n in names]
-    ms = [state.mu[n] for n in names]
-    vs = [state.nu[n] for n in names]
-    ws = [state.master[n] for n in names]
-    torch._foreach_mul_(ms, b1)                       # m = b1 m + (1-b1) g
-    torch._foreach_add_(ms, gs, alpha=1 - b1)
-    torch._foreach_mul_(vs, b2)                       # v = b2 v + (1-b2) g g
-    torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
-    del gs
-    denom = torch._foreach_div(vs, bc2)               # sqrt(v / bc2) + eps
-    torch._foreach_sqrt_(denom)
-    torch._foreach_add_(denom, eps)
-    step = torch._foreach_div(ms, bc1)                # (m / bc1) / denom
-    torch._foreach_div_(step, denom)
-    del denom
-    torch._foreach_add_(step, ws, alpha=weight_decay)  # w -= lr (step + wd w)
-    torch._foreach_add_(ws, step, alpha=-lr)
-    for n, w in zip(names, ws):
-        params[n].copy_(w)
+    sizes = {n: g.numel() for n, g in grads.items()}
+    for names in _groups(list(grads), sizes, UPDATE_GROUP_ELEMS):
+        gs = [grads[n].float() for n in names]
+        ms = [state.mu[n] for n in names]
+        vs = [state.nu[n] for n in names]
+        ws = [state.master[n] for n in names]
+        torch._foreach_mul_(ms, b1)                   # m = b1 m + (1-b1) g
+        torch._foreach_add_(ms, gs, alpha=1 - b1)
+        torch._foreach_mul_(vs, b2)                   # v = b2 v + (1-b2) g g
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - b2)
+        del gs
+        denom = torch._foreach_div(vs, bc2)           # sqrt(v / bc2) + eps
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, eps)
+        step = torch._foreach_div(ms, bc1)            # (m / bc1) / denom
+        torch._foreach_div_(step, denom)
+        del denom
+        torch._foreach_add_(step, ws, alpha=weight_decay)  # w -= lr (...)
+        torch._foreach_add_(ws, step, alpha=-lr)
+        del step
+        for n, w in zip(names, ws):
+            params[n].copy_(w)
     return params, AdamState(count, state.master, state.mu, state.nu)
 
 

@@ -62,8 +62,11 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   id per row tile (on the tensor-core walk ``tm`` = C for C <= 128, so
   each expert's weights stream once per column tile; above that, and on
   the FMA walk above 64, the largest multiple of 8 <= the limit dividing
-  C, else C's largest divisor), forward only.  ``dense_torch`` is
-  ``torch.matmul``;
+  C, else C's largest divisor).  Under autograd it runs
+  ``_BatchedMatmulFn``: dL/da by the gmm kernel again on each expert's
+  ``b^T`` (a contiguous copy), same ids and row tile, dL/db by
+  ``torch.bmm`` (the reference leaves both products to XLA).
+  ``dense_torch`` is ``torch.matmul``;
 * ``record_dropped`` folds a non-plan capacity stream (MoE's routing
   drops, ``"moe_dispatch"``) into ``capacity_report()``.  A value on
   the card is kept as a device scalar and read at the next
@@ -241,6 +244,9 @@ class MatmulPlan:
     @property
     def grad_routes(self) -> Dict[str, str]:
         """Routes of the backward products: dL/dx and dL/dvalues."""
+        if self.spec is not None and self.spec.op == "batched_matmul" \
+                and self.route != "dense_torch":
+            return dict(_BATCHED_GRAD_ROUTES)
         if self.kind == "dense":
             return {"dx": "torch_matmul", "dw": "torch_matmul"}
         if self.kind == "dynamic":
@@ -484,8 +490,10 @@ class MatmulPlan:
     def batched_matmul(self, a: torch.Tensor, b: torch.Tensor
                        ) -> torch.Tensor:
         """``op="batched_matmul"``: ``a [..., C, D] @ b [..., D, F]`` with
-        the same leading axes, in one gmm launch on a card (forward
-        only) or ``torch.matmul`` on the CPU."""
+        the same leading axes, in one gmm launch on a card or
+        ``torch.matmul`` on the CPU.  Under autograd on a card the
+        planned backward of ``_BatchedMatmulFn`` runs (dL/da by gmm on
+        b transposed, dL/db by ``torch.bmm``)."""
         lead = a.shape[:-2]
         if (tuple(a.shape[-2:]) + (b.shape[-1],) != (self.m, self.k, self.n)
                 or b.shape[:-2] != lead or b.shape[-2] != self.k):
@@ -494,20 +502,30 @@ class MatmulPlan:
                              f"axes; got {tuple(a.shape)} @ {tuple(b.shape)}")
         if self.route == "dense_torch":
             return torch.matmul(a, b)
-        if _needs_grad(a, b):
-            raise NotImplementedError(
-                "batched_matmul on the card has no backward (the gmm kernel "
-                "is forward only; MoE training waits)")
         e = int(np.prod(lead, dtype=np.int64))
+        a3 = a.reshape(e, self.m, self.k)
+        b3 = b.reshape(e, self.k, self.n)
+        if _needs_grad(a, b):
+            self._check_differentiable()
+            y = _BatchedMatmulFn.apply(a3, b3, self)
+        else:
+            y = self.gmm(a3, b3)
+        return y.reshape(*lead, self.m, self.n)
+
+    def gmm(self, a3: torch.Tensor, b3: torch.Tensor) -> torch.Tensor:
+        """One gmm launch: ``a3 [E, C, D] @ b3 [E, D, F] -> [E, C, F]``,
+        each expert a run of ``C / row_tile`` row tiles.  The expert ids
+        are built once per E (``[E, C]`` is the layout of the forward and
+        of dL/da alike)."""
+        e, c, d = a3.shape
         ids = self.expert_ids.get(e)
         if ids is None:
             ids = self.expert_ids[e] = torch.arange(
                 e, dtype=torch.int32, device=self.device).repeat_interleave(
-                    self.m // self.row_tile)
-        y = gmm_ops.gmm_cuda(a.reshape(e * self.m, self.k).contiguous(),
-                             b.reshape(e, self.k, self.n).contiguous(), ids,
-                             tm=self.row_tile)
-        return y.reshape(*lead, self.m, self.n)
+                    c // self.row_tile)
+        y = gmm_ops.gmm_cuda(a3.reshape(e * c, d).contiguous(),
+                             b3.contiguous(), ids, tm=self.row_tile)
+        return y.reshape(e, c, b3.shape[-1])
 
     # -- dynamic routes ----------------------------------------------------
 
@@ -659,6 +677,40 @@ class _DynamicSpmmFn(torch.autograd.Function):
                 dx.t().to(x2.dtype), None)
 
 
+# the backward products of batched_matmul on the gmm route
+_BATCHED_GRAD_ROUTES = {"dx": "gmm_cuda", "dvalues": "torch_bmm"}
+
+
+class _BatchedMatmulFn(torch.autograd.Function):
+    """The planned backward of ``batched_matmul`` on a card: the gmm
+    launch forward; dL/da[e] = dy[e] . b[e]^T by the gmm kernel again,
+    on a contiguous copy of b transposed per expert, with the forward's
+    expert ids and row tile; dL/db[e] = a[e]^T . dy[e] by ``torch.bmm``.
+    The reference runs every backward product of ``batched_matmul`` in
+    XLA (only spmm relaxes its differentiable gate, ``_selection_ctx``),
+    so ``torch.bmm`` stands for XLA's dot there; dL/da keeps the
+    hand-written kernel on the backward path.  A failed gmm build or
+    launch raises: there is no fallback."""
+
+    @staticmethod
+    def forward(ctx, a3, b3, plan_):
+        ctx.plan = plan_
+        ctx.save_for_backward(a3, b3)
+        return plan_.gmm(a3, b3)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a3, b3 = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = ctx.plan.gmm(dy.to(b3.dtype),
+                              b3.transpose(-1, -2)).to(a3.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.bmm(a3.transpose(-1, -2), dy.to(a3.dtype)).to(
+                b3.dtype)
+        return da, db, None
+
+
 class _DenseMatmulFn(torch.autograd.Function):
     """``_dense_planned_vjp`` (matmul form): dense_mm forward,
     ``torch.matmul`` for both backward products."""
@@ -800,14 +852,25 @@ def pool_plans(pool: str) -> list:
     return [p for p in plans if p is not None]
 
 
+def _batched_grad(p: MatmulPlan) -> Optional[dict]:
+    """The backward section of a differentiable ``batched_matmul`` plan
+    on the gmm route (``_BatchedMatmulFn``: one formulation, forced), in
+    the static plans' ``explain`` schema; None for any other plan."""
+    if not (p.ctx.differentiable and p.spec is not None
+            and p.spec.op == "batched_matmul" and p.route != "dense_torch"):
+        return None
+    return {"mode": "planned",
+            **{side: {"route": route, "source": "forced"}
+               for side, route in _BATCHED_GRAD_ROUTES.items()},
+            "from_disk": False}
+
+
 def _grad_report(p: MatmulPlan) -> dict:
     """A plan's backward section: "planned" with the routes autograd runs
     and their source, "unavailable" for a forward-only plan."""
-    # the gmm route of batched_matmul has no backward
-    if not p.ctx.differentiable or (p.spec.op == "batched_matmul"
-                                    and p.route != "dense_torch"):
+    if not p.ctx.differentiable:
         return {"mode": "unavailable"}
-    grad = p.artifacts.get("grad")
+    grad = p.artifacts.get("grad") or _batched_grad(p)
     if grad is not None:
         return grad
     # dynamic and dense plans: one formulation each (forced)
@@ -1836,7 +1899,7 @@ def _explain(p: MatmulPlan) -> dict:
         "from_disk": p.from_disk,
         "cache_key": p.key,
         "tp": None,
-        "grad": p.artifacts.get("grad"),
+        "grad": p.artifacts.get("grad") or _batched_grad(p),
         "evolution": p.artifacts.get("evolution"),
         "roofline": p.roofline(),
         "plan": dict({k2: v for k2, v in p.artifacts.items()
@@ -1869,7 +1932,7 @@ def format_plan(p: MatmulPlan) -> str:
     if "bucket_blocks" in art:
         extra.append(f"buckets: {art['bucket_blocks']} blocks/bucket over "
                      f"q=({art['q_m']},{art['q_k']},{art['q_n']})")
-    g = art.get("grad")
+    g = rep["grad"]
     if g:
         extra.append(f"grad: dx={g['dx']['route']} "
                      f"dvalues={g['dvalues']['route']} "

@@ -6,7 +6,8 @@ its parameters (an ``nn.Module``), so the state's ``params`` are the
 model's own tensors, keyed by name, and a step updates them in place.
 Gradients come from ``torch.autograd.grad`` of ``LM.loss``: through the
 sparse FFN that runs the static plan's planned backward (bsmm on the
-transposed pattern for dL/dx, the SDDMM for dL/dvalues).  Gradient
+transposed pattern for dL/dx, the SDDMM for dL/dvalues), and through an
+MoE FFN's routing and expert GEMMs (gmm on W^T for dL/da).  Gradient
 compression (``optim/compress.py``) is not ported yet.
 
 RigL topology steps: ``rigl_evolve`` is the reference's step on a plan
@@ -159,8 +160,9 @@ def lm_grad_fn(lm) -> Callable:
 def make_train_step(lm, hp: TrainHParams = TrainHParams()):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` is
     ``{"tokens", "targets"}`` ``[B, S]`` arrays.  Metrics: the loss's
-    own (``xent``), ``loss``, ``grad_norm`` (before clipping) and
-    ``lr``."""
+    own (``xent``; an MoE model's ``aux_loss``, ``z_loss`` and
+    ``dropped_frac`` too), microbatch-averaged, ``loss``, ``grad_norm``
+    (before clipping) and ``lr``."""
     _no_compress(hp)
     grad_fn = lm_grad_fn(lm)
 

@@ -1133,6 +1133,126 @@ def test_batched_matmul_on_card_runs_gmm(dev, c):
     assert _rel(got, torch.matmul(a.to(torch.bfloat16).float(), b)) <= 1e-4
 
 
+# batched_matmul's backward at qwen3's expert GEMMs (E 128): (C, D, F);
+# C 160 is the train phase's capacity (batch 4 x seq 512: row tile 80 in
+# 16-bit), C 8 the decode capacity
+BMM_GRAD_CASES = [(160, 2048, 768), (160, 768, 2048), (8, 2048, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", BMM_GRAD_CASES)
+def test_batched_matmul_backward_matches_plain(dev, dtype, case):
+    """``_BatchedMatmulFn`` against ``torch.matmul``'s autograd in fp32 on
+    the same inputs: the forward and dL/da are gmm launches (dL/da on
+    b^T, one launch, on the forward's walk), dL/db ``torch.bmm``."""
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.sparse.plan import batched_row_tile
+    c, d, f = case
+    e = 128
+    g = torch.Generator(device=dev).manual_seed(c + d)
+    a = torch.randn((e, c, d), generator=g, device=dev).to(dtype)
+    b = (torch.randn((e, d, f), generator=g, device=dev)
+         / np.sqrt(d)).to(dtype)
+    gy = torch.randn((e, c, f), generator=g, device=dev).to(dtype)
+    tm = batched_row_tile(c, gmm_ops.tma_ok(d, f, dtype))
+    if c == 160 and dtype != torch.float32:
+        assert tm == 80
+    walk = gmm_ops.walk(tm, d, f, dtype).name
+    assert walk == gmm_ops.walk(tm, f, d, dtype).name
+    assert walk == ("ffma" if dtype == torch.float32 else "wgmma")
+    ta, tb = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+    before = gmm_ops.WALK_COUNTERS[walk].launches
+    y = sparse.batched_matmul(ta, tb)
+    assert gmm_ops.WALK_COUNTERS[walk].launches == before + 1
+    y.backward(gy)
+    torch.cuda.synchronize()
+    assert gmm_ops.WALK_COUNTERS[walk].launches == before + 2
+    ra = a.float().requires_grad_(True)
+    rb = b.float().requires_grad_(True)
+    want = torch.matmul(ra, rb)
+    want.backward(gy.float())
+    assert y.dtype == ta.grad.dtype == tb.grad.dtype == dtype
+    assert _rel(y, want) <= TOL[dtype]
+    assert _rel(ta.grad, ra.grad) <= TOL[dtype]
+    assert _rel(tb.grad, rb.grad) <= TOL[dtype]
+    p = sparse.plan(sparse.OpSpec(kind="dense", m=c, k=d, n=f, dtype=dtype,
+                                  op="batched_matmul"), device=dev)
+    assert p.row_tile == tm
+    assert sparse.plan_report()["per_plan"][p.key]["grad"]["dx"] == {
+        "route": "gmm_cuda", "source": "forced"}
+
+
+@pytest.mark.cuda
+def test_moe_layer_grads_gmm_match_plain(dev):
+    """One full-width qwen3 MoE layer (d 2048, 128 experts top-8, d_ff
+    768, bf16) on 2048 tokens (C 160): every parameter's and the input's
+    gradient through the gmm path against the plain path (the three
+    expert products by ``torch.matmul`` in fp32 on the same bf16
+    inputs), both under the same fp32 routing."""
+    from repro_torch import configs
+    from repro_torch.kernels.gmm import ops as gmm_ops
+    from repro_torch.models import moe as moe_lib
+    cfg = configs.get("qwen3-moe-30b-a3b")
+    mod = moe_lib.moe_init(cfg, dtype=torch.bfloat16, device=dev, seed=3)
+    mod.requires_grad_(True)
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((4, 512, cfg.d_model), generator=g,
+                    device=dev).to(torch.bfloat16)
+    gy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+    named = list(mod.named_parameters())
+
+    def grads():
+        xx = x.clone().requires_grad_(True)
+        y, m = moe_lib.moe_apply(mod, cfg, xx)
+        loss = (y.float() * gy.float()).sum() + 0.01 * m.aux_loss
+        return [y] + list(torch.autograd.grad(
+            loss, [xx] + [p for _, p in named])), float(m.dropped_frac)
+
+    before = gmm_ops.COUNTER.launches
+    got, drop = grads()
+    assert gmm_ops.COUNTER.launches - before == 6
+    kernel_bmm = sparse.batched_matmul
+    sparse.batched_matmul = lambda a, b: torch.matmul(
+        a.float(), b.float()).to(a.dtype)
+    try:
+        want, drop_plain = grads()
+    finally:
+        sparse.batched_matmul = kernel_bmm
+    assert drop == drop_plain
+    for name, a, b in zip(["y", "x"] + [n for n, _ in named], got, want):
+        assert _rel(a, b) <= TOL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+def test_engine_graphs_match_eager_after_training(dev):
+    """A training step on the MoE smoke model (the expert GEMMs' planned
+    backward on gmm), then the engine's graphs against the same engine
+    eagerly: the plans the step used are the ones the engine serves
+    with, and tokens, logits and drops stay equal."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    lm = LM(_serve_cfg("qwen3"), device=dev, seed=0)
+    hp = TrainHParams(peak_lr=1e-3, warmup_steps=0, total_steps=10)
+    state = init_train_state(lm, hp=hp)
+    state, metrics = make_train_step(lm, hp)(
+        state, TokenPipeline(512, 2, 40).get_batch(0))
+    assert np.isfinite(float(metrics["loss"]))
+    lm.requires_grad_(False)
+    assert any(r["op"] == "batched_matmul"
+               and r["grad"].get("dx", {}).get("route") == "gmm_cuda"
+               for r in sparse.plan_report()["per_plan"].values())
+    lengths = [5, 20, 9, 40]
+    kw = dict(buckets=(8, 24, 48), max_len=64)
+    want = _serve(lm, dev, False, lengths, **kw)
+    got = _serve(lm, dev, True, lengths, **kw)
+    assert got[0] == want[0]
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    assert got[2] == want[2] and got[3] == want[3]
+
+
 @pytest.mark.cuda
 def test_qwen3_moe_lm_on_card_matches_cpu(dev):
     """qwen3-moe's smoke config (8 experts top-2, QK-norm), fp32: forward
