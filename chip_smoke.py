@@ -91,10 +91,20 @@ Phases, each fatal on failure:
    each route's kernel launched;
 6. train: ``launch.train.train_loop`` on full-width llama3.2-1b with
    every FFN block-sparse (d=1/8, b=16), bf16, batch 4 x seq 512, 10
-   AdamW steps from a seeded init, no checkpoint.  The launch counters
-   are zeroed just before and read just after; every kernel must have
-   launched, every loss and grad norm be finite, and the last loss be
-   below the first;
+   AdamW steps from a seeded init, no checkpoint, then a topology step
+   on layer 0's up projection (``evolve_sparse_layer``, a fifth of its
+   blocks moved, constant count) and 2 more steps: once eagerly
+   (``graphs=False``) and once replaying the step captured as one CUDA
+   graph (``train/program.py``; the main path whose launch counters are
+   read).  The counters are zeroed just before each run and read just
+   after; every kernel must have launched (bsmm and sddmm on their mma
+   walks, bs_attn on wgmma), every loss and grad norm be finite, the
+   tenth loss below the first, the graph run re-captured exactly once
+   (after the topology step), and its 12 losses, final parameters and
+   launches of every step equal the eager run's (to the bit).  Prints each run's step p50,
+   tokens/s, peak GiB allocated and reserved, the host syncs of one step
+   (``set_sync_debug_mode("warn")``), the graph's capture seconds and
+   launches per replay by kernel and walk;
 7. dynamic kernels: dsmm against its plain version at the FFN shapes
    (d_max = 1/8, b = 16, N in {4, 256, 2048}), at Table 3's shape
    (4096 x 4096, d = 1/16, b in {4, 16}, N = 4096, fp16 and fp32) and
@@ -202,17 +212,22 @@ Phases, each fatal on failure:
 12c. train-qwen3-moe: ``launch.train.train_loop`` on the same model at
    full width in bf16, depth cut to 4 layers (~3.1 B parameters, ~50 GB
    of training state), batch 4 x seq 512 (C = 160, row tile 80), 10
-   AdamW steps from a seeded init.  The launch counters are zeroed just
-   before and read just after; gmm's are split into the forward's and
-   the backward's (dL/da on W^T).  It fails unless every loss is finite
-   and the last below the first, gmm, dense_mm and bs_attn launch, gmm
-   launches in both directions, all on the wgmma walk, and one trained
-   layer's ``batched_matmul`` backward (dL/da by gmm on W^T, dL/dW by
-   ``torch.bmm``) equals ``torch.matmul``'s autograd in fp32 on the same
-   bf16 inputs within the bf16 budget.  Prints the step p50, tokens/s,
-   peak GiB, each step's ``aux_loss``, ``z_loss`` and ``dropped_frac``,
-   gmm's launches by walk and direction and the host syncs of one step
-   (``torch.cuda.set_sync_debug_mode("warn")``; reported, not failed);
+   AdamW steps from a seeded init, eagerly and then replaying the
+   captured step, as [train] (without the topology step).  The launch
+   counters are zeroed just before each run and read just after; the
+   eager run's gmm launches are split into the forward's and the
+   backward's (dL/da on W^T).  It fails unless every loss is finite and
+   the last below the first, gmm, dense_mm and bs_attn launch, gmm
+   launches in both directions, all on the wgmma walk, the graph run's
+   losses, final parameters and launches per step equal the eager
+   run's, and one trained layer's ``batched_matmul`` backward (dL/da by
+   gmm on W^T, dL/dW by ``torch.bmm``) equals ``torch.matmul``'s
+   autograd in fp32 on the same bf16 inputs within the bf16 budget.
+   Prints each run's step p50, tokens/s, peak GiB allocated and
+   reserved, each step's ``aux_loss``, ``z_loss`` and ``dropped_frac``,
+   gmm's launches by walk and direction, the host syncs of one step
+   (``torch.cuda.set_sync_debug_mode("warn")``; reported, not failed),
+   the graph's capture seconds and launches per replay;
 13. roofline (after 11): ``sparse.roofline_report()`` totals of the
    llama and gemma2 engines and each served static plan's chosen route
    on the H100's roofline (efficiency, headroom, dominant term,
@@ -267,6 +282,12 @@ ROTATE_BYTES = 160 * 2 ** 20
 # the train phase: AdamW steps from a seeded init, with a short warmup
 TRAIN_STEPS = 10
 TRAIN_HP = dict(peak_lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+# the step whose host syncs the train phases count (a replay in a graph
+# run: the first step is the capture's)
+TRAIN_SYNC_STEP = 5
+# [train]: steps after the topology step that follows the TRAIN_STEPS
+# steps, and the seed of the blocks it moves
+TOPOLOGY_AFTER, TOPOLOGY_SEED = 2, 29
 
 
 def fail(msg: str) -> int:
@@ -797,73 +818,250 @@ def backward_routes(torch, args):
     return out
 
 
-def train_phase(torch, args):
-    """``train_loop`` at full width; launch counts per step and overall."""
+def counter_index_names(counters):
+    """Launch counter index (``kernels._build.COUNTERS``) -> its name in
+    ``counters`` (a ``with_walks`` dict: kernels and ``kernel:walk``)."""
+    from repro_torch.kernels import _build
+    named = {id(c): k for k, c in counters.items()}
+    return {i: named[id(c)] for i, c in enumerate(_build.COUNTERS)
+            if id(c) in named}
+
+
+def train_run(torch, label, cfg, *, graphs, counters, args, steps, batch,
+              seq, metric_keys=("loss", "grad_norm", "lr"), topology=None):
+    """``launch.train.train_loop`` on ``cfg`` from ``args.seed``, each step
+    run eagerly or replayed from the captured step (``graphs``), no
+    checkpoint.  The launch counters are zeroed just before and read just
+    after.  Returns each step's metrics, wall and launches by counter,
+    the run's launches by kernel and walk, the step p50 over the first
+    ``TRAIN_STEPS`` steps (each ending in its loss read) and tokens/s,
+    the peak GiB allocated and reserved, the host syncs of step
+    ``TRAIN_SYNC_STEP`` under ``torch.cuda.set_sync_debug_mode("warn")``
+    (its batch upload, the step and the loss read), the program's
+    captures, re-captures, capture seconds and launches per replay by
+    kernel and walk, and the parameters after the last step (on the host,
+    under ``params``).  ``topology(step, program)`` runs after each
+    step's own reads, in ``train_loop``'s ``on_step``."""
     import numpy as np
 
-    from repro_torch import configs
-    from repro_torch.kernels import bs_attn, bsmm, dense_mm, sddmm
     from repro_torch.launch.train import train_loop
     from repro_torch.train.step import TrainHParams
+
+    hp = TrainHParams(**TRAIN_HP)
+    names = counter_index_names(counters)
+    tag = f"[{label}] [{'graphs' if graphs else 'eager'}]"
+    per_step, records, sync, prog = [], [], {}, {}
+    last = {k: 0 for k in counters}
+
+    def stop_sync(step):
+        torch.cuda.set_sync_debug_mode(0)
+        sync.pop("catcher").__exit__(None, None, None)
+        # (torch's own notice that the debug mode is a prototype is no
+        # synchronisation)
+        log = [w for w in sync.pop("log")
+               if "synchroniz" in str(w.message).lower()
+               and "prototype" not in str(w.message).lower()]
+        sync.update(step=step, count=len(log), at=sorted(
+            {"/".join(w.filename.split(os.sep)[-2:]) + f":{w.lineno}"
+             for w in log}))
+
+    def on_step(step, metrics, program):
+        if "catcher" in sync:
+            stop_sync(step)
+        now = {k: c.launches for k, c in counters.items()}
+        per_step.append({k: now[k] - last[k] for k in counters})
+        last.update(now)
+        records.append(dict(step=step, step_s=float(metrics["step_s"]),
+                            **{k: float(metrics[k]) for k in metric_keys}))
+        r = records[-1]
+        print(f"{tag} step {step} "
+              + " ".join(f"{k} {r[k]:.4f}" for k in metric_keys)
+              + f" wall {r['step_s'] * 1e3:.1f} ms launches "
+              f"{json.dumps({k: v for k, v in per_step[-1].items() if v})}")
+        # the program's counts as of this step (the last step's are the
+        # run's)
+        prog.update(program.program.stats(), per_replay={
+            names[i]: n for i, n in sorted(
+                program.program.launches_per_replay().items())
+            if i in names})
+        if topology is not None:
+            topology(step, program)
+        if step == TRAIN_SYNC_STEP - 1:
+            sync["catcher"] = warnings.catch_warnings(record=True)
+            sync["log"] = sync["catcher"].__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        state, losses = train_loop(
+            cfg, steps=steps, batch_per_shard=batch, seq=seq, ckpt_dir=None,
+            hp=hp, device="cuda", log_every=10 ** 9, on_step=on_step,
+            seed=args.seed, graphs=graphs)
+        torch.cuda.synchronize()
+    finally:
+        if "catcher" in sync:
+            stop_sync(None)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+    params = {n: p.detach().cpu() for n, p in state.params.items()}
+    del state
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    p50 = float(np.median([r["step_s"] for r in records[:TRAIN_STEPS]]))
+    return dict(
+        graphs=bool(graphs), steps=steps, batch=batch, seq=seq,
+        hp=dict(TRAIN_HP), n_params=sum(p.numel() for p in params.values()),
+        losses=losses, records=records, launches=launches, walks=walks,
+        launches_per_step=per_step, wall_s=wall, step_p50_ms=p50 * 1e3,
+        tokens_per_s=batch * seq / p50, peak_alloc_gib=peak,
+        peak_reserved_gib=reserved, host_syncs=sync,
+        captures=prog["captures"], recaptures=prog["recaptures"],
+        replays=prog["replays"], capture_s=prog["capture_s"],
+        launches_per_replay=prog["per_replay"], params=params)
+
+
+def same_run(torch, a, b) -> dict:
+    """Two runs' losses and final parameters: bit-equal, and the largest
+    absolute differences."""
+    dl = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    equal, dp = a["losses"] == b["losses"], 0.0
+    for n, p in a["params"].items():
+        q = b["params"][n]
+        if not torch.equal(p, q):
+            equal = False
+            dp = max(dp, (p.float() - q.float()).abs().max().item())
+    return dict(bit_equal=equal, loss_max_abs=dl, param_max_abs=dp)
+
+
+def eager_and_graphs(torch, label, cfg, eager=None, **kw):
+    """``train_run`` eagerly (unless ``eager`` is that run, made by the
+    caller), then replaying the captured step, from the same seed.  The
+    graph run's losses and final parameters must equal the eager run's to
+    the bit (the step's kernels and library ops use no atomics, so two
+    runs of it agree on one card), and its launches of every step (the
+    first, the capture's warm-up, and the replays) the eager step's, by
+    kernel and walk.  Returns ``(eager, graph, check)``; the parameters
+    are dropped."""
+    if eager is None:
+        eager = train_run(torch, label, cfg, graphs=False, **kw)
+    graph = train_run(torch, label, cfg, graphs=True, **kw)
+    check = same_run(torch, eager, graph)
+    if not check["bit_equal"]:
+        raise RuntimeError(f"[{label}] the graph run differs from the "
+                           f"eager run: {check}")
+    for r in (eager, graph):
+        del r["params"]
+    if graph["launches_per_step"] != eager["launches_per_step"]:
+        raise RuntimeError(f"[{label}] launches per step, graphs "
+                           f"{graph['launches_per_step']} != eager "
+                           f"{eager['launches_per_step']}")
+    for r in (eager, graph):
+        if not all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+                   for x in r["records"]):
+            raise RuntimeError(f"[{label}] non-finite loss or grad norm: "
+                               f"{r['records']}")
+        if not r["losses"][TRAIN_STEPS - 1] < r["losses"][0]:
+            raise RuntimeError(f"[{label}] loss did not fall: first "
+                               f"{r['losses'][0]}, step {TRAIN_STEPS - 1} "
+                               f"{r['losses'][TRAIN_STEPS - 1]}")
+    for name, count in graph["launches"].items():
+        if count <= 0:
+            raise RuntimeError(f"[{label}] kernel {name} was not launched "
+                               f"while training")
+    return eager, graph, check
+
+
+def topology_step(program, timing):
+    """One RigL-style topology step on layer 0's up projection: a fifth of
+    its blocks moved to seeded free positions (constant block count),
+    through ``train.step.evolve_sparse_layer`` (the optimizer's slots
+    carried)."""
+    import numpy as np
+
+    from repro_torch.train.step import evolve_sparse_layer
+
+    up = program.lm.layers[0].ffn.up
+    rng = np.random.default_rng(TOPOLOGY_SEED)
+    mask = up.pattern.copy()
+    flat = mask.reshape(-1)
+    on, off = np.flatnonzero(flat), np.flatnonzero(~flat)
+    k = on.size // 5
+    flat[rng.choice(on, k, replace=False)] = False
+    flat[rng.choice(off, k, replace=False)] = True
+    t0 = time.perf_counter()
+    evolve_sparse_layer(program.state, "layers.0.ffn.up.values", up, mask)
+    timing.update(moved=int(k), nnz=int(on.size),
+                  evolve_s=time.perf_counter() - t0)
+
+
+def print_train(label, t):
+    """A train phase's lines: each run's loss, step p50, tokens/s, peak
+    GiB, host syncs and launches; the graph's captures and launches per
+    replay; graph against eager."""
+    for r in (t["eager"], t):
+        hs = r["host_syncs"]
+        print(f"[{label}] {'graphs' if r['graphs'] else 'eager'}: "
+              f"{TRAIN_STEPS} steps of batch {r['batch']} x seq {r['seq']}: "
+              f"loss {r['losses'][0]:.4f} -> "
+              f"{r['losses'][TRAIN_STEPS - 1]:.4f}; step p50 "
+              f"{r['step_p50_ms']:.2f} ms = {r['tokens_per_s']:.0f} "
+              f"tokens/s; peak {r['peak_alloc_gib']:.2f} GiB allocated, "
+              f"{r['peak_reserved_gib']:.2f} GiB reserved; host syncs in "
+              f"step {hs.get('step')} (batch upload, step, loss read): "
+              f"{hs.get('count')} at {json.dumps(hs.get('at'))}; launches "
+              f"{json.dumps(r['launches'])}; by walk "
+              f"{json.dumps(r['walks'])}")
+    print(f"[{label}] graphs: captures {t['captures']}, re-captures "
+          f"{t['recaptures']}, replays {t['replays']}, capture "
+          f"{t['capture_s']:.3f} s; launches per replay "
+          f"{json.dumps(t['launches_per_replay'])}")
+    c = t["check"]
+    print(f"[{label}] graphs vs eager: {len(t['losses'])} losses and the "
+          f"final parameters bit-equal {c['bit_equal']} (max abs: loss "
+          f"{c['loss_max_abs']:.3g}, parameters {c['param_max_abs']:.3g})")
+
+
+def train_phase(torch, args):
+    """[train]: ``train_loop`` on full-width llama3.2-1b with every FFN
+    block-sparse, eagerly and then replaying the captured step, each
+    ``TRAIN_STEPS`` steps, then a topology step on layer 0's up
+    projection (``topology_step``) and two more steps: the graph run must
+    re-capture exactly once, and every step equal the eager run's."""
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, bsmm, dense_mm, sddmm
 
     cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
     assert cfg.dtype == "bfloat16" and cfg.ffn_block_size == 16
     counters = with_walks({"bsmm": bsmm.COUNTER, "sddmm": sddmm.COUNTER,
                            "dense_mm": dense_mm.COUNTER,
                            "bs_attn": bs_attn.COUNTER})
-    steps, batch, seq = TRAIN_STEPS, 4, 512
-    hp = TrainHParams(**TRAIN_HP)
-    per_step = []
-    last = {k: 0 for k in counters}
-    records = []
+    topo = {}
 
-    def on_step(step, metrics):
-        now = {k: c.launches for k, c in counters.items()}
-        per_step.append({k: now[k] - last[k] for k in counters})
-        last.update(now)
-        records.append(dict(step=step, loss=float(metrics["loss"]),
-                            grad_norm=float(metrics["grad_norm"]),
-                            lr=float(metrics["lr"]),
-                            step_s=float(metrics["step_s"])))
-        print(f"[train] step {step} loss {records[-1]['loss']:.4f} "
-              f"gnorm {records[-1]['grad_norm']:.4f} "
-              f"wall {records[-1]['step_s'] * 1e3:.1f} ms "
-              f"launches {per_step[-1]}")
+    def topology(step, program):
+        if step == TRAIN_STEPS - 1:
+            topology_step(program, topo.setdefault(
+                "graphs" if program.program.use_graph else "eager", {}))
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.reset()
-    t0 = time.perf_counter()
-    _, losses = train_loop(cfg, steps=steps, batch_per_shard=batch,
-                           seq=seq, ckpt_dir=None, hp=hp, device="cuda",
-                           log_every=10 ** 9, on_step=on_step,
-                           seed=args.seed)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, walks = split_walks({k: c.launches
-                                   for k, c in counters.items()})
-    check_tensor_core_walks("train", walks, ("bs_attn", "sddmm", "bsmm"))
-    walls = sorted(r["step_s"] for r in records)
-    p50 = float(np.median(walls))
-    result = dict(
-        steps=steps, batch=batch, seq=seq, hp=dict(TRAIN_HP),
-        losses=losses, records=records, launches=launches,
-        walks=walks, launches_per_step=per_step, wall_s=wall,
-        step_p50_ms=p50 * 1e3,
-        tokens_per_s=batch * seq / p50,
-        peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
-               for r in records):
-        raise RuntimeError(f"non-finite loss or grad norm: {records}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise RuntimeError(f"kernel {name} was not launched while "
-                               f"training")
-    if not losses[-1] < losses[0]:
-        raise RuntimeError(f"loss did not fall: first {losses[0]}, last "
-                           f"{losses[-1]}")
-    return result
+    eager, graph, check = eager_and_graphs(
+        torch, "train", cfg, counters=counters, args=args,
+        steps=TRAIN_STEPS + TOPOLOGY_AFTER, batch=4, seq=512,
+        topology=topology)
+    for r in (eager, graph):
+        check_tensor_core_walks("train", r["walks"],
+                                ("bs_attn", "sddmm", "bsmm"))
+    if (graph["captures"], graph["recaptures"]) != (2, 1):
+        raise RuntimeError(f"[train] the topology step must re-capture the "
+                           f"graph once: captures {graph['captures']}, "
+                           f"re-captures {graph['recaptures']}")
+    return dict(graph, eager=eager, check=check, topology=topo)
 
 
 def serve_phase(torch, args):
@@ -1951,14 +2149,12 @@ REPLAN_WRONG_SCALE = {"static_cuda": 4.0}
 def counter_names():
     """Launch counter index (``kernels._build.COUNTERS``) -> kernel name,
     for the seven kernels' totals (their walk counters are left out)."""
-    from repro_torch.kernels import _build, bs_attn, bsmm, dense_mm, dsmm
-    from repro_torch.kernels import gmm, sddmm
-    named = {id(bsmm.COUNTER): "bsmm", id(bsmm.BALANCED_COUNTER):
-             "bsmm_balanced", id(dense_mm.COUNTER): "dense_mm",
-             id(dsmm.COUNTER): "dsmm", id(gmm.COUNTER): "gmm",
-             id(sddmm.COUNTER): "sddmm", id(bs_attn.COUNTER): "bs_attn"}
-    return {i: named[id(c)] for i, c in enumerate(_build.COUNTERS)
-            if id(c) in named}
+    from repro_torch.kernels import bs_attn, bsmm, dense_mm, dsmm, gmm, sddmm
+    return counter_index_names({
+        "bsmm": bsmm.COUNTER, "bsmm_balanced": bsmm.BALANCED_COUNTER,
+        "dense_mm": dense_mm.COUNTER, "dsmm": dsmm.COUNTER,
+        "gmm": gmm.COUNTER, "sddmm": sddmm.COUNTER,
+        "bs_attn": bs_attn.COUNTER})
 
 
 def replay_launches(eng, names):
@@ -2471,9 +2667,8 @@ QWEN3_BATCH, QWEN3_MAX_LEN, QWEN3_NEW = 4, 1024, 8
 QWEN3_FP32_LAYERS = 4
 # [train-qwen3-moe]: qwen3-moe-30b-a3b at full width, depth cut to 4
 # layers, trained as the llama train phase is (batch 4 x seq 512, 10
-# AdamW steps); the host syncs are counted in one step after the first
+# AdamW steps, eagerly and then replaying the captured step)
 QWEN3_TRAIN_LAYERS, QWEN3_TRAIN_BATCH, QWEN3_TRAIN_SEQ = 4, 4, 512
-QWEN3_TRAIN_SYNC_STEP = 5
 
 
 def qwen3_prompt_lens(args):
@@ -2844,30 +3039,27 @@ def train_qwen3_phase(torch, args):
     master, mu and nu) ~50 GB (~46 GiB), plus the clipped gradients
     (6.2 GB), AdamW's fp32 temporaries of one group and the
     activations.  6 layers would need ~70 GB.  Batch 4 x seq 512 (C =
-    160, row tile 80), 10 AdamW steps, no checkpoint.
+    160, row tile 80), 10 AdamW steps, no checkpoint, eagerly and then
+    replaying the captured step (``eager_and_graphs``: losses and final
+    parameters equal).
 
-    The launch counters are zeroed just before and read just after; gmm
-    launches are split into the forward's (counted inside the MoE
-    modules' forward calls) and the backward's (dL/da on W^T), by walk.
-    It fails unless every loss is finite and the last below the first,
-    gmm, dense_mm and bs_attn launch, gmm launches in the forward and the
-    backward, every gmm launch is on the wgmma walk, and one trained
-    layer's ``batched_matmul`` backward (gate/up's and down's shapes, the
-    step's C and row tile) equals ``torch.matmul``'s autograd in fp32 on
-    the same bf16 inputs within the bf16 budget.  Reports the step p50,
-    tokens/s, the peak GiB, each step's ``aux_loss``, ``z_loss`` and
-    ``dropped_frac`` and the host syncs of one step under
-    ``torch.cuda.set_sync_debug_mode("warn")`` (its loss read included;
-    reported, not failed)."""
+    In the eager run gmm launches are split into the forward's (counted
+    inside the MoE modules' forward calls) and the backward's (dL/da on
+    W^T), by walk; the graph run's are counted per replay.  It fails
+    unless gmm, dense_mm and bs_attn launch, gmm launches in the forward
+    and the backward, every gmm launch is on the wgmma walk, and one
+    trained layer's ``batched_matmul`` backward (gate/up's and down's
+    shapes, the step's C and row tile) equals ``torch.matmul``'s
+    autograd in fp32 on the same bf16 inputs within the bf16 budget.
+    Reports each run's step p50, tokens/s, peak GiB allocated and
+    reserved, each step's ``aux_loss``, ``z_loss`` and
+    ``dropped_frac`` and the host syncs of one step (reported, not
+    failed)."""
     import dataclasses
-
-    import numpy as np
 
     from repro_torch import configs, sparse
     from repro_torch.kernels import bs_attn, dense_mm, gmm
-    from repro_torch.launch.train import train_loop
     from repro_torch.models.moe import MoE
-    from repro_torch.train.step import TrainHParams
 
     base = configs.get("qwen3-moe-30b-a3b")
     cfg = dataclasses.replace(
@@ -2877,7 +3069,6 @@ def train_qwen3_phase(torch, args):
     cap = qwen3_train_capacity()
     counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
                            "bs_attn": bs_attn.COUNTER})
-    hp = TrainHParams(**TRAIN_HP)
     fwd = {w: 0 for w in gmm.WALK_COUNTERS}
     held, entry = {}, {}
 
@@ -2893,71 +3084,23 @@ def train_qwen3_phase(torch, args):
                 fwd[w] += c.launches - seen[w]
             held.setdefault("moe", mod)
 
-    per_step, records, sync = [], [], {}
-    last = {k: 0 for k in counters}
-
-    def on_step(step, metrics):
-        if "catcher" in sync:
-            torch.cuda.set_sync_debug_mode(0)
-            sync.pop("catcher").__exit__(None, None, None)
-            log = [w for w in sync.pop("log")
-                   if "synchroniz" in str(w.message).lower()]
-            sync.update(step=step, count=len(log), at=sorted(
-                {"/".join(w.filename.split(os.sep)[-2:]) + f":{w.lineno}"
-                 for w in log}))
-        now = {k: c.launches for k, c in counters.items()}
-        per_step.append({k: now[k] - last[k] for k in counters})
-        last.update(now)
-        records.append(dict(
-            step=step, step_s=float(metrics["step_s"]),
-            **{k: float(metrics[k]) for k in
-               ("loss", "grad_norm", "lr", "aux_loss", "z_loss",
-                "dropped_frac")}))
-        r = records[-1]
-        print(f"[train-qwen3-moe] step {step} loss {r['loss']:.4f} gnorm "
-              f"{r['grad_norm']:.4f} aux_loss {r['aux_loss']:.4f} z_loss "
-              f"{r['z_loss']:.4f} dropped_frac {r['dropped_frac']:.4f} "
-              f"wall {r['step_s'] * 1e3:.1f} ms launches {per_step[-1]}")
-        if step == QWEN3_TRAIN_SYNC_STEP - 1:
-            sync["catcher"] = warnings.catch_warnings(record=True)
-            sync["log"] = sync["catcher"].__enter__()
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-
+    keys = ("loss", "grad_norm", "lr", "aux_loss", "z_loss", "dropped_frac")
     hooks = (torch.nn.modules.module.register_module_forward_pre_hook(pre),
              torch.nn.modules.module.register_module_forward_hook(post))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        c.reset()
-    t0 = time.perf_counter()
     try:
-        state, losses = train_loop(
-            cfg, steps=steps, batch_per_shard=batch, seq=seq, ckpt_dir=None,
-            hp=hp, device="cuda", log_every=10 ** 9, on_step=on_step,
-            seed=args.seed)
-        torch.cuda.synchronize()
+        eager = train_run(torch, "train-qwen3-moe", cfg, graphs=False,
+                          counters=counters, args=args, steps=steps,
+                          batch=batch, seq=seq, metric_keys=keys)
     finally:
         for h in hooks:
             h.remove()
-        if "catcher" in sync:
-            torch.cuda.set_sync_debug_mode(0)
-            sync.pop("catcher").__exit__(None, None, None)
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    launches, walks = split_walks({k: c.launches
-                                   for k, c in counters.items()})
-    check_tensor_core_walks("train-qwen3-moe", walks)
     gmm_split = {"forward": {w: n for w, n in fwd.items() if n},
-                 "backward": {w: walks["gmm"][w] - fwd[w]
-                              for w in walks["gmm"]
-                              if walks["gmm"][w] - fwd[w]}}
-    p50 = float(np.median([r["step_s"] for r in records]))
-    n_params = sum(p.numel() for p in state.params.values())
-    del state
+                 "backward": {w: eager["walks"]["gmm"][w] - fwd[w]
+                              for w in eager["walks"]["gmm"]
+                              if eager["walks"]["gmm"][w] - fwd[w]}}
 
     # one trained layer's batched_matmul backward at the step's C
-    mod = held["moe"]
+    mod = held.pop("moe")
     dev = mod.w_gate.device
     gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
     layer = []
@@ -2991,36 +3134,29 @@ def train_qwen3_phase(torch, args):
             wt_copy_ms=timed_ms(
                 torch, lambda x: x.transpose(-1, -2).contiguous(),
                 [(wt,)], 10)))
-        del a, gy, ta, tw, ra, rw, y, want
-    result = dict(
-        layers=QWEN3_TRAIN_LAYERS, steps=steps, batch=batch, seq=seq,
-        capacity=cap, hp=dict(TRAIN_HP),
-        params=n_params,
-        losses=losses, records=records, launches=launches, walks=walks,
-        gmm_launches=gmm_split, launches_per_step=per_step, wall_s=wall,
-        step_p50_ms=p50 * 1e3, tokens_per_s=batch * seq / p50,
-        peak_mem_gb=peak, host_syncs=sync, layer_backward=layer)
-    del held, mod
-    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
-               for r in records):
-        raise RuntimeError(f"[train-qwen3-moe] non-finite loss or grad "
-                           f"norm: {records}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise RuntimeError(f"[train-qwen3-moe] kernel {name} was not "
-                               f"launched")
+        del a, gy, ta, tw, ra, rw, y, want, wt, w
+    del mod, held
+    gc.collect()
+
+    _, graph, check = eager_and_graphs(
+        torch, "train-qwen3-moe", cfg, counters=counters, args=args,
+        steps=steps, batch=batch, seq=seq, metric_keys=keys, eager=eager)
+    for r in (eager, graph):
+        check_tensor_core_walks("train-qwen3-moe", r["walks"])
+    if (graph["captures"], graph["recaptures"]) != (1, 0):
+        raise RuntimeError(f"[train-qwen3-moe] one capture expected: "
+                           f"{graph['captures']}, re-captures "
+                           f"{graph['recaptures']}")
     if not (gmm_split["forward"] and gmm_split["backward"]):
         raise RuntimeError(f"[train-qwen3-moe] gmm must launch in the "
                            f"forward and the backward: {gmm_split}")
-    if not losses[-1] < losses[0]:
-        raise RuntimeError(f"[train-qwen3-moe] loss did not fall: first "
-                           f"{losses[0]}, last {losses[-1]}")
     bad = [r for r in layer if r["gmm_launches"] != 2 or not max(
         r["y_rel_err"], r["da_rel_err"], r["dw_rel_err"]) <= r["tol"]]
     if bad:
         raise RuntimeError(f"[train-qwen3-moe] batched_matmul backward vs "
                            f"plain: {bad}")
-    return result
+    return dict(graph, eager=eager, check=check, layers=QWEN3_TRAIN_LAYERS,
+                capacity=cap, gmm_launches=gmm_split, layer_backward=layer)
 
 
 # [evolve]: RigL topology steps on llama3.2-1b's sparse FFN at full width
@@ -3587,13 +3723,17 @@ def main(argv=None) -> int:
 
     live_gib["train"] = torch.cuda.memory_allocated() / 2 ** 30
     train = train_phase(torch, args)
-    print(f"[train] {train['steps']} steps of batch {train['batch']} x seq "
-          f"{train['seq']}: loss {train['losses'][0]:.4f} -> "
-          f"{train['losses'][-1]:.4f}; step p50 "
-          f"{train['step_p50_ms']:.1f} ms = "
-          f"{train['tokens_per_s']:.0f} tokens/s; peak memory "
-          f"{train['peak_mem_gb']:.2f} GiB; launches {train['launches']}; "
-          f"launches by walk {train['walks']}")
+    print_train("train", train)
+    topo = train["topology"]
+    print(f"[train] topology step after step {TRAIN_STEPS - 1}: layer 0's "
+          f"up projection, {topo['graphs']['moved']} of "
+          f"{topo['graphs']['nnz']} blocks moved (evolve_sparse_layer "
+          f"{topo['eager']['evolve_s'] * 1e3:.1f} ms eager, "
+          f"{topo['graphs']['evolve_s'] * 1e3:.1f} ms graphs); the next "
+          f"{TOPOLOGY_AFTER} steps' losses "
+          f"{json.dumps(train['losses'][TRAIN_STEPS:])} (eager "
+          f"{json.dumps(train['eager']['losses'][TRAIN_STEPS:])}); graph "
+          f"re-captures {train['recaptures']}")
     print(f"[train] detail {json.dumps(train)}")
 
     from repro_torch.kernels import (bsmm, dense_mm, dsmm,  # noqa: F401
@@ -3821,20 +3961,13 @@ def main(argv=None) -> int:
     live_gib["train_qwen3"] = torch.cuda.memory_allocated() / 2 ** 30
     tq = train_qwen3_phase(torch, args)
     print(f"[train-qwen3-moe] {tq['layers']} layers at full width "
-          f"({tq['params'] / 1e9:.3f} B parameters), {tq['steps']} steps of "
-          f"batch {tq['batch']} x seq {tq['seq']} (C {tq['capacity']}): "
-          f"loss {tq['losses'][0]:.4f} -> {tq['losses'][-1]:.4f}; step p50 "
-          f"{tq['step_p50_ms']:.1f} ms = {tq['tokens_per_s']:.0f} tokens/s; "
-          f"peak memory {tq['peak_mem_gb']:.2f} GiB; launches "
-          f"{json.dumps(tq['launches'])}; gmm launches by walk "
+          f"({tq['n_params'] / 1e9:.3f} B parameters), C {tq['capacity']}; "
+          f"gmm launches of the eager run by walk "
           f"{json.dumps(tq['gmm_launches'])} (per step: forward "
           f"{sum(tq['gmm_launches']['forward'].values()) / tq['steps']:g}, "
           f"backward "
           f"{sum(tq['gmm_launches']['backward'].values()) / tq['steps']:g})")
-    print(f"[train-qwen3-moe] host syncs in step "
-          f"{tq['host_syncs'].get('step')} (its loss read included): "
-          f"{tq['host_syncs'].get('count')} at "
-          f"{json.dumps(tq['host_syncs'].get('at'))}")
+    print_train("train-qwen3-moe", tq)
     for r in tq["layer_backward"]:
         print(f"[train-qwen3-moe] layer backward {r['product']} "
               f"{r['shape']} tm={r['row_tile']}: y rel_err "
@@ -3933,7 +4066,15 @@ def main(argv=None) -> int:
                              for k, v in by_path.items()},
         "launches_by_walk": {p: w["gmm"]
                              for p, w in walks_by_path.items()},
-        "train_qwen3_launches": tq["gmm_launches"]})
+        # the graph run is the main path: its gmm launches per replay;
+        # the forward / backward split is the eager run's (module hooks
+        # see no replay), tied to the replay by eager_and_graphs' check
+        # that both runs launch the same kernels on the same walks each
+        # step
+        "train_qwen3_launches_per_replay": {
+            k: n for k, n in tq["launches_per_replay"].items()
+            if k.split(":")[0] == "gmm"},
+        "train_qwen3_eager_split": tq["gmm_launches"]})
 
     corpus = corpus_of(race, race_serve, rows)
     cal = calibrate_phase(torch, race, corpus, serve, gemma)

@@ -70,7 +70,8 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 
 def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
-    t = torch.from_numpy(np.ascontiguousarray(arr))
+    # (ascontiguousarray makes a 0-dim array 1-dim: a step, a count)
+    t = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)
     if dtype == "bfloat16":
         return t.view(torch.bfloat16)
     return t
@@ -144,6 +145,8 @@ def restore(path: str, like: Optional[dict] = None, *,
     for key, ref in _flatten(like).items():
         val = load(key)
         if isinstance(ref, torch.Tensor):
+            # a number stored as one (a step or count saved as an int)
+            val = torch.as_tensor(val)
             if tuple(val.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: shape {tuple(val.shape)} != "
                                  f"{tuple(ref.shape)}")

@@ -4,7 +4,7 @@ FFN).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         [--arch llama3.2-1b] [--layers N] [--density 0.125] [--batch 4] \
-        [--seq 512] [--steps 3] [--out profile.json]
+        [--seq 512] [--steps 3] [--graphs] [--out profile.json]
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch qwen3-moe-30b-a3b --layers 4
@@ -18,8 +18,17 @@ idle share, the device time by kernel family (bs_attn, bsmm, dense_mm,
 gmm, sddmm, library GEMMs -- the dense backward, the unembed, the
 attention products, the expert GEMMs' dL/dW --, everything else) with
 the busiest kernels, the time of the optimizer update alone, and the
-Python functions that take the host's time (``cProfile``).  Needs a
-card.
+Python functions that take the host's time (``cProfile``).  Each step
+uploads its batch through the train program's input buffer and reads
+its loss (``train/program.py``, run eagerly).  ``--graphs`` adds the
+same step replayed from its captured CUDA graph, on the same model and
+state: capture seconds, the device time of a replay (CUDA events), its
+host wall, busy and idle share under the profiler, and the peak GiB
+allocated and reserved of each mode.  The graph's peak counts from an
+emptied cache (what the eager phases left reserved is reported beside
+it, under ``eager_left``; the capture itself collects the cycles that
+may still hold their tensors), and its reserved GiB are split into the
+allocator's default pool and the graph's private pool.  Needs a card.
 """
 from __future__ import annotations
 
@@ -31,11 +40,12 @@ import torch
 
 from repro_torch import configs
 from repro_torch.data import TokenPipeline
-from repro_torch.launch.profile_serve import _host_profile, _profile, _wall_ms
+from repro_torch.launch.profile_serve import (_host_profile, _profile,
+                                              _replay_ms, _wall_ms)
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import adamw_update
-from repro_torch.train.step import (TrainHParams, init_train_state,
-                                    make_train_step)
+from repro_torch.train.program import TrainProgram
+from repro_torch.train.step import TrainHParams, init_train_state
 
 
 def cut_depth(cfg, layers: int):
@@ -58,6 +68,9 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--graphs", action="store_true",
+                    help="also profile the step replayed from its CUDA "
+                         "graph")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
@@ -70,20 +83,40 @@ def main(argv=None):
         cfg = cut_depth(cfg, args.layers)
     lm = LM(cfg, device="cuda", seed=args.seed)
     hp = TrainHParams(peak_lr=1e-4, warmup_steps=0, total_steps=1000)
-    box = {"state": init_train_state(lm, hp=hp)}
-    step_fn = make_train_step(lm, hp)
+    state = init_train_state(lm, hp=hp)
     batch = TokenPipeline(cfg.vocab_size, args.batch, args.seq,
                           seed=args.seed).get_batch(0)
+    eager = TrainProgram(lm, state, hp, batch=args.batch, seq=args.seq,
+                         graph=False)
 
-    def step():
-        box["state"], metrics = step_fn(box["state"], batch)
-        float(metrics["loss"])
+    def stepper(prog):
+        def step():
+            prog.load(batch)
+            float(prog()["loss"])
+        return step
 
     def update():
-        st = box["state"]
-        grads = {n: torch.zeros_like(p) for n, p in st.params.items()}
-        adamw_update(grads, st.opt, st.params, lr=0.0)
+        grads = {n: torch.zeros_like(p) for n, p in state.params.items()}
+        adamw_update(grads, state.opt, state.params, lr=0.0)
 
+    def peaks():
+        return {"peak_alloc_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "peak_reserved_gib":
+                    torch.cuda.max_memory_reserved() / 2 ** 30}
+
+    def by_pool():
+        """GiB reserved now: in all, in the allocator's default pool, and
+        in the graphs' private pools."""
+        gib = {"default": 0.0, "graph": 0.0}
+        for seg in torch.cuda.memory_snapshot():
+            pool = tuple(seg.get("segment_pool_id", (0, 0)))
+            gib["default" if pool == (0, 0) else "graph"] += (
+                seg["total_size"] / 2 ** 30)
+        return {"reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+                "default_pool_gib": gib["default"],
+                "graph_pool_gib": gib["graph"]}
+
+    step = stepper(eager)
     for _ in range(2):                          # warm-up
         step()
     torch.cuda.reset_peak_memory_stats()
@@ -91,11 +124,26 @@ def main(argv=None):
            "layers": cfg.num_layers,
            "density": None if cfg.moe is not None else args.density,
            "batch": args.batch, "seq": args.seq,
-           "step_wall_ms": _wall_ms(step, args.steps),
-           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "step": _profile(step, args.steps, top_n=16),
-           "adamw_update": _profile(update, 2, top_n=4),
-           "step_host": _host_profile(step, 1, top=16)}
+           "step_wall_ms": _wall_ms(step, args.steps)}
+    out.update(peaks())
+    out.update(step=_profile(step, args.steps, top_n=16),
+               adamw_update=_profile(update, 2, top_n=4),
+               step_host=_host_profile(step, 1, top=16))
+    if args.graphs:
+        graph = TrainProgram(lm, state, hp, batch=args.batch, seq=args.seq,
+                             graph=True)
+        gstep = stepper(graph)
+        left = by_pool()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):                      # the capture, a replay
+            gstep()
+        out["graph_capture_s"] = graph.program.stats()["capture_s"]
+        out["graph_step_wall_ms"] = _wall_ms(gstep, args.steps)
+        out["graph"] = dict(peaks(), eager_left=left, after=by_pool())
+        out.update(graph_step_device_ms=_replay_ms(graph, args.steps),
+                   graph_step=_profile(gstep, args.steps, top_n=16),
+                   graph_step_host=_host_profile(gstep, 1, top=16))
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

@@ -14,7 +14,11 @@ and adds the router losses:
         --arch qwen3-moe-30b-a3b --smoke --device cpu --steps 3
 
 ``train_loop`` takes any config, a depth-cut one included
-(``dataclasses.replace`` of ``groups``).
+(``dataclasses.replace`` of ``groups``).  On a card each step replays
+one CUDA graph of the whole step (forward, backward, clip, AdamW;
+``train/program.py``), the counterpart of the reference's ``jax.jit``
+with the state donated; ``--eager`` (``graphs=False``) runs the same
+step eagerly, as the CPU always does.
 
 Counterpart of the JAX package's ``launch/train.py``: a deterministic
 data pipeline with a checkpointable cursor, async atomic checkpoints
@@ -30,6 +34,7 @@ import signal
 import sys
 import threading
 import time
+from typing import Optional
 
 import torch
 
@@ -37,23 +42,31 @@ from repro_torch import configs
 from repro_torch.checkpoint import Checkpointer, latest_step, restore
 from repro_torch.data import TokenPipeline
 from repro_torch.models.model import LM
+from repro_torch.train.program import TrainProgram
 from repro_torch.train.step import (TrainHParams, init_train_state,
-                                    load_state_tree, make_train_step,
-                                    state_tree)
+                                    load_state_tree, state_tree)
 
 
 def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
                ckpt_dir: str | None, ckpt_every: int = 20,
                hp: TrainHParams = TrainHParams(), device=None,
-               log_every: int = 10, on_step=None, seed: int = 0):
+               log_every: int = 10, on_step=None, seed: int = 0,
+               graphs: Optional[bool] = None):
     """Train ``cfg`` from a seeded init (or the latest checkpoint under
-    ``ckpt_dir``) up to ``steps``.  Returns ``(state, losses)``;
-    ``on_step(step, metrics)`` sees each step's metrics, with
-    ``step_s``, the step's wall time on the host clock (the loss is read
-    back, so the device has finished the step)."""
+    ``ckpt_dir``) up to ``steps``.  Returns ``(state, losses)``.
+
+    ``graphs`` (None: on a card) replays the step as one captured CUDA
+    graph (``TrainProgram``); ``graphs=True`` on the CPU raises.  The
+    loss is read once a step, after it ran.
+    ``on_step(step, metrics, program)`` sees each step's metrics (device
+    tensors, which the next step rewrites), with ``step_s``, the step's
+    wall time on the host clock (the loss was read back, so the device
+    has finished the step), and the ``TrainProgram`` (its ``state``,
+    ``lm`` and ``program``).  It runs before the step's checkpoint: a
+    topology step taken there is in that checkpoint, and the graph is
+    captured again before its next replay."""
     lm = LM(cfg, device=device, seed=seed)
     state = init_train_state(lm, hp=hp)
-    train_step = make_train_step(lm, hp)
     pipe = TokenPipeline(cfg.vocab_size, batch_per_shard, seq)
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
 
@@ -63,6 +76,8 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
         state = load_state_tree(state, tree)
         start = TokenPipeline.resume_step(extra["data"])
         print(f"[train] resumed from step {start}")
+    program = TrainProgram(lm, state, hp, batch=batch_per_shard, seq=seq,
+                           graph=graphs)
 
     stop = {"now": False}
 
@@ -76,19 +91,20 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
     try:
         for step in range(start, steps):
             ts = time.perf_counter()
-            state, metrics = train_step(state, pipe.get_batch(step))
+            program.load(pipe.get_batch(step))
+            metrics = program()
             loss = float(metrics["loss"])
-            metrics["step_s"] = time.perf_counter() - ts
+            metrics = dict(metrics, step_s=time.perf_counter() - ts)
             losses.append(loss)
             if on_step:
-                on_step(step, metrics)
+                on_step(step, metrics, program)
             if step % log_every == 0 or step == steps - 1:
                 print(f"[train] step {step} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"({time.perf_counter() - t0:.1f}s)")
             if ckpt and ((step + 1) % ckpt_every == 0 or stop["now"]
                          or step == steps - 1):
-                ckpt.save_async(state_tree(state), step=step + 1,
+                ckpt.save_async(state_tree(program.state), step=step + 1,
                                 extra={"data": pipe.state(step + 1)})
             if stop["now"]:
                 print("[train] preemption signal: final checkpoint + exit")
@@ -98,7 +114,7 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
     finally:
         if main_thread:
             signal.signal(signal.SIGTERM, old)
-    return state, losses
+    return program.state, losses
 
 
 def main(argv=None):
@@ -118,6 +134,9 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="torch device ('cpu' runs the plain versions)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run each step eagerly instead of replaying its "
+                         "CUDA graph (the CPU is always eager)")
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -132,7 +151,8 @@ def main(argv=None):
                            ckpt_dir=args.ckpt_dir,
                            ckpt_every=args.ckpt_every, hp=hp,
                            device=args.device, log_every=args.log_every,
-                           seed=args.seed)
+                           seed=args.seed,
+                           graphs=False if args.eager else None)
     if losses:
         print(f"[train] done: first loss {losses[0]:.4f} "
               f"last loss {losses[-1]:.4f}")

@@ -156,11 +156,19 @@ def _attend_forward(q, k, v, spec: AttnSpec) -> torch.Tensor:
 
 class _BsAttnFn(torch.autograd.Function):
     """bs_attn forward; plain backward that recomputes the probabilities
-    from the saved q, k, v."""
+    from the saved q, k, v.
+
+    The backward's element mask is looked up in the forward: on a card
+    autograd runs the backward on its own device thread, where no capture
+    record is active (``core.capture`` is per thread), so a graph that
+    captured the backward would otherwise read a cached mask nothing
+    keeps alive."""
 
     @staticmethod
     def forward(ctx, q, k, v, spec):
         ctx.spec = spec
+        ctx.mask = spec.element_mask(q.device)
+        capture.hold(ctx.mask)
         ctx.save_for_backward(q, k, v)
         return _attend_forward(q, k, v, spec)
 
@@ -170,7 +178,7 @@ class _BsAttnFn(torch.autograd.Function):
         spec = ctx.spec
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = attend_plain(*leaves, spec.element_mask(q.device),
+            out = attend_plain(*leaves, ctx.mask,
                                scale=spec.scale, softcap=spec.softcap)
             grads = torch.autograd.grad(out, leaves, dout)
         return (*grads, None)

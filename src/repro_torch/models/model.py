@@ -137,7 +137,9 @@ class LM(nn.Module):
         numpy; the NamedTuple or a dict of its fields) into this model,
         make its parameters trainable, and return the port's
         ``TrainState`` over it: the params, the step, and the
-        ``AdamState`` count with its fp32 master, mu and nu.
+        ``AdamState`` count (both 0-dim int32 tensors on the model's
+        device, as the reference keeps them) with its fp32 master, mu
+        and nu.
         Gradient-compression state is not ported."""
         from repro_torch.optim.adamw import AdamState
         from repro_torch.train.step import TrainState
@@ -214,6 +216,9 @@ class LM(nn.Module):
         ``loss_chunk`` (halved until it divides S), each recomputed in
         the backward (activation checkpointing), so the ``[B, S, V]``
         logits are never held whole: one chunk's fp32 logits at a time.
+        A chunk draws no random numbers, so its recompute neither saves
+        nor restores the generators' states (a CUDA-graph capture may
+        refuse a read of the CUDA generator's state).
         """
         moe = self.cfg.moe
         t = self._tokens(tokens)
@@ -233,7 +238,8 @@ class LM(nn.Module):
             hx, tx = h[:, i:i + c], tg[:, i:i + c]
             if torch.is_grad_enabled() and hx.requires_grad:
                 nll, valid = torch_checkpoint.checkpoint(
-                    self._chunk_nll, hx, tx, use_reentrant=False)
+                    self._chunk_nll, hx, tx, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
                 nll, valid = self._chunk_nll(hx, tx)
             tot = tot + nll

@@ -14,13 +14,18 @@ and moments the same way.  Without it the next step would write the
 master, in the old slot order, back over the evolved values.  The
 reference leaves this to its caller (its ``rigl_evolve`` carries the
 values only).
+
+The update count lives on the parameters' device as a 0-dim int32 tensor
+(as the reference's ``AdamState.count``), advanced in place, and the
+bias corrections and the learning rate are device values too: a captured
+train step (``train/program.py``) holds their addresses and reads
+nothing back to the host.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
-import numpy as np
 import torch
 
 from repro_torch.core import partitioner
@@ -28,12 +33,25 @@ from repro_torch.core import partitioner
 Tensors = Dict[str, torch.Tensor]
 
 
+def counter(value, like: Tensors) -> torch.Tensor:
+    """A step or update count as a 0-dim int32 tensor on the device of
+    ``like``'s tensors (the CPU if it has none); a tensor is returned as
+    it is."""
+    if isinstance(value, torch.Tensor):
+        return value
+    dev = next((t.device for t in like.values()), torch.device("cpu"))
+    return torch.tensor(int(value), dtype=torch.int32, device=dev)
+
+
 @dataclasses.dataclass
 class AdamState:
-    count: int         # updates applied so far
-    master: Tensors    # fp32 copy of the params
-    mu: Tensors        # first moment (fp32)
-    nu: Tensors        # second moment (fp32)
+    count: torch.Tensor  # [] int32: updates applied so far (an int is taken)
+    master: Tensors      # fp32 copy of the params
+    mu: Tensors          # first moment (fp32)
+    nu: Tensors          # second moment (fp32)
+
+    def __post_init__(self):
+        self.count = counter(self.count, self.master)
 
 
 def adamw_init(params: Tensors) -> AdamState:
@@ -86,20 +104,24 @@ def _groups(names, sizes, limit: int):
 
 @torch.no_grad()
 def adamw_update(grads: Tensors, state: AdamState, params: Tensors, *,
-                 lr: float, b1: float = 0.9, b2: float = 0.95,
-                 eps: float = 1e-8, weight_decay: float = 0.1
-                 ) -> Tuple[Tensors, AdamState]:
+                 lr: Union[float, torch.Tensor], b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1) -> Tuple[Tensors, AdamState]:
     """One AdamW step (decoupled weight decay on every parameter, as the
-    reference).  Updates ``state``'s tensors and ``params`` in place and
-    returns ``(params, state with count + 1)``.  The arithmetic is the
-    reference's, op for op, over many tensors at once (``_foreach``
-    kernels over groups of ``UPDATE_GROUP_ELEMS`` elements: a few
-    launches per group instead of a dozen per tensor, and fp32
+    reference).  Updates ``state``'s tensors and ``params`` in place
+    (the count too: ``state.count`` stays the same tensor) and returns
+    ``(params, state)``.  ``lr`` is a float or a 0-dim fp32 tensor on the
+    parameters' device; the bias corrections are computed from the count
+    on its device, so the step reads nothing on the host.  The arithmetic
+    is the reference's, op for op, over many tensors at once
+    (``_foreach`` kernels over groups of ``UPDATE_GROUP_ELEMS`` elements:
+    a few launches per group instead of a dozen per tensor, and fp32
     temporaries of one group at a time)."""
-    count = state.count + 1
-    c = np.float32(count)
-    bc1 = float(np.float32(1.0) - np.float32(b1) ** c)
-    bc2 = float(np.float32(1.0) - np.float32(b2) ** c)
+    state.count = counter(state.count, state.master)
+    state.count.add_(1)
+    c = state.count.to(torch.float32)
+    bc1 = 1.0 - torch.pow(b1, c)
+    bc2 = 1.0 - torch.pow(b2, c)
     sizes = {n: g.numel() for n, g in grads.items()}
     for names in _groups(list(grads), sizes, UPDATE_GROUP_ELEMS):
         gs = [grads[n].float() for n in names]
@@ -118,11 +140,12 @@ def adamw_update(grads: Tensors, state: AdamState, params: Tensors, *,
         torch._foreach_div_(step, denom)
         del denom
         torch._foreach_add_(step, ws, alpha=weight_decay)  # w -= lr (...)
-        torch._foreach_add_(ws, step, alpha=-lr)
+        torch._foreach_mul_(step, lr)
+        torch._foreach_sub_(ws, step)
         del step
         for n, w in zip(names, ws):
             params[n].copy_(w)
-    return params, AdamState(count, state.master, state.mu, state.nu)
+    return params, state
 
 
 @torch.no_grad()

@@ -1,13 +1,14 @@
-"""One serving program over persistent device buffers, run eagerly or
-replayed from a captured CUDA graph.
+"""One program over persistent device buffers, run eagerly or replayed
+from a captured CUDA graph: a serving step, or a train step.
 
-The port's counterpart of the reference engine's ``jax.jit`` programs
-(``serve/engine.py:267-270``): a ``Program`` owns its input buffer (the
-caller loads each call's tokens, positions and slot into it), and on a
-card it captures the program once as a ``torch.cuda.CUDAGraph`` and
-replays it per call, so a call runs no Python and launches no kernel
-from the host.  What the replay cannot do by itself is kept beside the
-graph:
+The port's counterpart of the reference's ``jax.jit`` programs (the
+engine's, ``serve/engine.py:267-270``, and the train step's,
+``launch/train.py:62``): a ``Program`` owns its input buffer (the caller
+loads each call's tokens, positions and slot, or a batch's tokens and
+targets, into it), and on a card it captures the program once as a
+``torch.cuda.CUDAGraph`` and replays it per call, so a call runs no
+Python and launches no kernel from the host.  What the replay cannot do
+by itself is kept beside the graph:
 
 * **one stream**: the warm-up and the capture run on the stream the
   owner passes (``stream``; the engine owns one for all its programs),
@@ -18,7 +19,11 @@ graph:
   every kernel is built, every plan, walk and schedule is on the device
   and the allocator holds its blocks (a capture may not copy from the
   host or synchronise).  Its telemetry is dropped (it serves no request;
-  ``core.capture``); its kernel launches are real and counted;
+  ``core.capture``); its kernel launches are real and counted.  A body
+  that updates state in place (``updates_state``: a train step) must not
+  run twice for one call: its warm-up *is* the call (telemetry kept,
+  outputs returned), the capture that follows records without running,
+  and later calls replay;
 * **launch accounting**: the kernels' launch counters
   (``kernels._build.COUNTERS``) are read around the capture, put back
   (a capture runs nothing), and each replay adds the launches the graph
@@ -31,7 +36,9 @@ graph:
   kernels read (``capture.hold``), kept alive with the graph;
 * **memory**: every graph of an engine captures into one memory pool
   (``pool``); a graph's outputs are its own tensors, which no other
-  capture reuses;
+  capture reuses.  Without ``pool`` each capture takes a private pool
+  (the train program's one graph: a shared pool that its only graph
+  left cannot be captured into again);
 * **plans**: the keys of the plans the body called (``plan_keys``, from
   the capture's record, or the warm-up's when the program runs
   eagerly).  A re-planned verdict that changes one of their routes marks
@@ -51,6 +58,7 @@ A capture that fails raises; nothing falls back to eager.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable, Optional
 
@@ -71,12 +79,16 @@ class Program:
     stream for the life of the process, so a fresh stream per capture
     would pin one each); ``capture_lock`` (a context manager) is held
     over each warm-up and capture, so another thread's device work that
-    takes it never lands inside one."""
+    takes it never lands inside one.  With ``updates_state`` the body
+    changes state in place (a train step): a call that captures returns
+    its warm-up's outputs, which were that call's run, and frees the
+    allocator's cached blocks (after collecting reference cycles) before
+    the warm-up and before the capture (which takes the graph's own)."""
 
     def __init__(self, name: str, body: Callable, io_size: int, *,
                  device: torch.device, graph: bool, ctx, pool=None,
                  stream: Optional[torch.cuda.Stream] = None,
-                 capture_lock=None):
+                 capture_lock=None, updates_state: bool = False):
         if graph and stream is None:
             raise ValueError(f"{name}: a graph program needs the stream "
                              f"it captures on")
@@ -88,6 +100,7 @@ class Program:
         self.stream = stream
         self.capture_lock = capture_lock
         self.use_graph = graph
+        self.updates_state = updates_state
         self.io = torch.zeros(io_size, dtype=torch.long, device=device)
         # a pinned host copy of io: one asynchronous upload a call, and
         # the event that says when it has been read
@@ -137,23 +150,42 @@ class Program:
         self.plan_keys = frozenset(rec.plans)
         return out
 
-    def capture(self) -> None:
+    def capture(self):
         """Warm up, then capture the body into a CUDA graph, both on the
-        program's stream."""
+        program's stream.  Returns the warm-up's outputs with
+        ``updates_state`` (the call's own run), else None."""
         if self.device.type != "cuda":
             raise RuntimeError(f"{self.name}: a CUDA graph needs a card, "
                                f"not {self.device}")
         with self.capture_lock or contextlib.nullcontext():
-            self._capture()
+            return self._capture()
 
-    def _capture(self) -> None:
+    def _capture(self):
         t0 = time.perf_counter()
         cur = torch.cuda.current_stream(self.device)
         stream = self.stream
+        if self.updates_state:
+            # the warm-up allocates on the capture stream: blocks cached
+            # for the caller's stream are of no use to it.  The cache
+            # frees only whole segments, and a tensor kept by a reference
+            # cycle of an earlier eager step (until the cycle collector
+            # runs) keeps its segment: collect first
+            gc.collect()
+            torch.cuda.empty_cache()
         stream.wait_stream(cur)
-        with torch.cuda.stream(stream), capture.recording():
-            self.run_eager()
+        with torch.cuda.stream(stream):
+            if self.updates_state:
+                warm = self.run_eager()
+            else:
+                with capture.recording():
+                    self.run_eager()
+                warm = None
         cur.wait_stream(stream)
+        if self.updates_state:
+            # the warm-up's transient blocks back to the card: the graph
+            # keeps its own for the step's transients
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
         before = _build.launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
@@ -181,20 +213,23 @@ class Program:
         self.stale = False
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
+        return warm
 
-    def recapture(self) -> None:
+    def recapture(self):
         """Drop the graph and capture the body again, into the same pool
         on the same stream (its warm-up re-plans what was re-planned).
         The old graph, its outputs, telemetry values and held metadata go
-        only after the device has run its last replay."""
+        only after the device has run its last replay.  Returns what
+        ``capture`` returns."""
         if self.graph is not None:
             torch.cuda.synchronize(self.device)
             self.graph.reset()
         self.graph = self.outputs = None
         self._launches, self._drops, self._held = (), {}, {}
         self._plans = ()
-        self.capture()
+        warm = self.capture()
         self.recaptures += 1
+        return warm
 
     def superseded(self) -> bool:
         """Has an evolve moved a module off a plan the graph holds since
@@ -212,14 +247,16 @@ class Program:
         (captured now if it is not yet, captured again first if it is
         ``stale`` or holds a superseded plan).  Returns the body's
         outputs (a graph's own tensors: read them before the next
-        replay)."""
+        replay).  With ``updates_state`` a call that captures runs the
+        body once, as its warm-up, and returns that run's outputs."""
         if not self.use_graph:
             self.stale = False
             return self.run_eager()
-        if self.graph is None:
-            self.capture()
-        elif self.stale or self.superseded():
-            self.recapture()
+        if self.graph is None or self.stale or self.superseded():
+            warm = (self.capture() if self.graph is None
+                    else self.recapture())
+            if self.updates_state:
+                return warm
         self.graph.replay()
         self.replays += 1
         _build.add_launches(self._launches)

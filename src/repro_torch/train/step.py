@@ -14,6 +14,12 @@ RigL topology steps: ``rigl_evolve`` is the reference's step on a plan
 (the new mask, the evolved plan, the carried values);
 ``evolve_sparse_layer`` applies one to a ``SparseLinear`` of a training
 state, its optimizer slots (``carry_slots``) with it.
+
+The step and AdamW's update count are 0-dim int32 tensors on the
+parameters' device, advanced in place, and the learning rate, the bias
+corrections and every metric are device values: a step reads nothing
+back to the host, so ``train/program.py`` can capture it as one CUDA
+graph (the counterpart of the reference's ``jax.jit`` of this step).
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ import torch
 from repro_torch.core import partitioner, pruning
 from repro_torch.core.bsr import BlockSparseMatrix
 from repro_torch.optim.adamw import (AdamState, adamw_init, adamw_update,
-                                     carry_slots, clip_by_global_norm)
+                                     carry_slots, clip_by_global_norm,
+                                     counter)
 from repro_torch.optim.schedule import warmup_cosine
 
 Tensors = Dict[str, torch.Tensor]
@@ -33,9 +40,12 @@ Tensors = Dict[str, torch.Tensor]
 
 @dataclasses.dataclass
 class TrainState:
-    step: int
+    step: torch.Tensor       # [] int32 on the params' device (an int is taken)
     params: Tensors          # the model's parameters, by name
     opt: AdamState
+
+    def __post_init__(self):
+        self.step = counter(self.step, self.params)
 
 
 class TrainHParams(NamedTuple):
@@ -159,10 +169,13 @@ def lm_grad_fn(lm) -> Callable:
 
 def make_train_step(lm, hp: TrainHParams = TrainHParams()):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` is
-    ``{"tokens", "targets"}`` ``[B, S]`` arrays.  Metrics: the loss's
-    own (``xent``; an MoE model's ``aux_loss``, ``z_loss`` and
-    ``dropped_frac`` too), microbatch-averaged, ``loss``, ``grad_norm``
-    (before clipping) and ``lr``."""
+    ``{"tokens", "targets"}`` ``[B, S]`` arrays.  The state is updated in
+    place (its step, parameters and optimizer tensors) and returned.
+    Metrics, each a device tensor: the loss's own (``xent``; an MoE
+    model's ``aux_loss``, ``z_loss`` and ``dropped_frac`` too),
+    microbatch-averaged, ``loss``, ``grad_norm`` (before clipping) and
+    ``lr`` (from the step on its device).  Nothing is read back to the
+    host once the plans are built."""
     _no_compress(hp)
     grad_fn = lm_grad_fn(lm)
 
@@ -174,10 +187,10 @@ def make_train_step(lm, hp: TrainHParams = TrainHParams()):
         lr = warmup_cosine(state.step, peak_lr=hp.peak_lr,
                            warmup_steps=hp.warmup_steps,
                            total_steps=hp.total_steps)
-        params, opt = adamw_update(grads, state.opt, state.params, lr=lr,
-                                   weight_decay=hp.weight_decay)
-        new_state = TrainState(state.step + 1, params, opt)
-        return new_state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
+        adamw_update(grads, state.opt, state.params, lr=lr,
+                     weight_decay=hp.weight_decay)
+        state.step.add_(1)
+        return state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
 
     return train_step
 
@@ -185,8 +198,8 @@ def make_train_step(lm, hp: TrainHParams = TrainHParams()):
 # -- checkpoint trees -----------------------------------------------------------
 
 def state_tree(state: TrainState) -> dict:
-    """The state as a nested dict of tensors and ints (what the
-    checkpointer stores)."""
+    """The state as a nested dict of tensors, the step and the count
+    among them (what the checkpointer stores)."""
     return {"step": state.step, "params": dict(state.params),
             "opt": {"count": state.opt.count,
                     "master": dict(state.opt.master),
@@ -196,14 +209,14 @@ def state_tree(state: TrainState) -> dict:
 @torch.no_grad()
 def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     """Copy a restored ``state_tree`` into ``state``'s tensors in place
-    (the model's parameters included); returns the state at the
-    restored step."""
+    (the model's parameters, the step and the count included: a captured
+    train step reads the restored values); returns ``state``."""
     for src, dst in ((tree["params"], state.params),
                      (tree["opt"]["master"], state.opt.master),
                      (tree["opt"]["mu"], state.opt.mu),
                      (tree["opt"]["nu"], state.opt.nu)):
         for n, t in dst.items():
             t.copy_(src[n])
-    opt = AdamState(int(tree["opt"]["count"]), state.opt.master,
-                    state.opt.mu, state.opt.nu)
-    return TrainState(int(tree["step"]), state.params, opt)
+    state.step.copy_(torch.as_tensor(tree["step"]))
+    state.opt.count.copy_(torch.as_tensor(tree["opt"]["count"]))
+    return state

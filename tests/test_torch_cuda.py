@@ -1734,3 +1734,294 @@ def test_engine_graphs_recapture_after_evolve(dev):
     for a, b in zip(seen, want):
         assert torch.equal(a, b)
     sparse.reset()
+
+
+# ---------------------------------------------------------------------------
+# the captured train step (train/program.py) against the same step eagerly
+# ---------------------------------------------------------------------------
+
+TRAIN_HP = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def _train_run(dev, which, graph, steps, *, between=None, batch=2, seq=32):
+    """``steps`` steps of a ``TrainProgram`` on ``which``'s smoke config
+    from seed 0: every step's loss and metrics (copied), launch counts
+    and the run's MoE drops, the parameters after, and the program.
+    ``between(i, program)`` runs after step ``i``."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _build
+    from repro_torch.train.program import TrainProgram
+    from repro_torch.train.step import TrainHParams, init_train_state
+    lm = LM(_serve_cfg(which), device=dev, seed=0)
+    hp = TrainHParams(**TRAIN_HP)
+    prog = TrainProgram(lm, init_train_state(lm, hp=hp), hp, batch=batch,
+                        seq=seq, graph=graph)
+    pipe = TokenPipeline(lm.cfg.vocab_size, batch, seq)
+    torch.cuda.synchronize()
+    sparse.reset_telemetry()
+    out = {"losses": [], "metrics": [], "launches": []}
+    for i in range(steps):
+        before = _build.launch_counts()
+        prog.load(pipe.get_batch(i))
+        m = prog()
+        out["metrics"].append({k: v.clone() for k, v in m.items()})
+        out["losses"].append(float(m["loss"]))
+        out["launches"].append([a - b for a, b in
+                                zip(_build.launch_counts(), before)])
+        if between is not None:
+            between(i, prog)
+    torch.cuda.synchronize()
+    out["params"] = {n: p.detach().clone()
+                     for n, p in prog.state.params.items()}
+    out["drops"] = sparse.dropped_history("moe_dispatch")
+    out["prog"] = prog
+    return out
+
+
+def _same_run(got, want):
+    assert got["losses"] == want["losses"]
+    for a, b in zip(got["metrics"], want["metrics"]):
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert set(got["params"]) == set(want["params"])
+    for n, p in want["params"].items():
+        assert torch.equal(got["params"][n], p), n
+    assert got["launches"] == want["launches"]
+    assert got["drops"] == want["drops"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["llama-sparse", "qwen3"])
+def test_train_graph_matches_eager(dev, which):
+    """Five steps replayed from one captured graph (forward, backward,
+    clip, AdamW) against five eager steps from the same seed: losses,
+    every metric and the parameters after, bit for bit; the launches of
+    every step, by counter (the first step is the capture's warm-up, the
+    others replays); the MoE routing drops, once per layer per step."""
+    want = _train_run(dev, which, False, 5)
+    got = _train_run(dev, which, True, 5)
+    st = got["prog"].program.stats()
+    assert st["captures"] == 1 and st["recaptures"] == 0
+    assert st["replays"] == 4 and st["launches_per_replay"] > 0
+    _same_run(got, want)
+    if which == "qwen3":
+        assert len(got["drops"]) == 5 * got["prog"].lm.cfg.num_layers
+    assert int(got["prog"].state.step) == 5
+    assert int(got["prog"].state.opt.count) == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["llama-sparse", "qwen3"])
+def test_train_graph_replay_makes_no_host_sync(dev, which):
+    """A replayed train step (the batch loaded before) runs under
+    ``set_sync_debug_mode("error")``: no synchronising call."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train.program import TrainProgram
+    from repro_torch.train.step import TrainHParams, init_train_state
+    lm = LM(_serve_cfg(which), device=dev, seed=0)
+    hp = TrainHParams(**TRAIN_HP)
+    prog = TrainProgram(lm, init_train_state(lm, hp=hp), hp, batch=2,
+                        seq=32, graph=True)
+    pipe = TokenPipeline(lm.cfg.vocab_size, 2, 32)
+    for i in range(3):
+        prog.load(pipe.get_batch(i))
+        if i == 2:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            m = prog()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert prog.program.stats()["replays"] == 2
+    assert np.isfinite(float(m["loss"]))
+
+
+def _evolve_up0(i, prog, at=2):
+    """After step ``at``: layer 0's up projection onto a seeded pattern of
+    the same block count (a fifth of its blocks moved)."""
+    from repro_torch.train.step import evolve_sparse_layer
+    if i != at:
+        return
+    up = prog.lm.layers[0].ffn.up
+    rng = np.random.default_rng(5)
+    mask = up.pattern.copy()
+    on, off = np.flatnonzero(mask), np.flatnonzero(~mask)
+    k = max(1, on.size // 5)
+    flat = mask.reshape(-1)
+    flat[rng.choice(on, k, replace=False)] = False
+    flat[rng.choice(off, k, replace=False)] = True
+    evolve_sparse_layer(prog.state, "layers.0.ffn.up.values", up, mask)
+
+
+@pytest.mark.cuda
+def test_train_graph_recaptures_once_after_evolve(dev):
+    """Three steps, a topology step on layer 0's up projection (constant
+    block count), two more: the graph is captured again exactly once,
+    before the step after the topology step, and every step equals the
+    same run eagerly."""
+    want = _train_run(dev, "llama-sparse", False, 5, between=_evolve_up0)
+    got = _train_run(dev, "llama-sparse", True, 5, between=_evolve_up0)
+    st = got["prog"].program.stats()
+    assert st["captures"] == 2 and st["recaptures"] == 1
+    assert st["replays"] == 3
+    _same_run(got, want)
+
+
+@pytest.mark.cuda
+def test_train_graph_reads_a_restored_state(dev):
+    """A captured program trains steps 0-3; the state after step 1,
+    saved, is restored into its tensors (``load_state_tree``) and steps
+    2-3 replayed again: no re-capture, and the same losses and
+    parameters as the first time and as the eager run."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train.step import load_state_tree, state_tree
+    want = _train_run(dev, "llama-sparse", False, 4)
+    snap = {}
+
+    def keep(i, prog):
+        if i == 1:
+            snap["tree"] = {k: (v.detach().cpu().clone() if isinstance(
+                v, torch.Tensor) else v) for k, v in _flat(
+                    state_tree(prog.state)).items()}
+
+    got = _train_run(dev, "llama-sparse", True, 4, between=keep)
+    _same_run(got, want)
+    prog = got["prog"]
+    load_state_tree(prog.state, _unflat(snap["tree"]))
+    assert int(prog.state.step) == int(prog.state.opt.count) == 2
+    pipe = TokenPipeline(prog.lm.cfg.vocab_size, 2, 32)
+    again = []
+    for i in (2, 3):
+        prog.load(pipe.get_batch(i))
+        again.append(float(prog()["loss"]))
+    assert again == want["losses"][2:]
+    assert prog.program.stats()["captures"] == 1
+    for n, p in want["params"].items():
+        assert torch.equal(prog.state.params[n], p), n
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def _unflat(flat):
+    tree = {}
+    for key, v in flat.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+@pytest.mark.cuda
+def test_train_backward_runs_off_the_capture_thread(dev, monkeypatch):
+    """On a card autograd runs the backward on its own device thread: a
+    capture record, and the caller's ``use_ctx`` context, are not seen
+    there.  So the bs_attn backward's element mask is looked up and held
+    in the forward, on the caller's thread, and the backward makes no
+    plan: nothing it reads depends on the thread-local state."""
+    import threading
+
+    from repro_torch.core import capture
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models import attention
+    from repro_torch.train.step import (TrainHParams, init_train_state,
+                                        make_train_step)
+    lm = LM(_serve_cfg("llama-sparse"), device=dev, seed=0)
+    hp = TrainHParams(**TRAIN_HP)
+    state = init_train_state(lm, hp=hp)
+    fn = make_train_step(lm, hp)
+    batch = TokenPipeline(lm.cfg.vocab_size, 2, 32).get_batch(0)
+    fn(state, batch)                                # plans built
+    seen = []
+    plain = attention.attend_plain
+
+    def probe(*args, **kwargs):
+        seen.append((threading.get_ident(), capture.active(),
+                     sparse.current_ctx().pool))
+        return plain(*args, **kwargs)
+
+    monkeypatch.setattr(attention, "attend_plain", probe)
+    ctx = sparse.PlanContext(pool="train-probe")
+    before = sparse.cache_stats()
+    with sparse.use_ctx(ctx), capture.recording() as rec:
+        fn(state, batch)
+    torch.cuda.synchronize()
+    assert seen, "the bs_attn backward recomputes with attend_plain"
+    main = threading.get_ident()
+    assert all(t != main and r is None and pool is None
+               for t, r, pool in seen)
+    masks_held = [o for o in rec.held.values()
+                  if isinstance(o, torch.Tensor) and o.dtype == torch.bool
+                  and o.shape == (32, 32)]
+    assert masks_held
+    after = sparse.cache_stats()
+    for key in ("plans_built", "decisions"):
+        assert after[key] == before[key], key
+
+
+@pytest.mark.cuda
+def test_train_capture_shares_a_stream_and_collects_cycles(dev):
+    """Two train programs on one card capture on one stream (cuBLAS pins
+    a workspace per stream), and a capture collects reference cycles
+    before it empties the allocator's cache, so a tensor that only a
+    cycle keeps does not hold its segment through the capture."""
+    import gc
+    import weakref
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train.program import TrainProgram
+    from repro_torch.train.step import TrainHParams, init_train_state
+    lm = LM(_serve_cfg("llama-sparse"), device=dev, seed=0)
+    hp = TrainHParams(**TRAIN_HP)
+    state = init_train_state(lm, hp=hp)
+    a = TrainProgram(lm, state, hp, batch=2, seq=32, graph=True)
+    b = TrainProgram(lm, state, hp, batch=2, seq=32, graph=True)
+    assert a.program.stream is b.program.stream
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        t = torch.empty(1 << 20, device=dev)
+        ref = weakref.ref(t)
+        cycle = [t]
+        cycle.append(cycle)
+        del t, cycle
+        assert ref() is not None
+        a.load(TokenPipeline(lm.cfg.vocab_size, 2, 32).get_batch(0))
+        a()
+        assert ref() is None
+        assert a.program.stats()["captures"] == 1
+    finally:
+        if enabled:
+            gc.enable()
+
+
+@pytest.mark.cuda
+def test_train_graph_keeps_the_backward_mask(dev):
+    """The bs_attn element masks and walks are dropped from their caches
+    and their memory written over after the capture: the replays still
+    equal the eager run (the graph holds what its backward reads)."""
+    import gc
+
+    from repro_torch.models import attention
+
+    def scrub(i, prog):
+        if i == 0:
+            attention._device_element_mask.cache_clear()
+            attention._device_walk.cache_clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            junk = torch.full((64 << 20,), -7, dtype=torch.int32, device=dev)
+            del junk
+
+    want = _train_run(dev, "llama-sparse", False, 4)
+    got = _train_run(dev, "llama-sparse", True, 4, between=scrub)
+    _same_run(got, want)

@@ -261,7 +261,7 @@ def test_resume_is_exact(tmp_path):
     assert latest_step(d) == 6
     seen = []
     _, l_resumed = train_loop(cfg, steps=10, ckpt_dir=d,
-                              on_step=lambda s, m: seen.append(s), **kw)
+                              on_step=lambda s, m, p: seen.append(s), **kw)
     assert seen == [6, 7, 8, 9]
     assert l_first == l_straight[:6]
     assert l_resumed[-1] == l_straight[-1]
@@ -285,7 +285,7 @@ def test_sigterm_writes_a_final_checkpoint(tmp_path):
     kw = dict(batch_per_shard=2, seq=8, log_every=100, ckpt_every=100,
               device="cpu", ckpt_dir=d)
 
-    def preempt(step, metrics):
+    def preempt(step, metrics, program):
         if step == 2:
             handler = signal.getsignal(signal.SIGTERM)
             assert callable(handler), "train_loop installs a handler"
