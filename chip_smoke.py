@@ -1333,8 +1333,10 @@ def attn_library(torch, s, window, global_prefix, softcap, scale,
 
 def attn_phase(torch, args):
     """bs_attn against its plain version (dense softmax over the element
-    mask) at gemma2-2b's global and local layers, llama3.2-1b's and
-    qwen3-moe's, and at an odd S whose tiles halve to 1; bf16 and fp32.  The bound counts
+    mask) at gemma2-2b's global and local layers, llama3.2-1b's,
+    qwen3-moe's, deepseek-v2-lite's MLA (dh 192, served and trained),
+    qwen2-1.5b's and glm4-9b's (GQA groups 6 and 16), and at an odd S
+    whose tiles halve to 1; bf16 and fp32.  The bound counts
     the visible element pairs (4 FLOPs per pair and head dim: QK^T and
     PV) against q, k, v read and o written once.  The library call
     (``attn_library``) is held against the plain version too."""
@@ -1356,7 +1358,8 @@ def attn_phase(torch, args):
     rows = []
     for name, s, h, kvh, dh, window, softcap, scale in (
             ATTN_SHAPES + gemma2_attn_shapes(args)
-            + qwen3_attn_shapes(args)):
+            + qwen3_attn_shapes(args) + deepseek_attn_shapes(args)
+            + dense_attn_shapes(args)):
         spec = attention.attn_spec(s, s, dh, window=window, softcap=softcap,
                                    scale=scale)
         walk = spec.walk(dev)
@@ -1370,6 +1373,9 @@ def attn_phase(torch, args):
             q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(dt)
             k = torch.randn((1, s, kvh, dh), generator=gen, device=dev).to(dt)
             v = torch.randn((1, s, kvh, dh), generator=gen, device=dev).to(dt)
+            if dh == 192:
+                # MLA's v: 128 wide, zero-padded to the q.k head dim
+                v[..., 128:] = 0
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
             sets = copies(lambda: (q.clone(), k.clone(), v.clone()), nbytes)
             library, lib_name = attn_library(torch, s, window, 0, softcap,
@@ -2671,6 +2677,73 @@ QWEN3_FP32_LAYERS = 4
 QWEN3_TRAIN_LAYERS, QWEN3_TRAIN_BATCH, QWEN3_TRAIN_SEQ = 4, 4, 512
 
 
+# [serve-deepseek]: deepseek-v2-lite-16b as published, served as qwen3
+# is: Engine(batch=4, max_len=1024), 6 seeded requests of 32..900 prompt
+# tokens (the last one over 600), 8 new tokens each
+DEEPSEEK = "deepseek-v2-lite-16b"
+DEEPSEEK_BATCH, DEEPSEEK_MAX_LEN, DEEPSEEK_NEW = 4, 1024, 8
+# [train-deepseek]: full width, depth cut 27 -> 4 layers (its dense layer,
+# then 3 MoE layers: 2.25 B parameters, ~36 GB of training state),
+# trained as [train-qwen3-moe] is (batch 4 x seq 512, 10 AdamW steps,
+# eagerly and then replaying the captured step)
+DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_BATCH, DEEPSEEK_TRAIN_SEQ = 4, 4, 512
+# [serve-qwen2], [serve-glm4]: every FFN block-sparse (d = 1/8, b = 16),
+# Engine(batch=4, max_len=512), 4 seeded requests of 16..480 prompt
+# tokens after 2 warm-up requests, 8 new tokens each
+DENSE_ARCHS = (("qwen2-1.5b", "serve-qwen2", 41),
+               ("glm4-9b", "serve-glm4", 43))
+DENSE_BATCH, DENSE_MAX_LEN, DENSE_NEW = 4, 512, 8
+DENSE_PROMPTS = ((16, 480),) * 4
+DENSE_WARMUP = ((16, 64),) * 2
+
+
+def deepseek_prompt_lens(args):
+    """[serve-deepseek]'s prompt lengths: five seeded in 32..900, the
+    sixth in 601..900."""
+    import numpy as np
+    rng = np.random.default_rng(args.seed + 31)
+    lens = [int(n) for n in rng.integers(32, 901, size=5)]
+    return lens + [int(rng.integers(601, 901))]
+
+
+def deepseek_attn_shapes(args):
+    """[attn] rows of MLA (16 heads of q.k 192 over 16 kv heads, causal,
+    scale 1/sqrt(192); v padded from 128): the prefill lengths
+    [serve-deepseek] runs on its engine's ladder and [train-deepseek]'s
+    sequence."""
+    from repro_torch import configs
+    served = prefill_lens(configs.get(DEEPSEEK), DEEPSEEK_MAX_LEN,
+                          deepseek_prompt_lens(args))
+    scale = 1 / math.sqrt(192)
+    return tuple([("deepseek served", s, 16, 16, 192, 0, None, scale)
+                  for s in sorted(set(served))]
+                 + [("deepseek train", DEEPSEEK_TRAIN_SEQ, 16, 16, 192, 0,
+                     None, scale)])
+
+
+def dense_prompt_lens(args, arch, seed_offset):
+    """A [serve-qwen2] / [serve-glm4] run's prompt lengths."""
+    from repro_torch import configs
+    return replay_prompt_lens(args.seed + seed_offset,
+                              configs.get(arch).vocab_size, DENSE_WARMUP,
+                              DENSE_PROMPTS)
+
+
+def dense_attn_shapes(args):
+    """[attn] rows at the prefill lengths [serve-qwen2] and [serve-glm4]
+    run (their GQA groups 12 / 2 = 6 and 32 / 2 = 16, dh 128, causal)."""
+    from repro_torch import configs
+    rows = []
+    for arch, label, off in DENSE_ARCHS:
+        cfg = configs.sparsify_ffn(configs.get(arch), 1 / 8)
+        for s in sorted(set(prefill_lens(cfg, DENSE_MAX_LEN,
+                                         dense_prompt_lens(args, arch,
+                                                           off)))):
+            rows.append((f"{label[6:]} served", s, cfg.num_heads,
+                         cfg.num_kv_heads, 128, 0, None, 1 / math.sqrt(128)))
+    return tuple(rows)
+
+
 def qwen3_prompt_lens(args):
     """The serve run's prompt lengths: five seeded in 32..900, the sixth
     in 601..900, so the largest bucket is prefilled."""
@@ -2786,30 +2859,25 @@ def gmm_kernel_phase(torch, args):
     return rows
 
 
-def serve_qwen3_phase(torch, args):
-    """Full-width, full-depth qwen3-moe-30b-a3b (48 layers, d_model 2048,
-    GQA 32/4, head dim 128, QK-norm, 128 experts top-8 of d_ff 768,
-    vocab 151936) in bf16 from ``init(seed)`` on the card, through
-    ``Engine(batch=4, max_len=1024)``: 6 seeded requests of 32..900
-    prompt tokens, 8 new tokens each, eagerly and then through the
-    engine's CUDA graphs (captured at startup; the main path).  The gmm,
-    dense_mm and bs_attn counters are zeroed just before the graph run
-    and read just after.  The routing drops are read once after each run
-    from the ``"moe_dispatch"`` stream (one value a layer a forward, in
-    call order): mean and max over the layers for each prefill, and over
-    every decode step; the graph run's equal the eager run's."""
+def serve_moe_phase(torch, args, cfg, label, prompt_lens, *, seed,
+                    counters, batch, max_len, new):
+    """A full-width MoE model in bf16 from ``init(seed)`` on the card,
+    through ``Engine(batch, max_len)``: seeded requests of
+    ``prompt_lens`` prompt tokens, ``new`` new tokens each, eagerly and
+    then through the engine's CUDA graphs (captured at startup; the main
+    path).  ``counters`` are zeroed just before the graph run and read
+    just after.  The routing drops are read once after each run from the
+    ``"moe_dispatch"`` stream (one value an MoE layer a forward, in call
+    order): mean and max over the layers for each prefill, and over
+    every decode step; the graph run's equal the eager run's.  Returns
+    ``(result, lm, engine)``."""
     import numpy as np
 
-    from repro_torch import configs
     from repro_torch import sparse
-    from repro_torch.kernels import bs_attn, dense_mm, gmm
     from repro_torch.models.model import LM
+    from repro_torch.models.transformer import layer_specs
     from repro_torch.serve import Engine, Request
 
-    cfg = configs.get("qwen3-moe-30b-a3b")
-    assert cfg.dtype == "bfloat16" and cfg.num_layers == 48
-    counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
-                           "bs_attn": bs_attn.COUNTER})
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lm = LM(cfg, device="cuda", seed=args.seed)
@@ -2817,7 +2885,7 @@ def serve_qwen3_phase(torch, args):
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in lm.parameters())
 
-    rng = np.random.default_rng(args.seed + 13)
+    rng = np.random.default_rng(seed)
 
     def request(uid, n, new):
         return Request(uid=uid, prompt=rng.integers(0, cfg.vocab_size,
@@ -2825,9 +2893,9 @@ def serve_qwen3_phase(torch, args):
                        max_new_tokens=new)
 
     def noted(eng, calls):
-        """Note which forward each group of num_layers drop values came
-        from: the engine's admit (a prefill) and step (a decode step, if
-        any slot is live); no device work, no read."""
+        """Note which forward each group of drop values came from: the
+        engine's admit (a prefill) and step (a decode step, if any slot
+        is live); no device work, no read."""
         admit, step = eng.admit, eng.step
 
         def noted_admit(req):
@@ -2842,19 +2910,18 @@ def serve_qwen3_phase(torch, args):
         eng.admit, eng.step = noted_admit, noted_step
         return eng
 
-    kw = dict(batch=QWEN3_BATCH, max_len=QWEN3_MAX_LEN, device="cuda")
+    kw = dict(batch=batch, max_len=max_len, device="cuda")
     # warm-up (first launches, allocator; eager), then the same requests
     # eagerly and through the graphs
     Engine(lm, graphs=False, warm_plans=False, **kw).run(
         [request(i, 40, 2) for i in range(2)])
-    prompts = [request(i, n, QWEN3_NEW).prompt
-               for i, n in enumerate(qwen3_prompt_lens(args))]
+    prompts = [request(i, n, new).prompt for i, n in enumerate(prompt_lens)]
     eager_calls = []
     torch.cuda.reset_peak_memory_stats()
     eager_eng = noted(Engine(lm, graphs=False, **kw), eager_calls)
     sparse.reset_telemetry()
     eager_calls.clear()
-    eager = serve_run(torch, eager_eng, prompts, QWEN3_NEW)
+    eager = serve_run(torch, eager_eng, prompts, new)
     eager_hist = sparse.dropped_history("moe_dispatch")
     del eager_eng
     calls = []
@@ -2865,36 +2932,37 @@ def serve_qwen3_phase(torch, args):
     calls.clear()
     for c in counters.values():
         c.reset()
-    run = serve_run(torch, eng, prompts, QWEN3_NEW)
+    run = serve_run(torch, eng, prompts, new)
     launches, walks = split_walks({k: c.launches
                                    for k, c in counters.items()})
-    check_tensor_core_walks("serve-qwen3-moe", walks)
+    check_tensor_core_walks(label, walks)
     reqs, wall, peak = run["reqs"], run["wall_s"], run["peak_mem_gb"]
     hist = sparse.dropped_history("moe_dispatch")
     graphs = graphs_line(eager, run)
     graphs["drops_identical"] = (hist == eager_hist
                                  and calls == eager_calls)
     if not graphs["drops_identical"]:
-        raise RuntimeError(f"routing drops differ between the eager and "
-                           f"the graph run: {len(eager_hist)} values for "
-                           f"{eager_calls} against {len(hist)} for {calls}")
+        raise RuntimeError(f"[{label}] routing drops differ between the "
+                           f"eager and the graph run: {len(eager_hist)} "
+                           f"values for {eager_calls} against {len(hist)} "
+                           f"for {calls}")
 
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
         raise RuntimeError("a generated token is outside the vocabulary")
     for name, count in launches.items():
         if count <= 0:
             raise RuntimeError(f"kernel {name} was not launched while "
-                               f"serving qwen3-moe-30b-a3b")
-    nl = cfg.num_layers
+                               f"serving {cfg.name}")
+    nl = sum(spec.ffn == "moe" for spec in layer_specs(cfg))
     if len(hist) != nl * len(calls):
         raise RuntimeError(f"{len(hist)} routing drop values for "
-                           f"{len(calls)} forwards of {nl} layers")
+                           f"{len(calls)} forwards of {nl} MoE layers")
     per_call = [hist[i * nl:(i + 1) * nl] for i in range(len(calls))]
     drops = [{"mean": float(np.mean(v)), "max": max(v)}
              for kind, v in zip(calls, per_call) if kind == "prefill"]
     dec = [f for kind, v in zip(calls, per_call) if kind == "decode"
            for f in v]
-    # a decode step routes QWEN3_BATCH <= 8 tokens into capacity 8, and a
+    # a decode step routes batch <= 8 tokens into capacity 8, and a
     # token's top-k experts are distinct: no expert can overflow
     if len(drops) != len(reqs) or not dec or max(dec) != 0.0:
         raise RuntimeError(f"routing drops: {len(drops)} prefills for "
@@ -2911,30 +2979,85 @@ def serve_qwen3_phase(torch, args):
         prefill_p50_ms=st["prefill_latency"]["p50_ms"],
         decode_step_p50_ms=st["step_latency"]["p50_ms"],
         decode_steps=st["steps"], launches=launches, walks=walks,
-        dropped_frac_per_prefill=drops,
+        dropped_frac_per_prefill=drops, moe_layers=nl,
         decode_dropped_frac={"layer_calls": len(dec),
                              "mean": float(np.mean(dec)), "max": max(dec)},
         buckets=list(eng.buckets), peak_mem_gb=peak, graphs=graphs,
         plans=served_plans(eng)), lm, eng
 
 
-def qwen3_moe_layer_check(torch, lm, eng, args):
+def serve_qwen3_phase(torch, args):
+    """[serve-qwen3-moe]: full-width, full-depth qwen3-moe-30b-a3b (48
+    layers, d_model 2048, GQA 32/4, head dim 128, QK-norm, 128 experts
+    top-8 of d_ff 768, vocab 151936) through ``serve_moe_phase``:
+    ``Engine(batch=4, max_len=1024)``, 6 seeded requests of 32..900
+    prompt tokens, 8 new tokens each; the gmm, dense_mm and bs_attn
+    counters read."""
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, dense_mm, gmm
+
+    cfg = configs.get("qwen3-moe-30b-a3b")
+    assert cfg.dtype == "bfloat16" and cfg.num_layers == 48
+    counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
+    return serve_moe_phase(
+        torch, args, cfg, "serve-qwen3-moe", qwen3_prompt_lens(args),
+        seed=args.seed + 13, counters=counters, batch=QWEN3_BATCH,
+        max_len=QWEN3_MAX_LEN, new=QWEN3_NEW)
+
+
+def serve_deepseek_phase(torch, args):
+    """[serve-deepseek]: deepseek-v2-lite-16b as published (27 layers,
+    d_model 2048, MLA with 16 heads of q.k 192 / v 128 and a 512-wide
+    latent, the first layer's dense FFN of 10944, then 64 experts top-6
+    of d_ff 1408 with 2 shared, vocab 102400; 15.71 B parameters)
+    through ``serve_moe_phase``: ``Engine(batch=4, max_len=1024)``, 6
+    seeded requests of 32..900 prompt tokens, 8 new tokens each.  Fails
+    unless every bs_attn launch of the graph run is at MLA's head dim
+    192 (on the wgmma walk, as every 16-bit launch)."""
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, dense_mm, gmm
+
+    cfg = configs.get(DEEPSEEK)
+    assert cfg.dtype == "bfloat16" and cfg.num_layers == 27
+    counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER,
+                           "bs_attn_dh192": bs_attn.HEAD_DIM_COUNTERS[192]})
+    out, lm, eng = serve_moe_phase(
+        torch, args, cfg, "serve-deepseek", deepseek_prompt_lens(args),
+        seed=args.seed + 37, counters=counters, batch=DEEPSEEK_BATCH,
+        max_len=DEEPSEEK_MAX_LEN, new=DEEPSEEK_NEW)
+    if out["launches"]["bs_attn_dh192"] != out["launches"]["bs_attn"]:
+        raise RuntimeError(f"[serve-deepseek] bs_attn launches off dh 192: "
+                           f"{out['launches']}")
+    if any(set(c) != {"latent", "k_rope"} for c in eng.caches):
+        raise RuntimeError("[serve-deepseek] the engine's caches are not "
+                           "MLA's latent and roped key")
+    return out, lm, eng
+
+
+def moe_layer_check(torch, lm, eng, n, seed):
     """One layer's ``moe_apply`` on a prefill hidden state (the FFN input
-    of a middle layer during the longest prompt's bucketed prefill): the
-    gmm route against the plain route (``gmm_ref`` for the three expert
-    products), both through the same fp32 routing, within the bf16
-    kernel budget."""
+    of a middle layer, an MoE layer, during a prefill of the ``n``-token
+    prompt in its bucket): the gmm route against the plain route
+    (``gmm_ref`` for the three expert products), both through the same
+    fp32 routing, within the bf16 kernel budget.  Reports the layer's
+    capacity C, the gmm row tile ``batched_matmul`` takes for it and the
+    walk of each expert product."""
     import numpy as np
 
     from repro_torch import sparse
     from repro_torch.kernels import gmm
+    from repro_torch.kernels.gmm import ops as gmm_ops
     from repro_torch.kernels.gmm.ref import gmm_ref
     from repro_torch.models import moe as moe_lib
+    from repro_torch.sparse.plan import batched_row_tile
 
-    n = max(qwen3_prompt_lens(args))
     bucket = eng.bucket_for(n)
-    layer = lm.layers[len(lm.layers) // 2]
-    rng = np.random.default_rng(args.seed + 17)
+    li = len(lm.layers) // 2
+    layer = lm.layers[li]
+    assert layer.moe
+    rng = np.random.default_rng(seed)
     toks = np.zeros((1, bucket or n), np.int64)
     toks[0, :n] = rng.integers(0, lm.cfg.vocab_size, size=n)
     got = {}
@@ -2962,8 +3085,14 @@ def qwen3_moe_layer_check(torch, lm, eng, args):
     plain_launched = gmm.COUNTER.launches - before - launched
     torch.cuda.synchronize()
     err = rel_err(y_kernel, y_plain)[0]
-    out = dict(layer=len(lm.layers) // 2, tokens=int(h.shape[1]),
-               capacity=moe_lib._capacity(int(h.shape[1]), lm.cfg),
+    cap = moe_lib._capacity(int(h.shape[1]), lm.cfg)
+    tiles = {}
+    for name, w in (("gate/up", layer.ffn.w_gate), ("down", layer.ffn.w_down)):
+        _, d, f = w.shape
+        tm = batched_row_tile(cap, gmm_ops.tma_ok(d, f, w.dtype))
+        tiles[name] = dict(tm=tm, walk=gmm_ops.walk(tm, d, f, w.dtype).name,
+                           row_tiles_per_expert=cap // tm)
+    out = dict(layer=li, tokens=int(h.shape[1]), capacity=cap, tiles=tiles,
                rel_err=err, tol=KERNEL_TOL["bfloat16"],
                gmm_launches=launched, plain_route_gmm_launches=plain_launched,
                dropped_frac=float(m_kernel.dropped_frac),
@@ -2971,7 +3100,8 @@ def qwen3_moe_layer_check(torch, lm, eng, args):
                == float(m_plain.dropped_frac))
     if launched != 3 or plain_launched != 0 \
             or not err <= KERNEL_TOL["bfloat16"]:
-        raise RuntimeError(f"qwen3 MoE layer: gmm route vs plain {out}")
+        raise RuntimeError(f"{lm.cfg.name} MoE layer: gmm route vs plain "
+                           f"{out}")
     return out
 
 
@@ -3027,6 +3157,49 @@ def qwen3_fp32_phase(torch, args):
     return out
 
 
+# the metrics an MoE train run reads each step
+MOE_TRAIN_KEYS = ("loss", "grad_norm", "lr", "aux_loss", "z_loss",
+                  "dropped_frac")
+
+
+def eager_moe_train_run(torch, label, cfg, **kw):
+    """``train_run`` eagerly on an MoE config, with gmm's launches split
+    into the forward's (counted inside the MoE modules' forward calls)
+    and the backward's, by walk.  Returns ``(run, split, one MoE module
+    of the trained model)``."""
+    from repro_torch.kernels import gmm
+    from repro_torch.models.moe import MoE
+
+    fwd = {w: 0 for w in gmm.WALK_COUNTERS}
+    held, entry = {}, {}
+
+    def pre(mod, inputs):
+        if isinstance(mod, MoE):
+            entry[id(mod)] = {w: c.launches
+                              for w, c in gmm.WALK_COUNTERS.items()}
+
+    def post(mod, inputs, out):
+        if isinstance(mod, MoE):
+            seen = entry.pop(id(mod))
+            for w, c in gmm.WALK_COUNTERS.items():
+                fwd[w] += c.launches - seen[w]
+            held.setdefault("moe", mod)
+
+    hooks = (torch.nn.modules.module.register_module_forward_pre_hook(pre),
+             torch.nn.modules.module.register_module_forward_hook(post))
+    try:
+        eager = train_run(torch, label, cfg, graphs=False,
+                          metric_keys=MOE_TRAIN_KEYS, **kw)
+    finally:
+        for h in hooks:
+            h.remove()
+    by_walk = eager["walks"]["gmm"]
+    split = {"forward": {w: n for w, n in fwd.items() if n},
+             "backward": {w: by_walk[w] - fwd[w] for w in by_walk
+                          if by_walk[w] - fwd[w]}}
+    return eager, split, held.pop("moe")
+
+
 def train_qwen3_phase(torch, args):
     """[train-qwen3-moe]: ``launch.train.train_loop`` on qwen3-moe-30b-a3b
     at full width (d_model 2048, GQA 32/4, head dim 128, 128 experts
@@ -3059,7 +3232,6 @@ def train_qwen3_phase(torch, args):
 
     from repro_torch import configs, sparse
     from repro_torch.kernels import bs_attn, dense_mm, gmm
-    from repro_torch.models.moe import MoE
 
     base = configs.get("qwen3-moe-30b-a3b")
     cfg = dataclasses.replace(
@@ -3069,38 +3241,11 @@ def train_qwen3_phase(torch, args):
     cap = qwen3_train_capacity()
     counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
                            "bs_attn": bs_attn.COUNTER})
-    fwd = {w: 0 for w in gmm.WALK_COUNTERS}
-    held, entry = {}, {}
-
-    def pre(mod, inputs):
-        if isinstance(mod, MoE):
-            entry[id(mod)] = {w: c.launches
-                              for w, c in gmm.WALK_COUNTERS.items()}
-
-    def post(mod, inputs, out):
-        if isinstance(mod, MoE):
-            seen = entry.pop(id(mod))
-            for w, c in gmm.WALK_COUNTERS.items():
-                fwd[w] += c.launches - seen[w]
-            held.setdefault("moe", mod)
-
-    keys = ("loss", "grad_norm", "lr", "aux_loss", "z_loss", "dropped_frac")
-    hooks = (torch.nn.modules.module.register_module_forward_pre_hook(pre),
-             torch.nn.modules.module.register_module_forward_hook(post))
-    try:
-        eager = train_run(torch, "train-qwen3-moe", cfg, graphs=False,
-                          counters=counters, args=args, steps=steps,
-                          batch=batch, seq=seq, metric_keys=keys)
-    finally:
-        for h in hooks:
-            h.remove()
-    gmm_split = {"forward": {w: n for w, n in fwd.items() if n},
-                 "backward": {w: eager["walks"]["gmm"][w] - fwd[w]
-                              for w in eager["walks"]["gmm"]
-                              if eager["walks"]["gmm"][w] - fwd[w]}}
+    eager, gmm_split, mod = eager_moe_train_run(
+        torch, "train-qwen3-moe", cfg, counters=counters, args=args,
+        steps=steps, batch=batch, seq=seq)
 
     # one trained layer's batched_matmul backward at the step's C
-    mod = held.pop("moe")
     dev = mod.w_gate.device
     gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
     layer = []
@@ -3135,12 +3280,13 @@ def train_qwen3_phase(torch, args):
                 torch, lambda x: x.transpose(-1, -2).contiguous(),
                 [(wt,)], 10)))
         del a, gy, ta, tw, ra, rw, y, want, wt, w
-    del mod, held
+    del mod
     gc.collect()
 
     _, graph, check = eager_and_graphs(
         torch, "train-qwen3-moe", cfg, counters=counters, args=args,
-        steps=steps, batch=batch, seq=seq, metric_keys=keys, eager=eager)
+        steps=steps, batch=batch, seq=seq, metric_keys=MOE_TRAIN_KEYS,
+        eager=eager)
     for r in (eager, graph):
         check_tensor_core_walks("train-qwen3-moe", r["walks"])
     if (graph["captures"], graph["recaptures"]) != (1, 0):
@@ -3157,6 +3303,173 @@ def train_qwen3_phase(torch, args):
                            f"plain: {bad}")
     return dict(graph, eager=eager, check=check, layers=QWEN3_TRAIN_LAYERS,
                 capacity=cap, gmm_launches=gmm_split, layer_backward=layer)
+
+
+def train_deepseek_phase(torch, args):
+    """[train-deepseek]: ``launch.train.train_loop`` on deepseek-v2-lite-16b
+    at full width (d_model 2048, MLA 16 heads of q.k 192 / v 128 and a
+    512-wide latent, vocab 102400, untied), bf16, from a seeded init,
+    depth cut to ``DEEPSEEK_TRAIN_LAYERS`` = 4 (``profile_train.cut_depth``:
+    its dense layer, d_ff 10944, then 3 MoE layers of 64 experts top-6 of
+    d_ff 1408 with 2 shared): ~2.25 B parameters, ~36 GB of state at 16 B
+    a parameter.  Batch 4 x seq 512 (C = 240), 10 AdamW steps, no
+    checkpoint, eagerly and then replaying the captured step
+    (``eager_and_graphs``: losses and final parameters bit-equal, the
+    loss falls).  The attention backward is bs_attn's plain recompute,
+    the MoE backward gmm on W^T.  Fails unless gmm launches in the
+    forward and the backward, every gmm and bs_attn launch is on the
+    wgmma walk, and every bs_attn launch is at dh 192."""
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, dense_mm, gmm
+    from repro_torch.launch.profile_train import cut_depth
+    from repro_torch.models import moe as moe_lib
+
+    cfg = cut_depth(configs.get(DEEPSEEK), DEEPSEEK_TRAIN_LAYERS)
+    assert [(r, p[0].ffn) for p, r in cfg.groups] == [(1, "mlp"),
+                                                      (3, "moe")]
+    steps, batch, seq = (TRAIN_STEPS, DEEPSEEK_TRAIN_BATCH,
+                         DEEPSEEK_TRAIN_SEQ)
+    counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER,
+                           "bs_attn_dh192": bs_attn.HEAD_DIM_COUNTERS[192]})
+    kw = dict(counters=counters, args=args, steps=steps, batch=batch,
+              seq=seq)
+    eager, gmm_split, _ = eager_moe_train_run(torch, "train-deepseek", cfg,
+                                              **kw)
+    gc.collect()
+    _, graph, check = eager_and_graphs(torch, "train-deepseek", cfg,
+                                       metric_keys=MOE_TRAIN_KEYS,
+                                       eager=eager, **kw)
+    for r in (eager, graph):
+        check_tensor_core_walks("train-deepseek", r["walks"])
+        if r["launches"]["bs_attn_dh192"] != r["launches"]["bs_attn"]:
+            raise RuntimeError(f"[train-deepseek] bs_attn launches off dh "
+                               f"192: {r['launches']}")
+    if (graph["captures"], graph["recaptures"]) != (1, 0):
+        raise RuntimeError(f"[train-deepseek] one capture expected: "
+                           f"{graph['captures']}, re-captures "
+                           f"{graph['recaptures']}")
+    if not (gmm_split["forward"] and gmm_split["backward"]):
+        raise RuntimeError(f"[train-deepseek] gmm must launch in the "
+                           f"forward and the backward: {gmm_split}")
+    return dict(graph, eager=eager, check=check,
+                layers=DEEPSEEK_TRAIN_LAYERS,
+                capacity=moe_lib._capacity(batch * seq, cfg),
+                gmm_launches=gmm_split)
+
+
+def serve_dense_phase(torch, args, arch, label, seed_offset):
+    """[serve-qwen2] / [serve-glm4]: ``arch`` at full width and depth with
+    every FFN block-sparse (d = 1/8, b = 16; q/k/v biased), bf16 from
+    ``init(seed)`` on the card, through ``Engine(batch=4, max_len=512)``:
+    2 warm-up requests (eager), then 4 seeded requests of 16..480 prompt
+    tokens, 8 new tokens each, eagerly and then through the engine's
+    CUDA graphs (captured at startup; the main path, whose bsmm,
+    bsmm_balanced, dense_mm and bs_attn counters are zeroed just before
+    and read just after).  Fails unless the tokens are identical, dense_mm,
+    bs_attn and a sparse FFN kernel (bsmm, or bsmm_balanced where the
+    route race picked it) launched, each on its tensor-core (or, bsmm,
+    decode) walk.  Returns ``(result, lm,
+    engine)``."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, bsmm, dense_mm
+    from repro_torch.models.model import LM
+    from repro_torch.serve import Engine, Request
+
+    cfg = configs.sparsify_ffn(configs.get(arch), 1 / 8)
+    assert cfg.dtype == "bfloat16" and cfg.ffn_block_size == 16
+    assert cfg.qkv_bias
+    counters = with_walks({"bsmm": bsmm.COUNTER,
+                           "bsmm_balanced": bsmm.BALANCED_COUNTER,
+                           "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    rng = np.random.default_rng(args.seed + seed_offset)
+
+    def requests(bounds, new):
+        return [Request(uid=i, prompt=rng.integers(
+                    0, cfg.vocab_size, size=int(rng.integers(lo, hi + 1))),
+                    max_new_tokens=new) for i, (lo, hi) in enumerate(bounds)]
+
+    kw = dict(batch=DENSE_BATCH, max_len=DENSE_MAX_LEN, device="cuda")
+    Engine(lm, graphs=False, warm_plans=False, **kw).run(
+        requests(DENSE_WARMUP, 2))
+    prompts = [r.prompt for r in requests(DENSE_PROMPTS, DENSE_NEW)]
+    if [len(p) for p in prompts] != dense_prompt_lens(args, arch,
+                                                      seed_offset):
+        raise RuntimeError("dense_prompt_lens does not replay the run")
+    torch.cuda.reset_peak_memory_stats()
+    eager = serve_run(torch, Engine(lm, graphs=False, **kw), prompts,
+                      DENSE_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(lm, warm_compile=True, **kw)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    run = serve_run(torch, eng, prompts, DENSE_NEW)
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    check_tensor_core_walks(label, walks,
+                            ("bs_attn", "bsmm", "bsmm_balanced"))
+    graphs = graphs_line(eager, run)
+    reqs, wall, st = run["reqs"], run["wall_s"], run["stats"]
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.output):
+        raise RuntimeError("a generated token is outside the vocabulary")
+    # the FFN's plans race the uniform and the balanced walks: one of the
+    # two sparse kernels runs each plan
+    if min(launches["dense_mm"], launches["bs_attn"],
+           launches["bsmm"] + launches["bsmm_balanced"]) <= 0:
+        raise RuntimeError(f"a kernel was not launched while serving "
+                           f"{cfg.name}: {launches}")
+    tokens = sum(len(r.output) for r in reqs)
+    return dict(
+        params=n_params, init_s=init_s, requests=len(reqs),
+        prompt_lens=[int(len(r.prompt)) for r in reqs],
+        prefill_lens=[int(r.bucket or len(r.prompt)) for r in reqs],
+        tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        prefill_p50_ms=st["prefill_latency"]["p50_ms"],
+        decode_step_p50_ms=st["step_latency"]["p50_ms"],
+        decode_steps=st["steps"], launches=launches, walks=walks,
+        buckets=list(eng.buckets), peak_mem_gb=run["peak_mem_gb"],
+        graphs=graphs, plans=served_plans(eng)), lm, eng
+
+
+def print_moe(label, r):
+    """A served MoE model's routing drops and its one-layer gmm check."""
+    print(f"[{label}] dropped_frac per prefill (mean, max over "
+          f"{r['moe_layers']} MoE layers): "
+          f"{json.dumps(r['dropped_frac_per_prefill'])}; decode steps: "
+          f"{json.dumps(r['decode_dropped_frac'])}")
+    ml = r["moe_layer"]
+    print(f"[{label}] layer {ml['layer']} moe_apply on a {ml['tokens']}-"
+          f"token prefill state (C={ml['capacity']}, dropped "
+          f"{ml['dropped_frac']:.4f}; gmm tiles {json.dumps(ml['tiles'])}): "
+          f"gmm route vs plain rel err {ml['rel_err']:.2e} (budget "
+          f"{ml['tol']}), gmm launches {ml['gmm_launches']} (plain route "
+          f"{ml['plain_route_gmm_launches']})")
+
+
+def print_serve(label, name, r):
+    """A served model's summary line, its [graphs] line and its plans."""
+    print(f"[{label}] {r['params'] / 1e9:.2f} B parameters initialised on "
+          f"the card in {r['init_s']:.2f}s; {r['requests']} requests "
+          f"(prompts {r['prompt_lens']}, prefilled at {r['prefill_lens']}; "
+          f"buckets {r['buckets']}), {r['tokens']} tokens in "
+          f"{r['wall_s']:.3f}s = {r['tokens_per_s']:.2f} tok/s; prefill "
+          f"p50 {r['prefill_p50_ms']} ms, decode step p50 "
+          f"{r['decode_step_p50_ms']} ms; launches "
+          f"{json.dumps(r['launches'])}; launches by walk "
+          f"{json.dumps(r['walks'])}; peak memory {r['peak_mem_gb']:.2f} "
+          f"GiB")
+    print_graphs(name, r["graphs"])
+    print(f"[{label}] plans {json.dumps(r['plans'])}")
 
 
 # [evolve]: RigL topology steps on llama3.2-1b's sparse FFN at full width
@@ -3922,29 +4235,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     live_gib["serve_qwen3"] = torch.cuda.memory_allocated() / 2 ** 30
     qwen, lm, eng = serve_qwen3_phase(torch, args)
-    print(f"[serve-qwen3-moe] {qwen['params'] / 1e9:.2f} B parameters "
-          f"initialised on the card in {qwen['init_s']:.2f}s; "
-          f"{qwen['requests']} requests (prompts {qwen['prompt_lens']}, "
-          f"prefilled at {qwen['prefill_lens']}; buckets "
-          f"{qwen['buckets']}), {qwen['tokens']} tokens in "
-          f"{qwen['wall_s']:.3f}s = {qwen['tokens_per_s']:.2f} tok/s; "
-          f"prefill p50 {qwen['prefill_p50_ms']} ms, decode step p50 "
-          f"{qwen['decode_step_p50_ms']} ms; launches "
-          f"{json.dumps(qwen['launches'])}; launches by walk "
-          f"{json.dumps(qwen['walks'])}; peak memory "
-          f"{qwen['peak_mem_gb']:.2f} GiB")
-    print_graphs("qwen3-moe-30b-a3b", qwen["graphs"])
-    print(f"[serve-qwen3-moe] plans {json.dumps(qwen['plans'])}")
-    print(f"[serve-qwen3-moe] dropped_frac per prefill (mean, max over 48 "
-          f"layers): {json.dumps(qwen['dropped_frac_per_prefill'])}; "
-          f"decode steps: {json.dumps(qwen['decode_dropped_frac'])}")
-    qwen["moe_layer"] = qwen3_moe_layer_check(torch, lm, eng, args)
-    ml = qwen["moe_layer"]
-    print(f"[serve-qwen3-moe] layer {ml['layer']} moe_apply on a "
-          f"{ml['tokens']}-token prefill state (C={ml['capacity']}, "
-          f"dropped {ml['dropped_frac']:.4f}): gmm route vs plain rel err "
-          f"{ml['rel_err']:.2e} (budget {ml['tol']}), gmm launches "
-          f"{ml['gmm_launches']} (plain route {ml['plain_route_gmm_launches']})")
+    print_serve("serve-qwen3-moe", "qwen3-moe-30b-a3b", qwen)
+    qwen["moe_layer"] = moe_layer_check(torch, lm, eng,
+                                        max(qwen3_prompt_lens(args)),
+                                        args.seed + 17)
+    print_moe("serve-qwen3-moe", qwen)
     del lm, eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3976,6 +4271,37 @@ def main(argv=None) -> int:
               f"gmm launches {r['gmm_launches']}; W^T copy "
               f"{r['wt_copy_ms']:.4f} ms; grad {json.dumps(r['grad'])}")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["serve_deepseek"] = torch.cuda.memory_allocated() / 2 ** 30
+    ds, lm, eng = serve_deepseek_phase(torch, args)
+    print_serve("serve-deepseek", DEEPSEEK, ds)
+    ds["moe_layer"] = moe_layer_check(torch, lm, eng,
+                                      max(deepseek_prompt_lens(args)),
+                                      args.seed + 39)
+    print_moe("serve-deepseek", ds)
+    del lm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["train_deepseek"] = torch.cuda.memory_allocated() / 2 ** 30
+    td = train_deepseek_phase(torch, args)
+    print(f"[train-deepseek] {td['layers']} layers at full width "
+          f"({td['n_params'] / 1e9:.3f} B parameters), C {td['capacity']}; "
+          f"gmm launches of the eager run by walk "
+          f"{json.dumps(td['gmm_launches'])}; bs_attn launches at dh 192 "
+          f"{td['launches']['bs_attn_dh192']} of {td['launches']['bs_attn']}")
+    print_train("train-deepseek", td)
+    dense = {}
+    for arch, label, off in DENSE_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        live_gib[label.replace("-", "_")] = (torch.cuda.memory_allocated()
+                                             / 2 ** 30)
+        dense[label], lm, eng = serve_dense_phase(torch, args, arch, label,
+                                                  off)
+        print_serve(label, arch, dense[label])
+        del lm, eng
+
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
@@ -4000,13 +4326,21 @@ def main(argv=None) -> int:
                "dynamic": dyn_launches, "evolve": evo["launches"],
                "serve_gemma2": gemma["launches"],
                "serve_qwen3": qwen["launches"],
-               "train_qwen3": tq["launches"]}
+               "train_qwen3": tq["launches"],
+               "serve_deepseek": ds["launches"],
+               "train_deepseek": td["launches"],
+               "serve_qwen2": dense["serve-qwen2"]["launches"],
+               "serve_glm4": dense["serve-glm4"]["launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
                      "dynamic": dyn_walks, "evolve": evo["walks"],
                      "serve_gemma2": gemma["walks"],
                      "serve_qwen3": qwen["walks"],
-                     "train_qwen3": tq["walks"]}
+                     "train_qwen3": tq["walks"],
+                     "serve_deepseek": ds["walks"],
+                     "train_deepseek": td["walks"],
+                     "serve_qwen2": dense["serve-qwen2"]["walks"],
+                     "serve_glm4": dense["serve-glm4"]["walks"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -4047,6 +4381,22 @@ def main(argv=None) -> int:
                              for k, v in by_path.items()},
         "launches_by_walk": {p: w["bs_attn"]
                              for p, w in walks_by_path.items()}})
+    # bs_attn at MLA's head dim 192 (deepseek-v2-lite's served prefill,
+    # bf16); its main paths are the deepseek serve and train runs
+    r = next(r for r in attn_rows if r["shape"] == "deepseek served"
+             and r["dtype"] == "bfloat16")
+    kernels[-1]["dh192"] = {
+        "name": "bs_attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/bs_attn/csrc/bs_attn.cu",
+        "replaces": "src/repro/kernels/bs_attn/bs_attn.py:73",
+        "launches": ds["launches"]["bs_attn_dh192"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "at": f"{r['shape']} S={r['n']} dh=192 {r['dtype']}",
+        "walk": r["walk"], "before_ms": r["before_ms"],
+        "launches_by_path": {"serve_deepseek": ds["launches"]["bs_attn_dh192"],
+                             "train_deepseek": td["launches"]["bs_attn_dh192"]}}
 
     # gmm at qwen3's decode gate/up (C = 8, bf16), its most frequent
     # launch; its main path is the qwen3 serve run
@@ -4124,6 +4474,8 @@ def main(argv=None) -> int:
                        "race_serve": race_serve, "dynamic": dyn,
                        "attn": attn_rows, "serve_gemma2": gemma,
                        "serve_qwen3": qwen, "train_qwen3": tq,
+                       "serve_deepseek": ds, "train_deepseek": td,
+                       "serve_dense": dense,
                        "kernels": kernels,
                        "replan": replan, "roofline": roof,
                        "evolve": evo, "evolve_serve": evolve_serve,

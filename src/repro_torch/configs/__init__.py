@@ -2,7 +2,8 @@
 ``smoke(name)`` reduced same-family config, ``sparsify_ffn(cfg, d)``
 the paper's block-sparse FFN applied to a dense config.
 
-The port covers ``llama3_2_1b``, ``gemma2_2b`` and ``qwen3_moe_30b_a3b``.
+The port covers ``llama3_2_1b``, ``gemma2_2b``, ``qwen3_moe_30b_a3b``,
+``qwen2_1_5b``, ``glm4_9b`` and ``deepseek_v2_lite_16b``.
 """
 from __future__ import annotations
 
@@ -11,10 +12,13 @@ import importlib
 
 from repro_torch.models.config import ModelCfg
 
-ARCH_IDS = ["llama3_2_1b", "gemma2_2b", "qwen3_moe_30b_a3b"]
+ARCH_IDS = ["llama3_2_1b", "gemma2_2b", "qwen3_moe_30b_a3b", "qwen2_1_5b",
+            "glm4_9b", "deepseek_v2_lite_16b"]
 
 ALIASES = {"llama3.2-1b": "llama3_2_1b", "gemma2-2b": "gemma2_2b",
-           "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b"}
+           "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+           "qwen2-1.5b": "qwen2_1_5b", "glm4-9b": "glm4_9b",
+           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b"}
 
 
 def _module(name: str):

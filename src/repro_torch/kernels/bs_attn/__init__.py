@@ -1,4 +1,5 @@
 from repro_torch.kernels.bs_attn.ops import (COUNTER,  # noqa: F401
+                                             HEAD_DIM_COUNTERS,
                                              WALK_COUNTERS, bs_attn,
                                              bs_attn_cuda, kernel_walk,
                                              mask_to_pairs)
@@ -9,7 +10,7 @@ from repro_torch.kernels.contract import KernelContract, register
 # block-sparse flash attention, outside the matmul route table (routes
 # empty, as in the reference).  Against the reference's contract
 # (tiles 1..128, any head dim): narrower in the head dim, which must be
-# one of 32, 64, 128, 256; wider in the tiles, any bq and bkv from 1 to
+# one of 32, 64, 128, 192, 256 (192: MLA's q.k head); wider in the tiles, any bq and bkv from 1 to
 # 512 (the tile ``attend_train`` starts from; the kernel walks its own
 # 64-key chunks inside them).  Every q row must see at least one key
 # (the reference leaves a row that sees none undefined; ``bs_attn``

@@ -68,7 +68,7 @@
 //    PV are ~15 % of a chunk's cycles) but the softmax between them, a
 //    latency-bound chain of ~300 instructions a thread with one consumer
 //    warp per scheduler (three blocks an SM at dh <= 64, two at 128, one
-//    at 256).  Overlapping the softmax with the next chunk's products
+//    at 192 and 256).  Overlapping the softmax with the next chunk's products
 //    (issuing PV of chunk i - 1 behind QK^T of chunk i) measured slower,
 //    with 2 or 3 ring stages, and is not used.
 // 2. "cuda_core" (fp32, where TF32 would miss the fp32 budget; 16-bit
@@ -86,7 +86,11 @@
 // Layouts: q [B, Sq, H, dh], k/v [B, Skv, KV, dh], o [B, Sq, H, dh], each
 // with its own (batch, sequence, head) strides in elements and a
 // contiguous head dim; kv head = h / (H / KV) (GQA, read in place).
-// dh in {32, 64, 128, 256}; dtype 0 = fp32, 1 = bf16, 2 = fp16.
+// dh in {32, 64, 128, 192, 256}; dtype 0 = fp32, 1 = bf16, 2 = fp16.
+// dh 192 is MLA's q.k head (DeepSeek-V2: 128 nope + 64 rope), with v
+// zero-padded from 128 by the caller: three 64-column sub-tiles, a
+// 24 KiB [64, 192] tile (~121 KiB of shared memory at 2 stages) and an
+// m64n192 output accumulator of 96 fp32 registers a thread.
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -643,6 +647,7 @@ int dispatch_dh(const Params& p, int batch, int dh, int walk, cudaStream_t strea
         case 32: return launch_tc<T, 32>(p, batch, stream);
         case 64: return launch_tc<T, 64>(p, batch, stream);
         case 128: return launch_tc<T, 128>(p, batch, stream);
+        case 192: return launch_tc<T, 192>(p, batch, stream);
         case 256: return launch_tc<T, 256>(p, batch, stream);
         default: return (int)cudaErrorInvalidValue;
       }
@@ -654,6 +659,7 @@ int dispatch_dh(const Params& p, int batch, int dh, int walk, cudaStream_t strea
     case 32: return launch_cc<T, 32>(p, batch, stream);
     case 64: return launch_cc<T, 64>(p, batch, stream);
     case 128: return launch_cc<T, 128>(p, batch, stream);
+    case 192: return launch_cc<T, 192>(p, batch, stream);
     case 256: return launch_cc<T, 256>(p, batch, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -24,12 +24,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bs_attn.ref import bs_attn_ref
 
 Q_ROWS = 64                     # query rows per thread block (QT in the .cu)
-HEAD_DIMS = (32, 64, 128, 256)
+# 192: MLA's q.k head (qk_nope 128 + qk_rope 64), v padded to it
+HEAD_DIMS = (32, 64, 128, 192, 256)
 DTYPES = _build.DTYPES
 COUNTER = _build.LaunchCounter()
 WALKS = ("cuda_core", "wgmma")
 # launches per walk, beside the total COUNTER
 WALK_COUNTERS = {name: _build.LaunchCounter() for name in WALKS}
+# launches per head dim, beside the total COUNTER
+HEAD_DIM_COUNTERS = {dh: _build.LaunchCounter() for dh in HEAD_DIMS}
 
 
 def kernel_walk(dtype) -> str:
@@ -227,6 +230,7 @@ def bs_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check(code, "bs_attn_fwd")
     COUNTER.launches += 1
     WALK_COUNTERS[name].launches += 1
+    HEAD_DIM_COUNTERS[dh].launches += 1
     return out
 
 

@@ -178,6 +178,7 @@ template <int R> __device__ __forceinline__ void pin(float* d) {
 #define HP_R16 "{" HP_L0 "}"
 #define HP_R32 "{" HP_L0 ", " HP_L1 "}"
 #define HP_R64 "{" HP_L0 ", " HP_L1 ", " HP_L2 ", " HP_L3 "}"
+#define HP_R96 "{" HP_L0 ", " HP_L1 ", " HP_L2 ", " HP_L3 ", " HP_L4 ", " HP_L5 "}"
 #define HP_R128 \
   "{" HP_L0 ", " HP_L1 ", " HP_L2 ", " HP_L3 ", " HP_L4 ", " HP_L5 ", " HP_L6 ", " HP_L7 "}"
 
@@ -187,6 +188,7 @@ template <int R> __device__ __forceinline__ void pin(float* d) {
 #define HP_D16 HP_F8(0), HP_F8(8)
 #define HP_D32 HP_D16, HP_F8(16), HP_F8(24)
 #define HP_D64 HP_D32, HP_F8(32), HP_F8(40), HP_F8(48), HP_F8(56)
+#define HP_D96 HP_D64, HP_F8(64), HP_F8(72), HP_F8(80), HP_F8(88)
 #define HP_D128 \
   HP_D64, HP_F8(64), HP_F8(72), HP_F8(80), HP_F8(88), HP_F8(96), HP_F8(104), HP_F8(112), HP_F8(120)
 
@@ -246,6 +248,10 @@ HP_DEF_RS(128, __nv_bfloat16, "m64n128k16", "bf16", HP_R64, HP_D64, "{%64, %65, 
           "%68", "%69", "%70")
 HP_DEF_RS(128, __half, "m64n128k16", "f16", HP_R64, HP_D64, "{%64, %65, %66, %67}", "%68",
           "%69", "%70")
+HP_DEF_RS(192, __nv_bfloat16, "m64n192k16", "bf16", HP_R96, HP_D96, "{%96, %97, %98, %99}",
+          "%100", "%101", "%102")
+HP_DEF_RS(192, __half, "m64n192k16", "f16", HP_R96, HP_D96, "{%96, %97, %98, %99}", "%100",
+          "%101", "%102")
 HP_DEF_RS(256, __nv_bfloat16, "m64n256k16", "bf16", HP_R128, HP_D128,
           "{%128, %129, %130, %131}", "%132", "%133", "%134")
 HP_DEF_RS(256, __half, "m64n256k16", "f16", HP_R128, HP_D128, "{%128, %129, %130, %131}",

@@ -9,8 +9,8 @@ FFN).
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch qwen3-moe-30b-a3b --layers 4
 
-``--layers`` cuts the depth (the first period of layers, repeated) and
-keeps the width; ``--density`` makes a dense FFN block-sparse and does
+``--layers`` cuts the depth (``cut_depth``: the first layers, in whole
+periods of each group) and keeps the width; ``--density`` makes a dense FFN block-sparse and does
 not apply to an MoE config.  Reports the host wall time of a train step
 (clock around steps that end in a ``synchronize``), the device busy time
 (sum of the kernels' own device times from the profiler), the device's
@@ -49,12 +49,19 @@ from repro_torch.train.step import TrainHParams, init_train_state
 
 
 def cut_depth(cfg, layers: int):
-    """``cfg`` with ``layers`` layers: its first period repeated (full
-    width; a period of several layers keeps whole periods, at least
-    one)."""
-    period = cfg.groups[0][0]
+    """``cfg`` with ``layers`` layers at full width: its groups in order,
+    each keeping as many of its periods as still fit (whole periods, at
+    least one period in all), so a model whose first layers differ
+    keeps them (deepseek-v2-lite at 4: its dense layer, then 3 MoE
+    layers)."""
+    groups, left = [], layers
+    for period, rep in cfg.groups:
+        n = min(rep, left // len(period))
+        if n:
+            groups.append((period, n))
+            left -= n * len(period)
     return dataclasses.replace(
-        cfg, groups=((period, max(1, layers // len(period))),))
+        cfg, groups=tuple(groups) or ((cfg.groups[0][0], 1),))
 
 
 def main(argv=None):

@@ -1,9 +1,12 @@
-"""GQA attention with RoPE, soft-cap and local windows: full-sequence
-(training, prefill) and one-token decode.
+"""GQA attention with RoPE, soft-cap and local windows, and DeepSeek-V2's
+multi-head latent attention (MLA): full-sequence (training, prefill) and
+one-token decode.
 
 Counterparts of the JAX package's ``models/attention.py`` GQA module
 (``gqa_init``, ``_project_qkv``, ``gqa_train``, ``gqa_prefill``,
-``gqa_decode``, ``gqa_cache_init``, ``attend_train``, ``attend_decode``).
+``gqa_decode``, ``gqa_cache_init``, ``attend_train``, ``attend_decode``)
+and MLA module (``mla_init``, ``mla_train``, ``mla_cache_init``,
+``mla_prefill``, ``mla_decode``).
 ``causal_block_mask`` is the tile mask the reference's static schedule
 (``_causal_schedule``) visits, equal to it bit for bit; the reference's
 rectangular scan schedules over that mask have no counterpart here,
@@ -25,7 +28,10 @@ torch with fp32 logits, as in the reference.  The q/k/v/o projections
 go through ``sparse.matmul`` (the dense_mm kernel on a card).
 
 KV caches are ``{"k", "v"}`` of ``[B, S, KV, dh]`` per layer, RoPE
-applied before caching; ``GQA.decode`` updates them in place.
+applied before caching; ``GQA.decode`` updates them in place.  An MLA
+layer caches ``{"latent", "k_rope"}`` (``[B, S, kv_lora_rank]`` and the
+roped ``[B, S, qk_rope_dim]``) and decodes against the latent with the
+key and value up-projections absorbed, in fp32, as the reference does.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import capture
@@ -375,4 +382,173 @@ class GQA(nn.Module):
                             softcap=self.cfg.attn_softcap, scale=self.scale,
                             window=window, global_prefix=prefix)
         y = self.wo(out.reshape(x.shape[0], 1, -1))
+        return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_cache_init(cfg, batch: int, max_len: int, *,
+                   dtype: torch.dtype, device) -> Cache:
+    """``mla_cache_init``: the latent (``kv_lora_rank`` wide) and the
+    roped key (``qk_rope_dim`` wide) per position, not per-head K and
+    V."""
+    return {"latent": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                  dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+class _MlaQ(nn.Module):
+    """MLA's query under the reference's leaf names: one projection
+    ``w`` (leaf ``q.w.w``), or with a ``rank`` the low-rank ``b(norm(a(
+    x)))`` (``q.a.w``, ``q.norm.scale``, ``q.b.w``)."""
+
+    def __init__(self, d: int, rank: Optional[int], qd: int, *, dtype,
+                 device):
+        super().__init__()
+        self.rank = rank
+        if rank:
+            self.a = Dense(d, rank, dtype=dtype, device=device)
+            self.norm = RMSNorm(rank, device=device)
+            self.b = Dense(rank, qd, dtype=dtype, device=device)
+        else:
+            self.w = Dense(d, qd, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rank:
+            return self.b(self.norm(self.a(x)))
+        return self.w(x)
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention (``mla_init``): the query ``q`` (one
+    projection, or a low-rank one with ``cfg.q_lora_rank``), the joint down-projection ``kv_a`` to the
+    latent and the decoupled rope key, the latent's norm ``kv_norm``,
+    its up-projection ``kv_b`` to per-head k_nope and v, and ``wo``.
+
+    The full-sequence path attends with q·k heads of ``qk_nope_dim +
+    qk_rope_dim`` (the rope key broadcast to every head) and v
+    zero-padded to that width and cropped after, as the reference does,
+    so bs_attn runs it at one head dim (192 for DeepSeek-V2)."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.num_heads
+        nope, rope, v_dim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        r = cfg.kv_lora_rank
+        qd = h * (nope + rope)
+        self.cfg = cfg
+        self.q = _MlaQ(d, cfg.q_lora_rank, qd, dtype=dtype, device=device)
+        self.kv_a = Dense(d, r + rope, dtype=dtype, device=device)
+        self.kv_norm = RMSNorm(r, device=device)
+        self.kv_b = Dense(r, h * (nope + v_dim), dtype=dtype, device=device)
+        self.wo = Dense(h * v_dim, d, dtype=dtype, device=device)
+        self.register_buffer(
+            "rope_freqs", torch.as_tensor(
+                rope_freqs(rope, cfg.rope_theta), dtype=torch.float32,
+                device=device), persistent=False)
+
+    @property
+    def scale(self) -> float:
+        return 1.0 / np.sqrt(self.cfg.qk_nope_dim + self.cfg.qk_rope_dim)
+
+    def _q(self, x: torch.Tensor):
+        """``_mla_q``: per-head q, split into its nope and rope parts."""
+        b_, s, _ = x.shape
+        cfg = self.cfg
+        q = self.q(x).reshape(b_, s, cfg.num_heads,
+                              cfg.qk_nope_dim + cfg.qk_rope_dim)
+        return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+
+    def _kv(self, x: torch.Tensor):
+        """``_mla_kv``: the normed latent ``[B, S, r]`` and the unroped
+        rope key ``[B, S, 1, rope]``."""
+        b_, s, _ = x.shape
+        r = self.cfg.kv_lora_rank
+        kv_a = self.kv_a(x)
+        latent = self.kv_norm(kv_a[..., :r])
+        return latent, kv_a[..., r:].reshape(b_, s, 1, self.cfg.qk_rope_dim)
+
+    def _attend(self, x: torch.Tensor, positions: torch.Tensor):
+        """``mla_train``'s output, with the latent and the roped key it
+        computed (``mla_prefill`` caches them)."""
+        cfg = self.cfg
+        b_, s, _ = x.shape
+        h, nope, v_dim = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+        q_nope, q_rope = self._q(x)
+        latent, k_rope = self._kv(x)
+        kv = self.kv_b(latent).reshape(b_, s, h, nope + v_dim)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        q_rope = apply_rope(q_rope, positions, freqs=self.rope_freqs)
+        k_rope = apply_rope(k_rope, positions, freqs=self.rope_freqs)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b_, s, h, cfg.qk_rope_dim)],
+                      dim=-1)
+        # v padded to the q.k head dim for the shared attend path, then
+        # cropped
+        v_p = F.pad(v, (0, q.shape[-1] - v_dim))
+        out = attend_train(q, k, v_p, causal=True, scale=self.scale,
+                           softcap=cfg.attn_softcap, tile_q=cfg.attn_tile_q,
+                           tile_kv=cfg.attn_tile_kv,
+                           schedule=cfg.attn_schedule)
+        y = self.wo(out[..., :v_dim].reshape(b_, s, -1))
+        return y, latent, k_rope
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                local: bool = False) -> torch.Tensor:
+        """``mla_train``: full-sequence causal MLA (``local`` is the
+        layer interface's and is unused: an MLA layer has no window)."""
+        return self._attend(x, positions)[0]
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, *,
+                max_len: int, local: bool = False):
+        """``mla_prefill``: causal forward plus the latent and roped-key
+        cache padded to ``max_len``.  The reference recomputes the
+        latent after ``mla_train``; here the one ``mla_train`` computed
+        is kept (the same values)."""
+        y, latent, k_rope = self._attend(x, positions)
+        pad = (0, 0, 0, max_len - x.shape[1])
+        cache = {"latent": F.pad(latent, pad).to(x.dtype),
+                 "k_rope": F.pad(k_rope[:, :, 0, :], pad).to(x.dtype)}
+        return y, cache
+
+    def decode(self, x: torch.Tensor, cache: Cache,
+               positions: torch.Tensor, *, local: bool = False):
+        """``mla_decode``: one token per row at ``positions`` ``[B]``; the
+        new latent and roped key are written into ``cache`` in place.
+        Absorbed attention in fp32: ``q_nope . W_uk`` against the latent
+        plus ``q_rope . k_rope``, the softmax, then ``ctx . W_uv`` (plain
+        torch einsums, which the reference leaves to XLA)."""
+        cfg = self.cfg
+        b_ = x.shape[0]
+        h, nope, r = cfg.num_heads, cfg.qk_nope_dim, cfg.kv_lora_rank
+        q_nope, q_rope = self._q(x)
+        latent_new, k_rope_new = self._kv(x)
+        pos = positions[:, None]
+        q_rope = apply_rope(q_rope, pos, freqs=self.rope_freqs)
+        k_rope_new = apply_rope(k_rope_new, pos, freqs=self.rope_freqs)
+        bidx = torch.arange(b_, device=x.device)
+        latent_c, k_rope_c = cache["latent"], cache["k_rope"]
+        latent_c[bidx, positions] = latent_new[:, 0].to(latent_c.dtype)
+        k_rope_c[bidx, positions] = k_rope_new[:, 0, 0].to(k_rope_c.dtype)
+        s = latent_c.shape[1]
+        lengths = torch.clamp(positions + 1, max=s)
+
+        wkv = self.kv_b.w.reshape(r, h, nope + cfg.v_head_dim).float()
+        w_uk, w_uv = wkv[:, :, :nope], wkv[:, :, nope:]
+        lat = latent_c.float()
+        q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk)
+        logits = torch.einsum("bqhr,bsr->bhqs", q_abs, lat)
+        logits = logits + torch.einsum("bqhn,bsn->bhqs", q_rope.float(),
+                                       k_rope_c.float())
+        logits = logits * self.scale
+        mask = (torch.arange(s, device=x.device)[None, None, None, :]
+                < lengths[:, None, None, None])
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        w = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bhqs,bsr->bqhr", w, lat)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+        y = self.wo(out.reshape(b_, 1, -1).to(x.dtype))
         return y, cache

@@ -1,8 +1,8 @@
 """Decoder layers and the layer stack.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the
-``attn`` and ``attn_local`` mixers with the ``mlp``, ``sparse`` and
-``moe`` FFN arms, and the Gemma-2 pre+post norms (``post_norm``:
+``attn``, ``attn_local`` and ``mla`` mixers with the ``mlp``, ``sparse``
+and ``moe`` FFN arms, and the Gemma-2 pre+post norms (``post_norm``:
 ``plus_one`` norms before and after each sub-layer) (``layer_apply``,
 ``layer_prefill``, ``layer_decode`` and their stacks).  The full-sequence
 stack sums the MoE layers' metrics (``aux_loss``, ``z_loss``,
@@ -20,7 +20,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.sparse_layers import SparseFFN
-from repro_torch.models.attention import GQA, Cache, gqa_cache_init
+from repro_torch.models.attention import (GQA, MLA, Cache, gqa_cache_init,
+                                         mla_cache_init)
 from repro_torch.models.config import LayerSpec, ModelCfg
 from repro_torch.models.layers import MLP, RMSNorm
 from repro_torch.models.moe import MoE
@@ -54,11 +55,12 @@ class Layer(nn.Module):
 
     def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device):
         super().__init__()
-        if (spec.mixer not in ("attn", "attn_local") or spec.cross
+        if (spec.mixer not in ("attn", "attn_local", "mla") or spec.cross
                 or not spec.causal):
             raise NotImplementedError(
-                f"layer {spec}: the port runs causal 'attn' and "
-                f"'attn_local' layers only")
+                f"layer {spec}: the port runs causal 'attn', 'attn_local' "
+                f"and 'mla' layers; 'mamba', cross-attention and "
+                f"non-causal layers are not ported yet")
         if spec.ffn not in ("mlp", "sparse", "moe"):
             raise NotImplementedError(
                 f"ffn {spec.ffn!r}: the port runs 'mlp', 'sparse' and "
@@ -68,7 +70,8 @@ class Layer(nn.Module):
         self.local = spec.mixer == "attn_local"
         self.norm1 = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                              device=device)
-        self.attn = GQA(cfg, dtype=dt, device=device)
+        mixer = MLA if spec.mixer == "mla" else GQA
+        self.attn = mixer(cfg, dtype=dt, device=device)
         self.norm2 = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                              device=device)
         self.moe = spec.ffn == "moe"
@@ -162,5 +165,8 @@ def stack_decode(layers, h, caches, *, positions):
 
 def stack_cache_init(cfg: ModelCfg, batch: int, max_len: int, *,
                      dtype: torch.dtype, device) -> List[Cache]:
-    return [gqa_cache_init(cfg, batch, max_len, dtype=dtype, device=device)
-            for _ in layer_specs(cfg)]
+    """Each layer's cache by its mixer: ``{"k", "v"}`` of an attention
+    layer, ``{"latent", "k_rope"}`` of an MLA layer."""
+    return [(mla_cache_init if spec.mixer == "mla" else gqa_cache_init)(
+        cfg, batch, max_len, dtype=dtype, device=device)
+        for spec in layer_specs(cfg)]

@@ -134,6 +134,9 @@ def _stack_shapes(cfg: ModelCfg) -> List[Tuple[int, int]]:
     priced at its router and top-k (+ shared) expert FFNs, as the
     reference prices it) and the unembed."""
     d = cfg.d_model
+    # an MLA layer is priced at GQA geometry (num_heads x head_dim q, k
+    # and v), as the reference prices it: the ladder needs relative cost
+    # across token counts, not MLA's own projections
     qd, kvd = cfg.attn_dims
     gated = cfg.act in ("silu", "gelu")
     shapes: List[Tuple[int, int]] = []

@@ -831,7 +831,7 @@ ATTN_CASES = [
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dh", [32, 64, 128, 192, 256])
 @pytest.mark.parametrize("case", ATTN_CASES)
 def test_bs_attn_cuda_matches_plain(dev, dtype, dh, case):
     from repro_torch.kernels.bs_attn import ops as bs_ops
@@ -913,6 +913,125 @@ def test_bs_attn_walks_agree(dev, dtype):
     with pytest.raises(ValueError, match="does not take"):
         bs_ops.bs_attn_cuda(q.float(), k.float(), v.float(), walk,
                             plan="wgmma", **kw)
+
+
+# MLA's q.k head dim (DeepSeek-V2: 128 nope + 64 rope, v padded from 128)
+# at deepseek-v2-lite's 16 heads, at its served and trained lengths
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("s", [512, 1008])
+def test_bs_attn_walks_agree_at_dh_192(dev, dtype, s):
+    """Both walks at dh 192 against the plain version on the same 16-bit
+    inputs (v's last 64 columns zero, as MLA pads it), causal; each
+    walk's counter."""
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.models import attention
+    h, dh = 16, 192
+    g = torch.Generator(device=dev).manual_seed(s)
+    q, k = (torch.randn((1, s, h, dh), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    v = torch.nn.functional.pad(
+        torch.randn((1, s, h, 128), generator=g, device=dev), (0, 64)
+    ).to(dtype)
+    spec = attention.attn_spec(s, s, dh, scale=1 / np.sqrt(dh))
+    walk = spec.walk(dev)
+    want = attend_plain(q, k, v, spec.element_mask(dev), scale=spec.scale)
+    for name in bs_ops.WALKS:
+        before = bs_ops.WALK_COUNTERS[name].launches
+        got = bs_ops.bs_attn_cuda(q, k, v, walk, scale=spec.scale,
+                                  plan=name)
+        torch.cuda.synchronize()
+        assert bs_ops.WALK_COUNTERS[name].launches == before + 1
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) <= TOL[dtype], name
+        assert not got[..., 128:].any()
+
+
+# the full configs' GQA groups: qwen2-1.5b 12 heads over 2 kv heads,
+# glm4-9b 32 over 2 (groups that are not a power of two and 16)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("heads", [12, 32])
+@pytest.mark.parametrize("s", [512, 1008])
+def test_bs_attn_gqa_groups_match_plain(dev, dtype, heads, s):
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.models import attention
+    g = torch.Generator(device=dev).manual_seed(heads + s)
+    q = torch.randn((2, s, heads, 128), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((2, s, 2, 128), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    counter = bs_ops.WALK_COUNTERS[bs_ops.kernel_walk(dtype)]
+    before = counter.launches
+    got = attention.attend_train(q, k, v)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    spec = attention.attn_spec(s, s, 128)
+    want = attend_plain(q, k, v, spec.element_mask(dev), scale=spec.scale)
+    assert _rel(got, want) <= TOL[dtype]
+
+
+def _mla_card_cfg(dtype="bfloat16", q_lora=None):
+    """deepseek-v2-lite's smoke config (one dense layer, two MoE layers)
+    at MLA's full head geometry (qk_nope 128, qk_rope 64, v 128,
+    kv_lora_rank 512, so bs_attn runs at dh 192) and a narrow d_model:
+    the smoke config's dh of 48 is not a kernel head dim."""
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(
+        configs.smoke("deepseek-v2-lite-16b"), dtype=dtype, d_model=256,
+        head_dim=192, kv_lora_rank=512, qk_nope_dim=128, qk_rope_dim=64,
+        v_head_dim=128, q_lora_rank=q_lora)
+
+
+# MLA on the card against its CPU run: fp32 within the model budget of the
+# qwen3 test above; bf16 within the repo's bf16 model budget
+# (tests/conftest.py GRAD_TOLS: projections, attention and wo each round)
+MLA_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q_lora", [None, 96])
+def test_mla_on_card_matches_cpu(dev, dtype, q_lora):
+    """The ``MLA`` module's prefill (bs_attn at dh 192, dense_mm) and
+    three absorbed-latent decode steps on the card against the same
+    module on the CPU (plain versions), outputs and caches."""
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.models.attention import MLA
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    cfg = _mla_card_cfg(name, q_lora)
+    gen = torch.Generator().manual_seed(3)
+    cpu = MLA(cfg, dtype=dtype, device="cpu")
+    for mod in cpu.modules():
+        if mod is not cpu and hasattr(mod, "reset_parameters"):
+            mod.reset_parameters(gen)
+    gpu = MLA(cfg, dtype=dtype, device=dev)
+    gpu.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()})
+    s, max_len = 200, 256
+    x = (torch.randn((2, s, 256), generator=gen) * 0.5).to(dtype)
+    pos = torch.arange(s)[None, :]
+    counter = bs_ops.WALK_COUNTERS[bs_ops.kernel_walk(dtype)]
+    before = counter.launches
+    with torch.no_grad():
+        yg, cg = gpu.prefill(x.to(dev), pos.to(dev), max_len=max_len)
+        yc, cc = cpu.prefill(x, pos, max_len=max_len)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert _rel(yg.cpu(), yc) <= MLA_TOL[dtype]
+        for key in ("latent", "k_rope"):
+            assert _rel(cg[key].cpu(), cc[key]) <= MLA_TOL[dtype], key
+        positions = torch.tensor([s, 150])
+        for step in range(3):
+            xt = (torch.randn((2, 1, 256), generator=gen) * 0.5).to(dtype)
+            yg, _ = gpu.decode(xt.to(dev), cg, positions.to(dev))
+            yc, _ = cpu.decode(xt, cc, positions)
+            assert _rel(yg.cpu(), yc) <= MLA_TOL[dtype], step
+            positions = positions + 1
+        assert _rel(cg["latent"].cpu(), cc["latent"]) <= MLA_TOL[dtype]
 
 
 @pytest.mark.cuda
@@ -1295,6 +1414,8 @@ def _serve_cfg(which):
         return configs.sparsify_ffn(configs.smoke("llama3_2_1b"), 0.25)
     if which == "gemma2":
         return configs.sparsify_ffn(configs.smoke("gemma2-2b"), 0.25)
+    if which == "deepseek":
+        return _mla_card_cfg()
     return configs.smoke("qwen3-moe-30b-a3b")
 
 
@@ -1336,7 +1457,8 @@ def _serve(lm, dev, graphs, lengths, *, buckets, max_len, batch=2,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["llama-sparse", "gemma2", "qwen3"])
+@pytest.mark.parametrize("which", ["llama-sparse", "gemma2", "qwen3",
+                                   "deepseek"])
 def test_engine_graphs_match_eager(dev, which):
     """A mixed-length stream over three buckets after ``warm_compile``:
     one capture per bucket and one for decode, none and no plan or
@@ -1372,8 +1494,11 @@ def test_engine_graphs_match_eager(dev, which):
     assert got[2] == want[2]
     assert sum(got[2]) > 0
     assert got[3] == want[3]
-    if which == "qwen3":
-        assert len(got[3]) == lm.cfg.num_layers * len(got[1])
+    if which in ("qwen3", "deepseek"):
+        moe_layers = sum(layer.moe for layer in lm.layers)
+        assert len(got[3]) == moe_layers * len(got[1])
+    if which == "deepseek":
+        assert all(set(c) == {"latent", "k_rope"} for c in eng.caches)
     assert eng.stats()["logits"]["nonfinite"] == 0
 
 
@@ -1792,7 +1917,7 @@ def _same_run(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("which", ["llama-sparse", "qwen3"])
+@pytest.mark.parametrize("which", ["llama-sparse", "qwen3", "deepseek"])
 def test_train_graph_matches_eager(dev, which):
     """Five steps replayed from one captured graph (forward, backward,
     clip, AdamW) against five eager steps from the same seed: losses,
@@ -1805,8 +1930,9 @@ def test_train_graph_matches_eager(dev, which):
     assert st["captures"] == 1 and st["recaptures"] == 0
     assert st["replays"] == 4 and st["launches_per_replay"] > 0
     _same_run(got, want)
-    if which == "qwen3":
-        assert len(got["drops"]) == 5 * got["prog"].lm.cfg.num_layers
+    if which in ("qwen3", "deepseek"):
+        moe_layers = sum(layer.moe for layer in got["prog"].lm.layers)
+        assert len(got["drops"]) == 5 * moe_layers
     assert int(got["prog"].state.step) == 5
     assert int(got["prog"].state.opt.count) == 5
 
@@ -2002,6 +2128,62 @@ def test_train_capture_shares_a_stream_and_collects_cycles(dev):
     finally:
         if enabled:
             gc.enable()
+
+
+def _port_objects(objs):
+    """The objects of ``objs`` that belong to the port: instances of its
+    classes, its functions, and frames of its code."""
+    out = []
+    for o in objs:
+        code = getattr(o, "f_code", None)
+        where = (code.co_filename if code is not None else
+                 getattr(o, "__module__", None) or type(o).__module__)
+        if "repro_torch" in str(where):
+            out.append(o)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["llama-sparse", "deepseek"])
+def test_eager_train_step_forms_no_cycle(dev, which):
+    """Fault 3.10: an eager train step (after the first, whose first call
+    of ``torch.utils.checkpoint`` imports ``torch._dynamo`` under the
+    step's frames) leaves nothing to Python's cycle collector that holds
+    a CUDA tensor or belongs to the port: no autograd ``ctx``, plan,
+    closure or frame of the port forms a reference cycle, so an eager
+    ``train_loop`` pins no step's transients."""
+    import gc
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.train.program import TrainProgram
+    from repro_torch.train.step import TrainHParams, init_train_state
+    lm = LM(_serve_cfg(which), device=dev, seed=0)
+    hp = TrainHParams(**TRAIN_HP)
+    prog = TrainProgram(lm, init_train_state(lm, hp=hp), hp, batch=2,
+                        seq=32, graph=False)
+    pipe = TokenPipeline(lm.cfg.vocab_size, 2, 32)
+
+    def step(i):
+        prog.load(pipe.get_batch(i))
+        float(prog()["loss"])
+        torch.cuda.synchronize()
+
+    step(0)
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        step(1)
+        gc.set_debug(gc.DEBUG_SAVEALL)
+        gc.collect()
+        garbage = list(gc.garbage)
+        gc.garbage.clear()
+    finally:
+        gc.set_debug(0)
+        if enabled:
+            gc.enable()
+    assert not [o for o in garbage if torch.is_tensor(o) and o.is_cuda]
+    assert not _port_objects(garbage)
 
 
 @pytest.mark.cuda

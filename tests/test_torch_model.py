@@ -65,7 +65,7 @@ def test_config_copy_matches_reference():
     assert dataclasses.asdict(tconfigs.smoke("llama3.2-1b")) == \
         dataclasses.asdict(jconfigs.smoke("llama3_2_1b"))
     with pytest.raises(ValueError, match="unknown architecture"):
-        tconfigs.get("qwen2_1_5b")
+        tconfigs.get("mamba2_130m")
 
 
 def test_load_jax_params_carries_every_leaf(pair):
@@ -142,7 +142,7 @@ def test_lm_without_card_raises():
         TLM(_cfg(True))
 
 
-@pytest.mark.parametrize("field, value", [("attn_impl", "mla"),
+@pytest.mark.parametrize("field, value", [("encoder_layers", 2),
                                           ("long_attention",
                                            "block_sparse")])
 def test_lm_rejects_unported_features(field, value):
