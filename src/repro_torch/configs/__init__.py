@@ -3,7 +3,8 @@
 the paper's block-sparse FFN applied to a dense config.
 
 The port covers ``llama3_2_1b``, ``gemma2_2b``, ``qwen3_moe_30b_a3b``,
-``qwen2_1_5b``, ``glm4_9b`` and ``deepseek_v2_lite_16b``.
+``qwen2_1_5b``, ``glm4_9b``, ``deepseek_v2_lite_16b``, ``mamba2_130m``
+and ``jamba_v0_1_52b``.
 """
 from __future__ import annotations
 
@@ -13,12 +14,14 @@ import importlib
 from repro_torch.models.config import ModelCfg
 
 ARCH_IDS = ["llama3_2_1b", "gemma2_2b", "qwen3_moe_30b_a3b", "qwen2_1_5b",
-            "glm4_9b", "deepseek_v2_lite_16b"]
+            "glm4_9b", "deepseek_v2_lite_16b", "mamba2_130m",
+            "jamba_v0_1_52b"]
 
 ALIASES = {"llama3.2-1b": "llama3_2_1b", "gemma2-2b": "gemma2_2b",
            "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
            "qwen2-1.5b": "qwen2_1_5b", "glm4-9b": "glm4_9b",
-           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b"}
+           "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+           "mamba2-130m": "mamba2_130m", "jamba-v0.1-52b": "jamba_v0_1_52b"}
 
 
 def _module(name: str):
@@ -35,6 +38,13 @@ def get(name: str) -> ModelCfg:
 
 def smoke(name: str) -> ModelCfg:
     return _module(name).make_smoke_config()
+
+
+def dense_ffns(cfg: ModelCfg) -> bool:
+    """Whether every FFN of ``cfg`` is a dense MLP: what ``sparsify_ffn``
+    makes block-sparse (not an MoE FFN, nor a layer without one)."""
+    return all(spec.ffn == "mlp" for period, _ in cfg.groups
+               for spec in period)
 
 
 def sparsify_ffn(cfg: ModelCfg, density: float) -> ModelCfg:

@@ -2,11 +2,21 @@
 steps of a full-width model under ``torch.profiler``: llama3.2-1b (by
 default) or ``--arch gemma2-2b`` with every FFN block-sparse at
 ``--density``, or ``--arch qwen3-moe-30b-a3b`` with its 128 experts
-(``--density`` does not apply to an MoE config).
+(``--density`` applies only to a config whose FFNs are all dense MLPs:
+not to an MoE config, mamba2-130m or jamba-v0.1-52b).
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch llama3.2-1b] [--density 0.125] [--batch 4] \
+        [--arch llama3.2-1b] [--layers N] [--density 0.125] [--batch 4] \
         [--prompt 256] [--max-len 512] [--steps 16] [--out profile.json]
+
+``--layers`` cuts the depth as ``profile_train`` does (``cut_depth``:
+whole periods, full width; jamba-v0.1-52b at 16 is 2 of its 4 periods).
+A model with mamba layers also reports its SSD scan alone
+(``ssd_scan``: ``ssm.ssd_scan`` at the prefill's shape: one call's ms
+on the stream by CUDA events, its busy device ms by family under the
+profiler, that times the mamba layers, and its shares of the prefill's
+busy time and of its "other" family; the scan is plain PyTorch, its
+batched products in ``library_gemm``, the rest in ``other``).
 
 Reports, per phase, the host wall time (clock around work that ends in a
 ``synchronize``), the device busy time (sum of the kernels' own device
@@ -21,7 +31,9 @@ process: an ``Engine`` over the same model captures its decode step and
 the ``--prompt`` bucket's prefill, and the same phases are reported for
 their replays (``graph_prefill``, ``graph_decode_step``,
 ``graph_decode_step_host``; a call is the engine's: one upload of its
-inputs and one replay), beside the eager ones.
+inputs and one replay), beside the eager ones.  A stack the engine may
+not pad (mamba layers) prefills eagerly in the engine, so only its
+decode step is captured.
 """
 from __future__ import annotations
 
@@ -152,48 +164,103 @@ def _replay_ms(prog, reps: int) -> float:
 
 def _graph_phases(lm, args, prompt):
     """The same phases through the engine's captured programs: the
-    ``--prompt`` bucket's prefill into slot 0 and the decode step of the
-    whole batch at position ``--prompt``."""
+    ``--prompt`` bucket's prefill into slot 0 (where the engine may pad
+    the stack) and the decode step of the whole batch at position
+    ``--prompt``."""
     from repro_torch.serve import Engine
 
     eng = Engine(lm, batch=args.batch, max_len=args.max_len, device="cuda",
                  buckets=(args.prompt,), warm_plans=False, graphs=True)
-    pre = eng._prefill_program(args.prompt)
-    io = np.zeros(args.prompt + 2, np.int64)
-    io[:args.prompt] = prompt[0]
-    io[args.prompt:] = (args.prompt - 1, 0)
     dec = eng._decode
     dio = np.concatenate([np.arange(args.batch) % lm.cfg.vocab_size,
                           np.full(args.batch, args.prompt)]).astype(np.int64)
-    pre.load(io)
-    pre.capture()
     dec.load(dio)
     dec.capture()
-
-    def prefill():
-        pre.load(io)
-        pre()
 
     def decode():
         dec.load(dio)
         dec()
 
-    for fn in (prefill, decode, decode):       # warm-up
-        fn()
-    return {"graph_capture_s": {"prefill": pre.capture_s,
-                                "decode": dec.capture_s},
-            "graph_prefill_device_ms": _replay_ms(pre, 3),
-            "graph_decode_step_device_ms": _replay_ms(dec, args.steps),
-            "graph_prefill_wall_ms": _wall_ms(prefill, 3),
-            "graph_decode_step_wall_ms": _wall_ms(decode, args.steps),
-            "graph_prefill": _profile(prefill, 3),
-            "graph_decode_step": _profile(decode, args.steps),
-            "graph_decode_step_host": _host_profile(decode, args.steps)}
+    out = {}
+    if eng.pad_safe:
+        pre = eng._prefill_program(args.prompt)
+        io = np.zeros(args.prompt + 2, np.int64)
+        io[:args.prompt] = prompt[0]
+        io[args.prompt:] = (args.prompt - 1, 0)
+        pre.load(io)
+        pre.capture()
+
+        def prefill():
+            pre.load(io)
+            pre()
+
+        prefill()                               # warm-up
+        out.update(graph_prefill_device_ms=_replay_ms(pre, 3),
+                   graph_prefill_wall_ms=_wall_ms(prefill, 3),
+                   graph_prefill=_profile(prefill, 3))
+    for _ in range(2):                          # warm-up
+        decode()
+    out.update(graph_capture_s={"decode": dec.capture_s},
+               graph_decode_step_device_ms=_replay_ms(dec, args.steps),
+               graph_decode_step_wall_ms=_wall_ms(decode, args.steps),
+               graph_decode_step=_profile(decode, args.steps),
+               graph_decode_step_host=_host_profile(decode, args.steps))
+    if eng.pad_safe:
+        out["graph_capture_s"]["prefill"] = pre.capture_s
+    return out
+
+
+def _ssd_scan(cfg, s: int, reps: int = 5):
+    """``ssm.ssd_scan`` alone at an ``s``-token prefill's shape (batch 1,
+    fp32 as the mixer calls it): its chunk length and count, the ms of
+    one call on the stream by CUDA events (launch gaps included: at
+    chunks of 1 the inter-chunk loop is launch-bound), its busy device
+    ms under the profiler by family, and the busy ms times the mamba
+    layers."""
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import layer_specs
+
+    c = cfg.ssm
+    h = c.num_heads(cfg.d_model)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = rand(1, s, h, c.head_dim)
+    dt = torch.nn.functional.softplus(rand(1, s, h))
+    a = -torch.exp(rand(h) * 0.5)
+    b, cc = rand(1, s, c.n_groups, c.d_state), rand(1, s, c.n_groups,
+                                                    c.d_state)
+
+    def scan():
+        ssm.ssd_scan(x, dt, a, b, cc, chunk=c.chunk)
+
+    scan()                                              # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        scan()
+    end.record()
+    torch.cuda.synchronize()
+    prof = _profile(scan, reps)
+    layers = sum(spec.mixer == "mamba" for spec in layer_specs(cfg))
+    lc = ssm.chunk_len(s, c.chunk)
+    return {"tokens": s, "chunk_len": lc, "chunks": s // lc,
+            "mamba_layers": layers,
+            "stream_ms_per_call": start.elapsed_time(end) / reps,
+            "busy_ms_per_call": prof["device_busy_ms"],
+            "busy_ms_by_family_per_call": prof["device_ms_by_family"],
+            "busy_ms_per_prefill": (prof["device_busy_ms"] or 0.0) * layers}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (full width)")
     ap.add_argument("--density", type=float, default=0.125)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=256)
@@ -208,8 +275,12 @@ def main(argv=None):
         raise SystemExit("profile_serve needs a CUDA device")
 
     cfg = configs.get(args.arch)
-    if cfg.moe is None:
+    dense = configs.dense_ffns(cfg)
+    if dense:
         cfg = configs.sparsify_ffn(cfg, args.density)
+    if args.layers is not None:
+        from repro_torch.launch.profile_train import cut_depth
+        cfg = cut_depth(cfg, args.layers)
     lm = LM(cfg, device="cuda", seed=args.seed)
     rng = np.random.default_rng(args.seed)
     max_len = args.max_len
@@ -227,8 +298,8 @@ def main(argv=None):
     for fn in (prefill, decode, decode):       # warm-up
         fn()
     out = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
-           "max_len": max_len,
-           "density": args.density if cfg.moe is None else None,
+           "layers": cfg.num_layers, "max_len": max_len,
+           "density": args.density if dense else None,
            "batch": args.batch,
            "prompt": args.prompt,
            "prefill_wall_ms": _wall_ms(prefill, 3),
@@ -236,6 +307,18 @@ def main(argv=None):
            "prefill": _profile(prefill, 3),
            "decode_step": _profile(decode, args.steps),
            "decode_step_host": _host_profile(decode, args.steps)}
+    if cfg.ssm is not None:
+        scan = _ssd_scan(cfg, args.prompt)
+        pre = out["prefill"]
+        fam = scan["busy_ms_by_family_per_call"]
+        other = pre["device_ms_by_family"]["other"]
+        scan.update(
+            share_of_prefill_busy=(scan["busy_ms_per_prefill"]
+                                   / pre["device_busy_ms"]
+                                   if pre["device_busy_ms"] else None),
+            share_of_prefill_other=(fam["other"] * scan["mamba_layers"]
+                                    / other if other else None))
+        out["ssd_scan"] = scan
     if args.graphs:
         out.update(_graph_phases(lm, args, prompt))
     text = json.dumps(out, indent=1)

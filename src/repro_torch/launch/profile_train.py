@@ -10,8 +10,9 @@ FFN).
         --arch qwen3-moe-30b-a3b --layers 4
 
 ``--layers`` cuts the depth (``cut_depth``: the first layers, in whole
-periods of each group) and keeps the width; ``--density`` makes a dense FFN block-sparse and does
-not apply to an MoE config.  Reports the host wall time of a train step
+periods of each group) and keeps the width; ``--density`` makes the FFNs
+block-sparse where they are all dense MLPs (not an MoE config, not
+mamba2-130m).  Reports the host wall time of a train step
 (clock around steps that end in a ``synchronize``), the device busy time
 (sum of the kernels' own device times from the profiler), the device's
 idle share, the device time by kernel family (bs_attn, bsmm, dense_mm,
@@ -84,7 +85,8 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
 
     cfg = configs.get(args.arch)
-    if cfg.moe is None:
+    dense = configs.dense_ffns(cfg)
+    if dense:
         cfg = configs.sparsify_ffn(cfg, args.density)
     if args.layers is not None:
         cfg = cut_depth(cfg, args.layers)
@@ -129,7 +131,7 @@ def main(argv=None):
     torch.cuda.reset_peak_memory_stats()
     out = {"card": torch.cuda.get_device_name(0), "arch": cfg.name,
            "layers": cfg.num_layers,
-           "density": None if cfg.moe is not None else args.density,
+           "density": args.density if dense else None,
            "batch": args.batch, "seq": args.seq,
            "step_wall_ms": _wall_ms(step, args.steps)}
     out.update(peaks())

@@ -5,12 +5,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b
 
-Architectures: llama3.2-1b, gemma2-2b, qwen3-moe-30b-a3b (128 experts
-top-8; its expert GEMMs run the gmm kernel).  Runs on the card by
-default; ``--device cpu`` runs the kernels' plain PyTorch versions on the
-CPU (use ``--smoke`` there).  ``--density`` makes every dense FFN
-block-sparse at that block density (block size ``ffn_block_size``), the
-paper's sparse FFN; an MoE config keeps its experts and refuses it.
+Architectures: every config of ``repro_torch.configs`` (llama3.2-1b,
+gemma2-2b, qwen3-moe-30b-a3b with 128 experts top-8 on the gmm kernel,
+qwen2-1.5b, glm4-9b, deepseek-v2-lite-16b, mamba2-130m and
+jamba-v0.1-52b; the last two prefill each prompt at its exact length).
+Runs on the card by default; ``--device cpu`` runs the kernels' plain
+PyTorch versions on the CPU (use ``--smoke`` there).  ``--density``
+makes every dense FFN block-sparse at that block density (block size
+``ffn_block_size``), the paper's sparse FFN; a config whose FFNs are not
+all dense MLPs (MoE, mamba2's none, jamba's mix) refuses it.
 On the card the engine captures its decode step and each bucket's
 prefill as CUDA graphs at their first use and replays them; ``--eager``
 runs the same programs eagerly instead.  ``--plan-cache DIR`` persists
@@ -53,9 +56,9 @@ def main(argv=None):
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     if args.density is not None:
-        if cfg.moe is not None:
-            raise SystemExit(f"--density: {cfg.name}'s FFNs are expert "
-                             f"mixtures, not a dense FFN to sparsify")
+        if not configs.dense_ffns(cfg):
+            raise SystemExit(f"--density: {cfg.name}'s FFNs are not all "
+                             f"dense MLPs to sparsify")
         cfg = configs.sparsify_ffn(cfg, args.density)
     lm = LM(cfg, device=args.device, seed=args.seed)
     eng = Engine(lm, batch=args.batch, max_len=args.max_len,

@@ -141,6 +141,9 @@ def main(argv=None):
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     if args.density is not None:
+        if not configs.dense_ffns(cfg):
+            raise SystemExit(f"--density: {cfg.name}'s FFNs are not all "
+                             f"dense MLPs to sparsify")
         cfg = configs.sparsify_ffn(cfg, args.density)
     hp = TrainHParams(peak_lr=args.lr, warmup_steps=max(1, args.steps // 10),
                       total_steps=args.steps)

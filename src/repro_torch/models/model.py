@@ -1,9 +1,10 @@
 """Top-level language model: embeddings + layer stack + prefill / decode.
 
 Counterpart of the JAX package's ``models/model.py`` ``LM`` for decoder-
-only attention stacks, global and local (sliding-window) GQA layers and
-MLA layers, with Gemma's embedding scale, pre+post norms and soft-caps,
-and dense, sparse or MoE FFNs (``forward``, ``loss``, ``prefill(last_index=)``,
+only stacks of global and local (sliding-window) GQA layers, MLA layers
+and Mamba-2 (SSD) layers, alone or interleaved (the jamba hybrid), with
+Gemma's embedding scale, pre+post norms and soft-caps, and dense,
+sparse, MoE or no FFNs (``forward``, ``loss``, ``prefill(last_index=)``,
 ``init_cache``, ``decode_step``; the retained ring cache, the encoder and
 the frontends wait).  ``loss`` of an MoE config adds the router losses,
 as the reference's does.  ``forward(..., return_metrics=True)`` also
@@ -34,7 +35,7 @@ from repro_torch.models.layers import Embedding, RMSNorm, embed, unembed
 
 # fields of ModelCfg the port does not implement yet, with the value it
 # requires
-_UNSUPPORTED = {"ssm": None, "encoder_layers": 0, "frontend": None,
+_UNSUPPORTED = {"encoder_layers": 0, "frontend": None,
                 "long_attention": "full"}
 
 

@@ -1,10 +1,11 @@
 """Decoder layers and the layer stack.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the
-``attn``, ``attn_local`` and ``mla`` mixers with the ``mlp``, ``sparse``
-and ``moe`` FFN arms, and the Gemma-2 pre+post norms (``post_norm``:
-``plus_one`` norms before and after each sub-layer) (``layer_apply``,
-``layer_prefill``, ``layer_decode`` and their stacks).  The full-sequence
+``attn``, ``attn_local``, ``mla`` and ``mamba`` mixers with the ``mlp``,
+``sparse``, ``moe`` and ``none`` FFN arms, and the Gemma-2 pre+post
+norms (``post_norm``: ``plus_one`` norms before and after each
+sub-layer) (``layer_apply``, ``layer_prefill``, ``layer_decode`` and
+their stacks).  The full-sequence
 stack sums the MoE layers' metrics (``aux_loss``, ``z_loss``,
 ``dropped_frac``) into a dict the caller passes, as the reference's
 ``stack_apply`` returns them; prefill and decode drop them, as the
@@ -25,6 +26,7 @@ from repro_torch.models.attention import (GQA, MLA, Cache, gqa_cache_init,
 from repro_torch.models.config import LayerSpec, ModelCfg
 from repro_torch.models.layers import MLP, RMSNorm
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import Mamba2, ssm_cache_init
 
 METRICS = ("aux_loss", "z_loss", "dropped_frac")
 
@@ -49,46 +51,57 @@ def sparse_ffn(cfg: ModelCfg, *, device) -> SparseFFN:
 
 
 class Layer(nn.Module):
-    """Pre-norm decoder layer: ``h + post1(attn(norm1(h)))``, then
+    """Pre-norm decoder layer: ``h + post1(mix(norm1(h)))``, then
     ``h + post2(ffn(norm2(h)))``; the post norms exist with
-    ``cfg.post_norm``, which also makes norm1 and norm2 ``plus_one``."""
+    ``cfg.post_norm``, which also makes norm1 and norm2 ``plus_one``.
+    The mixer is ``attn`` (GQA or MLA) or, for a ``mamba`` layer,
+    ``mixer`` (the reference's leaf names); an ``ffn="none"`` layer has
+    no FFN sub-layer and no ``norm2`` / ``post_norm2`` (the reference
+    adds a zero FFN output)."""
 
     def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device):
         super().__init__()
-        if (spec.mixer not in ("attn", "attn_local", "mla") or spec.cross
-                or not spec.causal):
+        if (spec.mixer not in ("attn", "attn_local", "mla", "mamba")
+                or spec.cross or not spec.causal):
             raise NotImplementedError(
-                f"layer {spec}: the port runs causal 'attn', 'attn_local' "
-                f"and 'mla' layers; 'mamba', cross-attention and "
+                f"layer {spec}: the port runs causal 'attn', 'attn_local', "
+                f"'mla' and 'mamba' layers; cross-attention and "
                 f"non-causal layers are not ported yet")
-        if spec.ffn not in ("mlp", "sparse", "moe"):
+        if spec.ffn not in ("mlp", "sparse", "moe", "none"):
             raise NotImplementedError(
-                f"ffn {spec.ffn!r}: the port runs 'mlp', 'sparse' and "
-                f"'moe' only")
+                f"ffn {spec.ffn!r}: the port runs 'mlp', 'sparse', 'moe' "
+                f"and 'none' only")
         dt = model_dtype(cfg)
         self.cfg = cfg
         self.local = spec.mixer == "attn_local"
+        self.ssm = spec.mixer == "mamba"
         self.norm1 = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                              device=device)
-        mixer = MLA if spec.mixer == "mla" else GQA
-        self.attn = mixer(cfg, dtype=dt, device=device)
-        self.norm2 = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
-                             device=device)
+        if self.ssm:
+            self.mixer = Mamba2(cfg, dtype=dt, device=device)
+        else:
+            mixer = MLA if spec.mixer == "mla" else GQA
+            self.attn = mixer(cfg, dtype=dt, device=device)
         self.moe = spec.ffn == "moe"
-        if spec.ffn == "mlp":
+        has_ffn = spec.ffn != "none"
+        self.norm2 = (RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
+                              device=device) if has_ffn else None)
+        if not has_ffn:
+            self.ffn = None
+        elif spec.ffn == "mlp":
             self.ffn = MLP(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dt,
                            device=device)
         elif self.moe:
             self.ffn = MoE(cfg, dtype=dt, device=device)
         else:
             self.ffn = sparse_ffn(cfg, device=device)
+        self.post_norm1 = self.post_norm2 = None
         if cfg.post_norm:
             self.post_norm1 = RMSNorm(cfg.d_model, plus_one=True,
                                       device=device)
-            self.post_norm2 = RMSNorm(cfg.d_model, plus_one=True,
-                                      device=device)
-        else:
-            self.post_norm1 = self.post_norm2 = None
+            if has_ffn:
+                self.post_norm2 = RMSNorm(cfg.d_model, plus_one=True,
+                                          device=device)
 
     def _post(self, norm, x: torch.Tensor) -> torch.Tensor:
         return x if norm is None else norm(x, eps=self.cfg.norm_eps)
@@ -96,8 +109,11 @@ class Layer(nn.Module):
     def _ffn(self, h: torch.Tensor,
              metrics: Optional[Dict[str, torch.Tensor]] = None
              ) -> torch.Tensor:
-        """The FFN sub-layer; an MoE layer adds its metrics into
-        ``metrics`` when given (device adds, no host read)."""
+        """``h`` plus the FFN sub-layer (``h`` itself without an FFN); an
+        MoE layer adds its metrics into ``metrics`` when given (device
+        adds, no host read)."""
+        if self.ffn is None:
+            return h
         hn = self.norm2(h, eps=self.cfg.norm_eps)
         if self.moe:
             out, m = self.ffn(hn)
@@ -106,33 +122,43 @@ class Layer(nn.Module):
                     metrics[name] = metrics[name] + val
         else:
             out = self.ffn(hn)
-        return self._post(self.post_norm2, out)
+        return h + self._post(self.post_norm2, out)
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor,
                 metrics: Optional[Dict[str, torch.Tensor]] = None):
         """``layer_apply``: full sequence, no cache; MoE metrics are
         summed into ``metrics`` when given."""
-        mix = self.attn(self.norm1(h, eps=self.cfg.norm_eps), positions,
-                        local=self.local)
+        hn = self.norm1(h, eps=self.cfg.norm_eps)
+        if self.ssm:
+            mix = self.mixer(hn)
+        else:
+            mix = self.attn(hn, positions, local=self.local)
         h = h + self._post(self.post_norm1, mix)
-        return h + self._ffn(h, metrics)
+        return self._ffn(h, metrics)
 
     def prefill(self, h: torch.Tensor, positions: torch.Tensor, *,
                 max_len: int):
         """``layer_prefill``: full sequence, emits the layer's cache."""
-        mix, cache = self.attn.prefill(self.norm1(h, eps=self.cfg.norm_eps),
-                                       positions, max_len=max_len,
-                                       local=self.local)
+        hn = self.norm1(h, eps=self.cfg.norm_eps)
+        if self.ssm:
+            mix, cache = self.mixer.prefill(hn)
+        else:
+            mix, cache = self.attn.prefill(hn, positions, max_len=max_len,
+                                           local=self.local)
         h = h + self._post(self.post_norm1, mix)
-        return h + self._ffn(h), cache
+        return self._ffn(h), cache
 
     def decode(self, h: torch.Tensor, cache: Cache,
                positions: torch.Tensor):
         """``layer_decode``: one token per row, cache updated in place."""
-        mix, cache = self.attn.decode(self.norm1(h, eps=self.cfg.norm_eps),
-                                      cache, positions, local=self.local)
+        hn = self.norm1(h, eps=self.cfg.norm_eps)
+        if self.ssm:
+            mix, cache = self.mixer.decode(hn, cache)
+        else:
+            mix, cache = self.attn.decode(hn, cache, positions,
+                                          local=self.local)
         h = h + self._post(self.post_norm1, mix)
-        return h + self._ffn(h), cache
+        return self._ffn(h), cache
 
 
 def layer_specs(cfg: ModelCfg) -> List[LayerSpec]:
@@ -166,7 +192,16 @@ def stack_decode(layers, h, caches, *, positions):
 def stack_cache_init(cfg: ModelCfg, batch: int, max_len: int, *,
                      dtype: torch.dtype, device) -> List[Cache]:
     """Each layer's cache by its mixer: ``{"k", "v"}`` of an attention
-    layer, ``{"latent", "k_rope"}`` of an MLA layer."""
-    return [(mla_cache_init if spec.mixer == "mla" else gqa_cache_init)(
-        cfg, batch, max_len, dtype=dtype, device=device)
-        for spec in layer_specs(cfg)]
+    layer, ``{"latent", "k_rope"}`` of an MLA layer, ``{"state",
+    "conv"}`` of a mamba layer (fp32 ``[B, H, P, N]`` and ``[B, d_conv -
+    1, conv_dim]``; no ``max_len`` axis)."""
+    caches = []
+    for spec in layer_specs(cfg):
+        if spec.mixer == "mamba":
+            caches.append(ssm_cache_init(cfg, batch, dtype=dtype,
+                                         device=device))
+        else:
+            caches.append((mla_cache_init if spec.mixer == "mla"
+                           else gqa_cache_init)(cfg, batch, max_len,
+                                                dtype=dtype, device=device))
+    return caches

@@ -13,13 +13,14 @@ as others finish.
   route (``core.dispatch.price_tokens``) over the model's matmul stack
   (``_stack_shapes``), at the model's dtype: the reference's algorithm,
   priced by the card the port runs on.  ``pad_safe`` says whether the
-  stack may be padded at all (attention-only stacks; the reference's
-  recurrent mixers are not ported).
+  stack may be padded at all: a stack with a recurrent (mamba) layer is
+  not, and has no buckets.
 * **Admission**: the smallest bucket holding a prompt, unless its
-  priced padding waste exceeds ``pad_max_frac`` (then exact-length
-  prefill, counted in ``exact_prefills``: the reference's one compile per
-  length, here one eager prefill); a bounded queue (``max_queue``) drops
-  and counts.  The priced waste of each padded prefill is summed per
+  priced padding waste exceeds ``pad_max_frac`` or the stack has no
+  buckets (then exact-length prefill, counted in ``exact_prefills``: the
+  reference's one compile per length, here one eager prefill; the decode
+  step is still one captured graph); a bounded queue (``max_queue``)
+  drops and counts.  The priced waste of each padded prefill is summed per
   bucket (``priced_waste_s``).
 * **Plan pools**: every program runs under ``sparse.use_ctx`` of the
   engine's ``PlanContext(pool=..., telemetry=...)``, so every plan it
@@ -122,17 +123,20 @@ def _pad_safe(cfg: ModelCfg) -> bool:
     """May prompts be right-padded to a bucket?  Attention-only stacks:
     pad rows beyond a slot's true position are never attended (decode
     masks ``slot > position``).  A recurrent mixer (mamba) folds every
-    input row into its state, so padding would corrupt it; the port
-    builds no such stack yet, so every config it serves is pad-safe."""
+    input row into its state and conv history, so padding would corrupt
+    them: mamba2 and the jamba hybrid prefill at each prompt's exact
+    length."""
     return all(spec.mixer != "mamba"
                for period, _ in cfg.groups for spec in period)
 
 
 def _stack_shapes(cfg: ModelCfg) -> List[Tuple[int, int]]:
     """The ``[m, k]`` matmul stack one token traverses: q/k/v and o
-    projections, the FFN (its density applied when sparse; an MoE layer
-    priced at its router and top-k (+ shared) expert FFNs, as the
-    reference prices it) and the unembed."""
+    projections (a mamba layer priced at its in/out projections, ``2 *
+    d_inner`` wide in, as the reference prices it), the FFN (its density
+    applied when sparse; an MoE layer priced at its router and top-k (+
+    shared) expert FFNs, as the reference prices it; none for
+    ``ffn="none"``) and the unembed."""
     d = cfg.d_model
     # an MLA layer is priced at GQA geometry (num_heads x head_dim q, k
     # and v), as the reference prices it: the ladder needs relative cost
@@ -143,7 +147,11 @@ def _stack_shapes(cfg: ModelCfg) -> List[Tuple[int, int]]:
     for period, rep in cfg.groups:
         for spec in period:
             for _ in range(rep):
-                shapes += [(qd + 2 * kvd, d), (d, qd)]
+                if spec.mixer == "mamba" and cfg.ssm is not None:
+                    di = cfg.ssm.d_inner(d)
+                    shapes += [(2 * di, d), (d, di)]
+                else:
+                    shapes += [(qd + 2 * kvd, d), (d, qd)]
                 if spec.ffn == "none":
                     continue
                 if spec.ffn == "moe" and cfg.moe is not None:

@@ -1416,6 +1416,9 @@ def _serve_cfg(which):
         return configs.sparsify_ffn(configs.smoke("gemma2-2b"), 0.25)
     if which == "deepseek":
         return _mla_card_cfg()
+    if which in ("mamba2", "jamba"):
+        return configs.smoke({"mamba2": "mamba2-130m",
+                              "jamba": "jamba-v0.1-52b"}[which])
     return configs.smoke("qwen3-moe-30b-a3b")
 
 
@@ -1500,6 +1503,103 @@ def test_engine_graphs_match_eager(dev, which):
     if which == "deepseek":
         assert all(set(c) == {"latent", "k_rope"} for c in eng.caches)
     assert eng.stats()["logits"]["nonfinite"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["mamba2", "jamba"])
+def test_engine_graphs_match_eager_exact_length(dev, which):
+    """A stack with mamba layers: no buckets, every prompt prefilled
+    eagerly at its exact length (odd lengths: SSD chunks of 1), the
+    decode step one captured graph; tokens, every call's logits (bit
+    for bit), the launch counters and jamba's routing drops equal to the
+    same engine run eagerly."""
+    lm = LM(_serve_cfg(which), device=dev, seed=0)
+    lengths = [5, 20, 9, 40, 3, 33]
+    kw = dict(buckets=None, max_len=64)
+    want = _serve(lm, dev, False, lengths, **kw)
+    got = _serve(lm, dev, True, lengths, **kw)
+    eng = got[4]
+    assert eng.buckets == ()
+    st = eng.stats()
+    assert st["admission"]["exact_prefills"] == len(lengths)
+    assert st["graphs"]["captures"] == 1
+    assert st["graphs"]["decode"]["replays"] > 0
+    assert got[0] == want[0]
+    assert len(got[1]) == len(want[1])
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    assert got[2] == want[2] and sum(got[2]) > 0
+    assert got[3] == want[3]
+    kinds = [frozenset(c) for c in eng.caches]
+    assert frozenset({"state", "conv"}) in kinds
+    assert set(kinds) <= {frozenset({"state", "conv"}),
+                          frozenset({"k", "v"})}
+    assert st["logits"]["nonfinite"] == 0
+
+
+@pytest.mark.cuda
+def test_ssm_decode_graph_updates_the_cache_in_place(dev):
+    """mamba2's decode step replayed from its graph writes the SSM
+    state and conv history into the engine's own cache tensors (the
+    same storage before and after), step for step equal to the eager
+    engine's caches, bit for bit."""
+    from repro_torch.serve import Engine, Request
+    lm = LM(_serve_cfg("mamba2"), device=dev, seed=0)
+    prompt = np.random.default_rng(3).integers(0, 512, size=11)
+    engines = [Engine(lm, batch=2, max_len=64, device=dev, graphs=g,
+                      warm_compile=True) for g in (False, True)]
+    ptrs = [(c["state"].data_ptr(), c["conv"].data_ptr())
+            for c in engines[1].caches]
+    for eng in engines:
+        eng.admit(Request(uid=0, prompt=prompt, max_new_tokens=8))
+    for _ in range(3):
+        before = [c["state"].clone() for c in engines[1].caches]
+        for eng in engines:
+            eng.step()
+        torch.cuda.synchronize()
+        for a, b, old in zip(engines[0].caches, engines[1].caches, before):
+            assert torch.equal(a["state"], b["state"])
+            assert torch.equal(a["conv"], b["conv"])
+            assert not torch.equal(b["state"], old)
+    assert ptrs == [(c["state"].data_ptr(), c["conv"].data_ptr())
+                    for c in engines[1].caches]
+    assert engines[1].stats()["graphs"]["decode"]["replays"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d", [(4, 768, 3352), (900, 768, 3352),
+                                   (512 * 4, 768, 3352), (4, 4096, 16544),
+                                   (899, 4096, 16544), (4, 1536, 768),
+                                   (4, 8192, 4096)])
+def test_dense_mm_matches_plain_at_ssd_projections(dev, dtype, n, k, d):
+    """The SSD in/out projections of mamba2-130m (768 -> 3352, 1536 ->
+    768) and jamba-v0.1 (4096 -> 16544, 8192 -> 4096) at decode, an odd
+    exact prefill and the train batch: widths that are not a multiple
+    of the kernel's tiles (3352 = 26 x 128 + 24)."""
+    g = torch.Generator(device=dev).manual_seed(n + d)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    w = (torch.randn((k, d), generator=g, device=dev)
+         / k ** 0.5).to(dtype)
+    wk = dmm_ops.walk(n, k, d, dtype)
+    before = dmm_ops.WALK_COUNTERS[wk.name].launches
+    got = dmm_ops.dense_mm(x, w)
+    torch.cuda.synchronize()
+    assert dmm_ops.WALK_COUNTERS[wk.name].launches == before + 1
+    if dtype != torch.float32:
+        assert wk.name in ("wgmma", "decode")
+    assert _rel(got, dmm_ops.dense_mm_plain(x, w)) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_train_graph_matches_eager_on_mamba2(dev):
+    """mamba2's smoke config (SSD layers, no FFN), five steps replayed
+    from the captured step against five eager ones, bit for bit."""
+    want = _train_run(dev, "mamba2", False, 5, seq=64)
+    got = _train_run(dev, "mamba2", True, 5, seq=64)
+    st = got["prog"].program.stats()
+    assert st["captures"] == 1 and st["recaptures"] == 0
+    _same_run(got, want)
 
 
 @pytest.mark.cuda

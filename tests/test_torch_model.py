@@ -65,7 +65,7 @@ def test_config_copy_matches_reference():
     assert dataclasses.asdict(tconfigs.smoke("llama3.2-1b")) == \
         dataclasses.asdict(jconfigs.smoke("llama3_2_1b"))
     with pytest.raises(ValueError, match="unknown architecture"):
-        tconfigs.get("mamba2_130m")
+        tconfigs.get("seamless_m4t_medium")
 
 
 def test_load_jax_params_carries_every_leaf(pair):
