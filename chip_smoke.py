@@ -256,6 +256,22 @@ Phases, each fatal on failure:
    and bs_attn launch on their 16-bit walks, tokens and routing drops
    equal, caches ``{state, conv}`` and ``{k, v}``; one MoE layer's gmm
    route against plain;
+12h. serve-internvl2: internvl2-1b as text through the engine, as
+   serve-qwen2 (the engine takes no frontend); vlm-internvl2: the
+   published model with 256 seeded patch rows a row through
+   ``LM.prefill(frontend=)`` and greedy ``decode_step``s at positions
+   offset by them; decode vs forward in bf16 and in an fp32 copy;
+12i. serve-seamless: seamless-m4t-medium at full width and depth (12
+   encoder layers over 1024 frames, 12 decoder layers with cross
+   attention) through ``prefill(enc_frames=)`` and eager
+   ``decode_step`` (the engine refuses a stack with cross layers):
+   bs_attn 36 launches a prefill and 12 a decode step, on wgmma; the
+   encoder's ms apart; decode vs forward in bf16 and in an fp32 copy;
+12j. train-seamless: ``train_loop`` on it with 4 x 1024 seeded frames a
+   batch (``TrainProgram``'s float buffer), eager and captured,
+   bit-equal, the loss falls; the ``[attn]`` phase also holds bs_attn
+   without the causal mask at its encoder (1024 x 1024), cross prefill
+   (300 x 1024) and cross decode (1 x 1024) against plain and SDPA;
 13. roofline (after 11): ``sparse.roofline_report()`` totals of the
    llama and gemma2 engines and each served static plan's chosen route
    on the H100's roofline (efficiency, headroom, dominant term,
@@ -706,7 +722,13 @@ def kernel_phase(torch, args):
                  gemma.num_kv_heads * gemma.head_dim)
     gemma_ns = sorted({GEMMA2_BATCH} | set(gemma2_prefill_lens(args)))
     qwen_ns = sorted({QWEN3_BATCH, 256, 1008} | set(qwen3_prefill_lens(args)))
+    # internvl2-1b's k/v projection (896 -> 2 x 64: 128 wide, the
+    # kernel's narrowest tile) at [serve-internvl2]'s decode batch and
+    # [vlm-internvl2]'s prefill (patch rows + prompt, 4 rows); seamless's
+    # FFN (1024 -> 4096 -> 1024) at decode batch 4 and at its encoder's 4
+    # x 1024 frames (N 4096)
     fp16 = {"float16": torch.float16}
+    vlm_n = VLM_BATCH * (configs.get(INTERNVL2).frontend_len + VLM_PROMPT)
     for shape_name, k, d, ns, dts in (
             ("q/o", 2048, 2048, llama_ns, dtypes),
             ("k/v", 2048, 512, llama_ns, dtypes),
@@ -716,6 +738,9 @@ def kernel_phase(torch, args):
             ("qwen3 q", 2048, 4096, qwen_ns, dtypes),
             ("qwen3 k/v", 2048, 512, qwen_ns, dtypes),
             ("qwen3 o", 4096, 2048, qwen_ns, dtypes),
+            ("internvl2 k/v", 896, 128, (DENSE_BATCH, vlm_n), dtypes),
+            ("seamless up", 1024, 4096, (4, 4096), dtypes),
+            ("seamless down", 4096, 1024, (4, 4096), dtypes),
             ("table3 dense", 4096, 4096, (4096,), fp16)):
         for dname, dt in dts.items():
             w = randn((k, d), dt, 1 / math.sqrt(k))
@@ -856,7 +881,8 @@ def counter_index_names(counters):
 
 
 def train_run(torch, label, cfg, *, graphs, counters, args, steps, batch,
-              seq, metric_keys=("loss", "grad_norm", "lr"), topology=None):
+              seq, metric_keys=("loss", "grad_norm", "lr"), after_step=None,
+              float_inputs=None):
     """``launch.train.train_loop`` on ``cfg`` from ``args.seed``, each step
     run eagerly or replayed from the captured step (``graphs``), no
     checkpoint.  The launch counters are zeroed just before and read just
@@ -868,8 +894,10 @@ def train_run(torch, label, cfg, *, graphs, counters, args, steps, batch,
     (its batch upload, the step and the loss read), the program's
     captures, re-captures, capture seconds and launches per replay by
     kernel and walk, and the parameters after the last step (on the host,
-    under ``params``).  ``topology(step, program)`` runs after each
-    step's own reads, in ``train_loop``'s ``on_step``."""
+    under ``params``).  ``after_step(step, program)`` runs after each
+    step's own reads, in ``train_loop``'s ``on_step``.
+    ``float_inputs(step)`` gives each batch's float entries (an
+    encoder-decoder's frames), ``train_loop``'s."""
     import numpy as np
 
     from repro_torch.launch.train import train_loop
@@ -912,8 +940,8 @@ def train_run(torch, label, cfg, *, graphs, counters, args, steps, batch,
             names[i]: n for i, n in sorted(
                 program.program.launches_per_replay().items())
             if i in names})
-        if topology is not None:
-            topology(step, program)
+        if after_step is not None:
+            after_step(step, program)
         if step == TRAIN_SYNC_STEP - 1:
             sync["catcher"] = warnings.catch_warnings(record=True)
             sync["log"] = sync["catcher"].__enter__()
@@ -931,7 +959,7 @@ def train_run(torch, label, cfg, *, graphs, counters, args, steps, batch,
         state, losses = train_loop(
             cfg, steps=steps, batch_per_shard=batch, seq=seq, ckpt_dir=None,
             hp=hp, device="cuda", log_every=10 ** 9, on_step=on_step,
-            seed=args.seed, graphs=graphs)
+            seed=args.seed, graphs=graphs, float_inputs=float_inputs)
         torch.cuda.synchronize()
     finally:
         if "catcher" in sync:
@@ -1081,7 +1109,7 @@ def train_phase(torch, args):
     eager, graph, check = eager_and_graphs(
         torch, "train", cfg, counters=counters, args=args,
         steps=TRAIN_STEPS + TOPOLOGY_AFTER, batch=4, seq=512,
-        topology=topology)
+        after_step=topology)
     for r in (eager, graph):
         check_tensor_core_walks("train", r["walks"],
                                 ("bs_attn", "sddmm", "bsmm"))
@@ -1363,8 +1391,10 @@ def attn_phase(torch, args):
     """bs_attn against its plain version (dense softmax over the element
     mask) at gemma2-2b's global and local layers, llama3.2-1b's,
     qwen3-moe's, deepseek-v2-lite's MLA (dh 192, served and trained),
-    qwen2-1.5b's and glm4-9b's (GQA groups 6 and 16), and at an odd S
-    whose tiles halve to 1; bf16 and fp32.  The bound counts
+    qwen2-1.5b's and glm4-9b's (GQA groups 6 and 16), at an odd S
+    whose tiles halve to 1, and at seamless-m4t-medium's and
+    internvl2-1b's main-path shapes (``encdec_attn_rows``); bf16 and
+    fp32.  The bound counts
     the visible element pairs (4 FLOPs per pair and head dim: QK^T and
     PV) against q, k, v read and o written once.  The library call
     (``attn_library``) is held against the plain version too."""
@@ -1434,6 +1464,7 @@ def attn_phase(torch, args):
             rows.append(row)
             del sets, q, k, v
         del el, walk
+    rows += encdec_attn_rows(torch, args, gen)
     bad = [r for r in rows if not r["rel_err"] <= r["tol"]]
     if bad:
         raise RuntimeError(f"bs_attn disagrees with its plain version: "
@@ -1442,6 +1473,99 @@ def attn_phase(torch, args):
     if bad:
         raise RuntimeError(f"the library call computes another function "
                            f"than the plain version: {bad}")
+    return rows
+
+
+def encdec_attn_shapes():
+    """[attn] rows at every shape bs_attn runs on the main paths of
+    seamless-m4t-medium (16 heads of 64, MHA) and internvl2-1b (14 over
+    2 kv heads of 64), batch 4, at the configs' tiles (512, halved until
+    they divide the sequence, as ``attend_train`` takes them): the
+    encoder's T x T over the 1024 frames, the decoder's causal
+    self-attention and its cross attention over the frames at
+    [serve-seamless]'s padded prefill length, at decode (one query row)
+    and at [train-seamless]'s sequence, and [vlm-internvl2]'s causal
+    prefill over the patch rows and the prompt.  Each row: name, the
+    path whose launches it reads, config, B, S, Skv, causal."""
+    from repro_torch import configs
+    sm, vl = configs.get(SEAMLESS), configs.get(INTERNVL2)
+    t, s, ts = sm.frontend_len, max(SEAMLESS_PROMPTS), SEAMLESS_TRAIN_SEQ
+    sv = vl.frontend_len + VLM_PROMPT
+    return (("seamless encoder", "serve_seamless", sm, 4, t, t, False),
+            ("seamless serve self", "serve_seamless", sm, 4, s, s, True),
+            ("seamless cross prefill", "serve_seamless", sm, 4, s, t, False),
+            ("seamless cross decode", "serve_seamless", sm, 4, 1, t, False),
+            ("seamless train self", "train_seamless", sm,
+             SEAMLESS_TRAIN_BATCH, ts, ts, True),
+            ("seamless train cross", "train_seamless", sm,
+             SEAMLESS_TRAIN_BATCH, ts, t, False),
+            ("internvl2 vlm prefill", "vlm_internvl2", vl, VLM_BATCH, sv, sv,
+             True))
+
+
+def encdec_attn_rows(torch, args, gen):
+    """bs_attn against its plain version at ``encdec_attn_shapes`` (the
+    walk ``attend_train`` builds there, causal or not, S queries over Skv
+    keys), bf16 and fp32, each beside one SDPA call; the bound counts
+    the B x visible element pairs a head."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.models import attention
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for name, path, cfg, b_, s, skv, causal in encdec_attn_shapes():
+        h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        spec = attention.attn_spec(s, skv, dh, causal=causal,
+                                   tile_q=cfg.attn_tile_q,
+                                   tile_kv=cfg.attn_tile_kv)
+        scale = spec.scale
+        walk = spec.walk(dev)
+        el = spec.element_mask(dev)
+        pairs = b_ * int(el.sum().item())
+
+        def sdpa(q_, k_, v_):
+            return F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+                is_causal=causal, scale=scale,
+                enable_gqa=h != kvh).transpose(1, 2)
+
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            es = torch.empty((), dtype=dt).element_size()
+            q = torch.randn((b_, s, h, dh), generator=gen, device=dev).to(dt)
+            k = torch.randn((b_, skv, kvh, dh), generator=gen,
+                            device=dev).to(dt)
+            v = torch.randn((b_, skv, kvh, dh), generator=gen,
+                            device=dev).to(dt)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+            sets = copies(lambda: (q.clone(), k.clone(), v.clone()), nbytes)
+
+            def kernel(q_, k_, v_, plan=None):
+                return bs_ops.bs_attn_cuda(q_, k_, v_, walk, scale=scale,
+                                           causal=causal, plan=plan)
+
+            def plain(q_, k_, v_):
+                return attend_plain(q_, k_, v_, el, scale=scale)
+            lib_err = rel_err(sdpa(q, k, v), plain(q, k, v))[0]
+            row = measured_row(torch, "bs_attn", name, s, dname, kernel,
+                               plain, sdpa, sets, sets, nbytes,
+                               4.0 * pairs * dh * h)
+            row["walk"] = bs_ops.kernel_walk(dt)
+            row["before_ms"] = (timed_ms(
+                torch, lambda *a: kernel(*a, plan="cuda_core"), sets, 4)
+                if dt != torch.float32 else None)
+            row.update(heads=h, kv_heads=kvh, head_dim=dh, window=0,
+                       softcap=None, tile=spec.tile_q, library="sdpa",
+                       library_rel_err=lib_err, causal=causal, batch=b_,
+                       skv=skv, path=path,
+                       tiles_visited=int(spec.block_mask().sum()),
+                       element_pairs=pairs, group=walk.group)
+            rows.append(row)
+            del sets, q, k, v
+        del el, walk
     return rows
 
 
@@ -2715,11 +2839,13 @@ DEEPSEEK_BATCH, DEEPSEEK_MAX_LEN, DEEPSEEK_NEW = 4, 1024, 8
 # trained as [train-qwen3-moe] is (batch 4 x seq 512, 10 AdamW steps,
 # eagerly and then replaying the captured step)
 DEEPSEEK_TRAIN_LAYERS, DEEPSEEK_TRAIN_BATCH, DEEPSEEK_TRAIN_SEQ = 4, 4, 512
-# [serve-qwen2], [serve-glm4]: every FFN block-sparse (d = 1/8, b = 16),
+# [serve-qwen2], [serve-glm4], [serve-internvl2] (text only, as the
+# engine serves a VLM): every FFN block-sparse (d = 1/8, b = 16),
 # Engine(batch=4, max_len=512), 4 seeded requests of 16..480 prompt
 # tokens after 2 warm-up requests, 8 new tokens each
 DENSE_ARCHS = (("qwen2-1.5b", "serve-qwen2", 41),
-               ("glm4-9b", "serve-glm4", 43))
+               ("glm4-9b", "serve-glm4", 43),
+               ("internvl2-1b", "serve-internvl2", 47))
 DENSE_BATCH, DENSE_MAX_LEN, DENSE_NEW = 4, 512, 8
 DENSE_PROMPTS = ((16, 480),) * 4
 DENSE_WARMUP = ((16, 64),) * 2
@@ -2750,7 +2876,8 @@ def deepseek_attn_shapes(args):
 
 
 def dense_prompt_lens(args, arch, seed_offset):
-    """A [serve-qwen2] / [serve-glm4] run's prompt lengths."""
+    """A [serve-qwen2] / [serve-glm4] / [serve-internvl2] run's prompt
+    lengths."""
     from repro_torch import configs
     return replay_prompt_lens(args.seed + seed_offset,
                               configs.get(arch).vocab_size, DENSE_WARMUP,
@@ -2758,8 +2885,9 @@ def dense_prompt_lens(args, arch, seed_offset):
 
 
 def dense_attn_shapes(args):
-    """[attn] rows at the prefill lengths [serve-qwen2] and [serve-glm4]
-    run (their GQA groups 12 / 2 = 6 and 32 / 2 = 16, dh 128, causal)."""
+    """[attn] rows at the prefill lengths [serve-qwen2], [serve-glm4] and
+    [serve-internvl2] run (their GQA groups 12 / 2 = 6, 32 / 2 = 16 and
+    14 / 2 = 7; dh 128, 128 and 64; causal)."""
     from repro_torch import configs
     rows = []
     for arch, label, off in DENSE_ARCHS:
@@ -2768,7 +2896,8 @@ def dense_attn_shapes(args):
                                          dense_prompt_lens(args, arch,
                                                            off)))):
             rows.append((f"{label[6:]} served", s, cfg.num_heads,
-                         cfg.num_kv_heads, 128, 0, None, 1 / math.sqrt(128)))
+                         cfg.num_kv_heads, cfg.head_dim, 0, None,
+                         1 / math.sqrt(cfg.head_dim)))
     return tuple(rows)
 
 
@@ -3390,7 +3519,8 @@ def train_deepseek_phase(torch, args):
 
 
 def serve_dense_phase(torch, args, arch, label, seed_offset):
-    """[serve-qwen2] / [serve-glm4]: ``arch`` at full width and depth with
+    """[serve-qwen2] / [serve-glm4] / [serve-internvl2] (as text): ``arch``
+    at full width and depth with
     every FFN block-sparse (d = 1/8, b = 16; q/k/v biased), bf16 from
     ``init(seed)`` on the card, through ``Engine(batch=4, max_len=512)``:
     2 warm-up requests (eager), then 4 seeded requests of 16..480 prompt
@@ -3522,23 +3652,27 @@ def check_dense_mm_walks(label, walks):
                            f"walks: {w}")
 
 
-def ssm_consistency(torch, lm, n, seed, tol):
-    """An ``n``-token prompt prefilled at its exact length, then two
-    decode steps, against ``forward`` on the same ``n + 2`` tokens:
-    rel-max error of each call's logits; fails beyond ``tol``."""
+def decode_consistency(torch, lm, n, seed, tol, **inputs):
+    """An ``n``-token seeded prompt prefilled at its exact length, then
+    two decode steps, against ``forward`` on the same ``n + 2`` tokens
+    (one row; ``inputs`` are that row's ``frontend`` / ``enc_frames``,
+    and a frontend's rows offset the decode positions): rel-max error of
+    each call's logits; fails beyond ``tol``."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, lm.cfg.vocab_size, size=n + 2)
-    full = lm.forward(toks[None, :]).float()
+    off = inputs["frontend"].shape[1] if "frontend" in inputs else 0
+    full = lm.forward(toks[None, :], **inputs).float()
     if not bool(torch.isfinite(full).all()):
         raise RuntimeError("forward gave non-finite logits")
-    logits, caches = lm.prefill(toks[None, :n], max_len=n + 8)
+    logits, caches = lm.prefill(toks[None, :n], max_len=off + n + 8,
+                                **inputs)
     errs = {"prefill": rel_err(logits[0], full[0, n - 1])[0]}
     for i in range(2):
         pos = n + i
         logits, caches = lm.decode_step(toks[None, pos:pos + 1], caches,
-                                         np.asarray([pos]))
+                                         np.asarray([off + pos]))
         errs[f"decode_{i}"] = rel_err(logits[0], full[0, pos])[0]
     bad = {k: v for k, v in errs.items() if not v <= tol}
     if bad:
@@ -3682,16 +3816,16 @@ def serve_mamba2_phase(torch, args):
             "bf16_layers": ssm_layer_consistency(
                 torch, lm, MAMBA2_CHECK_PROMPT, args.seed + 59,
                 CONSISTENCY_TOL),
-            "bf16_end_to_end": ssm_consistency(
+            "bf16_end_to_end": decode_consistency(
                 torch, lm, MAMBA2_CHECK_PROMPT, args.seed + 59,
                 float("inf"))}
     del lm
     lm32 = LM(dataclasses.replace(cfg, dtype="float32"), device="cuda",
               seed=args.seed)
-    cons["fp32"] = ssm_consistency(torch, lm32, MAMBA2_CHECK_PROMPT,
-                                   args.seed + 59, LOGITS_TOL_FP32)
+    cons["fp32"] = decode_consistency(torch, lm32, MAMBA2_CHECK_PROMPT,
+                                      args.seed + 59, LOGITS_TOL_FP32)
     for n in (1, 2):
-        cons[f"fp32_prompt_{n}"] = ssm_consistency(
+        cons[f"fp32_prompt_{n}"] = decode_consistency(
             torch, lm32, n, args.seed + 61, LOGITS_TOL_FP32)
     del lm32
     tokens = sum(len(r.output) for r in reqs)
@@ -3777,6 +3911,335 @@ def serve_jamba_phase(torch, args):
                mamba_layers=kinds.count(("state", "conv")),
                attention_layers=kinds.count(("k", "v")))
     return out, lm, eng
+
+
+# [serve-seamless]: seamless-m4t-medium at full width and depth (12
+# bidirectional encoder layers over 1024 frames, 12 decoder layers with
+# cross attention; d_model 1024, 16 heads of 64, d_ff 4096, vocab
+# 256206; 0.62 B parameters) in bf16 from init(seed): batch 4, four
+# seeded frame sets of [1024, 1024], two prompts of 300 tokens and two of
+# 237 (right-padded to 300, ``last_index``), 16 new tokens (the
+# prefill's, then 15 greedy eager decode steps).  The engine takes no
+# frames, as the reference's does not: this runs the LM's entry points
+SEAMLESS = "seamless-m4t-medium"
+SEAMLESS_PROMPTS = (300, 300, 237, 237)
+SEAMLESS_NEW, SEAMLESS_MAX_LEN = 16, 320
+# [train-seamless]: batch 4 x seq 512 with 4 x 1024 seeded frames
+SEAMLESS_TRAIN_BATCH, SEAMLESS_TRAIN_SEQ = 4, 512
+# [vlm-internvl2]: internvl2-1b as published (dense FFNs), 4 rows of 256
+# seeded patch rows and a 200-token prompt, 16 new tokens
+INTERNVL2 = "internvl2-1b"
+VLM_BATCH, VLM_PROMPT, VLM_NEW, VLM_MAX_LEN = 4, 200, 16, 512
+
+
+def greedy_run(torch, lm, tokens, new, counters, *, max_len, lens,
+               **inputs):
+    """``lm.prefill(tokens, max_len=, last_index=lens - 1, **inputs)``
+    (``lens`` count every position, a frontend's included), then ``new -
+    1`` greedy ``decode_step``s from positions ``lens``: the tokens
+    ``[B, new]``, each call's device-synchronised wall (ms) and its
+    launches by counter, the prefill's and the last step's logits."""
+    import numpy as np
+
+    def launches():
+        return {k: c.launches for k, c in counters.items()}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in launches().items()}
+
+    torch.cuda.synchronize()
+    before, t0 = launches(), time.perf_counter()
+    logits, caches = lm.prefill(tokens, max_len=max_len,
+                                last_index=np.asarray(lens) - 1, **inputs)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill = dict(ms=(time.perf_counter() - t0) * 1e3,
+                   launches=delta(before))
+    first, out, steps = logits, [tok], []
+    pos = torch.as_tensor(np.asarray(lens), device=lm.device)
+    for i in range(new - 1):
+        before, t1 = launches(), time.perf_counter()
+        logits, caches = lm.decode_step(tok[:, None], caches, pos + i)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3,
+                          launches=delta(before)))
+        out.append(tok)
+    wall = time.perf_counter() - t0
+    return dict(tokens=torch.stack(out, 1).cpu().numpy(), prefill=prefill,
+                steps=steps, wall_s=wall, first=first, last=logits)
+
+
+def decode_vs_forward(torch, lm, prompts, lens, run, **inputs):
+    """The prefill's and the last decode step's logits of ``run`` (a
+    ``greedy_run``) against ``lm.forward`` on each row's prompt and the
+    tokens it generated (rows of one length at a time): the rel-max
+    errors of each."""
+    import numpy as np
+
+    errs = {"prefill": 0.0, "last_step": 0.0}
+    gen = run["tokens"]
+    new = gen.shape[1]
+    for n in sorted(set(lens)):
+        rows = [i for i, m in enumerate(lens) if m == n]
+        seq = np.concatenate([prompts[rows, :n], gen[rows, :new - 1]], 1)
+        kw = {k: v[rows] for k, v in inputs.items()}
+        full = lm.forward(seq, **kw)
+        errs["prefill"] = max(errs["prefill"], rel_err(
+            run["first"][rows], full[:, n - 1])[0])
+        errs["last_step"] = max(errs["last_step"], rel_err(
+            run["last"][rows], full[:, -1])[0])
+        del full
+    return errs
+
+
+def serve_seamless_phase(torch, args):
+    """[serve-seamless]: seamless-m4t-medium at full width and depth in
+    bf16 (see ``SEAMLESS``): the encoder alone over the frames (CUDA
+    events), then a warm-up and the timed run of ``greedy_run`` through
+    ``prefill(enc_frames=)`` and eager ``decode_step``.  Fails unless
+    bs_attn launched 36 times in the prefill (12 encoder, 12 causal self,
+    12 cross) and 12 times a decode step (cross at one query row; the
+    self-attention decode is the plain ``attend_decode``), all on its
+    wgmma walk, dense_mm launched on its 16-bit walks, every token is in
+    the vocabulary, and decode matches ``forward``: bf16 at the prefill
+    and at the last step within ``CONSISTENCY_TOL``, an fp32 copy at full
+    depth (``decode_consistency`` on a seeded prompt of the odd length,
+    over one row's frames) within ``LOGITS_TOL_FP32``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, dense_mm
+    from repro_torch.models.model import LM
+    from repro_torch.models.transformer import layer_specs
+
+    cfg = configs.get(SEAMLESS)
+    assert cfg.dtype == "bfloat16" and cfg.encoder_layers == 12
+    counters = with_walks({"bs_attn": bs_attn.COUNTER,
+                           "dense_mm": dense_mm.COUNTER})
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    lens = list(SEAMLESS_PROMPTS)
+    b_, s = len(lens), max(lens)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 71)
+    frames = torch.randn((b_, cfg.frontend_len, cfg.d_model), generator=gen,
+                         device=dev).to(lm.dtype)
+    prompts = np.random.default_rng(args.seed + 73).integers(
+        0, cfg.vocab_size, size=(b_, s))
+    padded = prompts.copy()
+    for i, n in enumerate(lens):
+        padded[i, n:] = 0
+    kw = dict(max_len=SEAMLESS_MAX_LEN, lens=lens, enc_frames=frames)
+    greedy_run(torch, lm, padded, 2, counters, **kw)     # warm-up
+    with torch.no_grad():
+        enc = [lm._encode(frames) for _ in range(2)]
+        del enc
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            lm._encode(frames)
+        end.record()
+    torch.cuda.synchronize()
+    encoder_ms = start.elapsed_time(end) / 3
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    run = greedy_run(torch, lm, padded, SEAMLESS_NEW, counters, **kw)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    check_tensor_core_walks("serve-seamless", walks, ("bs_attn",))
+    check_dense_mm_walks("serve-seamless", walks)
+    pre = run["prefill"]["launches"]
+    per_step = sorted({st["launches"]["bs_attn"] for st in run["steps"]})
+    if pre["bs_attn"] != 36 or per_step != [12] or pre["dense_mm"] <= 0:
+        raise RuntimeError(f"[serve-seamless] bs_attn launches: prefill "
+                           f"{pre['bs_attn']} (36 expected), per decode "
+                           f"step {per_step} ([12] expected); dense_mm "
+                           f"{pre['dense_mm']}")
+    if not ((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab_size)).all():
+        raise RuntimeError("[serve-seamless] a token is outside the "
+                           "vocabulary")
+    cons = decode_vs_forward(torch, lm, prompts, lens, run,
+                             enc_frames=frames)
+    if max(cons.values()) > CONSISTENCY_TOL:
+        raise RuntimeError(f"[serve-seamless] decode vs forward in bf16: "
+                           f"{cons} (budget {CONSISTENCY_TOL})")
+    frames_row = frames[2:3].clone()
+    del lm, run["first"], run["last"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # an fp32 copy at full depth from the same seed, on the odd-length
+    # prompt's frames
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"), device="cuda",
+              seed=args.seed)
+    fp32 = decode_consistency(torch, lm32, lens[2], args.seed + 75,
+                              LOGITS_TOL_FP32, enc_frames=frames_row)
+    del lm32
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = [st["ms"] for st in run["steps"]]
+    tokens = int(run["tokens"].size)
+    return dict(params=n_params, init_s=init_s, batch=b_, prompt_lens=lens,
+                prefill_len=s, frames=cfg.frontend_len,
+                encoder_ms=encoder_ms, prefill_ms=run["prefill"]["ms"],
+                decode_step_p50_ms=float(np.median(step_ms)),
+                decode_step_ms=step_ms, tokens=tokens,
+                wall_s=run["wall_s"], tokens_per_s=tokens / run["wall_s"],
+                peak_mem_gb=peak, launches=launches, walks=walks,
+                prefill_launches=pre, decode_step_bs_attn=per_step[0],
+                consistency_bf16=cons, consistency_fp32=fp32,
+                fp32_layers=cfg.encoder_layers + len(layer_specs(cfg)))
+
+
+def train_seamless_phase(torch, args):
+    """[train-seamless]: ``launch.train.train_loop`` on seamless-m4t-medium
+    at full width and depth, bf16, from a seeded init, batch 4 x seq 512
+    with 4 x 1024 seeded frames (``float_inputs``: two frame sets in
+    turn, uploaded with the tokens into ``TrainProgram``'s float
+    buffer), 10 AdamW steps eagerly and then replaying the captured step
+    (``eager_and_graphs``: bit-equal, the loss falls; after each step
+    the float buffer must equal that step's frames in bf16).  Fails unless
+    every step launches bs_attn 36 times (forward only: the attention
+    backward is a plain recompute) on its wgmma walk, dense_mm on its
+    16-bit walks, and the graph is captured once."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, dense_mm
+
+    cfg = configs.get(SEAMLESS)
+    counters = with_walks({"bs_attn": bs_attn.COUNTER,
+                           "dense_mm": dense_mm.COUNTER})
+    rng = np.random.default_rng(args.seed + 77)
+    shape = (SEAMLESS_TRAIN_BATCH, cfg.frontend_len, cfg.d_model)
+    frames = [rng.standard_normal(shape, dtype=np.float32)
+              for _ in range(2)]
+
+    def float_inputs(step):
+        return {"enc_frames": frames[step % 2]}
+
+    def frames_landed(step, program):
+        # the float buffer the step read holds the step's frames in the
+        # model's dtype (on the card, after the step's own reads)
+        fio = program.program.fio.view(shape)
+        want = torch.as_tensor(frames[step % 2]).to(fio.device, fio.dtype)
+        if not torch.equal(fio, want):
+            raise RuntimeError(f"[train-seamless] step {step}: the float "
+                               f"buffer does not hold the step's frames")
+
+    eager, graph, check = eager_and_graphs(
+        torch, "train-seamless", cfg, counters=counters, args=args,
+        steps=TRAIN_STEPS, batch=SEAMLESS_TRAIN_BATCH,
+        seq=SEAMLESS_TRAIN_SEQ, float_inputs=float_inputs,
+        after_step=frames_landed)
+    for r in (eager, graph):
+        check_dense_mm_walks("train-seamless", r["walks"])
+        check_tensor_core_walks("train-seamless", r["walks"], ("bs_attn",))
+        per_step = sorted({st["bs_attn"] for st in r["launches_per_step"]})
+        if per_step != [36]:
+            raise RuntimeError(f"[train-seamless] bs_attn launches per "
+                               f"step {per_step}: 36 expected")
+    if (graph["captures"], graph["recaptures"]) != (1, 0):
+        raise RuntimeError(f"[train-seamless] one capture expected: "
+                           f"{graph['captures']}, re-captures "
+                           f"{graph['recaptures']}")
+    return dict(graph, eager=eager, check=check,
+                frames=list(shape))
+
+
+def vlm_internvl2_phase(torch, args):
+    """[vlm-internvl2]: internvl2-1b as published (24 layers, d_model 896,
+    GQA 14 / 2 of 64 with biased q/k/v, d_ff 4864, vocab 151655; dense
+    FFNs) in bf16 from ``init(seed)``: 4 rows of 256 seeded patch
+    embeddings and a 200-token prompt through ``prefill(frontend=)``
+    (456 positions), then 15 greedy decode steps at positions offset by
+    256 (16 new tokens), after a warm-up.  Fails unless bs_attn launched
+    24 times in the prefill on its wgmma walk (none at decode: plain
+    ``attend_decode``), dense_mm on its 16-bit walks, and decode matches
+    ``forward``: bf16 at the prefill and at the last step within
+    ``CONSISTENCY_TOL``, an fp32 copy at full depth (24 layers;
+    ``decode_consistency`` on a seeded 200-token prompt after one row's
+    patches) within ``LOGITS_TOL_FP32``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, dense_mm
+    from repro_torch.models.model import LM
+    from repro_torch.models.transformer import layer_specs
+
+    cfg = configs.get(INTERNVL2)
+    assert cfg.frontend == "vision" and cfg.dtype == "bfloat16"
+    counters = with_walks({"bs_attn": bs_attn.COUNTER,
+                           "dense_mm": dense_mm.COUNTER})
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    f = cfg.frontend_len
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 79)
+    patches = torch.randn((VLM_BATCH, f, cfg.d_model), generator=gen,
+                          device=dev).to(lm.dtype)
+    prompts = np.random.default_rng(args.seed + 81).integers(
+        0, cfg.vocab_size, size=(VLM_BATCH, VLM_PROMPT))
+    lens = [f + VLM_PROMPT] * VLM_BATCH
+    kw = dict(max_len=VLM_MAX_LEN, lens=lens, frontend=patches)
+    greedy_run(torch, lm, prompts, 2, counters, **kw)    # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    run = greedy_run(torch, lm, prompts, VLM_NEW, counters, **kw)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    check_tensor_core_walks("vlm-internvl2", walks, ("bs_attn",))
+    check_dense_mm_walks("vlm-internvl2", walks)
+    pre = run["prefill"]["launches"]
+    per_step = sorted({st["launches"]["bs_attn"] for st in run["steps"]})
+    if pre["bs_attn"] != 24 or per_step != [0]:
+        raise RuntimeError(f"[vlm-internvl2] bs_attn launches: prefill "
+                           f"{pre['bs_attn']} (24 expected), per decode "
+                           f"step {per_step} ([0] expected)")
+    # forward's positions: the patch rows, then the text; its logits
+    # cover the text, so the prefill's last position is the prompt's
+    cons = decode_vs_forward(torch, lm, prompts, [VLM_PROMPT] * VLM_BATCH,
+                             run, frontend=patches)
+    if max(cons.values()) > CONSISTENCY_TOL:
+        raise RuntimeError(f"[vlm-internvl2] decode vs forward in bf16: "
+                           f"{cons} (budget {CONSISTENCY_TOL})")
+    patches_row = patches[:1].clone()
+    del lm, run["first"], run["last"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm32 = LM(dataclasses.replace(cfg, dtype="float32"), device="cuda",
+              seed=args.seed)
+    fp32 = decode_consistency(torch, lm32, VLM_PROMPT, args.seed + 83,
+                              LOGITS_TOL_FP32, frontend=patches_row)
+    del lm32
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = [st["ms"] for st in run["steps"]]
+    tokens = int(run["tokens"].size)
+    return dict(init_s=init_s, batch=VLM_BATCH, patches=f,
+                prompt=VLM_PROMPT, prefill_ms=run["prefill"]["ms"],
+                decode_step_p50_ms=float(np.median(step_ms)),
+                decode_step_ms=step_ms, tokens=tokens, wall_s=run["wall_s"],
+                tokens_per_s=tokens / run["wall_s"], peak_mem_gb=peak,
+                launches=launches, walks=walks, prefill_launches=pre,
+                consistency_bf16=cons, consistency_fp32=fp32,
+                fp32_layers=len(layer_specs(cfg)))
 
 
 def print_ssm(label, name, r):
@@ -4289,7 +4752,9 @@ def main(argv=None) -> int:
         lib = f"{r['library_ms']:.4f}"
         before = ("" if r["before_ms"] is None
                   else f" cuda_core_ms={r['before_ms']:.4f}")
-        print(f"[attn] {r['shape']:14s} S={r['n']:<5d} H={r['heads']} "
+        cross = ("" if "skv" not in r else
+                 f"Skv={r['skv']} B={r['batch']} causal={r['causal']} ")
+        print(f"[attn] {r['shape']:14s} S={r['n']:<5d} {cross}H={r['heads']} "
               f"KV={r['kv_heads']} dh={r['head_dim']} window={r['window']} "
               f"softcap={r['softcap']} tile={r['tile']} "
               f"{r['dtype']:8s} walk={r['walk']} rel_err={r['rel_err']:.2e} "
@@ -4690,6 +5155,55 @@ def main(argv=None) -> int:
     print_moe("serve-jamba", jamba)
     del lm, eng
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["vlm_internvl2"] = torch.cuda.memory_allocated() / 2 ** 30
+    vlm = vlm_internvl2_phase(torch, args)
+    print(f"[vlm-internvl2] {INTERNVL2} (dense FFNs, 24 layers), "
+          f"{vlm['batch']} rows of {vlm['patches']} patch rows + a "
+          f"{vlm['prompt']}-token prompt: prefill "
+          f"{vlm['prefill_ms']:.3f} ms, decode step p50 "
+          f"{vlm['decode_step_p50_ms']:.3f} ms, {vlm['tokens']} tokens in "
+          f"{vlm['wall_s']:.3f}s = {vlm['tokens_per_s']:.2f} tok/s; peak "
+          f"{vlm['peak_mem_gb']:.2f} GiB; launches "
+          f"{json.dumps(vlm['launches'])} (prefill "
+          f"{json.dumps(vlm['prefill_launches'])}); by walk "
+          f"{json.dumps(vlm['walks'])}")
+    print(f"[vlm-internvl2] decode vs forward: bf16 "
+          f"{json.dumps(vlm['consistency_bf16'])} (budget "
+          f"{CONSISTENCY_TOL}); fp32 copy, {vlm['fp32_layers']} layers, "
+          f"prefill and 2 steps {json.dumps(vlm['consistency_fp32'])} "
+          f"(budget {LOGITS_TOL_FP32})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["serve_seamless"] = torch.cuda.memory_allocated() / 2 ** 30
+    sea = serve_seamless_phase(torch, args)
+    print(f"[serve-seamless] {SEAMLESS} {sea['params'] / 1e9:.3f} B "
+          f"parameters initialised on the card in {sea['init_s']:.2f}s; "
+          f"batch {sea['batch']}, {sea['frames']} frames a row, prompts "
+          f"{sea['prompt_lens']} (prefilled at {sea['prefill_len']}): "
+          f"encoder {sea['encoder_ms']:.3f} ms, prefill "
+          f"{sea['prefill_ms']:.3f} ms, decode step p50 "
+          f"{sea['decode_step_p50_ms']:.3f} ms, {sea['tokens']} tokens in "
+          f"{sea['wall_s']:.3f}s = {sea['tokens_per_s']:.2f} tok/s; peak "
+          f"{sea['peak_mem_gb']:.2f} GiB; bs_attn launches prefill "
+          f"{sea['prefill_launches']['bs_attn']}, per decode step "
+          f"{sea['decode_step_bs_attn']}; launches "
+          f"{json.dumps(sea['launches'])}; by walk "
+          f"{json.dumps(sea['walks'])}")
+    print(f"[serve-seamless] decode vs forward: bf16 "
+          f"{json.dumps(sea['consistency_bf16'])} (budget "
+          f"{CONSISTENCY_TOL}); fp32 copy, {sea['fp32_layers']} layers, "
+          f"prefill and 2 steps {json.dumps(sea['consistency_fp32'])} "
+          f"(budget {LOGITS_TOL_FP32})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["train_seamless"] = torch.cuda.memory_allocated() / 2 ** 30
+    ts = train_seamless_phase(torch, args)
+    print(f"[train-seamless] {ts['n_params'] / 1e9:.3f} B parameters, "
+          f"frames {ts['frames']} a batch")
+    print_train("train-seamless", ts)
+
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
@@ -4721,7 +5235,11 @@ def main(argv=None) -> int:
                "serve_glm4": dense["serve-glm4"]["launches"],
                "serve_mamba2": mamba["launches"],
                "train_mamba2": tm["launches"],
-               "serve_jamba": jamba["launches"]}
+               "serve_jamba": jamba["launches"],
+               "serve_internvl2": dense["serve-internvl2"]["launches"],
+               "vlm_internvl2": vlm["launches"],
+               "serve_seamless": sea["launches"],
+               "train_seamless": ts["launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
                      "dynamic": dyn_walks, "evolve": evo["walks"],
@@ -4734,7 +5252,11 @@ def main(argv=None) -> int:
                      "serve_glm4": dense["serve-glm4"]["walks"],
                      "serve_mamba2": mamba["walks"],
                      "train_mamba2": tm["walks"],
-                     "serve_jamba": jamba["walks"]}
+                     "serve_jamba": jamba["walks"],
+                     "serve_internvl2": dense["serve-internvl2"]["walks"],
+                     "vlm_internvl2": vlm["walks"],
+                     "serve_seamless": sea["walks"],
+                     "train_seamless": ts["walks"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -4791,6 +5313,25 @@ def main(argv=None) -> int:
         "walk": r["walk"], "before_ms": r["before_ms"],
         "launches_by_path": {"serve_deepseek": ds["launches"]["bs_attn_dh192"],
                              "train_deepseek": td["launches"]["bs_attn_dh192"]}}
+    # bs_attn at the encoder-decoder's and the VLM's shapes (bf16): the
+    # encoder, the decoder's self and cross attention served, at decode
+    # and trained, and the VLM's prefill; each reads the launches of the
+    # run that gives it that shape
+    encdec_launches = {"serve_seamless": sea["launches"]["bs_attn"],
+                       "train_seamless": ts["launches"]["bs_attn"],
+                       "vlm_internvl2": vlm["launches"]["bs_attn"]}
+    kernels[-1]["encdec"] = [{
+        "name": "bs_attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/bs_attn/csrc/bs_attn.cu",
+        "replaces": "src/repro/kernels/bs_attn/bs_attn.py:73",
+        "launches": encdec_launches[r["path"]],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "at": f"{r['shape']} B={r['batch']} S={r['n']} Skv={r['skv']} "
+              f"causal={r['causal']} {r['dtype']}", "walk": r["walk"],
+        "before_ms": r["before_ms"]}
+        for r in attn_rows if "skv" in r and r["dtype"] == "bfloat16"]
 
     # gmm at qwen3's decode gate/up (C = 8, bf16), its most frequent
     # launch; its main path is the qwen3 serve run
@@ -4871,6 +5412,8 @@ def main(argv=None) -> int:
                        "serve_deepseek": ds, "train_deepseek": td,
                        "serve_dense": dense, "serve_mamba2": mamba,
                        "train_mamba2": tm, "serve_jamba": jamba,
+                       "vlm_internvl2": vlm, "serve_seamless": sea,
+                       "train_seamless": ts,
                        "kernels": kernels,
                        "replan": replan, "roofline": roof,
                        "evolve": evo, "evolve_serve": evolve_serve,

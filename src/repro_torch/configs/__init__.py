@@ -2,9 +2,10 @@
 ``smoke(name)`` reduced same-family config, ``sparsify_ffn(cfg, d)``
 the paper's block-sparse FFN applied to a dense config.
 
-The port covers ``llama3_2_1b``, ``gemma2_2b``, ``qwen3_moe_30b_a3b``,
-``qwen2_1_5b``, ``glm4_9b``, ``deepseek_v2_lite_16b``, ``mamba2_130m``
-and ``jamba_v0_1_52b``.
+The port covers all ten architectures of the JAX package's registry:
+``llama3_2_1b``, ``gemma2_2b``, ``qwen3_moe_30b_a3b``, ``qwen2_1_5b``,
+``glm4_9b``, ``deepseek_v2_lite_16b``, ``mamba2_130m``,
+``jamba_v0_1_52b``, ``internvl2_1b`` and ``seamless_m4t_medium``.
 """
 from __future__ import annotations
 
@@ -15,13 +16,15 @@ from repro_torch.models.config import ModelCfg
 
 ARCH_IDS = ["llama3_2_1b", "gemma2_2b", "qwen3_moe_30b_a3b", "qwen2_1_5b",
             "glm4_9b", "deepseek_v2_lite_16b", "mamba2_130m",
-            "jamba_v0_1_52b"]
+            "jamba_v0_1_52b", "internvl2_1b", "seamless_m4t_medium"]
 
 ALIASES = {"llama3.2-1b": "llama3_2_1b", "gemma2-2b": "gemma2_2b",
            "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
            "qwen2-1.5b": "qwen2_1_5b", "glm4-9b": "glm4_9b",
            "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
-           "mamba2-130m": "mamba2_130m", "jamba-v0.1-52b": "jamba_v0_1_52b"}
+           "mamba2-130m": "mamba2_130m", "jamba-v0.1-52b": "jamba_v0_1_52b",
+           "internvl2-1b": "internvl2_1b",
+           "seamless-m4t-medium": "seamless_m4t_medium"}
 
 
 def _module(name: str):

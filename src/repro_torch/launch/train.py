@@ -51,7 +51,7 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
                ckpt_dir: str | None, ckpt_every: int = 20,
                hp: TrainHParams = TrainHParams(), device=None,
                log_every: int = 10, on_step=None, seed: int = 0,
-               graphs: Optional[bool] = None):
+               graphs: Optional[bool] = None, float_inputs=None):
     """Train ``cfg`` from a seeded init (or the latest checkpoint under
     ``ckpt_dir``) up to ``steps``.  Returns ``(state, losses)``.
 
@@ -64,7 +64,12 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
     has finished the step), and the ``TrainProgram`` (its ``state``,
     ``lm`` and ``program``).  It runs before the step's checkpoint: a
     topology step taken there is in that checkpoint, and the graph is
-    captured again before its next replay."""
+    captured again before its next replay.
+
+    ``float_inputs(step)`` gives a step's float entries beside the
+    pipeline's tokens (an encoder-decoder's ``enc_frames``, a VLM's
+    ``frontend``: ``{name: [B, ...] array}``, the same shapes every
+    step); the token pipeline makes none."""
     lm = LM(cfg, device=device, seed=seed)
     state = init_train_state(lm, hp=hp)
     pipe = TokenPipeline(cfg.vocab_size, batch_per_shard, seq)
@@ -76,8 +81,10 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
         state = load_state_tree(state, tree)
         start = TokenPipeline.resume_step(extra["data"])
         print(f"[train] resumed from step {start}")
+    floats = ({} if float_inputs is None else
+              {k: tuple(v.shape) for k, v in float_inputs(start).items()})
     program = TrainProgram(lm, state, hp, batch=batch_per_shard, seq=seq,
-                           graph=graphs)
+                           graph=graphs, floats=floats)
 
     stop = {"now": False}
 
@@ -91,7 +98,10 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
     try:
         for step in range(start, steps):
             ts = time.perf_counter()
-            program.load(pipe.get_batch(step))
+            batch = pipe.get_batch(step)
+            if float_inputs is not None:
+                batch = dict(batch, **float_inputs(step))
+            program.load(batch)
             metrics = program()
             loss = float(metrics["loss"])
             metrics = dict(metrics, step_s=time.perf_counter() - ts)

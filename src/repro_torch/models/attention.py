@@ -1,10 +1,12 @@
-"""GQA attention with RoPE, soft-cap and local windows, and DeepSeek-V2's
-multi-head latent attention (MLA): full-sequence (training, prefill) and
-one-token decode.
+"""GQA attention with RoPE, soft-cap and local windows (causal, or
+bidirectional in an encoder), cross attention over an encoder's memory,
+and DeepSeek-V2's multi-head latent attention (MLA): full-sequence
+(training, prefill) and one-token decode.
 
 Counterparts of the JAX package's ``models/attention.py`` GQA module
 (``gqa_init``, ``_project_qkv``, ``gqa_train``, ``gqa_prefill``,
-``gqa_decode``, ``gqa_cache_init``, ``attend_train``, ``attend_decode``)
+``gqa_decode``, ``gqa_cache_init``, ``attend_train``, ``attend_decode``),
+its cross attention (``cross_init``, ``cross_kv``, ``cross_apply``)
 and MLA module (``mla_init``, ``mla_train``, ``mla_cache_init``,
 ``mla_prefill``, ``mla_decode``).
 ``causal_block_mask`` is the tile mask the reference's static schedule
@@ -289,13 +291,16 @@ class GQA(nn.Module):
     """Grouped-query attention (``gqa_init``): ``wq``/``wk``/``wv``/``wo``
     dense projections, optional per-head q/k RMS norms.  ``local=True``
     (an ``attn_local`` layer) applies ``cfg.local_window`` and
-    ``cfg.global_prefix``."""
+    ``cfg.global_prefix``; ``causal=False`` (an encoder layer's) attends
+    without the causal mask, RoPE at its positions all the same."""
 
-    def __init__(self, cfg, *, dtype: torch.dtype, device=None):
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None,
+                 causal: bool = True):
         super().__init__()
         d = cfg.d_model
         qd, kvd = cfg.attn_dims
         self.cfg = cfg
+        self.causal = causal
         self.wq = Dense(d, qd, bias=cfg.qkv_bias, dtype=dtype, device=device)
         self.wk = Dense(d, kvd, bias=cfg.qkv_bias, dtype=dtype, device=device)
         self.wv = Dense(d, kvd, bias=cfg.qkv_bias, dtype=dtype, device=device)
@@ -339,7 +344,7 @@ class GQA(nn.Module):
     def _attend(self, q, k, v, local: bool) -> torch.Tensor:
         window, prefix = self._window(local)
         cfg = self.cfg
-        return attend_train(q, k, v, causal=True, window=window,
+        return attend_train(q, k, v, causal=self.causal, window=window,
                             global_prefix=prefix, softcap=cfg.attn_softcap,
                             scale=self.scale, tile_q=cfg.attn_tile_q,
                             tile_kv=cfg.attn_tile_kv,
@@ -347,7 +352,7 @@ class GQA(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 local: bool = False) -> torch.Tensor:
-        """``gqa_train``: full-sequence causal GQA."""
+        """``gqa_train``: full-sequence GQA."""
         q, k, v = self.project_qkv(x, positions)
         out = self._attend(q, k, v, local)
         b_, s = x.shape[:2]
@@ -383,6 +388,47 @@ class GQA(nn.Module):
                             window=window, global_prefix=prefix)
         y = self.wo(out.reshape(x.shape[0], 1, -1))
         return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (encoder-decoder layers; no RoPE, non-causal over memory)
+# ---------------------------------------------------------------------------
+
+class CrossAttention(nn.Module):
+    """``cross_init`` / ``cross_kv`` / ``cross_apply``: ``wq``, ``wk``,
+    ``wv``, ``wo`` without biases (also under ``qkv_bias``), no RoPE, no
+    soft-cap, scale ``1 / sqrt(head_dim)``.  The queries attend over the
+    whole memory through ``attend_train(causal=False)``: bs_attn on a
+    card at prefill (S x T) and at decode (1 x T)."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None):
+        super().__init__()
+        d = cfg.d_model
+        qd, kvd = cfg.attn_dims
+        self.cfg = cfg
+        self.wq = Dense(d, qd, dtype=dtype, device=device)
+        self.wk = Dense(d, kvd, dtype=dtype, device=device)
+        self.wv = Dense(d, kvd, dtype=dtype, device=device)
+        self.wo = Dense(qd, d, dtype=dtype, device=device)
+
+    def kv(self, memory: torch.Tensor):
+        """``cross_kv``: the memory's K and V ``[B, T, KV, dh]``, computed
+        once a prefill and read by every decode step."""
+        b_, t, _ = memory.shape
+        kv, dh = self.cfg.num_kv_heads, self.cfg.head_dim
+        return (self.wk(memory).reshape(b_, t, kv, dh),
+                self.wv(memory).reshape(b_, t, kv, dh))
+
+    def forward(self, x: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor) -> torch.Tensor:
+        """``cross_apply``: x ``[B, S, D]`` over the memory's K/V."""
+        cfg = self.cfg
+        b_, s, _ = x.shape
+        q = self.wq(x).reshape(b_, s, cfg.num_heads, cfg.head_dim)
+        out = attend_train(q, k, v, causal=False,
+                           scale=1.0 / np.sqrt(cfg.head_dim),
+                           tile_q=cfg.attn_tile_q, tile_kv=cfg.attn_tile_kv)
+        return self.wo(out.reshape(b_, s, -1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,22 @@
-"""Top-level language model: embeddings + layer stack + prefill / decode.
+"""Top-level language model: embeddings + layer stack(s) + prefill / decode.
 
-Counterpart of the JAX package's ``models/model.py`` ``LM`` for decoder-
-only stacks of global and local (sliding-window) GQA layers, MLA layers
-and Mamba-2 (SSD) layers, alone or interleaved (the jamba hybrid), with
-Gemma's embedding scale, pre+post norms and soft-caps, and dense,
-sparse, MoE or no FFNs (``forward``, ``loss``, ``prefill(last_index=)``,
-``init_cache``, ``decode_step``; the retained ring cache, the encoder and
-the frontends wait).  ``loss`` of an MoE config adds the router losses,
-as the reference's does.  ``forward(..., return_metrics=True)`` also
+Counterpart of the JAX package's ``models/model.py`` ``LM`` for stacks
+of global and local (sliding-window) GQA layers, MLA layers and Mamba-2
+(SSD) layers, alone or interleaved (the jamba hybrid), with Gemma's
+embedding scale, pre+post norms and soft-caps, and dense, sparse, MoE or
+no FFNs (``forward``, ``loss``, ``prefill(last_index=)``,
+``init_cache``, ``decode_step``; the retained ring cache waits).  The
+two frontends are the reference's: a VLM's precomputed patch embeddings
+(``frontend=`` ``[B, F, D]``) are cast to the model's dtype and
+prepended to the token rows, positions ``0 .. F + S - 1``, and dropped
+again after the final norm; an encoder-decoder's precomputed frame
+embeddings (``enc_frames=`` ``[B, T, D]``) run through the
+bidirectional encoder (``encoder_layers`` attention + MLP layers and
+``enc_norm``), whose output is the memory the decoder's cross layers
+attend over.  The frames are cast to the model's dtype first (the
+reference feeds them uncast; at the model's dtype the two agree).
+``loss`` of an MoE config adds the router losses, as the reference's
+does.  ``forward(..., return_metrics=True)`` also
 returns the stack metrics the reference's ``forward`` returns
 (``aux_loss``, ``z_loss``, ``dropped_frac``, summed over the layers;
 zeros without MoE).  ``LM`` is an ``nn.Module`` that holds its
@@ -20,6 +29,7 @@ makes them trainable, and ``loss`` is then differentiable.  ``forward``,
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -30,13 +40,12 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import Cache
-from repro_torch.models.config import ModelCfg
+from repro_torch.models.config import LayerSpec, ModelCfg
 from repro_torch.models.layers import Embedding, RMSNorm, embed, unembed
 
 # fields of ModelCfg the port does not implement yet, with the value it
 # requires
-_UNSUPPORTED = {"encoder_layers": 0, "frontend": None,
-                "long_attention": "full"}
+_UNSUPPORTED = {"long_attention": "full"}
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -48,6 +57,22 @@ def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
             out.update(_flatten(val, name + "."))
         else:
             out[name] = val
+    return out
+
+
+def _unstack(cfg: ModelCfg, stack, prefix: str) -> Dict[str, Any]:
+    """A JAX ``stack_init`` tree keyed by the port's per-layer names
+    (``{prefix}.{i}.…``): the stacked ``[repeat, ...]`` axis of each
+    period unstacked, layer ``i`` in execution order."""
+    out, li = {}, 0
+    for (period, repeat), group in zip(cfg.groups, stack):
+        flat = [_flatten(pos) for pos in group]
+        for r in range(repeat):
+            for si in range(len(period)):
+                idx = li + r * len(period) + si
+                out.update({f"{prefix}.{idx}.{k}": v[r]
+                            for k, v in flat[si].items()})
+        li += repeat * len(period)
     return out
 
 
@@ -67,9 +92,18 @@ def _copy_into(params: Dict[str, nn.Parameter], leaves: Dict[str, Any],
             p.copy_(torch.as_tensor(arr).to(p.dtype))
 
 
+def encoder_cfg(cfg: ModelCfg) -> ModelCfg:
+    """``LM._encoder_cfg``: ``cfg`` with the encoder's stack, bidirectional
+    attention + MLP layers ``encoder_layers`` deep (no groups without an
+    encoder)."""
+    spec = LayerSpec(mixer="attn", ffn="mlp", causal=False)
+    groups = (((spec,), cfg.encoder_layers),) if cfg.encoder_layers else ()
+    return dataclasses.replace(cfg, groups=groups)
+
+
 class LM(nn.Module):
-    """Decoder-only LM on ``device`` (``cuda`` unless the caller passes
-    another device; without a card only an explicit ``"cpu"`` runs)."""
+    """LM on ``device`` (``cuda`` unless the caller passes another device;
+    without a card only an explicit ``"cpu"`` runs)."""
 
     def __init__(self, cfg: ModelCfg, *, device: DeviceLike = None,
                  seed: int = 0):
@@ -93,6 +127,14 @@ class LM(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings else
                         Embedding(cfg.vocab_size, cfg.d_model,
                                   dtype=self.dtype, device=dev))
+        self.encoder = self.enc_norm = None
+        if cfg.encoder_layers:
+            ecfg = encoder_cfg(cfg)
+            self.encoder = nn.ModuleList(
+                tfm.Layer(ecfg, spec, device=dev)
+                for spec in tfm.layer_specs(ecfg))
+            self.enc_norm = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
+                                    device=dev)
         self.init(seed)
 
     # -- weights --------------------------------------------------------------
@@ -109,20 +151,17 @@ class LM(nn.Module):
         """A JAX params-shaped pytree (params, grads, or an optimizer's
         master/mu/nu; leaves as numpy) keyed by this model's parameter
         names.  The stacked ``[repeat, ...]`` layer axis of each period
-        is unstacked into the per-layer modules."""
+        is unstacked into the per-layer modules (``layers``, and an
+        encoder's ``encoder``)."""
         out = {"embed.table": tree["embed"]["table"],
                "final_norm.scale": tree["final_norm"]["scale"]}
         if self.lm_head is not None:
             out["lm_head.table"] = tree["lm_head"]["table"]
-        li = 0
-        for (period, repeat), group in zip(self.cfg.groups, tree["stack"]):
-            flat = [_flatten(pos) for pos in group]
-            for r in range(repeat):
-                for si in range(len(period)):
-                    idx = li + r * len(period) + si
-                    out.update({f"layers.{idx}.{k}": v[r]
-                                for k, v in flat[si].items()})
-            li += repeat * len(period)
+        out.update(_unstack(self.cfg, tree["stack"], "layers"))
+        if self.encoder is not None:
+            out.update(_unstack(encoder_cfg(self.cfg), tree["encoder"],
+                                "encoder"))
+            out["enc_norm.scale"] = tree["enc_norm"]["scale"]
         return out
 
     def load_jax_params(self, tree) -> "LM":
@@ -188,27 +227,60 @@ class LM(nn.Module):
     def _final(self, h: torch.Tensor) -> torch.Tensor:
         return self.final_norm(h, eps=self.cfg.norm_eps)
 
+    def _floats(self, x) -> torch.Tensor:
+        """Frontend rows or frames in the model's dtype on its device (a
+        tensor already so is returned as it is)."""
+        return torch.as_tensor(x, device=self.device).to(self.dtype)
+
+    def _encode(self, enc_frames) -> torch.Tensor:
+        """``_encode``: the bidirectional encoder over the frames,
+        positions ``0 .. T - 1``, then ``enc_norm``."""
+        if self.encoder is None:
+            raise ValueError(f"{self.cfg.name} has no encoder: enc_frames "
+                             f"are not taken")
+        h = self._floats(enc_frames)
+        positions = torch.arange(h.shape[1], device=self.device)[None, :]
+        h = tfm.stack_apply(self.encoder, h, positions=positions)
+        return self.enc_norm(h, eps=self.cfg.norm_eps)
+
+    def _prepare(self, t: torch.Tensor, frontend, enc_frames):
+        """``_prepare``: the embedded tokens with the frontend's rows in
+        front, their positions, the encoder's memory (None without
+        frames) and the frontend's length ``n_prefix``."""
+        h = self._embed(t)
+        n_prefix = 0
+        if frontend is not None:
+            f = self._floats(frontend)
+            h = torch.cat([f, h], dim=1)
+            n_prefix = f.shape[1]
+        positions = torch.arange(h.shape[1], device=self.device)[None, :]
+        memory = None if enc_frames is None else self._encode(enc_frames)
+        return h, positions, memory, n_prefix
+
     # -- entry points -------------------------------------------------------------
     @torch.no_grad()
-    def forward(self, tokens, *, return_metrics: bool = False):
-        """Full-sequence logits ``[B, S, V]`` for tokens ``[B, S]``; with
+    def forward(self, tokens, *, frontend=None, enc_frames=None,
+                return_metrics: bool = False):
+        """Full-sequence logits ``[B, S, V]`` for tokens ``[B, S]`` (the
+        frontend's rows dropped after the final norm); with
         ``return_metrics`` ``(logits, metrics)``, the stack metrics as
         fp32 device scalars."""
-        t = self._tokens(tokens)
-        h = self._embed(t)
-        positions = torch.arange(t.shape[1], device=self.device)[None, :]
+        h, positions, memory, n_prefix = self._prepare(
+            self._tokens(tokens), frontend, enc_frames)
         metrics = tfm.zero_metrics(self.device) if return_metrics else None
         h = tfm.stack_apply(self.layers, h, positions=positions,
-                            metrics=metrics)
-        logits = self._unembed(self._final(h))
+                            metrics=metrics, memory=memory)
+        logits = self._unembed(self._final(h)[:, n_prefix:])
         return (logits, metrics) if return_metrics else logits
 
-    def loss(self, tokens, targets, *, loss_chunk: int = 1024):
+    def loss(self, tokens, targets, *, frontend=None, enc_frames=None,
+             loss_chunk: int = 1024):
         """Next-token cross entropy in fp32 for tokens/targets ``[B, S]``
-        (a ``-1`` target is padding).  Returns ``(loss, metrics)``:
-        ``{"xent"}`` for a dense config; for an MoE config ``loss =
-        xent + router_aux_weight * aux_loss + router_z_weight * z_loss``
-        and the metrics ``aux_loss``, ``z_loss``, ``dropped_frac`` (each
+        (a ``-1`` target is padding), with a VLM's ``frontend`` or an
+        encoder-decoder's ``enc_frames`` as ``forward`` takes them.
+        Returns ``(loss, metrics)``: ``{"xent"}`` for a dense config;
+        for an MoE config ``loss = xent + router_aux_weight * aux_loss +
+        router_z_weight * z_loss`` and the metrics ``aux_loss``, ``z_loss``, ``dropped_frac`` (each
         summed over the layers) and ``xent``, as the reference's
         ``LM.loss``.  The returned metrics are detached.
 
@@ -221,13 +293,13 @@ class LM(nn.Module):
         refuse a read of the CUDA generator's state).
         """
         moe = self.cfg.moe
-        t = self._tokens(tokens)
         tg = self._tokens(targets)
-        h = self._embed(t)
-        positions = torch.arange(t.shape[1], device=self.device)[None, :]
+        h, positions, memory, n_prefix = self._prepare(
+            self._tokens(tokens), frontend, enc_frames)
         metrics = tfm.zero_metrics(self.device) if moe is not None else None
-        h = self._final(tfm.stack_apply(self.layers, h, positions=positions,
-                                        metrics=metrics))
+        h = self._final(tfm.stack_apply(
+            self.layers, h, positions=positions, metrics=metrics,
+            memory=memory))[:, n_prefix:]
         s = tg.shape[1]
         c = min(loss_chunk, s)
         while s % c:
@@ -262,24 +334,31 @@ class LM(nn.Module):
         valid = (tx >= 0).float()
         return ((lse - gold) * valid).sum(), valid.sum()
 
-    def init_cache(self, batch: int, max_len: int) -> List[Cache]:
+    def init_cache(self, batch: int, max_len: int, *,
+                   memory_len: int = 0) -> List[Cache]:
+        """Every layer's cache; ``memory_len`` is the encoder memory's
+        length the cross layers' ``xk`` / ``xv`` hold."""
         return tfm.stack_cache_init(self.cfg, batch, max_len,
-                                    dtype=self.dtype, device=self.device)
+                                    dtype=self.dtype, device=self.device,
+                                    memory_len=memory_len)
 
     @torch.no_grad()
-    def prefill(self, tokens, *, max_len: int,
-                last_index: Optional[Any] = None):
+    def prefill(self, tokens, *, max_len: int, frontend=None,
+                enc_frames=None, last_index: Optional[Any] = None):
         """Returns ``(logits [B, V], caches)``.  ``last_index`` ``[B]``
         gathers each row's logits at its true last prompt token (the
-        serving engine right-pads prompts to a bucket)."""
+        serving engine right-pads prompts to a bucket).  With a
+        ``frontend`` of F rows the sequence is ``F + S`` long: it must
+        fit ``max_len``, ``last_index`` counts those positions, and the
+        decode steps after go on from position ``F + S``."""
         t = self._tokens(tokens)
-        if t.shape[1] > max_len:
-            raise ValueError(f"prompt of {t.shape[1]} tokens exceeds "
+        n = t.shape[1] + (0 if frontend is None else frontend.shape[1])
+        if n > max_len:
+            raise ValueError(f"prompt of {n} positions exceeds "
                              f"max_len={max_len}")
-        h = self._embed(t)
-        positions = torch.arange(t.shape[1], device=self.device)[None, :]
+        h, positions, memory, _ = self._prepare(t, frontend, enc_frames)
         h, caches = tfm.stack_prefill(self.layers, h, positions=positions,
-                                      max_len=max_len)
+                                      max_len=max_len, memory=memory)
         if last_index is None:
             h = h[:, -1:]
         else:

@@ -1,11 +1,14 @@
-"""Decoder layers and the layer stack.
+"""Decoder (and encoder) layers and the layer stack.
 
 Counterpart of the JAX package's ``models/transformer.py`` for the
 ``attn``, ``attn_local``, ``mla`` and ``mamba`` mixers with the ``mlp``,
-``sparse``, ``moe`` and ``none`` FFN arms, and the Gemma-2 pre+post
+``sparse``, ``moe`` and ``none`` FFN arms, the Gemma-2 pre+post
 norms (``post_norm``: ``plus_one`` norms before and after each
-sub-layer) (``layer_apply``, ``layer_prefill``, ``layer_decode`` and
-their stacks).  The full-sequence
+sub-layer), bidirectional (``causal=False``) attention layers of an
+encoder and the cross-attention sub-layer of an encoder-decoder's
+decoder layers (``cross``: over the encoder's memory, after the mixer)
+(``layer_apply``, ``layer_prefill``, ``layer_decode``,
+``layer_cache_init`` and their stacks).  The full-sequence
 stack sums the MoE layers' metrics (``aux_loss``, ``z_loss``,
 ``dropped_frac``) into a dict the caller passes, as the reference's
 ``stack_apply`` returns them; prefill and decode drop them, as the
@@ -21,8 +24,8 @@ import torch
 from torch import nn
 
 from repro_torch.core.sparse_layers import SparseFFN
-from repro_torch.models.attention import (GQA, MLA, Cache, gqa_cache_init,
-                                         mla_cache_init)
+from repro_torch.models.attention import (GQA, MLA, Cache, CrossAttention,
+                                         gqa_cache_init, mla_cache_init)
 from repro_torch.models.config import LayerSpec, ModelCfg
 from repro_torch.models.layers import MLP, RMSNorm
 from repro_torch.models.moe import MoE
@@ -57,16 +60,19 @@ class Layer(nn.Module):
     The mixer is ``attn`` (GQA or MLA) or, for a ``mamba`` layer,
     ``mixer`` (the reference's leaf names); an ``ffn="none"`` layer has
     no FFN sub-layer and no ``norm2`` / ``post_norm2`` (the reference
-    adds a zero FFN output)."""
+    adds a zero FFN output).  A ``cross`` layer adds ``h +
+    cross(norm_x(h), memory)`` between the mixer and the FFN; a
+    ``causal=False`` attention layer (an encoder's) attends both ways."""
 
     def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device):
         super().__init__()
-        if (spec.mixer not in ("attn", "attn_local", "mla", "mamba")
-                or spec.cross or not spec.causal):
+        if spec.mixer not in ("attn", "attn_local", "mla", "mamba"):
             raise NotImplementedError(
-                f"layer {spec}: the port runs causal 'attn', 'attn_local', "
-                f"'mla' and 'mamba' layers; cross-attention and "
-                f"non-causal layers are not ported yet")
+                f"layer {spec}: the port runs 'attn', 'attn_local', 'mla' "
+                f"and 'mamba' layers")
+        if not spec.causal and spec.mixer not in ("attn", "attn_local"):
+            raise NotImplementedError(
+                f"layer {spec}: only an attention mixer runs non-causal")
         if spec.ffn not in ("mlp", "sparse", "moe", "none"):
             raise NotImplementedError(
                 f"ffn {spec.ffn!r}: the port runs 'mlp', 'sparse', 'moe' "
@@ -80,8 +86,15 @@ class Layer(nn.Module):
         if self.ssm:
             self.mixer = Mamba2(cfg, dtype=dt, device=device)
         else:
-            mixer = MLA if spec.mixer == "mla" else GQA
-            self.attn = mixer(cfg, dtype=dt, device=device)
+            self.attn = (MLA(cfg, dtype=dt, device=device)
+                         if spec.mixer == "mla" else
+                         GQA(cfg, dtype=dt, device=device,
+                             causal=spec.causal))
+        self.cross = self.norm_x = None
+        if spec.cross:
+            self.cross = CrossAttention(cfg, dtype=dt, device=device)
+            self.norm_x = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
+                                  device=device)
         self.moe = spec.ffn == "moe"
         has_ffn = spec.ffn != "none"
         self.norm2 = (RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
@@ -124,21 +137,39 @@ class Layer(nn.Module):
             out = self.ffn(hn)
         return h + self._post(self.post_norm2, out)
 
+    def _cross(self, h: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+        """``h`` plus the cross-attention sub-layer over the memory's
+        K/V."""
+        return h + self.cross(self.norm_x(h, eps=self.cfg.norm_eps), k, v)
+
+    def _memory_kv(self, memory: Optional[torch.Tensor]):
+        if memory is None:
+            raise ValueError("a cross-attention layer needs the encoder's "
+                             "memory: pass enc_frames")
+        return self.cross.kv(memory)
+
     def forward(self, h: torch.Tensor, positions: torch.Tensor,
-                metrics: Optional[Dict[str, torch.Tensor]] = None):
+                metrics: Optional[Dict[str, torch.Tensor]] = None,
+                memory: Optional[torch.Tensor] = None):
         """``layer_apply``: full sequence, no cache; MoE metrics are
-        summed into ``metrics`` when given."""
+        summed into ``metrics`` when given; ``memory`` ``[B, T, D]`` is
+        the encoder's output a cross layer attends over."""
         hn = self.norm1(h, eps=self.cfg.norm_eps)
         if self.ssm:
             mix = self.mixer(hn)
         else:
             mix = self.attn(hn, positions, local=self.local)
         h = h + self._post(self.post_norm1, mix)
+        if self.cross is not None:
+            h = self._cross(h, *self._memory_kv(memory))
         return self._ffn(h, metrics)
 
     def prefill(self, h: torch.Tensor, positions: torch.Tensor, *,
-                max_len: int):
-        """``layer_prefill``: full sequence, emits the layer's cache."""
+                max_len: int, memory: Optional[torch.Tensor] = None):
+        """``layer_prefill``: full sequence, emits the layer's cache (a
+        cross layer's also holds the memory's K/V, ``xk`` / ``xv``
+        ``[B, T, KV, dh]``, unpadded)."""
         hn = self.norm1(h, eps=self.cfg.norm_eps)
         if self.ssm:
             mix, cache = self.mixer.prefill(hn)
@@ -146,6 +177,9 @@ class Layer(nn.Module):
             mix, cache = self.attn.prefill(hn, positions, max_len=max_len,
                                            local=self.local)
         h = h + self._post(self.post_norm1, mix)
+        if self.cross is not None:
+            cache["xk"], cache["xv"] = self._memory_kv(memory)
+            h = self._cross(h, cache["xk"], cache["xv"])
         return self._ffn(h), cache
 
     def decode(self, h: torch.Tensor, cache: Cache,
@@ -158,6 +192,8 @@ class Layer(nn.Module):
             mix, cache = self.attn.decode(hn, cache, positions,
                                           local=self.local)
         h = h + self._post(self.post_norm1, mix)
+        if self.cross is not None:
+            h = self._cross(h, cache["xk"], cache["xv"])
         return self._ffn(h), cache
 
 
@@ -167,18 +203,19 @@ def layer_specs(cfg: ModelCfg) -> List[LayerSpec]:
             for spec in period]
 
 
-def stack_apply(layers, h, *, positions, metrics=None):
+def stack_apply(layers, h, *, positions, metrics=None, memory=None):
     """Full-sequence stack; with a ``metrics`` dict (``zero_metrics``)
-    the MoE layers' metrics are summed into it."""
+    the MoE layers' metrics are summed into it; ``memory`` is what cross
+    layers attend over."""
     for layer in layers:
-        h = layer(h, positions, metrics)
+        h = layer(h, positions, metrics, memory)
     return h
 
 
-def stack_prefill(layers, h, *, positions, max_len: int):
+def stack_prefill(layers, h, *, positions, max_len: int, memory=None):
     caches = []
     for layer in layers:
-        h, c = layer.prefill(h, positions, max_len=max_len)
+        h, c = layer.prefill(h, positions, max_len=max_len, memory=memory)
         caches.append(c)
     return h, caches
 
@@ -190,18 +227,24 @@ def stack_decode(layers, h, caches, *, positions):
 
 
 def stack_cache_init(cfg: ModelCfg, batch: int, max_len: int, *,
-                     dtype: torch.dtype, device) -> List[Cache]:
+                     dtype: torch.dtype, device,
+                     memory_len: int = 0) -> List[Cache]:
     """Each layer's cache by its mixer: ``{"k", "v"}`` of an attention
     layer, ``{"latent", "k_rope"}`` of an MLA layer, ``{"state",
     "conv"}`` of a mamba layer (fp32 ``[B, H, P, N]`` and ``[B, d_conv -
-    1, conv_dim]``; no ``max_len`` axis)."""
+    1, conv_dim]``; no ``max_len`` axis); a cross layer's also ``{"xk",
+    "xv"}``, zeros of ``[B, memory_len, KV, dh]``."""
     caches = []
     for spec in layer_specs(cfg):
         if spec.mixer == "mamba":
-            caches.append(ssm_cache_init(cfg, batch, dtype=dtype,
-                                         device=device))
+            c = ssm_cache_init(cfg, batch, dtype=dtype, device=device)
         else:
-            caches.append((mla_cache_init if spec.mixer == "mla"
-                           else gqa_cache_init)(cfg, batch, max_len,
-                                                dtype=dtype, device=device))
+            c = (mla_cache_init if spec.mixer == "mla"
+                 else gqa_cache_init)(cfg, batch, max_len, dtype=dtype,
+                                      device=device)
+        if spec.cross:
+            shape = (batch, memory_len, cfg.num_kv_heads, cfg.head_dim)
+            c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+            c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+        caches.append(c)
     return caches

@@ -254,6 +254,12 @@ class Engine:
         elif graphs and dev.type != "cuda":
             raise ValueError(f"graphs=True needs a card; the engine runs "
                              f"on {dev} (pass graphs=None or False)")
+        if any(spec.cross for period, _ in lm.cfg.groups for spec in period):
+            raise NotImplementedError(
+                f"{lm.cfg.name}: the engine takes no encoder frames, so a "
+                f"stack with cross-attention layers is not served here; "
+                f"serve it through LM.prefill(enc_frames=) and "
+                f"LM.decode_step")
         self.lm = lm
         self.device = dev
         self.batch = batch

@@ -70,8 +70,17 @@ from repro_torch.core import capture
 from repro_torch.kernels import _build
 
 
+def _fill(buf: torch.Tensor, floats) -> None:
+    """``(offset, array)`` pairs copied into the flat ``buf``."""
+    for off, x in floats:
+        x = torch.as_tensor(x).reshape(-1)
+        buf[off:off + x.numel()].copy_(x)
+
+
 class Program:
-    """``body(io)`` over the persistent int64 buffer ``io``; with
+    """``body(io)`` over the persistent int64 buffer ``io`` (and, with
+    ``fio_size``, the ``fio_dtype`` buffer ``fio`` beside it, which the
+    body reads from the program; None without); with
     ``graph`` it is captured at the first call (or ``capture()``) and
     replayed after.  ``ctx`` is the ``sparse.use_ctx`` context every run
     of the body is under; ``stream`` the stream its warm-up and every
@@ -88,7 +97,9 @@ class Program:
     def __init__(self, name: str, body: Callable, io_size: int, *,
                  device: torch.device, graph: bool, ctx, pool=None,
                  stream: Optional[torch.cuda.Stream] = None,
-                 capture_lock=None, updates_state: bool = False):
+                 capture_lock=None, updates_state: bool = False,
+                 fio_size: int = 0,
+                 fio_dtype: Optional[torch.dtype] = None):
         if graph and stream is None:
             raise ValueError(f"{name}: a graph program needs the stream "
                              f"it captures on")
@@ -107,6 +118,13 @@ class Program:
         self._host = (torch.zeros(io_size, dtype=torch.long,
                                   pin_memory=True)
                       if device.type == "cuda" else None)
+        if fio_size and fio_dtype is None:
+            raise ValueError(f"{name}: a float buffer needs its dtype")
+        self.fio = (torch.zeros(fio_size, dtype=fio_dtype, device=device)
+                    if fio_size else None)
+        self._fhost = (torch.zeros(fio_size, dtype=fio_dtype,
+                                   pin_memory=True)
+                       if device.type == "cuda" and fio_size else None)
         self._uploaded = (torch.cuda.Event() if device.type == "cuda"
                           else None)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -125,16 +143,22 @@ class Program:
         self._drops = {}
         self._held = {}
 
-    def load(self, values: np.ndarray) -> None:
-        """Copy one call's inputs into ``io``."""
+    def load(self, values: np.ndarray, floats=()) -> None:
+        """Copy one call's inputs into ``io``, and each ``(offset,
+        array)`` of ``floats`` into ``fio`` from that offset, cast to its
+        dtype on the way."""
         src = torch.from_numpy(np.ascontiguousarray(values, np.int64))
         if self._host is None:
             self.io.copy_(src)
+            _fill(self.fio, floats)
             return
-        # the previous upload must have read the pinned copy first
+        # the previous upload must have read the pinned copies first
         self._uploaded.synchronize()
         self._host.copy_(src)
         self.io.copy_(self._host, non_blocking=True)
+        if floats:
+            _fill(self._fhost, floats)
+            self.fio.copy_(self._fhost, non_blocking=True)
         self._uploaded.record()
 
     def run_eager(self):

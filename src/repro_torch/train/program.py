@@ -10,7 +10,10 @@ tensors in place (parameters, fp32 master, moments, and the step and
 update count, both device tensors), so a graph captured once replays
 every later step on the same addresses.  The batch is uploaded into the
 program's input buffer (``load``: tokens then targets, ``2 B S`` int64,
-from pinned memory without a host wait), and the metrics are the
+from pinned memory without a host wait), its float entries, where the
+model takes them (a VLM's ``frontend``, an encoder-decoder's
+``enc_frames``; their shapes are fixed at construction), into a second
+buffer of the model's dtype in the same way, and the metrics are the
 graph's own device tensors, rewritten by every replay.
 
 A call that captures (the first, and the first after a change that
@@ -38,7 +41,7 @@ nothing falls back to eager on a card.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -64,11 +67,14 @@ class TrainProgram:
     ``batch x seq`` tokens, captured as a CUDA graph on a card
     (``graph=None``: on a card, eager elsewhere; ``graph=False``: eager),
     every run under the ``sparse.use_ctx`` context ambient at
-    construction."""
+    construction.  ``floats`` names the batch's float entries with their
+    shapes (``{"enc_frames": (batch, T, d_model)}``); every batch loaded
+    carries them."""
 
     def __init__(self, lm, state: TrainState,
                  hp: TrainHParams = TrainHParams(), *, batch: int, seq: int,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None,
+                 floats: Optional[Dict[str, Sequence[int]]] = None):
         dev = lm.device
         if graph is None:
             graph = dev.type == "cuda"
@@ -78,12 +84,24 @@ class TrainProgram:
         self.lm = lm
         self.state = state
         self.batch, self.seq = int(batch), int(seq)
+        # each float entry's offset into the program's float buffer, and
+        # its shape
+        self.floats: Dict[str, tuple] = {}
+        size = 0
+        for name, shape in (floats or {}).items():
+            shape = tuple(int(d) for d in shape)
+            if not shape or shape[0] != self.batch:
+                raise ValueError(f"float entry {name} of shape {shape}: "
+                                 f"its first axis must be the batch "
+                                 f"({self.batch})")
+            self.floats[name] = (size, shape)
+            size += int(np.prod(shape))
         self._step = make_train_step(lm, hp)
         self.program = Program(
             "train", self._body, 2 * self.batch * self.seq, device=dev,
             graph=graph, ctx=sparse_api.current_ctx(),
             stream=_capture_stream(dev) if graph else None,
-            updates_state=True)
+            updates_state=True, fio_size=size, fio_dtype=lm.dtype)
         # the state's tensors the graph was captured on
         self._bound = ()
 
@@ -91,6 +109,9 @@ class TrainProgram:
         n = self.batch * self.seq
         batch = {"tokens": io[:n].view(self.batch, self.seq),
                  "targets": io[n:].view(self.batch, self.seq)}
+        for name, (off, shape) in self.floats.items():
+            batch[name] = self.program.fio[
+                off:off + int(np.prod(shape))].view(shape)
         self.state, metrics = self._step(self.state, batch)
         return metrics
 
@@ -101,13 +122,27 @@ class TrainProgram:
                 *st.opt.nu.values())
 
     def load(self, batch: dict) -> None:
-        """Upload one batch (``{"tokens", "targets"}``, ``[B, S]``)."""
+        """Upload one batch (``{"tokens", "targets"}``, ``[B, S]``, and
+        the float entries named at construction)."""
         tokens = np.asarray(batch["tokens"])
         if tokens.shape != (self.batch, self.seq):
             raise ValueError(f"batch of shape {tokens.shape}; the program "
                              f"takes ({self.batch}, {self.seq})")
+        extra = set(batch) - {"tokens", "targets"}
+        if extra != set(self.floats):
+            raise ValueError(f"batch entries {sorted(extra)} beside the "
+                             f"tokens; the program takes "
+                             f"{sorted(self.floats)}")
+        floats = []
+        for name, (off, shape) in self.floats.items():
+            if tuple(batch[name].shape) != shape:
+                raise ValueError(f"{name} of shape "
+                                 f"{tuple(batch[name].shape)}; the program "
+                                 f"takes {shape}")
+            floats.append((off, batch[name]))
         self.program.load(np.concatenate(
-            [tokens.reshape(-1), np.asarray(batch["targets"]).reshape(-1)]))
+            [tokens.reshape(-1), np.asarray(batch["targets"]).reshape(-1)]),
+            floats)
 
     def __call__(self) -> Dict[str, torch.Tensor]:
         """One step on the loaded batch; its metrics (device tensors: a

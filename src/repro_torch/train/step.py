@@ -155,10 +155,13 @@ def evolve_sparse_layer(state: TrainState, name: str, layer,
 
 def lm_grad_fn(lm) -> Callable:
     """``grad_fn`` for ``microbatch_grads``: value and gradient of
-    ``lm.loss`` with respect to every trainable parameter."""
+    ``lm.loss`` with respect to every trainable parameter; a batch's
+    ``frontend`` or ``enc_frames`` go to ``lm.loss`` with its tokens."""
     def grad_fn(params: Tensors, batch: dict):
         names = [n for n, p in params.items() if p.requires_grad]
-        loss, metrics = lm.loss(batch["tokens"], batch["targets"])
+        loss, metrics = lm.loss(batch["tokens"], batch["targets"],
+                                frontend=batch.get("frontend"),
+                                enc_frames=batch.get("enc_frames"))
         gs = torch.autograd.grad(loss, [params[n] for n in names],
                                  allow_unused=True)
         grads = {n: (torch.zeros_like(params[n]) if g is None else g)
@@ -169,7 +172,9 @@ def lm_grad_fn(lm) -> Callable:
 
 def make_train_step(lm, hp: TrainHParams = TrainHParams()):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` is
-    ``{"tokens", "targets"}`` ``[B, S]`` arrays.  The state is updated in
+    ``{"tokens", "targets"}`` ``[B, S]`` arrays, with a VLM's
+    ``frontend`` or an encoder-decoder's ``enc_frames`` where the model
+    takes them.  The state is updated in
     place (its step, parameters and optimizer tensors) and returned.
     Metrics, each a device tensor: the loss's own (``xent``; an MoE
     model's ``aux_loss``, ``z_loss`` and ``dropped_frac`` too),

@@ -859,6 +859,56 @@ def test_bs_attn_cuda_matches_plain(dev, dtype, dh, case):
     assert _rel(got, want) <= TOL[dtype]
 
 
+# non-causal attention: (S, Skv, heads, kv heads, batch, tile): the
+# encoder's T x T (tiles of 512, 64-row blocks, every chunk full), cross
+# attention of a prompt that is not a multiple of 64 over 1024 frames
+# (one q tile of 300: the last block's rows past S are TMA zero fill;
+# and at the smoke configs' tiles of 64, which halve to 4 and group 16 q
+# tiles a block, the last group padded past S), decode's single row,
+# and tiles that halve into a group walk
+NONCAUSAL_CASES = [
+    (1024, 1024, 16, 16, 2, 512),
+    (300, 1024, 16, 16, 4, 512),
+    (300, 1024, 16, 16, 4, 64),
+    (1, 1024, 16, 16, 4, 512),
+    (1, 1024, 14, 2, 3, 512),
+    (301, 1024, 14, 2, 2, 512),
+    (96, 160, 4, 2, 2, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", NONCAUSAL_CASES)
+def test_bs_attn_non_causal_matches_plain(dev, dtype, case):
+    """``attend_train(causal=False)`` on the kernel at S = Skv, S != Skv
+    (S not a multiple of 64) and S = 1, MHA and GQA, against the plain
+    version; each launch on its dtype's walk."""
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.models import attention
+    s, skv, h, kvh, b_, tile = case
+    g = torch.Generator(device=dev).manual_seed(s + skv + h)
+    q = torch.randn((b_, s, h, 64), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b_, skv, kvh, 64), generator=g, device=dev
+                        ).to(dtype) for _ in range(2))
+    counter = bs_ops.WALK_COUNTERS[bs_ops.kernel_walk(dtype)]
+    before = counter.launches
+    got = attention.attend_train(q, k, v, causal=False, tile_q=tile,
+                                 tile_kv=tile)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    spec = attention.attn_spec(s, skv, 64, causal=False, tile_q=tile,
+                               tile_kv=tile)
+    want = attend_plain(q, k, v, spec.element_mask(dev), scale=spec.scale)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL[dtype]
+    # rows of one batch row do not leak into another: each row alone
+    one = attention.attend_train(q[-1:], k[-1:], v[-1:], causal=False,
+                                 tile_q=tile, tile_kv=tile)
+    assert torch.equal(one, got[-1:])
+
+
 # the served tilings: qwen3's 1008-token prefill (tiles halved to 16, 32
 # heads over 4 kv heads, dh 128) and gemma2's 6112-token local layer
 # (tiles of 32, dh 256, soft-cap 50, window 4096), each read from the
@@ -1416,9 +1466,11 @@ def _serve_cfg(which):
         return configs.sparsify_ffn(configs.smoke("gemma2-2b"), 0.25)
     if which == "deepseek":
         return _mla_card_cfg()
-    if which in ("mamba2", "jamba"):
+    if which in ("mamba2", "jamba", "seamless", "internvl2"):
         return configs.smoke({"mamba2": "mamba2-130m",
-                              "jamba": "jamba-v0.1-52b"}[which])
+                              "jamba": "jamba-v0.1-52b",
+                              "seamless": "seamless-m4t-medium",
+                              "internvl2": "internvl2-1b"}[which])
     return configs.smoke("qwen3-moe-30b-a3b")
 
 
@@ -1600,6 +1652,68 @@ def test_train_graph_matches_eager_on_mamba2(dev):
     st = got["prog"].program.stats()
     assert st["captures"] == 1 and st["recaptures"] == 0
     _same_run(got, want)
+
+
+@pytest.mark.cuda
+def test_train_graph_matches_eager_on_seamless(dev):
+    """seamless's smoke config (2 encoder + 2 decoder layers with cross
+    attention), five steps on batches that carry seeded ``enc_frames``
+    (``TrainProgram``'s float buffer), replayed from the captured step
+    against five eager ones, bit for bit; bs_attn launches 6 times a
+    forward (2 encoder, 2 self, 2 cross).  After each step the float
+    buffer holds that step's frames in the model's dtype."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+
+    def frames_landed(i, prog):
+        torch.cuda.synchronize()
+        cfg = prog.lm.cfg
+        fio = prog.program.fio.view(2, cfg.frontend_len, cfg.d_model)
+        frames = np.random.default_rng(i).standard_normal(
+            tuple(fio.shape)).astype(np.float32)
+        assert torch.equal(fio, torch.as_tensor(frames).to(dev, fio.dtype)), i
+
+    want = _train_run(dev, "seamless", False, 5, seq=64,
+                      between=frames_landed)
+    got = _train_run(dev, "seamless", True, 5, seq=64,
+                     between=frames_landed)
+    st = got["prog"].program.stats()
+    assert st["captures"] == 1 and st["recaptures"] == 0
+    _same_run(got, want)
+    idx = _build.COUNTERS.index(bs_ops.COUNTER)
+    assert [n[idx] for n in want["launches"]] == [6] * 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["seamless", "internvl2"])
+def test_encdec_and_vlm_on_card_match_cpu(dev, which):
+    """The smoke encoder-decoder (``enc_frames``) and VLM (``frontend``)
+    in fp32 on the card against the same weights on the CPU: forward,
+    then ``prefill`` and two ``decode_step``s (the VLM's at positions
+    offset by its patch rows), within 2e-4."""
+    import dataclasses
+    cfg = dataclasses.replace(_serve_cfg(which), dtype="float32")
+    cpu = LM(cfg, device="cpu", seed=3)
+    card = LM(cfg, device=dev, seed=3)
+    with torch.no_grad():
+        for (n, a), (_, b) in zip(cpu.named_parameters(),
+                                  card.named_parameters()):
+            b.copy_(a)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 21))
+    extra = rng.standard_normal((2, cfg.frontend_len, cfg.d_model)).astype(
+        np.float32)
+    kw = ({"enc_frames": extra} if cfg.encoder_layers
+          else {"frontend": extra})
+    off = 0 if cfg.encoder_layers else cfg.frontend_len
+    want = cpu.forward(toks, **kw)
+    assert _rel(card.forward(toks, **kw).cpu(), want) <= 2e-4
+    got, caches = card.prefill(toks[:, :19], max_len=off + 24, **kw)
+    assert _rel(got.cpu(), want[:, 18]) <= 2e-4
+    for pos in (19, 20):
+        got, caches = card.decode_step(toks[:, pos:pos + 1], caches,
+                                       np.asarray([off + pos] * 2))
+        assert _rel(got.cpu(), want[:, pos]) <= 2e-4, pos
 
 
 @pytest.mark.cuda
@@ -1979,15 +2093,23 @@ def _train_run(dev, which, graph, steps, *, between=None, batch=2, seq=32):
     from repro_torch.train.step import TrainHParams, init_train_state
     lm = LM(_serve_cfg(which), device=dev, seed=0)
     hp = TrainHParams(**TRAIN_HP)
+    # an encoder-decoder's batches carry seeded frames
+    frames = ((batch, lm.cfg.frontend_len, lm.cfg.d_model)
+              if lm.cfg.encoder_layers else None)
     prog = TrainProgram(lm, init_train_state(lm, hp=hp), hp, batch=batch,
-                        seq=seq, graph=graph)
+                        seq=seq, graph=graph,
+                        floats=frames and {"enc_frames": frames})
     pipe = TokenPipeline(lm.cfg.vocab_size, batch, seq)
     torch.cuda.synchronize()
     sparse.reset_telemetry()
     out = {"losses": [], "metrics": [], "launches": []}
     for i in range(steps):
         before = _build.launch_counts()
-        prog.load(pipe.get_batch(i))
+        data = pipe.get_batch(i)
+        if frames:
+            data["enc_frames"] = np.random.default_rng(i).standard_normal(
+                frames).astype(np.float32)
+        prog.load(data)
         m = prog()
         out["metrics"].append({k: v.clone() for k, v in m.items()})
         out["losses"].append(float(m["loss"]))

@@ -65,7 +65,7 @@ def test_config_copy_matches_reference():
     assert dataclasses.asdict(tconfigs.smoke("llama3.2-1b")) == \
         dataclasses.asdict(jconfigs.smoke("llama3_2_1b"))
     with pytest.raises(ValueError, match="unknown architecture"):
-        tconfigs.get("seamless_m4t_medium")
+        tconfigs.get("no_such_arch")
 
 
 def test_load_jax_params_carries_every_leaf(pair):
@@ -142,13 +142,26 @@ def test_lm_without_card_raises():
         TLM(_cfg(True))
 
 
-@pytest.mark.parametrize("field, value", [("encoder_layers", 2),
-                                          ("long_attention",
+@pytest.mark.parametrize("field, value", [("long_attention",
                                            "block_sparse")])
 def test_lm_rejects_unported_features(field, value):
     cfg = dataclasses.replace(_cfg(True), **{field: value})
     with pytest.raises(NotImplementedError, match=field):
         TLM(cfg, device="cpu")
+
+
+def test_lm_builds_the_encoder_it_is_given():
+    """``encoder_layers`` is ported: a config with it gets a bidirectional
+    encoder of that depth and ``enc_norm``, and a decoder without cross
+    layers does not read its memory."""
+    cfg = dataclasses.replace(_cfg(True), encoder_layers=2)
+    lm = TLM(cfg, device="cpu")
+    assert len(lm.encoder) == 2 and lm.enc_norm is not None
+    assert not any(layer.attn.causal for layer in lm.encoder)
+    toks = _tokens((1, 6), 4)
+    frames = np.random.default_rng(0).standard_normal(
+        (1, 5, cfg.d_model)).astype(np.float32)
+    assert torch.equal(lm.forward(toks, enc_frames=frames), lm.forward(toks))
 
 
 def test_bf16_model_runs_on_cpu():

@@ -495,8 +495,8 @@ def test_prefill_and_decode_match_jax(pair):
 def test_loss_waits_for_moe_training(pair):
     """MoE training is ported: ``loss`` of the MoE config equals the JAX
     ``LM.loss`` (cross entropy plus the weighted router losses) with its
-    metrics.  The families that still wait are refused where the model
-    is built: internvl2-1b by its vision frontend."""
+    metrics.  What still waits is refused where the model is built: a
+    config with the long-context ``long_attention``."""
     jlm, params, tlm = pair
     toks = _tokens((2, 17), 3)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
@@ -508,8 +508,10 @@ def test_loss_waits_for_moe_training(pair):
                                   "xent"}
     for name in ("aux_loss", "z_loss", "xent"):
         assert _rel(gm[name], wm[name]) <= 1e-4, name
-    with pytest.raises(NotImplementedError, match="frontend"):
-        TLM(jconfigs.smoke("internvl2_1b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="long_attention"):
+        TLM(dataclasses.replace(jconfigs.smoke("internvl2_1b"),
+                                long_attention="block_sparse"),
+            device="cpu")
 
 
 def test_engine_tokens_match_jax(pair):
