@@ -272,6 +272,24 @@ Phases, each fatal on failure:
    bit-equal, the loss falls; the ``[attn]`` phase also holds bs_attn
    without the causal mask at its encoder (1024 x 1024), cross prefill
    (300 x 1024) and cross decode (1 x 1024) against plain and SDPA;
+12k. long: the long_500k cell's batch (1) on llama3.2-1b at full width
+   and depth (d = 1/8 FFNs, bf16) through the retained ring cache of the
+   published 1024 + 4096 slots: ``LM.prefill`` of a seeded 5120-token
+   prompt, then 256 greedy ``decode_step(retained=True)``s past the
+   wrap (slots 1024..1279), once eagerly and once replayed from a CUDA
+   graph captured through ``serve/graphs.py``'s ``Program``; tokens
+   identical, every step's logits within the bf16 budget of the forward
+   whose layers keep window 4096 and prefix 1024 (bs_attn with a global
+   prefix at S 5376), an fp32 copy at 4 layers within the fp32 budget;
+   one ``attend_decode`` at the ring timed apart;
+12l. serve-long: gemma2-2b at full width (d = 1/8) through
+   ``Engine(retained=True, batch=2, max_len=5120)``: 4 seeded requests
+   of 3000..5100 tokens, 16 new each, eager and graphs, tokens
+   identical, the graph engine's logits against ``decode_step(
+   retained=True)`` driven by hand; the ``[attn]`` phase also holds
+   bs_attn at both phases' shapes with the window and the prefix
+   (``long_attn_rows``) against plain and one library call with the same
+   mask;
 13. roofline (after 11): ``sparse.roofline_report()`` totals of the
    llama and gemma2 engines and each served static plan's chosen route
    on the H100's roofline (efficiency, headroom, dominant term,
@@ -1349,10 +1367,11 @@ def qwen3_attn_shapes(args):
 def attn_library(torch, s, window, global_prefix, softcap, scale,
                  device="cuda"):
     """One PyTorch call computing bs_attn's function on ``[B, S, H, dh]``
-    tensors: SDPA where the mask is plain causal with no soft-cap, else
-    compiled ``flex_attention`` with the soft-cap as its score
-    modification and the causal window as its mask.  Timed beside the
-    kernel, never called by the port."""
+    tensors: SDPA where there is no soft-cap (causal, or with the causal
+    window and global prefix as a boolean mask), else compiled
+    ``flex_attention`` with the soft-cap as its score modification and
+    the causal window as its mask.  Timed beside the kernel, never
+    called by the port."""
     import torch.nn.functional as F
 
     if softcap is None and window == 0:
@@ -1362,6 +1381,19 @@ def attn_library(torch, s, window, global_prefix, softcap, scale,
                 is_causal=True, scale=scale, enable_gqa=True
             ).transpose(1, 2)
         return sdpa, "sdpa"
+    if softcap is None:
+        # a causal window (and global prefix) without a soft-cap: SDPA
+        # with the same mask as a boolean attention mask
+        idx = torch.arange(s, device=device)
+        d = idx[:, None] - idx[None, :]
+        allowed = (d >= 0) & ((d < window) | (idx[None, :] < global_prefix))
+
+        def sdpa_masked(q_, k_, v_):
+            return F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+                attn_mask=allowed, scale=scale, enable_gqa=True
+            ).transpose(1, 2)
+        return sdpa_masked, "sdpa"
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
 
@@ -1465,6 +1497,7 @@ def attn_phase(torch, args):
             del sets, q, k, v
         del el, walk
     rows += encdec_attn_rows(torch, args, gen)
+    rows += long_attn_rows(torch, args, gen)
     bad = [r for r in rows if not r["rel_err"] <= r["tol"]]
     if bad:
         raise RuntimeError(f"bs_attn disagrees with its plain version: "
@@ -4242,6 +4275,544 @@ def vlm_internvl2_phase(torch, args):
                 fp32_layers=len(layer_specs(cfg)))
 
 
+# [long]: the reference's long_500k cell (``configs.SHAPES``: decode,
+# batch 1) through the retained ring cache: llama3.2-1b at full width
+# and depth with every FFN block-sparse (d = 1/8, b = 16), bf16, the
+# published retained_prefix 1024 + retained_window 4096 = 5120 slots; a
+# seeded 5120-token prompt fills the ring, then LONG_STEPS greedy decode
+# steps write slots 1024.. over the oldest window positions.  The fp32
+# copy runs LONG_FP32_STEPS steps at LONG_FP32_LAYERS layers
+LONG = "llama3.2-1b"
+LONG_STEPS = 256
+LONG_FP32_LAYERS, LONG_FP32_STEPS = 4, 32
+# [serve-long]: gemma2-2b at full width (d = 1/8) through
+# Engine(retained=True, batch=2, max_len=5120): 4 seeded requests of
+# 3000..5100 prompt tokens, 16 new each, after 2 warm-up requests
+SERVE_LONG = "gemma2-2b"
+SERVE_LONG_BATCH, SERVE_LONG_MAX_LEN, SERVE_LONG_NEW = 2, 5120, 16
+SERVE_LONG_PROMPTS = ((3000, 5100),) * 4
+SERVE_LONG_WARMUP = ((64, 128),) * 2
+
+
+def windowed_cfg(cfg):
+    """``cfg`` with every attention layer local, window
+    ``retained_window`` and prefix ``retained_prefix``: on a stack
+    without local layers, the causal forward a ring decode equals (at
+    position p the ring holds [0, g) and [p - w + 1, p], bs_attn's
+    ``(r - c < w) | (c < g)``)."""
+    import dataclasses
+    groups = tuple((tuple(dataclasses.replace(s, mixer="attn_local")
+                          for s in period), rep)
+                   for period, rep in cfg.groups)
+    return dataclasses.replace(cfg, groups=groups,
+                               local_window=cfg.retained_window,
+                               global_prefix=cfg.retained_prefix)
+
+
+def ring_run(torch, lm, prompt, steps, *, graph, counters=None):
+    """``prompt`` ``[B, g + w]`` prefilled into the ring, then ``steps``
+    greedy ``decode_step(retained=True)``s through a
+    ``serve/graphs.py`` ``Program`` (the engine's decode body: tokens and
+    positions from its device buffer, the ring slot computed there),
+    run eagerly or captured at its first call and replayed; each step
+    loads its token and position and reads the sampled token back, as
+    the engine's step does.  Returns the tokens ``[B, steps + 1]``, the
+    prefill's and every step's logits (fp32, on the card), the prefill
+    ms, each step's ms, the program's stats and, with ``counters``, the
+    launches of the prefill and of the steps."""
+    import numpy as np
+
+    from repro_torch import sparse
+    from repro_torch.serve.graphs import Program
+
+    dev = lm.device
+    b, ring = prompt.shape
+
+    def reading():
+        return {k: c.launches for k, c in (counters or {}).items()}
+
+    torch.cuda.synchronize()
+    before, t0 = reading(), time.perf_counter()
+    logits, caches = lm.prefill(prompt, max_len=ring)
+    tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = {k: v - before[k] for k, v in reading().items()}
+    out_logits = [logits.float()]
+
+    def body(io):
+        lg, _ = lm.decode_step(io[:b].view(b, 1), caches, io[b:],
+                               retained=True)
+        return torch.argmax(lg, -1), lg
+
+    prog = Program("long decode", body, 2 * b, device=dev, graph=graph,
+                   ctx=sparse.PlanContext(),
+                   pool=torch.cuda.graph_pool_handle() if graph else None,
+                   stream=torch.cuda.Stream(dev) if graph else None)
+    cur = tok.cpu().numpy()
+    toks, step_ms = [cur], []
+    before = reading()
+    for i in range(steps):
+        t1 = time.perf_counter()
+        prog.load(np.concatenate([cur, np.full(b, ring + i)]))
+        nxt, lg = prog()
+        cur = nxt.cpu().numpy()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        # the graph's logits are its own tensor: copied before the next
+        # replay
+        out_logits.append(lg.to(torch.float32, copy=True))
+        toks.append(cur)
+    torch.cuda.synchronize()
+    step_launches = {k: v - before[k] for k, v in reading().items()}
+    return dict(tokens=np.stack(toks, 1), logits=out_logits,
+                prefill_ms=prefill_ms, step_ms=step_ms, stats=prog.stats(),
+                prefill_launches=prefill_launches,
+                step_launches=step_launches)
+
+
+def ring_vs_windowed(torch, lm, prompt, run, seed):
+    """Each logits row of ``run`` (a ``ring_run``) against
+    ``windowed_cfg``'s forward over the prompt and the generated tokens,
+    with the same weights (the same ``seed``ed init, checked equal): the
+    rel-max error of the prefill and of every step, the forward's ms and
+    its launches of bs_attn by walk."""
+    import numpy as np
+
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.models.model import LM
+
+    wlm = LM(windowed_cfg(lm.cfg), device=lm.device, seed=seed)
+    for a, b in zip(lm.parameters(), wlm.parameters()):
+        if not torch.equal(a, b):
+            raise RuntimeError("the windowed copy's weights differ")
+    ring = prompt.shape[1]
+    gen = run["tokens"]
+    seq = np.concatenate([prompt, gen[:, :-1]], 1)
+    before = {w: c.launches for w, c in bs_ops.WALK_COUNTERS.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = wlm.forward(seq)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    walks = {w: c.launches - before[w]
+             for w, c in bs_ops.WALK_COUNTERS.items()}
+    errs = [rel_err(lg, full[:, ring - 1 + i])[0]
+            for i, lg in enumerate(run["logits"])]
+    del wlm, full
+    return dict(errs=errs, forward_ms=fwd_ms, seq=int(seq.shape[1]),
+                bs_attn_walks=walks)
+
+
+def attend_decode_ms(torch, cfg, ring):
+    """One ``attend_decode`` call at the ring's shape (batch 1, every
+    slot visible), bf16 caches cast to fp32 inside (ROADMAP queue 2 item
+    9), by CUDA events over rotated copies: its ms and the bytes its
+    casts move against the bytes of reading the caches once in bf16."""
+    from repro_torch.models.attention import attend_decode
+
+    dev = torch.device("cuda", 0)
+    h, kvh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(97)
+    q = torch.randn((1, 1, h, dh), generator=gen, device=dev).bfloat16()
+    k = torch.randn((1, ring, kvh, dh), generator=gen,
+                    device=dev).bfloat16()
+    v = torch.randn((1, ring, kvh, dh), generator=gen,
+                    device=dev).bfloat16()
+    lengths = torch.full((1,), ring, dtype=torch.long, device=dev)
+    cache_bytes = 2 * k.numel() * 2
+    sets = copies(lambda: (q.clone(), k.clone(), v.clone()), cache_bytes)
+    ms = timed_ms(torch, lambda q_, k_, v_: attend_decode(
+        q_, k_, v_, lengths=lengths), sets, 20)
+    # each cast reads the bf16 cache and writes an fp32 copy that the
+    # einsum reads back: 2 + 4 + 4 bytes an element, against 2
+    return dict(ms=ms, cache_mb=cache_bytes / 1e6,
+                cast_traffic_mb=5 * cache_bytes / 1e6,
+                bound_ms=cache_bytes / 3.35e12 * 1e3)
+
+
+def long_phase(torch, args):
+    """[long]: the long_500k cell's batch (1) on llama3.2-1b at full width
+    and depth, d = 1/8 FFNs, bf16, through the retained ring cache of
+    the published 1024 + 4096 slots: a seeded 5120-token prompt, then
+    ``LONG_STEPS`` greedy ``decode_step(retained=True)``s past the wrap,
+    once eagerly and once replayed from a CUDA graph captured through
+    ``serve/graphs.py``'s ``Program`` (the main path: its bs_attn, bsmm
+    and dense_mm counters zeroed just before and read just after).  Fails
+    unless the two runs' tokens are identical, bs_attn launched in the
+    prefill (16, wgmma) and dense_mm and bsmm on their 16-bit walks, and
+    every step's logits (and the prefill's) are within
+    ``CONSISTENCY_TOL`` of the windowed forward over the prompt and the
+    generated tokens (bs_attn with the global prefix at S = 5376); an
+    fp32 copy at ``LONG_FP32_LAYERS`` layers, ``LONG_FP32_STEPS`` steps,
+    within ``LOGITS_TOL_FP32``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, bsmm, dense_mm
+    from repro_torch.launch.profile_train import cut_depth
+    from repro_torch.models.model import LM
+
+    shape = configs.SHAPES["long_500k"]
+    cfg = configs.sparsify_ffn(configs.get(LONG), 1 / 8)
+    assert cfg.dtype == "bfloat16" and not configs.is_native_long(cfg)
+    g, w = cfg.retained_prefix, cfg.retained_window
+    ring, b = g + w, shape["batch"]
+    counters = with_walks({"bsmm": bsmm.COUNTER,
+                           "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
+    t0 = time.perf_counter()
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(args.seed + 91).integers(
+        0, cfg.vocab_size, size=(b, ring))
+    ring_run(torch, lm, prompt, 2, graph=False)          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    eager = ring_run(torch, lm, prompt, LONG_STEPS, graph=False)
+    for c in counters.values():
+        c.reset()
+    graph = ring_run(torch, lm, prompt, LONG_STEPS, graph=True,
+                     counters=counters)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    check_tensor_core_walks("long", walks, ("bs_attn", "bsmm"))
+    check_dense_mm_walks("long", walks)
+    if not np.array_equal(eager["tokens"], graph["tokens"]):
+        raise RuntimeError("[long] tokens differ between the eager and the "
+                           "graph run")
+    pre = graph["prefill_launches"]
+    if pre["bs_attn"] != cfg.num_layers or graph["step_launches"][
+            "bs_attn"] != 0 or min(launches["bsmm"],
+                                   launches["dense_mm"]) <= 0:
+        raise RuntimeError(f"[long] launches: prefill {pre}, steps "
+                           f"{graph['step_launches']}")
+    logits_equal = all(torch.equal(a, b_) for a, b_ in
+                       zip(eager["logits"], graph["logits"]))
+    del eager["logits"]
+    cons = ring_vs_windowed(torch, lm, prompt, graph, args.seed)
+    if not max(cons["errs"]) <= CONSISTENCY_TOL:
+        raise RuntimeError(f"[long] ring decode vs the windowed forward "
+                           f"in bf16: worst {max(cons['errs'])} (budget "
+                           f"{CONSISTENCY_TOL})")
+    decode_attn = attend_decode_ms(torch, cfg, ring)
+    del lm, graph["logits"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = cut_depth(dataclasses.replace(cfg, dtype="float32"),
+                      LONG_FP32_LAYERS)
+    lm32 = LM(cfg32, device="cuda", seed=args.seed)
+    run32 = ring_run(torch, lm32, prompt, LONG_FP32_STEPS, graph=False)
+    cons32 = ring_vs_windowed(torch, lm32, prompt, run32, args.seed)
+    del lm32, run32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not max(cons32["errs"]) <= LOGITS_TOL_FP32:
+        raise RuntimeError(f"[long] fp32 ring decode vs the windowed "
+                           f"forward: worst {max(cons32['errs'])} (budget "
+                           f"{LOGITS_TOL_FP32})")
+
+    def p50(ms):
+        return float(np.median(ms[1:]))
+    tokens = int(graph["tokens"].size)
+    return dict(
+        init_s=init_s, batch=b, ring=ring, prefix=g, window=w,
+        steps=LONG_STEPS, slots_written=[g, g + LONG_STEPS - 1],
+        prefill_ms={"eager": eager["prefill_ms"],
+                    "graphs": graph["prefill_ms"]},
+        decode_step_p50_ms={"eager": p50(eager["step_ms"]),
+                            "graphs": p50(graph["step_ms"])},
+        tokens_per_s={"eager": tokens / (sum(eager["step_ms"])
+                                         + eager["prefill_ms"]) * 1e3,
+                      "graphs": tokens / (sum(graph["step_ms"])
+                                          + graph["prefill_ms"]) * 1e3},
+        program=graph["stats"], peak_mem_gb=peak, launches=launches,
+        walks=walks, prefill_launches=pre,
+        step_launches=graph["step_launches"], tokens_identical=True,
+        logits_identical=logits_equal,
+        consistency_bf16=dict(max=max(cons["errs"]),
+                              prefill=cons["errs"][0],
+                              last=cons["errs"][-1]),
+        check_forward_ms=cons["forward_ms"], check_len=cons["seq"],
+        check_bs_attn_walks=cons["bs_attn_walks"],
+        consistency_fp32=dict(max=max(cons32["errs"]),
+                              prefill=cons32["errs"][0],
+                              last=cons32["errs"][-1]),
+        fp32_layers=LONG_FP32_LAYERS, fp32_steps=LONG_FP32_STEPS,
+        attend_decode=decode_attn)
+
+
+def serve_long_prompt_lens(args):
+    """The [serve-long] run's prompt lengths."""
+    from repro_torch import configs
+    return replay_prompt_lens(args.seed + 97,
+                              configs.get(SERVE_LONG).vocab_size,
+                              SERVE_LONG_WARMUP, SERVE_LONG_PROMPTS)
+
+
+def serve_long_prefill_lens(args):
+    """The length each [serve-long] prompt is prefilled at."""
+    from repro_torch import configs
+    cfg = configs.sparsify_ffn(configs.get(SERVE_LONG), 1 / 8)
+    return prefill_lens(cfg, SERVE_LONG_MAX_LEN, serve_long_prompt_lens(args))
+
+
+def record_calls(eng):
+    """Record every program call of ``eng`` while it serves, in call
+    order: the program's name, its inputs (``io``), the logits it
+    sampled from (copied) and, for a decode step, the live slots.
+    Returns the list and a function that stops the recording."""
+    import numpy as np
+
+    from repro_torch.serve import graphs
+
+    calls = []
+    load, read, step = graphs.Program.load, eng._read, eng.step
+
+    def loading(prog, values, floats=()):
+        calls.append(dict(name=prog.name,
+                          io=np.array(values, np.int64), live=None))
+        return load(prog, values, floats)
+
+    def reading(out):
+        calls[-1]["logits"] = out[1].float().clone()
+        return read(out)
+
+    def stepping():
+        live = sorted(eng.live)
+        done = step()
+        if live:
+            calls[-1]["live"] = live
+        return done
+
+    graphs.Program.load = loading
+    eng._read, eng.step = reading, stepping
+
+    def stop():
+        graphs.Program.load = load
+        eng._read, eng.step = read, step
+    return calls, stop
+
+
+def replay_calls(torch, lm, calls, *, batch, max_len, retained):
+    """The recorded calls of an engine driven by hand: each prefill
+    through ``LM.prefill`` (its padded tokens, ``last_index``) and its
+    rows copied into its slot, each decode step through
+    ``LM.decode_step(retained=)`` on the engine's tokens and positions,
+    into caches of the engine's shape.  Returns the rel-max error of
+    the engine's logits against the hand-driven ones (the live rows of
+    a decode step) and whether every sampled token agrees."""
+    caches = lm.init_cache(batch, max_len)
+    worst, same = 0.0, True
+    for c in calls:
+        io = c["io"]
+        if c["name"].startswith("prefill"):
+            s = io.shape[0] - 2
+            logits, rows = lm.prefill(io[None, :s], max_len=max_len,
+                                      last_index=io[s:s + 1])
+            slot = torch.as_tensor(io[s + 1:s + 2], device=lm.device)
+            for cache, row in zip(caches, rows):
+                for name in cache:
+                    cache[name].index_copy_(0, slot, row[name])
+            got, want = c["logits"], logits.float()
+        else:
+            logits, _ = lm.decode_step(io[:batch, None], caches,
+                                       io[batch:], retained=retained)
+            live = torch.as_tensor(c["live"], device=lm.device)
+            got, want = c["logits"][live], logits.float()[live]
+        worst = max(worst, rel_err(got, want)[0])
+        same = same and torch.equal(got.argmax(-1), want.argmax(-1))
+    return worst, same
+
+
+def serve_long_phase(torch, args):
+    """[serve-long]: gemma2-2b at full width and depth (26 layers, local
+    and global, soft-caps) with every FFN block-sparse (d = 1/8, b = 16),
+    bf16, through ``Engine(retained=True, batch=2, max_len=5120)`` (the
+    ring of the published 1024 + 4096 slots; the engine stops a request
+    at max_len - 1, so the ring does not wrap and ``retained`` turns the
+    local layers' window filter off): 4 seeded requests of 3000..5100
+    tokens, 16 new each, eagerly and through the engine's graphs
+    (captured at startup; the main path, its counters zeroed just before
+    and read just after).  Fails unless the tokens are identical,
+    bs_attn, bsmm and dense_mm launched on their 16-bit walks, and the
+    graph engine's calls, driven by hand through ``LM.prefill`` and
+    ``LM.decode_step(retained=True)`` on the same inputs at the engine's
+    batch (``replay_calls``), give logits within the bf16 kernel budget
+    of the engine's and the same tokens.  (Driven at batch 1, gemma2's
+    26 bf16 layers at random init amplify the other roundings of a batch
+    of 1 past the bf16 model budget: a measurement of the batch, not of
+    the ring.)  Returns ``(result, lm, engine)``."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import bs_attn, bsmm, dense_mm
+    from repro_torch.models.model import LM
+    from repro_torch.serve import Engine, Request
+
+    cfg = configs.sparsify_ffn(configs.get(SERVE_LONG), 1 / 8)
+    assert cfg.dtype == "bfloat16" and not configs.is_native_long(cfg)
+    assert cfg.retained_prefix + cfg.retained_window == SERVE_LONG_MAX_LEN
+    counters = with_walks({"bs_attn": bs_attn.COUNTER, "bsmm": bsmm.COUNTER,
+                           "dense_mm": dense_mm.COUNTER})
+    t0 = time.perf_counter()
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    rng = np.random.default_rng(args.seed + 97)
+
+    def request(uid, lo, hi, n_new):
+        return Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab_size, size=int(rng.integers(lo, hi + 1))),
+            max_new_tokens=n_new)
+
+    kw = dict(batch=SERVE_LONG_BATCH, max_len=SERVE_LONG_MAX_LEN,
+              retained=True, device="cuda")
+    Engine(lm, graphs=False, warm_plans=False, **kw).run(
+        [request(i, lo, hi, 2)
+         for i, (lo, hi) in enumerate(SERVE_LONG_WARMUP)])
+    prompts = [request(i, lo, hi, SERVE_LONG_NEW).prompt
+               for i, (lo, hi) in enumerate(SERVE_LONG_PROMPTS)]
+    if [len(p) for p in prompts] != serve_long_prompt_lens(args):
+        raise RuntimeError("serve_long_prompt_lens does not replay the run")
+    torch.cuda.reset_peak_memory_stats()
+    eager = serve_run(torch, Engine(lm, graphs=False, **kw), prompts,
+                      SERVE_LONG_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(lm, warm_compile=True, **kw)
+    assert eng.retained
+    calls, stop = record_calls(eng)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    try:
+        run = serve_run(torch, eng, prompts, SERVE_LONG_NEW)
+    finally:
+        stop()
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    check_tensor_core_walks("serve-long", walks, ("bs_attn", "bsmm"))
+    check_dense_mm_walks("serve-long", walks)
+    graphs = graphs_line(eager, run)
+    reqs, wall, st = run["reqs"], run["wall_s"], run["stats"]
+    for name, count in launches.items():
+        if count <= 0:
+            raise RuntimeError(f"kernel {name} was not launched in "
+                               f"[serve-long]")
+    # the engine's calls driven by hand through the LM's entry points
+    hand_err, hand_tokens = replay_calls(
+        torch, lm, calls, batch=SERVE_LONG_BATCH, max_len=SERVE_LONG_MAX_LEN,
+        retained=True)
+    n_calls = len(calls)
+    del calls
+    if not (hand_err <= KERNEL_TOL["bfloat16"] and hand_tokens):
+        raise RuntimeError(f"[serve-long] the engine's logits vs "
+                           f"decode_step(retained=True) by hand: {hand_err} "
+                           f"(budget {KERNEL_TOL['bfloat16']}), tokens "
+                           f"equal {hand_tokens}")
+    tokens = sum(len(r.output) for r in reqs)
+    return dict(
+        params=n_params, init_s=init_s, requests=len(reqs),
+        prompt_lens=[int(len(r.prompt)) for r in reqs],
+        prefill_lens=[int(r.bucket or len(r.prompt)) for r in reqs],
+        tokens=tokens, wall_s=wall, tokens_per_s=tokens / wall,
+        prefill_p50_ms=st["prefill_latency"]["p50_ms"],
+        decode_step_p50_ms=st["step_latency"]["p50_ms"],
+        decode_steps=st["steps"], launches=launches, walks=walks,
+        buckets=list(eng.buckets), peak_mem_gb=run["peak_mem_gb"],
+        graphs=graphs, plans=served_plans(eng),
+        engine_vs_hand=dict(calls=n_calls, rel_err=hand_err,
+                            tokens_equal=hand_tokens)), lm, eng
+
+
+def long_attn_shapes(args):
+    """[attn] rows at the long-context paths' bs_attn shapes, each with
+    its window and global prefix: [long]'s plain check (llama's 32 / 8
+    heads of 64, causal, window 4096, prefix 1024, S = 5120 + 256; the
+    configs' tiles of 512 halve to 256 there) and [serve-long]'s gemma2
+    local layers at its prefill lengths (window 4096, soft-cap 50).
+    Each: name, the path whose launches it reads, S, heads, kv heads,
+    head dim, window, prefix, soft-cap, scale."""
+    from repro_torch import configs
+    lc = configs.get(LONG)
+    check_len = lc.retained_prefix + lc.retained_window + LONG_STEPS
+    rows = [("llama long check", "long", check_len, lc.num_heads,
+             lc.num_kv_heads, lc.head_dim, lc.retained_window,
+             lc.retained_prefix, None, 1 / math.sqrt(lc.head_dim))]
+    gc_ = configs.get(SERVE_LONG)
+    for s in sorted(set(serve_long_prefill_lens(args))):
+        rows.append(("gemma2 local long served", "serve_long", s,
+                     gc_.num_heads, gc_.num_kv_heads, gc_.head_dim,
+                     gc_.local_window, gc_.global_prefix, gc_.attn_softcap,
+                     gc_.attn_scale))
+    return tuple(rows)
+
+
+def long_attn_rows(torch, args, gen):
+    """bs_attn against its plain version at ``long_attn_shapes`` (the
+    walk ``attend_train`` builds there, the window and the global prefix
+    in its element mask), bf16 and fp32, each beside one library call
+    with the same mask (``attn_library``: SDPA with the element mask as
+    its boolean mask, or compiled ``flex_attention`` where a soft-cap
+    rules SDPA out); the bound counts the visible element pairs."""
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.models import attention
+
+    dev = torch.device("cuda", 0)
+    rows = []
+    for (name, path, s, h, kvh, dh, window, prefix, softcap,
+         scale) in long_attn_shapes(args):
+        spec = attention.attn_spec(s, s, dh, window=window,
+                                   global_prefix=prefix, softcap=softcap,
+                                   scale=scale)
+        walk = spec.walk(dev)
+        el = spec.element_mask(dev)
+        pairs = int(el.sum().item())
+        for dname, dt in (("bfloat16", torch.bfloat16),
+                          ("float32", torch.float32)):
+            es = torch.empty((), dtype=dt).element_size()
+            q = torch.randn((1, s, h, dh), generator=gen, device=dev).to(dt)
+            k = torch.randn((1, s, kvh, dh), generator=gen,
+                            device=dev).to(dt)
+            v = torch.randn((1, s, kvh, dh), generator=gen,
+                            device=dev).to(dt)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+            sets = copies(lambda: (q.clone(), k.clone(), v.clone()), nbytes)
+            library, lib_name = attn_library(torch, s, window, prefix,
+                                             softcap, spec.scale)
+
+            def plain(q_, k_, v_):
+                return attend_plain(q_, k_, v_, el, scale=spec.scale,
+                                    softcap=softcap)
+            lib_err = rel_err(library(q, k, v), plain(q, k, v))[0]
+
+            def kernel(q_, k_, v_, plan=None):
+                return bs_ops.bs_attn_cuda(q_, k_, v_, walk,
+                                           scale=spec.scale,
+                                           softcap=softcap, window=window,
+                                           global_prefix=prefix, plan=plan)
+            row = measured_row(torch, "bs_attn", name, s, dname, kernel,
+                               plain, library, sets, sets, nbytes,
+                               4.0 * pairs * dh * h)
+            row["walk"] = bs_ops.kernel_walk(dt)
+            row["before_ms"] = (timed_ms(
+                torch, lambda *a: kernel(*a, plan="cuda_core"), sets, 4)
+                if dt != torch.float32 else None)
+            row.update(heads=h, kv_heads=kvh, head_dim=dh, window=window,
+                       prefix=prefix, softcap=softcap, tile=spec.tile_q,
+                       library=lib_name, library_rel_err=lib_err, path=path,
+                       tiles_visited=int(spec.block_mask().sum()),
+                       element_pairs=pairs, group=walk.group)
+            rows.append(row)
+            del sets, q, k, v
+        del el, walk
+    return rows
+
+
 def print_ssm(label, name, r):
     """A served SSM model's summary, [graphs] and prefill lines."""
     print_serve(label, name, r)
@@ -4754,8 +5325,10 @@ def main(argv=None) -> int:
                   else f" cuda_core_ms={r['before_ms']:.4f}")
         cross = ("" if "skv" not in r else
                  f"Skv={r['skv']} B={r['batch']} causal={r['causal']} ")
+        prefix = "" if "prefix" not in r else f" prefix={r['prefix']}"
         print(f"[attn] {r['shape']:14s} S={r['n']:<5d} {cross}H={r['heads']} "
-              f"KV={r['kv_heads']} dh={r['head_dim']} window={r['window']} "
+              f"KV={r['kv_heads']} dh={r['head_dim']} window={r['window']}"
+              f"{prefix} "
               f"softcap={r['softcap']} tile={r['tile']} "
               f"{r['dtype']:8s} walk={r['walk']} rel_err={r['rel_err']:.2e} "
               f"ms={r['ms']:.4f}{before} plain_ms={r['plain_ms']:.4f} "
@@ -5204,6 +5777,53 @@ def main(argv=None) -> int:
           f"frames {ts['frames']} a batch")
     print_train("train-seamless", ts)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["long"] = torch.cuda.memory_allocated() / 2 ** 30
+    lg = long_phase(torch, args)
+    print(f"[long] {LONG} d=1/8 bf16, long_500k's batch {lg['batch']}, ring "
+          f"{lg['prefix']} + {lg['window']} = {lg['ring']} slots: a "
+          f"{lg['ring']}-token prompt, then {lg['steps']} greedy "
+          f"decode_step(retained=True) past the wrap (slots "
+          f"{lg['slots_written'][0]}..{lg['slots_written'][1]}); prefill "
+          f"ms eager {lg['prefill_ms']['eager']:.3f} / graphs run "
+          f"{lg['prefill_ms']['graphs']:.3f}; decode step p50 eager "
+          f"{lg['decode_step_p50_ms']['eager']:.4f} / graphs "
+          f"{lg['decode_step_p50_ms']['graphs']:.4f} ms; tokens/s eager "
+          f"{lg['tokens_per_s']['eager']:.2f} / graphs "
+          f"{lg['tokens_per_s']['graphs']:.2f}; program "
+          f"{json.dumps(lg['program'])}; peak {lg['peak_mem_gb']:.2f} GiB; "
+          f"tokens identical {lg['tokens_identical']}, logits identical "
+          f"{lg['logits_identical']}")
+    print(f"[long] launches {json.dumps(lg['launches'])} (prefill "
+          f"{json.dumps(lg['prefill_launches'])}, the {lg['steps']} steps "
+          f"{json.dumps(lg['step_launches'])}); by walk "
+          f"{json.dumps(lg['walks'])}")
+    print(f"[long] decode vs the windowed forward (every layer local, "
+          f"window {lg['window']}, prefix {lg['prefix']}; S "
+          f"{lg['check_len']}, {lg['check_forward_ms']:.2f} ms, bs_attn by "
+          f"walk {json.dumps(lg['check_bs_attn_walks'])}): bf16 "
+          f"{json.dumps(lg['consistency_bf16'])} (budget "
+          f"{CONSISTENCY_TOL}); fp32 copy, {lg['fp32_layers']} layers, "
+          f"{lg['fp32_steps']} steps {json.dumps(lg['consistency_fp32'])} "
+          f"(budget {LOGITS_TOL_FP32})")
+    ad = lg["attend_decode"]
+    print(f"[long] attend_decode at the ring (batch 1, 32 / 8 heads of 64, "
+          f"{lg['ring']} slots, bf16 caches cast to fp32): "
+          f"{ad['ms']:.4f} ms a layer; caches {ad['cache_mb']:.1f} MB "
+          f"(read once in bf16: bound {ad['bound_ms']:.4f} ms), the casts "
+          f"move ~{ad['cast_traffic_mb']:.1f} MB")
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["serve_long"] = torch.cuda.memory_allocated() / 2 ** 30
+    sl, lm, eng = serve_long_phase(torch, args)
+    print_serve("serve-long", f"{SERVE_LONG} (retained)", sl)
+    print(f"[serve-long] the graph engine's calls driven by hand through "
+          f"prefill / decode_step(retained=True) at its batch: "
+          f"{json.dumps(sl['engine_vs_hand'])} (budget "
+          f"{KERNEL_TOL['bfloat16']})")
+    del lm, eng
+
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
@@ -5239,7 +5859,8 @@ def main(argv=None) -> int:
                "serve_internvl2": dense["serve-internvl2"]["launches"],
                "vlm_internvl2": vlm["launches"],
                "serve_seamless": sea["launches"],
-               "train_seamless": ts["launches"]}
+               "train_seamless": ts["launches"],
+               "long": lg["launches"], "serve_long": sl["launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
                      "dynamic": dyn_walks, "evolve": evo["walks"],
@@ -5256,7 +5877,8 @@ def main(argv=None) -> int:
                      "serve_internvl2": dense["serve-internvl2"]["walks"],
                      "vlm_internvl2": vlm["walks"],
                      "serve_seamless": sea["walks"],
-                     "train_seamless": ts["walks"]}
+                     "train_seamless": ts["walks"],
+                     "long": lg["walks"], "serve_long": sl["walks"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -5332,6 +5954,24 @@ def main(argv=None) -> int:
               f"causal={r['causal']} {r['dtype']}", "walk": r["walk"],
         "before_ms": r["before_ms"]}
         for r in attn_rows if "skv" in r and r["dtype"] == "bfloat16"]
+    # bs_attn with a window and a global prefix (bf16): [long]'s plain
+    # check shape and [serve-long]'s local layers at its prefill lengths;
+    # launches: the main path's of the phase (for [long] its prefill's,
+    # at S 5120 without a window; the check forward's beside it)
+    kernels[-1]["long"] = [{
+        "name": "bs_attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/bs_attn/csrc/bs_attn.cu",
+        "replaces": "src/repro/kernels/bs_attn/bs_attn.py:73",
+        "launches": by_path[r["path"]]["bs_attn"],
+        "check_forward_launches": (sum(lg["check_bs_attn_walks"].values())
+                                   if r["path"] == "long" else None),
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "at": f"{r['shape']} S={r['n']} window={r['window']} "
+              f"prefix={r['prefix']} tile={r['tile']} {r['dtype']}",
+        "walk": r["walk"], "before_ms": r["before_ms"]}
+        for r in attn_rows if "prefix" in r and r["dtype"] == "bfloat16"]
 
     # gmm at qwen3's decode gate/up (C = 8, bf16), its most frequent
     # launch; its main path is the qwen3 serve run
@@ -5413,8 +6053,8 @@ def main(argv=None) -> int:
                        "serve_dense": dense, "serve_mamba2": mamba,
                        "train_mamba2": tm, "serve_jamba": jamba,
                        "vlm_internvl2": vlm, "serve_seamless": sea,
-                       "train_seamless": ts,
-                       "kernels": kernels,
+                       "train_seamless": ts, "long": lg,
+                       "serve_long": sl, "kernels": kernels,
                        "replan": replan, "roofline": roof,
                        "evolve": evo, "evolve_serve": evolve_serve,
                        "calibrate": cal, "corpus": corpus,

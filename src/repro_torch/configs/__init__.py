@@ -1,6 +1,12 @@
 """Architecture registry of the port: ``get(name)`` full config,
 ``smoke(name)`` reduced same-family config, ``sparsify_ffn(cfg, d)``
-the paper's block-sparse FFN applied to a dense config.
+the paper's block-sparse FFN applied to a dense config; the reference's
+shape cells (``SHAPES``) and ``is_native_long``, which says whether an
+architecture decodes the ``long_500k`` cell natively or through the
+retained ring cache (``LM.decode_step(retained=True)``).  The
+reference's ``input_specs`` / ``param_specs`` (abstract stand-ins for
+its dry-run launcher) come with ``launch/dryrun.py``, with the multi-GPU
+modules.
 
 The port covers all ten architectures of the JAX package's registry:
 ``llama3_2_1b``, ``gemma2_2b``, ``qwen3_moe_30b_a3b``, ``qwen2_1_5b``,
@@ -11,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Dict
 
 from repro_torch.models.config import ModelCfg
 
@@ -25,6 +32,16 @@ ALIASES = {"llama3.2-1b": "llama3_2_1b", "gemma2-2b": "gemma2_2b",
            "mamba2-130m": "mamba2_130m", "jamba-v0.1-52b": "jamba_v0_1_52b",
            "internvl2-1b": "internvl2_1b",
            "seamless-m4t-medium": "seamless_m4t_medium"}
+
+# the reference's shape cells: train, prefill and decode at 32k, and the
+# long-context decode at 500k positions (``long``: through the retained
+# ring cache where the architecture is not natively long)
+SHAPES: Dict[str, dict] = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1, long=True),
+}
 
 
 def _module(name: str):
@@ -41,6 +58,14 @@ def get(name: str) -> ModelCfg:
 
 def smoke(name: str) -> ModelCfg:
     return _module(name).make_smoke_config()
+
+
+def is_native_long(cfg: ModelCfg) -> bool:
+    """True when the architecture handles 500k context natively (SSM
+    state, or a hybrid of O(1) and windowed layers): no retained-cache
+    approximation.  Every other one decodes ``long_500k`` with
+    ``retained=True`` over ``retained_prefix + retained_window`` slots."""
+    return cfg.family in ("ssm", "hybrid")
 
 
 def dense_ffns(cfg: ModelCfg) -> bool:

@@ -45,6 +45,14 @@ the stream while the launches are queued and the inputs rotated across
 copies so that L2 is cold; on the CPU with the host clock.  Nothing
 measures while a CUDA graph is being captured: the verdict is then
 analytic.
+
+The reference's deprecated entry points over the plan (``spmm``,
+``spmm_nt``, ``matmul``, ``batched_matmul``, ``explain``,
+``format_explain``) are kept as thin shims over ``repro_torch.sparse``:
+they take a ``PlanContext`` where the reference takes its
+``DispatchContext`` (the port has no separate dispatch policy), plan on
+the activations' device and run the plan (the hand-written kernels on a
+card, their plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -835,3 +843,104 @@ def decide(spec, device_type: str, *, counts: Optional[WalkCounts] = None,
         with _cache_lock:
             dec = _decision_cache.setdefault(key, dec)
     return dec
+
+
+# ---------------------------------------------------------------------------
+# The reference's deprecated entry points: shims over the plan
+# ---------------------------------------------------------------------------
+
+def spmm(operand, x: torch.Tensor, *, ctx=None) -> torch.Tensor:
+    """``Y = W . X`` with ``x [k, n]`` -> ``[m, n]``; ``operand`` a
+    ``BlockSparseMatrix``, a ``DynamicOperand`` or a dense ``W [m, k]``.
+    Plans ``operand`` for ``n`` columns under ``ctx`` (a ``PlanContext``;
+    the ambient one when None) and runs the plan, so the numbers are the
+    plan path's; differentiable in the operand's values and ``x``."""
+    from repro_torch import sparse as sparse_api
+    dense = isinstance(operand, torch.Tensor)
+    if dense and operand.dim() != 2:
+        raise ValueError(f"operand must be [m, k], got shape "
+                         f"{tuple(operand.shape)}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [k, n], got shape {tuple(x.shape)}")
+    k = operand.shape[1]
+    if x.shape[0] != k:
+        raise ValueError(f"X rows {x.shape[0]} != operand k {k}")
+    if dense:
+        return sparse_api.matmul(x.t(), operand.t(), ctx=ctx).t()
+    return sparse_api.spmm(operand, x, ctx=ctx)
+
+
+def spmm_nt(operand, x: torch.Tensor, *, ctx=None) -> torch.Tensor:
+    """Activation-major form ``x [..., k] -> [..., m]`` (``y = x .
+    W^T``)."""
+    from repro_torch import sparse as sparse_api
+    if isinstance(operand, torch.Tensor):
+        return sparse_api.matmul(x, operand.t(), ctx=ctx)
+    return sparse_api.spmm_nt(operand, x, ctx=ctx)
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, *, ctx=None) -> torch.Tensor:
+    """``y = x . w`` for activation-major dense layers: ``x [..., k]``,
+    ``w [k, n]``; ``sparse.matmul`` (the dense_mm kernel on a card)."""
+    from repro_torch import sparse as sparse_api
+    return sparse_api.matmul(x, w, ctx=ctx)
+
+
+def batched_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                   ctx=None) -> torch.Tensor:
+    """Batched dense ``[..., C, D] @ [..., D, F]`` (MoE expert GEMMs);
+    ``sparse.batched_matmul`` (the gmm kernel on a card)."""
+    from repro_torch import sparse as sparse_api
+    return sparse_api.batched_matmul(a, b, ctx=ctx)
+
+
+def explain(operand, n: int, *, ctx=None, device=None) -> dict:
+    """The decision report for ``operand @ [k, n]`` under the
+    reference's keys: the problem (with the pattern's skew), the mode,
+    ``pallas_admissible``, each candidate's modelled (or measured)
+    seconds, the route chosen, its source, ``cached`` and the cache key.
+
+    Where the keys mean something else on this card: ``pallas_admissible``
+    is whether a hand-written kernel is admissible (True on a card, where
+    every candidate is one; False on the CPU, where the candidates are
+    their plain versions); candidates are named by the port's routes
+    (``static_cuda``, ``dense_torch``, ...); ``imbalance`` and ``cv`` are
+    the port's skew (``pattern_balance``: work per tile-row of its bsmm
+    walk, not per tile of the reference's TPU walk); ``cached`` says whether the
+    plan, and with it its decision, was already in the memory cache.
+    The reference decides without caching; the port plans, and the plan
+    is then cached as any ``plan()`` call's is.  A dense operand is
+    ``W [m, k]``, as in ``spmm``."""
+    from repro_torch import sparse as sparse_api
+    if isinstance(operand, torch.Tensor):
+        operand = operand.t()
+    hits = sparse_api.cache_stats().get("plan_hits", 0)
+    p = sparse_api.plan(operand, int(n), device=device, ctx=ctx)
+    cached = sparse_api.cache_stats().get("plan_hits", 0) > hits
+    rep = p.explain()
+    imb, cv = pattern_balance(operand)
+    return {
+        "problem": dict(rep["problem"], imbalance=round(imb, 3),
+                        cv=round(cv, 3)),
+        "mode": rep["mode"],
+        "pallas_admissible": rep["pallas_admissible"],
+        "candidates": rep["candidates"],
+        "chosen": rep["chosen"],
+        "source": rep["source"],
+        "cached": cached,
+        "cache_key": rep["cache_key"],
+    }
+
+
+def format_explain(report: dict) -> str:
+    """``explain``'s report as text, in the reference's layout."""
+    p = report["problem"]
+    lines = [f"dispatch {p['kind']} ({p['m']}x{p['k']}) @ ({p['k']}x"
+             f"{p['n']}) b={p['block_size']} d={p['density']} "
+             f"{p['dtype']} [mode={report['mode']}]"]
+    for route, sec in report["candidates"].items():
+        mark = "->" if route == report["chosen"] else "  "
+        lines.append(f"  {mark} {route:<15} {sec * 1e6:10.2f} us")
+    lines.append(f"   ({report['source']}"
+                 f"{', cached' if report['cached'] else ''})")
+    return "\n".join(lines)

@@ -18,7 +18,11 @@ On the card the engine captures its decode step and each bucket's
 prefill as CUDA graphs at their first use and replays them; ``--eager``
 runs the same programs eagerly instead.  ``--plan-cache DIR`` persists
 the engine's route verdicts in DIR: a restart from the same directory
-replays them with zero decisions and zero measurements.
+replays them with zero decisions and zero measurements.  ``--retained``
+decodes with the ring-buffer local + global KV cache of the reference's
+long-context cell (``LM.decode_step(retained=True)``; through the engine
+a request stops at ``max_len - 1`` as in the reference, so the ring
+does not wrap and only the local layers' window filter is off).
 """
 from __future__ import annotations
 
@@ -40,6 +44,9 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--max-len", type=int, default=96)
     ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--retained", action="store_true",
+                    help="decode with the ring-buffer local + global KV "
+                         "cache")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' runs the "
@@ -62,7 +69,7 @@ def main(argv=None):
         cfg = configs.sparsify_ffn(cfg, args.density)
     lm = LM(cfg, device=args.device, seed=args.seed)
     eng = Engine(lm, batch=args.batch, max_len=args.max_len,
-                 device=lm.device, graphs=False if args.eager else None,
+                 retained=args.retained, device=lm.device, graphs=False if args.eager else None,
                  plan_cache_dir=args.plan_cache)
     print(f"[serve] {cfg.name} on {lm.device}, buckets {eng.buckets}, "
           f"graphs {eng.graphs}; startup plans {eng.plan_stats}")
@@ -85,7 +92,7 @@ def main(argv=None):
               f"{len(r.output)} tokens @ {t:.2f}s: {r.output[:6]}...")
     print(f"[serve] {len(reqs)} requests, {total_toks} tokens, "
           f"{dt:.2f}s ({total_toks / dt:.1f} tok/s on {lm.device}, "
-          f"batch={args.batch})")
+          f"batch={args.batch}, retained={args.retained})")
     st = eng.stats()
     g = st["graphs"]
     print(f"[serve] decode step p50 {st['step_latency']['p50_ms']} ms, "

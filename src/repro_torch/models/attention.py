@@ -373,14 +373,18 @@ class GQA(nn.Module):
 
     def decode(self, x: torch.Tensor, cache: Cache,
                positions: torch.Tensor, *, local: bool = False,
+               slot: Optional[torch.Tensor] = None,
                window_filter: bool = True):
         """``gqa_decode``: one token per row at ``positions`` ``[B]``; the
-        new K/V are written into ``cache`` in place.  A local layer keeps
-        its window unless ``window_filter`` is off."""
+        new K/V are written into ``cache`` in place at ``slot``
+        (``positions`` when None; a retained ring cache's slot, RoPE at
+        the true position).  A local layer keeps its window unless
+        ``window_filter`` is off (a ring cache holds the retained set)."""
         q, k_new, v_new = self.project_qkv(x, positions[:, None])
+        slot = positions if slot is None else slot
         bidx = torch.arange(x.shape[0], device=x.device)
-        cache["k"][bidx, positions] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][bidx, positions] = v_new[:, 0].to(cache["v"].dtype)
+        cache["k"][bidx, slot] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v_new[:, 0].to(cache["v"].dtype)
         lengths = torch.clamp(positions + 1, max=cache["k"].shape[1])
         window, prefix = self._window(local and window_filter)
         out = attend_decode(q, cache["k"], cache["v"], lengths=lengths,
@@ -561,9 +565,13 @@ class MLA(nn.Module):
         return y, cache
 
     def decode(self, x: torch.Tensor, cache: Cache,
-               positions: torch.Tensor, *, local: bool = False):
+               positions: torch.Tensor, *, local: bool = False,
+               slot: Optional[torch.Tensor] = None,
+               window_filter: bool = True):
         """``mla_decode``: one token per row at ``positions`` ``[B]``; the
-        new latent and roped key are written into ``cache`` in place.
+        new latent and roped key are written into ``cache`` in place at
+        ``slot`` (``positions`` when None; RoPE at the true position).
+        MLA has no window, so ``window_filter`` changes nothing.
         Absorbed attention in fp32: ``q_nope . W_uk`` against the latent
         plus ``q_rope . k_rope``, the softmax, then ``ctx . W_uv`` (plain
         torch einsums, which the reference leaves to XLA)."""
@@ -576,9 +584,10 @@ class MLA(nn.Module):
         q_rope = apply_rope(q_rope, pos, freqs=self.rope_freqs)
         k_rope_new = apply_rope(k_rope_new, pos, freqs=self.rope_freqs)
         bidx = torch.arange(b_, device=x.device)
+        slot = positions if slot is None else slot
         latent_c, k_rope_c = cache["latent"], cache["k_rope"]
-        latent_c[bidx, positions] = latent_new[:, 0].to(latent_c.dtype)
-        k_rope_c[bidx, positions] = k_rope_new[:, 0, 0].to(k_rope_c.dtype)
+        latent_c[bidx, slot] = latent_new[:, 0].to(latent_c.dtype)
+        k_rope_c[bidx, slot] = k_rope_new[:, 0, 0].to(k_rope_c.dtype)
         s = latent_c.shape[1]
         lengths = torch.clamp(positions + 1, max=s)
 

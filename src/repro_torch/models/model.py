@@ -5,7 +5,13 @@ of global and local (sliding-window) GQA layers, MLA layers and Mamba-2
 (SSD) layers, alone or interleaved (the jamba hybrid), with Gemma's
 embedding scale, pre+post norms and soft-caps, and dense, sparse, MoE or
 no FFNs (``forward``, ``loss``, ``prefill(last_index=)``,
-``init_cache``, ``decode_step``; the retained ring cache waits).  The
+``init_cache``, ``decode_step``).  ``decode_step(retained=True)`` is
+the reference's long-context decode: the cache of ``retained_prefix +
+retained_window`` slots is written as a ring (``_ring_slot``: position
+``p`` to slot ``p`` while ``p < g + w``, else ``g + (p - g) % w``), and
+a local layer attends to the whole retained set (no window filter) --
+the paper's static block sparsity applied to the KV cache.  The
+``long_attention`` field is read nowhere, as in the reference.  The
 two frontends are the reference's: a VLM's precomputed patch embeddings
 (``frontend=`` ``[B, F, D]``) are cast to the model's dtype and
 prepended to the token rows, positions ``0 .. F + S - 1``, and dropped
@@ -42,11 +48,6 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import Cache
 from repro_torch.models.config import LayerSpec, ModelCfg
 from repro_torch.models.layers import Embedding, RMSNorm, embed, unembed
-
-# fields of ModelCfg the port does not implement yet, with the value it
-# requires
-_UNSUPPORTED = {"long_attention": "full"}
-
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     """Nested dicts -> ``{"a.b.c": leaf}``."""
@@ -108,11 +109,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelCfg, *, device: DeviceLike = None,
                  seed: int = 0):
         super().__init__()
-        for field, want in _UNSUPPORTED.items():
-            if getattr(cfg, field) != want:
-                raise NotImplementedError(
-                    f"{cfg.name}: {field}={getattr(cfg, field)!r} is not "
-                    f"ported yet (the port needs {want!r})")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = tfm.model_dtype(cfg)
@@ -366,13 +362,28 @@ class LM(nn.Module):
             h = torch.gather(h, 1, idx.expand(h.shape[0], 1, h.shape[2]))
         return self._unembed(self._final(h))[:, 0], caches
 
+    def _ring_slot(self, positions: torch.Tensor) -> torch.Tensor:
+        """The cache slot of each position in a retained (local + global)
+        ring cache: ``p`` while ``p < g + w``, else ``g + (p - g) % w``.
+        Device ops only (no host read), so a captured decode step computes
+        it from its positions buffer."""
+        g, w = self.cfg.retained_prefix, self.cfg.retained_window
+        return torch.where(positions < g + w, positions,
+                           g + torch.remainder(positions - g, w))
+
     @torch.no_grad()
-    def decode_step(self, tokens, caches: List[Cache], positions):
+    def decode_step(self, tokens, caches: List[Cache], positions, *,
+                    retained: bool = False):
         """One token per row: tokens ``[B, 1]``, positions ``[B]``.
         Returns ``(logits [B, V], caches)``; the caches are updated in
-        place."""
+        place.  ``retained`` writes the new K/V at the ring slot of each
+        position (``_ring_slot``; RoPE keeps the true position) and lets a
+        local layer attend to every retained slot, as the reference's
+        ``decode_step(retained=True)`` does."""
         t = self._tokens(tokens)
         pos = self._tokens(positions)
         h = self._embed(t)
-        h, caches = tfm.stack_decode(self.layers, h, caches, positions=pos)
+        slot = self._ring_slot(pos) if retained else pos
+        h, caches = tfm.stack_decode(self.layers, h, caches, positions=pos,
+                                     slot=slot, window_filter=not retained)
         return self._unembed(self._final(h))[:, 0], caches

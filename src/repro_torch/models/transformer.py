@@ -183,14 +183,20 @@ class Layer(nn.Module):
         return self._ffn(h), cache
 
     def decode(self, h: torch.Tensor, cache: Cache,
-               positions: torch.Tensor):
-        """``layer_decode``: one token per row, cache updated in place."""
+               positions: torch.Tensor, *,
+               slot: Optional[torch.Tensor] = None,
+               window_filter: bool = True):
+        """``layer_decode``: one token per row, cache updated in place at
+        ``slot`` (``positions`` when None; a retained ring cache's slot
+        otherwise); ``window_filter`` off lets a local layer attend to
+        every cached slot.  A mamba layer ignores both."""
         hn = self.norm1(h, eps=self.cfg.norm_eps)
         if self.ssm:
             mix, cache = self.mixer.decode(hn, cache)
         else:
             mix, cache = self.attn.decode(hn, cache, positions,
-                                          local=self.local)
+                                          local=self.local, slot=slot,
+                                          window_filter=window_filter)
         h = h + self._post(self.post_norm1, mix)
         if self.cross is not None:
             h = self._cross(h, cache["xk"], cache["xv"])
@@ -220,9 +226,11 @@ def stack_prefill(layers, h, *, positions, max_len: int, memory=None):
     return h, caches
 
 
-def stack_decode(layers, h, caches, *, positions):
+def stack_decode(layers, h, caches, *, positions, slot=None,
+                 window_filter: bool = True):
     for layer, cache in zip(layers, caches):
-        h, _ = layer.decode(h, cache, positions)
+        h, _ = layer.decode(h, cache, positions, slot=slot,
+                            window_filter=window_filter)
     return h, caches
 
 

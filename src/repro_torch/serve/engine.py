@@ -75,6 +75,15 @@ at prefill (the slot frees before any decode step).
 
 The KV cache is updated in place (a prefill writes its rows into its
 slot; decode writes each row's new K/V at its position).
+
+``retained=True`` decodes with ``LM.decode_step(retained=True)``, the
+reference's ring-buffer local + global cache: each row's new K/V go to
+its ring slot (computed on the device from the positions buffer, inside
+the captured decode step) and a local layer attends to every cached
+slot.  The stop rule is the reference's under ``retained`` too: a
+request ends when its position reaches ``max_len - 1``, so through the
+engine the ring never wraps and ``retained`` only turns the window
+filter off (the reference's behaviour, mirrored).
 """
 from __future__ import annotations
 
@@ -235,7 +244,7 @@ class Engine:
     ladder was cut on its prices, and ``_price_cache`` keeps them)."""
 
     def __init__(self, lm: LM, *, batch: int, max_len: int,
-                 device: DeviceLike = None,
+                 retained: bool = False, device: DeviceLike = None,
                  buckets: Optional[Sequence[int]] = None,
                  pad_max_frac: float = 0.75,
                  max_queue: Optional[int] = None,
@@ -264,6 +273,7 @@ class Engine:
         self.device = dev
         self.batch = batch
         self.max_len = max_len
+        self.retained = bool(retained)
         self.graphs = bool(graphs)
         self.pool = f"engine:{lm.cfg.name}:{next(_ENGINE_SEQ)}"
         # every plan the programs use is registered under this pool; the
@@ -389,10 +399,11 @@ class Engine:
 
     def _decode_body(self, io: torch.Tensor):
         """``io = [tokens (B), positions (B)]``: one decode step of every
-        slot, caches updated in place, the batch's tokens sampled."""
+        slot, caches updated in place (at the ring slots under
+        ``retained``), the batch's tokens sampled."""
         b = self.batch
         logits, _ = self.lm.decode_step(io[:b].view(b, 1), self.caches,
-                                        io[b:])
+                                        io[b:], retained=self.retained)
         return self._sample(logits), logits
 
     def _warm(self, capture_graphs: bool):
@@ -651,6 +662,8 @@ class Engine:
             self.positions[slot] += 1
             full = len(req.output) >= req.max_new_tokens
             hit_eos = req.eos_id is not None and tok == req.eos_id
+            # the reference's rule, under retained too (the ring never
+            # wraps through the engine)
             oom = self.positions[slot] >= self.max_len - 1
             if full or hit_eos or oom:
                 req.done = True

@@ -2429,3 +2429,224 @@ def test_train_graph_keeps_the_backward_mask(dev):
     want = _train_run(dev, "llama-sparse", False, 4)
     got = _train_run(dev, "llama-sparse", True, 4, between=scrub)
     _same_run(got, want)
+
+
+# ---------------------------------------------------------------------------
+# long context: the retained ring cache and bs_attn's global prefix
+# ---------------------------------------------------------------------------
+
+RING_PREFIX, RING_WINDOW = 8, 32
+
+
+def _ring_cfg(which, dtype="bfloat16"):
+    """A small ring (prefix 8, window 32: 40 slots) on llama's smoke config
+    with sparse FFNs (GQA) or deepseek's at MLA's full head geometry."""
+    import dataclasses
+
+    from repro_torch import configs
+    if which == "gqa":
+        cfg = configs.sparsify_ffn(configs.smoke("llama3_2_1b"), 0.25)
+    else:
+        cfg = _mla_card_cfg(dtype)
+    return dataclasses.replace(cfg, dtype=dtype, retained_prefix=RING_PREFIX,
+                               retained_window=RING_WINDOW)
+
+
+def _ring_decode(lm, dev, toks, n, graph):
+    """``toks[:, :n]`` prefilled into the ring, then a
+    ``decode_step(retained=True)`` at each later position of ``toks`` (its
+    tokens, not greedy ones) through a ``serve.graphs.Program`` run eagerly
+    or captured and replayed, as the engine runs its decode step: each
+    step's logits, the caches and the program."""
+    from repro_torch.serve.graphs import Program
+    b, total = toks.shape
+    ring = lm.cfg.retained_prefix + lm.cfg.retained_window
+    _, caches = lm.prefill(toks[:, :n], max_len=ring)
+
+    def body(io):
+        logits, _ = lm.decode_step(io[:b].view(b, 1), caches, io[b:],
+                                   retained=True)
+        return logits
+
+    prog = Program("ring decode", body, 2 * b, device=dev, graph=graph,
+                   ctx=sparse.PlanContext(),
+                   pool=torch.cuda.graph_pool_handle() if graph else None,
+                   stream=torch.cuda.Stream(dev) if graph else None)
+    out = []
+    for pos in range(n, total):
+        prog.load(np.concatenate([toks[:, pos], np.full(b, pos)]))
+        out.append(prog().clone())
+    torch.cuda.synchronize()
+    return out, caches, prog
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["gqa", "mla"])
+def test_ring_decode_graph_matches_eager(dev, which):
+    """30 steps past a 40-slot ring's wrap, the ring slot computed on the
+    device inside the captured step (a capture that syncs raises):
+    every step's logits and the caches bit-equal to the same program run
+    eagerly; one capture, a replay a step."""
+    lm = LM(_ring_cfg(which), device=dev, seed=0)
+    toks = np.random.default_rng(31).integers(0, 512, size=(2, 70))
+    n = 40
+    want, wc, _ = _ring_decode(lm, dev, toks, n, graph=False)
+    got, gc_, prog = _ring_decode(lm, dev, toks, n, graph=True)
+    assert prog.captures == 1 and prog.replays == len(got) == 30
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert torch.equal(a, b)
+    for a, b in zip(gc_, wc):
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+    if which == "mla":
+        assert all(set(c) == {"latent", "k_rope"} for c in gc_)
+
+
+@pytest.mark.cuda
+def test_gqa_ring_decode_matches_windowed_forward(dev):
+    """fp32, a stack without local layers: decoding past the ring's wrap
+    equals the forward whose layers keep window w and prefix g (bs_attn
+    with a global prefix), logits within the fp32 model budget."""
+    import dataclasses
+    cfg = _ring_cfg("gqa", "float32")
+    lm = LM(cfg, device=dev, seed=0)
+    groups = tuple((tuple(dataclasses.replace(s, mixer="attn_local")
+                          for s in period), rep)
+                   for period, rep in cfg.groups)
+    wlm = LM(dataclasses.replace(cfg, groups=groups,
+                                 local_window=RING_WINDOW,
+                                 global_prefix=RING_PREFIX),
+             device=dev, seed=0)
+    for a, b in zip(lm.parameters(), wlm.parameters()):
+        assert torch.equal(a, b)
+    toks = np.random.default_rng(32).integers(0, 512, size=(2, 90))
+    n = 40
+    got, _, _ = _ring_decode(lm, dev, toks, n, graph=True)
+    full = wlm.forward(toks)
+    for i, logits in enumerate(got):
+        assert _rel(logits, full[:, n + i]) <= 2e-4, i
+
+
+@pytest.mark.cuda
+def test_mla_ring_decode_matches_cpu(dev):
+    """MLA has no windowed forward (no local MLA layer in the reference),
+    so its ring decode on the card is held against the same model's ring
+    decode on the CPU (itself held against JAX by
+    ``tests/test_torch_long.py``), fp32, logits and caches."""
+    cfg = _ring_cfg("mla", "float32")
+    cpu = LM(cfg, device="cpu", seed=0)
+    gpu = LM(cfg, device=dev, seed=0)
+    gpu.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()})
+    toks = np.random.default_rng(33).integers(0, 512, size=(2, 70))
+    n = 30
+    got, gcache, _ = _ring_decode(gpu, dev, toks, n, graph=True)
+    _, ccache = cpu.prefill(toks[:, :n], max_len=RING_PREFIX + RING_WINDOW)
+    for i, pos in enumerate(range(n, toks.shape[1])):
+        want, ccache = cpu.decode_step(toks[:, pos:pos + 1], ccache,
+                                       np.full(2, pos), retained=True)
+        assert _rel(got[i].cpu(), want) <= MLA_TOL[torch.float32], pos
+    for a, b in zip(gcache, ccache):
+        for key in ("latent", "k_rope"):
+            assert _rel(a[key].cpu(), b[key]) <= MLA_TOL[torch.float32], key
+
+
+# bs_attn with a global prefix at the configs' tiles of 512: (S, window,
+# prefix, heads, kv heads): the long-context check's shape (prefix 1024,
+# window 4096) at fewer heads, a prefix wider than the window, and a
+# prefix that ends inside a tile
+PREFIX_CASES = [(5632, 4096, 1024, 4, 2), (2560, 1024, 512, 4, 2),
+                (1536, 512, 1024, 4, 4), (2048, 1024, 300, 8, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PREFIX_CASES)
+def test_bs_attn_global_prefix_at_tiles_of_512(dev, dtype, case):
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.models import attention
+    s, window, prefix, h, kvh = case
+    g = torch.Generator(device=dev).manual_seed(s + prefix)
+    q = torch.randn((1, s, h, 64), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, s, kvh, 64), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, s, kvh, 64), generator=g, device=dev).to(dtype)
+    spec = attention.attn_spec(s, s, 64, window=window, global_prefix=prefix)
+    assert spec.tile_q == 512 and spec.global_tiles > 0
+    counter = bs_ops.WALK_COUNTERS[bs_ops.kernel_walk(dtype)]
+    before = counter.launches
+    got = attention.attend_train(q, k, v, window=window, global_prefix=prefix)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    el = spec.element_mask(dev)
+    # the prefix is visible past the window: some pair is kept by it alone
+    r = torch.arange(s, device=dev)[:, None]
+    c = torch.arange(s, device=dev)[None, :]
+    assert bool((el & (r - c >= window)).any())
+    want = attend_plain(q, k, v, el, scale=spec.scale)
+    assert torch.isfinite(got).all()
+    assert _rel(got, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_convenience_shims_run_the_plan_on_card(dev):
+    """The reference's shims (``core/static_sparse.py``,
+    ``core/dispatch.py``) on CUDA tensors: each equals the plan's own
+    output bit for bit and launches the plan's kernel."""
+    from repro_torch.core import dispatch
+    from repro_torch.core import static_sparse as ss
+    from repro_torch.kernels import gmm as gmm_k
+    from repro_torch.kernels import sddmm as sddmm_k
+    dtype = torch.bfloat16
+    m, k, n, b = 256, 512, 64, 16
+    mask = masks.random_block_mask(m, k, b, 0.25, seed=5)
+    g = torch.Generator(device=dev).manual_seed(5)
+    vals = torch.randn((int(mask.sum()), b, b), generator=g,
+                       device=dev).to(dtype)
+    bsr = BlockSparseMatrix.from_mask(mask, b, values=vals)
+    x = torch.randn((k, n), generator=g, device=dev).to(dtype)
+    dy = torch.randn((m, n), generator=g, device=dev).to(dtype)
+    ctx = sparse.PlanContext(mode="static", grad_mode="static",
+                             sddmm_mode="sddmm_grouped")
+    p = sparse.plan(bsr, n, device=dev, ctx=ctx)
+    assert p.route == "static_cuda"
+
+    def launched(counter, fn):
+        before = counter.launches
+        out = fn()
+        torch.cuda.synchronize()
+        assert counter.launches > before
+        return out
+
+    for backend in ("xla", "pallas"):
+        got = launched(bsmm_ops.COUNTER, lambda: ss.spmm(bsr, x,
+                                                         backend=backend))
+        assert torch.equal(got, p.spmm_nt(vals, x.t().contiguous()).t())
+        got = ss.spmm_nt(bsr, x.t(), backend=backend)
+        assert torch.equal(got, p.spmm_nt(vals, x.t().contiguous()))
+    assert torch.equal(ss.spmm_cached(bsr, x), ss.spmm(bsr, x))
+    got = launched(bsmm_ops.COUNTER, lambda: ss.spmm_t(bsr, dy))
+    assert torch.equal(got, p.spmm_t(vals, dy.t().contiguous()).t())
+    got = launched(sddmm_k.COUNTER, lambda: ss.sddmm(bsr, dy, x))
+    assert torch.equal(got, p.sddmm(dy.t().contiguous(),
+                                    x.t().contiguous()))
+    dense = bsr.to_dense()
+    want = (dense.float() @ x.float())
+    assert _rel(ss.spmm(bsr, x), want) <= TOL[dtype]
+    got = dispatch.spmm(bsr, x)
+    assert torch.equal(got, sparse.spmm(bsr, x))
+    assert _rel(got, want) <= TOL[dtype]
+    got = launched(dmm_ops.COUNTER, lambda: dispatch.spmm(dense, x))
+    assert _rel(got, want) <= TOL[dtype]
+    xa = torch.randn((4, 8, k), generator=g, device=dev).to(dtype)
+    w = torch.randn((k, 128), generator=g, device=dev).to(dtype)
+    got = launched(dmm_ops.COUNTER, lambda: dispatch.matmul(xa, w))
+    assert torch.equal(got, sparse.matmul(xa, w))
+    a3 = torch.randn((4, 16, 128), generator=g, device=dev).to(dtype)
+    b3 = torch.randn((4, 128, 64), generator=g, device=dev).to(dtype)
+    got = launched(gmm_k.COUNTER, lambda: dispatch.batched_matmul(a3, b3))
+    assert torch.equal(got, sparse.batched_matmul(a3, b3))
+    assert _rel(got, a3.float() @ b3.float()) <= TOL[dtype]
+    rep = dispatch.explain(bsr, n, device=dev)
+    assert rep["pallas_admissible"] is True
+    assert all(r.endswith("_cuda") for r in rep["candidates"])

@@ -129,12 +129,23 @@ def test_load_jax_params_carries_every_leaf():
 
 
 def test_only_long_attention_is_refused():
+    """Nothing is refused any more: the port has no ``_UNSUPPORTED``
+    table, and ``long_attention="block_sparse"`` (read nowhere in the
+    reference) runs seamless as ``"full"`` does, and as the JAX LM."""
     from repro_torch.models import model as tmodel
-    assert tmodel._UNSUPPORTED == {"long_attention": "full"}
-    cfg = dataclasses.replace(tconfigs.smoke(ARCH),
-                              long_attention="block_sparse")
-    with pytest.raises(NotImplementedError, match="long_attention"):
-        TLM(cfg, device="cpu")
+    assert not hasattr(tmodel, "_UNSUPPORTED")
+    jlm, params, tlm = _pair()
+    cfg = dataclasses.replace(tlm.cfg, long_attention="block_sparse")
+    blm = TLM(cfg, device="cpu").load_jax_params(
+        jax.tree.map(np.asarray, params))
+    toks = _tokens((2, 8), 41)
+    frames = _frames(2, 42)
+    jcfg = dataclasses.replace(jlm.cfg, long_attention="block_sparse")
+    want, _ = jax.jit(JLM(jcfg).forward)(params, jnp.asarray(toks),
+                                         enc_frames=jnp.asarray(frames))
+    got = blm.forward(toks, enc_frames=frames)
+    assert _rel(got, want) <= TOL
+    assert _rel(got, tlm.forward(toks, enc_frames=frames)) <= TOL
 
 
 # ---------------------------------------------------------------------------

@@ -144,10 +144,20 @@ def test_lm_without_card_raises():
 
 @pytest.mark.parametrize("field, value", [("long_attention",
                                            "block_sparse")])
-def test_lm_rejects_unported_features(field, value):
+def test_lm_rejects_unported_features(pair, field, value):
+    """No config field is refused any more: ``long_attention`` is read
+    nowhere in the reference, so ``"block_sparse"`` builds and runs as
+    ``"full"`` there, and the port does the same."""
+    jlm, params, tlm = pair
     cfg = dataclasses.replace(_cfg(True), **{field: value})
-    with pytest.raises(NotImplementedError, match=field):
-        TLM(cfg, device="cpu")
+    lm = TLM(cfg, device="cpu").load_jax_params(
+        jax.tree.map(np.asarray, params))
+    toks = _tokens((2, 12), 21)
+    jcfg = dataclasses.replace(_cfg(False), **{field: value})
+    want, _ = jax.jit(JLM(jcfg).forward)(params, jnp.asarray(toks))
+    got = lm.forward(toks)
+    assert _rel(got, want) <= TOL
+    assert _rel(got, tlm.forward(toks)) <= TOL
 
 
 def test_lm_builds_the_encoder_it_is_given():

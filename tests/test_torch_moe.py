@@ -495,8 +495,9 @@ def test_prefill_and_decode_match_jax(pair):
 def test_loss_waits_for_moe_training(pair):
     """MoE training is ported: ``loss`` of the MoE config equals the JAX
     ``LM.loss`` (cross entropy plus the weighted router losses) with its
-    metrics.  What still waits is refused where the model is built: a
-    config with the long-context ``long_attention``."""
+    metrics.  A config with ``long_attention="block_sparse"`` (read
+    nowhere in the reference) builds and gives the same logits as
+    ``"full"`` and as the JAX LM."""
     jlm, params, tlm = pair
     toks = _tokens((2, 17), 3)
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
@@ -508,10 +509,13 @@ def test_loss_waits_for_moe_training(pair):
                                   "xent"}
     for name in ("aux_loss", "z_loss", "xent"):
         assert _rel(gm[name], wm[name]) <= 1e-4, name
-    with pytest.raises(NotImplementedError, match="long_attention"):
-        TLM(dataclasses.replace(jconfigs.smoke("internvl2_1b"),
-                                long_attention="block_sparse"),
-            device="cpu")
+    blm = TLM(dataclasses.replace(tlm.cfg, long_attention="block_sparse"),
+              device="cpu").load_jax_params(jax.tree.map(np.asarray, params))
+    want, _ = jax.jit(jlm.forward)(params, jnp.asarray(toks))
+    with torch.no_grad():
+        got = blm.forward(toks)
+        assert _rel(got, tlm.forward(toks)) <= TOL
+    assert _rel(got, want) <= TOL
 
 
 def test_engine_tokens_match_jax(pair):
