@@ -303,7 +303,23 @@ Phases, each fatal on failure:
    run's calibration corpus (every raced candidate's measured ms with
    the raw model's inputs: ``[race]``, race-serve, the backward races
    and the skew grid) is written with ``--out`` (``corpus``), the input
-   of ``python -m repro_torch.analysis.calibrate``.
+   of ``python -m repro_torch.analysis.calibrate``;
+15. tp (after serve-long): tensor parallelism of llama3.2-1b's sparse
+   FFN.  ``static_tp`` at its up/gate and down patterns (N 4 and 2048, q
+   2 and 4, nnz-balanced and even k-splits) forward and backward against
+   the fp32 plain version and the unsharded plan (bf16 2e-2; fails unless
+   a forward launches bsmm q times on its mma or decode walk and a
+   backward q dL/dx walks and q SDDMMs), with device ms beside the
+   unsharded plan's, ``tp_imbalance`` and ``tp_slots``;
+   ``static_tp_shardmap`` on 2 gloo ranks of the one card (spawned;
+   both ranks identical and within bf16 2e-2 of ``static_tp``, one bsmm
+   launch a rank a call); the full-width, full-depth llama engine with an abstract
+   (1, 4) ``("data", "model")`` mesh and [serve]'s requests, eager then
+   through its graphs (the main path, counters zeroed just before):
+   tokens identical, every static plan with a ``tp`` section, the decode
+   plans on ``static_tp`` from the analytic verdict, q bsmm launches per
+   sparse projection a decode replay, a prefill's logits within 6e-2 of
+   the unsharded plans'.
 
 A ``[mem]`` line gives the card memory still allocated as each phase
 starts (the peaks the phases report include it); each engine warms up
@@ -5238,6 +5254,434 @@ def evolve_dynamic_row(torch, args):
     return out
 
 
+# [tp]: tensor parallelism of llama3.2-1b's sparse FFN (d = 1/8, b = 16,
+# bf16): its up/gate and down patterns at full width, at the decode and
+# the training token counts, over q k-shards, balanced and even splits;
+# the explicit route over 2 gloo ranks on this one card; and the engine
+# with an abstract (1, 4) ("data", "model") mesh
+TP_SHAPES = (("up/gate", 8192, 2048), ("down", 2048, 8192))
+TP_NS = (4, 2048)
+TP_QS = (2, 4)
+TP_MESH = ((1, 4), ("data", "model"))
+TP_RANKS = 2
+
+
+def tp_problem(torch, m, k, n, seed):
+    """One seeded FFN problem, made on the CPU so every process of the
+    phase holds the same numbers: the bf16 BSR (d = 1/8, b = 16), x [n,
+    k] and the output's gradient dy [n, m], on the card."""
+    from repro_torch.core import masks
+    from repro_torch.core.bsr import BlockSparseMatrix
+    mask = masks.random_block_mask(m, k, 16, 1 / 8, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    vals = (torch.randn((int(mask.sum()), 16, 16), generator=g)
+            / math.sqrt(k / 8)).to(torch.bfloat16).cuda()
+    x = torch.randn((n, k), generator=g).to(torch.bfloat16).cuda()
+    dy = torch.randn((n, m), generator=g).to(torch.bfloat16).cuda()
+    return BlockSparseMatrix.from_mask(mask, 16, values=vals), x, dy
+
+
+def tp_plain(torch, bsr, x, dy):
+    """The plain version in fp32: y, dL/dx and dL/dvalues (the dense
+    product's blocks at the pattern)."""
+    w = bsr.to_dense().float()
+    mb, kb = bsr.grid
+    dw = (dy.float().t() @ x.float()).reshape(mb, 16, kb, 16).permute(
+        0, 2, 1, 3)
+    rows = torch.as_tensor(bsr.row_idx, dtype=torch.long, device="cuda")
+    cols = torch.as_tensor(bsr.col_idx, dtype=torch.long, device="cuda")
+    return x.float() @ w.t(), dy.float() @ w, dw[rows, cols]
+
+
+def tp_counts(counters):
+    return split_walks({k: c.launches for k, c in counters.items()})
+
+
+def tp_call(torch, counters, fn):
+    """``fn()`` with the launch counters zeroed just before it; its result
+    and the launches (by kernel, by walk) it made."""
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, tp_counts(counters)
+
+
+def tp_forward_backward(torch, counters, p, vals, x, dy):
+    """One forward and one backward of plan ``p`` under autograd; each
+    direction's launches counted apart."""
+    v = vals.clone().requires_grad_(True)
+    xx = x.clone().requires_grad_(True)
+    y, fwd = tp_call(torch, counters, lambda: p.spmm_nt(v, xx))
+    _, bwd = tp_call(torch, counters, lambda: y.backward(dy))
+    return y.detach(), xx.grad, v.grad, fwd, bwd
+
+
+def tp_check_walks(label, walks):
+    off = {w: n for w, n in walks["bsmm"].items()
+           if n and w not in ("mma", "decode")}
+    off.update({f"sddmm:{w}": n for w, n in walks["sddmm"].items()
+                if n and w != "mma"})
+    if off:
+        raise RuntimeError(f"[tp] {label}: launches off the tensor-core "
+                           f"walks {off}")
+
+
+def tp_plan_rows(torch, args):
+    """``static_tp`` at llama's FFN shapes against the fp32 plain version
+    and the unsharded plan (``mode="static"``): forward, dL/dx and
+    dL/dvalues within bf16 2e-2; fails unless a forward call launches
+    bsmm ``q`` times (mma or decode walk) and a backward ``q`` dL/dx
+    walks and ``q`` SDDMMs.  Device ms by CUDA events beside the
+    unsharded plan's (``q`` launches on one card against one: a record,
+    not a speed claim)."""
+    from repro_torch import sparse
+    from repro_torch.kernels import bsmm, sddmm
+    counters = with_walks({"bsmm": bsmm.COUNTER, "sddmm": sddmm.COUNTER})
+    tol = KERNEL_TOL["bfloat16"]
+    rows, total = [], {}
+    for si, (name, m, k) in enumerate(TP_SHAPES):
+        for n in TP_NS:
+            bsr, x, dy = tp_problem(torch, m, k, n, args.seed + 91 + si)
+            vals = bsr.values
+            py, pdx, pdv = tp_plain(torch, bsr, x, dy)
+            ref = sparse.plan(bsr, n, device="cuda",
+                              ctx=sparse.PlanContext(mode="static"))
+            ref_packed = ref.pack(vals)
+            ry, rdx, rdv, _, _ = tp_forward_backward(torch, counters, ref,
+                                                     vals, x, dy)
+            sets = copies(lambda: (x.clone(),),
+                          x.numel() * x.element_size())
+            ref_ms = timed_ms(torch, lambda xx: ref.run_packed(ref_packed,
+                                                               xx),
+                              sets, 50 if n <= 256 else 20)
+            for q in TP_QS:
+                for balanced in (True, False):
+                    p = sparse.plan(bsr, n, device="cuda",
+                                    ctx=sparse.PlanContext(
+                                        mode="static_tp", tp_q=q,
+                                        tp_balanced=balanced))
+                    if p.route != "static_tp":
+                        raise RuntimeError(f"[tp] {p.route} planned")
+                    y, dx, dv, fwd, bwd = tp_forward_backward(
+                        torch, counters, p, vals, x, dy)
+                    shards = int((p.tp.meta.real_counts > 0).sum())
+                    label = (f"{name} n={n} q={q} "
+                             f"{'balanced' if balanced else 'even'}")
+                    if (fwd[0]["bsmm"] != q or shards != q
+                            or bwd[0]["bsmm"] != q
+                            or bwd[0]["sddmm"] != q):
+                        raise RuntimeError(
+                            f"[tp] {label}: launches forward {fwd[0]}, "
+                            f"backward {bwd[0]} for {shards} shards")
+                    tp_check_walks(label, fwd[1])
+                    tp_check_walks(label, bwd[1])
+                    for part in (fwd, bwd):
+                        for key, v in part[0].items():
+                            total[key] = total.get(key, 0) + v
+                    errs = {"y_vs_plain": rel_err(y, py)[0],
+                            "dx_vs_plain": rel_err(dx, pdx)[0],
+                            "dvalues_vs_plain": rel_err(dv, pdv)[0],
+                            "y_vs_unsharded": rel_err(y, ry)[0],
+                            "dx_vs_unsharded": rel_err(dx, rdx)[0],
+                            "dvalues_vs_unsharded": rel_err(dv, rdv)[0]}
+                    bad = {e: v for e, v in errs.items() if not v <= tol}
+                    if bad:
+                        raise RuntimeError(f"[tp] {label} beyond {tol}: "
+                                           f"{bad}")
+                    packed = p.pack(vals)
+                    ms = timed_ms(torch,
+                                  lambda xx: p.run_packed(packed, xx),
+                                  sets, 50 if n <= 256 else 20)
+                    rows.append(dict(
+                        shape=f"{name} {m}x{k}", n=n, q=q,
+                        balanced=balanced, ms=ms, unsharded_ms=ref_ms,
+                        imbalance=p.artifacts["tp_imbalance"],
+                        slots=p.artifacts["tp_slots"],
+                        boundaries=p.artifacts["tp_boundaries"],
+                        errs=errs, forward=fwd[0], backward=bwd[0],
+                        forward_walks=fwd[1]["bsmm"],
+                        backward_walks={"bsmm": bwd[1]["bsmm"],
+                                        "sddmm": bwd[1]["sddmm"]}))
+            del ref, ref_packed
+    return rows, total
+
+
+def tp_rank_main(rank, world, init_file, out_dir, seed):
+    """One rank of the explicit route on this card: gloo over
+    ``init_file``, a ``DeviceMesh("cuda", (world,), ("model",))``, and
+    ``static_tp_shardmap`` forward and backward at llama's FFN shapes;
+    results to ``out_dir/rank<r>.pt``, an error to ``rank<r>.err``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        from repro_torch import sparse
+        from repro_torch.kernels import bsmm, sddmm
+        from repro_torch.launch.mesh import make_device_mesh
+        mesh = make_device_mesh("cuda", (world,), ("model",))
+        counters = with_walks({"bsmm": bsmm.COUNTER,
+                               "sddmm": sddmm.COUNTER})
+        out = {"backend": dist.get_backend(mesh.get_group("model"))}
+        for si, (name, m, k) in enumerate(TP_SHAPES):
+            for n in TP_NS:
+                bsr, x, dy = tp_problem(torch, m, k, n, seed + 91 + si)
+                p = sparse.plan(bsr, n, device="cuda", ctx=sparse.PlanContext(
+                    mode="static_tp_shardmap", mesh=mesh))
+                y, dx, dv, fwd, bwd = tp_forward_backward(
+                    torch, counters, p, bsr.values, x, dy)
+                packed = p.pack(bsr.values)
+                dist.barrier()
+                iters = 20
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    p.run_packed(packed, x)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+                out[f"{name} n={n}"] = dict(
+                    route=p.route, shards=list(p.tp.shards), y=y.cpu(),
+                    dx=dx.cpu(), dv=dv.cpu(), forward=fwd[0],
+                    backward=bwd[0], forward_walks=fwd[1]["bsmm"],
+                    wall_ms=wall_ms)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def tp_shardmap_rows(torch, args):
+    """``static_tp_shardmap`` over ``TP_RANKS`` gloo ranks on this card
+    (NCCL refuses two ranks on one device): both ranks' outputs and
+    dL/dx identical and within bf16 2e-2 of ``static_tp``'s, the ranks'
+    dL/dvalues summing to ``static_tp``'s, one bsmm launch a forward
+    call on each rank.  A rank that fails fails the phase with its
+    traceback."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch import sparse
+    out_dir = tempfile.mkdtemp(prefix="tp_ranks_",
+                               dir=os.path.join(HERE, "build"))
+    try:
+        ctx = mp.start_processes(
+            tp_rank_main, args=(TP_RANKS, os.path.join(out_dir, "pg"),
+                                out_dir, args.seed),
+            nprocs=TP_RANKS, join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("ranks still running after 300 s")
+        except Exception as e:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+            errs = [open(os.path.join(out_dir, f)).read()
+                    for f in sorted(os.listdir(out_dir))
+                    if f.endswith(".err")]
+            raise RuntimeError(f"[tp] static_tp_shardmap over {TP_RANKS} "
+                               f"gloo ranks: "
+                               f"{(errs[0] if errs else repr(e))[-2000:]}")
+        outs = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+                for r in range(TP_RANKS)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    tol = KERNEL_TOL["bfloat16"]
+    rows = []
+    for si, (name, m, k) in enumerate(TP_SHAPES):
+        for n in TP_NS:
+            key = f"{name} n={n}"
+            bsr, x, dy = tp_problem(torch, m, k, n, args.seed + 91 + si)
+            ref = sparse.plan(bsr, n, device="cuda", ctx=sparse.PlanContext(
+                mode="static_tp", tp_q=TP_RANKS))
+            v = bsr.values.clone().requires_grad_(True)
+            xx = x.clone().requires_grad_(True)
+            y = ref.spmm_nt(v, xx)
+            y.backward(dy)
+            got = [o[key] for o in outs]
+            same = all(torch.equal(g["y"], got[0]["y"])
+                       and torch.equal(g["dx"], got[0]["dx"])
+                       for g in got[1:])
+            errs = {"y": rel_err(got[0]["y"].cuda(), y.detach())[0],
+                    "dx": rel_err(got[0]["dx"].cuda(), xx.grad)[0],
+                    "dvalues": rel_err(sum(g["dv"].float() for g in got)
+                                       .cuda(), v.grad)[0]}
+            label = f"{key} over {TP_RANKS} ranks"
+            if not same:
+                raise RuntimeError(f"[tp] {label}: the ranks differ")
+            bad = {e: v for e, v in errs.items() if not v <= tol}
+            if bad:
+                raise RuntimeError(f"[tp] {label} beyond {tol} of "
+                                   f"static_tp: {bad}")
+            for r, g in enumerate(got):
+                if g["route"] != "static_tp_shardmap" \
+                        or g["shards"] != [r] or g["forward"]["bsmm"] != 1:
+                    raise RuntimeError(f"[tp] {label} rank {r}: route "
+                                       f"{g['route']}, shards {g['shards']},"
+                                       f" launches {g['forward']}")
+                tp_check_walks(label, {"bsmm": g["forward_walks"],
+                                       "sddmm": {}})
+            rows.append(dict(
+                shape=f"{name} {m}x{k}", n=n, backend=outs[0]["backend"],
+                ranks_identical=same, errs=errs,
+                wall_ms=[g["wall_ms"] for g in got],
+                forward=[g["forward"] for g in got],
+                backward=[g["backward"] for g in got]))
+    return {"rows": rows}
+
+
+def tp_engine_run(torch, args, serve):
+    """llama3.2-1b at full width and depth, every FFN block-sparse (d =
+    1/8, b = 16, bf16), through ``Engine(mesh=<abstract (1, 4)>,
+    batch=4, max_len=512)`` with [serve]'s 8 requests, eagerly and then
+    through the engine's CUDA graphs (the main path, its counters zeroed
+    just before and read just after).  Fails unless the tokens are
+    identical, every static FFN plan carries a ``tp`` section, the
+    decode plans chose ``static_tp`` on the analytic verdict, a decode
+    replay launches bsmm q times for each sparse projection (once each in
+    [serve]), and a prefill's logits
+    are within bf16 6e-2 of the unsharded plans' on the same weights."""
+    import numpy as np
+
+    from repro_torch import configs, sparse
+    from repro_torch.core.sparse_layers import SparseLinear
+    from repro_torch.kernels import bs_attn, bsmm, dense_mm
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.model import LM
+    from repro_torch.serve import Engine, Request
+
+    counters = with_walks({"bsmm": bsmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
+    cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    mesh = AbstractMesh(*TP_MESH)
+    q = mesh.shape["model"]
+    rng = np.random.default_rng(args.seed)
+
+    def requests(bounds, new):
+        return [Request(uid=i, prompt=rng.integers(
+                    0, cfg.vocab_size, size=int(rng.integers(lo, hi + 1))),
+                    max_new_tokens=new) for i, (lo, hi) in enumerate(bounds)]
+
+    requests(LLAMA_WARMUP, 3)                 # [serve]'s rng sequence
+    prompts = [r.prompt for r in requests(LLAMA_PROMPTS, LLAMA_NEW)]
+    if [len(p) for p in prompts] != llama_prompt_lens(args):
+        raise RuntimeError("[tp] the prompts are not [serve]'s")
+    kw = dict(batch=4, max_len=LLAMA_MAX_LEN, device="cuda", mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    eager = serve_run(torch, Engine(lm, graphs=False, **kw), prompts,
+                      LLAMA_NEW)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(lm, warm_compile=True, **kw)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    run = serve_run(torch, eng, prompts, LLAMA_NEW)
+    launches, walks = tp_counts(counters)
+    check_tensor_core_walks("tp", walks, ("bs_attn", "bsmm"))
+    graphs = graphs_line(eager, run)
+    static = [p for p in sparse.pool_plans(eng.pool) if p.kind == "static"]
+    no_tp = [p.key for p in static if not p.artifacts.get("tp")]
+    decode = [p for p in static if p.n == eng.batch]
+    off = {f"{p.m}x{p.k}": (p.route, p.source) for p in decode
+           if p.route != "static_tp" or p.source != "analytic"}
+    if not static or no_tp or not decode or off:
+        raise RuntimeError(f"[tp] static plans {len(static)}, without a tp "
+                           f"section {no_tp}, decode plans off static_tp "
+                           f"on the analytic verdict {off}")
+    per_replay = replay_launches(eng, counter_names())["decode"]
+    sparse_layers = sum(isinstance(m, SparseLinear) for m in lm.modules())
+    if per_replay.get("bsmm") != q * sparse_layers:
+        raise RuntimeError(f"[tp] bsmm launches per decode replay "
+                           f"{per_replay}: not {q} for each of "
+                           f"{sparse_layers} sparse projections")
+    toks = rng.integers(0, cfg.vocab_size, size=(1, 64))
+    with sparse.use_ctx(sparse.PlanContext(mesh=mesh)):
+        lt, _ = lm.prefill(toks, max_len=LLAMA_MAX_LEN, last_index=[63])
+    lu, _ = lm.prefill(toks, max_len=LLAMA_MAX_LEN, last_index=[63])
+    prefill_err = rel_err(lt[0], lu[0])[0]
+    if not prefill_err <= CONSISTENCY_TOL:
+        raise RuntimeError(f"[tp] prefill logits {prefill_err} beyond "
+                           f"{CONSISTENCY_TOL} of the unsharded plans'")
+    rep = eng.plan_report()["tp"]
+    out = dict(graphs=graphs, launches=launches, walks=walks,
+               decode_replay_launches=per_replay,
+               serve_decode_step_launches=serve["launches_per_call"][
+                   "decode_step"],
+               tp_totals=rep["totals"], prefill_rel_err=prefill_err,
+               plans={f"{p.m}x{p.k} n={p.n}": f"{p.route} ({p.source})"
+                      for p in static},
+               decode_step_p50_ms=graphs["decode_step_p50_ms"],
+               serve_decode_step_p50_ms=serve["graphs"][
+                   "decode_step_p50_ms"],
+               peak_mem_gb=run["peak_mem_gb"])
+    del eng, lm
+    return out
+
+
+def tp_phase(torch, args, serve):
+    """[tp]: the plan rows, the explicit route over gloo ranks, the
+    engine with an abstract mesh."""
+    t0 = time.perf_counter()
+    rows, plan_launches = tp_plan_rows(torch, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shardmap = tp_shardmap_rows(torch, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine = tp_engine_run(torch, args, serve)
+    return dict(rows=rows, plan_launches=plan_launches, shardmap=shardmap,
+                engine=engine, phase_s=time.perf_counter() - t0)
+
+
+def print_tp(tp):
+    for r in tp["rows"]:
+        print(f"[tp] static_tp {r['shape']:20s} n={r['n']:<4d} q={r['q']} "
+              f"{'balanced' if r['balanced'] else 'even':8s} ms="
+              f"{r['ms']:.5f} unsharded_ms={r['unsharded_ms']:.5f} "
+              f"tp_imbalance={r['imbalance']:.3f} tp_slots={r['slots']} "
+              f"boundaries={r['boundaries']} forward {json.dumps(r['forward'])}"
+              f" (bsmm walks {json.dumps(r['forward_walks'])}) backward "
+              f"{json.dumps(r['backward'])} errs "
+              f"{json.dumps({k: float(f'{v:.2e}') for k, v in r['errs'].items()})}")
+    for r in tp["shardmap"]["rows"]:
+        print(f"[tp] static_tp_shardmap {r['shape']:20s} n={r['n']:<4d} "
+              f"{TP_RANKS} ranks ({r['backend']}): ranks identical "
+              f"{r['ranks_identical']}; vs static_tp "
+              f"{json.dumps({k: float(f'{v:.2e}') for k, v in r['errs'].items()})}"
+              f"; wall ms per call with the reduction (host clock) "
+              f"{[round(v, 4) for v in r['wall_ms']]}; launches a rank: "
+              f"forward {json.dumps(r['forward'][0])} backward "
+              f"{json.dumps(r['backward'][0])}")
+    e = tp["engine"]
+    print(f"[tp] engine llama3.2-1b mesh {TP_MESH}: decode step p50 eager "
+          f"{e['decode_step_p50_ms']['eager']} / graphs "
+          f"{e['decode_step_p50_ms']['graphs']} ms ([serve]: "
+          f"{e['serve_decode_step_p50_ms']['eager']} / "
+          f"{e['serve_decode_step_p50_ms']['graphs']}); bsmm per decode "
+          f"replay {e['decode_replay_launches'].get('bsmm')} ([serve] "
+          f"decode step {e['serve_decode_step_launches']['bsmm']}); "
+          f"tp_report totals {json.dumps(e['tp_totals'])}; prefill logits "
+          f"vs unsharded {e['prefill_rel_err']:.2e} (budget "
+          f"{CONSISTENCY_TOL}); tokens identical eager / graphs "
+          f"{e['graphs']['tokens_identical']}; peak "
+          f"{e['peak_mem_gb']:.2f} GiB; launches "
+          f"{json.dumps(e['launches'])}; phase {tp['phase_s']:.1f} s")
+    print(f"[tp] engine plans {json.dumps(e['plans'])}")
+
+
 def main(argv=None) -> int:
     # torch.compile's caches (the flex_attention library rows) stay in
     # the checkout's build directory, beside the kernels
@@ -5824,6 +6268,12 @@ def main(argv=None) -> int:
           f"{KERNEL_TOL['bfloat16']})")
     del lm, eng
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["tp"] = torch.cuda.memory_allocated() / 2 ** 30
+    tp = tp_phase(torch, args, serve)
+    print_tp(tp)
+
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
@@ -5860,7 +6310,9 @@ def main(argv=None) -> int:
                "vlm_internvl2": vlm["launches"],
                "serve_seamless": sea["launches"],
                "train_seamless": ts["launches"],
-               "long": lg["launches"], "serve_long": sl["launches"]}
+               "long": lg["launches"], "serve_long": sl["launches"],
+               "tp": tp["engine"]["launches"],
+               "tp_plan": tp["plan_launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
                      "dynamic": dyn_walks, "evolve": evo["walks"],
@@ -5878,7 +6330,8 @@ def main(argv=None) -> int:
                      "vlm_internvl2": vlm["walks"],
                      "serve_seamless": sea["walks"],
                      "train_seamless": ts["walks"],
-                     "long": lg["walks"], "serve_long": sl["walks"]}
+                     "long": lg["walks"], "serve_long": sl["walks"],
+                     "tp": tp["engine"]["walks"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -6054,7 +6507,7 @@ def main(argv=None) -> int:
                        "train_mamba2": tm, "serve_jamba": jamba,
                        "vlm_internvl2": vlm, "serve_seamless": sea,
                        "train_seamless": ts, "long": lg,
-                       "serve_long": sl, "kernels": kernels,
+                       "serve_long": sl, "tp": tp, "kernels": kernels,
                        "replan": replan, "roofline": roof,
                        "evolve": evo, "evolve_serve": evolve_serve,
                        "calibrate": cal, "corpus": corpus,

@@ -14,7 +14,8 @@ process:
   tree, listed in ``manifest.json`` with shape and dtype (bf16 is stored
   as its 16-bit pattern and restored by the recorded dtype).
 
-Mesh-aware re-sharding on restore waits for the multi-GPU slice.
+Mesh-aware re-sharding on restore waits for sharded training (ROADMAP
+queue 1, item 11b).
 """
 from __future__ import annotations
 

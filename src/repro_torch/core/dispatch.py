@@ -133,7 +133,11 @@ MEASURE_MARGIN = 0.15
 
 
 def family(route: str) -> str:
-    """``static_balanced_cuda`` -> ``static_balanced``."""
+    """``static_balanced_cuda`` -> ``static_balanced``; a tensor-parallel
+    route (``static_tp``, ``static_tp_shardmap``: no device suffix) is
+    its own family."""
+    if route.startswith("static_tp"):
+        return route
     return route.rsplit("_", 1)[0]
 
 

@@ -13,6 +13,12 @@ tile counts (sorted-snake dealing) into the visit schedule of the
 balanced walk; ``balance_report`` measures a count profile's skew.
 ``plan_evolution``/``apply_evolution`` are the pattern and value halves
 of a topology update (old pattern -> new pattern, RigL).
+``plan_k_shards``/``apply_k_shards`` are the pattern and value halves of
+the k-partition that tensor parallelism shards a static pattern by
+(paper Fig. 1a lifted to several cards): ``balanced_k_splits`` places
+``q`` uneven split positions over the block columns so each shard owns
+about the same number of blocks, ``even_k_splits`` the fixed equal
+splits; their metadata equals the JAX package's for the same pattern.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.bsr import check_unique_blocks
+from repro_torch.core.bsr import BlockSparseMatrix, check_unique_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -357,3 +363,175 @@ def balance_report(counts: np.ndarray) -> dict:
         "frac_empty": float((counts == 0).mean()),
         "cv": float(counts.std() / mean) if mean else 0.0,
     }
+
+
+def balanced_k_splits(block_mask: np.ndarray, q: int) -> np.ndarray:
+    """``q`` uneven split positions over the block columns balancing the
+    blocks each shard owns: boundaries ``[q + 1]`` with
+    ``boundaries[0] = 0`` and ``boundaries[q] = Kb`` (paper Fig. 1a: the
+    splits adapt to the known pattern).
+
+    Each boundary is placed greedily on the prefix sum of the column
+    counts.  One that lands on a plateau of the prefix (a run of empty
+    columns) slides along it toward the even-split position, so the
+    empty columns spread over the shards instead of piling onto the last
+    ones; where the remaining shards would get no column, it is clamped
+    back toward the even position."""
+    col_nnz = np.asarray(block_mask, bool).sum(axis=0)
+    kb = len(col_nnz)
+    if q > kb:
+        raise ValueError(f"q={q} partitions > {kb} block columns")
+    total = int(col_nnz.sum())
+    prefix = np.concatenate([[0], np.cumsum(col_nnz)])
+    boundaries = [0]
+    for p in range(1, q):
+        target = total * p / q
+        e = int(round(kb * p / q))           # the even-split position
+        jlo = int(np.searchsorted(prefix, target, side="left"))
+        jhi = jlo
+        while jhi + 1 <= kb and prefix[jhi + 1] == prefix[jlo]:
+            jhi += 1
+        j = min(max(e, jlo), jhi)
+        # leave a column for each of the remaining partitions
+        j = max(j, boundaries[-1] + 1)
+        hi = kb - (q - p)
+        if j > hi:
+            j = max(boundaries[-1] + 1, min(hi, e))
+        boundaries.append(j)
+    boundaries.append(kb)
+    return np.asarray(boundaries, np.int64)
+
+
+def even_k_splits(kb: int, q: int) -> np.ndarray:
+    """Fixed equal splits over ``kb`` block columns (paper §3.3, the
+    dynamic mode's): the last may be smaller."""
+    size = -(-kb // q)
+    return np.minimum(np.arange(q + 1) * size, kb).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBlocks:
+    """The blocks stacked per k-shard, padded to a common ``slots``
+    count with zero blocks at (row 0, the shard's first column), so a
+    padding slot adds exactly zero; shard ``j`` owns ``real_counts[j]``
+    blocks, in its first slots."""
+
+    values: torch.Tensor     # [q, slots, b, b]
+    row_idx: np.ndarray      # [q, slots] int32
+    col_idx: np.ndarray      # [q, slots] int32 (global block column)
+    boundaries: np.ndarray
+    shape: Tuple[int, int]
+    block_size: int
+    real_counts: np.ndarray  # [q]
+
+    @property
+    def q(self) -> int:
+        return int(self.values.shape[0])
+
+    @property
+    def slots(self) -> int:
+        return int(self.values.shape[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class KShardPlan:
+    """Host analysis of a k-partition, the pattern half of
+    ``shard_blocks_by_k``: the split boundaries and each block's shard
+    and slot.  ``apply_k_shards`` is the value half."""
+
+    boundaries: np.ndarray   # [q + 1] block-column split positions
+    row_idx: np.ndarray      # [q, slots] int32 (padding: row 0)
+    col_idx: np.ndarray      # [q, slots] int32 (padding: owned column)
+    dst_q: np.ndarray        # [nnz] destination shard, in src_order
+    dst_slot: np.ndarray     # [nnz] destination slot, in src_order
+    src_order: np.ndarray    # [nnz] source blocks, stable by owner
+    shape: Tuple[int, int]
+    block_size: int
+    real_counts: np.ndarray  # [q] blocks each shard owns
+    balanced: bool = True    # nnz-balanced splits, or even ones
+    # the index arrays on each device they were applied on
+    _dev: Dict[str, Tuple[torch.Tensor, ...]] = dataclasses.field(
+        default_factory=dict, compare=False, repr=False)
+
+    @property
+    def q(self) -> int:
+        return int(self.row_idx.shape[0])
+
+    @property
+    def slots(self) -> int:
+        return int(self.row_idx.shape[1])
+
+    def shard_source(self, j: int) -> np.ndarray:
+        """The source blocks (operand order) shard ``j`` owns, in the
+        order of its slots."""
+        start = int(self.real_counts[:j].sum())
+        return self.src_order[start:start + int(self.real_counts[j])]
+
+    def shard_pattern(self, j: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``(row_idx, col_idx)`` of shard ``j``'s own blocks (no
+        padding), over the full grid."""
+        c = int(self.real_counts[j])
+        return self.row_idx[j, :c].copy(), self.col_idx[j, :c].copy()
+
+    def indices_on(self, device) -> Tuple[torch.Tensor, ...]:
+        """``(dst_q, dst_slot, src_order)`` on ``device`` (copied once)."""
+        key = str(device)
+        hit = self._dev.get(key)
+        if hit is None:
+            hit = self._dev[key] = tuple(
+                torch.as_tensor(a, dtype=torch.long, device=device)
+                for a in (self.dst_q, self.dst_slot, self.src_order))
+        return hit
+
+
+def plan_k_shards(bsr: BlockSparseMatrix, q: int, *,
+                  balanced: bool = True) -> KShardPlan:
+    """Pattern half of ``shard_blocks_by_k``: the boundaries and every
+    block's destination."""
+    mask = np.zeros(bsr.grid, bool)
+    rows = np.asarray(bsr.row_idx, np.int64)
+    cols = np.asarray(bsr.col_idx, np.int64)
+    mask[rows, cols] = True
+    kb = mask.shape[1]
+    if q < 1 or q > kb:
+        raise ValueError(f"q={q} k-shards outside [1, {kb} block "
+                         f"columns] for shape {bsr.shape} at block "
+                         f"{bsr.block_size}")
+    bounds = (balanced_k_splits(mask, q) if balanced
+              else even_k_splits(kb, q))
+    owner = np.searchsorted(bounds, cols, side="right") - 1
+    counts = np.bincount(owner, minlength=q)
+    slots = max(int(counts.max()) if len(counts) else 1, 1)
+    row_out = np.zeros((q, slots), np.int32)
+    col_out = np.repeat(bounds[:q, None], slots, axis=1).astype(np.int32)
+    src_order = np.argsort(owner, kind="stable")
+    dst_q = owner[src_order]
+    # each block's slot: its rank among its shard's blocks
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    dst_slot = np.arange(len(dst_q)) - starts[dst_q]
+    row_out[dst_q, dst_slot] = rows[src_order]
+    col_out[dst_q, dst_slot] = cols[src_order]
+    return KShardPlan(bounds, row_out, col_out, dst_q, dst_slot, src_order,
+                      tuple(bsr.shape), bsr.block_size, counts, balanced)
+
+
+def apply_k_shards(plan: KShardPlan, values: torch.Tensor) -> ShardedBlocks:
+    """Value half: the ``[nnz, b, b]`` blocks scattered into the stacked
+    ``[q, slots, b, b]`` shard layout on their device (differentiable in
+    ``values``)."""
+    b = plan.block_size
+    dq, ds, src = plan.indices_on(values.device)
+    out = values.new_zeros((plan.q, plan.slots, b, b)).index_put(
+        (dq, ds), values[src])
+    return ShardedBlocks(out, plan.row_idx, plan.col_idx, plan.boundaries,
+                         plan.shape, b, plan.real_counts)
+
+
+def shard_blocks_by_k(bsr: BlockSparseMatrix, q: int, *,
+                      balanced: bool = True) -> ShardedBlocks:
+    """The blocks over ``q`` k-partitions: nnz-balanced uneven splits
+    (``balanced=True``, the static mode's) or fixed equal splits (the
+    dynamic mode's, to measure the imbalance the paper attributes to
+    it).  ``plan_k_shards`` then ``apply_k_shards``."""
+    return apply_k_shards(plan_k_shards(bsr, q, balanced=balanced),
+                          bsr.values)

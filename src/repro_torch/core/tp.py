@@ -1,0 +1,167 @@
+"""Tensor-parallel SpMM: the paper's k-partition lifted to several cards.
+
+Counterpart of the JAX package's ``core/tp.py``.  PopSparse Fig. 1a
+spreads the non-zero blocks over the tiles of one IPU with uneven,
+nnz-balanced k-splits, computes local products and reduces the partial
+outputs once.  Across cards the same scheme maps onto the ``model`` axis
+of a mesh: each shard owns one k-partition of the blocks
+(``partitioner.shard_blocks_by_k``, stacked ``[q, slots, b, b]``),
+computes its partial ``Y`` from them, and one sum over the axis gives
+the output.
+
+Two formulations, as in the reference, in its ``[K, N]`` layout:
+
+* ``tp_spmm_shard_map``: each rank of a concrete mesh
+  (``torch.distributed.device_mesh.DeviceMesh``) computes its own
+  shard's partial, then one all-reduce over the group of the mesh's
+  ``axis`` (the ``static_tp_shardmap`` plan route);
+* ``tp_spmm_gspmd``: every shard's partial on this device, then a sum
+  over ``q`` (the ``static_tp`` plan route; the reference leaves the
+  reduction to GSPMD, which lowers it to the same all-reduce on a mesh
+  and to a local sum without one).
+
+Here the partials are plain PyTorch (a gather, ``einsum`` and
+``index_add_``).  The plan routes (``sparse/plan.py``) run each shard's
+partial as a bsmm launch through a static plan of that shard instead.
+
+The backward of the explicit route is Megatron's conjugate pair:
+
+* the output is replicated, so each rank's dL/dY is already the whole
+  gradient: the output's all-reduce is an all-reduce forward with an
+  identity backward (``_ReduceFromGroup``); differentiating the
+  all-reduce itself would sum the gradient again, ``q`` times too big;
+* ``x`` enters every rank replicated and dL/dx = sum_j W_j^T dY spans
+  the shards: the input is an identity forward with an all-reduce
+  backward (``_CopyToGroup``);
+* dL/dvalues stays on its rank: rank ``j`` holds the gradient of shard
+  ``j``'s blocks, zeros elsewhere (the sum over the group is the whole
+  gradient).
+
+Every rank joins every collective, a rank whose shard owns no block
+included: it contributes zeros.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.partitioner import ShardedBlocks
+from repro_torch.launch.mesh import is_concrete, mesh_axes
+
+
+def shard_map_executable(mesh, axis: str, q: int) -> bool:
+    """Can ``tp_spmm_shard_map`` run on ``mesh``?  It needs a concrete
+    ``DeviceMesh`` whose ``axis`` has size ``q``: an abstract mesh, or a
+    ``tp_q`` past the mesh's axis, can only run the ``static_tp``
+    formulation."""
+    if not is_concrete(mesh):
+        return False
+    names, sizes = mesh_axes(mesh)
+    if axis not in names:
+        return False
+    return sizes[names.index(axis)] == int(q)
+
+
+def tp_group(mesh, axis: str):
+    """``(process group of mesh axis ``axis``, this rank's shard index
+    along it)``."""
+    return mesh.get_group(axis), int(mesh.get_local_rank(axis))
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, all-reduce of the gradient backward (the input
+    of a tensor-parallel product, replicated on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dx):
+        import torch.distributed as dist
+        dx = dx.contiguous().clone()
+        dist.all_reduce(dx, group=ctx.group)
+        return dx, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce forward, identity backward (the output of a
+    tensor-parallel product: its gradient is replicated already)."""
+
+    @staticmethod
+    def forward(ctx, y, group):
+        import torch.distributed as dist
+        y = y.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(y: torch.Tensor, group) -> torch.Tensor:
+    return _ReduceFromGroup.apply(y, group)
+
+
+def _local_spmm(values: torch.Tensor, row_idx, col_idx, x: torch.Tensor,
+                *, mb: int, b: int) -> torch.Tensor:
+    """One shard's partial product: ``[slots, b, b]`` blocks against the
+    full ``x [K, N]`` -> ``[M, N]``, in the output dtype."""
+    n = x.shape[-1]
+    kb = x.shape[0] // b
+    dev = values.device
+    cols = torch.as_tensor(col_idx, dtype=torch.long, device=dev)
+    rows = torch.as_tensor(row_idx, dtype=torch.long, device=dev)
+    gathered = x.reshape(kb, b, n)[cols]
+    partial = torch.einsum("zab,zbn->zan", values, gathered)
+    y = partial.new_zeros((mb, b, n)).index_add(0, rows, partial)
+    return y.reshape(mb * b, n)
+
+
+def tp_spmm_shard_map(sb: ShardedBlocks, x: torch.Tensor, *, mesh,
+                      axis: str = "model") -> torch.Tensor:
+    """The explicit formulation on this rank: shard ``r``'s partial (``r``
+    this rank's index along ``axis``), all-reduced over the axis's
+    group.  ``sb.q`` must equal the axis size (a mismatched shard plan
+    would shard silently wrong)."""
+    if not shard_map_executable(mesh, axis, sb.q):
+        names, sizes = mesh_axes(mesh) if mesh is not None else ((), ())
+        raise ValueError(
+            f"tp_spmm_shard_map needs a concrete mesh with axis "
+            f"{axis!r} of size q={sb.q}; got mesh axes {names} "
+            f"{dict(zip(names, sizes))}")
+    group, r = tp_group(mesh, axis)
+    b = sb.block_size
+    mb = sb.shape[0] // b
+    y = _local_spmm(sb.values[r], sb.row_idx[r], sb.col_idx[r],
+                    copy_to_group(x, group), mb=mb, b=b)
+    return reduce_from_group(y, group)
+
+
+def tp_spmm_gspmd(sb: ShardedBlocks, x: torch.Tensor, *,
+                  axis: str = "model") -> torch.Tensor:
+    """Every shard's partial on this device, summed over ``q`` in the
+    output dtype (``axis`` names the mesh axis the sum runs over on the
+    reference's mesh; here it is a local sum)."""
+    b = sb.block_size
+    q = sb.q
+    mb = sb.shape[0] // b
+    n = x.shape[-1]
+    kb = x.shape[0] // b
+    dev = sb.values.device
+    cols = torch.as_tensor(sb.col_idx.reshape(-1), dtype=torch.long,
+                           device=dev)
+    gathered = x.reshape(kb, b, n)[cols].reshape(q, sb.slots, b, n)
+    partial = torch.einsum("qzab,qzbn->qzan", sb.values, gathered)
+    flat_rows = torch.as_tensor(
+        sb.row_idx + (np.arange(q) * mb)[:, None],
+        dtype=torch.long, device=dev).reshape(-1)
+    y = partial.new_zeros((q * mb, b, n)).index_add(
+        0, flat_rows, partial.reshape(q * sb.slots, b, n))
+    return y.reshape(q, mb, b, n).sum(dim=0).reshape(mb * b, n)

@@ -24,8 +24,10 @@ Counterpart of the JAX package's ``launch/train.py``: a deterministic
 data pipeline with a checkpointable cursor, async atomic checkpoints
 every ``--ckpt-every`` steps, automatic resume from the latest
 checkpoint (rerun the same command after a crash), and a SIGTERM handler
-that writes a final checkpoint and stops.  The mesh and re-sharding
-arguments wait for the multi-GPU slice.
+that writes a final checkpoint and stops.  The train launcher's mesh,
+re-sharding on restore and the data-parallel loop wait for sharded
+training (ROADMAP queue 1, item 11b); ``launch/mesh.py`` has the mesh
+factories already.
 """
 from __future__ import annotations
 

@@ -160,6 +160,34 @@ class LM(nn.Module):
             out["enc_norm.scale"] = tree["enc_norm"]["scale"]
         return out
 
+    def leaf_groups(self) -> List[tuple]:
+        """This model's parameter names grouped as the reference's
+        parameter tree holds them: the layers at one position of a
+        period share one stacked ``[repeat, ...]`` leaf there, every
+        other parameter is a leaf of its own.  Gradient compression
+        takes one scale per group, as the reference takes one per
+        leaf."""
+        stacks = [("layers", self.cfg)]
+        if self.encoder is not None:
+            stacks.append(("encoder", encoder_cfg(self.cfg)))
+        key_of = {}
+        for prefix, cfg in stacks:
+            li = 0
+            for g, (period, repeat) in enumerate(cfg.groups):
+                for r in range(repeat):
+                    for si in range(len(period)):
+                        key_of[f"{prefix}.{li + r * len(period) + si}"] = \
+                            (prefix, g, si)
+                li += repeat * len(period)
+        groups: Dict[Any, List[str]] = {}
+        for name, _ in self.named_parameters():
+            head, _, rest = name.partition(".")
+            idx, _, leaf = rest.partition(".")
+            pos = key_of.get(f"{head}.{idx}")
+            groups.setdefault(name if pos is None else (pos, leaf),
+                              []).append(name)
+        return [tuple(g) for g in groups.values()]
+
     def load_jax_params(self, tree) -> "LM":
         """Copy the JAX ``LM.init`` params pytree (leaves converted to
         numpy) into this model."""
@@ -174,8 +202,8 @@ class LM(nn.Module):
         ``TrainState`` over it: the params, the step, and the
         ``AdamState`` count (both 0-dim int32 tensors on the model's
         device, as the reference keeps them) with its fp32 master, mu
-        and nu.
-        Gradient-compression state is not ported."""
+        and nu, and the compression residuals (``ef``) where the
+        reference's state has them."""
         from repro_torch.optim.adamw import AdamState
         from repro_torch.train.step import TrainState
 
@@ -196,8 +224,14 @@ class LM(nn.Module):
                          master=fp32(field(opt, "master")),
                          mu=fp32(field(opt, "mu")),
                          nu=fp32(field(opt, "nu")))
+        ef = field(state, "ef") if (isinstance(state, dict) and "ef" in state
+                                    or hasattr(state, "ef")) else None
+        if ef is not None:
+            from repro_torch.optim.compress import EFState
+            ef = EFState(fp32(field(ef, "residual")))
         return TrainState(step=int(np.asarray(field(state, "step"))),
-                          params=dict(self.named_parameters()), opt=adam)
+                          params=dict(self.named_parameters()), opt=adam,
+                          ef=ef)
 
     # -- plumbing ---------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:

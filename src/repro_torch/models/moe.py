@@ -19,8 +19,9 @@ and the expert GEMMs (on a card the plan's backward: gmm on each
 expert's W^T for dL/da); empty slots and dropped assignments get
 exactly zero gradient.
 
-``impl="shard_map"`` needs a device mesh; the port has none yet, so
-every call takes the gspmd formulation, as the reference does without a
+``impl="shard_map"`` needs expert parallelism over a device mesh,
+which waits for sharded training (ROADMAP queue 1, item 11b), so every
+call takes the gspmd formulation, as the reference does without a
 mesh.  The module holds its parameters under the reference's names
 (``router.w``, ``w_gate``, ``w_up``, ``w_down``, ``shared.*``).
 """

@@ -100,6 +100,7 @@ import torch
 from repro_torch import sparse as sparse_api
 from repro_torch.core import dispatch
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import is_concrete
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.model import LM
 from repro_torch.serve.graphs import Program
@@ -111,8 +112,8 @@ _ENGINE_SEQ = itertools.count()
 _LATENCY_WINDOW = 2048          # rolling percentile window (per stream)
 
 # plan_report sections of the reference that wait for modules the port
-# lacks: the tensor-parallel report (multi-GPU)
-NOT_PORTED = ("tp",)
+# lacks (none: the tensor-parallel report came with the TP routes)
+NOT_PORTED: Tuple[str, ...] = ()
 
 
 @dataclasses.dataclass
@@ -237,6 +238,18 @@ class Engine:
     (``start_replanner(interval=replanner_interval,
     reps=replanner_reps)``) once the startup pass is done.
 
+    ``mesh`` makes the engine's plans tensor-parallel (``tp_axis`` names
+    the axis the k range shards over): every static plan races the TP
+    routes beside the unsharded ones, and its verdict is keyed on the
+    mesh's axis names and sizes.  An abstract mesh
+    (``launch.mesh.AbstractMesh``) prices ``q`` cards and runs every
+    shard on this one (``static_tp``); a ``DeviceMesh`` runs one shard
+    per rank too (``static_tp_shardmap``): every rank builds its engine
+    with the same arguments and serves the same requests in the same
+    order, since each FFN product all-reduces over the group.  A
+    concrete mesh whose backend a CUDA graph cannot capture (gloo)
+    refuses ``graphs``: pass ``graphs=False``.
+
     The engine prices its ladder and its admissions with the cost
     calibration active when it is built (``dispatch.cost_coeffs()``),
     for its whole life: a later ``dispatch.set_cost_coeffs`` changes the
@@ -253,8 +266,17 @@ class Engine:
                  plan_cache_dir: Optional[str] = None,
                  replanner: bool = False,
                  replanner_interval: float = 0.25,
-                 replanner_reps: int = 3):
+                 replanner_reps: int = 3,
+                 mesh=None, tp_axis: str = "model"):
         dev = resolve_device(device)
+        if graphs is not False and is_concrete(mesh):
+            import torch.distributed as dist
+            backend = dist.get_backend(mesh.get_group(tp_axis))
+            if backend != "nccl" and (graphs or dev.type == "cuda"):
+                raise NotImplementedError(
+                    f"graphs over a {backend} mesh: a CUDA graph cannot "
+                    f"capture its all-reduce; serve this mesh with "
+                    f"graphs=False")
         if lm.device != dev:
             raise ValueError(f"engine device {dev} != model device "
                              f"{lm.device}")
@@ -263,6 +285,7 @@ class Engine:
         elif graphs and dev.type != "cuda":
             raise ValueError(f"graphs=True needs a card; the engine runs "
                              f"on {dev} (pass graphs=None or False)")
+
         if any(spec.cross for period, _ in lm.cfg.groups for spec in period):
             raise NotImplementedError(
                 f"{lm.cfg.name}: the engine takes no encoder frames, so a "
@@ -280,7 +303,9 @@ class Engine:
         # ctx is otherwise the default, so the engine shares its plans
         # with every other caller of the same problem
         self.plan_ctx = sparse_api.PlanContext(telemetry=telemetry,
-                                               pool=self.pool)
+                                               pool=self.pool, mesh=mesh,
+                                               tp_axis=tp_axis)
+        self.plan_ctx.resolved_tp_q()     # a mesh without tp_axis raises
         if plan_cache_dir is not None:
             self.plan_ctx = dataclasses.replace(
                 self.plan_ctx, cache_dir=plan_cache_dir, persist=True)
@@ -543,14 +568,16 @@ class Engine:
         ``from_disk`` (``plans``) and this engine's live stats
         (``engine``), and each plan's roofline efficiency on the H100's
         peaks with the routes leaving more than 2x on the table
-        (``roofline``, ``sparse.roofline_report``): the serving view of
-        the plan-first lifecycle.  ``not_ported`` names the reference's
-        sections the port does not have yet."""
+        (``roofline``, ``sparse.roofline_report``), and every
+        tensor-parallel verdict (``tp``, ``sparse.tp_report``): the
+        serving view of the plan-first lifecycle.  ``not_ported`` names
+        the reference's sections the port does not have (none now)."""
         return {"startup": dict(self.plan_stats),
                 "now": sparse_api.cache_stats(),
                 "capacity": sparse_api.capacity_report(),
                 "plans": sparse_api.plan_report(),
                 "roofline": sparse_api.roofline_report(),
+                "tp": sparse_api.tp_report(),
                 "engine": self.stats(),
                 "not_ported": list(NOT_PORTED)}
 

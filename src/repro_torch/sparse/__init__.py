@@ -1,6 +1,7 @@
 """Plan-first sparse matmul API of the port (static, dynamic and dense
 kinds): the route race, the disk cache, the reports and the evolution of
-static plans (RigL topology steps)."""
+static plans (RigL topology steps), and the tensor-parallel routes
+(``TP_ROUTES``, ``tp_report``)."""
 from repro_torch.sparse.plan import (PLAN_ROUTES, ROUTES,  # noqa: F401
                                      SDDMM_ROUTES, GradPlan, MatmulPlan,
                                      analytic_plans, batched_matmul,
@@ -13,7 +14,7 @@ from repro_torch.sparse.plan import (PLAN_ROUTES, ROUTES,  # noqa: F401
                                      record_dropped, remeasure_plan, reset,
                                      reset_telemetry, roofline_report,
                                      spmm, spmm_nt, supersede_epoch,
-                                     use_ctx)
+                                     tp_report, use_ctx)
 from repro_torch.sparse.spec import (  # noqa: F401
     ESCALATION_MIN_CALLS, GRAD_DX_MODES, GRAD_SDDMM_MODES, MODES,
-    CapacityStats, OpSpec, PlanContext, port_route)
+    TP_ROUTES, CapacityStats, OpSpec, PlanContext, port_route)

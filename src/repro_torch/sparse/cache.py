@@ -40,7 +40,12 @@ import torch
 # v2: a record may carry an "evolution" lineage section (parent and root
 # keys, generation, drift, re-race verdict: ``MatmulPlan.evolve``); a v1
 # file has none, so it is stale as a whole
-SCHEMA_VERSION = 2
+# v3: a verdict's key may carry the tensor-parallel section ("tp", q,
+# tp_axis, tp_balanced, the mesh's axis names and sizes) and a record the
+# TP routes, their estimates' source ("tp_source") and the "tp" report;
+# a v2 key knew no mesh, so a v2 verdict could answer for another mesh
+# (or for none): stale as a whole
+SCHEMA_VERSION = 3
 
 _lock = threading.RLock()
 _configured_dir: Optional[str] = None

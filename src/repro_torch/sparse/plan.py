@@ -85,8 +85,7 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   writes and stale drops; ``plan_report`` lists every cached plan's
   forward and backward routes with their source and ``from_disk``
   (``:206``); ``explain`` / ``format_plan`` report a plan the way the
-  reference's do (``:485``, ``:625``; its ``tp`` key is None: the TP
-  module is not ported); ``MatmulPlan.roofline`` and
+  reference's do (``:485``, ``:625``); ``MatmulPlan.roofline`` and
   ``roofline_report`` price every candidate against the H100's roofline
   (``:523-557``, ``:252-278``);
   ``analytic_plans`` / ``remeasure_plan`` upgrade analytic verdicts to
@@ -113,7 +112,24 @@ further decisions.  Counterpart of the JAX package's ``sparse/plan.py``
   parent leaves the plan cache for a table of weak references, so it
   stays live while a module, a pool entry or a graph holds it (the other
   layers of an LM sharing its pattern) and is freed after: the table
-  does not grow with the generation.
+  does not grow with the generation;
+* tensor parallelism (``:773-1034``): with ``ctx.mesh`` (or ``tp_q``) a
+  static pattern's k range is sharded over ``q`` cards
+  (``partitioner.plan_k_shards``, nnz-balanced unless
+  ``tp_balanced=False``).  ``static_tp`` computes every shard's partial
+  on this device and sums them; ``static_tp_shardmap`` (a concrete
+  ``DeviceMesh`` whose ``tp_axis`` has size ``q``) computes this rank's
+  shard and all-reduces over the axis's group.  Each shard is a static
+  plan of the full ``[m, k]`` shape holding its k range's blocks, built
+  with the TP plan on the device's static route (so a partial is one
+  bsmm launch, its backward bsmm on the transposed shard and the
+  SDDMM); a shard that owns no block adds zeros.  Under "auto" with a
+  mesh the TP routes join the race priced by ``_tp_estimate`` (the
+  static route's H100 model over ``q`` plus the output reduction over
+  NVLink), or timed with ``measure``; the mode "static_tp" races both
+  TP routes, "static_tp_shardmap" forces the explicit one.  The verdict
+  is keyed on the mesh's axis names and sizes; ``explain()["tp"]``,
+  ``format_plan``'s ``tp:`` lines and ``tp_report`` report it.
 """
 from __future__ import annotations
 
@@ -128,6 +144,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import capture, dispatch, masks, partitioner
+from repro_torch.core import tp as tp_lib
 from repro_torch.core import planner as planner_lib
 from repro_torch.core.bsr import (BlockSparseMatrix, check_unique_blocks,
                                   pattern_key)
@@ -145,9 +162,10 @@ from repro_torch.kernels.gmm import balanced as gmm_balanced
 from repro_torch.kernels.gmm import ops as gmm_ops
 from repro_torch.kernels.sddmm import ops as sddmm_ops
 from repro_torch.sparse import cache as cache_lib
-from repro_torch.sparse.spec import (ADMISSIBLE, SUFFIX, CapacityStats,
-                                     OpSpec, PlanContext, port_route,
-                                     sddmm_route)
+from repro_torch.launch.mesh import is_concrete
+from repro_torch.sparse.spec import (ADMISSIBLE, SUFFIX, TP_ROUTES,
+                                     CapacityStats, OpSpec, PlanContext,
+                                     port_route, sddmm_route)
 
 ROUTES = {("static", "cuda"): "static_cuda",
           ("static", "cpu"): "static_torch",
@@ -155,10 +173,14 @@ ROUTES = {("static", "cuda"): "static_cuda",
           ("dense", "cpu"): "dense_torch"}
 # route of the static kind's dL/dvalues product, by device type
 SDDMM_ROUTES = {"cuda": "sddmm_cuda", "cpu": "sddmm_torch"}
-# every route a plan can run, by device type (a verdict read back from
-# disk must name one of them)
+# every route an unsharded plan can run, by device type (a verdict read
+# back from disk must name one of them, or one of ``TP_ROUTES``)
 PLAN_ROUTES = {dt: tuple(f + sfx for f in ADMISSIBLE["static"])
                for dt, sfx in SUFFIX.items()}
+# the card-to-card link the TP routes' output reduction crosses: the
+# NVLink rate of the NVIDIA H100 SXM datasheet (900 GB/s per card), a
+# datasheet value, not measured here
+NVLINK_BYTES_PER_S = 900e9
 # bins of the balanced walks where the card does not pick (the
 # reference's default)
 DEFAULT_BINS = 8
@@ -240,10 +262,14 @@ class MatmulPlan:
     # the supersede epoch at which an evolve last moved a holder off this
     # plan (0: never); a graph captured before it replays a stale pattern
     superseded: int = 0
+    # the TP routes: the k-partition and the shards this process runs
+    tp: Optional["TPShards"] = None
 
     @property
     def grad_routes(self) -> Dict[str, str]:
         """Routes of the backward products: dL/dx and dL/dvalues."""
+        if self.tp is not None:
+            return dict(self.tp.grad_routes)
         if self.spec is not None and self.spec.op == "batched_matmul" \
                 and self.route != "dense_torch":
             return dict(_BATCHED_GRAD_ROUTES)
@@ -262,9 +288,10 @@ class MatmulPlan:
         schema): the problem, the candidates' estimates (modelled or
         measured), the chosen route and its source, the disk provenance,
         the backward verdicts, the roofline of every candidate
-        (``roofline``), the plan's one-time artifacts and the evolution
-        lineage (``evolution``, None for a plan that was not evolved).
-        ``tp`` is None: the TP module is not ported."""
+        (``roofline``), the plan's one-time artifacts, the evolution
+        lineage (``evolution``, None for a plan that was not evolved) and
+        the tensor-parallel race (``tp``, None without a mesh or
+        ``tp_q``)."""
         return _explain(self)
 
     def roofline(self, *, flag_headroom: float = 2.0) -> dict:
@@ -275,10 +302,13 @@ class MatmulPlan:
         (``OpSpec.roofline_cost``).  ``routes[r]["flagged"]`` marks a
         route leaving more than ``flag_headroom`` x on the table;
         ``kernel_work`` collects them: kernels to make faster, not shapes
-        to avoid."""
+        to avoid.  The TP routes are left out: their times price ``q``
+        cards and a reduction (``explain()["tp"]``)."""
         from repro_torch.analysis import roofline as roofline_lib
         routes = {}
         for route, est in self.est_seconds.items():
+            if route in TP_ROUTES:
+                continue
             eff = roofline_lib.route_efficiency(
                 est, self.spec.roofline_cost(route), dtype=self.spec.dtype,
                 flag_headroom=flag_headroom)
@@ -360,7 +390,10 @@ class MatmulPlan:
         are zero), the stack plus the schedule's zero tile
         (``static_balanced``), the values themselves (the dynamic
         routes) or ``W^T [k, m]`` (``dense``).  Serving packs once per
-        weight load."""
+        weight load.  A TP plan packs the shards this process runs, one
+        stack after the other."""
+        if self.tp is not None:
+            return self.tp.pack(values)
         family = _family(self.route)
         if family in ("static", "static_balanced"):
             tiles = partitioner.pack_values(
@@ -381,6 +414,8 @@ class MatmulPlan:
     def run_packed(self, packed: torch.Tensor, x2: torch.Tensor
                    ) -> torch.Tensor:
         """Static kind on ``pack(values)``: ``x2 [N, k] -> [N, m]``."""
+        if self.tp is not None:
+            return self.tp.run_packed(packed, x2, self.m)
         family = _family(self.route)
         mp, kp = self.walk_shape
         if family == "static":
@@ -408,7 +443,13 @@ class MatmulPlan:
             return self._dynamic_nt(payload, x2)
         if _needs_grad(payload, x2):
             self._check_differentiable()
-            return _StaticSpmmFn.apply(payload, x2, self)
+            if self.tp is None:
+                return _StaticSpmmFn.apply(payload, x2, self)
+            group = self.tp.group
+            if group is None:
+                return _TPSpmmFn.apply(payload, x2, self)
+            return tp_lib.reduce_from_group(_TPSpmmFn.apply(
+                payload, tp_lib.copy_to_group(x2, group), self), group)
         return self.run_packed(self.pack(payload), x2)
 
     def grad_dx(self, values: torch.Tensor, dy2: torch.Tensor
@@ -649,6 +690,92 @@ class _StaticSpmmFn(torch.autograd.Function):
             dv = p.grad_dvalues(dy2, x2).to(values.dtype)
         if ctx.needs_input_grad[1]:
             dx = p.grad_dx(values, dy2).to(x2.dtype)
+        return dv, dx, None
+
+
+@dataclasses.dataclass
+class TPShards:
+    """A TP plan's shards: the k-partition (``meta``) and, for each shard
+    this process runs (all ``q`` on ``static_tp``, its rank's on
+    ``static_tp_shardmap``), a static plan of the full shape holding
+    that shard's blocks (None where it owns none), its blocks' slots in
+    the operand's values on the device, and its tile count in the packed
+    stack.  ``group`` is the process group the explicit route reduces
+    over."""
+
+    meta: partitioner.KShardPlan
+    shards: Tuple[int, ...]
+    plans: Tuple[Optional["MatmulPlan"], ...]
+    src: Tuple[torch.Tensor, ...]
+    tiles: Tuple[int, ...]
+    grad_routes: Dict[str, str]
+    group: Any = None
+
+    def pack(self, values: torch.Tensor) -> torch.Tensor:
+        parts = [p.pack(values[src]) for p, src in zip(self.plans, self.src)
+                 if p is not None]
+        if not parts:
+            return values.new_zeros((0, 1, 1))
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def partials(self, packed: torch.Tensor, x2: torch.Tensor, m: int
+                 ) -> torch.Tensor:
+        """This process's shards' partials summed in the output dtype (a
+        bsmm launch each; zeros where no shard here owns a block)."""
+        y, off = None, 0
+        for p, t in zip(self.plans, self.tiles):
+            if p is None:
+                continue
+            part = p.run_packed(packed[off:off + t], x2)
+            y = part if y is None else y + part
+            off += t
+        return x2.new_zeros((x2.shape[0], m)) if y is None else y
+
+    def run_packed(self, packed: torch.Tensor, x2: torch.Tensor, m: int
+                   ) -> torch.Tensor:
+        y = self.partials(packed, x2, m)
+        if self.group is not None:
+            import torch.distributed as dist
+            y = y.contiguous()
+            dist.all_reduce(y, group=self.group)
+        return y
+
+
+class _TPSpmmFn(torch.autograd.Function):
+    """The partials of the shards this process runs under autograd,
+    summed.  Backward, per shard, on the routes of its static plan:
+    dL/dvalues by the SDDMM into its blocks' slots (zeros at the blocks
+    of shards run elsewhere), dL/dx by bsmm on the transposed shard,
+    summed.  The explicit route wraps it in ``core/tp.py``'s conjugate
+    pair: ``copy_to_group`` on the input (its gradient all-reduced) and
+    ``reduce_from_group`` on the output (all-reduced, its gradient taken
+    as it comes)."""
+
+    @staticmethod
+    def forward(ctx, values, x2, plan_):
+        ctx.plan = plan_
+        x2 = x2.contiguous()
+        ctx.save_for_backward(values, x2)
+        return plan_.tp.partials(plan_.pack(values), x2, plan_.m)
+
+    @staticmethod
+    def backward(ctx, dy2):
+        values, x2 = ctx.saved_tensors
+        tp = ctx.plan.tp
+        dy2 = dy2.contiguous()
+        dv = dx = None
+        if ctx.needs_input_grad[0]:
+            dv = torch.zeros_like(values)
+            for p, src in zip(tp.plans, tp.src):
+                if p is not None:
+                    dv.index_copy_(0, src, p.grad_dvalues(dy2, x2).to(
+                        values.dtype))
+        if ctx.needs_input_grad[1]:
+            for p, src in zip(tp.plans, tp.src):
+                if p is not None:
+                    part = p.grad_dx(values[src], dy2)
+                    dx = part if dx is None else dx + part
+            dx = x2.new_zeros(x2.shape) if dx is None else dx.to(x2.dtype)
         return dv, dx, None
 
 
@@ -952,6 +1079,30 @@ def roofline_report() -> dict:
     }
 
 
+def tp_report() -> dict:
+    """Every tensor-parallel decision this process holds: per plan the
+    raced TP candidates, the source of their times, the crossover (best
+    unsharded over best TP time; > 1: past it) with the route and its
+    disk provenance, and the totals.  The serving engine folds it into
+    ``plan_report()``."""
+    with _LOCK:
+        plans = list(_PLANS.values())
+    per = {}
+    for p in plans:
+        tp = p.artifacts.get("tp")
+        if tp:
+            per[p.key] = dict(tp, route=p.route, from_disk=p.from_disk)
+    return {
+        "per_plan": per,
+        "totals": {
+            "tp_planned": len(per),
+            "tp_chosen": sum(1 for r in per.values() if r["chosen"]),
+            "measured": sum(1 for r in per.values()
+                            if r["source"] == "measured"),
+        },
+    }
+
+
 def reset() -> None:
     """Forget every cached plan, decision, pool, re-planned verdict and
     capacity stat, and zero the counters.  Disk cache files survive:
@@ -959,6 +1110,7 @@ def reset() -> None:
     with _LOCK:
         _PLANS.clear()
         _SUPERSEDED.clear()
+        _SHARD_META.clear()
         _POOLS.clear()
         _CAPACITY.clear()
         _DROPS.clear()
@@ -1123,7 +1275,9 @@ def _check_plan_contracts(route: str, spec: OpSpec,
                           ctx: PlanContext) -> None:
     """Every kernel the plan will launch admits it, at the block that
     kernel walks (the static backward's bsmm and sddmm too, where the
-    plan is differentiable)."""
+    plan is differentiable).  A TP plan launches the static route's."""
+    if route in TP_ROUTES:
+        route = "static_cuda"
     family = _family(route)
     b = spec.block_size
     if spec.kind != "dense" and family in ("static", "static_balanced"):
@@ -1348,25 +1502,36 @@ def _fingerprint(spec: OpSpec, ctx: PlanContext, dev: torch.device,
     """The plan's persistent identity: the decision key (shape, ``n``,
     block, density bucket, dtype, mode, measure, device type, the
     pattern's bucketed skew), the capacity sizing of a dynamic problem
-    and the backward knobs of a static one.  The runtime-only knobs join
-    the in-memory key only (``_mem_key``)."""
+    and the backward knobs of a static one, and the TP section (shard
+    count, axis, split rule and the mesh's axis names and sizes) where
+    the context shards.  The runtime-only knobs join the in-memory key
+    only (``_mem_key``)."""
     base = dispatch._cache_key(spec.kind, spec.m, spec.k, spec.n,
                                spec.block_size, spec.density, spec.dtype,
                                ctx.mode, ctx.measure, dev.type, skew)
+    q = ctx.resolved_tp_q()
+    # a TP verdict belongs to the mesh it was raced on: the axis names
+    # and sizes join the key (a 1 x 4 verdict must not answer for 2 x 2,
+    # nor for a tp_q-only plan without a mesh)
+    tp = (("tp", q, ctx.tp_axis, ctx.tp_balanced)
+          + ctx.mesh_fingerprint()) if q else ()
     cap = (("cap", ctx.resolved_headroom(), ctx.capacity_policy, ctx.units)
            if spec.kind == "dynamic" else ())
     grad = (("grad", ctx.grad_mode, ctx.sddmm_mode)
             if _grad_covered(spec, ctx) else ())
-    return ("plan", spec.op) + base + cap + grad
+    return ("plan", spec.op) + base + tp + cap + grad
 
 
 def _mem_key(fp: tuple, pkey, dev: torch.device, ctx: PlanContext) -> tuple:
     """In-memory plan identity: the fingerprint, the concrete pattern and
     device, the persistence policy and the runtime-only knobs that change
-    what a plan does but not its verdict."""
+    what a plan does but not its verdict (and the concrete mesh whose
+    group a TP plan reduces over)."""
     persist = ctx.resolved_cache_dir() if ctx.persistence_on() else None
+    # a plan on a concrete mesh holds its process group
+    mesh = id(ctx.mesh) if is_concrete(ctx.mesh) else None
     return (fp, pkey, str(dev), persist, ctx.overflow_threshold,
-            ctx.telemetry, ctx.differentiable, ctx.evolve_drift)
+            ctx.telemetry, ctx.differentiable, ctx.evolve_drift, mesh)
 
 
 def _admissible(cands, spec: OpSpec, ctx: PlanContext) -> Tuple[str, ...]:
@@ -1418,22 +1583,32 @@ def _decide(spec: OpSpec, ctx: PlanContext, operand, x, dev: torch.device,
             key: str, counts: Optional[dispatch.WalkCounts],
             skew: Tuple[float, float]):
     """-> (route, est_seconds, source, from_disk, disk_capacity,
-    disk_grad), in the reference's order: the re-planner's overlay, the
-    disk cache, then ``dispatch.decide`` (analytic, or measured with
-    ``ctx.measure``, concrete ``x`` and no capture in progress)."""
-    routes = PLAN_ROUTES[dev.type]
+    disk_grad, tp_source), in the reference's order: the re-planner's
+    overlay, the disk cache, then ``dispatch.decide`` (analytic, or
+    measured with ``ctx.measure``, concrete ``x`` and no capture in
+    progress) and, with a mesh, the TP routes beside it.  ``tp_source``
+    labels the TP entries of ``est_seconds`` apart from the verdict."""
+    routes = PLAN_ROUTES[dev.type] + TP_ROUTES
     rec = _REPLANNED.get(key)
     if rec is None and ctx.cache and ctx.persistence_on():
         rec = cache_lib.load_decision(ctx.resolved_cache_dir(), key)
+    if rec is not None and rec.get("route") == "static_tp_shardmap" \
+            and not ctx.shardmap_executable():
+        rec = None      # raced on a concrete mesh of this shape: not here
     if rec is not None and rec.get("route") in routes:
         return (rec["route"], dict(rec.get("est_seconds", {})),
                 rec.get("source", "analytic"), True, rec.get("capacity"),
-                rec.get("grad"))
+                rec.get("grad"), rec.get("tp_source", rec.get("source")))
     cache_lib.bump("decisions")
+    q = ctx.resolved_tp_q()
+    concrete = (operand is not None and x is not None
+                and not dispatch.capturing())
+    if spec.mode in TP_ROUTES:
+        return _decide_forced_tp(spec, ctx, operand, x, dev, q, counts,
+                                 skew, concrete)
     cands = _admissible(dispatch._candidates(spec.kind, ctx.mode, dev.type),
                         spec, ctx)
-    measure = (ctx.measure and operand is not None and x is not None
-               and len(cands) > 1 and not dispatch.capturing())
+    measure = ctx.measure and concrete and len(cands) > 1
     runner = _race_runner(spec, operand, x, dev, ctx, key) \
         if measure else None
     dkey = dispatch._cache_key(spec.kind, spec.m, spec.k, spec.n,
@@ -1445,7 +1620,217 @@ def _decide(spec: OpSpec, ctx: PlanContext, operand, x, dev: torch.device,
                           cache=ctx.cache)
     if dec.source == "measured" and (fresh or not ctx.cache):
         cache_lib.bump("measurements")
-    return dec.route, dict(dec.est_seconds), dec.source, False, None, None
+    route, est, source = dec.route, dict(dec.est_seconds), dec.source
+    # the mesh-aware candidates (a static pattern under "auto" with a
+    # mesh): timed beside the unsharded routes when those were, else
+    # priced; a modelled TP time never overturns a measured verdict
+    tp_routes = (_tp_candidates(spec, ctx, q)
+                 if spec.mode == "auto" and ctx.mesh is not None else ())
+    tp_source = None
+    if tp_routes:
+        for r in tp_routes:
+            est[r] = _tp_estimate(spec, q, r, counts, skew)
+        tp_source = "analytic"
+        if source == "measured":
+            for r in tp_routes:
+                est[r] = _measure_tp_route(r, spec, ctx, operand, x, dev)
+            tp_source = "measured"
+            cache_lib.bump("measurements")
+            route = dispatch.measured_pick(est, route)
+        elif est[min(tp_routes, key=est.get)] < est[route]:
+            route = min(tp_routes, key=est.get)
+    return route, est, source, False, None, None, tp_source
+
+
+def _decide_forced_tp(spec: OpSpec, ctx: PlanContext, operand, x,
+                      dev: torch.device, q: Optional[int], counts, skew,
+                      concrete: bool):
+    """A TP mode: "static_tp_shardmap" forces the explicit route (a
+    concrete mesh with ``tp_axis`` of size ``q``); "static_tp" is the
+    family, racing both routes where both can run (timed with
+    ``ctx.measure`` and concrete inputs)."""
+    if spec.kind != "static":
+        raise ValueError(f"mode {spec.mode!r} cannot execute a "
+                         f"{spec.kind} operand")
+    if not q:
+        raise ValueError(f"mode {spec.mode!r} needs ctx.mesh (with "
+                         "ctx.tp_axis) or an explicit ctx.tp_q")
+    if spec.mode == "static_tp_shardmap":
+        if not ctx.shardmap_executable():
+            raise ValueError(
+                "mode 'static_tp_shardmap' needs a concrete "
+                f"ctx.mesh with axis {ctx.tp_axis!r} of size q={q} "
+                "(an abstract mesh or a bare tp_q can only execute "
+                "the 'static_tp' route)")
+        cands: Tuple[str, ...] = ("static_tp_shardmap",)
+    else:
+        cands = _tp_candidates(spec, ctx, q) or ("static_tp",)
+    est = {r: _tp_estimate(spec, q, r, counts, skew) for r in cands}
+    source = "forced"
+    if ctx.measure and len(cands) > 1 and concrete:
+        est = {r: _measure_tp_route(r, spec, ctx, operand, x, dev)
+               for r in cands}
+        cache_lib.bump("measurements")
+        source = "measured"
+    return min(est, key=est.get), est, source, False, None, None, source
+
+
+def _tp_estimate(spec: OpSpec, q: int, route: str = "static_tp",
+                 counts: Optional[dispatch.WalkCounts] = None,
+                 skew: Tuple[float, float] = (1.0, 0.0)) -> float:
+    """The analytic prior of a TP route (paper Fig. 1a across cards): the
+    static route's H100 time over ``q`` (nnz-balanced shards) plus one
+    reduction of the ``[n, m]`` output over NVLink
+    (``NVLINK_BYTES_PER_S``, the datasheet's rate).  ``static_tp`` is
+    priced 5 % above the explicit route, as the reference does, so a tie
+    between two unmeasured routes goes to the pinned schedule."""
+    t_local = dispatch._estimate(
+        "static_cuda", spec.m, spec.k, spec.n, spec.block_size,
+        spec.density, spec.dtype, imbalance=skew[0], cv=skew[1],
+        counts=counts, kind="static") / max(1, q)
+    bytes_el = max(1, getattr(torch, spec.dtype).itemsize)
+    t_reduce = (spec.m * spec.n * bytes_el) * max(0, q - 1) / max(1, q) \
+        / NVLINK_BYTES_PER_S
+    penalty = 1.05 if route == "static_tp" else 1.0
+    return (t_local + t_reduce) * penalty
+
+
+def _tp_candidates(spec: OpSpec, ctx: PlanContext,
+                   q: Optional[int]) -> Tuple[str, ...]:
+    """The TP routes that can run this plan: ``static_tp`` anywhere (its
+    sum is local), the explicit route on a concrete mesh whose
+    ``tp_axis`` has size ``q``."""
+    if spec.kind != "static" or spec.op != "spmm" or not q or q < 2:
+        return ()
+    routes = ["static_tp"]
+    if ctx.shardmap_executable():
+        routes.append("static_tp_shardmap")
+    return tuple(routes)
+
+
+# the k-partition of a pattern, per (pattern, shape, block, q, split
+# rule): a race and the plan it builds partition once
+_SHARD_META: Dict[Tuple, partitioner.KShardPlan] = {}
+
+
+def _shard_meta_for(bsr: BlockSparseMatrix, q: int,
+                    balanced: bool) -> partitioner.KShardPlan:
+    key = (pattern_key(bsr.row_idx, bsr.col_idx), tuple(bsr.shape),
+           bsr.block_size, q, balanced)
+    with _LOCK:
+        meta = _SHARD_META.get(key)
+    if meta is None:
+        meta = partitioner.plan_k_shards(bsr, q, balanced=balanced)
+        with _LOCK:
+            if len(_SHARD_META) >= _PATTERN_INFO_MAX:
+                _SHARD_META.clear()
+            meta = _SHARD_META.setdefault(key, meta)
+    return meta
+
+
+def _build_tp(bsr: BlockSparseMatrix, n: int, dev: torch.device,
+              route: str, ctx: PlanContext,
+              with_grad: bool = True) -> MatmulPlan:
+    """A TP plan on ``route``: the k-partition and a static plan per shard
+    this process runs, forced to the device's static route (no nested
+    race) with its backward on bsmm and the SDDMM."""
+    q = ctx.resolved_tp_q()
+    meta = _shard_meta_for(bsr, q, ctx.tp_balanced)
+    m, k = bsr.shape
+    b = bsr.block_size
+    shard_route = ROUTES[("static", dev.type)]
+    dv_route = SDDMM_ROUTES[dev.type]
+    group = None
+    if route == "static_tp_shardmap":
+        group, r = tp_lib.tp_group(ctx.mesh, ctx.tp_axis)
+        shards: Tuple[int, ...] = (r,)
+    else:
+        shards = tuple(range(q))
+    sub_ctx = dataclasses.replace(ctx, mode="static", mesh=None, tp_q=None,
+                                  telemetry=False, cache=False, pool=None)
+    plans, src, tiles = [], [], []
+    for j in shards:
+        rows, cols = meta.shard_pattern(j)
+        if not len(rows):
+            plans.append(None)
+            src.append(torch.zeros(0, dtype=torch.long, device=dev))
+            tiles.append(0)
+            continue
+        shard = BlockSparseMatrix(torch.empty((0, b, b), dtype=bsr.dtype),
+                                  rows, cols, (m, k), b)
+        sp = _build_static(shard, n, dev, shard_route, sub_ctx,
+                           with_grad=with_grad)
+        sp.spec = OpSpec.from_operand(shard, n, mode="static")
+        if with_grad:
+            _set_grad_routes(sp, shard_route, dv_route)
+        plans.append(sp)
+        src.append(torch.as_tensor(meta.shard_source(j), dtype=torch.long,
+                                   device=dev))
+        tiles.append(sp.packing.num_tiles)
+    bal = partitioner.balance_report(meta.real_counts)
+    p = MatmulPlan(kind="static", route=route, m=m, k=k, n=n,
+                   dtype=bsr.dtype, device=dev, ctx=ctx, block_size=b,
+                   pattern=(np.asarray(bsr.row_idx, np.int32),
+                            np.asarray(bsr.col_idx, np.int32)))
+    p.tp = TPShards(meta, shards, tuple(plans), tuple(src), tuple(tiles),
+                    {"dx": shard_route, "dvalues": dv_route}, group)
+    p.artifacts = {"nnz_blocks": len(bsr.row_idx), "tp_q": q,
+                   "tp_axis": ctx.tp_axis, "tp_route": route,
+                   "tp_balanced": ctx.tp_balanced,
+                   "tp_imbalance": bal["imbalance"], "tp_slots": meta.slots,
+                   "tp_boundaries": [int(v) for v in meta.boundaries]}
+    return p
+
+
+def _measure_tp_route(route: str, spec: OpSpec, ctx: PlanContext, operand,
+                      x, dev: torch.device) -> float:
+    """Time one TP route on the device as the race times every other
+    route (``dispatch.measure_callable``: CUDA events on a card), on a
+    candidate plan built for it: its shards' launches and, on the
+    explicit route, the all-reduce (every rank of the group plans
+    together, so every rank times the same calls)."""
+    race_ctx = dataclasses.replace(ctx, telemetry=False, cache=False)
+    q = _build_tp(operand, int(spec.n), dev, route, race_ctx,
+                  with_grad=False)
+    vals = operand.values.to(device=dev, dtype=q.dtype)
+    packed = q.pack(vals)
+    x2 = _as_rows(x, spec.k).to(q.dtype)
+    return dispatch.measure_callable(lambda xx, pk: q.run_packed(pk, xx),
+                                     x2, packed)
+
+
+def _tp_decision(ctx: PlanContext, route: str, est: Dict[str, float],
+                 source: str, tp_source: Optional[str]) -> Optional[dict]:
+    """The TP section of a plan's report: what the race saw and where the
+    crossover sits.  ``tp_speedup_vs_unsharded`` is the best unsharded
+    time over the best TP time (> 1: past the crossover on this mesh),
+    reported only where both sides carry one unit (both measured or
+    both modelled)."""
+    tp_est = {r: est[r] for r in TP_ROUTES if r in est}
+    if not tp_est:
+        return None
+    q = ctx.resolved_tp_q()
+    best_tp = min(tp_est, key=tp_est.get)
+    unsh = {r: v for r, v in est.items() if r not in TP_ROUTES}
+    best_un = min(unsh, key=unsh.get) if unsh else None
+    tp_source = tp_source or source
+    comparable = best_un is None or tp_source == source
+    speedup = (est[best_un] / est[best_tp]
+               if best_un is not None and comparable else None)
+    mesh_fp = ctx.mesh_fingerprint()
+    return {
+        "q": q, "axis": ctx.tp_axis, "balanced": ctx.tp_balanced,
+        "mesh": ({n: v for n, v in zip(*mesh_fp)} if mesh_fp else None),
+        "candidates": {r: tp_est[r] for r in
+                       sorted(tp_est, key=tp_est.get)},
+        "chosen": route if route in TP_ROUTES else None,
+        "best_tp_route": best_tp,
+        "best_unsharded_route": best_un,
+        "source": tp_source,
+        "tp_speedup_vs_unsharded": (round(speedup, 4)
+                                    if speedup is not None else None),
+        "tp_wins": bool(speedup is not None and speedup > 1.0),
+    }
 
 
 def _grad_verdict(est: Dict[str, float], forced: bool,
@@ -1558,18 +1943,32 @@ def _grad_decide(p: MatmulPlan, spec: OpSpec, ctx: PlanContext, x,
     return grad
 
 
+def _tp_grad_section(p: MatmulPlan) -> dict:
+    """The backward section of a TP plan: its shards' static plans run
+    dL/dx (bsmm on each transposed shard) and dL/dvalues (the SDDMM), a
+    fixed formulation, not raced."""
+    return {"mode": "planned",
+            **{side: {"route": route, "source": "forced", "est_seconds": {}}
+               for side, route in p.tp.grad_routes.items()},
+            "from_disk": False, "sharded": p.artifacts["tp_route"]}
+
+
 def _record(p: MatmulPlan) -> dict:
     """The verdict ``plan()`` persists: route, source and estimates, the
-    planned capacity (without its running ``escalated`` flag) and the
-    backward verdicts."""
+    planned capacity (without its running ``escalated`` flag), the
+    backward verdicts, and the source of the TP routes' estimates (a
+    replay reports the crossover in the unit it was raced in)."""
     rec = {"route": p.route, "source": p.source,
            "est_seconds": {r: float(v) for r, v in p.est_seconds.items()}}
+    if p.artifacts.get("_tp_source") is not None:
+        rec["tp_source"] = p.artifacts["_tp_source"]
     cap = p.artifacts.get("capacity")
     if cap:
         rec["capacity"] = {k2: v for k2, v in cap.items()
                            if k2 != "escalated"}
     grad = p.artifacts.get("grad")
-    if grad and grad.get("mode") == "planned" and "dx" in grad:
+    if grad and grad.get("mode") == "planned" and "dx" in grad \
+            and p.tp is None:
         rec["grad"] = {side: {k2: grad[side][k2]
                               for k2 in ("route", "source", "est_seconds")}
                        for side in ("dx", "dvalues")}
@@ -1636,10 +2035,13 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
         counts = dispatch.dynamic_counts(
             spec.m, spec.k, spec.block_size, spec.density,
             headroom=ctx.resolved_headroom(), policy=ctx.capacity_policy)
-    route, est, source, from_disk, disk_cap, disk_grad = _decide(
-        spec, ctx, operand, x, dev, key, counts, skew)
+    route, est, source, from_disk, disk_cap, disk_grad, tp_source = \
+        _decide(spec, ctx, operand, x, dev, key, counts, skew)
     _check_plan_contracts(route, spec, ctx)
-    if spec.kind == "static":
+    if route in TP_ROUTES:
+        p = _build_tp(operand, int(spec.n), dev, route, ctx,
+                      with_grad=ctx.differentiable)
+    elif spec.kind == "static":
         p = _build_static(operand, int(spec.n), dev, route, ctx,
                           with_grad=ctx.differentiable)
     elif spec.kind == "dynamic":
@@ -1655,9 +2057,15 @@ def plan(operand_or_spec: Union[Operand, OpSpec], n: Optional[int] = None,
     p.spec = p.spec or spec
     p.key, p.mem_key = key, mem_key
     p.source, p.est_seconds, p.from_disk = source, est, from_disk
-    if _grad_covered(spec, ctx):
+    if p.tp is not None and ctx.differentiable:
+        p.artifacts["grad"] = _tp_grad_section(p)
+    elif _grad_covered(spec, ctx):
         p.artifacts["grad"] = dict(_grad_decide(p, spec, ctx, x, disk_grad),
                                    mode="planned")
+    tp_info = _tp_decision(ctx, route, est, source, tp_source)
+    if tp_info is not None:
+        p.artifacts["tp"] = tp_info
+        p.artifacts["_tp_source"] = tp_source
     cache_lib.bump("plans_built")
     # persist the verdict once, with its capacity and backward sections;
     # an identical record (a disk hit rebuilt) writes nothing
@@ -1818,8 +2226,12 @@ def _evolve_plan(parent: MatmulPlan, new_bsr: BlockSparseMatrix,
         # the verdict-reuse path: the new pattern's walk on the parent's
         # route and backward routes, no decision, no measurement
         _check_plan_contracts(parent.route, spec, ctx)
-        p = _build_static(new_bsr, spec.n, dev, parent.route, ctx,
-                          with_grad=parent.grad is not None)
+        if parent.tp is not None:
+            p = _build_tp(new_bsr, spec.n, dev, parent.route, ctx,
+                          with_grad="grad" in parent.artifacts)
+        else:
+            p = _build_static(new_bsr, spec.n, dev, parent.route, ctx,
+                              with_grad=parent.grad is not None)
         skew, _ = _pattern_info(pk_new, new_rows, new_cols, spec)
         fp = _fingerprint(spec, ctx, dev, skew)
         p.spec, p.key = spec, cache_lib.key_string(fp)
@@ -1832,6 +2244,9 @@ def _evolve_plan(parent: MatmulPlan, new_bsr: BlockSparseMatrix,
             # inherited from the parent in memory: its disk provenance
             p.artifacts["grad"] = dict(parent.artifacts["grad"],
                                        evolved=True)
+        for k2 in ("tp", "_tp_source"):
+            if k2 in parent.artifacts:
+                p.artifacts[k2] = parent.artifacts[k2]
         cache_lib.bump("plans_built")
         if ctx.cache:
             with _LOCK:
@@ -1898,7 +2313,7 @@ def _explain(p: MatmulPlan) -> dict:
         "cached": p.from_disk,
         "from_disk": p.from_disk,
         "cache_key": p.key,
-        "tp": None,
+        "tp": p.artifacts.get("tp"),
         "grad": p.artifacts.get("grad") or _batched_grad(p),
         "evolution": p.artifacts.get("evolution"),
         "roofline": p.roofline(),
@@ -1932,6 +2347,18 @@ def format_plan(p: MatmulPlan) -> str:
     if "bucket_blocks" in art:
         extra.append(f"buckets: {art['bucket_blocks']} blocks/bucket over "
                      f"q=({art['q_m']},{art['q_k']},{art['q_n']})")
+    if "tp_q" in art:
+        extra.append(
+            f"tp: {art.get('tp_route', 'static_tp')} q={art['tp_q']} "
+            f"{'nnz-balanced' if art.get('tp_balanced', True) else 'even'}"
+            f" k-shards over '{art['tp_axis']}'")
+    tpd = art.get("tp")
+    if tpd and tpd.get("tp_speedup_vs_unsharded") is not None:
+        extra.append(
+            f"tp race ({tpd['source']}): best {tpd['best_tp_route']} "
+            f"{tpd['tp_speedup_vs_unsharded']}x vs "
+            f"{tpd['best_unsharded_route']}"
+            + (" [past crossover]" if tpd["tp_wins"] else ""))
     g = rep["grad"]
     if g:
         extra.append(f"grad: dx={g['dx']['route']} "
@@ -1988,9 +2415,12 @@ def explain(operand_or_spec: Union[Operand, OpSpec],
 
 def _remeasurable(p: MatmulPlan) -> bool:
     """Can the re-planner time this plan?  Analytic forward verdicts only
-    (a forced one has nothing to race, a measured one is done)."""
+    (a forced one has nothing to race, a measured one is done), and none
+    planned for a mesh or ``tp_q``: the TP race belongs to the
+    foreground ``measure=True`` path, with every rank of the mesh."""
     return (p.source == "analytic" and p.key not in _REPLANNED
-            and (p.kind != "static" or p.pattern is not None))
+            and (p.kind != "static" or p.pattern is not None)
+            and not p.ctx.resolved_tp_q())
 
 
 def analytic_plans(pool: Optional[str] = None) -> list:

@@ -11,14 +11,16 @@ of a planned-capacity route.
 route id).  "auto" races every admissible route (``core.dispatch``);
 ``port_route`` maps a family or route id onto the port's one route by
 device: its CUDA kernel on a card (``*_cuda``), its plain PyTorch
-version on the CPU (``*_torch``).
+version on the CPU (``*_torch``).  The two tensor-parallel routes keep
+the reference's names on every device (``TP_ROUTES``): ``sparse.plan``
+plans them, each shard's partial on the static route of the device.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import threading
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -27,6 +29,7 @@ from repro_torch.core import planner as planner_lib
 from repro_torch.core.bsr import BlockSparseMatrix
 from repro_torch.core.dynamic_sparse import DynamicOperand
 from repro_torch.kernels.contract import dtype_name
+from repro_torch.launch.mesh import mesh_axes
 
 KINDS = ("dense", "static", "dynamic")
 OPS = ("spmm", "matmul", "batched_matmul")
@@ -35,7 +38,14 @@ OPS = ("spmm", "matmul", "batched_matmul")
 JAX_ROUTES = ("dense_xla", "dense_pallas", "static_xla", "static_pallas",
               "static_balanced", "dynamic_xla", "dynamic_pallas",
               "dynamic_grouped", "dynamic_grouped_balanced")
-MODES = ("auto", "dense", "static", "dynamic") + JAX_ROUTES
+# the mesh-aware routes of a static pattern (``core/tp.py``), planned by
+# ``sparse.plan``, not by dispatch (they need the pattern's k-shards and
+# a mesh axis): "static_tp" computes every shard's partial on this
+# device and sums them; "static_tp_shardmap" runs one shard per rank of
+# a concrete mesh and all-reduces over its ``tp_axis``.  As a mode,
+# "static_tp" is the TP family: it races both where both can run
+TP_ROUTES = ("static_tp", "static_tp_shardmap")
+MODES = ("auto", "dense", "static", "dynamic") + JAX_ROUTES + TP_ROUTES
 
 # mode -> the port's route family (before the device suffix)
 _FAMILY = {"dense": "dense", "dense_xla": "dense", "dense_pallas": "dense",
@@ -59,7 +69,7 @@ SUFFIX = {"cuda": "_cuda", "cpu": "_torch"}
 # static mode but "auto" forcing its route (``port_route``); dL/dvalues a
 # block SDDMM ("sddmm_xla" and "sddmm_grouped" force the sddmm route,
 # "sddmm_dense" the dense product and a gather)
-GRAD_DX_MODES = MODES
+GRAD_DX_MODES = tuple(m for m in MODES if m not in TP_ROUTES)
 GRAD_SDDMM_MODES = ("auto", "sddmm_xla", "sddmm_grouped", "sddmm_dense")
 _SDDMM_FAMILY = {"sddmm_xla": "sddmm", "sddmm_grouped": "sddmm",
                  "sddmm_dense": "sddmm_dense"}
@@ -73,6 +83,9 @@ def port_route(kind: str, mode: str, device_type: str) -> str:
     if mode == "auto":
         raise ValueError("mode 'auto' races its candidates; port_route maps "
                          "an explicit family or route")
+    if mode in TP_ROUTES:
+        raise ValueError(f"mode {mode!r} is a tensor-parallel route: "
+                         f"sparse.plan plans it from the pattern")
     family = _FAMILY[mode]
     if family not in ADMISSIBLE[kind]:
         raise ValueError(f"mode {mode!r} cannot execute a {kind} operand")
@@ -337,6 +350,21 @@ class PlanContext:
                     never.  Joins the in-memory key only; the value and
                     the drift are recorded in the evolution lineage
 
+    Tensor parallelism (the k-sharded routes, ``TP_ROUTES``):
+
+    mesh            an ``launch.mesh.AbstractMesh`` (names and sizes: a
+                    plan prices ``q`` cards and runs every shard here,
+                    ``static_tp``) or a ``DeviceMesh`` over a process
+                    group (``static_tp_shardmap`` runs one shard per rank
+                    too).  Under "auto" a static plan races the TP routes
+                    against the unsharded ones; its verdict is keyed on
+                    the mesh's axis names and sizes
+    tp_axis         the mesh axis the blocks' k range shards over
+    tp_q            shard count without a mesh (``static_tp`` only), or
+                    one that overrides the axis size
+    tp_balanced     nnz-balanced uneven k-splits (the static mode's),
+                    else fixed equal ones
+
     Plan pool (the serving engine's plan enumeration):
 
     pool            label grouping every plan used under this context
@@ -362,6 +390,10 @@ class PlanContext:
     sddmm_mode: str = "auto"
     evolve_drift: Optional[float] = 0.25
     pool: Optional[str] = None
+    mesh: Any = None
+    tp_axis: str = "model"
+    tp_q: Optional[int] = None
+    tp_balanced: bool = True
 
     def __post_init__(self):
         if self.evolve_drift is not None and self.evolve_drift < 0:
@@ -392,6 +424,39 @@ class PlanContext:
         from repro_torch.sparse import cache as cache_lib
         return (self.cache_dir or cache_lib.configured_cache_dir()
                 or _default_cache_dir())
+
+    def resolved_tp_q(self) -> Optional[int]:
+        """The shard count of the TP routes: ``tp_q``, else the size of
+        the mesh's ``tp_axis``, else None (no TP).  A mesh without
+        ``tp_axis`` raises: planning unsharded would hide the mistake."""
+        if self.tp_q is not None:
+            return int(self.tp_q)
+        if self.mesh is not None:
+            names, sizes = mesh_axes(self.mesh)
+            if self.tp_axis not in names:
+                raise ValueError(
+                    f"PlanContext.mesh axes {names} do not include "
+                    f"tp_axis {self.tp_axis!r}; pass "
+                    f"PlanContext(tp_axis=...) naming the mesh axis to "
+                    f"shard k over, or set tp_q explicitly to plan "
+                    f"without a mesh")
+            return sizes[names.index(self.tp_axis)]
+        return None
+
+    def mesh_fingerprint(self) -> tuple:
+        """The mesh's identity in a plan key: axis names and sizes (not
+        its devices or ranks: a verdict holds for any mesh of the same
+        shape on this card type)."""
+        if self.mesh is None:
+            return ()
+        return mesh_axes(self.mesh)
+
+    def shardmap_executable(self) -> bool:
+        """Can the ``static_tp_shardmap`` route run under this context?"""
+        from repro_torch.core import tp as tp_lib
+        q = self.resolved_tp_q()
+        return bool(q) and tp_lib.shard_map_executable(
+            self.mesh, self.tp_axis, q)
 
     def persistence_on(self) -> bool:
         if self.persist is None:

@@ -6,9 +6,9 @@ The port's counterpart of the reference launcher's
 forward, the planned backward, the global-norm clip and the AdamW update
 of ``train.step.make_train_step`` as one ``serve.graphs.Program`` per
 (batch, seq).  The state is the donated argument: the step updates its
-tensors in place (parameters, fp32 master, moments, and the step and
-update count, both device tensors), so a graph captured once replays
-every later step on the same addresses.  The batch is uploaded into the
+tensors in place (parameters, fp32 master, moments, the compression
+residuals with ``grad_compress``, and the step and update count, both
+device tensors), so a graph captured once replays every later step on the same addresses.  The batch is uploaded into the
 program's input buffer (``load``: tokens then targets, ``2 B S`` int64,
 from pinned memory without a host wait), its float entries, where the
 model takes them (a VLM's ``frontend``, an encoder-decoder's
@@ -117,9 +117,10 @@ class TrainProgram:
 
     def _tensors(self) -> tuple:
         st = self.state
+        ef = () if st.ef is None else tuple(st.ef.residual.values())
         return (st.step, st.opt.count, *st.params.values(),
                 *st.opt.master.values(), *st.opt.mu.values(),
-                *st.opt.nu.values())
+                *st.opt.nu.values(), *ef)
 
     def load(self, batch: dict) -> None:
         """Upload one batch (``{"tokens", "targets"}``, ``[B, S]``, and

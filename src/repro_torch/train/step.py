@@ -7,8 +7,10 @@ model's own tensors, keyed by name, and a step updates them in place.
 Gradients come from ``torch.autograd.grad`` of ``LM.loss``: through the
 sparse FFN that runs the static plan's planned backward (bsmm on the
 transposed pattern for dL/dx, the SDDMM for dL/dvalues), and through an
-MoE FFN's routing and expert GEMMs (gmm on W^T for dL/da).  Gradient
-compression (``optim/compress.py``) is not ported yet.
+MoE FFN's routing and expert GEMMs (gmm on W^T for dL/da).  With
+``grad_compress`` the gradients go through error-feedback int8
+compression (``optim/compress.py``) before the clip, as the reference's
+do; its residuals are part of the state.
 
 RigL topology steps: ``rigl_evolve`` is the reference's step on a plan
 (the new mask, the evolved plan, the carried values);
@@ -24,7 +26,7 @@ graph (the counterpart of the reference's ``jax.jit`` of this step).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,6 +35,7 @@ from repro_torch.core.bsr import BlockSparseMatrix
 from repro_torch.optim.adamw import (AdamState, adamw_init, adamw_update,
                                      carry_slots, clip_by_global_norm,
                                      counter)
+from repro_torch.optim.compress import EFState, compress_grads, ef_init
 from repro_torch.optim.schedule import warmup_cosine
 
 Tensors = Dict[str, torch.Tensor]
@@ -43,6 +46,7 @@ class TrainState:
     step: torch.Tensor       # [] int32 on the params' device (an int is taken)
     params: Tensors          # the model's parameters, by name
     opt: AdamState
+    ef: Optional[EFState] = None   # None unless gradient compression
 
     def __post_init__(self):
         self.step = counter(self.step, self.params)
@@ -58,21 +62,15 @@ class TrainHParams(NamedTuple):
     grad_compress: bool = False
 
 
-def _no_compress(hp: TrainHParams) -> None:
-    if hp.grad_compress:
-        raise NotImplementedError(
-            "grad_compress=True: error-feedback gradient compression "
-            "(optim/compress.py) is not ported yet")
-
-
 def init_train_state(lm, *, hp: TrainHParams = TrainHParams()
                      ) -> TrainState:
     """Make ``lm``'s parameters (as initialised or loaded) trainable and
-    start AdamW on them."""
-    _no_compress(hp)
+    start AdamW on them (and the compression residuals with
+    ``grad_compress``)."""
     lm.requires_grad_(True)
     params = dict(lm.named_parameters())
-    return TrainState(0, params, adamw_init(params))
+    return TrainState(0, params, adamw_init(params),
+                      ef_init(params) if hp.grad_compress else None)
 
 
 def microbatch_grads(grad_fn: Callable, params: Tensors, batch: dict,
@@ -146,9 +144,19 @@ def evolve_sparse_layer(state: TrainState, name: str, layer,
     """Move the ``SparseLinear`` ``layer``, whose values are
     ``state.params[name]``, onto ``new_pattern`` (``layer.evolve``) and
     carry the optimizer's master copy and moments of those values with
-    it (``carry_slots``).  Returns the ``EvolvePlan``."""
+    it (``carry_slots``), and its compression residual where the state
+    has one (a grown block starts with none).  Returns the
+    ``EvolvePlan``."""
     eplan = layer.evolve(new_pattern)
     carry_slots(state.opt, name, eplan)
+    if state.ef is not None:
+        with torch.no_grad():
+            old = state.ef.residual[name]
+            new = partitioner.apply_evolution(eplan, old)
+            if new.shape == old.shape:
+                old.copy_(new)
+            else:
+                state.ef.residual[name] = new
     state.params[name] = layer.values
     return eplan
 
@@ -179,15 +187,23 @@ def make_train_step(lm, hp: TrainHParams = TrainHParams()):
     Metrics, each a device tensor: the loss's own (``xent``; an MoE
     model's ``aux_loss``, ``z_loss`` and ``dropped_frac`` too),
     microbatch-averaged, ``loss``, ``grad_norm`` (before clipping) and
-    ``lr`` (from the step on its device).  Nothing is read back to the
-    host once the plans are built."""
-    _no_compress(hp)
+    ``lr`` (from the step on its device).  With ``grad_compress`` the
+    gradients are compressed before the clip, one scale per leaf of the
+    reference's parameter tree (``LM.leaf_groups``; ``state.ef``
+    carries the residuals, in place).  Nothing is read back to the host once the
+    plans are built."""
     grad_fn = lm_grad_fn(lm)
+    groups = lm.leaf_groups() if hp.grad_compress else None
 
     def train_step(state: TrainState, batch: dict
                    ) -> Tuple[TrainState, Dict[str, Any]]:
         loss, metrics, grads = microbatch_grads(grad_fn, state.params,
                                                 batch, hp.accum)
+        if hp.grad_compress:
+            if state.ef is None:
+                raise ValueError("grad_compress=True needs the state's "
+                                 "residuals: init_train_state(lm, hp=hp)")
+            grads, state.ef = compress_grads(grads, state.ef, groups)
         grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
         lr = warmup_cosine(state.step, peak_lr=hp.peak_lr,
                            warmup_steps=hp.warmup_steps,
@@ -204,22 +220,33 @@ def make_train_step(lm, hp: TrainHParams = TrainHParams()):
 
 def state_tree(state: TrainState) -> dict:
     """The state as a nested dict of tensors, the step and the count
-    among them (what the checkpointer stores)."""
-    return {"step": state.step, "params": dict(state.params),
+    among them (what the checkpointer stores), with the compression
+    residuals under ``ef`` where the state has them."""
+    tree = {"step": state.step, "params": dict(state.params),
             "opt": {"count": state.opt.count,
                     "master": dict(state.opt.master),
                     "mu": dict(state.opt.mu), "nu": dict(state.opt.nu)}}
+    if state.ef is not None:
+        tree["ef"] = {"residual": dict(state.ef.residual)}
+    return tree
 
 
 @torch.no_grad()
 def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     """Copy a restored ``state_tree`` into ``state``'s tensors in place
-    (the model's parameters, the step and the count included: a captured
-    train step reads the restored values); returns ``state``."""
-    for src, dst in ((tree["params"], state.params),
-                     (tree["opt"]["master"], state.opt.master),
-                     (tree["opt"]["mu"], state.opt.mu),
-                     (tree["opt"]["nu"], state.opt.nu)):
+    (the model's parameters, the step, the count and the compression
+    residuals included: a captured train step reads the restored
+    values); returns ``state``."""
+    pairs = [(tree["params"], state.params),
+             (tree["opt"]["master"], state.opt.master),
+             (tree["opt"]["mu"], state.opt.mu),
+             (tree["opt"]["nu"], state.opt.nu)]
+    if (state.ef is None) != ("ef" not in tree):
+        raise ValueError("the checkpoint and the state disagree on "
+                         "gradient compression (residuals in one only)")
+    if state.ef is not None:
+        pairs.append((tree["ef"]["residual"], state.ef.residual))
+    for src, dst in pairs:
         for n, t in dst.items():
             t.copy_(src[n])
     state.step.copy_(torch.as_tensor(tree["step"]))

@@ -1482,14 +1482,15 @@ def _serve_stream(seed, lengths, new=4):
 
 
 def _serve(lm, dev, graphs, lengths, *, buckets, max_len, batch=2,
-           warm_compile=True, after_warm=None):
+           warm_compile=True, after_warm=None, mesh=None):
     """Serve ``lengths`` (seeded prompts) through a fresh engine; returns
     the tokens, every call's logits, the launch counts of the run by
     counter, the run's routing drops and the engine."""
     from repro_torch.kernels import _build
     from repro_torch.serve import Engine
     eng = Engine(lm, batch=batch, max_len=max_len, device=dev,
-                 buckets=buckets, graphs=graphs, warm_compile=warm_compile)
+                 buckets=buckets, graphs=graphs, warm_compile=warm_compile,
+                 mesh=mesh)
     if after_warm is not None:
         after_warm(eng)
     seen = []
@@ -2650,3 +2651,154 @@ def test_convenience_shims_run_the_plan_on_card(dev):
     rep = dispatch.explain(bsr, n, device=dev)
     assert rep["pallas_admissible"] is True
     assert all(r.endswith("_cuda") for r in rep["candidates"])
+
+
+# -- tensor parallelism (static_tp, static_tp_shardmap) -------------------------
+
+def _tp_problem(dev, dtype, n, m=512, k=1024, empty=False, seed=0):
+    """A static pattern (d = 1/4, b = 16) and x, dy on the card; with
+    ``empty`` the block columns of the middle half are empty, so even
+    splits at q = 4 leave two shards without a block."""
+    mask = masks.random_block_mask(m, k, 16, 0.25, seed=seed)
+    kb = k // 16
+    if empty:
+        mask[:, kb // 4:3 * kb // 4] = False
+        mask[0, 0] = True
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vals = (torch.randn((int(mask.sum()), 16, 16), generator=g, device=dev)
+            / 8).to(dtype)
+    bsr = BlockSparseMatrix.from_mask(mask, 16, values=vals)
+    x = torch.randn((n, k), generator=g, device=dev).to(dtype)
+    dy = torch.randn((n, m), generator=g, device=dev).to(dtype)
+    return bsr, x, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("n", [4, 256, 2048])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("q", [2, 4])
+def test_static_tp_cuda_matches_plain(dev, q, dtype, n, empty):
+    """``static_tp`` on the card: forward, dL/dx and dL/dvalues against the
+    fp32 dense product; a forward launches bsmm once per shard that owns
+    a block, a backward one dL/dx walk and one SDDMM per such shard."""
+    from repro_torch.kernels import bsmm, sddmm
+    bsr, x, dy = _tp_problem(dev, dtype, n, empty=empty)
+    p = sparse.plan(bsr, n, device=dev, ctx=sparse.PlanContext(
+        mode="static_tp", tp_q=q, tp_balanced=not empty))
+    assert p.route == "static_tp"
+    owners = int((p.tp.meta.real_counts > 0).sum())
+    assert owners == (2 if empty and q == 4 else q)
+    w = bsr.to_dense().float()
+    v = bsr.values.clone().requires_grad_(True)
+    xx = x.clone().requires_grad_(True)
+    b0, s0 = bsmm.COUNTER.launches, sddmm.COUNTER.launches
+    y = p.spmm_nt(v, xx)
+    torch.cuda.synchronize()
+    assert bsmm.COUNTER.launches - b0 == owners
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert bsmm.COUNTER.launches - b0 == 2 * owners
+    assert sddmm.COUNTER.launches - s0 == owners
+    assert _rel(y, x.float() @ w.t()) <= TOL[dtype]
+    assert _rel(xx.grad, dy.float() @ w) <= TOL[dtype]
+    mb, kb = bsr.grid
+    dw = (dy.float().t() @ x.float()).reshape(mb, 16, kb, 16).permute(
+        0, 2, 1, 3)
+    want = dw[torch.as_tensor(bsr.row_idx, dtype=torch.long, device=dev),
+              torch.as_tensor(bsr.col_idx, dtype=torch.long, device=dev)]
+    assert _rel(v.grad, want) <= TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_engine_static_tp_graphs_match_eager(dev):
+    """The llama smoke engine with an abstract (1, 4) mesh: its FFN plans
+    on ``static_tp``, and the CUDA graphs' tokens, logits and launches
+    bit-equal to the same engine run eagerly."""
+    from repro_torch.launch.mesh import AbstractMesh
+    lm = LM(_serve_cfg("llama-sparse"), device=dev, seed=0)
+    mesh = AbstractMesh((1, 4), ("data", "model"))
+    lengths = [5, 20, 9, 40, 3, 33]
+    kw = dict(buckets=(8, 24, 48), max_len=64, mesh=mesh)
+    want = _serve(lm, dev, False, lengths, **kw)
+    got = _serve(lm, dev, True, lengths, **kw)
+    assert got[0] == want[0]
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    assert got[2] == want[2]
+    routes = {p.route for p in sparse.pool_plans(got[4].pool)
+              if p.kind == "static"}
+    assert routes == {"static_tp"}
+
+
+def _nccl_rank(rank, world, init_file, out_dir):
+    """One rank per card: NCCL, a ``DeviceMesh("cuda", (world,))``, the
+    explicit route forward and backward on the shared seeded problem."""
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_device_mesh
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        dev = torch.device("cuda", rank)
+        mesh = make_device_mesh("cuda", (world,), ("model",))
+        out = {}
+        for n in (4, 2048):
+            bsr, x, dy = _tp_problem(dev, torch.bfloat16, n)
+            p = sparse.plan(bsr, n, device=dev, ctx=sparse.PlanContext(
+                mode="static_tp_shardmap", mesh=mesh))
+            v = bsr.values.clone().requires_grad_(True)
+            xx = x.clone().requires_grad_(True)
+            y = p.spmm_nt(v, xx)
+            y.backward(dy)
+            out[n] = {"y": y.detach().cpu(), "dx": xx.grad.cpu(),
+                      "dv": v.grad.cpu(), "route": p.route,
+                      "shards": list(p.tp.shards)}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_tp_shardmap_nccl_across_cards(dev, tmp_path):
+    """``static_tp_shardmap`` with one rank per card over NCCL: every
+    rank's output and dL/dx equal and within the budget of ``static_tp``
+    on one card, the ranks' dL/dvalues summing to its gradient.  Needs
+    two cards."""
+    import time
+
+    import torch.multiprocessing as mp
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices (one rank per card)")
+    ctx = mp.start_processes(_nccl_rank, args=(world, str(tmp_path / "pg"),
+                                               str(tmp_path)),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            pytest.fail("NCCL ranks still running after 300 s")
+    outs = [torch.load(str(tmp_path / f"rank{r}.pt")) for r in range(world)]
+    for n in (4, 2048):
+        bsr, x, dy = _tp_problem(dev, torch.bfloat16, n)
+        p = sparse.plan(bsr, n, device=dev, ctx=sparse.PlanContext(
+            mode="static_tp", tp_q=world))
+        v = bsr.values.clone().requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        y = p.spmm_nt(v, xx)
+        y.backward(dy)
+        got = [o[n] for o in outs]
+        for r, g in enumerate(got):
+            assert g["route"] == "static_tp_shardmap" and g["shards"] == [r]
+            assert torch.equal(g["y"], got[0]["y"])
+            assert torch.equal(g["dx"], got[0]["dx"])
+        assert _rel(got[0]["y"].to(dev), y) <= TOL[torch.bfloat16]
+        assert _rel(got[0]["dx"].to(dev), xx.grad) <= TOL[torch.bfloat16]
+        total = sum(g["dv"].float() for g in got).to(dev)
+        assert _rel(total, v.grad) <= TOL[torch.bfloat16]

@@ -235,7 +235,12 @@ def test_stats_and_plan_report_fields(pair, jengine):
     rep = eng.plan_report()
     jrep = jengine.plan_report()
     assert set(jrep) - set(tengine.NOT_PORTED) <= set(rep)
-    assert rep["not_ported"] == ["tp"]
+    assert rep["not_ported"] == []
+    # the tensor-parallel section: the reference's schema, empty without
+    # a mesh in both engines
+    assert set(rep["tp"]) == set(jrep["tp"]) == {"per_plan", "totals"}
+    assert set(rep["tp"]["totals"]) == set(jrep["tp"]["totals"])
+    assert rep["tp"]["per_plan"] == jrep["tp"]["per_plan"] == {}
     assert set(rep["roofline"]) == set(jrep["roofline"])
     assert set(rep["roofline"]["per_plan"]) == set(
         rep["plans"]["per_plan"])

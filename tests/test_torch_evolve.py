@@ -472,8 +472,8 @@ def test_evolution_lineage_persists_and_replays(tmp_path):
 
 def test_pre_evolution_v1_cache_file_invalidated(tmp_path):
     """A v1 file (no evolution lineage) is never read: its verdicts are
-    not replayed, whether it keeps its own name or sits at the v2 path
-    with its v1 env."""
+    not replayed, whether it keeps its own name or sits at the current
+    schema's path with its v1 env."""
     _, tb, _, x = _problem()
     ctx = dict(cache_dir=str(tmp_path))
     key = _plan(tb, x, **ctx).key
@@ -491,7 +491,7 @@ def test_pre_evolution_v1_cache_file_invalidated(tmp_path):
         assert not p.from_disk
         assert p.route != "static_balanced_torch" or p.source != "measured"
         os.remove(_path(tmp_path))
-    assert cache_lib.SCHEMA_VERSION == 2
+    assert cache_lib.SCHEMA_VERSION == 3
 
 
 # -- rigl_update (tests/test_dynamic.py) ---------------------------------------

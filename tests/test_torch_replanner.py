@@ -125,9 +125,11 @@ def test_stats_and_plan_report_fields():
     assert st["graphs"]["recaptures"] == 0
     rep = eng.plan_report()
     for key in ("startup", "now", "capacity", "plans", "roofline",
-                "engine"):
+                "engine", "tp"):
         assert key in rep
-    assert rep["not_ported"] == ["tp"]
+    assert rep["not_ported"] == []
+    assert rep["tp"]["totals"] == {"tp_planned": 0, "tp_chosen": 0,
+                                   "measured": 0}
 
 
 # -- the capture record's plan keys -----------------------------------------

@@ -342,6 +342,10 @@ def model_pair():
     jcfg, tcfg = _model_cfg(False), _model_cfg(True)
     jlm = JLM(jcfg)
     params = jlm.init(jax.random.PRNGKey(0))
+    # drop the reference's in-memory plans first: one an earlier test of
+    # the same process built inside a trace (this smoke pattern at the
+    # same n) would be the cache hit, tracer and all
+    jsparse.reset()
     for n in (32, 8):      # the batches' B * S below
         prewarm_jax_sparse_plans(jcfg, params, n)
     tlm = TLM(tcfg, device="cpu").load_jax_params(

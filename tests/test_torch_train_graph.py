@@ -167,8 +167,12 @@ CFGS = {"llama-sparse": _llama_cfgs, "qwen3": _qwen3_cfgs}
 
 def _prewarm(jcfg, params, n):
     """Build the JAX sparse FFN's plans outside any trace (see
-    ``tests/test_torch_train.py`` ``prewarm_jax_sparse_plans``)."""
+    ``tests/test_torch_train.py`` ``prewarm_jax_sparse_plans``), after
+    dropping the reference's in-memory plans: one an earlier test of the
+    same process built inside a trace would be the cache hit."""
+    from repro import sparse as jsparse
     from repro.models import transformer as jtfm
+    jsparse.reset()
     if jcfg.moe is not None:
         return
     ffn = jtfm._sparse_ffn(jcfg)

@@ -145,8 +145,12 @@ def _cfgs():
 
 def _prewarm(jcfg, params, n):
     """Build the JAX sparse FFN's plans outside any trace (see
-    ``tests/test_torch_train.py`` ``prewarm_jax_sparse_plans``)."""
+    ``tests/test_torch_train.py`` ``prewarm_jax_sparse_plans``), after
+    dropping the reference's in-memory plans: one an earlier test of the
+    same process built inside a trace would be the cache hit."""
+    from repro import sparse as jsparse
     from repro.models import transformer as jtfm
+    jsparse.reset()
     ffn = jtfm._sparse_ffn(jcfg)
     layer0 = jax.tree.map(lambda a: a[0], params["stack"][0][0]["ffn"])
     ffn.apply(layer0, jnp.zeros((n, jcfg.d_model), jnp.float32))
@@ -207,12 +211,23 @@ def test_grad_accumulation_matches_full_batch():
 
 
 def test_grad_compress_not_ported():
+    """``grad_compress=True`` trains (it was refused before the
+    compression module was ported): the state starts with a zero fp32
+    residual per parameter, as the reference's ``ef_init`` does, and a
+    step leaves the residuals the quantisation lost, each at most half
+    an int8 step of its leaf group."""
     _, tcfg = _cfgs()
     lm = TLM(tcfg, device="cpu")
     hp = tstep.TrainHParams(grad_compress=True)
-    for fn in (tstep.init_train_state, tstep.make_train_step):
-        with pytest.raises(NotImplementedError, match="optim/compress.py"):
-            fn(lm, hp=hp) if fn is tstep.init_train_state else fn(lm, hp)
+    st = tstep.init_train_state(lm, hp=hp)
+    assert set(st.ef.residual) == {n for n, _ in lm.named_parameters()}
+    assert all(r.dtype == torch.float32 and not r.any()
+               for r in st.ef.residual.values())
+    assert tstep.init_train_state(lm).ef is None
+    fn = tstep.make_train_step(lm, hp)
+    st, m = fn(st, TPipe(tcfg.vocab_size, 2, 8).get_batch(0))
+    assert np.isfinite(float(m["loss"])) and int(st.step) == 1
+    assert any(r.any() for r in st.ef.residual.values())
 
 
 # -- checkpoints and the loop ----------------------------------------------------------
