@@ -319,7 +319,13 @@ Phases, each fatal on failure:
    tokens identical, every static plan with a ``tp`` section, the decode
    plans on ``static_tp`` from the analytic verdict, q bsmm launches per
    sparse projection a decode replay, a prefill's logits within 6e-2 of
-   the unsharded plans'.
+   the unsharded plans';
+16. dp (after tp): data parallelism with the state sharded by the
+   reference's rules, llama3.2-1b (d = 1/8) at full width and depth,
+   ``train_loop(mesh=)`` on 2 gloo ranks of the card against the
+   one-process run (``dp_phase``); a checkpoint re-sharded both ways;
+17. ep: MoE expert parallelism, qwen3-moe-30b-a3b at full width, 2
+   layers, ``impl="shard_map"``, 64 experts a rank (``ep_phase``).
 
 A ``[mem]`` line gives the card memory still allocated as each phase
 starts (the peaks the phases report include it); each engine warms up
@@ -5466,38 +5472,8 @@ def tp_shardmap_rows(torch, args):
     dL/dvalues summing to ``static_tp``'s, one bsmm launch a forward
     call on each rank.  A rank that fails fails the phase with its
     traceback."""
-    import shutil
-    import tempfile
-
-    import torch.multiprocessing as mp
-
     from repro_torch import sparse
-    out_dir = tempfile.mkdtemp(prefix="tp_ranks_",
-                               dir=os.path.join(HERE, "build"))
-    try:
-        ctx = mp.start_processes(
-            tp_rank_main, args=(TP_RANKS, os.path.join(out_dir, "pg"),
-                                out_dir, args.seed),
-            nprocs=TP_RANKS, join=False, start_method="spawn")
-        deadline = time.monotonic() + 300
-        try:
-            while not ctx.join(timeout=1):
-                if time.monotonic() > deadline:
-                    raise TimeoutError("ranks still running after 300 s")
-        except Exception as e:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-            errs = [open(os.path.join(out_dir, f)).read()
-                    for f in sorted(os.listdir(out_dir))
-                    if f.endswith(".err")]
-            raise RuntimeError(f"[tp] static_tp_shardmap over {TP_RANKS} "
-                               f"gloo ranks: "
-                               f"{(errs[0] if errs else repr(e))[-2000:]}")
-        outs = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
-                for r in range(TP_RANKS)]
-    finally:
-        shutil.rmtree(out_dir, ignore_errors=True)
+    outs = run_ranks(torch, "tp", tp_rank_main, TP_RANKS, args.seed)
     tol = KERNEL_TOL["bfloat16"]
     rows = []
     for si, (name, m, k) in enumerate(TP_SHAPES):
@@ -5680,6 +5656,671 @@ def print_tp(tp):
           f"{e['peak_mem_gb']:.2f} GiB; launches "
           f"{json.dumps(e['launches'])}; phase {tp['phase_s']:.1f} s")
     print(f"[tp] engine plans {json.dumps(e['plans'])}")
+
+
+# -- [dp] / [ep]: sharded training over gloo ranks of the one card --------------
+
+# [dp]: llama3.2-1b (d = 1/8) on a (DP_RANKS, 1) mesh, the global batch
+# [train]'s 4 x 512; a checkpoint at DP_SAVE_AT resumed on another mesh
+DP_RANKS, DP_STEPS, DP_SAVE_AT = 2, 5, 3
+DP_BATCH, DP_SEQ = 4, 512
+# [ep]: qwen3-moe-30b-a3b at full width, EP_LAYERS layers, on a (1, 2)
+# mesh (64 of 128 experts a rank)
+EP_LAYERS, EP_STEPS = 2, 3
+EP_MESH = (1, 2)
+# the first loss (before any update) differs only by fp32 summation order
+FIRST_LOSS_TOL = 1e-5
+
+
+def run_ranks(torch, label, target, world, *job):
+    """``target(rank, world, init_file, out_dir, *job)`` on ``world``
+    spawned processes (gloo ranks of this card); their results, each
+    rank's ``rank<r>.pt``.  A rank that fails (or is still running after
+    600 s) fails the phase with its traceback."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+    out_dir = tempfile.mkdtemp(prefix=f"{label}_ranks_",
+                               dir=os.path.join(HERE, "build"))
+    try:
+        ctx = mp.start_processes(
+            target, args=(world, os.path.join(out_dir, "pg"), out_dir)
+            + job, nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + 600
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("ranks still running after 600 s")
+        except Exception as e:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+            errs = [open(os.path.join(out_dir, f)).read()
+                    for f in sorted(os.listdir(out_dir))
+                    if f.endswith(".err")]
+            raise RuntimeError(f"[{label}] {world} gloo ranks: "
+                               f"{(errs[0] if errs else repr(e))[-3000:]}")
+        return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def shard_rank_main(rank, world, init_file, out_dir, kind, job):
+    """One rank of [dp] or [ep] on this card: gloo over ``init_file``,
+    then ``SHARD_JOBS[kind]``; results to ``out_dir/rank<r>.pt``, an
+    error to ``rank<r>.err``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                rank=rank, world_size=world)
+        out = SHARD_JOBS[kind](torch, rank, world, job)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def timed_steps(torch):
+    """Time every ``TrainProgram`` call of this process on the host clock
+    between two device synchronisations, and turn on its state's
+    collective timing (``ShardLayout.comm_ms``): the step times this
+    harness reads, by wrapping the entry point from outside.  Returns
+    the list the step times (ms) go to."""
+    from repro_torch.train import program as prog_mod
+    times = []
+    call = prog_mod.TrainProgram.__call__
+
+    def timed(self):
+        lay = self.state.layout
+        if lay is not None and lay.comm_ms is None:
+            lay.comm_ms = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    prog_mod.TrainProgram.__call__ = timed
+    return times
+
+
+def state_gib(state) -> float:
+    """GiB of a train state's fp32 tables (master, mu, nu, residuals) as
+    this process holds them."""
+    tabs = [state.opt.master, state.opt.mu, state.opt.nu]
+    if state.ef is not None:
+        tabs.append(state.ef.residual)
+    return sum(t.numel() * t.element_size() for tab in tabs
+               for t in tab.values()) / 2 ** 30
+
+
+def blocks_gib(state, mesh) -> float:
+    """GiB the sharding rules give this rank's fp32 tables: each
+    parameter's block under its spec over the whole mesh, once per
+    table."""
+    from repro_torch.launch.mesh import block_shape
+    lay = state.layout
+    tables = 3 + (state.ef is not None)
+    return tables * 4 * sum(
+        math.prod(block_shape(lay.shapes[n], lay.specs[n], mesh))
+        for n in lay.specs) / 2 ** 30
+
+
+def master_err(torch, state, whole, mesh) -> dict:
+    """This rank's master blocks against its blocks of ``whole`` (the
+    one-process run's final masters): the largest relative L2 error of a
+    parameter (``||d|| / ||w||``, the budget's measure) and the largest
+    rel-max error (reported: Adam's normalised first steps move an
+    element by about lr whatever its gradient's size, so an element
+    whose bf16 gradient changes sign between the runs -- summed from two
+    half-batch roundings here, one there -- differs by up to twice the
+    summed lr, a few percent of a small-init table's largest value)."""
+    from repro_torch.launch.mesh import block
+    lay = state.layout
+    l2, rmax = 0.0, 0.0
+    for n, m in state.opt.master.items():
+        w = block(whole[n], lay.specs[n], mesh).float()
+        d = m.float() - w
+        l2 = max(l2, (d.norm() / w.norm().clamp_min(1e-12)).item())
+        rmax = max(rmax, rel_err(m, w)[0])
+    return {"rel_l2": l2, "rel_max": rmax}
+
+
+def resume_run(torch, cfg, ckpt_dir, hp, mesh, args, batch, steps):
+    """Restore the ``DP_SAVE_AT`` checkpoint under ``ckpt_dir`` onto
+    ``mesh`` (the caller's block of every tensor: ``restore(mesh=,
+    specs=)``) and run its next steps up to ``steps`` eagerly, no
+    checkpoint written; their losses."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.model import LM
+    from repro_torch.sharding import rules
+    from repro_torch.train.program import TrainProgram
+    from repro_torch.train.step import (init_train_state, load_state_tree,
+                                        state_tree)
+    lm = LM(cfg, device="cuda", seed=args.seed, mesh=mesh)
+    state = init_train_state(lm, hp=hp, mesh=mesh)
+    specs = (None if state.layout is None else
+             state.layout.storage_specs(state_tree(state)))
+    tree, extra, _ = restore(ckpt_dir, state_tree(state), step=DP_SAVE_AT,
+                             mesh=mesh, specs=specs)
+    load_state_tree(state, tree)
+    shard, shards = mesh_lib.axis_index(mesh, rules.batch_axes(mesh))
+    pipe = TokenPipeline(cfg.vocab_size, batch, DP_SEQ, num_shards=shards,
+                         shard_id=shard)
+    program = TrainProgram(lm, state, hp, batch=batch, seq=DP_SEQ,
+                           graph=False)
+    losses = []
+    with rules.activation_mesh(mesh):
+        for step in range(TokenPipeline.resume_step(extra["data"]), steps):
+            program.load(pipe.get_batch(step))
+            losses.append(float(program()["loss"]))
+    return losses
+
+
+def dp_job(torch, rank, world, job):
+    """[dp] on one rank: ``train_loop`` over the (world, 1) mesh with
+    compression off (writing a checkpoint at ``DP_SAVE_AT``) and on
+    (counters zeroed just before each run, read just after), its master
+    blocks against the one-process run's (``job["masters"]``, shared
+    from the parent), and the parent's one-process checkpoint
+    resumed."""
+    from repro_torch.kernels import bs_attn, bsmm, dense_mm, sddmm
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainHParams
+    mesh = make_device_mesh("cuda", (world, 1), ("data", "model"))
+    counters = with_walks({"bsmm": bsmm.COUNTER, "sddmm": sddmm.COUNTER,
+                           "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
+    times = timed_steps(torch)
+    args = job["args"]
+    out = {}
+    for compress in (False, True):
+        hp = TrainHParams(**TRAIN_HP, grad_compress=compress)
+        del times[:]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        state, losses = train_loop(
+            job["cfg"], steps=DP_STEPS, batch_per_shard=DP_BATCH // world,
+            seq=DP_SEQ, ckpt_dir=None if compress else job["dir_ranks"],
+            ckpt_every=DP_SAVE_AT, hp=hp, device="cuda",
+            log_every=10 ** 9, seed=args.seed, graphs=False, mesh=mesh)
+        torch.cuda.synchronize()
+        launches, walks = split_walks({k: c.launches
+                                       for k, c in counters.items()})
+        out[compress] = dict(
+            losses=losses, launches=launches, walks=walks,
+            step_ms=list(times), comm_ms=dict(state.layout.comm_ms),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            state_gib=state_gib(state), blocks_gib=blocks_gib(state, mesh),
+            master_err=master_err(torch, state, job["masters"][compress],
+                                  mesh))
+        del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["resumed"] = resume_run(torch, job["cfg"], job["dir_one"],
+                                TrainHParams(**TRAIN_HP), mesh, args,
+                                DP_BATCH // world, DP_STEPS)
+    return out
+
+
+def dp_phase(torch, args):
+    """[dp]: data parallelism with the state sharded, llama3.2-1b at full
+    width and depth (every FFN block-sparse, d = 1/8, b = 16, bf16),
+    ``train_loop`` over a (2, 1) ``("data", "model")`` mesh of 2 gloo
+    ranks on this card, 2 x 512 tokens a rank ([train]'s global batch
+    4 x 512), ``DP_STEPS`` eager steps with ``grad_compress`` off and
+    then on, against the one-process ``train_loop`` on the global batch
+    in this process.  Fails unless the first loss is within fp32 1e-5,
+    every loss within bf16 2e-2 and each rank's final master blocks
+    within bf16 2e-2 in relative L2 (``master_err``),
+    every rank launched bsmm, sddmm, dense_mm and bs_attn on their
+    16-bit walks, each rank's fp32 state is exactly its blocks under the
+    rules (``blocks_gib``: every table halved over "data" but the sparse
+    FFN's values, whose rule splits them over "model" only, so ~0.6 of
+    the one process's), and a checkpoint written at step ``DP_SAVE_AT``
+    on the ranks and resumed on one process (and one written on one process and
+    resumed on the ranks) continues to the unbroken run's losses within
+    bf16 2e-2.  Prints step p50 per rank, the collectives' ms of a step,
+    peak and state GiB per rank."""
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainHParams
+
+    t0 = time.perf_counter()
+    cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
+    ck = os.path.join(HERE, "build", "dp_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    dirs = {k: os.path.join(ck, k) for k in ("one", "ranks")}
+    ref, masters = {}, {}
+    for compress in (False, True):
+        hp = TrainHParams(**TRAIN_HP, grad_compress=compress)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # the uncompressed runs (here and on the ranks) write the
+        # checkpoint at DP_SAVE_AT that the other side resumes
+        state, losses = train_loop(
+            cfg, steps=DP_STEPS, batch_per_shard=DP_BATCH, seq=DP_SEQ,
+            ckpt_dir=None if compress else dirs["one"],
+            ckpt_every=DP_SAVE_AT, hp=hp, device="cuda", log_every=10 ** 9,
+            seed=args.seed, graphs=False)
+        ref[compress] = dict(
+            losses=losses, state_gib=state_gib(state),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        # bf16 copies of the final masters, shared with the ranks (CUDA
+        # IPC): the budget they are held to is bf16's
+        masters[compress] = {n: m.to(torch.bfloat16)
+                             for n, m in state.opt.master.items()}
+        del state
+    hp = TrainHParams(**TRAIN_HP)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        outs = run_ranks(torch, "dp", shard_rank_main, DP_RANKS, "dp", dict(
+            cfg=cfg, args=args, masters=masters, dir_one=dirs["one"],
+            dir_ranks=dirs["ranks"]))
+        del masters
+        gc.collect()
+        torch.cuda.empty_cache()
+        from repro_torch.launch.mesh import make_host_mesh
+        resumed_one = resume_run(torch, cfg, dirs["ranks"], hp,
+                                 make_host_mesh(), args, DP_BATCH, DP_STEPS)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    tol = KERNEL_TOL["bfloat16"]
+    out = {"ranks": DP_RANKS, "one_process": ref, "per_rank": []}
+    for r, o in enumerate(outs):
+        rank_out = {}
+        for compress in (False, True):
+            g, want = o[compress], ref[compress]["losses"]
+            first = abs(g["losses"][0] - want[0]) / abs(want[0])
+            worst = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                           want))
+            label = f"rank {r} grad_compress={compress}"
+            if not first <= FIRST_LOSS_TOL or not worst <= tol \
+                    or not g["master_err"]["rel_l2"] <= tol:
+                raise RuntimeError(
+                    f"[dp] {label}: first loss {first:.3g} (budget "
+                    f"{FIRST_LOSS_TOL}), losses {g['losses']} vs {want} "
+                    f"({worst:.3g}), masters {g['master_err']} (budget "
+                    f"{tol} on rel_l2)")
+            for k in ("bsmm", "sddmm", "dense_mm", "bs_attn"):
+                if g["launches"].get(k, 0) <= 0:
+                    raise RuntimeError(f"[dp] {label}: {k} not launched "
+                                       f"{g['launches']}")
+            check_tensor_core_walks("dp", g["walks"],
+                                    ("bs_attn", "sddmm", "bsmm"))
+            check_dense_mm_walks("dp", g["walks"])
+            share = g["state_gib"] / ref[compress]["state_gib"]
+            if g["state_gib"] != g["blocks_gib"] or not share < 1:
+                raise RuntimeError(f"[dp] {label}: fp32 state "
+                                   f"{g['state_gib']:.3f} GiB ({share:.3f} "
+                                   f"of one process's), its blocks under "
+                                   f"the rules {g['blocks_gib']:.3f} GiB")
+            rank_out[compress] = dict(g, first_loss_err=first,
+                                      loss_err=worst, state_share=share)
+        out["per_rank"].append(rank_out)
+    unbroken = ref[False]["losses"][DP_SAVE_AT:]
+    for label, got in (("ranks -> one process", resumed_one),
+                       ("one process -> ranks", outs[0]["resumed"])):
+        errs = [abs(a - b) / abs(b) for a, b in zip(got, unbroken)]
+        if len(got) != len(unbroken) or not max(errs) <= tol:
+            raise RuntimeError(f"[dp] checkpoint {label}: {got} vs the "
+                               f"unbroken run's {unbroken}")
+        out.setdefault("checkpoint", {})[label] = dict(losses=got,
+                                                       errs=errs)
+    if outs[1]["resumed"] != outs[0]["resumed"]:
+        raise RuntimeError(f"[dp] the ranks' resumed losses differ: "
+                           f"{[o['resumed'] for o in outs]}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def ep_layer_check(torch, mesh, cfg, mod, x, y) -> dict:
+    """One expert-parallel MoE layer against the gspmd formulation on the
+    same input: the rank's held expert blocks gathered whole over the
+    mesh (``gather_block``), then ``_moe_gspmd``.  Returns the output's rel-max error and both routing
+    drops."""
+    import types
+
+    from repro_torch.launch.mesh import gather_block
+    from repro_torch.models.moe import _moe_gspmd
+    whole = {name: gather_block(getattr(mod, name), shape, spec, mesh)
+             for name, (shape, spec) in mod.held.items()}
+    ref = types.SimpleNamespace(router=mod.router, shared=mod.shared,
+                                **whole)
+    with torch.no_grad():
+        y_ref, m_ref = _moe_gspmd(ref, cfg, x)
+    return dict(err=rel_err(y, y_ref)[0],
+                gspmd_dropped=float(m_ref.dropped_frac))
+
+
+def routing_keys(torch, mod, cfg, x):
+    """Each token's routing in one MoE layer on its input ``x``: its
+    top-k experts, then the experts that kept it in their capacity
+    (``num_experts`` where dropped), each set sorted: ``[T, 2k]`` on the
+    CPU.  Two runs' tokens with equal keys took the same experts with
+    the same kept slots."""
+    from repro_torch.models.moe import _capacity, _route_and_rank
+    m = cfg.moe
+    xf = x.reshape(-1, x.shape[-1])
+    cap = _capacity(xf.shape[0], cfg)
+    with torch.no_grad():
+        *_, flat_slot = _route_and_rank(xf, mod.router.w, cfg, cap,
+                                        ranking=m.ranking)
+        top_e = torch.topk(torch.matmul(xf.float(), mod.router.w),
+                           m.top_k, dim=-1).indices
+    kept = torch.where(flat_slot < m.num_experts * cap,
+                       torch.div(flat_slot, cap, rounding_mode="floor"),
+                       m.num_experts)
+    return torch.cat([top_e.sort(dim=1).values, kept.sort(dim=1).values],
+                     dim=1).cpu()
+
+
+def ep_job(torch, rank, world, job):
+    """[ep] on one rank: the shard_map forward on the (1, 2) mesh against
+    the one-process gspmd logits (``job["logits"]``, shared): over all
+    tokens, and over the tokens routed as in the one-process run in
+    every layer (``routing_keys`` against ``job["keys"]``), with the
+    expert products' bucket sizes; then ``train_loop`` (counters zeroed
+    just before, read just after)."""
+    from repro_torch import sparse
+    from repro_torch.kernels import bs_attn, dense_mm, gmm
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import LM
+    from repro_torch.models.moe import MoE
+    from repro_torch.sharding import rules
+    from repro_torch.train.step import TrainHParams
+    import numpy as np
+
+    mesh = make_device_mesh("cuda", EP_MESH, ("data", "model"))
+    counters = with_walks({"gmm": gmm.COUNTER, "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
+    args, cfg = job["args"], job["cfg"]
+    buckets = []
+    bmm = sparse.batched_matmul
+
+    def recorded(a, b, **kw):
+        buckets.append(tuple(a.shape))
+        return bmm(a, b, **kw)
+    lm = LM(cfg, device="cuda", seed=args.seed, mesh=mesh)
+    held = {n: tuple(lm.get_parameter(n).shape)
+            for n in lm.held_blocks()}
+    tokens = np.random.default_rng(args.seed + 41).integers(
+        0, cfg.vocab_size, size=(DP_BATCH, DP_SEQ))
+    moes = [m for m in lm.modules() if isinstance(m, MoE)]
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append((inp[0], out[0])))
+        for m in moes]
+    sparse.reset_telemetry()
+    for c in counters.values():
+        c.reset()
+    sparse.batched_matmul = recorded
+    try:
+        with rules.activation_mesh(mesh):
+            logits = lm(tokens)
+        torch.cuda.synchronize()
+    finally:
+        sparse.batched_matmul = bmm
+        for h in hooks:
+            h.remove()
+    fwd_launches, fwd_walks = split_walks({k: c.launches
+                                           for k, c in counters.items()})
+    same = torch.ones(DP_BATCH * DP_SEQ, dtype=torch.bool)
+    rerouted = []
+    for mod, (x, _), want in zip(moes, seen, job["keys"]):
+        eq = (routing_keys(torch, mod, cfg, x) == want).all(dim=1)
+        rerouted.append(int((~eq).sum()))
+        same &= eq
+    flat = logits.reshape(-1, logits.shape[-1])
+    ref = job["logits"].reshape(-1, logits.shape[-1])
+    idx = same.nonzero().squeeze(1).to(flat.device)
+    out = dict(held=held, buckets=buckets, forward_launches=fwd_launches,
+               rerouted=rerouted, same_tokens=int(same.sum()),
+               same_logits_err=(rel_err(flat[idx], ref[idx])[0]
+                                if len(idx) else float("inf")),
+               forward_walks=fwd_walks,
+               dropped=sparse.dropped_history("moe_dispatch"),
+               logits_err=rel_err(logits, job["logits"])[0],
+               logits_finite=bool(torch.isfinite(logits).all()),
+               layers=[ep_layer_check(torch, mesh, cfg, mod, x, y)
+                       for mod, (x, y) in zip(moes, seen)])
+    del lm, logits, seen, flat, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = timed_steps(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    state, losses = train_loop(
+        cfg, steps=EP_STEPS, batch_per_shard=DP_BATCH, seq=DP_SEQ,
+        ckpt_dir=None, hp=TrainHParams(**TRAIN_HP), device="cuda",
+        log_every=10 ** 9, seed=args.seed, graphs=False, mesh=mesh)
+    torch.cuda.synchronize()
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    out.update(losses=losses, launches=launches, walks=walks,
+               step_ms=list(times), comm_ms=dict(state.layout.comm_ms),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               state_gib=state_gib(state))
+    return out
+
+
+def ep_phase(torch, args):
+    """[ep]: MoE expert parallelism, qwen3-moe-30b-a3b at full width
+    (128 experts top-8, d_model 2048, vocab 151936), ``EP_LAYERS`` of its
+    48 layers (``profile_train.cut_depth``), bf16, ``impl="shard_map"``,
+    over a (1, 2) ``("data", "model")`` mesh of 2 gloo ranks on this
+    card, each holding 64 experts of every layer.  Reckoned before the
+    run: ~1.27 B parameters a rank (the embedding and the unembed whole,
+    622 M; 2 x 64 experts, 604 M; attention 42 M), bf16 weights and
+    gradients 5.1 GB, fp32 master, mu and nu of its blocks (the tables
+    split over "model") ~11 GB, the fp32 gradient blocks 4 GB and one
+    chunk of fp32 logits: ~24 GB a rank.  The forward of a 4 x 512 batch:
+    every MoE layer's output within bf16 2e-2 of the gspmd formulation on
+    the same input with the same routing drops (``ep_layer_check``), the
+    first layer's drops equal to the one-process gspmd forward's (the
+    same input), finite logits, and gmm launched 3 times a layer on
+    64-expert buckets.  The logits over all tokens are reported, not
+    held: the combine adds the two ranks' partials in another order, a
+    few bf16 roundings of the first layer's output flip, and the second
+    layer's router then picks another top-k for some tokens, which
+    shifts the capacity queues behind them (13 % and 28 % of the
+    assignments drop at this random init), so a token may keep another
+    set of experts.  Held instead: no token of the first layer
+    re-routed, at least half the tokens routed as in the one-process run
+    in every layer (``routing_keys``: the same top-k and kept experts),
+    and their logits within bf16 ``CONSISTENCY_TOL`` (6e-2).
+    ``EP_STEPS`` eager ``train_loop`` steps within bf16 2e-2 of the
+    one-process run's losses, with gmm launched in the backward (dL/da)
+    of every rank."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs, sparse
+    from repro_torch.launch.profile_train import cut_depth
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import LM
+    from repro_torch.models.moe import MoE
+    from repro_torch.train.step import TrainHParams
+
+    t0 = time.perf_counter()
+    base = cut_depth(configs.get("qwen3-moe-30b-a3b"), EP_LAYERS)
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, impl="shard_map"))
+    gspmd = dataclasses.replace(base, moe=dataclasses.replace(
+        base.moe, impl="gspmd"))
+    tokens = np.random.default_rng(args.seed + 41).integers(
+        0, cfg.vocab_size, size=(DP_BATCH, DP_SEQ))
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(gspmd, device="cuda", seed=args.seed)
+    moes = [m for m in lm.modules() if isinstance(m, MoE)]
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append(inp[0])) for m in moes]
+    sparse.reset_telemetry()
+    logits = lm(tokens)
+    for h in hooks:
+        h.remove()
+    dropped = sparse.dropped_history("moe_dispatch")
+    keys = [routing_keys(torch, mod, gspmd, x) for mod, x in zip(moes, seen)]
+    del lm, moes, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses = train_loop(
+        gspmd, steps=EP_STEPS, batch_per_shard=DP_BATCH, seq=DP_SEQ,
+        ckpt_dir=None, hp=TrainHParams(**TRAIN_HP), device="cuda",
+        log_every=10 ** 9, seed=args.seed, graphs=False)
+    one = dict(losses=losses, dropped=dropped, state_gib=state_gib(state),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = run_ranks(torch, "ep", shard_rank_main, int(np.prod(EP_MESH)),
+                     "ep", dict(cfg=cfg, args=args, logits=logits, keys=keys))
+    del logits
+    e_loc = cfg.moe.num_experts // EP_MESH[1]
+    layers = len(cfg.groups[0][0]) * cfg.groups[0][1]
+    for r, o in enumerate(outs):
+        label = f"[ep] rank {r}"
+        bad = [(i, c) for i, c in enumerate(o["layers"])
+               if not c["err"] <= KERNEL_TOL["bfloat16"]
+               or c["gspmd_dropped"] != o["dropped"][i]]
+        if bad or len(o["layers"]) != layers or not o["logits_finite"]:
+            raise RuntimeError(f"{label}: layers against gspmd on their "
+                               f"inputs {o['layers']} (drops "
+                               f"{o['dropped']}), finite logits "
+                               f"{o['logits_finite']}")
+        # the end-to-end witness: the logits of the tokens routed as in
+        # the one-process run (at least half of them) within bf16
+        # CONSISTENCY_TOL, and the first layer (the same input) re-routes
+        # none
+        if o["rerouted"][0] or 2 * o["same_tokens"] < DP_BATCH * DP_SEQ \
+                or not o["same_logits_err"] <= CONSISTENCY_TOL:
+            raise RuntimeError(f"{label}: tokens re-routed a layer "
+                               f"{o['rerouted']}, logits of the "
+                               f"{o['same_tokens']} tokens routed alike "
+                               f"{o['same_logits_err']:.3g} (budget "
+                               f"{CONSISTENCY_TOL})")
+        if len(o["dropped"]) != len(dropped) or o["dropped"][0] != dropped[0]:
+            raise RuntimeError(f"{label}: routing drops {o['dropped']} vs "
+                               f"one process {dropped} (the first layer's "
+                               f"input is the same)")
+        if o["forward_launches"].get("gmm") != 3 * layers \
+                or {b[0] for b in o["buckets"]} != {e_loc} \
+                or len(o["buckets"]) != 3 * layers:
+            raise RuntimeError(f"{label}: forward gmm launches "
+                               f"{o['forward_launches']}, buckets "
+                               f"{o['buckets']} (3 a layer of {e_loc} "
+                               f"experts expected)")
+        if any(s[0] != e_loc for s in o["held"].values()):
+            raise RuntimeError(f"{label}: held expert blocks {o['held']}")
+        errs = [abs(a - b) / abs(b) for a, b in zip(o["losses"], losses)]
+        if not max(errs) <= KERNEL_TOL["bfloat16"]:
+            raise RuntimeError(f"{label}: losses {o['losses']} vs one "
+                               f"process {losses}")
+        # forward 3 a layer, backward dL/da 3 a layer, every step
+        if o["launches"].get("gmm") != 6 * layers * EP_STEPS:
+            raise RuntimeError(f"{label}: gmm launches {o['launches']} "
+                               f"in {EP_STEPS} steps (forward and "
+                               f"backward: {6 * layers} a step expected)")
+        for walks in (o["walks"], o["forward_walks"]):
+            check_tensor_core_walks("ep", walks)
+            check_dense_mm_walks("ep", walks)
+        o["loss_errs"] = errs
+    return dict(ranks=outs, one_process=one, experts_per_rank=e_loc,
+                layers=layers, phase_s=time.perf_counter() - t0)
+
+
+def print_dp(dp):
+    import numpy as np
+    one = dp["one_process"]
+    for compress in (False, True):
+        o = one[compress]
+        print(f"[dp] one process grad_compress={compress}: losses "
+              f"{[round(v, 5) for v in o['losses']]}; fp32 state "
+              f"{o['state_gib']:.3f} GiB; peak {o['peak_gib']:.2f} GiB")
+        for r, per in enumerate(dp["per_rank"]):
+            g = per[compress]
+            comm = {k: round(float(np.median(v)), 3)
+                    for k, v in g["comm_ms"].items()}
+            print(f"[dp] rank {r}/{dp['ranks']} grad_compress={compress}: "
+                  f"losses {[round(v, 5) for v in g['losses']]} (first "
+                  f"{g['first_loss_err']:.2e}, worst {g['loss_err']:.2e});"
+                  f" masters vs one process rel L2 "
+                  f"{g['master_err']['rel_l2']:.2e} (rel-max "
+                  f"{g['master_err']['rel_max']:.2e}); step "
+                  f"p50 {float(np.median(g['step_ms'])):.1f} ms (host "
+                  f"clock, synchronised); collectives ms of a step "
+                  f"(median) {json.dumps(comm)}; peak "
+                  f"{g['peak_gib']:.2f} GiB; fp32 state "
+                  f"{g['state_gib']:.3f} GiB = {g['state_share']:.3f} of "
+                  f"one process's; launches {json.dumps(g['launches'])}; "
+                  f"by walk {json.dumps(g['walks'])}")
+    for label, c in dp["checkpoint"].items():
+        print(f"[dp] checkpoint at step {DP_SAVE_AT} {label}: losses "
+              f"{[round(v, 5) for v in c['losses']]} vs unbroken, rel "
+              f"{[float(f'{e:.2e}') for e in c['errs']]}")
+    print(f"[dp] phase {dp['phase_s']:.1f} s")
+
+
+def print_ep(ep):
+    import numpy as np
+    one = ep["one_process"]
+    print(f"[ep] one process (gspmd, {ep['layers']} layers): losses "
+          f"{[round(v, 5) for v in one['losses']]}; drops "
+          f"{[round(v, 4) for v in one['dropped']]}; fp32 state "
+          f"{one['state_gib']:.3f} GiB; peak {one['peak_gib']:.2f} GiB")
+    for r, o in enumerate(ep["ranks"]):
+        comm = {k: round(float(np.median(v)), 3)
+                for k, v in o["comm_ms"].items()}
+        layer_errs = [float(f"{c['err']:.2e}") for c in o["layers"]]
+        print(f"[ep] rank {r} mesh {EP_MESH} ({ep['experts_per_rank']} "
+              f"experts a layer): layers vs gspmd on the same input "
+              f"{layer_errs} (budget {KERNEL_TOL['bfloat16']}), forward "
+              f"logits vs one "
+              f"process {o['logits_err']:.2e} (reported), over the "
+              f"{o['same_tokens']} tokens routed alike "
+              f"{o['same_logits_err']:.2e} (budget {CONSISTENCY_TOL}; "
+              f"tokens re-routed a layer {o['rerouted']}); drops "
+              f"{[round(v, 4) for v in o['dropped']]}; forward gmm "
+              f"{o['forward_launches'].get('gmm')} on buckets "
+              f"{sorted(set(o['buckets']))}; held "
+              f"{json.dumps(o['held'])}; train losses "
+              f"{[round(v, 5) for v in o['losses']]} (rel "
+              f"{[float(f'{e:.2e}') for e in o['loss_errs']]}); step p50 "
+              f"{float(np.median(o['step_ms'])):.1f} ms; collectives ms "
+              f"of a step (median) {json.dumps(comm)}; peak "
+              f"{o['peak_gib']:.2f} GiB; fp32 state {o['state_gib']:.3f} "
+              f"GiB; launches {json.dumps(o['launches'])}; by walk "
+              f"{json.dumps(o['walks'])}")
+    print(f"[ep] phase {ep['phase_s']:.1f} s")
+
+
+SHARD_JOBS = {"dp": dp_job, "ep": ep_job}
 
 
 def main(argv=None) -> int:
@@ -6274,6 +6915,17 @@ def main(argv=None) -> int:
     tp = tp_phase(torch, args, serve)
     print_tp(tp)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["dp"] = torch.cuda.memory_allocated() / 2 ** 30
+    dp = dp_phase(torch, args)
+    print_dp(dp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["ep"] = torch.cuda.memory_allocated() / 2 ** 30
+    ep = ep_phase(torch, args)
+    print_ep(ep)
+
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
                         "src/repro/kernels/bsmm/bsmm.py:50",
@@ -6312,7 +6964,9 @@ def main(argv=None) -> int:
                "train_seamless": ts["launches"],
                "long": lg["launches"], "serve_long": sl["launches"],
                "tp": tp["engine"]["launches"],
-               "tp_plan": tp["plan_launches"]}
+               "tp_plan": tp["plan_launches"],
+               "dp": dp["per_rank"][0][False]["launches"],
+               "ep": ep["ranks"][0]["launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
                      "dynamic": dyn_walks, "evolve": evo["walks"],
@@ -6331,7 +6985,9 @@ def main(argv=None) -> int:
                      "serve_seamless": sea["walks"],
                      "train_seamless": ts["walks"],
                      "long": lg["walks"], "serve_long": sl["walks"],
-                     "tp": tp["engine"]["walks"]}
+                     "tp": tp["engine"]["walks"],
+                     "dp": dp["per_rank"][0][False]["walks"],
+                     "ep": ep["ranks"][0]["walks"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -6507,7 +7163,8 @@ def main(argv=None) -> int:
                        "train_mamba2": tm, "serve_jamba": jamba,
                        "vlm_internvl2": vlm, "serve_seamless": sea,
                        "train_seamless": ts, "long": lg,
-                       "serve_long": sl, "tp": tp, "kernels": kernels,
+                       "serve_long": sl, "tp": tp, "dp": dp, "ep": ep,
+                       "kernels": kernels,
                        "replan": replan, "roofline": roof,
                        "evolve": evo, "evolve_serve": evolve_serve,
                        "calibrate": cal, "corpus": corpus,

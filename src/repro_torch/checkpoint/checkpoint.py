@@ -1,7 +1,6 @@
-"""Atomic, asynchronous checkpoints of nested dicts of tensors.
+"""Atomic, asynchronous, elastic checkpoints of nested dicts of tensors.
 
-Counterpart of the JAX package's ``checkpoint/checkpoint.py`` on one
-process:
+Counterpart of the JAX package's ``checkpoint/checkpoint.py``:
 
 * **atomic**: a save writes ``step_N.tmp`` and renames it to ``step_N``
   only once every leaf and the JSON index are written, so a preempted
@@ -12,10 +11,16 @@ process:
   save in flight at a time, keeping the newest ``keep``;
 * leaves are ``.npy`` files addressed by a hash of their path in the
   tree, listed in ``manifest.json`` with shape and dtype (bf16 is stored
-  as its 16-bit pattern and restored by the recorded dtype).
-
-Mesh-aware re-sharding on restore waits for sharded training (ROADMAP
-queue 1, item 11b).
+  as its 16-bit pattern and restored by the recorded dtype);
+* **elastic**: a checkpoint holds whole tensors whatever mesh wrote it.
+  ``Checkpointer.save_async`` of a state sharded over a concrete mesh
+  (``mesh=`` and ``specs=``, a tree of ``PartitionSpec`` beside the
+  tree: how each leaf is held) gathers the leaves whole one at a time
+  (``launch.mesh.gather_block``; rank 0 keeps a host copy), rank 0
+  writes, and the other ranks wait at a barrier (``Checkpointer.wait``).
+  ``restore(..., mesh=, specs=)`` keeps the caller's block of each
+  leaf, so a checkpoint of one mesh restores onto another, one process
+  included.
 """
 from __future__ import annotations
 
@@ -78,6 +83,34 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return t
 
 
+@torch.no_grad()
+def gather_whole(tree: dict, mesh, specs: dict, keep: bool) -> dict:
+    """``tree`` with every leaf held as a block under ``specs`` gathered
+    whole, one leaf at a time (every rank calls it, in the same order);
+    with ``keep`` the whole leaves as host copies, else nothing."""
+    from repro_torch.launch import mesh as mesh_lib
+    flat_specs = _flatten(specs)
+    out = {}
+    for key, leaf in _flatten(tree).items():
+        spec = flat_specs.get(key, ())
+        if not isinstance(leaf, torch.Tensor) \
+                or not mesh_lib.spec_axes(spec):
+            if keep:
+                out[key] = (leaf.detach().to("cpu", copy=True)
+                            if isinstance(leaf, torch.Tensor) else leaf)
+            continue
+        shape = list(leaf.shape)
+        for d, e in enumerate(spec):
+            if e is not None:
+                shape[d] *= mesh_lib.axis_index(
+                    mesh, (e,) if isinstance(e, str) else e)[1]
+        whole = mesh_lib.gather_block(leaf, shape, spec, mesh)
+        if keep:
+            out[key] = whole.to("cpu")
+        del whole
+    return _unflatten(out) if keep else {}
+
+
 def save(path: str, tree: dict, *, step: int,
          extra: Optional[dict] = None) -> str:
     """Synchronous atomic save of a nested dict of tensors, arrays and
@@ -117,11 +150,16 @@ def latest_step(path: str) -> Optional[int]:
 
 
 def restore(path: str, like: Optional[dict] = None, *,
-            step: Optional[int] = None):
+            step: Optional[int] = None, mesh=None,
+            specs: Optional[dict] = None):
     """Returns ``(tree, extra, step)`` of checkpoint ``step`` (the
     latest by default).  With ``like`` the tree takes its structure, and
     each tensor leaf its dtype and device (shapes must match); without,
-    array leaves come back as CPU tensors and number leaves as numbers."""
+    array leaves come back as CPU tensors and number leaves as numbers.
+    With ``mesh`` and ``specs`` (a tree of ``PartitionSpec``) a leaf is
+    this rank's block of the stored tensor under its spec (the whole
+    tensor off a concrete mesh), and ``like`` holds the blocks."""
+    from repro_torch.launch.mesh import block
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
@@ -142,12 +180,15 @@ def restore(path: str, like: Optional[dict] = None, *,
     if like is None:
         return _unflatten({k: load(k) for k in info}), \
             manifest["extra"], step
+    flat_specs = _flatten(specs) if specs is not None else {}
     out = {}
     for key, ref in _flatten(like).items():
         val = load(key)
         if isinstance(ref, torch.Tensor):
             # a number stored as one (a step or count saved as an int)
             val = torch.as_tensor(val)
+            if key in flat_specs:
+                val = block(val, flat_specs[key], mesh)
             if tuple(val.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: shape {tuple(val.shape)} != "
                                  f"{tuple(ref.shape)}")
@@ -167,24 +208,47 @@ class Checkpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False
         os.makedirs(path, exist_ok=True)
 
     def wait(self) -> None:
-        """Join the save in flight; re-raise its failure here."""
+        """Join the save in flight (after a sharded save every rank meets
+        at a barrier once rank 0 has written); re-raise its failure
+        here."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
 
     def save_async(self, tree: dict, *, step: int,
-                   extra: Optional[dict] = None) -> None:
+                   extra: Optional[dict] = None, mesh=None,
+                   specs: Optional[dict] = None) -> None:
+        """Snapshot ``tree`` to host memory and write it on a thread.
+        With a concrete ``mesh`` and ``specs`` every rank calls it: the
+        leaves are gathered whole (``gather_whole``) and rank 0 writes;
+        the next ``wait`` is a barrier of all ranks."""
+        from repro_torch.launch.mesh import is_concrete
         self.wait()
-        # the host snapshot is the only part on the training loop's path
-        host = _unflatten({k: (v.detach().to("cpu", copy=True)
-                               if isinstance(v, torch.Tensor) else v)
-                           for k, v in _flatten(tree).items()})
+        if specs is not None and is_concrete(mesh):
+            import torch.distributed as dist
+            lead = dist.get_rank() == 0
+            # the gather's host copies are the snapshot
+            host = gather_whole(tree, mesh, specs, keep=lead)
+            self._barrier = True
+            if not lead:
+                return
+        else:
+            # the host snapshot is the only part on the training loop's
+            # path
+            host = _unflatten({k: (v.detach().to("cpu", copy=True)
+                                   if isinstance(v, torch.Tensor) else v)
+                               for k, v in _flatten(tree).items()})
 
         def work():
             try:

@@ -803,7 +803,9 @@ def decide(spec, device_type: str, *, counts: Optional[WalkCounts] = None,
            candidates: Optional[Sequence[str]] = None,
            measure: bool = False,
            runner: Optional[Callable[[str], Tuple[Callable, tuple]]] = None,
-           cache: bool = True) -> Decision:
+           cache: bool = True,
+           agree: Optional[Callable[[Dict[str, float]], Dict[str, float]]]
+           = None) -> Decision:
     """Pick the route for ``spec`` (an ``OpSpec``) on ``device_type``.
     A pure function of the cache key; fills the process-level cache.
     ``candidates`` default to ``_candidates(spec.kind, spec.mode)`` (the
@@ -815,7 +817,9 @@ def decide(spec, device_type: str, *, counts: Optional[WalkCounts] = None,
     where it beats the model's pick past the noise ("measured"); a single
     candidate is "forced"; else the model's minimum ("analytic").  A
     candidate that fails to build or launch raises: no candidate is
-    dropped quietly."""
+    dropped quietly.  ``agree`` maps the measured times to the ones every
+    rank of a mesh decides on (the plan layer's, over a concrete mesh:
+    ranks that time the same calls apart must still pick one route)."""
     key = _cache_key(spec.kind, spec.m, spec.k, spec.n, spec.block_size,
                      spec.density, spec.dtype, spec.mode,
                      measure and runner is not None, device_type, skew)
@@ -839,6 +843,8 @@ def decide(spec, device_type: str, *, counts: Optional[WalkCounts] = None,
             fn, args = runner(r)
             measured[r] = measure_callable(fn, *args)
             del fn, args
+        if agree is not None:
+            measured = agree(measured)
         dec = Decision(measured_pick(measured, min(est, key=est.get)),
                        measured, "measured", key)
     else:

@@ -104,10 +104,13 @@ def encoder_cfg(cfg: ModelCfg) -> ModelCfg:
 
 class LM(nn.Module):
     """LM on ``device`` (``cuda`` unless the caller passes another device;
-    without a card only an explicit ``"cpu"`` runs)."""
+    without a card only an explicit ``"cpu"`` runs; on ``"meta"`` it has
+    shapes only, for the sharding rules).  ``mesh`` reaches the MoE
+    layers: on a concrete mesh an expert-parallel layer holds only its
+    rank's experts (``models/moe.py``)."""
 
     def __init__(self, cfg: ModelCfg, *, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -116,7 +119,7 @@ class LM(nn.Module):
         self.embed = Embedding(cfg.vocab_size, cfg.d_model,
                                dtype=self.dtype, device=dev)
         self.layers = nn.ModuleList(
-            tfm.Layer(cfg, spec, device=dev)
+            tfm.Layer(cfg, spec, device=dev, mesh=mesh)
             for spec in tfm.layer_specs(cfg))
         self.final_norm = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                                   device=dev)
@@ -131,7 +134,8 @@ class LM(nn.Module):
                 for spec in tfm.layer_specs(ecfg))
             self.enc_norm = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                                     device=dev)
-        self.init(seed)
+        if dev.type != "meta":
+            self.init(seed)
 
     # -- weights --------------------------------------------------------------
     def init(self, seed: int) -> "LM":
@@ -188,11 +192,25 @@ class LM(nn.Module):
                               []).append(name)
         return [tuple(g) for g in groups.values()]
 
+    def held_blocks(self) -> Dict[str, tuple]:
+        """``{name: (whole shape, spec)}`` of the parameters this rank
+        holds only its block of (an expert-parallel MoE's stacks, built
+        with ``mesh``)."""
+        return {f"{prefix}.{leaf}": held
+                for prefix, mod in self.named_modules()
+                for leaf, held in getattr(mod, "held", {}).items()}
+
     def load_jax_params(self, tree) -> "LM":
         """Copy the JAX ``LM.init`` params pytree (leaves converted to
-        numpy) into this model."""
-        _copy_into(dict(self.named_parameters()), self.jax_leaves(tree),
-                   "LM")
+        numpy) into this model (a held block takes its part of the
+        leaf)."""
+        from repro_torch.launch.mesh import block_slices
+        leaves = self.jax_leaves(tree)
+        for name, (shape, spec) in self.held_blocks().items():
+            mesh = self.get_submodule(name.rpartition(".")[0]).mesh
+            leaves[name] = np.asarray(leaves[name])[
+                block_slices(shape, spec, mesh)]
+        _copy_into(dict(self.named_parameters()), leaves, "LM")
         return self
 
     def load_jax_train_state(self, state):

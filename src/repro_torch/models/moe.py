@@ -19,11 +19,30 @@ and the expert GEMMs (on a card the plan's backward: gmm on each
 expert's W^T for dL/da); empty slots and dropped assignments get
 exactly zero gradient.
 
-``impl="shard_map"`` needs expert parallelism over a device mesh,
-which waits for sharded training (ROADMAP queue 1, item 11b), so every
-call takes the gspmd formulation, as the reference does without a
-mesh.  The module holds its parameters under the reference's names
-(``router.w``, ``w_gate``, ``w_up``, ``w_down``, ``shared.*``).
+``impl="shard_map"`` is the reference's expert parallelism over a
+concrete mesh (``_moe_shard_map``), taken under the reference's rule
+(``ep_route``): a ``DeviceMesh`` installed with
+``sharding.activation_mesh``, a ``"model"`` axis whose size divides E,
+and batch axes.  The tokens a rank holds are its shard of the batch over
+the batch axes (as the data-parallel step gives each rank; the
+reference's check that the global batch divides by the batch axes'
+product holds by construction), replicated over ``"model"``.  Each rank
+routes its tokens with the capacity of its own token count, runs the
+three expert products on its ``E / ep`` experts (gmm on a card),
+combines them in the reference's slot order and all-reduces the partial
+output once over ``"model"`` in ``combine_dtype``; the metrics are
+averaged over the batch axes.  The backward is Megatron's pair, as
+``core/tp.py``'s: the expert inputs (the token rows and the combine
+weights) are an identity forward with an all-reduce backward, the
+combine an all-reduce forward with an identity backward.  Built with
+that mesh (``MoE(mesh=)``, ``LM(mesh=)``), a module holds only its
+rank's block of ``w_gate`` / ``w_up`` / ``w_down`` under the sharding
+rules (its experts, and where ``"data"`` splits the second dim, that
+shard, all-gathered in the forward and reduce-scattered in the
+backward, as the reference's FSDP gather).  Every other call takes the
+gspmd formulation.  The module holds its parameters under the
+reference's names (``router.w``, ``w_gate``, ``w_up``, ``w_down``,
+``shared.*``).
 """
 from __future__ import annotations
 
@@ -35,7 +54,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import sparse as sparse_api
+from repro_torch.core.tp import copy_to_group, reduce_from_group
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.layers import MLP
+from repro_torch.sharding import rules
 
 
 class MoEMetrics(NamedTuple):
@@ -60,21 +82,29 @@ class MoE(nn.Module):
     has them.  ``forward(x)`` is ``moe_apply``."""
 
     def __init__(self, cfg, *, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
         m = cfg.moe
         d = cfg.d_model
         self.cfg = cfg
         self.router = _Router(d, m.num_experts, device=device)
+        # name -> (whole shape, spec) of the expert stacks held as this
+        # rank's block (``ep_route`` on ``mesh``); empty: held whole
+        self.held = {}
+        self.mesh = mesh if ep_route(cfg, mesh) else None
 
-        def param(shape):
+        def param(name, shape):
+            if self.mesh is not None:
+                spec = rules.param_spec(name, shape, mesh)
+                self.held[name] = (shape, spec)
+                shape = mesh_lib.block_shape(shape, spec, mesh)
             return nn.Parameter(torch.zeros(shape, dtype=dtype,
                                             device=device),
                                 requires_grad=False)
 
-        self.w_gate = param((m.num_experts, d, m.d_ff_expert))
-        self.w_up = param((m.num_experts, d, m.d_ff_expert))
-        self.w_down = param((m.num_experts, m.d_ff_expert, d))
+        self.w_gate = param("w_gate", (m.num_experts, d, m.d_ff_expert))
+        self.w_up = param("w_up", (m.num_experts, d, m.d_ff_expert))
+        self.w_down = param("w_down", (m.num_experts, m.d_ff_expert, d))
         self.shared = (MLP(d, m.num_shared * m.d_ff_shared, act=cfg.act,
                            dtype=dtype, device=device)
                        if m.num_shared else None)
@@ -83,14 +113,26 @@ class MoE(nn.Module):
         """The reference's scales: N(0, 1/d) router and gate/up, N(0,
         1/d_ff_expert) down, drawn on the parameters' device (the shared
         MLP fills its own).  One expert at a time, so the fp32 draw
-        never holds a whole stack."""
+        never holds a whole stack; a held block keeps its part of every
+        draw, so it holds what the whole module would there."""
         d = self.cfg.d_model
         with torch.no_grad():
-            for p, scale in ((self.router.w, 1.0 / np.sqrt(d)),
-                             (self.w_gate, 1.0 / np.sqrt(d)),
-                             (self.w_up, 1.0 / np.sqrt(d)),
-                             (self.w_down,
-                              1.0 / np.sqrt(self.cfg.moe.d_ff_expert))):
+            for name, p, scale in (
+                    ("router", self.router.w, 1.0 / np.sqrt(d)),
+                    ("w_gate", self.w_gate, 1.0 / np.sqrt(d)),
+                    ("w_up", self.w_up, 1.0 / np.sqrt(d)),
+                    ("w_down", self.w_down,
+                     1.0 / np.sqrt(self.cfg.moe.d_ff_expert))):
+                if name in self.held:
+                    shape, spec = self.held[name]
+                    sl = mesh_lib.block_slices(shape, spec, self.mesh)
+                    lo = sl[0].start
+                    for e in range(shape[0]):
+                        x = torch.randn(shape[1:], generator=generator,
+                                        device=p.device) * scale
+                        if lo <= e < lo + p.shape[0]:
+                            p[e - lo].copy_(x[sl[1:]])
+                    continue
                 rows = p.unsqueeze(0) if p.dim() == 2 else p
                 for sl in rows:
                     sl.copy_(torch.randn(sl.shape, generator=generator,
@@ -101,11 +143,11 @@ class MoE(nn.Module):
 
 
 def moe_init(cfg, *, dtype: torch.dtype = torch.bfloat16, device=None,
-             seed: int = 0) -> MoE:
+             seed: int = 0, mesh=None) -> MoE:
     """An ``MoE`` on ``device`` filled from a seeded ``torch.Generator``
     on that device (the JAX key's numbers are not reproduced; tests carry
     JAX weights over with ``LM.load_jax_params``)."""
-    mod = MoE(cfg, dtype=dtype, device=device)
+    mod = MoE(cfg, dtype=dtype, device=device, mesh=mesh)
     dev = mod.w_gate.device
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     for sub in mod.modules():
@@ -121,13 +163,34 @@ def _capacity(tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)
 
 
+def ep_route(cfg, mesh) -> bool:
+    """The reference's rule for ``impl="shard_map"``: a concrete mesh
+    (an abstract one has no ranks to hold the experts) with a
+    ``"model"`` axis whose size divides E, and batch axes."""
+    m = cfg.moe
+    if m is None or m.impl != "shard_map" or not mesh_lib.is_concrete(mesh):
+        return False
+    names, sizes = mesh_lib.mesh_axes(mesh)
+    return ("model" in names
+            and m.num_experts % sizes[names.index("model")] == 0
+            and bool(rules.batch_axes(mesh)))
+
+
 def moe_apply(moe: MoE, cfg, x: torch.Tensor):
     """x ``[B, S, D]`` -> ``(y, MoEMetrics)``.  Capacity-bounded top-k
-    routing through the gspmd formulation (the port has no mesh for
-    ``impl="shard_map"``).  The routing drop is folded into the
-    ``"moe_dispatch"`` capacity stream (``sparse.record_dropped``: kept on
-    the card until ``capacity_report()``, so no layer waits for it)."""
-    y, metrics = _moe_gspmd(moe, cfg, x)
+    routing, through ``_moe_shard_map`` where ``ep_route`` holds for the
+    installed mesh (``sharding.current_mesh``), else through the gspmd
+    formulation.  The routing drop is folded into the ``"moe_dispatch"``
+    capacity stream (``sparse.record_dropped``: kept on the card until
+    ``capacity_report()``, so no layer waits for it)."""
+    mesh = rules.current_mesh()
+    if ep_route(cfg, mesh):
+        y, metrics = _moe_shard_map(moe, cfg, x, mesh)
+    elif moe.held:
+        raise ValueError("this MoE holds one rank's experts: run it under "
+                         "its mesh (sharding.activation_mesh)")
+    else:
+        y, metrics = _moe_gspmd(moe, cfg, x)
     sparse_api.record_dropped("moe_dispatch", metrics.dropped_frac)
     return y, metrics
 
@@ -266,6 +329,132 @@ def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
         y = y + moe.shared(xf).float()
     return (y.reshape(b_, s, d).to(x.dtype),
             MoEMetrics(aux, z, dropped))
+
+
+class _GatherDim(torch.autograd.Function):
+    """The whole of a tensor split on ``dim`` over ``group`` (this rank's
+    part at ``idx`` of ``n``): forward an all-gather, backward a
+    reduce-scatter (the gradient summed over the group, this rank's part
+    kept).  Both are an all-reduce of the whole, zeros beside this rank's
+    part forward, so one collective serves every backend (gloo reduces
+    card tensors, it does not gather them)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, idx, n):
+        import torch.distributed as dist
+        ctx.group, ctx.dim, ctx.idx, ctx.size = group, dim, idx, x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = x.new_zeros(shape)
+        out.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return (g.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size).contiguous(),
+                None, None, None, None)
+
+
+class _MeanOverGroup(torch.autograd.Function):
+    """The mean over ``group`` of a value each rank computed: forward and
+    backward an all-reduce over ``n``.  The value enters every rank's
+    loss, so its gradient is the mean of theirs."""
+
+    @staticmethod
+    def forward(ctx, x, group, n):
+        import torch.distributed as dist
+        ctx.group, ctx.n = group, n
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x / n
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / ctx.n, None, None
+
+
+def _local_experts(moe: MoE, name: str, mesh, e0: int, e_loc: int):
+    """This rank's ``[E / ep, ...]`` experts of the stack ``name``: a held
+    block with its ``"data"`` shard gathered, or the slice of a whole
+    stack."""
+    w = getattr(moe, name)
+    if name not in moe.held:
+        return w[e0:e0 + e_loc]
+    shape, spec = moe.held[name]
+    if spec[1] is None:
+        return w
+    axes = (spec[1],) if isinstance(spec[1], str) else tuple(spec[1])
+    group = mesh_lib.axes_group(mesh, axes)
+    if group is None:
+        return w
+    idx, n = mesh_lib.axis_index(mesh, axes)
+    return _GatherDim.apply(w, group, 1, idx, n)
+
+
+def _moe_shard_map(moe: MoE, cfg, x: torch.Tensor, mesh):
+    """Explicit local EP dispatch (the reference's ``_moe_shard_map``):
+
+    * tokens: this rank's shard over the batch axes, replicated over
+      ``"model"``;
+    * expert weights: E over ``"model"`` (the ``"data"`` shard of a held
+      block all-gathered locally, reduce-scattered in the backward);
+    * each rank routes its local tokens, computes only its E / ep
+      experts, and contributes a partial ``[T_loc, D]``;
+    * one all-reduce over ``"model"`` (in ``combine_dtype``) combines.
+    """
+    bmm = sparse_api.batched_matmul
+    m = cfg.moe
+    b_, s, d = x.shape
+    t = b_ * s
+    group = mesh_lib.axes_group(mesh, ("model",))
+    ep_idx, ep = mesh_lib.axis_index(mesh, ("model",))
+    e_loc = m.num_experts // ep
+    e0 = ep_idx * e_loc
+    cdt = torch.bfloat16 if m.combine_dtype == "bfloat16" else torch.float32
+
+    xf = x.reshape(t, d)
+    cap = _capacity(t, cfg)
+    tfs, w_slot, _, dropped, _, z, aux, flat_slot = _route_and_rank(
+        xf, moe.router.w, cfg, cap, ranking=m.ranking)
+    x_in = xf
+    if group is not None:
+        # each rank's gradient reaches only its experts' slots and rows:
+        # summed over the group, every rank holds the whole of both
+        w_slot = copy_to_group(w_slot, group)
+        x_in = copy_to_group(xf, group)
+    w_g, w_u, w_d = (_local_experts(moe, n, mesh, e0, e_loc)
+                     for n in ("w_gate", "w_up", "w_down"))
+    buckets = F.embedding(tfs[e0:e0 + e_loc], x_in)           # [E_loc, C, D]
+    h_g = bmm(buckets, w_g)
+    h_u = bmm(buckets, w_u)
+    act = (F.silu(h_g) if cfg.act == "silu"
+           else F.gelu(h_g, approximate="tanh"))
+    out_e = bmm(act * h_u, w_d)                                # [E_loc, C, D]
+    # this rank's slots, renumbered from its first expert; the rest go to
+    # the zero row
+    lo, hi = e0 * cap, (e0 + e_loc) * cap
+    local = torch.where((flat_slot >= lo) & (flat_slot < hi),
+                        flat_slot - lo, e_loc * cap)
+    y = combine(out_e, w_slot[e0:e0 + e_loc], local, cdt)
+    if group is not None:
+        y = reduce_from_group(y, group)                        # THE combine
+    y = y.float()
+    metrics = torch.stack([aux, z, dropped])
+    bgroup = mesh_lib.axes_group(mesh, rules.batch_axes(mesh))
+    if bgroup is not None:
+        metrics = _MeanOverGroup.apply(
+            metrics, bgroup, mesh_lib.group_size(bgroup))
+    if moe.shared is not None:
+        y = y + moe.shared(xf).float()
+    return (y.reshape(b_, s, d).to(x.dtype),
+            MoEMetrics(metrics[0], metrics[1], metrics[2]))
 
 
 def moe_flops_per_token(cfg) -> float:

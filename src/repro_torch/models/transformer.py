@@ -64,7 +64,8 @@ class Layer(nn.Module):
     cross(norm_x(h), memory)`` between the mixer and the FFN; a
     ``causal=False`` attention layer (an encoder's) attends both ways."""
 
-    def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device):
+    def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device,
+                 mesh=None):
         super().__init__()
         if spec.mixer not in ("attn", "attn_local", "mla", "mamba"):
             raise NotImplementedError(
@@ -105,7 +106,7 @@ class Layer(nn.Module):
             self.ffn = MLP(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dt,
                            device=device)
         elif self.moe:
-            self.ffn = MoE(cfg, dtype=dt, device=device)
+            self.ffn = MoE(cfg, dtype=dt, device=device, mesh=mesh)
         else:
             self.ffn = sparse_ffn(cfg, device=device)
         self.post_norm1 = self.post_norm2 = None

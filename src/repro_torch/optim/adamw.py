@@ -24,7 +24,7 @@ nothing back to the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -71,11 +71,14 @@ def global_norm(tensors: Tensors) -> torch.Tensor:
     return torch.sqrt(torch.stack(sq).sum())
 
 
-def clip_by_global_norm(grads: Tensors, max_norm: float
+def clip_by_global_norm(grads: Tensors, max_norm: float,
+                        norm: Optional[torch.Tensor] = None
                         ) -> Tuple[Tensors, torch.Tensor]:
     """Scale ``grads`` so their global norm is at most ``max_norm``;
-    returns ``(grads, norm before clipping)``."""
-    norm = global_norm(grads)
+    returns ``(grads, norm before clipping)``.  ``norm`` is that norm
+    where the caller took it (over blocks held by several ranks)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return {n: g * scale.to(g.dtype) for n, g in grads.items()}, norm
 
@@ -103,14 +106,15 @@ def _groups(names, sizes, limit: int):
 
 
 @torch.no_grad()
-def adamw_update(grads: Tensors, state: AdamState, params: Tensors, *,
-                 lr: Union[float, torch.Tensor], b1: float = 0.9,
+def adamw_update(grads: Tensors, state: AdamState, params: Optional[Tensors],
+                 *, lr: Union[float, torch.Tensor], b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1) -> Tuple[Tensors, AdamState]:
     """One AdamW step (decoupled weight decay on every parameter, as the
     reference).  Updates ``state``'s tensors and ``params`` in place
     (the count too: ``state.count`` stays the same tensor) and returns
-    ``(params, state)``.  ``lr`` is a float or a 0-dim fp32 tensor on the
+    ``(params, state)``; ``params=None`` leaves the parameters to the
+    caller (a sharded step gathers them from the ranks' masters).  ``lr`` is a float or a 0-dim fp32 tensor on the
     parameters' device; the bias corrections are computed from the count
     on its device, so the step reads nothing on the host.  The arithmetic
     is the reference's, op for op, over many tensors at once
@@ -143,8 +147,9 @@ def adamw_update(grads: Tensors, state: AdamState, params: Tensors, *,
         torch._foreach_mul_(step, lr)
         torch._foreach_sub_(ws, step)
         del step
-        for n, w in zip(names, ws):
-            params[n].copy_(w)
+        if params is not None:
+            for n, w in zip(names, ws):
+                params[n].copy_(w)
     return params, state
 
 

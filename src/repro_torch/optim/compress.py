@@ -7,12 +7,16 @@ dequantised; what the quantisation lost is carried to the next step in
 an fp32 residual (error feedback, Seide et al. 2014 / Karimireddy et al.
 2019), which preserves convergence.
 
-In a data-parallel step the int8 tensor and its scale are what cross
-the wire (a quarter of the fp32 volume, ``wire_bytes``).  Here, as in
-the reference under GSPMD, the step runs quantise then dequantise in one
-process: the numerics exactly, the wire volume analytically.  The data-
-parallel loop that all-reduces the int8 tensors comes with sharded
-training.
+The reference quantises and dequantises the gradient after GSPMD's
+all-reduce and models the wire volume analytically; it never sends
+int8.  The port keeps that arithmetic: the data-parallel step
+(``train/step.py`` over a mesh) reduces the gradient first, then
+compresses its blocks, each rank the blocks of its residuals, with one
+scale per group taken as the max over every rank's blocks (one small
+all-reduce, ``amax_reduce``).  Sending the int8 codes instead would
+quantise each rank's partial gradient rather than the reduced one: other
+numerics, and a feature the reference lacks.  So ``wire_bytes`` stays
+analytic: what an int8 all-reduce would move.
 
 Everything runs on the gradients' device with no host read, so a
 captured train step (``train/program.py``) carries the residuals as
@@ -21,7 +25,7 @@ state, updated in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -58,8 +62,9 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def compress_grads(grads: Tensors, ef: EFState,
-                   groups: Optional[Sequence[Sequence[str]]] = None
-                   ) -> Tuple[Tensors, EFState]:
+                   groups: Optional[Sequence[Sequence[str]]] = None,
+                   amax_reduce: Optional[Callable[[torch.Tensor], None]]
+                   = None) -> Tuple[Tensors, EFState]:
     """``(grads as seen after the all-reduce, ef)``: each gradient
     quantised with its residual and dequantised (fp32); the residuals
     are overwritten in place with what the quantisation lost, and the
@@ -68,18 +73,21 @@ def compress_grads(grads: Tensors, ef: EFState,
     ``groups`` names gradients that share one scale (the max of their
     ``abs().max()``): the reference takes one scale per leaf of its
     parameter tree, where a leaf stacks the layers at one position of a
-    period (``LM.leaf_groups``).  A gradient in no group has its own."""
+    period (``LM.leaf_groups``).  A gradient in no group has its own.
+    ``amax_reduce`` turns the ``[groups]`` vector of local maxima into
+    the maxima over every rank's blocks, in place."""
     xs = {n: g.to(torch.float32) + ef.residual[n] for n, g in grads.items()}
     grouped = [tuple(n for n in grp if n in xs) for grp in groups or ()]
     seen = {n for grp in grouped for n in grp}
     grouped += [(n,) for n in xs if n not in seen]
+    grouped = [grp for grp in grouped if grp]
+    amax = torch.stack([xs[grp[0]].abs().max() if len(grp) == 1 else
+                        torch.stack([xs[n].abs().max() for n in grp]).max()
+                        for grp in grouped])
+    if amax_reduce is not None:
+        amax_reduce(amax)
     out: Tensors = {}
-    for grp in grouped:
-        if not grp:
-            continue
-        amax = (xs[grp[0]].abs().max() if len(grp) == 1 else
-                torch.stack([xs[n].abs().max() for n in grp]).max())
-        scale = _scale(amax)
+    for grp, scale in zip(grouped, _scale(amax)):
         for n in grp:
             d = _dequantize(*_quantize(xs[n], scale))
             ef.residual[n].copy_(xs[n] - d)

@@ -1,0 +1,258 @@
+"""Named-axis sharding rules: parameter names -> PartitionSpec.
+
+Counterpart of the JAX package's ``sharding/rules.py``, whose strategy
+it keeps:
+
+* weights: TP axis over ``model`` (heads / d_ff / experts / vocab) and an
+  FSDP axis over ``data`` on the other large dim where divisible --
+  optimizer state inherits the same specs, so Adam moments are spread
+  over data*model cards;
+* weights are replicated over ``pod``; gradients all-reduce across pods;
+* activations: batch over ('pod', 'data'); KV cache sequence over
+  'model'; batch-1 long context shards sequence over ('data', 'model').
+
+Divisibility fallback: any dim not divisible by its axis product is left
+unsharded (replicated on that axis), so one rule set serves all ten
+architectures.
+
+The rules read a mesh's axis names and sizes through
+``launch.mesh.mesh_axes``, so they take the port's ``AbstractMesh`` and a
+``DeviceMesh`` alike.  ``PartitionSpec`` is the port's own: per dim an
+axis name, a tuple of names, or None.
+
+Paths.  The reference matches its rules against the key path of a leaf
+of its parameter tree (``['stack'][0][1]['attn']['wq']['w']``).  A port
+parameter's name is that path's keys joined by dots, with the stacked
+``[repeat, ...]`` layer axis unstacked into per-layer modules
+(``layers.3.attn.wq.w``; ``LM.jax_leaves`` holds the same map), and
+every rule is anchored at the path's tail, so ``ref_path`` writes a
+name in the reference's notation and the rules match it unchanged.  A
+port tensor lacks the stacking dim; ``_spec`` leaves that leading dim
+None in the reference, so a port spec is the reference leaf's spec
+without it.
+
+``constrain`` (a GSPMD layout hint on an activation) is not ported: the
+port runs eagerly, one program per rank, so there is nothing for a hint
+to steer.  ``current_mesh`` is read by the MoE layer's expert-parallel
+route (``models/moe.py``).
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import re
+from typing import Dict, List, Sequence, Tuple
+
+from repro_torch.launch.mesh import mesh_axes
+
+
+class PartitionSpec(tuple):
+    """Per dim: an axis name, a tuple of axis names, or None."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+def _shape(mesh) -> Dict[str, int]:
+    names, sizes = mesh_axes(mesh)
+    return dict(zip(names, sizes))
+
+
+def _axis_size(mesh, names) -> int:
+    if isinstance(names, str):
+        names = (names,)
+    shape = _shape(mesh)
+    s = 1
+    for n in names:
+        s *= shape[n]
+    return s
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    names = mesh_axes(mesh)[0]
+    return tuple(a for a in ("pod", "data") if a in names)
+
+
+def _fit(mesh, dim: int, names):
+    """Return ``names`` if dim divides by their product, else None."""
+    if isinstance(names, str):
+        names = (names,)
+    axes = mesh_axes(mesh)[0]
+    names = tuple(n for n in names if n in axes)
+    if not names:
+        return None
+    return names if dim % _axis_size(mesh, names) == 0 else None
+
+
+def _spec(mesh, shape, base_ndim, last_dims) -> PartitionSpec:
+    """PartitionSpec: leading (stacking) dims None, trailing per rule.
+
+    ``last_dims``: tuple of axis-name-or-None for the final ``base_ndim``
+    dims, each checked for divisibility.
+    """
+    lead = len(shape) - base_ndim
+    spec = [None] * lead
+    for d, names in zip(shape[lead:], last_dims):
+        fit = _fit(mesh, d, names) if names else None
+        if fit is None:
+            spec.append(None)
+        else:
+            spec.append(fit if len(fit) > 1 else fit[0])
+    return P(*spec)
+
+
+# -- the mesh the step runs under ------------------------------------------------
+
+_ACT_MESH: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_activation_mesh", default=None)
+
+
+@contextlib.contextmanager
+def activation_mesh(mesh):
+    """Install ``mesh`` for the layers that read it (the MoE route)."""
+    tok = _ACT_MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _ACT_MESH.reset(tok)
+
+
+def current_mesh():
+    """The mesh installed by ``activation_mesh`` (None outside)."""
+    return _ACT_MESH.get()
+
+
+# -- parameter rules ---------------------------------------------------------
+
+_PARAM_RULES = [
+    # (path regex, base_ndim, last-dim axes)
+    (r"\['table'\]$",                2, ("model", "data")),
+    (r"\['(wq|wk|wv)'\]\['w'\]$",    2, ("data", "model")),
+    (r"\['(wq|wk|wv)'\]\['b'\]$",    1, ("model",)),
+    (r"\['wo'\]\['w'\]$",            2, ("model", "data")),
+    (r"\['q'\]\['a'\]\['w'\]$",      2, ("data", None)),
+    (r"\['q'\]\['b'\]\['w'\]$",      2, (None, "model")),
+    (r"\['q'\]\['w'\]\['w'\]$",      2, ("data", "model")),
+    (r"\['kv_a'\]\['w'\]$",          2, ("data", None)),
+    (r"\['kv_b'\]\['w'\]$",          2, (None, "model")),
+    (r"\['(up|gate)'\]\['w'\]$",     2, ("data", "model")),
+    (r"\['(up|gate)'\]\['b'\]$",     1, ("model",)),
+    (r"\['down'\]\['w'\]$",          2, ("model", "data")),
+    (r"\['down'\]\['b'\]$",          1, (None,)),
+    (r"\['(w_gate|w_up)'\]$",        3, ("model", "data", None)),
+    (r"\['w_down'\]$",               3, ("model", "data", None)),
+    (r"\['router'\]",                2, (None, None)),
+    (r"\['in_proj'\]\['w'\]$",       2, ("data", None)),
+    (r"\['out_proj'\]\['w'\]$",      2, ("model", "data")),
+    (r"\['values'\]$",               3, ("model", None, None)),  # BSR blocks
+]
+
+
+def ref_path(name: str) -> str:
+    """A port parameter name (``layers.3.attn.wq.w``) in the reference's
+    key-path notation (``['layers'][3]['attn']['wq']['w']``)."""
+    return "".join(f"[{k}]" if k.isdigit() else f"['{k}']"
+                   for k in name.split("."))
+
+
+def _param_spec_for(mesh, path_str: str, shape) -> PartitionSpec:
+    for pat, base, dims in _PARAM_RULES:
+        if re.search(pat, path_str):
+            return _spec(mesh, shape, base, dims)
+    if len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128:
+        return _spec(mesh, shape, 2, ("data", "model"))  # generic 2D weight
+    return P()  # norms, scalars, biases: replicated
+
+
+def param_spec(name: str, shape: Sequence[int], mesh) -> PartitionSpec:
+    """The spec of the parameter ``name`` of (whole) ``shape``."""
+    return _param_spec_for(mesh, ref_path(name), tuple(shape))
+
+
+def _shape_of(leaf) -> tuple:
+    """A tensor's (or a meta tensor's) shape, or a shape given as one."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def param_specs(params: Dict[str, object], mesh) -> Dict[str, PartitionSpec]:
+    """``{name: PartitionSpec}`` for ``{name: tensor or shape}`` (a meta
+    tensor or a shape will do: nothing is read)."""
+    return {n: param_spec(n, _shape_of(p), mesh) for n, p in params.items()}
+
+
+# -- train state --------------------------------------------------------------
+
+def train_state_specs(tree: dict, mesh) -> dict:
+    """The specs of a ``train.step.state_tree`` of whole tensors (or
+    shapes): params, the fp32 master, the moments and the compression
+    residuals share each parameter's spec; the step and the count (0-dim)
+    are replicated."""
+    out = {}
+    for key, node in tree.items():
+        if key == "params":
+            out[key] = param_specs(node, mesh)
+        elif isinstance(node, dict):
+            out[key] = {k: (param_specs(v, mesh)
+                            if k in ("master", "mu", "nu", "residual")
+                            else P()) for k, v in node.items()}
+        else:
+            out[key] = P()
+    return out
+
+
+def train_batch_specs(batch: dict, mesh) -> Dict[str, PartitionSpec]:
+    """Batch entries: the leading (batch) dim over the batch axes where
+    it divides by their product, the rest replicated."""
+    ba = batch_axes(mesh)
+
+    def f(leaf):
+        shape = _shape_of(leaf)
+        if not shape:
+            return P()
+        fit = _fit(mesh, shape[0], ba)
+        first = (fit if fit and len(fit) > 1 else
+                 (fit[0] if fit else None))
+        return P(first, *([None] * (len(shape) - 1)))
+    return {k: f(v) for k, v in batch.items()}
+
+
+# -- caches --------------------------------------------------------------------
+
+def cache_specs(caches: Sequence[dict], mesh, *, batch: int
+                ) -> List[Dict[str, PartitionSpec]]:
+    """KV / state caches, one dict per layer (``LM.init_cache``), each
+    leaf ``[B, S, ...]`` (the reference's ``[L, B, S, ...]`` without its
+    stacked layer axis; the spec is the reference's without that dim).
+
+    batch >= |pod|*|data|  -> B over ('pod','data'), S over 'model';
+    batch == 1 (long ctx)  -> S over ('data','model') (+'pod' if present).
+    """
+    ba = batch_axes(mesh)
+    axes = mesh_axes(mesh)[0]
+    b_fit = batch % _axis_size(mesh, ba) == 0 if ba else False
+    seq_axes = ("model",) if b_fit else tuple(
+        a for a in ("pod", "data", "model") if a in axes)
+
+    def f(key, leaf):
+        # the reference's rule on [1, B, S, ...], its stacked axis dropped
+        shape = (1,) + _shape_of(leaf)
+        spec = [None] * len(shape)
+        if len(shape) >= 2 and shape[1] == batch and b_fit:
+            spec[1] = ba if len(ba) > 1 else ba[0]
+        if key in ("k", "v", "latent", "k_rope", "xk", "xv") \
+                and len(shape) >= 3:
+            fit = _fit(mesh, shape[2], seq_axes)
+            if fit:
+                spec[2] = fit if len(fit) > 1 else fit[0]
+        elif key == "state" and len(shape) >= 3:
+            fit = _fit(mesh, shape[2], "model")   # heads
+            if fit:
+                spec[2] = fit[0]
+        return P(*spec[1:])
+    return [{k: f(k, v) for k, v in c.items()} for c in caches]

@@ -1615,9 +1615,10 @@ def _decide(spec: OpSpec, ctx: PlanContext, operand, x, dev: torch.device,
                                spec.block_size, spec.density, spec.dtype,
                                spec.mode, measure, dev.type, skew)
     fresh = dkey not in dispatch._decision_cache
+    agree = _mesh_agreement(ctx, dev) if measure else None
     dec = dispatch.decide(spec, dev.type, counts=counts, skew=skew,
                           candidates=cands, measure=measure, runner=runner,
-                          cache=ctx.cache)
+                          cache=ctx.cache, agree=agree)
     if dec.source == "measured" and (fresh or not ctx.cache):
         cache_lib.bump("measurements")
     route, est, source = dec.route, dict(dec.est_seconds), dec.source
@@ -1632,14 +1633,37 @@ def _decide(spec: OpSpec, ctx: PlanContext, operand, x, dev: torch.device,
             est[r] = _tp_estimate(spec, q, r, counts, skew)
         tp_source = "analytic"
         if source == "measured":
-            for r in tp_routes:
-                est[r] = _measure_tp_route(r, spec, ctx, operand, x, dev)
+            timed = {r: _measure_tp_route(r, spec, ctx, operand, x, dev)
+                     for r in tp_routes}
+            est.update(timed if agree is None else agree(timed))
             tp_source = "measured"
             cache_lib.bump("measurements")
             route = dispatch.measured_pick(est, route)
         elif est[min(tp_routes, key=est.get)] < est[route]:
             route = min(tp_routes, key=est.get)
     return route, est, source, False, None, None, tp_source
+
+
+def _mesh_agreement(ctx: PlanContext, dev: torch.device):
+    """On a concrete mesh, the measured times every rank decides on: each
+    candidate's slowest time over the mesh (one all-reduce), so ranks
+    that time the same calls apart still pick one route and run their
+    collectives in lockstep; None off a concrete mesh."""
+    if not is_concrete(ctx.mesh):
+        return None
+    from repro_torch.launch import mesh as mesh_lib
+    group = mesh_lib.axes_group(ctx.mesh, mesh_lib.mesh_axes(ctx.mesh)[0])
+    if group is None:
+        return None
+
+    def agree(times: Dict[str, float]) -> Dict[str, float]:
+        import torch.distributed as dist
+        names = sorted(times)
+        t = torch.tensor([times[n] for n in names], dtype=torch.float64,
+                         device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        return dict(zip(names, t.tolist()))
+    return agree
 
 
 def _decide_forced_tp(spec: OpSpec, ctx: PlanContext, operand, x,

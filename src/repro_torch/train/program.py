@@ -38,6 +38,12 @@ A restore (``train.step.load_state_tree``) copies into the state's
 tensors, so the graph reads the restored values.  On the CPU the step
 runs eagerly; ``graph=True`` there raises.  A capture that fails raises:
 nothing falls back to eager on a card.
+
+A state sharded over a mesh (``init_train_state(mesh=)``) is captured
+with its collectives when the mesh's backend is NCCL, whose collectives
+a CUDA graph records; over gloo (which stages card tensors through the
+host) a graph is refused, ``graph=None`` on a card included: pass
+``graph=False``, as ``Engine(mesh=)`` asks.
 """
 from __future__ import annotations
 
@@ -76,6 +82,12 @@ class TrainProgram:
                  graph: Optional[bool] = None,
                  floats: Optional[Dict[str, Sequence[int]]] = None):
         dev = lm.device
+        if graph is not False and state.layout is not None:
+            backend = state.layout.backend()
+            if backend != "nccl" and (graph or dev.type == "cuda"):
+                raise NotImplementedError(
+                    f"a train step over a {backend} mesh: a CUDA graph "
+                    f"cannot capture its collectives; pass graph=False")
         if graph is None:
             graph = dev.type == "cuda"
         elif graph and dev.type != "cuda":

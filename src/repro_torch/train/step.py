@@ -22,31 +22,230 @@ parameters' device, advanced in place, and the learning rate, the bias
 corrections and every metric are device values: a step reads nothing
 back to the host, so ``train/program.py`` can capture it as one CUDA
 graph (the counterpart of the reference's ``jax.jit`` of this step).
+
+Data parallelism with the state sharded (``init_train_state(mesh=)`` on
+a concrete ``DeviceMesh``; the reference gets it from GSPMD under
+``train_state_specs``, "Adam moments spread over data*model chips").
+Every rank runs the same program on its shard of the batch
+(``ShardLayout``):
+
+* the gradients are summed over the batch axes' group and averaged, in
+  their own dtype (bf16 parameters give bf16 gradients, as the
+  reference's all-reduce carries);
+* each rank keeps its block of every fp32 master, mu, nu and residual,
+  the block that the parameter's spec over the whole mesh gives it
+  (``sharding.rules.param_spec``; a replicated spec keeps the whole);
+* compression (``grad_compress``) runs on the blocks of the reduced
+  gradient, one scale per group as the max over every rank's blocks;
+* the clip's norm is the whole reduced gradient's: the blocks' squares
+  summed over the mesh, each block counted once (by one of its
+  replicas);
+* AdamW updates the blocks, and the parameters are gathered back whole
+  on every rank (an all-reduce of zeros beside each block's one writer:
+  one collective for every backend, gloo included, which reduces card
+  tensors but does not gather them).
+
+A parameter a rank holds as its block (an expert-parallel MoE's stacks,
+``LM.held_blocks``) is updated in place: its gradient arrives already
+summed over the batch axes its spec splits (the forward's gather
+reduce-scatters it), and is all-reduced over the others.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import partitioner, pruning
 from repro_torch.core.bsr import BlockSparseMatrix
-from repro_torch.optim.adamw import (AdamState, adamw_init, adamw_update,
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.optim.adamw import (UPDATE_GROUP_ELEMS, AdamState,
+                                     _groups, adamw_init, adamw_update,
                                      carry_slots, clip_by_global_norm,
                                      counter)
 from repro_torch.optim.compress import EFState, compress_grads, ef_init
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding import rules
 
 Tensors = Dict[str, torch.Tensor]
+
+
+class ShardLayout:
+    """Where a data-parallel step keeps each parameter's state on a
+    concrete mesh, and the collectives that move it (module docstring).
+
+    ``specs``: every parameter's spec under the rules (of its whole
+    shape, ``shapes``); ``held``: the parameters the model holds as this
+    rank's block.  ``comm_ms``, when a dict, collects each collective's
+    host time (after a device synchronise) by kind, one entry a step:
+    a measurement aid that adds syncs, off by default."""
+
+    def __init__(self, lm, mesh):
+        self.mesh = mesh
+        held = lm.held_blocks()
+        self.shapes = {n: tuple(held[n][0]) if n in held else tuple(p.shape)
+                       for n, p in lm.named_parameters()}
+        self.specs = {n: rules.param_spec(n, shp, mesh)
+                      for n, shp in self.shapes.items()}
+        for n, (_, spec) in held.items():
+            if spec != self.specs[n]:
+                raise ValueError(f"{n} is held as the block of {spec}; the "
+                                 f"rules give {self.specs[n]}")
+        self.held = set(held)
+        names = mesh_lib.mesh_axes(mesh)[0]
+        self.batch_axes = rules.batch_axes(mesh)
+        self.batch_group = mesh_lib.axes_group(mesh, self.batch_axes)
+        self.dp = mesh_lib.axis_index(mesh, self.batch_axes)[1]
+        self.mesh_group = mesh_lib.axes_group(mesh, names)
+        # the batch axes a held block's gradient is not yet summed over
+        self.held_groups = {
+            n: mesh_lib.axes_group(mesh, [
+                a for a in self.batch_axes
+                if a not in mesh_lib.spec_axes(self.specs[n])])
+            for n in self.held}
+        self.owner = {n: mesh_lib.owns_block(mesh, s)
+                      for n, s in self.specs.items()}
+        self.comm_ms: Optional[Dict[str, List[float]]] = None
+
+    def backend(self) -> str:
+        import torch.distributed as dist
+        return dist.get_backend(self.mesh_group)
+
+    def block(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole tensor ``t`` of ``name`` (a
+        held parameter is its block already)."""
+        if name in self.held:
+            return t
+        return mesh_lib.block(t, self.specs[name], self.mesh)
+
+    def _buckets(self, tensors: Tensors, names: List[str]):
+        """``names`` cut into runs of one dtype and at most
+        ``UPDATE_GROUP_ELEMS`` elements (one flat buffer each)."""
+        by_dtype: Dict[torch.dtype, List[str]] = {}
+        for n in names:
+            by_dtype.setdefault(tensors[n].dtype, []).append(n)
+        sizes = {n: tensors[n].numel() for n in names}
+        for run in by_dtype.values():
+            yield from _groups(run, sizes, UPDATE_GROUP_ELEMS)
+
+    def storage_specs(self, tree: dict) -> dict:
+        """The specs of a ``state_tree`` of this layout's state as it is
+        held: the optimizer's and residual tables by the rules, the
+        parameters whole (``P()``) unless held as blocks."""
+        specs = rules.train_state_specs(
+            {**tree, "params": self.shapes}, self.mesh)
+        specs["params"] = {n: (s if n in self.held else rules.P())
+                           for n, s in specs["params"].items()}
+        return specs
+
+    @contextlib.contextmanager
+    def _timed(self, kind: str, device: torch.device):
+        if self.comm_ms is None:
+            yield
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        self.comm_ms.setdefault(kind, []).append(
+            (time.perf_counter() - t0) * 1e3)
+
+    def _all_reduce(self, t: torch.Tensor, group, op=None) -> None:
+        import torch.distributed as dist
+        if group is not None:
+            dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
+
+    def reduce_grads(self, grads: Tensors) -> Tensors:
+        """The fp32 blocks of the gradients averaged over the batch axes
+        (the whole gradients are dropped as they are reduced)."""
+        out: Tensors = {}
+        inv = 1.0 / self.dp
+        dev = next(iter(grads.values())).device
+        with self._timed("grad_all_reduce", dev):
+            for n in [n for n in grads if n in self.held]:
+                g = grads.pop(n)
+                self._all_reduce(g, self.held_groups[n])
+                out[n] = g.float() * inv
+            for names in list(self._buckets(grads, list(grads))):
+                flat = torch.cat([grads[n].reshape(-1) for n in names])
+                self._all_reduce(flat, self.batch_group)
+                off = 0
+                for n in names:
+                    g = grads.pop(n)
+                    g = flat[off:off + g.numel()].view(g.shape)
+                    off += g.numel()
+                    out[n] = self.block(n, g).float() * inv
+                del flat
+        return out
+
+    def mean_metrics(self, metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """Each metric averaged over the batch axes (one all-reduce)."""
+        if self.batch_group is None:
+            return metrics
+        keys = list(metrics)
+        vals = torch.stack([metrics[k].float() for k in keys])
+        with self._timed("metrics_all_reduce", vals.device):
+            self._all_reduce(vals, self.batch_group)
+        vals = vals / self.dp
+        return {k: vals[i] for i, k in enumerate(keys)}
+
+    def global_norm(self, blocks: Tensors) -> torch.Tensor:
+        """The fp32 L2 norm of the whole gradient from its blocks: each
+        block's squares counted by its one owner, summed over the mesh."""
+        dev = next(iter(blocks.values())).device
+        own = [torch.sum(g.float() ** 2) for n, g in blocks.items()
+               if self.owner[n]]
+        sq = (torch.stack(own).sum() if own else
+              torch.zeros((), dtype=torch.float32, device=dev))
+        with self._timed("norm_all_reduce", dev):
+            self._all_reduce(sq, self.mesh_group)
+        return torch.sqrt(sq)
+
+    def amax_reduce(self, amax: torch.Tensor) -> None:
+        import torch.distributed as dist
+        with self._timed("amax_all_reduce", amax.device):
+            self._all_reduce(amax, self.mesh_group, dist.ReduceOp.MAX)
+
+    @torch.no_grad()
+    def write_params(self, master: Tensors, params: Tensors) -> None:
+        """Every parameter from the ranks' fp32 master blocks: a held
+        block from this rank's own, the rest gathered whole."""
+        for n in self.held:
+            params[n].copy_(master[n])
+        rest = [n for n in params if n not in self.held]
+        if not rest:
+            return
+        with self._timed("param_all_gather", params[rest[0]].device):
+            for names in self._buckets(params, rest):
+                p0 = params[names[0]]
+                flat = torch.zeros(sum(params[n].numel() for n in names),
+                                   dtype=p0.dtype, device=p0.device)
+                off, views = 0, []
+                for n in names:
+                    v = flat[off:off + params[n].numel()].view(self.shapes[n])
+                    off += params[n].numel()
+                    if self.owner[n]:
+                        mesh_lib.block(v, self.specs[n],
+                                       self.mesh).copy_(master[n])
+                    views.append((n, v))
+                self._all_reduce(flat, self.mesh_group)
+                for n, v in views:
+                    params[n].copy_(v)
 
 
 @dataclasses.dataclass
 class TrainState:
     step: torch.Tensor       # [] int32 on the params' device (an int is taken)
     params: Tensors          # the model's parameters, by name
-    opt: AdamState
+    opt: AdamState           # whole, or this rank's blocks under ``layout``
     ef: Optional[EFState] = None   # None unless gradient compression
+    layout: Optional[ShardLayout] = None   # None unless sharded on a mesh
 
     def __post_init__(self):
         self.step = counter(self.step, self.params)
@@ -62,15 +261,20 @@ class TrainHParams(NamedTuple):
     grad_compress: bool = False
 
 
-def init_train_state(lm, *, hp: TrainHParams = TrainHParams()
-                     ) -> TrainState:
+def init_train_state(lm, *, hp: TrainHParams = TrainHParams(),
+                     mesh=None) -> TrainState:
     """Make ``lm``'s parameters (as initialised or loaded) trainable and
     start AdamW on them (and the compression residuals with
-    ``grad_compress``)."""
+    ``grad_compress``).  On a concrete ``mesh`` the state is this rank's
+    blocks (``ShardLayout``); every rank calls it with the same model."""
     lm.requires_grad_(True)
     params = dict(lm.named_parameters())
-    return TrainState(0, params, adamw_init(params),
-                      ef_init(params) if hp.grad_compress else None)
+    layout = ShardLayout(lm, mesh) if mesh_lib.is_concrete(mesh) else None
+    held = (params if layout is None else
+            {n: layout.block(n, p).contiguous() for n, p in params.items()})
+    return TrainState(0, params, adamw_init(held),
+                      ef_init(held) if hp.grad_compress else None,
+                      layout=layout)
 
 
 def microbatch_grads(grad_fn: Callable, params: Tensors, batch: dict,
@@ -146,7 +350,11 @@ def evolve_sparse_layer(state: TrainState, name: str, layer,
     carry the optimizer's master copy and moments of those values with
     it (``carry_slots``), and its compression residual where the state
     has one (a grown block starts with none).  Returns the
-    ``EvolvePlan``."""
+    ``EvolvePlan``.  A state sharded on a mesh is refused: its slots are
+    blocks of the whole tables."""
+    if state.layout is not None:
+        raise NotImplementedError("a topology step on a state sharded over "
+                                  "a mesh (its optimizer slots are blocks)")
     eplan = layer.evolve(new_pattern)
     carry_slots(state.opt, name, eplan)
     if state.ef is not None:
@@ -199,17 +407,28 @@ def make_train_step(lm, hp: TrainHParams = TrainHParams()):
                    ) -> Tuple[TrainState, Dict[str, Any]]:
         loss, metrics, grads = microbatch_grads(grad_fn, state.params,
                                                 batch, hp.accum)
+        lay = state.layout
+        if lay is not None:
+            grads = lay.reduce_grads(grads)
+            metrics = lay.mean_metrics(dict(metrics, loss=loss))
+            loss = metrics.pop("loss")
         if hp.grad_compress:
             if state.ef is None:
                 raise ValueError("grad_compress=True needs the state's "
                                  "residuals: init_train_state(lm, hp=hp)")
-            grads, state.ef = compress_grads(grads, state.ef, groups)
-        grads, gnorm = clip_by_global_norm(grads, hp.clip_norm)
+            grads, state.ef = compress_grads(
+                grads, state.ef, groups,
+                amax_reduce=None if lay is None else lay.amax_reduce)
+        grads, gnorm = clip_by_global_norm(
+            grads, hp.clip_norm,
+            norm=None if lay is None else lay.global_norm(grads))
         lr = warmup_cosine(state.step, peak_lr=hp.peak_lr,
                            warmup_steps=hp.warmup_steps,
                            total_steps=hp.total_steps)
-        adamw_update(grads, state.opt, state.params, lr=lr,
-                     weight_decay=hp.weight_decay)
+        adamw_update(grads, state.opt, state.params if lay is None else None,
+                     lr=lr, weight_decay=hp.weight_decay)
+        if lay is not None:
+            lay.write_params(state.opt.master, state.params)
         state.step.add_(1)
         return state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
 

@@ -2802,3 +2802,326 @@ def test_tp_shardmap_nccl_across_cards(dev, tmp_path):
         assert _rel(got[0]["dx"].to(dev), xx.grad) <= TOL[torch.bfloat16]
         total = sum(g["dv"].float() for g in got).to(dev)
         assert _rel(total, v.grad) <= TOL[torch.bfloat16]
+
+
+# -- sharded training over NCCL, one rank per card ------------------------------
+
+SHARD_HP = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+
+
+def _dp_cfg():
+    """llama3.2-1b's smoke config, every FFN sparse (d = 1/4), fp32."""
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(
+        configs.sparsify_ffn(configs.smoke("llama3_2_1b"), 0.25),
+        dtype="float32")
+
+
+def _ep_cfg(impl="shard_map"):
+    """qwen3-moe-30b-a3b at full width, 2 layers, bf16."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.profile_train import cut_depth
+    cfg = cut_depth(configs.get("qwen3-moe-30b-a3b"), 2)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            impl=impl))
+
+
+def _shard_rank(rank, world, init_file, out_dir, case):
+    """One rank per card over NCCL; ``_SHARD_CASES[case]``'s results to
+    ``out_dir/rank<r>.pt``.  Each stage it passes is marked in
+    ``out_dir/stage<r>`` (what a hang is reported with).  The captured
+    graphs (held in reference cycles of their programs) are collected
+    before the process group is destroyed: a live graph holds the
+    communicators its collectives were captured on."""
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    def mark(stage):
+        with open(os.path.join(out_dir, f"stage{rank}"), "w") as f:
+            f.write(stage)
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    mark("started")
+    try:
+        out = _SHARD_CASES[case](rank, world, out_dir)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        mark("saved")
+    finally:
+        gc.collect()
+        torch.cuda.synchronize()
+        mark("collected")
+        dist.barrier()
+        mark("barrier")
+        dist.destroy_process_group()
+        mark("destroyed")
+
+
+def _train_ranks(cfg, mesh, batch, seq, graphs, **kw):
+    """``train_loop`` on ``mesh``: losses, the master blocks and their
+    slices, and (rank 0) the program's capture counts."""
+    from repro_torch.launch.mesh import block_slices
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainHParams
+    stats = {}
+    state, losses = train_loop(
+        cfg, steps=kw.pop("steps", 3), batch_per_shard=batch, seq=seq,
+        hp=TrainHParams(**SHARD_HP), device="cuda", log_every=10 ** 9,
+        graphs=graphs, mesh=mesh,
+        on_step=lambda s, m, p: stats.update(p.program.stats()), **kw)
+    lay = state.layout
+    return dict(losses=losses, stats=stats,
+                master={n: m.cpu() for n, m in state.opt.master.items()},
+                slices={n: block_slices(lay.shapes[n], lay.specs[n], mesh)
+                        for n in lay.specs})
+
+
+def _dp_case(rank, world, out_dir):
+    from repro_torch.launch.mesh import make_device_mesh
+    mesh = make_device_mesh("cuda", (world, 1), ("data", "model"))
+    return {g: _train_ranks(_dp_cfg(), mesh, 2, 32, g, ckpt_dir=None)
+            for g in (False, True)}
+
+
+def _ckpt_case(rank, world, out_dir):
+    """A checkpoint written on (4, 1) resumed on (2, 2)."""
+    import os
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_device_mesh
+    d41, d22 = os.path.join(out_dir, "d41"), os.path.join(out_dir, "d22")
+    m41 = make_device_mesh("cuda", (4, 1), ("data", "model"))
+    _train_ranks(_dp_cfg(), m41, 2, 32, True, steps=2, ckpt_dir=d41,
+                 ckpt_every=2)
+    if rank == 0:
+        shutil.copytree(d41, d22)
+    dist.barrier()
+    m22 = make_device_mesh("cuda", (2, 2), ("data", "model"))
+    return _train_ranks(_dp_cfg(), m22, 4, 32, True, ckpt_dir=d22,
+                        ckpt_every=10)
+
+
+def _ep_case(rank, world, out_dir):
+    """qwen3 (2 layers, full width) on (2, 2): each rank's forward of its
+    data shard's rows and routing drops, then two steps eager and
+    captured."""
+    from repro_torch import sparse as tsparse
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import axis_index, make_device_mesh
+    from repro_torch.sharding import rules
+    import types
+
+    from repro_torch.launch.mesh import gather_block
+    from repro_torch.models.moe import MoE, _moe_gspmd
+    cfg = _ep_cfg()
+    mesh = make_device_mesh("cuda", (2, 2), ("data", "model"))
+    di = axis_index(mesh, ("data",))[0]
+    lm = LM(cfg, device="cuda", seed=0, mesh=mesh)
+    tokens = TokenPipeline(cfg.vocab_size, 2, 512, num_shards=2,
+                           shard_id=di).get_batch(0)["tokens"]
+    moes = [m for m in lm.modules() if isinstance(m, MoE)]
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, o: seen.append((inp[0], o[0]))) for m in moes]
+    tsparse.reset_telemetry()
+    with rules.activation_mesh(mesh):
+        logits = lm(tokens)
+    for h in hooks:
+        h.remove()
+    # each layer against the gspmd formulation on the same input, its
+    # experts gathered whole
+    errs = []
+    for mod, (x, y) in zip(moes, seen):
+        whole = {name: gather_block(getattr(mod, name), shape, spec, mesh)
+                 for name, (shape, spec) in mod.held.items()}
+        with torch.no_grad():
+            y_ref, _ = _moe_gspmd(types.SimpleNamespace(
+                router=mod.router, shared=mod.shared, **whole), cfg, x)
+        errs.append(_rel(y, y_ref))
+    out = {"shard": di, "finite": bool(torch.isfinite(logits).all()),
+           "layer_errs": errs,
+           "dropped": tsparse.dropped_history("moe_dispatch"),
+           "held": {n: tuple(lm.get_parameter(n).shape)
+                    for n in lm.held_blocks()}}
+    del lm, logits, seen
+    for g in (False, True):
+        r = _train_ranks(cfg, mesh, 2, 512, g, steps=2, ckpt_dir=None)
+        out[g] = dict(losses=r["losses"], stats=r["stats"],
+                      master=r["master"])
+    return out
+
+
+def _preempt_case(rank, world, out_dir):
+    """``train_loop`` on (world, 1), captured, where only the last rank
+    gets SIGTERM, during its second step: the steps each rank ran and
+    the latest checkpoint."""
+    import os
+    import signal
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.train import program as prog_mod
+    call = prog_mod.TrainProgram.__call__
+    calls = []
+
+    def signalled(self):
+        calls.append(None)
+        if rank == world - 1 and len(calls) == 2:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return call(self)
+    prog_mod.TrainProgram.__call__ = signalled
+    mesh = make_device_mesh("cuda", (world, 1), ("data", "model"))
+    d = os.path.join(out_dir, "ck")
+    r = _train_ranks(_dp_cfg(), mesh, 2, 32, True, steps=20, ckpt_dir=d,
+                     ckpt_every=100)
+    return {"losses": r["losses"], "latest": latest_step(d)}
+
+
+_SHARD_CASES = {"dp": _dp_case, "ckpt": _ckpt_case, "ep": _ep_case,
+                "preempt": _preempt_case}
+
+
+def _spawn_nccl(tmp_path, world, case, timeout=300):
+    """``case`` on ``world`` NCCL ranks; ranks still running after
+    ``timeout`` s are killed and the test fails with the stage each
+    reached."""
+    import os
+    import time
+
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(_shard_rank, args=(world, str(tmp_path / "pg"),
+                                                str(tmp_path), case),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            stages = []
+            for r in range(world):
+                path = tmp_path / f"stage{r}"
+                stages.append(path.read_text() if os.path.exists(path)
+                              else None)
+            pytest.fail(f"{case}: NCCL ranks still running after "
+                        f"{timeout} s; stages {stages}")
+    return [torch.load(str(tmp_path / f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def _one_process(dev, cfg, batch, seq, steps=3):
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainHParams
+    state, losses = train_loop(
+        cfg, steps=steps, batch_per_shard=batch, seq=seq, ckpt_dir=None,
+        hp=TrainHParams(**SHARD_HP), device=dev, log_every=10 ** 9,
+        graphs=False)
+    return losses, {n: m.cpu() for n, m in state.opt.master.items()}
+
+
+@pytest.mark.cuda
+def test_dp_nccl_across_cards(dev, tmp_path):
+    """Data parallelism with the state sharded over one NCCL rank per card
+    on a (cards, 1) mesh: 3 steps eager and captured as one CUDA graph
+    (collectives included), bit-equal; the eager losses and each rank's
+    master blocks within fp32 1e-4 of the one-process run on the global
+    batch (the masters in relative L2: Adam's normalised steps move an element whose
+    gradient's sign differs by a summation order by about lr).  Needs two
+    cards."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices (one rank per card)")
+    outs = _spawn_nccl(tmp_path, world, "dp")
+    losses, master = _one_process(dev, _dp_cfg(), 2 * world, 32)
+    for r, o in enumerate(outs):
+        eager, graph = o[False], o[True]
+        assert graph["losses"] == eager["losses"], r
+        for n, m in eager["master"].items():
+            assert torch.equal(graph["master"][n], m), (r, n)
+            w = master[n][eager["slices"][n]]
+            assert (m - w).norm() <= 1e-4 * w.norm(), (r, n, _rel(m, w))
+        for a, b in zip(eager["losses"], losses):
+            assert abs(a - b) <= 1e-4 * abs(b), (r, eager["losses"], losses)
+    assert outs[0][True]["stats"]["captures"] == 1
+    assert outs[0][True]["stats"]["replays"] >= 2
+
+
+@pytest.mark.cuda
+def test_preemption_nccl_stops_every_rank(dev, tmp_path):
+    """SIGTERM to one NCCL rank of a (cards, 1) mesh during its second
+    captured step: every rank runs that step, writes the step-2
+    checkpoint and stops, none left waiting in a collective.  Needs two
+    cards."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA devices (one rank per card)")
+    outs = _spawn_nccl(tmp_path, world, "preempt")
+    for o in outs:
+        assert len(o["losses"]) == 2 and o["latest"] == 2, o
+    assert all(o["losses"] == outs[0]["losses"] for o in outs)
+
+
+@pytest.mark.cuda
+def test_checkpoint_reshards_nccl_four_to_two_by_two(dev, tmp_path):
+    """A checkpoint written by 4 NCCL ranks on a (4, 1) mesh resumes on a
+    (2, 2) mesh (captured steps): the next step's loss within fp32 1e-4
+    of the unbroken one-process run's.  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    outs = _spawn_nccl(tmp_path, 4, "ckpt")
+    losses, _ = _one_process(dev, _dp_cfg(), 8, 32)
+    for o in outs:
+        assert len(o["losses"]) == 1
+        assert abs(o["losses"][0] - losses[2]) <= 1e-4 * abs(losses[2]), \
+            (o["losses"], losses)
+
+
+@pytest.mark.cuda
+def test_ep_nccl_two_by_two(dev, tmp_path):
+    """qwen3-moe at full width, 2 layers, ``impl="shard_map"`` on a (2, 2)
+    mesh of 4 NCCL ranks (64 experts a rank, their data shards gathered):
+    each MoE layer's output within bf16 2e-2 of the gspmd formulation on
+    the same input, the first layer's routing drops the mean of the
+    shards' one-process drops (the same input; later layers' inputs
+    differ by the combine's summation order, which re-ranks the
+    capacity queues at random init), finite logits, two train steps
+    captured bit-equal to eager, the first loss within bf16 2e-2 of the
+    mean of the shards' one-process losses.  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from repro_torch import sparse as tsparse
+    from repro_torch.data import TokenPipeline
+    outs = _spawn_nccl(tmp_path, 4, "ep", timeout=400)
+    cfg = _ep_cfg("gspmd")
+    lm = LM(cfg, device=dev, seed=0)
+    drops, loss = [], []
+    for s in (0, 1):
+        batch = TokenPipeline(cfg.vocab_size, 2, 512, num_shards=2,
+                              shard_id=s).get_batch(0)
+        tsparse.reset_telemetry()
+        lm(batch["tokens"])
+        drops.append(tsparse.dropped_history("moe_dispatch"))
+        with torch.no_grad():
+            loss.append(float(lm.loss(batch["tokens"], batch["targets"])[0]))
+    mean_first = (drops[0][0] + drops[1][0]) / 2
+    for o in outs:
+        assert o["finite"]
+        assert len(o["layer_errs"]) == 2
+        assert max(o["layer_errs"]) <= 2e-2, o["layer_errs"]
+        assert abs(o["dropped"][0] - mean_first) <= 1e-6, \
+            (o["dropped"], drops)
+        assert all(shape[0] == 64 for shape in o["held"].values())
+        assert all(shape[1] in (1024, 384) for shape in o["held"].values())
+        assert o[True]["losses"] == o[False]["losses"]
+        for n, m in o[False]["master"].items():
+            assert torch.equal(o[True]["master"][n], m), n
+        first = o[False]["losses"][0]
+        assert abs(first - sum(loss) / 2) <= 2e-2 * abs(sum(loss) / 2)
