@@ -5668,6 +5668,12 @@ DP_BATCH, DP_SEQ = 4, 512
 # mesh (64 of 128 experts a rank)
 EP_LAYERS, EP_STEPS = 2, 3
 EP_MESH = (1, 2)
+# the mesh splits the attention over "model" too, so the first MoE
+# layer's input differs from one process's by bf16 roundings and its
+# router re-routes near-ties: at most EP_FIRST_REROUTED of the 2048
+# tokens (70 and 93 read on an H100), its drop fraction within
+# EP_FIRST_DROP_TOL of one process's (3e-4 read)
+EP_FIRST_REROUTED, EP_FIRST_DROP_TOL = 256, 1e-2
 # the first loss (before any update) differs only by fp32 summation order
 FIRST_LOSS_TOL = 1e-5
 
@@ -5776,24 +5782,25 @@ def blocks_gib(state, mesh) -> float:
         for n in lay.specs) / 2 ** 30
 
 
-def master_err(torch, state, whole, mesh) -> dict:
+def master_err(torch, state, whole) -> dict:
     """This rank's master blocks against its blocks of ``whole`` (the
-    one-process run's final masters): the largest relative L2 error of a
-    parameter (``||d|| / ||w||``, the budget's measure) and the largest
+    one-process run's final masters; each master's place in its whole
+    tensor is ``state.layout.place[name].state``): the relative L2 error
+    of each parameter (``per``), the largest (``||d|| / ||w||``, the
+    budget's measure) and the largest
     rel-max error (reported: Adam's normalised first steps move an
     element by about lr whatever its gradient's size, so an element
     whose bf16 gradient changes sign between the runs -- summed from two
     half-batch roundings here, one there -- differs by up to twice the
     summed lr, a few percent of a small-init table's largest value)."""
-    from repro_torch.launch.mesh import block
     lay = state.layout
-    l2, rmax = 0.0, 0.0
+    per, rmax = {}, 0.0
     for n, m in state.opt.master.items():
-        w = block(whole[n], lay.specs[n], mesh).float()
+        w = lay.place[n].state.take(whole[n]).float()
         d = m.float() - w
-        l2 = max(l2, (d.norm() / w.norm().clamp_min(1e-12)).item())
+        per[n] = (d.norm() / w.norm().clamp_min(1e-12)).item()
         rmax = max(rmax, rel_err(m, w)[0])
-    return {"rel_l2": l2, "rel_max": rmax}
+    return {"rel_l2": max(per.values()), "rel_max": rmax, "per": per}
 
 
 def resume_run(torch, cfg, ckpt_dir, hp, mesh, args, batch, steps):
@@ -5868,8 +5875,7 @@ def dp_job(torch, rank, world, job):
             step_ms=list(times), comm_ms=dict(state.layout.comm_ms),
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
             state_gib=state_gib(state), blocks_gib=blocks_gib(state, mesh),
-            master_err=master_err(torch, state, job["masters"][compress],
-                                  mesh))
+            master_err=master_err(torch, state, job["masters"][compress]))
         del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -5997,14 +6003,13 @@ def dp_phase(torch, args):
 def ep_layer_check(torch, mesh, cfg, mod, x, y) -> dict:
     """One expert-parallel MoE layer against the gspmd formulation on the
     same input: the rank's held expert blocks gathered whole over the
-    mesh (``gather_block``), then ``_moe_gspmd``.  Returns the output's rel-max error and both routing
-    drops."""
+    mesh (``Block.gather``), then ``_moe_gspmd``.  Returns the output's
+    rel-max error and both routing drops."""
     import types
 
-    from repro_torch.launch.mesh import gather_block
     from repro_torch.models.moe import _moe_gspmd
-    whole = {name: gather_block(getattr(mod, name), shape, spec, mesh)
-             for name, (shape, spec) in mod.held.items()}
+    whole = {name: h.block.gather(getattr(mod, name), mesh)
+             for name, h in mod.held.items()}
     ref = types.SimpleNamespace(router=mod.router, shared=mod.shared,
                                 **whole)
     with torch.no_grad():
@@ -6138,19 +6143,24 @@ def ep_phase(torch, args):
     split over "model") ~11 GB, the fp32 gradient blocks 4 GB and one
     chunk of fp32 logits: ~24 GB a rank.  The forward of a 4 x 512 batch:
     every MoE layer's output within bf16 2e-2 of the gspmd formulation on
-    the same input with the same routing drops (``ep_layer_check``), the
-    first layer's drops equal to the one-process gspmd forward's (the
-    same input), finite logits, and gmm launched 3 times a layer on
+    the same input with the same routing drops (``ep_layer_check``),
+    finite logits, and gmm launched 3 times a layer on
     64-expert buckets.  The logits over all tokens are reported, not
     held: the combine adds the two ranks' partials in another order, a
     few bf16 roundings of the first layer's output flip, and the second
     layer's router then picks another top-k for some tokens, which
     shifts the capacity queues behind them (13 % and 28 % of the
     assignments drop at this random init), so a token may keep another
-    set of experts.  Held instead: no token of the first layer
-    re-routed, at least half the tokens routed as in the one-process run
-    in every layer (``routing_keys``: the same top-k and kept experts),
-    and their logits within bf16 ``CONSISTENCY_TOL`` (6e-2).
+    set of experts.  The (1, 2) mesh also splits the GQA heads and the
+    vocabulary over "model" (model parallelism): the first MoE layer's
+    input is then the split attention's, whose bf16 partials are summed
+    over the ranks, so its router re-routes near-ties too (70 and 93 of
+    2048 tokens read on an H100): held at most ``EP_FIRST_REROUTED``
+    tokens re-routed there and its drop fraction within
+    ``EP_FIRST_DROP_TOL`` of one process's.  Held too: at least half the
+    tokens routed as in the one-process run in every layer
+    (``routing_keys``: the same top-k and kept experts), and their
+    logits within bf16 ``CONSISTENCY_TOL`` (6e-2).
     ``EP_STEPS`` eager ``train_loop`` steps within bf16 2e-2 of the
     one-process run's losses, with gmm launched in the backward (dL/da)
     of every rank."""
@@ -6216,19 +6226,22 @@ def ep_phase(torch, args):
                                f"{o['logits_finite']}")
         # the end-to-end witness: the logits of the tokens routed as in
         # the one-process run (at least half of them) within bf16
-        # CONSISTENCY_TOL, and the first layer (the same input) re-routes
-        # none
-        if o["rerouted"][0] or 2 * o["same_tokens"] < DP_BATCH * DP_SEQ \
+        # CONSISTENCY_TOL
+        if 2 * o["same_tokens"] < DP_BATCH * DP_SEQ \
                 or not o["same_logits_err"] <= CONSISTENCY_TOL:
             raise RuntimeError(f"{label}: tokens re-routed a layer "
                                f"{o['rerouted']}, logits of the "
                                f"{o['same_tokens']} tokens routed alike "
                                f"{o['same_logits_err']:.3g} (budget "
                                f"{CONSISTENCY_TOL})")
-        if len(o["dropped"]) != len(dropped) or o["dropped"][0] != dropped[0]:
+        if len(o["dropped"]) != len(dropped) \
+                or not o["rerouted"][0] <= EP_FIRST_REROUTED \
+                or not abs(o["dropped"][0] - dropped[0]) <= EP_FIRST_DROP_TOL:
             raise RuntimeError(f"{label}: routing drops {o['dropped']} vs "
-                               f"one process {dropped} (the first layer's "
-                               f"input is the same)")
+                               f"one process {dropped} (first layer within "
+                               f"{EP_FIRST_DROP_TOL}), first layer's tokens "
+                               f"re-routed {o['rerouted'][0]} (at most "
+                               f"{EP_FIRST_REROUTED})")
         if o["forward_launches"].get("gmm") != 3 * layers \
                 or {b[0] for b in o["buckets"]} != {e_loc} \
                 or len(o["buckets"]) != 3 * layers:
@@ -6236,8 +6249,11 @@ def ep_phase(torch, args):
                                f"{o['forward_launches']}, buckets "
                                f"{o['buckets']} (3 a layer of {e_loc} "
                                f"experts expected)")
-        if any(s[0] != e_loc for s in o["held"].values()):
-            raise RuntimeError(f"{label}: held expert blocks {o['held']}")
+        experts = {n: s for n, s in o["held"].items()
+                   if n.rpartition(".")[2] in ("w_gate", "w_up", "w_down")}
+        if len(experts) != 3 * layers \
+                or any(s[0] != e_loc for s in experts.values()):
+            raise RuntimeError(f"{label}: held expert blocks {experts}")
         errs = [abs(a - b) / abs(b) for a, b in zip(o["losses"], losses)]
         if not max(errs) <= KERNEL_TOL["bfloat16"]:
             raise RuntimeError(f"{label}: losses {o['losses']} vs one "
@@ -6320,7 +6336,469 @@ def print_ep(ep):
     print(f"[ep] phase {ep['phase_s']:.1f} s")
 
 
-SHARD_JOBS = {"dp": dp_job, "ep": ep_job}
+# -- [mp]: model parallelism over gloo ranks of the one card -------------------
+
+# [mp]: llama3.2-1b (d = 1/8) split over a (1, MP_RANKS) mesh's "model"
+# axis, MP_STEPS eager train steps of [train]'s global batch, and an
+# eager engine serving MP_PROMPTS
+MP_RANKS, MP_STEPS, MP_MAX_LEN = 2, 3, 256
+MP_PROMPTS = (40, 77, 128, 200)
+MP_NEW_TOKENS = 8
+# the share of teacher-forced greedy ids equal to one process's (bf16
+# partials summed over the ranks flip near-ties of the random-init
+# logits: 0.9577 of 473 read on an H100, the engine's 0.9688 of 32)
+MP_FORCED_EQUAL = 0.9
+# a rank's master error over the steps' movement of that master, the
+# largest over the masters (0.053 read on an H100; a rank that never
+# updated a master reads 1)
+MP_OF_MOVED = 0.5
+
+
+def mp_kernel_rows(torch, args):
+    """The kernels at the shapes a model-parallel rank gives them, each
+    against its plain version (bf16, the device's budget): dense_mm at
+    the projections' shard widths (llama3.2-1b at m = 2: q 2048 -> 1024,
+    k/v 2048 -> 256, o 1024 -> 2048; glm4-9b at m = 4: q 4096 -> 1024,
+    up / gate 4096 -> 3424, down 3424 -> 4096) at decode N 4 and the
+    train step's 2048 tokens; bs_attn on a rank's heads (llama 16 of 32
+    query heads, 4 KV, S 512, batch 4; glm4 8 query heads on 1 KV head,
+    dh 128); bsmm on one held k-shard of llama's up/gate (q 2) at N 4 and
+    2048.  Each row times one library call beside it (``torch.matmul``,
+    on the k-shard's densified weight for bsmm; SDPA)."""
+    import torch.nn.functional as F
+
+    from repro_torch import sparse
+    from repro_torch.kernels.bs_attn import ops as bs_ops
+    from repro_torch.kernels.bs_attn.ref import attend_plain
+    from repro_torch.kernels.bsmm import ops as bsmm_ops
+    from repro_torch.kernels.dense_mm import ops as dmm_ops
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 301)
+    dt = torch.bfloat16
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+    rows = []
+    for name, k, d in (("llama q shard", 2048, 1024),
+                       ("llama k/v shard", 2048, 256),
+                       ("llama o shard", 1024, 2048),
+                       ("glm4 q shard", 4096, 1024),
+                       ("glm4 up shard", 4096, 3424),
+                       ("glm4 down shard", 3424, 4096)):
+        w = randn((k, d), 1 / math.sqrt(k))
+        for n in (4, 2048):
+            x = randn((n, k))
+            nbytes = (n * k + k * d + n * d) * 2
+            sets = copies(lambda: (x.clone(), w.clone()), nbytes)
+            row = measured_row(torch, "dense_mm", f"{name} {k}x{d}", n,
+                               "bfloat16", dmm_ops.dense_mm_cuda,
+                               dmm_ops.dense_mm_plain, torch.matmul, sets,
+                               sets, nbytes, 2.0 * n * k * d)
+            row["walk"] = dmm_ops.walk(n, k, d, dt).name
+            rows.append(row)
+            del sets
+    for name, b_, s_, h, kvh, dh in (("llama heads shard", 4, 512, 16, 4, 64),
+                                     ("glm4 heads shard", 4, 512, 8, 1, 128)):
+        spec = attention.attn_spec(s_, s_, dh, causal=True, tile_q=128,
+                                   tile_kv=128)
+        walk, el = spec.walk(torch.device("cuda", 0)), \
+            spec.element_mask(torch.device("cuda", 0))
+        q, kk, v = (randn((b_, s_, h, dh)), randn((b_, s_, kvh, dh)),
+                    randn((b_, s_, kvh, dh)))
+        nbytes = (2 * q.numel() + kk.numel() + v.numel()) * 2
+        sets = copies(lambda: (q.clone(), kk.clone(), v.clone()), nbytes)
+        pairs = b_ * int(el.sum().item())
+
+        def kernel(q_, k_, v_, walk=walk, spec=spec):
+            return bs_ops.bs_attn_cuda(q_, k_, v_, walk, scale=spec.scale,
+                                       causal=True)
+
+        def plain(q_, k_, v_, el=el, spec=spec):
+            return attend_plain(q_, k_, v_, el, scale=spec.scale)
+
+        def sdpa(q_, k_, v_, spec=spec, h=h, kvh=kvh):
+            return F.scaled_dot_product_attention(
+                q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2),
+                is_causal=True, scale=spec.scale,
+                enable_gqa=h != kvh).transpose(1, 2)
+        row = measured_row(torch, "bs_attn", f"{name} H={h} KV={kvh} "
+                           f"dh={dh} B={b_}", s_, "bfloat16", kernel, plain,
+                           sdpa, sets, sets, nbytes, 4.0 * pairs * dh * h)
+        row["walk"] = bs_ops.kernel_walk(dt)
+        rows.append(row)
+        del sets, walk, el
+    for n in (4, 2048):
+        bsr, x, _ = tp_problem(torch, 8192, 2048, n, args.seed + 303)
+        p = sparse.plan(bsr, n, device="cuda", ctx=sparse.PlanContext(
+            mode="static_tp", tp_q=MP_RANKS))
+        shard, src = p.tp.plans[0], p.tp.src[0]
+        held = bsr.values[src].contiguous()
+        packed = shard.pack(held)
+        rows_, cols_ = (torch.as_tensor(a, dtype=torch.long, device="cuda")
+                        for a in p.tp.meta.shard_pattern(0))
+        dense = torch.zeros((512, 128, 16, 16), device="cuda")
+        dense[rows_, cols_] = held.float()
+        dense = dense.permute(0, 2, 1, 3).reshape(8192, 2048)
+        dense16 = dense.to(dt)
+        nbytes = (held.numel() + n * 2048 + n * 8192) * 2
+        sets = copies(lambda: (x.clone(),), nbytes)
+        lib_sets = copies(lambda: (x.clone(), dense16.clone()),
+                          (n * 2048 + dense16.numel()) * 2)
+        row = measured_row(
+            torch, "bsmm", f"llama up/gate k-shard 0 of {MP_RANKS} "
+            f"8192x2048", n, "bfloat16",
+            lambda xx: shard.run_packed(packed, xx),
+            lambda xx: (xx.float() @ dense.t()).to(dt),
+            lambda xx, ww: torch.matmul(xx, ww.t()), sets, lib_sets,
+            nbytes, 2.0 * n * held.numel())
+        row.update(walk=bsmm_ops.walk(16, dt, n), blocks=int(held.shape[0]),
+                   whole_blocks=int(bsr.values.shape[0]))
+        rows.append(row)
+        del sets, lib_sets, dense, dense16, packed
+    bad = [r for r in rows if not r["rel_err"] <= r["tol"]]
+    if bad:
+        raise RuntimeError(f"[mp] kernels at shard shapes disagree with "
+                           f"their plain versions: {bad}")
+    return rows
+
+
+def all_reduce_timer(torch):
+    """Time every ``torch.distributed.all_reduce`` of this process (host
+    clock between two device synchronisations; gloo stages a card
+    tensor through the host anyway): the list the ms go to."""
+    import torch.distributed as dist
+    times = []
+    call = dist.all_reduce
+
+    def timed(tensor, *a, **kw):
+        if tensor.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(tensor, *a, **kw)
+        if tensor.is_cuda:
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    dist.all_reduce = timed
+    return times
+
+
+def mp_requests(cfg, seed):
+    import numpy as np
+
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed + 211)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, size=n),
+                    max_new_tokens=MP_NEW_TOKENS)
+            for i, n in enumerate(MP_PROMPTS)]
+
+
+def served_seqs(reqs):
+    """Each served request's prompt and its tokens but the last: the
+    sequence whose greedy next tokens (from position ``len(prompt) - 1``
+    on) are the request's output."""
+    import numpy as np
+    return [np.concatenate([r.prompt, np.asarray(r.output[:-1],
+                                                 dtype=r.prompt.dtype)])
+            for r in reqs]
+
+
+def forced_greedy(lm, seqs):
+    """Teacher-forced greedy ids: the argmax of ``lm``'s forward logits
+    at every position of each sequence (one row each), on the CPU."""
+    return [lm(seq[None, :])[0].argmax(dim=-1).cpu() for seq in seqs]
+
+
+def mp_job(torch, rank, world, job):
+    """[mp] on one rank: ``train_loop`` over the (1, world) mesh (the
+    model split over "model"; counters zeroed just before, read just
+    after; every all-reduce timed), each held block's share of its whole
+    tensor, then from the seed again the prefill logits of the first
+    prompt, decode against forward, and an eager engine's tokens."""
+    from repro_torch.kernels import bs_attn, bsmm, dense_mm, sddmm
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import LM
+    from repro_torch.serve import Engine
+    from repro_torch.train.step import TrainHParams
+    mesh = make_device_mesh("cuda", (1, world), ("data", "model"))
+    counters = with_walks({"bsmm": bsmm.COUNTER, "sddmm": sddmm.COUNTER,
+                           "dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER})
+    args, cfg = job["args"], job["cfg"]
+    times = timed_steps(torch)
+    ar_ms = all_reduce_timer(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    state, losses = train_loop(
+        cfg, steps=MP_STEPS, batch_per_shard=DP_BATCH, seq=DP_SEQ,
+        ckpt_dir=None, hp=TrainHParams(**TRAIN_HP), device="cuda",
+        log_every=10 ** 9, seed=args.seed, graphs=False, mesh=mesh)
+    torch.cuda.synchronize()
+    launches, walks = split_walks({k: c.launches
+                                   for k, c in counters.items()})
+    lay = state.layout
+    shares = {n: state.params[n].numel() / math.prod(lay.place[n].block.shape)
+              for n in lay.held}
+    out = dict(losses=losses, launches=launches, walks=walks,
+               step_ms=list(times), all_reduce_ms=sum(ar_ms) / MP_STEPS,
+               all_reduces=len(ar_ms) / MP_STEPS,
+               layout_ms=dict(lay.comm_ms), shares=shares,
+               partial=sorted(lay.partial),
+               held_gib=sum(state.params[n].numel() for n in lay.held)
+               * 2 / 2 ** 30,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               state_gib=state_gib(state),
+               master_err=master_err(torch, state, job["masters"]))
+    del state, lay
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(cfg, device="cuda", seed=args.seed, mesh=mesh)
+    reqs = mp_requests(cfg, args.seed)
+    logits, _ = lm.prefill(reqs[0].prompt[None, :], max_len=MP_MAX_LEN)
+    out["prefill_logits"] = logits.float().cpu()
+    out["forced"] = forced_greedy(lm, job["seqs"])
+    out["consistency"] = decode_consistency(torch, lm, 100, args.seed + 7,
+                                            CONSISTENCY_TOL)
+    for c in counters.values():
+        c.reset()
+    eng = Engine(lm, device="cuda", batch=len(reqs), max_len=MP_MAX_LEN,
+                 mesh=mesh, graphs=False)
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    out["serve_launches"], out["serve_walks"] = split_walks(
+        {k: c.launches for k, c in counters.items()})
+    out["tokens"] = [r.output for r in reqs]
+    out["cache_heads"] = int(eng.caches[0]["k"].shape[2])
+    del eng
+    gc.collect()
+    out["forced_own"] = forced_greedy(lm, served_seqs(reqs))
+    del lm
+    gc.collect()
+    return out
+
+
+def mp_phase(torch, args):
+    """[mp]: model parallelism, llama3.2-1b at full width and depth
+    (every FFN block-sparse, d = 1/8, b = 16, bf16) split over a (1, 2)
+    ``("data", "model")`` mesh of 2 gloo ranks on this card: 16 of 32
+    query and 4 of 8 KV heads a rank, half the vocabulary, each sparse
+    FFN's k-shard (``static_tp_shardmap``).  ``MP_STEPS`` eager
+    ``train_loop`` steps of [train]'s global batch (4 x 512) against the
+    one-process run in this process; an eager ``Engine(mesh=,
+    graphs=False)`` serving ``MP_PROMPTS`` against one process's.  Fails
+    unless every loss is within bf16 2e-2 of one process's, each rank's
+    final master blocks within bf16 2e-2 of one process's fp32 masters
+    in relative L2 (``master_err``, as [dp]) while the steps moved some
+    master past that budget (the control: a rank that never updated
+    would fail), and each master's error at most ``MP_OF_MOVED`` of the
+    steps' movement of it,
+    the first prompt's prefill logits within ``CONSISTENCY_TOL`` (6e-2,
+    the bf16 budget of a whole model's outputs: 16 layers of bf16
+    partials summed over the ranks), decode within ``CONSISTENCY_TOL``
+    of ``forward`` (``decode_consistency``), at least
+    ``MP_FORCED_EQUAL`` of the teacher-forced greedy ids on one
+    process's served sequences equal to one process's, and of the rank
+    engine's tokens equal to its own forward's on its sequences
+    (``forced_greedy``), every dense projection, table and norm block is
+    whole / 2 of its tensor (the k-shards' blocks sum to the whole),
+    bsmm, sddmm, dense_mm and bs_attn launched on their 16-bit walks in
+    the steps and bsmm, dense_mm and bs_attn in the engine, and the
+    caches hold 4 KV heads.  The free-running engine's tokens are
+    reported beside one process's (bf16: the ranks sum partial outputs,
+    so a near-tie of the greedy argmax may flip, and the rest of that
+    request differs).  Prints step p50 and all-reduce ms a rank and the
+    peak GiB a
+    rank against one process; the kernels at the shard shapes first
+    (``mp_kernel_rows``)."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models.model import LM
+    from repro_torch.serve import Engine
+    from repro_torch.train.step import TrainHParams
+
+    t0 = time.perf_counter()
+    krows = mp_kernel_rows(torch, args)
+    cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, losses = train_loop(
+        cfg, steps=MP_STEPS, batch_per_shard=DP_BATCH, seq=DP_SEQ,
+        ckpt_dir=None, hp=TrainHParams(**TRAIN_HP), device="cuda",
+        log_every=10 ** 9, seed=args.seed, graphs=False)
+    one = dict(losses=losses, state_gib=state_gib(state),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               params_gib=sum(p.numel() for p in state.params.values())
+               * 2 / 2 ** 30)
+    # the final fp32 masters, shared with the ranks (CUDA IPC): in bf16
+    # a norm's scale near 1 would round its 3 steps' movement away
+    masters = dict(state.opt.master)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = LM(cfg, device="cuda", seed=args.seed)
+    # the control: how far the steps moved each master from its init
+    # (the error a rank that never updated would read)
+    moved = {}
+    for n, m in masters.items():
+        w = m.float()
+        moved[n] = ((w - lm.get_parameter(n).float()).norm()
+                    / w.norm().clamp_min(1e-12)).item()
+    reqs = mp_requests(cfg, args.seed)
+    logits, _ = lm.prefill(reqs[0].prompt[None, :], max_len=MP_MAX_LEN)
+    want_logits = logits.float().cpu()
+    eng = Engine(lm, device="cuda", batch=len(reqs), max_len=MP_MAX_LEN,
+                 graphs=False)
+    eng.run(reqs)
+    one["tokens"] = [r.output for r in reqs]
+    del eng
+    seqs = served_seqs(reqs)
+    want_forced = forced_greedy(lm, seqs)
+    del lm, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    outs = run_ranks(torch, "mp", shard_rank_main, MP_RANKS, "mp",
+                     dict(cfg=cfg, args=args, masters=masters, seqs=seqs))
+    del masters
+    gc.collect()
+    torch.cuda.empty_cache()
+    tol = KERNEL_TOL["bfloat16"]
+    one["moved"] = max(moved.values())
+    if not one["moved"] > tol:
+        raise RuntimeError(f"[mp] the steps moved no master past the "
+                           f"budget {tol} ({one['moved']:.3g}): the "
+                           f"masters' check could not tell a rank that "
+                           f"never updated")
+    gen = [slice(len(r.prompt) - 1, None) for r in reqs]
+    for r, o in enumerate(outs):
+        label = f"[mp] rank {r}"
+        o["loss_errs"] = [abs(a - b) / abs(b)
+                          for a, b in zip(o["losses"], losses)]
+        o["prefill_err"] = rel_err(o["prefill_logits"], want_logits)[0]
+        del o["prefill_logits"]
+        per = o["master_err"].pop("per")
+        # a master the steps left where it was (no gradient reached it)
+        # must read 0 as well
+        o["master_err"]["of_moved"] = max(
+            per[n] / moved[n] if moved[n] > 0 else
+            (0.0 if per[n] == 0 else math.inf) for n in per)
+        # teacher-forced greedy: the rank's ids on one process's served
+        # sequences against one process's, at every position; and the
+        # rank engine's tokens against its own forward on them
+        n_pos = sum(len(w) for w in want_forced)
+        o["forced_equal"] = sum(int((a == b).sum()) for a, b in
+                                zip(o["forced"], want_forced)) / n_pos
+        o["engine_forced_equal"] = sum(
+            int((f[g] == torch.as_tensor(t)).sum())
+            for f, g, t in zip(o["forced_own"], gen, o["tokens"])) \
+            / sum(len(t) for t in o["tokens"])
+        del o["forced"], o["forced_own"]
+        if len(o["losses"]) != MP_STEPS or not max(o["loss_errs"]) <= tol \
+                or not o["prefill_err"] <= CONSISTENCY_TOL \
+                or not o["master_err"]["rel_l2"] <= tol \
+                or not o["master_err"]["of_moved"] <= MP_OF_MOVED:
+            raise RuntimeError(f"{label}: losses {o['losses']} vs one "
+                               f"process {losses} (budget {tol}), prefill "
+                               f"logits {o['prefill_err']:.3g} (budget "
+                               f"{CONSISTENCY_TOL}), masters "
+                               f"{o['master_err']} (budget {tol} on "
+                               f"rel_l2, {MP_OF_MOVED} on of_moved)")
+        if not o["forced_equal"] >= MP_FORCED_EQUAL \
+                or not o["engine_forced_equal"] >= MP_FORCED_EQUAL:
+            raise RuntimeError(f"{label}: teacher-forced greedy ids equal "
+                               f"to one process's at "
+                               f"{o['forced_equal']:.4f} of the positions, "
+                               f"the engine's tokens to the rank's forward "
+                               f"at {o['engine_forced_equal']:.4f} (at "
+                               f"least {MP_FORCED_EQUAL})")
+        for k in ("bsmm", "sddmm", "dense_mm", "bs_attn"):
+            if o["launches"].get(k, 0) <= 0:
+                raise RuntimeError(f"{label}: {k} not launched in the "
+                                   f"steps: {o['launches']}")
+        for k in ("bsmm", "dense_mm", "bs_attn"):
+            if o["serve_launches"].get(k, 0) <= 0:
+                raise RuntimeError(f"{label}: {k} not launched by the "
+                                   f"engine: {o['serve_launches']}")
+        for walks in (o["walks"], o["serve_walks"]):
+            check_tensor_core_walks("mp", walks, ("bs_attn", "sddmm",
+                                                  "bsmm"))
+            check_dense_mm_walks("mp", walks)
+        off = {n: v for n, v in o["shares"].items()
+               if not n.endswith(".values") and not n.endswith("norm.scale")
+               and v != 1 / MP_RANKS}
+        if off or o["partial"] or o["cache_heads"] != \
+                cfg.num_kv_heads // MP_RANKS:
+            raise RuntimeError(f"{label}: held blocks not whole / "
+                               f"{MP_RANKS}: {off}; partial {o['partial']};"
+                               f" cache heads {o['cache_heads']}")
+        o["tokens_equal"] = sum(a == b for t, u in zip(o["tokens"],
+                                                       one["tokens"])
+                                for a, b in zip(t, u))
+    for n in (n for n in outs[0]["shares"] if n.endswith(".values")):
+        total = sum(o["shares"][n] for o in outs)
+        if abs(total - 1) > 1e-9:
+            raise RuntimeError(f"[mp] the k-shards of {n} hold "
+                               f"{total} of its blocks")
+    if outs[1]["tokens"] != outs[0]["tokens"]:
+        raise RuntimeError(f"[mp] the ranks' tokens differ: "
+                           f"{[o['tokens'] for o in outs]}")
+    return dict(ranks=outs, one_process=one, kernel_rows=krows,
+                phase_s=time.perf_counter() - t0)
+
+
+def print_mp(mp):
+    import numpy as np
+    for r in mp["kernel_rows"]:
+        lib = (None if r["library_ms"] is None
+               else round(r["library_ms"], 5))
+        print(f"[mp] kernel {r['kernel']:9s} {r['shape']:44s} n={r['n']:<5d}"
+              f" walk={r['walk']} rel_err={r['rel_err']:.2e} "
+              f"ms={r['ms']:.5f} plain_ms={r['plain_ms']:.5f} "
+              f"library_ms={lib} bound_ms={r['bound_ms']:.5f} "
+              f"({r['bound_by']})")
+    one = mp["one_process"]
+    print(f"[mp] one process: losses {[round(v, 5) for v in one['losses']]};"
+          f" masters moved by the steps (rel L2, largest) "
+          f"{one['moved']:.3e};"
+          f" peak {one['peak_gib']:.2f} GiB; bf16 parameters "
+          f"{one['params_gib']:.3f} GiB; fp32 state {one['state_gib']:.3f} "
+          f"GiB")
+    n_tok = sum(len(t) for t in one["tokens"])
+    for r, o in enumerate(mp["ranks"]):
+        shares = sorted({round(v, 4) for v in o["shares"].values()})
+        print(f"[mp] rank {r} mesh (1, {MP_RANKS}): losses "
+              f"{[round(v, 5) for v in o['losses']]} (rel "
+              f"{[float(f'{e:.2e}') for e in o['loss_errs']]}); step p50 "
+              f"{float(np.median(o['step_ms'])):.1f} ms (host clock, every "
+              f"all-reduce synchronised); all-reduces a step "
+              f"{o['all_reduces']:.0f} taking {o['all_reduce_ms']:.1f} ms; "
+              f"peak {o['peak_gib']:.2f} GiB against one process's "
+              f"{one['peak_gib']:.2f}; held bf16 blocks {o['held_gib']:.3f}"
+              f" GiB, shares of their tensors {shares}; fp32 state "
+              f"{o['state_gib']:.3f} GiB; masters vs one process rel L2 "
+              f"{o['master_err']['rel_l2']:.2e} (rel-max "
+              f"{o['master_err']['rel_max']:.2e}, largest share of the "
+              f"steps' movement {o['master_err']['of_moved']:.3f}); "
+              f"teacher-forced greedy ids equal to one process's "
+              f"{o['forced_equal']:.4f}, engine tokens equal to the "
+              f"rank's forward {o['engine_forced_equal']:.4f}; prefill "
+              f"logits vs one process "
+              f"{o['prefill_err']:.2e}; decode vs forward "
+              f"{json.dumps({k: float(f'{v:.2e}') for k, v in o['consistency'].items()})};"
+              f" engine tokens equal to one process's {o['tokens_equal']} "
+              f"of {n_tok}; launches {json.dumps(o['launches'])}; by walk "
+              f"{json.dumps(o['walks'])}; engine launches "
+              f"{json.dumps(o['serve_launches'])}")
+    print(f"[mp] phase {mp['phase_s']:.1f} s")
+
+
+SHARD_JOBS = {"dp": dp_job, "ep": ep_job, "mp": mp_job}
 
 
 def main(argv=None) -> int:
@@ -6925,6 +7403,11 @@ def main(argv=None) -> int:
     live_gib["ep"] = torch.cuda.memory_allocated() / 2 ** 30
     ep = ep_phase(torch, args)
     print_ep(ep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib["mp"] = torch.cuda.memory_allocated() / 2 ** 30
+    mp = mp_phase(torch, args)
+    print_mp(mp)
 
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
@@ -6966,7 +7449,9 @@ def main(argv=None) -> int:
                "tp": tp["engine"]["launches"],
                "tp_plan": tp["plan_launches"],
                "dp": dp["per_rank"][0][False]["launches"],
-               "ep": ep["ranks"][0]["launches"]}
+               "ep": ep["ranks"][0]["launches"],
+               "mp": mp["ranks"][0]["launches"],
+               "mp_serve": mp["ranks"][0]["serve_launches"]}
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
                      "dynamic": dyn_walks, "evolve": evo["walks"],
@@ -6987,7 +7472,9 @@ def main(argv=None) -> int:
                      "long": lg["walks"], "serve_long": sl["walks"],
                      "tp": tp["engine"]["walks"],
                      "dp": dp["per_rank"][0][False]["walks"],
-                     "ep": ep["ranks"][0]["walks"]}
+                     "ep": ep["ranks"][0]["walks"],
+                     "mp": mp["ranks"][0]["walks"],
+                     "mp_serve": mp["ranks"][0]["serve_walks"]}
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -7164,6 +7651,7 @@ def main(argv=None) -> int:
                        "vlm_internvl2": vlm, "serve_seamless": sea,
                        "train_seamless": ts, "long": lg,
                        "serve_long": sl, "tp": tp, "dp": dp, "ep": ep,
+                       "mp": mp,
                        "kernels": kernels,
                        "replan": replan, "roofline": roof,
                        "evolve": evo, "evolve_serve": evolve_serve,

@@ -14,9 +14,10 @@ Counterpart of the JAX package's ``checkpoint/checkpoint.py``:
   as its 16-bit pattern and restored by the recorded dtype);
 * **elastic**: a checkpoint holds whole tensors whatever mesh wrote it.
   ``Checkpointer.save_async`` of a state sharded over a concrete mesh
-  (``mesh=`` and ``specs=``, a tree of ``PartitionSpec`` beside the
-  tree: how each leaf is held) gathers the leaves whole one at a time
-  (``launch.mesh.gather_block``; rank 0 keeps a host copy), rank 0
+  (``mesh=`` and ``specs=``, a tree of ``PartitionSpec`` or
+  ``launch.mesh.Block`` beside the tree: how each leaf is held) gathers
+  the leaves whole one at a time (``launch.mesh.Block.gather``; rank 0
+  keeps a host copy), rank 0
   writes, and the other ranks wait at a barrier (``Checkpointer.wait``).
   ``restore(..., mesh=, specs=)`` keeps the caller's block of each
   leaf, so a checkpoint of one mesh restores onto another, one process
@@ -85,14 +86,22 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 @torch.no_grad()
 def gather_whole(tree: dict, mesh, specs: dict, keep: bool) -> dict:
-    """``tree`` with every leaf held as a block under ``specs`` gathered
-    whole, one leaf at a time (every rank calls it, in the same order);
-    with ``keep`` the whole leaves as host copies, else nothing."""
+    """``tree`` with every leaf held as a block under ``specs`` (a
+    ``PartitionSpec`` or a ``launch.mesh.Block``) gathered whole, one
+    leaf at a time (every rank calls it, in the same order); with
+    ``keep`` the whole leaves as host copies, else nothing."""
     from repro_torch.launch import mesh as mesh_lib
     flat_specs = _flatten(specs)
     out = {}
     for key, leaf in _flatten(tree).items():
         spec = flat_specs.get(key, ())
+        if isinstance(spec, mesh_lib.Block) and isinstance(leaf,
+                                                           torch.Tensor):
+            whole = spec.gather(leaf, mesh)
+            if keep:
+                out[key] = whole.to("cpu")
+            del whole
+            continue
         if not isinstance(leaf, torch.Tensor) \
                 or not mesh_lib.spec_axes(spec):
             if keep:
@@ -156,10 +165,11 @@ def restore(path: str, like: Optional[dict] = None, *,
     latest by default).  With ``like`` the tree takes its structure, and
     each tensor leaf its dtype and device (shapes must match); without,
     array leaves come back as CPU tensors and number leaves as numbers.
-    With ``mesh`` and ``specs`` (a tree of ``PartitionSpec``) a leaf is
-    this rank's block of the stored tensor under its spec (the whole
-    tensor off a concrete mesh), and ``like`` holds the blocks."""
-    from repro_torch.launch.mesh import block
+    With ``mesh`` and ``specs`` (a tree of ``PartitionSpec`` or
+    ``launch.mesh.Block``) a leaf is this rank's block of the stored
+    tensor (the whole tensor off a concrete mesh), and ``like`` holds
+    the blocks."""
+    from repro_torch.launch.mesh import Block, block
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
@@ -187,8 +197,11 @@ def restore(path: str, like: Optional[dict] = None, *,
         if isinstance(ref, torch.Tensor):
             # a number stored as one (a step or count saved as an int)
             val = torch.as_tensor(val)
-            if key in flat_specs:
-                val = block(val, flat_specs[key], mesh)
+            spec = flat_specs.get(key)
+            if isinstance(spec, Block):
+                val = spec.take(val)
+            elif spec is not None:
+                val = block(val, spec, mesh)
             if tuple(val.shape) != tuple(ref.shape):
                 raise ValueError(f"{key}: shape {tuple(val.shape)} != "
                                  f"{tuple(ref.shape)}")

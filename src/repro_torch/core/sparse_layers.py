@@ -16,6 +16,15 @@ its values and plans with it.  ``DynamicSparseLinear`` keeps a
 dense master weight and a runtime block mask (the paper's dynamic mode):
 each forward encodes the masked blocks on the device and multiplies
 through the dynamic plan, so the mask may change every step.
+
+On a model-parallel mesh (``mesh=``, a concrete mesh whose ``"model"``
+axis has m > 1 ranks) a ``SparseLinear`` holds only its rank's k-shard
+of the blocks (the paper's nnz-balanced k-split,
+``partitioner.plan_k_shards``; ``held``) and runs the
+``static_tp_shardmap`` route: one bsmm on its shard and one all-reduce a
+product, dL/dvalues for its own blocks only.  The reference's rule puts
+a contiguous range of ``values`` on each rank instead; the k-shard is
+the set whose product needs no other rank's blocks.
 """
 from __future__ import annotations
 
@@ -34,7 +43,10 @@ from repro_torch.core import dynamic_sparse as dsp
 from repro_torch.core import masks as masks_lib
 from repro_torch.core import partitioner
 from repro_torch.core.bsr import BlockSparseMatrix
+from repro_torch.core import tp as tp_lib
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import Block, Held, fill_normal, owns_block
+from repro_torch.sharding import rules
 
 
 class SparseLinear(nn.Module):
@@ -51,7 +63,7 @@ class SparseLinear(nn.Module):
     def __init__(self, in_features: int, out_features: int,
                  block_size: int, pattern: np.ndarray, *,
                  use_bias: bool = False, dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         super().__init__()
         pattern = np.asarray(pattern, bool)
         b = block_size
@@ -67,8 +79,25 @@ class SparseLinear(nn.Module):
         order = np.lexsort((cols, rows))
         self.row_idx = rows[order].astype(np.int32)
         self.col_idx = cols[order].astype(np.int32)
+        # name -> Held of the values as this rank's k-shard (a
+        # model-parallel mesh); empty: held whole
+        self.held: Dict[str, Held] = {}
+        self.mesh = None
+        m = rules.model_split(mesh)
+        nnz = len(self.row_idx)
+        if m > 1:
+            self.mesh = mesh
+            _, r = tp_lib.tp_group(mesh, "model")
+            meta = partitioner.plan_k_shards(self.as_bsr(torch.empty(
+                (0, b, b), dtype=dtype)), m, balanced=True)
+            self.held["values"] = Held.whole(Block(
+                (nnz, b, b),
+                (meta.shard_source(r).astype(np.int64), slice(None),
+                 slice(None)),
+                owns_block(mesh, rules.P("model")), ("model",)))
+            nnz = self.held["values"].block.block_shape[0]
         self.values = nn.Parameter(
-            torch.zeros((len(self.row_idx), b, b), dtype=dtype, device=dev),
+            torch.zeros((nnz, b, b), dtype=dtype, device=dev),
             requires_grad=False)
         self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
                                               device=dev),
@@ -101,15 +130,21 @@ class SparseLinear(nn.Module):
         (the JAX layer's rule; the numbers differ, the scale does not)."""
         fan_in = self.in_features * self.density
         scale = 1.0 / np.sqrt(max(1.0, fan_in))
-        with torch.no_grad():
-            v = torch.randn(self.values.shape, generator=generator,
-                            device=self.values.device)
-            self.values.copy_(v * scale)
-            if self.bias is not None:
+        fill_normal(self.values, generator, lambda v: v * scale,
+                    self.held.get("values"))
+        if self.bias is not None:
+            with torch.no_grad():
                 self.bias.zero_()
 
-    def as_bsr(self) -> BlockSparseMatrix:
-        return BlockSparseMatrix(self.values, self.row_idx, self.col_idx,
+    def as_bsr(self, values: Optional[torch.Tensor] = None
+               ) -> BlockSparseMatrix:
+        """The pattern with ``values`` (the module's own by default; a
+        k-shard's module plans on an empty stack: a plan reads only the
+        pattern)."""
+        if values is None:
+            values = (self.values if not self.held else
+                      self.values.new_empty((0,) + self.values.shape[1:]))
+        return BlockSparseMatrix(values, self.row_idx, self.col_idx,
                                  (self.out_features, self.in_features),
                                  self.block_size)
 
@@ -132,6 +167,9 @@ class SparseLinear(nn.Module):
         mutable, so it returns the ``EvolvePlan`` instead: the caller
         carries other per-slot state with it (the optimizer's master
         copy and moments: ``optim.adamw.carry_slots``)."""
+        if self.held:
+            raise NotImplementedError("a topology step on a k-shard (its "
+                                      "blocks move between ranks)")
         new_pattern = np.asarray(new_pattern, bool)
         b = self.block_size
         grid = (self.out_features // b, self.in_features // b)
@@ -177,14 +215,20 @@ class SparseLinear(nn.Module):
         runtime-only, so engines that share the module share its plans.
         Building a plan drops the plans the cache no longer holds, and
         the packed operands of routes no kept plan runs."""
-        key = (n, _poolless(sparse_api.current_ctx()))
+        ctx = sparse_api.current_ctx()
+        if self.held:
+            # the rank holds one k-shard: the explicit route over "model"
+            ctx = dataclasses.replace(
+                ctx, mode="static_tp_shardmap", mesh=self.mesh,
+                tp_axis="model", tp_q=None, tp_balanced=True, measure=False)
+        key = (n, _poolless(ctx))
         p = self._plans.get(key)
         if p is not None and p.device == self.values.device \
                 and sparse_api.is_live(p):
             sparse_api.note_use(p)
             return p
         p = self._plans[key] = sparse_api.plan(
-            self.as_bsr(), n, x=x, device=self.values.device)
+            self.as_bsr(), n, x=x, device=self.values.device, ctx=ctx)
         self._plans = {k: q for k, q in self._plans.items()
                        if q.device == self.values.device
                        and sparse_api.is_live(q)}
@@ -201,7 +245,8 @@ class SparseLinear(nn.Module):
         hit = self._packed.get(p.route)
         if hit is None or hit[0] != key:
             with torch.no_grad():
-                hit = self._packed[p.route] = (key, p.pack(v))
+                hit = self._packed[p.route] = (
+                    key, p.pack(v, held=bool(self.held)))
         capture.hold(hit[1])
         return hit[1]
 
@@ -211,7 +256,7 @@ class SparseLinear(nn.Module):
         p = self.plan(x2.shape[0], x2)
         if torch.is_grad_enabled() and (self.values.requires_grad
                                         or x2.requires_grad):
-            y = p.spmm_nt(self.values, x2)
+            y = p.spmm_nt(self.values, x2, held=bool(self.held))
         else:
             y = p.run_packed(self.packed(p), x2)
         y = y.reshape(*lead, self.out_features)
@@ -327,14 +372,14 @@ class SparseFFN(nn.Module):
     def __init__(self, d_model: int, d_ff: int, block_size: int,
                  density: float, *, gated: bool = True, seed: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         super().__init__()
         dev = resolve_device(device)
 
         def mk(i, o, s):
             return SparseLinear.random_pattern(
                 i, o, block_size, density, seed=seed + s, dtype=dtype,
-                device=dev)
+                device=dev, mesh=mesh)
 
         self.up = mk(d_model, d_ff, 1)
         self.down = mk(d_ff, d_model, 2)

@@ -39,6 +39,13 @@ The backward of the explicit route is Megatron's conjugate pair:
 
 Every rank joins every collective, a rank whose shard owns no block
 included: it contributes zeros.
+
+The same pair carries a model-parallel LM (``models/``): a
+column-parallel projection's input through ``copy_to_group``, a
+row-parallel one's output through ``reduce_from_group``, and the
+vocabulary split over the ``"model"`` axis through ``vocab_embed``,
+``vocab_nll`` (the cross-entropy), ``vocab_argmax`` (greedy sampling)
+and ``gather_vocab`` (whole logits).
 """
 from __future__ import annotations
 
@@ -107,6 +114,80 @@ def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
 
 def reduce_from_group(y: torch.Tensor, group) -> torch.Tensor:
     return _ReduceFromGroup.apply(y, group)
+
+
+# -- model parallelism over a vocabulary split on the "model" axis ------------
+#
+# A model-parallel LM holds rows [v0, v0 + V / m) of its embedding and
+# unembedding tables on rank j of the "model" axis (Megatron's
+# vocab-parallel layers).  Every op below is built from all-reduces
+# only: gloo reduces card tensors but gathers none.
+
+
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, v0: int,
+                group) -> torch.Tensor:
+    """The rows of ``tokens`` from a table holding rows ``[v0, v0 +
+    len(table))``: the rank's own rows, zeros where another rank holds
+    the token, all-reduced (identity backward: each rank's rows take
+    their own tokens' gradient)."""
+    local = tokens - v0
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = table[torch.clamp(local, 0, table.shape[0] - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return reduce_from_group(rows, group)
+
+
+def vocab_nll(logits: torch.Tensor, targets: torch.Tensor, v0: int,
+              group) -> torch.Tensor:
+    """Per-row ``logsumexp - logit[target]`` in fp32 over a vocabulary
+    split across ``group`` (``logits`` the rank's columns ``[v0, v0 +
+    V / m)``; a target no rank holds, the ``-1`` padding, has gold 0):
+    the max all-reduced (MAX, no gradient), then the sum of exps and
+    the target's logit (SUM, identity backward)."""
+    import torch.distributed as dist
+    logits = logits.float()
+    with torch.no_grad():
+        top = logits.max(dim=-1).values
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    z = logits - top[..., None]
+    sumexp = reduce_from_group(torch.exp(z).sum(dim=-1), group)
+    local = targets - v0
+    mine = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(z, -1, torch.clamp(
+        local, 0, logits.shape[-1] - 1)[..., None])[..., 0]
+    gold = reduce_from_group(torch.where(mine, gold, torch.zeros_like(gold)),
+                             group)
+    return torch.log(sumexp) - gold
+
+
+def vocab_argmax(logits: torch.Tensor, v0: int, group):
+    """``(greedy ids [...], all finite)`` over a vocabulary split across
+    ``group``: ties go to the lowest id, as ``torch.argmax`` / the
+    reference's ``jnp.argmax`` break them.  Two all-reduces: the max
+    (MAX), then the lowest id holding it and the finite flag (MIN; ids
+    below 2^24 are exact in fp32)."""
+    import torch.distributed as dist
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[..., None])[..., 0].float()
+    top = val.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    cand = torch.where(val == top, (idx + v0).float(),
+                       torch.full_like(val, float(2 ** 24)))
+    flag = torch.isfinite(logits).all().float().reshape(1)
+    buf = torch.cat([cand.reshape(-1), flag])
+    dist.all_reduce(buf, op=dist.ReduceOp.MIN, group=group)
+    return buf[:-1].long().reshape(idx.shape), buf[-1] > 0
+
+
+def gather_vocab(logits: torch.Tensor, v0: int, vocab: int,
+                 group) -> torch.Tensor:
+    """The whole ``[..., vocab]`` logits from each rank's columns (zeros
+    beside them, all-reduced; no gradient)."""
+    import torch.distributed as dist
+    whole = logits.new_zeros((*logits.shape[:-1], vocab))
+    whole[..., v0:v0 + logits.shape[-1]] = logits
+    dist.all_reduce(whole, group=group)
+    return whole
 
 
 def _local_spmm(values: torch.Tensor, row_idx, col_idx, x: torch.Tensor,

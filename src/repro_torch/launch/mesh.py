@@ -19,13 +19,16 @@ checkpoint's re-sharding and the MoE layer's expert-parallel route over
 a ``DeviceMesh``: a rank's index along a set of axes, the process group
 of a set of axes, and the block of a tensor that a ``PartitionSpec``
 gives a rank (an entry of several axes orders them first-major, as the
-reference's specs do).  On an abstract mesh, or without one, a rank's
-block is the whole tensor.
+reference's specs do) or that a model-parallel LM holds (``Block``),
+and the seeded draw that fills such a block (``fill_normal``).  On an
+abstract mesh, or without one, a rank's block is the whole tensor.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,14 +182,137 @@ def gather_block(t, shape: Sequence[int], spec, mesh):
     all-reduced over the whole mesh (one collective for every backend:
     gloo reduces card tensors but does not gather them).  Every rank
     calls it."""
-    import torch.distributed as dist
-    whole = t.new_zeros(tuple(shape))
-    if owns_block(mesh, spec):
-        block(whole, spec, mesh).copy_(t)
-    group = axes_group(mesh, mesh_axes(mesh)[0])
-    if group is not None:
-        dist.all_reduce(whole, group=group)
-    return whole
+    return Block.of(shape, spec, mesh).gather(t, mesh)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Block:
+    """The part of a tensor of whole ``shape`` that a rank holds:
+    ``index`` per dim is a slice, or (one dim at most) an int64 array of
+    the rows it holds, in its order; ``owner``: this rank is the one of
+    the block's replicas that writes it back; ``axes``: the mesh axes
+    along which ranks hold different blocks.  A ``PartitionSpec``'s
+    block is ``Block.of(shape, spec, mesh)``; a model-parallel LM also
+    holds blocks no spec gives (a k-shard's blocks of a sparse FFN, the
+    KV heads a rank's query heads read)."""
+
+    shape: Tuple[int, ...]
+    index: tuple
+    owner: bool = True
+    axes: Tuple[str, ...] = ()
+
+    @classmethod
+    def of(cls, shape: Sequence[int], spec, mesh) -> "Block":
+        return cls(tuple(shape), block_slices(shape, spec, mesh),
+                   owns_block(mesh, spec), spec_axes(spec))
+
+    @classmethod
+    def whole(cls, shape: Sequence[int], mesh) -> "Block":
+        return cls.of(shape, (), mesh)
+
+    @property
+    def block_shape(self) -> Tuple[int, ...]:
+        return tuple(len(ix) if not isinstance(ix, slice)
+                     else len(range(*ix.indices(d)))
+                     for ix, d in zip(self.index, self.shape))
+
+    def _key(self, like):
+        if isinstance(like, np.ndarray):
+            return tuple(self.index)
+        import torch
+        return tuple(ix if isinstance(ix, slice) else
+                     torch.as_tensor(ix, dtype=torch.long,
+                                     device=like.device)
+                     for ix in self.index)
+
+    def take(self, t):
+        """This block of the whole ``t`` (a tensor or an array)."""
+        return t[self._key(t)]
+
+    def put(self, whole, blk) -> None:
+        """Write ``blk`` into its place in ``whole``."""
+        whole[self._key(whole)] = blk
+
+    def gather(self, t, mesh):
+        """The whole tensor from every rank's block ``t``: zeros beside
+        the block's one writer, all-reduced over the mesh (every rank
+        calls it)."""
+        import torch.distributed as dist
+        whole = t.new_zeros(self.shape)
+        if self.owner:
+            self.put(whole, t)
+        group = axes_group(mesh, mesh_axes(mesh)[0])
+        if group is not None:
+            dist.all_reduce(whole, group=group)
+        return whole
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Held:
+    """A parameter a rank holds as ``block`` of its whole tensor; the
+    optimizer state's block of it is ``state`` (its place in the whole
+    tensor) and ``local`` (its slices of the held block); ``partial``:
+    the gradient each rank computes for the block is a partial sum, to
+    be summed over every rank that holds it (a norm inside split heads,
+    KV heads several ranks' query heads read)."""
+
+    block: Block
+    state: Block
+    local: tuple
+    partial: bool = False
+
+    @classmethod
+    def whole(cls, block: Block, *, partial: bool = False) -> "Held":
+        """The state is the whole held block."""
+        return cls(block, block, (slice(None),) * len(block.shape),
+                   partial)
+
+
+# one draw of a seeded fill covers at most this many elements (1 GiB of
+# fp32 on the card); a tensor up to this size is drawn in one piece, as
+# before model parallelism, so a one-process model's numbers are those
+# of a single draw wherever the tensor is not larger (only the
+# vocabulary tables past 2^28 elements, qwen's, gemma2's and glm4's, are
+# drawn in pieces)
+DRAW_ELEMS = 1 << 28
+
+
+def fill_normal(p, generator, scale: Callable,
+                held: Optional["Held"] = None) -> None:
+    """Fill ``p`` with ``scale(N(0, 1))`` drawn from ``generator`` in
+    pieces of rows along dim 0 (one piece up to ``DRAW_ELEMS``
+    elements); with ``held``, ``p`` is its block of the whole tensor, the
+    draws are the whole tensor's and ``p`` keeps its part of every
+    piece.  The draws depend on the whole shape only, so a block holds
+    what the whole tensor holds there."""
+    import torch
+    block = None if held is None else held.block
+    shape = tuple(p.shape if block is None else block.shape)
+    row = int(np.prod(shape[1:], dtype=np.int64))
+    rows = shape[0] if row * shape[0] <= DRAW_ELEMS else \
+        max(1, DRAW_ELEMS // max(row, 1))
+    idx0 = None if block is None else block.index[0]
+    rest = () if block is None else tuple(block.index[1:])
+    with torch.no_grad():
+        for r0 in range(0, shape[0], rows):
+            r1 = min(r0 + rows, shape[0])
+            piece = torch.randn((r1 - r0,) + shape[1:], generator=generator,
+                                device=p.device)
+            if block is None:
+                p[r0:r1].copy_(scale(piece))
+            elif isinstance(idx0, slice):
+                lo, hi, _ = idx0.indices(shape[0])
+                a, b = max(r0, lo), min(r1, hi)
+                if a < b:
+                    p[a - lo:b - lo].copy_(
+                        scale(piece[(slice(a - r0, b - r0),) + rest]))
+            else:
+                mine = torch.as_tensor(idx0, dtype=torch.long,
+                                       device=p.device)
+                sel = (mine >= r0) & (mine < r1)
+                if bool(sel.any()):
+                    p[sel] = scale(piece[(mine[sel] - r0,) + rest]).to(
+                        p.dtype)
 
 
 def axes_group(mesh, names: Sequence[str]):

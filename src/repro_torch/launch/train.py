@@ -37,8 +37,11 @@ process's stream of ``dp x batch_per_shard`` rows), its state is sharded
 (``sharding.activation_mesh``: the MoE layers' expert parallelism), and
 a checkpoint holds whole tensors, so it resumes on any mesh.  Rank 0
 prints and calls ``on_step``.  ``--mesh 2,1`` (``data, model``; three
-sizes add ``pod`` in front) spawns one process per rank on this host
-(gloo on the CPU, NCCL on cards, one card a rank):
+sizes add ``pod`` in front; ``1x4`` is ``1,4``) spawns one process per
+rank on this host (gloo on the CPU, NCCL on cards, one card a rank).
+A ``"model"`` axis past 1 splits the model itself over it (``LM(mesh=)``:
+heads, d_ff, the vocabulary and the sparse FFNs' k-shards), so a model
+larger than one card trains on four (glm4-9b: ``--mesh 1x4``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \
         --device cpu --density 0.25 --steps 5 --batch 2 --seq 32 \
@@ -97,7 +100,8 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
 
     ``mesh``: see the module docstring; on a concrete mesh every rank
     calls this with the same arguments, and each gets its own state
-    (the parameters whole, the optimizer's blocks) and the mean loss."""
+    (the parameters whole or, split over a ``"model"`` axis, its held
+    blocks; the optimizer's blocks) and the mean loss."""
     mesh = mesh or mesh_lib.make_host_mesh()
     lm = LM(cfg, device=device, seed=seed, mesh=mesh)
     state = init_train_state(lm, hp=hp, mesh=mesh)
@@ -193,8 +197,9 @@ def _agreed(flag: bool, mesh, device) -> bool:
 
 
 def _mesh_shape(text: str):
-    """``--mesh``: ``data,model`` or ``pod,data,model`` sizes."""
-    sizes = tuple(int(v) for v in text.split(","))
+    """``--mesh``: ``data,model`` or ``pod,data,model`` sizes (``,`` or
+    ``x`` between them)."""
+    sizes = tuple(int(v) for v in text.replace("x", ",").split(","))
     names = {2: ("data", "model"), 3: ("pod", "data", "model")}.get(
         len(sizes))
     if names is None or min(sizes) < 1:

@@ -50,7 +50,11 @@ from repro_torch.core import capture
 from repro_torch.core import masks as masks_lib
 from repro_torch.kernels.bs_attn import ops as bs_ops
 from repro_torch.kernels.bs_attn.ref import attend_plain, element_mask
+from repro_torch.core import tp as tp_lib
+from repro_torch.launch.mesh import Block, Held, owns_block
 from repro_torch.models.layers import Dense, RMSNorm, apply_rope, rope_freqs
+from repro_torch.sharding import rules
+from repro_torch.sharding.rules import P
 
 NEG_INF = -1e30
 
@@ -279,12 +283,34 @@ def attend_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def gqa_cache_init(cfg, batch: int, max_len: int, *,
-                   dtype: torch.dtype, device) -> Cache:
-    kv, dh = cfg.num_kv_heads, cfg.head_dim
+                   dtype: torch.dtype, device,
+                   kv_heads: Optional[int] = None) -> Cache:
+    """Zero K/V caches ``[B, max_len, KV, dh]``; ``kv_heads`` (a
+    model-parallel rank's KV heads) replaces ``cfg.num_kv_heads``."""
+    kv, dh = kv_heads or cfg.num_kv_heads, cfg.head_dim
     return {"k": torch.zeros((batch, max_len, kv, dh), dtype=dtype,
                              device=device),
             "v": torch.zeros((batch, max_len, kv, dh), dtype=dtype,
                              device=device)}
+
+
+def head_split(num_heads: int, num_kv_heads: int, m: int, r: int):
+    """Rank ``r`` of ``m`` on the ``"model"`` axis: ``(its query heads
+    [h0, h0 + hl), its KV heads [k0, k0 + kl), shared)``.  The query heads
+    split evenly; the rank holds the KV heads they read, ``shared`` when
+    several ranks read one KV head (fewer KV heads than ranks: the
+    reference's rule would cut ``wk``'s columns inside a head there).
+    A split that cuts a GQA group unevenly raises."""
+    if num_heads % m:
+        raise NotImplementedError(
+            f"{num_heads} query heads do not split over {m} model ranks")
+    hl, g = num_heads // m, num_heads // num_kv_heads
+    if hl % g and g % hl:
+        raise NotImplementedError(
+            f"{hl} query heads a rank cut GQA groups of {g} unevenly")
+    h0 = r * hl
+    k0, k1 = h0 // g, (h0 + hl - 1) // g + 1
+    return h0, hl, k0, k1 - k0, g > hl
 
 
 class GQA(nn.Module):
@@ -292,22 +318,68 @@ class GQA(nn.Module):
     dense projections, optional per-head q/k RMS norms.  ``local=True``
     (an ``attn_local`` layer) applies ``cfg.local_window`` and
     ``cfg.global_prefix``; ``causal=False`` (an encoder layer's) attends
-    without the causal mask, RoPE at its positions all the same."""
+    without the causal mask, RoPE at its positions all the same.
+
+    On a model-parallel ``mesh`` (a concrete mesh whose ``"model"`` axis
+    has m > 1 ranks) the rank computes ``H / m`` query heads
+    (``head_split``) and the KV heads they read: ``wq``/``wk``/``wv`` and
+    their biases column-parallel, ``wo`` row-parallel, the input through
+    ``core.tp.copy_to_group`` and the output all-reduced
+    (``reduce_from_group``).  KV heads that several ranks read are held
+    by each of them, and their gradients, like ``q_norm``'s and
+    ``k_norm``'s, are partial sums there (``held``: ``partial``)."""
 
     def __init__(self, cfg, *, dtype: torch.dtype, device=None,
-                 causal: bool = True):
+                 causal: bool = True, mesh=None):
         super().__init__()
         d = cfg.d_model
         qd, kvd = cfg.attn_dims
+        dh = cfg.head_dim
         self.cfg = cfg
         self.causal = causal
-        self.wq = Dense(d, qd, bias=cfg.qkv_bias, dtype=dtype, device=device)
-        self.wk = Dense(d, kvd, bias=cfg.qkv_bias, dtype=dtype, device=device)
-        self.wv = Dense(d, kvd, bias=cfg.qkv_bias, dtype=dtype, device=device)
-        self.wo = Dense(qd, d, dtype=dtype, device=device)
+        self.group = None
+        self.heads, self.kv_heads = cfg.num_heads, cfg.num_kv_heads
+        held: Dict[str, dict] = {}
+        m = rules.model_split(mesh)
+        if m > 1:
+            self.group, r = tp_lib.tp_group(mesh, "model")
+            h0, self.heads, k0, self.kv_heads, shared = head_split(
+                cfg.num_heads, cfg.num_kv_heads, m, r)
+            leaves = (("w", (d, qd), (d, kvd)),) + (
+                (("b", (qd,), (kvd,)),) if cfg.qkv_bias else ())
+            held["wq"] = {k: rules.held_block(f"wq.{k}", q_shape, mesh)
+                          for k, q_shape, _ in leaves}
+            held["wo"] = {"w": rules.held_block("wo.w", (qd, d), mesh)}
+            if shared:
+                # the first rank reading a KV head writes it back
+                first = h0 % (cfg.num_heads // cfg.num_kv_heads) == 0
+                owner = first and owns_block(mesh, P("model"))
+                cols = slice(k0 * dh, (k0 + self.kv_heads) * dh)
+                kv = {k: Held.whole(Block(
+                    shape, (slice(None),) * (len(shape) - 1) + (cols,),
+                    owner, ("model",)), partial=True)
+                    for k, _, shape in leaves}
+            else:
+                kv = {k: rules.held_block(f"wk.{k}", shape, mesh)
+                      for k, _, shape in leaves}
+            # the rule's blocks hold whole heads: H and (unshared) KV
+            # divide by m
+            held["wk"] = held["wv"] = kv
+        self.wq = Dense(d, qd, bias=cfg.qkv_bias, dtype=dtype, device=device,
+                        held=held.get("wq"))
+        self.wk = Dense(d, kvd, bias=cfg.qkv_bias, dtype=dtype,
+                        device=device, held=held.get("wk"))
+        self.wv = Dense(d, kvd, bias=cfg.qkv_bias, dtype=dtype,
+                        device=device, held=held.get("wv"))
+        self.wo = Dense(qd, d, dtype=dtype, device=device,
+                        held=held.get("wo"))
         if cfg.qk_norm:
             self.q_norm = RMSNorm(cfg.head_dim, device=device)
             self.k_norm = RMSNorm(cfg.head_dim, device=device)
+            if self.group is not None:
+                for norm in (self.q_norm, self.k_norm):
+                    norm.held = {"scale": Held.whole(
+                        Block.whole((dh,), mesh), partial=True)}
         else:
             self.q_norm = self.k_norm = None
         self.register_buffer(
@@ -329,7 +401,9 @@ class GQA(nn.Module):
         """``_project_qkv``: projected, normed and roped q, k, v."""
         cfg = self.cfg
         b_, s, _ = x.shape
-        h, kv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        h, kv, dh = self.heads, self.kv_heads, cfg.head_dim
+        if self.group is not None:
+            x = tp_lib.copy_to_group(x, self.group)
         q = self.wq(x).reshape(b_, s, h, dh)
         k = self.wk(x).reshape(b_, s, kv, dh)
         v = self.wv(x).reshape(b_, s, kv, dh)
@@ -340,6 +414,14 @@ class GQA(nn.Module):
             q = apply_rope(q, positions, freqs=self.rope_freqs)
             k = apply_rope(k, positions, freqs=self.rope_freqs)
         return q, k, v
+
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        """``wo`` of the heads' outputs ``[B, S, H_loc, dh]``, all-reduced
+        over the split heads."""
+        y = self.wo(out.reshape(out.shape[0], out.shape[1], -1))
+        if self.group is not None:
+            y = tp_lib.reduce_from_group(y, self.group)
+        return y
 
     def _attend(self, q, k, v, local: bool) -> torch.Tensor:
         window, prefix = self._window(local)
@@ -354,19 +436,15 @@ class GQA(nn.Module):
                 local: bool = False) -> torch.Tensor:
         """``gqa_train``: full-sequence GQA."""
         q, k, v = self.project_qkv(x, positions)
-        out = self._attend(q, k, v, local)
-        b_, s = x.shape[:2]
-        return self.wo(out.reshape(b_, s, -1))
+        return self._out(self._attend(q, k, v, local))
 
     def prefill(self, x: torch.Tensor, positions: torch.Tensor, *,
                 max_len: int, local: bool = False):
         """``gqa_prefill``: causal forward plus the roped K/V cache padded
         to ``max_len``."""
         q, k, v = self.project_qkv(x, positions)
-        out = self._attend(q, k, v, local)
-        b_, s = x.shape[:2]
-        y = self.wo(out.reshape(b_, s, -1))
-        pad = (0, 0, 0, 0, 0, max_len - s)
+        y = self._out(self._attend(q, k, v, local))
+        pad = (0, 0, 0, 0, 0, max_len - x.shape[1])
         cache = {"k": torch.nn.functional.pad(k, pad).to(x.dtype),
                  "v": torch.nn.functional.pad(v, pad).to(x.dtype)}
         return y, cache
@@ -390,8 +468,7 @@ class GQA(nn.Module):
         out = attend_decode(q, cache["k"], cache["v"], lengths=lengths,
                             softcap=self.cfg.attn_softcap, scale=self.scale,
                             window=window, global_prefix=prefix)
-        y = self.wo(out.reshape(x.shape[0], 1, -1))
-        return y, cache
+        return self._out(out), cache
 
 
 # ---------------------------------------------------------------------------

@@ -8,10 +8,23 @@ planned dense backward under autograd); the unembed stays a plain
 ``torch.matmul``, as the JAX package leaves it to XLA.  Parameters are
 created frozen and train after ``requires_grad_(True)``; a tied
 embedding collects its gradient from both the gather and the unembed.
+
+Model parallelism (``mesh=`` a concrete mesh whose ``"model"`` axis has
+m > 1 ranks): a ``Dense`` or an ``Embedding`` holds only its rank's
+block of the weight (``held``: ``launch.mesh.Held`` by leaf name), its
+own contiguous tensor (the dense_mm kernel's TMA needs 16-byte strides;
+a strided view would be copied on every call).  ``MLP`` splits as
+Megatron does under the reference's rules: ``up``/``gate``
+column-parallel (d_ff over ``"model"``, the input through
+``core.tp.copy_to_group``), ``down`` row-parallel (its output
+all-reduced through ``reduce_from_group``).  Every random draw is the
+whole tensor's, in pieces (``launch.mesh.fill_normal``): a held block
+keeps its part of each piece, so it holds what the whole module would
+there, and no card ever holds a whole split weight.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -19,7 +32,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import sparse as sparse_api
-
+from repro_torch.core import tp as tp_lib
+from repro_torch.launch.mesh import Held, fill_normal
+from repro_torch.sharding import rules
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
              eps: float = 1e-6, plus_one: bool = False) -> torch.Tensor:
@@ -60,24 +75,34 @@ def dense(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def _param(shape, held: Optional[Held], dtype, device) -> nn.Parameter:
+    """A frozen zero parameter of ``shape``, or of ``held``'s block."""
+    if held is not None:
+        shape = held.block.block_shape
+    return nn.Parameter(torch.zeros(tuple(shape), dtype=dtype,
+                                    device=device), requires_grad=False)
+
+
 class Dense(nn.Module):
-    """Dense projection with ``w [d_in, d_out]`` (the JAX layout)."""
+    """Dense projection with ``w [d_in, d_out]`` (the JAX layout).
+    ``held`` (``{"w": Held, "b": Held}``, from the model-parallel caller)
+    makes it hold its rank's blocks of the whole weight and bias."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 held: Optional[Dict[str, Held]] = None):
         super().__init__()
-        self.w = nn.Parameter(torch.zeros((d_in, d_out), dtype=dtype,
-                                          device=device),
-                              requires_grad=False)
-        self.b = (nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device),
-                               requires_grad=False) if bias else None)
+        self.held = dict(held or {})
+        self.d_in = d_in
+        self.w = _param((d_in, d_out), self.held.get("w"), dtype, device)
+        self.b = (_param((d_out,), self.held.get("b"), dtype, device)
+                  if bias else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            v = torch.randn(self.w.shape, generator=generator,
-                            device=self.w.device)
-            self.w.copy_(v / np.sqrt(self.w.shape[0]))
-            if self.b is not None:
+        fill_normal(self.w, generator, lambda v: v / np.sqrt(self.d_in),
+                    self.held.get("w"))
+        if self.b is not None:
+            with torch.no_grad():
                 self.b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -86,20 +111,30 @@ class Dense(nn.Module):
 
 class Embedding(nn.Module):
     """Token table ``[vocab, d]``; ``embed`` gathers rows, ``unembed``
-    projects back with a plain ``torch.matmul``."""
+    projects back with a plain ``torch.matmul``.  On a model-parallel
+    ``mesh`` whose rule splits the vocabulary (``"model"`` on its rows)
+    it holds rows ``[v0, v0 + vocab / m)`` (``v0``; ``group`` is the
+    ``"model"`` axis's process group, None when held whole)."""
 
     def __init__(self, vocab: int, d: int, *,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 mesh=None):
         super().__init__()
-        self.table = nn.Parameter(torch.zeros((vocab, d), dtype=dtype,
-                                              device=device),
-                                  requires_grad=False)
+        self.vocab = vocab
+        self.held: Dict[str, Held] = {}
+        self.group, self.v0 = None, 0
+        if rules.model_split(mesh) > 1 and rules.held_spec(
+                "table", (vocab, d), mesh)[0] == "model":
+            h = self.held["table"] = rules.held_block("table", (vocab, d),
+                                                      mesh)
+            self.group, _ = tp_lib.tp_group(mesh, "model")
+            self.v0 = h.block.index[0].start
+        self.table = _param((vocab, d), self.held.get("table"), dtype,
+                            device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            v = torch.randn(self.table.shape, generator=generator,
-                            device=self.table.device)
-            self.table.copy_(v * 0.02)
+        fill_normal(self.table, generator, lambda v: v * 0.02,
+                    self.held.get("table"))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -141,18 +176,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
 # --- FFN (dense path) --------------------------------------------------------
 
 class MLP(nn.Module):
-    """Dense FFN: gated (``silu``/``gelu``) or plain ``gelu_plain``."""
+    """Dense FFN: gated (``silu``/``gelu``) or plain ``gelu_plain``.  On
+    a model-parallel ``mesh`` whose rule splits d_ff, ``up``/``gate``
+    are column-parallel and ``down`` row-parallel (``group`` the
+    ``"model"`` axis's process group; None: whole)."""
 
     def __init__(self, d_model: int, d_ff: int, *, act: str = "silu",
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 mesh=None):
         super().__init__()
         self.act = act
-        self.up = Dense(d_model, d_ff, dtype=dtype, device=device)
-        self.down = Dense(d_ff, d_model, dtype=dtype, device=device)
-        self.gate = (Dense(d_model, d_ff, dtype=dtype, device=device)
+        self.group = None
+        held = {}
+        if rules.model_split(mesh) > 1 and rules.held_spec(
+                "up.w", (d_model, d_ff), mesh)[1] == "model":
+            self.group, _ = tp_lib.tp_group(mesh, "model")
+            held = {n: {"w": rules.held_block(f"{n}.w", shape, mesh)}
+                    for n, shape in (("up", (d_model, d_ff)),
+                                     ("gate", (d_model, d_ff)),
+                                     ("down", (d_ff, d_model)))}
+        self.up = Dense(d_model, d_ff, dtype=dtype, device=device,
+                        held=held.get("up"))
+        self.down = Dense(d_ff, d_model, dtype=dtype, device=device,
+                          held=held.get("down"))
+        self.gate = (Dense(d_model, d_ff, dtype=dtype, device=device,
+                           held=held.get("gate"))
                      if act in ("silu", "gelu") else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is not None:
+            x = tp_lib.copy_to_group(x, self.group)
         h = self.up(x)
         if self.gate is not None:
             g = self.gate(x)
@@ -161,4 +214,7 @@ class MLP(nn.Module):
             h = g * h
         else:
             h = F.gelu(h, approximate="tanh")
-        return self.down(h)
+        y = self.down(h)
+        if self.group is not None:
+            y = tp_lib.reduce_from_group(y, self.group)
+        return y

@@ -43,6 +43,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch.core import tp as tp_lib
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import Cache
@@ -107,7 +108,18 @@ class LM(nn.Module):
     without a card only an explicit ``"cpu"`` runs; on ``"meta"`` it has
     shapes only, for the sharding rules).  ``mesh`` reaches the MoE
     layers: on a concrete mesh an expert-parallel layer holds only its
-    rank's experts (``models/moe.py``)."""
+    rank's experts (``models/moe.py``).
+
+    Model parallelism: on a concrete mesh whose ``"model"`` axis has
+    m > 1 ranks, the GQA mixers, the MLPs, the sparse FFNs and the
+    embedding and unembedding tables are split over that axis by the
+    reference's rules (``held_blocks``; the layers' docstrings), and
+    every rank runs the same program.  ``forward``, ``prefill`` and
+    ``decode_step`` return the whole logits (gathered over the
+    vocabulary; ``gather=False`` keeps the rank's columns, which
+    ``greedy`` samples); ``loss`` is the vocab-parallel cross-entropy.
+    MLA, Mamba-2, cross attention, an encoder and the MoE router run
+    whole on every rank."""
 
     def __init__(self, cfg: ModelCfg, *, device: DeviceLike = None,
                  seed: int = 0, mesh=None):
@@ -115,9 +127,10 @@ class LM(nn.Module):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = tfm.model_dtype(cfg)
+        self.mesh = mesh
         dev = self.device
         self.embed = Embedding(cfg.vocab_size, cfg.d_model,
-                               dtype=self.dtype, device=dev)
+                               dtype=self.dtype, device=dev, mesh=mesh)
         self.layers = nn.ModuleList(
             tfm.Layer(cfg, spec, device=dev, mesh=mesh)
             for spec in tfm.layer_specs(cfg))
@@ -125,7 +138,7 @@ class LM(nn.Module):
                                   device=dev)
         self.lm_head = (None if cfg.tie_embeddings else
                         Embedding(cfg.vocab_size, cfg.d_model,
-                                  dtype=self.dtype, device=dev))
+                                  dtype=self.dtype, device=dev, mesh=mesh))
         self.encoder = self.enc_norm = None
         if cfg.encoder_layers:
             ecfg = encoder_cfg(cfg)
@@ -192,10 +205,13 @@ class LM(nn.Module):
                               []).append(name)
         return [tuple(g) for g in groups.values()]
 
-    def held_blocks(self) -> Dict[str, tuple]:
-        """``{name: (whole shape, spec)}`` of the parameters this rank
-        holds only its block of (an expert-parallel MoE's stacks, built
-        with ``mesh``)."""
+    def held_blocks(self) -> Dict[str, Any]:
+        """``{name: launch.mesh.Held}`` of the parameters this rank holds
+        as a block of the whole tensor, or whose gradient is a partial
+        sum over the ranks (built with ``mesh``): an expert-parallel
+        MoE's stacks, and on a model-parallel mesh the split projections
+        and tables, a sparse FFN's k-shards and the norms inside split
+        heads."""
         return {f"{prefix}.{leaf}": held
                 for prefix, mod in self.named_modules()
                 for leaf, held in getattr(mod, "held", {}).items()}
@@ -204,12 +220,9 @@ class LM(nn.Module):
         """Copy the JAX ``LM.init`` params pytree (leaves converted to
         numpy) into this model (a held block takes its part of the
         leaf)."""
-        from repro_torch.launch.mesh import block_slices
         leaves = self.jax_leaves(tree)
-        for name, (shape, spec) in self.held_blocks().items():
-            mesh = self.get_submodule(name.rpartition(".")[0]).mesh
-            leaves[name] = np.asarray(leaves[name])[
-                block_slices(shape, spec, mesh)]
+        for name, held in self.held_blocks().items():
+            leaves[name] = held.block.take(np.asarray(leaves[name]))
         _copy_into(dict(self.named_parameters()), leaves, "LM")
         return self
 
@@ -261,16 +274,44 @@ class LM(nn.Module):
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Token rows, times ``sqrt(d_model)`` cast to their dtype with
-        ``cfg.embed_scale`` (Gemma)."""
-        h = embed(self.embed.table, tokens)
+        ``cfg.embed_scale`` (Gemma); a split table's rows all-reduced
+        over the vocabulary's ranks."""
+        if self.embed.group is None:
+            h = embed(self.embed.table, tokens)
+        else:
+            h = tp_lib.vocab_embed(self.embed.table, tokens, self.embed.v0,
+                                   self.embed.group)
         if self.cfg.embed_scale:
             h = h * torch.tensor(np.sqrt(self.cfg.d_model), dtype=h.dtype)
         return h
 
-    def _unembed(self, h: torch.Tensor) -> torch.Tensor:
-        head = self.lm_head if self.lm_head is not None else self.embed
-        table = head.table
-        return unembed(table, h, softcap=self.cfg.final_softcap)
+    @property
+    def _head(self) -> Embedding:
+        return self.lm_head if self.lm_head is not None else self.embed
+
+    def _unembed(self, h: torch.Tensor, gather: bool = True
+                 ) -> torch.Tensor:
+        """Logits of ``h``: the whole vocabulary, or with ``gather=False``
+        a split table's own columns (the input through
+        ``copy_to_group``, so its gradient sums every rank's)."""
+        head = self._head
+        if head.group is None:
+            return unembed(head.table, h, softcap=self.cfg.final_softcap)
+        logits = unembed(head.table, tp_lib.copy_to_group(h, head.group),
+                         softcap=self.cfg.final_softcap)
+        if not gather:
+            return logits
+        return tp_lib.gather_vocab(logits, head.v0, head.vocab, head.group)
+
+    def greedy(self, logits: torch.Tensor):
+        """``(greedy ids, every logit finite)`` of ``logits`` as
+        ``prefill`` / ``decode_step(gather=False)`` return them: the
+        whole vocabulary's, or a split table's columns (the argmax over
+        the ranks, ``core.tp.vocab_argmax``)."""
+        head = self._head
+        if head.group is None or logits.shape[-1] == head.vocab:
+            return torch.argmax(logits, dim=-1), torch.isfinite(logits).all()
+        return tp_lib.vocab_argmax(logits, head.v0, head.group)
 
     def _final(self, h: torch.Tensor) -> torch.Tensor:
         return self.final_norm(h, eps=self.cfg.norm_eps)
@@ -374,26 +415,38 @@ class LM(nn.Module):
         return loss, out
 
     def _chunk_nll(self, hx: torch.Tensor, tx: torch.Tensor):
-        """Summed NLL and count of valid targets over one chunk."""
+        """Summed NLL and count of valid targets over one chunk (over a
+        split vocabulary, ``core.tp.vocab_nll``)."""
+        valid = (tx >= 0).float()
+        head = self._head
+        if head.group is not None:
+            nll = tp_lib.vocab_nll(self._unembed(hx, gather=False), tx,
+                                   head.v0, head.group)
+            return (nll * valid).sum(), valid.sum()
         logits = self._unembed(hx).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             torch.clamp(tx, min=0)[..., None])[..., 0]
-        valid = (tx >= 0).float()
         return ((lse - gold) * valid).sum(), valid.sum()
 
     def init_cache(self, batch: int, max_len: int, *,
                    memory_len: int = 0) -> List[Cache]:
         """Every layer's cache; ``memory_len`` is the encoder memory's
         length the cross layers' ``xk`` / ``xv`` hold."""
+        heads = [layer.attn.kv_heads for layer in self.layers
+                 if getattr(layer, "attn", None) is not None
+                 and hasattr(layer.attn, "kv_heads")]
         return tfm.stack_cache_init(self.cfg, batch, max_len,
                                     dtype=self.dtype, device=self.device,
-                                    memory_len=memory_len)
+                                    memory_len=memory_len,
+                                    kv_heads=heads[0] if heads else None)
 
     @torch.no_grad()
     def prefill(self, tokens, *, max_len: int, frontend=None,
-                enc_frames=None, last_index: Optional[Any] = None):
-        """Returns ``(logits [B, V], caches)``.  ``last_index`` ``[B]``
+                enc_frames=None, last_index: Optional[Any] = None,
+                gather: bool = True):
+        """Returns ``(logits [B, V], caches)`` (``gather=False``: a split
+        vocabulary's own columns, for ``greedy``).  ``last_index`` ``[B]``
         gathers each row's logits at its true last prompt token (the
         serving engine right-pads prompts to a bucket).  With a
         ``frontend`` of F rows the sequence is ``F + S`` long: it must
@@ -412,7 +465,7 @@ class LM(nn.Module):
         else:
             idx = self._tokens(last_index).reshape(-1, 1, 1)
             h = torch.gather(h, 1, idx.expand(h.shape[0], 1, h.shape[2]))
-        return self._unembed(self._final(h))[:, 0], caches
+        return self._unembed(self._final(h), gather)[:, 0], caches
 
     def _ring_slot(self, positions: torch.Tensor) -> torch.Tensor:
         """The cache slot of each position in a retained (local + global)
@@ -425,9 +478,10 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens, caches: List[Cache], positions, *,
-                    retained: bool = False):
+                    retained: bool = False, gather: bool = True):
         """One token per row: tokens ``[B, 1]``, positions ``[B]``.
-        Returns ``(logits [B, V], caches)``; the caches are updated in
+        Returns ``(logits [B, V], caches)`` (``gather`` as ``prefill``
+        takes it); the caches are updated in
         place.  ``retained`` writes the new K/V at the ring slot of each
         position (``_ring_slot``; RoPE keeps the true position) and lets a
         local layer attend to every retained slot, as the reference's
@@ -438,4 +492,4 @@ class LM(nn.Module):
         slot = self._ring_slot(pos) if retained else pos
         h, caches = tfm.stack_decode(self.layers, h, caches, positions=pos,
                                      slot=slot, window_filter=not retained)
-        return self._unembed(self._final(h))[:, 0], caches
+        return self._unembed(self._final(h), gather)[:, 0], caches

@@ -88,16 +88,17 @@ class MoE(nn.Module):
         d = cfg.d_model
         self.cfg = cfg
         self.router = _Router(d, m.num_experts, device=device)
-        # name -> (whole shape, spec) of the expert stacks held as this
-        # rank's block (``ep_route`` on ``mesh``); empty: held whole
+        # name -> ``launch.mesh.Held`` of the expert stacks held as this
+        # rank's block under their rule (``ep_route`` on ``mesh``);
+        # empty: held whole
         self.held = {}
         self.mesh = mesh if ep_route(cfg, mesh) else None
 
         def param(name, shape):
             if self.mesh is not None:
-                spec = rules.param_spec(name, shape, mesh)
-                self.held[name] = (shape, spec)
-                shape = mesh_lib.block_shape(shape, spec, mesh)
+                h = self.held[name] = mesh_lib.Held.whole(mesh_lib.Block.of(
+                    shape, rules.param_spec(name, shape, mesh), mesh))
+                shape = h.block.block_shape
             return nn.Parameter(torch.zeros(shape, dtype=dtype,
                                             device=device),
                                 requires_grad=False)
@@ -124,8 +125,8 @@ class MoE(nn.Module):
                     ("w_down", self.w_down,
                      1.0 / np.sqrt(self.cfg.moe.d_ff_expert))):
                 if name in self.held:
-                    shape, spec = self.held[name]
-                    sl = mesh_lib.block_slices(shape, spec, self.mesh)
+                    blk = self.held[name].block
+                    shape, sl = blk.shape, blk.index
                     lo = sl[0].start
                     for e in range(shape[0]):
                         x = torch.randn(shape[1:], generator=generator,
@@ -387,7 +388,7 @@ def _local_experts(moe: MoE, name: str, mesh, e0: int, e_loc: int):
     w = getattr(moe, name)
     if name not in moe.held:
         return w[e0:e0 + e_loc]
-    shape, spec = moe.held[name]
+    spec = rules.param_spec(name, moe.held[name].block.shape, mesh)
     if spec[1] is None:
         return w
     axes = (spec[1],) if isinstance(spec[1], str) else tuple(spec[1])

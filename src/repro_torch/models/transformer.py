@@ -45,12 +45,13 @@ def model_dtype(cfg: ModelCfg) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def sparse_ffn(cfg: ModelCfg, *, device) -> SparseFFN:
+def sparse_ffn(cfg: ModelCfg, *, device, mesh=None) -> SparseFFN:
     """The sparse FFN arm, built as the JAX package builds it: seed 0 for
-    every layer, gated when the activation is."""
+    every layer, gated when the activation is (on a model-parallel
+    ``mesh`` each projection holds its rank's k-shard)."""
     return SparseFFN(cfg.d_model, cfg.d_ff, cfg.ffn_block_size,
                      cfg.ffn_density, gated=cfg.act in ("silu", "gelu"),
-                     dtype=model_dtype(cfg), device=device)
+                     dtype=model_dtype(cfg), device=device, mesh=mesh)
 
 
 class Layer(nn.Module):
@@ -62,7 +63,10 @@ class Layer(nn.Module):
     no FFN sub-layer and no ``norm2`` / ``post_norm2`` (the reference
     adds a zero FFN output).  A ``cross`` layer adds ``h +
     cross(norm_x(h), memory)`` between the mixer and the FFN; a
-    ``causal=False`` attention layer (an encoder's) attends both ways."""
+    ``causal=False`` attention layer (an encoder's) attends both ways.
+    ``mesh`` reaches the GQA mixer, the MLP and the sparse FFN (split
+    over a model-parallel mesh's ``"model"`` axis) and the MoE (its
+    experts); MLA, Mamba-2, cross attention and the router run whole."""
 
     def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device,
                  mesh=None):
@@ -90,7 +94,7 @@ class Layer(nn.Module):
             self.attn = (MLA(cfg, dtype=dt, device=device)
                          if spec.mixer == "mla" else
                          GQA(cfg, dtype=dt, device=device,
-                             causal=spec.causal))
+                             causal=spec.causal, mesh=mesh))
         self.cross = self.norm_x = None
         if spec.cross:
             self.cross = CrossAttention(cfg, dtype=dt, device=device)
@@ -104,11 +108,11 @@ class Layer(nn.Module):
             self.ffn = None
         elif spec.ffn == "mlp":
             self.ffn = MLP(cfg.d_model, cfg.d_ff, act=cfg.act, dtype=dt,
-                           device=device)
+                           device=device, mesh=mesh)
         elif self.moe:
             self.ffn = MoE(cfg, dtype=dt, device=device, mesh=mesh)
         else:
-            self.ffn = sparse_ffn(cfg, device=device)
+            self.ffn = sparse_ffn(cfg, device=device, mesh=mesh)
         self.post_norm1 = self.post_norm2 = None
         if cfg.post_norm:
             self.post_norm1 = RMSNorm(cfg.d_model, plus_one=True,
@@ -237,20 +241,25 @@ def stack_decode(layers, h, caches, *, positions, slot=None,
 
 def stack_cache_init(cfg: ModelCfg, batch: int, max_len: int, *,
                      dtype: torch.dtype, device,
-                     memory_len: int = 0) -> List[Cache]:
+                     memory_len: int = 0,
+                     kv_heads: Optional[int] = None) -> List[Cache]:
     """Each layer's cache by its mixer: ``{"k", "v"}`` of an attention
     layer, ``{"latent", "k_rope"}`` of an MLA layer, ``{"state",
     "conv"}`` of a mamba layer (fp32 ``[B, H, P, N]`` and ``[B, d_conv -
     1, conv_dim]``; no ``max_len`` axis); a cross layer's also ``{"xk",
-    "xv"}``, zeros of ``[B, memory_len, KV, dh]``."""
+    "xv"}``, zeros of ``[B, memory_len, KV, dh]``.  ``kv_heads`` is a
+    model-parallel rank's KV heads of a GQA layer (its cache holds only
+    those)."""
     caches = []
     for spec in layer_specs(cfg):
         if spec.mixer == "mamba":
             c = ssm_cache_init(cfg, batch, dtype=dtype, device=device)
+        elif spec.mixer == "mla":
+            c = mla_cache_init(cfg, batch, max_len, dtype=dtype,
+                               device=device)
         else:
-            c = (mla_cache_init if spec.mixer == "mla"
-                 else gqa_cache_init)(cfg, batch, max_len, dtype=dtype,
-                                      device=device)
+            c = gqa_cache_init(cfg, batch, max_len, dtype=dtype,
+                               device=device, kv_heads=kv_heads)
         if spec.cross:
             shape = (batch, memory_len, cfg.num_kv_heads, cfg.head_dim)
             c["xk"] = torch.zeros(shape, dtype=dtype, device=device)

@@ -248,7 +248,12 @@ class Engine:
     with the same arguments and serves the same requests in the same
     order, since each FFN product all-reduces over the group.  A
     concrete mesh whose backend a CUDA graph cannot capture (gloo)
-    refuses ``graphs``: pass ``graphs=False``.
+    refuses ``graphs``: pass ``graphs=False``.  Over NCCL each rank
+    captures one graph per prefill bucket and the decode step, the
+    collectives inside, in the same order as every other rank.  An LM
+    built on the mesh (model-parallel: ``LM(mesh=)``) keeps its rank's
+    KV heads in the caches and samples with the argmax over the
+    vocabulary's ranks.
 
     The engine prices its ladder and its admissions with the cost
     calibration active when it is built (``dispatch.cost_coeffs()``),
@@ -402,12 +407,13 @@ class Engine:
                 f"prefill[{bucket}]", self._prefill_body, bucket + 2)
         return prog
 
-    @staticmethod
-    def _sample(logits: torch.Tensor) -> torch.Tensor:
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy tokens of every row, then 1 if every logit is finite:
-        one int64 vector, read by the host in one copy."""
-        return torch.cat([torch.argmax(logits, dim=-1),
-                          torch.isfinite(logits).all().reshape(1).long()])
+        one int64 vector, read by the host in one copy.  A
+        model-parallel LM's logits are its rank's vocabulary columns:
+        the argmax runs over the ranks (``LM.greedy``)."""
+        ids, finite = self.lm.greedy(logits)
+        return torch.cat([ids, finite.reshape(1).long()])
 
     def _prefill_body(self, io: torch.Tensor):
         """``io = [tokens (S), last index, slot]``: prefill one padded
@@ -415,7 +421,8 @@ class Engine:
         s = io.shape[0] - 2
         logits, rows = self.lm.prefill(io[:s].view(1, s),
                                        max_len=self.max_len,
-                                       last_index=io[s:s + 1])
+                                       last_index=io[s:s + 1],
+                                       gather=False)
         slot = io[s + 1:s + 2]
         for cache, row in zip(self.caches, rows):
             for name in cache:
@@ -428,7 +435,8 @@ class Engine:
         ``retained``), the batch's tokens sampled."""
         b = self.batch
         logits, _ = self.lm.decode_step(io[:b].view(b, 1), self.caches,
-                                        io[b:], retained=self.retained)
+                                        io[b:], retained=self.retained,
+                                        gather=False)
         return self._sample(logits), logits
 
     def _warm(self, capture_graphs: bool):

@@ -31,6 +31,10 @@ port tensor lacks the stacking dim; ``_spec`` leaves that leading dim
 None in the reference, so a port spec is the reference leaf's spec
 without it.
 
+``held_spec`` is the ``"model"`` part of a parameter's spec: the block
+a rank of a model-parallel LM holds (``models/``), its ``"data"`` part
+splitting the optimizer state inside it (``train/step.py``).
+
 ``constrain`` (a GSPMD layout hint on an activation) is not ported: the
 port runs eagerly, one program per rank, so there is nothing for a hint
 to steer.  ``current_mesh`` is read by the MoE layer's expert-parallel
@@ -173,6 +177,36 @@ def _param_spec_for(mesh, path_str: str, shape) -> PartitionSpec:
 def param_spec(name: str, shape: Sequence[int], mesh) -> PartitionSpec:
     """The spec of the parameter ``name`` of (whole) ``shape``."""
     return _param_spec_for(mesh, ref_path(name), tuple(shape))
+
+
+def held_spec(name: str, shape: Sequence[int], mesh) -> PartitionSpec:
+    """The block of ``name`` a rank of a model-parallel LM holds: the
+    ``"model"`` part of ``param_spec`` (its other axes, ``"data"``, split
+    the optimizer state only, inside that block)."""
+    return P(*(e if e == "model" else None
+               for e in param_spec(name, shape, mesh)))
+
+
+def held_block(name: str, shape: Sequence[int], mesh):
+    """``launch.mesh.Held`` of a parameter held as its ``held_spec``
+    block, the optimizer state its ``param_spec`` block inside it."""
+    from repro_torch.launch.mesh import Block, Held, block_slices
+    spec = param_spec(name, shape, mesh)
+    blk = Block.of(shape, held_spec(name, shape, mesh), mesh)
+    local = block_slices(blk.block_shape,
+                         P(*(None if e == "model" else e for e in spec)),
+                         mesh)
+    return Held(blk, Block.of(shape, spec, mesh), local)
+
+
+def model_split(mesh) -> int:
+    """The size of ``mesh``'s ``"model"`` axis when it is concrete, else
+    1: an LM built on a mesh splits over that axis when it is past 1."""
+    from repro_torch.launch.mesh import is_concrete
+    names, sizes = mesh_axes(mesh)
+    if not is_concrete(mesh) or "model" not in names:
+        return 1
+    return sizes[names.index("model")]
 
 
 def _shape_of(leaf) -> tuple:

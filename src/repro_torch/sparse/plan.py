@@ -384,16 +384,20 @@ class MatmulPlan:
 
     # -- static kind -------------------------------------------------------
 
-    def pack(self, values: torch.Tensor) -> torch.Tensor:
+    def pack(self, values: torch.Tensor, *, held: bool = False
+             ) -> torch.Tensor:
         """``[nnz, b, b]`` block values -> what the route walks: the
         ``[T, b, b]`` tile stack (``static``; pad tiles for empty rows
         are zero), the stack plus the schedule's zero tile
         (``static_balanced``), the values themselves (the dynamic
         routes) or ``W^T [k, m]`` (``dense``).  Serving packs once per
         weight load.  A TP plan packs the shards this process runs, one
-        stack after the other."""
+        stack after the other; ``held``: ``values`` are this rank's
+        shard's blocks only, in its slot order (``TPShards.pack``)."""
         if self.tp is not None:
-            return self.tp.pack(values)
+            return self.tp.pack(values, held=held)
+        if held:
+            raise ValueError("held values need a static_tp_shardmap plan")
         family = _family(self.route)
         if family in ("static", "static_balanced"):
             tiles = partitioner.pack_values(
@@ -434,23 +438,29 @@ class MatmulPlan:
                             self.block_size)
         return self.run_dynamic(op, x2)
 
-    def spmm_nt(self, payload, x2: torch.Tensor) -> torch.Tensor:
+    def spmm_nt(self, payload, x2: torch.Tensor, *,
+                held: bool = False) -> torch.Tensor:
         """``x2 [N, k] -> x2 . W^T [N, m]``, differentiable in both
         operands through the planned backward.  ``payload`` is the
         ``[nnz, b, b]`` values (static kind) or the ``DynamicOperand``
-        (dynamic kind)."""
+        (dynamic kind); ``held`` as ``pack`` takes it (dL/dvalues then
+        covers the held blocks only)."""
         if self.kind == "dynamic":
             return self._dynamic_nt(payload, x2)
         if _needs_grad(payload, x2):
             self._check_differentiable()
             if self.tp is None:
+                if held:
+                    raise ValueError("held values need a "
+                                     "static_tp_shardmap plan")
                 return _StaticSpmmFn.apply(payload, x2, self)
             group = self.tp.group
             if group is None:
-                return _TPSpmmFn.apply(payload, x2, self)
+                return _TPSpmmFn.apply(payload, x2, self, held)
             return tp_lib.reduce_from_group(_TPSpmmFn.apply(
-                payload, tp_lib.copy_to_group(x2, group), self), group)
-        return self.run_packed(self.pack(payload), x2)
+                payload, tp_lib.copy_to_group(x2, group), self, held),
+                group)
+        return self.run_packed(self.pack(payload, held=held), x2)
 
     def grad_dx(self, values: torch.Tensor, dy2: torch.Tensor
                 ) -> torch.Tensor:
@@ -711,9 +721,16 @@ class TPShards:
     grad_routes: Dict[str, str]
     group: Any = None
 
-    def pack(self, values: torch.Tensor) -> torch.Tensor:
-        parts = [p.pack(values[src]) for p, src in zip(self.plans, self.src)
-                 if p is not None]
+    def pack(self, values: torch.Tensor, *, held: bool = False
+             ) -> torch.Tensor:
+        """The shards' stacks back to back from the operand's values, or,
+        ``held``, from the one shard's own blocks (a rank of a
+        model-parallel LM holds only those, in ``shard_source`` order)."""
+        if held and len(self.shards) != 1:
+            raise ValueError("held values need the explicit route's one "
+                             "shard a rank")
+        parts = [p.pack(values if held else values[src])
+                 for p, src in zip(self.plans, self.src) if p is not None]
         if not parts:
             return values.new_zeros((0, 1, 1))
         return parts[0] if len(parts) == 1 else torch.cat(parts)
@@ -752,11 +769,12 @@ class _TPSpmmFn(torch.autograd.Function):
     as it comes)."""
 
     @staticmethod
-    def forward(ctx, values, x2, plan_):
-        ctx.plan = plan_
+    def forward(ctx, values, x2, plan_, held=False):
+        ctx.plan, ctx.held = plan_, held
         x2 = x2.contiguous()
         ctx.save_for_backward(values, x2)
-        return plan_.tp.partials(plan_.pack(values), x2, plan_.m)
+        return plan_.tp.partials(plan_.pack(values, held=held), x2,
+                                 plan_.m)
 
     @staticmethod
     def backward(ctx, dy2):
@@ -768,15 +786,19 @@ class _TPSpmmFn(torch.autograd.Function):
             dv = torch.zeros_like(values)
             for p, src in zip(tp.plans, tp.src):
                 if p is not None:
-                    dv.index_copy_(0, src, p.grad_dvalues(dy2, x2).to(
-                        values.dtype))
+                    g = p.grad_dvalues(dy2, x2).to(values.dtype)
+                    if ctx.held:
+                        dv = g
+                    else:
+                        dv.index_copy_(0, src, g)
         if ctx.needs_input_grad[1]:
             for p, src in zip(tp.plans, tp.src):
                 if p is not None:
-                    part = p.grad_dx(values[src], dy2)
+                    part = p.grad_dx(values if ctx.held else values[src],
+                                     dy2)
                     dx = part if dx is None else dx + part
             dx = x2.new_zeros(x2.shape) if dx is None else dx.to(x2.dtype)
-        return dv, dx, None
+        return dv, dx, None, None
 
 
 class _DynamicSpmmFn(torch.autograd.Function):

@@ -45,10 +45,18 @@ Every rank runs the same program on its shard of the batch
   one collective for every backend, gloo included, which reduces card
   tensors but does not gather them).
 
-A parameter a rank holds as its block (an expert-parallel MoE's stacks,
-``LM.held_blocks``) is updated in place: its gradient arrives already
-summed over the batch axes its spec splits (the forward's gather
-reduce-scatters it), and is all-reduced over the others.
+A parameter a rank holds as its block (``LM.held_blocks``) is updated
+in place, its state a block inside it.  An expert-parallel MoE's stack
+is its rule's block: its gradient arrives already summed over the batch
+axes its spec splits (the forward's gather reduce-scatters it), and is
+all-reduced over the others.  A model-parallel LM's blocks (the
+``"model"`` part of the rule: heads, d_ff, vocabulary rows; a sparse
+FFN's k-shard) are whole over the batch axes: the gradient is
+all-reduced over them, the state is the rule's ``"data"`` block inside
+(a k-shard's and shared KV heads' state is the whole held block), and
+the updated block is gathered over ``"data"``.  A partial gradient (KV
+heads several ranks' query heads read, ``q_norm`` / ``k_norm`` inside
+split heads) is summed over every rank that holds it.
 """
 from __future__ import annotations
 
@@ -79,35 +87,60 @@ class ShardLayout:
 
     ``specs``: every parameter's spec under the rules (of its whole
     shape, ``shapes``); ``held``: the parameters the model holds as this
-    rank's block.  ``comm_ms``, when a dict, collects each collective's
+    rank's block, or whose gradient is partial over the ranks
+    (``LM.held_blocks``: ``launch.mesh.Held``).  ``place[name]`` is a
+    ``Held`` for every parameter: a whole parameter's state is its
+    rule's block.  ``comm_ms``, when a dict, collects each collective's
     host time (after a device synchronise) by kind, one entry a step:
     a measurement aid that adds syncs, off by default."""
 
     def __init__(self, lm, mesh):
         self.mesh = mesh
         held = lm.held_blocks()
-        self.shapes = {n: tuple(held[n][0]) if n in held else tuple(p.shape)
+        self.shapes = {n: tuple(held[n].block.shape) if n in held
+                       else tuple(p.shape)
                        for n, p in lm.named_parameters()}
         self.specs = {n: rules.param_spec(n, shp, mesh)
                       for n, shp in self.shapes.items()}
-        for n, (_, spec) in held.items():
-            if spec != self.specs[n]:
-                raise ValueError(f"{n} is held as the block of {spec}; the "
-                                 f"rules give {self.specs[n]}")
+        self.place: Dict[str, mesh_lib.Held] = {}
+        for n, shp in self.shapes.items():
+            if n not in held:
+                state = mesh_lib.Block.of(shp, self.specs[n], mesh)
+                self.place[n] = mesh_lib.Held(
+                    mesh_lib.Block.whole(shp, mesh), state, state.index)
+                continue
+            h = self.place[n] = held[n]
+            # a held block's state lies inside it: the rule's block of
+            # its tensor, or the whole held block (a k-shard, KV heads
+            # several ranks hold, a partial norm, an expert stack)
+            if not (set(h.block.axes) <= set(h.state.axes) and (
+                    h.state is h.block
+                    or h.state.index == mesh_lib.block_slices(
+                        shp, self.specs[n], mesh))):
+                raise ValueError(f"{n}: its state block {h.state.index} "
+                                 f"lies outside its held block "
+                                 f"{h.block.index}")
         self.held = set(held)
+        self.partial = {n for n, h in held.items() if h.partial}
         names = mesh_lib.mesh_axes(mesh)[0]
         self.batch_axes = rules.batch_axes(mesh)
         self.batch_group = mesh_lib.axes_group(mesh, self.batch_axes)
         self.dp = mesh_lib.axis_index(mesh, self.batch_axes)[1]
         self.mesh_group = mesh_lib.axes_group(mesh, names)
         # the batch axes a held block's gradient is not yet summed over
+        # (an expert stack's arrives summed over those its block splits)
         self.held_groups = {
             n: mesh_lib.axes_group(mesh, [
-                a for a in self.batch_axes
-                if a not in mesh_lib.spec_axes(self.specs[n])])
+                a for a in self.batch_axes if a not in held[n].block.axes])
             for n in self.held}
-        self.owner = {n: mesh_lib.owns_block(mesh, s)
-                      for n, s in self.specs.items()}
+        # the axes a held block's state splits it over: gathered back
+        # into the block after the update
+        self.state_groups = {
+            n: mesh_lib.axes_group(mesh, [
+                a for a in held[n].state.axes
+                if a not in held[n].block.axes])
+            for n in self.held}
+        self.owner = {n: h.state.owner for n, h in self.place.items()}
         self.comm_ms: Optional[Dict[str, List[float]]] = None
 
     def backend(self) -> str:
@@ -115,11 +148,9 @@ class ShardLayout:
         return dist.get_backend(self.mesh_group)
 
     def block(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the whole tensor ``t`` of ``name`` (a
-        held parameter is its block already)."""
-        if name in self.held:
-            return t
-        return mesh_lib.block(t, self.specs[name], self.mesh)
+        """This rank's state block of the parameter ``name`` as it holds
+        it (``t``: the whole tensor, or the held block)."""
+        return t[self.place[name].local]
 
     def _buckets(self, tensors: Tensors, names: List[str]):
         """``names`` cut into runs of one dtype and at most
@@ -132,14 +163,22 @@ class ShardLayout:
             yield from _groups(run, sizes, UPDATE_GROUP_ELEMS)
 
     def storage_specs(self, tree: dict) -> dict:
-        """The specs of a ``state_tree`` of this layout's state as it is
-        held: the optimizer's and residual tables by the rules, the
-        parameters whole (``P()``) unless held as blocks."""
-        specs = rules.train_state_specs(
-            {**tree, "params": self.shapes}, self.mesh)
-        specs["params"] = {n: (s if n in self.held else rules.P())
-                           for n, s in specs["params"].items()}
-        return specs
+        """How a ``state_tree`` of this layout's state is held, leaf by
+        leaf: a ``launch.mesh.Block`` for every parameter and every
+        optimizer and residual table entry, ``P()`` for the step and the
+        count (the checkpoint gathers and re-slices by them)."""
+        out = {}
+        for key, node in tree.items():
+            if key == "params":
+                out[key] = {n: (self.place[n].block if n in self.held
+                                else rules.P()) for n in node}
+            elif isinstance(node, dict):
+                out[key] = {k: ({n: self.place[n].state for n in v}
+                                if isinstance(v, dict) else rules.P())
+                            for k, v in node.items()}
+            else:
+                out[key] = rules.P()
+        return out
 
     @contextlib.contextmanager
     def _timed(self, kind: str, device: torch.device):
@@ -161,16 +200,26 @@ class ShardLayout:
             dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
 
     def reduce_grads(self, grads: Tensors) -> Tensors:
-        """The fp32 blocks of the gradients averaged over the batch axes
-        (the whole gradients are dropped as they are reduced)."""
+        """The fp32 state blocks of the gradients averaged over the batch
+        axes (the whole gradients are dropped as they are reduced); a
+        partial gradient is summed over every rank that holds its block
+        as well (in its place in a whole buffer, over the mesh)."""
         out: Tensors = {}
         inv = 1.0 / self.dp
         dev = next(iter(grads.values())).device
         with self._timed("grad_all_reduce", dev):
             for n in [n for n in grads if n in self.held]:
                 g = grads.pop(n)
-                self._all_reduce(g, self.held_groups[n])
-                out[n] = g.float() * inv
+                if n in self.partial:
+                    blk = self.place[n].block
+                    whole = g.new_zeros(blk.shape)
+                    blk.put(whole, g)
+                    self._all_reduce(whole, self.mesh_group)
+                    g = blk.take(whole)
+                    del whole
+                else:
+                    self._all_reduce(g, self.held_groups[n])
+                out[n] = self.block(n, g).float() * inv
             for names in list(self._buckets(grads, list(grads))):
                 flat = torch.cat([grads[n].reshape(-1) for n in names])
                 self._all_reduce(flat, self.batch_group)
@@ -197,7 +246,8 @@ class ShardLayout:
 
     def global_norm(self, blocks: Tensors) -> torch.Tensor:
         """The fp32 L2 norm of the whole gradient from its blocks: each
-        block's squares counted by its one owner, summed over the mesh."""
+        state block's squares counted by its one owner (a block several
+        ranks hold counted once), summed over the mesh."""
         dev = next(iter(blocks.values())).device
         own = [torch.sum(g.float() ** 2) for n, g in blocks.items()
                if self.owner[n]]
@@ -215,9 +265,17 @@ class ShardLayout:
     @torch.no_grad()
     def write_params(self, master: Tensors, params: Tensors) -> None:
         """Every parameter from the ranks' fp32 master blocks: a held
-        block from this rank's own, the rest gathered whole."""
-        for n in self.held:
-            params[n].copy_(master[n])
+        block from this rank's own (its state's split inside it gathered
+        over the axes that split it), the rest gathered whole."""
+        for n in [n for n in params if n in self.held]:   # rank order
+            group = self.state_groups[n]
+            if group is None:
+                params[n].copy_(master[n])
+                continue
+            buf = torch.zeros_like(params[n])
+            buf[self.place[n].local] = master[n].to(buf.dtype)
+            self._all_reduce(buf, group)
+            params[n].copy_(buf)
         rest = [n for n in params if n not in self.held]
         if not rest:
             return
@@ -231,8 +289,7 @@ class ShardLayout:
                     v = flat[off:off + params[n].numel()].view(self.shapes[n])
                     off += params[n].numel()
                     if self.owner[n]:
-                        mesh_lib.block(v, self.specs[n],
-                                       self.mesh).copy_(master[n])
+                        self.place[n].state.put(v, master[n])
                     views.append((n, v))
                 self._all_reduce(flat, self.mesh_group)
                 for n, v in views:

@@ -85,8 +85,7 @@ def _load(moe, params):
         for name in ("w_gate", "w_up", "w_down"):
             w = torch.as_tensor(params[name])
             if name in moe.held:
-                shape, spec = moe.held[name]
-                w = tmesh.block(w, spec, moe.mesh)
+                w = moe.held[name].block.take(w)
             getattr(moe, name).copy_(w)
     return moe
 
@@ -134,9 +133,8 @@ def _rank_ep(rank, world, inp):
         out[ranking] = dict(
             y=y.detach(), metrics=[float(v) for v in m],
             dx=x.grad, drouter=moe.router.w.grad.clone(),
-            held={n: (getattr(moe, n).grad.clone(),
-                      tmesh.block_slices(shape, spec, mesh))
-                  for n, (shape, spec) in moe.held.items()})
+            held={n: (getattr(moe, n).grad.clone(), h.block.index)
+                  for n, h in moe.held.items()})
         try:
             moe_apply(moe, cfg, x)
             out[ranking]["refused"] = None
