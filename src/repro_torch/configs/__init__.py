@@ -3,10 +3,10 @@
 the paper's block-sparse FFN applied to a dense config; the reference's
 shape cells (``SHAPES``) and ``is_native_long``, which says whether an
 architecture decodes the ``long_500k`` cell natively or through the
-retained ring cache (``LM.decode_step(retained=True)``).  The
-reference's ``input_specs`` / ``param_specs`` (abstract stand-ins for
-its dry-run launcher) come with ``launch/dryrun.py``, with the multi-GPU
-modules.
+retained ring cache (``LM.decode_step(retained=True)``); the
+reference's ``input_specs`` / ``param_specs``, shape-only stand-ins for
+every entry point's inputs and the parameters as meta tensors (no
+allocation), which ``launch/dryrun.py`` traces.
 
 The port covers all ten architectures of the JAX package's registry:
 ``llama3_2_1b``, ``gemma2_2b``, ``qwen3_moe_30b_a3b``, ``qwen2_1_5b``,
@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 from repro_torch.models.config import ModelCfg
 
@@ -84,3 +86,60 @@ def sparsify_ffn(cfg: ModelCfg, density: float) -> ModelCfg:
         (tuple(dataclasses.replace(s, ffn="sparse") for s in period), rep)
         for period, rep in cfg.groups)
     return dataclasses.replace(cfg, groups=groups, ffn_density=density)
+
+
+def input_specs(name: str, shape: str, *, cfg: Optional[ModelCfg] = None,
+                batch: Optional[int] = None, seq: Optional[int] = None,
+                lm=None):
+    """Meta-tensor stand-ins for one (architecture, shape) cell's entry
+    point: ``(kind, kwargs)`` with ``{"batch": {"tokens", "targets",
+    extras}}`` for ``train``, ``{"tokens", extras}`` for ``prefill`` and
+    ``{"tokens", "positions", "caches", "retained"}`` for ``decode``,
+    as the reference's ``input_specs`` gives them.  The extras are a
+    VLM's ``frontend`` and an encoder-decoder's ``enc_frames`` (bf16
+    ``[B, frontend_len, d_model]``); the caches are ``LM.init_cache`` on
+    meta, over ``retained_prefix + retained_window`` slots where the cell
+    decodes ``long`` through the retained ring (``is_native_long``).
+    ``batch`` / ``seq`` replace the cell's (a rank's share), ``lm`` the
+    meta model whose caches are built (a rank's, on its mesh).  Nothing
+    is allocated."""
+    from repro_torch.models.model import LM
+    cfg = cfg or get(name)
+    sh = SHAPES[shape]
+    b_ = sh["batch"] if batch is None else batch
+    s = sh["seq"] if seq is None else seq
+
+    def meta(shp, dtype=torch.int32):
+        return torch.empty(shp, dtype=dtype, device="meta")
+    extras = {}
+    if cfg.frontend == "vision":
+        extras["frontend"] = meta((b_, cfg.frontend_len, cfg.d_model),
+                                  torch.bfloat16)
+    if cfg.encoder_layers:
+        extras["enc_frames"] = meta((b_, cfg.frontend_len, cfg.d_model),
+                                    torch.bfloat16)
+    if sh["kind"] == "train":
+        return "train", {"batch": {"tokens": meta((b_, s)),
+                                   "targets": meta((b_, s)), **extras}}
+    if sh["kind"] == "prefill":
+        return "prefill", {"tokens": meta((b_, s)), **extras}
+    # decode: one token against a cache of length s
+    retained = sh.get("long", False) and not is_native_long(cfg)
+    if retained:
+        max_len = cfg.retained_prefix + cfg.retained_window
+    else:
+        max_len = s + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+    memory_len = cfg.frontend_len if cfg.encoder_layers else 0
+    lm = lm if lm is not None else LM(cfg, device="meta")
+    return "decode", {
+        "tokens": meta((b_, 1)), "positions": meta((b_,)),
+        "caches": lm.init_cache(b_, max_len, memory_len=memory_len),
+        "retained": retained}
+
+
+def param_specs(name: str, *, cfg: Optional[ModelCfg] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The parameters as meta tensors, by the port's names (the
+    reference's leaves through ``LM.jax_leaves``); nothing allocated."""
+    from repro_torch.models.model import LM
+    return dict(LM(cfg or get(name), device="meta").named_parameters())

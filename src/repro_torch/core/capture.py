@@ -20,6 +20,13 @@ re-planner re-captures exactly the programs whose plans changed route.
 
 A record is also what the engine's warm-up runs under: their telemetry
 belongs to no request and is dropped with the record.
+
+A forward that activation checkpointing recomputes in the backward
+(``models/transformer.py`` ``stack_apply`` under ``remat="full"``) runs
+again under the record of the forward it repeats (``recomputing``): on a
+card autograd runs the backward on its own device thread, where no
+record would be active otherwise.  Its telemetry was noted by the first
+run and is not noted again (``is_recomputing``).
 """
 from __future__ import annotations
 
@@ -54,6 +61,23 @@ def recording():
         yield rec
     finally:
         _state.record = prev
+
+
+def is_recomputing() -> bool:
+    """Is this thread running a forward again for the backward?"""
+    return getattr(_state, "recompute", False)
+
+
+@contextlib.contextmanager
+def recomputing(record: Optional[Record]):
+    """Run the body as a recomputed forward under ``record`` (the record
+    that was active when the forward first ran, or None)."""
+    prev = active(), is_recomputing()
+    _state.record, _state.recompute = record, True
+    try:
+        yield
+    finally:
+        _state.record, _state.recompute = prev
 
 
 def hold(obj) -> None:

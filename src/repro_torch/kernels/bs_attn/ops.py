@@ -20,7 +20,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.analysis import cost as cost_lib
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.bs_attn.ref import bs_attn_ref
 
 Q_ROWS = 64                     # query rows per thread block (QT in the .cu)
@@ -190,12 +191,13 @@ def bs_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  global_prefix: int = 0,
                  out: Optional[torch.Tensor] = None,
                  plan: Optional[str] = None) -> torch.Tensor:
-    """Launch the kernel (CUDA tensors only): q ``[B, Sq, H, dh]``, k/v
+    """Launch the kernel (CUDA tensors; meta tensors take the meta branch,
+    ``kernels/meta.py``): q ``[B, Sq, H, dh]``, k/v
     ``[B, Skv, KV, dh]`` -> ``[B, Sq, H, dh]`` (into ``out`` when given,
     any strides with a contiguous head dim), on ``kernel_walk(q.dtype)`` or on
     the walk ``plan`` names."""
     _check(q, k, v, walk)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"bs_attn_cuda needs CUDA tensors, got {q.device}")
     b_, sq, h, dh = q.shape
     if out is None:
@@ -212,6 +214,12 @@ def bs_attn_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = plan or kernel_walk(q.dtype)
     if name not in WALKS or (name == "wgmma" and q.dtype == torch.float32):
         raise ValueError(f"bs_attn: walk {name!r} does not take {q.dtype}")
+    if q.device.type == "meta":
+        pairs = cost_lib.attn_pairs(sq, k.shape[1], causal=causal,
+                                    window=window,
+                                    global_prefix=global_prefix)
+        return meta.account("bs_attn", name, out, cost_lib.bs_attn_cost(
+            b_, sq, h, k.shape[1], k.shape[2], dh, q.element_size(), pairs))
     fn = _build.entry("bs_attn", "bs_attn_fwd",
                       [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 12
                       + [ctypes.c_int] * 11 + [ctypes.c_float] * 2
@@ -256,7 +264,8 @@ def bs_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             softcap: Optional[float] = None) -> torch.Tensor:
     """Block-sparse attention.  ``q: [H, Sq, dh]``, ``k/v: [H, Skv,
     dh]``, ``block_mask: [Sq/bq, Skv/bkv]`` host bool.  CUDA tensors
-    launch the kernel (or raise); CPU tensors run the plain version."""
+    launch the kernel (or raise); CPU tensors run the plain version; meta
+    tensors take the meta branch."""
     h, sq, dh = q.shape
     skv = k.shape[1]
     block_mask = np.asarray(block_mask, bool)
@@ -265,7 +274,7 @@ def bs_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(sq // bq, skv // bkv)} of tiles {bq}x{bkv}")
     check_rows_covered(block_mask, bq, bkv, causal)
     scale = scale if scale is not None else 1.0 / np.sqrt(dh)
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         walk = make_walk(block_mask, bq, bkv, q.device, causal=causal)
         out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         bs_attn_cuda(q.transpose(0, 1)[None], k.transpose(0, 1)[None],

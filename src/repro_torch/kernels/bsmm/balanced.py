@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 
 from repro_torch.core import partitioner
-from repro_torch.kernels import _build
+from repro_torch.analysis import cost as cost_lib
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.bsmm import ops
 
 TILE_SIZES = (4, 8, 16, 32, 64)
@@ -134,10 +135,11 @@ def bsmm_balanced_cuda(x2: torch.Tensor, tiles: torch.Tensor,
                        visit_slot: torch.Tensor, m: int,
                        schedule: Optional[ops.MmaSchedule] = None,
                        plan: Optional[str] = None) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only) on ``walk(...)``'s walk,
-    or on ``plan`` where the caller names one; the "mma" walk reads
-    ``schedule`` (its groups the bins), the "ffma" walk the visit
-    schedule.  A walk that does not apply raises."""
+    """Launch the CUDA kernel (CUDA tensors; meta tensors take the meta
+    branch, ``kernels/meta.py``) on ``walk(...)``'s walk, or on ``plan``
+    where the caller names one; the "mma" walk reads ``schedule`` (its
+    groups the bins), the "ffma" walk the visit schedule.  A walk that
+    does not apply raises."""
     _check(x2, tiles, visit_rows, visit_cols, visit_slot, m)
     n, k = x2.shape
     b = tiles.shape[1]
@@ -145,7 +147,7 @@ def bsmm_balanced_cuda(x2: torch.Tensor, tiles: torch.Tensor,
     if wk not in WALKS or (wk == "mma" and walk(b, x2.dtype) != "mma"):
         raise ValueError(f"bsmm_balanced walk {wk!r} does not take b={b} "
                          f"in {x2.dtype}")
-    if x2.device.type != "cuda":
+    if x2.device.type not in ("cuda", "meta"):
         raise ValueError(f"bsmm_balanced_cuda needs CUDA tensors, got "
                          f"{x2.device}")
     bins, steps = visit_rows.shape
@@ -155,6 +157,13 @@ def bsmm_balanced_cuda(x2: torch.Tensor, tiles: torch.Tensor,
     if wk == "mma":
         ops.check_schedule(schedule, b, m, x2.device)
         x2, tiles = ops.aligned(x2), ops.aligned(tiles)
+    if x2.device.type == "meta":
+        # the K slices' fp32 scratch, as a launch allocates it
+        ops.mma_args(schedule if wk == "mma" else None, n, m, x2.device)
+        return meta.account(
+            "bsmm_balanced", wk, y, cost_lib.bsmm_balanced_cost(
+                n, k, m, tiles.shape[0] - 1, b, x2.element_size(),
+                visit_rows.numel()))
     fn = _build.entry("bsmm_balanced", "bsmm_balanced_nt",
                       [ctypes.c_void_p] * 11 + [ctypes.c_int] * 13
                       + [ctypes.c_void_p])
@@ -180,8 +189,9 @@ def bsmm_balanced(x2: torch.Tensor, tiles: torch.Tensor,
                   ) -> torch.Tensor:
     """``y[N, m] = x2 . W^T`` over the balanced visit schedule.  CUDA
     tensors launch the kernel (or raise; the "mma" walk reads
-    ``schedule``); CPU tensors run the plain version."""
-    if x2.device.type == "cuda":
+    ``schedule``); CPU tensors run the plain version; meta tensors take
+    the meta branch."""
+    if x2.device.type in ("cuda", "meta"):
         return bsmm_balanced_cuda(x2.contiguous(), tiles, visit_rows,
                                   visit_cols, visit_slot, m, schedule)
     if x2.device.type != "cpu":

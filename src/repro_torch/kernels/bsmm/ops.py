@@ -24,7 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.analysis import cost as cost_lib
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.contract import elem_bytes
 
 TILE_SIZES = (4, 8, 16, 32, 64)
@@ -414,9 +415,10 @@ def bsmm_nt_cuda(x: torch.Tensor, tiles: torch.Tensor,
                  row_ptr: torch.Tensor, tile_cols: torch.Tensor,
                  m: int, schedule: Optional[MmaSchedule] = None,
                  plan: Optional[str] = None) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only) on ``walk(...)``'s walk,
-    or on ``plan`` where the caller names one; the "mma" walk reads
-    ``schedule``.  A walk that does not apply raises."""
+    """Launch the CUDA kernel (CUDA tensors; meta tensors take the meta
+    branch, ``kernels/meta.py``) on ``walk(...)``'s walk, or on ``plan``
+    where the caller names one; the "mma" walk reads ``schedule``.  A
+    walk that does not apply raises."""
     _check(x, tiles, row_ptr, tile_cols, m)
     n, k = x.shape
     b = tiles.shape[1]
@@ -426,7 +428,7 @@ def bsmm_nt_cuda(x: torch.Tensor, tiles: torch.Tensor,
             wk == "decode" and n > DECODE_CAPACITY.get(b, 0)):
         raise ValueError(f"bsmm walk {wk!r} does not take b={b}, n={n} in "
                          f"{x.dtype}")
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"bsmm_nt_cuda needs CUDA tensors, got {x.device}")
     y = torch.empty((n, m), dtype=x.dtype, device=x.device)
     if n == 0:
@@ -434,6 +436,12 @@ def bsmm_nt_cuda(x: torch.Tensor, tiles: torch.Tensor,
     if wk == "mma":
         check_schedule(schedule, b, m, x.device)
         x, tiles = aligned(x), aligned(tiles)
+    if x.device.type == "meta":
+        # the K slices' fp32 scratch, as a launch allocates it
+        mma_args(schedule if wk == "mma" else None, n, m, x.device)
+        return meta.account("bsmm", wk, y, cost_lib.bsmm_cost(
+            n, k, m, tiles.shape[0], b, x.element_size(),
+            row_ptr.numel() + tile_cols.numel()))
     fn = _build.entry("bsmm", "bsmm_nt",
                       [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
                       + [ctypes.c_void_p])
@@ -457,8 +465,9 @@ def bsmm_nt(x: torch.Tensor, tiles: torch.Tensor, row_ptr: torch.Tensor,
             m: int, schedule: Optional[MmaSchedule] = None) -> torch.Tensor:
     """``y[N, M] = x[N, K] . W^T`` over the packed tile stack.  CUDA
     tensors launch the kernel (or raise; the "mma" walk reads
-    ``schedule``); CPU tensors run the plain version."""
-    if x.device.type == "cuda":
+    ``schedule``); CPU tensors run the plain version; meta tensors take
+    the meta branch."""
+    if x.device.type in ("cuda", "meta"):
         return bsmm_nt_cuda(x, tiles, row_ptr, tile_cols, m, schedule)
     if x.device.type != "cpu":
         raise ValueError(f"bsmm_nt: unsupported device {x.device}")

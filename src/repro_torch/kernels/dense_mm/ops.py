@@ -21,7 +21,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.analysis import cost as cost_lib
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.contract import dtype_name, elem_bytes
 
 DTYPES = _build.DTYPES
@@ -184,10 +185,11 @@ def _check(x, w):
 
 def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor,
                   plan: Walk | None = None) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only) on ``walk(...)``'s
-    walk, or on ``plan`` where the caller names one."""
+    """Launch the CUDA kernel (CUDA tensors; meta tensors take the meta
+    branch, ``kernels/meta.py``) on ``walk(...)``'s walk, or on ``plan``
+    where the caller names one."""
     _check(x, w)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"dense_mm_cuda needs CUDA tensors, got {x.device}")
     n, k = x.shape
     d = w.shape[1]
@@ -208,6 +210,9 @@ def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor,
     scratch = (torch.empty(wk.slices * n * d, dtype=torch.float32,
                            device=x.device)
                if wk.slices > 1 and wk.name != "decode" else None)
+    if x.device.type == "meta":
+        return meta.account("dense_mm", wk.name, y, cost_lib.dense_mm_cost(
+            n, k, d, x.element_size()))
     fn = _build.entry("dense_mm", "dense_mm",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p])
@@ -225,8 +230,9 @@ def dense_mm_cuda(x: torch.Tensor, w: torch.Tensor,
 
 def dense_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``y = x @ w`` with fp32 accumulation.  CUDA tensors launch the
-    kernel (or raise); CPU tensors run the plain version."""
-    if x.device.type == "cuda":
+    kernel (or raise); CPU tensors run the plain version; meta tensors
+    take the meta branch."""
+    if x.device.type in ("cuda", "meta"):
         return dense_mm_cuda(x, w)
     if x.device.type != "cpu":
         raise ValueError(f"dense_mm: unsupported device {x.device}")

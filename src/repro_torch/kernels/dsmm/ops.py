@@ -26,7 +26,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.dynamic_sparse import DynamicOperand
-from repro_torch.kernels import _build
+from repro_torch.analysis import cost as cost_lib
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.contract import elem_bytes, sub_block
 
 BLOCK_SIZES = (4, 8, 16, 32, 64, 128)
@@ -234,8 +235,9 @@ def dsmm_cuda(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
               cols: torch.Tensor, m: int,
               out_dtype: Optional[torch.dtype] = None,
               plan: Optional[str] = None) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only) on ``walk(...)``'s walk,
-    or on ``plan`` where the caller names one."""
+    """Launch the CUDA kernel (CUDA tensors; meta tensors take the meta
+    branch, ``kernels/meta.py``) on ``walk(...)``'s walk, or on ``plan``
+    where the caller names one."""
     _check(x2, values, rows, cols, m)
     n, k = x2.shape
     b = values.shape[-1]
@@ -243,7 +245,7 @@ def dsmm_cuda(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
     if wk not in WALKS or (wk == "mma" and walk(b, x2.dtype) != "mma"):
         raise ValueError(f"dsmm walk {wk!r} does not take b={b} in "
                          f"{x2.dtype}")
-    if x2.device.type != "cuda":
+    if x2.device.type not in ("cuda", "meta"):
         raise ValueError(f"dsmm_cuda needs CUDA tensors, got {x2.device}")
     if out_dtype not in (None, x2.dtype):
         raise ValueError(f"the dsmm kernel writes its input dtype "
@@ -257,6 +259,9 @@ def dsmm_cuda(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
         x2, values = (a if a.data_ptr() % 16 == 0 else a.clone()
                       for a in (x2, values))
     bounds = torch.zeros(2 * (m // b), dtype=torch.int32, device=x2.device)
+    if x2.device.type == "meta":
+        return meta.account("dsmm", wk, y, cost_lib.dsmm_cost(
+            n, k, m, values.shape[0], b, x2.element_size()))
     fn = _build.entry("dsmm", "dsmm_nt",
                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                       + [ctypes.c_void_p])
@@ -278,8 +283,9 @@ def dsmm_slots(x2: torch.Tensor, values: torch.Tensor, rows: torch.Tensor,
     """``y[N, m] = x2 . W^T`` over runtime slots whose block-rows are
     contiguous (fastest on the tensor-core walk where each row's columns
     ascend, as ``encode_slots`` orders them).  CUDA tensors launch the
-    kernel (or raise); CPU tensors run the plain version."""
-    if x2.device.type == "cuda":
+    kernel (or raise); CPU tensors run the plain version; meta tensors
+    take the meta branch."""
+    if x2.device.type in ("cuda", "meta"):
         return dsmm_cuda(x2.contiguous(), values.contiguous(), rows, cols,
                          m, out_dtype)
     if x2.device.type != "cpu":

@@ -29,7 +29,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.dynamic_sparse import DynamicOperand
-from repro_torch.kernels import _build
+from repro_torch.analysis import cost as cost_lib
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.contract import elem_bytes, sub_block
 from repro_torch.kernels.dsmm import ops as dsmm_ops
 from repro_torch.kernels.gmm.ref import gmm_ref
@@ -343,9 +344,10 @@ def walk(tm: int, d: int, f: int, dtype) -> Walk:
 
 def gmm_cuda(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor, *,
              tm: int, plan: Optional[Walk] = None) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only; ``tm <= 128``) on
-    ``walk(...)``'s walk, or on ``plan`` where the caller names one."""
-    if x.device.type != "cuda":
+    """Launch the CUDA kernel (CUDA tensors; meta tensors take the meta
+    branch, ``kernels/meta.py``; ``tm <= 128``) on ``walk(...)``'s walk,
+    or on ``plan`` where the caller names one."""
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"gmm_cuda needs CUDA tensors, got {x.device}")
     if not 1 <= tm <= MAX_TM:
         raise ValueError(f"gmm_cuda: row tile tm={tm} outside the "
@@ -373,6 +375,11 @@ def gmm_cuda(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor, *,
         x, w = (a if a.data_ptr() % 16 == 0 else a.clone() for a in (x, w))
     # 16-byte loads of w (ffma) need F in whole vectors and an aligned base
     vec = int(f % (16 // w.element_size()) == 0 and w.data_ptr() % 16 == 0)
+    if x.device.type == "meta":
+        # the ids are data: every expert counted (as batched_matmul's
+        # ids name each one)
+        return meta.account("gmm", wk.name, out, cost_lib.gmm_cost(
+            t_rows, d, f, e, x.element_size(), expert_ids.numel()))
     fn = _build.entry("gmm", "gmm", [ctypes.c_void_p] * 4
                       + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -396,14 +403,15 @@ def gmm(x: torch.Tensor, w: torch.Tensor, expert_ids: torch.Tensor, *,
     (each must divide F / D); the kernel tiles F and D its own way
     whatever they say, and holds at most 128 rows a tile (``tm <= 128``,
     narrower than the reference).  CUDA tensors launch the kernel (or
-    raise); CPU tensors run ``gmm_ref``."""
+    raise); CPU tensors run ``gmm_ref``; meta tensors take the meta
+    branch."""
     t_rows, d = x.shape[0], x.shape[-1]
     f = w.shape[-1]
     tm = tm or (t_rows // max(int(expert_ids.shape[0]), 1))
     tf = tf or _fit(f, 128)
     td = td or _fit(d, 128)
     _check_gmm(x, w, expert_ids, tm, tf, td)
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         return gmm_cuda(x.contiguous(), w.contiguous(),
                         expert_ids.to(torch.int32).contiguous(), tm=tm)
     if x.device.type != "cpu":

@@ -24,7 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.analysis import cost as cost_lib
+from repro_torch.kernels import _build, meta
 from repro_torch.kernels.contract import elem_bytes
 
 BLOCK_SIZES = (4, 8, 16, 32, 64)
@@ -135,14 +136,15 @@ def _check(dy2, x2, row_ptr, col_idx, b):
 def sddmm_cuda(dy2: torch.Tensor, x2: torch.Tensor, row_ptr: torch.Tensor,
                col_idx: torch.Tensor, b: int,
                plan: Optional[str] = None) -> torch.Tensor:
-    """Launch the CUDA kernel (CUDA tensors only) on ``walk(...)``'s walk,
-    or on ``plan`` where the caller names one."""
+    """Launch the CUDA kernel (CUDA tensors; meta tensors take the meta
+    branch, ``kernels/meta.py``) on ``walk(...)``'s walk, or on ``plan``
+    where the caller names one."""
     _check(dy2, x2, row_ptr, col_idx, b)
     wk = plan or walk(b, dy2.dtype)
     if wk not in WALKS or (wk == "mma" and walk(b, dy2.dtype) != "mma"):
         raise ValueError(f"sddmm walk {wk!r} does not take b={b} in "
                          f"{dy2.dtype}")
-    if dy2.device.type != "cuda":
+    if dy2.device.type not in ("cuda", "meta"):
         raise ValueError(f"sddmm_cuda needs CUDA tensors, got {dy2.device}")
     n, m = dy2.shape
     k = x2.shape[1]
@@ -166,6 +168,9 @@ def sddmm_cuda(dy2: torch.Tensor, x2: torch.Tensor, row_ptr: torch.Tensor,
     splits = n_splits(n, mb, wk)
     partial = (torch.empty(splits * nnz * b * b, dtype=torch.float32,
                            device=dy2.device) if splits > 1 else None)
+    if dy2.device.type == "meta":
+        return meta.account("sddmm", wk, out, cost_lib.sddmm_cost(
+            n, m, k, nnz, b, dy2.element_size(), row_ptr.numel() + nnz))
     fn = _build.entry("sddmm", "sddmm",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                       + [ctypes.c_void_p])
@@ -187,8 +192,9 @@ def sddmm(dy2: torch.Tensor, x2: torch.Tensor, row_ptr: torch.Tensor,
           col_idx: torch.Tensor, row_idx: torch.Tensor,
           b: int) -> torch.Tensor:
     """``[nnz, b, b]`` block-sampled ``dy2^T . x2``.  CUDA tensors
-    launch the kernel (or raise); CPU tensors run the plain version."""
-    if dy2.device.type == "cuda":
+    launch the kernel (or raise); CPU tensors run the plain version; meta
+    tensors take the meta branch."""
+    if dy2.device.type in ("cuda", "meta"):
         return sddmm_cuda(dy2, x2, row_ptr, col_idx, b)
     if dy2.device.type != "cpu":
         raise ValueError(f"sddmm: unsupported device {dy2.device}")

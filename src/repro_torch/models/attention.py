@@ -155,8 +155,9 @@ def _device_element_mask(nq, nkv, wt, gt, tq, tkv, causal, window,
 
 
 def _attend_forward(q, k, v, spec: AttnSpec) -> torch.Tensor:
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
-    if q.device.type == "cuda":
+    """The kernel for CUDA tensors (its meta branch for meta tensors), its
+    plain version for CPU tensors."""
+    if q.device.type in ("cuda", "meta"):
         return bs_ops.bs_attn_cuda(
             q, k, v, spec.walk(q.device), scale=spec.scale,
             causal=spec.causal, softcap=spec.softcap, window=spec.window,

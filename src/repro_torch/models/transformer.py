@@ -15,14 +15,28 @@ stack sums the MoE layers' metrics (``aux_loss``, ``z_loss``,
 reference does.
 The JAX package scans one period over stacked params; here every layer
 is its own module and the stack is a Python loop.
+
+Rematerialisation follows ``cfg.remat`` as the reference's
+``_remat_policy`` does: under ``"full"`` (every config's default) each
+period of ``cfg.groups`` runs under activation checkpointing while
+gradients are on, so only each period's input (and the running MoE
+metrics) is saved for the backward and the period's forward runs again
+there; ``"none"`` saves everything.  ``"dots"`` (save the dense
+products' outputs) raises: the port's projections are hand-written
+kernels behind autograd Functions, out of reach of an op-level saving
+policy (ROADMAP queue 1, item 11b.5).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
+from repro_torch import sparse as sparse_api
+from repro_torch.core import capture
 from repro_torch.core.sparse_layers import SparseFFN
 from repro_torch.models.attention import (GQA, MLA, Cache, CrossAttention,
                                          gqa_cache_init, mla_cache_init)
@@ -30,8 +44,10 @@ from repro_torch.models.config import LayerSpec, ModelCfg
 from repro_torch.models.layers import MLP, RMSNorm
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import Mamba2, ssm_cache_init
+from repro_torch.sharding import rules
 
 METRICS = ("aux_loss", "z_loss", "dropped_frac")
+REMAT = ("full", "dots", "none")
 
 
 def zero_metrics(device) -> Dict[str, torch.Tensor]:
@@ -214,12 +230,75 @@ def layer_specs(cfg: ModelCfg) -> List[LayerSpec]:
             for spec in period]
 
 
+def periods(layers) -> List[list]:
+    """``layers`` cut into the periods of their config's groups, in
+    execution order (one list of ``len(period)`` layers a repeat)."""
+    out, i = [], 0
+    for period, rep in (layers[0].cfg.groups if len(layers) else ()):
+        for _ in range(rep):
+            out.append(list(layers[i:i + len(period)]))
+            i += len(period)
+    if i != len(layers):
+        raise ValueError(f"{len(layers)} layers do not match the config's "
+                         f"groups ({i} layers)")
+    return out
+
+
+def _period_apply(period, h, positions, memory, *ms):
+    """One period's layers over ``h``; ``ms``: the running MoE metrics in
+    ``METRICS`` order (none when the caller keeps none), returned after
+    the period's are added."""
+    metrics = dict(zip(METRICS, ms)) if ms else None
+    for layer in period:
+        h = layer(h, positions, metrics, memory)
+    return (h,) + (tuple(metrics[k] for k in METRICS) if ms else ())
+
+
+def _recompute_context():
+    """``context_fn`` of a period's checkpoint: the forward runs as it
+    is; its recompute sees the thread-local state the forward saw (the
+    plan context, the capture record, the activation mesh), so it
+    launches the same kernels on the same plans and a graph captured
+    around it keeps what it reads, and records no telemetry again."""
+    ctx = sparse_api.current_ctx()
+    rec = capture.active()
+    mesh = rules.current_mesh()
+
+    @contextlib.contextmanager
+    def again():
+        with sparse_api.use_ctx(ctx), capture.recomputing(rec), \
+                rules.activation_mesh(mesh):
+            yield
+    return contextlib.nullcontext(), again()
+
+
 def stack_apply(layers, h, *, positions, metrics=None, memory=None):
     """Full-sequence stack; with a ``metrics`` dict (``zero_metrics``)
     the MoE layers' metrics are summed into it; ``memory`` is what cross
-    layers attend over."""
-    for layer in layers:
-        h = layer(h, positions, metrics, memory)
+    layers attend over.  Under ``cfg.remat == "full"`` with gradients on,
+    each period is checkpointed (module docstring); the metrics are then
+    the period's outputs, never added to in its recompute."""
+    remat = layers[0].cfg.remat if len(layers) else "none"
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}: one of {REMAT}")
+    keep = torch.is_grad_enabled() and remat != "none"
+    if keep and remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the dense products' outputs) is not "
+            "ported: the projections are hand-written kernels behind "
+            "autograd Functions (ROADMAP queue 1, item 11b.5)")
+    ms = tuple(metrics[k] for k in METRICS) if metrics is not None else ()
+    for period in periods(layers):
+        if keep:
+            out = torch_checkpoint.checkpoint(
+                _period_apply, period, h, positions, memory, *ms,
+                use_reentrant=False, preserve_rng_state=False,
+                context_fn=_recompute_context)
+        else:
+            out = _period_apply(period, h, positions, memory, *ms)
+        h, ms = out[0], out[1:]
+    if metrics is not None:
+        metrics.update(zip(METRICS, ms))
     return h
 
 

@@ -177,6 +177,17 @@ SDDMM_ROUTES = {"cuda": "sddmm_cuda", "cpu": "sddmm_torch"}
 # back from disk must name one of them, or one of ``TP_ROUTES``)
 PLAN_ROUTES = {dt: tuple(f + sfx for f in ADMISSIBLE["static"])
                for dt, sfx in SUFFIX.items()}
+
+
+def route_device(dev: torch.device) -> str:
+    """The device type whose routes a plan on ``dev`` races and runs: a
+    meta operand plans as a card's does (the card's routes, the analytic
+    race on the H100 walk models, the walks a card takes), and each
+    kernel's meta branch accounts for the launch a card would make (the
+    dry-run, ``launch/dryrun.py``)."""
+    return "cuda" if dev.type == "meta" else dev.type
+
+
 # the card-to-card link the TP routes' output reduction crosses: the
 # NVLink rate of the NVIDIA H100 SXM datasheet (900 GB/s per card), a
 # datasheet value, not measured here
@@ -1202,8 +1213,9 @@ def record_dropped(name: str, dropped_frac) -> None:
     records nothing).  Under a capture record (``core.capture``) the
     value is noted for the captured graph, which queues a copy of it
     after each replay; under an ambient ``telemetry=False`` nothing is
-    recorded."""
-    if not current_ctx().telemetry:
+    recorded, nor in a forward recomputed for the backward (its first
+    run recorded it)."""
+    if not current_ctx().telemetry or capture.is_recomputing():
         return
     rec = capture.active()
     if isinstance(dropped_frac, torch.Tensor) \
@@ -1383,7 +1395,8 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
     meta = partitioner.plan_packing(er, ec, (m, k), eb, t, t)
     # the bsmm kernels walk "mma" at this tile and dtype (at every n past
     # the decode walk's): record its schedules once, on the device
-    mma = dev.type == "cuda" and bal_ops.walk(t, bsr.dtype) == "mma"
+    mma = (route_device(dev) == "cuda"
+           and bal_ops.walk(t, bsr.dtype) == "mma")
     p = MatmulPlan(kind="static", route=route, m=m, k=k, n=n,
                    dtype=bsr.dtype, device=dev, packing=meta,
                    row_ptr=_on_dev(meta.row_ptr(), dev),
@@ -1408,7 +1421,7 @@ def _build_static(bsr: BlockSparseMatrix, n: int, dev: torch.device,
         # built at the same count (any count gives the same result)
         if mma:
             bins = bal_ops.mma_bins(meta.grid[0], t)
-        elif dev.type == "cuda":
+        elif route_device(dev) == "cuda":
             bins = bal_ops.card_bins(meta.grid[0], n, t)
         else:
             bins = DEFAULT_BINS
@@ -1610,7 +1623,12 @@ def _decide(spec: OpSpec, ctx: PlanContext, operand, x, dev: torch.device,
     measured with ``ctx.measure``, concrete ``x`` and no capture in
     progress) and, with a mesh, the TP routes beside it.  ``tp_source``
     labels the TP entries of ``est_seconds`` apart from the verdict."""
-    routes = PLAN_ROUTES[dev.type] + TP_ROUTES
+    dt = route_device(dev)
+    if ctx.measure and dev.type == "meta":
+        raise ValueError("a measured route race needs a card: a meta "
+                         "operand plans on the analytic models "
+                         "(PlanContext(measure=False))")
+    routes = PLAN_ROUTES[dt] + TP_ROUTES
     rec = _REPLANNED.get(key)
     if rec is None and ctx.cache and ctx.persistence_on():
         rec = cache_lib.load_decision(ctx.resolved_cache_dir(), key)
@@ -1628,17 +1646,17 @@ def _decide(spec: OpSpec, ctx: PlanContext, operand, x, dev: torch.device,
     if spec.mode in TP_ROUTES:
         return _decide_forced_tp(spec, ctx, operand, x, dev, q, counts,
                                  skew, concrete)
-    cands = _admissible(dispatch._candidates(spec.kind, ctx.mode, dev.type),
+    cands = _admissible(dispatch._candidates(spec.kind, ctx.mode, dt),
                         spec, ctx)
     measure = ctx.measure and concrete and len(cands) > 1
     runner = _race_runner(spec, operand, x, dev, ctx, key) \
         if measure else None
     dkey = dispatch._cache_key(spec.kind, spec.m, spec.k, spec.n,
                                spec.block_size, spec.density, spec.dtype,
-                               spec.mode, measure, dev.type, skew)
+                               spec.mode, measure, dt, skew)
     fresh = dkey not in dispatch._decision_cache
     agree = _mesh_agreement(ctx, dev) if measure else None
-    dec = dispatch.decide(spec, dev.type, counts=counts, skew=skew,
+    dec = dispatch.decide(spec, dt, counts=counts, skew=skew,
                           candidates=cands, measure=measure, runner=runner,
                           cache=ctx.cache, agree=agree)
     if dec.source == "measured" and (fresh or not ctx.cache):
@@ -1784,8 +1802,8 @@ def _build_tp(bsr: BlockSparseMatrix, n: int, dev: torch.device,
     meta = _shard_meta_for(bsr, q, ctx.tp_balanced)
     m, k = bsr.shape
     b = bsr.block_size
-    shard_route = ROUTES[("static", dev.type)]
-    dv_route = SDDMM_ROUTES[dev.type]
+    shard_route = ROUTES[("static", route_device(dev))]
+    dv_route = SDDMM_ROUTES[route_device(dev)]
     group = None
     if route == "static_tp_shardmap":
         group, r = tp_lib.tp_group(ctx.mesh, ctx.tp_axis)
@@ -1933,7 +1951,7 @@ def _grad_decide(p: MatmulPlan, spec: OpSpec, ctx: PlanContext, x,
     them, else the model's race over the admissible candidates, timed on
     the device when ``ctx.measure`` and ``x`` is concrete (dy is zeros
     of the output's shape).  Sets ``p``'s backward on the winners."""
-    dt = dev_type = p.device.type
+    dt = dev_type = route_device(p.device)
     routes = PLAN_ROUTES[dt]
     # dL/dx runs a forward plan of W^T: its kernels' contracts must admit
     # the transposed problem, whether the route is raced, forced or read
@@ -2351,7 +2369,7 @@ def _explain(p: MatmulPlan) -> dict:
         "op": s.op,
         # the candidates are the card's hand-written kernels on a card,
         # their plain versions on the CPU
-        "pallas_admissible": p.device.type == "cuda",
+        "pallas_admissible": route_device(p.device) == "cuda",
         "candidates": {r: p.est_seconds[r] for r in
                        sorted(p.est_seconds, key=p.est_seconds.get)},
         "chosen": p.route,

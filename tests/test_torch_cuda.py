@@ -1661,7 +1661,8 @@ def test_train_graph_matches_eager_on_seamless(dev):
     attention), five steps on batches that carry seeded ``enc_frames``
     (``TrainProgram``'s float buffer), replayed from the captured step
     against five eager ones, bit for bit; bs_attn launches 6 times a
-    forward (2 encoder, 2 self, 2 cross).  After each step the float
+    forward (2 encoder, 2 self, 2 cross), twice a step (the forward and
+    its recompute under ``remat="full"``).  After each step the float
     buffer holds that step's frames in the model's dtype."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.bs_attn import ops as bs_ops
@@ -1682,7 +1683,7 @@ def test_train_graph_matches_eager_on_seamless(dev):
     assert st["captures"] == 1 and st["recaptures"] == 0
     _same_run(got, want)
     idx = _build.COUNTERS.index(bs_ops.COUNTER)
-    assert [n[idx] for n in want["launches"]] == [6] * 5
+    assert [n[idx] for n in want["launches"]] == [2 * 6] * 5
 
 
 @pytest.mark.cuda
