@@ -333,7 +333,10 @@ Phases, each fatal on failure:
    ``train_loop(mesh=)`` on 2 gloo ranks of the card against the
    one-process run (``dp_phase``); a checkpoint re-sharded both ways;
 17. ep: MoE expert parallelism, qwen3-moe-30b-a3b at full width, 2
-   layers, ``impl="shard_map"``, 64 experts a rank (``ep_phase``).
+   layers, ``impl="shard_map"``, 64 experts a rank (``ep_phase``); then
+   the same cut under ``impl="gspmd"`` on (2, 1) (the routing over the
+   global batch) and (1, 2) (64 experts held a rank), each MoE layer
+   against one process on the global batch (``ep_gspmd_job``).
 
 A ``[mem]`` line gives the card memory still allocated as each phase
 starts (the peaks the phases report include it); each engine warms up
@@ -5924,6 +5927,9 @@ EP_MESH = (1, 2)
 # tokens (70 and 93 read on an H100), its drop fraction within
 # EP_FIRST_DROP_TOL of one process's (3e-4 read)
 EP_FIRST_REROUTED, EP_FIRST_DROP_TOL = 256, 1e-2
+# [ep] gspmd: the same cut under impl="gspmd" (every MoE config's
+# default): (2, 1) routes over the global batch, (1, 2) holds 64 experts
+EP_GSPMD_MESHES = ((2, 1), (1, 2))
 # the first loss (before any update): two half-batch forwards against one
 # whole-batch forward differ by bf16 roundings; read over five init draws
 # (`--margins 0,1,2,3,4`, an H100): 6.42e-06, 1.15e-05, 1.22e-05,
@@ -6386,6 +6392,136 @@ def ep_job(torch, rank, world, job):
     return out
 
 
+def ep_gspmd_job(torch, rank, world, job):
+    """[ep] gspmd on one rank: for each of ``EP_GSPMD_MESHES``, the rank's
+    data shard of the seeded global batch through ``LM(mesh=)`` under
+    ``impl="gspmd"`` (the counters zeroed just before, read just
+    after); then each MoE layer against one process's gspmd formulation
+    on the global batch (the layer's input gathered over the data ranks,
+    its experts gathered whole): the output's rows, the kept experts of
+    the rank's tokens (``global_route``) and the drop fraction."""
+    import types
+
+    import numpy as np
+
+    from repro_torch import sparse
+    from repro_torch.kernels import gmm
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.model import LM
+    from repro_torch.models.moe import (MoE, _capacity, _moe_gspmd,
+                                        _route_and_rank, global_route)
+    from repro_torch.sharding import rules
+    args, cfg = job["args"], job["cfg"]
+    e_n = cfg.moe.num_experts
+    tokens = np.random.default_rng(args.seed + 41).integers(
+        0, cfg.vocab_size, size=(DP_BATCH, DP_SEQ))
+    counters = with_walks({"gmm": gmm.COUNTER})
+
+    def kept_of(flat_slot, bucket):
+        kept = torch.where(flat_slot < e_n * bucket,
+                           torch.div(flat_slot, bucket,
+                                     rounding_mode="floor"), e_n)
+        return kept.sort(dim=1).values
+
+    out = {}
+    for shape in EP_GSPMD_MESHES:
+        mesh = mesh_lib.make_device_mesh("cuda", shape, ("data", "model"))
+        di, dp = mesh_lib.axis_index(mesh, ("data",))
+        rows = slice(di * DP_BATCH // dp, (di + 1) * DP_BATCH // dp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        lm = LM(cfg, device="cuda", seed=args.seed, mesh=mesh)
+        moes = [m for m in lm.modules() if isinstance(m, MoE)]
+        seen = []
+        hooks = [m.register_forward_hook(
+            lambda mod, inp, o: seen.append((inp[0], o[0]))) for m in moes]
+        sparse.reset_telemetry()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        with rules.activation_mesh(mesh):
+            logits = lm(tokens[rows])
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        for h in hooks:
+            h.remove()
+        launches, walks = split_walks({k: c.launches
+                                       for k, c in counters.items()})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dropped = sparse.dropped_history("moe_dispatch")
+        group = mesh_lib.axes_group(mesh, ("data",))
+        layers = []
+        for mod, (x, y) in zip(moes, seen):
+            whole_x = x.new_zeros((DP_BATCH,) + tuple(x.shape[1:]))
+            whole_x[rows] = x
+            if group is not None:
+                torch.distributed.all_reduce(whole_x, group=group)
+            whole = {name: h.block.gather(getattr(mod, name), mesh)
+                     for name, h in mod.held.items()}
+            ref = types.SimpleNamespace(router=mod.router, shared=None,
+                                        **whole)
+            with torch.no_grad():
+                y_ref, m_ref = _moe_gspmd(ref, cfg, whole_x)
+                xf = whole_x.reshape(-1, x.shape[-1])
+                cap = _capacity(xf.shape[0], cfg)
+                *_, flat_ref = _route_and_rank(xf, mod.router.w, cfg, cap,
+                                               ranking=cfg.moe.ranking)
+                with rules.activation_mesh(mesh):
+                    tfs, _, flat, *_ = global_route(
+                        mod, cfg, x.reshape(-1, x.shape[-1]), mesh)
+            tok = slice(rows.start * DP_SEQ, rows.stop * DP_SEQ)
+            same = (kept_of(flat, tfs.shape[1])
+                    == kept_of(flat_ref, cap)[tok]).all(dim=1)
+            layers.append(dict(err=rel_err(y, y_ref[rows])[0],
+                               kept_equal=int(same.sum()),
+                               tokens=int(same.numel()),
+                               gspmd_dropped=float(m_ref.dropped_frac),
+                               bucket=int(tfs.shape[1]), cap=cap))
+            del whole, ref, y_ref, whole_x
+        experts = {n: tuple(lm.get_parameter(n).shape)
+                   for n in lm.held_blocks()
+                   if n.rpartition(".")[2] in ("w_gate", "w_up", "w_down")}
+        out[shape] = dict(layers=layers, dropped=dropped, experts=experts,
+                          launches=launches, walks=walks, peak_gib=peak,
+                          forward_s=fwd_s,
+                          finite=bool(torch.isfinite(logits).all()))
+        del lm, moes, seen, logits
+    return out
+
+
+def ep_gspmd_check(torch, cfg, outs) -> None:
+    """[ep] gspmd's holds on every rank and mesh: each MoE layer's output
+    within bf16 ``KERNEL_TOL`` of one process's on the global batch, the
+    kept experts of every token and the drop fraction equal, finite
+    logits, gmm 3 a layer on the tensor-core walk, the experts held as
+    the rules' blocks (E / m of them, the ``"data"`` share of D)."""
+    e_n, d = cfg.moe.num_experts, cfg.d_model
+    for r, o in enumerate(outs):
+        for shape, g in o.items():
+            label = f"[ep] gspmd rank {r} mesh {shape}"
+            dp, m = shape
+            bad = [(i, c) for i, c in enumerate(g["layers"])
+                   if not c["err"] <= KERNEL_TOL["bfloat16"]
+                   or c["kept_equal"] != c["tokens"]
+                   or c["gspmd_dropped"] != g["dropped"][i]]
+            if bad or not g["layers"] or not g["finite"]:
+                raise RuntimeError(f"{label}: layers against one process "
+                                   f"on the global batch {g['layers']} "
+                                   f"(drops {g['dropped']}), finite logits "
+                                   f"{g['finite']}")
+            if g["launches"].get("gmm") != 3 * len(g["layers"]):
+                raise RuntimeError(f"{label}: gmm launches {g['launches']} "
+                                   f"(3 a layer expected)")
+            check_tensor_core_walks("ep", g["walks"], kernels=("gmm",))
+            if len(g["experts"]) != 3 * len(g["layers"]) or any(
+                    s[0] != e_n // m
+                    or s[1] * dp not in (d, cfg.moe.d_ff_expert)
+                    for s in g["experts"].values()):
+                raise RuntimeError(f"{label}: held expert blocks "
+                                   f"{g['experts']}")
+
+
 def ep_phase(torch, args):
     """[ep]: MoE expert parallelism, qwen3-moe-30b-a3b at full width
     (128 experts top-8, d_model 2048, vocab 151936), ``EP_LAYERS`` of its
@@ -6418,7 +6554,11 @@ def ep_phase(torch, args):
     logits within bf16 ``CONSISTENCY_TOL`` (6e-2).
     ``EP_STEPS`` eager ``train_loop`` steps within bf16 2e-2 of the
     one-process run's losses, with gmm launched in the backward (dL/da)
-    of every rank."""
+    of every rank.  Then ``impl="gspmd"`` on ``EP_GSPMD_MESHES``
+    (``ep_gspmd_job``, ``ep_gspmd_check``): every MoE layer's kept
+    experts and drop fraction equal to one process's on the global
+    batch, its output within bf16 2e-2, the experts held as the rules'
+    blocks; each rank's experts and peak GiB printed."""
     import dataclasses
 
     import numpy as np
@@ -6467,6 +6607,11 @@ def ep_phase(torch, args):
     outs = run_ranks(torch, "ep", shard_rank_main, int(np.prod(EP_MESH)),
                      "ep", dict(cfg=cfg, args=args, logits=logits, keys=keys))
     del logits
+    t1 = time.perf_counter()
+    gspmd_outs = run_ranks(torch, "ep_gspmd", shard_rank_main, 2,
+                           "ep_gspmd", dict(cfg=gspmd, args=args))
+    ep_gspmd_check(torch, gspmd, gspmd_outs)
+    gspmd_s = time.perf_counter() - t1
     e_loc = cfg.moe.num_experts // EP_MESH[1]
     layers = len(cfg.groups[0][0]) * cfg.groups[0][1]
     for r, o in enumerate(outs):
@@ -6525,7 +6670,8 @@ def ep_phase(torch, args):
             check_dense_mm_walks("ep", walks)
         o["loss_errs"] = errs
     return dict(ranks=outs, one_process=one, experts_per_rank=e_loc,
-                layers=layers, phase_s=time.perf_counter() - t0)
+                layers=layers, gspmd=gspmd_outs, gspmd_s=gspmd_s,
+                phase_s=time.perf_counter() - t0)
 
 
 def print_dp(dp):
@@ -6590,7 +6736,21 @@ def print_ep(ep):
               f"{o['peak_gib']:.2f} GiB; fp32 state {o['state_gib']:.3f} "
               f"GiB; launches {json.dumps(o['launches'])}; by walk "
               f"{json.dumps(o['walks'])}")
-    print(f"[ep] phase {ep['phase_s']:.1f} s")
+    for r, o in enumerate(ep["gspmd"]):
+        for shape, g in o.items():
+            errs = [float(f"{c['err']:.2e}") for c in g["layers"]]
+            print(f"[ep] gspmd rank {r} mesh {shape}: layers vs one "
+                  f"process on the global batch {errs} (budget "
+                  f"{KERNEL_TOL['bfloat16']}), kept equal "
+                  f"{[(c['kept_equal'], c['tokens']) for c in g['layers']]}"
+                  f", drops {[round(v, 4) for v in g['dropped']]}, buckets "
+                  f"{[(c['bucket'], c['cap']) for c in g['layers']]} (C, "
+                  f"global capacity); experts held "
+                  f"{sorted(set(g['experts'].values()))}; forward "
+                  f"{g['forward_s']:.2f} s; peak {g['peak_gib']:.2f} GiB; "
+                  f"gmm {g['launches'].get('gmm')} by walk "
+                  f"{json.dumps(g['walks']['gmm'])}")
+    print(f"[ep] gspmd {ep['gspmd_s']:.1f} s; phase {ep['phase_s']:.1f} s")
 
 
 # -- [mp]: model parallelism over gloo ranks of the one card -------------------
@@ -7077,8 +7237,8 @@ def margin_job(torch, rank, world, job):
     return out
 
 
-SHARD_JOBS = {"dp": dp_job, "ep": ep_job, "mp": mp_job,
-              "margins": margin_job}
+SHARD_JOBS = {"dp": dp_job, "ep": ep_job, "ep_gspmd": ep_gspmd_job,
+              "mp": mp_job, "margins": margin_job}
 
 
 def margins_phase(torch, seeds):

@@ -96,8 +96,10 @@ def table(recs, *, fmt: str = "md") -> str:
 def fit_table(recs) -> str:
     """One markdown row per architecture, one column per shape, each cell
     every mesh's record: the rank's peak GiB (``NO`` past its card), the
-    dominant roofline term and the collective GB a step by mesh axis (or
-    the error a raising cell's rank program gave)."""
+    dominant roofline term and the collective GB a step by mesh axis, and
+    an MoE model's expert work a rank against the reference's
+    (``dryrun.moe_buckets``; or the error a raising cell's rank program
+    gave)."""
     meshes = sorted({r["mesh"] for r in recs}, key=len)
     shapes = list(dict.fromkeys(r["shape"] for r in sorted(
         recs, key=lambda r: r["shape"])))
@@ -111,9 +113,11 @@ def fit_table(recs) -> str:
         by_axis = r["cost"]["collective_bytes_by_axis"]
         coll = ", ".join(f"{a} {v / 1e9:.3g}" for a, v in
                          sorted(by_axis.items())) or "none"
+        moe = (f", MoE work x{r['moe']['work_factor']:.3g}"
+               if "moe" in r else "")
         return (f"{r['memory']['peak_gib']:.2f}"
                 f"{'' if r['fits'] else ' NO'}, "
-                f"{r['roofline']['dominant']}, {coll}")
+                f"{r['roofline']['dominant']}, {coll}{moe}")
     hdr = ["arch"] + shapes
     out = ["| " + " | ".join(hdr) + " |", "|" + "---|" * len(hdr)]
     for arch, by in sorted(cells.items()):

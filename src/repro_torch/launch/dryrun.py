@@ -355,6 +355,15 @@ def build_cell(name: str, shape: str, mesh, *, cfg=None,
     kind = sh["kind"]
     meta = dict(arch=cfg.name, shape=shape, kind=kind, batch=sh["batch"],
                 seq=s, rank_batch=b_)
+    # the ranks hold shards of the batch where it split (else each the
+    # whole): the MoE layers' global routing reads it
+    split = b_ != sh["batch"]
+    if cfg.moe is not None:
+        meta["moe"] = moe_buckets(cfg, b_ * (1 if kind == "decode" else s),
+                                  sh["batch"] // b_)
+
+    def installed():
+        return rules.activation_mesh(mesh, batch_split=split)
     lm = LM(cfg, device="meta", mesh=mesh)
     # the cell's inputs at the rank's batch, on meta (the caches the
     # rank's model holds)
@@ -368,7 +377,7 @@ def build_cell(name: str, shape: str, mesh, *, cfg=None,
             cfg.active_param_count(), sh["batch"] * s) / _size(mesh)
 
         def run():
-            with rules.activation_mesh(mesh):
+            with installed():
                 return step(state, batch)[1]
         return Cell(run, dict(state_tensors(lm, state), **{
             f"batch.{k}": v for k, v in batch.items()}), meta)
@@ -380,7 +389,7 @@ def build_cell(name: str, shape: str, mesh, *, cfg=None,
             cfg.active_param_count(), sh["batch"] * s) / _size(mesh)
 
         def run():
-            with rules.activation_mesh(mesh):
+            with installed():
                 return lm.prefill(toks, max_len=max_len, **kw)
         return Cell(run, dict(state_tensors(lm), tokens=toks, **kw), meta)
     retained, caches = kw["retained"], kw["caches"]
@@ -390,10 +399,23 @@ def build_cell(name: str, shape: str, mesh, *, cfg=None,
         cfg.active_param_count(), sh["batch"]) / _size(mesh)
 
     def run():
-        with rules.activation_mesh(mesh):
+        with installed():
             return lm.decode_step(toks, caches, pos, retained=retained)[0]
     return Cell(run, dict(state_tensors(lm), tokens=toks, positions=pos,
                           caches=caches), meta)
+
+
+def moe_buckets(cfg, tokens: int, shards: int) -> dict:
+    """An MoE layer's expert work a rank against the reference's: each
+    rank computes its experts on buckets of ``min(cap, tokens)`` rows
+    (``models/moe.py`` ``global_route``) where the reference's GSPMD
+    splits the global capacity ``cap`` over the ``shards`` batch shards
+    (``work_factor``: the ratio, up to ``shards``)."""
+    from repro_torch.models.moe import _capacity
+    cap = _capacity(tokens * shards, cfg)
+    bucket = min(cap, tokens)
+    return dict(tokens=tokens, shards=shards, cap_global=cap, bucket=bucket,
+                work_factor=bucket * shards / cap)
 
 
 def _size(mesh) -> int:

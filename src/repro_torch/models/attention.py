@@ -301,14 +301,14 @@ def head_split(num_heads: int, num_kv_heads: int, m: int, r: int):
     split evenly; the rank holds the KV heads they read, ``shared`` when
     several ranks read one KV head (fewer KV heads than ranks: the
     reference's rule would cut ``wk``'s columns inside a head there).
-    A split that cuts a GQA group unevenly raises."""
+    None where the heads do not split: H not a multiple of m, or a
+    rank's heads cutting GQA groups unevenly (the layer then runs whole
+    on every rank)."""
     if num_heads % m:
-        raise NotImplementedError(
-            f"{num_heads} query heads do not split over {m} model ranks")
+        return None
     hl, g = num_heads // m, num_heads // num_kv_heads
     if hl % g and g % hl:
-        raise NotImplementedError(
-            f"{hl} query heads a rank cut GQA groups of {g} unevenly")
+        return None
     h0 = r * hl
     k0, k1 = h0 // g, (h0 + hl - 1) // g + 1
     return h0, hl, k0, k1 - k0, g > hl
@@ -328,7 +328,13 @@ class GQA(nn.Module):
     ``core.tp.copy_to_group`` and the output all-reduced
     (``reduce_from_group``).  KV heads that several ranks read are held
     by each of them, and their gradients, like ``q_norm``'s and
-    ``k_norm``'s, are partial sums there (``held``: ``partial``)."""
+    ``k_norm``'s, are partial sums there (``held``: ``partial``).  Where
+    the heads do not split (``head_split`` is None) the layer runs whole
+    on every rank, as MLA does: its parameters whole (the optimizer
+    state their rules' blocks), its input and output not reduced, its
+    cache every KV head.  The reference's rule would cut ``wq``'s
+    columns inside a head there (gemma2's 8 heads of 256 over 16
+    ranks)."""
 
     def __init__(self, cfg, *, dtype: torch.dtype, device=None,
                  causal: bool = True, mesh=None):
@@ -342,10 +348,13 @@ class GQA(nn.Module):
         self.heads, self.kv_heads = cfg.num_heads, cfg.num_kv_heads
         held: Dict[str, dict] = {}
         m = rules.model_split(mesh)
+        split = None
         if m > 1:
-            self.group, r = tp_lib.tp_group(mesh, "model")
-            h0, self.heads, k0, self.kv_heads, shared = head_split(
-                cfg.num_heads, cfg.num_kv_heads, m, r)
+            group, r = tp_lib.tp_group(mesh, "model")
+            split = head_split(cfg.num_heads, cfg.num_kv_heads, m, r)
+        if split is not None:
+            self.group = group
+            h0, self.heads, k0, self.kv_heads, shared = split
             leaves = (("w", (d, qd), (d, kvd)),) + (
                 (("b", (qd,), (kvd,)),) if cfg.qkv_bias else ())
             held["wq"] = {k: rules.held_block(f"wq.{k}", q_shape, mesh)

@@ -107,19 +107,21 @@ class LM(nn.Module):
     """LM on ``device`` (``cuda`` unless the caller passes another device;
     without a card only an explicit ``"cpu"`` runs; on ``"meta"`` it has
     shapes only, for the sharding rules).  ``mesh`` reaches the MoE
-    layers: on a concrete mesh an expert-parallel layer holds only its
-    rank's experts (``models/moe.py``).
+    layers: on a concrete mesh each holds only its rank's blocks of the
+    expert stacks (``models/moe.py``).
 
     Model parallelism: on a concrete mesh whose ``"model"`` axis has
-    m > 1 ranks, the GQA mixers, the MLPs, the sparse FFNs and the
-    embedding and unembedding tables are split over that axis by the
+    m > 1 ranks, the GQA mixers whose heads split over it, the MLPs (an
+    MoE's shared experts among them), the sparse FFNs, the experts and
+    the embedding and unembedding tables are split over that axis by the
     reference's rules (``held_blocks``; the layers' docstrings), and
     every rank runs the same program.  ``forward``, ``prefill`` and
     ``decode_step`` return the whole logits (gathered over the
     vocabulary; ``gather=False`` keeps the rank's columns, which
     ``greedy`` samples); ``loss`` is the vocab-parallel cross-entropy.
-    MLA, Mamba-2, cross attention, an encoder and the MoE router run
-    whole on every rank."""
+    A GQA whose heads do not split (``attention.head_split``), MLA,
+    Mamba-2, cross attention, an encoder and the MoE router run whole on
+    every rank."""
 
     def __init__(self, cfg: ModelCfg, *, device: DeviceLike = None,
                  seed: int = 0, mesh=None):

@@ -19,30 +19,38 @@ and the expert GEMMs (on a card the plan's backward: gmm on each
 expert's W^T for dL/da); empty slots and dropped assignments get
 exactly zero gradient.
 
-``impl="shard_map"`` is the reference's expert parallelism over a
-concrete mesh (``_moe_shard_map``), taken under the reference's rule
-(``ep_route``): a ``DeviceMesh`` installed with
-``sharding.activation_mesh``, a ``"model"`` axis whose size divides E,
-and batch axes.  The tokens a rank holds are its shard of the batch over
-the batch axes (as the data-parallel step gives each rank; the
-reference's check that the global batch divides by the batch axes'
-product holds by construction), replicated over ``"model"``.  Each rank
-routes its tokens with the capacity of its own token count, runs the
-three expert products on its ``E / ep`` experts (gmm on a card),
-combines them in the reference's slot order and all-reduces the partial
-output once over ``"model"`` in ``combine_dtype``; the metrics are
-averaged over the batch axes.  The backward is Megatron's pair, as
-``core/tp.py``'s: the expert inputs (the token rows and the combine
-weights) are an identity forward with an all-reduce backward, the
-combine an all-reduce forward with an identity backward.  Built with
-that mesh (``MoE(mesh=)``, ``LM(mesh=)``), a module holds only its
-rank's block of ``w_gate`` / ``w_up`` / ``w_down`` under the sharding
-rules (its experts, and where ``"data"`` splits the second dim, that
-shard, all-gathered in the forward and reduce-scattered in the
-backward, as the reference's FSDP gather).  Every other call takes the
-gspmd formulation.  The module holds its parameters under the
-reference's names (``router.w``, ``w_gate``, ``w_up``, ``w_down``,
-``shared.*``).
+Built on a concrete mesh (``MoE(mesh=)``, ``LM(mesh=)``), a module
+holds only its rank's block of ``w_gate`` / ``w_up`` / ``w_down`` under
+the sharding rules, whatever its ``impl``: its ``E / m`` experts where
+the ``"model"`` axis's size m divides E (else every expert, as the
+reference's divisibility fallback leaves them), and where ``"data"``
+splits the second dim, that shard, all-gathered in the forward and
+reduce-scattered in the backward (the reference's FSDP gather).  Its
+shared experts are an ``MLP`` split over ``"model"`` by their rules
+(column-parallel up / gate, row-parallel down).  Such a module runs
+under its mesh only (``sharding.activation_mesh``).  The tokens a rank
+holds there are its shard of the batch over the batch axes (as the
+data-parallel step gives each rank; the serving engine's ranks hold the
+whole batch: ``activation_mesh(batch_split=False)``), replicated over
+``"model"``.
+
+``impl="shard_map"`` is the reference's expert parallelism
+(``_moe_shard_map``), taken under the reference's rule (``ep_route``: a
+``"model"`` axis whose size divides E, and batch axes): each rank routes
+its tokens with the capacity of its own token count and the metrics
+are averaged over the batch axes.  ``impl="gspmd"`` (and a shard_map
+config outside ``ep_route``) on a concrete mesh is ``_moe_global``: the
+reference's ``_moe_gspmd`` on the global batch, its capacity, kept set
+and metrics those of every rank's tokens together (``global_route``).
+Both compute a rank's experts on its own tokens' buckets, combine them
+in the reference's slot order and all-reduce the partial output once
+over ``"model"`` in ``combine_dtype`` (``_moe_experts``).  The backward
+is Megatron's pair, as ``core/tp.py``'s: the expert inputs (the token
+rows and the combine weights) are an identity forward with an
+all-reduce backward, the combine an all-reduce forward with an identity
+backward.  Off a concrete mesh the gspmd formulation runs on the tokens
+given.  The module holds its parameters under the reference's names
+(``router.w``, ``w_gate``, ``w_up``, ``w_down``, ``shared.*``).
 """
 from __future__ import annotations
 
@@ -89,10 +97,10 @@ class MoE(nn.Module):
         self.cfg = cfg
         self.router = _Router(d, m.num_experts, device=device)
         # name -> ``launch.mesh.Held`` of the expert stacks held as this
-        # rank's block under their rule (``ep_route`` on ``mesh``);
-        # empty: held whole
+        # rank's block under their rule (on a concrete ``mesh``); empty:
+        # held whole
         self.held = {}
-        self.mesh = mesh if ep_route(cfg, mesh) else None
+        self.mesh = mesh if mesh_lib.is_concrete(mesh) else None
 
         def param(name, shape):
             if self.mesh is not None:
@@ -107,7 +115,7 @@ class MoE(nn.Module):
         self.w_up = param("w_up", (m.num_experts, d, m.d_ff_expert))
         self.w_down = param("w_down", (m.num_experts, m.d_ff_expert, d))
         self.shared = (MLP(d, m.num_shared * m.d_ff_shared, act=cfg.act,
-                           dtype=dtype, device=device)
+                           dtype=dtype, device=device, mesh=self.mesh)
                        if m.num_shared else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -179,14 +187,17 @@ def ep_route(cfg, mesh) -> bool:
 
 def moe_apply(moe: MoE, cfg, x: torch.Tensor):
     """x ``[B, S, D]`` -> ``(y, MoEMetrics)``.  Capacity-bounded top-k
-    routing, through ``_moe_shard_map`` where ``ep_route`` holds for the
-    installed mesh (``sharding.current_mesh``), else through the gspmd
+    routing: through ``_moe_shard_map`` where ``ep_route`` holds for the
+    installed mesh (``sharding.current_mesh``), through
+    ``_moe_global`` on any other concrete mesh, else through the gspmd
     formulation.  The routing drop is folded into the ``"moe_dispatch"``
     capacity stream (``sparse.record_dropped``: kept on the card until
     ``capacity_report()``, so no layer waits for it)."""
     mesh = rules.current_mesh()
     if ep_route(cfg, mesh):
         y, metrics = _moe_shard_map(moe, cfg, x, mesh)
+    elif mesh_lib.is_concrete(mesh):
+        y, metrics = _moe_global(moe, cfg, x, mesh)
     elif moe.held:
         raise ValueError("this MoE holds one rank's experts: run it under "
                          "its mesh (sharding.activation_mesh)")
@@ -196,18 +207,14 @@ def moe_apply(moe: MoE, cfg, x: torch.Tensor):
     return y, metrics
 
 
-def _route_and_rank(xf: torch.Tensor, router_w: torch.Tensor, cfg,
-                    cap: int, *, ranking: str = "sort"):
-    """Routing core on a token set ``xf [T, D]``: fp32 router, top-k,
-    capacity slot assignment.  Returns ``(token_for_slot [E, C] long,
-    w_slot [E, C] fp32, counts [E], dropped, probs_mean [E], z, aux,
-    flat_slot [T, k])``, the last each assignment's flat ``[E, C]`` slot
-    (``E * C`` where it was dropped, for ``combine``);
-    ``ranking`` "sort" (the reference's ``_route_and_rank``) or "cumsum"
-    (its gspmd default) assign the same slots."""
+def _route(xf: torch.Tensor, router_w: torch.Tensor, cfg, ranking: str):
+    """Top-k routing of a token set ``xf [T, D]``: ``(logits [T, E] fp32,
+    top_p [T, k], flat_e [T k], slot [T k], counts [E])``, ``slot`` each
+    assignment's rank in its expert's queue over the flattened (T * k)
+    token-major priority order; ``ranking`` "sort" (the reference's
+    ``_route_and_rank``) or "cumsum" (its gspmd default) rank alike."""
     m = cfg.moe
     e_n, k = m.num_experts, m.top_k
-    t = xf.shape[0]
     dev = xf.device
     logits = torch.matmul(xf.float(), router_w)                   # [T, E]
     if m.router_score == "sigmoid":
@@ -217,9 +224,6 @@ def _route_and_rank(xf: torch.Tensor, router_w: torch.Tensor, cfg,
     top_p, top_e = torch.topk(scores, k, dim=-1)                  # [T, k]
     if m.norm_topk_prob:
         top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
-
-    # position within each expert's queue over the flattened (T * k)
-    # assignment priority order
     flat_e = top_e.reshape(-1)
     if ranking == "sort":
         order = torch.argsort(flat_e, stable=True)
@@ -240,32 +244,58 @@ def _route_and_rank(xf: torch.Tensor, router_w: torch.Tensor, cfg,
             e_n, device=dev)[:, None]).to(torch.int32)            # [E, T k]
         slot = (torch.cumsum(onehot, dim=1) * onehot).sum(0) - 1
         counts = onehot.sum(1)
+    return logits, top_p, flat_e, slot, counts
+
+
+def _assign(flat_e: torch.Tensor, slot: torch.Tensor, top_p: torch.Tensor,
+            keep: torch.Tensor, e_n: int, bucket: int):
+    """The buckets' index map and combine weights for the kept
+    assignments (each kept ``slot`` below ``bucket``):
+    ``(token_for_slot [E, bucket] long, w_slot [E, bucket] fp32,
+    flat_slot [T, k])``, the last each assignment's flat slot (``E *
+    bucket`` where it was dropped, for ``combine``).  Empty slots gather
+    token 0 at weight 0."""
+    t, k = top_p.shape
+    dev = flat_e.device
+    # overflow goes to the scratch column ``bucket`` (duplicate writes
+    # there only), which is cropped
+    e_idx = torch.where(keep, flat_e, e_n - 1)
+    c_idx = torch.where(keep, slot, bucket)
+    # each token id k times (an expand: no output size to compute on the
+    # device, as a repeat_interleave may)
+    tok_idx = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
+    token_for_slot = torch.zeros((e_n, bucket + 1), dtype=torch.long,
+                                 device=dev)
+    token_for_slot[e_idx, c_idx] = tok_idx
+    w_slot = torch.zeros((e_n, bucket + 1), dtype=torch.float32, device=dev)
+    w_slot[e_idx, c_idx] = top_p.reshape(-1)
+    flat_slot = torch.where(keep, flat_e * bucket + slot, e_n * bucket)
+    return (token_for_slot[:, :bucket], w_slot[:, :bucket],
+            flat_slot.reshape(t, k))
+
+
+def _route_and_rank(xf: torch.Tensor, router_w: torch.Tensor, cfg,
+                    cap: int, *, ranking: str = "sort"):
+    """Routing core on a token set ``xf [T, D]``: fp32 router, top-k,
+    capacity slot assignment.  Returns ``(token_for_slot [E, C] long,
+    w_slot [E, C] fp32, counts [E], dropped, probs_mean [E], z, aux,
+    flat_slot [T, k])`` (``_assign``'s maps at ``C = cap``)."""
+    m = cfg.moe
+    e_n, k = m.num_experts, m.top_k
+    logits, top_p, flat_e, slot, counts = _route(xf, router_w, cfg, ranking)
     keep = slot < cap
     # the kept count (exact) times the fp32 reciprocal of T * k, as
     # jnp.mean computes it
     dropped = 1.0 - keep.sum(dtype=torch.float32) * float(
         np.float32(1.0 / keep.numel()))
-
-    # index map + combine weights: overflow goes to the scratch column
-    # cap (duplicate writes there only), which is cropped
-    e_idx = torch.where(keep, flat_e, e_n - 1)
-    c_idx = torch.where(keep, slot, cap)
-    # each token id k times (an expand: no output size to compute on the
-    # device, as a repeat_interleave may)
-    tok_idx = torch.arange(t, device=dev)[:, None].expand(t, k).reshape(-1)
-    token_for_slot = torch.zeros((e_n, cap + 1), dtype=torch.long,
-                                 device=dev)
-    token_for_slot[e_idx, c_idx] = tok_idx
-    w_slot = torch.zeros((e_n, cap + 1), dtype=torch.float32, device=dev)
-    w_slot[e_idx, c_idx] = top_p.reshape(-1)
-
+    token_for_slot, w_slot, flat_slot = _assign(flat_e, slot, top_p, keep,
+                                                e_n, cap)
     probs_mean = torch.softmax(logits, dim=-1).mean(0)
     z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    frac = counts.float() / (t * k)
+    frac = counts.float() / (xf.shape[0] * k)
     aux = e_n * torch.sum(frac * probs_mean)
-    flat_slot = torch.where(keep, flat_e * cap + slot, e_n * cap)
-    return (token_for_slot[:, :cap], w_slot[:, :cap], counts, dropped,
-            probs_mean, z, aux, flat_slot.reshape(t, k))
+    return (token_for_slot, w_slot, counts, dropped, probs_mean, z, aux,
+            flat_slot)
 
 
 def expert_counts(flat_e: torch.Tensor, e_n: int) -> torch.Tensor:
@@ -303,9 +333,25 @@ def combine(out_e: torch.Tensor, w_slot: torch.Tensor,
     return y
 
 
+def _expert_ffn(cfg, buckets: torch.Tensor, w_gate: torch.Tensor,
+                w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+    """The three batched expert products on ``buckets [E, C, D]`` (gmm on
+    a card) -> ``[E, C, D]``."""
+    bmm = sparse_api.batched_matmul
+    h_g = bmm(buckets, w_gate)
+    h_u = bmm(buckets, w_up)
+    act = (F.silu(h_g) if cfg.act == "silu"
+           else F.gelu(h_g, approximate="tanh"))
+    return bmm(act * h_u, w_down)
+
+
+def _combine_dtype(cfg) -> torch.dtype:
+    return (torch.bfloat16 if cfg.moe.combine_dtype == "bfloat16"
+            else torch.float32)
+
+
 def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
     """Capacity gather + batched expert GEMMs + weighted scatter-add."""
-    bmm = sparse_api.batched_matmul
     m = cfg.moe
     b_, s, d = x.shape
     t = b_ * s
@@ -318,14 +364,8 @@ def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
     # (``embedding``): every empty slot gathers token 0, and an index
     # backward serialises the thousands of duplicates of one row
     buckets = F.embedding(token_for_slot, xf)                     # [E, C, D]
-    h_g = bmm(buckets, moe.w_gate)
-    h_u = bmm(buckets, moe.w_up)
-    act = (F.silu(h_g) if cfg.act == "silu"
-           else F.gelu(h_g, approximate="tanh"))
-    out_e = bmm(act * h_u, moe.w_down)                           # [E, C, D]
-
-    cdt = torch.bfloat16 if m.combine_dtype == "bfloat16" else torch.float32
-    y = combine(out_e, w_slot, flat_slot, cdt).float()
+    out_e = _expert_ffn(cfg, buckets, moe.w_gate, moe.w_up, moe.w_down)
+    y = combine(out_e, w_slot, flat_slot, _combine_dtype(cfg)).float()
     if moe.shared is not None:
         y = y + moe.shared(xf).float()
     return (y.reshape(b_, s, d).to(x.dtype),
@@ -360,25 +400,27 @@ class _GatherDim(torch.autograd.Function):
                 None, None, None, None)
 
 
-class _MeanOverGroup(torch.autograd.Function):
-    """The mean over ``group`` of a value each rank computed: forward and
-    backward an all-reduce over ``n``.  The value enters every rank's
-    loss, so its gradient is the mean of theirs."""
+class _SumOverGroup(torch.autograd.Function):
+    """The sum over ``group`` of a value each rank computed: forward and
+    backward an all-reduce.  The sum enters every rank's loss, so the
+    gradient of a rank's part is the sum of every rank's: summed over
+    the ranks (the data-parallel step averages it), the gradients are
+    those of the sum of the ranks' losses."""
 
     @staticmethod
-    def forward(ctx, x, group, n):
+    def forward(ctx, x, group):
         import torch.distributed as dist
-        ctx.group, ctx.n = group, n
+        ctx.group = group
         x = x.clone()
         dist.all_reduce(x, group=group)
-        return x / n
+        return x
 
     @staticmethod
     def backward(ctx, g):
         import torch.distributed as dist
         g = g.clone()
         dist.all_reduce(g, group=ctx.group)
-        return g / ctx.n, None, None
+        return g, None
 
 
 def _local_experts(moe: MoE, name: str, mesh, e0: int, e_loc: int):
@@ -399,31 +441,19 @@ def _local_experts(moe: MoE, name: str, mesh, e0: int, e_loc: int):
     return _GatherDim.apply(w, group, 1, idx, n)
 
 
-def _moe_shard_map(moe: MoE, cfg, x: torch.Tensor, mesh):
-    """Explicit local EP dispatch (the reference's ``_moe_shard_map``):
-
-    * tokens: this rank's shard over the batch axes, replicated over
-      ``"model"``;
-    * expert weights: E over ``"model"`` (the ``"data"`` shard of a held
-      block all-gathered locally, reduce-scattered in the backward);
-    * each rank routes its local tokens, computes only its E / ep
-      experts, and contributes a partial ``[T_loc, D]``;
-    * one all-reduce over ``"model"`` (in ``combine_dtype``) combines.
-    """
-    bmm = sparse_api.batched_matmul
-    m = cfg.moe
-    b_, s, d = x.shape
-    t = b_ * s
-    group = mesh_lib.axes_group(mesh, ("model",))
-    ep_idx, ep = mesh_lib.axis_index(mesh, ("model",))
-    e_loc = m.num_experts // ep
+def _moe_experts(moe: MoE, cfg, xf: torch.Tensor, mesh, token_for_slot,
+                 w_slot, flat_slot, *, split: bool) -> torch.Tensor:
+    """The routed experts' output ``[T, D]`` fp32 on this rank's tokens
+    ``xf`` from their buckets' maps (``_assign``): with ``split``, this
+    rank computes its ``E / ep`` experts of the ``"model"`` axis and one
+    all-reduce over it (in ``combine_dtype``) combines the ranks'
+    partials; else every expert here."""
+    e_n, bucket = token_for_slot.shape
+    group = mesh_lib.axes_group(mesh, ("model",)) if split else None
+    ep_idx, ep = (mesh_lib.axis_index(mesh, ("model",)) if split
+                  else (0, 1))
+    e_loc = e_n // ep
     e0 = ep_idx * e_loc
-    cdt = torch.bfloat16 if m.combine_dtype == "bfloat16" else torch.float32
-
-    xf = x.reshape(t, d)
-    cap = _capacity(t, cfg)
-    tfs, w_slot, _, dropped, _, z, aux, flat_slot = _route_and_rank(
-        xf, moe.router.w, cfg, cap, ranking=m.ranking)
     x_in = xf
     if group is not None:
         # each rank's gradient reaches only its experts' slots and rows:
@@ -432,30 +462,128 @@ def _moe_shard_map(moe: MoE, cfg, x: torch.Tensor, mesh):
         x_in = copy_to_group(xf, group)
     w_g, w_u, w_d = (_local_experts(moe, n, mesh, e0, e_loc)
                      for n in ("w_gate", "w_up", "w_down"))
-    buckets = F.embedding(tfs[e0:e0 + e_loc], x_in)           # [E_loc, C, D]
-    h_g = bmm(buckets, w_g)
-    h_u = bmm(buckets, w_u)
-    act = (F.silu(h_g) if cfg.act == "silu"
-           else F.gelu(h_g, approximate="tanh"))
-    out_e = bmm(act * h_u, w_d)                                # [E_loc, C, D]
+    buckets = F.embedding(token_for_slot[e0:e0 + e_loc], x_in)
+    out_e = _expert_ffn(cfg, buckets, w_g, w_u, w_d)       # [E_loc, C, D]
     # this rank's slots, renumbered from its first expert; the rest go to
     # the zero row
-    lo, hi = e0 * cap, (e0 + e_loc) * cap
+    lo, hi = e0 * bucket, (e0 + e_loc) * bucket
     local = torch.where((flat_slot >= lo) & (flat_slot < hi),
-                        flat_slot - lo, e_loc * cap)
-    y = combine(out_e, w_slot[e0:e0 + e_loc], local, cdt)
+                        flat_slot - lo, e_loc * bucket)
+    y = combine(out_e, w_slot[e0:e0 + e_loc], local, _combine_dtype(cfg))
     if group is not None:
         y = reduce_from_group(y, group)                        # THE combine
-    y = y.float()
+    return y.float()
+
+
+def _moe_shard_map(moe: MoE, cfg, x: torch.Tensor, mesh):
+    """Explicit local EP dispatch (the reference's ``_moe_shard_map``):
+
+    * tokens: this rank's shard over the batch axes, replicated over
+      ``"model"``;
+    * expert weights: E over ``"model"`` (the ``"data"`` shard of a held
+      block all-gathered locally, reduce-scattered in the backward);
+    * each rank routes its local tokens with the capacity of its own
+      token count, computes only its E / ep experts, and contributes a
+      partial ``[T_loc, D]``;
+    * one all-reduce over ``"model"`` (in ``combine_dtype``) combines;
+    * the metrics are averaged over the batch axes.
+    """
+    m = cfg.moe
+    b_, s, d = x.shape
+    xf = x.reshape(b_ * s, d)
+    cap = _capacity(b_ * s, cfg)
+    tfs, w_slot, _, dropped, _, z, aux, flat_slot = _route_and_rank(
+        xf, moe.router.w, cfg, cap, ranking=m.ranking)
+    y = _moe_experts(moe, cfg, xf, mesh, tfs, w_slot, flat_slot, split=True)
     metrics = torch.stack([aux, z, dropped])
-    bgroup = mesh_lib.axes_group(mesh, rules.batch_axes(mesh))
+    bgroup = mesh_lib.axes_group(mesh, rules.token_axes(mesh))
     if bgroup is not None:
-        metrics = _MeanOverGroup.apply(
-            metrics, bgroup, mesh_lib.group_size(bgroup))
+        metrics = _SumOverGroup.apply(metrics, bgroup) \
+            / mesh_lib.group_size(bgroup)
     if moe.shared is not None:
         y = y + moe.shared(xf).float()
     return (y.reshape(b_, s, d).to(x.dtype),
             MoEMetrics(metrics[0], metrics[1], metrics[2]))
+
+
+def global_route(moe: MoE, cfg, xf: torch.Tensor, mesh):
+    """The reference's gspmd routing of the global batch, from this rank's
+    tokens ``xf [T, D]`` (its shard over the installed mesh's token axes,
+    ``rules.token_axes``; the global batch is the ranks' shards in the
+    order of their index over those axes).  Each rank ranks its own
+    assignments; one all-reduce of the ``[ranks, E]`` count table gives
+    each assignment its global queue position (its local rank plus the
+    counts of the ranks before it), kept iff below the capacity of the
+    global token count: the reference's kept set, bit for bit.  Returns
+    ``(token_for_slot [E, C], w_slot, flat_slot [T, k], logits, counts
+    [E] global, cap)``, at buckets of ``C = min(cap, T)`` (no expert keeps
+    more of one rank's tokens: a token routes to an expert once)."""
+    m = cfg.moe
+    e_n = m.num_experts
+    t = xf.shape[0]
+    axes = rules.token_axes(mesh)
+    group = mesh_lib.axes_group(mesh, axes)
+    idx, n = mesh_lib.axis_index(mesh, axes)
+    cap = _capacity(t * n, cfg)
+    logits, top_p, flat_e, slot, counts = _route(xf, moe.router.w, cfg,
+                                                 m.ranking)
+    if group is None:
+        keep = slot < cap
+    else:
+        import torch.distributed as dist
+        table = counts.new_zeros((n, e_n))
+        table[idx] = counts
+        dist.all_reduce(table, group=group)
+        keep = slot + table[:idx].sum(0)[flat_e] < cap
+        counts = table.sum(0)
+    tfs, w_slot, flat_slot = _assign(flat_e, slot, top_p, keep, e_n,
+                                     min(cap, t))
+    return tfs, w_slot, flat_slot, logits, counts, cap
+
+
+def _moe_global(moe: MoE, cfg, x: torch.Tensor, mesh):
+    """The gspmd formulation on a concrete mesh, as the reference's
+    ``_moe_gspmd`` computes it on the global batch:
+
+    * routing: ``global_route`` (the global capacity and kept set);
+    * expert weights: the rules' blocks the module holds (E over
+      ``"model"`` where it divides, the ``"data"`` shard gathered); each
+      rank computes its experts on its own tokens' buckets, one
+      all-reduce over ``"model"`` combines (``_moe_experts``);
+    * metrics: ``aux`` from the global counts and router probabilities'
+      sums, ``z`` and ``dropped_frac`` global means (the probabilities'
+      and logsumexps' sums all-reduced over the token axes by
+      ``_SumOverGroup``, so the data-parallel step's averaged gradient
+      is the reference's);
+    * the shared experts: the module's ``MLP``, split over ``"model"``
+      as its rules say.
+    """
+    m = cfg.moe
+    e_n, k = m.num_experts, m.top_k
+    b_, s, d = x.shape
+    xf = x.reshape(b_ * s, d)
+    tfs, w_slot, flat_slot, logits, counts, cap = global_route(
+        moe, cfg, xf, mesh)
+    split = "w_gate" in moe.held and rules.param_spec(
+        "w_gate", moe.held["w_gate"].block.shape, mesh)[0] == "model"
+    y = _moe_experts(moe, cfg, xf, mesh, tfs, w_slot, flat_slot,
+                     split=split)
+    sums = torch.cat([torch.softmax(logits, dim=-1).sum(0),
+                      (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]])
+    group = mesh_lib.axes_group(mesh, rules.token_axes(mesh))
+    if group is not None:
+        sums = _SumOverGroup.apply(sums, group)
+    t_g = b_ * s * mesh_lib.axis_index(mesh, rules.token_axes(mesh))[1]
+    probs_mean, z = sums[:e_n] / t_g, sums[e_n] / t_g
+    aux = e_n * torch.sum(counts.float() / (t_g * k) * probs_mean)
+    # the kept count (an expert keeps the first cap of its queue) times
+    # the fp32 reciprocal of T * k, as jnp.mean computes it
+    dropped = 1.0 - torch.clamp(counts, max=cap).sum().float() * float(
+        np.float32(1.0 / (t_g * k)))
+    if moe.shared is not None:
+        y = y + moe.shared(xf).float()
+    return (y.reshape(b_, s, d).to(x.dtype),
+            MoEMetrics(aux, z, dropped))
 
 
 def moe_flops_per_token(cfg) -> float:

@@ -80,9 +80,10 @@ class Layer(nn.Module):
     adds a zero FFN output).  A ``cross`` layer adds ``h +
     cross(norm_x(h), memory)`` between the mixer and the FFN; a
     ``causal=False`` attention layer (an encoder's) attends both ways.
-    ``mesh`` reaches the GQA mixer, the MLP and the sparse FFN (split
-    over a model-parallel mesh's ``"model"`` axis) and the MoE (its
-    experts); MLA, Mamba-2, cross attention and the router run whole."""
+    ``mesh`` reaches the GQA mixer (split over a model-parallel mesh's
+    ``"model"`` axis where its heads divide), the MLP and the sparse FFN
+    (split there) and the MoE (its experts and shared experts); MLA,
+    Mamba-2, cross attention and the router run whole."""
 
     def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device,
                  mesh=None):
@@ -262,12 +263,12 @@ def _recompute_context():
     around it keeps what it reads, and records no telemetry again."""
     ctx = sparse_api.current_ctx()
     rec = capture.active()
-    mesh = rules.current_mesh()
+    mesh, split = rules.current_mesh(), rules.batch_split()
 
     @contextlib.contextmanager
     def again():
         with sparse_api.use_ctx(ctx), capture.recomputing(rec), \
-                rules.activation_mesh(mesh):
+                rules.activation_mesh(mesh, batch_split=split):
             yield
     return contextlib.nullcontext(), again()
 

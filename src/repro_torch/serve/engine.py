@@ -88,6 +88,7 @@ filter off (the reference's behaviour, mirrored).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -104,6 +105,7 @@ from repro_torch.launch.mesh import is_concrete
 from repro_torch.models.config import ModelCfg
 from repro_torch.models.model import LM
 from repro_torch.serve.graphs import Program
+from repro_torch.sharding import rules
 
 # engine pool labels are process-unique: two engines over one model
 # would otherwise share a pool
@@ -252,8 +254,10 @@ class Engine:
     captures one graph per prefill bucket and the decode step, the
     collectives inside, in the same order as every other rank.  An LM
     built on the mesh (model-parallel: ``LM(mesh=)``) keeps its rank's
-    KV heads in the caches and samples with the argmax over the
-    vocabulary's ranks.
+    KV heads in the caches, samples with the argmax over the
+    vocabulary's ranks, and runs its programs under that mesh
+    (``sharding.activation_mesh(batch_split=False)``: every rank holds
+    the whole batch), so its MoE layers compute their held experts.
 
     The engine prices its ladder and its admissions with the cost
     calibration active when it is built (``dispatch.cost_coeffs()``),
@@ -407,6 +411,13 @@ class Engine:
                 f"prefill[{bucket}]", self._prefill_body, bucket + 2)
         return prog
 
+    def _mesh(self):
+        """The model's concrete mesh installed for a program's body (its
+        MoE layers' routes), every rank holding the whole batch."""
+        if not is_concrete(self.lm.mesh):
+            return contextlib.nullcontext()
+        return rules.activation_mesh(self.lm.mesh, batch_split=False)
+
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """Greedy tokens of every row, then 1 if every logit is finite:
         one int64 vector, read by the host in one copy.  A
@@ -419,10 +430,11 @@ class Engine:
         """``io = [tokens (S), last index, slot]``: prefill one padded
         prompt, write its rows into the slot, sample its token."""
         s = io.shape[0] - 2
-        logits, rows = self.lm.prefill(io[:s].view(1, s),
-                                       max_len=self.max_len,
-                                       last_index=io[s:s + 1],
-                                       gather=False)
+        with self._mesh():
+            logits, rows = self.lm.prefill(io[:s].view(1, s),
+                                           max_len=self.max_len,
+                                           last_index=io[s:s + 1],
+                                           gather=False)
         slot = io[s + 1:s + 2]
         for cache, row in zip(self.caches, rows):
             for name in cache:
@@ -434,9 +446,10 @@ class Engine:
         slot, caches updated in place (at the ring slots under
         ``retained``), the batch's tokens sampled."""
         b = self.batch
-        logits, _ = self.lm.decode_step(io[:b].view(b, 1), self.caches,
-                                        io[b:], retained=self.retained,
-                                        gather=False)
+        with self._mesh():
+            logits, _ = self.lm.decode_step(io[:b].view(b, 1), self.caches,
+                                            io[b:], retained=self.retained,
+                                            gather=False)
         return self._sample(logits), logits
 
     def _warm(self, capture_graphs: bool):

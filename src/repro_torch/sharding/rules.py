@@ -114,13 +114,16 @@ def _spec(mesh, shape, base_ndim, last_dims) -> PartitionSpec:
 # -- the mesh the step runs under ------------------------------------------------
 
 _ACT_MESH: contextvars.ContextVar = contextvars.ContextVar(
-    "repro_torch_activation_mesh", default=None)
+    "repro_torch_activation_mesh", default=(None, True))
 
 
 @contextlib.contextmanager
-def activation_mesh(mesh):
-    """Install ``mesh`` for the layers that read it (the MoE route)."""
-    tok = _ACT_MESH.set(mesh)
+def activation_mesh(mesh, *, batch_split: bool = True):
+    """Install ``mesh`` for the layers that read it (the MoE routes).
+    ``batch_split``: the tokens a rank holds are its shard of the batch
+    over the mesh's batch axes (the train step's layout); False: every
+    rank holds the whole batch (the serving engine's ranks)."""
+    tok = _ACT_MESH.set((mesh, bool(batch_split)))
     try:
         yield
     finally:
@@ -129,7 +132,18 @@ def activation_mesh(mesh):
 
 def current_mesh():
     """The mesh installed by ``activation_mesh`` (None outside)."""
-    return _ACT_MESH.get()
+    return _ACT_MESH.get()[0]
+
+
+def batch_split() -> bool:
+    """Was the installed mesh installed with ``batch_split``?"""
+    return _ACT_MESH.get()[1]
+
+
+def token_axes(mesh) -> Tuple[str, ...]:
+    """The axes of ``mesh`` (the installed one) that split the tokens: its
+    batch axes, or none when it was installed without ``batch_split``."""
+    return batch_axes(mesh) if batch_split() else ()
 
 
 # -- parameter rules ---------------------------------------------------------

@@ -3498,3 +3498,203 @@ def test_mp_nccl_checkpoint_one_by_four_to_two_by_two(dev, tmp_path):
         assert len(o["losses"]) == 1
         assert abs(o["losses"][0] - losses[2]) <= 1e-4 * abs(losses[2]), \
             (o["losses"], losses)
+
+
+# -- MoE under impl="gspmd" on a production mesh's layout ----------------------
+
+MOE_ENGINE_BUCKETS = (8, 64, 256)
+MOE_ENGINE_PROMPTS = (8, 50, 200, 700)
+
+
+def _moe_engine_run(lm, mesh=None):
+    """qwen3's engine at batch 4, max_len 1024, its graphs captured at
+    startup: the first prefill's logits (8 tokens: no assignment can
+    drop) as the host reads them, decode p50, the tokens, peak GiB."""
+    from repro_torch.serve import Engine, Request
+    rng = np.random.default_rng(17)
+    reqs = [Request(uid=i, prompt=rng.integers(0, lm.cfg.vocab_size,
+                                               size=n), max_new_tokens=8)
+            for i, n in enumerate(MOE_ENGINE_PROMPTS)]
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(lm, device="cuda", batch=4, max_len=1024,
+                 buckets=MOE_ENGINE_BUCKETS, warm_compile=True, mesh=mesh)
+    first, read = [], eng._read
+
+    def keep(out):
+        if not first:
+            first.append(out[1].float().cpu())
+        return read(out)
+    eng._read = keep
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    eng._read = read
+    st = eng.stats()
+    out = dict(logits=first[0], decode=st["step_latency"],
+               tokens=[r.output for r in reqs],
+               captures=sum(p.captures for p in eng.programs()),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               v0=lm._head.v0)
+    del eng
+    return out
+
+
+def _free_card():
+    """Collect this process's dead models (graphs keep them in reference
+    cycles) and return their card memory."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_engine_case(rank, world, out_dir):
+    """qwen3-moe-30b-a3b at full width and depth on (1, 4) under
+    ``impl="gspmd"``: 32 experts a layer a rank, served through the
+    engine's graphs over NCCL."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_device_mesh
+    mesh = make_device_mesh("cuda", (1, 4), ("data", "model"))
+    lm = LM(configs.get("qwen3-moe-30b-a3b"), device="cuda", seed=0,
+            mesh=mesh)
+    experts = {tuple(lm.get_parameter(n).shape) for n in lm.held_blocks()
+               if n.rpartition(".")[2] in ("w_gate", "w_up", "w_down")}
+    return dict(_moe_engine_run(lm, mesh), experts=experts)
+
+
+def _kept_sets(cfg, flat_slot, bucket):
+    e_n = cfg.moe.num_experts
+    kept = torch.where(flat_slot < e_n * bucket,
+                       torch.div(flat_slot, bucket, rounding_mode="floor"),
+                       e_n)
+    return kept.sort(dim=1).values.cpu()
+
+
+def _moe_train_case(rank, world, out_dir):
+    """qwen3 at full width, 4 layers, ``impl="gspmd"`` on (2, 2): a
+    forward of the rank's data shard with each MoE layer's kept experts
+    against one process's routing of the global batch (the layer's
+    input gathered over the data ranks); then 3 steps eager and
+    captured."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.mesh import (axes_group, axis_index,
+                                         make_device_mesh)
+    from repro_torch.launch.profile_train import cut_depth
+    from repro_torch.models.moe import (MoE, _capacity, _route_and_rank,
+                                        global_route)
+    from repro_torch.sharding import rules
+    base = cut_depth(configs.get("qwen3-moe-30b-a3b"), 4)
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe,
+                                                            impl="gspmd"))
+    mesh = make_device_mesh("cuda", (2, 2), ("data", "model"))
+    di, dp = axis_index(mesh, ("data",))
+    lm = LM(cfg, device="cuda", seed=0, mesh=mesh)
+    tokens = TokenPipeline(cfg.vocab_size, 2, 512, num_shards=2,
+                           shard_id=di).get_batch(0)["tokens"]
+    moes = [m for m in lm.modules() if isinstance(m, MoE)]
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, o: seen.append(inp[0])) for m in moes]
+    with rules.activation_mesh(mesh):
+        lm(tokens)
+    for h in hooks:
+        h.remove()
+    kept_equal, tokens_seen = [], []
+    group = axes_group(mesh, ("data",))
+    for mod, x in zip(moes, seen):
+        b_ = x.shape[0]
+        whole = x.new_zeros((b_ * dp,) + tuple(x.shape[1:]))
+        whole[di * b_:(di + 1) * b_] = x
+        dist.all_reduce(whole, group=group)
+        xf = whole.reshape(-1, x.shape[-1])
+        cap = _capacity(xf.shape[0], cfg)
+        with torch.no_grad(), rules.activation_mesh(mesh):
+            *_, flat_ref = _route_and_rank(xf, mod.router.w, cfg, cap,
+                                           ranking=cfg.moe.ranking)
+            tfs, _, flat, *_ = global_route(
+                mod, cfg, x.reshape(-1, x.shape[-1]), mesh)
+        t = x.shape[0] * x.shape[1]
+        ref = _kept_sets(cfg, flat_ref, cap)[di * t:(di + 1) * t]
+        kept_equal.append(int((_kept_sets(cfg, flat, tfs.shape[1])
+                               == ref).all(dim=1).sum()))
+        tokens_seen.append(t)
+    experts = {tuple(lm.get_parameter(n).shape) for n in lm.held_blocks()
+               if n.rpartition(".")[2] in ("w_gate", "w_up", "w_down")}
+    del lm, seen
+    out = dict(kept_equal=kept_equal, tokens=tokens_seen, experts=experts)
+    for g in (False, True):
+        r = _mp_train(cfg, mesh, 2, 512, g, steps=3, ckpt_dir=None)
+        out[g] = dict(losses=r["losses"], stats=r["stats"],
+                      master=r["master"], peak_gib=r["peak_gib"],
+                      step_ms=r["step_ms"])
+    return out
+
+
+_SHARD_CASES.update(moe_engine=_moe_engine_case, moe_train=_moe_train_case)
+
+
+@pytest.mark.cuda
+def test_moe_gspmd_nccl_engine_one_by_four(dev, tmp_path):
+    """qwen3-moe-30b-a3b at full width and depth, ``impl="gspmd"``, served
+    through ``Engine(mesh=)`` on (1, 4) over NCCL with its graphs: each
+    rank holds 32 of every layer's 128 experts; the first prefill's
+    logits (8 tokens, no drop possible) within the repo's bf16 budget
+    (6e-2) of the one-card engine's.  Prints decode p50 and peak GiB a
+    rank beside the one card's.  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from repro_torch import configs
+    outs = _spawn_nccl(tmp_path, 4, "moe_engine", timeout=900)
+    lm = LM(configs.get("qwen3-moe-30b-a3b"), device=dev, seed=0)
+    one = _moe_engine_run(lm)
+    # the engine's graphs hold the model in reference cycles: free the
+    # card before the next test's rank 0 needs it
+    del lm
+    _free_card()
+    vocab = one["logits"].shape[-1]
+    for r, o in enumerate(outs):
+        assert o["experts"] == {(32, 2048, 768), (32, 768, 2048)}, r
+        assert o["captures"] >= 2, r
+        cols = o["logits"].shape[-1]
+        assert cols * 4 == vocab
+        err = _rel(o["logits"], one["logits"][..., o["v0"]:o["v0"] + cols])
+        print(f"[moe-nccl] qwen3 engine (1, 4) rank {r}: first prefill "
+              f"logits vs one card {err:.3e}; decode {o['decode']}; peak "
+              f"{o['peak_gib']:.2f} GiB; tokens equal one card's "
+              f"{o['tokens'] == one['tokens']}")
+        assert err <= 6e-2, (r, err)
+    print(f"[moe-nccl] qwen3 engine one card: decode {one['decode']}; "
+          f"peak {one['peak_gib']:.2f} GiB")
+    print(f"[moe-nccl] cards {_card_lines()}")
+
+
+@pytest.mark.cuda
+def test_moe_gspmd_nccl_train_two_by_two(dev, tmp_path):
+    """qwen3-moe at full width, 4 layers, ``impl="gspmd"`` on (2, 2) over
+    NCCL (64 experts a rank, half of D): every MoE layer's kept experts
+    of the rank's tokens equal one process's routing of the global batch
+    on the same input; 3 train steps captured as one CUDA graph each
+    bit-equal to eager (losses, master blocks).  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _free_card()
+    outs = _spawn_nccl(tmp_path, 4, "moe_train", timeout=900)
+    for r, o in enumerate(outs):
+        assert o["kept_equal"] == o["tokens"], (r, o["kept_equal"])
+        assert o["experts"] == {(64, 1024, 768), (64, 384, 2048)}, r
+        assert o[True]["losses"] == o[False]["losses"], r
+        for n, m in o[False]["master"].items():
+            assert torch.equal(o[True]["master"][n], m), (r, n)
+        print(f"[moe-nccl] qwen3 4 layers (2, 2) rank {r}: kept experts "
+              f"equal one process's {o['kept_equal']} of {o['tokens']}; "
+              f"losses "
+              f"{o[False]['losses']}; eager step ms {o[False]['step_ms']}, "
+              f"captured {o[True]['step_ms']}; peak eager "
+              f"{o[False]['peak_gib']:.2f} / captured "
+              f"{o[True]['peak_gib']:.2f} GiB")
+    # rank 0 reads the program's stats (``train_loop``'s on_step)
+    assert outs[0][True]["stats"]["captures"] == 1
+    print(f"[moe-nccl] cards {_card_lines()}")

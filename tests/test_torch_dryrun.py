@@ -338,6 +338,17 @@ def test_dryrun_serving_cells_trace(shape):
         "static_tp") for p in rec["plans"])
 
 
+def test_gemma2_production_cell_traces_with_whole_heads():
+    """gemma2-2b's 8 query heads do not split over the (16, 16) mesh's 16
+    model ranks: its GQA runs whole on every rank, and the cell reports a
+    rank's bytes, not an error."""
+    rec = dryrun.run_cell("gemma2-2b", "decode_32k", save=False,
+                          verbose=False)
+    assert "error" not in rec
+    assert rec["memory"]["argument_mb"] > 0 and rec["memory"]["peak_gib"] > 0
+    assert rec["devices"] == 256 and rec["kernels"]
+
+
 def test_cell_that_cannot_fit_is_listed_and_exits_1(tmp_path, capsys):
     with pytest.raises(SystemExit) as ex:
         dryrun.main(["--arch", "glm4-9b", "--shape", "decode_32k",

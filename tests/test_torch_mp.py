@@ -54,8 +54,8 @@ def _rel(got, want):
 
 
 def _cfgs(arch):
-    """``(jcfg, tcfg)`` of ``arch`` ("llama": sparse FFNs; "glm4": dense)
-    in fp32."""
+    """``(jcfg, tcfg)`` of ``arch`` ("llama": sparse FFNs; "glm4": dense;
+    "glm4:H/KV": glm4 with H query and KV key/value heads) in fp32."""
     import dataclasses as dc
 
     from repro import configs as jconfigs
@@ -64,8 +64,12 @@ def _cfgs(arch):
     from repro_torch import configs as tconfigs
     if arch == "llama":
         return sparse_cfgs()
-    jcfg = dc.replace(jconfigs.smoke("glm4_9b"), dtype="float32")
-    tcfg = dc.replace(tconfigs.smoke("glm4_9b"), dtype="float32")
+    heads = {}
+    if ":" in arch:
+        h, kv = arch.partition(":")[2].split("/")
+        heads = dict(num_heads=int(h), num_kv_heads=int(kv))
+    jcfg = dc.replace(jconfigs.smoke("glm4_9b"), dtype="float32", **heads)
+    tcfg = dc.replace(tconfigs.smoke("glm4_9b"), dtype="float32", **heads)
     assert dc.asdict(jcfg) == dc.asdict(tcfg)
     return jcfg, tcfg
 
@@ -232,7 +236,7 @@ def _references(arch):
     hp = jstep.TrainHParams(**HP)
     jlm = JLM(jcfg)
     tree = jax.tree.map(np.asarray, jlm.init(jax.random.PRNGKey(0)))
-    if arch == "glm4":
+    if arch.startswith("glm4"):
         tree = _with_biases(tree, seed=7)
     params = jax.tree.map(jnp.asarray, tree)
     state = jstep.TrainState(jnp.zeros((), jnp.int32), params,
@@ -361,6 +365,49 @@ def test_model_parallel_matches_jax_and_one_process(tmp_path, arch, shape):
         b0 = outs[0]["held"]["embed.table"][0].index[0]
         b1 = outs[1]["held"]["embed.table"][0].index[0]
         assert b0 != b1
+
+
+@pytest.mark.parametrize("heads, shape", [("6/2", (1, 4)), ("6/3", (1, 2))],
+                         ids=["h6kv2-1x4", "h6kv3-1x2"])
+def test_gqa_heads_that_do_not_split_run_whole(tmp_path, heads, shape):
+    """glm4's smoke config with 6 query heads: on (1, 4) they do not
+    divide, on (1, 2) a rank's 3 heads cut the groups of 2 (KV = 3)
+    unevenly.  The GQA layers run whole on every rank (nothing of them
+    held, every KV head cached) beside the split MLPs and vocabulary:
+    the logits, the loss and the reduced gradient's state blocks against
+    the JAX package's ``LM`` and ``jax.grad``, 3 train steps against the
+    JAX step and the one-process port, engine tokens against the JAX
+    engine."""
+    from repro_torch.models.attention import head_split
+    h, kv = (int(v) for v in heads.split("/"))
+    assert head_split(h, kv, shape[1], 0) is None
+    ref = _references(f"glm4:{heads}")
+    outs = _spawn(tmp_path, shape[0] * shape[1], "mp",
+                  {"mesh": shape, "cfg": ref["cfg"], "params": ref["params"],
+                   "tokens": ref["tokens"],
+                   "prompts": [torch.as_tensor(p) for p in _prompts()]})
+    tleaves = {n: torch.as_tensor(np.array(v, np.float32))
+               for n, v in _loaded_whole(ref).items()}
+    for r, o in enumerate(outs):
+        held = o["held"]
+        assert not any(".attn." in n for n in held), (r, sorted(held))
+        assert any(".ffn.up." in n for n in held) and "embed.table" in held
+        for n, (blk, _) in held.items():
+            assert torch.equal(o["seeded"][n], blk.take(ref["seeded"][n]))
+            assert torch.equal(o["loaded"][n], blk.take(tleaves[n]))
+        assert _rel(o["logits"], ref["logits"]) <= MODEL_TOL, r
+        assert abs(o["loss"] - ref["loss"]) <= MODEL_TOL * abs(ref["loss"])
+        for n, g in o["grads"].items():
+            want = o["state"][n].take(np.asarray(ref["grads"][n]))
+            assert tuple(g.shape) == want.shape, (r, n)
+            assert _rel(g, want) <= MODEL_TOL, (r, n, _rel(g, want))
+        _close_metrics(o["metrics"], ref["jax"], ("jax", r))
+        _close_metrics(o["metrics"], ref["port"], ("port", r))
+        for n, v in o["master"].items():
+            blk = o["state"][n]
+            assert _rel(v, blk.take(ref["pmaster"][n])) <= MODEL_TOL, (r, n)
+        assert o["tokens"] == ref["jtokens"], r
+        assert o["cache_heads"] == kv
 
 
 def _loaded_whole(ref):
