@@ -388,6 +388,17 @@ TOPOLOGY_AFTER, TOPOLOGY_SEED = 2, 29
 REMAT_STEPS = 3
 
 
+def jsonable(obj):
+    """``obj`` with every dict key JSON takes none of (a mesh shape's
+    tuple) written as its ``str``."""
+    if isinstance(obj, dict):
+        return {k if isinstance(k, (str, int, float, bool)) or k is None
+                else str(k): jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [jsonable(v) for v in obj]
+    return obj
+
+
 def fail(msg: str) -> int:
     print(f"chip_smoke: {msg}", file=sys.stderr)
     return 2
@@ -5913,10 +5924,21 @@ def print_tp(tp):
 
 # -- [dp] / [ep]: sharded training over gloo ranks of the one card --------------
 
-# [dp]: llama3.2-1b (d = 1/8) on a (DP_RANKS, 1) mesh, the global batch
-# [train]'s 4 x 512; a checkpoint at DP_SAVE_AT resumed on another mesh
+# [dp]: llama3.2-1b (d = 1/8) at full width cut to DP_LAYERS of its 16
+# layers (the time [mp]'s mixers take) on a (DP_RANKS, 1) mesh, the
+# global batch [train]'s 4 x 512; a checkpoint at DP_SAVE_AT resumed on
+# another mesh
 DP_RANKS, DP_STEPS, DP_SAVE_AT = 2, 5, 3
 DP_BATCH, DP_SEQ = 4, 512
+DP_LAYERS = 8
+
+
+def dp_cfg():
+    from repro_torch import configs
+    from repro_torch.launch.profile_train import cut_depth
+    return cut_depth(configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8),
+                     DP_LAYERS)
+
 # [ep]: qwen3-moe-30b-a3b at full width, EP_LAYERS layers, on a (1, 2)
 # mesh (64 of 128 experts a rank)
 EP_LAYERS, EP_STEPS = 2, 3
@@ -5932,9 +5954,9 @@ EP_FIRST_REROUTED, EP_FIRST_DROP_TOL = 256, 1e-2
 EP_GSPMD_MESHES = ((2, 1), (1, 2))
 # the first loss (before any update): two half-batch forwards against one
 # whole-batch forward differ by bf16 roundings; read over five init draws
-# (`--margins 0,1,2,3,4`, an H100): 6.42e-06, 1.15e-05, 1.22e-05,
-# 1.78e-05, 5.64e-05 -- 3.5x above the largest, 100x under the losses'
-# bf16 budget
+# at full depth, 16 layers (`--margins 0,1,2,3,4`, an H100): 6.42e-06,
+# 1.15e-05, 1.22e-05, 1.78e-05, 5.64e-05 -- 3.5x above the largest, 100x
+# under the losses' bf16 budget; `--margins` reads them at DP_LAYERS
 FIRST_LOSS_TOL = 2e-4
 
 
@@ -6147,7 +6169,8 @@ def dp_job(torch, rank, world, job):
 
 def dp_phase(torch, args):
     """[dp]: data parallelism with the state sharded, llama3.2-1b at full
-    width and depth (every FFN block-sparse, d = 1/8, b = 16, bf16),
+    width, ``DP_LAYERS`` layers deep (every FFN block-sparse, d = 1/8,
+    b = 16, bf16),
     ``train_loop`` over a (2, 1) ``("data", "model")`` mesh of 2 gloo
     ranks on this card, 2 x 512 tokens a rank ([train]'s global batch
     4 x 512), ``DP_STEPS`` eager steps with ``grad_compress`` off and
@@ -6167,12 +6190,11 @@ def dp_phase(torch, args):
     peak and state GiB per rank."""
     import shutil
 
-    from repro_torch import configs
     from repro_torch.launch.train import train_loop
     from repro_torch.train.step import TrainHParams
 
     t0 = time.perf_counter()
-    cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
+    cfg = dp_cfg()
     ck = os.path.join(HERE, "build", "dp_ckpt")
     shutil.rmtree(ck, ignore_errors=True)
     dirs = {k: os.path.join(ck, k) for k in ("one", "ranks")}
@@ -6776,11 +6798,14 @@ def mp_kernel_rows(torch, args):
     against its plain version (bf16, the device's budget): dense_mm at
     the projections' shard widths (llama3.2-1b at m = 2: q 2048 -> 1024,
     k/v 2048 -> 256, o 1024 -> 2048; glm4-9b at m = 4: q 4096 -> 1024,
-    up / gate 4096 -> 3424, down 3424 -> 4096) at decode N 4 and the
-    train step's 2048 tokens; bs_attn on a rank's heads (llama 16 of 32
-    query heads, 4 KV, S 512, batch 4; glm4 8 query heads on 1 KV head,
-    dh 128); bsmm on one held k-shard of llama's up/gate (q 2) at N 4 and
-    2048.  Each row times one library call beside it (``torch.matmul``,
+    up / gate 4096 -> 3424, down 3424 -> 4096; at m = 2 mamba2-130m's
+    in projection 768 -> 1816, deepseek's q 2048 -> 1536 and kv_b 512 ->
+    2048, seamless's q 1024 -> 512) at decode N 4 and the train step's
+    2048 tokens; bs_attn on a rank's heads (llama 16 of 32 query heads,
+    4 KV, S 512, batch 4; glm4 8 query heads on 1 KV head, dh 128;
+    deepseek's MLA 8 of 16 heads at dh 192 and seamless's 8 of 16 at dh
+    64, [mp] mixers' batch 2 x 256); bsmm on one held k-shard of llama's
+    up/gate (q 2) at N 4 and 2048.  Each row times one library call beside it (``torch.matmul``,
     on the k-shard's densified weight for bsmm; SDPA)."""
     import torch.nn.functional as F
 
@@ -6803,7 +6828,11 @@ def mp_kernel_rows(torch, args):
                        ("llama o shard", 1024, 2048),
                        ("glm4 q shard", 4096, 1024),
                        ("glm4 up shard", 4096, 3424),
-                       ("glm4 down shard", 3424, 4096)):
+                       ("glm4 down shard", 3424, 4096),
+                       ("mamba2 in_proj shard", 768, 1816),
+                       ("deepseek q shard", 2048, 1536),
+                       ("deepseek kv_b shard", 512, 2048),
+                       ("seamless q shard", 1024, 512)):
         w = randn((k, d), 1 / math.sqrt(k))
         for n in (4, 2048):
             x = randn((n, k))
@@ -6816,8 +6845,13 @@ def mp_kernel_rows(torch, args):
             row["walk"] = dmm_ops.walk(n, k, d, dt).name
             rows.append(row)
             del sets
-    for name, b_, s_, h, kvh, dh in (("llama heads shard", 4, 512, 16, 4, 64),
-                                     ("glm4 heads shard", 4, 512, 8, 1, 128)):
+    for name, b_, s_, h, kvh, dh in (
+            ("llama heads shard", 4, 512, 16, 4, 64),
+            ("glm4 heads shard", 4, 512, 8, 1, 128),
+            ("deepseek MLA heads shard", MP_MIXER_BATCH, MP_MIXER_SEQ, 8,
+             8, 192),
+            ("seamless heads shard", MP_MIXER_BATCH, MP_MIXER_SEQ, 8, 8,
+             64)):
         spec = attention.attn_spec(s_, s_, dh, causal=True, tile_q=128,
                                    tile_kv=128)
         walk, el = spec.walk(torch.device("cuda", 0)), \
@@ -7169,6 +7203,375 @@ def mp_phase(torch, args):
                 phase_s=time.perf_counter() - t0)
 
 
+# [mp]'s mixers at full width on the (1, MP_RANKS) mesh: (label, arch,
+# decoder layers or None for full depth (trained and served in bf16),
+# encoder layers, and the dtype its prefill logits and teacher-forced ids
+# are held to one process's in: mamba2's 24 bf16 SSD layers amplify
+# one-ulp roundings past the bf16 budget (the ranks' bf16 partial sums
+# are such roundings; `tests/test_torch_hybrid.py`
+# `test_bf16_gap_at_mamba2_depth_is_the_dtype_s`), so its checks run on
+# an fp32 copy at the same seed, within LOGITS_TOL_FP32
+MP_MIXERS = (("deepseek-v2-lite", DEEPSEEK, 2, None, "bfloat16"),
+             ("mamba2-130m", MAMBA2, None, None, "float32"),
+             ("seamless-m4t-medium", SEAMLESS, 2, 2, "bfloat16"))
+MP_MIXER_BATCH, MP_MIXER_SEQ, MP_MIXER_FRAMES = 2, 256, 256
+MP_MIXER_PROMPTS = (40, 77, 128)
+
+
+def mp_mixer_cfg(arch, layers, enc_layers):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.profile_train import cut_depth
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = cut_depth(cfg, layers)
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, encoder_layers=enc_layers)
+    return cfg
+
+
+def mp_mixer_frames(cfg, batch, seed):
+    """Seeded encoder frames ``[batch, MP_MIXER_FRAMES, D]`` (numpy fp32)
+    for a config with an encoder, else None."""
+    import numpy as np
+    if not cfg.encoder_layers:
+        return None
+    return np.random.default_rng(seed).standard_normal(
+        (batch, MP_MIXER_FRAMES, cfg.d_model), dtype=np.float32)
+
+
+def mp_mixer_serve(torch, lm, cfg, reqs, mesh, seed):
+    """Greedy tokens of ``reqs``: the eager ``Engine`` (on ``mesh``), or
+    for a cross stack, which the engine refuses, ``prefill(enc_frames=)``
+    and ``decode_step`` a request at a time; and the first layer's cache
+    shapes."""
+    import numpy as np
+
+    from repro_torch.serve import Engine
+    from repro_torch.sharding import rules
+    frames = mp_mixer_frames(cfg, 1, seed + 5)
+    kw = {} if frames is None else {"enc_frames": frames}
+    with rules.activation_mesh(mesh, batch_split=False):
+        if frames is None:
+            eng = Engine(lm, device="cuda", batch=len(reqs),
+                         max_len=MP_MAX_LEN, mesh=mesh, graphs=False)
+            eng.run(reqs)
+            heads = {k: list(v.shape) for k, v in eng.caches[0].items()}
+            del eng
+            gc.collect()
+            return [r.output for r in reqs], heads
+        out = []
+        for r in reqs:
+            lg, caches = lm.prefill(r.prompt[None, :], max_len=MP_MAX_LEN,
+                                    **kw)
+            toks = []
+            for i in range(MP_NEW_TOKENS):
+                toks.append(int(torch.argmax(lg[0])))
+                lg, caches = lm.decode_step(
+                    np.asarray([[toks[-1]]]), caches,
+                    np.asarray([len(r.prompt) + i]))
+            r.output = toks
+            out.append(toks)
+        heads = {k: list(v.shape) for k, v in caches[0].items()}
+        return out, heads
+
+
+def mp_mixer_forced(torch, lm, cfg, seqs, mesh, seed):
+    """``forced_greedy`` under ``mesh`` (the MoE layers read it), with a
+    cross stack's frames."""
+    from repro_torch.sharding import rules
+    frames = mp_mixer_frames(cfg, 1, seed + 5)
+    kw = {} if frames is None else {"enc_frames": frames}
+    with rules.activation_mesh(mesh, batch_split=False):
+        return [lm(seq[None, :], **kw)[0].argmax(dim=-1).cpu()
+                for seq in seqs]
+
+
+def mp_mixer_checked(torch, lm, cfg, check, prompt, seqs, mesh, seed):
+    """What [mp]'s mixers hold against one process: ``prompt``'s prefill
+    logits and the teacher-forced greedy ids on ``seqs``, from ``lm``,
+    or from an fp32 copy at the same seed where ``check`` says so."""
+    import dataclasses
+
+    from repro_torch.models.model import LM
+    from repro_torch.sharding import rules
+    if check != cfg.dtype:
+        cfg = dataclasses.replace(cfg, dtype=check)
+        lm = LM(cfg, device="cuda", seed=seed, mesh=mesh)
+    frames = mp_mixer_frames(cfg, 1, seed + 5)
+    kw = {} if frames is None else {"enc_frames": frames}
+    with rules.activation_mesh(mesh, batch_split=False):
+        logits, _ = lm.prefill(prompt[None, :], max_len=MP_MAX_LEN, **kw)
+    return (logits.float().cpu(),
+            mp_mixer_forced(torch, lm, cfg, seqs, mesh, seed))
+
+
+def mp_mixer_train(torch, cfg, args, mesh=None):
+    """``MP_STEPS`` eager ``train_loop`` steps of ``cfg`` (a cross stack
+    with seeded frames): ``(state, losses)``."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainHParams
+    frames = mp_mixer_frames(cfg, MP_MIXER_BATCH, args.seed + 9)
+    return train_loop(
+        cfg, steps=MP_STEPS, batch_per_shard=MP_MIXER_BATCH,
+        seq=MP_MIXER_SEQ, ckpt_dir=None, hp=TrainHParams(**TRAIN_HP),
+        device="cuda", log_every=10 ** 9, seed=args.seed, graphs=False,
+        float_inputs=None if frames is None else
+        (lambda step: {"enc_frames": frames}), mesh=mesh)
+
+
+def params_gib(params) -> float:
+    return sum(p.numel() * p.element_size() for p in params) / 2 ** 30
+
+
+def mp_mixer_requests(cfg, seed):
+    reqs = mp_requests(cfg, seed)[:len(MP_MIXER_PROMPTS)]
+    for r, n in zip(reqs, MP_MIXER_PROMPTS):
+        r.prompt = r.prompt[:n]
+    return reqs
+
+
+def mp_mixer_job(torch, rank, world, job):
+    """[mp]'s mixers on one rank of the (1, world) mesh, model by model:
+    ``MP_STEPS`` eager train steps (counters zeroed just before, read
+    just after), the bytes the rank holds, then from the seed the served
+    tokens (counters zeroed and read) and the caches' shapes, and the
+    first prompt's prefill logits and teacher-forced greedy ids on one
+    process's served sequences in the model's check dtype
+    (``mp_mixer_checked``)."""
+    from repro_torch.kernels import bs_attn, dense_mm, gmm
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.model import LM
+    mesh = make_device_mesh("cuda", (1, world), ("data", "model"))
+    counters = with_walks({"dense_mm": dense_mm.COUNTER,
+                           "bs_attn": bs_attn.COUNTER, "gmm": gmm.COUNTER})
+    args, outs = job["args"], {}
+    for (label, arch, layers, enc, check), seqs in zip(MP_MIXERS,
+                                                       job["seqs"]):
+        cfg = mp_mixer_cfg(arch, layers, enc)
+        times = timed_steps(torch)
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        state, losses = mp_mixer_train(torch, cfg, args, mesh)
+        torch.cuda.synchronize()
+        launches, walks = split_walks({k: c.launches
+                                       for k, c in counters.items()})
+        lay = state.layout
+        out = dict(losses=losses, launches=launches, walks=walks,
+                   train_s=time.perf_counter() - t0, step_ms=list(times),
+                   params_gib=params_gib(state.params.values()),
+                   held_gib=params_gib(state.params[n] for n in lay.held),
+                   held=sorted(lay.held), partial=sorted(lay.partial),
+                   shares={n: state.params[n].numel()
+                           / math.prod(lay.place[n].block.shape)
+                           for n in lay.held},
+                   peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del state, lay
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm = LM(cfg, device="cuda", seed=args.seed, mesh=mesh)
+        reqs = mp_mixer_requests(cfg, args.seed)
+        for c in counters.values():
+            c.reset()
+        out["tokens"], out["cache"] = mp_mixer_serve(
+            torch, lm, cfg, reqs, mesh, args.seed)
+        torch.cuda.synchronize()
+        out["serve_launches"], out["serve_walks"] = split_walks(
+            {k: c.launches for k, c in counters.items()})
+        out["forced_own"] = mp_mixer_forced(torch, lm, cfg,
+                                            served_seqs(reqs), mesh,
+                                            args.seed)
+        out["prefill_logits"], out["forced"] = mp_mixer_checked(
+            torch, lm, cfg, check, reqs[0].prompt, seqs, mesh, args.seed)
+        outs[label] = out
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    return outs
+
+
+def mp_mixer_phase(torch, args):
+    """[mp]'s mixers: deepseek-v2-lite at 2 layers (its dense layer and
+    one MoE layer: MLA at 8 of 16 heads a rank, dh 192), mamba2-130m at
+    full depth (12 of 24 SSD heads a rank; the in projection's block
+    1816 of 3352 columns) and seamless-m4t-medium at 2 + 2 layers (the
+    encoder's and the cross attention's 8 of 16 heads a rank), each at
+    full width, bf16, split over the (1, 2) mesh of 2 gloo ranks of this
+    card, against one process in this process: ``MP_STEPS`` eager
+    ``train_loop`` steps of ``MP_MIXER_BATCH`` x ``MP_MIXER_SEQ`` (a
+    cross stack with seeded frames), then the served requests
+    (``MP_MIXER_PROMPTS``; ``Engine(mesh=, graphs=False)``, a cross
+    stack by ``prefill`` / ``decode_step``).  Fails unless every loss is
+    within bf16 2e-2 of one process's, the first prompt's prefill logits
+    within ``CONSISTENCY_TOL`` (mamba2: an fp32 copy's within
+    ``LOGITS_TOL_FP32``, its ids too, ``MP_MIXERS``), at least
+    ``MP_FORCED_EQUAL`` of the
+    teacher-forced greedy ids on one process's served sequences equal
+    one process's and, without MoE (whose decode drops other
+    assignments than its forward), of the rank's tokens its own
+    forward's; the ranks' tokens equal each other's; every
+    split mixer's parameters are held (MLA's q / kv_b / wo, Mamba-2's
+    in / out projections, conv and heads, the cross and encoder
+    projections), the caches hold the rank's heads (MLA's latent whole),
+    dense_mm launched on its 16-bit walks, bs_attn (deepseek, seamless)
+    and gmm (deepseek) on wgmma, in the steps and in serving.  Prints
+    each rank's held and whole parameter GiB against one process's."""
+    from repro_torch.models.model import LM
+    t0 = time.perf_counter()
+    ones, all_seqs = {}, []
+    for label, arch, layers, enc, check in MP_MIXERS:
+        cfg = mp_mixer_cfg(arch, layers, enc)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses = mp_mixer_train(torch, cfg, args)
+        one = dict(losses=losses, params_gib=params_gib(
+            state.params.values()),
+            peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        lm = LM(cfg, device="cuda", seed=args.seed)
+        reqs = mp_mixer_requests(cfg, args.seed)
+        one["tokens"], one["cache"] = mp_mixer_serve(
+            torch, lm, cfg, reqs, None, args.seed)
+        seqs = served_seqs(reqs)
+        one["prefill_logits"], one["forced"] = mp_mixer_checked(
+            torch, lm, cfg, check, reqs[0].prompt, seqs, None, args.seed)
+        ones[label] = one
+        all_seqs.append(seqs)
+        del lm
+        gc.collect()
+        torch.cuda.empty_cache()
+    outs = run_ranks(torch, "mp-mixers", shard_rank_main, MP_RANKS,
+                     "mp_mixers", dict(args=args, seqs=all_seqs))
+    tol = KERNEL_TOL["bfloat16"]
+    want_held = {"deepseek-v2-lite": ("attn.q.w.w", "attn.kv_b.w",
+                                      "attn.wo.w"),
+                 "mamba2-130m": ("mixer.in_proj.w", "mixer.out_proj.w",
+                                 "mixer.conv_w", "mixer.conv_b",
+                                 "mixer.dt_bias", "mixer.A_log",
+                                 "mixer.D", "mixer.norm.scale"),
+                 "seamless-m4t-medium": ("cross.wq.w", "cross.wk.w",
+                                         "cross.wv.w", "cross.wo.w")}
+    kernels = {"deepseek-v2-lite": ("dense_mm", "bs_attn", "gmm"),
+               "mamba2-130m": ("dense_mm",),
+               "seamless-m4t-medium": ("dense_mm", "bs_attn")}
+    for label, arch, layers, enc, check in MP_MIXERS:
+        cfg = mp_mixer_cfg(arch, layers, enc)
+        one = ones[label]
+        logits_tol = (LOGITS_TOL_FP32 if check == "float32"
+                      else CONSISTENCY_TOL)
+        gen = [slice(n - 1, None) for n in MP_MIXER_PROMPTS]
+        for r, rank_outs in enumerate(outs):
+            o = rank_outs[label]
+            tag = f"[mp] {label} rank {r}"
+            o["loss_errs"] = [abs(a - b) / abs(b)
+                              for a, b in zip(o["losses"], one["losses"])]
+            o["prefill_err"] = rel_err(o.pop("prefill_logits"),
+                                       one["prefill_logits"])[0]
+            n_pos = sum(len(w) for w in one["forced"])
+            o["forced_equal"] = sum(
+                int((a == b).sum()) for a, b in zip(o.pop("forced"),
+                                                    one["forced"])) / n_pos
+            o["engine_forced_equal"] = sum(
+                int((f[g] == torch.as_tensor(t)).sum())
+                for f, g, t in zip(o.pop("forced_own"), gen, o["tokens"])) \
+                / sum(len(t) for t in o["tokens"])
+            o["tokens_equal"] = sum(a == b for t, u in zip(o["tokens"],
+                                                           one["tokens"])
+                                    for a, b in zip(t, u))
+            # an MoE's decode takes its capacity from the decode batch,
+            # its forward from the sequence: they drop different
+            # assignments, so its engine is not held to its forward; nor
+            # is a bf16 stack whose checks run in fp32 (the depth
+            # amplifies the decode's roundings as the ranks')
+            own = (o["engine_forced_equal"]
+                   if cfg.moe is None and check == cfg.dtype else 1.0)
+            if len(o["losses"]) != MP_STEPS \
+                    or not max(o["loss_errs"]) <= tol \
+                    or not o["prefill_err"] <= logits_tol \
+                    or not o["forced_equal"] >= MP_FORCED_EQUAL \
+                    or not own >= MP_FORCED_EQUAL:
+                raise RuntimeError(
+                    f"{tag}: losses {o['losses']} vs one process "
+                    f"{one['losses']} (budget {tol}), prefill logits "
+                    f"{o['prefill_err']:.3g} in {check} (budget "
+                    f"{logits_tol}), "
+                    f"teacher-forced ids equal {o['forced_equal']:.4f}, "
+                    f"engine tokens vs its forward "
+                    f"{o['engine_forced_equal']:.4f} (at least "
+                    f"{MP_FORCED_EQUAL})")
+            missing = [k for k in want_held[label]
+                       if not any(n.endswith(k) for n in o["held"])]
+            if missing:
+                raise RuntimeError(f"{tag}: split mixer parameters not "
+                                   f"held: {missing}")
+            for k in kernels[label]:
+                for what, lc in (("steps", o["launches"]),
+                                 ("serving", o["serve_launches"])):
+                    if lc.get(k, 0) <= 0:
+                        raise RuntimeError(f"{tag}: {k} not launched in "
+                                           f"the {what}: {lc}")
+            for walks in (o["walks"], o["serve_walks"]):
+                check_dense_mm_walks("mp", walks)
+                check_tensor_core_walks("mp", walks)
+            cache = o["cache"]
+            if "state" in cache and cache["state"][1] != \
+                    cfg.ssm.num_heads(cfg.d_model) // MP_RANKS \
+                    or "latent" in cache and \
+                    cache["latent"] != one["cache"]["latent"] \
+                    or "xk" in cache and \
+                    cache["xk"][2] != cfg.num_kv_heads // MP_RANKS:
+                raise RuntimeError(f"{tag}: caches {cache} do not hold the "
+                                   f"rank's heads (one process "
+                                   f"{one['cache']})")
+            if not o["params_gib"] < one["params_gib"]:
+                raise RuntimeError(f"{tag}: holds {o['params_gib']:.3f} "
+                                   f"GiB of parameters, one process "
+                                   f"{one['params_gib']:.3f}")
+        if outs[1][label]["tokens"] != outs[0][label]["tokens"]:
+            raise RuntimeError(f"[mp] {label}: the ranks' tokens differ")
+        del one["prefill_logits"], one["forced"]
+    return dict(one_process=ones, ranks=outs,
+                phase_s=time.perf_counter() - t0)
+
+
+def print_mp_mixers(mx):
+    import numpy as np
+    for label, one in mx["one_process"].items():
+        print(f"[mp] {label} one process: losses "
+              f"{[round(v, 5) for v in one['losses']]}; bf16 parameters "
+              f"{one['params_gib']:.3f} GiB; peak {one['peak_gib']:.2f} GiB;"
+              f" caches {json.dumps(one['cache'])}")
+        n_tok = sum(len(t) for t in one["tokens"])
+        for r, rank_outs in enumerate(mx["ranks"]):
+            o = rank_outs[label]
+            shares = sorted({round(v, 4) for v in o["shares"].values()})
+            print(f"[mp] {label} rank {r} mesh (1, {MP_RANKS}): losses "
+                  f"{[round(v, 5) for v in o['losses']]} (rel "
+                  f"{[float(f'{e:.2e}') for e in o['loss_errs']]}); step "
+                  f"p50 {float(np.median(o['step_ms'])):.1f} ms; "
+                  f"parameters {o['params_gib']:.3f} GiB a rank against "
+                  f"one process's {one['params_gib']:.3f} (held blocks "
+                  f"{o['held_gib']:.3f} GiB, {len(o['held'])} tensors, "
+                  f"shares {shares}; partial {len(o['partial'])}); peak "
+                  f"{o['peak_gib']:.2f} GiB against one process's "
+                  f"{one['peak_gib']:.2f}; prefill logits vs one process "
+                  f"{o['prefill_err']:.2e}; teacher-forced ids equal "
+                  f"{o['forced_equal']:.4f}, tokens vs the rank's forward "
+                  f"{o['engine_forced_equal']:.4f}, equal to one process's "
+                  f"{o['tokens_equal']} of {n_tok}; caches "
+                  f"{json.dumps(o['cache'])}; launches "
+                  f"{json.dumps(o['launches'])}; by walk "
+                  f"{json.dumps(o['walks'])}; serving "
+                  f"{json.dumps(o['serve_launches'])}")
+    print(f"[mp] mixers phase {mx['phase_s']:.1f} s")
+
+
 def print_mp(mp):
     import numpy as np
     for r in mp["kernel_rows"]:
@@ -7238,7 +7641,8 @@ def margin_job(torch, rank, world, job):
 
 
 SHARD_JOBS = {"dp": dp_job, "ep": ep_job, "ep_gspmd": ep_gspmd_job,
-              "mp": mp_job, "margins": margin_job}
+              "mp": mp_job, "mp_mixers": mp_mixer_job,
+              "margins": margin_job}
 
 
 def margins_phase(torch, seeds):
@@ -7249,11 +7653,10 @@ def margins_phase(torch, seeds):
     losses over ``TRAIN_STEPS`` steps and over ``MAMBA2_TRAIN_STEPS`` (the
     schedule stretched to the run), the falls and whether the phase's
     check passes."""
-    from repro_torch import configs
     from repro_torch.launch.train import train_loop
     from repro_torch.train.step import TrainHParams
 
-    cfg = configs.sparsify_ffn(configs.get("llama3_2_1b"), 1 / 8)
+    cfg = dp_cfg()
     out = {"dp_first_loss": {}, "mamba2": {}}
     for seed in seeds:
         gc.collect()
@@ -7937,6 +8340,8 @@ def main(argv=None) -> int:
     live_gib["mp"] = torch.cuda.memory_allocated() / 2 ** 30
     mp = mp_phase(torch, args)
     print_mp(mp)
+    mx = mp_mixer_phase(torch, args)
+    print_mp_mixers(mx)
 
     # name -> (source, replaces, the row the line reports, its path)
     sources = {"bsmm": ("src/repro_torch/kernels/bsmm/csrc/bsmm.cu",
@@ -7981,6 +8386,9 @@ def main(argv=None) -> int:
                "ep": ep["ranks"][0]["launches"],
                "mp": mp["ranks"][0]["launches"],
                "mp_serve": mp["ranks"][0]["serve_launches"]}
+    for label, o in mx["ranks"][0].items():
+        by_path[f"mp {label}"] = o["launches"]
+        by_path[f"mp_serve {label}"] = o["serve_launches"]
     walks_by_path = {"serve": serve["walks"], "train": train["walks"],
                      "table3": table3_walks, "race": race_walks,
                      "dynamic": dyn_walks, "evolve": evo["walks"],
@@ -8004,6 +8412,9 @@ def main(argv=None) -> int:
                      "ep": ep["ranks"][0]["walks"],
                      "mp": mp["ranks"][0]["walks"],
                      "mp_serve": mp["ranks"][0]["serve_walks"]}
+    for label, o in mx["ranks"][0].items():
+        walks_by_path[f"mp {label}"] = o["walks"]
+        walks_by_path[f"mp_serve {label}"] = o["serve_walks"]
     kernels = []
     for name, (source, replaces, (shape, n), path) in sources.items():
         # serving kernels at the decode shape (their most frequent
@@ -8166,7 +8577,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, "torch": torch.__version__,
+            json.dump(jsonable({"card": card, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build_s": built,
                        "kernel_rows": rows, "serve": serve,
                        "consistency": errs, "grads": grads, "train": train,
@@ -8180,13 +8591,13 @@ def main(argv=None) -> int:
                        "vlm_internvl2": vlm, "serve_seamless": sea,
                        "train_seamless": ts, "long": lg,
                        "serve_long": sl, "tp": tp, "dp": dp, "ep": ep,
-                       "mp": mp, "dryrun": dry,
+                       "mp": mp, "mp_mixers": mx, "dryrun": dry,
                        "kernels": kernels,
                        "replan": replan, "roofline": roof,
                        "evolve": evo, "evolve_serve": evolve_serve,
                        "calibrate": cal, "corpus": corpus,
                        "live_gib": live_gib,
-                       "capture_stream_mib": streams}, f,
+                       "capture_stream_mib": streams}), f,
                       indent=1)
 
     print(f"[env] run {time.perf_counter() - t_run:.1f} s, kernel builds "

@@ -16,8 +16,10 @@ Counterpart of the JAX package's ``checkpoint/checkpoint.py``:
   ``Checkpointer.save_async`` of a state sharded over a concrete mesh
   (``mesh=`` and ``specs=``, a tree of ``PartitionSpec`` or
   ``launch.mesh.Block`` beside the tree: how each leaf is held) gathers
-  the leaves whole one at a time (``launch.mesh.Block.gather``; rank 0
-  keeps a host copy), rank 0
+  the leaves whole one at a time (``launch.mesh.Block.gather``: each
+  block's writers write their part, so blocks that overlap in part, a
+  Mamba-2 rank's in projection, are written once; rank 0 keeps a host
+  copy), rank 0
   writes, and the other ranks wait at a barrier (``Checkpointer.wait``).
   ``restore(..., mesh=, specs=)`` keeps the caller's block of each
   leaf, so a checkpoint of one mesh restores onto another, one process

@@ -45,7 +45,10 @@ column-parallel projection's input through ``copy_to_group``, a
 row-parallel one's output through ``reduce_from_group``, and the
 vocabulary split over the ``"model"`` axis through ``vocab_embed``,
 ``vocab_nll`` (the cross-entropy), ``vocab_argmax`` (greedy sampling)
-and ``gather_vocab`` (whole logits).
+and ``gather_vocab`` (whole logits).  ``sum_over_group`` (a value every
+rank's part reads, summed forward and backward), ``gather_dim`` (a
+tensor split on one dim, whole) and ``rms_norm_split`` (an RMS norm over
+split heads, Mamba-2's gated norm) serve the MoE layers and the mixers.
 """
 from __future__ import annotations
 
@@ -109,11 +112,86 @@ class _ReduceFromGroup(torch.autograd.Function):
 
 
 def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
-    return _CopyToGroup.apply(x, group)
+    """``_CopyToGroup`` over ``group`` (``x`` itself without one: a layer
+    held whole)."""
+    return x if group is None else _CopyToGroup.apply(x, group)
 
 
 def reduce_from_group(y: torch.Tensor, group) -> torch.Tensor:
-    return _ReduceFromGroup.apply(y, group)
+    """``_ReduceFromGroup`` over ``group`` (``y`` itself without one)."""
+    return y if group is None else _ReduceFromGroup.apply(y, group)
+
+
+class _GatherDim(torch.autograd.Function):
+    """The whole of a tensor split on ``dim`` over ``group`` (this rank's
+    part at ``idx`` of ``n``): forward an all-gather, backward a
+    reduce-scatter (the gradient summed over the group, this rank's part
+    kept).  Both are an all-reduce of the whole, zeros beside this rank's
+    part forward, so one collective serves every backend (gloo reduces
+    card tensors, it does not gather them)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, idx, n):
+        import torch.distributed as dist
+        ctx.group, ctx.dim, ctx.idx, ctx.size = group, dim, idx, x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] *= n
+        out = x.new_zeros(shape)
+        out.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return (g.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size).contiguous(),
+                None, None, None, None)
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """The sum over ``group`` of a value each rank computed: forward and
+    backward an all-reduce.  The sum enters every rank's loss, so the
+    gradient of a rank's part is the sum of every rank's: summed over
+    the ranks (the data-parallel step averages it), the gradients are
+    those of the sum of the ranks' losses."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
+    return _SumOverGroup.apply(x, group)
+
+
+def gather_dim(x: torch.Tensor, group, dim: int, idx: int,
+               n: int) -> torch.Tensor:
+    return _GatherDim.apply(x, group, dim, idx, n)
+
+
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, d: int, group, *,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rms_norm`` over a last dim of ``d`` split across ``group``
+    (``x`` and ``scale`` this rank's part): each rank's sum of squares
+    summed over the group (``sum_over_group``: forward and backward an
+    all-reduce, since every rank's part reads the whole sum), fp32,
+    returned in ``x``'s dtype."""
+    xf = x.float()
+    ss = sum_over_group(torch.sum(xf * xf, dim=-1, keepdim=True), group)
+    return (xf * torch.rsqrt(ss / d + eps) * scale).to(x.dtype)
 
 
 # -- model parallelism over a vocabulary split on the "model" axis ------------

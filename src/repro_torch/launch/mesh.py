@@ -185,6 +185,16 @@ def gather_block(t, shape: Sequence[int], spec, mesh):
     return Block.of(shape, spec, mesh).gather(t, mesh)
 
 
+def _index_key(index, like):
+    """``index`` (slices, and int64 arrays) as a key into ``like``."""
+    if isinstance(like, np.ndarray):
+        return tuple(index)
+    import torch
+    return tuple(ix if isinstance(ix, slice) else
+                 torch.as_tensor(ix, dtype=torch.long, device=like.device)
+                 for ix in index)
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class Block:
     """The part of a tensor of whole ``shape`` that a rank holds:
@@ -194,12 +204,17 @@ class Block:
     along which ranks hold different blocks.  A ``PartitionSpec``'s
     block is ``Block.of(shape, spec, mesh)``; a model-parallel LM also
     holds blocks no spec gives (a k-shard's blocks of a sparse FFN, the
-    KV heads a rank's query heads read)."""
+    KV heads a rank's query heads read, a Mamba-2 rank's heads' columns
+    of its in projection beside the columns every head reads).
+    ``write``: where several ranks' blocks overlap in part, the part an
+    owner writes back, ``(its index in the whole tensor, its index in
+    the block)``; None: the whole block."""
 
     shape: Tuple[int, ...]
     index: tuple
     owner: bool = True
     axes: Tuple[str, ...] = ()
+    write: Optional[tuple] = None
 
     @classmethod
     def of(cls, shape: Sequence[int], spec, mesh) -> "Block":
@@ -217,13 +232,7 @@ class Block:
                      for ix, d in zip(self.index, self.shape))
 
     def _key(self, like):
-        if isinstance(like, np.ndarray):
-            return tuple(self.index)
-        import torch
-        return tuple(ix if isinstance(ix, slice) else
-                     torch.as_tensor(ix, dtype=torch.long,
-                                     device=like.device)
-                     for ix in self.index)
+        return _index_key(self.index, like)
 
     def take(self, t):
         """This block of the whole ``t`` (a tensor or an array)."""
@@ -233,13 +242,21 @@ class Block:
         """Write ``blk`` into its place in ``whole``."""
         whole[self._key(whole)] = blk
 
+    def written(self, blk):
+        """The part of the held ``blk`` an owner writes back."""
+        if self.write is None:
+            return blk
+        return blk[_index_key(self.write[1], blk)]
+
     def gather(self, t, mesh):
         """The whole tensor from every rank's block ``t``: zeros beside
-        the block's one writer, all-reduced over the mesh (every rank
-        calls it)."""
+        the block's writers (each writes its ``written`` part),
+        all-reduced over the mesh (every rank calls it)."""
         import torch.distributed as dist
         whole = t.new_zeros(self.shape)
-        if self.owner:
+        if self.owner and self.write is not None:
+            whole[_index_key(self.write[0], whole)] = self.written(t)
+        elif self.owner:
             self.put(whole, t)
         group = axes_group(mesh, mesh_axes(mesh)[0])
         if group is not None:

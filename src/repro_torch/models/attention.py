@@ -34,6 +34,12 @@ applied before caching; ``GQA.decode`` updates them in place.  An MLA
 layer caches ``{"latent", "k_rope"}`` (``[B, S, kv_lora_rank]`` and the
 roped ``[B, S, qk_rope_dim]``) and decodes against the latent with the
 key and value up-projections absorbed, in fp32, as the reference does.
+
+On a model-parallel mesh (a concrete mesh whose ``"model"`` axis has
+m > 1 ranks) every mixer here computes its rank's heads where they
+split (``head_split`` for GQA and cross attention; m dividing MLA's
+heads): column-parallel projections behind ``core.tp.copy_to_group``, a
+row-parallel ``wo`` whose output is all-reduced; else it runs whole.
 """
 from __future__ import annotations
 
@@ -314,6 +320,56 @@ def head_split(num_heads: int, num_kv_heads: int, m: int, r: int):
     return h0, hl, k0, k1 - k0, g > hl
 
 
+def ssd_head_split(num_heads: int, m: int, r: int):
+    """Rank ``r`` of ``m`` on the ``"model"`` axis: ``(its SSD heads
+    [h0, h0 + hl), hl)`` of a Mamba-2 mixer (no KV groups to keep); None
+    where the heads do not divide m (the mixer then runs whole on every
+    rank)."""
+    if m <= 1 or num_heads % m:
+        return None
+    hl = num_heads // m
+    return r * hl, hl
+
+
+def qkv_held(cfg, mesh, *, bias: bool):
+    """The model-parallel split of a ``wq``/``wk``/``wv``/``wo`` mixer
+    (GQA, cross attention) on ``mesh``: ``(group, split, held)`` with
+    ``split`` ``head_split``'s and ``held`` the projections' blocks by
+    module name, or ``(None, None, {})`` where it runs whole (no
+    ``"model"`` axis past 1, or heads that do not split)."""
+    m = rules.model_split(mesh)
+    if m <= 1:
+        return None, None, {}
+    group, r = tp_lib.tp_group(mesh, "model")
+    split = head_split(cfg.num_heads, cfg.num_kv_heads, m, r)
+    if split is None:
+        return None, None, {}
+    d, dh = cfg.d_model, cfg.head_dim
+    qd, kvd = cfg.attn_dims
+    h0, _, k0, kv_heads, shared = split
+    leaves = (("w", (d, qd), (d, kvd)),) + (
+        (("b", (qd,), (kvd,)),) if bias else ())
+    held = {"wq": {k: rules.held_block(f"wq.{k}", q_shape, mesh)
+                   for k, q_shape, _ in leaves},
+            "wo": {"w": rules.held_block("wo.w", (qd, d), mesh)}}
+    if shared:
+        # the first rank reading a KV head writes it back
+        first = h0 % (cfg.num_heads // cfg.num_kv_heads) == 0
+        owner = first and owns_block(mesh, P("model"))
+        cols = slice(k0 * dh, (k0 + kv_heads) * dh)
+        kv = {k: Held.whole(Block(
+            shape, (slice(None),) * (len(shape) - 1) + (cols,),
+            owner, ("model",)), partial=True)
+            for k, _, shape in leaves}
+    else:
+        # the rule's blocks hold whole heads: H and (unshared) KV divide
+        # by m
+        kv = {k: rules.held_block(f"wk.{k}", shape, mesh)
+              for k, _, shape in leaves}
+    held["wk"] = held["wv"] = kv
+    return group, split, held
+
+
 class GQA(nn.Module):
     """Grouped-query attention (``gqa_init``): ``wq``/``wk``/``wv``/``wo``
     dense projections, optional per-head q/k RMS norms.  ``local=True``
@@ -344,37 +400,10 @@ class GQA(nn.Module):
         dh = cfg.head_dim
         self.cfg = cfg
         self.causal = causal
-        self.group = None
         self.heads, self.kv_heads = cfg.num_heads, cfg.num_kv_heads
-        held: Dict[str, dict] = {}
-        m = rules.model_split(mesh)
-        split = None
-        if m > 1:
-            group, r = tp_lib.tp_group(mesh, "model")
-            split = head_split(cfg.num_heads, cfg.num_kv_heads, m, r)
+        self.group, split, held = qkv_held(cfg, mesh, bias=cfg.qkv_bias)
         if split is not None:
-            self.group = group
-            h0, self.heads, k0, self.kv_heads, shared = split
-            leaves = (("w", (d, qd), (d, kvd)),) + (
-                (("b", (qd,), (kvd,)),) if cfg.qkv_bias else ())
-            held["wq"] = {k: rules.held_block(f"wq.{k}", q_shape, mesh)
-                          for k, q_shape, _ in leaves}
-            held["wo"] = {"w": rules.held_block("wo.w", (qd, d), mesh)}
-            if shared:
-                # the first rank reading a KV head writes it back
-                first = h0 % (cfg.num_heads // cfg.num_kv_heads) == 0
-                owner = first and owns_block(mesh, P("model"))
-                cols = slice(k0 * dh, (k0 + self.kv_heads) * dh)
-                kv = {k: Held.whole(Block(
-                    shape, (slice(None),) * (len(shape) - 1) + (cols,),
-                    owner, ("model",)), partial=True)
-                    for k, _, shape in leaves}
-            else:
-                kv = {k: rules.held_block(f"wk.{k}", shape, mesh)
-                      for k, _, shape in leaves}
-            # the rule's blocks hold whole heads: H and (unshared) KV
-            # divide by m
-            held["wk"] = held["wv"] = kv
+            _, self.heads, _, self.kv_heads, _ = split
         self.wq = Dense(d, qd, bias=cfg.qkv_bias, dtype=dtype, device=device,
                         held=held.get("wq"))
         self.wk = Dense(d, kvd, bias=cfg.qkv_bias, dtype=dtype,
@@ -490,23 +519,39 @@ class CrossAttention(nn.Module):
     ``wv``, ``wo`` without biases (also under ``qkv_bias``), no RoPE, no
     soft-cap, scale ``1 / sqrt(head_dim)``.  The queries attend over the
     whole memory through ``attend_train(causal=False)``: bs_attn on a
-    card at prefill (S x T) and at decode (1 x T)."""
+    card at prefill (S x T) and at decode (1 x T).
 
-    def __init__(self, cfg, *, dtype: torch.dtype, device=None):
+    On a model-parallel ``mesh`` it splits as GQA does (``qkv_held``):
+    ``wq``/``wk``/``wv`` column-parallel, the decoder's rows and the
+    encoder's memory through ``copy_to_group``, ``wo`` row-parallel and
+    all-reduced; ``kv`` returns (and a cross cache holds) the rank's KV
+    heads."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None, mesh=None):
         super().__init__()
         d = cfg.d_model
         qd, kvd = cfg.attn_dims
         self.cfg = cfg
-        self.wq = Dense(d, qd, dtype=dtype, device=device)
-        self.wk = Dense(d, kvd, dtype=dtype, device=device)
-        self.wv = Dense(d, kvd, dtype=dtype, device=device)
-        self.wo = Dense(qd, d, dtype=dtype, device=device)
+        self.heads, self.kv_heads = cfg.num_heads, cfg.num_kv_heads
+        self.group, split, held = qkv_held(cfg, mesh, bias=False)
+        if split is not None:
+            _, self.heads, _, self.kv_heads, _ = split
+        self.wq = Dense(d, qd, dtype=dtype, device=device,
+                        held=held.get("wq"))
+        self.wk = Dense(d, kvd, dtype=dtype, device=device,
+                        held=held.get("wk"))
+        self.wv = Dense(d, kvd, dtype=dtype, device=device,
+                        held=held.get("wv"))
+        self.wo = Dense(qd, d, dtype=dtype, device=device,
+                        held=held.get("wo"))
 
     def kv(self, memory: torch.Tensor):
-        """``cross_kv``: the memory's K and V ``[B, T, KV, dh]``, computed
-        once a prefill and read by every decode step."""
+        """``cross_kv``: the memory's K and V ``[B, T, KV, dh]`` (the
+        rank's KV heads), computed once a prefill and read by every
+        decode step."""
         b_, t, _ = memory.shape
-        kv, dh = self.cfg.num_kv_heads, self.cfg.head_dim
+        kv, dh = self.kv_heads, self.cfg.head_dim
+        memory = tp_lib.copy_to_group(memory, self.group)
         return (self.wk(memory).reshape(b_, t, kv, dh),
                 self.wv(memory).reshape(b_, t, kv, dh))
 
@@ -515,11 +560,13 @@ class CrossAttention(nn.Module):
         """``cross_apply``: x ``[B, S, D]`` over the memory's K/V."""
         cfg = self.cfg
         b_, s, _ = x.shape
-        q = self.wq(x).reshape(b_, s, cfg.num_heads, cfg.head_dim)
+        q = self.wq(tp_lib.copy_to_group(x, self.group)).reshape(
+            b_, s, self.heads, cfg.head_dim)
         out = attend_train(q, k, v, causal=False,
                            scale=1.0 / np.sqrt(cfg.head_dim),
                            tile_q=cfg.attn_tile_q, tile_kv=cfg.attn_tile_kv)
-        return self.wo(out.reshape(b_, s, -1))
+        return tp_lib.reduce_from_group(self.wo(out.reshape(b_, s, -1)),
+                                        self.group)
 
 
 # ---------------------------------------------------------------------------
@@ -540,23 +587,31 @@ def mla_cache_init(cfg, batch: int, max_len: int, *,
 class _MlaQ(nn.Module):
     """MLA's query under the reference's leaf names: one projection
     ``w`` (leaf ``q.w.w``), or with a ``rank`` the low-rank ``b(norm(a(
-    x)))`` (``q.a.w``, ``q.norm.scale``, ``q.b.w``)."""
+    x)))`` (``q.a.w``, ``q.norm.scale``, ``q.b.w``).  ``held`` (by
+    module name) splits ``w`` or ``b`` column-parallel over ``group``:
+    its input enters through ``copy_to_group`` (``a`` and the norm stay
+    whole, their gradients whole on every rank)."""
 
     def __init__(self, d: int, rank: Optional[int], qd: int, *, dtype,
-                 device):
+                 device, held=None, group=None):
         super().__init__()
+        held = held or {}
         self.rank = rank
+        self.group = group
         if rank:
             self.a = Dense(d, rank, dtype=dtype, device=device)
             self.norm = RMSNorm(rank, device=device)
-            self.b = Dense(rank, qd, dtype=dtype, device=device)
+            self.b = Dense(rank, qd, dtype=dtype, device=device,
+                           held=held.get("q.b"))
         else:
-            self.w = Dense(d, qd, dtype=dtype, device=device)
+            self.w = Dense(d, qd, dtype=dtype, device=device,
+                           held=held.get("q.w"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.rank:
-            return self.b(self.norm(self.a(x)))
-        return self.w(x)
+            return self.b(tp_lib.copy_to_group(self.norm(self.a(x)),
+                                               self.group))
+        return self.w(tp_lib.copy_to_group(x, self.group))
 
 
 class MLA(nn.Module):
@@ -568,20 +623,39 @@ class MLA(nn.Module):
     The full-sequence path attends with q·k heads of ``qk_nope_dim +
     qk_rope_dim`` (the rope key broadcast to every head) and v
     zero-padded to that width and cropped after, as the reference does,
-    so bs_attn runs it at one head dim (192 for DeepSeek-V2)."""
+    so bs_attn runs it at one head dim (192 for DeepSeek-V2).
 
-    def __init__(self, cfg, *, dtype: torch.dtype, device=None):
+    On a model-parallel ``mesh`` whose ``"model"`` axis's m ranks divide
+    the heads the rank computes ``H / m`` heads
+    (``rules.mla_held_blocks``): the query's ``w`` or ``b`` and ``kv_b``
+    column-parallel, ``wo`` row-parallel and all-reduced.  ``q.a``,
+    ``kv_a`` and both norms stay whole; the normed latent, the low-rank
+    query and the rope key enter the split heads through
+    ``copy_to_group``, so their gradients are whole on every rank.  The
+    cache (latent and rope key, no heads) is whole on every rank.
+    Where the heads do not divide m the mixer runs whole."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None, mesh=None):
         super().__init__()
         d, h = cfg.d_model, cfg.num_heads
         nope, rope, v_dim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         r = cfg.kv_lora_rank
         qd = h * (nope + rope)
         self.cfg = cfg
-        self.q = _MlaQ(d, cfg.q_lora_rank, qd, dtype=dtype, device=device)
+        self.heads, self.group, held = h, None, {}
+        m = rules.model_split(mesh)
+        if m > 1 and h % m == 0:
+            self.group, _ = tp_lib.tp_group(mesh, "model")
+            self.heads = h // m
+            held = rules.mla_held_blocks(cfg, mesh)
+        self.q = _MlaQ(d, cfg.q_lora_rank, qd, dtype=dtype, device=device,
+                       held=held, group=self.group)
         self.kv_a = Dense(d, r + rope, dtype=dtype, device=device)
         self.kv_norm = RMSNorm(r, device=device)
-        self.kv_b = Dense(r, h * (nope + v_dim), dtype=dtype, device=device)
-        self.wo = Dense(h * v_dim, d, dtype=dtype, device=device)
+        self.kv_b = Dense(r, h * (nope + v_dim), dtype=dtype, device=device,
+                          held=held.get("kv_b"))
+        self.wo = Dense(h * v_dim, d, dtype=dtype, device=device,
+                        held=held.get("wo"))
         self.register_buffer(
             "rope_freqs", torch.as_tensor(
                 rope_freqs(rope, cfg.rope_theta), dtype=torch.float32,
@@ -591,29 +665,38 @@ class MLA(nn.Module):
     def scale(self) -> float:
         return 1.0 / np.sqrt(self.cfg.qk_nope_dim + self.cfg.qk_rope_dim)
 
+    def _out(self, out: torch.Tensor) -> torch.Tensor:
+        """``wo`` of the heads' outputs ``[B, S, H_loc * v_dim]``,
+        all-reduced over the split heads."""
+        return tp_lib.reduce_from_group(self.wo(out), self.group)
+
     def _q(self, x: torch.Tensor):
-        """``_mla_q``: per-head q, split into its nope and rope parts."""
+        """``_mla_q``: per-head q (the rank's heads), split into its nope
+        and rope parts."""
         b_, s, _ = x.shape
         cfg = self.cfg
-        q = self.q(x).reshape(b_, s, cfg.num_heads,
+        q = self.q(x).reshape(b_, s, self.heads,
                               cfg.qk_nope_dim + cfg.qk_rope_dim)
         return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
 
     def _kv(self, x: torch.Tensor):
         """``_mla_kv``: the normed latent ``[B, S, r]`` and the unroped
-        rope key ``[B, S, 1, rope]``."""
+        rope key ``[B, S, 1, rope]`` (on a mesh both through
+        ``copy_to_group``: every split head reads them)."""
         b_, s, _ = x.shape
         r = self.cfg.kv_lora_rank
         kv_a = self.kv_a(x)
         latent = self.kv_norm(kv_a[..., :r])
-        return latent, kv_a[..., r:].reshape(b_, s, 1, self.cfg.qk_rope_dim)
+        k_rope = kv_a[..., r:].reshape(b_, s, 1, self.cfg.qk_rope_dim)
+        return (tp_lib.copy_to_group(latent, self.group),
+                tp_lib.copy_to_group(k_rope, self.group))
 
     def _attend(self, x: torch.Tensor, positions: torch.Tensor):
         """``mla_train``'s output, with the latent and the roped key it
         computed (``mla_prefill`` caches them)."""
         cfg = self.cfg
         b_, s, _ = x.shape
-        h, nope, v_dim = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+        h, nope, v_dim = self.heads, cfg.qk_nope_dim, cfg.v_head_dim
         q_nope, q_rope = self._q(x)
         latent, k_rope = self._kv(x)
         kv = self.kv_b(latent).reshape(b_, s, h, nope + v_dim)
@@ -630,7 +713,7 @@ class MLA(nn.Module):
                            softcap=cfg.attn_softcap, tile_q=cfg.attn_tile_q,
                            tile_kv=cfg.attn_tile_kv,
                            schedule=cfg.attn_schedule)
-        y = self.wo(out[..., :v_dim].reshape(b_, s, -1))
+        y = self._out(out[..., :v_dim].reshape(b_, s, -1))
         return y, latent, k_rope
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
@@ -664,7 +747,7 @@ class MLA(nn.Module):
         torch einsums, which the reference leaves to XLA)."""
         cfg = self.cfg
         b_ = x.shape[0]
-        h, nope, r = cfg.num_heads, cfg.qk_nope_dim, cfg.kv_lora_rank
+        h, nope, r = self.heads, cfg.qk_nope_dim, cfg.kv_lora_rank
         q_nope, q_rope = self._q(x)
         latent_new, k_rope_new = self._kv(x)
         pos = positions[:, None]
@@ -692,5 +775,5 @@ class MLA(nn.Module):
         w = torch.softmax(logits, dim=-1)
         ctx = torch.einsum("bhqs,bsr->bqhr", w, lat)
         out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
-        y = self.wo(out.reshape(b_, 1, -1).to(x.dtype))
+        y = self._out(out.reshape(b_, 1, -1).to(x.dtype))
         return y, cache

@@ -46,9 +46,16 @@ from torch.utils import checkpoint as torch_checkpoint
 from repro_torch.core import tp as tp_lib
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
-from repro_torch.models.attention import Cache
+from repro_torch.models.attention import GQA, Cache
 from repro_torch.models.config import LayerSpec, ModelCfg
 from repro_torch.models.layers import Embedding, RMSNorm, embed, unembed
+
+# the fp32 logits of one loss chunk stay under this many bytes: a
+# vocabulary the "model" axis does not split (seamless's 256206 rows
+# over 16 ranks) is whole on every rank, and the reference's 1024-token
+# chunk of a rank's 16 rows would hold 16.8 GB of it
+LOSS_CHUNK_BYTES = 4 << 30
+
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
     """Nested dicts -> ``{"a.b.c": leaf}``."""
@@ -111,17 +118,18 @@ class LM(nn.Module):
     expert stacks (``models/moe.py``).
 
     Model parallelism: on a concrete mesh whose ``"model"`` axis has
-    m > 1 ranks, the GQA mixers whose heads split over it, the MLPs (an
-    MoE's shared experts among them), the sparse FFNs, the experts and
-    the embedding and unembedding tables are split over that axis by the
-    reference's rules (``held_blocks``; the layers' docstrings), and
-    every rank runs the same program.  ``forward``, ``prefill`` and
-    ``decode_step`` return the whole logits (gathered over the
-    vocabulary; ``gather=False`` keeps the rank's columns, which
-    ``greedy`` samples); ``loss`` is the vocab-parallel cross-entropy.
-    A GQA whose heads do not split (``attention.head_split``), MLA,
-    Mamba-2, cross attention, an encoder and the MoE router run whole on
-    every rank."""
+    m > 1 ranks, the mixers whose heads split over it (GQA, MLA,
+    Mamba-2 and cross attention, the encoder's layers among them), the
+    MLPs (an MoE's shared experts among them), the sparse FFNs, the
+    experts and the embedding and unembedding tables are split over that
+    axis by the reference's rules (``held_blocks``; the layers'
+    docstrings), and every rank runs the same program.  ``forward``,
+    ``prefill`` and ``decode_step`` return the whole logits (gathered
+    over the vocabulary; ``gather=False`` keeps the rank's columns,
+    which ``greedy`` samples); ``loss`` is the vocab-parallel
+    cross-entropy.  A mixer whose heads do not split
+    (``attention.head_split``, ``attention.ssd_head_split``), the norms
+    and the MoE router run whole on every rank."""
 
     def __init__(self, cfg: ModelCfg, *, device: DeviceLike = None,
                  seed: int = 0, mesh=None):
@@ -145,7 +153,7 @@ class LM(nn.Module):
         if cfg.encoder_layers:
             ecfg = encoder_cfg(cfg)
             self.encoder = nn.ModuleList(
-                tfm.Layer(ecfg, spec, device=dev)
+                tfm.Layer(ecfg, spec, device=dev, mesh=mesh)
                 for spec in tfm.layer_specs(ecfg))
             self.enc_norm = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                                     device=dev)
@@ -212,8 +220,9 @@ class LM(nn.Module):
         as a block of the whole tensor, or whose gradient is a partial
         sum over the ranks (built with ``mesh``): an expert-parallel
         MoE's stacks, and on a model-parallel mesh the split projections
-        and tables, a sparse FFN's k-shards and the norms inside split
-        heads."""
+        and tables, a sparse FFN's k-shards, the norms inside split
+        heads and a Mamba-2 mixer's in projection, conv and per-head
+        parameters."""
         return {f"{prefix}.{leaf}": held
                 for prefix, mod in self.named_modules()
                 for leaf, held in getattr(mod, "held", {}).items()}
@@ -376,7 +385,9 @@ class LM(nn.Module):
         ``LM.loss``.  The returned metrics are detached.
 
         The unembed and the logsumexp run over sequence chunks of
-        ``loss_chunk`` (halved until it divides S), each recomputed in
+        ``loss_chunk`` (halved until it divides S and its fp32 logits,
+        over the vocabulary rows this rank holds, fit
+        ``LOSS_CHUNK_BYTES``), each recomputed in
         the backward (activation checkpointing), so the ``[B, S, V]``
         logits are never held whole: one chunk's fp32 logits at a time.
         A chunk draws no random numbers, so its recompute neither saves
@@ -393,7 +404,8 @@ class LM(nn.Module):
             memory=memory))[:, n_prefix:]
         s = tg.shape[1]
         c = min(loss_chunk, s)
-        while s % c:
+        row_bytes = tg.shape[0] * self._head.table.shape[0] * 4
+        while s % c or (c > 1 and c * row_bytes > LOSS_CHUNK_BYTES):
             c //= 2
         tot = torch.zeros((), dtype=torch.float32, device=self.device)
         cnt = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -435,13 +447,19 @@ class LM(nn.Module):
                    memory_len: int = 0) -> List[Cache]:
         """Every layer's cache; ``memory_len`` is the encoder memory's
         length the cross layers' ``xk`` / ``xv`` hold."""
-        heads = [layer.attn.kv_heads for layer in self.layers
-                 if getattr(layer, "attn", None) is not None
-                 and hasattr(layer.attn, "kv_heads")]
-        return tfm.stack_cache_init(self.cfg, batch, max_len,
-                                    dtype=self.dtype, device=self.device,
-                                    memory_len=memory_len,
-                                    kv_heads=heads[0] if heads else None)
+        def first(heads):
+            return next(iter(heads), None)
+        layers = list(self.layers)
+        return tfm.stack_cache_init(
+            self.cfg, batch, max_len, dtype=self.dtype, device=self.device,
+            memory_len=memory_len,
+            kv_heads=first(layer.attn.kv_heads for layer in layers
+                           if isinstance(getattr(layer, "attn", None),
+                                         GQA)),
+            ssm_heads=first(layer.mixer.heads for layer in layers
+                            if layer.ssm),
+            cross_kv_heads=first(layer.cross.kv_heads for layer in layers
+                                 if layer.cross is not None))
 
     @torch.no_grad()
     def prefill(self, tokens, *, max_len: int, frontend=None,

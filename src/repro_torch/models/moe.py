@@ -62,7 +62,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import sparse as sparse_api
-from repro_torch.core.tp import copy_to_group, reduce_from_group
+from repro_torch.core.tp import (copy_to_group, gather_dim,
+                                 reduce_from_group, sum_over_group)
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.layers import MLP
 from repro_torch.sharding import rules
@@ -372,57 +373,6 @@ def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
             MoEMetrics(aux, z, dropped))
 
 
-class _GatherDim(torch.autograd.Function):
-    """The whole of a tensor split on ``dim`` over ``group`` (this rank's
-    part at ``idx`` of ``n``): forward an all-gather, backward a
-    reduce-scatter (the gradient summed over the group, this rank's part
-    kept).  Both are an all-reduce of the whole, zeros beside this rank's
-    part forward, so one collective serves every backend (gloo reduces
-    card tensors, it does not gather them)."""
-
-    @staticmethod
-    def forward(ctx, x, group, dim, idx, n):
-        import torch.distributed as dist
-        ctx.group, ctx.dim, ctx.idx, ctx.size = group, dim, idx, x.shape[dim]
-        shape = list(x.shape)
-        shape[dim] *= n
-        out = x.new_zeros(shape)
-        out.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return (g.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size).contiguous(),
-                None, None, None, None)
-
-
-class _SumOverGroup(torch.autograd.Function):
-    """The sum over ``group`` of a value each rank computed: forward and
-    backward an all-reduce.  The sum enters every rank's loss, so the
-    gradient of a rank's part is the sum of every rank's: summed over
-    the ranks (the data-parallel step averages it), the gradients are
-    those of the sum of the ranks' losses."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-        ctx.group = group
-        x = x.clone()
-        dist.all_reduce(x, group=group)
-        return x
-
-    @staticmethod
-    def backward(ctx, g):
-        import torch.distributed as dist
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 def _local_experts(moe: MoE, name: str, mesh, e0: int, e_loc: int):
     """This rank's ``[E / ep, ...]`` experts of the stack ``name``: a held
     block with its ``"data"`` shard gathered, or the slice of a whole
@@ -438,7 +388,7 @@ def _local_experts(moe: MoE, name: str, mesh, e0: int, e_loc: int):
     if group is None:
         return w
     idx, n = mesh_lib.axis_index(mesh, axes)
-    return _GatherDim.apply(w, group, 1, idx, n)
+    return gather_dim(w, group, 1, idx, n)
 
 
 def _moe_experts(moe: MoE, cfg, xf: torch.Tensor, mesh, token_for_slot,
@@ -498,7 +448,7 @@ def _moe_shard_map(moe: MoE, cfg, x: torch.Tensor, mesh):
     metrics = torch.stack([aux, z, dropped])
     bgroup = mesh_lib.axes_group(mesh, rules.token_axes(mesh))
     if bgroup is not None:
-        metrics = _SumOverGroup.apply(metrics, bgroup) \
+        metrics = sum_over_group(metrics, bgroup) \
             / mesh_lib.group_size(bgroup)
     if moe.shared is not None:
         y = y + moe.shared(xf).float()
@@ -553,8 +503,8 @@ def _moe_global(moe: MoE, cfg, x: torch.Tensor, mesh):
     * metrics: ``aux`` from the global counts and router probabilities'
       sums, ``z`` and ``dropped_frac`` global means (the probabilities'
       and logsumexps' sums all-reduced over the token axes by
-      ``_SumOverGroup``, so the data-parallel step's averaged gradient
-      is the reference's);
+      ``core.tp.sum_over_group``, so the data-parallel step's averaged
+      gradient is the reference's);
     * the shared experts: the module's ``MLP``, split over ``"model"``
       as its rules say.
     """
@@ -572,7 +522,7 @@ def _moe_global(moe: MoE, cfg, x: torch.Tensor, mesh):
                       (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]])
     group = mesh_lib.axes_group(mesh, rules.token_axes(mesh))
     if group is not None:
-        sums = _SumOverGroup.apply(sums, group)
+        sums = sum_over_group(sums, group)
     t_g = b_ * s * mesh_lib.axis_index(mesh, rules.token_axes(mesh))[1]
     probs_mean, z = sums[:e_n] / t_g, sums[e_n] / t_g
     aux = e_n * torch.sum(counts.float() / (t_g * k) * probs_mean)

@@ -20,6 +20,19 @@ stay a separate axis of ``B`` and ``C`` (no copy per head), so no
 ``[b, c, h, l, s, p]`` intermediate is ever formed.  Decode is the O(1)
 recurrent update and writes the cache in place.
 
+On a model-parallel ``mesh`` (a concrete mesh whose ``"model"`` axis's
+m ranks divide the heads: ``attention.ssd_head_split``) a rank computes
+``H / m`` heads (``rules.ssm_held_blocks``): the in projection
+column-parallel on its heads' ``z`` / ``x`` columns beside every ``B``,
+``C`` and ``dt`` column (its input through ``core.tp.copy_to_group``),
+the conv on its ``x`` channels and every ``B`` / ``C`` channel, the scan
+on its heads, the gated norm over the whole ``d_inner`` (each rank's
+sum of squares all-reduced forward and backward:
+``core.tp.rms_norm_split``), and the out projection row-parallel, its
+output all-reduced.  The cache holds the rank's heads' state and its
+conv channels.  Where the heads do not divide m the mixer runs whole on
+every rank.
+
 The in/out projections go through ``sparse.matmul`` (the dense_mm
 kernel on a card).  The scan, the depthwise causal conv and the gated
 norm are plain PyTorch: the reference leaves them to XLA (no Pallas
@@ -32,14 +45,18 @@ full-sequence forward (the reference returns the short tail as it is).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import tp as tp_lib
+from repro_torch.launch.mesh import fill_normal
+from repro_torch.models.attention import ssd_head_split
 from repro_torch.models.layers import Dense, RMSNorm, rms_norm
+from repro_torch.sharding import rules
 
 Cache = Dict[str, torch.Tensor]
 
@@ -56,43 +73,90 @@ def _dims(cfg):
 class Mamba2(nn.Module):
     """``ssm_init``'s parameters: the in projection to ``z, x, B, C,
     dt``, the depthwise conv over ``x, B, C``, the per-head ``dt_bias``,
-    ``A_log`` and ``D``, the gated RMS norm and the out projection."""
+    ``A_log`` and ``D``, the gated RMS norm and the out projection.
 
-    def __init__(self, cfg, *, dtype: torch.dtype, device=None):
+    ``heads`` / ``h0``: the heads this rank computes (all of them off a
+    model-parallel mesh); ``group``: the ``"model"`` axis's process
+    group where they are split, else None; ``held``: the blocks of this
+    module's own parameters (its projections and norm hold theirs)."""
+
+    def __init__(self, cfg, *, dtype: torch.dtype, device=None, mesh=None):
         super().__init__()
         s = cfg.ssm
         d = cfg.d_model
         di, nh, conv_dim, in_dim = _dims(cfg)
         self.cfg = cfg
+        self.group, self.h0, self.heads = None, 0, nh
+        blocks = {}
+        m = rules.model_split(mesh)
+        if m > 1:
+            group, r = tp_lib.tp_group(mesh, "model")
+            split = ssd_head_split(nh, m, r)
+            if split is not None:
+                self.group = group
+                self.h0, self.heads = split
+                blocks = rules.ssm_held_blocks(cfg, mesh, *split)
+        self.held = {k: blocks[k] for k in ("conv_w", "conv_b", "dt_bias",
+                                            "A_log", "D") if k in blocks}
 
-        def param(shape, dt):
+        def param(name, shape, dt):
+            if name in self.held:
+                shape = self.held[name].block.block_shape
             return nn.Parameter(torch.zeros(shape, dtype=dt, device=device),
                                 requires_grad=False)
 
-        self.in_proj = Dense(d, in_dim, dtype=dtype, device=device)
-        self.conv_w = param((s.d_conv, conv_dim), dtype)
-        self.conv_b = param((conv_dim,), dtype)
-        self.dt_bias = param((nh,), torch.float32)
-        self.A_log = param((nh,), torch.float32)
-        self.D = param((nh,), torch.float32)
-        self.norm = RMSNorm(di, device=device)
-        self.out_proj = Dense(di, d, dtype=dtype, device=device)
+        self.in_proj = Dense(d, in_dim, dtype=dtype, device=device,
+                             held={"w": blocks["in_proj.w"]}
+                             if blocks else None)
+        self.conv_w = param("conv_w", (s.d_conv, conv_dim), dtype)
+        self.conv_b = param("conv_b", (conv_dim,), dtype)
+        self.dt_bias = param("dt_bias", (nh,), torch.float32)
+        self.A_log = param("A_log", (nh,), torch.float32)
+        self.D = param("D", (nh,), torch.float32)
+        self.norm = RMSNorm(s.head_dim * self.heads, device=device)
+        if blocks:
+            self.norm.held = {"scale": blocks["norm.scale"]}
+        self.out_proj = Dense(di, d, dtype=dtype, device=device,
+                              held={"w": blocks["out_proj.w"]}
+                              if blocks else None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """``ssm_init``: ``conv_w`` from the generator over
         ``sqrt(d_conv)``, ``conv_b`` and ``dt_bias`` zero, ``A_log =
         log(linspace(1, 16, heads))``, ``D`` one (the projections and
-        the norm reset themselves)."""
+        the norm reset themselves); a held block takes its part of each
+        (the conv's draw is the whole tensor's)."""
+        w = self.conv_w
+        fill_normal(w, generator, lambda v: v / np.sqrt(self.cfg.ssm.d_conv),
+                    self.held.get("conv_w"))
         with torch.no_grad():
-            w = self.conv_w
-            v = torch.randn(w.shape, generator=generator, device=w.device)
-            w.copy_(v / np.sqrt(w.shape[0]))
             self.conv_b.zero_()
             self.dt_bias.zero_()
-            nh = self.A_log.shape[0]
+            nh = self.cfg.ssm.num_heads(self.cfg.d_model)
             self.A_log.copy_(torch.log(torch.linspace(
-                1.0, 16.0, nh, dtype=torch.float32, device=w.device)))
+                1.0, 16.0, nh, dtype=torch.float32,
+                device=w.device))[self.h0:self.h0 + self.heads])
             self.D.fill_(1.0)
+
+    def project_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The in projection (column-parallel over split heads)."""
+        return self.in_proj(tp_lib.copy_to_group(x, self.group))
+
+    def project_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The out projection (row-parallel over split heads: its output
+        all-reduced)."""
+        return tp_lib.reduce_from_group(self.out_proj(y), self.group)
+
+    def gated_norm(self, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """``rms_norm(y * silu(z), norm.scale)`` over the whole
+        ``d_inner``: over split heads each rank's sum of squares is
+        summed over the group (forward and backward)."""
+        g = y * F.silu(z)
+        if self.group is None:
+            return rms_norm(g, self.norm.scale)
+        return tp_lib.rms_norm_split(g, self.norm.scale,
+                                     self.cfg.ssm.d_inner(self.cfg.d_model),
+                                     self.group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ssm_train(self, self.cfg, x)
@@ -104,13 +168,17 @@ class Mamba2(nn.Module):
         return ssm_decode(self, self.cfg, x, cache)
 
 
-def _split_in(proj: torch.Tensor, cfg):
-    """``z, x, B, C, dt`` along the last axis of the in projection."""
+def _split_in(proj: torch.Tensor, cfg, params: "Mamba2"):
+    """``z, x, B, C, dt`` along the last axis of the in projection (the
+    rank's heads' ``z``, ``x`` and ``dt`` on a model-parallel mesh)."""
     s = cfg.ssm
-    di = s.d_inner(cfg.d_model)
+    di = s.head_dim * params.heads
     gn = s.n_groups * s.d_state
-    return torch.split(proj, [di, di, gn, gn, proj.shape[-1] - 2 * di
-                              - 2 * gn], dim=-1)
+    z, x, B, C, dt = torch.split(proj, [di, di, gn, gn, proj.shape[-1]
+                                        - 2 * di - 2 * gn], dim=-1)
+    if params.group is not None:
+        dt = dt[..., params.h0:params.h0 + params.heads]
+    return z, x, B, C, dt
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -197,9 +265,10 @@ def _mix(params: Mamba2, cfg, x: torch.Tensor):
     conv_dim], final state)``."""
     s_cfg = cfg.ssm
     b_, s, d = x.shape
-    di, nh, _, _ = _dims(cfg)
+    nh = params.heads
+    di = s_cfg.head_dim * nh
     gn = s_cfg.n_groups * s_cfg.d_state
-    z, xs, B, C, dt = _split_in(params.in_proj(x), cfg)
+    z, xs, B, C, dt = _split_in(params.project_in(x), cfg, params)
     conv_in = torch.cat([xs, B, C], dim=-1)
     conv_out = _causal_conv(conv_in, params.conv_w, params.conv_b)
     xs, B, C = torch.split(conv_out, [di, gn, gn], dim=-1)
@@ -212,8 +281,7 @@ def _mix(params: Mamba2, cfg, x: torch.Tensor):
                         chunk=s_cfg.chunk)
     y = y + xs.float() * params.D[:, None]
     y = y.reshape(b_, s, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params.norm.scale)
-    return params.out_proj(y), conv_in, state
+    return params.project_out(params.gated_norm(y, z)), conv_in, state
 
 
 def ssm_train(params: Mamba2, cfg, x: torch.Tensor) -> torch.Tensor:
@@ -235,9 +303,15 @@ def ssm_prefill(params: Mamba2, cfg, x: torch.Tensor):
 
 
 def ssm_cache_init(cfg, batch: int, *, dtype: torch.dtype,
-                   device) -> Cache:
+                   device, heads: Optional[int] = None) -> Cache:
+    """Zero ``{"state", "conv"}``; ``heads`` (a model-parallel rank's)
+    replaces every head, and the conv then holds its ``x`` channels and
+    every ``B`` / ``C`` channel."""
     s = cfg.ssm
     _, nh, conv_dim, _ = _dims(cfg)
+    if heads is not None and heads != nh:
+        conv_dim -= (nh - heads) * s.head_dim
+        nh = heads
     return {"state": torch.zeros((batch, nh, s.head_dim, s.d_state),
                                  dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, s.d_conv - 1, conv_dim),
@@ -250,9 +324,10 @@ def ssm_decode(params: Mamba2, cfg, x: torch.Tensor, cache: Cache):
     step replays fixed tensors) and returns ``(out, cache)``."""
     s_cfg = cfg.ssm
     b_ = x.shape[0]
-    di, nh, _, _ = _dims(cfg)
+    nh = params.heads
+    di = s_cfg.head_dim * nh
     g, n = s_cfg.n_groups, s_cfg.d_state
-    z, xs, B, C, dt = _split_in(params.in_proj(x), cfg)
+    z, xs, B, C, dt = _split_in(params.project_in(x), cfg, params)
     conv_in = torch.cat([xs, B, C], dim=-1)               # [B, 1, conv_dim]
     hist = torch.cat([cache["conv"], conv_in], dim=1)
     conv_out = F.silu((hist * params.conv_w[None]).sum(dim=1, keepdim=True)
@@ -271,7 +346,7 @@ def ssm_decode(params: Mamba2, cfg, x: torch.Tensor, cache: Cache):
         (dt[..., None] * xs)[..., None] * B[:, :, None, :]
     y = torch.einsum("bhpn,bhn->bhp", state, C) + xs * params.D[:, None]
     y = y.reshape(b_, 1, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params.norm.scale)
+    y = params.gated_norm(y, z)
     cache["state"].copy_(state)
     cache["conv"].copy_(hist[:, 1:])
-    return params.out_proj(y), cache
+    return params.project_out(y), cache

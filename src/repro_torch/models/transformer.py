@@ -80,10 +80,11 @@ class Layer(nn.Module):
     adds a zero FFN output).  A ``cross`` layer adds ``h +
     cross(norm_x(h), memory)`` between the mixer and the FFN; a
     ``causal=False`` attention layer (an encoder's) attends both ways.
-    ``mesh`` reaches the GQA mixer (split over a model-parallel mesh's
-    ``"model"`` axis where its heads divide), the MLP and the sparse FFN
-    (split there) and the MoE (its experts and shared experts); MLA,
-    Mamba-2, cross attention and the router run whole."""
+    ``mesh`` reaches every mixer -- GQA, MLA, Mamba-2 and cross
+    attention, each split over a model-parallel mesh's ``"model"`` axis
+    where its heads divide, else whole on every rank --, the MLP and
+    the sparse FFN (split there) and the MoE (its experts and shared
+    experts); the router and the norms run whole."""
 
     def __init__(self, cfg: ModelCfg, spec: LayerSpec, *, device,
                  mesh=None):
@@ -106,15 +107,16 @@ class Layer(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                              device=device)
         if self.ssm:
-            self.mixer = Mamba2(cfg, dtype=dt, device=device)
+            self.mixer = Mamba2(cfg, dtype=dt, device=device, mesh=mesh)
         else:
-            self.attn = (MLA(cfg, dtype=dt, device=device)
+            self.attn = (MLA(cfg, dtype=dt, device=device, mesh=mesh)
                          if spec.mixer == "mla" else
                          GQA(cfg, dtype=dt, device=device,
                              causal=spec.causal, mesh=mesh))
         self.cross = self.norm_x = None
         if spec.cross:
-            self.cross = CrossAttention(cfg, dtype=dt, device=device)
+            self.cross = CrossAttention(cfg, dtype=dt, device=device,
+                                        mesh=mesh)
             self.norm_x = RMSNorm(cfg.d_model, plus_one=cfg.post_norm,
                                   device=device)
         self.moe = spec.ffn == "moe"
@@ -322,18 +324,23 @@ def stack_decode(layers, h, caches, *, positions, slot=None,
 def stack_cache_init(cfg: ModelCfg, batch: int, max_len: int, *,
                      dtype: torch.dtype, device,
                      memory_len: int = 0,
-                     kv_heads: Optional[int] = None) -> List[Cache]:
+                     kv_heads: Optional[int] = None,
+                     ssm_heads: Optional[int] = None,
+                     cross_kv_heads: Optional[int] = None) -> List[Cache]:
     """Each layer's cache by its mixer: ``{"k", "v"}`` of an attention
-    layer, ``{"latent", "k_rope"}`` of an MLA layer, ``{"state",
-    "conv"}`` of a mamba layer (fp32 ``[B, H, P, N]`` and ``[B, d_conv -
-    1, conv_dim]``; no ``max_len`` axis); a cross layer's also ``{"xk",
-    "xv"}``, zeros of ``[B, memory_len, KV, dh]``.  ``kv_heads`` is a
-    model-parallel rank's KV heads of a GQA layer (its cache holds only
+    layer, ``{"latent", "k_rope"}`` of an MLA layer (no heads: whole on
+    every rank of a model-parallel mesh), ``{"state", "conv"}`` of a
+    mamba layer (fp32 ``[B, H, P, N]`` and ``[B, d_conv - 1,
+    conv_dim]``; no ``max_len`` axis); a cross layer's also ``{"xk",
+    "xv"}``, zeros of ``[B, memory_len, KV, dh]``.  ``kv_heads``,
+    ``ssm_heads`` and ``cross_kv_heads`` are a model-parallel rank's
+    heads of a GQA, a Mamba-2 and a cross layer (its caches hold only
     those)."""
     caches = []
     for spec in layer_specs(cfg):
         if spec.mixer == "mamba":
-            c = ssm_cache_init(cfg, batch, dtype=dtype, device=device)
+            c = ssm_cache_init(cfg, batch, dtype=dtype, device=device,
+                               heads=ssm_heads)
         elif spec.mixer == "mla":
             c = mla_cache_init(cfg, batch, max_len, dtype=dtype,
                                device=device)
@@ -341,7 +348,8 @@ def stack_cache_init(cfg: ModelCfg, batch: int, max_len: int, *,
             c = gqa_cache_init(cfg, batch, max_len, dtype=dtype,
                                device=device, kv_heads=kv_heads)
         if spec.cross:
-            shape = (batch, memory_len, cfg.num_kv_heads, cfg.head_dim)
+            shape = (batch, memory_len, cross_kv_heads or cfg.num_kv_heads,
+                     cfg.head_dim)
             c["xk"] = torch.zeros(shape, dtype=dtype, device=device)
             c["xv"] = torch.zeros(shape, dtype=dtype, device=device)
         caches.append(c)

@@ -254,7 +254,9 @@ class Engine:
     captures one graph per prefill bucket and the decode step, the
     collectives inside, in the same order as every other rank.  An LM
     built on the mesh (model-parallel: ``LM(mesh=)``) keeps its rank's
-    KV heads in the caches, samples with the argmax over the
+    heads in the caches (GQA's and cross attention's KV heads, a Mamba-2
+    layer's SSD state and conv channels; MLA's latent whole), samples
+    with the argmax over the
     vocabulary's ranks, and runs its programs under that mesh
     (``sharding.activation_mesh(batch_split=False)``: every rank holds
     the whole batch), so its MoE layers compute their held experts.

@@ -34,6 +34,9 @@ without it.
 ``held_spec`` is the ``"model"`` part of a parameter's spec: the block
 a rank of a model-parallel LM holds (``models/``), its ``"data"`` part
 splitting the optimizer state inside it (``train/step.py``).
+``mla_held_blocks`` and ``ssm_held_blocks`` are the blocks of an MLA and
+a Mamba-2 mixer's rank (the latter's in projection and conv a block no
+rule gives: its heads' columns beside those every head reads).
 
 ``constrain`` (a GSPMD layout hint on an activation) is not ported: the
 port runs eagerly, one program per rank, so there is nothing for a hint
@@ -211,6 +214,84 @@ def held_block(name: str, shape: Sequence[int], mesh):
                          P(*(None if e == "model" else e for e in spec)),
                          mesh)
     return Held(blk, Block.of(shape, spec, mesh), local)
+
+
+def mla_held_blocks(cfg, mesh) -> Dict[str, dict]:
+    """The blocks an MLA mixer's rank holds where the ``"model"`` axis's
+    m ranks divide its heads (the rules' ``"model"`` parts, by module
+    name): its heads' columns of the query's ``q.b.w`` (or ``q.w.w``)
+    and of ``kv_b.w``, its heads' rows of ``wo.w``.  Heads are
+    contiguous column (row) ranges of each, so a rule's block holds
+    whole heads."""
+    d, h = cfg.d_model, cfg.num_heads
+    qd = h * (cfg.qk_nope_dim + cfg.qk_rope_dim)
+    held = {"kv_b": {"w": held_block(
+        "kv_b.w", (cfg.kv_lora_rank, h * (cfg.qk_nope_dim
+                                          + cfg.v_head_dim)), mesh)},
+        "wo": {"w": held_block("wo.w", (h * cfg.v_head_dim, d), mesh)}}
+    if cfg.q_lora_rank:
+        held["q.b"] = {"w": held_block("q.b.w", (cfg.q_lora_rank, qd),
+                                       mesh)}
+    else:
+        held["q.w"] = {"w": held_block("q.w.w", (d, qd), mesh)}
+    return held
+
+
+def ssm_held_blocks(cfg, mesh, h0: int, hl: int) -> Dict[str, object]:
+    """The blocks a Mamba-2 mixer's rank holds for its heads ``[h0, h0 +
+    hl)`` of ``H`` (by parameter name; ``launch.mesh.Held``):
+
+    * ``out_proj.w``: its heads' rows (the rule's ``"model"`` block);
+    * ``in_proj.w``: its heads' ``z`` and ``x`` columns, and every
+      ``B``, ``C`` and ``dt`` column.  ``B`` and ``C`` are read by every
+      head (one group); ``dt`` is every head's too, so that the block's
+      width keeps the whole's residue mod 8 (the dense_mm kernel's TMA
+      needs widths that are multiples of 8: mamba2-130m at m = 2 holds
+      1816 columns, not 1804).  A block no rule gives (the reference's
+      rule leaves ``in_proj`` whole over ``"model"``); the columns
+      every rank holds have partial gradients and are written back by
+      the ``"model"`` axis's first rank only (``Block.write``);
+    * ``conv_w`` / ``conv_b``: its ``x`` channels and every ``B`` /
+      ``C`` channel, likewise;
+    * ``dt_bias``, ``A_log``, ``D`` and the gated norm's ``norm.scale``:
+      its heads (its heads' ``d_inner`` channels).
+
+    The optimizer state of each block but ``out_proj``'s is the whole
+    block (the rule splits ``in_proj``'s rows over ``"data"``; its state
+    here stays whole over it)."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import Block, Held, axis_index, owns_block
+    s = cfg.ssm
+    d = cfg.d_model
+    di, nh, p = s.d_inner(d), s.num_heads(d), s.head_dim
+    gn = s.n_groups * s.d_state
+    in_dim, conv_dim = 2 * di + 2 * gn + nh, di + 2 * gn
+    owner = owns_block(mesh, P("model"))
+    first = axis_index(mesh, ("model",))[0] == 0
+    z = np.arange(h0 * p, (h0 + hl) * p, dtype=np.int64)
+    own_in = np.concatenate([z, di + z])
+    cols = np.concatenate([own_in, np.arange(2 * di, in_dim)])
+    chans = np.concatenate([z, np.arange(di, conv_dim)])
+
+    def shared(shape, idx, own):
+        """A block of ``idx`` on the last dim, of which this rank writes
+        back ``own`` (its first ``len(own)`` entries) unless it is the
+        ``"model"`` axis's first rank (which writes all of it)."""
+        lead = (slice(None),) * (len(shape) - 1)
+        write = None if first else (
+            lead + (own,), lead + (np.arange(len(own), dtype=np.int64),))
+        return Held.whole(Block(tuple(shape), lead + (idx,), owner,
+                                ("model",), write), partial=True)
+
+    def heads(n):
+        return Held.whole(Block.of((n,), P("model"), mesh))
+    return {"in_proj.w": shared((d, in_dim), cols, own_in),
+            "conv_w": shared((s.d_conv, conv_dim), chans, z),
+            "conv_b": shared((conv_dim,), chans, z),
+            "dt_bias": heads(nh), "A_log": heads(nh), "D": heads(nh),
+            "norm.scale": heads(di),
+            "out_proj.w": held_block("out_proj.w", (di, d), mesh)}
 
 
 def model_split(mesh) -> int:

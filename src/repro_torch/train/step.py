@@ -56,7 +56,8 @@ all-reduced over them, the state is the rule's ``"data"`` block inside
 (a k-shard's and shared KV heads' state is the whole held block), and
 the updated block is gathered over ``"data"``.  A partial gradient (KV
 heads several ranks' query heads read, ``q_norm`` / ``k_norm`` inside
-split heads) is summed over every rank that holds it.
+split heads, the columns and conv channels of a Mamba-2 in projection
+every head reads) is summed over every rank that holds it.
 """
 from __future__ import annotations
 
@@ -247,10 +248,11 @@ class ShardLayout:
     def global_norm(self, blocks: Tensors) -> torch.Tensor:
         """The fp32 L2 norm of the whole gradient from its blocks: each
         state block's squares counted by its one owner (a block several
-        ranks hold counted once), summed over the mesh."""
+        ranks hold counted once; of blocks that overlap in part, each
+        owner's ``written`` part), summed over the mesh."""
         dev = next(iter(blocks.values())).device
-        own = [torch.sum(g.float() ** 2) for n, g in blocks.items()
-               if self.owner[n]]
+        own = [torch.sum(self.place[n].state.written(g).float() ** 2)
+               for n, g in blocks.items() if self.owner[n]]
         sq = (torch.stack(own).sum() if own else
               torch.zeros((), dtype=torch.float32, device=dev))
         with self._timed("norm_all_reduce", dev):

@@ -3698,3 +3698,211 @@ def test_moe_gspmd_nccl_train_two_by_two(dev, tmp_path):
     # rank 0 reads the program's stats (``train_loop``'s on_step)
     assert outs[0][True]["stats"]["captures"] == 1
     print(f"[moe-nccl] cards {_card_lines()}")
+
+
+# -- MLA, Mamba-2, cross attention and the encoder split over "model" ----------
+
+MIXER_ENGINE_PROMPTS = (8, 50, 200, 700)
+JAMBA_ONE_CARD_LAYERS = 16
+# the first prompt's prefill of an fp32 copy at one period (8 layers:
+# 12.7 B parameters, 51 GB on one card), held to the fp32 budget
+JAMBA_FP32_LAYERS, JAMBA_FP32_TOL = 8, 2e-4
+
+
+def _mixer_prompts(vocab):
+    rng = np.random.default_rng(19)
+    return [rng.integers(0, vocab, size=n) for n in MIXER_ENGINE_PROMPTS]
+
+
+def _mixer_engine_run(lm, mesh=None):
+    """A pad-unsafe stack's engine (every prompt prefilled eagerly at its
+    exact length, the decode step captured at startup) at batch 4,
+    max_len 1024: the first prefill's logits as the host reads them,
+    decode p50, the tokens, peak GiB."""
+    from repro_torch.serve import Engine, Request
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=8)
+            for i, p in enumerate(_mixer_prompts(lm.cfg.vocab_size))]
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(lm, device="cuda", batch=4, max_len=1024,
+                 warm_compile=True, mesh=mesh)
+    assert eng.buckets == ()
+    first, read = [], eng._read
+
+    def keep(out):
+        if not first:
+            first.append(out[1].float().cpu())
+        return read(out)
+    eng._read = keep
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    eng._read = read
+    st = eng.stats()
+    out = dict(logits=first[0], decode=st["step_latency"],
+               tokens=[r.output for r in reqs],
+               captures=sum(p.captures for p in eng.programs()),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               v0=lm._head.v0,
+               state_heads=[int(c["state"].shape[1]) for c in eng.caches
+                            if "state" in c])
+    del eng
+    return out
+
+
+def _jamba_fp32_prefill(mesh=None):
+    """jamba cut to ``JAMBA_FP32_LAYERS`` in fp32: the first prompt's
+    prefill logits (a rank's vocabulary columns on ``mesh``)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch.profile_train import cut_depth
+    from repro_torch.sharding import rules
+    cfg = dataclasses.replace(cut_depth(configs.get("jamba-v0.1-52b"),
+                                        JAMBA_FP32_LAYERS), dtype="float32")
+    lm = LM(cfg, device="cuda", seed=0, mesh=mesh)
+    prompt = _mixer_prompts(cfg.vocab_size)[0]
+    with rules.activation_mesh(mesh, batch_split=False):
+        logits, _ = lm.prefill(prompt[None, :], max_len=64, gather=False)
+    out = logits.float().cpu()
+    del lm
+    _free_card()
+    return out
+
+
+def _jamba_engine_case(rank, world, out_dir):
+    """jamba-v0.1-52b at full width on (1, 4): cut to
+    ``JAMBA_ONE_CARD_LAYERS`` layers (what one card holds), then at full
+    depth (32 layers), each served through ``Engine(mesh=)`` with its
+    decode graph captured over NCCL; the blocks each rank holds; and an
+    fp32 copy's first prefill at ``JAMBA_FP32_LAYERS``."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.profile_train import cut_depth
+    mesh = make_device_mesh("cuda", (1, 4), ("data", "model"))
+    cfg = configs.get("jamba-v0.1-52b")
+    out = {"fp32": _jamba_fp32_prefill(mesh)}
+    for layers in (JAMBA_ONE_CARD_LAYERS, None):
+        c = cfg if layers is None else cut_depth(cfg, layers)
+        lm = LM(c, device="cuda", seed=0, mesh=mesh)
+        held = {n: tuple(lm.get_parameter(n).shape)
+                for n in lm.held_blocks() if ".mixer." in n}
+        run = _mixer_engine_run(lm, mesh)
+        run.update(layers=len(lm.layers), held=held,
+                   params_gib=sum(p.numel() * p.element_size()
+                                  for p in lm.parameters()) / 2 ** 30)
+        out[layers or len(lm.layers)] = run
+        del lm
+        _free_card()
+    return out
+
+
+def _deepseek_train_case(rank, world, out_dir):
+    """deepseek-v2-lite at full width, 4 layers (its dense layer and 3 MoE
+    layers) on (1, 4): 3 train steps eager, then captured."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.profile_train import cut_depth
+    mesh = make_device_mesh("cuda", (1, 4), ("data", "model"))
+    cfg = cut_depth(configs.get("deepseek-v2-lite-16b"), 4)
+    out = {}
+    for g in (False, True):
+        r = _mp_train(cfg, mesh, 2, 512, g, steps=3, ckpt_dir=None)
+        out[g] = dict(losses=r["losses"], stats=r["stats"],
+                      master=r["master"], peak_gib=r["peak_gib"],
+                      step_ms=r["step_ms"], held_gib=r["held_gib"],
+                      blocks={n: b for n, b in r["blocks"].items()
+                              if ".attn." in n})
+        _free_card()
+    return out
+
+
+_SHARD_CASES.update(jamba_engine=_jamba_engine_case,
+                    deepseek_train=_deepseek_train_case)
+
+
+@pytest.mark.cuda
+def test_mixers_nccl_jamba_full_depth_engine_one_by_four(dev, tmp_path):
+    """jamba-v0.1-52b (51.6 B parameters, bf16) at full width and depth,
+    32 layers, served through ``Engine(mesh=)`` on (1, 4) over NCCL, its
+    decode step one captured graph: each rank holds 32 of 128 SSD heads
+    of every Mamba layer (its state cache 32 heads), the tokens whole.
+    The split against one card: an fp32 copy at ``JAMBA_FP32_LAYERS``
+    (one period: 7 Mamba layers, 4 MoE), whose first prefill's logits
+    are within ``JAMBA_FP32_TOL`` of the one card's; in bf16 at
+    ``JAMBA_ONE_CARD_LAYERS`` layers, what one card holds, the first
+    prefill's logits against the one-card engine's are printed beside
+    the repo's bf16 budget (6e-2): there the ranks' bf16 partial sums
+    differ from one card's roundings at every layer, and the MoE layers
+    of an 8-token prefill at random init re-route near-ties and drop
+    other assignments (read 7.66e-02 on an H100).  Prints decode p50 and
+    peak GiB a rank beside the one card's.  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from repro_torch import configs
+    from repro_torch.launch.profile_train import cut_depth
+    _free_card()
+    outs = _spawn_nccl(tmp_path, 4, "jamba_engine", timeout=1500)
+    want32 = _jamba_fp32_prefill()
+    lm = LM(cut_depth(configs.get("jamba-v0.1-52b"),
+                      JAMBA_ONE_CARD_LAYERS), device=dev, seed=0)
+    one = _mixer_engine_run(lm)
+    del lm
+    _free_card()
+    vocab = one["logits"].shape[-1]
+    errs = {}
+    for r, o in enumerate(outs):
+        cut, full = o[JAMBA_ONE_CARD_LAYERS], o[32]
+        cols = cut["logits"].shape[-1]
+        assert cols * 4 == vocab
+        errs[r] = (_rel(o["fp32"], want32[..., cut["v0"]:cut["v0"] + cols]),
+                   _rel(cut["logits"],
+                        one["logits"][..., cut["v0"]:cut["v0"] + cols]))
+        print(f"[mixers-nccl] jamba engine (1, 4) rank {r}: fp32 "
+              f"{JAMBA_FP32_LAYERS} layers: first prefill logits vs one "
+              f"card {errs[r][0]:.3e} (budget {JAMBA_FP32_TOL}); bf16 "
+              f"{JAMBA_ONE_CARD_LAYERS} layers: {errs[r][1]:.3e} (the "
+              f"bf16 budget 6e-2), decode {cut['decode']}, peak "
+              f"{cut['peak_gib']:.2f} GiB, tokens equal one card's "
+              f"{cut['tokens'] == one['tokens']}; 32 layers: decode "
+              f"{full['decode']}, peak {full['peak_gib']:.2f} GiB, "
+              f"parameters {full['params_gib']:.2f} GiB a rank")
+    print(f"[mixers-nccl] jamba engine one card, {JAMBA_ONE_CARD_LAYERS} "
+          f"layers: decode {one['decode']}; peak {one['peak_gib']:.2f} GiB")
+    print(f"[mixers-nccl] cards {_card_lines()}")
+    for r, o in enumerate(outs):
+        assert errs[r][0] <= JAMBA_FP32_TOL, (r, errs[r])
+        assert o[32]["layers"] == 32, r
+        for run in (o[JAMBA_ONE_CARD_LAYERS], o[32]):
+            assert run["captures"] >= 1, r
+            assert set(run["state_heads"]) == {32}, (r, run["state_heads"])
+            assert ("layers.0.mixer.in_proj.w" in run["held"]
+                    and run["held"]["layers.0.mixer.out_proj.w"]
+                    == (2048, 4096)), (r, sorted(run["held"])[:4])
+            assert all(len(t) == 8 for t in run["tokens"]), r
+        assert o[32]["tokens"] == outs[0][32]["tokens"], r
+
+
+@pytest.mark.cuda
+def test_mixers_nccl_deepseek_train_captured_equals_eager(dev, tmp_path):
+    """deepseek-v2-lite at full width, 4 layers (MLA at 4 of 16 heads a
+    rank, 16 of 64 experts), trained on (1, 4) over NCCL: 3 steps
+    captured as one CUDA graph bit-equal to 3 eager steps (losses,
+    master blocks), the losses finite.  Prints step ms and peak GiB a
+    rank.  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _free_card()
+    outs = _spawn_nccl(tmp_path, 4, "deepseek_train", timeout=900)
+    for r, o in enumerate(outs):
+        assert all(np.isfinite(o[False]["losses"])), r
+        assert o[True]["losses"] == o[False]["losses"], r
+        for n, m in o[False]["master"].items():
+            assert torch.equal(o[True]["master"][n], m), (r, n)
+        assert any(n.endswith("attn.kv_b.w") for n in o[False]["blocks"])
+        print(f"[mixers-nccl] deepseek 4 layers (1, 4) rank {r}: losses "
+              f"{o[False]['losses']}; eager step ms {o[False]['step_ms']}, "
+              f"captured {o[True]['step_ms']}; peak eager "
+              f"{o[False]['peak_gib']:.2f} / captured "
+              f"{o[True]['peak_gib']:.2f} GiB; held blocks "
+              f"{o[False]['held_gib']:.2f} GiB")
+    assert outs[0][True]["stats"]["captures"] == 1
+    print(f"[mixers-nccl] cards {_card_lines()}")
