@@ -6021,9 +6021,13 @@ def shard_rank_main(rank, world, init_file, out_dir, kind, job):
 def timed_steps(torch):
     """Time every ``TrainProgram`` call of this process on the host clock
     between two device synchronisations, and turn on its state's
-    collective timing (``ShardLayout.comm_ms``): the step times this
+    collective timing (``ShardLayout.comm_ms``) and the FSDP gathers'
+    (``core.tp.COMM_MS``: the forward's gathers, the recompute's under
+    ``remat="full"`` among them, and the backward's reduce-scatters,
+    each summed over the step into ``comm_ms``): the step times this
     harness reads, by wrapping the entry point from outside.  Returns
     the list the step times (ms) go to."""
+    from repro_torch.core import tp
     from repro_torch.train import program as prog_mod
     times = []
     call = prog_mod.TrainProgram.__call__
@@ -6032,11 +6036,18 @@ def timed_steps(torch):
         lay = self.state.layout
         if lay is not None and lay.comm_ms is None:
             lay.comm_ms = {}
+        tp.COMM_MS = {} if lay is not None else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = call(self)
-        torch.cuda.synchronize()
+        try:
+            out = call(self)
+            torch.cuda.synchronize()
+        finally:
+            fsdp, tp.COMM_MS = tp.COMM_MS or {}, None
         times.append((time.perf_counter() - t0) * 1e3)
+        for kind, ms in fsdp.items():
+            lay.comm_ms.setdefault(kind, []).append(sum(ms))
+            lay.comm_ms.setdefault(f"{kind}_calls", []).append(len(ms))
         return out
     prog_mod.TrainProgram.__call__ = timed
     return times
@@ -6156,6 +6167,7 @@ def dp_job(torch, rank, world, job):
             losses=losses, launches=launches, walks=walks,
             step_ms=list(times), comm_ms=dict(state.layout.comm_ms),
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+            params_gib=params_gib(state.params.values()),
             state_gib=state_gib(state), blocks_gib=blocks_gib(state, mesh),
             master_err=master_err(torch, state, job["masters"][compress]))
         del state
@@ -6213,6 +6225,7 @@ def dp_phase(torch, args):
             seed=args.seed, graphs=False)
         ref[compress] = dict(
             losses=losses, state_gib=state_gib(state),
+            params_gib=params_gib(state.params.values()),
             peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
         # bf16 copies of the final masters, shared with the ranks (CUDA
         # IPC): the budget they are held to is bf16's
@@ -6264,8 +6277,17 @@ def dp_phase(torch, args):
                                    f"{g['state_gib']:.3f} GiB ({share:.3f} "
                                    f"of one process's), its blocks under "
                                    f"the rules {g['blocks_gib']:.3f} GiB")
+            # FSDP: every weight the rules split over "data" is held as
+            # its block, so a rank holds less than one process
+            held = g["params_gib"] / ref[compress]["params_gib"]
+            if not held < 1 or not g["comm_ms"].get("fsdp_gather"):
+                raise RuntimeError(f"[dp] {label}: parameters "
+                                   f"{g['params_gib']:.3f} GiB ({held:.3f} "
+                                   f"of one process's), FSDP gathers "
+                                   f"{g['comm_ms'].get('fsdp_gather')}")
             rank_out[compress] = dict(g, first_loss_err=first,
-                                      loss_err=worst, state_share=share)
+                                      loss_err=worst, state_share=share,
+                                      params_share=held)
         out["per_rank"].append(rank_out)
     unbroken = ref[False]["losses"][DP_SAVE_AT:]
     for label, got in (("ranks -> one process", resumed_one),
@@ -6702,7 +6724,8 @@ def print_dp(dp):
     for compress in (False, True):
         o = one[compress]
         print(f"[dp] one process grad_compress={compress}: losses "
-              f"{[round(v, 5) for v in o['losses']]}; fp32 state "
+              f"{[round(v, 5) for v in o['losses']]}; parameters "
+              f"{o['params_gib']:.3f} GiB; fp32 state "
               f"{o['state_gib']:.3f} GiB; peak {o['peak_gib']:.2f} GiB")
         for r, per in enumerate(dp["per_rank"]):
             g = per[compress]
@@ -6717,10 +6740,20 @@ def print_dp(dp):
                   f"p50 {float(np.median(g['step_ms'])):.1f} ms (host "
                   f"clock, synchronised); collectives ms of a step "
                   f"(median) {json.dumps(comm)}; peak "
-                  f"{g['peak_gib']:.2f} GiB; fp32 state "
+                  f"{g['peak_gib']:.2f} GiB; parameters held (FSDP) "
+                  f"{g['params_gib']:.3f} GiB = {g['params_share']:.3f} of "
+                  f"one process's; fp32 state "
                   f"{g['state_gib']:.3f} GiB = {g['state_share']:.3f} of "
                   f"one process's; launches {json.dumps(g['launches'])}; "
                   f"by walk {json.dumps(g['walks'])}")
+            print(f"[dp] rank {r}/{dp['ranks']} grad_compress={compress}: "
+                  f"FSDP forward gathers (recompute included) "
+                  f"{comm.get('fsdp_gather', 0):.1f} ms a step "
+                  f"({comm.get('fsdp_gather_calls', 0):.0f} calls), "
+                  f"backward reduce-scatters "
+                  f"{comm.get('fsdp_reduce_scatter', 0):.1f} ms a step "
+                  f"({comm.get('fsdp_reduce_scatter_calls', 0):.0f} "
+                  f"calls; gloo on card tensors: an all-reduce each)")
     for label, c in dp["checkpoint"].items():
         print(f"[dp] checkpoint at step {DP_SAVE_AT} {label}: losses "
               f"{[round(v, 5) for v in c['losses']]} vs unbroken, rel "

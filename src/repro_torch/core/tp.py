@@ -48,9 +48,15 @@ vocabulary split over the ``"model"`` axis through ``vocab_embed``,
 and ``gather_vocab`` (whole logits).  ``sum_over_group`` (a value every
 rank's part reads, summed forward and backward), ``gather_dim`` (a
 tensor split on one dim, whole) and ``rms_norm_split`` (an RMS norm over
-split heads, Mamba-2's gated norm) serve the MoE layers and the mixers.
+split heads, Mamba-2's gated norm) serve the MoE layers and the mixers;
+``gather_held`` gathers a parameter held split over ``"data"`` (FSDP)
+where its module uses it, through ``gather_dim``.
 """
 from __future__ import annotations
+
+import contextlib
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -122,31 +128,86 @@ def reduce_from_group(y: torch.Tensor, group) -> torch.Tensor:
     return y if group is None else _ReduceFromGroup.apply(y, group)
 
 
+# when a dict, ``all_gather_dim`` and ``reduce_scatter_dim`` add each
+# call's host ms (after a device synchronise) under "fsdp_gather" and
+# "fsdp_reduce_scatter": a measurement aid that adds syncs, off by default
+COMM_MS: Optional[Dict[str, List[float]]] = None
+
+
+@contextlib.contextmanager
+def _timed(kind: str, t: torch.Tensor):
+    if COMM_MS is None:
+        yield
+        return
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    t0 = time.perf_counter()
+    yield
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+    COMM_MS.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+
+
+def all_gather_dim(x: torch.Tensor, group, dim: int, idx: int,
+                   n: int) -> torch.Tensor:
+    """The whole of a tensor split on ``dim`` over ``group`` (``x`` this
+    rank's part, at ``idx`` of ``n``; no gradient): one
+    ``all_gather_into_tensor`` into a buffer led by the split dim, moved
+    back into place.  A card tensor over gloo (``launch.mesh.gathers``)
+    is all-reduced instead, zeros beside this rank's part."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import gathers
+    with _timed("fsdp_gather", x):
+        if not gathers(group, x):
+            shape = list(x.shape)
+            shape[dim] *= n
+            out = x.new_zeros(shape)
+            out.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
+            dist.all_reduce(out, group=group)
+            return out
+        part = x.movedim(dim, 0).contiguous()
+        out = part.new_empty((n * part.shape[0],) + tuple(part.shape[1:]))
+        dist.all_gather_into_tensor(out, part, group=group)
+        return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(g: torch.Tensor, group, dim: int, idx: int,
+                       n: int) -> torch.Tensor:
+    """``g`` summed over ``group``, this rank's part on ``dim`` kept (at
+    ``idx`` of ``n``): one ``reduce_scatter_tensor`` of ``g`` led by that
+    dim.  A card tensor over gloo is all-reduced whole instead, then
+    cut."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import gathers
+    size = g.shape[dim] // n
+    with _timed("fsdp_reduce_scatter", g):
+        if not gathers(group, g):
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=group)
+            return g.narrow(dim, idx * size, size).contiguous()
+        whole = g.movedim(dim, 0).contiguous()
+        out = whole.new_empty((size,) + tuple(whole.shape[1:]))
+        dist.reduce_scatter_tensor(out, whole, group=group)
+        return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
 class _GatherDim(torch.autograd.Function):
     """The whole of a tensor split on ``dim`` over ``group`` (this rank's
     part at ``idx`` of ``n``): forward an all-gather, backward a
     reduce-scatter (the gradient summed over the group, this rank's part
-    kept).  Both are an all-reduce of the whole, zeros beside this rank's
-    part forward, so one collective serves every backend (gloo reduces
-    card tensors, it does not gather them)."""
+    kept): ``all_gather_dim`` and ``reduce_scatter_dim``, NCCL's
+    collectives, or over gloo for a card tensor an all-reduce each."""
 
     @staticmethod
     def forward(ctx, x, group, dim, idx, n):
-        import torch.distributed as dist
-        ctx.group, ctx.dim, ctx.idx, ctx.size = group, dim, idx, x.shape[dim]
-        shape = list(x.shape)
-        shape[dim] *= n
-        out = x.new_zeros(shape)
-        out.narrow(dim, idx * x.shape[dim], x.shape[dim]).copy_(x)
-        dist.all_reduce(out, group=group)
-        return out
+        ctx.group, ctx.dim, ctx.idx, ctx.n = group, dim, idx, n
+        return all_gather_dim(x, group, dim, idx, n)
 
     @staticmethod
     def backward(ctx, g):
-        import torch.distributed as dist
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return (g.narrow(ctx.dim, ctx.idx * ctx.size, ctx.size).contiguous(),
+        return (reduce_scatter_dim(g, ctx.group, ctx.dim, ctx.idx, ctx.n),
                 None, None, None, None)
 
 
@@ -180,6 +241,20 @@ def sum_over_group(x: torch.Tensor, group) -> torch.Tensor:
 def gather_dim(x: torch.Tensor, group, dim: int, idx: int,
                n: int) -> torch.Tensor:
     return _GatherDim.apply(x, group, dim, idx, n)
+
+
+def gather_held(p: torch.Tensor, held) -> torch.Tensor:
+    """A parameter as its module uses it: a block held split over
+    ``"data"`` (FSDP; ``held.data``, a ``launch.mesh.DataSplit``)
+    gathered along that dim, its gradient reduce-scattered back
+    (``gather_dim``); anything else ``p`` itself.  Called inside the
+    module's forward, so under ``remat="full"`` the gathered weight
+    lives no longer than its period's forward and the recompute gathers
+    again."""
+    data = None if held is None else held.data
+    if data is None:
+        return p
+    return gather_dim(p, data.group, data.dim, data.idx, data.n)
 
 
 def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, d: int, group, *,

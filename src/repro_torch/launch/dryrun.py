@@ -18,8 +18,13 @@ dtypes, no data, no card):
    ``DeviceMesh`` that ``launch.mesh.make_device_mesh`` builds over it
    (a mesh of one rank is the one-process program: no group, no mesh).
 2. **The rank's model and state.** ``LM(cfg, device="meta", mesh=)`` at
-   full size (the blocks that rank holds), and for a train cell the
-   train state through ``ShardLayout`` / ``init_train_state``.
+   full size (the blocks that rank holds: every weight its rule's block
+   over ``"data"`` and ``"model"``, FSDP, as the reference's dry-run
+   passes ``train_state_specs`` and ``param_specs``), and for a train
+   cell the train state through ``ShardLayout`` / ``init_train_state``.
+   Every call gathers the ``"data"`` blocks where it uses them, so the
+   gathers (and a train step's reduce-scatters) show in its collective
+   bytes.
 3. **The rank's entry point**, eagerly: ``make_train_step`` on its batch
    shard (``train_4k``), ``LM.prefill`` (``prefill_32k``) or
    ``LM.decode_step(retained=)`` (``decode_32k``, ``long_500k``).  Every

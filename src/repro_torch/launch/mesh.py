@@ -178,10 +178,8 @@ def owns_block(mesh, spec) -> bool:
 
 def gather_block(t, shape: Sequence[int], spec, mesh):
     """The whole tensor of ``shape`` from every rank's block ``t`` under
-    ``spec``: zeros beside the block's one writer (``owns_block``),
-    all-reduced over the whole mesh (one collective for every backend:
-    gloo reduces card tensors but does not gather them).  Every rank
-    calls it."""
+    ``spec`` (``Block.gather``: the block's one writer, ``owns_block``,
+    writes it).  Every rank calls it."""
     return Block.of(shape, spec, mesh).gather(t, mesh)
 
 
@@ -234,6 +232,17 @@ class Block:
     def _key(self, like):
         return _index_key(self.index, like)
 
+    def whole_on(self, dim: int) -> "Block":
+        """This block whole along ``dim`` (its ``"data"`` split gathered:
+        ``LM.gather_data``)."""
+        def widen(index):
+            return tuple(slice(None) if d == dim else ix
+                         for d, ix in enumerate(index))
+        return Block(self.shape, widen(self.index), self.owner,
+                     tuple(a for a in self.axes if a != "data"),
+                     None if self.write is None else
+                     tuple(widen(w) for w in self.write))
+
     def take(self, t):
         """This block of the whole ``t`` (a tensor or an array)."""
         return t[self._key(t)]
@@ -249,19 +258,106 @@ class Block:
         return blk[_index_key(self.write[1], blk)]
 
     def gather(self, t, mesh):
-        """The whole tensor from every rank's block ``t``: zeros beside
-        the block's writers (each writes its ``written`` part),
-        all-reduced over the mesh (every rank calls it)."""
+        """The whole tensor from every rank's block ``t`` (every rank
+        calls it): each block's writers write their ``written`` part.
+        Where the backend gathers ``t`` (``gathers``), the writers' parts
+        are all-gathered with where each goes (``_gather_parts``); a card
+        tensor over gloo is all-reduced instead, zeros beside the
+        writers' parts."""
         import torch.distributed as dist
+        group = axes_group(mesh, mesh_axes(mesh)[0])
+        if group is not None and gathers(group, t):
+            return self._gather_parts(t, group)
         whole = t.new_zeros(self.shape)
         if self.owner and self.write is not None:
             whole[_index_key(self.write[0], whole)] = self.written(t)
         elif self.owner:
             self.put(whole, t)
-        group = axes_group(mesh, mesh_axes(mesh)[0])
         if group is not None:
             dist.all_reduce(whole, group=group)
         return whole
+
+    def _gather_parts(self, t, group):
+        """``gather`` by two all-gathers over ``group``: each rank's
+        written part's place (per dim, its indices in the whole tensor
+        and in the block, padded to the dim's length), then the parts,
+        flat and padded to the largest; every rank writes every part."""
+        import torch
+        import torch.distributed as dist
+        nd, dev = len(self.shape), t.device
+
+        def arange(ix, n):
+            if isinstance(ix, slice):
+                return np.arange(*ix.indices(n), dtype=np.int64)
+            return np.asarray(ix, dtype=np.int64)
+        dst, src = (self.write if self.write is not None else
+                    (self.index, (slice(None),) * nd))
+        meta = []
+        for d, n in enumerate(self.shape):
+            a = arange(dst[d], n) if self.owner else np.zeros(0, np.int64)
+            b = arange(src[d], t.shape[d]) if self.owner else a
+            meta += [[len(a)], np.pad(a, (0, n - len(a))),
+                     np.pad(b, (0, n - len(b)))]
+        meta = torch.as_tensor(np.concatenate(meta), device=dev)
+        world = dist.get_world_size(group)
+        metas = meta.new_empty(world * meta.numel())
+        dist.all_gather_into_tensor(metas, meta, group=group)
+        metas = metas.view(world, -1).cpu().numpy()
+
+        def parts(row):
+            out, off = [], 0
+            for n in self.shape:
+                k = int(row[off])
+                out.append((row[off + 1:off + 1 + k],
+                            row[off + 1 + n:off + 1 + n + k]))
+                off += 1 + 2 * n
+            return out
+        ranks = [parts(row) for row in metas]
+        sizes = [int(np.prod([len(a) for a, _ in r])) for r in ranks]
+        me = dist.get_rank(group)
+        flat = t.new_zeros(max(sizes))
+        if sizes[me]:
+            flat[:sizes[me]] = t[_outer([b for _, b in ranks[me]],
+                                        dev)].reshape(-1)
+        flats = flat.new_empty(world * flat.numel())
+        dist.all_gather_into_tensor(flats, flat, group=group)
+        flats = flats.view(world, -1)
+        whole = t.new_zeros(self.shape)
+        for r, part in enumerate(ranks):
+            if sizes[r]:
+                whole[_outer([a for a, _ in part], dev)] = flats[
+                    r, :sizes[r]].reshape([len(a) for a, _ in part])
+        return whole
+
+
+def _outer(index, device):
+    """Per-dim index arrays as a broadcast (outer-product) key."""
+    import torch
+    nd = len(index)
+    return tuple(torch.as_tensor(ix, dtype=torch.long, device=device).view(
+        [-1 if i == d else 1 for i in range(nd)])
+        for d, ix in enumerate(index))
+
+
+def gathers(group, t) -> bool:
+    """Does ``group``'s backend all-gather and reduce-scatter ``t``?  All
+    do but gloo for a card tensor (gloo reduces card tensors, it does
+    not gather them): there an all-reduce of zeros beside each rank's
+    part stands in, moving about twice the bytes."""
+    import torch.distributed as dist
+    return not (t.is_cuda and dist.get_backend(group) == "gloo")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DataSplit:
+    """A parameter held split on ``dim`` over the mesh's ``"data"`` axis
+    (FSDP): ``group`` that axis's process group, ``idx`` this rank's
+    part of ``n``."""
+
+    dim: int
+    group: object
+    idx: int
+    n: int
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -271,18 +367,22 @@ class Held:
     tensor) and ``local`` (its slices of the held block); ``partial``:
     the gradient each rank computes for the block is a partial sum, to
     be summed over every rank that holds it (a norm inside split heads,
-    KV heads several ranks' query heads read)."""
+    KV heads several ranks' query heads read); ``data``: the block is
+    split over ``"data"`` as well (FSDP), and its module gathers that
+    split where it uses the weight (``core.tp.gather_held``)."""
 
     block: Block
     state: Block
     local: tuple
     partial: bool = False
+    data: Optional[DataSplit] = None
 
     @classmethod
-    def whole(cls, block: Block, *, partial: bool = False) -> "Held":
+    def whole(cls, block: Block, *, partial: bool = False,
+              data: Optional[DataSplit] = None) -> "Held":
         """The state is the whole held block."""
         return cls(block, block, (slice(None),) * len(block.shape),
-                   partial)
+                   partial, data)
 
 
 # one draw of a seeded fill covers at most this many elements (1 GiB of

@@ -39,9 +39,13 @@ a checkpoint holds whole tensors, so it resumes on any mesh.  Rank 0
 prints and calls ``on_step``.  ``--mesh 2,1`` (``data, model``; three
 sizes add ``pod`` in front; ``1x4`` is ``1,4``) spawns one process per
 rank on this host (gloo on the CPU, NCCL on cards, one card a rank).
-A ``"model"`` axis past 1 splits the model itself over it (``LM(mesh=)``:
-heads, d_ff, the vocabulary and the sparse FFNs' k-shards), so a model
-larger than one card trains on four (glm4-9b: ``--mesh 1x4``):
+The LM is built on the mesh (``LM(mesh=)``): every weight is held as
+its rule's block (FSDP: split over ``"data"`` beside ``"model"``,
+gathered in the forward, its gradient reduce-scattered; no flag, the
+rules decide), and a ``"model"`` axis past 1 splits the model itself
+(heads, d_ff, the vocabulary and the sparse FFNs' k-shards), so a model
+larger than one card trains on four (glm4-9b: ``--mesh 1x4`` or
+``4x1``):
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \
         --device cpu --density 0.25 --steps 5 --batch 2 --seq 32 \
@@ -100,8 +104,8 @@ def train_loop(cfg, *, steps: int, batch_per_shard: int, seq: int,
 
     ``mesh``: see the module docstring; on a concrete mesh every rank
     calls this with the same arguments, and each gets its own state
-    (the parameters whole or, split over a ``"model"`` axis, its held
-    blocks; the optimizer's blocks) and the mean loss."""
+    (its held blocks of the parameters under the rules, ``"data"`` and
+    ``"model"``; the optimizer's blocks) and the mean loss."""
     mesh = mesh or mesh_lib.make_host_mesh()
     lm = LM(cfg, device=device, seed=seed, mesh=mesh)
     state = init_train_state(lm, hp=hp, mesh=mesh)

@@ -332,23 +332,31 @@ def ssd_head_split(num_heads: int, m: int, r: int):
 
 
 def qkv_held(cfg, mesh, *, bias: bool):
-    """The model-parallel split of a ``wq``/``wk``/``wv``/``wo`` mixer
-    (GQA, cross attention) on ``mesh``: ``(group, split, held)`` with
-    ``split`` ``head_split``'s and ``held`` the projections' blocks by
-    module name, or ``(None, None, {})`` where it runs whole (no
-    ``"model"`` axis past 1, or heads that do not split)."""
-    m = rules.model_split(mesh)
-    if m <= 1:
-        return None, None, {}
-    group, r = tp_lib.tp_group(mesh, "model")
-    split = head_split(cfg.num_heads, cfg.num_kv_heads, m, r)
-    if split is None:
-        return None, None, {}
+    """The split of a ``wq``/``wk``/``wv``/``wo`` mixer (GQA, cross
+    attention) on ``mesh``: ``(group, split, held)`` with ``split``
+    ``head_split``'s and ``held`` the projections' blocks by module
+    name, or ``(None, None, held)`` where it runs whole over
+    ``"model"`` (no ``"model"`` axis past 1, or heads that do not
+    split), ``held`` then the rules' ``"data"`` blocks only (FSDP; None
+    entries where nothing splits)."""
     d, dh = cfg.d_model, cfg.head_dim
     qd, kvd = cfg.attn_dims
-    h0, _, k0, kv_heads, shared = split
     leaves = (("w", (d, qd), (d, kvd)),) + (
         (("b", (qd,), (kvd,)),) if bias else ())
+    m = rules.model_split(mesh)
+    group = split = None
+    if m > 1:
+        group, r = tp_lib.tp_group(mesh, "model")
+        split = head_split(cfg.num_heads, cfg.num_kv_heads, m, r)
+    if split is None:
+        held = {"wq": {k: rules.hold(f"wq.{k}", q_shape, mesh, model=False)
+                       for k, q_shape, _ in leaves},
+                "wk": {k: rules.hold(f"wk.{k}", shape, mesh, model=False)
+                       for k, _, shape in leaves},
+                "wo": {"w": rules.hold("wo.w", (qd, d), mesh, model=False)}}
+        held["wv"] = held["wk"]
+        return None, None, held
+    h0, _, k0, kv_heads, shared = split
     held = {"wq": {k: rules.held_block(f"wq.{k}", q_shape, mesh)
                    for k, q_shape, _ in leaves},
             "wo": {"w": rules.held_block("wo.w", (qd, d), mesh)}}
@@ -357,9 +365,9 @@ def qkv_held(cfg, mesh, *, bias: bool):
         first = h0 % (cfg.num_heads // cfg.num_kv_heads) == 0
         owner = first and owns_block(mesh, P("model"))
         cols = slice(k0 * dh, (k0 + kv_heads) * dh)
-        kv = {k: Held.whole(Block(
+        kv = {k: rules.with_data(f"wk.{k}", Held.whole(Block(
             shape, (slice(None),) * (len(shape) - 1) + (cols,),
-            owner, ("model",)), partial=True)
+            owner, ("model",)), partial=True), mesh, first=first)
             for k, _, shape in leaves}
     else:
         # the rule's blocks hold whole heads: H and (unshared) KV divide
@@ -599,7 +607,8 @@ class _MlaQ(nn.Module):
         self.rank = rank
         self.group = group
         if rank:
-            self.a = Dense(d, rank, dtype=dtype, device=device)
+            self.a = Dense(d, rank, dtype=dtype, device=device,
+                           held=held.get("q.a"))
             self.norm = RMSNorm(rank, device=device)
             self.b = Dense(rank, qd, dtype=dtype, device=device,
                            held=held.get("q.b"))
@@ -642,15 +651,17 @@ class MLA(nn.Module):
         r = cfg.kv_lora_rank
         qd = h * (nope + rope)
         self.cfg = cfg
-        self.heads, self.group, held = h, None, {}
+        self.heads, self.group = h, None
         m = rules.model_split(mesh)
-        if m > 1 and h % m == 0:
+        split = m > 1 and h % m == 0
+        if split:
             self.group, _ = tp_lib.tp_group(mesh, "model")
             self.heads = h // m
-            held = rules.mla_held_blocks(cfg, mesh)
+        held = rules.mla_held_blocks(cfg, mesh, model=split)
         self.q = _MlaQ(d, cfg.q_lora_rank, qd, dtype=dtype, device=device,
                        held=held, group=self.group)
-        self.kv_a = Dense(d, r + rope, dtype=dtype, device=device)
+        self.kv_a = Dense(d, r + rope, dtype=dtype, device=device,
+                          held=held.get("kv_a"))
         self.kv_norm = RMSNorm(r, device=device)
         self.kv_b = Dense(r, h * (nope + v_dim), dtype=dtype, device=device,
                           held=held.get("kv_b"))
@@ -761,7 +772,7 @@ class MLA(nn.Module):
         s = latent_c.shape[1]
         lengths = torch.clamp(positions + 1, max=s)
 
-        wkv = self.kv_b.w.reshape(r, h, nope + cfg.v_head_dim).float()
+        wkv = self.kv_b.weight().reshape(r, h, nope + cfg.v_head_dim).float()
         w_uk, w_uv = wkv[:, :, :nope], wkv[:, :, nope:]
         lat = latent_c.float()
         q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk)

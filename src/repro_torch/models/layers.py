@@ -10,10 +10,14 @@ created frozen and train after ``requires_grad_(True)``; a tied
 embedding collects its gradient from both the gather and the unembed.
 
 Model parallelism (``mesh=`` a concrete mesh whose ``"model"`` axis has
-m > 1 ranks): a ``Dense`` or an ``Embedding`` holds only its rank's
-block of the weight (``held``: ``launch.mesh.Held`` by leaf name), its
+m > 1 ranks) and FSDP (its ``"data"`` axis past 1): a ``Dense`` or an
+``Embedding`` holds only its rank's block of the weight under the
+reference's rules (``held``: ``launch.mesh.Held`` by leaf name), its
 own contiguous tensor (the dense_mm kernel's TMA needs 16-byte strides;
-a strided view would be copied on every call).  ``MLP`` splits as
+a strided view would be copied on every call).  A block split over
+``"data"`` is gathered inside the forward, just before the kernel
+(``weight()``: ``core.tp.gather_held``, its gradient reduce-scattered),
+so it is whole over ``"data"`` only while its layer runs.  ``MLP`` splits as
 Megatron does under the reference's rules: ``up``/``gate``
 column-parallel (d_ff over ``"model"``, the input through
 ``core.tp.copy_to_group``), ``down`` row-parallel (its output
@@ -85,14 +89,15 @@ def _param(shape, held: Optional[Held], dtype, device) -> nn.Parameter:
 
 class Dense(nn.Module):
     """Dense projection with ``w [d_in, d_out]`` (the JAX layout).
-    ``held`` (``{"w": Held, "b": Held}``, from the model-parallel caller)
-    makes it hold its rank's blocks of the whole weight and bias."""
+    ``held`` (``{"w": Held, "b": Held}``, from the caller on a mesh; a
+    None entry is held whole) makes it hold its rank's blocks of the
+    whole weight and bias."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  held: Optional[Dict[str, Held]] = None):
         super().__init__()
-        self.held = dict(held or {})
+        self.held = {k: h for k, h in (held or {}).items() if h is not None}
         self.d_in = d_in
         self.w = _param((d_in, d_out), self.held.get("w"), dtype, device)
         self.b = (_param((d_out,), self.held.get("b"), dtype, device)
@@ -105,8 +110,12 @@ class Dense(nn.Module):
             with torch.no_grad():
                 self.b.zero_()
 
+    def weight(self) -> torch.Tensor:
+        """``w`` as the product reads it: its ``"data"`` split gathered."""
+        return tp_lib.gather_held(self.w, self.held.get("w"))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense(x, self.w, self.b)
+        return dense(x, self.weight(), self.b)
 
 
 class Embedding(nn.Module):
@@ -114,7 +123,9 @@ class Embedding(nn.Module):
     projects back with a plain ``torch.matmul``.  On a model-parallel
     ``mesh`` whose rule splits the vocabulary (``"model"`` on its rows)
     it holds rows ``[v0, v0 + vocab / m)`` (``v0``; ``group`` is the
-    ``"model"`` axis's process group, None when held whole)."""
+    ``"model"`` axis's process group, None when held whole); with a
+    ``"data"`` axis past 1 it holds its columns' share too, gathered by
+    ``weight()``."""
 
     def __init__(self, vocab: int, d: int, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
@@ -123,10 +134,12 @@ class Embedding(nn.Module):
         self.vocab = vocab
         self.held: Dict[str, Held] = {}
         self.group, self.v0 = None, 0
-        if rules.model_split(mesh) > 1 and rules.held_spec(
-                "table", (vocab, d), mesh)[0] == "model":
-            h = self.held["table"] = rules.held_block("table", (vocab, d),
-                                                      mesh)
+        split = rules.model_split(mesh) > 1 and rules.held_spec(
+            "table", (vocab, d), mesh)[0] == "model"
+        h = rules.hold("table", (vocab, d), mesh, model=split)
+        if h is not None:
+            self.held["table"] = h
+        if split:
             self.group, _ = tp_lib.tp_group(mesh, "model")
             self.v0 = h.block.index[0].start
         self.table = _param((vocab, d), self.held.get("table"), dtype,
@@ -135,6 +148,10 @@ class Embedding(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         fill_normal(self.table, generator, lambda v: v * 0.02,
                     self.held.get("table"))
+
+    def weight(self) -> torch.Tensor:
+        """The rows this rank holds, their ``"data"`` split gathered."""
+        return tp_lib.gather_held(self.table, self.held.get("table"))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -187,14 +204,14 @@ class MLP(nn.Module):
         super().__init__()
         self.act = act
         self.group = None
-        held = {}
-        if rules.model_split(mesh) > 1 and rules.held_spec(
-                "up.w", (d_model, d_ff), mesh)[1] == "model":
+        split = rules.model_split(mesh) > 1 and rules.held_spec(
+            "up.w", (d_model, d_ff), mesh)[1] == "model"
+        if split:
             self.group, _ = tp_lib.tp_group(mesh, "model")
-            held = {n: {"w": rules.held_block(f"{n}.w", shape, mesh)}
-                    for n, shape in (("up", (d_model, d_ff)),
-                                     ("gate", (d_model, d_ff)),
-                                     ("down", (d_ff, d_model)))}
+        held = {n: {"w": rules.hold(f"{n}.w", shape, mesh, model=split)}
+                for n, shape in (("up", (d_model, d_ff)),
+                                 ("gate", (d_model, d_ff)),
+                                 ("down", (d_ff, d_model)))}
         self.up = Dense(d_model, d_ff, dtype=dtype, device=device,
                         held=held.get("up"))
         self.down = Dense(d_ff, d_model, dtype=dtype, device=device,

@@ -45,6 +45,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.core import tp as tp_lib
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import Held, is_concrete
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import GQA, Cache
 from repro_torch.models.config import LayerSpec, ModelCfg
@@ -218,14 +219,34 @@ class LM(nn.Module):
     def held_blocks(self) -> Dict[str, Any]:
         """``{name: launch.mesh.Held}`` of the parameters this rank holds
         as a block of the whole tensor, or whose gradient is a partial
-        sum over the ranks (built with ``mesh``): an expert-parallel
-        MoE's stacks, and on a model-parallel mesh the split projections
-        and tables, a sparse FFN's k-shards, the norms inside split
-        heads and a Mamba-2 mixer's in projection, conv and per-head
-        parameters."""
+        sum over the ranks (built with ``mesh``): an MoE's expert stacks,
+        every weight the rules split over ``"data"`` (FSDP), and on a
+        model-parallel mesh the split projections and tables, a sparse
+        FFN's k-shards, the norms inside split heads and a Mamba-2
+        mixer's in projection, conv and per-head parameters."""
         return {f"{prefix}.{leaf}": held
                 for prefix, mod in self.named_modules()
                 for leaf, held in getattr(mod, "held", {}).items()}
+
+    @torch.no_grad()
+    def gather_data(self) -> "LM":
+        """Hold every parameter whole over ``"data"``: each block split
+        over it (FSDP) gathered once, in place (``core.tp.all_gather_dim``;
+        every rank calls it), so no forward gathers again.  What a
+        serving engine runs from (``Engine``); the blocks are then no
+        longer the rules', so the model is not trained after it."""
+        for mod in self.modules():
+            held = getattr(mod, "held", None) or {}
+            for leaf, h in list(held.items()):
+                d = h.data
+                if d is None:
+                    continue
+                p = getattr(mod, leaf)
+                p.data = tp_lib.all_gather_dim(p.data, d.group, d.dim,
+                                               d.idx, d.n)
+                held[leaf] = Held.whole(h.block.whole_on(d.dim),
+                                        partial=h.partial)
+        return self
 
     def load_jax_params(self, tree) -> "LM":
         """Copy the JAX ``LM.init`` params pytree (leaves converted to
@@ -245,7 +266,9 @@ class LM(nn.Module):
         ``AdamState`` count (both 0-dim int32 tensors on the model's
         device, as the reference keeps them) with its fp32 master, mu
         and nu, and the compression residuals (``ef``) where the
-        reference's state has them."""
+        reference's state has them.  On a concrete mesh the state is
+        this rank's blocks (``train.step.ShardLayout``), each leaf's part
+        taken."""
         from repro_torch.optim.adamw import AdamState
         from repro_torch.train.step import TrainState
 
@@ -256,9 +279,16 @@ class LM(nn.Module):
         self.requires_grad_(True)
         opt = field(state, "opt")
         names = [n for n, _ in self.named_parameters()]
+        layout = None
+        if is_concrete(self.mesh):
+            from repro_torch.train.step import ShardLayout
+            layout = ShardLayout(self, self.mesh)
 
         def fp32(tree):
             leaves = self.jax_leaves(tree)
+            if layout is not None:
+                leaves = {n: layout.place[n].state.take(np.asarray(leaves[n]))
+                          for n in names}
             return {n: torch.as_tensor(np.array(leaves[n], np.float32),
                                        device=self.device) for n in names}
 
@@ -273,7 +303,7 @@ class LM(nn.Module):
             ef = EFState(fp32(field(ef, "residual")))
         return TrainState(step=int(np.asarray(field(state, "step"))),
                           params=dict(self.named_parameters()), opt=adam,
-                          ef=ef)
+                          ef=ef, layout=layout)
 
     # -- plumbing ---------------------------------------------------------------
     def _tokens(self, tokens) -> torch.Tensor:
@@ -287,10 +317,11 @@ class LM(nn.Module):
         """Token rows, times ``sqrt(d_model)`` cast to their dtype with
         ``cfg.embed_scale`` (Gemma); a split table's rows all-reduced
         over the vocabulary's ranks."""
+        table = self.embed.weight()
         if self.embed.group is None:
-            h = embed(self.embed.table, tokens)
+            h = embed(table, tokens)
         else:
-            h = tp_lib.vocab_embed(self.embed.table, tokens, self.embed.v0,
+            h = tp_lib.vocab_embed(table, tokens, self.embed.v0,
                                    self.embed.group)
         if self.cfg.embed_scale:
             h = h * torch.tensor(np.sqrt(self.cfg.d_model), dtype=h.dtype)
@@ -300,15 +331,18 @@ class LM(nn.Module):
     def _head(self) -> Embedding:
         return self.lm_head if self.lm_head is not None else self.embed
 
-    def _unembed(self, h: torch.Tensor, gather: bool = True
-                 ) -> torch.Tensor:
+    def _unembed(self, h: torch.Tensor, gather: bool = True,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits of ``h``: the whole vocabulary, or with ``gather=False``
         a split table's own columns (the input through
-        ``copy_to_group``, so its gradient sums every rank's)."""
+        ``copy_to_group``, so its gradient sums every rank's).  ``table``:
+        the head's rows as ``Embedding.weight()`` gives them (gathered
+        over ``"data"`` here when None)."""
         head = self._head
+        table = head.weight() if table is None else table
         if head.group is None:
-            return unembed(head.table, h, softcap=self.cfg.final_softcap)
-        logits = unembed(head.table, tp_lib.copy_to_group(h, head.group),
+            return unembed(table, h, softcap=self.cfg.final_softcap)
+        logits = unembed(table, tp_lib.copy_to_group(h, head.group),
                          softcap=self.cfg.final_softcap)
         if not gather:
             return logits
@@ -409,14 +443,16 @@ class LM(nn.Module):
             c //= 2
         tot = torch.zeros((), dtype=torch.float32, device=self.device)
         cnt = torch.zeros((), dtype=torch.float32, device=self.device)
+        # the head's rows gathered over "data" once for every chunk
+        table = self._head.weight()
         for i in range(0, s, c):
             hx, tx = h[:, i:i + c], tg[:, i:i + c]
             if torch.is_grad_enabled() and hx.requires_grad:
                 nll, valid = torch_checkpoint.checkpoint(
-                    self._chunk_nll, hx, tx, use_reentrant=False,
+                    self._chunk_nll, hx, tx, table, use_reentrant=False,
                     preserve_rng_state=False)
             else:
-                nll, valid = self._chunk_nll(hx, tx)
+                nll, valid = self._chunk_nll(hx, tx, table)
             tot = tot + nll
             cnt = cnt + valid
         xent = tot / torch.clamp(cnt, min=1.0)
@@ -428,16 +464,17 @@ class LM(nn.Module):
         out["xent"] = xent.detach()
         return loss, out
 
-    def _chunk_nll(self, hx: torch.Tensor, tx: torch.Tensor):
+    def _chunk_nll(self, hx: torch.Tensor, tx: torch.Tensor,
+                   table: torch.Tensor):
         """Summed NLL and count of valid targets over one chunk (over a
         split vocabulary, ``core.tp.vocab_nll``)."""
         valid = (tx >= 0).float()
         head = self._head
         if head.group is not None:
-            nll = tp_lib.vocab_nll(self._unembed(hx, gather=False), tx,
+            nll = tp_lib.vocab_nll(self._unembed(hx, False, table), tx,
                                    head.v0, head.group)
             return (nll * valid).sum(), valid.sum()
-        logits = self._unembed(hx).float()
+        logits = self._unembed(hx, table=table).float()
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             torch.clamp(tx, min=0)[..., None])[..., 0]

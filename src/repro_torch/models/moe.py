@@ -62,7 +62,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import sparse as sparse_api
-from repro_torch.core.tp import (copy_to_group, gather_dim,
+from repro_torch.core.tp import (copy_to_group, gather_held,
                                  reduce_from_group, sum_over_group)
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.layers import MLP
@@ -105,8 +105,7 @@ class MoE(nn.Module):
 
         def param(name, shape):
             if self.mesh is not None:
-                h = self.held[name] = mesh_lib.Held.whole(mesh_lib.Block.of(
-                    shape, rules.param_spec(name, shape, mesh), mesh))
+                h = self.held[name] = rules.held_block(name, shape, mesh)
                 shape = h.block.block_shape
             return nn.Parameter(torch.zeros(shape, dtype=dtype,
                                             device=device),
@@ -375,20 +374,12 @@ def _moe_gspmd(moe: MoE, cfg, x: torch.Tensor):
 
 def _local_experts(moe: MoE, name: str, mesh, e0: int, e_loc: int):
     """This rank's ``[E / ep, ...]`` experts of the stack ``name``: a held
-    block with its ``"data"`` shard gathered, or the slice of a whole
-    stack."""
+    block with its ``"data"`` shard gathered (``core.tp.gather_held``, as
+    every FSDP-held weight), or the slice of a whole stack."""
     w = getattr(moe, name)
     if name not in moe.held:
         return w[e0:e0 + e_loc]
-    spec = rules.param_spec(name, moe.held[name].block.shape, mesh)
-    if spec[1] is None:
-        return w
-    axes = (spec[1],) if isinstance(spec[1], str) else tuple(spec[1])
-    group = mesh_lib.axes_group(mesh, axes)
-    if group is None:
-        return w
-    idx, n = mesh_lib.axis_index(mesh, axes)
-    return gather_dim(w, group, 1, idx, n)
+    return gather_held(w, moe.held[name])
 
 
 def _moe_experts(moe: MoE, cfg, xf: torch.Tensor, mesh, token_for_slot,

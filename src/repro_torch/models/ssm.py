@@ -105,9 +105,14 @@ class Mamba2(nn.Module):
             return nn.Parameter(torch.zeros(shape, dtype=dt, device=device),
                                 requires_grad=False)
 
+        def fsdp(name, shape):
+            """A projection's block: the rank's heads' (``blocks``), or
+            the rule's ``"data"`` part where the heads run whole."""
+            return {"w": blocks[name] if blocks else rules.hold(
+                name, shape, mesh, model=False)}
+
         self.in_proj = Dense(d, in_dim, dtype=dtype, device=device,
-                             held={"w": blocks["in_proj.w"]}
-                             if blocks else None)
+                             held=fsdp("in_proj.w", (d, in_dim)))
         self.conv_w = param("conv_w", (s.d_conv, conv_dim), dtype)
         self.conv_b = param("conv_b", (conv_dim,), dtype)
         self.dt_bias = param("dt_bias", (nh,), torch.float32)
@@ -117,8 +122,7 @@ class Mamba2(nn.Module):
         if blocks:
             self.norm.held = {"scale": blocks["norm.scale"]}
         self.out_proj = Dense(di, d, dtype=dtype, device=device,
-                              held={"w": blocks["out_proj.w"]}
-                              if blocks else None)
+                              held=fsdp("out_proj.w", (di, d)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """``ssm_init``: ``conv_w`` from the generator over

@@ -260,6 +260,13 @@ class Engine:
     vocabulary's ranks, and runs its programs under that mesh
     (``sharding.activation_mesh(batch_split=False)``: every rank holds
     the whole batch), so its MoE layers compute their held experts.
+    Such an LM's weights split over ``"data"`` (FSDP, as a trainer holds
+    them) are gathered once when the engine is built
+    (``LM.gather_data``), in place: the engine serves from weights whole
+    over ``"data"``, as the reference's engine receives its parameters
+    (it takes no parameter specs), so no prefill or decode step gathers,
+    and a captured step holds no gather.  The LM is then a served model,
+    not trained after it.
 
     The engine prices its ladder and its admissions with the cost
     calibration active when it is built (``dispatch.cost_coeffs()``),
@@ -303,7 +310,7 @@ class Engine:
                 f"stack with cross-attention layers is not served here; "
                 f"serve it through LM.prefill(enc_frames=) and "
                 f"LM.decode_step")
-        self.lm = lm
+        self.lm = lm.gather_data()
         self.device = dev
         self.batch = batch
         self.max_len = max_len

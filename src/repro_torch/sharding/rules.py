@@ -31,9 +31,12 @@ port tensor lacks the stacking dim; ``_spec`` leaves that leading dim
 None in the reference, so a port spec is the reference leaf's spec
 without it.
 
-``held_spec`` is the ``"model"`` part of a parameter's spec: the block
-a rank of a model-parallel LM holds (``models/``), its ``"data"`` part
-splitting the optimizer state inside it (``train/step.py``).
+``held_spec`` is a parameter's whole spec: the block a rank of an LM
+on a concrete mesh holds (``models/``; FSDP: the ``"data"`` split
+beside the ``"model"`` one), gathered over ``"data"`` where a module
+uses it (``core.tp.gather_held``); its optimizer state is that block
+(``train/step.py``).  A mixer whose heads do not split holds the
+``"data"`` part only (``held_block(model=False)``).
 ``mla_held_blocks`` and ``ssm_held_blocks`` are the blocks of an MLA and
 a Mamba-2 mixer's rank (the latter's in projection and conv a block no
 rule gives: its heads' columns beside those every head reads).
@@ -197,43 +200,101 @@ def param_spec(name: str, shape: Sequence[int], mesh) -> PartitionSpec:
 
 
 def held_spec(name: str, shape: Sequence[int], mesh) -> PartitionSpec:
-    """The block of ``name`` a rank of a model-parallel LM holds: the
-    ``"model"`` part of ``param_spec`` (its other axes, ``"data"``, split
-    the optimizer state only, inside that block)."""
-    return P(*(e if e == "model" else None
-               for e in param_spec(name, shape, mesh)))
+    """The block of ``name`` a rank of an LM on a concrete mesh holds:
+    its whole ``param_spec``, the ``"data"`` split (FSDP) beside the
+    ``"model"`` one."""
+    return param_spec(name, shape, mesh)
 
 
-def held_block(name: str, shape: Sequence[int], mesh):
+def data_split(spec, mesh):
+    """``launch.mesh.DataSplit`` of a parameter held under ``spec``: the
+    dim its ``"data"`` entry splits on a concrete mesh whose ``"data"``
+    axis is past 1; else None."""
+    from repro_torch.launch.mesh import (DataSplit, axes_group, axis_index,
+                                         is_concrete)
+    if not is_concrete(mesh):
+        return None
+    for d, e in enumerate(spec):
+        if e == "data":
+            idx, n = axis_index(mesh, ("data",))
+            return (DataSplit(d, axes_group(mesh, ("data",)), idx, n)
+                    if n > 1 else None)
+    return None
+
+
+def held_block(name: str, shape: Sequence[int], mesh, *,
+               model: bool = True):
     """``launch.mesh.Held`` of a parameter held as its ``held_spec``
-    block, the optimizer state its ``param_spec`` block inside it."""
+    block, the optimizer state that block itself.  ``model=False`` (a
+    mixer whose heads do not split runs whole over ``"model"``): the
+    block is the spec's ``"data"`` part only, the state the spec's whole
+    block inside it."""
     from repro_torch.launch.mesh import Block, Held, block_slices
     spec = param_spec(name, shape, mesh)
-    blk = Block.of(shape, held_spec(name, shape, mesh), mesh)
+    data = data_split(spec, mesh)
+    if model:
+        return Held.whole(Block.of(shape, spec, mesh), data=data)
+    blk = Block.of(shape, P(*(None if e == "model" else e for e in spec)),
+                   mesh)
     local = block_slices(blk.block_shape,
-                         P(*(None if e == "model" else e for e in spec)),
+                         P(*(e if e == "model" else None for e in spec)),
                          mesh)
-    return Held(blk, Block.of(shape, spec, mesh), local)
+    return Held(blk, Block.of(shape, spec, mesh), local, data=data)
 
 
-def mla_held_blocks(cfg, mesh) -> Dict[str, dict]:
-    """The blocks an MLA mixer's rank holds where the ``"model"`` axis's
-    m ranks divide its heads (the rules' ``"model"`` parts, by module
-    name): its heads' columns of the query's ``q.b.w`` (or ``q.w.w``)
-    and of ``kv_b.w``, its heads' rows of ``wo.w``.  Heads are
-    contiguous column (row) ranges of each, so a rule's block holds
-    whole heads."""
+def hold(name: str, shape: Sequence[int], mesh, *, model: bool):
+    """``held_block`` of a module's parameter, or None where the rank
+    holds it whole: ``model`` (the module splits over ``"model"``)
+    always holds a block; otherwise only a ``"data"`` split does."""
+    if model:
+        return held_block(name, shape, mesh)
+    h = held_block(name, shape, mesh, model=False)
+    return h if h.data is not None else None
+
+
+def with_data(name: str, held, mesh, *, first: bool = True):
+    """``held`` (a block of the port's own over ``"model"``, whole on
+    its other dims: KV heads several ranks read) narrowed to the rule's
+    ``"data"`` split as well; its owner then the ``first`` of the ranks
+    holding the same rows (index 0 along the axes neither splits)."""
+    from repro_torch.launch.mesh import Block, Held, block_slices, owns_block
+    blk = held.block
+    spec = param_spec(name, blk.shape, mesh)
+    data = data_split(spec, mesh)
+    if data is None:
+        return held
+    index = list(blk.index)
+    index[data.dim] = block_slices(blk.shape, spec, mesh)[data.dim]
+    owner = first and owns_block(mesh, P("data", "model"))
+    return Held.whole(Block(blk.shape, tuple(index), owner,
+                            tuple(blk.axes) + ("data",), blk.write),
+                      partial=held.partial, data=data)
+
+
+def mla_held_blocks(cfg, mesh, *, model: bool = True) -> Dict[str, dict]:
+    """The blocks an MLA mixer's rank holds (by module name; ``hold``'s:
+    a None entry is held whole).  ``model`` (the ``"model"`` axis's m
+    ranks divide its heads): the rules' ``"model"`` parts, its heads'
+    columns of the query's ``q.b.w`` (or ``q.w.w``) and of ``kv_b.w``,
+    its heads' rows of ``wo.w`` -- heads are contiguous column (row)
+    ranges of each, so a rule's block holds whole heads.  Beside them,
+    and on their own where the heads do not split, the rules' ``"data"``
+    parts (FSDP), ``q.a.w`` and ``kv_a.w`` among them."""
     d, h = cfg.d_model, cfg.num_heads
     qd = h * (cfg.qk_nope_dim + cfg.qk_rope_dim)
-    held = {"kv_b": {"w": held_block(
-        "kv_b.w", (cfg.kv_lora_rank, h * (cfg.qk_nope_dim
-                                          + cfg.v_head_dim)), mesh)},
-        "wo": {"w": held_block("wo.w", (h * cfg.v_head_dim, d), mesh)}}
+    r = cfg.kv_lora_rank
+
+    def blk(name, shape, split=model):
+        return {"w": hold(name, shape, mesh, model=split)}
+    held = {"kv_a": blk("kv_a.w", (d, r + cfg.qk_rope_dim), False),
+            "kv_b": blk("kv_b.w", (r, h * (cfg.qk_nope_dim
+                                           + cfg.v_head_dim))),
+            "wo": blk("wo.w", (h * cfg.v_head_dim, d))}
     if cfg.q_lora_rank:
-        held["q.b"] = {"w": held_block("q.b.w", (cfg.q_lora_rank, qd),
-                                       mesh)}
+        held["q.a"] = blk("q.a.w", (d, cfg.q_lora_rank), False)
+        held["q.b"] = blk("q.b.w", (cfg.q_lora_rank, qd))
     else:
-        held["q.w"] = {"w": held_block("q.w.w", (d, qd), mesh)}
+        held["q.w"] = blk("q.w.w", (d, qd))
     return held
 
 
@@ -256,9 +317,8 @@ def ssm_held_blocks(cfg, mesh, h0: int, hl: int) -> Dict[str, object]:
     * ``dt_bias``, ``A_log``, ``D`` and the gated norm's ``norm.scale``:
       its heads (its heads' ``d_inner`` channels).
 
-    The optimizer state of each block but ``out_proj``'s is the whole
-    block (the rule splits ``in_proj``'s rows over ``"data"``; its state
-    here stays whole over it)."""
+    The optimizer state of each block is the whole block; ``in_proj``'s
+    rows are split over ``"data"`` as its rule splits them (FSDP)."""
     import numpy as np
 
     from repro_torch.launch.mesh import Block, Held, axis_index, owns_block
@@ -267,26 +327,37 @@ def ssm_held_blocks(cfg, mesh, h0: int, hl: int) -> Dict[str, object]:
     di, nh, p = s.d_inner(d), s.num_heads(d), s.head_dim
     gn = s.n_groups * s.d_state
     in_dim, conv_dim = 2 * di + 2 * gn + nh, di + 2 * gn
-    owner = owns_block(mesh, P("model"))
+    data = data_split(param_spec("in_proj.w", (d, in_dim), mesh), mesh)
     first = axis_index(mesh, ("model",))[0] == 0
     z = np.arange(h0 * p, (h0 + hl) * p, dtype=np.int64)
     own_in = np.concatenate([z, di + z])
     cols = np.concatenate([own_in, np.arange(2 * di, in_dim)])
     chans = np.concatenate([z, np.arange(di, conv_dim)])
 
-    def shared(shape, idx, own):
-        """A block of ``idx`` on the last dim, of which this rank writes
+    def shared(shape, idx, own, rows=None):
+        """A block of ``idx`` on the last dim (and of ``rows``, the
+        ``"data"`` split's, on the first), of which this rank writes
         back ``own`` (its first ``len(own)`` entries) unless it is the
         ``"model"`` axis's first rank (which writes all of it)."""
         lead = (slice(None),) * (len(shape) - 1)
+        at = lead if rows is None else (rows,)
         write = None if first else (
-            lead + (own,), lead + (np.arange(len(own), dtype=np.int64),))
-        return Held.whole(Block(tuple(shape), lead + (idx,), owner,
-                                ("model",), write), partial=True)
+            at + (own,), lead + (np.arange(len(own), dtype=np.int64),))
+        # the rank of its rows (index 0 along the axes the block does not
+        # split) writes it back
+        owner = owns_block(mesh, P("model") if rows is None else
+                           P("data", "model"))
+        return Held.whole(Block(tuple(shape), at + (idx,), owner,
+                                ("model",) if rows is None else
+                                ("model", "data"), write),
+                          partial=True, data=None if rows is None else data)
+
+    rows = None if data is None else Block.of(
+        (d, in_dim), P("data", None), mesh).index[0]
 
     def heads(n):
         return Held.whole(Block.of((n,), P("model"), mesh))
-    return {"in_proj.w": shared((d, in_dim), cols, own_in),
+    return {"in_proj.w": shared((d, in_dim), cols, own_in, rows),
             "conv_w": shared((s.d_conv, conv_dim), chans, z),
             "conv_b": shared((conv_dim,), chans, z),
             "dt_bias": heads(nh), "A_log": heads(nh), "D": heads(nh),

@@ -41,7 +41,8 @@ nothing falls back to eager on a card.
 
 A state sharded over a mesh (``init_train_state(mesh=)``) is captured
 with its collectives when the mesh's backend is NCCL, whose collectives
-a CUDA graph records; over gloo (which stages card tensors through the
+a CUDA graph records (FSDP's all-gathers and reduce-scatters among
+them); over gloo (which stages card tensors through the
 host) a graph is refused, ``graph=None`` on a card included: pass
 ``graph=False``, as ``Engine(mesh=)`` asks.
 """

@@ -40,24 +40,26 @@ Every rank runs the same program on its shard of the batch
 * the clip's norm is the whole reduced gradient's: the blocks' squares
   summed over the mesh, each block counted once (by one of its
   replicas);
-* AdamW updates the blocks, and the parameters are gathered back whole
-  on every rank (an all-reduce of zeros beside each block's one writer:
-  one collective for every backend, gloo included, which reduces card
-  tensors but does not gather them).
+* AdamW updates the blocks; a parameter held whole (a norm, a bias,
+  the router: no rule splits it; every parameter of an LM built without
+  the mesh) is gathered back whole on every rank (an all-reduce of
+  zeros beside its one writer, in buckets).
 
 A parameter a rank holds as its block (``LM.held_blocks``) is updated
-in place, its state a block inside it.  An expert-parallel MoE's stack
-is its rule's block: its gradient arrives already summed over the batch
-axes its spec splits (the forward's gather reduce-scatters it), and is
-all-reduced over the others.  A model-parallel LM's blocks (the
-``"model"`` part of the rule: heads, d_ff, vocabulary rows; a sparse
-FFN's k-shard) are whole over the batch axes: the gradient is
-all-reduced over them, the state is the rule's ``"data"`` block inside
-(a k-shard's and shared KV heads' state is the whole held block), and
-the updated block is gathered over ``"data"``.  A partial gradient (KV
-heads several ranks' query heads read, ``q_norm`` / ``k_norm`` inside
-split heads, the columns and conv channels of a Mamba-2 in projection
-every head reads) is summed over every rank that holds it.
+in place, its state that block.  Every weight is held as its rule's
+whole block (FSDP: the ``"data"`` split beside the ``"model"`` one),
+gathered over ``"data"`` inside the forward, so its gradient arrives
+already summed over ``"data"`` (the gather's backward reduce-scatters
+it) and is all-reduced over the batch axes its block does not split
+(``"pod"``); each rank writes its own block.  A model-parallel LM's own
+blocks (a sparse FFN's k-shard, whole over ``"data"``) are all-reduced
+over the batch axes.  A mixer whose heads do not split over ``"model"``
+holds its weights' ``"data"`` blocks only: their state is the rule's
+block inside, and the updated block is gathered over ``"model"``.  A
+partial gradient (KV heads several ranks' query heads read, ``q_norm``
+/ ``k_norm`` inside split heads, the columns and conv channels of a
+Mamba-2 in projection every head reads) is summed over every rank that
+holds it.
 """
 from __future__ import annotations
 
@@ -135,12 +137,21 @@ class ShardLayout:
                 a for a in self.batch_axes if a not in held[n].block.axes])
             for n in self.held}
         # the axes a held block's state splits it over: gathered back
-        # into the block after the update
-        self.state_groups = {
-            n: mesh_lib.axes_group(mesh, [
-                a for a in held[n].state.axes
-                if a not in held[n].block.axes])
-            for n in self.held}
+        # into the block after the update (on the one dim ``local``
+        # cuts: ``(dim, index, parts)``)
+        self.state_groups, self.state_split = {}, {}
+        for n in self.held:
+            axes = [a for a in held[n].state.axes
+                    if a not in held[n].block.axes]
+            self.state_groups[n] = mesh_lib.axes_group(mesh, axes)
+            if self.state_groups[n] is not None:
+                dims = [d for d, s in enumerate(held[n].local)
+                        if s != slice(None)]
+                if len(dims) != 1:
+                    raise ValueError(f"{n}: its state splits its block on "
+                                     f"{len(dims)} dims, not one")
+                self.state_split[n] = (dims[0],) + mesh_lib.axis_index(
+                    mesh, axes)
         self.owner = {n: h.state.owner for n, h in self.place.items()}
         self.comm_ms: Optional[Dict[str, List[float]]] = None
 
@@ -267,17 +278,18 @@ class ShardLayout:
     @torch.no_grad()
     def write_params(self, master: Tensors, params: Tensors) -> None:
         """Every parameter from the ranks' fp32 master blocks: a held
-        block from this rank's own (its state's split inside it gathered
-        over the axes that split it), the rest gathered whole."""
+        block from this rank's own (where its state splits it, gathered
+        over the axes that split it: ``core.tp.all_gather_dim``), the
+        rest gathered whole."""
+        from repro_torch.core.tp import all_gather_dim
         for n in [n for n in params if n in self.held]:   # rank order
             group = self.state_groups[n]
             if group is None:
                 params[n].copy_(master[n])
                 continue
-            buf = torch.zeros_like(params[n])
-            buf[self.place[n].local] = master[n].to(buf.dtype)
-            self._all_reduce(buf, group)
-            params[n].copy_(buf)
+            dim, idx, parts = self.state_split[n]
+            params[n].copy_(all_gather_dim(master[n].to(params[n].dtype),
+                                           group, dim, idx, parts))
         rest = [n for n in params if n not in self.held]
         if not rest:
             return

@@ -3906,3 +3906,111 @@ def test_mixers_nccl_deepseek_train_captured_equals_eager(dev, tmp_path):
               f"{o[False]['held_gib']:.2f} GiB")
     assert outs[0][True]["stats"]["captures"] == 1
     print(f"[mixers-nccl] cards {_card_lines()}")
+
+
+# -- FSDP over NCCL: every weight held as its rule's block over "data" --------
+
+def _fsdp_run(cfg, mesh, batch, seq, graphs, steps):
+    """``train_loop`` on ``mesh``: losses, step ms and graph stats (rank
+    0), peak GiB, the parameters this rank holds in GiB and as a share
+    of the whole LM's (FSDP: each weight its rule's block)."""
+    import math
+
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train.step import TrainHParams
+    stats, step_ms = {}, []
+
+    def on_step(s, m, p):
+        stats.update(p.program.stats())
+        step_ms.append(m["step_s"] * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    state, losses = train_loop(
+        cfg, steps=steps, batch_per_shard=batch, seq=seq,
+        hp=TrainHParams(**SHARD_HP), device="cuda", log_every=10 ** 9,
+        graphs=graphs, mesh=mesh, on_step=on_step)
+    lay = state.layout
+    held = sum(p.numel() * p.element_size() for p in state.params.values())
+    whole = sum(math.prod(lay.shapes[n]) * p.element_size()
+                for n, p in state.params.items())
+    out = dict(losses=losses, step_ms=step_ms, stats=stats,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               params_gib=held / 2 ** 30, params_share=held / whole,
+               data_split=sum(h.data is not None
+                              for h in lay.place.values()))
+    del state, lay
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fsdp_glm4_case(rank, world, out_dir):
+    """(e) glm4-9b at full width and depth (bf16) on (4, 1), every weight
+    held as its rule's block (FSDP), 1 x 512 tokens a rank: 3 eager
+    steps (the FSDP gathers and reduce-scatters timed: ``core.tp.
+    COMM_MS``), 3 captured steps; then (1, 4) on the same global batch
+    (4 x 512), one eager step."""
+    from repro_torch import configs
+    from repro_torch.core import tp
+    from repro_torch.launch.mesh import make_device_mesh
+    cfg = configs.get("glm4-9b")
+    m41 = make_device_mesh("cuda", (4, 1), ("data", "model"))
+    tp.COMM_MS = {}
+    try:
+        eager = _fsdp_run(cfg, m41, 1, 512, False, steps=3)
+    finally:
+        comm, tp.COMM_MS = tp.COMM_MS, None
+    eager["fsdp_ms"] = {k: sum(v) / 3 for k, v in comm.items()}
+    eager["fsdp_calls"] = {k: len(v) / 3 for k, v in comm.items()}
+    graph = _fsdp_run(cfg, m41, 1, 512, True, steps=3)
+    m14 = make_device_mesh("cuda", (1, 4), ("data", "model"))
+    mp = _fsdp_run(cfg, m14, 4, 512, False, steps=1)
+    return {"eager": eager, "graph": graph, "mp": mp}
+
+
+_SHARD_CASES.update(fsdp_glm4=_fsdp_glm4_case)
+
+
+@pytest.mark.cuda
+def test_fsdp_nccl_glm4_full_depth_four_by_one(dev, tmp_path):
+    """(e) glm4-9b at full width and depth (40 layers, 9.4 B parameters,
+    bf16) trained on (4, 1) over NCCL with every weight held as its
+    rule's block over ``"data"`` (FSDP; ``all_gather_into_tensor`` in
+    the forward, ``reduce_scatter_tensor`` in the backward): 3 steps
+    captured as one CUDA graph bit-equal to 3 eager steps, the
+    parameters a rank within 5 % of a quarter of one process's, the
+    first loss within bf16 2e-2 of the (1, 4) model-parallel run's on
+    the same global batch, every rank under 80 GiB.  Prints step ms, the
+    gathers' and reduce-scatters' ms a step (eager, synchronised), peak
+    and held GiB a rank.  Needs four cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    _free_card()
+    outs = _spawn_nccl(tmp_path, 4, "fsdp_glm4", timeout=1200)
+    for r, o in enumerate(outs):
+        eager, graph, mp = o["eager"], o["graph"], o["mp"]
+        assert all(np.isfinite(eager["losses"])), (r, eager["losses"])
+        assert graph["losses"] == eager["losses"], r
+        assert eager["data_split"] > 0 and mp["data_split"] == 0, r
+        assert abs(eager["params_share"] - 0.25) <= 0.05 * 0.25, \
+            (r, eager["params_share"])
+        assert abs(eager["losses"][0] - mp["losses"][0]) <= \
+            2e-2 * abs(mp["losses"][0]), (r, eager["losses"], mp["losses"])
+        for run in (eager, graph, mp):
+            assert run["peak_gib"] < 80, (r, run["peak_gib"])
+        print(f"[fsdp-nccl] glm4-9b (4, 1) rank {r}: losses "
+              f"{eager['losses']} (captured bit-equal); (1, 4) first loss "
+              f"{mp['losses'][0]}; eager step ms "
+              f"{[round(v, 1) for v in eager['step_ms']]} (gathers "
+              f"synchronised), FSDP ms a step "
+              f"{ {k: round(v, 1) for k, v in eager['fsdp_ms'].items()} } "
+              f"({ {k: round(v) for k, v in eager['fsdp_calls'].items()} } "
+              f"calls); captured step ms "
+              f"{[round(v, 1) for v in graph['step_ms']]}; parameters "
+              f"{eager['params_gib']:.2f} GiB a rank = "
+              f"{eager['params_share']:.4f} of one process's ((1, 4): "
+              f"{mp['params_gib']:.2f}); peak eager "
+              f"{eager['peak_gib']:.2f}, captured {graph['peak_gib']:.2f}, "
+              f"(1, 4) {mp['peak_gib']:.2f} GiB")
+    assert outs[0]["graph"]["stats"]["captures"] == 1
+    print(f"[fsdp-nccl] cards {_card_lines()}")

@@ -318,17 +318,18 @@ def test_gspmd_route_matches_reference_on_global_batch(tmp_path, shape,
 def test_gspmd_route_with_shared_experts_on_two_by_two(tmp_path):
     """deepseek-v2-lite's smoke config (4 experts top-2, one shared
     expert of d_ff 64) on (2, 2): each rank holds 2 experts (half of D)
-    and half the shared expert's d_ff (up / gate columns, down rows);
-    its rows, the metrics and every gradient against the reference's
-    ``_moe_gspmd`` on the global batch, the shared blocks' gradients
-    summed over the data ranks."""
+    and half the shared expert's d_ff (up / gate columns, down rows),
+    and half its D (FSDP: the rule's ``"data"`` split); its rows, the
+    metrics and every gradient against the reference's ``_moe_gspmd``
+    on the global batch, each shared block's gradient already summed
+    over the data ranks (the gather's reduce-scatter)."""
     params, x, cot = _inputs(DEEPSEEK)
     outs = _spawn(tmp_path, 4, {"mesh": (2, 2), "params": params, "x": x,
                                 "cot": cot, "arch": DEEPSEEK}, "layer")
     f = _cfg(arch=DEEPSEEK).moe.d_ff_shared
     for ranking in RANKINGS:
         want = _jax_gspmd(ranking, params, x, cot, DEEPSEEK)
-        sums = {}
+        seen = set()
         for o in outs:
             g, rows = o[ranking], o["rows"]
             assert _rel(g["y"], want["y"][rows]) <= FWD_TOL, ranking
@@ -341,13 +342,12 @@ def test_gspmd_route_with_shared_experts_on_two_by_two(tmp_path):
                 assert _rel(grad, want["grads"][name][sl]) <= GRAD_TOL
             for n, (grad, sl) in g["shared"].items():
                 assert f // 2 in tuple(grad.shape), (n, tuple(grad.shape))
-                key = (o["model"], n)
-                sums[key] = (sums[key][0] + grad, sl) if key in sums \
-                    else (grad, sl)
-        assert len(sums) == 6
-        for (_, n), (grad, sl) in sums.items():
-            assert _rel(grad, want["grads"]["shared"][n]["w"][sl]) \
-                <= GRAD_TOL, (ranking, n)
+                assert grad.numel() * 4 == want["grads"]["shared"][n][
+                    "w"].size, (n, tuple(grad.shape))
+                assert _rel(grad, want["grads"]["shared"][n]["w"][sl]) \
+                    <= GRAD_TOL, (ranking, n)
+                seen.add((o["model"], o["data"], n))
+        assert len(seen) == 12
 
 
 def test_gspmd_train_on_two_by_two_matches_one_process(tmp_path):

@@ -21,7 +21,9 @@ steps and the fp32 masters after them, against the JAX package's eager
 ``make_train_step`` on one device, and against the one-process port.
 Greedy engine tokens over gloo equal the JAX engine's.  Held blocks: a
 seeded init's blocks equal the one-process init's slices bit for bit,
-and each is whole / m in bytes but for the KV heads several ranks read.
+and each is whole / m in bytes but for the KV heads several ranks read
+(on (2, 2) a weight the rules split over ``"data"``, FSDP, holds half
+of that).
 Checkpoints re-shard (1, 4) -> (2, 2) -> one process within the budget
 of the unbroken run.
 """
@@ -285,13 +287,17 @@ def _close_metrics(got, want, what):
                 (what, s, k, g[k], w[k])
 
 
-def _expected_bytes(arch, name, m):
+def _expected_bytes(arch, name, m, dp, shape):
     """The held block's share of the whole: 1 / m, but for the KV heads
     two ranks read at m = 4 (glm4's and llama's 2 KV heads: 1 / 2) and
-    the norms inside the split heads (whole)."""
-    if m == 4 and any(k in name for k in ("attn.wk.", "attn.wv.")):
-        return 1 / 2
-    return 1 / m
+    the norms inside the split heads (whole); a weight whose rule splits
+    it over ``"data"`` (FSDP) holds 1 / dp of that besides."""
+    from repro_torch.sharding import rules
+    share = 1 / 2 if m == 4 and any(
+        k in name for k in ("attn.wk.", "attn.wv.")) else 1 / m
+    spec = rules.param_spec(name, shape, tmesh.AbstractMesh(
+        (dp, m), ("data", "model")))
+    return share / dp if "data" in spec else share
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=["1x2", "1x4", "2x2"])
@@ -335,7 +341,8 @@ def test_model_parallel_matches_jax_and_one_process(tmp_path, arch, shape):
                 assert 0 < share < 1, (r, n)
             else:
                 assert share == pytest.approx(_expected_bytes(
-                    arch, n, m)), (r, n, share)
+                    arch, n, m, shape[0], tuple(whole.shape))), \
+                    (r, n, share)
         if m == 4:
             assert any(partial for _, partial in held.values()), r
         assert split

@@ -10,7 +10,8 @@ cross attention and the encoder's bidirectional attention
 ``file://`` init under ``tmp_path``, joined with a timeout; the ranks
 import no JAX, the parent hands them the JAX weights as numpy):
 
-* each rank holds 1 / m of every split tensor in bytes (a Mamba-2 in
+* each rank holds 1 / m of every split tensor in bytes (on (2, 2) a
+  weight the rules split over ``"data"`` half of that: FSDP; a Mamba-2 in
   projection and conv: its heads' ``z`` / ``x`` columns beside every
   ``B`` / ``C`` / ``dt`` column; jamba's 2 KV heads at m = 4: 1 / 2),
   a seeded init's blocks equal to the one-process init's bit for bit;
@@ -401,25 +402,34 @@ def _loaded_whole(ref):
     return LM(ref["cfg"], device="meta").jax_leaves(ref["params"])
 
 
-def _expected_share(cfg, name, m, dp):
+def _expected_share(cfg, name, m, dp, shape):
     """A held block's bytes over its whole tensor's: 1 / m, but for a
     Mamba-2 in projection and conv (the rank's ``z`` / ``x`` beside
-    every ``B`` / ``C`` / ``dt``), KV heads several ranks read (jamba's
-    2 at m = 4), and the expert stacks (their ``"data"`` half of D on
-    (2, 2) besides)."""
+    every ``B`` / ``C`` / ``dt``) and KV heads several ranks read
+    (jamba's 2 at m = 4); a weight whose rule splits it over ``"data"``
+    (FSDP: the expert stacks' D among them) holds 1 / dp of that
+    besides."""
+    from repro_torch.sharding import rules
+    spec = rules.param_spec(name, shape, tmesh.AbstractMesh(
+        (dp, m), ("data", "model")))
+    fsdp = 1 / dp if "data" in spec else 1.0
+    if "data" in spec and "model" not in spec and not name.endswith(
+            "mixer.in_proj.w"):
+        return fsdp         # whole over "model" (MLA's q.a and kv_a)
     if name.endswith(("mixer.in_proj.w", "mixer.conv_w", "mixer.conv_b")):
         s = cfg.ssm
         di, gn, nh = s.d_inner(cfg.d_model), s.n_groups * s.d_state, \
             s.num_heads(cfg.d_model)
         if name.endswith("in_proj.w"):
-            return (2 * di // m + 2 * gn + nh) / (2 * di + 2 * gn + nh)
+            return fsdp * (2 * di // m + 2 * gn + nh) / (2 * di + 2 * gn
+                                                         + nh)
         return (di // m + 2 * gn) / (di + 2 * gn)
     if any(k in name for k in ("attn.wk.", "attn.wv.")) \
             and cfg.num_kv_heads < m:
-        return 1 / cfg.num_kv_heads
+        return fsdp / cfg.num_kv_heads
     if name.endswith(("ffn.w_gate", "ffn.w_up", "ffn.w_down")):
         return 1 / (m * dp)
-    return 1 / m
+    return fsdp / m
 
 
 # the parameters of the mixers this slice splits, by arch
@@ -496,7 +506,8 @@ def check_split(tmp_path, arch, shape):
                 assert share == 1.0, (r, n)
             else:
                 assert share == pytest.approx(
-                    _expected_share(cfg, n, m, dp)), (r, n, share)
+                    _expected_share(cfg, n, m, dp, tuple(whole.shape))), \
+                    (r, n, share)
         _check_rank(ref, o, r)
         if arch == "mamba2":
             # a gated norm normalising its rank's channels alone
@@ -597,9 +608,9 @@ def test_loss_chunk_keeps_its_logits_under_the_byte_cap(monkeypatch):
         calls = []
         chunk_nll = lm._chunk_nll
 
-        def counted(hx, tx, chunk_nll=chunk_nll, calls=calls):
+        def counted(hx, tx, table, chunk_nll=chunk_nll, calls=calls):
             calls.append(hx.shape[1])
-            return chunk_nll(hx, tx)
+            return chunk_nll(hx, tx, table)
         lm._chunk_nll = counted
         loss, _ = lm.loss(batch["tokens"], batch["targets"],
                           enc_frames=batch["enc_frames"])
